@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's zero-shot serving path once on one CUDA GPU.
+"""Drive the PyTorch port's zero-shot serving path and its phase-A train
+step once on one CUDA GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -7,10 +8,13 @@ Phases (any failure exits non-zero and prints no result line):
 
 0. Card: name and power limit from nvidia-smi. Without CUDA, exit at once.
 1. Build: compile the port's kernels (clip_for_dl_tpu_torch/csrc/*.cu) with
-   nvcc for sm_90a; print the build time and ptxas' per-kernel summary.
-2. Kernels: each of B1-B4 against its plain PyTorch version on the card at
-   the main path's shapes; max abs/rel difference against the tolerance
-   below, and both times from CUDA events after warm-up.
+   nvcc for sm_90a, one nvcc per source, all at once; print the build time
+   and ptxas' per-kernel summary.
+2. Kernels: each of B1-B4, B6 and B8 against its plain PyTorch version on
+   the card at the main paths' shapes (B3 also with dropout 0.1 at the train
+   shape, its dropout mask compared bit for bit; B6 at rates 0 and 0.1); max
+   abs/rel difference against the tolerance below, and both times from CUDA
+   events after warm-up.
 3. Slice: the full-width CXRClip (ResNet-50, BERT-base at vocab 28996,
    512-d heads; random weights from --seed) in bf16 with flash attention and
    the fused BERT MLP, wrapped in ZeroShotEngine: prompt bank ("prediction"
@@ -21,6 +25,17 @@ Phases (any failure exits non-zero and prints no result line):
    kernel launched by the main path, and the engine's probabilities against
    the same model with each kernel replaced by its plain version. Prints
    img/s.
+4. Train: the ``pretrain_clip`` preset at full width (flash attention and the
+   fused MLP on, dropout 0.1) with fp32 master weights and bf16 compute,
+   random weights from --seed, through ``make_clip_pretrain_step``: first one
+   step with dropout 0 against the same step with every kernel (forward and
+   backward) replaced by its plain version, from the same weights (loss and
+   per-group gradient cosine); then TRAIN_STEPS steps on one batch of
+   TRAIN_BATCH 512x512 grey uint8 images and 200-token reports of mixed
+   lengths, each synced and timed, and one eval step. Checks finite, falling
+   losses, every parameter group and the BatchNorm statistics moved, and
+   B2, B3, B4, B6 and B8 launched by the train path. Prints samples/s and
+   the peak device memory.
 
 The second-to-last line is the kernels JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -56,6 +71,21 @@ TOL = {
     # bf16 output |y| ≲ 2: accumulation order may flip the bf16 rounding of
     # the GELU output or of y, each ≤ one bf16 step
     "mlp": 2e-2,
+    # B6 and B8, relative to each output's largest entry: two bf16 steps
+    # (2^-6); the kernels round the same intermediates (pd, ds; g, dh) to
+    # bf16 as the plain versions, and summation order can flip one rounding
+    # of an intermediate and one of the output
+    "bwd_rel": 2.0 ** -6,
+    # phase 4, kernels vs plain versions from the same weights and inputs,
+    # dropout 0: the cosine of each parameter group's gradient with the
+    # plain one, for the backward of one fixed random cotangent on both
+    # towers' features and for one whole step (the kernels round the same
+    # intermediates as their plain versions; only rounding flips and
+    # summation order differ); and the step's loss (≈ 7 at B = 128) within
+    # 2%: bf16 features carry ~3 significant digits, and the self-distill
+    # loss on raw 512-d features (norm ≈ 22) at T = 2 has logits up to ~20
+    "grad_cos": 0.99,
+    "train_loss_rel": 2e-2,
     # engine probabilities, kernels vs plain versions through the whole bf16
     # model: the kernel differences above move cosines by ~1e-3
     "probs_vs_plain": 5e-3,
@@ -64,18 +94,31 @@ TOL = {
     "service": 1e-6,
 }
 
-KERNELS = {  # name -> (wrapper module, CUDA source, TPU kernel it replaces)
-    "similarity": ("similarity", "clip_for_dl_tpu_torch/csrc/similarity.cu",
+KERNELS = {  # name -> (wrapper module, entry attribute, CUDA source, TPU kernel it replaces)
+    "similarity": ("similarity", "KERNEL", "clip_for_dl_tpu_torch/csrc/similarity.cu",
                    "clip_for_dl_tpu/ops/similarity.py:45"),
-    "image_prep": ("image_prep", "clip_for_dl_tpu_torch/csrc/image_prep.cu",
+    "image_prep": ("image_prep", "KERNEL", "clip_for_dl_tpu_torch/csrc/image_prep.cu",
                    "clip_for_dl_tpu/ops/image_prep.py:185"),
-    "flash_attention": ("flash_attention", "clip_for_dl_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention": ("flash_attention", "KERNEL",
+                        "clip_for_dl_tpu_torch/csrc/flash_attention.cu",
                         "clip_for_dl_tpu/ops/flash_attention.py:309"),
-    "mlp": ("mlp_train", "clip_for_dl_tpu_torch/csrc/mlp_train.cu",
+    "flash_attention_bwd": ("flash_attention", "KERNEL_BWD",
+                            "clip_for_dl_tpu_torch/csrc/flash_attention_bwd.cu",
+                            "clip_for_dl_tpu/ops/flash_attention.py:375"),
+    "mlp": ("mlp_train", "KERNEL", "clip_for_dl_tpu_torch/csrc/mlp_train.cu",
             "clip_for_dl_tpu/ops/mlp_train.py:99"),
+    "mlp_bwd": ("mlp_train", "KERNEL_BWD", "clip_for_dl_tpu_torch/csrc/mlp_train_bwd.cu",
+                "clip_for_dl_tpu/ops/mlp_train.py:112"),
+}
+PATHS = {  # main path -> the kernels it must launch
+    "serve": ("similarity", "image_prep", "flash_attention", "mlp"),
+    "train": ("image_prep", "flash_attention", "flash_attention_bwd", "mlp", "mlp_bwd"),
 }
 BATCH = 256  # images per zero-shot batch (512x512 grey uint8)
 N_BATCHES = 6  # batches per streamed run
+TRAIN_BATCH = 128  # image-report pairs per train step
+TRAIN_STEPS = 10  # steps on one fixed batch
+TRAIN_LEN = 200  # report tokens (the preset's max_text_length)
 
 
 class SmokeFailure(RuntimeError):
@@ -207,15 +250,113 @@ def phase2(mods, dev, seed: int, batch: int, results: dict) -> None:
         print(f"  {name}: kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms")
 
 
-def plain_kernels(mods):
-    """Test-only substitution: every kernel entry replaced by its plain
-    version, as phase 2 calls it (the wrappers' own dispatch is untouched)."""
+def dropout_probe(B: int, N: int, H: int, D: int, dev):
+    """Attention inputs whose outputs show the dropout mask: q = k = 0, so
+    every kept probability of a row is the same nonzero constant; batch row b
+    attends only to the keys of window w = b mod ceil(N / D), [wD, wD + D),
+    where v_j is one-hot at dim j - wD; and d(out) is one-hot at dim i - w'D
+    for the query rows of window w' = (b // ceil(N / D)) mod ceil(N / D), zero
+    elsewhere. Then out[b, i, h, j - wD] and dv[b, j, h, i - w'D] are nonzero
+    exactly where (i, j) is kept, so a zero pattern compared between the
+    kernel and the plain version compares the masks bit for bit."""
+    import torch
+
+    nwin = -(-N // D)
+    pos = torch.arange(N, device=dev)
+    win = torch.arange(B, device=dev) % nwin
+    in_key = (pos[None] // D) == win[:, None]  # [B, N]
+    in_row = (pos[None] // D) == ((torch.arange(B, device=dev) // nwin) % nwin)[:, None]
+    onehot = torch.nn.functional.one_hot(pos % D, D).float()  # [N, D]
+    qkv = torch.zeros(B, N, 3, H, D, device=dev)
+    qkv[:, :, 2] = (onehot[None] * in_key[..., None])[:, :, None, :]
+    do = (onehot[None] * in_row[..., None])[:, :, None, :].expand(B, N, H, D)
+    bias = torch.where(in_key, 0.0, -1e10)
+    return (qkv.reshape(B, N, 3 * H * D).bfloat16(), do.reshape(B, N, H * D).bfloat16(),
+            bias)
+
+
+def phase2_train(mods, dev, seed: int, results: dict) -> None:
+    """B3 with dropout, B6 and B8 at the train path's shapes."""
+    import torch
+
+    fa, mlp = mods["flash_attention"], mods["mlp_train"]
+    g = torch.Generator(dev).manual_seed(seed + 1)
+    B, N, H, D = TRAIN_BATCH, TRAIN_LEN, 12, 64
+
+    print(f"B3 attention with dropout 0.1: qkv [{B}, {N}, {3 * H * D}] bf16, padded keys")
+    qkv = torch.randn(B, N, 3 * H * D, device=dev, generator=g).bfloat16()
+    lengths = torch.randint(3, N + 1, (B, 1), device=dev, generator=g)
+    bias = torch.where(torch.arange(N, device=dev)[None] < lengths, 0.0, -1e10)
+    drop = dict(dropout_rate=0.1, dropout_seeds=fa.dropout_seeds(g, B, dev))
+    compare("flash_attention", fa.flash_attention_packed(qkv, H, bias, **drop),
+            fa.flash_attention_packed_reference(qkv, H, bias, **drop),
+            TOL["flash_attention"], results)
+    pq, pdo, pbias = dropout_probe(B, N, H, D, dev)
+    got = fa.flash_attention_packed(pq, H, pbias, **drop)
+    want = fa.flash_attention_packed_reference(pq, H, pbias, **drop)
+    kept = want != 0
+    check(torch.equal(got != 0, kept), "B3 dropout mask differs from the plain version's")
+    probed = int((pbias == 0).sum()) * N * H  # (row, key, head) triples in the windows
+    gdv = fa._kernel_bwd(pq, pdo, H, pbias, **drop).view(B, N, 3, H, D)[:, :, 2]
+    wdv = fa.flash_attention_packed_bwd_reference(pq, pdo, H, pbias, **drop).view(
+        B, N, 3, H, D)[:, :, 2]
+    check(torch.equal(gdv != 0, wdv != 0), "B6 dropout mask differs from the plain version's")
+    print(f"  dropout masks equal bit for bit over {probed} (row, key, head) triples, "
+          f"in B3's output and B6's dv; kept share {float(kept.sum()) / probed:.4f}")
+    ms = cuda_ms(lambda: fa.flash_attention_packed(qkv, H, bias, **drop), iters=10)
+    plain_ms = cuda_ms(lambda: fa.flash_attention_packed_reference(qkv, H, bias, **drop),
+                       iters=10)
+    print(f"  B3 with dropout at the train shape: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms")
+
+    print(f"B6 attention backward: qkv [{B}, {N}, {3 * H * D}], d(out) [{B}, {N}, {H * D}] "
+          "bf16, rates 0 and 0.1")
+    do = torch.randn(B, N, H * D, device=dev, generator=g).bfloat16()
+    for rate in (0.0, 0.1):
+        kw = drop if rate else {}
+        want = fa.flash_attention_packed_bwd_reference(qkv, do, H, bias, **kw)
+        compare("flash_attention_bwd", fa._kernel_bwd(qkv, do, H, bias, **kw), want,
+                TOL["bwd_rel"] * float(want.float().abs().max()), results)
+    results["flash_attention_bwd"]["ms"] = cuda_ms(
+        lambda: fa._kernel_bwd(qkv, do, H, bias, **drop), iters=10)
+    results["flash_attention_bwd"]["plain_ms"] = cuda_ms(
+        lambda: fa.flash_attention_packed_bwd_reference(qkv, do, H, bias, **drop), iters=10)
+
+    R, HID, F = B * N, 768, 3072
+    print(f"B8 MLP backward: x, dy [{R}, {HID}] bf16, W1 [{F}, {HID}], W2 [{HID}, {F}]")
+    x = torch.randn(R, HID, device=dev, generator=g).bfloat16()
+    dy = (torch.randn(R, HID, device=dev, generator=g) * 0.1).bfloat16()
+    w1 = (torch.randn(F, HID, device=dev, generator=g) * 0.02).bfloat16()
+    b1 = (torch.randn(F, device=dev, generator=g) * 0.02).bfloat16()
+    w2 = (torch.randn(HID, F, device=dev, generator=g) * 0.02).bfloat16()
+    got = mlp._kernel_bwd(x, w1, b1, w2, dy)
+    want = mlp.dense_gelu_dense_bwd_reference(x, w1, b1, w2, dy)
+    for name, a_, b_ in zip(("dx", "g", "dh"), got, want):
+        print(f"  {name}:", end="")
+        compare("mlp_bwd", a_, b_, TOL["bwd_rel"] * float(b_.float().abs().max()), results)
+    del got, want
+    results["mlp_bwd"]["ms"] = cuda_ms(lambda: mlp._kernel_bwd(x, w1, b1, w2, dy), iters=5)
+    results["mlp_bwd"]["plain_ms"] = cuda_ms(
+        lambda: mlp.dense_gelu_dense_bwd_reference(x, w1, b1, w2, dy), iters=5)
+    for name in ("flash_attention_bwd", "mlp_bwd"):
+        r = results[name]
+        print(f"  {name}: kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms")
+
+
+def plain_kernels(mods, keep=()):
+    """Test-only substitution: every kernel entry, forward and backward,
+    replaced by its plain version, as phase 2 calls it (the wrappers' own
+    dispatch is untouched); the modules named in ``keep`` keep theirs."""
     stack = ExitStack()
-    for module, plain in ((mods["similarity"], "similarity_reference"),
-                          (mods["image_prep"], "preprocess_reference"),
-                          (mods["flash_attention"], "flash_attention_packed_reference"),
-                          (mods["mlp_train"], "dense_gelu_dense_reference")):
-        stack.enter_context(mock.patch.object(module, "_kernel", getattr(module, plain)))
+    for module, entry, plain in (
+            ("similarity", "_kernel", "similarity_reference"),
+            ("image_prep", "_kernel", "preprocess_reference"),
+            ("flash_attention", "_kernel", "flash_attention_packed_reference"),
+            ("flash_attention", "_kernel_bwd", "flash_attention_packed_bwd_reference"),
+            ("mlp_train", "_kernel", "dense_gelu_dense_reference"),
+            ("mlp_train", "_kernel_bwd", "dense_gelu_dense_bwd_reference")):
+        if module not in keep:
+            stack.enter_context(mock.patch.object(mods[module], entry,
+                                                  getattr(mods[module], plain)))
     return stack
 
 
@@ -311,9 +452,7 @@ def phase3(_build, mods, dev, seed: int, batch: int, n_batches: int, card: str) 
         service_err = max(service_err, float(np.abs(got - want).max()))
     print(f"service vs engine.probs: max_abs {service_err:.3e}  tol {TOL['service']:.1e}")
     check(service_err <= TOL["service"], "service answers differ from engine.probs")
-    for name, (module, _, _) in KERNELS.items():
-        entry = mods[module].KERNEL
-        check(launches.get(entry, 0) > 0, f"kernel {name} ({entry}) never launched")
+    check_launched(mods, launches, "serve")
 
     # -- the same model with every kernel replaced by its plain version -------
     with plain_kernels(mods):
@@ -355,6 +494,207 @@ def phase3(_build, mods, dev, seed: int, batch: int, n_batches: int, card: str) 
     return launches
 
 
+def check_launched(mods, launches: dict, path: str) -> None:
+    for name in PATHS[path]:
+        module, attr, _, _ = KERNELS[name]
+        entry = getattr(mods[module], attr)
+        check(launches.get(entry, 0) > 0, f"kernel {name} ({entry}) never launched by the "
+              f"{path} path")
+
+
+def train_batch(rng, tokenizer, dev) -> dict:
+    """TRAIN_BATCH grey uint8 images and reports of random words from the
+    dev vocabulary, 8 to 260 words long, so that some fill all TRAIN_LEN
+    tokens and the rest are padded."""
+    import torch
+
+    words = sorted(w for w in tokenizer.vocab if w.isalpha())
+    reports = [" ".join(rng.choice(words, n)) for n in rng.integers(8, 260, TRAIN_BATCH)]
+    enc = tokenizer.encode(reports, max_length=TRAIN_LEN)
+    return {"images": torch.from_numpy(grey_images(rng, TRAIN_BATCH)).to(dev),
+            "input_ids": torch.from_numpy(enc["input_ids"]).to(dev),
+            "attention_mask": torch.from_numpy(enc["attention_mask"]).to(dev)}
+
+
+def group_grads(model, label_fn) -> dict:
+    """label -> every gradient of the group (zeros where there is none),
+    flattened into one fp32 vector."""
+    import torch
+
+    parts: dict = {}
+    for name, p in model.named_parameters():
+        g = torch.zeros_like(p) if p.grad is None else p.grad
+        parts.setdefault(label_fn(tuple(name.split("."))), []).append(g.float().flatten())
+    return {k: torch.cat(v) for k, v in parts.items()}
+
+
+def compare_groups(what: str, got: dict, want: dict, groups, tol: float) -> None:
+    import torch
+
+    for label in sorted(want):
+        gk, gp = got[label], want[label]
+        if label not in groups:  # heads the pretrain forward skips
+            check(not gk.any() and not gp.any(), f"{what}: {label} gradients not zero")
+            print(f"  {label}: zero gradients in both ({gk.numel()} parameters)")
+            continue
+        cos = float(torch.nn.functional.cosine_similarity(gk, gp, dim=0))
+        print(f"  {label}: gradient cosine {cos:.6f}  norms {float(gk.norm()):.4e} / "
+              f"{float(gp.norm()):.4e}  tol {tol}")
+        check(cos >= tol, f"{what}: {label} gradient differs from the plain version's")
+
+
+def phase4(_build, mods, dev, seed: int, card: str) -> dict:
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from clip_for_dl_tpu_torch.core.config import DISEASE_LABELS, get_preset
+    from clip_for_dl_tpu_torch.core.device import cast_in_forward
+    from clip_for_dl_tpu_torch.models import CXRClip, init_weights
+    from clip_for_dl_tpu_torch.text import BertTokenizer
+    from clip_for_dl_tpu_torch.text.tokenizer import build_dev_vocab
+    from clip_for_dl_tpu_torch.train import (
+        TrainState, make_clip_eval_step, make_clip_pretrain_step, make_label_fn,
+        make_optimizer,
+    )
+
+    preset = get_preset("pretrain_clip")
+    cfg = dataclasses.replace(preset.model, flash_attention=True, bert_fused_mlp=True)
+    t0 = time.perf_counter()
+    with torch.device(dev):
+        model = CXRClip(cfg)
+    init_weights(model, torch.Generator(dev).manual_seed(seed))
+    cast_in_forward(model, torch.bfloat16)
+    groups = [g.name for g in preset.train.groups]
+    lrs = {**{g.name: g.lr for g in preset.train.groups}, "default": preset.train.lr}
+    label_fn = make_label_fn(groups)
+    batch = train_batch(np.random.default_rng(seed + 2),
+                        BertTokenizer(build_dev_vocab(DISEASE_LABELS)), dev)
+    lengths = batch["attention_mask"].sum(1)
+    print(f"model: {sum(p.numel() for p in model.parameters()) / 1e6:.1f} M fp32 master "
+          f"parameters, bf16 compute, dropout {cfg.dropout}; built in "
+          f"{time.perf_counter() - t0:.1f} s; batch {TRAIN_BATCH} x 512x512 grey uint8, "
+          f"reports of {int(lengths.min())}-{int(lengths.max())} tokens "
+          f"({int((lengths == TRAIN_LEN).sum())} full)")
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def fresh(dropout: float):
+        """The initial weights, a new optimizer and step, the given dropout."""
+        model.load_state_dict(init)
+        for m in model.modules():
+            if isinstance(m, torch.nn.Dropout):
+                m.p = dropout
+        opt = make_optimizer(model, label_fn, weight_decay=preset.train.weight_decay)
+        step = make_clip_pretrain_step(
+            model, opt, label_fn, temperature=cfg.temperature, image_size=cfg.image_size,
+            mean=preset.augment.mean, std=preset.augment.std, compute_dtype=torch.bfloat16,
+            max_grad_norm=preset.train.max_grad_norm)
+        return TrainState(model, opt), step
+
+    # -- kernels vs plain versions from the same weights, dropout 0 ------------
+    # B2's output is shared: phase 2 holds it to its plain version, and at
+    # random init the image tower turns a one-bf16-step change of its input
+    # into another gradient direction; cuDNN runs deterministically here, so
+    # only the kernels B3, B4, B6 and B8 differ between the two runs
+    images = mods["image_prep"].preprocess_images(
+        batch["images"], cfg.image_size, cfg.image_size, preset.augment.mean,
+        preset.augment.std)
+    g = torch.Generator(dev).manual_seed(seed + 3)
+    cot = [torch.randn(TRAIN_BATCH, cfg.shared_embedding_dim, device=dev, generator=g)
+           for _ in range(2)]
+
+    def fixed_cotangent():
+        """Features and the gradient of <features, cot> through both towers."""
+        fresh(0.0)
+        feats = [f.float() for f in model.train()(images, batch["input_ids"],
+                                                   batch["attention_mask"])]
+        sum((f * c).sum() for f, c in zip(feats, cot)).backward()
+        return [f.detach() for f in feats], group_grads(model, label_fn)
+
+    def one_step():
+        state, step = fresh(0.0)
+        loss = float(step(state, batch, lrs)[1]["loss"])
+        return loss, group_grads(model, label_fn)
+
+    cudnn = torch.backends.cudnn
+    flags = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        feats_k, cot_k = fixed_cotangent()
+        loss_k, step_k = one_step()
+        with plain_kernels(mods, keep=("image_prep",)):
+            before = dict(_build.LAUNCHES)
+            feats_p, cot_p = fixed_cotangent()
+            loss_p, step_p = one_step()
+            check(all(v == before.get(k) for k, v in _build.LAUNCHES.items()
+                      if k != mods["image_prep"].KERNEL),
+                  "a kernel other than B2 ran during the plain run")
+    finally:
+        cudnn.deterministic, cudnn.benchmark = flags
+    for name, a_, b_ in zip(("image", "text"), feats_k, feats_p):
+        cos = torch.nn.functional.cosine_similarity(a_, b_, dim=-1)
+        print(f"  {name} features, kernels vs plain: row cosine min {float(cos.min()):.6f}, "
+              f"norm {float(b_.norm(dim=-1).mean()):.2f}")
+    logits_k = feats_k[1] @ feats_k[0].T / cfg.temperature
+    logits_p = feats_p[1] @ feats_p[0].T / cfg.temperature
+    print(f"  loss logits: max |difference| {float((logits_k - logits_p).abs().max()):.3f} "
+          f"at max |logit| {float(logits_p.abs().max()):.1f}")
+    print("backward of one fixed cotangent on both towers' features, dropout 0:")
+    compare_groups("fixed cotangent", cot_k, cot_p, groups, TOL["grad_cos"])
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    print(f"one step, dropout 0: loss {loss_k:.6f} with the kernels, {loss_p:.6f} with the "
+          f"plain versions (rel {loss_err:.2e}, tol {TOL['train_loss_rel']:.0e})")
+    check(loss_err <= TOL["train_loss_rel"], "train loss differs from the plain step's")
+    compare_groups("one step", step_k, step_p, groups, TOL["grad_cos"])
+    del cot_k, cot_p, step_k, step_p
+
+    # -- the main path, counted ------------------------------------------------
+    state, step = fresh(cfg.dropout)
+    eval_step = make_clip_eval_step(
+        model, temperature=cfg.temperature, image_size=cfg.image_size,
+        mean=preset.augment.mean, std=preset.augment.std, compute_dtype=torch.bfloat16)
+    gen = torch.Generator(dev).manual_seed(seed)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launches()
+    losses, times = [], []
+    for i in range(TRAIN_STEPS):
+        t = time.perf_counter()
+        loss = float(step(state, batch, lrs, gen)[1]["loss"])  # syncs the step
+        times.append(time.perf_counter() - t)
+        losses.append(loss)
+        print(f"  step {i}: loss {loss:.6f}  {times[-1] * 1e3:.1f} ms  "
+              f"{TRAIN_BATCH / times[-1]:.1f} samples/s")
+    eval_loss = float(eval_step(state, batch)["loss"])
+    torch.cuda.synchronize(dev)
+    launches = dict(_build.LAUNCHES)
+    steady = times[1:]
+    print(f"train path on {card}: {TRAIN_BATCH * len(steady) / sum(steady):.1f} samples/s "
+          f"over steps 1-{TRAIN_STEPS - 1} ({1e3 * sum(steady) / len(steady):.1f} ms/step; "
+          f"step 0 {times[0] * 1e3:.1f} ms); eval loss {eval_loss:.6f}")
+    print(f"launches on the train path: {launches}")
+    print(f"peak device memory on the train path: "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+
+    check(all(np.isfinite(losses)) and np.isfinite(eval_loss), f"non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    check(state.step == TRAIN_STEPS, f"step counter {state.step}")
+    after = model.state_dict()
+    moved = {}
+    for name, _ in model.named_parameters():
+        label = label_fn(tuple(name.split(".")))
+        moved[label] = moved.get(label, False) or not torch.equal(after[name], init[name])
+    print(f"parameter groups moved: {moved}")
+    check(all(moved.values()), "a parameter group did not move")
+    stats = [k for k in after if k.endswith(("running_mean", "running_var"))]
+    n_moved = sum(not torch.equal(after[k], init[k]) for k in stats)
+    print(f"BatchNorm running statistics moved: {n_moved} of {len(stats)}")
+    check(n_moved == len(stats), "BatchNorm running statistics did not all move")
+    check_launched(mods, launches, "train")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of weights and inputs")
@@ -384,15 +724,18 @@ def main(argv=None) -> int:
 
     results: dict = {}
     phase2(mods, dev, args.seed, BATCH, results)
-    launches = phase3(_build, mods, dev, args.seed, BATCH, N_BATCHES, card)
+    phase2_train(mods, dev, args.seed, results)
+    by_path = {"serve": phase3(_build, mods, dev, args.seed, BATCH, N_BATCHES, card),
+               "train": phase4(_build, mods, dev, args.seed, card)}
 
-    kernels = [
-        {"name": name, "route": "cuda", "source": src, "replaces": tpu,
-         "launches": launches.get(mods[module].KERNEL, 0),
-         "max_abs_err": results[name]["max_abs_err"],
-         "ms": results[name]["ms"], "plain_ms": results[name]["plain_ms"]}
-        for name, (module, src, tpu) in KERNELS.items()
-    ]
+    kernels = []
+    for name, (module, attr, src, tpu) in KERNELS.items():
+        entry = getattr(mods[module], attr)
+        counts = {path: launches.get(entry, 0) for path, launches in by_path.items()}
+        kernels.append({"name": name, "route": "cuda", "source": src, "replaces": tpu,
+                        "launches": sum(counts.values()), "launches_by_path": counts,
+                        "max_abs_err": results[name]["max_abs_err"],
+                        "ms": results[name]["ms"], "plain_ms": results[name]["plain_ms"]})
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,7 @@ from .config import (
     ZeroShotConfig,
     get_preset,
 )
-from .device import cast_matmul_weights, require_cuda
+from .device import cast_in_forward, cast_matmul_weights, require_cuda
 
 __all__ = [
     "CLIP_MEAN",
@@ -19,6 +19,7 @@ __all__ = [
     "ModelConfig",
     "ZeroShotConfig",
     "get_preset",
+    "cast_in_forward",
     "cast_matmul_weights",
     "require_cuda",
 ]

@@ -42,6 +42,25 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
+// Attention-probability dropout bits: the JAX package's counter hash
+// (_uniform01, clip_for_dl_tpu/ops/flash_attention.py:132), a murmur3 fmix32
+// over the absolute (query row, key column) grid, salted per batch row and
+// head. uint32 arithmetic wraps as the JAX int32 ops do, so the bits are
+// equal; the top 24 bits give a uniform [0, 1) that fp32 holds exactly.
+__device__ __forceinline__ uint32_t dropout_salt(int seed, int head) {
+  return static_cast<uint32_t>(seed) + static_cast<uint32_t>(head) * 0xC2B2AE3Du;
+}
+
+__device__ __forceinline__ float uniform01(uint32_t salt, uint32_t row, uint32_t col) {
+  uint32_t x = (row * 0x9E3779B1u) ^ (col * 0x85EBCA77u) ^ salt;
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  x ^= x >> 16;
+  return static_cast<float>(x >> 8) * (1.0f / 16777216.0f);
+}
+
 // Opt a kernel into more than 48 KB of dynamic shared memory.
 template <typename K>
 inline cudaError_t allow_smem(K kernel, size_t bytes) {

@@ -5,22 +5,29 @@
 // pallas_call (:623); its per-head math is _head_fwd (:168).
 //
 // For each batch row b and head h of qkv [B, N, 3*H*D] (q-heads | k-heads |
-// v-heads) and key bias [B, N] (0 for real tokens, -1e10 for padding):
+// v-heads), key bias [B, N] (0 for real tokens, -1e10 for padding) and
+// dropout seeds [B] (int32):
 //
 //   s = q k^T * scale + bias          fp32
 //   p = softmax(s)                    fp32, normalized
+//   p = u >= rate ? p / (1 - rate) : 0    only when rate > 0
 //   o = bf16(p) v                     fp32 accumulation, stored bf16
 //
-// The probabilities are normalized in fp32 and rounded to bf16 before PV,
-// exactly as the TPU kernel does, so the kernel and the plain version differ
-// only by summation order; no online-softmax rescaling is involved.
+// The probabilities are normalized in fp32, dropped out and rounded to bf16
+// before PV, exactly as the TPU kernel does, so the kernel and the plain
+// version differ only by summation order; no online-softmax rescaling is
+// involved. The dropout draw u is the JAX counter hash (common.cuh
+// uniform01) over the absolute (query row, key column) pair with the salt
+// seed[b] + h * 0xC2B2AE3D: the TPU kernel pads N to a multiple of 8, but
+// its grid indices are absolute, so the bits at real positions are the same
+// and the backward kernel (flash_attention_bwd.cu) regenerates the mask.
 //
 // Sequence edge: there is no padding to a multiple of 8 (the TPU's sublane
 // tile); key columns j >= N are skipped in the kernel. The running maximum
 // starts from -FLT_MAX, a finite value, and padded keys carry a finite
 // -1e10, so a query row whose keys are all padding still gives finite output.
 // The TPU's pair packing (_pair_fwd) is MXU layout work and has no
-// counterpart here; dropout (training only) is not implemented.
+// counterpart here.
 //
 // What bounds it on the card: at the prompt-bank shape (B=64, N=200, H=12,
 // D=64) it is ~7.9 GFLOP over 59 MB of qkv, compute-bound on paper. This first
@@ -54,7 +61,8 @@ __host__ __device__ constexpr size_t smem_bytes(int N) {
 template <int D>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_fwd_packed_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __restrict__ bias,
-                        __nv_bfloat16* __restrict__ out, int N, int H, float scale) {
+                        const int* __restrict__ seeds, __nv_bfloat16* __restrict__ out, int N,
+                        int H, float scale, float rate, float inv_keep) {
   constexpr int W = D / 2;       // bf16 pairs per head row
   constexpr int KS = W + 1;      // padded K row stride in words
   constexpr int NT = kMaxN / 32;
@@ -83,6 +91,8 @@ flash_fwd_packed_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __re
 
   float* p = ps + warp * N;
   const int row_end = min(row0 + kRows, N);
+  const bool drop = rate > 0.f;
+  const uint32_t salt = cxr::dropout_salt(seeds[b], h);
   for (int i = row0 + warp; i < row_end; i += kWarps) {
     const uint32_t* qrow = base + (size_t)i * row_words + (size_t)h * W;
     float q[D];
@@ -124,7 +134,11 @@ flash_fwd_packed_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __re
 #pragma unroll
     for (int t = 0; t < NT; ++t) {
       const int j = lane + 32 * t;
-      if (j < N) p[j] = cxr::round_bf16(s[t] / l);
+      if (j < N) {
+        float pj = s[t] / l;
+        if (drop) pj = cxr::uniform01(salt, i, j) >= rate ? pj * inv_keep : 0.f;
+        p[j] = cxr::round_bf16(pj);
+      }
     }
     __syncwarp();
 
@@ -148,30 +162,34 @@ flash_fwd_packed_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __re
 }
 
 template <int D>
-cudaError_t launch(const void* qkv, const void* bias, void* out, int B, int N, int H,
-                   float scale, cudaStream_t stream) {
+cudaError_t launch(const void* qkv, const void* bias, const void* seeds, void* out, int B,
+                   int N, int H, float scale, float rate, float inv_keep, cudaStream_t stream) {
   const size_t smem = smem_bytes<D>(N);
   cudaError_t err = cxr::allow_smem(flash_fwd_packed_kernel<D>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((N + kRows - 1) / kRows, H, B);
   flash_fwd_packed_kernel<D><<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(qkv), static_cast<const float*>(bias),
-      static_cast<__nv_bfloat16*>(out), N, H, scale);
+      static_cast<const int*>(seeds), static_cast<__nv_bfloat16*>(out), N, H, scale, rate,
+      inv_keep);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// qkv [B, N, 3*H*D] bf16, bias [B, N] fp32, out [B, N, H*D] bf16;
-// D in {64, 128}, 1 <= N <= 512, B <= 65535.
-CXR_API int cxr_flash_fwd_packed(const void* qkv, const void* bias, void* out, int B, int N,
-                                 int H, int D, float scale, void* stream) {
-  if (N < 1 || N > kMaxN || B < 1 || B > 65535 || H < 1 || H > 65535)
+// qkv [B, N, 3*H*D] bf16, bias [B, N] fp32, seeds [B] int32, out [B, N, H*D]
+// bf16; D in {64, 128}, 1 <= N <= 512, B <= 65535; 0 <= rate < 1 and
+// inv_keep = 1 / (1 - rate) (rate 0 turns dropout off).
+CXR_API int cxr_flash_fwd_packed(const void* qkv, const void* bias, const void* seeds,
+                                 void* out, int B, int N, int H, int D, float scale,
+                                 float rate, float inv_keep, void* stream) {
+  if (N < 1 || N > kMaxN || B < 1 || B > 65535 || H < 1 || H > 65535 || !(rate >= 0.f) ||
+      !(rate < 1.f))
     return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 64: return launch<64>(qkv, bias, out, B, N, H, scale, s);
-    case 128: return launch<128>(qkv, bias, out, B, N, H, scale, s);
+    case 64: return launch<64>(qkv, bias, seeds, out, B, N, H, scale, rate, inv_keep, s);
+    case 128: return launch<128>(qkv, bias, seeds, out, B, N, H, scale, rate, inv_keep, s);
     default: return cudaErrorInvalidValue;
   }
 }

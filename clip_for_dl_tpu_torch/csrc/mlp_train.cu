@@ -1,8 +1,8 @@
 // Fused Dense -> GELU -> Dense forward (kernel B4).
 //
 // Replaces the TPU kernel clip_for_dl_tpu/ops/mlp_train.py _fwd_kernel (:99),
-// reached through _pallas_fwd's pallas_call (:154). Forward only: the
-// backward kernel (_bwd_kernel :112) belongs to the training slice.
+// reached through _pallas_fwd's pallas_call (:154). Its backward is kernel B8
+// (mlp_train_bwd.cu).
 //
 //   y = gelu(x W1^T + b1) W2^T + b2      (weights in nn.Linear layout)
 //

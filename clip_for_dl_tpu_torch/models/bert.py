@@ -1,4 +1,4 @@
-"""BERT text tower (Bio_ClinicalBERT geometry), CLS-pooled, inference.
+"""BERT text tower (Bio_ClinicalBERT geometry), CLS-pooled.
 
 Counterpart of ``clip_for_dl_tpu.models.bert``, with HF ``BertModel``
 state-dict names (``embeddings.*``, ``encoder.layer.N.*``) so real clinical
@@ -13,6 +13,12 @@ Two switches mirror the JAX tower and route to the port's kernels:
 - ``fused_mlp``: the MLP runs as ``ops.mlp_train.dense_gelu_dense`` when the
   compute dtype is bf16 and both widths are 128-aligned, the same gate as
   bert.py:205-212; otherwise the plain Dense → GELU → Dense.
+
+In train mode the flash attention drops probabilities inside the kernel,
+with per-batch-row seeds drawn from the ``generator`` passed to ``forward``
+(one draw per layer, as each JAX layer takes its own dropout key); every
+other dropout is an ``nn.Dropout``. Both kernels take their backward when a
+gradient is required.
 """
 
 from __future__ import annotations
@@ -63,8 +69,10 @@ class BertSelfAttention(nn.Module):
         self.value = nn.Linear(hidden, hidden)
         self.dropout = nn.Dropout(dropout)
 
-    def forward(self, x: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
-        """x [B, N, hidden]; bias [B, N] fp32 additive key bias or None."""
+    def forward(self, x: torch.Tensor, bias: Optional[torch.Tensor],
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """x [B, N, hidden]; bias [B, N] fp32 additive key bias or None;
+        ``generator`` seeds the flash kernel's dropout in train mode."""
         B, N, hidden = x.shape
         h, hd = self.heads, hidden // self.heads
         if self.flash:
@@ -72,7 +80,9 @@ class BertSelfAttention(nn.Module):
             b = torch.cat([self.query.bias, self.key.bias, self.value.bias])
             qkv = F.linear(x, w, b)
             rate = self.dropout.p if self.training else 0.0
-            return fa.flash_attention_packed(qkv, h, bias, dropout_rate=rate)
+            seeds = fa.dropout_seeds(generator, B, x.device) if rate > 0.0 else None
+            return fa.flash_attention_packed(qkv, h, bias, dropout_rate=rate,
+                                             dropout_seeds=seeds)
         q, k, v = (
             t.view(B, N, h, hd).transpose(1, 2)
             for t in (self.query(x), self.key(x), self.value(x))
@@ -128,9 +138,10 @@ class BertLayer(nn.Module):
             and dtype == torch.bfloat16
         )
 
-    def forward(self, x: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bias: Optional[torch.Tensor],
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         dt = x.dtype
-        attn = self.attention.self(x, bias)
+        attn = self.attention.self(x, bias, generator)
         attn = self.dropout(self.attention.output.dense(attn))
         x = _layer_norm(self.attention.output.LayerNorm, x + attn, dt)
         if self._use_fused_mlp(dt):
@@ -160,12 +171,13 @@ class BertEncoder(nn.Module):
 
     def forward(self, input_ids: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,
-                token_type_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+                token_type_ids: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Token ids [B, L] → last_hidden_state [B, L, hidden]."""
         x = self.embeddings(input_ids, token_type_ids)
         bias = None
         if attention_mask is not None:
             bias = torch.where(attention_mask > 0, 0.0, -1e10).to(torch.float32)
         for layer in self.encoder.layer:
-            x = layer(x, bias)
+            x = layer(x, bias, generator)
         return x

@@ -1,14 +1,18 @@
-"""CXRClip — the composite dual-encoder model (inference).
+"""CXRClip — the composite dual-encoder model.
 
 Counterpart of ``clip_for_dl_tpu.models.clip.CXRClip``: one ``nn.Module``
 holding the image tower, the text tower and every head, so that a converted
 JAX checkpoint (``models/convert.py``) loads into it completely. The ported
-entry points are ``encode_image``, ``encode_text`` and ``adapter_logits``.
+entry points are ``encode_image``, ``encode_text``, ``adapter_logits`` and
+the joint ``forward`` of the pretrain step; ``.train()`` / ``.eval()``
+switch BatchNorm statistics and dropout as flax's ``train=True`` does.
 
-Parameters are created in fp32; ``core.device.cast_matmul_weights`` casts
-the matmul, conv and embedding weights to the compute dtype (bf16 on the
-GPU) and leaves the norms in fp32. :func:`init_weights` draws a full model
-from a ``torch.Generator``.
+Parameters are created in fp32. For serving,
+``core.device.cast_matmul_weights`` casts the matmul, conv and embedding
+weights to the compute dtype (bf16 on the GPU); for training,
+``core.device.cast_in_forward`` keeps them fp32 and casts inside the
+forward. Norms stay fp32 either way. :func:`init_weights` draws a full
+model from a ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -72,6 +76,17 @@ class CXRClip(nn.Module):
     def adapter_logits(self, image_features: torch.Tensor) -> torch.Tensor:
         """C-Adapter classification logits over (frozen) image features."""
         return self.adapter(image_features)
+
+    def forward(self, images: torch.Tensor, input_ids: torch.Tensor,
+                attention_mask: Optional[torch.Tensor] = None, *,
+                generator: Optional[torch.Generator] = None):
+        """Joint forward of the pretrain step: (image features, text
+        features), neither normalized. ``generator`` seeds the attention
+        kernel's dropout in train mode. The fusion and adapter heads take no
+        part, so their gradients are zero, as in the JAX ``__call__``."""
+        img = self.encode_image(images)
+        hidden = self.text_tower(input_ids, attention_mask, generator=generator)
+        return img, self.text_projector(hidden[:, 0, :])
 
 
 @torch.no_grad()

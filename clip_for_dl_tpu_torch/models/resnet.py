@@ -1,12 +1,17 @@
-"""ResNet-50 image tower (v1, torchvision state-dict names), inference.
+"""ResNet-50 image tower (v1, torchvision state-dict names).
 
 Counterpart of ``clip_for_dl_tpu.models.resnet.ResNet``: headless ResNet v1
 returning pooled [B, 2048] features. Images arrive NHWC, as at every public
 function of both packages; ``permute(0, 3, 1, 2)`` turns them into NCHW
 tensors with channels_last strides without a copy, and the convolutions
 (cuDNN on the GPU) run in that layout. Conv weights are in the compute
-dtype; BatchNorm runs in fp32 on running statistics (eps 1e-5) and its
-output is cast back, and the residual add is fp32, as in the JAX tower.
+dtype; BatchNorm runs in fp32 (eps 1e-5) and its output is cast back, and
+the residual add is fp32, as in the JAX tower.
+
+BatchNorm follows flax's ``nn.BatchNorm(momentum=0.9)``: in eval mode it
+normalizes with the running statistics; in train mode with the batch
+statistics, and the running statistics become ``0.9·old + 0.1·batch`` with
+the biased batch variance (``nn.BatchNorm2d`` would use the unbiased one).
 """
 
 from __future__ import annotations
@@ -18,9 +23,22 @@ import torch.nn.functional as F
 from torch import nn
 
 
+# flax's BatchNorm momentum: the weight of the old running statistics
+BN_MOMENTUM = 0.9
+
+
 def _bn(bn: nn.BatchNorm2d, y: torch.Tensor) -> torch.Tensor:
-    """BatchNorm in fp32, output in the input's dtype."""
-    return bn(y.float()).to(y.dtype)
+    """BatchNorm in fp32, output in the input's dtype (flax semantics in
+    train mode, see the module docstring)."""
+    x = y.float()
+    if not bn.training:
+        return bn(x).to(y.dtype)
+    with torch.no_grad():
+        var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+        bn.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1.0 - BN_MOMENTUM)
+        bn.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1.0 - BN_MOMENTUM)
+    out = F.batch_norm(x, None, None, bn.weight, bn.bias, training=True, eps=bn.eps)
+    return out.to(y.dtype)
 
 
 class Bottleneck(nn.Module):

@@ -1,8 +1,9 @@
 """Build, load and launch the port's CUDA kernels.
 
-Every source under ``clip_for_dl_tpu_torch/csrc/`` is compiled by ``nvcc``
-for ``sm_90a`` into one shared library with a plain C interface, loaded with
-ctypes. The sources include no PyTorch header, so the build takes seconds.
+Every source under ``clip_for_dl_tpu_torch/csrc/`` is compiled by its own
+``nvcc`` for ``sm_90a``, all of them started together, and the objects are
+linked into one shared library with a plain C interface, loaded with ctypes.
+The sources include no PyTorch header, so the build takes seconds.
 It runs on first use, never at import (the CPU tests import every module),
 into ``_kernel_build/`` beside this package, under a name that hashes the
 sources and flags, so an edited source is rebuilt and a stale library is
@@ -18,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import shutil
 import subprocess
 import threading
 from collections import Counter
@@ -32,7 +34,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_kernel_build"
 # build_info["log"]
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo",
     "-Xptxas", "-v",
 )
 
@@ -46,10 +48,15 @@ _SIGNATURES = {
     # img, y taps x4, x taps x4, scale, bias, out, B, H_in, W_in, C_in,
     # H_out, W_out, C_out, out_bf16, stream
     "cxr_image_prep": (_P,) * 12 + (_I,) * 8 + (_P,),
-    # qkv, bias, out, B, N, H, D, scale, stream
-    "cxr_flash_fwd_packed": (_P, _P, _P, _I, _I, _I, _I, _F, _P),
+    # qkv, bias, seeds, out, B, N, H, D, scale, rate, 1/(1-rate), stream
+    "cxr_flash_fwd_packed": (_P,) * 4 + (_I,) * 4 + (_F,) * 3 + (_P,),
+    # qkv, do, bias, seeds, dqkv, stats, B, N, H, D, scale, rate, 1/(1-rate),
+    # stream
+    "cxr_flash_bwd_packed": (_P,) * 6 + (_I,) * 4 + (_F,) * 3 + (_P,),
     # x, w1, b1, w2, b2, y, R, H, F, stream
     "cxr_mlp_fwd": (_P,) * 6 + (_I,) * 3 + (_P,),
+    # x, w1, b1, w2, dy, dx, g, dh, R, H, F, stream
+    "cxr_mlp_bwd": (_P,) * 8 + (_I,) * 3 + (_P,),
 }
 
 _lock = threading.Lock()
@@ -72,6 +79,36 @@ def _sources():
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
+def _compile(nvcc: str, path: Path) -> str:
+    """One nvcc per source, all running at once, then one link; returns the
+    compilers' output. Raises if any step fails."""
+    tmp_dir = path.with_suffix(f".{os.getpid()}.d")
+    tmp_dir.mkdir(exist_ok=True)
+    procs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = tmp_dir / (src.stem + ".o")
+        procs.append((src.name, obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = "", []
+    for name, _, proc in procs:
+        out, _ = proc.communicate()
+        log += f"== {name}\n{out}"
+        if proc.returncode != 0:
+            failed.append(name)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}:\n{log}")
+    tmp = tmp_dir / path.name
+    link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *(str(o) for _, o, _ in procs)],
+                          capture_output=True, text=True)
+    log += link.stdout + link.stderr
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{log}")
+    os.replace(tmp, path)
+    shutil.rmtree(tmp_dir, ignore_errors=True)
+    return log
+
+
 def build() -> ctypes.CDLL:
     """Compile (if needed) and load the kernel library; returns the handle.
     The compiler's output of a fresh build lands in ``build_info["log"]``."""
@@ -88,14 +125,7 @@ def build() -> ctypes.CDLL:
         path = BUILD_DIR / f"libcxr_kernels-{digest.hexdigest()[:16]}.so"
         log = ""
         if not path.exists():
-            tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-                   *(str(s) for s in sorted(CSRC.glob("*.cu")))]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-            os.replace(tmp, path)
+            log = _compile(nvcc, path)
         lib = ctypes.CDLL(str(path))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)

@@ -93,16 +93,122 @@ def test_mlp_kernel(cuda, R, H, F):
                                atol=2e-2, rtol=0)
 
 
+def _rel_tol(ref: torch.Tensor, steps: int = 2) -> float:
+    """``steps`` bf16 rounding steps at the reference's largest magnitude
+    (one step is at most 2^-7 of the value)."""
+    return steps * 2.0 ** -7 * float(ref.float().abs().max()) + 1e-6
+
+
+def _seeds(cuda, B, seed=1):
+    return fa.dropout_seeds(torch.Generator(cuda).manual_seed(seed), B, cuda)
+
+
+@pytest.mark.parametrize("B,N,H", [(8, 200, 12), (3, 13, 2)])
+def test_flash_attention_dropout_kernel(cuda, B, N, H):
+    """Rate 0.1, D = 64: bf16 output |o| ≤ ~3 within two bf16 steps (2e-2),
+    padded keys, N not a multiple of 8, a fully masked row."""
+    g = torch.Generator(cuda).manual_seed(0)
+    qkv = torch.randn(B, N, 3 * H * 64, device=cuda, generator=g).bfloat16()
+    lengths = torch.randint(1, N + 1, (B, 1), device=cuda, generator=g)
+    bias = torch.where(torch.arange(N, device=cuda)[None] < lengths, 0.0, -1e10)
+    bias[0] = -1e10
+    seeds = _seeds(cuda, B)
+    got = fa.flash_attention_packed(qkv, H, bias, dropout_rate=0.1, dropout_seeds=seeds)
+    want = fa.flash_attention_packed_reference(qkv, H, bias, dropout_rate=0.1,
+                                               dropout_seeds=seeds)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=0)
+
+
+@pytest.mark.parametrize("N", [13, 64])
+def test_flash_attention_dropout_mask_is_the_plain_versions(cuda, N):
+    """With q = 0 every kept probability is the same constant, and with
+    v_j = e_j (one-hot, D = 64 ≥ N) output o[i, j] is that constant when
+    (i, j) is kept and exactly 0 when it is dropped: the kernel's zero
+    pattern must equal the plain version's bit for bit."""
+    B, H, D = 4, 3, 64
+    qkv = torch.zeros(B, N, 3, H, D, device=cuda)
+    qkv[:, :, 2, :, :N] = torch.eye(N, D, device=cuda)[None, :, None, :N]
+    qkv = qkv.reshape(B, N, 3 * H * D).bfloat16()
+    seeds = _seeds(cuda, B, 5)
+    got = fa.flash_attention_packed(qkv, H, None, dropout_rate=0.1, dropout_seeds=seeds)
+    want = fa.flash_attention_packed_reference(qkv, H, None, dropout_rate=0.1,
+                                               dropout_seeds=seeds)
+    keep = got.view(B, N, H, D)[..., :N] != 0
+    assert torch.equal(keep, want.view(B, N, H, D)[..., :N] != 0)
+    assert 0.8 < keep.float().mean() < 0.97
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("B,N,H", [(8, 200, 12), (3, 13, 2), (2, 512, 2)])
+def test_flash_attention_bwd_kernel(cuda, B, N, H, rate):
+    """dqkv vs the plain backward, D = 64: two bf16 steps at the largest
+    gradient; padded keys, N not a multiple of 8 or 64, a fully masked row,
+    and N = 512, the bound."""
+    g = torch.Generator(cuda).manual_seed(0)
+    qkv = torch.randn(B, N, 3 * H * 64, device=cuda, generator=g).bfloat16()
+    do = torch.randn(B, N, H * 64, device=cuda, generator=g).bfloat16()
+    lengths = torch.randint(1, N + 1, (B, 1), device=cuda, generator=g)
+    bias = torch.where(torch.arange(N, device=cuda)[None] < lengths, 0.0, -1e10)
+    bias[0] = -1e10
+    seeds = _seeds(cuda, B) if rate else None
+    got = fa._kernel_bwd(qkv, do, H, bias, dropout_rate=rate, dropout_seeds=seeds)
+    want = fa.flash_attention_packed_bwd_reference(qkv, do, H, bias, dropout_rate=rate,
+                                                   dropout_seeds=seeds)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=_rel_tol(want), rtol=0)
+
+
+def test_flash_attention_autograd_on_the_card(cuda):
+    """The autograd function launches B3 and B6 and gives the plain
+    backward's gradient."""
+    g = torch.Generator(cuda).manual_seed(3)
+    qkv = torch.randn(2, 40, 3 * 2 * 64, device=cuda, generator=g).bfloat16()
+    do = torch.randn(2, 40, 2 * 64, device=cuda, generator=g).bfloat16()
+    seeds = _seeds(cuda, 2)
+    x = qkv.clone().requires_grad_()
+    fa.flash_attention_packed(x, 2, None, dropout_rate=0.1, dropout_seeds=seeds).backward(do)
+    want = fa.flash_attention_packed_bwd_reference(qkv, do, 2, None, dropout_rate=0.1,
+                                                   dropout_seeds=seeds)
+    torch.testing.assert_close(x.grad.float(), want.float(), atol=_rel_tol(want), rtol=0)
+
+
+@pytest.mark.parametrize("R,H,F", [(4096, 768, 3072), (100, 768, 3072), (33, 512, 192)])
+def test_mlp_bwd_kernel(cuda, R, H, F):
+    """(dx, g, dh) vs the plain backward: two bf16 steps at each output's
+    largest entry; R not a multiple of the 32-row tile."""
+    gen = torch.Generator(cuda).manual_seed(0)
+    x = torch.randn(R, H, device=cuda, generator=gen).bfloat16()
+    w1 = (torch.randn(F, H, device=cuda, generator=gen) * H ** -0.5).bfloat16()
+    b1 = (torch.randn(F, device=cuda, generator=gen) * 0.1).bfloat16()
+    w2 = (torch.randn(H, F, device=cuda, generator=gen) * F ** -0.5).bfloat16()
+    dy = torch.randn(R, H, device=cuda, generator=gen).bfloat16()
+    got = mlp._kernel_bwd(x, w1, b1, w2, dy)
+    want = mlp.dense_gelu_dense_bwd_reference(x, w1, b1, w2, dy)
+    for name, a, b in zip(("dx", "g", "dh"), got, want):
+        assert a.shape == b.shape and a.dtype == torch.bfloat16, name
+        torch.testing.assert_close(a.float(), b.float(), atol=_rel_tol(b), rtol=0, msg=name)
+
+
 def test_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(TypeError):
         sim.similarity(torch.zeros(4, 512, device=cuda, dtype=torch.float64),
                        torch.zeros(16, 512, device=cuda, dtype=torch.float64))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="dropout_seeds"):
         fa.flash_attention_packed(torch.zeros(2, 8, 6 * 64, device=cuda,
                                               dtype=torch.bfloat16), 2, dropout_rate=0.1)
+    with pytest.raises(ValueError, match="backward kernel"):
+        fa._kernel_bwd(torch.zeros(2, 8, 6 * 128, device=cuda, dtype=torch.bfloat16),
+                       torch.zeros(2, 8, 2 * 128, device=cuda, dtype=torch.bfloat16), 2, None)
+    with pytest.raises(TypeError):
+        fa._kernel_bwd(torch.zeros(2, 8, 6 * 64, device=cuda, dtype=torch.bfloat16),
+                       torch.zeros(2, 8, 2 * 64, device=cuda), 2, None)
     with pytest.raises(ValueError, match="contiguous"):
         mlp.dense_gelu_dense(torch.zeros(4, 768, device=cuda, dtype=torch.bfloat16),
                              torch.zeros(768, 3072, device=cuda, dtype=torch.bfloat16).T,
                              torch.zeros(3072, device=cuda, dtype=torch.bfloat16),
                              torch.zeros(768, 3072, device=cuda, dtype=torch.bfloat16),
                              torch.zeros(768, device=cuda, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="multiple of 64"):
+        mlp._kernel_bwd(*(torch.zeros(s, device=cuda, dtype=torch.bfloat16)
+                          for s in ((4, 768), (96, 768), (96,), (768, 96), (4, 768))))

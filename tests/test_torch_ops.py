@@ -10,6 +10,7 @@ tests/test_torch_gpu.py holds each against its plain version there.
 
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -197,19 +198,160 @@ def test_non_cpu_tensor_takes_the_kernel_path_or_raises(call):
     lambda: fa._kernel(torch.zeros(2, 8, 6 * 64, dtype=torch.bfloat16), 2, None),
     lambda: mlp._kernel(*(torch.zeros(s, dtype=torch.bfloat16)
                           for s in ((4, 768), (3072, 768), (3072,), (768, 3072), (768,)))),
-], ids=["similarity", "image_prep", "flash_attention", "mlp"])
+    lambda: fa._kernel_bwd(torch.zeros(2, 8, 6 * 64, dtype=torch.bfloat16),
+                           torch.zeros(2, 8, 2 * 64, dtype=torch.bfloat16), 2, None),
+    lambda: mlp._kernel_bwd(*(torch.zeros(s, dtype=torch.bfloat16)
+                              for s in ((4, 768), (3072, 768), (3072,), (768, 3072), (4, 768)))),
+], ids=["similarity", "image_prep", "flash_attention", "mlp", "flash_attention_bwd", "mlp_bwd"])
 def test_kernel_path_on_cpu_raises(call):
     with pytest.raises(ValueError, match="CUDA tensor"):
         call()
 
 
-def test_training_only_features_raise_on_the_kernel_path():
-    with pytest.raises(NotImplementedError, match="dropout"):
-        fa.flash_attention_packed(_meta(2, 8, 6 * 64, dtype=torch.bfloat16), 2,
-                                  dropout_rate=0.1)
-    w = _meta(3072, 768, dtype=torch.bfloat16).requires_grad_()
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        mlp.dense_gelu_dense(_meta(4, 768, dtype=torch.bfloat16), w,
-                             _meta(3072, dtype=torch.bfloat16),
-                             _meta(768, 3072, dtype=torch.bfloat16),
-                             _meta(768, dtype=torch.bfloat16))
+@pytest.mark.parametrize("call", [
+    lambda: fa.flash_attention_packed(_meta(2, 8, 6 * 64, dtype=torch.bfloat16).requires_grad_(), 2),
+    lambda: fa.flash_attention_packed(_meta(2, 8, 6 * 64, dtype=torch.bfloat16).requires_grad_(), 2,
+                                      dropout_rate=0.1,
+                                      dropout_seeds=_meta(2, 1, dtype=torch.int32)),
+    lambda: mlp.dense_gelu_dense(_meta(4, 768, dtype=torch.bfloat16),
+                                 _meta(3072, 768, dtype=torch.bfloat16).requires_grad_(),
+                                 _meta(3072, dtype=torch.bfloat16),
+                                 _meta(768, 3072, dtype=torch.bfloat16),
+                                 _meta(768, dtype=torch.bfloat16)),
+], ids=["flash_attention", "flash_attention_dropout", "mlp"])
+def test_autograd_path_reaches_the_kernel_checks(call):
+    """With a gradient required, a non-CPU tensor goes through the autograd
+    function into the kernel wrapper, which refuses anything but CUDA."""
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        call()
+
+
+# ---------------------------------------------------------------------------
+# B3 dropout and B6: the attention backward
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("seed,head,shape", [(0, 0, (13, 13)), (-5, 1, (8, 200)),
+                                             (2 ** 31 - 1, 11, (200, 7)),
+                                             (-(2 ** 31), 3, (16, 512)),
+                                             (123456789, 65535, (5, 9))])
+def test_uniform01_is_bit_equal_to_jax(seed, head, shape):
+    want = np.asarray(jfa._uniform01(jnp.int32(seed), head, shape))
+    got = fa.uniform01(seed, head, *shape).numpy()
+    assert got.dtype == np.float32 and np.array_equal(got, want)
+
+
+def test_uniform01_broadcasts_seeds_and_heads():
+    seeds = np.array([[3], [-7]], np.int32)
+    got = fa.uniform01(torch.from_numpy(seeds), torch.arange(3)[None, :], 4, 6)
+    assert got.shape == (2, 3, 4, 6)
+    for b in range(2):
+        for h in range(3):
+            want = np.asarray(jfa._uniform01(jnp.int32(seeds[b, 0]), h, (4, 6)))
+            assert np.array_equal(got[b, h].numpy(), want)
+
+
+def test_dropout_seeds_are_seeded_int32():
+    a = fa.dropout_seeds(torch.Generator().manual_seed(1), 5)
+    b = fa.dropout_seeds(torch.Generator().manual_seed(1), 5)
+    assert a.shape == (5, 1) and a.dtype == torch.int32 and torch.equal(a, b)
+
+
+_SEEDS = np.array([[7], [-99]], np.int32)
+
+
+def test_flash_attention_dropout_matches_interpreted_kernel():
+    """fp32, rate 0.1, padded keys, N = 13: 1e-5 absolute (the masks are the
+    same bits, so only summation order differs)."""
+    qkv, bias, H = _qkv_case(4)
+    got = fa.flash_attention_packed(_t(qkv), H, _t(bias), dropout_rate=0.1,
+                                    dropout_seeds=_t(_SEEDS)).numpy()
+    want = np.asarray(jfa.flash_attention_packed(
+        jnp.asarray(qkv), H, jnp.asarray(bias), dropout_rate=0.1,
+        dropout_seeds=jnp.asarray(_SEEDS), interpret=True))
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+    no_drop = fa.flash_attention_packed(_t(qkv), H, _t(bias)).numpy()
+    assert np.abs(got - no_drop).max() > 1e-2  # dropout did something
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_flash_attention_backward_matches_jax_grad(rate):
+    """fp32 dqkv through the autograd function vs jax.grad through the
+    interpreted kernels (custom VJP), cotangent from a seed: 1e-5 absolute
+    on gradients of magnitude ≲ 4."""
+    qkv, bias, H = _qkv_case(7)
+    ct = np.random.default_rng(8).standard_normal((2, 13, 32)).astype(np.float32)
+    seeds = _SEEDS if rate else None
+
+    def f(x):
+        out = jfa.flash_attention_packed(
+            x, H, jnp.asarray(bias), dropout_rate=rate,
+            dropout_seeds=None if seeds is None else jnp.asarray(seeds), interpret=True)
+        return jnp.sum(out * ct)
+
+    want = np.asarray(jax.grad(f)(jnp.asarray(qkv)))
+    x = _t(qkv).requires_grad_()
+    out = fa.flash_attention_packed(x, H, _t(bias), dropout_rate=rate,
+                                    dropout_seeds=None if seeds is None else _t(seeds))
+    (out * _t(ct)).sum().backward()
+    np.testing.assert_allclose(x.grad.numpy(), want, atol=1e-5, rtol=0)
+    direct = fa.flash_attention_packed_bwd_reference(
+        _t(qkv), _t(ct), H, _t(bias), dropout_rate=rate,
+        dropout_seeds=None if seeds is None else _t(seeds))
+    assert torch.equal(direct, x.grad)
+
+
+def test_flash_attention_backward_fully_masked_row_is_finite():
+    qkv, bias, H = _qkv_case(9)
+    bias[1, :] = -1e10
+    x = _t(qkv).requires_grad_()
+    fa.flash_attention_packed(x, H, _t(bias), dropout_rate=0.1,
+                              dropout_seeds=_t(_SEEDS)).sum().backward()
+    assert torch.isfinite(x.grad).all()
+
+
+# ---------------------------------------------------------------------------
+# B8: the MLP backward
+# ---------------------------------------------------------------------------
+
+
+def test_dense_gelu_dense_backward_matches_jax_grad():
+    """fp32 gradients of x, both weights and both biases through the
+    autograd function vs jax.grad through the interpreted kernels: 1e-5
+    relative to each gradient's largest entry (the JAX kernel's A&S erf is
+    within 5.3e-7 of the exact erf used here)."""
+    rng = np.random.default_rng(10)
+    R, H, F = 20, 128, 256
+    x = rng.standard_normal((R, H)).astype(np.float32)
+    w1 = (rng.standard_normal((H, F)) / np.sqrt(H)).astype(np.float32)
+    b1 = rng.standard_normal(F).astype(np.float32) * 0.1
+    w2 = (rng.standard_normal((F, H)) / np.sqrt(F)).astype(np.float32)
+    b2 = rng.standard_normal(H).astype(np.float32) * 0.1
+    ct = rng.standard_normal((R, H)).astype(np.float32)
+    want = jax.grad(lambda *a: jnp.sum(jmlp.dense_gelu_dense(*a, interpret=True) * ct),
+                    argnums=(0, 1, 2, 3, 4))(*(jnp.asarray(a) for a in (x, w1, b1, w2, b2)))
+    args = [_t(a.copy()).requires_grad_() for a in (x, w1.T, b1, w2.T, b2)]
+    (mlp.dense_gelu_dense(*args) * _t(ct)).sum().backward()
+    got = [args[0].grad, args[1].grad.T, args[2].grad, args[3].grad.T, args[4].grad]
+    for name, g, w in zip(("dx", "dw1", "db1", "dw2", "db2"), got, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy(), w, atol=1e-5 * np.abs(w).max(), rtol=0,
+                                   err_msg=name)
+
+
+def test_dense_gelu_dense_bwd_reference_matches_jax_kernel_outputs():
+    """(dx, g, dh) of the plain backward vs the interpreted JAX backward
+    kernel itself, fp32: 1e-5."""
+    rng = np.random.default_rng(11)
+    R, H, F = 12, 128, 192
+    x = rng.standard_normal((R, H)).astype(np.float32)
+    w1 = (rng.standard_normal((H, F)) / np.sqrt(H)).astype(np.float32)
+    b1 = rng.standard_normal(F).astype(np.float32) * 0.1
+    w2 = (rng.standard_normal((F, H)) / np.sqrt(F)).astype(np.float32)
+    dy = rng.standard_normal((R, H)).astype(np.float32)
+    want = jmlp._pallas_bwd(*(jnp.asarray(a) for a in (x, w1, b1, w2, dy)),
+                            approximate=False, interpret=True)
+    got = mlp.dense_gelu_dense_bwd_reference(_t(x), _t(w1.T.copy()), _t(b1),
+                                             _t(w2.T.copy()), _t(dy))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5, rtol=0)
