@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's zero-shot serving path and its phase-A train
-step once on one CUDA GPU.
+"""Drive the PyTorch port's zero-shot serving paths (ResNet-50 and ViT-B/16)
+and its phase-A train step once on one CUDA GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -10,11 +10,13 @@ Phases (any failure exits non-zero and prints no result line):
 1. Build: compile the port's kernels (clip_for_dl_tpu_torch/csrc/*.cu) with
    nvcc for sm_90a, one nvcc per source, all at once; print the build time
    and ptxas' per-kernel summary.
-2. Kernels: each of B1-B4, B6 and B8 against its plain PyTorch version on
-   the card at the main paths' shapes (B3 also with dropout 0.1 at the train
-   shape, its dropout mask compared bit for bit; B6 at rates 0 and 0.1); max
-   abs/rel difference against the tolerance below, and both times from CUDA
-   events after warm-up.
+2. Kernels: each of B1-B4, B6, B8 and B9 against its plain PyTorch version
+   on the card at the main paths' shapes (B3 also with dropout 0.1 at the
+   train shape, its dropout mask compared bit for bit, and at the ViT shape;
+   B6 at rates 0 and 0.1; B9 with exact and tanh GELU and at one request's
+   197 rows); then the widths ROADMAP C1-C3 repaired: B3 and B6 at head dim
+   128 and N = 512, B4 and B8 at hidden 256. Max abs/rel difference against
+   the tolerance below, and both times from CUDA events after warm-up.
 3. Slice: the full-width CXRClip (ResNet-50, BERT-base at vocab 28996,
    512-d heads; random weights from --seed) in bf16 with flash attention and
    the fused BERT MLP, wrapped in ZeroShotEngine: prompt bank ("prediction"
@@ -36,6 +38,11 @@ Phases (any failure exits non-zero and prints no result line):
    losses, every parameter group and the BatchNorm statistics moved, and
    B2, B3, B4, B6 and B8 launched by the train path. Prints samples/s and
    the peak device memory.
+5. ViT slice: phase 3 over the ``vit`` preset's model (ViT-B/16 at 224,
+   patch 16, 12 x 768, 12 heads, MLP 3072, and the same BERT-base) with the
+   fused ViT MLP block (B9), flash attention in both towers and the fused
+   BERT MLP, bf16, random weights from --seed; the same checks, B9 among the
+   kernels the path must launch.
 
 The second-to-last line is the kernels JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -76,6 +83,12 @@ TOL = {
     # bf16 as the plain versions, and summation order can flip one rounding
     # of an intermediate and one of the output
     "bwd_rel": 2.0 ** -6,
+    # B9, on the MLP branch out - x and relative to its largest entry: two
+    # bf16 steps (2^-6); a summation-order flip of the GELU or o rounding
+    # moves out by one step of o, and the residual's rounding by one step of
+    # out, which at x ~ N(0, 1) (|out| < 8) is within one more step of the
+    # branch's largest entry (|o| ~ 4)
+    "mlp_block_rel": 2.0 ** -6,
     # phase 4, kernels vs plain versions from the same weights and inputs,
     # dropout 0: the cosine of each parameter group's gradient with the
     # plain one, for the backward of one fixed random cotangent on both
@@ -87,7 +100,8 @@ TOL = {
     "grad_cos": 0.99,
     "train_loss_rel": 2e-2,
     # engine probabilities, kernels vs plain versions through the whole bf16
-    # model: the kernel differences above move cosines by ~1e-3
+    # model (phases 3 and 5): the kernel differences above move cosines by
+    # ~1e-3
     "probs_vs_plain": 5e-3,
     # service answer vs engine.probs on the same image at batch 1: the same
     # kernels on the same shapes; host vs device sigmoid
@@ -109,11 +123,15 @@ KERNELS = {  # name -> (wrapper module, entry attribute, CUDA source, TPU kernel
             "clip_for_dl_tpu/ops/mlp_train.py:99"),
     "mlp_bwd": ("mlp_train", "KERNEL_BWD", "clip_for_dl_tpu_torch/csrc/mlp_train_bwd.cu",
                 "clip_for_dl_tpu/ops/mlp_train.py:112"),
+    "mlp_block": ("mlp_block", "KERNEL", "clip_for_dl_tpu_torch/csrc/mlp_block.cu",
+                  "clip_for_dl_tpu/ops/mlp_block.py:78"),
 }
 PATHS = {  # main path -> the kernels it must launch
     "serve": ("similarity", "image_prep", "flash_attention", "mlp"),
     "train": ("image_prep", "flash_attention", "flash_attention_bwd", "mlp", "mlp_bwd"),
+    "serve_vit": ("similarity", "image_prep", "flash_attention", "mlp", "mlp_block"),
 }
+VIT_TOKENS = 197  # ViT-B/16 at 224: 14 x 14 patches and the class token
 BATCH = 256  # images per zero-shot batch (512x512 grey uint8)
 N_BATCHES = 6  # batches per streamed run
 TRAIN_BATCH = 128  # image-report pairs per train step
@@ -140,11 +158,12 @@ def import_port():
     check(Path(clip_for_dl_tpu_torch.__file__).resolve().is_relative_to(ROOT),
           f"imported the port from {clip_for_dl_tpu_torch.__file__}, not from {ROOT}")
     from clip_for_dl_tpu_torch.ops import (
-        _build, flash_attention, image_prep, mlp_train, similarity,
+        _build, flash_attention, image_prep, mlp_block, mlp_train, similarity,
     )
 
     return _build, {"similarity": similarity, "image_prep": image_prep,
-                    "flash_attention": flash_attention, "mlp_train": mlp_train}
+                    "flash_attention": flash_attention, "mlp_train": mlp_train,
+                    "mlp_block": mlp_block}
 
 
 def card_line() -> str:
@@ -246,8 +265,62 @@ def phase2(mods, dev, seed: int, batch: int, results: dict) -> None:
     results["mlp"]["ms"] = cuda_ms(lambda: mlp.dense_gelu_dense(x, w1, b1, w2, b2), iters=10)
     results["mlp"]["plain_ms"] = cuda_ms(
         lambda: mlp.dense_gelu_dense_reference(x, w1, b1, w2, b2), iters=10)
+    del x
+
+    print(f"B3 attention at the ViT shape: qkv [{batch}, {VIT_TOKENS}, 2304] bf16, no key bias")
+    qkv = torch.randn(batch, VIT_TOKENS, 3 * 768, device=dev, generator=g).bfloat16()
+    compare("flash_attention", fa.flash_attention_packed(qkv, 12),
+            fa.flash_attention_packed_reference(qkv, 12), TOL["flash_attention"], results)
+    extra_times("B3 at the ViT shape", lambda: fa.flash_attention_packed(qkv, 12),
+                lambda: fa.flash_attention_packed_reference(qkv, 12))
+    del qkv
+
+    check_mlp_block(mods["mlp_block"], dev, seed, batch * VIT_TOKENS, results)
     for name, r in results.items():
         print(f"  {name}: kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms")
+
+
+def check_mlp_block(blk, dev, seed: int, rows: int, results: dict) -> None:
+    """B9 against its plain version at ``rows`` x 768 x 3072 (exact and tanh
+    GELU) and at one request's 197 rows, then both times. x at std 1,
+    weights at std fan_in^-1/2 and every LayerNorm parameter and bias at std
+    0.1 in fp32, so that each input moves the output by more than the
+    tolerance. The MLP branch out - x is held, not out: the residual, which
+    both sides add, would set the scale of a tolerance on out."""
+    import torch
+
+    g = torch.Generator(dev).manual_seed(seed + 5)
+    H, F = 768, 3072
+    print(f"B9 MLP block: x [{rows}, {H}] bf16, W1 [{F}, {H}], W2 [{H}, {F}], fp32 "
+          f"LayerNorm parameters and biases; exact and tanh GELU; one request's "
+          f"{VIT_TOKENS} rows")
+    x = torch.randn(rows, H, device=dev, generator=g).bfloat16()
+    ls = 1.0 + 0.1 * torch.randn(H, device=dev, generator=g)
+    lb = 0.1 * torch.randn(H, device=dev, generator=g)
+    w1 = (torch.randn(F, H, device=dev, generator=g) * H ** -0.5).bfloat16()
+    b1 = 0.1 * torch.randn(F, device=dev, generator=g)
+    w2 = (torch.randn(H, F, device=dev, generator=g) * F ** -0.5).bfloat16()
+    b2 = 0.1 * torch.randn(H, device=dev, generator=g)
+    args = (x, ls, lb, w1, b1, w2, b2)
+    one = (x[:VIT_TOKENS],) + args[1:]
+    for a, approximate in ((args, False), (args, True), (one, False)):
+        xf = a[0].float()
+        want = blk.fused_mlp_block_reference(*a, gelu_approximate=approximate).float() - xf
+        got = blk.fused_mlp_block(*a, gelu_approximate=approximate).float() - xf
+        compare("mlp_block", got, want,
+                TOL["mlp_block_rel"] * float(want.abs().max()), results)
+    del xf, want, got
+    results["mlp_block"]["ms"] = cuda_ms(lambda: blk.fused_mlp_block(*args), iters=10)
+    results["mlp_block"]["plain_ms"] = cuda_ms(
+        lambda: blk.fused_mlp_block_reference(*args), iters=10)
+    extra_times(f"B9 at one request ({VIT_TOKENS} rows)", lambda: blk.fused_mlp_block(*one),
+                lambda: blk.fused_mlp_block_reference(*one))
+
+
+def extra_times(what: str, kernel, plain) -> None:
+    """Print kernel and plain times of a shape off the kernels line."""
+    print(f"  {what}: kernel {cuda_ms(kernel, iters=10):.4f} ms  "
+          f"plain {cuda_ms(plain, iters=10):.4f} ms")
 
 
 def dropout_probe(B: int, N: int, H: int, D: int, dev):
@@ -342,6 +415,59 @@ def phase2_train(mods, dev, seed: int, results: dict) -> None:
         print(f"  {name}: kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms")
 
 
+def phase2_repairs(mods, dev, seed: int, results: dict) -> None:
+    """The widths ROADMAP C1-C3 repaired: B3 and B6 at head dim 128 and
+    N = 512 (with padded keys; B6 at rates 0 and 0.1, its dropout mask
+    compared bit for bit), B4 and B8 at hidden 256."""
+    import torch
+
+    fa, mlp = mods["flash_attention"], mods["mlp_train"]
+    g = torch.Generator(dev).manual_seed(seed + 4)
+    B, N, H, D = 2, 512, 2, 128
+    print(f"C1/C2: B3 and B6 at (B, N, H, D) = ({B}, {N}, {H}, {D}), padded keys")
+    qkv = torch.randn(B, N, 3 * H * D, device=dev, generator=g).bfloat16()
+    do = torch.randn(B, N, H * D, device=dev, generator=g).bfloat16()
+    lengths = torch.randint(N // 2, N + 1, (B, 1), device=dev, generator=g)
+    bias = torch.where(torch.arange(N, device=dev)[None] < lengths, 0.0, -1e10)
+    compare("flash_attention", fa.flash_attention_packed(qkv, H, bias),
+            fa.flash_attention_packed_reference(qkv, H, bias), TOL["flash_attention"], results)
+    extra_times("C1: B3 at D = 128, N = 512", lambda: fa.flash_attention_packed(qkv, H, bias),
+                lambda: fa.flash_attention_packed_reference(qkv, H, bias))
+    drop = dict(dropout_rate=0.1, dropout_seeds=fa.dropout_seeds(g, B, dev))
+    for kw in ({}, drop):
+        want = fa.flash_attention_packed_bwd_reference(qkv, do, H, bias, **kw)
+        compare("flash_attention_bwd", fa._kernel_bwd(qkv, do, H, bias, **kw), want,
+                TOL["bwd_rel"] * float(want.float().abs().max()), results)
+    pq, pdo, pbias = dropout_probe(B, N, H, D, dev)
+    gdv = fa._kernel_bwd(pq, pdo, H, pbias, **drop).view(B, N, 3, H, D)[:, :, 2]
+    wdv = fa.flash_attention_packed_bwd_reference(pq, pdo, H, pbias, **drop).view(
+        B, N, 3, H, D)[:, :, 2]
+    check(torch.equal(gdv != 0, wdv != 0), "B6 dropout mask at D = 128 differs")
+    print(f"  B6 dropout mask at D = 128 equal bit for bit; kept share "
+          f"{float((wdv != 0).sum()) / (int((pbias == 0).sum()) * D * H):.4f}")
+    extra_times("C2: B6 at D = 128, N = 512, rate 0.1",
+                lambda: fa._kernel_bwd(qkv, do, H, bias, **drop),
+                lambda: fa.flash_attention_packed_bwd_reference(qkv, do, H, bias, **drop))
+
+    R, HID, F = 12800, 256, 1024
+    print(f"C3: B4 and B8 at hidden {HID}: x, dy [{R}, {HID}] bf16, F = {F}")
+    x = torch.randn(R, HID, device=dev, generator=g).bfloat16()
+    dy = (torch.randn(R, HID, device=dev, generator=g) * 0.1).bfloat16()
+    w1 = (torch.randn(F, HID, device=dev, generator=g) * HID ** -0.5).bfloat16()
+    b1 = (torch.randn(F, device=dev, generator=g) * 0.02).bfloat16()
+    w2 = (torch.randn(HID, F, device=dev, generator=g) * F ** -0.5).bfloat16()
+    b2 = (torch.randn(HID, device=dev, generator=g) * 0.02).bfloat16()
+    compare("mlp", mlp.dense_gelu_dense(x, w1, b1, w2, b2),
+            mlp.dense_gelu_dense_reference(x, w1, b1, w2, b2), TOL["mlp"], results)
+    for a_, b_ in zip(mlp._kernel_bwd(x, w1, b1, w2, dy),
+                      mlp.dense_gelu_dense_bwd_reference(x, w1, b1, w2, dy)):
+        compare("mlp_bwd", a_, b_, TOL["bwd_rel"] * float(b_.float().abs().max()), results)
+    extra_times("C3: B4 at hidden 256", lambda: mlp.dense_gelu_dense(x, w1, b1, w2, b2),
+                lambda: mlp.dense_gelu_dense_reference(x, w1, b1, w2, b2))
+    extra_times("C3: B8 at hidden 256", lambda: mlp._kernel_bwd(x, w1, b1, w2, dy),
+                lambda: mlp.dense_gelu_dense_bwd_reference(x, w1, b1, w2, dy))
+
+
 def plain_kernels(mods, keep=()):
     """Test-only substitution: every kernel entry, forward and backward,
     replaced by its plain version, as phase 2 calls it (the wrappers' own
@@ -353,7 +479,8 @@ def plain_kernels(mods, keep=()):
             ("flash_attention", "_kernel", "flash_attention_packed_reference"),
             ("flash_attention", "_kernel_bwd", "flash_attention_packed_bwd_reference"),
             ("mlp_train", "_kernel", "dense_gelu_dense_reference"),
-            ("mlp_train", "_kernel_bwd", "dense_gelu_dense_bwd_reference")):
+            ("mlp_train", "_kernel_bwd", "dense_gelu_dense_bwd_reference"),
+            ("mlp_block", "_kernel", "fused_mlp_block_reference")):
         if module not in keep:
             stack.enter_context(mock.patch.object(mods[module], entry,
                                                   getattr(mods[module], plain)))
@@ -371,7 +498,12 @@ def grey_images(rng, n: int, size: int = 512):
     return (lo + noise * span).astype(np.uint8)
 
 
-def build_engine(dev, seed: int):
+# serving path -> (preset, model switches beyond flash attention and the
+# fused BERT MLP, which both paths turn on)
+SERVE_MODELS = {"serve": ("zero_shot", {}), "serve_vit": ("vit", {"vit_fused_mlp": True})}
+
+
+def build_engine(dev, seed: int, path: str):
     import dataclasses
 
     import torch
@@ -383,8 +515,10 @@ def build_engine(dev, seed: int):
     from clip_for_dl_tpu_torch.text.tokenizer import build_dev_vocab
     from clip_for_dl_tpu_torch.zeroshot import ZeroShotEngine
 
-    preset = get_preset("zero_shot")
-    cfg = dataclasses.replace(preset.model, flash_attention=True, bert_fused_mlp=True)
+    name, switches = SERVE_MODELS[path]
+    preset = get_preset(name)
+    cfg = dataclasses.replace(preset.model, flash_attention=True, bert_fused_mlp=True,
+                              **switches)
     with torch.device(dev):
         model = CXRClip(cfg)
     init_weights(model, torch.Generator(dev).manual_seed(seed))
@@ -397,7 +531,20 @@ def build_engine(dev, seed: int):
     return cfg, engine
 
 
-def phase3(_build, mods, dev, seed: int, batch: int, n_batches: int, card: str) -> dict:
+def describe(cfg) -> str:
+    if cfg.image_tower == "vit_b16":
+        image = (f"ViT-B/{cfg.vit_patch} {cfg.vit_layers}x{cfg.vit_hidden}, {cfg.vit_heads} "
+                 f"heads, MLP {cfg.vit_mlp_dim} (fused block: {cfg.vit_fused_mlp})")
+    else:
+        image = f"ResNet-50 {cfg.resnet_stages}"
+    return (f"{image} + BERT {cfg.text_layers}x{cfg.text_embedding_dim} vocab "
+            f"{cfg.vocab_size} + heads {cfg.shared_embedding_dim}")
+
+
+def serve_phase(_build, mods, dev, seed: int, batch: int, n_batches: int, card: str,
+                path: str) -> dict:
+    """Phases 3 and 5: the zero-shot engine and service over ``path``'s
+    model (SERVE_MODELS)."""
     import numpy as np
     import torch
 
@@ -406,11 +553,10 @@ def phase3(_build, mods, dev, seed: int, batch: int, n_batches: int, card: str) 
     from clip_for_dl_tpu_torch.zeroshot import ZeroShotEngine, prompts_for_family
 
     t0 = time.perf_counter()
-    cfg, engine = build_engine(dev, seed)
+    cfg, engine = build_engine(dev, seed, path)
     n_params = sum(p.numel() for p in engine.model.parameters())
-    print(f"model: ResNet-50 {cfg.resnet_stages} + BERT {cfg.text_layers}x"
-          f"{cfg.text_embedding_dim} vocab {cfg.vocab_size} + heads {cfg.shared_embedding_dim}; "
-          f"{n_params / 1e6:.1f} M params, bf16, built in {time.perf_counter() - t0:.1f} s")
+    print(f"model: {describe(cfg)}; {n_params / 1e6:.1f} M params, bf16, built in "
+          f"{time.perf_counter() - t0:.1f} s")
     prompts = prompts_for_family("prediction", DISEASE_LABELS)
     rng = np.random.default_rng(seed)
     host_batches = [grey_images(rng, batch) for _ in range(2)]
@@ -452,7 +598,7 @@ def phase3(_build, mods, dev, seed: int, batch: int, n_batches: int, card: str) 
         service_err = max(service_err, float(np.abs(got - want).max()))
     print(f"service vs engine.probs: max_abs {service_err:.3e}  tol {TOL['service']:.1e}")
     check(service_err <= TOL["service"], "service answers differ from engine.probs")
-    check_launched(mods, launches, "serve")
+    check_launched(mods, launches, path)
 
     # -- the same model with every kernel replaced by its plain version -------
     with plain_kernels(mods):
@@ -725,8 +871,15 @@ def main(argv=None) -> int:
     results: dict = {}
     phase2(mods, dev, args.seed, BATCH, results)
     phase2_train(mods, dev, args.seed, results)
-    by_path = {"serve": phase3(_build, mods, dev, args.seed, BATCH, N_BATCHES, card),
-               "train": phase4(_build, mods, dev, args.seed, card)}
+    phase2_repairs(mods, dev, args.seed, results)
+    by_path = {}
+    print("== phase 3: zero-shot serving, ResNet-50")
+    by_path["serve"] = serve_phase(_build, mods, dev, args.seed, BATCH, N_BATCHES, card, "serve")
+    print("== phase 4: the phase-A train step")
+    by_path["train"] = phase4(_build, mods, dev, args.seed, card)
+    print("== phase 5: zero-shot serving, ViT-B/16")
+    by_path["serve_vit"] = serve_phase(_build, mods, dev, args.seed, BATCH, N_BATCHES, card,
+                                       "serve_vit")
 
     kernels = []
     for name, (module, attr, src, tpu) in KERNELS.items():

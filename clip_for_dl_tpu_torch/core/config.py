@@ -5,8 +5,9 @@ its package ``__init__``, which imports jax. So the framework-neutral config
 is copied here field for field, default for default;
 ``tests/test_torch_zeroshot.py`` holds the two copies equal.
 
-Only the presets of the ported slice exist here: ``pretrain_clip`` (the
-notebook phase-A constants) and ``zero_shot`` (phase C, which inherits them).
+Only the presets of the ported slices exist here: ``pretrain_clip`` (the
+notebook phase-A constants), ``zero_shot`` (phase C, which inherits them) and
+``vit`` (the ViT-B/16 vision variant).
 """
 
 from __future__ import annotations
@@ -44,9 +45,9 @@ IMAGENET_STD = (0.229, 0.224, 0.225)
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """Tower + head hyper-parameters. Fields the port does not run yet (ViT,
-    MoE, remat, learnable temperature) are kept so that a config moves
-    between the two packages unchanged."""
+    """Tower + head hyper-parameters. Fields the port does not run yet (the
+    ViT training MLP, MoE, remat, learnable temperature) are kept so that a
+    config moves between the two packages unchanged."""
 
     image_tower: str = "resnet50"  # "resnet50" | "vit_b16"
     image_embedding_dim: int = 2048
@@ -74,7 +75,8 @@ class ModelConfig:
     vit_gelu_approximate: bool = False
     vit_fused_mlp: bool = False
     bf16_attention_probs: bool = False
-    # BERT self-attention through the fused attention kernel (ops/flash_attention.py)
+    # BERT and ViT self-attention through the fused attention kernel
+    # (ops/flash_attention.py)
     flash_attention: bool = False
     # BERT MLP through the fused Dense→GELU→Dense kernel (ops/mlp_train.py);
     # engages only for bf16 compute with 128-aligned widths
@@ -214,9 +216,29 @@ def preset_zero_shot() -> ExperimentConfig:
     return preset_pretrain_clip().replace(name="zero_shot")
 
 
+def preset_vit() -> ExperimentConfig:
+    """ViT-B/16 vision variant (vit_vision notebook cells 24-25): contrastive
+    lr 1e-5 for the vision tower."""
+    base = preset_pretrain_clip()
+    return base.replace(
+        name="vit",
+        model=base.model.with_vit(),
+        train=dataclasses.replace(
+            base.train,
+            groups=(
+                OptimGroup("image_tower", 1e-5),
+                OptimGroup("text_tower", 1e-5),
+                OptimGroup("image_projector", 1e-3),
+                OptimGroup("text_projector", 1e-3),
+            ),
+        ),
+    )
+
+
 PRESETS = {
     "pretrain_clip": preset_pretrain_clip,
     "zero_shot": preset_zero_shot,
+    "vit": preset_vit,
 }
 
 

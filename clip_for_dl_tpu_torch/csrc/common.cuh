@@ -61,6 +61,12 @@ __device__ __forceinline__ float uniform01(uint32_t salt, uint32_t row, uint32_t
   return static_cast<float>(x >> 8) * (1.0f / 16777216.0f);
 }
 
+// Hidden widths the MLP kernels (B4, B8, B9) are instantiated for: every
+// multiple of 128 up to 1024 (MAX_HIDDEN in ops/mlp_train.py), the widths the
+// TPU kernels take (a multiple of 128) within one block's shared memory and
+// 255 registers a thread. X(h) is expanded once for each.
+#define CXR_MLP_WIDTHS(X) X(128) X(256) X(384) X(512) X(640) X(768) X(896) X(1024)
+
 // Opt a kernel into more than 48 KB of dynamic shared memory.
 template <typename K>
 inline cudaError_t allow_smem(K kernel, size_t bytes) {

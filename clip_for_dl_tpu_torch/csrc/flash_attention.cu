@@ -38,8 +38,12 @@
 // registers, scores its keys lane-strided (up to kMaxN / 32 per lane),
 // reduces max and sum with shuffles, and accumulates PV with each lane owning
 // D / 32 output dims. The N <= 512 bound (MAX_SEQ_LEN in the TPU file) is
-// kept: at N = 512 a block needs 150 KB of shared memory, within Hopper's
-// 227 KB.
+// kept. At D = 64 a block needs N * 296 bytes of shared memory (150 KB at
+// N = 512, within Hopper's 227 KB). At D = 128, K and V together would need
+// N * 552 bytes (282,624 at N = 512, over the limit), so only K, which the
+// score loop reads across lanes, is staged; the PV loop reads V row by row,
+// one coalesced 256-byte row per step, from global memory, where one head's
+// V (128 KB at N = 512) stays in L2. That is N * 296 bytes again.
 #include <float.h>
 
 #include "common.cuh"
@@ -50,12 +54,16 @@ constexpr int kWarps = 8;
 constexpr int kRows = 64;   // query rows per block
 constexpr int kMaxN = 512;  // keys per row: kMaxN / 32 score registers per lane
 
+// V is staged in shared memory only at D = 64 (see the note above)
+template <int D>
+__host__ __device__ constexpr bool stage_v() { return D <= 64; }
+
 template <int D>
 __host__ __device__ constexpr size_t smem_bytes(int N) {
-  return (size_t)N * (D / 2 + 1) * 4   // K, padded rows of bf16 pairs
-         + (size_t)N * (D / 2) * 4     // V
-         + (size_t)N * 4               // key bias
-         + (size_t)kWarps * N * 4;     // per-warp probabilities
+  return (size_t)N * (D / 2 + 1) * 4                    // K, padded rows of bf16 pairs
+         + (stage_v<D>() ? (size_t)N * (D / 2) * 4 : 0)   // V
+         + (size_t)N * 4                                // key bias
+         + (size_t)kWarps * N * 4;                      // per-warp probabilities
 }
 
 template <int D>
@@ -71,20 +79,21 @@ flash_fwd_packed_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __re
 
   extern __shared__ uint32_t smem[];
   uint32_t* ks = smem;                              // [N][KS]
-  uint32_t* vs = ks + (size_t)N * KS;               // [N][W]
-  float* bs = reinterpret_cast<float*>(vs + (size_t)N * W);  // [N]
+  uint32_t* vs = ks + (size_t)N * KS;               // [N][W] when staged
+  float* bs = reinterpret_cast<float*>(vs + (stage_v<D>() ? (size_t)N * W : 0));  // [N]
   float* ps = bs + N;                               // [kWarps][N]
 
   const int b = blockIdx.z, h = blockIdx.y, row0 = blockIdx.x * kRows;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const size_t row_words = (size_t)3 * H * W;  // one token's packed qkv, in words
   const uint32_t* base = reinterpret_cast<const uint32_t*>(qkv) + (size_t)b * N * row_words;
+  const uint32_t* vglob = base + (size_t)(2 * H + h) * W;  // V row j at j * row_words
 
   for (int i = threadIdx.x; i < N * W; i += blockDim.x) {
     const int j = i / W, w = i % W;
     const uint32_t* tok = base + (size_t)j * row_words;
     ks[j * KS + w] = tok[(size_t)(H + h) * W + w];
-    vs[j * W + w] = tok[(size_t)(2 * H + h) * W + w];
+    if constexpr (stage_v<D>()) vs[j * W + w] = tok[(size_t)(2 * H + h) * W + w];
   }
   for (int j = threadIdx.x; j < N; j += blockDim.x) bs[j] = bias[(size_t)b * N + j];
   __syncthreads();
@@ -147,9 +156,12 @@ flash_fwd_packed_kernel(const __nv_bfloat16* __restrict__ qkv, const float* __re
     for (int u = 0; u < 2 * WPL; ++u) o[u] = 0.f;
     for (int j = 0; j < N; ++j) {
       const float pj = p[j];
+      const uint32_t* vrow;
+      if constexpr (stage_v<D>()) vrow = vs + j * W;
+      else vrow = vglob + (size_t)j * row_words;
 #pragma unroll
       for (int u = 0; u < WPL; ++u) {
-        const float2 vf = cxr::bf2_to_f2(vs[j * W + u * 32 + lane]);
+        const float2 vf = cxr::bf2_to_f2(vrow[u * 32 + lane]);
         o[2 * u] = fmaf(pj, vf.x, o[2 * u]);
         o[2 * u + 1] = fmaf(pj, vf.y, o[2 * u + 1]);
       }

@@ -40,11 +40,20 @@
 // yields the max and sum for free, so the forward writes nothing extra and
 // the autograd function saves only its inputs, as the TPU's custom VJP does.
 // Every sum over rows or columns is a loop inside one warp: the reduction is
-// deterministic, with no atomics. Both passes form each score with the same
-// fmaf sequence, so p agrees bit for bit between them. Matrices in shared
-// memory are stored as rows of bf16 pairs padded by one word, so that lanes
-// reading different rows hit different banks. This first kernel runs on the
-// CUDA cores, as the forward does.
+// deterministic, with no atomics. Both passes form each score and each dp
+// with the same fmaf sequence, so p and dp agree bit for bit between them.
+// Matrices in shared memory are stored as rows of bf16 pairs padded by one
+// word, so that lanes reading different rows hit different banks. This first
+// kernel runs on the CUDA cores, as the forward does.
+//
+// Head dim 128: staging both matrices would need N * 556 bytes (rows) and
+// N * 596 bytes (columns), over the limit for N > 418 and N > 390. So at
+// D = 128 each pass stages only the matrix its score loop reads both across
+// lanes and row by row (K in the rows pass, Q in the columns pass) and reads
+// the other (V, or dO) from global memory: across lanes as 16-byte vectors,
+// row by row as coalesced 256-byte rows; one head's V or dO (128 KB at
+// N = 512) stays in L2. Shared memory is then N * 296 and N * 336 bytes
+// (151,552 and 172,032 at N = 512). D = 64 keeps both matrices staged.
 #include <float.h>
 
 #include "common.cuh"
@@ -57,18 +66,22 @@ constexpr int kWarps = 8;
 constexpr int kRows = 64;   // query rows (pass 1) or key columns (pass 2) per block
 constexpr int kMaxN = 512;  // sequence bound (MAX_SEQ_LEN)
 
+// the second matrix of each pass (V, dO) is staged only at D = 64
+template <int D>
+__host__ __device__ constexpr bool stage_second() { return D <= 64; }
+
 template <int D>
 __host__ __device__ constexpr size_t rows_smem_bytes(int N) {
-  return (size_t)2 * N * (D / 2 + 1) * 4  // K and V, padded rows of bf16 pairs
-         + (size_t)N * 4                  // key bias
-         + (size_t)kWarps * N * 4;        // per-warp ds row
+  return (size_t)(stage_second<D>() ? 2 : 1) * N * (D / 2 + 1) * 4  // K (and V), padded rows
+         + (size_t)N * 4                                           // key bias
+         + (size_t)kWarps * N * 4;                                 // per-warp ds row
 }
 
 template <int D>
 __host__ __device__ constexpr size_t cols_smem_bytes(int N) {
-  return (size_t)2 * N * (D / 2 + 1) * 4  // Q and dO, padded rows of bf16 pairs
-         + (size_t)3 * N * 4              // row max, sum, delta
-         + (size_t)2 * kWarps * N * 4;    // per-warp pd and ds columns
+  return (size_t)(stage_second<D>() ? 2 : 1) * N * (D / 2 + 1) * 4  // Q (and dO), padded rows
+         + (size_t)3 * N * 4                                       // row max, sum, delta
+         + (size_t)2 * kWarps * N * 4;                             // per-warp pd and ds columns
 }
 
 // a.b over W bf16 pairs, in the one order both passes use (unrolled, so a
@@ -86,6 +99,26 @@ __device__ __forceinline__ float dot_pairs(const uint32_t* a, const uint32_t* b)
   return acc;
 }
 
+// dot_pairs with b read from global memory as 16-byte vectors (b 16-byte
+// aligned); the same fmaf sequence, so the same result
+template <int W>
+__device__ __forceinline__ float dot_pairs_global(const uint32_t* a, const uint32_t* b) {
+  float acc = 0.f;
+#pragma unroll
+  for (int w = 0; w < W; w += 4) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(b + w));
+    const uint32_t bw[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 x = cxr::bf2_to_f2(a[w + e]);
+      const float2 y = cxr::bf2_to_f2(bw[e]);
+      acc = fmaf(x.x, y.x, acc);
+      acc = fmaf(x.y, y.y, acc);
+    }
+  }
+  return acc;
+}
+
 template <int D>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_bwd_rows_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
@@ -99,9 +132,10 @@ flash_bwd_rows_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dou
   static_assert(W % 32 == 0, "D must be a multiple of 64");
 
   extern __shared__ uint32_t smem[];
+  constexpr bool kStage = stage_second<D>();
   uint32_t* ks = smem;                                      // [N][KS]
-  uint32_t* vs = ks + (size_t)N * KS;                       // [N][KS]
-  float* bs = reinterpret_cast<float*>(vs + (size_t)N * KS);  // [N]
+  uint32_t* vs = ks + (size_t)N * KS;                       // [N][KS] when staged
+  float* bs = reinterpret_cast<float*>(vs + (kStage ? (size_t)N * KS : 0));  // [N]
   float* dsw = bs + N;                                      // [kWarps][N]
 
   const int b = blockIdx.z, h = blockIdx.y, row0 = blockIdx.x * kRows;
@@ -113,12 +147,13 @@ flash_bwd_rows_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dou
   uint32_t* gbase = reinterpret_cast<uint32_t*>(dqkv) + (size_t)b * N * row_words;
   const size_t plane = (size_t)gridDim.z * H * N;
   float* st = stats + ((size_t)b * H + h) * N;  // max at st, sum at +plane, delta at +2*plane
+  const uint32_t* vglob = base + (size_t)(2 * H + h) * W;  // V row j at j * row_words
 
   for (int i = threadIdx.x; i < N * W; i += blockDim.x) {
     const int j = i / W, w = i % W;
     const uint32_t* tok = base + (size_t)j * row_words;
     ks[j * KS + w] = tok[(size_t)(H + h) * W + w];
-    vs[j * KS + w] = tok[(size_t)(2 * H + h) * W + w];
+    if constexpr (kStage) vs[j * KS + w] = tok[(size_t)(2 * H + h) * W + w];
   }
   for (int j = threadIdx.x; j < N; j += blockDim.x) bs[j] = bias[(size_t)b * N + j];
   __syncthreads();
@@ -146,7 +181,8 @@ flash_bwd_rows_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dou
       dp[t] = 0.f;
       if (j < N) {
         s[t] = fmaf(dot_pairs<W>(q2, ks + j * KS), scale, bs[j]);
-        dp[t] = dot_pairs<W>(o2, vs + j * KS);
+        if constexpr (kStage) dp[t] = dot_pairs<W>(o2, vs + j * KS);
+        else dp[t] = dot_pairs_global<W>(o2, vglob + (size_t)j * row_words);
         m = fmaxf(m, s[t]);
       }
     }
@@ -212,9 +248,10 @@ flash_bwd_cols_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dou
   constexpr int WPL = W / 32;
 
   extern __shared__ uint32_t smem[];
+  constexpr bool kStage = stage_second<D>();
   uint32_t* qs = smem;                                       // [N][KS]
-  uint32_t* os = qs + (size_t)N * KS;                        // [N][KS]
-  float* sm = reinterpret_cast<float*>(os + (size_t)N * KS);  // [N] row max
+  uint32_t* os = qs + (size_t)N * KS;                        // [N][KS] when staged
+  float* sm = reinterpret_cast<float*>(os + (kStage ? (size_t)N * KS : 0));  // [N] row max
   float* sl = sm + N;                                        // [N] row sum
   float* sd = sl + N;                                        // [N] row delta
   float* pw = sd + N;                                        // [kWarps][N] bf16(pd)
@@ -230,10 +267,12 @@ flash_bwd_cols_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dou
   const size_t plane = (size_t)gridDim.z * H * N;
   const float* st = stats + ((size_t)b * H + h) * N;
 
+  const uint32_t* oglob = dbase + (size_t)h * W;  // dO row i at i * out_words
+
   for (int i = threadIdx.x; i < N * W; i += blockDim.x) {
     const int r = i / W, w = i % W;
     qs[r * KS + w] = base[(size_t)r * row_words + (size_t)h * W + w];
-    os[r * KS + w] = dbase[(size_t)r * out_words + (size_t)h * W + w];
+    if constexpr (kStage) os[r * KS + w] = oglob[(size_t)r * out_words + w];
   }
   for (int r = threadIdx.x; r < N; r += blockDim.x) {
     sm[r] = st[r];
@@ -259,7 +298,9 @@ flash_bwd_cols_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dou
     for (int i = lane; i < N; i += 32) {
       const float s = fmaf(dot_pairs<W>(qs + i * KS, k2), scale, bj);
       const float p = expf(s - sm[i]) / sl[i];
-      float d = dot_pairs<W>(os + i * KS, v2);
+      float d;
+      if constexpr (kStage) d = dot_pairs<W>(os + i * KS, v2);
+      else d = dot_pairs_global<W>(v2, oglob + (size_t)i * out_words);
       float pd = p;
       if (drop) {
         const bool keep = cxr::uniform01(salt, i, j) >= rate;
@@ -276,9 +317,12 @@ flash_bwd_cols_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dou
     for (int u = 0; u < 2 * WPL; ++u) av[u] = ak[u] = 0.f;
     for (int i = 0; i < N; ++i) {
       const float pi = pcol[i], di = dcol[i];
+      const uint32_t* orow;
+      if constexpr (kStage) orow = os + i * KS;
+      else orow = oglob + (size_t)i * out_words;
 #pragma unroll
       for (int u = 0; u < WPL; ++u) {
-        const float2 of = cxr::bf2_to_f2(os[i * KS + u * 32 + lane]);
+        const float2 of = cxr::bf2_to_f2(orow[u * 32 + lane]);
         const float2 qf = cxr::bf2_to_f2(qs[i * KS + u * 32 + lane]);
         av[2 * u] = fmaf(pi, of.x, av[2 * u]);
         av[2 * u + 1] = fmaf(pi, of.y, av[2 * u + 1]);
@@ -326,7 +370,7 @@ cudaError_t launch(const void* qkv, const void* dout, const void* bias, const vo
 
 // qkv [B, N, 3*H*D] bf16, dout [B, N, H*D] bf16, bias [B, N] fp32, seeds [B]
 // int32, dqkv [B, N, 3*H*D] bf16 (every element written), stats [3, B, H, N]
-// fp32 scratch; D = 64, 1 <= N <= 512, B <= 65535; 0 <= rate < 1 and
+// fp32 scratch; D in {64, 128}, 1 <= N <= 512, B <= 65535; 0 <= rate < 1 and
 // inv_keep = 1 / (1 - rate), as in the forward that made dout's output.
 CXR_API int cxr_flash_bwd_packed(const void* qkv, const void* dout, const void* bias,
                                  const void* seeds, void* dqkv, void* stats, int B, int N,
@@ -339,6 +383,8 @@ CXR_API int cxr_flash_bwd_packed(const void* qkv, const void* dout, const void* 
   switch (D) {
     case 64:
       return launch<64>(qkv, dout, bias, seeds, dqkv, stats, B, N, H, scale, rate, inv_keep, s);
+    case 128:
+      return launch<128>(qkv, dout, bias, seeds, dqkv, stats, B, N, H, scale, rate, inv_keep, s);
     default: return cudaErrorInvalidValue;
   }
 }

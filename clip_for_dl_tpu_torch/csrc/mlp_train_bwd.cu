@@ -184,16 +184,17 @@ cudaError_t launch(const void* x, const void* w1, const void* b1, const void* w2
 
 // x, dy, dx [R, H], w1 [F, H], b1 [F], w2 [H, F], g, dh [R, F], all bf16; x and
 // dy 16-byte and the weights 32-byte aligned (WMMA loads them from global
-// memory); H in {512, 768, 1024}, F a positive multiple of 64.
+// memory); H a multiple of 128 up to 1024, F a positive multiple of 64.
 CXR_API int cxr_mlp_bwd(const void* x, const void* w1, const void* b1, const void* w2,
                         const void* dy, void* dx, void* g, void* dh, int R, int H, int F,
                         void* stream) {
   if (R < 1 || F < kFC || F % kFC != 0) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   switch (H) {
-    case 512: return launch<512>(x, w1, b1, w2, dy, dx, g, dh, R, F, s);
-    case 768: return launch<768>(x, w1, b1, w2, dy, dx, g, dh, R, F, s);
-    case 1024: return launch<1024>(x, w1, b1, w2, dy, dx, g, dh, R, F, s);
+#define CXR_CASE(h) \
+  case h: return launch<h>(x, w1, b1, w2, dy, dx, g, dh, R, F, s);
+    CXR_MLP_WIDTHS(CXR_CASE)
+#undef CXR_CASE
     default: return cudaErrorInvalidValue;
   }
 }

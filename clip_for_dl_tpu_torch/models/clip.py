@@ -1,7 +1,8 @@
 """CXRClip — the composite dual-encoder model.
 
 Counterpart of ``clip_for_dl_tpu.models.clip.CXRClip``: one ``nn.Module``
-holding the image tower, the text tower and every head, so that a converted
+holding the image tower (ResNet-50, or the ViT with ``image_tower="vit_b16"``),
+the text tower and every head, so that a converted
 JAX checkpoint (``models/convert.py``) loads into it completely. The ported
 entry points are ``encode_image``, ``encode_text``, ``adapter_logits`` and
 the joint ``forward`` of the pretrain step; ``.train()`` / ``.eval()``
@@ -33,19 +34,29 @@ from .heads import (
     TextProjection,
 )
 from .resnet import ResNet
+from .vit import MultiheadSelfAttention, ViT
 
 
 class CXRClip(nn.Module):
     def __init__(self, config: ModelConfig):
         super().__init__()
-        if config.image_tower != "resnet50":
-            raise NotImplementedError(
-                f"image tower {config.image_tower!r} is not ported yet (resnet50 only)"
-            )
         if config.use_multimodal_attention:
             raise NotImplementedError("multimodal attention is not ported yet")
         self.config = config
-        self.image_tower = ResNet(config.resnet_stages, config.resnet_width)
+        if config.image_tower == "resnet50":
+            self.image_tower = ResNet(config.resnet_stages, config.resnet_width)
+        elif config.image_tower == "vit_b16":
+            if config.vit_fused_mlp_train:
+                raise NotImplementedError("the ViT training MLP (vit_fused_mlp_train) is not "
+                                          "ported yet (ROADMAP A8)")
+            self.image_tower = ViT(
+                config.image_size, config.vit_patch, config.vit_hidden, config.vit_layers,
+                config.vit_heads, config.vit_mlp_dim,
+                gelu_approximate=config.vit_gelu_approximate, fused_mlp=config.vit_fused_mlp,
+                flash=config.flash_attention,
+            )
+        else:
+            raise ValueError(f"unknown image tower {config.image_tower!r}")
         self.text_tower = BertEncoder(
             vocab_size=config.vocab_size, hidden=config.text_embedding_dim,
             layers=config.text_layers, heads=config.text_heads,
@@ -91,10 +102,11 @@ class CXRClip(nn.Module):
 
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Seeded random weights: linear and embedding N(0, 0.02) (BERT's init),
-    conv He-normal over fan-out (torchvision's), zero biases, unit norms,
-    BatchNorm running statistics mean 0 / variance 1. ``generator`` must
-    live on the parameters' device."""
+    """Seeded random weights: linear, embedding, the ViT's packed attention
+    projection and position embedding N(0, 0.02) (BERT's init), conv
+    He-normal over fan-out (torchvision's), zero biases and class token, unit
+    norms, BatchNorm running statistics mean 0 / variance 1. ``generator``
+    must live on the parameters' device."""
     for m in model.modules():
         if isinstance(m, (nn.Linear, nn.Embedding)):
             m.weight.normal_(0.0, 0.02, generator=generator)
@@ -103,6 +115,14 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
         elif isinstance(m, nn.Conv2d):
             fan_out = m.out_channels * m.kernel_size[0] * m.kernel_size[1]
             m.weight.normal_(0.0, (2.0 / fan_out) ** 0.5, generator=generator)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, MultiheadSelfAttention):
+            m.in_proj_weight.normal_(0.0, 0.02, generator=generator)
+            m.in_proj_bias.zero_()
+        elif isinstance(m, ViT):
+            m.class_token.zero_()
+            m.encoder.pos_embedding.normal_(0.0, 0.02, generator=generator)
         elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)):
             m.weight.fill_(1.0)
             m.bias.zero_()

@@ -14,7 +14,10 @@ accepts:
 Names are the ones ``clip_for_dl_tpu/models/torch_export.py`` emits
 (torchvision ResNet, HF BertModel, the reference's head attributes) under
 the port's module prefixes; ``tests/test_torch_models.py`` holds the two
-equal.
+equal. A ViT image tower gets torchvision ``vit_b_16`` names, the ones the
+JAX ``import_torchvision_vit_b16`` reads (``tests/test_torch_vit.py`` holds
+the round trip): the patch Dense kernel [P·P·C, hidden] becomes
+``conv_proj.weight`` [hidden, C, P, P], and q/k/v stack into ``in_proj_*``.
 """
 
 from __future__ import annotations
@@ -89,6 +92,37 @@ def _bert(params, prefix: str) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def _vit(params, prefix: str) -> Dict[str, torch.Tensor]:
+    kernel = np.asarray(params["patch_embed"]["kernel"])  # [P·P·C, hidden], (P, P, C) order
+    n, hidden = kernel.shape
+    channels = 3  # the image prep's RGB output
+    patch = int(round((n / channels) ** 0.5))
+    sd = {
+        f"{prefix}.conv_proj.weight": _t(
+            kernel.reshape(patch, patch, channels, hidden).transpose(3, 2, 0, 1)),
+        f"{prefix}.conv_proj.bias": _t(params["patch_embed"]["bias"]),
+        f"{prefix}.class_token": _t(params["class_token"]),
+        f"{prefix}.encoder.pos_embedding": _t(params["pos_embedding"]),
+    }
+    sd.update(_norm(params["ln"], f"{prefix}.encoder.ln"))
+    layers = sorted((k for k in params if k.startswith("layer_")),
+                    key=lambda k: int(k.split("_")[1]))
+    for name in layers:
+        p = params[name]
+        dst = f"{prefix}.encoder.layers.encoder_layer_{name.split('_')[1]}"
+        qkv = [p[k] for k in ("q_proj", "k_proj", "v_proj")]
+        sd.update(_norm(p["ln_1"], f"{dst}.ln_1"))
+        sd[f"{dst}.self_attention.in_proj_weight"] = _t(
+            np.concatenate([np.asarray(t["kernel"]).T for t in qkv]))
+        sd[f"{dst}.self_attention.in_proj_bias"] = _t(
+            np.concatenate([np.asarray(t["bias"]) for t in qkv]))
+        sd.update(_linear(p["out_proj"], f"{dst}.self_attention.out_proj"))
+        sd.update(_norm(p["ln_2"], f"{dst}.ln_2"))
+        sd.update(_linear(p["mlp_1"], f"{dst}.mlp.0"))
+        sd.update(_linear(p["mlp_2"], f"{dst}.mlp.3"))
+    return sd
+
+
 def _projection(p, attr: str, prefix: str) -> Dict[str, torch.Tensor]:
     sd = _linear(p["projection"], f"{prefix}.{attr}")
     sd.update(_linear(p["fc"], f"{prefix}.fc"))
@@ -99,9 +133,15 @@ def _projection(p, attr: str, prefix: str) -> Dict[str, torch.Tensor]:
 def state_dict_from_jax(
     params: Mapping[str, Any], batch_stats: Mapping[str, Any]
 ) -> Dict[str, torch.Tensor]:
-    """flax CXRClip (params, batch_stats) → port ``CXRClip`` state dict."""
+    """flax CXRClip (params, batch_stats) → port ``CXRClip`` state dict.
+    A ViT image tower (recognized by its ``patch_embed``) has no batch
+    statistics."""
     sd: Dict[str, torch.Tensor] = {}
-    sd.update(_resnet(params["image_tower"], batch_stats["image_tower"], "image_tower"))
+    tower = params["image_tower"]
+    if "patch_embed" in tower:
+        sd.update(_vit(tower, "image_tower"))
+    else:
+        sd.update(_resnet(tower, batch_stats["image_tower"], "image_tower"))
     sd.update(_bert(params["text_tower"], "text_tower"))
     sd.update(_projection(params["image_projector"], "image_projection", "image_projector"))
     sd.update(_projection(params["text_projector"], "text_projection", "text_projector"))

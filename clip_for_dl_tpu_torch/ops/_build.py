@@ -57,6 +57,8 @@ _SIGNATURES = {
     "cxr_mlp_fwd": (_P,) * 6 + (_I,) * 3 + (_P,),
     # x, w1, b1, w2, dy, dx, g, dh, R, H, F, stream
     "cxr_mlp_bwd": (_P,) * 8 + (_I,) * 3 + (_P,),
+    # x, ln_scale, ln_bias, w1, b1, w2, b2, out, R, H, F, eps, approximate, stream
+    "cxr_mlp_block": (_P,) * 8 + (_I,) * 3 + (_F, _I, _P),
 }
 
 _lock = threading.Lock()

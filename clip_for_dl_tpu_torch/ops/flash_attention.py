@@ -32,9 +32,10 @@ from . import _build
 KERNEL = "cxr_flash_fwd_packed"
 KERNEL_BWD = "cxr_flash_bwd_packed"
 
-# The forward kernel keeps a query row's scores in registers, kMaxN / 32 per
-# lane, and a head's K and V in shared memory: 150 KB at N = 512 (D = 64),
-# within a Hopper block's 227 KB. Longer sequences need a tiled-KV kernel.
+# The kernels keep a query row's scores in registers, kMaxN / 32 per lane,
+# and one head's K (and at D = 64 also V) in shared memory: 148 KB at
+# N = 512 for D = 64 and 128, within a Hopper block's 227 KB. Longer
+# sequences need a tiled-KV kernel.
 MAX_SEQ_LEN = 512
 
 _M32 = 0xFFFFFFFF
@@ -289,8 +290,6 @@ def _kernel(qkv, heads, key_bias, *, dropout_rate=0.0, dropout_seeds=None):
 def _kernel_bwd(qkv, do, heads, key_bias, *, dropout_rate=0.0, dropout_seeds=None):
     B, N, HD3 = qkv.shape
     D, key_bias, seeds = _kernel_args(qkv, heads, key_bias, dropout_rate, dropout_seeds)
-    if D != 64:
-        raise ValueError(f"head dim {D} not supported by the backward kernel (64)")
     dev = qkv.device
     _build.check_tensor(do, "do", torch.bfloat16, (B, N, heads * D), dev)
     dqkv = torch.empty_like(qkv)

@@ -27,6 +27,11 @@ from . import _build
 
 KERNEL = "cxr_mlp_fwd"
 KERNEL_BWD = "cxr_mlp_bwd"
+# The kernels (B4, B8 and B9 in ops/mlp_block.py) are instantiated for every
+# hidden width that is a multiple of 128 up to this bound (CXR_MLP_WIDTHS in
+# csrc/common.cuh): their fp32 [32, H] accumulator lives in registers, at
+# 255 a thread and 8 bytes of spill in B8 at H = 1024.
+MAX_HIDDEN = 1024
 _INV_SQRT2 = 0.7071067811865476
 _INV_SQRT2PI = 0.3989422804014327
 
@@ -119,19 +124,31 @@ class _MLP(torch.autograd.Function):
         return dx, dw1, db1, dw2, db2
 
 
+def check_hidden(H: int) -> None:
+    """Raise unless hidden ``H`` is one the MLP kernels (B4, B8, B9) are
+    built for (CXR_MLP_WIDTHS)."""
+    if H % 128 or not 0 < H <= MAX_HIDDEN:
+        raise ValueError(f"hidden {H} not supported by the kernel: a multiple of 128 "
+                         f"up to MAX_HIDDEN = {MAX_HIDDEN}")
+
+
+def check_widths(H: int, F: int) -> None:
+    """Raise unless B4 and B8 take hidden ``H`` and intermediate ``F``."""
+    check_hidden(H)
+    if F <= 0 or F % 64:
+        raise ValueError(f"intermediate {F} must be a positive multiple of 64")
+
+
 def _check_kernel_args(x, w1, b1, w2):
     R, H = x.shape
     F = w1.shape[0]
+    check_widths(H, F)
     dev = x.device
     bf = torch.bfloat16
     _build.check_tensor(x, "x", bf, align=16)
     _build.check_tensor(w1, "w1", bf, (F, H), dev, align=32)
     _build.check_tensor(b1, "b1", bf, (F,), dev, align=2)
     _build.check_tensor(w2, "w2", bf, (H, F), dev, align=32)
-    if H not in (512, 768, 1024):
-        raise ValueError(f"hidden {H} not supported by the kernel (512, 768, 1024)")
-    if F % 64:
-        raise ValueError(f"intermediate {F} must be a multiple of 64")
     return R, H, F
 
 

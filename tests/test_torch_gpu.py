@@ -16,6 +16,7 @@ import torch
 
 from clip_for_dl_tpu_torch.ops import flash_attention as fa
 from clip_for_dl_tpu_torch.ops import image_prep as prep
+from clip_for_dl_tpu_torch.ops import mlp_block
 from clip_for_dl_tpu_torch.ops import mlp_train as mlp
 from clip_for_dl_tpu_torch.ops import similarity as sim
 
@@ -197,9 +198,9 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="dropout_seeds"):
         fa.flash_attention_packed(torch.zeros(2, 8, 6 * 64, device=cuda,
                                               dtype=torch.bfloat16), 2, dropout_rate=0.1)
-    with pytest.raises(ValueError, match="backward kernel"):
-        fa._kernel_bwd(torch.zeros(2, 8, 6 * 128, device=cuda, dtype=torch.bfloat16),
-                       torch.zeros(2, 8, 2 * 128, device=cuda, dtype=torch.bfloat16), 2, None)
+    with pytest.raises(ValueError, match="head dim"):
+        fa._kernel_bwd(torch.zeros(2, 8, 6 * 96, device=cuda, dtype=torch.bfloat16),
+                       torch.zeros(2, 8, 2 * 96, device=cuda, dtype=torch.bfloat16), 2, None)
     with pytest.raises(TypeError):
         fa._kernel_bwd(torch.zeros(2, 8, 6 * 64, device=cuda, dtype=torch.bfloat16),
                        torch.zeros(2, 8, 2 * 64, device=cuda), 2, None)
@@ -212,3 +213,145 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="multiple of 64"):
         mlp._kernel_bwd(*(torch.zeros(s, device=cuda, dtype=torch.bfloat16)
                           for s in ((4, 768), (96, 768), (96,), (768, 96), (4, 768))))
+    with pytest.raises(TypeError):  # B9 takes bf16 activations only
+        mlp_block.fused_mlp_block(*_block_inputs(cuda, 4, 128, 256, torch.float32))
+
+
+# ---------------------------------------------------------------------------
+# Repairs of ROADMAP queue C: head dim 128 at N = 512 (B3, B6), MLP widths (B4, B8)
+# ---------------------------------------------------------------------------
+
+
+def _attention_inputs(cuda, B, N, H, D, seed=0):
+    g = torch.Generator(cuda).manual_seed(seed)
+    qkv = torch.randn(B, N, 3 * H * D, device=cuda, generator=g).bfloat16()
+    do = torch.randn(B, N, H * D, device=cuda, generator=g).bfloat16()
+    lengths = torch.randint(1, N + 1, (B, 1), device=cuda, generator=g)
+    bias = torch.where(torch.arange(N, device=cuda)[None] < lengths, 0.0, -1e10)
+    return qkv, do, bias
+
+
+def test_flash_attention_kernel_head_dim_128_at_512(cuda):
+    """ROADMAP C1: B3 at (B, N, H, D) = (2, 512, 2, 128) with padded keys,
+    where K and V in shared memory would exceed a block's 227 KB; bf16
+    output within two bf16 steps (2e-2)."""
+    qkv, _, bias = _attention_inputs(cuda, 2, 512, 2, 128)
+    got = fa.flash_attention_packed(qkv, 2, bias)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(),
+                               fa.flash_attention_packed_reference(qkv, 2, bias).float(),
+                               atol=2e-2, rtol=0)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_flash_attention_bwd_kernel_head_dim_128_at_512(cuda, rate):
+    """ROADMAP C2: B6 at (2, 512, 2, 128) with padded keys, rates 0 and
+    0.1: dqkv within two bf16 steps at the largest gradient, and with
+    dropout the mask equal to the plain version's (probe inputs as in
+    chip_smoke.py's dropout_probe: q = k = 0, one-hot v and d(out))."""
+    B, N, H, D = 2, 512, 2, 128
+    qkv, do, bias = _attention_inputs(cuda, B, N, H, D)
+    seeds = _seeds(cuda, B) if rate else None
+    got = fa._kernel_bwd(qkv, do, H, bias, dropout_rate=rate, dropout_seeds=seeds)
+    want = fa.flash_attention_packed_bwd_reference(qkv, do, H, bias, dropout_rate=rate,
+                                                   dropout_seeds=seeds)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=_rel_tol(want), rtol=0)
+    if rate:
+        pos = torch.arange(N, device=cuda)
+        window = (pos // D)[None] == torch.arange(B, device=cuda)[:, None]  # [B, N]
+        onehot = torch.nn.functional.one_hot(pos % D, D).float()
+        pq = torch.zeros(B, N, 3, H, D, device=cuda)
+        pq[:, :, 2] = (onehot[None] * window[..., None])[:, :, None, :]
+        pdo = (onehot[None] * window[..., None])[:, :, None, :].expand(B, N, H, D)
+        pq = pq.reshape(B, N, 3 * H * D).bfloat16()
+        pdo = pdo.reshape(B, N, H * D).bfloat16()
+        pbias = torch.where(window, 0.0, -1e10)
+        gdv = fa._kernel_bwd(pq, pdo, H, pbias, dropout_rate=rate, dropout_seeds=seeds)
+        wdv = fa.flash_attention_packed_bwd_reference(pq, pdo, H, pbias, dropout_rate=rate,
+                                                      dropout_seeds=seeds)
+        gdv, wdv = (t.view(B, N, 3, H, D)[:, :, 2] for t in (gdv, wdv))
+        assert torch.equal(gdv != 0, wdv != 0)
+        assert 0.8 < float((wdv != 0).sum()) / (B * D * D * H) < 0.97
+
+
+def test_mlp_kernels_at_hidden_256(cuda):
+    """ROADMAP C3: B4 and B8 at hidden 256 (once refused: only 512, 768,
+    1024 were instantiated), 100 rows, F = 512: B4 within 2e-2, B8's
+    (dx, g, dh) within two bf16 steps at each output's largest entry."""
+    R, H, F = 100, 256, 512
+    gen = torch.Generator(cuda).manual_seed(4)
+    x = torch.randn(R, H, device=cuda, generator=gen).bfloat16()
+    w1 = (torch.randn(F, H, device=cuda, generator=gen) * H ** -0.5).bfloat16()
+    b1 = (torch.randn(F, device=cuda, generator=gen) * 0.1).bfloat16()
+    w2 = (torch.randn(H, F, device=cuda, generator=gen) * F ** -0.5).bfloat16()
+    b2 = (torch.randn(H, device=cuda, generator=gen) * 0.1).bfloat16()
+    dy = torch.randn(R, H, device=cuda, generator=gen).bfloat16()
+    with torch.no_grad():
+        got = mlp.dense_gelu_dense(x, w1, b1, w2, b2)
+    torch.testing.assert_close(got.float(),
+                               mlp.dense_gelu_dense_reference(x, w1, b1, w2, b2).float(),
+                               atol=2e-2, rtol=0)
+    for name, a, b in zip(("dx", "g", "dh"), mlp._kernel_bwd(x, w1, b1, w2, dy),
+                          mlp.dense_gelu_dense_bwd_reference(x, w1, b1, w2, dy)):
+        torch.testing.assert_close(a.float(), b.float(), atol=_rel_tol(b), rtol=0, msg=name)
+
+
+# ---------------------------------------------------------------------------
+# B9: the fused LayerNorm-MLP block
+# ---------------------------------------------------------------------------
+
+
+def _block_inputs(cuda, R, H, F, dtype=torch.bfloat16, seed=0):
+    """x in the compute dtype, bf16 weights, fp32 LayerNorm parameters and
+    biases (what the ViT layer hands over); every bias and LayerNorm
+    parameter at std 0.1, so that each moves the output by more than the
+    tolerance."""
+    g = torch.Generator(cuda).manual_seed(seed)
+    x = torch.randn(R, H, device=cuda, generator=g).to(dtype)
+    ls = 1.0 + 0.1 * torch.randn(H, device=cuda, generator=g)
+    lb = 0.1 * torch.randn(H, device=cuda, generator=g)
+    w1 = (torch.randn(F, H, device=cuda, generator=g) * H ** -0.5).bfloat16()
+    b1 = 0.1 * torch.randn(F, device=cuda, generator=g)
+    w2 = (torch.randn(H, F, device=cuda, generator=g) * F ** -0.5).bfloat16()
+    b2 = 0.1 * torch.randn(H, device=cuda, generator=g)
+    return x, ls, lb, w1, b1, w2, b2
+
+
+@pytest.mark.parametrize("approximate", [False, True], ids=["erf", "tanh"])
+@pytest.mark.parametrize("R,H,F", [(50432, 768, 3072), (197, 768, 3072), (33, 128, 256),
+                                   (70, 1024, 512)])
+def test_mlp_block_kernel(cuda, R, H, F, approximate):
+    """B9 vs its plain version: the ViT-B/16 serving shape (256 images of
+    197 tokens), one request's 197 rows, R not a multiple of the 32-row tile,
+    the narrowest and widest hidden. The MLP branch out - x within two bf16
+    steps at its largest entry (the residual, which both sides add, would
+    set the scale of a tolerance on out): a summation-order flip of the
+    GELU or o rounding moves out by at most one step of o, the residual's
+    rounding by one step of out (|out| < 8 at x ~ N(0, 1))."""
+    args = _block_inputs(cuda, R, H, F)
+    with torch.no_grad():
+        got = mlp_block.fused_mlp_block(*args, gelu_approximate=approximate)
+    want = mlp_block.fused_mlp_block_reference(*args, gelu_approximate=approximate)
+    assert got.shape == (R, H) and got.dtype == torch.bfloat16
+    assert torch.isfinite(got.float()).all()
+    x = args[0].float()
+    branch = want.float() - x
+    torch.testing.assert_close(got.float() - x, branch, atol=_rel_tol(branch), rtol=0)
+
+
+def test_mlp_block_trainable_on_the_card(cuda):
+    """The trainable form launches B9 forward and gives the plain
+    version's gradients (the backward is the plain version's autograd)."""
+    from clip_for_dl_tpu_torch.ops import _build
+
+    args = [t.clone().requires_grad_() for t in _block_inputs(cuda, 40, 256, 512, seed=2)]
+    before = _build.LAUNCHES[mlp_block.KERNEL]
+    out = mlp_block.fused_mlp_block_trainable(*args)
+    assert _build.LAUNCHES[mlp_block.KERNEL] == before + 1
+    ct = torch.randn(out.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(3))
+    (out.float() * ct).sum().backward()
+    ref = [t.detach().clone().requires_grad_() for t in args]
+    (mlp_block.fused_mlp_block_reference(*ref).float() * ct).sum().backward()
+    for a, b in zip(args, ref):
+        torch.testing.assert_close(a.grad, b.grad, atol=1e-6, rtol=0)

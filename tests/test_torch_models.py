@@ -207,7 +207,9 @@ def test_init_weights_is_seeded_and_casts_keep_norms_fp32():
 
 
 def test_unported_variants_raise():
-    with pytest.raises(NotImplementedError):
-        CXRClip(ModelConfig(**TINY).with_vit())
+    """The ViT tower is ported (tests/test_torch_vit.py); its training MLP
+    and multimodal attention are not."""
+    with pytest.raises(NotImplementedError, match="A8"):
+        CXRClip(dataclasses.replace(ModelConfig(**TINY).with_vit(), vit_fused_mlp_train=True))
     with pytest.raises(NotImplementedError):
         CXRClip(dataclasses.replace(ModelConfig(**TINY), use_multimodal_attention=True))

@@ -23,6 +23,7 @@ jmlp = importlib.import_module("clip_for_dl_tpu.ops.mlp_train")
 jsim = importlib.import_module("clip_for_dl_tpu.ops.similarity")
 from clip_for_dl_tpu_torch.ops import flash_attention as fa
 from clip_for_dl_tpu_torch.ops import image_prep as prep
+from clip_for_dl_tpu_torch.ops import mlp_block
 from clip_for_dl_tpu_torch.ops import mlp_train as mlp
 from clip_for_dl_tpu_torch.ops import similarity as sim
 
@@ -185,7 +186,11 @@ def _meta(*shape, dtype=torch.float32):
                                  _meta(3072, dtype=torch.bfloat16),
                                  _meta(768, 3072, dtype=torch.bfloat16),
                                  _meta(768, dtype=torch.bfloat16)),
-], ids=["similarity", "image_prep", "flash_attention", "mlp"])
+    lambda: mlp_block.fused_mlp_block(_meta(4, 768, dtype=torch.bfloat16), _meta(768),
+                                      _meta(768), _meta(3072, 768, dtype=torch.bfloat16),
+                                      _meta(3072), _meta(768, 3072, dtype=torch.bfloat16),
+                                      _meta(768)),
+], ids=["similarity", "image_prep", "flash_attention", "mlp", "mlp_block"])
 def test_non_cpu_tensor_takes_the_kernel_path_or_raises(call):
     with pytest.raises(ValueError, match="CUDA tensor"):
         call()
@@ -202,10 +207,50 @@ def test_non_cpu_tensor_takes_the_kernel_path_or_raises(call):
                            torch.zeros(2, 8, 2 * 64, dtype=torch.bfloat16), 2, None),
     lambda: mlp._kernel_bwd(*(torch.zeros(s, dtype=torch.bfloat16)
                               for s in ((4, 768), (3072, 768), (3072,), (768, 3072), (4, 768)))),
-], ids=["similarity", "image_prep", "flash_attention", "mlp", "flash_attention_bwd", "mlp_bwd"])
+    lambda: mlp_block._kernel(torch.zeros(4, 768, dtype=torch.bfloat16), torch.ones(768),
+                              torch.zeros(768), torch.zeros(3072, 768, dtype=torch.bfloat16),
+                              torch.zeros(3072), torch.zeros(768, 3072, dtype=torch.bfloat16),
+                              torch.zeros(768), eps=1e-6, gelu_approximate=False),
+], ids=["similarity", "image_prep", "flash_attention", "mlp", "flash_attention_bwd", "mlp_bwd",
+        "mlp_block"])
 def test_kernel_path_on_cpu_raises(call):
     with pytest.raises(ValueError, match="CUDA tensor"):
         call()
+
+
+def _mlp_at(H, F=256):
+    x, w1, b1, w2 = (torch.zeros(s, dtype=torch.bfloat16) for s in ((4, H), (F, H), (F,), (H, F)))
+    return x, w1, b1, w2, torch.zeros(4, H, dtype=torch.bfloat16), torch.zeros(H)
+
+
+@pytest.mark.parametrize("call", [
+    lambda x, w1, b1, w2, dy, f: mlp._kernel(x, w1, b1, w2, dy[0]),
+    lambda x, w1, b1, w2, dy, f: mlp._kernel_bwd(x, w1, b1, w2, dy),
+    lambda x, w1, b1, w2, dy, f: mlp_block._kernel(x, f + 1, f, w1, b1.float(), w2, f,
+                                                   eps=1e-6, gelu_approximate=False),
+], ids=["mlp", "mlp_bwd", "mlp_block"])
+@pytest.mark.parametrize("H", [1152, 192])
+def test_mlp_kernels_name_their_width_bound(call, H):
+    """ROADMAP C3: B4, B8 and B9 take every hidden width that is a multiple
+    of 128 up to MAX_HIDDEN = 1024 (CXR_MLP_WIDTHS); anything else raises a
+    ValueError naming the bound before any launch, as MAX_SEQ_LEN does for
+    attention. 1024 is the bound: the fp32 [32, H] accumulator lives in 255
+    registers a thread."""
+    assert mlp.MAX_HIDDEN == 1024
+    with pytest.raises(ValueError, match="MAX_HIDDEN = 1024"):
+        call(*_mlp_at(H))
+
+
+@pytest.mark.parametrize("H", [128, 256, 384, 512, 640, 768, 896, 1024])
+def test_mlp_kernels_take_every_width_to_the_bound(H):
+    """ROADMAP C3: each multiple of 128 up to 1024 passes B4's, B8's and
+    B9's width check and reaches the device check (the kernels run in
+    tests/test_torch_gpu.py)."""
+    for call in (lambda *a: mlp._kernel(*a[:4], a[4][0]), lambda *a: mlp._kernel_bwd(*a[:5]),
+                 lambda x, w1, b1, w2, dy, f: mlp_block._kernel(
+                     x, f + 1, f, w1, b1.float(), w2, f, eps=1e-6, gelu_approximate=False)):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            call(*_mlp_at(H))
 
 
 @pytest.mark.parametrize("call", [
