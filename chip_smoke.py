@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's zero-shot serving paths (ResNet-50 and ViT-B/16)
-and its phase-A train step once on one CUDA GPU.
+"""Drive the PyTorch port's zero-shot serving paths (ResNet-50 and ViT-B/16),
+its phase-A train step, its split-q/k/v attention entry point and the chain
+pretrain -> adapter (phase B) once on one CUDA GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -10,13 +11,22 @@ Phases (any failure exits non-zero and prints no result line):
 1. Build: compile the port's kernels (clip_for_dl_tpu_torch/csrc/*.cu) with
    nvcc for sm_90a, one nvcc per source, all at once; print the build time
    and ptxas' per-kernel summary.
-2. Kernels: each of B1-B4, B6, B8 and B9 against its plain PyTorch version
-   on the card at the main paths' shapes (B3 also with dropout 0.1 at the
-   train shape, its dropout mask compared bit for bit, and at the ViT shape;
-   B6 at rates 0 and 0.1; B9 with exact and tanh GELU and at one request's
-   197 rows); then the widths ROADMAP C1-C3 repaired: B3 and B6 at head dim
-   128 and N = 512, B4 and B8 at hidden 256. Max abs/rel difference against
-   the tolerance below, and both times from CUDA events after warm-up.
+2. Kernels: each of B1-B9 against its plain PyTorch version on the card at
+   the main paths' shapes (B3 also with dropout 0.1 at the train shape, its
+   dropout mask compared bit for bit, and at the ViT shape; B6 at rates 0
+   and 0.1; B9 with exact and tanh GELU and at one request's 197 rows); then
+   the widths ROADMAP C1-C3 repaired: B3 and B6 at head dim 128 and N = 512,
+   B4 and B8 at hidden 256; then the split form: B5 and B7 at the BERT shape
+   (128, 200, 12, 64) in both layouts at rates 0 and 0.1 (dropout masks bit
+   for bit), bit-equal to B3 and B6 on the same heads, and at D = 128,
+   N = 512; the split entry point with autograd (the split_attention path);
+   and the layout probe P1 (tools/probe_bwd_layouts.py: B6, B7 "bnhd" and B7
+   "bhnd" bit-equal; the layout_probe path). Max abs/rel difference against
+   the tolerance below, both times from CUDA events after warm-up, the bound
+   (the larger of the bytes each call must move over 3.35 TB/s and its
+   operations over the dense peak of their type), and for attention the
+   time of F.scaled_dot_product_attention (forward, or its backward) on the
+   same inputs at rate 0.
 3. Slice: the full-width CXRClip (ResNet-50, BERT-base at vocab 28996,
    512-d heads; random weights from --seed) in bf16 with flash attention and
    the fused BERT MLP, wrapped in ZeroShotEngine: prompt bank ("prediction"
@@ -43,6 +53,20 @@ Phases (any failure exits non-zero and prints no result line):
    fused ViT MLP block (B9), flash attention in both towers and the fused
    BERT MLP, bf16, random weights from --seed; the same checks, B9 among the
    kernels the path must launch.
+6. Chain: phase A, the ``pretrain_clip`` model of phase 4 through ``fit``
+   for one epoch of CHAIN_STEPS steps at TRAIN_BATCH with a one-batch
+   validation and a CheckpointManager in a temporary directory (the
+   pretrain_fit path); then phase B, ``restore_variables`` of that epoch into
+   the ``adapter`` preset's model and ``fit`` with the adapter steps for 2
+   epochs of CHAIN_STEPS steps on one fixed batch with 16-label multi-hot
+   targets from --seed, eval each epoch and best-1 retention, a
+   PreemptionGuard triggered after step 2 of a third epoch (the adapter
+   path). Checks the towers and BatchNorm statistics bit-equal, the adapter
+   moved, finite losses falling on the fixed batch, the retained epoch the
+   best by val loss, the preemption slot, ``resume_or_init`` bit-equal at
+   the JAX rule's epoch, a finite macro AUROC from ``run_eval``'s
+   probabilities, and B2 launched. Prints adapter samples/s, checkpoint save
+   ms and the peak device memory.
 
 The second-to-last line is the kernels JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -51,9 +75,11 @@ The second-to-last line is the kernels JSON; the last line is
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from contextlib import ExitStack
@@ -125,18 +151,34 @@ KERNELS = {  # name -> (wrapper module, entry attribute, CUDA source, TPU kernel
                 "clip_for_dl_tpu/ops/mlp_train.py:112"),
     "mlp_block": ("mlp_block", "KERNEL", "clip_for_dl_tpu_torch/csrc/mlp_block.cu",
                   "clip_for_dl_tpu/ops/mlp_block.py:78"),
+    "flash_attention_split": ("flash_attention", "KERNEL_SPLIT",
+                              "clip_for_dl_tpu_torch/csrc/flash_attention.cu",
+                              "clip_for_dl_tpu/ops/flash_attention.py:278"),
+    "flash_attention_split_bwd": ("flash_attention", "KERNEL_SPLIT_BWD",
+                                  "clip_for_dl_tpu_torch/csrc/flash_attention_bwd.cu",
+                                  "clip_for_dl_tpu/ops/flash_attention.py:343"),
 }
+TRAIN_KERNELS = ("image_prep", "flash_attention", "flash_attention_bwd", "mlp", "mlp_bwd")
 PATHS = {  # main path -> the kernels it must launch
     "serve": ("similarity", "image_prep", "flash_attention", "mlp"),
-    "train": ("image_prep", "flash_attention", "flash_attention_bwd", "mlp", "mlp_bwd"),
+    "train": TRAIN_KERNELS,
     "serve_vit": ("similarity", "image_prep", "flash_attention", "mlp", "mlp_block"),
+    "split_attention": ("flash_attention_split", "flash_attention_split_bwd"),
+    "layout_probe": ("flash_attention_bwd", "flash_attention_split_bwd"),
+    "pretrain_fit": TRAIN_KERNELS,
+    "adapter": ("image_prep",),
 }
+# H100 SXM peaks (NVIDIA's data sheet, dense): bf16 on the tensor cores and
+# fp32 on the CUDA cores, in operations a second; HBM3 in bytes a second
+PEAK = {"bf16": 989e12, "fp32": 67e12}
+HBM_BYTES_PER_S = 3.35e12
 VIT_TOKENS = 197  # ViT-B/16 at 224: 14 x 14 patches and the class token
 BATCH = 256  # images per zero-shot batch (512x512 grey uint8)
 N_BATCHES = 6  # batches per streamed run
 TRAIN_BATCH = 128  # image-report pairs per train step
 TRAIN_STEPS = 10  # steps on one fixed batch
 TRAIN_LEN = 200  # report tokens (the preset's max_text_length)
+CHAIN_STEPS = 4  # steps per epoch of phase 6's fits
 
 
 class SmokeFailure(RuntimeError):
@@ -192,6 +234,44 @@ def cuda_ms(fn, warmup: int = 3, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def set_bound(results: dict, name: str, flops: float, tensors, peak: str = "bf16") -> None:
+    """The least time the card could take for one call: the larger of the
+    bytes it must move (each input read once, each output written once) over
+    the HBM rate and its operations over the dense peak of ``peak``."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    t_ops, t_bytes = flops / PEAK[peak], nbytes / HBM_BYTES_PER_S
+    results[name].update(bound_ms=max(t_ops, t_bytes) * 1e3,
+                         bound_by="operations" if t_ops > t_bytes else "bytes")
+    print(f"  {name} bound: {results[name]['bound_ms']:.4f} ms by {results[name]['bound_by']} "
+          f"({flops / 1e9:.2f} G{peak} operations, {nbytes / 1e6:.1f} MB)")
+
+
+def sdpa_ms(q, k, v, bias, do=None) -> float:
+    """Time of one PyTorch call for the same attention at rate 0 on
+    head-major q, k, v: F.scaled_dot_product_attention with the key bias as
+    a [B, 1, 1, N] float mask; with ``do``, the time of its backward alone.
+    A yardstick only: the port never calls it."""
+    import torch
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    mask = bias.to(q.dtype)[:, None, None, :]
+    if do is None:
+        ms = cuda_ms(lambda: sdpa(q, k, v, attn_mask=mask), iters=10)
+    else:
+        xs = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = sdpa(*xs, attn_mask=mask)
+        ms = cuda_ms(lambda: torch.autograd.grad(out, xs, do, retain_graph=True), iters=10)
+    print(f"  F.scaled_dot_product_attention{' backward' if do is not None else ''} at "
+          f"{tuple(q.shape)}, rate 0: {ms:.4f} ms")
+    return ms
+
+
+def heads_of(qkv, H: int):
+    """Head-major [B, H, N, D] views of a packed qkv's q, k and v."""
+    B, N, _ = qkv.shape
+    return qkv.view(B, N, 3, H, -1).permute(2, 0, 3, 1, 4).unbind(0)
+
+
 def compare(name, got, want, tol, results):
     import torch
 
@@ -223,6 +303,9 @@ def phase2(mods, dev, seed: int, batch: int, results: dict) -> None:
             sim.similarity_reference(img, txt, 0.5), TOL["similarity"], results)
     results["similarity"]["ms"] = cuda_ms(lambda: sim.similarity(img, txt, 0.5))
     results["similarity"]["plain_ms"] = cuda_ms(lambda: sim.similarity_reference(img, txt, 0.5))
+    # the product, and a square, a sum and a scale per input value
+    set_bound(results, "similarity", 2 * batch * 16 * 512 + 3 * (batch + 16) * 512,
+              (img, txt, sim.similarity(img, txt, 0.5)), "fp32")
 
     print(f"B2 image prep: [{batch}, 512, 512, 1] uint8 -> [{batch}, 224, 224, 3] bf16; "
           "and [8, 224, 224, 3] identity")
@@ -242,6 +325,10 @@ def phase2(mods, dev, seed: int, batch: int, results: dict) -> None:
         lambda: prep.preprocess_images(grey, 224, 224, mean, std))
     results["image_prep"]["plain_ms"] = cuda_ms(
         lambda: prep.preprocess_reference(grey, 224, 224, mean, std))
+    out = prep.preprocess_images(grey, 224, 224, mean, std)
+    # per output value: a 2x2 bilinear blend (4 multiply-adds) and a scale
+    # and shift
+    set_bound(results, "image_prep", 10 * out.numel(), (grey, out), "fp32")
 
     print("B3 attention: qkv [64, 200, 2304] bf16, 12 heads of 64, padded keys")
     qkv = torch.randn(64, 200, 3 * 768, device=dev, generator=g).bfloat16()
@@ -253,6 +340,9 @@ def phase2(mods, dev, seed: int, batch: int, results: dict) -> None:
     results["flash_attention"]["ms"] = cuda_ms(lambda: fa.flash_attention_packed(qkv, 12, bias))
     results["flash_attention"]["plain_ms"] = cuda_ms(
         lambda: fa.flash_attention_packed_reference(qkv, 12, bias))
+    set_bound(results, "flash_attention", 4 * 64 * 12 * 200 * 200 * 64,
+              (qkv, bias, fa.flash_attention_packed(qkv, 12, bias)))
+    results["flash_attention"]["library_ms"] = sdpa_ms(*heads_of(qkv, 12), bias)
 
     print("B4 MLP: x [12800, 768] bf16, W1 [3072, 768], W2 [768, 3072]")
     x = torch.randn(12800, 768, device=dev, generator=g).bfloat16()
@@ -265,6 +355,8 @@ def phase2(mods, dev, seed: int, batch: int, results: dict) -> None:
     results["mlp"]["ms"] = cuda_ms(lambda: mlp.dense_gelu_dense(x, w1, b1, w2, b2), iters=10)
     results["mlp"]["plain_ms"] = cuda_ms(
         lambda: mlp.dense_gelu_dense_reference(x, w1, b1, w2, b2), iters=10)
+    set_bound(results, "mlp", 4 * 12800 * 768 * 3072,
+              (x, w1, b1, w2, b2, mlp.dense_gelu_dense(x, w1, b1, w2, b2)))
     del x
 
     print(f"B3 attention at the ViT shape: qkv [{batch}, {VIT_TOKENS}, 2304] bf16, no key bias")
@@ -313,6 +405,7 @@ def check_mlp_block(blk, dev, seed: int, rows: int, results: dict) -> None:
     results["mlp_block"]["ms"] = cuda_ms(lambda: blk.fused_mlp_block(*args), iters=10)
     results["mlp_block"]["plain_ms"] = cuda_ms(
         lambda: blk.fused_mlp_block_reference(*args), iters=10)
+    set_bound(results, "mlp_block", 4 * rows * H * F, args + (blk.fused_mlp_block(*args),))
     extra_times(f"B9 at one request ({VIT_TOKENS} rows)", lambda: blk.fused_mlp_block(*one),
                 lambda: blk.fused_mlp_block_reference(*one))
 
@@ -393,6 +486,11 @@ def phase2_train(mods, dev, seed: int, results: dict) -> None:
         lambda: fa._kernel_bwd(qkv, do, H, bias, **drop), iters=10)
     results["flash_attention_bwd"]["plain_ms"] = cuda_ms(
         lambda: fa.flash_attention_packed_bwd_reference(qkv, do, H, bias, **drop), iters=10)
+    # five products of 2·N²·D a head: s, dp, dv, dq, dk
+    set_bound(results, "flash_attention_bwd", 10 * B * H * N * N * D,
+              (qkv, do, bias, drop["dropout_seeds"], fa._kernel_bwd(qkv, do, H, bias, **drop)))
+    results["flash_attention_bwd"]["library_ms"] = sdpa_ms(
+        *heads_of(qkv, H), bias, do.view(B, N, H, D).transpose(1, 2))
 
     R, HID, F = B * N, 768, 3072
     print(f"B8 MLP backward: x, dy [{R}, {HID}] bf16, W1 [{F}, {HID}], W2 [{HID}, {F}]")
@@ -406,6 +504,8 @@ def phase2_train(mods, dev, seed: int, results: dict) -> None:
     for name, a_, b_ in zip(("dx", "g", "dh"), got, want):
         print(f"  {name}:", end="")
         compare("mlp_bwd", a_, b_, TOL["bwd_rel"] * float(b_.float().abs().max()), results)
+    # the kernel recomputes h = x·W1ᵀ, then g = dy·W2 and dx = dh·W1
+    set_bound(results, "mlp_bwd", 6 * R * HID * F, (x, w1, b1, w2, dy) + tuple(got))
     del got, want
     results["mlp_bwd"]["ms"] = cuda_ms(lambda: mlp._kernel_bwd(x, w1, b1, w2, dy), iters=5)
     results["mlp_bwd"]["plain_ms"] = cuda_ms(
@@ -467,6 +567,155 @@ def phase2_repairs(mods, dev, seed: int, results: dict) -> None:
     extra_times("C3: B8 at hidden 256", lambda: mlp._kernel_bwd(x, w1, b1, w2, dy),
                 lambda: mlp.dense_gelu_dense_bwd_reference(x, w1, b1, w2, dy))
 
+
+def split_operands(qkv, H: int, layout: str):
+    """q, k, v of a packed qkv in ``layout``: "bnhd" views of its column
+    blocks, or "bhnd" head-major contiguous copies."""
+    B, N, _ = qkv.shape
+    q, k, v = qkv.view(B, N, 3, H, -1).unbind(2)
+    if layout == "bhnd":
+        q, k, v = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    return q, k, v
+
+
+def as_bnhd(t, layout: str):
+    return t if layout == "bnhd" else t.transpose(1, 2)
+
+
+def head_major(t, layout: str):
+    """A split operand as [B, H, N, D] for the plain versions, and their
+    [B, H, N, D] results back in ``layout``."""
+    return t if layout == "bhnd" else t.transpose(1, 2)
+
+
+def phase2_split(_build, mods, dev, seed: int, results: dict) -> dict:
+    """B5 and B7 (the split form) against their plain versions and bit-equal
+    to B3 and B6, then the split entry point's main path and the layout
+    probe P1; returns the launches of both paths."""
+    import torch
+
+    from clip_for_dl_tpu_torch.tools import probe_bwd_layouts
+
+    fa = mods["flash_attention"]
+    g = torch.Generator(dev).manual_seed(seed + 6)
+
+    def check_shape(B, N, H, D, min_len):
+        qkv = torch.randn(B, N, 3 * H * D, device=dev, generator=g).bfloat16()
+        do = torch.randn(B, N, H * D, device=dev, generator=g).bfloat16()
+        lengths = torch.randint(min_len, N + 1, (B, 1), device=dev, generator=g)
+        bias = torch.where(torch.arange(N, device=dev)[None] < lengths, 0.0, -1e10)
+        drop = dict(dropout_rate=0.1, dropout_seeds=fa.dropout_seeds(g, B, dev))
+        for layout in ("bnhd", "bhnd"):
+            q, k, v = split_operands(qkv, H, layout)
+            dos = as_bnhd(do.view(B, N, H, D), layout).contiguous()
+            for kw in ({}, drop):
+                out = fa.flash_attention(q, k, v, bias, layout=layout, **kw)
+                want = fa.flash_attention_reference(
+                    *(head_major(t, layout) for t in (q, k, v)), bias, **kw)
+                compare("flash_attention_split", out, head_major(want, layout),
+                        TOL["flash_attention"], results)
+                check(torch.equal(as_bnhd(out, layout).reshape(B, N, H * D),
+                                  fa.flash_attention_packed(qkv, H, bias, **kw)),
+                      f"B5 ({layout}) differs from B3 on the same heads")
+                grads = fa.flash_attention_bwd(q, k, v, dos, bias, layout=layout, **kw)
+                plain = fa.flash_attention_bwd_reference(
+                    *(head_major(t, layout) for t in (q, k, v, dos)), bias, **kw)
+                packed = fa._kernel_bwd(qkv, do, H, bias, **kw).view(B, N, 3, H, D)
+                for i, (a_, b_) in enumerate(zip(grads, plain)):
+                    b_ = head_major(b_, layout)
+                    compare("flash_attention_split_bwd", a_, b_,
+                            TOL["bwd_rel"] * float(b_.float().abs().max()), results)
+                    check(torch.equal(as_bnhd(a_, layout), packed[:, :, i]),
+                          f"B7 ({layout}) differs from B6 on the same heads")
+        print(f"  B5 and B7 bit-equal to B3 and B6 at {(B, N, H, D)}, both layouts, "
+              "rates 0 and 0.1")
+        return qkv, do, bias, drop
+
+    B, N, H, D = TRAIN_BATCH, TRAIN_LEN, 12, 64
+    print(f"B5/B7 split attention: (B, N, H, D) = {(B, N, H, D)} bf16, padded keys, "
+          "layouts bnhd and bhnd, rates 0 and 0.1")
+    qkv, do, bias, drop = check_shape(B, N, H, D, 3)
+
+    pq, pdo, pbias = dropout_probe(B, N, H, D, dev)
+    for layout in ("bnhd", "bhnd"):
+        q, k, v = split_operands(pq, H, layout)
+        dos = as_bnhd(pdo.view(B, N, H, D), layout).contiguous()
+        out = as_bnhd(fa.flash_attention(q, k, v, pbias, layout=layout, **drop), layout)
+        want = fa.flash_attention_packed_reference(pq, H, pbias, **drop).view(B, N, H, D)
+        check(torch.equal(out != 0, want != 0), f"B5 ({layout}) dropout mask differs")
+        dv = as_bnhd(fa.flash_attention_bwd(q, k, v, dos, pbias, layout=layout, **drop)[2],
+                     layout)
+        wdv = fa.flash_attention_packed_bwd_reference(pq, pdo, H, pbias, **drop).view(
+            B, N, 3, H, D)[:, :, 2]
+        check(torch.equal(dv != 0, wdv != 0), f"B7 ({layout}) dropout mask differs")
+    print("  B5 and B7 dropout masks equal bit for bit in both layouts")
+
+    q, k, v = split_operands(qkv, H, "bnhd")
+    dos = do.view(B, N, H, D)
+    out = fa.flash_attention(q, k, v, bias, layout="bnhd", **drop)
+    grads = fa.flash_attention_bwd(q, k, v, dos, bias, layout="bnhd", **drop)
+    for name, kernel, plain, flops, io in (
+        ("flash_attention_split",
+         lambda: fa.flash_attention(q, k, v, bias, layout="bnhd", **drop),
+         lambda: fa.flash_attention_reference(*(t.transpose(1, 2) for t in (q, k, v)), bias,
+                                              **drop),
+         4 * B * H * N * N * D, (q, k, v, bias, drop["dropout_seeds"], out)),
+        ("flash_attention_split_bwd",
+         lambda: fa.flash_attention_bwd(q, k, v, dos, bias, layout="bnhd", **drop),
+         lambda: fa.flash_attention_bwd_reference(
+             *(t.transpose(1, 2) for t in (q, k, v, dos)), bias, **drop),
+         10 * B * H * N * N * D, (q, k, v, dos, bias, drop["dropout_seeds"]) + tuple(grads)),
+    ):
+        results[name]["ms"] = cuda_ms(kernel, iters=10)
+        results[name]["plain_ms"] = cuda_ms(plain, iters=10)
+        set_bound(results, name, flops, io)
+        print(f"  {name} (bnhd, rate 0.1): kernel {results[name]['ms']:.4f} ms  "
+              f"plain {results[name]['plain_ms']:.4f} ms")
+    heads = [t.transpose(1, 2) for t in (q, k, v)]
+    results["flash_attention_split"]["library_ms"] = sdpa_ms(*heads, bias)
+    results["flash_attention_split_bwd"]["library_ms"] = sdpa_ms(*heads, bias,
+                                                                 dos.transpose(1, 2))
+    qh, kh, vh = split_operands(qkv, H, "bhnd")
+    doh = dos.transpose(1, 2).contiguous()
+    extra_times("B5 (bhnd, rate 0.1)",
+                lambda: fa.flash_attention(qh, kh, vh, bias, layout="bhnd", **drop),
+                lambda: fa.flash_attention_reference(qh, kh, vh, bias, **drop))
+    extra_times("B7 (bhnd, rate 0.1)",
+                lambda: fa.flash_attention_bwd(qh, kh, vh, doh, bias, layout="bhnd", **drop),
+                lambda: fa.flash_attention_bwd_reference(qh, kh, vh, doh, bias, **drop))
+    del qkv, do, pq, pdo, grads, out
+
+    print("B5/B7 at (B, N, H, D) = (2, 512, 2, 128), padded keys")
+    check_shape(2, 512, 2, 128, 256)
+
+    by_path = {}
+    # -- the split entry point with autograd, counted ------------------------
+    qkv = torch.randn(B, N, 3 * H * D, device=dev, generator=g).bfloat16()
+    ct = torch.randn(B, N, H, D, device=dev, generator=g).bfloat16()
+    torch.cuda.synchronize(dev)
+    _build.reset_launches()
+    for layout in ("bnhd", "bhnd"):
+        xs = [t.detach().clone().requires_grad_() for t in split_operands(qkv, H, layout)]
+        out = fa.flash_attention(*xs, bias, layout=layout, **drop)
+        out.backward(as_bnhd(ct, layout))
+        check(all(torch.isfinite(x.grad.float()).all() for x in xs),
+              f"non-finite split gradients ({layout})")
+    torch.cuda.synchronize(dev)
+    by_path["split_attention"] = dict(_build.LAUNCHES)
+    print(f"launches on the split_attention path: {by_path['split_attention']}")
+    check_launched(mods, by_path["split_attention"], "split_attention")
+
+    # -- the layout probe P1, counted ----------------------------------------
+    print("P1 layout probe (tools/probe_bwd_layouts.py, dropout off):")
+    _build.reset_launches()
+    code = probe_bwd_layouts.main(["--batch", str(B), "--seq", str(N), "--heads", str(H),
+                                   "--dim", str(D), "--iters", "30"])
+    torch.cuda.synchronize(dev)
+    by_path["layout_probe"] = dict(_build.LAUNCHES)
+    check(code == 0, "the layout probe found a MISMATCH between B6 and B7's layouts")
+    print(f"launches on the layout_probe path: {by_path['layout_probe']}")
+    check_launched(mods, by_path["layout_probe"], "layout_probe")
+    return by_path
 
 def plain_kernels(mods, keep=()):
     """Test-only substitution: every kernel entry, forward and backward,
@@ -841,6 +1090,213 @@ def phase4(_build, mods, dev, seed: int, card: str) -> dict:
     return launches
 
 
+def chain_model(dev, seed: int, preset_name: str):
+    """The preset's model at full width with flash attention and the fused
+    BERT MLP, fp32 masters cast to bf16 in the forward, weights from seed."""
+    import dataclasses
+
+    import torch
+
+    from clip_for_dl_tpu_torch.core.config import get_preset
+    from clip_for_dl_tpu_torch.core.device import cast_in_forward
+    from clip_for_dl_tpu_torch.models import CXRClip, init_weights
+
+    preset = get_preset(preset_name)
+    cfg = dataclasses.replace(preset.model, flash_attention=True, bert_fused_mlp=True)
+    with torch.device(dev):
+        model = CXRClip(cfg)
+    init_weights(model, torch.Generator(dev).manual_seed(seed))
+    return preset, cfg, cast_in_forward(model, torch.bfloat16)
+
+
+def states_equal(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(torch_equal(a[k], b[k]) for k in a)
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and torch.equal(a, b)
+    if isinstance(a, dict):
+        return isinstance(b, dict) and states_equal(a, b)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(torch_equal(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def phase6(_build, mods, dev, seed: int, card: str) -> dict:
+    """The chain pretrain -> adapter through fit and CheckpointManager;
+    returns the launches of the pretrain_fit and adapter paths."""
+    import numpy as np
+    import torch
+
+    from clip_for_dl_tpu_torch.core.config import DISEASE_LABELS
+    from clip_for_dl_tpu_torch.evals import multilabel_metrics
+    from clip_for_dl_tpu_torch.text import BertTokenizer
+    from clip_for_dl_tpu_torch.text.tokenizer import build_dev_vocab
+    from clip_for_dl_tpu_torch.train import (
+        CheckpointManager, PreemptionGuard, TrainState, fit, make_adapter_eval_step,
+        make_adapter_train_step, make_clip_eval_step, make_clip_pretrain_step, make_label_fn,
+        make_optimizer, resume_or_init, run_eval,
+    )
+    from clip_for_dl_tpu_torch.train.checkpoint import model_state
+
+    rng = np.random.default_rng(seed + 7)
+    tokenizer = BertTokenizer(build_dev_vocab(DISEASE_LABELS))
+    batches = [train_batch(rng, tokenizer, dev) for _ in range(2)]
+    by_path = {}
+    save_ms = []
+
+    def timed_saves(mgr):
+        for name in ("save", "save_preempt"):
+            original = getattr(mgr, name)
+
+            def timed(*a, _original=original, **kw):
+                torch.cuda.synchronize(dev)
+                t = time.perf_counter()
+                _original(*a, **kw)
+                save_ms.append((time.perf_counter() - t) * 1e3)
+
+            setattr(mgr, name, timed)
+        return mgr
+
+    with tempfile.TemporaryDirectory(prefix="chain_") as tmp:
+        # -- phase A: pretrain through fit, one epoch ---------------------------
+        preset, cfg, model = chain_model(dev, seed, "pretrain_clip")
+        groups = [g.name for g in preset.train.groups]
+        label_fn = make_label_fn(groups)
+        opt = make_optimizer(model, label_fn, weight_decay=preset.train.weight_decay)
+        prep = dict(image_size=cfg.image_size, mean=preset.augment.mean,
+                    std=preset.augment.std, compute_dtype=torch.bfloat16)
+        step = make_clip_pretrain_step(model, opt, label_fn, temperature=cfg.temperature,
+                                       max_grad_norm=preset.train.max_grad_norm, **prep)
+        eval_step = make_clip_eval_step(model, temperature=cfg.temperature, **prep)
+        ckpt_a = timed_saves(CheckpointManager(f"{tmp}/pretrain", max_to_keep=1))
+        lrs = {**{g.name: g.lr for g in preset.train.groups}, "default": preset.train.lr}
+        print(f"phase A: pretrain_clip, fit for 1 epoch of {CHAIN_STEPS} steps at "
+              f"B = {TRAIN_BATCH}, scheduler {preset.train.scheduler}")
+        torch.cuda.synchronize(dev)
+        _build.reset_launches()
+        t = time.perf_counter()
+        state_a, hist_a = fit(
+            TrainState(model, opt), step, eval_step,
+            lambda: (batches[i % 2] for i in range(CHAIN_STEPS)), lambda: iter(batches[1:]),
+            base_lrs=lrs, num_epochs=1,
+            rng_stream=itertools.repeat(torch.Generator(dev).manual_seed(seed)),
+            scheduler=preset.train.scheduler, early_stop_patience=None, checkpointer=ckpt_a,
+            log_every=1)
+        torch.cuda.synchronize(dev)
+        by_path["pretrain_fit"] = dict(_build.LAUNCHES)
+        print(f"  history {hist_a.rows} in {time.perf_counter() - t:.1f} s; checkpoint save "
+              f"{[round(x, 1) for x in save_ms]} ms; launches {by_path['pretrain_fit']}")
+        check(len(hist_a.rows) == 1 and all(np.isfinite([hist_a.rows[0]["train_loss"],
+                                                         hist_a.rows[0]["val_loss"]])),
+              f"phase A history {hist_a.rows}")
+        check(ckpt_a.all_epochs() == [0] and state_a.step == CHAIN_STEPS,
+              f"phase A checkpoints {ckpt_a.all_epochs()}, step {state_a.step}")
+        check_launched(mods, by_path["pretrain_fit"], "pretrain_fit")
+        pretrained = {k: v.clone() for k, v in model_state(model).items()}
+        del model, opt, step, eval_step, state_a
+        torch.cuda.empty_cache()
+
+        # -- phase B: the adapter from the phase-A epoch --------------------------
+        preset_b, cfg_b, model_b = chain_model(dev, seed + 1, "adapter")
+        check(ckpt_a.restore_variables(model_b) is model_b, "no phase-A checkpoint to restore")
+        check(states_equal(model_state(model_b), pretrained),
+              "restore_variables did not give the phase-A weights")
+        del pretrained
+        label_b = make_label_fn([g.name for g in preset_b.train.groups])
+        opt_b = make_optimizer(model_b, label_b, weight_decay=preset_b.train.weight_decay)
+        prep_b = dict(image_size=cfg_b.image_size, mean=preset_b.augment.mean,
+                      std=preset_b.augment.std, compute_dtype=torch.bfloat16)
+        step_b = make_adapter_train_step(model_b, opt_b, label_b, **prep_b)
+        eval_b = make_adapter_eval_step(model_b, **prep_b)
+        labels = rng.random((TRAIN_BATCH, cfg_b.num_classes)) < 0.3
+        labels[0], labels[1] = True, False  # every class has both outcomes
+        batch = {"images": batches[0]["images"],
+                 "labels": torch.from_numpy(labels.astype(np.float32)).to(dev)}
+        before = model_state(model_b)
+        frozen = {k: v.clone() for k, v in before.items() if not k.startswith("adapter.")}
+        adapter0 = {k: v.clone() for k, v in before.items() if k.startswith("adapter.")}
+        guard = PreemptionGuard(signals=())
+        preempt_after = 2 * CHAIN_STEPS + 2
+        times, losses = [], []
+
+        def timed_step(state, b, lrs_, gen):
+            t0 = time.perf_counter()
+            state, metrics = step_b(state, b, lrs_, gen)
+            losses.append(float(metrics["loss"]))  # syncs the step
+            times.append(time.perf_counter() - t0)
+            if len(times) == preempt_after:
+                guard.trigger()
+            return state, metrics
+
+        ckpt_b = timed_saves(CheckpointManager(f"{tmp}/adapter", max_to_keep=1))
+        base_b = {"adapter": preset_b.train.lr, "default": 0.0}
+        print(f"phase B: adapter, fit for 2 epochs of {CHAIN_STEPS} steps at B = "
+              f"{TRAIN_BATCH}, best-1 retention, preemption after step 2 of epoch 2")
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        save_ms.clear()
+        _build.reset_launches()
+        state_b, hist_b = fit(
+            TrainState(model_b, opt_b), timed_step, eval_b,
+            lambda: itertools.repeat(batch, CHAIN_STEPS), lambda: iter([batch]),
+            base_lrs=base_b, num_epochs=3, rng_stream=itertools.repeat(None),
+            scheduler=preset_b.train.scheduler,
+            early_stop_patience=preset_b.train.early_stop_patience, checkpointer=ckpt_b,
+            preemption_guard=guard, log_every=1)
+        torch.cuda.synchronize(dev)
+        by_path["adapter"] = dict(_build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        steady = times[1:]
+        print(f"  history {hist_b.rows}")
+        print(f"  step losses {[round(x, 6) for x in losses]}")
+        print(f"adapter path on {card}: {TRAIN_BATCH * len(steady) / sum(steady):.1f} "
+              f"samples/s over steps 1-{len(times) - 1} (each synced; step 0 "
+              f"{times[0] * 1e3:.1f} ms); checkpoint saves {[round(x, 1) for x in save_ms]} ms; "
+              f"peak device memory {peak:.2f} GiB; launches {by_path['adapter']}")
+
+        after = model_state(model_b)
+        check(all(torch.equal(after[k], v) for k, v in frozen.items()),
+              "a tower parameter or BatchNorm statistic changed in phase B")
+        check(all(not torch.equal(after[k], v) for k, v in adapter0.items()),
+              "the adapter did not move")
+        check(len(losses) == preempt_after and all(np.isfinite(losses)),
+              f"phase B step losses {losses}")
+        val = [r["val_loss"] for r in hist_b.rows]
+        # Adam at the preset's lr 1e-3 overshoots on the fixed batch within
+        # an epoch, so the check is against the first step's loss
+        check(len(val) == 2 and losses[-1] < losses[0] and min(val) < losses[0],
+              f"phase B losses did not fall on the fixed batch: {losses}, val {val}")
+        best = 1 if val[1] <= val[0] else 0  # ties rank the newest best
+        check(ckpt_b.all_epochs() == [best] and ckpt_b.best_epoch() == best,
+              f"retained {ckpt_b.all_epochs()}, best {ckpt_b.best_epoch()}; val {val}")
+        check(ckpt_b.preempt_latest() == 2, f"preemption slot {ckpt_b.preempt_latest()}")
+        _, _, fresh = chain_model(dev, seed + 2, "adapter")
+        fresh_opt = make_optimizer(fresh, label_b, weight_decay=preset_b.train.weight_decay)
+        resumed, start = resume_or_init(ckpt_b, TrainState(fresh, fresh_opt))
+        # JAX's rule: a mid-epoch save newer than every kept epoch, no loader
+        # to replay into -> the next epoch
+        check(start == 3, f"resume_or_init started at epoch {start}, not 3")
+        check(resumed.step == state_b.step == preempt_after, f"step {resumed.step}")
+        check(states_equal(model_state(fresh), after), "resumed weights differ")
+        check(torch_equal(fresh_opt.state_dict(), opt_b.state_dict()),
+              "resumed optimizer state differs")
+        print(f"  retained epoch {ckpt_b.all_epochs()} (val {val}); preemption slot at "
+              f"epoch {ckpt_b.preempt_latest()}; resume_or_init -> epoch {start}, "
+              "state bit-equal")
+        del fresh, fresh_opt, resumed
+        ev = run_eval(eval_b, state_b, [batch])
+        metrics = multilabel_metrics(ev["probs"], ev["labels"], class_names=DISEASE_LABELS)
+        check(ev["probs"].shape == (TRAIN_BATCH, cfg_b.num_classes)
+              and np.isfinite(metrics["auroc_macro"]), f"run_eval metrics {metrics}")
+        print(f"  run_eval: loss {ev['loss']:.6f}, macro AUROC {metrics['auroc_macro']:.4f}, "
+              f"mAP {metrics['mAP']:.4f}")
+        check_launched(mods, by_path["adapter"], "adapter")
+    return by_path
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of weights and inputs")
@@ -872,7 +1328,7 @@ def main(argv=None) -> int:
     phase2(mods, dev, args.seed, BATCH, results)
     phase2_train(mods, dev, args.seed, results)
     phase2_repairs(mods, dev, args.seed, results)
-    by_path = {}
+    by_path = phase2_split(_build, mods, dev, args.seed, results)
     print("== phase 3: zero-shot serving, ResNet-50")
     by_path["serve"] = serve_phase(_build, mods, dev, args.seed, BATCH, N_BATCHES, card, "serve")
     print("== phase 4: the phase-A train step")
@@ -880,15 +1336,19 @@ def main(argv=None) -> int:
     print("== phase 5: zero-shot serving, ViT-B/16")
     by_path["serve_vit"] = serve_phase(_build, mods, dev, args.seed, BATCH, N_BATCHES, card,
                                        "serve_vit")
+    print("== phase 6: the chain pretrain -> adapter")
+    by_path.update(phase6(_build, mods, dev, args.seed, card))
 
     kernels = []
     for name, (module, attr, src, tpu) in KERNELS.items():
         entry = getattr(mods[module], attr)
         counts = {path: launches.get(entry, 0) for path, launches in by_path.items()}
+        r = results[name]
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": tpu,
                         "launches": sum(counts.values()), "launches_by_path": counts,
-                        "max_abs_err": results[name]["max_abs_err"],
-                        "ms": results[name]["ms"], "plain_ms": results[name]["plain_ms"]})
+                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": r.get("library_ms")})
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

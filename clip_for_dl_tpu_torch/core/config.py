@@ -6,8 +6,8 @@ is copied here field for field, default for default;
 ``tests/test_torch_zeroshot.py`` holds the two copies equal.
 
 Only the presets of the ported slices exist here: ``pretrain_clip`` (the
-notebook phase-A constants), ``zero_shot`` (phase C, which inherits them) and
-``vit`` (the ViT-B/16 vision variant).
+notebook phase-A constants), ``adapter`` (phase B), ``zero_shot`` (phase C,
+which inherits them) and ``vit`` (the ViT-B/16 vision variant).
 """
 
 from __future__ import annotations
@@ -211,6 +211,24 @@ def preset_pretrain_clip() -> ExperimentConfig:
     )
 
 
+def preset_adapter() -> ExperimentConfig:
+    """Notebook phase-B C-Adapter (02 nb cells 28-29): frozen CLIP + Linear
+    classifier, BCE, Adam lr 1e-3, 15 epochs."""
+    base = preset_pretrain_clip()
+    return base.replace(
+        name="adapter",
+        train=dataclasses.replace(
+            base.train,
+            num_epochs=15,
+            lr=1e-3,
+            weight_decay=0.0,
+            scheduler="none",
+            loss="bce",
+            groups=(OptimGroup("adapter", 1e-3),),
+        ),
+    )
+
+
 def preset_zero_shot() -> ExperimentConfig:
     """Zero-shot evaluation with the phase-A model constants."""
     return preset_pretrain_clip().replace(name="zero_shot")
@@ -237,6 +255,7 @@ def preset_vit() -> ExperimentConfig:
 
 PRESETS = {
     "pretrain_clip": preset_pretrain_clip,
+    "adapter": preset_adapter,
     "zero_shot": preset_zero_shot,
     "vit": preset_vit,
 }

@@ -61,6 +61,15 @@ __device__ __forceinline__ float uniform01(uint32_t salt, uint32_t row, uint32_t
   return static_cast<float>(x >> 8) * (1.0f / 16777216.0f);
 }
 
+// Where one attention operand's head rows lie (kernels B3, B5, B6, B7): the
+// strides, in 32-bit words (bf16 pairs), of its batch, token and head dims;
+// the head's D values are contiguous. Packed qkv [B, N, 3*H*D] is three views
+// of one buffer with token stride 3*H*D/2; split [B, N, H, D] ("bnhd") and
+// [B, H, N, D] ("bhnd") are two other stride sets over the same kernel body.
+struct HeadStrides {
+  long long b, n, h;
+};
+
 // Hidden widths the MLP kernels (B4, B8, B9) are instantiated for: every
 // multiple of 128 up to 1024 (MAX_HIDDEN in ops/mlp_train.py), the widths the
 // TPU kernels take (a multiple of 128) within one block's shared memory and

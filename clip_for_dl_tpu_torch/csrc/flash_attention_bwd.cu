@@ -1,8 +1,10 @@
-// Packed-QKV attention backward (kernel B6).
+// Attention backward: packed qkv (kernel B6) and split q/k/v (kernel B7), one
+// kernel body.
 //
-// Replaces the TPU kernel clip_for_dl_tpu/ops/flash_attention.py
+// Replaces the TPU kernels clip_for_dl_tpu/ops/flash_attention.py
 // _bwd_kernel_packed (:375), reached through _pallas_bwd_packed's
-// pallas_call (:654); its per-head math is _head_bwd (:185):
+// pallas_call (:654), and _bwd_kernel (:343), reached through _pallas_bwd's
+// pallas_call (:478); both compute _head_bwd (:185) per head:
 //
 //   s  = q k^T * scale + bias,  p = softmax(s)             fp32, recomputed
 //   keep = u >= rate (u: the forward's counter hash, regenerated)
@@ -12,13 +14,18 @@
 //   ds = bf16(p * (dp - delta))
 //   dq = ds k * scale,  dk = ds^T q * scale
 //
-// written straight into the packed dqkv [B, N, 3*H*D] (q | k | v heads), each
-// head's dq, dk and dv rounded to bf16. delta is taken from the fp32 p and dp
+// each head's dq, dk and dv rounded to bf16 and written through a base
+// pointer and HeadStrides (common.cuh) per operand, as the forward reads q, k
+// and v: into the packed dqkv [B, N, 3*H*D] (q | k | v heads) for B6, into
+// three tensors in the inputs' layout ([B, N, H, D] or [B, H, N, D]) for B7,
+// with the same fmaf sequence in every layout. delta is taken from the fp32 p and dp
 // as the TPU kernel does, not FlashAttention-2's rowsum(dO * O), which
 // differs from it by O's and pd's bf16 rounding.
 //
 // What bounds it on the card: at the train shape (B = 128, N = 200, H = 12,
-// D = 64) one head's Q, K, V and dO are 4 x 25.6 KB of bf16, but at the
+// D = 64) it is ~39 GFLOP (five products of 2 N^2 D per head) over 275 MB in
+// and out, bound by the bytes on paper (0.082 ms at 3.35 TB/s). One head's
+// Q, K, V and dO are 4 x 25.6 KB of bf16, but at the
 // checked bound N = 512 they are 4 x 64 KB, more than the 227 KB a Hopper
 // block can hold, so no block owns a whole head. The kernel is two passes
 // (FlashAttention-2's split), each of which holds two of the four matrices:
@@ -60,7 +67,7 @@
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+using cxr::HeadStrides;
 
 constexpr int kWarps = 8;
 constexpr int kRows = 64;   // query rows (pass 1) or key columns (pass 2) per block
@@ -121,10 +128,13 @@ __device__ __forceinline__ float dot_pairs_global(const uint32_t* a, const uint3
 
 template <int D>
 __global__ void __launch_bounds__(kWarps * 32)
-flash_bwd_rows_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
+flash_bwd_rows_kernel(const uint32_t* __restrict__ q, HeadStrides sq,
+                      const uint32_t* __restrict__ k, HeadStrides sk,
+                      const uint32_t* __restrict__ v, HeadStrides sv,
+                      const uint32_t* __restrict__ dout, HeadStrides sdo,
                       const float* __restrict__ bias, const int* __restrict__ seeds,
-                      bf16* __restrict__ dqkv, float* __restrict__ stats, int N, int H,
-                      float scale, float rate, float inv_keep) {
+                      uint32_t* __restrict__ dq, HeadStrides sdq, float* __restrict__ stats,
+                      int N, int H, float scale, float rate, float inv_keep) {
   constexpr int W = D / 2;
   constexpr int KS = W + 1;
   constexpr int NT = kMaxN / 32;
@@ -140,20 +150,19 @@ flash_bwd_rows_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dou
 
   const int b = blockIdx.z, h = blockIdx.y, row0 = blockIdx.x * kRows;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const size_t row_words = (size_t)3 * H * W;  // one token's packed qkv
-  const size_t out_words = (size_t)H * W;      // one token's dO
-  const uint32_t* base = reinterpret_cast<const uint32_t*>(qkv) + (size_t)b * N * row_words;
-  const uint32_t* dbase = reinterpret_cast<const uint32_t*>(dout) + (size_t)b * N * out_words;
-  uint32_t* gbase = reinterpret_cast<uint32_t*>(dqkv) + (size_t)b * N * row_words;
+  // this (batch row, head)'s rows: token i at i * s.n words
+  const uint32_t* qb = q + b * sq.b + h * sq.h;
+  const uint32_t* kb = k + b * sk.b + h * sk.h;
+  const uint32_t* vb = v + b * sv.b + h * sv.h;
+  const uint32_t* ob = dout + b * sdo.b + h * sdo.h;
+  uint32_t* gb = dq + b * sdq.b + h * sdq.h;
   const size_t plane = (size_t)gridDim.z * H * N;
   float* st = stats + ((size_t)b * H + h) * N;  // max at st, sum at +plane, delta at +2*plane
-  const uint32_t* vglob = base + (size_t)(2 * H + h) * W;  // V row j at j * row_words
 
   for (int i = threadIdx.x; i < N * W; i += blockDim.x) {
     const int j = i / W, w = i % W;
-    const uint32_t* tok = base + (size_t)j * row_words;
-    ks[j * KS + w] = tok[(size_t)(H + h) * W + w];
-    if constexpr (kStage) vs[j * KS + w] = tok[(size_t)(2 * H + h) * W + w];
+    ks[j * KS + w] = kb[j * sk.n + w];
+    if constexpr (kStage) vs[j * KS + w] = vb[j * sv.n + w];
   }
   for (int j = threadIdx.x; j < N; j += blockDim.x) bs[j] = bias[(size_t)b * N + j];
   __syncthreads();
@@ -164,8 +173,8 @@ flash_bwd_rows_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dou
   const int row_end = min(row0 + kRows, N);
   for (int i = row0 + warp; i < row_end; i += kWarps) {
     uint32_t q2[W], o2[W];
-    const uint32_t* qrow = base + (size_t)i * row_words + (size_t)h * W;
-    const uint32_t* orow = dbase + (size_t)i * out_words + (size_t)h * W;
+    const uint32_t* qrow = qb + i * sq.n;
+    const uint32_t* orow = ob + i * sdo.n;
 #pragma unroll
     for (int w = 0; w < W; ++w) {
       q2[w] = qrow[w];
@@ -182,7 +191,7 @@ flash_bwd_rows_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dou
       if (j < N) {
         s[t] = fmaf(dot_pairs<W>(q2, ks + j * KS), scale, bs[j]);
         if constexpr (kStage) dp[t] = dot_pairs<W>(o2, vs + j * KS);
-        else dp[t] = dot_pairs_global<W>(o2, vglob + (size_t)j * row_words);
+        else dp[t] = dot_pairs_global<W>(o2, vb + j * sv.n);
         m = fmaxf(m, s[t]);
       }
     }
@@ -225,7 +234,7 @@ flash_bwd_rows_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dou
         a[2 * u + 1] = fmaf(dj, kf.y, a[2 * u + 1]);
       }
     }
-    uint32_t* gq = gbase + (size_t)i * row_words + (size_t)h * W;
+    uint32_t* gq = gb + i * sdq.n;
 #pragma unroll
     for (int u = 0; u < WPL; ++u) gq[u * 32 + lane] = cxr::f2_to_bf2(a[2 * u] * scale, a[2 * u + 1] * scale);
     if (lane == 0) {
@@ -239,9 +248,13 @@ flash_bwd_rows_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dou
 
 template <int D>
 __global__ void __launch_bounds__(kWarps * 32)
-flash_bwd_cols_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
+flash_bwd_cols_kernel(const uint32_t* __restrict__ q, HeadStrides sq,
+                      const uint32_t* __restrict__ k, HeadStrides sk,
+                      const uint32_t* __restrict__ v, HeadStrides sv,
+                      const uint32_t* __restrict__ dout, HeadStrides sdo,
                       const float* __restrict__ bias, const int* __restrict__ seeds,
-                      bf16* __restrict__ dqkv, const float* __restrict__ stats, int N, int H,
+                      uint32_t* __restrict__ dk, HeadStrides sdk, uint32_t* __restrict__ dv,
+                      HeadStrides sdv, const float* __restrict__ stats, int N, int H,
                       float scale, float rate, float inv_keep) {
   constexpr int W = D / 2;
   constexpr int KS = W + 1;
@@ -259,20 +272,20 @@ flash_bwd_cols_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dou
 
   const int b = blockIdx.z, h = blockIdx.y, col0 = blockIdx.x * kRows;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const size_t row_words = (size_t)3 * H * W;
-  const size_t out_words = (size_t)H * W;
-  const uint32_t* base = reinterpret_cast<const uint32_t*>(qkv) + (size_t)b * N * row_words;
-  const uint32_t* dbase = reinterpret_cast<const uint32_t*>(dout) + (size_t)b * N * out_words;
-  uint32_t* gbase = reinterpret_cast<uint32_t*>(dqkv) + (size_t)b * N * row_words;
+  // this (batch row, head)'s rows: token i at i * s.n words
+  const uint32_t* qb = q + b * sq.b + h * sq.h;
+  const uint32_t* kb = k + b * sk.b + h * sk.h;
+  const uint32_t* vb = v + b * sv.b + h * sv.h;
+  const uint32_t* ob = dout + b * sdo.b + h * sdo.h;
+  uint32_t* gkb = dk + b * sdk.b + h * sdk.h;
+  uint32_t* gvb = dv + b * sdv.b + h * sdv.h;
   const size_t plane = (size_t)gridDim.z * H * N;
   const float* st = stats + ((size_t)b * H + h) * N;
 
-  const uint32_t* oglob = dbase + (size_t)h * W;  // dO row i at i * out_words
-
   for (int i = threadIdx.x; i < N * W; i += blockDim.x) {
     const int r = i / W, w = i % W;
-    qs[r * KS + w] = base[(size_t)r * row_words + (size_t)h * W + w];
-    if constexpr (kStage) os[r * KS + w] = oglob[(size_t)r * out_words + w];
+    qs[r * KS + w] = qb[r * sq.n + w];
+    if constexpr (kStage) os[r * KS + w] = ob[r * sdo.n + w];
   }
   for (int r = threadIdx.x; r < N; r += blockDim.x) {
     sm[r] = st[r];
@@ -288,11 +301,12 @@ flash_bwd_cols_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dou
   const int col_end = min(col0 + kRows, N);
   for (int j = col0 + warp; j < col_end; j += kWarps) {
     uint32_t k2[W], v2[W];
-    const uint32_t* tok = base + (size_t)j * row_words;
+    const uint32_t* krow = kb + j * sk.n;
+    const uint32_t* vrow = vb + j * sv.n;
 #pragma unroll
     for (int w = 0; w < W; ++w) {
-      k2[w] = tok[(size_t)(H + h) * W + w];
-      v2[w] = tok[(size_t)(2 * H + h) * W + w];
+      k2[w] = krow[w];
+      v2[w] = vrow[w];
     }
     const float bj = bias[(size_t)b * N + j];
     for (int i = lane; i < N; i += 32) {
@@ -300,7 +314,7 @@ flash_bwd_cols_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dou
       const float p = expf(s - sm[i]) / sl[i];
       float d;
       if constexpr (kStage) d = dot_pairs<W>(os + i * KS, v2);
-      else d = dot_pairs_global<W>(v2, oglob + (size_t)i * out_words);
+      else d = dot_pairs_global<W>(v2, ob + i * sdo.n);
       float pd = p;
       if (drop) {
         const bool keep = cxr::uniform01(salt, i, j) >= rate;
@@ -319,7 +333,7 @@ flash_bwd_cols_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dou
       const float pi = pcol[i], di = dcol[i];
       const uint32_t* orow;
       if constexpr (kStage) orow = os + i * KS;
-      else orow = oglob + (size_t)i * out_words;
+      else orow = ob + i * sdo.n;
 #pragma unroll
       for (int u = 0; u < WPL; ++u) {
         const float2 of = cxr::bf2_to_f2(orow[u * 32 + lane]);
@@ -330,8 +344,8 @@ flash_bwd_cols_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dou
         ak[2 * u + 1] = fmaf(di, qf.y, ak[2 * u + 1]);
       }
     }
-    uint32_t* gk = gbase + (size_t)j * row_words + (size_t)(H + h) * W;
-    uint32_t* gv = gbase + (size_t)j * row_words + (size_t)(2 * H + h) * W;
+    uint32_t* gk = gkb + j * sdk.n;
+    uint32_t* gv = gvb + j * sdv.n;
 #pragma unroll
     for (int u = 0; u < WPL; ++u) {
       gk[u * 32 + lane] = cxr::f2_to_bf2(ak[2 * u] * scale, ak[2 * u + 1] * scale);
@@ -341,50 +355,99 @@ flash_bwd_cols_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dou
   }
 }
 
+// one operand of the backward: base pointer and strides
+struct Operand {
+  const uint32_t* p;
+  HeadStrides s;
+};
+
+struct Gradient {
+  uint32_t* p;
+  HeadStrides s;
+};
+
 template <int D>
-cudaError_t launch(const void* qkv, const void* dout, const void* bias, const void* seeds,
-                   void* dqkv, void* stats, int B, int N, int H, float scale, float rate,
-                   float inv_keep, cudaStream_t stream) {
+cudaError_t launch(Operand q, Operand k, Operand v, Operand dout, const void* bias,
+                   const void* seeds, Gradient dq, Gradient dk, Gradient dv, void* stats, int B,
+                   int N, int H, float scale, float rate, float inv_keep, cudaStream_t stream) {
   const size_t rows_smem = rows_smem_bytes<D>(N), cols_smem = cols_smem_bytes<D>(N);
   cudaError_t err = cxr::allow_smem(flash_bwd_rows_kernel<D>, rows_smem);
   if (err != cudaSuccess) return err;
   err = cxr::allow_smem(flash_bwd_cols_kernel<D>, cols_smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((N + kRows - 1) / kRows, H, B);
-  const auto* q = static_cast<const bf16*>(qkv);
-  const auto* o = static_cast<const bf16*>(dout);
   const auto* bi = static_cast<const float*>(bias);
   const auto* sd = static_cast<const int*>(seeds);
-  auto* g = static_cast<bf16*>(dqkv);
   auto* st = static_cast<float*>(stats);
   flash_bwd_rows_kernel<D><<<grid, kWarps * 32, rows_smem, stream>>>(
-      q, o, bi, sd, g, st, N, H, scale, rate, inv_keep);
+      q.p, q.s, k.p, k.s, v.p, v.s, dout.p, dout.s, bi, sd, dq.p, dq.s, st, N, H, scale, rate,
+      inv_keep);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   flash_bwd_cols_kernel<D><<<grid, kWarps * 32, cols_smem, stream>>>(
-      q, o, bi, sd, g, st, N, H, scale, rate, inv_keep);
+      q.p, q.s, k.p, k.s, v.p, v.s, dout.p, dout.s, bi, sd, dk.p, dk.s, dv.p, dv.s, st, N, H,
+      scale, rate, inv_keep);
   return cudaGetLastError();
+}
+
+bool bad_args(int B, int N, int H, float rate) {
+  return N < 1 || N > kMaxN || B < 1 || B > 65535 || H < 1 || H > 65535 || !(rate >= 0.f) ||
+         !(rate < 1.f);
+}
+
+cudaError_t dispatch(int D, Operand q, Operand k, Operand v, Operand dout, const void* bias,
+                     const void* seeds, Gradient dq, Gradient dk, Gradient dv, void* stats,
+                     int B, int N, int H, float scale, float rate, float inv_keep,
+                     void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64:
+      return launch<64>(q, k, v, dout, bias, seeds, dq, dk, dv, stats, B, N, H, scale, rate,
+                        inv_keep, s);
+    case 128:
+      return launch<128>(q, k, v, dout, bias, seeds, dq, dk, dv, stats, B, N, H, scale, rate,
+                         inv_keep, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// qkv [B, N, 3*H*D] bf16, dout [B, N, H*D] bf16, bias [B, N] fp32, seeds [B]
-// int32, dqkv [B, N, 3*H*D] bf16 (every element written), stats [3, B, H, N]
-// fp32 scratch; D in {64, 128}, 1 <= N <= 512, B <= 65535; 0 <= rate < 1 and
-// inv_keep = 1 / (1 - rate), as in the forward that made dout's output.
+// B6: qkv [B, N, 3*H*D] bf16, dout [B, N, H*D] bf16, bias [B, N] fp32, seeds
+// [B] int32, dqkv [B, N, 3*H*D] bf16 (every element written), stats
+// [3, B, H, N] fp32 scratch; D in {64, 128}, 1 <= N <= 512, B <= 65535;
+// 0 <= rate < 1 and inv_keep = 1 / (1 - rate), as in the forward that made
+// dout's output.
 CXR_API int cxr_flash_bwd_packed(const void* qkv, const void* dout, const void* bias,
                                  const void* seeds, void* dqkv, void* stats, int B, int N,
                                  int H, int D, float scale, float rate, float inv_keep,
                                  void* stream) {
-  if (N < 1 || N > kMaxN || B < 1 || B > 65535 || H < 1 || H > 65535 || !(rate >= 0.f) ||
-      !(rate < 1.f))
-    return cudaErrorInvalidValue;
-  auto s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64:
-      return launch<64>(qkv, dout, bias, seeds, dqkv, stats, B, N, H, scale, rate, inv_keep, s);
-    case 128:
-      return launch<128>(qkv, dout, bias, seeds, dqkv, stats, B, N, H, scale, rate, inv_keep, s);
-    default: return cudaErrorInvalidValue;
-  }
+  if (bad_args(B, N, H, rate)) return cudaErrorInvalidValue;
+  const long long W = D / 2, row = 3 * H * W;
+  const cxr::HeadStrides sqkv{N * row, row, W}, sdo{N * H * W, H * W, W};
+  const auto* in = static_cast<const uint32_t*>(qkv);
+  auto* g = static_cast<uint32_t*>(dqkv);
+  return dispatch(D, {in, sqkv}, {in + H * W, sqkv}, {in + 2 * H * W, sqkv},
+                  {static_cast<const uint32_t*>(dout), sdo}, bias, seeds, {g, sqkv},
+                  {g + H * W, sqkv}, {g + 2 * H * W, sqkv}, stats, B, N, H, scale, rate,
+                  inv_keep, stream);
+}
+
+// B7: q, k, v, dout, dq, dk and dv bf16 with the head dim contiguous, each
+// addressed by three strides in 32-bit words in ``strides`` (host memory, 21
+// values: q, k, v, dout, dq, dk, dv, each as batch, token, head); at D = 128
+// every stride a multiple of 4 words and every pointer 16-byte aligned. Other
+// arguments as B6's.
+CXR_API int cxr_flash_bwd(const void* q, const void* k, const void* v, const void* dout,
+                          const void* bias, const void* seeds, void* dq, void* dk, void* dv,
+                          void* stats, const long long* strides, int B, int N, int H, int D,
+                          float scale, float rate, float inv_keep, void* stream) {
+  if (bad_args(B, N, H, rate)) return cudaErrorInvalidValue;
+  cxr::HeadStrides s[7];
+  for (int t = 0; t < 7; ++t) s[t] = {strides[3 * t], strides[3 * t + 1], strides[3 * t + 2]};
+  auto in = [](const void* p) { return static_cast<const uint32_t*>(p); };
+  auto out = [](void* p) { return static_cast<uint32_t*>(p); };
+  return dispatch(D, {in(q), s[0]}, {in(k), s[1]}, {in(v), s[2]}, {in(dout), s[3]}, bias,
+                  seeds, {out(dq), s[4]}, {out(dk), s[5]}, {out(dv), s[6]}, stats, B, N, H,
+                  scale, rate, inv_keep, stream);
 }

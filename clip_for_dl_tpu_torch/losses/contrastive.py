@@ -1,10 +1,11 @@
 """Contrastive losses (counterpart of ``clip_for_dl_tpu.losses.contrastive``).
 
-Ported so far: the ``pretrain_clip`` preset's loss. Every reduction runs in
-fp32 whatever the input dtype, as in the JAX package.
+Ported so far: the ``pretrain_clip`` and ``adapter`` presets' losses. Every
+reduction runs in fp32 whatever the input dtype, as in the JAX package.
 
 - ``soft_cross_entropy``      0425/train.py:117-124
 - ``clip_self_distill_loss``  0425/train.py:126-151 (notebook T=2 variant)
+- ``bce_with_logits_loss``    the adapter's BCE (02 nb cell 29)
 """
 
 from __future__ import annotations
@@ -39,3 +40,17 @@ def clip_self_distill_loss(
     texts_loss = soft_cross_entropy(logits, targets)
     images_loss = soft_cross_entropy(logits.T, targets.T)
     return ((texts_loss + images_loss) / 2.0).mean()
+
+
+def bce_with_logits_loss(logits: torch.Tensor, targets: torch.Tensor,
+                         reduction: str = "mean") -> torch.Tensor:
+    """torch BCEWithLogitsLoss semantics in fp32 with the JAX package's safe
+    form: max(x, 0) − x·t + log1p(exp(−|x|))."""
+    logits, targets = logits.float(), targets.float()
+    loss = torch.clamp_min(logits, 0) - logits * targets + torch.log1p(
+        torch.exp(-logits.abs()))
+    if reduction == "mean":
+        return loss.mean()
+    if reduction == "sum":
+        return loss.sum()
+    return loss

@@ -53,6 +53,12 @@ _SIGNATURES = {
     # qkv, do, bias, seeds, dqkv, stats, B, N, H, D, scale, rate, 1/(1-rate),
     # stream
     "cxr_flash_bwd_packed": (_P,) * 6 + (_I,) * 4 + (_F,) * 3 + (_P,),
+    # q, k, v, bias, seeds, out, strides (12 int64 in host memory), B, N, H,
+    # D, scale, rate, 1/(1-rate), stream
+    "cxr_flash_fwd": (_P,) * 7 + (_I,) * 4 + (_F,) * 3 + (_P,),
+    # q, k, v, do, bias, seeds, dq, dk, dv, stats, strides (21 int64 in host
+    # memory), B, N, H, D, scale, rate, 1/(1-rate), stream
+    "cxr_flash_bwd": (_P,) * 11 + (_I,) * 4 + (_F,) * 3 + (_P,),
     # x, w1, b1, w2, b2, y, R, H, F, stream
     "cxr_mlp_fwd": (_P,) * 6 + (_I,) * 3 + (_P,),
     # x, w1, b1, w2, dy, dx, g, dh, R, H, F, stream

@@ -1,29 +1,40 @@
-"""Packed-QKV fused attention: forward (kernel B3, ``csrc/flash_attention.cu``)
-and backward (kernel B6, ``csrc/flash_attention_bwd.cu``).
+"""Fused attention in two forms, each with a forward and a backward kernel.
 
-Counterpart of ``clip_for_dl_tpu.ops.flash_attention.flash_attention_packed``:
-qkv is one [B, N, 3·H·D] projection output (columns q-heads | k-heads |
-v-heads), key_bias the [B, N] additive key-padding bias; the result is
-[B, N, H·D]. Logits and softmax in fp32, probabilities normalized, then
-dropped out (keep where ``uniform01 >= rate``, kept ones scaled by
-1/(1 − rate)) and cast to the compute dtype before the PV product, fp32
-accumulation.
+- Packed qkv, counterpart of ``clip_for_dl_tpu.ops.flash_attention.
+  flash_attention_packed``: one [B, N, 3·H·D] projection output (columns
+  q-heads | k-heads | v-heads) → [B, N, H·D]; kernels B3 (forward,
+  ``csrc/flash_attention.cu``) and B6 (backward,
+  ``csrc/flash_attention_bwd.cu``). Both towers call this form.
+- Split q/k/v, counterpart of ``flash_attention``: three tensors in
+  ``layout`` "bnhd" ([B, N, H, D], the towers' bytes) or "bhnd"
+  ([B, H, N, D]) → the output in the same layout; kernels B5 and B7, the
+  same two kernel bodies as B3 and B6 with other strides (no transpose
+  copy), so split q/k/v sliced from a packed qkv give the packed form's
+  bits, dropout included.
 
-Attention-probability dropout runs inside both kernels: the keep mask is the
+key_bias is the [B, N] additive key-padding bias. Logits and softmax in
+fp32, probabilities normalized, then dropped out (keep where ``uniform01 >=
+rate``, kept ones scaled by 1/(1 − rate)) and cast to the compute dtype
+before the PV product, fp32 accumulation. The JAX package pads N to a
+multiple of 8 with bias −1e30 on the padded keys; here nothing is padded:
+the kernels skip keys j ≥ N.
+
+Attention-probability dropout runs inside every kernel: the keep mask is the
 JAX package's counter hash (:func:`uniform01`) over the absolute (query row,
 key column) grid, seeded per batch row and head, so the backward regenerates
 the forward's mask instead of storing it, and the bits equal the JAX
 kernel's for the same seeds.
 
-When a gradient is required the call goes through :class:`_FlashPacked`,
-which saves only its inputs (qkv, bias, seeds) and recomputes the
-probabilities in the backward, as the JAX custom VJP does. The bias and the
-seeds get no gradient.
+When a gradient is required the call goes through :class:`_FlashPacked` or
+:class:`_Flash`, which save only their inputs (q/k/v or qkv, bias, seeds), as
+the JAX custom VJPs do, and recompute the probabilities in the backward. The
+bias and the seeds get no gradient.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+from typing import Optional, Tuple
 
 import torch
 
@@ -31,30 +42,67 @@ from . import _build
 
 KERNEL = "cxr_flash_fwd_packed"
 KERNEL_BWD = "cxr_flash_bwd_packed"
+KERNEL_SPLIT = "cxr_flash_fwd"
+KERNEL_SPLIT_BWD = "cxr_flash_bwd"
+
+LAYOUTS = ("bnhd", "bhnd")
 
 # The kernels keep a query row's scores in registers, kMaxN / 32 per lane,
 # and one head's K (and at D = 64 also V) in shared memory: 148 KB at
 # N = 512 for D = 64 and 128, within a Hopper block's 227 KB. Longer
 # sequences need a tiled-KV kernel.
 MAX_SEQ_LEN = 512
+HEAD_DIMS = (64, 128)
 
 _M32 = 0xFFFFFFFF
+
+
+def _check_common(B: int, N: int, key_bias, dropout_rate: float) -> None:
+    if N > MAX_SEQ_LEN:
+        raise ValueError(
+            f"flash attention supports sequence length ≤ {MAX_SEQ_LEN}; got N={N}"
+        )
+    if key_bias is not None and tuple(key_bias.shape) != (B, N):
+        raise ValueError(f"key_bias must be [B, N]={B, N}, got {tuple(key_bias.shape)}")
+    if not 0.0 <= float(dropout_rate) < 1.0:
+        raise ValueError(f"dropout_rate must be in [0, 1), got {dropout_rate}")
 
 
 def _check_args(qkv: torch.Tensor, heads: int, key_bias, dropout_rate: float):
     if qkv.dim() != 3:
         raise ValueError(f"qkv must be [B, N, 3*H*D], got {tuple(qkv.shape)}")
     B, N, HD3 = qkv.shape
-    if N > MAX_SEQ_LEN:
-        raise ValueError(
-            f"flash attention supports sequence length ≤ {MAX_SEQ_LEN}; got N={N}"
-        )
+    _check_common(B, N, key_bias, dropout_rate)
     if HD3 % (3 * heads):
         raise ValueError(f"last dim {HD3} not divisible by 3*heads")
-    if key_bias is not None and tuple(key_bias.shape) != (B, N):
-        raise ValueError(f"key_bias must be [B, N]={B, N}, got {tuple(key_bias.shape)}")
-    if not 0.0 <= float(dropout_rate) < 1.0:
-        raise ValueError(f"dropout_rate must be in [0, 1), got {dropout_rate}")
+
+
+def _dims(t: torch.Tensor, layout: str) -> Tuple[int, int, int, int]:
+    """(B, N, H, D) of a split operand in ``layout``."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout must be 'bnhd' or 'bhnd', got {layout!r}")
+    if t.dim() != 4:
+        raise ValueError(f"q, k and v must be 4-D ({layout}), got {tuple(t.shape)}")
+    B, a, b, D = t.shape
+    return (B, a, b, D) if layout == "bnhd" else (B, b, a, D)
+
+
+def _check_split(q, k, v, key_bias, dropout_rate: float, layout: str):
+    B, N, H, D = _dims(q, layout)
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q, k and v must have one shape, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    _check_common(B, N, key_bias, dropout_rate)
+    return B, N, H, D
+
+
+def _seeds(dropout_seeds, batch: int, rate: float):
+    """[B, 1] int32 seeds when ``rate > 0`` (required then), else None."""
+    if rate <= 0.0:
+        return None
+    if dropout_seeds is None:
+        raise ValueError("dropout_rate > 0 requires dropout_seeds")
+    return dropout_seeds.reshape(batch, 1).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -112,8 +160,14 @@ def _keep_mask(seeds: torch.Tensor, heads: int, n: int, rate: float) -> torch.Te
 
 
 # ---------------------------------------------------------------------------
-# plain versions (the JAX _head_fwd / _head_bwd order)
+# plain versions (the JAX _head_fwd / _head_bwd order), head-major
 # ---------------------------------------------------------------------------
+
+
+def _fp32(*ts):
+    """fp32 contiguous copies: every layout then runs the same products, so
+    the plain versions of the two forms and both layouts agree bit for bit."""
+    return [t.float().contiguous() for t in ts]
 
 
 def _split_heads(qkv: torch.Tensor, heads: int):
@@ -124,12 +178,73 @@ def _split_heads(qkv: torch.Tensor, heads: int):
 
 
 def _probs(q, k, key_bias, scale):
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
     if key_bias is not None:
         s = s + key_bias.float()[:, None, None, :]
     m = s.amax(dim=-1, keepdim=True)
     e = torch.exp(s - m)
     return e / e.sum(dim=-1, keepdim=True)
+
+
+def flash_attention_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_bias: Optional[torch.Tensor] = None,
+    *,
+    dropout_rate: float = 0.0,
+    dropout_seeds: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain version of the forward kernels' math (the JAX ``_head_fwd``) on
+    head-major q, k, v [B, H, N, D] → [B, H, N, D] in q's dtype; the
+    counterpart of the JAX ``flash_attention_reference``."""
+    B, H, N, D = q.shape
+    qf, kf, vf = _fp32(q, k, v)
+    p = _probs(qf, kf, key_bias, 1.0 / float(D) ** 0.5)
+    if dropout_rate > 0.0:
+        keep = _keep_mask(dropout_seeds, H, N, dropout_rate)
+        p = torch.where(keep, p * (1.0 / (1.0 - dropout_rate)), 0.0)
+    return torch.matmul(p.to(q.dtype).float(), vf).to(q.dtype)
+
+
+def flash_attention_bwd_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    do: torch.Tensor,
+    key_bias: Optional[torch.Tensor] = None,
+    *,
+    dropout_rate: float = 0.0,
+    dropout_seeds: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the backward kernels' math (the JAX ``_head_bwd``):
+    head-major q, k, v and d(out) [B, H, N, D] → (dq, dk, dv) [B, H, N, D]
+    in q's dtype.
+
+    s and p are recomputed in fp32; the dropped, scaled probabilities are
+    cast to the compute dtype before ``dv = pdᵀ·do``; ``dp = do·vᵀ`` is
+    masked and scaled; ``delta = rowsum(p ⊙ dp)`` from the fp32 p and dp;
+    ``ds = p ⊙ (dp − delta)`` is cast before both ``dq = ds·k·scale`` and
+    ``dk = dsᵀ·q·scale``."""
+    B, H, N, D = q.shape
+    dt = q.dtype
+    qf, kf, vf, dof = _fp32(q, k, v, do)
+    scale = 1.0 / float(D) ** 0.5
+    p = _probs(qf, kf, key_bias, scale)
+    dpd = torch.matmul(dof, vf.transpose(-1, -2))
+    if dropout_rate > 0.0:
+        keep = _keep_mask(dropout_seeds, H, N, dropout_rate)
+        inv = 1.0 / (1.0 - dropout_rate)
+        pd = torch.where(keep, p * inv, 0.0)
+        dp = torch.where(keep, dpd * inv, 0.0)
+    else:
+        pd, dp = p, dpd
+    dv = torch.matmul(pd.to(dt).float().transpose(-1, -2), dof)
+    delta = (p * dp).sum(dim=-1, keepdim=True)
+    ds = (p * (dp - delta)).to(dt).float()
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    return dq.to(dt), dk.to(dt), dv.to(dt)
 
 
 def flash_attention_packed_reference(
@@ -140,14 +255,12 @@ def flash_attention_packed_reference(
     dropout_rate: float = 0.0,
     dropout_seeds: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Plain version of the forward kernel's math (the JAX ``_head_fwd``)."""
+    """Plain version of B3: :func:`flash_attention_reference` over qkv's
+    head slices, [B, N, 3·H·D] → [B, N, H·D]."""
     B, N, _ = qkv.shape
     q, k, v, D = _split_heads(qkv, heads)
-    p = _probs(q, k, key_bias, 1.0 / float(D) ** 0.5)
-    if dropout_rate > 0.0:
-        keep = _keep_mask(dropout_seeds, heads, N, dropout_rate)
-        p = torch.where(keep, p * (1.0 / (1.0 - dropout_rate)), 0.0)
-    out = torch.matmul(p.to(qkv.dtype).float(), v.float()).to(qkv.dtype)
+    out = flash_attention_reference(q, k, v, key_bias, dropout_rate=dropout_rate,
+                                    dropout_seeds=dropout_seeds)
     return out.transpose(1, 2).reshape(B, N, heads * D)
 
 
@@ -160,39 +273,24 @@ def flash_attention_packed_bwd_reference(
     dropout_rate: float = 0.0,
     dropout_seeds: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Plain version of the backward kernel's math (the JAX ``_head_bwd``):
-    d(out) [B, N, H·D] → dqkv [B, N, 3·H·D] in qkv's dtype.
-
-    s and p are recomputed in fp32; the dropped, scaled probabilities are
-    cast to the compute dtype before ``dv = pdᵀ·do``; ``dp = do·vᵀ`` is
-    masked and scaled; ``delta = rowsum(p ⊙ dp)`` from the fp32 p and dp;
-    ``ds = p ⊙ (dp − delta)`` is cast before both ``dq = ds·k·scale`` and
-    ``dk = dsᵀ·q·scale``."""
+    """Plain version of B6: d(out) [B, N, H·D] → dqkv [B, N, 3·H·D] in qkv's
+    dtype, through :func:`flash_attention_bwd_reference`."""
     B, N, _ = qkv.shape
-    dt = qkv.dtype
     q, k, v, D = _split_heads(qkv, heads)
-    scale = 1.0 / float(D) ** 0.5
-    dof = do.reshape(B, N, heads, D).transpose(1, 2).float()
-    p = _probs(q, k, key_bias, scale)
-    dpd = torch.matmul(dof, v.float().transpose(-1, -2))
-    if dropout_rate > 0.0:
-        keep = _keep_mask(dropout_seeds, heads, N, dropout_rate)
-        inv = 1.0 / (1.0 - dropout_rate)
-        pd = torch.where(keep, p * inv, 0.0)
-        dp = torch.where(keep, dpd * inv, 0.0)
-    else:
-        pd, dp = p, dpd
-    dv = torch.matmul(pd.to(dt).float().transpose(-1, -2), dof)
-    delta = (p * dp).sum(dim=-1, keepdim=True)
-    ds = (p * (dp - delta)).to(dt).float()
-    dq = torch.matmul(ds, k.float()) * scale
-    dk = torch.matmul(ds.transpose(-1, -2), q.float()) * scale
-    dqkv = torch.stack([dq.to(dt), dk.to(dt), dv.to(dt)], dim=2)  # [B, H, 3, N, D]
+    grads = flash_attention_bwd_reference(
+        q, k, v, do.reshape(B, N, heads, D).transpose(1, 2), key_bias,
+        dropout_rate=dropout_rate, dropout_seeds=dropout_seeds)
+    dqkv = torch.stack(grads, dim=2)  # [B, H, 3, N, D]
     return dqkv.permute(0, 3, 2, 1, 4).reshape(B, N, 3 * heads * D)
 
 
+def _head_major(t: torch.Tensor, layout: str) -> torch.Tensor:
+    """A split operand as [B, H, N, D] (a view), or back from it."""
+    return t if layout == "bhnd" else t.transpose(1, 2)
+
+
 # ---------------------------------------------------------------------------
-# entry point and autograd
+# entry points and autograd
 # ---------------------------------------------------------------------------
 
 
@@ -209,11 +307,7 @@ def flash_attention_packed(
     :func:`dropout_seeds` draws them)."""
     _check_args(qkv, heads, key_bias, dropout_rate)
     rate = float(dropout_rate)
-    seeds = None
-    if rate > 0.0:
-        if dropout_seeds is None:
-            raise ValueError("dropout_rate > 0 requires dropout_seeds")
-        seeds = dropout_seeds.reshape(qkv.shape[0], 1).to(torch.int32)
+    seeds = _seeds(dropout_seeds, qkv.shape[0], rate)
     if torch.is_grad_enabled() and qkv.requires_grad:
         return _FlashPacked.apply(qkv, key_bias, seeds, heads, rate)
     return _forward(qkv, heads, key_bias, rate, seeds)
@@ -224,6 +318,27 @@ def _forward(qkv, heads, key_bias, rate, seeds):
         return flash_attention_packed_reference(
             qkv, heads, key_bias, dropout_rate=rate, dropout_seeds=seeds)
     return _kernel(qkv, heads, key_bias, dropout_rate=rate, dropout_seeds=seeds)
+
+
+def flash_attention_packed_bwd(
+    qkv: torch.Tensor,
+    do: torch.Tensor,
+    heads: int,
+    key_bias: Optional[torch.Tensor] = None,
+    *,
+    dropout_rate: float = 0.0,
+    dropout_seeds: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Backward of :func:`flash_attention_packed`: d(out) [B, N, H·D] →
+    dqkv [B, N, 3·H·D] (kernel B6; the plain version on CPU tensors)."""
+    _check_args(qkv, heads, key_bias, dropout_rate)
+    rate = float(dropout_rate)
+    seeds = _seeds(dropout_seeds, qkv.shape[0], rate)
+    do = do.to(qkv.dtype).contiguous()
+    if qkv.device.type == "cpu":
+        return flash_attention_packed_bwd_reference(
+            qkv, do, heads, key_bias, dropout_rate=rate, dropout_seeds=seeds)
+    return _kernel_bwd(qkv, do, heads, key_bias, dropout_rate=rate, dropout_seeds=seeds)
 
 
 class _FlashPacked(torch.autograd.Function):
@@ -239,14 +354,87 @@ class _FlashPacked(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         qkv, key_bias, seeds = ctx.saved_tensors
-        do = do.to(qkv.dtype).contiguous()
-        if qkv.device.type == "cpu":
-            dqkv = flash_attention_packed_bwd_reference(
-                qkv, do, ctx.heads, key_bias, dropout_rate=ctx.rate, dropout_seeds=seeds)
-        else:
-            dqkv = _kernel_bwd(qkv, do, ctx.heads, key_bias, dropout_rate=ctx.rate,
-                               dropout_seeds=seeds)
+        dqkv = flash_attention_packed_bwd(qkv, do, ctx.heads, key_bias,
+                                          dropout_rate=ctx.rate, dropout_seeds=seeds)
         return dqkv, None, None, None, None
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_bias: Optional[torch.Tensor] = None,
+    *,
+    dropout_rate: float = 0.0,
+    dropout_seeds: Optional[torch.Tensor] = None,
+    layout: str = "bhnd",
+) -> torch.Tensor:
+    """Split q/k/v attention over all heads of each batch row. ``layout``
+    "bnhd" takes [B, N, H, D] (the towers' [B, N, H·D] projection outputs,
+    viewed), "bhnd" head-major [B, H, N, D]; the output comes back in the
+    same layout. ``key_bias`` [B, N] is the additive key-padding bias;
+    ``dropout_rate > 0`` needs ``dropout_seeds`` [B] or [B, 1]."""
+    B = _check_split(q, k, v, key_bias, dropout_rate, layout)[0]
+    rate = float(dropout_rate)
+    seeds = _seeds(dropout_seeds, B, rate)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _Flash.apply(q, k, v, key_bias, seeds, layout, rate)
+    return _forward_split(q, k, v, key_bias, rate, seeds, layout)
+
+
+def _forward_split(q, k, v, key_bias, rate, seeds, layout):
+    if q.device.type == "cpu":
+        out = flash_attention_reference(
+            *(_head_major(t, layout) for t in (q, k, v)), key_bias, dropout_rate=rate,
+            dropout_seeds=seeds)
+        return _head_major(out, layout).contiguous()
+    return _kernel_split(q, k, v, key_bias, layout, dropout_rate=rate, dropout_seeds=seeds)
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    do: torch.Tensor,
+    key_bias: Optional[torch.Tensor] = None,
+    *,
+    dropout_rate: float = 0.0,
+    dropout_seeds: Optional[torch.Tensor] = None,
+    layout: str = "bhnd",
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Backward of :func:`flash_attention`: d(out) in ``layout`` → (dq, dk,
+    dv) in ``layout`` (kernel B7; the plain version on CPU tensors)."""
+    B = _check_split(q, k, v, key_bias, dropout_rate, layout)[0]
+    if do.shape != q.shape:
+        raise ValueError(f"d(out) must have q's shape {tuple(q.shape)}, got {tuple(do.shape)}")
+    rate = float(dropout_rate)
+    seeds = _seeds(dropout_seeds, B, rate)
+    do = do.to(q.dtype)
+    if q.device.type == "cpu":
+        grads = flash_attention_bwd_reference(
+            *(_head_major(t, layout) for t in (q, k, v, do)), key_bias, dropout_rate=rate,
+            dropout_seeds=seeds)
+        return tuple(_head_major(g, layout).contiguous() for g in grads)
+    return _kernel_split_bwd(q, k, v, do, key_bias, layout, dropout_rate=rate,
+                             dropout_seeds=seeds)
+
+
+class _Flash(torch.autograd.Function):
+    """Saves only (q, k, v, bias, seeds), as ``_flash_fwd`` does; the
+    backward recomputes s and p and regenerates the dropout mask."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_bias, seeds, layout, rate):
+        ctx.layout, ctx.rate = layout, rate
+        ctx.save_for_backward(q, k, v, key_bias, seeds)
+        return _forward_split(q, k, v, key_bias, rate, seeds, layout)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, key_bias, seeds = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, do, key_bias, dropout_rate=ctx.rate,
+                                         dropout_seeds=seeds, layout=ctx.layout)
+        return dq, dk, dv, None, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -254,14 +442,13 @@ class _FlashPacked(torch.autograd.Function):
 # ---------------------------------------------------------------------------
 
 
-def _kernel_args(qkv, heads, key_bias, dropout_rate, dropout_seeds):
-    """Checks shared by both kernels; returns (D, bias, seeds) on the card."""
-    B, N, HD3 = qkv.shape
-    D = HD3 // (3 * heads)
-    dev = qkv.device
-    _build.check_tensor(qkv, "qkv", torch.bfloat16)
-    if D not in (64, 128):
-        raise ValueError(f"head dim {D} not supported by the kernel (64 or 128)")
+def _side_args(B, N, D, dev, key_bias, dropout_rate, dropout_seeds):
+    """Checks shared by every kernel; returns (bias, seeds) on the card."""
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D} not supported by the kernel {HEAD_DIMS}")
+    if N > MAX_SEQ_LEN:
+        raise ValueError(f"the kernel takes sequence length ≤ MAX_SEQ_LEN = {MAX_SEQ_LEN}; "
+                         f"got N={N}")
     if key_bias is None:
         key_bias = torch.zeros((B, N), dtype=torch.float32, device=dev)
     _build.check_tensor(key_bias, "key_bias", torch.float32, (B, N), dev, align=4)
@@ -272,25 +459,32 @@ def _kernel_args(qkv, heads, key_bias, dropout_rate, dropout_seeds):
                             align=4)
     else:
         dropout_seeds = torch.zeros((B, 1), dtype=torch.int32, device=dev)
-    return D, key_bias, dropout_seeds
+    return key_bias, dropout_seeds
+
+
+def _rate_args(D, dropout_rate):
+    return 1.0 / float(D) ** 0.5, float(dropout_rate), 1.0 / (1.0 - float(dropout_rate))
 
 
 def _kernel(qkv, heads, key_bias, *, dropout_rate=0.0, dropout_seeds=None):
-    B, N, _ = qkv.shape
-    D, key_bias, seeds = _kernel_args(qkv, heads, key_bias, dropout_rate, dropout_seeds)
+    B, N, HD3 = qkv.shape
+    _build.check_tensor(qkv, "qkv", torch.bfloat16)
+    D = HD3 // (3 * heads)
+    key_bias, seeds = _side_args(B, N, D, qkv.device, key_bias, dropout_rate, dropout_seeds)
     out = torch.empty((B, N, heads * D), dtype=qkv.dtype, device=qkv.device)
     if B:
         _build.launch(KERNEL, qkv.device, qkv.data_ptr(), key_bias.data_ptr(),
                       seeds.data_ptr(), out.data_ptr(), B, N, heads, D,
-                      1.0 / float(D) ** 0.5, float(dropout_rate),
-                      1.0 / (1.0 - float(dropout_rate)))
+                      *_rate_args(D, dropout_rate))
     return out
 
 
 def _kernel_bwd(qkv, do, heads, key_bias, *, dropout_rate=0.0, dropout_seeds=None):
     B, N, HD3 = qkv.shape
-    D, key_bias, seeds = _kernel_args(qkv, heads, key_bias, dropout_rate, dropout_seeds)
     dev = qkv.device
+    _build.check_tensor(qkv, "qkv", torch.bfloat16)
+    D = HD3 // (3 * heads)
+    key_bias, seeds = _side_args(B, N, D, dev, key_bias, dropout_rate, dropout_seeds)
     _build.check_tensor(do, "do", torch.bfloat16, (B, N, heads * D), dev)
     dqkv = torch.empty_like(qkv)
     # per (batch row, head, query row): softmax max, sum and delta, fp32
@@ -298,6 +492,70 @@ def _kernel_bwd(qkv, do, heads, key_bias, *, dropout_rate=0.0, dropout_seeds=Non
     if B:
         _build.launch(KERNEL_BWD, dev, qkv.data_ptr(), do.data_ptr(), key_bias.data_ptr(),
                       seeds.data_ptr(), dqkv.data_ptr(), stats.data_ptr(), B, N, heads, D,
-                      1.0 / float(D) ** 0.5, float(dropout_rate),
-                      1.0 / (1.0 - float(dropout_rate)))
+                      *_rate_args(D, dropout_rate))
     return dqkv
+
+
+def _strides_fit(t: torch.Tensor, align: int) -> bool:
+    """The head dim contiguous, every other stride of a dim longer than 1 a
+    multiple of ``align`` bytes, and the data ``align``-byte aligned."""
+    el = align // t.element_size()
+    return (t.stride(3) == 1 and t.data_ptr() % align == 0
+            and all(s % el == 0 for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1))
+
+
+def _operand(t: torch.Tensor, name: str, layout: str, D: int, device):
+    """(tensor, its (batch, token, head) strides in 32-bit words) for a split
+    kernel: bf16 on ``device``; strides that the kernel cannot address (the
+    head dim not contiguous, odd strides, or at D = 128 strides or data off
+    the 16-byte grid its vector loads need) get a contiguous copy."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: expected {torch.bfloat16}, got {t.dtype}")
+    align = 16 if D == 128 else 4
+    if not _strides_fit(t, align):
+        t = t.clone(memory_format=torch.contiguous_format)
+    sb, s1, s2 = (s // 2 if n > 1 else 0 for s, n in zip(t.stride()[:3], t.shape[:3]))
+    return t, ((sb, s1, s2) if layout == "bnhd" else (sb, s2, s1))
+
+
+def _strides(*word_strides) -> ctypes.Array:
+    flat = [s for triple in word_strides for s in triple]
+    return (ctypes.c_longlong * len(flat))(*flat)
+
+
+def _kernel_split(q, k, v, key_bias, layout, *, dropout_rate=0.0, dropout_seeds=None):
+    B, N, H, D = _dims(q, layout)
+    dev = q.device
+    (q, sq), (k, sk), (v, sv) = (_operand(t, n, layout, D, dev)
+                                 for t, n in ((q, "q"), (k, "k"), (v, "v")))
+    key_bias, seeds = _side_args(B, N, D, dev, key_bias, dropout_rate, dropout_seeds)
+    out, so = _operand(torch.empty(q.shape, dtype=q.dtype, device=dev), "out", layout, D, dev)
+    if B:
+        _build.launch(KERNEL_SPLIT, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      key_bias.data_ptr(), seeds.data_ptr(), out.data_ptr(),
+                      _strides(sq, sk, sv, so), B, N, H, D, *_rate_args(D, dropout_rate))
+    return out
+
+
+def _kernel_split_bwd(q, k, v, do, key_bias, layout, *, dropout_rate=0.0, dropout_seeds=None):
+    B, N, H, D = _dims(q, layout)
+    dev = q.device
+    (q, sq), (k, sk), (v, sv), (do, sdo) = (
+        _operand(t, n, layout, D, dev) for t, n in ((q, "q"), (k, "k"), (v, "v"), (do, "do")))
+    key_bias, seeds = _side_args(B, N, D, dev, key_bias, dropout_rate, dropout_seeds)
+    (dq, sdq), (dk, sdk), (dv, sdv) = (
+        _operand(torch.empty(q.shape, dtype=q.dtype, device=dev), n, layout, D, dev)
+        for n in ("dq", "dk", "dv"))
+    # per (batch row, head, query row): softmax max, sum and delta, fp32
+    stats = torch.empty((3, B, H, N), dtype=torch.float32, device=dev)
+    if B:
+        _build.launch(KERNEL_SPLIT_BWD, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      do.data_ptr(), key_bias.data_ptr(), seeds.data_ptr(), dq.data_ptr(),
+                      dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+                      _strides(sq, sk, sv, sdo, sdq, sdk, sdv), B, N, H, D,
+                      *_rate_args(D, dropout_rate))
+    return dq, dk, dv

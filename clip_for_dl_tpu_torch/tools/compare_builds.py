@@ -1,0 +1,109 @@
+"""Hold this checkout's packed attention kernels, B3 (forward) and B6
+(backward), against another checkout's build of them on one card: the same
+inputs, the outputs compared bit for bit, and the times taken in turns
+(other, this, this, other) so that drift of the card's clocks shows.
+
+For a change that must not move the packed kernels' numerics, such as a
+refactor of how they address their operands:
+
+    mkdir other && git archive <commit> | tar -x -C other
+    python -m clip_for_dl_tpu_torch.tools.compare_builds --other other
+
+The other checkout's kernels are built by its own ``ops/_build.py`` in a
+child process and loaded beside this checkout's. Prints one JSON line per
+(shape, dropout rate) and exits 1 if any output differs.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+import sys
+from functools import partial
+from pathlib import Path
+
+import torch
+
+from ..core.device import require_cuda
+from ..ops import _build
+from ..ops import flash_attention as fa
+from .probe_bwd_layouts import time_ms
+
+SHAPES = ((64, 200, 12, 64), (128, 200, 12, 64), (2, 512, 2, 128))  # (B, N, H, D)
+RATES = (0.0, 0.1)
+ENTRIES = ("cxr_flash_fwd_packed", "cxr_flash_bwd_packed")
+
+
+def _other_library(root: Path) -> ctypes.CDLL:
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+            "from clip_for_dl_tpu_torch.ops import _build; _build.build(); "
+            "print(_build.build_info['path'])")
+    out = subprocess.run([sys.executable, "-c", code, str(root)], capture_output=True,
+                         text=True)
+    if out.returncode != 0:
+        raise RuntimeError(f"building {root}'s kernels failed:\n{out.stderr}")
+    lib = ctypes.CDLL(out.stdout.strip().splitlines()[-1])
+    for name in ENTRIES:
+        getattr(lib, name).argtypes = list(_build._SIGNATURES[name])
+        getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--other", required=True, type=Path,
+                   help="root of the other checkout (holds clip_for_dl_tpu_torch/)")
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--seed", type=int, default=0)
+    args = p.parse_args(argv)
+
+    dev = require_cuda(args.device)
+    other = _other_library(args.other.resolve())
+
+    def call(name, *ptrs_and_ints):
+        with torch.cuda.device(dev):
+            err = getattr(other, name)(*ptrs_and_ints, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"{args.other}: {name} returned CUDA error {err}")
+
+    g = torch.Generator(dev).manual_seed(args.seed)
+    ok = True
+    for B, N, H, D in SHAPES:
+        qkv = torch.randn(B, N, 3 * H * D, device=dev, generator=g).bfloat16()
+        do = torch.randn(B, N, H * D, device=dev, generator=g).bfloat16()
+        lengths = torch.randint(3, N + 1, (B, 1), device=dev, generator=g)
+        bias = torch.where(torch.arange(N, device=dev)[None] < lengths, 0.0, -1e10)
+        for rate in RATES:
+            seeds = (fa.dropout_seeds(g, B, dev) if rate
+                     else torch.zeros(B, 1, dtype=torch.int32, device=dev))
+            kw = dict(dropout_rate=rate, dropout_seeds=seeds)
+            scalars = (B, N, H, D, 1.0 / D ** 0.5, rate, 1.0 / (1.0 - rate))
+            out = torch.empty(B, N, H * D, dtype=torch.bfloat16, device=dev)
+            dqkv = torch.empty_like(qkv)
+            stats = torch.empty(3, B, H, N, device=dev)
+            other_fwd = partial(call, ENTRIES[0], qkv.data_ptr(), bias.data_ptr(),
+                                seeds.data_ptr(), out.data_ptr(), *scalars)
+            other_bwd = partial(call, ENTRIES[1], qkv.data_ptr(), do.data_ptr(),
+                                bias.data_ptr(), seeds.data_ptr(), dqkv.data_ptr(),
+                                stats.data_ptr(), *scalars)
+            this_fwd = partial(fa._kernel, qkv, H, bias, **kw)
+            this_bwd = partial(fa._kernel_bwd, qkv, do, H, bias, **kw)
+            other_fwd()
+            other_bwd()
+            row = {"shape": [B, N, H, D], "rate": rate,
+                   "B3 bit-equal": bool(torch.equal(this_fwd(), out)),
+                   "B6 bit-equal": bool(torch.equal(this_bwd(), dqkv))}
+            for name, (o, t) in (("B3", (other_fwd, this_fwd)), ("B6", (other_bwd, this_bwd))):
+                iters = 20 if name == "B3" else 10
+                row[f"{name} ms other,this,this,other"] = [
+                    time_ms(fn, iters, dev) for fn in (o, t, t, o)]
+            ok = ok and row["B3 bit-equal"] and row["B6 bit-equal"]
+            print(json.dumps(row), flush=True)
+    print("bit-equal" if ok else "MISMATCH")
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

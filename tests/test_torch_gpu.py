@@ -355,3 +355,127 @@ def test_mlp_block_trainable_on_the_card(cuda):
     (mlp_block.fused_mlp_block_reference(*ref).float() * ct).sum().backward()
     for a, b in zip(args, ref):
         torch.testing.assert_close(a.grad, b.grad, atol=1e-6, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# B5 and B7: the split-q/k/v attention forward and backward
+# ---------------------------------------------------------------------------
+
+
+def _split_from_packed(qkv, H, layout):
+    """q, k, v as views of a packed qkv's column blocks ("bnhd"), or their
+    head-major contiguous copies ("bhnd")."""
+    B, N, _ = qkv.shape
+    q, k, v = qkv.view(B, N, 3, H, -1).unbind(2)
+    if layout == "bhnd":
+        q, k, v = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    return q, k, v
+
+
+def _to_bnhd(t, layout):
+    return t if layout == "bnhd" else t.transpose(1, 2)
+
+
+def _head_major(t, layout):
+    """A split operand as [B, H, N, D] for the plain versions, and their
+    results back in ``layout``."""
+    return t if layout == "bhnd" else t.transpose(1, 2)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("layout", ["bnhd", "bhnd"])
+@pytest.mark.parametrize("B,N,H,D", [(8, 200, 12, 64), (3, 13, 2, 64), (2, 512, 2, 128)])
+def test_flash_attention_split_kernels(cuda, B, N, H, D, layout, rate):
+    """B5's output within two bf16 steps (2e-2) and B7's (dq, dk, dv) within
+    two bf16 steps at each gradient's largest entry of the plain versions;
+    and both bit-equal to B3 and B6 on the same heads (one kernel body):
+    padded keys, a fully masked row, N below one 64-row block, and the
+    (N, D) = (512, 128) bound."""
+    qkv, do, bias = _attention_inputs(cuda, B, N, H, D)
+    bias[0] = -1e10
+    seeds = _seeds(cuda, B) if rate else None
+    kw = dict(dropout_rate=rate, dropout_seeds=seeds)
+    q, k, v = _split_from_packed(qkv, H, layout)
+    dos = _to_bnhd(do.view(B, N, H, D), layout)
+    if layout == "bhnd":
+        dos = dos.contiguous()
+    got = fa.flash_attention(q, k, v, bias, layout=layout, **kw)
+    want = _head_major(fa.flash_attention_reference(
+        *(_head_major(t, layout) for t in (q, k, v)), bias, **kw), layout)
+    assert got.shape == q.shape and torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=0)
+    packed = fa.flash_attention_packed(qkv, H, bias, **kw)
+    assert torch.equal(_to_bnhd(got, layout).reshape(B, N, H * D), packed)
+
+    grads = fa.flash_attention_bwd(q, k, v, dos, bias, layout=layout, **kw)
+    plain = fa.flash_attention_bwd_reference(
+        *(_head_major(t, layout) for t in (q, k, v, dos)), bias, **kw)
+    dqkv = fa._kernel_bwd(qkv, do, H, bias, **kw).view(B, N, 3, H, D)
+    for i, (name, g, w) in enumerate(zip(("dq", "dk", "dv"), grads, plain)):
+        assert g.shape == q.shape and torch.isfinite(g.float()).all(), name
+        w = _head_major(w, layout)
+        torch.testing.assert_close(g.float(), w.float(), atol=_rel_tol(w), rtol=0, msg=name)
+        assert torch.equal(_to_bnhd(g, layout), dqkv[:, :, i]), name
+
+
+@pytest.mark.parametrize("layout", ["bnhd", "bhnd"])
+def test_flash_attention_split_dropout_mask_is_the_plain_versions(cuda, layout):
+    """The probe inputs of chip_smoke.py's dropout_probe (q = k = 0, one-hot
+    v and d(out) windows): B5's output and B7's dv are nonzero exactly where
+    the plain versions' are, so the masks agree bit for bit."""
+    B, N, H, D = 6, 200, 3, 64
+    nwin = -(-N // D)
+    pos = torch.arange(N, device=cuda)
+    win = torch.arange(B, device=cuda) % nwin
+    in_key = (pos[None] // D) == win[:, None]
+    in_row = (pos[None] // D) == ((torch.arange(B, device=cuda) // nwin) % nwin)[:, None]
+    onehot = torch.nn.functional.one_hot(pos % D, D).float()
+    qkv = torch.zeros(B, N, 3, H, D, device=cuda)
+    qkv[:, :, 2] = (onehot[None] * in_key[..., None])[:, :, None, :]
+    do = (onehot[None] * in_row[..., None])[:, :, None, :].expand(B, N, H, D).bfloat16()
+    qkv = qkv.reshape(B, N, 3 * H * D).bfloat16()
+    bias = torch.where(in_key, 0.0, -1e10)
+    kw = dict(dropout_rate=0.1, dropout_seeds=_seeds(cuda, B, 7))
+    q, k, v = _split_from_packed(qkv, H, layout)
+    dos = _to_bnhd(do, layout).contiguous()
+    out = _to_bnhd(fa.flash_attention(q, k, v, bias, layout=layout, **kw), layout)
+    want = fa.flash_attention_packed_reference(qkv, H, bias, **kw).view(B, N, H, D)
+    assert torch.equal(out != 0, want != 0)
+    dv = _to_bnhd(fa.flash_attention_bwd(q, k, v, dos, bias, layout=layout, **kw)[2], layout)
+    wdv = fa.flash_attention_packed_bwd_reference(qkv, do.reshape(B, N, H * D), H, bias,
+                                                  **kw).view(B, N, 3, H, D)[:, :, 2]
+    assert torch.equal(dv != 0, wdv != 0)
+    assert 0.8 < float((want != 0).sum()) / (int(in_key.sum()) * N * H) < 0.97
+
+
+def test_flash_attention_split_autograd_on_the_card(cuda):
+    """``_Flash`` launches B5 and B7 and gives the plain backward's
+    gradients; a d(out) with a non-contiguous head dim reaches B7 as a
+    contiguous copy."""
+    from clip_for_dl_tpu_torch.ops import _build
+
+    g = torch.Generator(cuda).manual_seed(5)
+    q, k, v = (torch.randn(2, 40, 2, 64, device=cuda, generator=g).bfloat16() for _ in range(3))
+    do = torch.randn(2, 40, 64, 2, device=cuda, generator=g).bfloat16().transpose(2, 3)
+    seeds = _seeds(cuda, 2)
+    xs = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = dict(_build.LAUNCHES)
+    fa.flash_attention(*xs, None, layout="bnhd", dropout_rate=0.1,
+                       dropout_seeds=seeds).backward(do)
+    for name in (fa.KERNEL_SPLIT, fa.KERNEL_SPLIT_BWD):
+        assert _build.LAUNCHES[name] == before.get(name, 0) + 1, name
+    want = fa.flash_attention_bwd_reference(
+        *(t.transpose(1, 2) for t in (q, k, v, do)), None, dropout_rate=0.1,
+        dropout_seeds=seeds)
+    for x, w in zip(xs, want):
+        w = w.transpose(1, 2)
+        torch.testing.assert_close(x.grad.float(), w.float(), atol=_rel_tol(w), rtol=0)
+
+
+def test_split_kernels_refuse_what_they_do_not_take(cuda):
+    z = torch.zeros(2, 8, 2, 96, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(z, z, z, layout="bnhd")
+    with pytest.raises(TypeError):
+        fa.flash_attention(*(torch.zeros(2, 8, 2, 64, device=cuda) for _ in range(3)),
+                           layout="bnhd")

@@ -190,7 +190,10 @@ def _meta(*shape, dtype=torch.float32):
                                       _meta(768), _meta(3072, 768, dtype=torch.bfloat16),
                                       _meta(3072), _meta(768, 3072, dtype=torch.bfloat16),
                                       _meta(768)),
-], ids=["similarity", "image_prep", "flash_attention", "mlp", "mlp_block"])
+    lambda: fa.flash_attention(*(_meta(2, 8, 2, 64, dtype=torch.bfloat16) for _ in range(3)),
+                               layout="bnhd"),
+], ids=["similarity", "image_prep", "flash_attention", "mlp", "mlp_block",
+        "flash_attention_split"])
 def test_non_cpu_tensor_takes_the_kernel_path_or_raises(call):
     with pytest.raises(ValueError, match="CUDA tensor"):
         call()
@@ -211,8 +214,12 @@ def test_non_cpu_tensor_takes_the_kernel_path_or_raises(call):
                               torch.zeros(768), torch.zeros(3072, 768, dtype=torch.bfloat16),
                               torch.zeros(3072), torch.zeros(768, 3072, dtype=torch.bfloat16),
                               torch.zeros(768), eps=1e-6, gelu_approximate=False),
+    lambda: fa._kernel_split(*(torch.zeros(2, 8, 2, 64, dtype=torch.bfloat16) for _ in range(3)),
+                             None, "bnhd"),
+    lambda: fa._kernel_split_bwd(*(torch.zeros(2, 2, 8, 64, dtype=torch.bfloat16)
+                                   for _ in range(4)), None, "bhnd"),
 ], ids=["similarity", "image_prep", "flash_attention", "mlp", "flash_attention_bwd", "mlp_bwd",
-        "mlp_block"])
+        "mlp_block", "flash_attention_split", "flash_attention_split_bwd"])
 def test_kernel_path_on_cpu_raises(call):
     with pytest.raises(ValueError, match="CUDA tensor"):
         call()
@@ -263,7 +270,13 @@ def test_mlp_kernels_take_every_width_to_the_bound(H):
                                  _meta(3072, dtype=torch.bfloat16),
                                  _meta(768, 3072, dtype=torch.bfloat16),
                                  _meta(768, dtype=torch.bfloat16)),
-], ids=["flash_attention", "flash_attention_dropout", "mlp"])
+    lambda: fa.flash_attention(*(_meta(2, 2, 8, 64, dtype=torch.bfloat16).requires_grad_()
+                                 for _ in range(3))),
+    lambda: fa.flash_attention(*(_meta(2, 8, 2, 64, dtype=torch.bfloat16).requires_grad_()
+                                 for _ in range(3)), layout="bnhd", dropout_rate=0.1,
+                               dropout_seeds=_meta(2, 1, dtype=torch.int32)),
+], ids=["flash_attention", "flash_attention_dropout", "mlp", "flash_attention_split",
+        "flash_attention_split_dropout"])
 def test_autograd_path_reaches_the_kernel_checks(call):
     """With a gradient required, a non-CPU tensor goes through the autograd
     function into the kernel wrapper, which refuses anything but CUDA."""

@@ -54,7 +54,7 @@ def test_config_fields_and_defaults_match(name):
     ]
 
 
-@pytest.mark.parametrize("preset", ["pretrain_clip", "zero_shot", "vit"])
+@pytest.mark.parametrize("preset", ["pretrain_clip", "adapter", "zero_shot", "vit"])
 def test_presets_match(preset):
     assert dataclasses.asdict(config.get_preset(preset)) == dataclasses.asdict(
         jconfig.get_preset(preset)
