@@ -9,8 +9,10 @@ Phases (any failure exits non-zero and prints no result line):
 
 0. Card: name and power limit from nvidia-smi. Without CUDA, exit at once.
 1. Build: compile the port's kernels (clip_for_dl_tpu_torch/csrc/*.cu) with
-   nvcc for sm_90a, one nvcc per source, all at once; print the build time
-   and ptxas' per-kernel summary.
+   nvcc for sm_90a, one nvcc per source, all at once; print the build time,
+   ptxas' per-kernel summary and, from cuobjdump's SASS of the library, the
+   tensor-core instructions (HMMA, HGMMA) of each attention backward kernel
+   (rows and columns pass at D = 64 and 128; fails if one has none).
 2. Kernels: each of B1-B9 against its plain PyTorch version on the card at
    the main paths' shapes (B3 also with dropout 0.1 at the train shape, its
    dropout mask compared bit for bit, and at the ViT shape; B6 at rates 0
@@ -22,11 +24,14 @@ Phases (any failure exits non-zero and prints no result line):
    N = 512; the split entry point with autograd (the split_attention path);
    and the layout probe P1 (tools/probe_bwd_layouts.py: B6, B7 "bnhd" and B7
    "bhnd" bit-equal; the layout_probe path). Max abs/rel difference against
-   the tolerance below, both times from CUDA events after warm-up, the bound
-   (the larger of the bytes each call must move over 3.35 TB/s and its
-   operations over the dense peak of their type), and for attention the
-   time of F.scaled_dot_product_attention (forward, or its backward) on the
-   same inputs at rate 0.
+   the tolerance below (B6 and B7 per (batch row, head) slice of each
+   gradient), both times the median of five CUDA-event timings after
+   warm-up, the bound (the larger of the bytes each call must move over
+   3.35 TB/s and its operations over the dense peak of their type), and for
+   attention the time of F.scaled_dot_product_attention (forward, or its
+   backward) on contiguous head-major copies of the same inputs at rate 0,
+   with the backend it picked. Shapes off the kernels line (other rates,
+   layouts and widths) print the same figures.
 3. Slice: the full-width CXRClip (ResNet-50, BERT-base at vocab 28996,
    512-d heads; random weights from --seed) in bf16 with flash attention and
    the fused BERT MLP, wrapped in ZeroShotEngine: prompt bank ("prediction"
@@ -77,6 +82,7 @@ from __future__ import annotations
 import argparse
 import itertools
 import json
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -104,10 +110,11 @@ TOL = {
     # bf16 output |y| ≲ 2: accumulation order may flip the bf16 rounding of
     # the GELU output or of y, each ≤ one bf16 step
     "mlp": 2e-2,
-    # B6 and B8, relative to each output's largest entry: two bf16 steps
-    # (2^-6); the kernels round the same intermediates (pd, ds; g, dh) to
-    # bf16 as the plain versions, and summation order can flip one rounding
-    # of an intermediate and one of the output
+    # B8, relative to each output's largest entry: two bf16 steps (2^-6);
+    # the kernel rounds the same intermediates (g, dh) to bf16 as the plain
+    # version, and summation order can flip one rounding of an intermediate
+    # and one of the output. B6 and B7 are held the same way per (batch row,
+    # head) slice of each gradient (fa.grad_slice_error, in compare_grads)
     "bwd_rel": 2.0 ** -6,
     # B9, on the MLP branch out - x and relative to its largest entry: two
     # bf16 steps (2^-6); a summation-order flip of the GELU or o rounding
@@ -220,49 +227,76 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, warmup: int = 3, iters: int = 20) -> float:
+    """ms of one call of ``fn``: the median of five CUDA-event timings of
+    ``iters`` calls each, after ``warmup`` calls."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    times = []
+    for _ in range(5):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
+
+
+def bound(flops: float, tensors, peak: str = "bf16"):
+    """The least time the card could take for one call: the larger of the
+    bytes it must move (each input read once, each output written once) over
+    the HBM rate and its operations over the dense peak of ``peak``. Returns
+    (ms, what bounds it, a description of the work)."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    t_ops, t_bytes = flops / PEAK[peak], nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes",
+            f"{flops / 1e9:.2f} G{peak} operations, {nbytes / 1e6:.1f} MB")
 
 
 def set_bound(results: dict, name: str, flops: float, tensors, peak: str = "bf16") -> None:
-    """The least time the card could take for one call: the larger of the
-    bytes it must move (each input read once, each output written once) over
-    the HBM rate and its operations over the dense peak of ``peak``."""
-    nbytes = sum(t.numel() * t.element_size() for t in tensors)
-    t_ops, t_bytes = flops / PEAK[peak], nbytes / HBM_BYTES_PER_S
-    results[name].update(bound_ms=max(t_ops, t_bytes) * 1e3,
-                         bound_by="operations" if t_ops > t_bytes else "bytes")
-    print(f"  {name} bound: {results[name]['bound_ms']:.4f} ms by {results[name]['bound_by']} "
-          f"({flops / 1e9:.2f} G{peak} operations, {nbytes / 1e6:.1f} MB)")
+    ms, by, work = bound(flops, tensors, peak)
+    results[name].update(bound_ms=ms, bound_by=by)
+    print(f"  {name} bound: {ms:.4f} ms by {by} ({work})")
+
+
+def sdpa_backend(q, k, v, mask) -> str:
+    """The backend F.scaled_dot_product_attention picks for these inputs
+    (its own dispatch rule, torch._fused_sdp_choice), or "not measured"
+    where this torch does not say."""
+    import torch
+
+    try:
+        from torch.nn.attention import SDPBackend
+
+        return SDPBackend(torch._fused_sdp_choice(q, k, v, mask)).name
+    except (AttributeError, ImportError, RuntimeError, TypeError, ValueError):
+        return "not measured"
 
 
 def sdpa_ms(q, k, v, bias, do=None) -> float:
-    """Time of one PyTorch call for the same attention at rate 0 on
-    head-major q, k, v: F.scaled_dot_product_attention with the key bias as
-    a [B, 1, 1, N] float mask; with ``do``, the time of its backward alone.
-    A yardstick only: the port never calls it."""
+    """Time of one PyTorch call for the same attention at rate 0:
+    F.scaled_dot_product_attention on contiguous head-major [B, H, N, D]
+    copies of q, k, v with the key bias as a [B, 1, 1, N] mask in their
+    dtype; with ``do`` (made contiguous too), the time of its backward alone.
+    Prints the backend it picked. A yardstick only: the port never calls
+    it."""
     import torch
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    mask = bias.to(q.dtype)[:, None, None, :]
+    mask = None if bias is None else bias.to(q.dtype)[:, None, None, :]
+    xs = [t.detach().contiguous().requires_grad_(do is not None) for t in (q, k, v)]
+    backend = sdpa_backend(*xs, mask)
     if do is None:
-        ms = cuda_ms(lambda: sdpa(q, k, v, attn_mask=mask), iters=10)
+        ms = cuda_ms(lambda: sdpa(*xs, attn_mask=mask), iters=10)
     else:
-        xs = [t.detach().requires_grad_() for t in (q, k, v)]
-        out = sdpa(*xs, attn_mask=mask)
+        out, do = sdpa(*xs, attn_mask=mask), do.contiguous()
         ms = cuda_ms(lambda: torch.autograd.grad(out, xs, do, retain_graph=True), iters=10)
     print(f"  F.scaled_dot_product_attention{' backward' if do is not None else ''} at "
-          f"{tuple(q.shape)}, rate 0: {ms:.4f} ms")
+          f"{tuple(q.shape)}, rate 0 ({backend}): {ms:.4f} ms")
     return ms
 
 
@@ -283,6 +317,24 @@ def compare(name, got, want, tol, results):
     max_rel = float((diff / want.abs().clamp_min(1e-3)).max())
     print(f"  {name}: max_abs {max_abs:.3e}  max_rel {max_rel:.3e}  tol {tol:.1e}")
     check(max_abs <= tol, f"{name}: max_abs {max_abs} > tol {tol}")
+    results.setdefault(name, {})["max_abs_err"] = max(
+        max_abs, results.get(name, {}).get("max_abs_err", 0.0))
+
+
+def compare_grads(name, got, want, layout, results, heads=None):
+    """An attention backward kernel's gradient against its plain version's,
+    per (batch row, head) slice (fa.grad_slice_error): finite, and each slice
+    within two bf16 steps of that slice's own largest entry."""
+    import torch
+
+    from clip_for_dl_tpu_torch.ops.flash_attention import grad_slice_error
+
+    check(got.shape == want.shape, f"{name}: shape {tuple(got.shape)} vs {tuple(want.shape)}")
+    check(bool(torch.isfinite(got.float()).all()), f"{name}: non-finite kernel output")
+    max_abs, worst = grad_slice_error(got, want, layout, heads)
+    print(f"  {name}: max_abs {max_abs:.3e}  worst (batch row, head) slice at {worst:.3f} "
+          "of its tolerance")
+    check(worst <= 1.0, f"{name}: a slice is off by {worst} of its tolerance")
     results.setdefault(name, {})["max_abs_err"] = max(
         max_abs, results.get(name, {}).get("max_abs_err", 0.0))
 
@@ -364,7 +416,9 @@ def phase2(mods, dev, seed: int, batch: int, results: dict) -> None:
     compare("flash_attention", fa.flash_attention_packed(qkv, 12),
             fa.flash_attention_packed_reference(qkv, 12), TOL["flash_attention"], results)
     extra_times("B3 at the ViT shape", lambda: fa.flash_attention_packed(qkv, 12),
-                lambda: fa.flash_attention_packed_reference(qkv, 12))
+                lambda: fa.flash_attention_packed_reference(qkv, 12),
+                4 * batch * 12 * VIT_TOKENS ** 2 * 64, (qkv, fa.flash_attention_packed(qkv, 12)),
+                sdpa_ms(*heads_of(qkv, 12), None))
     del qkv
 
     check_mlp_block(mods["mlp_block"], dev, seed, batch * VIT_TOKENS, results)
@@ -407,13 +461,19 @@ def check_mlp_block(blk, dev, seed: int, rows: int, results: dict) -> None:
         lambda: blk.fused_mlp_block_reference(*args), iters=10)
     set_bound(results, "mlp_block", 4 * rows * H * F, args + (blk.fused_mlp_block(*args),))
     extra_times(f"B9 at one request ({VIT_TOKENS} rows)", lambda: blk.fused_mlp_block(*one),
-                lambda: blk.fused_mlp_block_reference(*one))
+                lambda: blk.fused_mlp_block_reference(*one), 4 * VIT_TOKENS * H * F,
+                one + (blk.fused_mlp_block(*one),))
 
 
-def extra_times(what: str, kernel, plain) -> None:
-    """Print kernel and plain times of a shape off the kernels line."""
+def extra_times(what: str, kernel, plain, flops: float, io, library_ms=None,
+                peak: str = "bf16") -> None:
+    """Print the figures of a shape off the kernels line: kernel and plain
+    times, the bound of ``flops`` over the tensors ``io`` (as set_bound) and,
+    for attention, the SDPA time measured on the same inputs at rate 0."""
+    ms, by, work = bound(flops, io, peak)
+    sdpa = "" if library_ms is None else f"  SDPA {library_ms:.4f} ms"
     print(f"  {what}: kernel {cuda_ms(kernel, iters=10):.4f} ms  "
-          f"plain {cuda_ms(plain, iters=10):.4f} ms")
+          f"plain {cuda_ms(plain, iters=10):.4f} ms  bound {ms:.4f} ms by {by} ({work}){sdpa}")
 
 
 def dropout_probe(B: int, N: int, H: int, D: int, dev):
@@ -469,10 +529,12 @@ def phase2_train(mods, dev, seed: int, results: dict) -> None:
     check(torch.equal(gdv != 0, wdv != 0), "B6 dropout mask differs from the plain version's")
     print(f"  dropout masks equal bit for bit over {probed} (row, key, head) triples, "
           f"in B3's output and B6's dv; kept share {float(kept.sum()) / probed:.4f}")
-    ms = cuda_ms(lambda: fa.flash_attention_packed(qkv, H, bias, **drop), iters=10)
-    plain_ms = cuda_ms(lambda: fa.flash_attention_packed_reference(qkv, H, bias, **drop),
-                       iters=10)
-    print(f"  B3 with dropout at the train shape: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms")
+    extra_times("B3 with dropout 0.1 at the train shape",
+                lambda: fa.flash_attention_packed(qkv, H, bias, **drop),
+                lambda: fa.flash_attention_packed_reference(qkv, H, bias, **drop),
+                4 * B * H * N * N * D,
+                (qkv, bias, drop["dropout_seeds"], fa.flash_attention_packed(qkv, H, bias, **drop)),
+                sdpa_ms(*heads_of(qkv, H), bias))
 
     print(f"B6 attention backward: qkv [{B}, {N}, {3 * H * D}], d(out) [{B}, {N}, {H * D}] "
           "bf16, rates 0 and 0.1")
@@ -480,8 +542,8 @@ def phase2_train(mods, dev, seed: int, results: dict) -> None:
     for rate in (0.0, 0.1):
         kw = drop if rate else {}
         want = fa.flash_attention_packed_bwd_reference(qkv, do, H, bias, **kw)
-        compare("flash_attention_bwd", fa._kernel_bwd(qkv, do, H, bias, **kw), want,
-                TOL["bwd_rel"] * float(want.float().abs().max()), results)
+        compare_grads("flash_attention_bwd", fa._kernel_bwd(qkv, do, H, bias, **kw), want,
+                      "packed", results, H)
     results["flash_attention_bwd"]["ms"] = cuda_ms(
         lambda: fa._kernel_bwd(qkv, do, H, bias, **drop), iters=10)
     results["flash_attention_bwd"]["plain_ms"] = cuda_ms(
@@ -491,6 +553,11 @@ def phase2_train(mods, dev, seed: int, results: dict) -> None:
               (qkv, do, bias, drop["dropout_seeds"], fa._kernel_bwd(qkv, do, H, bias, **drop)))
     results["flash_attention_bwd"]["library_ms"] = sdpa_ms(
         *heads_of(qkv, H), bias, do.view(B, N, H, D).transpose(1, 2))
+    # also P1's shape: its plain version at rate 0
+    extra_times("B6 at rate 0 at the train shape", lambda: fa._kernel_bwd(qkv, do, H, bias),
+                lambda: fa.flash_attention_packed_bwd_reference(qkv, do, H, bias),
+                10 * B * H * N * N * D, (qkv, do, bias, fa._kernel_bwd(qkv, do, H, bias)),
+                results["flash_attention_bwd"]["library_ms"])
 
     R, HID, F = B * N, 768, 3072
     print(f"B8 MLP backward: x, dy [{R}, {HID}] bf16, W1 [{F}, {HID}], W2 [{HID}, {F}]")
@@ -532,12 +599,14 @@ def phase2_repairs(mods, dev, seed: int, results: dict) -> None:
     compare("flash_attention", fa.flash_attention_packed(qkv, H, bias),
             fa.flash_attention_packed_reference(qkv, H, bias), TOL["flash_attention"], results)
     extra_times("C1: B3 at D = 128, N = 512", lambda: fa.flash_attention_packed(qkv, H, bias),
-                lambda: fa.flash_attention_packed_reference(qkv, H, bias))
+                lambda: fa.flash_attention_packed_reference(qkv, H, bias),
+                4 * B * H * N * N * D, (qkv, bias, fa.flash_attention_packed(qkv, H, bias)),
+                sdpa_ms(*heads_of(qkv, H), bias))
     drop = dict(dropout_rate=0.1, dropout_seeds=fa.dropout_seeds(g, B, dev))
     for kw in ({}, drop):
         want = fa.flash_attention_packed_bwd_reference(qkv, do, H, bias, **kw)
-        compare("flash_attention_bwd", fa._kernel_bwd(qkv, do, H, bias, **kw), want,
-                TOL["bwd_rel"] * float(want.float().abs().max()), results)
+        compare_grads("flash_attention_bwd", fa._kernel_bwd(qkv, do, H, bias, **kw), want,
+                      "packed", results, H)
     pq, pdo, pbias = dropout_probe(B, N, H, D, dev)
     gdv = fa._kernel_bwd(pq, pdo, H, pbias, **drop).view(B, N, 3, H, D)[:, :, 2]
     wdv = fa.flash_attention_packed_bwd_reference(pq, pdo, H, pbias, **drop).view(
@@ -547,7 +616,10 @@ def phase2_repairs(mods, dev, seed: int, results: dict) -> None:
           f"{float((wdv != 0).sum()) / (int((pbias == 0).sum()) * D * H):.4f}")
     extra_times("C2: B6 at D = 128, N = 512, rate 0.1",
                 lambda: fa._kernel_bwd(qkv, do, H, bias, **drop),
-                lambda: fa.flash_attention_packed_bwd_reference(qkv, do, H, bias, **drop))
+                lambda: fa.flash_attention_packed_bwd_reference(qkv, do, H, bias, **drop),
+                10 * B * H * N * N * D,
+                (qkv, do, bias, drop["dropout_seeds"], fa._kernel_bwd(qkv, do, H, bias, **drop)),
+                sdpa_ms(*heads_of(qkv, H), bias, do.view(B, N, H, D).transpose(1, 2)))
 
     R, HID, F = 12800, 256, 1024
     print(f"C3: B4 and B8 at hidden {HID}: x, dy [{R}, {HID}] bf16, F = {F}")
@@ -563,9 +635,11 @@ def phase2_repairs(mods, dev, seed: int, results: dict) -> None:
                       mlp.dense_gelu_dense_bwd_reference(x, w1, b1, w2, dy)):
         compare("mlp_bwd", a_, b_, TOL["bwd_rel"] * float(b_.float().abs().max()), results)
     extra_times("C3: B4 at hidden 256", lambda: mlp.dense_gelu_dense(x, w1, b1, w2, b2),
-                lambda: mlp.dense_gelu_dense_reference(x, w1, b1, w2, b2))
+                lambda: mlp.dense_gelu_dense_reference(x, w1, b1, w2, b2), 4 * R * HID * F,
+                (x, w1, b1, w2, b2, mlp.dense_gelu_dense(x, w1, b1, w2, b2)))
     extra_times("C3: B8 at hidden 256", lambda: mlp._kernel_bwd(x, w1, b1, w2, dy),
-                lambda: mlp.dense_gelu_dense_bwd_reference(x, w1, b1, w2, dy))
+                lambda: mlp.dense_gelu_dense_bwd_reference(x, w1, b1, w2, dy), 6 * R * HID * F,
+                (x, w1, b1, w2, dy) + tuple(mlp._kernel_bwd(x, w1, b1, w2, dy)))
 
 
 def split_operands(qkv, H: int, layout: str):
@@ -622,9 +696,8 @@ def phase2_split(_build, mods, dev, seed: int, results: dict) -> dict:
                     *(head_major(t, layout) for t in (q, k, v, dos)), bias, **kw)
                 packed = fa._kernel_bwd(qkv, do, H, bias, **kw).view(B, N, 3, H, D)
                 for i, (a_, b_) in enumerate(zip(grads, plain)):
-                    b_ = head_major(b_, layout)
-                    compare("flash_attention_split_bwd", a_, b_,
-                            TOL["bwd_rel"] * float(b_.float().abs().max()), results)
+                    compare_grads("flash_attention_split_bwd", a_, head_major(b_, layout),
+                                  layout, results)
                     check(torch.equal(as_bnhd(a_, layout), packed[:, :, i]),
                           f"B7 ({layout}) differs from B6 on the same heads")
         print(f"  B5 and B7 bit-equal to B3 and B6 at {(B, N, H, D)}, both layouts, "
@@ -677,12 +750,22 @@ def phase2_split(_build, mods, dev, seed: int, results: dict) -> dict:
                                                                  dos.transpose(1, 2))
     qh, kh, vh = split_operands(qkv, H, "bhnd")
     doh = dos.transpose(1, 2).contiguous()
+    fwd_io = (qh, kh, vh, bias, drop["dropout_seeds"], out)
+    bwd_io = (qh, kh, vh, doh, bias, drop["dropout_seeds"]) + tuple(grads)
     extra_times("B5 (bhnd, rate 0.1)",
                 lambda: fa.flash_attention(qh, kh, vh, bias, layout="bhnd", **drop),
-                lambda: fa.flash_attention_reference(qh, kh, vh, bias, **drop))
+                lambda: fa.flash_attention_reference(qh, kh, vh, bias, **drop),
+                4 * B * H * N * N * D, fwd_io, results["flash_attention_split"]["library_ms"])
     extra_times("B7 (bhnd, rate 0.1)",
                 lambda: fa.flash_attention_bwd(qh, kh, vh, doh, bias, layout="bhnd", **drop),
-                lambda: fa.flash_attention_bwd_reference(qh, kh, vh, doh, bias, **drop))
+                lambda: fa.flash_attention_bwd_reference(qh, kh, vh, doh, bias, **drop),
+                10 * B * H * N * N * D, bwd_io, results["flash_attention_split_bwd"]["library_ms"])
+    extra_times("B7 (bnhd, rate 0)",
+                lambda: fa.flash_attention_bwd(q, k, v, dos, bias, layout="bnhd"),
+                lambda: fa.flash_attention_bwd_reference(
+                    *(t.transpose(1, 2) for t in (q, k, v, dos)), bias),
+                10 * B * H * N * N * D, (q, k, v, dos, bias) + tuple(grads),
+                results["flash_attention_split_bwd"]["library_ms"])
     del qkv, do, pq, pdo, grads, out
 
     print("B5/B7 at (B, N, H, D) = (2, 512, 2, 128), padded keys")
@@ -887,6 +970,23 @@ def serve_phase(_build, mods, dev, seed: int, batch: int, n_batches: int, card: 
           f"{e2e_rate:.1f} img/s host uint8 -> logits (stream_logits); "
           f"{device_rate:.1f} img/s uint8 on the card -> logits ({ms:.3f} ms/batch)")
     return launches
+
+
+def tensor_core_counts(_build) -> dict:
+    """Kernel (mangled name) -> its HMMA and HGMMA instructions in the built
+    library's SASS, from the cuobjdump beside nvcc."""
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "-sass", _build.build_info["path"]], capture_output=True,
+                         text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr[-2000:]}")
+    counts, name = {}, None
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            counts[name] = 0
+        elif name is not None and ("HMMA" in line or "HGMMA" in line):
+            counts[name] += 1
+    return counts
 
 
 def check_launched(mods, launches: dict, path: str) -> None:
@@ -1323,6 +1423,12 @@ def main(argv=None) -> int:
     for line in _build.build_info["log"].splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"  {line.strip()}")
+    counts = tensor_core_counts(_build)
+    for kernel in ("flash_bwd_rows_kernel", "flash_bwd_cols_kernel"):
+        for d in (64, 128):
+            n = sum(c for name, c in counts.items() if kernel in name and f"ILi{d}E" in name)
+            print(f"tensor-core instructions (HMMA/HGMMA) in {kernel}<{d}>: {n}")
+            check(n > 0, f"{kernel}<{d}> has no tensor-core instruction")
 
     results: dict = {}
     phase2(mods, dev, args.seed, BATCH, results)

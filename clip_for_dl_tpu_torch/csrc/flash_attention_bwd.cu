@@ -1,5 +1,5 @@
 // Attention backward: packed qkv (kernel B6) and split q/k/v (kernel B7), one
-// kernel body.
+// kernel body on Hopper's tensor cores.
 //
 // Replaces the TPU kernels clip_for_dl_tpu/ops/flash_attention.py
 // _bwd_kernel_packed (:375), reached through _pallas_bwd_packed's
@@ -14,54 +14,63 @@
 //   ds = bf16(p * (dp - delta))
 //   dq = ds k * scale,  dk = ds^T q * scale
 //
-// each head's dq, dk and dv rounded to bf16 and written through a base
+// each head's dq, dk and dv rounded to bf16 once and written through a base
 // pointer and HeadStrides (common.cuh) per operand, as the forward reads q, k
 // and v: into the packed dqkv [B, N, 3*H*D] (q | k | v heads) for B6, into
-// three tensors in the inputs' layout ([B, N, H, D] or [B, H, N, D]) for B7,
-// with the same fmaf sequence in every layout. delta is taken from the fp32 p and dp
-// as the TPU kernel does, not FlashAttention-2's rowsum(dO * O), which
+// three tensors in the inputs' layout ([B, N, H, D] or [B, H, N, D]) for B7.
+// Every layout runs the same instructions in the same order, so B7 on split
+// views of a packed qkv gives B6's bits. delta is taken from the fp32 p and
+// dp as the TPU kernel does, not FlashAttention-2's rowsum(dO * O), which
 // differs from it by O's and pd's bf16 rounding.
 //
 // What bounds it on the card: at the train shape (B = 128, N = 200, H = 12,
-// D = 64) it is ~39 GFLOP (five products of 2 N^2 D per head) over 275 MB in
-// and out, bound by the bytes on paper (0.082 ms at 3.35 TB/s). One head's
-// Q, K, V and dO are 4 x 25.6 KB of bf16, but at the
-// checked bound N = 512 they are 4 x 64 KB, more than the 227 KB a Hopper
-// block can hold, so no block owns a whole head. The kernel is two passes
-// (FlashAttention-2's split), each of which holds two of the four matrices:
+// D = 64) the five products are ~39 GFLOP over 275 MB in and out: 0.082 ms
+// by the bytes at 3.35 TB/s, 0.040 ms by the operations at 989 TFLOP/s. With
+// the row statistics recomputed (sweep 1 below) the kernel does seven
+// products, and the dropout hash costs ~20 integer operations an element,
+// twice (once a pass). So it has to run every product on the tensor cores and
+// keep every [N, N] intermediate in registers.
 //
-//   1. rows: one block per (64 query rows, head, batch row) stages the head's
-//      K and V; each warp takes one query row at a time and computes its
-//      scores and dp with the keys lane-strided (kMaxN / 32 registers each),
-//      the row max, sum and delta with shuffles, then ds, and dq = ds k with
-//      each lane owning D / 32 output dims. It writes dq and the row's (max,
-//      sum, delta) to a [3, B, H, N] fp32 scratch.
-//   2. columns: one block per (64 key columns, head, batch row) stages the
-//      head's Q and dO and the row statistics; each warp takes one key at a
-//      time, recomputes the column of p and dp with the query rows
-//      lane-strided, stages bf16 pd and ds in shared memory and reduces
-//      dv = pd^T do and dk = ds^T q with each lane owning D / 32 dims.
+// Tiling (FlashAttention-2's split into two kernels, no atomics):
 //
-// The row statistics are recomputed here, not saved by the forward: delta
-// needs a full pass over each row's scores and dp anyway, and that pass
-// yields the max and sum for free, so the forward writes nothing extra and
-// the autograd function saves only its inputs, as the TPU's custom VJP does.
-// Every sum over rows or columns is a loop inside one warp: the reduction is
-// deterministic, with no atomics. Both passes form each score and each dp
-// with the same fmaf sequence, so p and dp agree bit for bit between them.
-// Matrices in shared memory are stored as rows of bf16 pairs padded by one
-// word, so that lanes reading different rows hit different banks. This first
-// kernel runs on the CUDA cores, as the forward does.
+//   1. rows: one block per (64 query rows, head, batch row), 4 warps of 16
+//      rows. Q and dO are loaded once; K and V stream in 64-key tiles through
+//      a 2-stage ring of 16-byte cp.async copies, twice. Sweep 1 forms
+//      S = Q K^T and dP = dO V^T with mma.sync m16n8k16 (bf16 in, fp32
+//      accumulators), masks keys >= N, applies the dropout mask to dP (and
+//      leaves each thread's 32 keep bits of the tile in a word of shared
+//      memory for sweep 2) and keeps the online row max m, sum l and
+//      sum exp(s - m) * dp, rescaled whenever m moves; then
+//      delta = that / l. Sweep 2 forms S and dP again
+//      (the same instructions, so the same bits), p = exp(s - m) / l and
+//      ds = bf16(p (dp - delta)); the ds accumulators, packed to bf16, are
+//      the A operand of dq += ds K in registers. It writes bf16(dq * scale)
+//      and (m, 1 / l, delta) to the [3, B, H, N] fp32 scratch.
+//   2. columns: one block per (64 keys, head, batch row), 4 warps of 16 keys.
+//      K and V are loaded once; Q, dO and the row statistics stream in tiles
+//      of QT query rows (64 at D = 64, 32 at D = 128) through the same ring.
+//      It forms S^T = K Q^T and dP^T = V dO^T, so that the accumulators sit
+//      in the A-operand layout of dv += bf16(pd^T) dO and dk += bf16(ds^T) Q.
+//      It writes bf16(dk * scale) and bf16(dv).
 //
-// Head dim 128: staging both matrices would need N * 556 bytes (rows) and
-// N * 596 bytes (columns), over the limit for N > 418 and N > 390. So at
-// D = 128 each pass stages only the matrix its score loop reads both across
-// lanes and row by row (K in the rows pass, Q in the columns pass) and reads
-// the other (V, or dO) from global memory: across lanes as 16-byte vectors,
-// row by row as coalesced 256-byte rows; one head's V or dO (128 KB at
-// N = 512) stays in L2. Shared memory is then N * 296 and N * 336 bytes
-// (151,552 and 172,032 at N = 512). D = 64 keeps both matrices staged.
-#include <float.h>
+// The two passes sum s and dp in another order (S vs S^T), so their p and dp
+// may differ in the last bits; each gradient comes from one pass, and the
+// difference is far inside the two-bf16-step tolerance of the checks. Every
+// sum over keys or query rows is a loop inside one block: two calls on the
+// same inputs give the same bits.
+//
+// Shared memory is independent of N: rows 48 KB of tiles at D = 64 and 96 KB
+// at D = 128, plus the key bias (2 KB) and keep bits (4 KB); columns 49.5 KB
+// and 64.8 KB. Tiles
+// are rows of 16-byte chunks with chunk c of row r stored at c ^ (r % 8), so
+// that the eight row addresses of an ldmatrix, and a warp's cp.async writes,
+// fall in distinct banks. Tokens >= N of a tile are zero-filled by the copy
+// itself (source size 0), never read: in a "bnhd" view they belong to the
+// next batch row, and after the last one they lie past the allocation; a
+// stale row would give 0 * NaN = NaN in the products. The registers of a
+// thread stay within 255 at D = 128 because the columns pass takes 32 query
+// rows a tile there (dk and dv are 128 fp32 accumulators a thread).
+#include <math_constants.h>
 
 #include "common.cuh"
 
@@ -69,65 +78,220 @@ namespace {
 
 using cxr::HeadStrides;
 
-constexpr int kWarps = 8;
-constexpr int kRows = 64;   // query rows (pass 1) or key columns (pass 2) per block
-constexpr int kMaxN = 512;  // sequence bound (MAX_SEQ_LEN)
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kBlock = 64;  // query rows (rows pass) or keys (columns pass) of a block, 16 a warp
+constexpr int kKeyTile = 64;  // keys of a rows-pass tile
+constexpr int kMaxN = 512;    // sequence bound (MAX_SEQ_LEN)
 
-// the second matrix of each pass (V, dO) is staged only at D = 64
+// query rows of a columns-pass tile
 template <int D>
-__host__ __device__ constexpr bool stage_second() { return D <= 64; }
+__host__ __device__ constexpr int query_tile() { return D == 64 ? 64 : 32; }
 
 template <int D>
-__host__ __device__ constexpr size_t rows_smem_bytes(int N) {
-  return (size_t)(stage_second<D>() ? 2 : 1) * N * (D / 2 + 1) * 4  // K (and V), padded rows
-         + (size_t)N * 4                                           // key bias
-         + (size_t)kWarps * N * 4;                                 // per-warp ds row
+__host__ __device__ constexpr int tile_bytes(int rows) { return rows * D * 2; }
+
+// a rows-pass thread's keep bits of one key tile: its 32 scores, one word
+constexpr int kKeepBytes = kMaxN / kKeyTile * kThreads * 4;
+
+template <int D>
+__host__ __device__ constexpr size_t rows_smem_bytes() {
+  // Q, dO, 2 x (K, V); key bias; keep bits
+  return (size_t)6 * tile_bytes<D>(kBlock) + kMaxN * 4 + kKeepBytes;
 }
 
 template <int D>
-__host__ __device__ constexpr size_t cols_smem_bytes(int N) {
-  return (size_t)(stage_second<D>() ? 2 : 1) * N * (D / 2 + 1) * 4  // Q (and dO), padded rows
-         + (size_t)3 * N * 4                                       // row max, sum, delta
-         + (size_t)2 * kWarps * N * 4;                             // per-warp pd and ds columns
+__host__ __device__ constexpr int cols_stage_bytes() {
+  return 2 * tile_bytes<D>(query_tile<D>()) + 3 * query_tile<D>() * 4;  // Q, dO; m, 1/l, delta
 }
 
-// a.b over W bf16 pairs, in the one order both passes use (unrolled, so a
-// register array argument stays in registers)
-template <int W>
-__device__ __forceinline__ float dot_pairs(const uint32_t* a, const uint32_t* b) {
-  float acc = 0.f;
+template <int D>
+__host__ __device__ constexpr size_t cols_smem_bytes() {
+  return (size_t)2 * tile_bytes<D>(kBlock) + 2 * cols_stage_bytes<D>();  // K, V; 2 stages
+}
+
+// ---- PTX ------------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// wait until at most one committed group (the tile in flight) is pending
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// c (16 x 8, fp32) += a (16 x 16, bf16, row-major) b (16 x 8, bf16, col-major)
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// ---- tiles: rows of D bf16 in 16-byte chunks, chunk c of row r at c ^ (r % 8)
+
+template <int D>
+__device__ __forceinline__ uint32_t chunk_at(int row, int chunk) {
+  return (row * (D / 8) + (chunk ^ (row & 7))) * 16;
+}
+
+// tokens [t0, t0 + R) of one head's operand (token t at base + t * stride
+// words) into a tile; tokens >= N are zero-filled and not read
+template <int D, int R>
+__device__ __forceinline__ void load_tile(uint32_t tile, const uint32_t* base, long long stride,
+                                          int t0, int N) {
+  constexpr int C = D / 8;
+  static_assert(R * C % kThreads == 0, "a tile is whole 16-byte chunks for every thread");
 #pragma unroll
-  for (int w = 0; w < W; ++w) {
-    const float2 x = cxr::bf2_to_f2(a[w]);
-    const float2 y = cxr::bf2_to_f2(b[w]);
-    acc = fmaf(x.x, y.x, acc);
-    acc = fmaf(x.y, y.y, acc);
+  for (int it = 0; it < R * C / kThreads; ++it) {
+    const int idx = threadIdx.x + it * kThreads;
+    const int r = idx / C, c = idx % C, t = t0 + r;
+    const bool ok = t < N;
+    cp_async16(tile + chunk_at<D>(r, c), base + (ok ? t * stride : 0) + c * 4, ok);
   }
-  return acc;
 }
 
-// dot_pairs with b read from global memory as 16-byte vectors (b 16-byte
-// aligned); the same fmaf sequence, so the same result
-template <int W>
-__device__ __forceinline__ float dot_pairs_global(const uint32_t* a, const uint32_t* b) {
-  float acc = 0.f;
+// A fragment of the 16 x 16 block at rows r0.., columns 16 ks.. of a tile
+template <int D>
+__device__ __forceinline__ void load_a(uint32_t tile, int r0, int ks, uint32_t (&a)[4]) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4(tile + chunk_at<D>(r0 + (lane & 15), 2 * ks + (lane >> 4)), a);
+}
+
+// B fragments of two n8 tiles whose n index runs over the tile's rows
+// n0..n0 + 15 and k over its columns 16 ks..: b[0], b[1] for rows n0..,
+// b[2], b[3] for rows n0 + 8..
+template <int D>
+__device__ __forceinline__ void load_b_rows(uint32_t tile, int n0, int ks, uint32_t (&b)[4]) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4(tile + chunk_at<D>(n0 + ((lane >> 4) << 3) + (lane & 7), 2 * ks + ((lane >> 3) & 1)),
+          b);
+}
+
+// B fragments of two n8 tiles whose k index runs over the tile's rows
+// 16 kk..16 kk + 15 and n over its columns 16 p..: b[0], b[1] for columns
+// 16 p.., b[2], b[3] for columns 16 p + 8..
+template <int D>
+__device__ __forceinline__ void load_b_cols(uint32_t tile, int kk, int p, uint32_t (&b)[4]) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4_trans(tile + chunk_at<D>(16 * kk + (lane & 7) + (((lane >> 3) & 1) << 3),
+                                   2 * p + (lane >> 4)),
+                b);
+}
+
+// acc (16 x 8 NT) = A[r0..r0 + 15, :] B^T, both tiles D wide; B's first 8 NT
+// rows are the columns of acc
+template <int D, int NT>
+__device__ __forceinline__ void product_abt(float (&acc)[NT][4], uint32_t a_tile, int r0,
+                                            uint32_t b_tile) {
 #pragma unroll
-  for (int w = 0; w < W; w += 4) {
-    const uint4 v = __ldg(reinterpret_cast<const uint4*>(b + w));
-    const uint32_t bw[4] = {v.x, v.y, v.z, v.w};
+  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 x = cxr::bf2_to_f2(a[w + e]);
-      const float2 y = cxr::bf2_to_f2(bw[e]);
-      acc = fmaf(x.x, y.x, acc);
-      acc = fmaf(x.y, y.y, acc);
+  for (int ks = 0; ks < D / 16; ++ks) {
+    uint32_t a[4];
+    load_a<D>(a_tile, r0, ks, a);
+#pragma unroll
+    for (int p = 0; p < NT / 2; ++p) {
+      uint32_t b[4];
+      load_b_rows<D>(b_tile, 16 * p, ks, b);
+      mma(acc[2 * p], a, b[0], b[1]);
+      mma(acc[2 * p + 1], a, b[2], b[3]);
     }
   }
-  return acc;
 }
 
+// accumulators of a 16 x 16 KS product, rounded to bf16, as the A fragments
+// of the next product (the C and A layouts of m16n8k16 line up)
+template <int KS>
+__device__ __forceinline__ void to_a(const float (&c)[2 * KS][4], uint32_t (&a)[KS][4]) {
+#pragma unroll
+  for (int k = 0; k < KS; ++k) {
+    a[k][0] = cxr::f2_to_bf2(c[2 * k][0], c[2 * k][1]);
+    a[k][1] = cxr::f2_to_bf2(c[2 * k][2], c[2 * k][3]);
+    a[k][2] = cxr::f2_to_bf2(c[2 * k + 1][0], c[2 * k + 1][1]);
+    a[k][3] = cxr::f2_to_bf2(c[2 * k + 1][2], c[2 * k + 1][3]);
+  }
+}
+
+// acc (16 x D) += A (16 x 16 KS, fragments) B, B the tile's first 16 KS rows
+template <int D, int KS>
+__device__ __forceinline__ void product_ab(float (&acc)[D / 8][4], const uint32_t (&a)[KS][4],
+                                           uint32_t b_tile) {
+#pragma unroll
+  for (int k = 0; k < KS; ++k) {
+#pragma unroll
+    for (int p = 0; p < D / 16; ++p) {
+      uint32_t b[4];
+      load_b_cols<D>(b_tile, k, p, b);
+      mma(acc[2 * p], a[k], b[0], b[1]);
+      mma(acc[2 * p + 1], a[k], b[2], b[3]);
+    }
+  }
+}
+
+// a warp's 16 x D accumulator, times mul and rounded to bf16, into its own
+// 16 rows of a tile, then from there to tokens t0.. (< N) of the output as
+// 16-byte stores
 template <int D>
-__global__ void __launch_bounds__(kWarps * 32)
+__device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4], float mul,
+                                           unsigned char* smem, uint32_t tile, int r0,
+                                           uint32_t* out, long long stride, int t0, int N) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, qd = lane & 3;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    *reinterpret_cast<uint32_t*>(smem + tile + chunk_at<D>(r0 + g, n) + 4 * qd) =
+        cxr::f2_to_bf2(acc[n][0] * mul, acc[n][1] * mul);
+    *reinterpret_cast<uint32_t*>(smem + tile + chunk_at<D>(r0 + g + 8, n) + 4 * qd) =
+        cxr::f2_to_bf2(acc[n][2] * mul, acc[n][3] * mul);
+  }
+  __syncwarp();
+  constexpr int C = D / 8;
+#pragma unroll
+  for (int it = 0; it < 16 * C / 32; ++it) {
+    const int idx = lane + 32 * it;
+    const int r = idx / C, c = idx % C, t = t0 + r;
+    if (t < N)
+      *reinterpret_cast<uint4*>(out + t * stride + c * 4) =
+          *reinterpret_cast<const uint4*>(smem + tile + chunk_at<D>(r0 + r, c));
+  }
+}
+
+// ---- pass 1: dq and the row statistics ------------------------------------
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
 flash_bwd_rows_kernel(const uint32_t* __restrict__ q, HeadStrides sq,
                       const uint32_t* __restrict__ k, HeadStrides sk,
                       const uint32_t* __restrict__ v, HeadStrides sv,
@@ -135,119 +299,157 @@ flash_bwd_rows_kernel(const uint32_t* __restrict__ q, HeadStrides sq,
                       const float* __restrict__ bias, const int* __restrict__ seeds,
                       uint32_t* __restrict__ dq, HeadStrides sdq, float* __restrict__ stats,
                       int N, int H, float scale, float rate, float inv_keep) {
-  constexpr int W = D / 2;
-  constexpr int KS = W + 1;
-  constexpr int NT = kMaxN / 32;
-  constexpr int WPL = W / 32;
-  static_assert(W % 32 == 0, "D must be a multiple of 64");
+  constexpr int NT = kKeyTile / 8;  // n8 tiles of a key tile
+  static_assert(NT * 4 == 32, "a thread's scores of a key tile fill one word of keep bits");
+  constexpr int TILE = tile_bytes<D>(kBlock);
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t sbase = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  // Q, dO, then stage st's K and V at s_kv + 2 st TILE
+  const uint32_t s_q = sbase, s_do = s_q + TILE, s_kv = s_do + TILE;
+  float* s_bias = reinterpret_cast<float*>(smem + 6 * TILE);
+  uint32_t* s_keep = reinterpret_cast<uint32_t*>(s_bias + kMaxN);  // [key tile][thread]
 
-  extern __shared__ uint32_t smem[];
-  constexpr bool kStage = stage_second<D>();
-  uint32_t* ks = smem;                                      // [N][KS]
-  uint32_t* vs = ks + (size_t)N * KS;                       // [N][KS] when staged
-  float* bs = reinterpret_cast<float*>(vs + (kStage ? (size_t)N * KS : 0));  // [N]
-  float* dsw = bs + N;                                      // [kWarps][N]
-
-  const int b = blockIdx.z, h = blockIdx.y, row0 = blockIdx.x * kRows;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  // this (batch row, head)'s rows: token i at i * s.n words
+  const int b = blockIdx.z, h = blockIdx.y, row0 = blockIdx.x * kBlock;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, qd = lane & 3;
+  const int r0 = 16 * warp;
   const uint32_t* qb = q + b * sq.b + h * sq.h;
   const uint32_t* kb = k + b * sk.b + h * sk.h;
   const uint32_t* vb = v + b * sv.b + h * sv.h;
   const uint32_t* ob = dout + b * sdo.b + h * sdo.h;
-  uint32_t* gb = dq + b * sdq.b + h * sdq.h;
   const size_t plane = (size_t)gridDim.z * H * N;
-  float* st = stats + ((size_t)b * H + h) * N;  // max at st, sum at +plane, delta at +2*plane
+  float* st = stats + ((size_t)b * H + h) * N;  // max at st, 1/sum at +plane, delta at +2 plane
 
-  for (int i = threadIdx.x; i < N * W; i += blockDim.x) {
-    const int j = i / W, w = i % W;
-    ks[j * KS + w] = kb[j * sk.n + w];
-    if constexpr (kStage) vs[j * KS + w] = vb[j * sv.n + w];
-  }
-  for (int j = threadIdx.x; j < N; j += blockDim.x) bs[j] = bias[(size_t)b * N + j];
-  __syncthreads();
+  load_tile<D, kBlock>(s_q, qb, sq.n, row0, N);
+  load_tile<D, kBlock>(s_do, ob, sdo.n, row0, N);
+  load_tile<D, kKeyTile>(s_kv, kb, sk.n, 0, N);
+  load_tile<D, kKeyTile>(s_kv + TILE, vb, sv.n, 0, N);
+  cp_async_commit();
+  for (int j = threadIdx.x; j < N; j += kThreads) s_bias[j] = bias[(size_t)b * N + j];
 
   const bool drop = rate > 0.f;
   const uint32_t salt = cxr::dropout_salt(seeds[b], h);
-  float* ds_row = dsw + warp * N;
-  const int row_end = min(row0 + kRows, N);
-  for (int i = row0 + warp; i < row_end; i += kWarps) {
-    uint32_t q2[W], o2[W];
-    const uint32_t* qrow = qb + i * sq.n;
-    const uint32_t* orow = ob + i * sdo.n;
+  const bool active = row0 + r0 < N;  // the warp has a query row below N
+  const int rows[2] = {row0 + r0 + g, row0 + r0 + g + 8};
+  const int nkt = (N + kKeyTile - 1) / kKeyTile;
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f}, pdp[2] = {0.f, 0.f};
+  float delta[2] = {0.f, 0.f};
+  float dqa[D / 8][4];
 #pragma unroll
-    for (int w = 0; w < W; ++w) {
-      q2[w] = qrow[w];
-      o2[w] = orow[w];
-    }
+  for (int n = 0; n < D / 8; ++n) dqa[n][0] = dqa[n][1] = dqa[n][2] = dqa[n][3] = 0.f;
 
-    float s[NT], dp[NT];
-    float m = -FLT_MAX;
+  for (int t = 0; t < 2 * nkt; ++t) {  // sweep 1 over the key tiles, then sweep 2
+    if (t + 1 < 2 * nkt) {
+      const uint32_t next = s_kv + ((t + 1) & 1) * 2 * TILE;
+      const int j0 = ((t + 1) % nkt) * kKeyTile;
+      load_tile<D, kKeyTile>(next, kb, sk.n, j0, N);
+      load_tile<D, kKeyTile>(next + TILE, vb, sv.n, j0, N);
+    }
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();
+    const uint32_t kt = s_kv + (t & 1) * 2 * TILE, vt = kt + TILE;
+    const int j0 = (t % nkt) * kKeyTile;
+    const bool sweep2 = t >= nkt;
+    if (t == nkt) {  // the row statistics of sweep 1
 #pragma unroll
-    for (int t = 0; t < NT; ++t) {
-      const int j = lane + 32 * t;
-      s[t] = -FLT_MAX;
-      dp[t] = 0.f;
-      if (j < N) {
-        s[t] = fmaf(dot_pairs<W>(q2, ks + j * KS), scale, bs[j]);
-        if constexpr (kStage) dp[t] = dot_pairs<W>(o2, vs + j * KS);
-        else dp[t] = dot_pairs_global<W>(o2, vb + j * sv.n);
-        m = fmaxf(m, s[t]);
+      for (int r = 0; r < 2; ++r) {
+        const float lr = quad_sum(l[r]);
+        delta[r] = quad_sum(pdp[r]) / lr;
+        l[r] = 1.f / lr;
+        if (m[r] == -CUDART_INF_F) m[r] = 0.f;  // no finite score: exp(s - m) is 0, not NaN
       }
     }
-    m = cxr::warp_max(m);
-    float l = 0.f;
+    if (active) {
+      float s[NT][4], dp[NT][4];
+      product_abt<D, NT>(s, s_q, r0, kt);
+      product_abt<D, NT>(dp, s_do, r0, vt);
+      // the dropout mask of the thread's 32 scores: hashed in sweep 1, kept
+      // in one word of shared memory for sweep 2
+      uint32_t keep = 0;
+      if (drop) {
+        uint32_t* word = s_keep + (t % nkt) * kThreads + threadIdx.x;
+        if (!sweep2) {
 #pragma unroll
-    for (int t = 0; t < NT; ++t) {
-      const int j = lane + 32 * t;
-      s[t] = (j < N) ? expf(s[t] - m) : 0.f;
-      l += s[t];
-    }
-    l = cxr::warp_sum(l);
-    float pdp = 0.f;
+          for (int n = 0; n < NT; ++n)
 #pragma unroll
-    for (int t = 0; t < NT; ++t) {
-      const int j = lane + 32 * t;
-      if (j < N) {
-        s[t] = s[t] / l;  // p
-        if (drop) dp[t] = cxr::uniform01(salt, i, j) >= rate ? dp[t] * inv_keep : 0.f;
-        pdp += s[t] * dp[t];
+            for (int e = 0; e < 4; ++e) {
+              const int j = j0 + 8 * n + 2 * qd + (e & 1);
+              keep |= uint32_t(cxr::uniform01(salt, rows[e >> 1], j) >= rate) << (4 * n + e);
+            }
+          *word = keep;
+        } else {
+          keep = *word;
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = j0 + 8 * n + 2 * qd + (e & 1);
+          s[n][e] = j < N ? fmaf(s[n][e], scale, s_bias[j]) : -CUDART_INF_F;
+          if (drop) dp[n][e] = (keep >> (4 * n + e)) & 1u ? dp[n][e] * inv_keep : 0.f;
+        }
+      }
+      if (!sweep2) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float mt = m[r];
+#pragma unroll
+          for (int n = 0; n < NT; ++n) mt = fmaxf(mt, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+          mt = quad_max(mt);
+          const float mu = mt == -CUDART_INF_F ? 0.f : mt;
+          const float corr = expf(m[r] - mu);
+          l[r] *= corr;
+          pdp[r] *= corr;
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+#pragma unroll
+            for (int e = 2 * r; e < 2 * r + 2; ++e) {
+              const float x = expf(s[n][e] - mu);
+              l[r] += x;
+              pdp[r] = fmaf(x, dp[n][e], pdp[r]);
+            }
+          }
+          m[r] = mt;
+        }
+      } else {
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1;
+            const float p = expf(s[n][e] - m[r]) * l[r];
+            s[n][e] = p * (dp[n][e] - delta[r]);  // ds, rounded to bf16 by to_a
+          }
+        }
+        uint32_t ds[NT / 2][4];
+        to_a<NT / 2>(s, ds);
+        product_ab<D, NT / 2>(dqa, ds, kt);
       }
     }
-    const float delta = cxr::warp_sum(pdp);
-#pragma unroll
-    for (int t = 0; t < NT; ++t) {
-      const int j = lane + 32 * t;
-      if (j < N) ds_row[j] = cxr::round_bf16(s[t] * (dp[t] - delta));
-    }
-    __syncwarp();
+    __syncthreads();  // the next iteration's copy overwrites this stage
+  }
 
-    float a[2 * WPL];
+  if (active) {
+    uint32_t* gq = dq + b * sdq.b + h * sdq.h;
+    store_rows<D>(dqa, scale, smem, s_q - sbase, r0, gq, sdq.n, row0 + r0, N);
+    if (qd == 0) {
 #pragma unroll
-    for (int u = 0; u < 2 * WPL; ++u) a[u] = 0.f;
-    for (int j = 0; j < N; ++j) {
-      const float dj = ds_row[j];
-#pragma unroll
-      for (int u = 0; u < WPL; ++u) {
-        const float2 kf = cxr::bf2_to_f2(ks[j * KS + u * 32 + lane]);
-        a[2 * u] = fmaf(dj, kf.x, a[2 * u]);
-        a[2 * u + 1] = fmaf(dj, kf.y, a[2 * u + 1]);
+      for (int r = 0; r < 2; ++r) {
+        if (rows[r] < N) {
+          st[rows[r]] = m[r];
+          st[plane + rows[r]] = l[r];
+          st[2 * plane + rows[r]] = delta[r];
+        }
       }
     }
-    uint32_t* gq = gb + i * sdq.n;
-#pragma unroll
-    for (int u = 0; u < WPL; ++u) gq[u * 32 + lane] = cxr::f2_to_bf2(a[2 * u] * scale, a[2 * u + 1] * scale);
-    if (lane == 0) {
-      st[i] = m;
-      st[plane + i] = l;
-      st[2 * plane + i] = delta;
-    }
-    __syncwarp();  // ds_row is rewritten by this warp's next row
   }
 }
 
+// ---- pass 2: dk and dv ----------------------------------------------------
+
 template <int D>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kThreads)
 flash_bwd_cols_kernel(const uint32_t* __restrict__ q, HeadStrides sq,
                       const uint32_t* __restrict__ k, HeadStrides sk,
                       const uint32_t* __restrict__ v, HeadStrides sv,
@@ -256,102 +458,99 @@ flash_bwd_cols_kernel(const uint32_t* __restrict__ q, HeadStrides sq,
                       uint32_t* __restrict__ dk, HeadStrides sdk, uint32_t* __restrict__ dv,
                       HeadStrides sdv, const float* __restrict__ stats, int N, int H,
                       float scale, float rate, float inv_keep) {
-  constexpr int W = D / 2;
-  constexpr int KS = W + 1;
-  constexpr int WPL = W / 32;
+  constexpr int QT = query_tile<D>();
+  constexpr int NT = QT / 8;  // n8 tiles of a query tile
+  constexpr int KV = tile_bytes<D>(kBlock), QTILE = tile_bytes<D>(QT);
+  constexpr int STAGE = cols_stage_bytes<D>();
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t sbase = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  const uint32_t s_k = sbase, s_v = s_k + KV, s_stage = s_v + KV;
+  // stage st: Q at s_stage + st STAGE, dO after it, then m, 1/l and delta of QT rows
 
-  extern __shared__ uint32_t smem[];
-  constexpr bool kStage = stage_second<D>();
-  uint32_t* qs = smem;                                       // [N][KS]
-  uint32_t* os = qs + (size_t)N * KS;                        // [N][KS] when staged
-  float* sm = reinterpret_cast<float*>(os + (kStage ? (size_t)N * KS : 0));  // [N] row max
-  float* sl = sm + N;                                        // [N] row sum
-  float* sd = sl + N;                                        // [N] row delta
-  float* pw = sd + N;                                        // [kWarps][N] bf16(pd)
-  float* dw = pw + kWarps * N;                               // [kWarps][N] bf16(ds)
-
-  const int b = blockIdx.z, h = blockIdx.y, col0 = blockIdx.x * kRows;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  // this (batch row, head)'s rows: token i at i * s.n words
+  const int b = blockIdx.z, h = blockIdx.y, col0 = blockIdx.x * kBlock;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, qd = lane & 3;
+  const int r0 = 16 * warp;
   const uint32_t* qb = q + b * sq.b + h * sq.h;
   const uint32_t* kb = k + b * sk.b + h * sk.h;
   const uint32_t* vb = v + b * sv.b + h * sv.h;
   const uint32_t* ob = dout + b * sdo.b + h * sdo.h;
-  uint32_t* gkb = dk + b * sdk.b + h * sdk.h;
-  uint32_t* gvb = dv + b * sdv.b + h * sdv.h;
   const size_t plane = (size_t)gridDim.z * H * N;
   const float* st = stats + ((size_t)b * H + h) * N;
 
-  for (int i = threadIdx.x; i < N * W; i += blockDim.x) {
-    const int r = i / W, w = i % W;
-    qs[r * KS + w] = qb[r * sq.n + w];
-    if constexpr (kStage) os[r * KS + w] = ob[r * sdo.n + w];
-  }
-  for (int r = threadIdx.x; r < N; r += blockDim.x) {
-    sm[r] = st[r];
-    sl[r] = st[plane + r];
-    sd[r] = st[2 * plane + r];
-  }
-  __syncthreads();
+  auto load_stage = [&](int stage, int i0) {
+    const uint32_t at = s_stage + stage * STAGE;
+    load_tile<D, QT>(at, qb, sq.n, i0, N);
+    load_tile<D, QT>(at + QTILE, ob, sdo.n, i0, N);
+    for (int x = threadIdx.x; x < 3 * QT; x += kThreads) {
+      const int c = x / QT, i = i0 + x % QT;
+      cp_async4(at + 2 * QTILE + 4 * x, i < N ? st + c * plane + i : st, i < N);
+    }
+  };
+  load_tile<D, kBlock>(s_k, kb, sk.n, col0, N);
+  load_tile<D, kBlock>(s_v, vb, sv.n, col0, N);
+  load_stage(0, 0);
+  cp_async_commit();
 
   const bool drop = rate > 0.f;
   const uint32_t salt = cxr::dropout_salt(seeds[b], h);
-  float* pcol = pw + warp * N;
-  float* dcol = dw + warp * N;
-  const int col_end = min(col0 + kRows, N);
-  for (int j = col0 + warp; j < col_end; j += kWarps) {
-    uint32_t k2[W], v2[W];
-    const uint32_t* krow = kb + j * sk.n;
-    const uint32_t* vrow = vb + j * sv.n;
+  const bool active = col0 + r0 < N;  // the warp has a key below N
+  const int keys[2] = {col0 + r0 + g, col0 + r0 + g + 8};
+  float kbias[2];
 #pragma unroll
-    for (int w = 0; w < W; ++w) {
-      k2[w] = krow[w];
-      v2[w] = vrow[w];
-    }
-    const float bj = bias[(size_t)b * N + j];
-    for (int i = lane; i < N; i += 32) {
-      const float s = fmaf(dot_pairs<W>(qs + i * KS, k2), scale, bj);
-      const float p = expf(s - sm[i]) / sl[i];
-      float d;
-      if constexpr (kStage) d = dot_pairs<W>(os + i * KS, v2);
-      else d = dot_pairs_global<W>(v2, ob + i * sdo.n);
-      float pd = p;
-      if (drop) {
-        const bool keep = cxr::uniform01(salt, i, j) >= rate;
-        pd = keep ? p * inv_keep : 0.f;
-        d = keep ? d * inv_keep : 0.f;
-      }
-      pcol[i] = cxr::round_bf16(pd);
-      dcol[i] = cxr::round_bf16(p * (d - sd[i]));
-    }
-    __syncwarp();
+  for (int r = 0; r < 2; ++r)
+    kbias[r] = keys[r] < N ? bias[(size_t)b * N + keys[r]] : -CUDART_INF_F;
+  const int nqt = (N + QT - 1) / QT;
+  float dka[D / 8][4], dva[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
 
-    float av[2 * WPL], ak[2 * WPL];
+  for (int t = 0; t < nqt; ++t) {
+    if (t + 1 < nqt) load_stage((t + 1) & 1, (t + 1) * QT);
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();
+    const uint32_t qt = s_stage + (t & 1) * STAGE, ot = qt + QTILE;
+    const float* sm = reinterpret_cast<const float*>(smem + (qt - sbase) + 2 * QTILE);
+    const float* sl = sm + QT;
+    const float* sd = sl + QT;
+    const int i0 = t * QT;
+    if (active) {
+      float s[NT][4], dp[NT][4];
+      product_abt<D, NT>(s, s_k, r0, qt);   // S^T: rows the warp's keys, columns query rows
+      product_abt<D, NT>(dp, s_v, r0, ot);  // dP^T
 #pragma unroll
-    for (int u = 0; u < 2 * WPL; ++u) av[u] = ak[u] = 0.f;
-    for (int i = 0; i < N; ++i) {
-      const float pi = pcol[i], di = dcol[i];
-      const uint32_t* orow;
-      if constexpr (kStage) orow = os + i * KS;
-      else orow = ob + i * sdo.n;
+      for (int n = 0; n < NT; ++n) {
 #pragma unroll
-      for (int u = 0; u < WPL; ++u) {
-        const float2 of = cxr::bf2_to_f2(orow[u * 32 + lane]);
-        const float2 qf = cxr::bf2_to_f2(qs[i * KS + u * 32 + lane]);
-        av[2 * u] = fmaf(pi, of.x, av[2 * u]);
-        av[2 * u + 1] = fmaf(pi, of.y, av[2 * u + 1]);
-        ak[2 * u] = fmaf(di, qf.x, ak[2 * u]);
-        ak[2 * u + 1] = fmaf(di, qf.y, ak[2 * u + 1]);
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * n + 2 * qd + (e & 1), i = i0 + c;
+          const float x = expf(fmaf(s[n][e], scale, kbias[e >> 1]) - sm[c]) * sl[c];
+          const float p = i < N ? x : 0.f;
+          float d = dp[n][e], pd = p;
+          if (drop) {
+            const bool keep = cxr::uniform01(salt, i, keys[e >> 1]) >= rate;
+            pd = keep ? p * inv_keep : 0.f;
+            d = keep ? d * inv_keep : 0.f;
+          }
+          s[n][e] = pd;
+          dp[n][e] = p * (d - sd[c]);  // ds
+        }
       }
+      uint32_t a[NT / 2][4];
+      to_a<NT / 2>(s, a);
+      product_ab<D, NT / 2>(dva, a, ot);
+      to_a<NT / 2>(dp, a);
+      product_ab<D, NT / 2>(dka, a, qt);
     }
-    uint32_t* gk = gkb + j * sdk.n;
-    uint32_t* gv = gvb + j * sdv.n;
-#pragma unroll
-    for (int u = 0; u < WPL; ++u) {
-      gk[u * 32 + lane] = cxr::f2_to_bf2(ak[2 * u] * scale, ak[2 * u + 1] * scale);
-      gv[u * 32 + lane] = cxr::f2_to_bf2(av[2 * u], av[2 * u + 1]);
-    }
-    __syncwarp();  // pcol and dcol are rewritten by this warp's next key
+    __syncthreads();  // the next iteration's copy overwrites this stage
+  }
+
+  if (active) {
+    store_rows<D>(dka, scale, smem, s_k - sbase, r0, dk + b * sdk.b + h * sdk.h, sdk.n,
+                  col0 + r0, N);
+    store_rows<D>(dva, 1.f, smem, s_v - sbase, r0, dv + b * sdv.b + h * sdv.h, sdv.n,
+                  col0 + r0, N);
   }
 }
 
@@ -370,21 +569,21 @@ template <int D>
 cudaError_t launch(Operand q, Operand k, Operand v, Operand dout, const void* bias,
                    const void* seeds, Gradient dq, Gradient dk, Gradient dv, void* stats, int B,
                    int N, int H, float scale, float rate, float inv_keep, cudaStream_t stream) {
-  const size_t rows_smem = rows_smem_bytes<D>(N), cols_smem = cols_smem_bytes<D>(N);
+  constexpr size_t rows_smem = rows_smem_bytes<D>(), cols_smem = cols_smem_bytes<D>();
   cudaError_t err = cxr::allow_smem(flash_bwd_rows_kernel<D>, rows_smem);
   if (err != cudaSuccess) return err;
   err = cxr::allow_smem(flash_bwd_cols_kernel<D>, cols_smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((N + kRows - 1) / kRows, H, B);
+  const dim3 grid((N + kBlock - 1) / kBlock, H, B);
   const auto* bi = static_cast<const float*>(bias);
   const auto* sd = static_cast<const int*>(seeds);
   auto* st = static_cast<float*>(stats);
-  flash_bwd_rows_kernel<D><<<grid, kWarps * 32, rows_smem, stream>>>(
+  flash_bwd_rows_kernel<D><<<grid, kThreads, rows_smem, stream>>>(
       q.p, q.s, k.p, k.s, v.p, v.s, dout.p, dout.s, bi, sd, dq.p, dq.s, st, N, H, scale, rate,
       inv_keep);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_cols_kernel<D><<<grid, kWarps * 32, cols_smem, stream>>>(
+  flash_bwd_cols_kernel<D><<<grid, kThreads, cols_smem, stream>>>(
       q.p, q.s, k.p, k.s, v.p, v.s, dout.p, dout.s, bi, sd, dk.p, dk.s, dv.p, dv.s, st, N, H,
       scale, rate, inv_keep);
   return cudaGetLastError();
@@ -417,7 +616,7 @@ cudaError_t dispatch(int D, Operand q, Operand k, Operand v, Operand dout, const
 // [B] int32, dqkv [B, N, 3*H*D] bf16 (every element written), stats
 // [3, B, H, N] fp32 scratch; D in {64, 128}, 1 <= N <= 512, B <= 65535;
 // 0 <= rate < 1 and inv_keep = 1 / (1 - rate), as in the forward that made
-// dout's output.
+// dout's output; qkv, dout and dqkv 16-byte aligned.
 CXR_API int cxr_flash_bwd_packed(const void* qkv, const void* dout, const void* bias,
                                  const void* seeds, void* dqkv, void* stats, int B, int N,
                                  int H, int D, float scale, float rate, float inv_keep,
@@ -435,9 +634,9 @@ CXR_API int cxr_flash_bwd_packed(const void* qkv, const void* dout, const void* 
 
 // B7: q, k, v, dout, dq, dk and dv bf16 with the head dim contiguous, each
 // addressed by three strides in 32-bit words in ``strides`` (host memory, 21
-// values: q, k, v, dout, dq, dk, dv, each as batch, token, head); at D = 128
-// every stride a multiple of 4 words and every pointer 16-byte aligned. Other
-// arguments as B6's.
+// values: q, k, v, dout, dq, dk, dv, each as batch, token, head); every
+// stride a multiple of 4 words and every pointer 16-byte aligned (the
+// 16-byte copies and stores). Other arguments as B6's.
 CXR_API int cxr_flash_bwd(const void* q, const void* k, const void* v, const void* dout,
                           const void* bias, const void* seeds, void* dq, void* dk, void* dv,
                           void* stats, const long long* strides, int B, int N, int H, int D,

@@ -47,10 +47,12 @@ KERNEL_SPLIT_BWD = "cxr_flash_bwd"
 
 LAYOUTS = ("bnhd", "bhnd")
 
-# The kernels keep a query row's scores in registers, kMaxN / 32 per lane,
-# and one head's K (and at D = 64 also V) in shared memory: 148 KB at
-# N = 512 for D = 64 and 128, within a Hopper block's 227 KB. Longer
-# sequences need a tiled-KV kernel.
+# The forward kernels (B3, B5) keep a query row's scores in registers,
+# kMaxN / 32 per lane, and one head's K (and at D = 64 also V) in shared
+# memory: 148 KB at N = 512 for D = 64 and 128, within a Hopper block's
+# 227 KB. Longer sequences need a tiled-KV forward. The backward kernels
+# (B6, B7) stream 64-token tiles, so their shared memory does not grow
+# with N; they check the same bound.
 MAX_SEQ_LEN = 512
 HEAD_DIMS = (64, 128)
 
@@ -284,6 +286,41 @@ def flash_attention_packed_bwd_reference(
     return dqkv.permute(0, 3, 2, 1, 4).reshape(B, N, 3 * heads * D)
 
 
+# A backward kernel's gradient against the plain version's: each (batch row,
+# head) slice within two bf16 steps (2^-6) of that slice's own largest entry,
+# plus an absolute floor for slices that are zero in exact arithmetic (with
+# one key ds = p (dp − delta) = 0, which the kernels' two passes meet only to
+# fp32 rounding).
+GRAD_REL_TOL = 2.0 ** -6
+GRAD_ABS_FLOOR = 1e-5
+
+
+def grad_slice_error(got: torch.Tensor, want: torch.Tensor, layout: str,
+                     heads: Optional[int] = None) -> Tuple[float, float]:
+    """(largest |got − want|, largest ratio of a slice's max |got − want| to
+    its tolerance) over the (batch row, head) slices of an attention
+    gradient; the gradient passes when the ratio is ≤ 1.
+
+    ``layout`` is "packed" (B6's dqkv [B, N, 3·H·D] with ``heads``; dq, dk
+    and dv of a head are three slices), "bnhd" or "bhnd" (one of B7's
+    gradients). The tolerance is set per slice because dk and dv scale like
+    1/(the row's key count): one tolerance from the whole tensor's largest
+    entry would be set by the shortest batch rows and pass a wrong gradient
+    in the long ones."""
+    got, want = got.float(), want.float()
+    if layout == "packed":
+        B, N, _ = want.shape
+        got, want = (t.reshape(B, N, 3, heads, -1) for t in (got, want))
+        dims = (1, 4)
+    elif layout in LAYOUTS:
+        dims = (1, 3) if layout == "bnhd" else (2, 3)
+    else:
+        raise ValueError(f"layout must be 'packed', 'bnhd' or 'bhnd', got {layout!r}")
+    err = (got - want).abs().amax(dims)
+    tol = GRAD_REL_TOL * want.abs().amax(dims) + GRAD_ABS_FLOOR
+    return float(err.max()), float((err / tol).max())
+
+
 def _head_major(t: torch.Tensor, layout: str) -> torch.Tensor:
     """A split operand as [B, H, N, D] (a view), or back from it."""
     return t if layout == "bhnd" else t.transpose(1, 2)
@@ -487,7 +524,7 @@ def _kernel_bwd(qkv, do, heads, key_bias, *, dropout_rate=0.0, dropout_seeds=Non
     key_bias, seeds = _side_args(B, N, D, dev, key_bias, dropout_rate, dropout_seeds)
     _build.check_tensor(do, "do", torch.bfloat16, (B, N, heads * D), dev)
     dqkv = torch.empty_like(qkv)
-    # per (batch row, head, query row): softmax max, sum and delta, fp32
+    # per (batch row, head, query row): softmax max, 1 / sum and delta, fp32
     stats = torch.empty((3, B, heads, N), dtype=torch.float32, device=dev)
     if B:
         _build.launch(KERNEL_BWD, dev, qkv.data_ptr(), do.data_ptr(), key_bias.data_ptr(),
@@ -496,27 +533,27 @@ def _kernel_bwd(qkv, do, heads, key_bias, *, dropout_rate=0.0, dropout_seeds=Non
     return dqkv
 
 
-def _strides_fit(t: torch.Tensor, align: int) -> bool:
+def _strides_fit(t: torch.Tensor) -> bool:
     """The head dim contiguous, every other stride of a dim longer than 1 a
-    multiple of ``align`` bytes, and the data ``align``-byte aligned."""
-    el = align // t.element_size()
-    return (t.stride(3) == 1 and t.data_ptr() % align == 0
+    multiple of 16 bytes, and the data 16-byte aligned."""
+    el = 16 // t.element_size()
+    return (t.stride(3) == 1 and t.data_ptr() % 16 == 0
             and all(s % el == 0 for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1))
 
 
-def _operand(t: torch.Tensor, name: str, layout: str, D: int, device):
+def _operand(t: torch.Tensor, name: str, layout: str, device):
     """(tensor, its (batch, token, head) strides in 32-bit words) for a split
-    kernel: bf16 on ``device``; strides that the kernel cannot address (the
-    head dim not contiguous, odd strides, or at D = 128 strides or data off
-    the 16-byte grid its vector loads need) get a contiguous copy."""
+    kernel: bf16 on ``device``; strides that the kernels cannot address (the
+    head dim not contiguous, or strides or data off the 16-byte grid of the
+    forward's vector loads and the backward's 16-byte asynchronous copies)
+    get a contiguous copy."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if t.dtype != torch.bfloat16:
         raise TypeError(f"{name}: expected {torch.bfloat16}, got {t.dtype}")
-    align = 16 if D == 128 else 4
-    if not _strides_fit(t, align):
+    if not _strides_fit(t):
         t = t.clone(memory_format=torch.contiguous_format)
     sb, s1, s2 = (s // 2 if n > 1 else 0 for s, n in zip(t.stride()[:3], t.shape[:3]))
     return t, ((sb, s1, s2) if layout == "bnhd" else (sb, s2, s1))
@@ -530,10 +567,10 @@ def _strides(*word_strides) -> ctypes.Array:
 def _kernel_split(q, k, v, key_bias, layout, *, dropout_rate=0.0, dropout_seeds=None):
     B, N, H, D = _dims(q, layout)
     dev = q.device
-    (q, sq), (k, sk), (v, sv) = (_operand(t, n, layout, D, dev)
+    (q, sq), (k, sk), (v, sv) = (_operand(t, n, layout, dev)
                                  for t, n in ((q, "q"), (k, "k"), (v, "v")))
     key_bias, seeds = _side_args(B, N, D, dev, key_bias, dropout_rate, dropout_seeds)
-    out, so = _operand(torch.empty(q.shape, dtype=q.dtype, device=dev), "out", layout, D, dev)
+    out, so = _operand(torch.empty(q.shape, dtype=q.dtype, device=dev), "out", layout, dev)
     if B:
         _build.launch(KERNEL_SPLIT, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                       key_bias.data_ptr(), seeds.data_ptr(), out.data_ptr(),
@@ -545,12 +582,12 @@ def _kernel_split_bwd(q, k, v, do, key_bias, layout, *, dropout_rate=0.0, dropou
     B, N, H, D = _dims(q, layout)
     dev = q.device
     (q, sq), (k, sk), (v, sv), (do, sdo) = (
-        _operand(t, n, layout, D, dev) for t, n in ((q, "q"), (k, "k"), (v, "v"), (do, "do")))
+        _operand(t, n, layout, dev) for t, n in ((q, "q"), (k, "k"), (v, "v"), (do, "do")))
     key_bias, seeds = _side_args(B, N, D, dev, key_bias, dropout_rate, dropout_seeds)
     (dq, sdq), (dk, sdk), (dv, sdv) = (
-        _operand(torch.empty(q.shape, dtype=q.dtype, device=dev), n, layout, D, dev)
+        _operand(torch.empty(q.shape, dtype=q.dtype, device=dev), n, layout, dev)
         for n in ("dq", "dk", "dv"))
-    # per (batch row, head, query row): softmax max, sum and delta, fp32
+    # per (batch row, head, query row): softmax max, 1 / sum and delta, fp32
     stats = torch.empty((3, B, H, N), dtype=torch.float32, device=dev)
     if B:
         _build.launch(KERNEL_SPLIT_BWD, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),

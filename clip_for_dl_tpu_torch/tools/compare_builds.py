@@ -9,9 +9,21 @@ refactor of how they address their operands:
     mkdir other && git archive <commit> | tar -x -C other
     python -m clip_for_dl_tpu_torch.tools.compare_builds --other other
 
+``--redesigned`` names the kernels that a change computes in another order
+and so may move within tolerance instead of bit for bit: B6's gradients per
+(batch row, head) slice within two bf16 steps of the other build's
+(``grad_slice_error``), B3's output within 2e-2 (two bf16 steps at |o| ≤ 3).
+For a redesign of the backward:
+
+    python -m clip_for_dl_tpu_torch.tools.compare_builds --other other --redesigned B6
+
+Every row prints, for each kernel, whether it is bit-equal and its largest
+difference.
+
 The other checkout's kernels are built by its own ``ops/_build.py`` in a
 child process and loaded beside this checkout's. Prints one JSON line per
-(shape, dropout rate) and exits 1 if any output differs.
+(shape, dropout rate) and exits 1 if any output differs beyond what is
+allowed.
 """
 
 from __future__ import annotations
@@ -34,6 +46,7 @@ from .probe_bwd_layouts import time_ms
 SHAPES = ((64, 200, 12, 64), (128, 200, 12, 64), (2, 512, 2, 128))  # (B, N, H, D)
 RATES = (0.0, 0.1)
 ENTRIES = ("cxr_flash_fwd_packed", "cxr_flash_bwd_packed")
+FWD_TOL = 2e-2  # B3's output, max abs: two bf16 steps at |o| ≤ 3
 
 
 def _other_library(root: Path) -> ctypes.CDLL:
@@ -57,6 +70,8 @@ def main(argv=None) -> int:
                    help="root of the other checkout (holds clip_for_dl_tpu_torch/)")
     p.add_argument("--device", default="cuda")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--redesigned", nargs="+", choices=("B3", "B6"), default=(),
+                   help="kernels held to the other build within tolerance, not bit for bit")
     args = p.parse_args(argv)
 
     dev = require_cuda(args.device)
@@ -92,16 +107,22 @@ def main(argv=None) -> int:
             this_bwd = partial(fa._kernel_bwd, qkv, do, H, bias, **kw)
             other_fwd()
             other_bwd()
+            got_fwd, got_bwd = this_fwd(), this_bwd()
+            b6_err, b6_worst = fa.grad_slice_error(got_bwd, dqkv, "packed", H)
+            b3_err = float((got_fwd.float() - out.float()).abs().max())
             row = {"shape": [B, N, H, D], "rate": rate,
-                   "B3 bit-equal": bool(torch.equal(this_fwd(), out)),
-                   "B6 bit-equal": bool(torch.equal(this_bwd(), dqkv))}
+                   "B3 bit-equal": bool(torch.equal(got_fwd, out)), "B3 max_abs_err": b3_err,
+                   "B6 bit-equal": bool(torch.equal(got_bwd, dqkv)), "B6 max_abs_err": b6_err,
+                   "B6 worst slice / tol": b6_worst}
+            within = {"B3": b3_err <= FWD_TOL, "B6": b6_worst <= 1.0}
             for name, (o, t) in (("B3", (other_fwd, this_fwd)), ("B6", (other_bwd, this_bwd))):
                 iters = 20 if name == "B3" else 10
                 row[f"{name} ms other,this,this,other"] = [
                     time_ms(fn, iters, dev) for fn in (o, t, t, o)]
-            ok = ok and row["B3 bit-equal"] and row["B6 bit-equal"]
+                ok = ok and (row[f"{name} bit-equal"]
+                             or (name in args.redesigned and within[name]))
             print(json.dumps(row), flush=True)
-    print("bit-equal" if ok else "MISMATCH")
+    print("as required" if ok else "MISMATCH")
     return 0 if ok else 1
 
 
