@@ -11,8 +11,9 @@ Phases (any failure exits non-zero and prints no result line):
 1. Build: compile the port's kernels (clip_for_dl_tpu_torch/csrc/*.cu) with
    nvcc for sm_90a, one nvcc per source, all at once; print the build time,
    ptxas' per-kernel summary and, from cuobjdump's SASS of the library, the
-   tensor-core instructions (HMMA, HGMMA) of each attention backward kernel
-   (rows and columns pass at D = 64 and 128; fails if one has none).
+   tensor-core instructions (HMMA, HGMMA) of each attention kernel (the
+   forward, and the backward's rows and columns pass, at D = 32, 64 and 128;
+   fails if one has none).
 2. Kernels: each of B1-B9 against its plain PyTorch version on the card at
    the main paths' shapes (B3 also with dropout 0.1 at the train shape, its
    dropout mask compared bit for bit, and at the ViT shape; B6 at rates 0
@@ -23,7 +24,11 @@ Phases (any failure exits non-zero and prints no result line):
    for bit), bit-equal to B3 and B6 on the same heads, and at D = 128,
    N = 512; the split entry point with autograd (the split_attention path);
    and the layout probe P1 (tools/probe_bwd_layouts.py: B6, B7 "bnhd" and B7
-   "bhnd" bit-equal; the layout_probe path). Max abs/rel difference against
+   "bhnd" bit-equal; the layout_probe path); then the limits ROADMAP C4-C6
+   lifted: B3/B5/B6/B7 at head dim 32 (built) and 96 (zero-padded to 128)
+   against their plain versions (B5/B7 bit-equal to B3/B6), B1 at D = 64
+   and 96 with C = 200 prompts, and B2, B3 and B6 at a batch of 65537.
+   Max abs/rel difference against
    the tolerance below (B6 and B7 per (batch row, head) slice of each
    gradient), both times the median of five CUDA-event timings after
    warm-up, the bound (the larger of the bytes each call must move over
@@ -642,6 +647,96 @@ def phase2_repairs(mods, dev, seed: int, results: dict) -> None:
                 (x, w1, b1, w2, dy) + tuple(mlp._kernel_bwd(x, w1, b1, w2, dy)))
 
 
+def phase2_limits(mods, dev, seed: int, results: dict) -> None:
+    """The limits ROADMAP C4-C6 lifted: head dims 32 and 96 in B3/B5/B6/B7
+    (held to the plain versions, B5/B7 bit-equal to B3/B6 in both layouts,
+    timed beside SDPA at H·D = 768), B1 at any width with 200 prompts, and
+    a batch of 65537 through B2, B3 and B6."""
+    import torch
+
+    fa, sim, prep = mods["flash_attention"], mods["similarity"], mods["image_prep"]
+    g = torch.Generator(dev).manual_seed(seed + 8)
+
+    def inputs(B, N, H, D):
+        qkv = torch.randn(B, N, 3 * H * D, device=dev, generator=g).bfloat16()
+        do = torch.randn(B, N, H * D, device=dev, generator=g).bfloat16()
+        lengths = torch.randint(3, N + 1, (B, 1), device=dev, generator=g)
+        bias = torch.where(torch.arange(N, device=dev)[None] < lengths, 0.0, -1e10)
+        return qkv, do, bias, dict(dropout_rate=0.1, dropout_seeds=fa.dropout_seeds(g, B, dev))
+
+    B, N = TRAIN_BATCH, TRAIN_LEN
+    for D, how in ((32, "built"), (96, "zero-padded to 128 by the wrappers")):
+        H = 768 // D
+        print(f"C4: B3/B5/B6/B7 at head dim {D} ({how}): (B, N, H, D) = {(B, N, H, D)}, "
+              "padded keys, rates 0 and 0.1")
+        qkv, do, bias, drop = inputs(B, N, H, D)
+        for kw in ({}, drop):
+            out = fa.flash_attention_packed(qkv, H, bias, **kw)
+            compare("flash_attention", out, fa.flash_attention_packed_reference(
+                qkv, H, bias, **kw), TOL["flash_attention"], results)
+            dqkv = fa._kernel_bwd(qkv, do, H, bias, **kw)
+            compare_grads("flash_attention_bwd", dqkv, fa.flash_attention_packed_bwd_reference(
+                qkv, do, H, bias, **kw), "packed", results, H)
+            for layout in ("bnhd", "bhnd"):
+                q, k, v = split_operands(qkv, H, layout)
+                dos = as_bnhd(do.view(B, N, H, D), layout).contiguous()
+                split = fa.flash_attention(q, k, v, bias, layout=layout, **kw)
+                compare("flash_attention_split", split, head_major(fa.flash_attention_reference(
+                    *(head_major(t, layout) for t in (q, k, v)), bias, **kw), layout),
+                    TOL["flash_attention"], results)
+                check(torch.equal(as_bnhd(split, layout).reshape(B, N, H * D), out),
+                      f"B5 ({layout}) differs from B3 at D = {D}")
+                grads = fa.flash_attention_bwd(q, k, v, dos, bias, layout=layout, **kw)
+                for i, (a_, b_) in enumerate(zip(grads, fa.flash_attention_bwd_reference(
+                        *(head_major(t, layout) for t in (q, k, v, dos)), bias, **kw))):
+                    compare_grads("flash_attention_split_bwd", a_, head_major(b_, layout),
+                                  layout, results)
+                    check(torch.equal(as_bnhd(a_, layout), dqkv.view(B, N, 3, H, D)[:, :, i]),
+                          f"B7 ({layout}) differs from B6 at D = {D}")
+        print(f"  B5 and B7 bit-equal to B3 and B6 at D = {D}, both layouts, rates 0 and 0.1")
+        heads = heads_of(qkv, H)
+        extra_times(f"C4: B3 at D = {D}, rate 0.1",
+                    lambda: fa.flash_attention_packed(qkv, H, bias, **drop),
+                    lambda: fa.flash_attention_packed_reference(qkv, H, bias, **drop),
+                    4 * B * H * N * N * D,
+                    (qkv, bias, drop["dropout_seeds"], fa.flash_attention_packed(qkv, H, bias)),
+                    sdpa_ms(*heads, bias))
+        extra_times(f"C4: B6 at D = {D}, rate 0.1",
+                    lambda: fa._kernel_bwd(qkv, do, H, bias, **drop),
+                    lambda: fa.flash_attention_packed_bwd_reference(qkv, do, H, bias, **drop),
+                    10 * B * H * N * N * D,
+                    (qkv, do, bias, drop["dropout_seeds"], fa._kernel_bwd(qkv, do, H, bias)),
+                    sdpa_ms(*heads, bias, do.view(B, N, H, D).transpose(1, 2)))
+        del qkv, do, heads
+
+    for D in (64, 96):
+        print(f"C5: B1 at D = {D}: img [{BATCH}, {D}] x txt [200, {D}] fp32, T = 0.5")
+        img = torch.randn(BATCH, D, device=dev, generator=g)
+        img[-1] = 0.0
+        txt = torch.randn(200, D, device=dev, generator=g)
+        compare("similarity", sim.similarity(img, txt, 0.5),
+                sim.similarity_reference(img, txt, 0.5), TOL["similarity"], results)
+        extra_times(f"C5: B1 at D = {D}, C = 200", lambda: sim.similarity(img, txt, 0.5),
+                    lambda: sim.similarity_reference(img, txt, 0.5),
+                    2 * BATCH * 200 * D + 3 * (BATCH + 200) * D,
+                    (img, txt, sim.similarity(img, txt, 0.5)), peak="fp32")
+
+    B = 65537
+    print(f"C6: a batch of {B}: B2 [{B}, 12, 10, 1] uint8 -> [{B}, 8, 8, 3] bf16; B3 and B6 at "
+          f"(B, N, H, D) = ({B}, 5, 2, 32), rate 0.1")
+    imgs = torch.randint(0, 256, (B, 12, 10, 1), device=dev, generator=g, dtype=torch.uint8)
+    mean, std = (0.48145466, 0.4578275, 0.40821073), (0.26862954, 0.26130258, 0.27577711)
+    compare("image_prep", prep.preprocess_images(imgs, 8, 8, mean, std),
+            prep.preprocess_reference(imgs, 8, 8, mean, std), TOL["image_prep"], results)
+    qkv, do, bias, drop = inputs(B, 5, 2, 32)
+    compare("flash_attention", fa.flash_attention_packed(qkv, 2, bias, **drop),
+            fa.flash_attention_packed_reference(qkv, 2, bias, **drop), TOL["flash_attention"],
+            results)
+    compare_grads("flash_attention_bwd", fa._kernel_bwd(qkv, do, 2, bias, **drop),
+                  fa.flash_attention_packed_bwd_reference(qkv, do, 2, bias, **drop), "packed",
+                  results, 2)
+
+
 def split_operands(qkv, H: int, layout: str):
     """q, k, v of a packed qkv in ``layout``: "bnhd" views of its column
     blocks, or "bhnd" head-major contiguous copies."""
@@ -819,50 +914,6 @@ def plain_kernels(mods, keep=()):
     return stack
 
 
-def grey_images(rng, n: int, size: int = 512):
-    """uint8 [n, size, size, 1]: uniform noise over a per-image brightness
-    range, so that images differ in more than their noise."""
-    import numpy as np
-
-    lo = rng.integers(0, 128, (n, 1, 1, 1))
-    span = rng.integers(16, 128, (n, 1, 1, 1))
-    noise = rng.random((n, size, size, 1), dtype=np.float32)
-    return (lo + noise * span).astype(np.uint8)
-
-
-# serving path -> (preset, model switches beyond flash attention and the
-# fused BERT MLP, which both paths turn on)
-SERVE_MODELS = {"serve": ("zero_shot", {}), "serve_vit": ("vit", {"vit_fused_mlp": True})}
-
-
-def build_engine(dev, seed: int, path: str):
-    import dataclasses
-
-    import torch
-
-    from clip_for_dl_tpu_torch.core.config import DISEASE_LABELS, get_preset
-    from clip_for_dl_tpu_torch.core.device import cast_matmul_weights
-    from clip_for_dl_tpu_torch.models import CXRClip, init_weights
-    from clip_for_dl_tpu_torch.text import BertTokenizer
-    from clip_for_dl_tpu_torch.text.tokenizer import build_dev_vocab
-    from clip_for_dl_tpu_torch.zeroshot import ZeroShotEngine
-
-    name, switches = SERVE_MODELS[path]
-    preset = get_preset(name)
-    cfg = dataclasses.replace(preset.model, flash_attention=True, bert_fused_mlp=True,
-                              **switches)
-    with torch.device(dev):
-        model = CXRClip(cfg)
-    init_weights(model, torch.Generator(dev).manual_seed(seed))
-    cast_matmul_weights(model, torch.bfloat16)
-    tokenizer = BertTokenizer(build_dev_vocab(DISEASE_LABELS))
-    engine = ZeroShotEngine(
-        model, tokenizer, DISEASE_LABELS, preset.zeroshot, preset.augment.mean,
-        preset.augment.std, cfg.image_size, cfg.max_text_length, torch.bfloat16,
-    )
-    return cfg, engine
-
-
 def describe(cfg) -> str:
     if cfg.image_tower == "vit_b16":
         image = (f"ViT-B/{cfg.vit_patch} {cfg.vit_layers}x{cfg.vit_hidden}, {cfg.vit_heads} "
@@ -876,12 +927,13 @@ def describe(cfg) -> str:
 def serve_phase(_build, mods, dev, seed: int, batch: int, n_batches: int, card: str,
                 path: str) -> dict:
     """Phases 3 and 5: the zero-shot engine and service over ``path``'s
-    model (SERVE_MODELS)."""
+    model (``tools/main_paths.py`` SERVE_MODELS)."""
     import numpy as np
     import torch
 
     from clip_for_dl_tpu_torch.core.config import DISEASE_LABELS
     from clip_for_dl_tpu_torch.serving import ZeroShotService
+    from clip_for_dl_tpu_torch.tools.main_paths import build_engine, grey_images
     from clip_for_dl_tpu_torch.zeroshot import ZeroShotEngine, prompts_for_family
 
     t0 = time.perf_counter()
@@ -997,20 +1049,6 @@ def check_launched(mods, launches: dict, path: str) -> None:
               f"{path} path")
 
 
-def train_batch(rng, tokenizer, dev) -> dict:
-    """TRAIN_BATCH grey uint8 images and reports of random words from the
-    dev vocabulary, 8 to 260 words long, so that some fill all TRAIN_LEN
-    tokens and the rest are padded."""
-    import torch
-
-    words = sorted(w for w in tokenizer.vocab if w.isalpha())
-    reports = [" ".join(rng.choice(words, n)) for n in rng.integers(8, 260, TRAIN_BATCH)]
-    enc = tokenizer.encode(reports, max_length=TRAIN_LEN)
-    return {"images": torch.from_numpy(grey_images(rng, TRAIN_BATCH)).to(dev),
-            "input_ids": torch.from_numpy(enc["input_ids"]).to(dev),
-            "attention_mask": torch.from_numpy(enc["attention_mask"]).to(dev)}
-
-
 def group_grads(model, label_fn) -> dict:
     """label -> every gradient of the group (zeros where there is none),
     flattened into one fp32 vector."""
@@ -1039,33 +1077,21 @@ def compare_groups(what: str, got: dict, want: dict, groups, tol: float) -> None
 
 
 def phase4(_build, mods, dev, seed: int, card: str) -> dict:
-    import dataclasses
-
     import numpy as np
     import torch
 
-    from clip_for_dl_tpu_torch.core.config import DISEASE_LABELS, get_preset
-    from clip_for_dl_tpu_torch.core.device import cast_in_forward
-    from clip_for_dl_tpu_torch.models import CXRClip, init_weights
-    from clip_for_dl_tpu_torch.text import BertTokenizer
-    from clip_for_dl_tpu_torch.text.tokenizer import build_dev_vocab
-    from clip_for_dl_tpu_torch.train import (
-        TrainState, make_clip_eval_step, make_clip_pretrain_step, make_label_fn,
-        make_optimizer,
+    from clip_for_dl_tpu_torch.tools.main_paths import (
+        base_lrs, pretrain_step, tokenizer, train_batch, train_model,
     )
+    from clip_for_dl_tpu_torch.train import TrainState, make_clip_eval_step, make_label_fn
 
-    preset = get_preset("pretrain_clip")
-    cfg = dataclasses.replace(preset.model, flash_attention=True, bert_fused_mlp=True)
     t0 = time.perf_counter()
-    with torch.device(dev):
-        model = CXRClip(cfg)
-    init_weights(model, torch.Generator(dev).manual_seed(seed))
-    cast_in_forward(model, torch.bfloat16)
+    preset, cfg, model = train_model(dev, seed, "pretrain_clip")
     groups = [g.name for g in preset.train.groups]
-    lrs = {**{g.name: g.lr for g in preset.train.groups}, "default": preset.train.lr}
+    lrs = base_lrs(preset)
     label_fn = make_label_fn(groups)
-    batch = train_batch(np.random.default_rng(seed + 2),
-                        BertTokenizer(build_dev_vocab(DISEASE_LABELS)), dev)
+    batch = train_batch(np.random.default_rng(seed + 2), tokenizer(), dev, TRAIN_BATCH,
+                        TRAIN_LEN)
     lengths = batch["attention_mask"].sum(1)
     print(f"model: {sum(p.numel() for p in model.parameters()) / 1e6:.1f} M fp32 master "
           f"parameters, bf16 compute, dropout {cfg.dropout}; built in "
@@ -1080,11 +1106,7 @@ def phase4(_build, mods, dev, seed: int, card: str) -> dict:
         for m in model.modules():
             if isinstance(m, torch.nn.Dropout):
                 m.p = dropout
-        opt = make_optimizer(model, label_fn, weight_decay=preset.train.weight_decay)
-        step = make_clip_pretrain_step(
-            model, opt, label_fn, temperature=cfg.temperature, image_size=cfg.image_size,
-            mean=preset.augment.mean, std=preset.augment.std, compute_dtype=torch.bfloat16,
-            max_grad_norm=preset.train.max_grad_norm)
+        opt, step = pretrain_step(model, preset, cfg)
         return TrainState(model, opt), step
 
     # -- kernels vs plain versions from the same weights, dropout 0 ------------
@@ -1190,25 +1212,6 @@ def phase4(_build, mods, dev, seed: int, card: str) -> dict:
     return launches
 
 
-def chain_model(dev, seed: int, preset_name: str):
-    """The preset's model at full width with flash attention and the fused
-    BERT MLP, fp32 masters cast to bf16 in the forward, weights from seed."""
-    import dataclasses
-
-    import torch
-
-    from clip_for_dl_tpu_torch.core.config import get_preset
-    from clip_for_dl_tpu_torch.core.device import cast_in_forward
-    from clip_for_dl_tpu_torch.models import CXRClip, init_weights
-
-    preset = get_preset(preset_name)
-    cfg = dataclasses.replace(preset.model, flash_attention=True, bert_fused_mlp=True)
-    with torch.device(dev):
-        model = CXRClip(cfg)
-    init_weights(model, torch.Generator(dev).manual_seed(seed))
-    return preset, cfg, cast_in_forward(model, torch.bfloat16)
-
-
 def states_equal(a: dict, b: dict) -> bool:
     return a.keys() == b.keys() and all(torch_equal(a[k], b[k]) for k in a)
 
@@ -1233,18 +1236,19 @@ def phase6(_build, mods, dev, seed: int, card: str) -> dict:
 
     from clip_for_dl_tpu_torch.core.config import DISEASE_LABELS
     from clip_for_dl_tpu_torch.evals import multilabel_metrics
-    from clip_for_dl_tpu_torch.text import BertTokenizer
-    from clip_for_dl_tpu_torch.text.tokenizer import build_dev_vocab
+    from clip_for_dl_tpu_torch.tools.main_paths import (
+        base_lrs, pretrain_step, tokenizer, train_batch, train_model,
+    )
     from clip_for_dl_tpu_torch.train import (
         CheckpointManager, PreemptionGuard, TrainState, fit, make_adapter_eval_step,
-        make_adapter_train_step, make_clip_eval_step, make_clip_pretrain_step, make_label_fn,
-        make_optimizer, resume_or_init, run_eval,
+        make_adapter_train_step, make_clip_eval_step, make_label_fn, make_optimizer,
+        resume_or_init, run_eval,
     )
     from clip_for_dl_tpu_torch.train.checkpoint import model_state
 
     rng = np.random.default_rng(seed + 7)
-    tokenizer = BertTokenizer(build_dev_vocab(DISEASE_LABELS))
-    batches = [train_batch(rng, tokenizer, dev) for _ in range(2)]
+    tok = tokenizer()
+    batches = [train_batch(rng, tok, dev, TRAIN_BATCH, TRAIN_LEN) for _ in range(2)]
     by_path = {}
     save_ms = []
 
@@ -1263,17 +1267,13 @@ def phase6(_build, mods, dev, seed: int, card: str) -> dict:
 
     with tempfile.TemporaryDirectory(prefix="chain_") as tmp:
         # -- phase A: pretrain through fit, one epoch ---------------------------
-        preset, cfg, model = chain_model(dev, seed, "pretrain_clip")
-        groups = [g.name for g in preset.train.groups]
-        label_fn = make_label_fn(groups)
-        opt = make_optimizer(model, label_fn, weight_decay=preset.train.weight_decay)
-        prep = dict(image_size=cfg.image_size, mean=preset.augment.mean,
-                    std=preset.augment.std, compute_dtype=torch.bfloat16)
-        step = make_clip_pretrain_step(model, opt, label_fn, temperature=cfg.temperature,
-                                       max_grad_norm=preset.train.max_grad_norm, **prep)
-        eval_step = make_clip_eval_step(model, temperature=cfg.temperature, **prep)
+        preset, cfg, model = train_model(dev, seed, "pretrain_clip")
+        opt, step = pretrain_step(model, preset, cfg)
+        eval_step = make_clip_eval_step(
+            model, temperature=cfg.temperature, image_size=cfg.image_size,
+            mean=preset.augment.mean, std=preset.augment.std, compute_dtype=torch.bfloat16)
         ckpt_a = timed_saves(CheckpointManager(f"{tmp}/pretrain", max_to_keep=1))
-        lrs = {**{g.name: g.lr for g in preset.train.groups}, "default": preset.train.lr}
+        lrs = base_lrs(preset)
         print(f"phase A: pretrain_clip, fit for 1 epoch of {CHAIN_STEPS} steps at "
               f"B = {TRAIN_BATCH}, scheduler {preset.train.scheduler}")
         torch.cuda.synchronize(dev)
@@ -1301,7 +1301,7 @@ def phase6(_build, mods, dev, seed: int, card: str) -> dict:
         torch.cuda.empty_cache()
 
         # -- phase B: the adapter from the phase-A epoch --------------------------
-        preset_b, cfg_b, model_b = chain_model(dev, seed + 1, "adapter")
+        preset_b, cfg_b, model_b = train_model(dev, seed + 1, "adapter")
         check(ckpt_a.restore_variables(model_b) is model_b, "no phase-A checkpoint to restore")
         check(states_equal(model_state(model_b), pretrained),
               "restore_variables did not give the phase-A weights")
@@ -1374,7 +1374,7 @@ def phase6(_build, mods, dev, seed: int, card: str) -> dict:
         check(ckpt_b.all_epochs() == [best] and ckpt_b.best_epoch() == best,
               f"retained {ckpt_b.all_epochs()}, best {ckpt_b.best_epoch()}; val {val}")
         check(ckpt_b.preempt_latest() == 2, f"preemption slot {ckpt_b.preempt_latest()}")
-        _, _, fresh = chain_model(dev, seed + 2, "adapter")
+        _, _, fresh = train_model(dev, seed + 2, "adapter")
         fresh_opt = make_optimizer(fresh, label_b, weight_decay=preset_b.train.weight_decay)
         resumed, start = resume_or_init(ckpt_b, TrainState(fresh, fresh_opt))
         # JAX's rule: a mid-epoch save newer than every kept epoch, no loader
@@ -1424,8 +1424,8 @@ def main(argv=None) -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"  {line.strip()}")
     counts = tensor_core_counts(_build)
-    for kernel in ("flash_bwd_rows_kernel", "flash_bwd_cols_kernel"):
-        for d in (64, 128):
+    for kernel in ("flash_fwd_kernel", "flash_bwd_rows_kernel", "flash_bwd_cols_kernel"):
+        for d in (32, 64, 128):
             n = sum(c for name, c in counts.items() if kernel in name and f"ILi{d}E" in name)
             print(f"tensor-core instructions (HMMA/HGMMA) in {kernel}<{d}>: {n}")
             check(n > 0, f"{kernel}<{d}> has no tensor-core instruction")
@@ -1435,6 +1435,7 @@ def main(argv=None) -> int:
     phase2_train(mods, dev, args.seed, results)
     phase2_repairs(mods, dev, args.seed, results)
     by_path = phase2_split(_build, mods, dev, args.seed, results)
+    phase2_limits(mods, dev, args.seed, results)
     print("== phase 3: zero-shot serving, ResNet-50")
     by_path["serve"] = serve_phase(_build, mods, dev, args.seed, BATCH, N_BATCHES, card, "serve")
     print("== phase 4: the phase-A train step")

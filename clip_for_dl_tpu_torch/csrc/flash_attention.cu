@@ -1,5 +1,5 @@
 // Attention forward: packed qkv (kernel B3) and split q/k/v (kernel B5), one
-// kernel body.
+// kernel body on Hopper's tensor cores.
 //
 // Replaces the TPU kernels clip_for_dl_tpu/ops/flash_attention.py
 // _fwd_kernel_packed (:309), reached through _pallas_fwd_packed's
@@ -17,176 +17,184 @@
 //
 // The probabilities are normalized in fp32, dropped out and rounded to bf16
 // before PV, exactly as the TPU kernel does, so the kernel and the plain
-// version differ only by summation order; no online-softmax rescaling is
-// involved. The dropout draw u is the JAX counter hash (common.cuh
-// uniform01) over the absolute (query row, key column) pair with the salt
-// seed[b] + h * 0xC2B2AE3D: the TPU kernel pads N to a multiple of 8, but
-// its grid indices are absolute, so the bits at real positions are the same
-// and the backward kernel (flash_attention_bwd.cu) regenerates the mask.
+// version differ only by summation order and by the normalization, which
+// multiplies by 1 / l (as the backward does) where the plain version divides
+// by l: one fp32 rounding apart, far inside one bf16 step. The dropout draw u
+// is the JAX counter hash (common.cuh uniform01) over the absolute (query
+// row, key column) pair with the salt seed[b] + h * 0xC2B2AE3D: the TPU
+// kernel pads N to a multiple of 8, but its grid indices are absolute, so the
+// bits at real positions are the same and the backward kernel
+// (flash_attention_bwd.cu) regenerates the mask.
 //
 // Layouts: the body reads q, k, v and writes o through a base pointer and
 // HeadStrides (batch, token, head strides in words) per operand. Packed qkv
 // [B, N, 3*H*D] (columns q-heads | k-heads | v-heads) is three views of one
 // buffer; split [B, N, H, D] and [B, H, N, D] are two other stride sets, so
-// no layout needs a transpose copy, and every layout runs the same fmaf
-// sequence: the split form of a packed qkv's slices gives the packed form's
-// bits.
+// no layout needs a transpose copy, and every layout runs the same
+// instructions: the split form of a packed qkv's slices gives the packed
+// form's bits.
 //
-// Sequence edge: there is no padding to a multiple of 8 (the TPU's sublane
-// tile); key columns j >= N are skipped in the kernel. The running maximum
-// starts from -FLT_MAX, a finite value, and padded keys carry a finite
-// -1e10, so a query row whose keys are all padding still gives finite output.
-// The TPU's pair packing (_pair_fwd) is MXU layout work and has no
-// counterpart here.
+// What bounds it on the card: at the prompt-bank shape (B = 64, N = 200,
+// H = 12, D = 64) it is ~7.9 GFLOP over 79 MB in and out, bound by the bytes
+// (0.024 ms at 3.35 TB/s; 0.008 ms by the operations at 989 TFLOP/s). With
+// the row statistics taken in a first sweep it does three products, not two,
+// and the dropout hash costs ~20 integer operations an element. So every
+// product runs on the tensor cores and no [N, N] intermediate leaves the
+// registers.
 //
-// What bounds it on the card: at the prompt-bank shape (B=64, N=200, H=12,
-// D=64) it is ~7.9 GFLOP over 79 MB in and out, bound by the bytes on paper
-// (0.024 ms at 3.35 TB/s). This first kernel runs on the CUDA cores, not the
-// tensor cores: one block per (64 query rows, head, batch row) stages that
-// head's K and V in shared memory (K rows padded by one word so that lanes
-// reading different keys hit different banks); each warp takes one query row
-// at a time, keeps q in registers, scores its keys lane-strided (up to
-// kMaxN / 32 per lane), reduces max and sum with shuffles, and accumulates PV
-// with each lane owning D / 32 output dims. The N <= 512 bound (MAX_SEQ_LEN
-// in the TPU file) is kept. At D = 64 a block needs N * 296 bytes of shared
-// memory (150 KB at N = 512, within Hopper's 227 KB). At D = 128, K and V
-// together would need N * 552 bytes (282,624 at N = 512, over the limit), so
-// only K, which the score loop reads across lanes, is staged; the PV loop
-// reads V row by row, one coalesced 256-byte row per step, from global
-// memory, where one head's V (128 KB at N = 512) stays in L2. That is N * 296
-// bytes again.
-#include <float.h>
+// Tiling (the backward's rows pass with fewer products): one block per
+// (64 query rows, head, batch row), 4 warps of 16 rows; a batch over 65535
+// rows (gridDim.z's bound) is launched in chunks. Q is loaded once; K streams
+// in 64-key tiles through a 2-stage ring of 16-byte cp.async copies, twice,
+// and V beside it in the second sweep only. Sweep 1
+// forms S = Q K^T with mma.sync m16n8k16 (bf16 in, fp32 accumulators), masks
+// keys >= N to -inf and keeps the online row max m and sum l, rescaled
+// whenever m moves. Sweep 2 forms S again (the same instructions, so the
+// same bits), p = exp(s - m) * (1 / l), applies the keep mask and
+// 1 / (1 - rate) (the hash runs once an element, here), and the accumulators,
+// rounded to bf16 as the A operand, feed o += p V in registers. A one-sweep
+// online softmax would round the unnormalized exp(s - m) to bf16 before the
+// division, which is another function. o is written through the warp's own
+// rows of the Q tile as 16-byte stores. A row with no finite score takes
+// m = 0 (exp(s - m) = 0, not NaN); a row whose keys all carry -1e10 gets the
+// plain version's uniform p. Tokens >= N of a tile are zero-filled by the
+// copy (source size 0) and never read: in a "bnhd" view they belong to the
+// next batch row, past the last one to no allocation, and 0 * NaN would be
+// NaN in PV.
+//
+// Head dims 32, 64 and 128 are built (the wrapper zero-pads other widths
+// up to 128). Shared memory is independent of N: Q and two stages of K and V,
+// 20, 40 and 80 KB at D = 32, 64 and 128, plus the key bias (2 KB). The N <=
+// 512 bound (MAX_SEQ_LEN in the TPU file) is kept.
+#include <math_constants.h>
 
-#include "common.cuh"
+#include "mma_tiles.cuh"
 
 namespace {
 
 using cxr::HeadStrides;
+using cxr::cp_async_commit;
+using cxr::cp_async_wait_one;
+using cxr::load_tile;
+using cxr::product_ab;
+using cxr::product_abt;
+using cxr::quad_max;
+using cxr::quad_sum;
+using cxr::store_rows;
+using cxr::tile_bytes;
+using cxr::to_a;
 
-constexpr int kWarps = 8;
-constexpr int kRows = 64;   // query rows per block
-constexpr int kMaxN = 512;  // keys per row: kMaxN / 32 score registers per lane
+constexpr int kThreads = cxr::kMmaThreads;
+constexpr int kBlock = cxr::kHeadBlock;  // query rows of a block, 16 a warp
+constexpr int kKeyTile = 64;             // keys of a tile
+constexpr int kMaxN = cxr::kMaxSeq;
 
-// V is staged in shared memory only at D = 64 (see the note above)
 template <int D>
-__host__ __device__ constexpr bool stage_v() { return D <= 64; }
-
-template <int D>
-__host__ __device__ constexpr size_t smem_bytes(int N) {
-  return (size_t)N * (D / 2 + 1) * 4                    // K, padded rows of bf16 pairs
-         + (stage_v<D>() ? (size_t)N * (D / 2) * 4 : 0)   // V
-         + (size_t)N * 4                                // key bias
-         + (size_t)kWarps * N * 4;                      // per-warp probabilities
+__host__ __device__ constexpr size_t smem_bytes() {
+  return (size_t)5 * tile_bytes<D>(kBlock) + kMaxN * 4;  // Q, 2 x (K, V); key bias
 }
 
 template <int D>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const uint32_t* __restrict__ q, HeadStrides sq, const uint32_t* __restrict__ k,
                  HeadStrides sk, const uint32_t* __restrict__ v, HeadStrides sv,
                  const float* __restrict__ bias, const int* __restrict__ seeds,
                  uint32_t* __restrict__ out, HeadStrides so, int N, float scale, float rate,
                  float inv_keep) {
-  constexpr int W = D / 2;       // bf16 pairs per head row
-  constexpr int KS = W + 1;      // padded K row stride in words
-  constexpr int NT = kMaxN / 32;
-  constexpr int WPL = W / 32;    // output pairs per lane
-  static_assert(W % 32 == 0, "D must be a multiple of 64");
+  constexpr int NT = kKeyTile / 8;  // n8 tiles of a key tile
+  constexpr int TILE = tile_bytes<D>(kBlock);
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t sbase = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  // Q, then stage st's K and V at s_kv + 2 st TILE
+  const uint32_t s_q = sbase, s_kv = s_q + TILE;
+  float* s_bias = reinterpret_cast<float*>(smem + 5 * TILE);
 
-  extern __shared__ uint32_t smem[];
-  uint32_t* ks = smem;                              // [N][KS]
-  uint32_t* vs = ks + (size_t)N * KS;               // [N][W] when staged
-  float* bs = reinterpret_cast<float*>(vs + (stage_v<D>() ? (size_t)N * W : 0));  // [N]
-  float* ps = bs + N;                               // [kWarps][N]
-
-  const int b = blockIdx.z, h = blockIdx.y, row0 = blockIdx.x * kRows;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  // this (batch row, head)'s rows: token i at i * s.n words
+  const int b = blockIdx.z, h = blockIdx.y, row0 = blockIdx.x * kBlock;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, qd = lane & 3;
+  const int r0 = 16 * warp;
   const uint32_t* qb = q + b * sq.b + h * sq.h;
   const uint32_t* kb = k + b * sk.b + h * sk.h;
   const uint32_t* vb = v + b * sv.b + h * sv.h;
-  uint32_t* ob = out + b * so.b + h * so.h;
 
-  for (int i = threadIdx.x; i < N * W; i += blockDim.x) {
-    const int j = i / W, w = i % W;
-    ks[j * KS + w] = kb[j * sk.n + w];
-    if constexpr (stage_v<D>()) vs[j * W + w] = vb[j * sv.n + w];
-  }
-  for (int j = threadIdx.x; j < N; j += blockDim.x) bs[j] = bias[(size_t)b * N + j];
-  __syncthreads();
+  const int nkt = (N + kKeyTile - 1) / kKeyTile;
+  load_tile<D, kBlock>(s_q, qb, sq.n, row0, N);
+  load_tile<D, kKeyTile>(s_kv, kb, sk.n, 0, N);  // tile 0 of sweep 1: no V
+  cp_async_commit();
+  for (int j = threadIdx.x; j < N; j += kThreads) s_bias[j] = bias[(size_t)b * N + j];
 
-  float* p = ps + warp * N;
-  const int row_end = min(row0 + kRows, N);
   const bool drop = rate > 0.f;
   const uint32_t salt = cxr::dropout_salt(seeds[b], h);
-  for (int i = row0 + warp; i < row_end; i += kWarps) {
-    const uint32_t* qrow = qb + i * sq.n;
-    float qf[D];
+  const bool active = row0 + r0 < N;  // the warp has a query row below N
+  const int rows[2] = {row0 + r0 + g, row0 + r0 + g + 8};
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
+  float oa[D / 8][4];
 #pragma unroll
-    for (int w = 0; w < W; ++w) {
-      const float2 f = cxr::bf2_to_f2(qrow[w]);
-      qf[2 * w] = f.x;
-      qf[2 * w + 1] = f.y;
-    }
+  for (int n = 0; n < D / 8; ++n) oa[n][0] = oa[n][1] = oa[n][2] = oa[n][3] = 0.f;
 
-    float s[NT];
-    float m = -FLT_MAX;
+  for (int t = 0; t < 2 * nkt; ++t) {  // sweep 1 over the key tiles, then sweep 2
+    if (t + 1 < 2 * nkt) {
+      const uint32_t next = s_kv + ((t + 1) & 1) * 2 * TILE;
+      const int j0 = ((t + 1) % nkt) * kKeyTile;
+      load_tile<D, kKeyTile>(next, kb, sk.n, j0, N);
+      if (t + 1 >= nkt) load_tile<D, kKeyTile>(next + TILE, vb, sv.n, j0, N);
+    }
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();
+    const uint32_t kt = s_kv + (t & 1) * 2 * TILE, vt = kt + TILE;
+    const int j0 = (t % nkt) * kKeyTile;
+    if (t == nkt) {  // the row statistics of sweep 1
 #pragma unroll
-    for (int t = 0; t < NT; ++t) {
-      const int j = lane + 32 * t;
-      s[t] = -FLT_MAX;
-      if (j < N) {
-        const uint32_t* kr = ks + j * KS;
-        float acc = 0.f;
+      for (int r = 0; r < 2; ++r) {
+        l[r] = 1.f / quad_sum(l[r]);
+        if (m[r] == -CUDART_INF_F) m[r] = 0.f;  // no finite score: exp(s - m) is 0, not NaN
+      }
+    }
+    if (active) {
+      float s[NT][4];
+      product_abt<D, NT>(s, s_q, r0, kt);
 #pragma unroll
-        for (int w = 0; w < W; ++w) {
-          const float2 kf = cxr::bf2_to_f2(kr[w]);
-          acc = fmaf(qf[2 * w], kf.x, acc);
-          acc = fmaf(qf[2 * w + 1], kf.y, acc);
+      for (int n = 0; n < NT; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = j0 + 8 * n + 2 * qd + (e & 1);
+          s[n][e] = j < N ? fmaf(s[n][e], scale, s_bias[j]) : -CUDART_INF_F;
         }
-        s[t] = acc * scale + bs[j];
-        m = fmaxf(m, s[t]);
+      }
+      if (t < nkt) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float mt = m[r];
+#pragma unroll
+          for (int n = 0; n < NT; ++n) mt = fmaxf(mt, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+          mt = quad_max(mt);
+          const float mu = mt == -CUDART_INF_F ? 0.f : mt;
+          l[r] *= expf(m[r] - mu);
+#pragma unroll
+          for (int n = 0; n < NT; ++n) l[r] += expf(s[n][2 * r] - mu) + expf(s[n][2 * r + 1] - mu);
+          m[r] = mt;
+        }
+      } else {
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1, j = j0 + 8 * n + 2 * qd + (e & 1);
+            float p = expf(s[n][e] - m[r]) * l[r];
+            if (drop) p = cxr::uniform01(salt, rows[r], j) >= rate ? p * inv_keep : 0.f;
+            s[n][e] = p;  // rounded to bf16 by to_a
+          }
+        }
+        uint32_t pa[NT / 2][4];
+        to_a<NT / 2>(s, pa);
+        product_ab<D, NT / 2>(oa, pa, vt);
       }
     }
-    m = cxr::warp_max(m);
-    float l = 0.f;
-#pragma unroll
-    for (int t = 0; t < NT; ++t) {
-      const int j = lane + 32 * t;
-      s[t] = (j < N) ? expf(s[t] - m) : 0.f;
-      l += s[t];
-    }
-    l = cxr::warp_sum(l);
-#pragma unroll
-    for (int t = 0; t < NT; ++t) {
-      const int j = lane + 32 * t;
-      if (j < N) {
-        float pj = s[t] / l;
-        if (drop) pj = cxr::uniform01(salt, i, j) >= rate ? pj * inv_keep : 0.f;
-        p[j] = cxr::round_bf16(pj);
-      }
-    }
-    __syncwarp();
-
-    float o[2 * WPL];
-#pragma unroll
-    for (int u = 0; u < 2 * WPL; ++u) o[u] = 0.f;
-    for (int j = 0; j < N; ++j) {
-      const float pj = p[j];
-      const uint32_t* vrow;
-      if constexpr (stage_v<D>()) vrow = vs + j * W;
-      else vrow = vb + j * sv.n;
-#pragma unroll
-      for (int u = 0; u < WPL; ++u) {
-        const float2 vf = cxr::bf2_to_f2(vrow[u * 32 + lane]);
-        o[2 * u] = fmaf(pj, vf.x, o[2 * u]);
-        o[2 * u + 1] = fmaf(pj, vf.y, o[2 * u + 1]);
-      }
-    }
-    uint32_t* orow = ob + i * so.n;
-#pragma unroll
-    for (int u = 0; u < WPL; ++u) orow[u * 32 + lane] = cxr::f2_to_bf2(o[2 * u], o[2 * u + 1]);
-    __syncwarp();  // p is rewritten by this warp's next row
+    __syncthreads();  // the next iteration's copy overwrites this stage
   }
+
+  if (active)
+    store_rows<D>(oa, 1.f, smem, s_q - sbase, r0, out + b * so.b + h * so.h, so.n, row0 + r0, N);
 }
 
 template <int D>
@@ -194,19 +202,17 @@ cudaError_t launch(const uint32_t* q, HeadStrides sq, const uint32_t* k, HeadStr
                    const uint32_t* v, HeadStrides sv, const void* bias, const void* seeds,
                    uint32_t* out, HeadStrides so, int B, int N, int H, float scale, float rate,
                    float inv_keep, cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>(N);
+  constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cxr::allow_smem(flash_fwd_kernel<D>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((N + kRows - 1) / kRows, H, B);
-  flash_fwd_kernel<D><<<grid, kWarps * 32, smem, stream>>>(
-      q, sq, k, sk, v, sv, static_cast<const float*>(bias), static_cast<const int*>(seeds), out,
-      so, N, scale, rate, inv_keep);
-  return cudaGetLastError();
-}
-
-bool bad_args(int B, int N, int H, float rate) {
-  return N < 1 || N > kMaxN || B < 1 || B > 65535 || H < 1 || H > 65535 || !(rate >= 0.f) ||
-         !(rate < 1.f);
+  const auto* bi = static_cast<const float*>(bias);
+  const auto* sd = static_cast<const int*>(seeds);
+  return cxr::for_batch_chunks(B, [&](int b0, int rows) {
+    flash_fwd_kernel<D><<<cxr::head_grid(rows, N, H), kThreads, smem, stream>>>(
+        q + b0 * sq.b, sq, k + b0 * sk.b, sk, v + b0 * sv.b, sv, bi + (size_t)b0 * N, sd + b0,
+        out + b0 * so.b, so, N, scale, rate, inv_keep);
+    return cudaGetLastError();
+  });
 }
 
 cudaError_t dispatch(int D, const uint32_t* q, HeadStrides sq, const uint32_t* k, HeadStrides sk,
@@ -215,6 +221,9 @@ cudaError_t dispatch(int D, const uint32_t* q, HeadStrides sq, const uint32_t* k
                      float inv_keep, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   switch (D) {
+    case 32:
+      return launch<32>(q, sq, k, sk, v, sv, bias, seeds, out, so, B, N, H, scale, rate,
+                        inv_keep, s);
     case 64:
       return launch<64>(q, sq, k, sk, v, sv, bias, seeds, out, so, B, N, H, scale, rate,
                         inv_keep, s);
@@ -228,12 +237,14 @@ cudaError_t dispatch(int D, const uint32_t* q, HeadStrides sq, const uint32_t* k
 }  // namespace
 
 // B3: qkv [B, N, 3*H*D] bf16, bias [B, N] fp32, seeds [B] int32, out
-// [B, N, H*D] bf16; D in {64, 128}, 1 <= N <= 512, B <= 65535; 0 <= rate < 1
-// and inv_keep = 1 / (1 - rate) (rate 0 turns dropout off).
+// [B, N, H*D] bf16; D in {32, 64, 128}, 1 <= N <= 512, H <= 65535, any B;
+// 0 <= rate < 1 and
+// inv_keep = 1 / (1 - rate) (rate 0 turns dropout off); qkv and out 16-byte
+// aligned.
 CXR_API int cxr_flash_fwd_packed(const void* qkv, const void* bias, const void* seeds,
                                  void* out, int B, int N, int H, int D, float scale,
                                  float rate, float inv_keep, void* stream) {
-  if (bad_args(B, N, H, rate)) return cudaErrorInvalidValue;
+  if (cxr::bad_attention_args(B, N, H, rate)) return cudaErrorInvalidValue;
   const long long W = D / 2, row = 3 * H * W;
   const cxr::HeadStrides sqkv{N * row, row, W}, so{N * H * W, H * W, W};
   const auto* base = static_cast<const uint32_t*>(qkv);
@@ -243,12 +254,13 @@ CXR_API int cxr_flash_fwd_packed(const void* qkv, const void* bias, const void* 
 
 // B5: q, k, v and out bf16 with the head dim contiguous, each addressed by
 // three strides in 32-bit words in ``strides`` (host memory, 12 values: q,
-// k, v, out, each as batch, token, head); at D = 128 every stride a multiple
-// of 4 words and every pointer 16-byte aligned. Other arguments as B3's.
+// k, v, out, each as batch, token, head); every stride a multiple of 4 words
+// and every pointer 16-byte aligned (the 16-byte copies and stores). Other
+// arguments as B3's.
 CXR_API int cxr_flash_fwd(const void* q, const void* k, const void* v, const void* bias,
                           const void* seeds, void* out, const long long* strides, int B, int N,
                           int H, int D, float scale, float rate, float inv_keep, void* stream) {
-  if (bad_args(B, N, H, rate)) return cudaErrorInvalidValue;
+  if (cxr::bad_attention_args(B, N, H, rate)) return cudaErrorInvalidValue;
   const cxr::HeadStrides sq{strides[0], strides[1], strides[2]};
   const cxr::HeadStrides sk{strides[3], strides[4], strides[5]};
   const cxr::HeadStrides sv{strides[6], strides[7], strides[8]};

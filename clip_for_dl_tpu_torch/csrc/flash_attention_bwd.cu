@@ -48,7 +48,8 @@
 //      and (m, 1 / l, delta) to the [3, B, H, N] fp32 scratch.
 //   2. columns: one block per (64 keys, head, batch row), 4 warps of 16 keys.
 //      K and V are loaded once; Q, dO and the row statistics stream in tiles
-//      of QT query rows (64 at D = 64, 32 at D = 128) through the same ring.
+//      of QT query rows (64 at D = 32 and 64, 32 at D = 128) through the same
+//      ring.
 //      It forms S^T = K Q^T and dP^T = V dO^T, so that the accumulators sit
 //      in the A-operand layout of dv += bf16(pd^T) dO and dk += bf16(ds^T) Q.
 //      It writes bf16(dk * scale) and bf16(dv).
@@ -59,12 +60,14 @@
 // sum over keys or query rows is a loop inside one block: two calls on the
 // same inputs give the same bits.
 //
-// Shared memory is independent of N: rows 48 KB of tiles at D = 64 and 96 KB
-// at D = 128, plus the key bias (2 KB) and keep bits (4 KB); columns 49.5 KB
-// and 64.8 KB. Tiles
-// are rows of 16-byte chunks with chunk c of row r stored at c ^ (r % 8), so
-// that the eight row addresses of an ldmatrix, and a warp's cp.async writes,
-// fall in distinct banks. Tokens >= N of a tile are zero-filled by the copy
+// Head dims 32, 64 and 128 are built (other widths are zero-padded by the
+// wrapper). Shared memory is independent of N: rows 24, 48 and 96 KB of
+// tiles at D = 32, 64 and 128, plus the key bias (2 KB) and keep bits
+// (4 KB); columns 24.8, 49.5 and 64.8 KB. The tiles, the PTX and the
+// products are mma_tiles.cuh's, shared with the forward (B3/B5). A batch
+// over 65535 rows (gridDim.z's bound) is launched in chunks; the stats
+// planes are placed by the whole batch B. Tokens >= N of a tile are
+// zero-filled by the copy
 // itself (source size 0), never read: in a "bnhd" view they belong to the
 // next batch row, and after the last one they lie past the allocation; a
 // stale row would give 0 * NaN = NaN in the products. The registers of a
@@ -72,24 +75,32 @@
 // rows a tile there (dk and dv are 128 fp32 accumulators a thread).
 #include <math_constants.h>
 
-#include "common.cuh"
+#include "mma_tiles.cuh"
 
 namespace {
 
 using cxr::HeadStrides;
+using cxr::cp_async4;
+using cxr::cp_async_commit;
+using cxr::cp_async_wait_one;
+using cxr::load_tile;
+using cxr::product_ab;
+using cxr::product_abt;
+using cxr::quad_max;
+using cxr::quad_sum;
+using cxr::store_rows;
+using cxr::tile_bytes;
+using cxr::to_a;
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kBlock = 64;  // query rows (rows pass) or keys (columns pass) of a block, 16 a warp
+constexpr int kThreads = cxr::kMmaThreads;
+// query rows (rows pass) or keys (columns pass) of a block, 16 a warp
+constexpr int kBlock = cxr::kHeadBlock;
 constexpr int kKeyTile = 64;  // keys of a rows-pass tile
-constexpr int kMaxN = 512;    // sequence bound (MAX_SEQ_LEN)
+constexpr int kMaxN = cxr::kMaxSeq;
 
 // query rows of a columns-pass tile
 template <int D>
-__host__ __device__ constexpr int query_tile() { return D == 64 ? 64 : 32; }
-
-template <int D>
-__host__ __device__ constexpr int tile_bytes(int rows) { return rows * D * 2; }
+__host__ __device__ constexpr int query_tile() { return D == 128 ? 32 : 64; }
 
 // a rows-pass thread's keep bits of one key tile: its 32 scores, one word
 constexpr int kKeepBytes = kMaxN / kKeyTile * kThreads * 4;
@@ -110,184 +121,6 @@ __host__ __device__ constexpr size_t cols_smem_bytes() {
   return (size_t)2 * tile_bytes<D>(kBlock) + 2 * cols_stage_bytes<D>();  // K, V; 2 stages
 }
 
-// ---- PTX ------------------------------------------------------------------
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-// wait until at most one committed group (the tile in flight) is pending
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// c (16 x 8, fp32) += a (16 x 16, bf16, row-major) b (16 x 8, bf16, col-major)
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// ---- tiles: rows of D bf16 in 16-byte chunks, chunk c of row r at c ^ (r % 8)
-
-template <int D>
-__device__ __forceinline__ uint32_t chunk_at(int row, int chunk) {
-  return (row * (D / 8) + (chunk ^ (row & 7))) * 16;
-}
-
-// tokens [t0, t0 + R) of one head's operand (token t at base + t * stride
-// words) into a tile; tokens >= N are zero-filled and not read
-template <int D, int R>
-__device__ __forceinline__ void load_tile(uint32_t tile, const uint32_t* base, long long stride,
-                                          int t0, int N) {
-  constexpr int C = D / 8;
-  static_assert(R * C % kThreads == 0, "a tile is whole 16-byte chunks for every thread");
-#pragma unroll
-  for (int it = 0; it < R * C / kThreads; ++it) {
-    const int idx = threadIdx.x + it * kThreads;
-    const int r = idx / C, c = idx % C, t = t0 + r;
-    const bool ok = t < N;
-    cp_async16(tile + chunk_at<D>(r, c), base + (ok ? t * stride : 0) + c * 4, ok);
-  }
-}
-
-// A fragment of the 16 x 16 block at rows r0.., columns 16 ks.. of a tile
-template <int D>
-__device__ __forceinline__ void load_a(uint32_t tile, int r0, int ks, uint32_t (&a)[4]) {
-  const int lane = threadIdx.x & 31;
-  ldsm_x4(tile + chunk_at<D>(r0 + (lane & 15), 2 * ks + (lane >> 4)), a);
-}
-
-// B fragments of two n8 tiles whose n index runs over the tile's rows
-// n0..n0 + 15 and k over its columns 16 ks..: b[0], b[1] for rows n0..,
-// b[2], b[3] for rows n0 + 8..
-template <int D>
-__device__ __forceinline__ void load_b_rows(uint32_t tile, int n0, int ks, uint32_t (&b)[4]) {
-  const int lane = threadIdx.x & 31;
-  ldsm_x4(tile + chunk_at<D>(n0 + ((lane >> 4) << 3) + (lane & 7), 2 * ks + ((lane >> 3) & 1)),
-          b);
-}
-
-// B fragments of two n8 tiles whose k index runs over the tile's rows
-// 16 kk..16 kk + 15 and n over its columns 16 p..: b[0], b[1] for columns
-// 16 p.., b[2], b[3] for columns 16 p + 8..
-template <int D>
-__device__ __forceinline__ void load_b_cols(uint32_t tile, int kk, int p, uint32_t (&b)[4]) {
-  const int lane = threadIdx.x & 31;
-  ldsm_x4_trans(tile + chunk_at<D>(16 * kk + (lane & 7) + (((lane >> 3) & 1) << 3),
-                                   2 * p + (lane >> 4)),
-                b);
-}
-
-// acc (16 x 8 NT) = A[r0..r0 + 15, :] B^T, both tiles D wide; B's first 8 NT
-// rows are the columns of acc
-template <int D, int NT>
-__device__ __forceinline__ void product_abt(float (&acc)[NT][4], uint32_t a_tile, int r0,
-                                            uint32_t b_tile) {
-#pragma unroll
-  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) {
-    uint32_t a[4];
-    load_a<D>(a_tile, r0, ks, a);
-#pragma unroll
-    for (int p = 0; p < NT / 2; ++p) {
-      uint32_t b[4];
-      load_b_rows<D>(b_tile, 16 * p, ks, b);
-      mma(acc[2 * p], a, b[0], b[1]);
-      mma(acc[2 * p + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// accumulators of a 16 x 16 KS product, rounded to bf16, as the A fragments
-// of the next product (the C and A layouts of m16n8k16 line up)
-template <int KS>
-__device__ __forceinline__ void to_a(const float (&c)[2 * KS][4], uint32_t (&a)[KS][4]) {
-#pragma unroll
-  for (int k = 0; k < KS; ++k) {
-    a[k][0] = cxr::f2_to_bf2(c[2 * k][0], c[2 * k][1]);
-    a[k][1] = cxr::f2_to_bf2(c[2 * k][2], c[2 * k][3]);
-    a[k][2] = cxr::f2_to_bf2(c[2 * k + 1][0], c[2 * k + 1][1]);
-    a[k][3] = cxr::f2_to_bf2(c[2 * k + 1][2], c[2 * k + 1][3]);
-  }
-}
-
-// acc (16 x D) += A (16 x 16 KS, fragments) B, B the tile's first 16 KS rows
-template <int D, int KS>
-__device__ __forceinline__ void product_ab(float (&acc)[D / 8][4], const uint32_t (&a)[KS][4],
-                                           uint32_t b_tile) {
-#pragma unroll
-  for (int k = 0; k < KS; ++k) {
-#pragma unroll
-    for (int p = 0; p < D / 16; ++p) {
-      uint32_t b[4];
-      load_b_cols<D>(b_tile, k, p, b);
-      mma(acc[2 * p], a[k], b[0], b[1]);
-      mma(acc[2 * p + 1], a[k], b[2], b[3]);
-    }
-  }
-}
-
-// a warp's 16 x D accumulator, times mul and rounded to bf16, into its own
-// 16 rows of a tile, then from there to tokens t0.. (< N) of the output as
-// 16-byte stores
-template <int D>
-__device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4], float mul,
-                                           unsigned char* smem, uint32_t tile, int r0,
-                                           uint32_t* out, long long stride, int t0, int N) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, qd = lane & 3;
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    *reinterpret_cast<uint32_t*>(smem + tile + chunk_at<D>(r0 + g, n) + 4 * qd) =
-        cxr::f2_to_bf2(acc[n][0] * mul, acc[n][1] * mul);
-    *reinterpret_cast<uint32_t*>(smem + tile + chunk_at<D>(r0 + g + 8, n) + 4 * qd) =
-        cxr::f2_to_bf2(acc[n][2] * mul, acc[n][3] * mul);
-  }
-  __syncwarp();
-  constexpr int C = D / 8;
-#pragma unroll
-  for (int it = 0; it < 16 * C / 32; ++it) {
-    const int idx = lane + 32 * it;
-    const int r = idx / C, c = idx % C, t = t0 + r;
-    if (t < N)
-      *reinterpret_cast<uint4*>(out + t * stride + c * 4) =
-          *reinterpret_cast<const uint4*>(smem + tile + chunk_at<D>(r0 + r, c));
-  }
-}
-
 // ---- pass 1: dq and the row statistics ------------------------------------
 
 template <int D>
@@ -298,7 +131,7 @@ flash_bwd_rows_kernel(const uint32_t* __restrict__ q, HeadStrides sq,
                       const uint32_t* __restrict__ dout, HeadStrides sdo,
                       const float* __restrict__ bias, const int* __restrict__ seeds,
                       uint32_t* __restrict__ dq, HeadStrides sdq, float* __restrict__ stats,
-                      int N, int H, float scale, float rate, float inv_keep) {
+                      int B, int N, int H, float scale, float rate, float inv_keep) {
   constexpr int NT = kKeyTile / 8;  // n8 tiles of a key tile
   static_assert(NT * 4 == 32, "a thread's scores of a key tile fill one word of keep bits");
   constexpr int TILE = tile_bytes<D>(kBlock);
@@ -316,7 +149,7 @@ flash_bwd_rows_kernel(const uint32_t* __restrict__ q, HeadStrides sq,
   const uint32_t* kb = k + b * sk.b + h * sk.h;
   const uint32_t* vb = v + b * sv.b + h * sv.h;
   const uint32_t* ob = dout + b * sdo.b + h * sdo.h;
-  const size_t plane = (size_t)gridDim.z * H * N;
+  const size_t plane = (size_t)B * H * N;
   float* st = stats + ((size_t)b * H + h) * N;  // max at st, 1/sum at +plane, delta at +2 plane
 
   load_tile<D, kBlock>(s_q, qb, sq.n, row0, N);
@@ -456,7 +289,7 @@ flash_bwd_cols_kernel(const uint32_t* __restrict__ q, HeadStrides sq,
                       const uint32_t* __restrict__ dout, HeadStrides sdo,
                       const float* __restrict__ bias, const int* __restrict__ seeds,
                       uint32_t* __restrict__ dk, HeadStrides sdk, uint32_t* __restrict__ dv,
-                      HeadStrides sdv, const float* __restrict__ stats, int N, int H,
+                      HeadStrides sdv, const float* __restrict__ stats, int B, int N, int H,
                       float scale, float rate, float inv_keep) {
   constexpr int QT = query_tile<D>();
   constexpr int NT = QT / 8;  // n8 tiles of a query tile
@@ -474,7 +307,7 @@ flash_bwd_cols_kernel(const uint32_t* __restrict__ q, HeadStrides sq,
   const uint32_t* kb = k + b * sk.b + h * sk.h;
   const uint32_t* vb = v + b * sv.b + h * sv.h;
   const uint32_t* ob = dout + b * sdo.b + h * sdo.h;
-  const size_t plane = (size_t)gridDim.z * H * N;
+  const size_t plane = (size_t)B * H * N;
   const float* st = stats + ((size_t)b * H + h) * N;
 
   auto load_stage = [&](int stage, int i0) {
@@ -574,24 +407,24 @@ cudaError_t launch(Operand q, Operand k, Operand v, Operand dout, const void* bi
   if (err != cudaSuccess) return err;
   err = cxr::allow_smem(flash_bwd_cols_kernel<D>, cols_smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((N + kBlock - 1) / kBlock, H, B);
-  const auto* bi = static_cast<const float*>(bias);
-  const auto* sd = static_cast<const int*>(seeds);
-  auto* st = static_cast<float*>(stats);
-  flash_bwd_rows_kernel<D><<<grid, kThreads, rows_smem, stream>>>(
-      q.p, q.s, k.p, k.s, v.p, v.s, dout.p, dout.s, bi, sd, dq.p, dq.s, st, N, H, scale, rate,
-      inv_keep);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  flash_bwd_cols_kernel<D><<<grid, kThreads, cols_smem, stream>>>(
-      q.p, q.s, k.p, k.s, v.p, v.s, dout.p, dout.s, bi, sd, dk.p, dk.s, dv.p, dv.s, st, N, H,
-      scale, rate, inv_keep);
-  return cudaGetLastError();
-}
-
-bool bad_args(int B, int N, int H, float rate) {
-  return N < 1 || N > kMaxN || B < 1 || B > 65535 || H < 1 || H > 65535 || !(rate >= 0.f) ||
-         !(rate < 1.f);
+  return cxr::for_batch_chunks(B, [&](int b0, int rows) {
+    // the chunk's operands start at its first batch row
+    auto in = [b0](Operand o) { return o.p + b0 * o.s.b; };
+    auto out = [b0](Gradient g) { return g.p + b0 * g.s.b; };
+    const auto* bi = static_cast<const float*>(bias) + (size_t)b0 * N;
+    const auto* sd = static_cast<const int*>(seeds) + b0;
+    auto* st = static_cast<float*>(stats) + (size_t)b0 * H * N;
+    const dim3 grid = cxr::head_grid(rows, N, H);
+    flash_bwd_rows_kernel<D><<<grid, kThreads, rows_smem, stream>>>(
+        in(q), q.s, in(k), k.s, in(v), v.s, in(dout), dout.s, bi, sd, out(dq), dq.s, st, B, N,
+        H, scale, rate, inv_keep);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    flash_bwd_cols_kernel<D><<<grid, kThreads, cols_smem, stream>>>(
+        in(q), q.s, in(k), k.s, in(v), v.s, in(dout), dout.s, bi, sd, out(dk), dk.s, out(dv),
+        dv.s, st, B, N, H, scale, rate, inv_keep);
+    return cudaGetLastError();
+  });
 }
 
 cudaError_t dispatch(int D, Operand q, Operand k, Operand v, Operand dout, const void* bias,
@@ -600,6 +433,9 @@ cudaError_t dispatch(int D, Operand q, Operand k, Operand v, Operand dout, const
                      void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   switch (D) {
+    case 32:
+      return launch<32>(q, k, v, dout, bias, seeds, dq, dk, dv, stats, B, N, H, scale, rate,
+                        inv_keep, s);
     case 64:
       return launch<64>(q, k, v, dout, bias, seeds, dq, dk, dv, stats, B, N, H, scale, rate,
                         inv_keep, s);
@@ -614,14 +450,15 @@ cudaError_t dispatch(int D, Operand q, Operand k, Operand v, Operand dout, const
 
 // B6: qkv [B, N, 3*H*D] bf16, dout [B, N, H*D] bf16, bias [B, N] fp32, seeds
 // [B] int32, dqkv [B, N, 3*H*D] bf16 (every element written), stats
-// [3, B, H, N] fp32 scratch; D in {64, 128}, 1 <= N <= 512, B <= 65535;
+// [3, B, H, N] fp32 scratch; D in {32, 64, 128}, 1 <= N <= 512, H <= 65535,
+// any B;
 // 0 <= rate < 1 and inv_keep = 1 / (1 - rate), as in the forward that made
 // dout's output; qkv, dout and dqkv 16-byte aligned.
 CXR_API int cxr_flash_bwd_packed(const void* qkv, const void* dout, const void* bias,
                                  const void* seeds, void* dqkv, void* stats, int B, int N,
                                  int H, int D, float scale, float rate, float inv_keep,
                                  void* stream) {
-  if (bad_args(B, N, H, rate)) return cudaErrorInvalidValue;
+  if (cxr::bad_attention_args(B, N, H, rate)) return cudaErrorInvalidValue;
   const long long W = D / 2, row = 3 * H * W;
   const cxr::HeadStrides sqkv{N * row, row, W}, sdo{N * H * W, H * W, W};
   const auto* in = static_cast<const uint32_t*>(qkv);
@@ -641,7 +478,7 @@ CXR_API int cxr_flash_bwd(const void* q, const void* k, const void* v, const voi
                           const void* bias, const void* seeds, void* dq, void* dk, void* dv,
                           void* stats, const long long* strides, int B, int N, int H, int D,
                           float scale, float rate, float inv_keep, void* stream) {
-  if (bad_args(B, N, H, rate)) return cudaErrorInvalidValue;
+  if (cxr::bad_attention_args(B, N, H, rate)) return cudaErrorInvalidValue;
   cxr::HeadStrides s[7];
   for (int t = 0; t < 7; ++t) s[t] = {strides[3 * t], strides[3 * t + 1], strides[3 * t + 2]};
   auto in = [](const void* p) { return static_cast<const uint32_t*>(p); };

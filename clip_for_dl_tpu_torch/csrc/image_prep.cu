@@ -19,8 +19,9 @@
 //
 // What bounds it on the card: bytes. A 512x512 grey image is 256 KB in and
 // 224*224*3*2 = 294 KB out for ~10 flops per output value. Design: one block
-// per output row, one thread per output column; the two source rows it reads
-// stay in L1/L2, and the stores of a row are contiguous.
+// per (image, output row), all in gridDim.x so that the batch is not bounded
+// by gridDim.y's 65535, one thread per output column; the two source rows it
+// reads stay in L1/L2, and the stores of a row are contiguous.
 #include "common.cuh"
 
 namespace {
@@ -47,8 +48,8 @@ image_prep_kernel(const uint8_t* __restrict__ img, Taps ty, Taps tx,
                   const float* __restrict__ scale, const float* __restrict__ bias,
                   OutT* __restrict__ out, int H_in, int W_in, int C_in, int H_out,
                   int W_out, int C_out) {
-  const int y = blockIdx.x;
-  const int b = blockIdx.y;
+  const int b = blockIdx.x / H_out;
+  const int y = blockIdx.x - b * H_out;
   const int r0 = ty.lo[y], r1 = ty.hi[y];
   const float wy0 = ty.w0[y], wy1 = ty.w1[y];
   const size_t row_elems = (size_t)W_in * C_in;
@@ -78,19 +79,21 @@ image_prep_kernel(const uint8_t* __restrict__ img, Taps ty, Taps tx,
 
 // img [B, H_in, W_in, C_in] uint8; taps [H_out] / [W_out]; scale, bias [C_out] fp32;
 // out [B, H_out, W_out, C_out], bf16 (out_bf16 = 1) or fp32 (out_bf16 = 0).
-// C_out equals C_in, or C_in = 1 broadcast to C_out.
+// C_out equals C_in, or C_in = 1 broadcast to C_out; B * H_out < 2^31.
 CXR_API int cxr_image_prep(const void* img, const void* y_lo, const void* y_hi,
                            const void* y_w0, const void* y_w1, const void* x_lo,
                            const void* x_hi, const void* x_w0, const void* x_w1,
                            const void* scale, const void* bias, void* out, int B, int H_in,
                            int W_in, int C_in, int H_out, int W_out, int C_out, int out_bf16,
                            void* stream) {
-  if (B <= 0 || B > 65535 || (C_in != C_out && C_in != 1)) return cudaErrorInvalidValue;
+  if (B <= 0 || H_out <= 0 || (long long)B * H_out > 2147483647LL ||
+      (C_in != C_out && C_in != 1))
+    return cudaErrorInvalidValue;
   Taps ty{static_cast<const int*>(y_lo), static_cast<const int*>(y_hi),
           static_cast<const float*>(y_w0), static_cast<const float*>(y_w1)};
   Taps tx{static_cast<const int*>(x_lo), static_cast<const int*>(x_hi),
           static_cast<const float*>(x_w0), static_cast<const float*>(x_w1)};
-  const dim3 grid(H_out, B);
+  const dim3 grid(static_cast<unsigned>(B * H_out));
   auto s = static_cast<cudaStream_t>(stream);
   auto in = static_cast<const uint8_t*>(img);
   auto sc = static_cast<const float*>(scale);

@@ -134,16 +134,30 @@ def build() -> ctypes.CDLL:
         log = ""
         if not path.exists():
             log = _compile(nvcc, path)
-        lib = ctypes.CDLL(str(path))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
-        lib.cxr_error_string.argtypes = [ctypes.c_int]
-        lib.cxr_error_string.restype = ctypes.c_char_p
+        lib = load(path)
         build_info.update(path=str(path), log=log)
         _lib = lib
         return lib
+
+
+def load(path) -> ctypes.CDLL:
+    """The kernel library at ``path``, every entry point's signature set."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    lib.cxr_error_string.argtypes = [ctypes.c_int]
+    lib.cxr_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def use_library(lib: ctypes.CDLL) -> None:
+    """Launch every kernel from ``lib`` from now on: another build of the
+    same C interface, such as another checkout's (``tools/compare_builds``)."""
+    global _lib
+    with _lock:
+        _lib = lib
 
 
 def launch(name: str, device: torch.device, *args) -> None:

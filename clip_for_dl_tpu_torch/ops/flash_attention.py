@@ -29,6 +29,14 @@ When a gradient is required the call goes through :class:`_FlashPacked` or
 :class:`_Flash`, which save only their inputs (q/k/v or qkv, bias, seeds), as
 the JAX custom VJPs do, and recompute the probabilities in the backward. The
 bias and the seeds get no gradient.
+
+Head dims: the kernels are built for D ∈ :data:`HEAD_DIMS` (32, 64, 128).
+Any other D ≤ 128 runs through the next wider one: the wrappers copy each
+head's q, k, v (and d(out)) into zero-padded rows, which leaves q·kᵀ
+unchanged and gives zero output (and gradient) columns, launch with the
+scale of the original D and slice the result (:func:`_pad_heads`,
+:func:`_unpad_heads`). The pad is a copy of the operands and of the result;
+no preset reaches it (they use D = 64). D > 128 raises.
 """
 
 from __future__ import annotations
@@ -47,14 +55,12 @@ KERNEL_SPLIT_BWD = "cxr_flash_bwd"
 
 LAYOUTS = ("bnhd", "bhnd")
 
-# The forward kernels (B3, B5) keep a query row's scores in registers,
-# kMaxN / 32 per lane, and one head's K (and at D = 64 also V) in shared
-# memory: 148 KB at N = 512 for D = 64 and 128, within a Hopper block's
-# 227 KB. Longer sequences need a tiled-KV forward. The backward kernels
-# (B6, B7) stream 64-token tiles, so their shared memory does not grow
-# with N; they check the same bound.
+# The kernels (B3, B5, B6, B7) stream 64-token tiles, so their shared
+# memory does not grow with N but for one key-bias row (2 KB at 512); they
+# keep the JAX package's bound.
 MAX_SEQ_LEN = 512
-HEAD_DIMS = (64, 128)
+# head dims the kernels are built for; others up to the last are padded
+HEAD_DIMS = (32, 64, 128)
 
 _M32 = 0xFFFFFFFF
 
@@ -188,6 +194,10 @@ def _probs(q, k, key_bias, scale):
     return e / e.sum(dim=-1, keepdim=True)
 
 
+def _scale(D: int, scale: Optional[float]) -> float:
+    return 1.0 / float(D) ** 0.5 if scale is None else scale
+
+
 def flash_attention_reference(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -196,13 +206,15 @@ def flash_attention_reference(
     *,
     dropout_rate: float = 0.0,
     dropout_seeds: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Plain version of the forward kernels' math (the JAX ``_head_fwd``) on
     head-major q, k, v [B, H, N, D] → [B, H, N, D] in q's dtype; the
-    counterpart of the JAX ``flash_attention_reference``."""
+    counterpart of the JAX ``flash_attention_reference``. ``scale`` of the
+    logits is 1/√D unless given (as the kernels get it for a padded D)."""
     B, H, N, D = q.shape
     qf, kf, vf = _fp32(q, k, v)
-    p = _probs(qf, kf, key_bias, 1.0 / float(D) ** 0.5)
+    p = _probs(qf, kf, key_bias, _scale(D, scale))
     if dropout_rate > 0.0:
         keep = _keep_mask(dropout_seeds, H, N, dropout_rate)
         p = torch.where(keep, p * (1.0 / (1.0 - dropout_rate)), 0.0)
@@ -218,10 +230,11 @@ def flash_attention_bwd_reference(
     *,
     dropout_rate: float = 0.0,
     dropout_seeds: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of the backward kernels' math (the JAX ``_head_bwd``):
     head-major q, k, v and d(out) [B, H, N, D] → (dq, dk, dv) [B, H, N, D]
-    in q's dtype.
+    in q's dtype; ``scale`` as in :func:`flash_attention_reference`.
 
     s and p are recomputed in fp32; the dropped, scaled probabilities are
     cast to the compute dtype before ``dv = pdᵀ·do``; ``dp = do·vᵀ`` is
@@ -231,7 +244,7 @@ def flash_attention_bwd_reference(
     B, H, N, D = q.shape
     dt = q.dtype
     qf, kf, vf, dof = _fp32(q, k, v, do)
-    scale = 1.0 / float(D) ** 0.5
+    scale = _scale(D, scale)
     p = _probs(qf, kf, key_bias, scale)
     dpd = torch.matmul(dof, vf.transpose(-1, -2))
     if dropout_rate > 0.0:
@@ -256,13 +269,14 @@ def flash_attention_packed_reference(
     *,
     dropout_rate: float = 0.0,
     dropout_seeds: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Plain version of B3: :func:`flash_attention_reference` over qkv's
     head slices, [B, N, 3·H·D] → [B, N, H·D]."""
     B, N, _ = qkv.shape
     q, k, v, D = _split_heads(qkv, heads)
     out = flash_attention_reference(q, k, v, key_bias, dropout_rate=dropout_rate,
-                                    dropout_seeds=dropout_seeds)
+                                    dropout_seeds=dropout_seeds, scale=scale)
     return out.transpose(1, 2).reshape(B, N, heads * D)
 
 
@@ -274,6 +288,7 @@ def flash_attention_packed_bwd_reference(
     *,
     dropout_rate: float = 0.0,
     dropout_seeds: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Plain version of B6: d(out) [B, N, H·D] → dqkv [B, N, 3·H·D] in qkv's
     dtype, through :func:`flash_attention_bwd_reference`."""
@@ -281,7 +296,7 @@ def flash_attention_packed_bwd_reference(
     q, k, v, D = _split_heads(qkv, heads)
     grads = flash_attention_bwd_reference(
         q, k, v, do.reshape(B, N, heads, D).transpose(1, 2), key_bias,
-        dropout_rate=dropout_rate, dropout_seeds=dropout_seeds)
+        dropout_rate=dropout_rate, dropout_seeds=dropout_seeds, scale=scale)
     dqkv = torch.stack(grads, dim=2)  # [B, H, 3, N, D]
     return dqkv.permute(0, 3, 2, 1, 4).reshape(B, N, 3 * heads * D)
 
@@ -479,10 +494,37 @@ class _Flash(torch.autograd.Function):
 # ---------------------------------------------------------------------------
 
 
-def _side_args(B, N, D, dev, key_bias, dropout_rate, dropout_seeds):
+def _kernel_dim(D: int) -> int:
+    """The built head dim that runs head dim ``D``: the narrowest of
+    :data:`HEAD_DIMS` that holds it."""
+    for width in HEAD_DIMS:
+        if D <= width:
+            return width
+    raise ValueError(f"head dim {D} not supported by the kernels: at most {HEAD_DIMS[-1]}")
+
+
+def _pad_heads(t: torch.Tensor, D: int, width: int) -> torch.Tensor:
+    """``t`` with every run of ``D`` values along its last dim (the heads of
+    a packed [B, N, k·H·D], or a split operand's [..., D]) zero-padded to
+    ``width``: a new contiguous tensor, or ``t`` itself when D = width."""
+    if D == width:
+        return t
+    lead = t.shape[:-1]
+    runs = t.reshape(*lead, t.shape[-1] // D, D)
+    return torch.nn.functional.pad(runs, (0, width - D)).reshape(*lead, -1)
+
+
+def _unpad_heads(t: torch.Tensor, D: int, width: int) -> torch.Tensor:
+    """The inverse of :func:`_pad_heads`: the first ``D`` of every ``width``
+    values along the last dim, as a contiguous copy (``t`` when D = width)."""
+    if D == width:
+        return t
+    lead = t.shape[:-1]
+    return t.reshape(*lead, t.shape[-1] // width, width)[..., :D].reshape(*lead, -1)
+
+
+def _side_args(B, N, dev, key_bias, dropout_rate, dropout_seeds):
     """Checks shared by every kernel; returns (bias, seeds) on the card."""
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D} not supported by the kernel {HEAD_DIMS}")
     if N > MAX_SEQ_LEN:
         raise ValueError(f"the kernel takes sequence length ≤ MAX_SEQ_LEN = {MAX_SEQ_LEN}; "
                          f"got N={N}")
@@ -500,6 +542,8 @@ def _side_args(B, N, D, dev, key_bias, dropout_rate, dropout_seeds):
 
 
 def _rate_args(D, dropout_rate):
+    """(scale, rate, 1 / (1 − rate)) of a launch; the scale is that of the
+    caller's head dim ``D``, also when the kernel runs a padded one."""
     return 1.0 / float(D) ** 0.5, float(dropout_rate), 1.0 / (1.0 - float(dropout_rate))
 
 
@@ -507,13 +551,15 @@ def _kernel(qkv, heads, key_bias, *, dropout_rate=0.0, dropout_seeds=None):
     B, N, HD3 = qkv.shape
     _build.check_tensor(qkv, "qkv", torch.bfloat16)
     D = HD3 // (3 * heads)
-    key_bias, seeds = _side_args(B, N, D, qkv.device, key_bias, dropout_rate, dropout_seeds)
-    out = torch.empty((B, N, heads * D), dtype=qkv.dtype, device=qkv.device)
+    W = _kernel_dim(D)
+    key_bias, seeds = _side_args(B, N, qkv.device, key_bias, dropout_rate, dropout_seeds)
+    qkv = _pad_heads(qkv, D, W)
+    out = torch.empty((B, N, heads * W), dtype=qkv.dtype, device=qkv.device)
     if B:
         _build.launch(KERNEL, qkv.device, qkv.data_ptr(), key_bias.data_ptr(),
-                      seeds.data_ptr(), out.data_ptr(), B, N, heads, D,
+                      seeds.data_ptr(), out.data_ptr(), B, N, heads, W,
                       *_rate_args(D, dropout_rate))
-    return out
+    return _unpad_heads(out, D, W)
 
 
 def _kernel_bwd(qkv, do, heads, key_bias, *, dropout_rate=0.0, dropout_seeds=None):
@@ -521,16 +567,18 @@ def _kernel_bwd(qkv, do, heads, key_bias, *, dropout_rate=0.0, dropout_seeds=Non
     dev = qkv.device
     _build.check_tensor(qkv, "qkv", torch.bfloat16)
     D = HD3 // (3 * heads)
-    key_bias, seeds = _side_args(B, N, D, dev, key_bias, dropout_rate, dropout_seeds)
+    W = _kernel_dim(D)
+    key_bias, seeds = _side_args(B, N, dev, key_bias, dropout_rate, dropout_seeds)
     _build.check_tensor(do, "do", torch.bfloat16, (B, N, heads * D), dev)
+    qkv, do = _pad_heads(qkv, D, W), _pad_heads(do, D, W)
     dqkv = torch.empty_like(qkv)
     # per (batch row, head, query row): softmax max, 1 / sum and delta, fp32
     stats = torch.empty((3, B, heads, N), dtype=torch.float32, device=dev)
     if B:
         _build.launch(KERNEL_BWD, dev, qkv.data_ptr(), do.data_ptr(), key_bias.data_ptr(),
-                      seeds.data_ptr(), dqkv.data_ptr(), stats.data_ptr(), B, N, heads, D,
+                      seeds.data_ptr(), dqkv.data_ptr(), stats.data_ptr(), B, N, heads, W,
                       *_rate_args(D, dropout_rate))
-    return dqkv
+    return _unpad_heads(dqkv, D, W)
 
 
 def _strides_fit(t: torch.Tensor) -> bool:
@@ -541,19 +589,21 @@ def _strides_fit(t: torch.Tensor) -> bool:
             and all(s % el == 0 for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1))
 
 
-def _operand(t: torch.Tensor, name: str, layout: str, device):
+def _operand(t: torch.Tensor, name: str, layout: str, device, width: int):
     """(tensor, its (batch, token, head) strides in 32-bit words) for a split
-    kernel: bf16 on ``device``; strides that the kernels cannot address (the
-    head dim not contiguous, or strides or data off the 16-byte grid of the
-    forward's vector loads and the backward's 16-byte asynchronous copies)
-    get a contiguous copy."""
+    kernel: bf16 on ``device``; a head dim below ``width`` is zero-padded to
+    it (:func:`_pad_heads`), and strides that the kernels cannot address
+    (the head dim not contiguous, or strides or data off the 16-byte grid of
+    their 16-byte copies and stores) get a contiguous copy."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if t.dtype != torch.bfloat16:
         raise TypeError(f"{name}: expected {torch.bfloat16}, got {t.dtype}")
-    if not _strides_fit(t):
+    if t.shape[3] != width:
+        t = _pad_heads(t, t.shape[3], width)
+    elif not _strides_fit(t):
         t = t.clone(memory_format=torch.contiguous_format)
     sb, s1, s2 = (s // 2 if n > 1 else 0 for s, n in zip(t.stride()[:3], t.shape[:3]))
     return t, ((sb, s1, s2) if layout == "bnhd" else (sb, s2, s1))
@@ -566,26 +616,28 @@ def _strides(*word_strides) -> ctypes.Array:
 
 def _kernel_split(q, k, v, key_bias, layout, *, dropout_rate=0.0, dropout_seeds=None):
     B, N, H, D = _dims(q, layout)
+    W = _kernel_dim(D)
     dev = q.device
-    (q, sq), (k, sk), (v, sv) = (_operand(t, n, layout, dev)
+    (q, sq), (k, sk), (v, sv) = (_operand(t, n, layout, dev, W)
                                  for t, n in ((q, "q"), (k, "k"), (v, "v")))
-    key_bias, seeds = _side_args(B, N, D, dev, key_bias, dropout_rate, dropout_seeds)
-    out, so = _operand(torch.empty(q.shape, dtype=q.dtype, device=dev), "out", layout, dev)
+    key_bias, seeds = _side_args(B, N, dev, key_bias, dropout_rate, dropout_seeds)
+    out, so = _operand(torch.empty(q.shape, dtype=q.dtype, device=dev), "out", layout, dev, W)
     if B:
         _build.launch(KERNEL_SPLIT, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                       key_bias.data_ptr(), seeds.data_ptr(), out.data_ptr(),
-                      _strides(sq, sk, sv, so), B, N, H, D, *_rate_args(D, dropout_rate))
-    return out
+                      _strides(sq, sk, sv, so), B, N, H, W, *_rate_args(D, dropout_rate))
+    return _unpad_heads(out, D, W)
 
 
 def _kernel_split_bwd(q, k, v, do, key_bias, layout, *, dropout_rate=0.0, dropout_seeds=None):
     B, N, H, D = _dims(q, layout)
+    W = _kernel_dim(D)
     dev = q.device
     (q, sq), (k, sk), (v, sv), (do, sdo) = (
-        _operand(t, n, layout, dev) for t, n in ((q, "q"), (k, "k"), (v, "v"), (do, "do")))
-    key_bias, seeds = _side_args(B, N, D, dev, key_bias, dropout_rate, dropout_seeds)
+        _operand(t, n, layout, dev, W) for t, n in ((q, "q"), (k, "k"), (v, "v"), (do, "do")))
+    key_bias, seeds = _side_args(B, N, dev, key_bias, dropout_rate, dropout_seeds)
     (dq, sdq), (dk, sdk), (dv, sdv) = (
-        _operand(torch.empty(q.shape, dtype=q.dtype, device=dev), n, layout, dev)
+        _operand(torch.empty(q.shape, dtype=q.dtype, device=dev), n, layout, dev, W)
         for n in ("dq", "dk", "dv"))
     # per (batch row, head, query row): softmax max, 1 / sum and delta, fp32
     stats = torch.empty((3, B, H, N), dtype=torch.float32, device=dev)
@@ -593,6 +645,6 @@ def _kernel_split_bwd(q, k, v, do, key_bias, layout, *, dropout_rate=0.0, dropou
         _build.launch(KERNEL_SPLIT_BWD, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                       do.data_ptr(), key_bias.data_ptr(), seeds.data_ptr(), dq.data_ptr(),
                       dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
-                      _strides(sq, sk, sv, sdo, sdq, sdk, sdv), B, N, H, D,
+                      _strides(sq, sk, sv, sdo, sdq, sdk, sdv), B, N, H, W,
                       *_rate_args(D, dropout_rate))
-    return dq, dk, dv
+    return tuple(_unpad_heads(g, D, W) for g in (dq, dk, dv))

@@ -143,8 +143,6 @@ def _kernel(images, out_h, out_w, mean, std, out_dtype):
         raise ValueError(f"{c}->{c_out} channels with {len(mean)} statistics")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"kernel writes bf16 or fp32, not {out_dtype}")
-    if b > 65535:
-        raise ValueError(f"batch {b} exceeds the kernel's grid limit of 65535")
     out = torch.empty((b, out_h, out_w, c_out), dtype=out_dtype, device=dev)
     if b == 0:
         return out

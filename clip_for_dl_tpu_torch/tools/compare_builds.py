@@ -13,9 +13,10 @@ refactor of how they address their operands:
 and so may move within tolerance instead of bit for bit: B6's gradients per
 (batch row, head) slice within two bf16 steps of the other build's
 (``grad_slice_error``), B3's output within 2e-2 (two bf16 steps at |o| ≤ 3).
-For a redesign of the backward:
+For a redesign of the backward, or of the forward:
 
     python -m clip_for_dl_tpu_torch.tools.compare_builds --other other --redesigned B6
+    python -m clip_for_dl_tpu_torch.tools.compare_builds --other other --redesigned B3
 
 Every row prints, for each kernel, whether it is bit-equal and its largest
 difference.
@@ -43,13 +44,16 @@ from ..ops import _build
 from ..ops import flash_attention as fa
 from .probe_bwd_layouts import time_ms
 
-SHAPES = ((64, 200, 12, 64), (128, 200, 12, 64), (2, 512, 2, 128))  # (B, N, H, D)
+# (B, N, H, D): the prompt bank, the train step, the ViT batch, C1
+SHAPES = ((64, 200, 12, 64), (128, 200, 12, 64), (256, 197, 12, 64), (2, 512, 2, 128))
 RATES = (0.0, 0.1)
 ENTRIES = ("cxr_flash_fwd_packed", "cxr_flash_bwd_packed")
 FWD_TOL = 2e-2  # B3's output, max abs: two bf16 steps at |o| ≤ 3
 
 
-def _other_library(root: Path) -> ctypes.CDLL:
+def other_library(root: Path) -> ctypes.CDLL:
+    """The kernel library of the checkout at ``root``, built by its own
+    ``ops/_build.py`` in a child process and loaded beside this one's."""
     code = ("import sys; sys.path.insert(0, sys.argv[1]); "
             "from clip_for_dl_tpu_torch.ops import _build; _build.build(); "
             "print(_build.build_info['path'])")
@@ -57,11 +61,7 @@ def _other_library(root: Path) -> ctypes.CDLL:
                          text=True)
     if out.returncode != 0:
         raise RuntimeError(f"building {root}'s kernels failed:\n{out.stderr}")
-    lib = ctypes.CDLL(out.stdout.strip().splitlines()[-1])
-    for name in ENTRIES:
-        getattr(lib, name).argtypes = list(_build._SIGNATURES[name])
-        getattr(lib, name).restype = ctypes.c_int
-    return lib
+    return _build.load(out.stdout.strip().splitlines()[-1])
 
 
 def main(argv=None) -> int:
@@ -75,7 +75,7 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
 
     dev = require_cuda(args.device)
-    other = _other_library(args.other.resolve())
+    other = other_library(args.other.resolve())
 
     def call(name, *ptrs_and_ints):
         with torch.cuda.device(dev):

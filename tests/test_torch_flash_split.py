@@ -137,6 +137,34 @@ def test_split_equals_packed_bit_for_bit(rate, dtype):
     assert torch.equal(dqkv, x.grad)
 
 
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("layout", ["bnhd", "bhnd"])
+@pytest.mark.parametrize("dim", [32, 96])
+def test_split_at_head_dims_32_and_96_matches_jax(dim, layout, rate):
+    """A built head dim (32) and one the kernels pad (96): the output and
+    dq, dk, dv through ``_Flash`` against the interpreted JAX kernel and
+    jax.grad through its custom VJP, fp32, padded keys: 1e-5 absolute."""
+    rng = np.random.default_rng(dim)
+    shape = (B, N, H, dim) if layout == "bnhd" else (B, H, N, dim)
+    q, k, v, ct = (rng.standard_normal(shape).astype(np.float32) for _ in range(4))
+    bias = _inputs(layout)[4]
+
+    def f(q_, k_, v_):
+        out = jfa.flash_attention(q_, k_, v_, jnp.asarray(bias), layout=layout, interpret=True,
+                                  **_kw(rate, True))
+        return jnp.sum(out * ct), out
+
+    (_, want), grads = jax.value_and_grad(f, argnums=(0, 1, 2), has_aux=True)(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    xs = [_t(a).requires_grad_() for a in (q, k, v)]
+    out = fa.flash_attention(*xs, _t(bias), layout=layout, **_kw(rate))
+    (out * _t(ct)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want), atol=1e-5, rtol=0)
+    for name, x, w in zip("qkv", xs, grads):
+        np.testing.assert_allclose(x.grad.numpy(), np.asarray(w), atol=1e-5, rtol=0,
+                                   err_msg=f"d{name}")
+
+
 @pytest.mark.parametrize("layout", ["bnhd", "bhnd"])
 def test_split_fully_masked_row_is_finite(layout):
     q, k, v, ct, bias = _inputs(layout, seed=4)

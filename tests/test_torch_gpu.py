@@ -207,8 +207,8 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         fa.flash_attention_packed(torch.zeros(2, 8, 6 * 64, device=cuda,
                                               dtype=torch.bfloat16), 2, dropout_rate=0.1)
     with pytest.raises(ValueError, match="head dim"):
-        fa._kernel_bwd(torch.zeros(2, 8, 6 * 96, device=cuda, dtype=torch.bfloat16),
-                       torch.zeros(2, 8, 2 * 96, device=cuda, dtype=torch.bfloat16), 2, None)
+        fa._kernel_bwd(torch.zeros(2, 8, 6 * 160, device=cuda, dtype=torch.bfloat16),
+                       torch.zeros(2, 8, 2 * 160, device=cuda, dtype=torch.bfloat16), 2, None)
     with pytest.raises(TypeError):
         fa._kernel_bwd(torch.zeros(2, 8, 6 * 64, device=cuda, dtype=torch.bfloat16),
                        torch.zeros(2, 8, 2 * 64, device=cuda), 2, None)
@@ -579,9 +579,135 @@ def test_flash_attention_bwd_is_deterministic(cuda):
 
 
 def test_split_kernels_refuse_what_they_do_not_take(cuda):
-    z = torch.zeros(2, 8, 2, 96, device=cuda, dtype=torch.bfloat16)
+    z = torch.zeros(2, 8, 2, 160, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention(z, z, z, layout="bnhd")
     with pytest.raises(TypeError):
         fa.flash_attention(*(torch.zeros(2, 8, 2, 64, device=cuda) for _ in range(3)),
                            layout="bnhd")
+
+
+# ---------------------------------------------------------------------------
+# B3 and B5 on the tensor cores; head dims 32 to 128 (C4); any width for B1
+# (C5); batches past 65535 (C6)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("N", [1, 63, 64, 65, 200, 512])
+def test_flash_attention_fwd_kernels_over_tile_edges(cuda, N, D, rate):
+    """B3 within two bf16 steps (2e-2) of the plain version and B5
+    bit-equal to B3 in both layouts: N of one token, one short of, at and
+    one past a 64-token tile, the train length and the bound; padded keys
+    and a fully masked batch row 0."""
+    B, H = 2, 2
+    qkv, _, bias, kw = _bwd_case(cuda, B, N, H, D, rate)
+    got = fa.flash_attention_packed(qkv, H, bias, **kw)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(),
+                               fa.flash_attention_packed_reference(qkv, H, bias, **kw).float(),
+                               atol=2e-2, rtol=0)
+    for layout in ("bnhd", "bhnd"):
+        out = fa.flash_attention(*_split_from_packed(qkv, H, layout), bias, layout=layout, **kw)
+        assert torch.equal(_to_bnhd(out, layout).reshape(B, N, H * D), got), layout
+
+
+@pytest.mark.parametrize("layout", ["bnhd", "bhnd"])
+@pytest.mark.parametrize("N,D", [(1, 32), (65, 64), (200, 64), (13, 128), (200, 128)])
+def test_flash_attention_fwd_never_reads_past_token_n(cuda, N, D, layout):
+    """Split operands sliced [:N] along the token dim of NaN-filled buffers
+    64 tokens longer: a ragged tile that read past N would give NaN. The
+    output is finite and equal to that of contiguous copies bit for bit."""
+    B, H = 3, 2
+    qkv, _, bias, kw = _bwd_case(cuda, B, N, H, D, 0.1)
+    dense = [_to_bnhd(t, layout).contiguous() for t in _split_from_packed(qkv, H, "bnhd")]
+    padded = []
+    for t in dense:
+        tok = 1 if layout == "bnhd" else 2
+        shape = list(t.shape)
+        shape[tok] += 64
+        view = torch.full(shape, float("nan"), device=cuda, dtype=torch.bfloat16).narrow(tok, 0, N)
+        view.copy_(t)
+        padded.append(view)
+    got = fa.flash_attention(*padded, bias, layout=layout, **kw)
+    assert torch.isfinite(got.float()).all()
+    assert torch.equal(got, fa.flash_attention(*dense, bias, layout=layout, **kw))
+
+
+def test_flash_attention_fwd_is_deterministic(cuda):
+    """Every sum over keys is a loop inside one block: two calls of B3 and
+    of B5 on the same inputs give the same bits, at the train shape's H and
+    D with dropout."""
+    B, N, H, D = 4, 200, 12, 64
+    qkv, _, bias, kw = _bwd_case(cuda, B, N, H, D, 0.1)
+    assert torch.equal(fa.flash_attention_packed(qkv, H, bias, **kw),
+                       fa.flash_attention_packed(qkv, H, bias, **kw))
+    q, k, v = _split_from_packed(qkv, H, "bnhd")
+    assert torch.equal(fa.flash_attention(q, k, v, bias, layout="bnhd", **kw),
+                       fa.flash_attention(q, k, v, bias, layout="bnhd", **kw))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("D", [32, 96])
+def test_flash_attention_kernels_at_head_dims_32_and_96(cuda, D, rate):
+    """ROADMAP C4: head dim 32 runs natively, 96 through the wrappers' zero
+    pad to 128. B3 and B5 within two bf16 steps (2e-2) of the plain
+    versions, B6 and B7 per (batch row, head) slice within two bf16 steps;
+    B5 and B7 bit-equal to B3 and B6 in both layouts; N = 200, padded keys."""
+    B, N, H = 3, 200, 2
+    qkv, do, bias, kw = _bwd_case(cuda, B, N, H, D, rate)
+    out = fa.flash_attention_packed(qkv, H, bias, **kw)
+    torch.testing.assert_close(out.float(),
+                               fa.flash_attention_packed_reference(qkv, H, bias, **kw).float(),
+                               atol=2e-2, rtol=0)
+    dqkv = fa._kernel_bwd(qkv, do, H, bias, **kw)
+    assert dqkv.shape == qkv.shape
+    _assert_grad_slices(dqkv, fa.flash_attention_packed_bwd_reference(qkv, do, H, bias, **kw),
+                        "packed", H)
+    packed = dqkv.view(B, N, 3, H, D)
+    for layout in ("bnhd", "bhnd"):
+        q, k, v = _split_from_packed(qkv, H, layout)
+        dos = _to_bnhd(do.view(B, N, H, D), layout).contiguous()
+        split = fa.flash_attention(q, k, v, bias, layout=layout, **kw)
+        assert split.shape == q.shape
+        assert torch.equal(_to_bnhd(split, layout).reshape(B, N, H * D), out), layout
+        for i, g in enumerate(fa.flash_attention_bwd(q, k, v, dos, bias, layout=layout, **kw)):
+            assert g.shape == q.shape
+            assert torch.equal(_to_bnhd(g, layout), packed[:, :, i]), (layout, i)
+
+
+@pytest.mark.parametrize("C", [16, 200])
+@pytest.mark.parametrize("D", [64, 96, 100, 2048])
+def test_similarity_kernel_at_any_width(cuda, D, C):
+    """ROADMAP C5: B1 at widths it once refused (not in {128, 256, 512, 768,
+    1024}; not a multiple of 32) and C = 200 prompts (over the old 200 KB
+    text block at D = 2048): fp32 within 1e-5, a zero row gives 0."""
+    g = torch.Generator(cuda).manual_seed(D + C)
+    img = torch.randn(37, D, device=cuda, generator=g)
+    img[0] = 0.0
+    txt = torch.randn(C, D, device=cuda, generator=g)
+    got = sim.similarity(img, txt, 0.5)
+    torch.testing.assert_close(got, sim.similarity_reference(img, txt, 0.5), atol=1e-5, rtol=0)
+    assert torch.all(got[0] == 0.0)
+
+
+def test_kernels_take_a_batch_of_65537(cuda):
+    """ROADMAP C6: B2 and B3/B6 at a batch past the 65535 of gridDim.y and
+    gridDim.z, at a small image and N. B2 folds (image, output row) into
+    gridDim.x; B3 and B6 launch batch chunks of at most 65535 rows on their
+    3-D grid (gridDim.z)."""
+    B = 65537
+    g = torch.Generator(cuda).manual_seed(6)
+    imgs = torch.randint(0, 256, (B, 12, 10, 1), device=cuda, generator=g, dtype=torch.uint8)
+    got = prep.preprocess_images(imgs, 8, 8, CLIP_MEAN, CLIP_STD)
+    torch.testing.assert_close(got.float(), prep.preprocess_reference(
+        imgs, 8, 8, CLIP_MEAN, CLIP_STD).float(), atol=1.6e-2, rtol=0)
+    N, H, D = 5, 2, 32
+    qkv, do, bias, kw = _bwd_case(cuda, B, N, H, D, 0.1)
+    torch.testing.assert_close(fa.flash_attention_packed(qkv, H, bias, **kw).float(),
+                               fa.flash_attention_packed_reference(qkv, H, bias, **kw).float(),
+                               atol=2e-2, rtol=0)
+    _assert_grad_slices(fa._kernel_bwd(qkv, do, H, bias, **kw),
+                        fa.flash_attention_packed_bwd_reference(qkv, do, H, bias, **kw),
+                        "packed", H)

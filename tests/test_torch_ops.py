@@ -57,6 +57,22 @@ def test_similarity_matches_jax_reference_and_interpreted_kernel():
     assert np.all(got[3] == 0.0)
 
 
+@pytest.mark.parametrize("C,D", [(200, 64), (16, 96), (3, 1000)])
+def test_similarity_at_any_width_matches_interpreted_kernel(C, D):
+    """Widths and prompt counts the kernel once refused (D outside {128,
+    256, 512, 768, 1024}, a text block over 200 KB), which the JAX kernel
+    pads to its tiles: 1e-6 absolute on logits of magnitude ≤ 1/T = 2."""
+    rng = np.random.default_rng(C + D)
+    img = rng.standard_normal((9, D)).astype(np.float32)
+    txt = rng.standard_normal((C, D)).astype(np.float32)
+    img[2] = 0.0
+    got = sim.similarity(_t(img), _t(txt), 0.5).numpy()
+    ker = np.asarray(jsim.fused_similarity(
+        jnp.asarray(img), jnp.asarray(txt), 0.5, interpret=True))
+    assert got.shape == (9, C)
+    np.testing.assert_allclose(got, ker, atol=1e-6, rtol=0)
+
+
 def test_l2_normalize_matches_jax():
     x = np.random.default_rng(1).standard_normal((5, 64)).astype(np.float32)
     np.testing.assert_allclose(
@@ -133,6 +149,76 @@ def test_flash_attention_packed_matches_interpreted_kernel():
         jnp.asarray(qkv), H, jnp.asarray(bias), interpret=True))
     assert got.shape == (2, 13, 32)
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("D", [32, 96])
+def test_flash_attention_packed_at_head_dims_32_and_96(D, rate):
+    """A built head dim (32) and a padded one (96): the packed forward and
+    its gradient against the interpreted JAX kernel and its custom VJP,
+    fp32, padded keys, N = 13: 1e-5 absolute."""
+    rng = np.random.default_rng(D)
+    B, N, H = 2, 13, 2
+    qkv = rng.standard_normal((B, N, 3 * H * D)).astype(np.float32)
+    ct = rng.standard_normal((B, N, H * D)).astype(np.float32)
+    bias = _qkv_case(4)[1]
+    seeds = np.array([[3], [-8]], np.int32)
+    kw = dict(dropout_rate=rate, dropout_seeds=_t(seeds)) if rate else {}
+    jkw = dict(dropout_rate=rate, dropout_seeds=jnp.asarray(seeds)) if rate else {}
+    x = _t(qkv).requires_grad_()
+    out = fa.flash_attention_packed(x, H, _t(bias), **kw)
+    (out * _t(ct)).sum().backward()
+
+    def f(q_):
+        o = jfa.flash_attention_packed(q_, H, jnp.asarray(bias), interpret=True, **jkw)
+        return jnp.sum(o * ct), o
+
+    (_, want), grad = jax.value_and_grad(f, has_aux=True)(jnp.asarray(qkv))
+    assert out.shape == (B, N, H * D)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(grad), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("D,width", [(20, 32), (96, 128), (33, 64)])
+def test_padded_head_dim_route_is_the_plain_version_bit_for_bit(D, width, rate):
+    """The kernel wrappers' route for a head dim that is not built: zero-pad
+    each head to the built width, run at the scale of the original D, slice.
+    With the plain versions in place of the kernels it gives the unpadded
+    plain versions' forward and backward bit for bit in fp32 (zero columns
+    add exact zeros to q·kᵀ and give zero output columns)."""
+    rng = np.random.default_rng(D)
+    B, N, H = 2, 13, 3
+    assert fa._kernel_dim(D) == width
+    qkv = _t(rng.standard_normal((B, N, 3 * H * D)).astype(np.float32))
+    do = _t(rng.standard_normal((B, N, H * D)).astype(np.float32))
+    bias = _t(_qkv_case(4)[1])
+    kw = dict(dropout_rate=rate, dropout_seeds=_t(np.array([[3], [-8]], np.int32))) if rate else {}
+    scale = 1.0 / D ** 0.5
+    padded = fa._pad_heads(qkv, D, width)
+    assert padded.shape == (B, N, 3 * H * width)
+    fwd = fa._unpad_heads(fa.flash_attention_packed_reference(padded, H, bias, scale=scale, **kw),
+                          D, width)
+    bwd = fa._unpad_heads(fa.flash_attention_packed_bwd_reference(
+        padded, fa._pad_heads(do, D, width), H, bias, scale=scale, **kw), D, width)
+    assert torch.equal(fwd, fa.flash_attention_packed_reference(qkv, H, bias, **kw))
+    assert torch.equal(bwd, fa.flash_attention_packed_bwd_reference(qkv, do, H, bias, **kw))
+    # a split "bnhd" operand: its last dim is one head
+    q, k, v = qkv.view(B, N, 3, H, D).unbind(2)
+    pq, pk, pv = (fa._pad_heads(t, D, width) for t in (q, k, v))
+    assert pq.shape == (B, N, H, width) and pq.is_contiguous()
+    split = fa._unpad_heads(fa.flash_attention_reference(
+        *(t.transpose(1, 2) for t in (pq, pk, pv)), bias, scale=scale, **kw).transpose(1, 2),
+        D, width)
+    assert torch.equal(split, fa.flash_attention_reference(
+        *(t.transpose(1, 2) for t in (q, k, v)), bias, **kw).transpose(1, 2))
+
+
+def test_kernels_refuse_head_dims_over_128_before_the_card():
+    """D > 128 has no built width to pad to."""
+    with pytest.raises(ValueError, match="head dim 160"):
+        fa._kernel_dim(160)
+    assert [fa._kernel_dim(d) for d in (1, 32, 33, 64, 65, 128)] == [32, 32, 64, 64, 128, 128]
 
 
 def test_flash_attention_fully_masked_row_is_finite():
