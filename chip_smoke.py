@@ -12,8 +12,9 @@ Phases (any failure exits non-zero and prints no result line):
    nvcc for sm_90a, one nvcc per source, all at once; print the build time,
    ptxas' per-kernel summary and, from cuobjdump's SASS of the library, the
    tensor-core instructions (HMMA, HGMMA) of each attention kernel (the
-   forward, and the backward's rows and columns pass, at D = 32, 64 and 128;
-   fails if one has none).
+   forward, and the backward's rows and columns pass, at D = 32, 64 and 128
+   and in the sliced form over 128; fails if one has none) and the HGMMA of
+   B8's two kernels (fails if either has none).
 2. Kernels: each of B1-B9 against its plain PyTorch version on the card at
    the main paths' shapes (B3 also with dropout 0.1 at the train shape, its
    dropout mask compared bit for bit, and at the ViT shape; B6 at rates 0
@@ -27,7 +28,11 @@ Phases (any failure exits non-zero and prints no result line):
    "bhnd" bit-equal; the layout_probe path); then the limits ROADMAP C4-C6
    lifted: B3/B5/B6/B7 at head dim 32 (built) and 96 (zero-padded to 128)
    against their plain versions (B5/B7 bit-equal to B3/B6), B1 at D = 64
-   and 96 with C = 200 prompts, and B2, B3 and B6 at a batch of 65537.
+   and 96 with C = 200 prompts, and B2, B3 and B6 at a batch of 65537; and
+   head dims over 128 (C4 closed): B3/B5/B6/B7 at D = 160, 256 and 320,
+   rates 0 and 0.1, B5/B7 bit-equal to B3/B6, the dropout masks bit for
+   bit. B8 is also timed beside its three products alone in cuBLAS (a
+   yardstick the port never calls) and held at H = 1280 and 192.
    Max abs/rel difference against
    the tolerance below (B6 and B7 per (batch row, head) slice of each
    gradient), both times the median of five CUDA-event timings after
@@ -303,6 +308,27 @@ def sdpa_ms(q, k, v, bias, do=None) -> float:
     print(f"  F.scaled_dot_product_attention{' backward' if do is not None else ''} at "
           f"{tuple(q.shape)}, rate 0 ({backend}): {ms:.4f} ms")
     return ms
+
+
+def kernel_device_ms(fn, names, calls: int = 5) -> dict:
+    """Device ms a call of ``fn`` spent in the kernels whose names contain
+    each of ``names`` (torch.profiler over ``calls`` calls after one), as
+    strings; "not measured" where the profiler recorded no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    totals = dict.fromkeys(names, 0.0)
+    for avg in prof.key_averages():
+        for name in names:
+            if name in avg.key:
+                totals[name] += getattr(avg, "device_time_total", 0.0)
+    return {k: f"{v / 1e3 / calls:.4f}" if v > 0 else "not measured" for k, v in totals.items()}
 
 
 def heads_of(qkv, H: int):
@@ -582,6 +608,16 @@ def phase2_train(mods, dev, seed: int, results: dict) -> None:
     results["mlp_bwd"]["ms"] = cuda_ms(lambda: mlp._kernel_bwd(x, w1, b1, w2, dy), iters=5)
     results["mlp_bwd"]["plain_ms"] = cuda_ms(
         lambda: mlp.dense_gelu_dense_bwd_reference(x, w1, b1, w2, dy), iters=5)
+    dh = mlp._kernel_bwd(x, w1, b1, w2, dy)[2]
+    products = cuda_ms(lambda: (torch.matmul(x, w1.T), torch.matmul(dy, w2),
+                                torch.matmul(dh, w1)), iters=5)
+    print(f"  yardstick, never called by the port: B8's three products alone in cuBLAS "
+          f"(torch.matmul, bf16: x·W1ᵀ, dy·W2, dh·W1) {products:.4f} ms")
+    del dh
+    split = kernel_device_ms(lambda: mlp._kernel_bwd(x, w1, b1, w2, dy),
+                             ("mlp_bwd_gelu_kernel", "mlp_bwd_dx_kernel"))
+    print("  B8's two kernels, device ms a call (torch.profiler): "
+          + ", ".join(f"{k} {v}" for k, v in split.items()))
     for name in ("flash_attention_bwd", "mlp_bwd"):
         r = results[name]
         print(f"  {name}: kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms")
@@ -645,13 +681,28 @@ def phase2_repairs(mods, dev, seed: int, results: dict) -> None:
     extra_times("C3: B8 at hidden 256", lambda: mlp._kernel_bwd(x, w1, b1, w2, dy),
                 lambda: mlp.dense_gelu_dense_bwd_reference(x, w1, b1, w2, dy), 6 * R * HID * F,
                 (x, w1, b1, w2, dy) + tuple(mlp._kernel_bwd(x, w1, b1, w2, dy)))
+    for HID, F in ((1280, 5120), (192, 768)):
+        print(f"B8 past the old width bounds: x, dy [{R}, {HID}] bf16, F = {F}")
+        x = torch.randn(R, HID, device=dev, generator=g).bfloat16()
+        dy = (torch.randn(R, HID, device=dev, generator=g) * 0.1).bfloat16()
+        w1 = (torch.randn(F, HID, device=dev, generator=g) * HID ** -0.5).bfloat16()
+        b1 = (torch.randn(F, device=dev, generator=g) * 0.02).bfloat16()
+        w2 = (torch.randn(HID, F, device=dev, generator=g) * F ** -0.5).bfloat16()
+        got = mlp._kernel_bwd(x, w1, b1, w2, dy)
+        for a_, b_ in zip(got, mlp.dense_gelu_dense_bwd_reference(x, w1, b1, w2, dy)):
+            compare("mlp_bwd", a_, b_, TOL["bwd_rel"] * float(b_.float().abs().max()), results)
+        extra_times(f"B8 at hidden {HID}, F = {F}", lambda: mlp._kernel_bwd(x, w1, b1, w2, dy),
+                    lambda: mlp.dense_gelu_dense_bwd_reference(x, w1, b1, w2, dy),
+                    6 * R * HID * F, (x, w1, b1, w2, dy) + tuple(got))
+        del got
 
 
 def phase2_limits(mods, dev, seed: int, results: dict) -> None:
-    """The limits ROADMAP C4-C6 lifted: head dims 32 and 96 in B3/B5/B6/B7
-    (held to the plain versions, B5/B7 bit-equal to B3/B6 in both layouts,
-    timed beside SDPA at H·D = 768), B1 at any width with 200 prompts, and
-    a batch of 65537 through B2, B3 and B6."""
+    """The limits ROADMAP C4-C6 lifted: head dims 32, 96, 160, 256 and 320
+    in B3/B5/B6/B7 (held to the plain versions, B5/B7 bit-equal to B3/B6 in
+    both layouts, over 128 the dropout masks bit for bit, timed beside
+    SDPA), B1 at any width with 200 prompts, and a batch of 65537 through
+    B2, B3 and B6."""
     import torch
 
     fa, sim, prep = mods["flash_attention"], mods["similarity"], mods["image_prep"]
@@ -665,8 +716,9 @@ def phase2_limits(mods, dev, seed: int, results: dict) -> None:
         return qkv, do, bias, dict(dropout_rate=0.1, dropout_seeds=fa.dropout_seeds(g, B, dev))
 
     B, N = TRAIN_BATCH, TRAIN_LEN
-    for D, how in ((32, "built"), (96, "zero-padded to 128 by the wrappers")):
-        H = 768 // D
+    for D, H, how in ((32, 24, "built"), (96, 8, "zero-padded to 128 by the wrappers"),
+                      (160, 8, "zero-padded to 192, in 64-column slices"),
+                      (256, 6, "in 64-column slices"), (320, 6, "in 64-column slices")):
         print(f"C4: B3/B5/B6/B7 at head dim {D} ({how}): (B, N, H, D) = {(B, N, H, D)}, "
               "padded keys, rates 0 and 0.1")
         qkv, do, bias, drop = inputs(B, N, H, D)
@@ -694,6 +746,19 @@ def phase2_limits(mods, dev, seed: int, results: dict) -> None:
                     check(torch.equal(as_bnhd(a_, layout), dqkv.view(B, N, 3, H, D)[:, :, i]),
                           f"B7 ({layout}) differs from B6 at D = {D}")
         print(f"  B5 and B7 bit-equal to B3 and B6 at D = {D}, both layouts, rates 0 and 0.1")
+        if D > 128:  # every slice draws the same mask
+            pq, pdo, pbias = dropout_probe(B, N, H, D, dev)
+            want = fa.flash_attention_packed_reference(pq, H, pbias, **drop)
+            check(torch.equal(fa.flash_attention_packed(pq, H, pbias, **drop) != 0, want != 0),
+                  f"B3 dropout mask at D = {D} differs from the plain version's")
+            gdv = fa._kernel_bwd(pq, pdo, H, pbias, **drop).view(B, N, 3, H, D)[:, :, 2]
+            wdv = fa.flash_attention_packed_bwd_reference(pq, pdo, H, pbias, **drop).view(
+                B, N, 3, H, D)[:, :, 2]
+            check(torch.equal(gdv != 0, wdv != 0),
+                  f"B6 dropout mask at D = {D} differs from the plain version's")
+            print(f"  dropout masks at D = {D} equal bit for bit in B3's output and B6's dv; "
+                  f"kept share {float((want != 0).sum()) / (int((pbias == 0).sum()) * N * H):.4f}")
+            del pq, pdo, want, gdv, wdv
         heads = heads_of(qkv, H)
         extra_times(f"C4: B3 at D = {D}, rate 0.1",
                     lambda: fa.flash_attention_packed(qkv, H, bias, **drop),
@@ -1025,8 +1090,8 @@ def serve_phase(_build, mods, dev, seed: int, batch: int, n_batches: int, card: 
 
 
 def tensor_core_counts(_build) -> dict:
-    """Kernel (mangled name) -> its HMMA and HGMMA instructions in the built
-    library's SASS, from the cuobjdump beside nvcc."""
+    """Kernel (mangled name) -> [its HMMA, its HGMMA instructions] in the
+    built library's SASS, from the cuobjdump beside nvcc."""
     tool = Path(_build._nvcc()).parent / "cuobjdump"
     out = subprocess.run([str(tool), "-sass", _build.build_info["path"]], capture_output=True,
                          text=True, timeout=300)
@@ -1035,9 +1100,10 @@ def tensor_core_counts(_build) -> dict:
     for line in out.stdout.splitlines():
         if "Function :" in line:
             name = line.split("Function :", 1)[1].strip()
-            counts[name] = 0
-        elif name is not None and ("HMMA" in line or "HGMMA" in line):
-            counts[name] += 1
+            counts[name] = [0, 0]
+        elif name is not None:
+            counts[name][0] += "HMMA" in line
+            counts[name][1] += "HGMMA" in line
     return counts
 
 
@@ -1426,9 +1492,20 @@ def main(argv=None) -> int:
     counts = tensor_core_counts(_build)
     for kernel in ("flash_fwd_kernel", "flash_bwd_rows_kernel", "flash_bwd_cols_kernel"):
         for d in (32, 64, 128):
-            n = sum(c for name, c in counts.items() if kernel in name and f"ILi{d}E" in name)
+            n = sum(c[0] + c[1] for name, c in counts.items()
+                    if kernel in name and f"ILi{d}E" in name)
             print(f"tensor-core instructions (HMMA/HGMMA) in {kernel}<{d}>: {n}")
             check(n > 0, f"{kernel}<{d}> has no tensor-core instruction")
+    for kernel in ("flash_fwd_sliced_kernel", "flash_bwd_rows_sliced_kernel",
+                   "flash_bwd_cols_sliced_kernel"):
+        n = sum(c[0] + c[1] for name, c in counts.items() if kernel in name)
+        print(f"tensor-core instructions (HMMA/HGMMA) in {kernel}: {n}")
+        check(n > 0, f"{kernel} has no tensor-core instruction")
+    for kernel in ("mlp_bwd_gelu_kernel", "mlp_bwd_dx_kernel"):
+        hmma, hgmma = (sum(c[i] for name, c in counts.items() if kernel in name)
+                       for i in (0, 1))
+        print(f"B8 {kernel}: HGMMA {hgmma}, HMMA {hmma}")
+        check(hgmma > 0, f"{kernel} has no HGMMA instruction")
 
     results: dict = {}
     phase2(mods, dev, args.seed, BATCH, results)

@@ -73,6 +73,20 @@
 // stale row would give 0 * NaN = NaN in the products. The registers of a
 // thread stay within 255 at D = 128 because the columns pass takes 32 query
 // rows a tile there (dk and dv are 128 fp32 accumulators a thread).
+//
+// Head dims over 128 (any multiple of 64; the wrapper zero-pads others) run
+// the same two passes in slices (flash_bwd_rows_sliced_kernel,
+// flash_bwd_cols_sliced_kernel), as the forward does: each block writes one
+// 64-column slice of its gradients (dq; dk and dv), the slice index folded
+// into gridDim.y beside the head, and S and dP are summed over 64-column
+// chunks of the head dim streamed through the ring, the slice's K (rows
+// pass) or Q and dO (columns pass) riding with a tile's last chunk. Shared
+// memory (86 and 98 KB) and registers are the same at every such D. Every
+// slice recomputes s, p and dp (D / 64 times the work of those products;
+// no preset reaches D > 128). The slices of a head run the same
+// instructions on the same data, so their statistics agree bit for bit;
+// slice 0 alone writes them, and the columns pass reads a buffer with one
+// writer.
 #include <math_constants.h>
 
 #include "mma_tiles.cuh"
@@ -121,6 +135,140 @@ __host__ __device__ constexpr size_t cols_smem_bytes() {
   return (size_t)2 * tile_bytes<D>(kBlock) + 2 * cols_stage_bytes<D>();  // K, V; 2 stages
 }
 
+// ---- the tile bodies, shared by the kernels of every head dim -------------
+
+constexpr int NT = kKeyTile / 8;  // n8 tiles of a rows-pass key tile
+
+// sweep 1's row statistics, at the start of sweep 2: delta = sum / l, then
+// l becomes 1 / l
+__device__ __forceinline__ void finish_sweep1(float (&m)[2], float (&l)[2], const float (&pdp)[2],
+                                              float (&delta)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float lr = quad_sum(l[r]);
+    delta[r] = quad_sum(pdp[r]) / lr;
+    l[r] = 1.f / lr;
+    if (m[r] == -CUDART_INF_F) m[r] = 0.f;  // no finite score: exp(s - m) is 0, not NaN
+  }
+}
+
+// A rows-pass key tile's work once s and dp (the warp's 16 x 64 of Q K^T
+// and dO V^T over keys j0..) are whole: the dropout mask of the thread's 32
+// scores (hashed in sweep 1 and kept in ``keep_word`` for sweep 2) applied
+// to dp, s scaled, biased and masked past N; then sweep 1 moves the online
+// m, l and sum exp(s - m) dp, and sweep 2 forms ds = p (dp - delta) and adds
+// bf16(ds) K into dq, K the tile at kt.
+template <int D>
+__device__ __forceinline__ void rows_key_tile(float (&s)[NT][4], float (&dp)[NT][4], bool sweep2,
+                                              int j0, int N, float scale, const float* s_bias,
+                                              uint32_t* keep_word, float (&m)[2], float (&l)[2],
+                                              float (&pdp)[2], const float (&delta)[2],
+                                              bool drop, uint32_t salt, const int (&rows)[2],
+                                              float rate, float inv_keep,
+                                              float (&dqa)[D / 8][4], uint32_t kt) {
+  static_assert(NT * 4 == 32, "a thread's scores of a key tile fill one word of keep bits");
+  const int qd = threadIdx.x & 3;
+  uint32_t keep = 0;
+  if (drop) {
+    if (!sweep2) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = j0 + 8 * n + 2 * qd + (e & 1);
+          keep |= uint32_t(cxr::uniform01(salt, rows[e >> 1], j) >= rate) << (4 * n + e);
+        }
+      *keep_word = keep;
+    } else {
+      keep = *keep_word;
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = j0 + 8 * n + 2 * qd + (e & 1);
+      s[n][e] = j < N ? fmaf(s[n][e], scale, s_bias[j]) : -CUDART_INF_F;
+      if (drop) dp[n][e] = (keep >> (4 * n + e)) & 1u ? dp[n][e] * inv_keep : 0.f;
+    }
+  }
+  if (!sweep2) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mt = m[r];
+#pragma unroll
+      for (int n = 0; n < NT; ++n) mt = fmaxf(mt, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+      mt = quad_max(mt);
+      const float mu = mt == -CUDART_INF_F ? 0.f : mt;
+      const float corr = expf(m[r] - mu);
+      l[r] *= corr;
+      pdp[r] *= corr;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+#pragma unroll
+        for (int e = 2 * r; e < 2 * r + 2; ++e) {
+          const float x = expf(s[n][e] - mu);
+          l[r] += x;
+          pdp[r] = fmaf(x, dp[n][e], pdp[r]);
+        }
+      }
+      m[r] = mt;
+    }
+  } else {
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const float p = expf(s[n][e] - m[r]) * l[r];
+        s[n][e] = p * (dp[n][e] - delta[r]);  // ds, rounded to bf16 by to_a
+      }
+    }
+    uint32_t ds[NT / 2][4];
+    to_a<NT / 2>(s, ds);
+    product_ab<D, NT / 2>(dqa, ds, kt);
+  }
+}
+
+// A columns-pass query tile's work once s and dp (the warp's 16 x 8 QN of
+// K Q^T and V dO^T over query rows i0..) are whole: p from the rows pass's
+// m, 1/l and delta of those rows (sm, sl, sd), zero on rows past N, the
+// dropout mask hashed at (row, key); then dv += bf16(pd)^T dO and
+// dk += bf16(ds)^T Q, Q and dO the tiles at qt and ot.
+template <int D, int QN>
+__device__ __forceinline__ void cols_query_tile(float (&s)[QN][4], float (&dp)[QN][4], int i0,
+                                                int N, float scale, const float (&kbias)[2],
+                                                const float* sm, const float* sl,
+                                                const float* sd, bool drop, uint32_t salt,
+                                                const int (&keys)[2], float rate,
+                                                float inv_keep, float (&dka)[D / 8][4],
+                                                float (&dva)[D / 8][4], uint32_t qt,
+                                                uint32_t ot) {
+  const int qd = threadIdx.x & 3;
+#pragma unroll
+  for (int n = 0; n < QN; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = 8 * n + 2 * qd + (e & 1), i = i0 + c;
+      const float x = expf(fmaf(s[n][e], scale, kbias[e >> 1]) - sm[c]) * sl[c];
+      const float p = i < N ? x : 0.f;
+      float d = dp[n][e], pd = p;
+      if (drop) {
+        const bool keep = cxr::uniform01(salt, i, keys[e >> 1]) >= rate;
+        pd = keep ? p * inv_keep : 0.f;
+        d = keep ? d * inv_keep : 0.f;
+      }
+      s[n][e] = pd;
+      dp[n][e] = p * (d - sd[c]);  // ds
+    }
+  }
+  uint32_t a[QN / 2][4];
+  to_a<QN / 2>(s, a);
+  product_ab<D, QN / 2>(dva, a, ot);
+  to_a<QN / 2>(dp, a);
+  product_ab<D, QN / 2>(dka, a, qt);
+}
+
 // ---- pass 1: dq and the row statistics ------------------------------------
 
 template <int D>
@@ -132,8 +280,6 @@ flash_bwd_rows_kernel(const uint32_t* __restrict__ q, HeadStrides sq,
                       const float* __restrict__ bias, const int* __restrict__ seeds,
                       uint32_t* __restrict__ dq, HeadStrides sdq, float* __restrict__ stats,
                       int B, int N, int H, float scale, float rate, float inv_keep) {
-  constexpr int NT = kKeyTile / 8;  // n8 tiles of a key tile
-  static_assert(NT * 4 == 32, "a thread's scores of a key tile fill one word of keep bits");
   constexpr int TILE = tile_bytes<D>(kBlock);
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t sbase = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
@@ -182,83 +328,14 @@ flash_bwd_rows_kernel(const uint32_t* __restrict__ q, HeadStrides sq,
     __syncthreads();
     const uint32_t kt = s_kv + (t & 1) * 2 * TILE, vt = kt + TILE;
     const int j0 = (t % nkt) * kKeyTile;
-    const bool sweep2 = t >= nkt;
-    if (t == nkt) {  // the row statistics of sweep 1
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const float lr = quad_sum(l[r]);
-        delta[r] = quad_sum(pdp[r]) / lr;
-        l[r] = 1.f / lr;
-        if (m[r] == -CUDART_INF_F) m[r] = 0.f;  // no finite score: exp(s - m) is 0, not NaN
-      }
-    }
+    if (t == nkt) finish_sweep1(m, l, pdp, delta);
     if (active) {
       float s[NT][4], dp[NT][4];
       product_abt<D, NT>(s, s_q, r0, kt);
       product_abt<D, NT>(dp, s_do, r0, vt);
-      // the dropout mask of the thread's 32 scores: hashed in sweep 1, kept
-      // in one word of shared memory for sweep 2
-      uint32_t keep = 0;
-      if (drop) {
-        uint32_t* word = s_keep + (t % nkt) * kThreads + threadIdx.x;
-        if (!sweep2) {
-#pragma unroll
-          for (int n = 0; n < NT; ++n)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int j = j0 + 8 * n + 2 * qd + (e & 1);
-              keep |= uint32_t(cxr::uniform01(salt, rows[e >> 1], j) >= rate) << (4 * n + e);
-            }
-          *word = keep;
-        } else {
-          keep = *word;
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int j = j0 + 8 * n + 2 * qd + (e & 1);
-          s[n][e] = j < N ? fmaf(s[n][e], scale, s_bias[j]) : -CUDART_INF_F;
-          if (drop) dp[n][e] = (keep >> (4 * n + e)) & 1u ? dp[n][e] * inv_keep : 0.f;
-        }
-      }
-      if (!sweep2) {
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          float mt = m[r];
-#pragma unroll
-          for (int n = 0; n < NT; ++n) mt = fmaxf(mt, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
-          mt = quad_max(mt);
-          const float mu = mt == -CUDART_INF_F ? 0.f : mt;
-          const float corr = expf(m[r] - mu);
-          l[r] *= corr;
-          pdp[r] *= corr;
-#pragma unroll
-          for (int n = 0; n < NT; ++n) {
-#pragma unroll
-            for (int e = 2 * r; e < 2 * r + 2; ++e) {
-              const float x = expf(s[n][e] - mu);
-              l[r] += x;
-              pdp[r] = fmaf(x, dp[n][e], pdp[r]);
-            }
-          }
-          m[r] = mt;
-        }
-      } else {
-#pragma unroll
-        for (int n = 0; n < NT; ++n) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int r = e >> 1;
-            const float p = expf(s[n][e] - m[r]) * l[r];
-            s[n][e] = p * (dp[n][e] - delta[r]);  // ds, rounded to bf16 by to_a
-          }
-        }
-        uint32_t ds[NT / 2][4];
-        to_a<NT / 2>(s, ds);
-        product_ab<D, NT / 2>(dqa, ds, kt);
-      }
+      rows_key_tile<D>(s, dp, t >= nkt, j0, N, scale, s_bias,
+                       s_keep + (t % nkt) * kThreads + threadIdx.x, m, l, pdp, delta, drop, salt,
+                       rows, rate, inv_keep, dqa, kt);
     }
     __syncthreads();  // the next iteration's copy overwrites this stage
   }
@@ -301,7 +378,7 @@ flash_bwd_cols_kernel(const uint32_t* __restrict__ q, HeadStrides sq,
   // stage st: Q at s_stage + st STAGE, dO after it, then m, 1/l and delta of QT rows
 
   const int b = blockIdx.z, h = blockIdx.y, col0 = blockIdx.x * kBlock;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, qd = lane & 3;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2;
   const int r0 = 16 * warp;
   const uint32_t* qb = q + b * sq.b + h * sq.h;
   const uint32_t* kb = k + b * sk.b + h * sk.h;
@@ -353,28 +430,8 @@ flash_bwd_cols_kernel(const uint32_t* __restrict__ q, HeadStrides sq,
       float s[NT][4], dp[NT][4];
       product_abt<D, NT>(s, s_k, r0, qt);   // S^T: rows the warp's keys, columns query rows
       product_abt<D, NT>(dp, s_v, r0, ot);  // dP^T
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = 8 * n + 2 * qd + (e & 1), i = i0 + c;
-          const float x = expf(fmaf(s[n][e], scale, kbias[e >> 1]) - sm[c]) * sl[c];
-          const float p = i < N ? x : 0.f;
-          float d = dp[n][e], pd = p;
-          if (drop) {
-            const bool keep = cxr::uniform01(salt, i, keys[e >> 1]) >= rate;
-            pd = keep ? p * inv_keep : 0.f;
-            d = keep ? d * inv_keep : 0.f;
-          }
-          s[n][e] = pd;
-          dp[n][e] = p * (d - sd[c]);  // ds
-        }
-      }
-      uint32_t a[NT / 2][4];
-      to_a<NT / 2>(s, a);
-      product_ab<D, NT / 2>(dva, a, ot);
-      to_a<NT / 2>(dp, a);
-      product_ab<D, NT / 2>(dka, a, qt);
+      cols_query_tile<D>(s, dp, i0, N, scale, kbias, sm, sl, sd, drop, salt, keys, rate,
+                         inv_keep, dka, dva, qt, ot);
     }
     __syncthreads();  // the next iteration's copy overwrites this stage
   }
@@ -384,6 +441,201 @@ flash_bwd_cols_kernel(const uint32_t* __restrict__ q, HeadStrides sq,
                   col0 + r0, N);
     store_rows<D>(dva, 1.f, smem, s_v - sbase, r0, dv + b * sdv.b + h * sdv.h, sdv.n,
                   col0 + r0, N);
+  }
+}
+
+// ---- head dims over 128 ------------------------------------------------------
+
+constexpr int kC = cxr::kSlice;  // columns of a chunk of the head dim, and of a slice
+constexpr int kSlicedQT = 64;   // query rows of a sliced columns-pass tile
+constexpr int kTile = tile_bytes<kC>(kBlock);
+static_assert(kKeyTile == kBlock && kSlicedQT == kBlock, "every chunk is a tile of one size");
+
+// 2 stages x (Q, dO, K, V chunks; K's slice); key bias; keep bits
+constexpr size_t kRowsSlicedSmem = (size_t)10 * kTile + kMaxN * 4 + kKeepBytes;
+// a stage: K, V, Q, dO chunks; Q's and dO's slices; m, 1/l, delta
+constexpr int kColsSlicedStage = 6 * kTile + 3 * kSlicedQT * 4;
+constexpr size_t kColsSlicedSmem = (size_t)2 * kColsSlicedStage;
+
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_rows_sliced_kernel(const uint32_t* __restrict__ q, HeadStrides sq,
+                             const uint32_t* __restrict__ k, HeadStrides sk,
+                             const uint32_t* __restrict__ v, HeadStrides sv,
+                             const uint32_t* __restrict__ dout, HeadStrides sdo,
+                             const float* __restrict__ bias, const int* __restrict__ seeds,
+                             uint32_t* __restrict__ dq, HeadStrides sdq,
+                             float* __restrict__ stats, int B, int N, int H, int nc, float scale,
+                             float rate, float inv_keep) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t sbase = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  // stage st at sbase + 5 st kTile: Q, dO, K and V chunks, then K's slice
+  float* s_bias = reinterpret_cast<float*>(smem + 10 * kTile);
+  uint32_t* s_keep = reinterpret_cast<uint32_t*>(s_bias + kMaxN);
+
+  const int b = blockIdx.z, h = blockIdx.y / nc, sl = blockIdx.y % nc;
+  const int row0 = blockIdx.x * kBlock;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, qd = lane & 3;
+  const int r0 = 16 * warp;
+  const uint32_t* qb = q + b * sq.b + h * sq.h;
+  const uint32_t* kb = k + b * sk.b + h * sk.h;
+  const uint32_t* vb = v + b * sv.b + h * sv.h;
+  const uint32_t* ob = dout + b * sdo.b + h * sdo.h;
+  const size_t plane = (size_t)B * H * N;
+  float* st = stats + ((size_t)b * H + h) * N;
+
+  // step i: chunk i % nc of key tile (i / nc) % nkt, in sweep 1 (i / nc < nkt) or 2
+  const int nkt = (N + kKeyTile - 1) / kKeyTile, steps = 2 * nkt * nc;
+  auto load_step = [&](int i) {
+    const uint32_t at = sbase + (i & 1) * 5 * kTile;
+    const int t = i / nc, c = i % nc, j0 = (t % nkt) * kKeyTile;
+    load_tile<kC, kBlock>(at, qb + c * kC / 2, sq.n, row0, N);
+    load_tile<kC, kBlock>(at + kTile, ob + c * kC / 2, sdo.n, row0, N);
+    load_tile<kC, kKeyTile>(at + 2 * kTile, kb + c * kC / 2, sk.n, j0, N);
+    load_tile<kC, kKeyTile>(at + 3 * kTile, vb + c * kC / 2, sv.n, j0, N);
+    if (t >= nkt && c == nc - 1)
+      load_tile<kC, kKeyTile>(at + 4 * kTile, kb + sl * kC / 2, sk.n, j0, N);
+  };
+  load_step(0);
+  cp_async_commit();
+  for (int j = threadIdx.x; j < N; j += kThreads) s_bias[j] = bias[(size_t)b * N + j];
+
+  const bool drop = rate > 0.f;
+  const uint32_t salt = cxr::dropout_salt(seeds[b], h);
+  const bool active = row0 + r0 < N;
+  const int rows[2] = {row0 + r0 + g, row0 + r0 + g + 8};
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f}, pdp[2] = {0.f, 0.f};
+  float delta[2] = {0.f, 0.f};
+  float dqa[kC / 8][4], s[NT][4], dp[NT][4];
+  cxr::zero(dqa);
+
+  for (int i = 0; i < steps; ++i) {
+    if (i + 1 < steps) load_step(i + 1);
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();
+    const uint32_t at = sbase + (i & 1) * 5 * kTile;
+    const int t = i / nc, c = i % nc, j0 = (t % nkt) * kKeyTile;
+    if (t == nkt && c == 0) finish_sweep1(m, l, pdp, delta);
+    if (active) {
+      if (c == 0) {
+        cxr::zero(s);
+        cxr::zero(dp);
+      }
+      cxr::add_abt<kC>(s, at, r0, at + 2 * kTile);
+      cxr::add_abt<kC>(dp, at + kTile, r0, at + 3 * kTile);
+      if (c == nc - 1)  // s and dp of the tile are whole
+        rows_key_tile<kC>(s, dp, t >= nkt, j0, N, scale, s_bias,
+                          s_keep + (t % nkt) * kThreads + threadIdx.x, m, l, pdp, delta, drop,
+                          salt, rows, rate, inv_keep, dqa, at + 4 * kTile);
+    }
+    __syncthreads();  // the next iteration's copy overwrites this stage
+  }
+
+  if (active) {  // stage 0's Q chunk is free: the warps stage their rows of dq there
+    store_rows<kC>(dqa, scale, smem, 0, r0, dq + b * sdq.b + h * sdq.h + sl * kC / 2, sdq.n,
+                   row0 + r0, N);
+    if (sl == 0 && qd == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (rows[r] < N) {
+          st[rows[r]] = m[r];
+          st[plane + rows[r]] = l[r];
+          st[2 * plane + rows[r]] = delta[r];
+        }
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_cols_sliced_kernel(const uint32_t* __restrict__ q, HeadStrides sq,
+                             const uint32_t* __restrict__ k, HeadStrides sk,
+                             const uint32_t* __restrict__ v, HeadStrides sv,
+                             const uint32_t* __restrict__ dout, HeadStrides sdo,
+                             const float* __restrict__ bias, const int* __restrict__ seeds,
+                             uint32_t* __restrict__ dk, HeadStrides sdk,
+                             uint32_t* __restrict__ dv, HeadStrides sdv,
+                             const float* __restrict__ stats, int B, int N, int H, int nc,
+                             float scale, float rate, float inv_keep) {
+  constexpr int QT = kSlicedQT;
+  constexpr int NT = QT / 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t sbase = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  // stage st at sbase + st kColsSlicedStage: K, V, Q and dO chunks, Q's and
+  // dO's slices, then m, 1/l and delta of the QT query rows
+
+  const int b = blockIdx.z, h = blockIdx.y / nc, sl = blockIdx.y % nc;
+  const int col0 = blockIdx.x * kBlock;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2;
+  const int r0 = 16 * warp;
+  const uint32_t* qb = q + b * sq.b + h * sq.h;
+  const uint32_t* kb = k + b * sk.b + h * sk.h;
+  const uint32_t* vb = v + b * sv.b + h * sv.h;
+  const uint32_t* ob = dout + b * sdo.b + h * sdo.h;
+  const size_t plane = (size_t)B * H * N;
+  const float* st = stats + ((size_t)b * H + h) * N;
+
+  // step i: chunk i % nc of query tile i / nc
+  const int nqt = (N + QT - 1) / QT, steps = nqt * nc;
+  auto load_step = [&](int i) {
+    const uint32_t at = sbase + (i & 1) * kColsSlicedStage;
+    const int c = i % nc, i0 = (i / nc) * QT;
+    load_tile<kC, kBlock>(at, kb + c * kC / 2, sk.n, col0, N);
+    load_tile<kC, kBlock>(at + kTile, vb + c * kC / 2, sv.n, col0, N);
+    load_tile<kC, QT>(at + 2 * kTile, qb + c * kC / 2, sq.n, i0, N);
+    load_tile<kC, QT>(at + 3 * kTile, ob + c * kC / 2, sdo.n, i0, N);
+    if (c == nc - 1) {
+      load_tile<kC, QT>(at + 4 * kTile, qb + sl * kC / 2, sq.n, i0, N);
+      load_tile<kC, QT>(at + 5 * kTile, ob + sl * kC / 2, sdo.n, i0, N);
+      for (int x = threadIdx.x; x < 3 * QT; x += kThreads) {
+        const int which = x / QT, r = i0 + x % QT;
+        cp_async4(at + 6 * kTile + 4 * x, r < N ? st + which * plane + r : st, r < N);
+      }
+    }
+  };
+  load_step(0);
+  cp_async_commit();
+
+  const bool drop = rate > 0.f;
+  const uint32_t salt = cxr::dropout_salt(seeds[b], h);
+  const bool active = col0 + r0 < N;
+  const int keys[2] = {col0 + r0 + g, col0 + r0 + g + 8};
+  float kbias[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    kbias[r] = keys[r] < N ? bias[(size_t)b * N + keys[r]] : -CUDART_INF_F;
+  float dka[kC / 8][4], dva[kC / 8][4], s[NT][4], dp[NT][4];
+  cxr::zero(dka);
+  cxr::zero(dva);
+
+  for (int i = 0; i < steps; ++i) {
+    if (i + 1 < steps) load_step(i + 1);
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();
+    const uint32_t at = sbase + (i & 1) * kColsSlicedStage;
+    const int c = i % nc, i0 = (i / nc) * QT;
+    if (active) {
+      if (c == 0) {
+        cxr::zero(s);
+        cxr::zero(dp);
+      }
+      cxr::add_abt<kC>(s, at, r0, at + 2 * kTile);           // S^T
+      cxr::add_abt<kC>(dp, at + kTile, r0, at + 3 * kTile);  // dP^T
+      if (c == nc - 1) {  // s and dp of the tile are whole
+        const float* sm = reinterpret_cast<const float*>(smem + (at - sbase) + 6 * kTile);
+        cols_query_tile<kC>(s, dp, i0, N, scale, kbias, sm, sm + QT, sm + 2 * QT, drop, salt,
+                            keys, rate, inv_keep, dka, dva, at + 4 * kTile, at + 5 * kTile);
+      }
+    }
+    __syncthreads();  // the next iteration's copy overwrites this stage
+  }
+
+  if (active) {  // stage 0's K and V chunks are free: the warps stage their rows there
+    store_rows<kC>(dka, scale, smem, 0, r0, dk + b * sdk.b + h * sdk.h + sl * kC / 2, sdk.n,
+                   col0 + r0, N);
+    store_rows<kC>(dva, 1.f, smem, kTile, r0, dv + b * sdv.b + h * sdv.h + sl * kC / 2, sdv.n,
+                   col0 + r0, N);
   }
 }
 
@@ -427,6 +679,34 @@ cudaError_t launch(Operand q, Operand k, Operand v, Operand dout, const void* bi
   });
 }
 
+cudaError_t launch_sliced(Operand q, Operand k, Operand v, Operand dout, const void* bias,
+                          const void* seeds, Gradient dq, Gradient dk, Gradient dv, void* stats,
+                          int B, int N, int H, int D, float scale, float rate, float inv_keep,
+                          cudaStream_t stream) {
+  cudaError_t err = cxr::allow_smem(flash_bwd_rows_sliced_kernel, kRowsSlicedSmem);
+  if (err != cudaSuccess) return err;
+  err = cxr::allow_smem(flash_bwd_cols_sliced_kernel, kColsSlicedSmem);
+  if (err != cudaSuccess) return err;
+  const int nc = D / kC;
+  return cxr::for_batch_chunks(B, [&](int b0, int rows) {
+    auto in = [b0](Operand o) { return o.p + b0 * o.s.b; };
+    auto out = [b0](Gradient g) { return g.p + b0 * g.s.b; };
+    const auto* bi = static_cast<const float*>(bias) + (size_t)b0 * N;
+    const auto* sd = static_cast<const int*>(seeds) + b0;
+    auto* st = static_cast<float*>(stats) + (size_t)b0 * H * N;
+    const dim3 grid = cxr::head_grid(rows, N, H * nc);
+    flash_bwd_rows_sliced_kernel<<<grid, kThreads, kRowsSlicedSmem, stream>>>(
+        in(q), q.s, in(k), k.s, in(v), v.s, in(dout), dout.s, bi, sd, out(dq), dq.s, st, B, N,
+        H, nc, scale, rate, inv_keep);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    flash_bwd_cols_sliced_kernel<<<grid, kThreads, kColsSlicedSmem, stream>>>(
+        in(q), q.s, in(k), k.s, in(v), v.s, in(dout), dout.s, bi, sd, out(dk), dk.s, out(dv),
+        dv.s, st, B, N, H, nc, scale, rate, inv_keep);
+    return cudaGetLastError();
+  });
+}
+
 cudaError_t dispatch(int D, Operand q, Operand k, Operand v, Operand dout, const void* bias,
                      const void* seeds, Gradient dq, Gradient dk, Gradient dv, void* stats,
                      int B, int N, int H, float scale, float rate, float inv_keep,
@@ -442,7 +722,9 @@ cudaError_t dispatch(int D, Operand q, Operand k, Operand v, Operand dout, const
     case 128:
       return launch<128>(q, k, v, dout, bias, seeds, dq, dk, dv, stats, B, N, H, scale, rate,
                          inv_keep, s);
-    default: return cudaErrorInvalidValue;
+    default:
+      return launch_sliced(q, k, v, dout, bias, seeds, dq, dk, dv, stats, B, N, H, D, scale,
+                           rate, inv_keep, s);
   }
 }
 
@@ -450,15 +732,15 @@ cudaError_t dispatch(int D, Operand q, Operand k, Operand v, Operand dout, const
 
 // B6: qkv [B, N, 3*H*D] bf16, dout [B, N, H*D] bf16, bias [B, N] fp32, seeds
 // [B] int32, dqkv [B, N, 3*H*D] bf16 (every element written), stats
-// [3, B, H, N] fp32 scratch; D in {32, 64, 128}, 1 <= N <= 512, H <= 65535,
-// any B;
+// [3, B, H, N] fp32 scratch; D in {32, 64, 128} or a multiple of 64 over
+// 128, 1 <= N <= 512, H (times D / 64 over 128) <= 65535, any B;
 // 0 <= rate < 1 and inv_keep = 1 / (1 - rate), as in the forward that made
 // dout's output; qkv, dout and dqkv 16-byte aligned.
 CXR_API int cxr_flash_bwd_packed(const void* qkv, const void* dout, const void* bias,
                                  const void* seeds, void* dqkv, void* stats, int B, int N,
                                  int H, int D, float scale, float rate, float inv_keep,
                                  void* stream) {
-  if (cxr::bad_attention_args(B, N, H, rate)) return cudaErrorInvalidValue;
+  if (cxr::bad_attention_args(B, N, H, D, rate)) return cudaErrorInvalidValue;
   const long long W = D / 2, row = 3 * H * W;
   const cxr::HeadStrides sqkv{N * row, row, W}, sdo{N * H * W, H * W, W};
   const auto* in = static_cast<const uint32_t*>(qkv);
@@ -478,7 +760,7 @@ CXR_API int cxr_flash_bwd(const void* q, const void* k, const void* v, const voi
                           const void* bias, const void* seeds, void* dq, void* dk, void* dv,
                           void* stats, const long long* strides, int B, int N, int H, int D,
                           float scale, float rate, float inv_keep, void* stream) {
-  if (cxr::bad_attention_args(B, N, H, rate)) return cudaErrorInvalidValue;
+  if (cxr::bad_attention_args(B, N, H, D, rate)) return cudaErrorInvalidValue;
   cxr::HeadStrides s[7];
   for (int t = 0; t < 7; ++t) s[t] = {strides[3 * t], strides[3 * t + 1], strides[3 * t + 2]};
   auto in = [](const void* p) { return static_cast<const uint32_t*>(p); };

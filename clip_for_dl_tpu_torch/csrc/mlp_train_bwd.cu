@@ -1,4 +1,5 @@
-// Fused Dense -> GELU -> Dense backward (kernel B8).
+// Fused Dense -> GELU -> Dense backward (kernel B8), on wgmma with TMA-fed
+// tiles.
 //
 // Replaces the TPU kernel clip_for_dl_tpu/ops/mlp_train.py _bwd_kernel (:112),
 // reached through _pallas_bwd's pallas_call (:190). For x [R, H], dy [R, H]
@@ -7,194 +8,289 @@
 //   h  = x W1^T + b1                      fp32 (recomputed: the forward saved x)
 //   g  = bf16(gelu(h))                    written out
 //   dh = bf16((dy W2) * gelu'(h))         written out; gelu' = Phi(h) + h phi(h)
-//   dx = bf16(dh W1)                      fp32 accumulation
+//   dx = bf16(dh W1)                      from the bf16 dh, fp32 accumulation
 //
 // exactly the TPU kernel's roundings (exact erff where the TPU used an A&S
 // erf, as the forward does). The weight gradients dW1 = dh^T x and
 // dW2 = dy^T g are plain GEMMs outside the kernel, as in the TPU's _mlp_bwd.
 //
 // What bounds it on the card: tensor-core math. At the train shape
-// (R = 25,600 rows, H = 768, F = 3072) it is 3 products of 2 R H F = 363 GFLOP
-// and writes the two bf16 [R, F] tiles (315 MB). Design, from the forward
-// kernel (mlp_train.cu): a block owns kT = 32 rows and stages their x and dy
-// tiles in shared memory (2 x 48 KB at H = 768); the fp32 [32, H] dx
-// accumulator lives in the registers of its 8 warps as WMMA fragments. It
-// walks F in chunks of kFC = 64: per chunk each warp makes one 16x16 tile of
-// h (x W1^T) and then of dg (dy W2) into fp32 shared buffers, the block turns
-// them into g and dh (stored to device memory and, for dh, to a bf16 shared
-// tile), and the warps add dh W1[chunk, :] into the dx fragments. Weight
-// tiles are read straight from global memory (both matrices stay in the
-// 50 MB L2). WMMA lowers to mma.sync; no TMA pipeline yet.
-#include <mma.h>
-
-#include "common.cuh"
+// (R = 25,600 rows, H = 768, F = 3072) it is 3 products of 2 R H F = 362
+// GFLOP, 0.366 ms at 989 TFLOP/s, and it writes the two bf16 [R, F]
+// intermediates (315 MB, 0.094 ms at 3.35 TB/s). g and dh are outputs (the
+// weight gradients read them), so they reach device memory anyway, and the
+// function splits into two GEMM-shaped kernels at the cost of reading dh
+// back once (157 MB):
+//
+//   B8a (mlp_bwd_gelu_kernel): a 128-row x 128-column tile of [R, F] forms
+//       h and dg = dy W2 in two fp32 accumulators, over k-steps of 64 of H,
+//       and its epilogue, in registers, adds b1, takes GELU and GELU' in fp32
+//       and stores g and dh as bf16;
+//   B8b (mlp_bwd_dx_kernel): a 128 x 128 tile of dx = dh W1, over k-steps of
+//       64 of F. No split of K and no atomics: two calls give the same bits.
+//
+// Both are one producer warp that keeps TMA loads of whole tiles in flight
+// through a ring of stages (a full and an empty mbarrier each) and two
+// consumer warpgroups of 64 rows that run wgmma.mma_async m64n128k16 (bf16 in,
+// fp32 out) on the stages that have landed, releasing each stage once the
+// products that read it are done (wgmma_tiles.cuh). x, dy, dh and, for h, W1
+// are K-major as they lie; W2 (for dg) and W1 (for dx) are N-major and read
+// with wgmma's transpose bit, so no transposed weight copy is made. Ragged
+// row, H and F edges are zero-filled by the TMA load and clipped at the store.
+// No [rows, H] accumulator lives in registers, so every H and F that is a
+// multiple of 64 (the TMA box and the k-step) is taken, and any R >= 1.
+// Output tiles are numbered with the F (or H) tile fastest, so that the
+// blocks in flight share their x, dy or dh rows in L2.
+#include "wgmma_tiles.cuh"
 
 namespace {
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
-constexpr int kT = 32;   // rows per block
-constexpr int kFC = 64;  // intermediate columns per chunk
-constexpr int kWarps = 8;
+constexpr int kRows = 128;  // rows of a block tile: two consumer warpgroups of 64
+constexpr int kCols = 128;  // output columns of a block tile
+constexpr int kK = 64;      // k-step: one 128-byte swizzle row of bf16
+constexpr int kConsumers = 256;
+constexpr int kThreads = kConsumers + 32;  // and one producer warp
+constexpr uint32_t kBox = kRows * kK * 2;  // a K-major box, 128 rows x 64 k: 16 KB
+constexpr uint32_t kHalf = kK * 64 * 2;    // an N-major box, 64 k-rows x 64 columns: 8 KB
+constexpr uint32_t kWarpgroupRows = 64 * kK * 2;  // a consumer's 64 rows of a K-major box
 
-template <int H>
+// B8a: x, dy, W1 (K-major) and W2 (two N-major halves) a stage
+constexpr int kStagesGelu = 3;
+constexpr uint32_t kStageGelu = 4 * kBox;
+// B8b: dh (K-major) and W1 (two N-major halves) a stage
+constexpr int kStagesDx = 4;
+constexpr uint32_t kStageDx = 2 * kBox;
+
+template <int STAGES, uint32_t STAGE>
 constexpr size_t smem_bytes() {
-  return (size_t)2 * kT * (H + 8) * sizeof(bf16)   // x and dy tiles, padded rows
-         + (size_t)2 * kT * kFC * sizeof(float)    // h and dg chunks / epilogue staging
-         + (size_t)kT * (kFC + 8) * sizeof(bf16);  // dh chunk, padded rows
+  return (size_t)STAGES * STAGE + 2 * STAGES * 8 + 1024;  // stages, barriers, alignment
 }
 
-template <int H>
-__global__ void __launch_bounds__(kWarps * 32, 1)
-mlp_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
-               const bf16* __restrict__ b1, const bf16* __restrict__ w2,
-               const bf16* __restrict__ dy, bf16* __restrict__ dx, bf16* __restrict__ g,
-               bf16* __restrict__ dh, int R, int F) {
-  constexpr int XS = H + 8;             // x / dy row stride (elements)
-  constexpr int GS = kFC + 8;           // dh tile row stride
-  constexpr int NPW = H / 16 / kWarps;  // dx column tiles per warp
-  static_assert(H % (16 * kWarps) == 0, "H must be a multiple of 128");
+// The ring of a block: the 1024-byte aligned base of its stages, and a full
+// and an empty barrier a stage after them.
+template <int STAGES, uint32_t STAGE>
+struct Ring {
+  uint32_t base;
+  __device__ uint32_t stage(int s) const { return base + s * STAGE; }
+  __device__ uint32_t full(int s) const { return base + STAGES * STAGE + 8 * s; }
+  __device__ uint32_t empty(int s) const { return base + STAGES * STAGE + 8 * (STAGES + s); }
 
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* xs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* ys = xs + kT * XS;
-  float* hs = reinterpret_cast<float*>(ys + kT * XS);
-  float* dgs = hs + kT * kFC;
-  bf16* dhs = reinterpret_cast<bf16*>(dgs + kT * kFC);
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int r0 = blockIdx.x * kT;
-
-  constexpr int VPR = H / 8;  // 16-byte vectors per row
-  for (int i = tid; i < kT * VPR; i += blockDim.x) {
-    const int r = i / VPR, v = i % VPR;
-    uint4 xv = make_uint4(0u, 0u, 0u, 0u), yv = xv;
-    if (r0 + r < R) {
-      xv = reinterpret_cast<const uint4*>(x + (size_t)(r0 + r) * H)[v];
-      yv = reinterpret_cast<const uint4*>(dy + (size_t)(r0 + r) * H)[v];
-    }
-    *reinterpret_cast<uint4*>(xs + r * XS + v * 8) = xv;
-    *reinterpret_cast<uint4*>(ys + r * XS + v * 8) = yv;
-  }
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][NPW];
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int j = 0; j < NPW; ++j) wmma::fill_fragment(acc[m][j], 0.f);
-  __syncthreads();
-
-  const int hm = warp / 4, hn = warp % 4;  // this warp's tile of the [32, 64] chunk
-  for (int f0 = 0; f0 < F; f0 += kFC) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> t;
-    // h[32, 64] = x_tile . W1[f0 : f0 + 64, :]^T
-    wmma::fill_fragment(t, 0.f);
-    const bf16* w1_tile = w1 + (size_t)(f0 + hn * 16) * H;
-#pragma unroll 4
-    for (int k = 0; k < H; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bw;
-      wmma::load_matrix_sync(a, xs + hm * 16 * XS + k, XS);
-      wmma::load_matrix_sync(bw, w1_tile + k, H);
-      wmma::mma_sync(t, a, bw, t);
-    }
-    wmma::store_matrix_sync(hs + hm * 16 * kFC + hn * 16, t, kFC, wmma::mem_row_major);
-    // dg[32, 64] = dy_tile . W2[:, f0 : f0 + 64]
-    wmma::fill_fragment(t, 0.f);
-#pragma unroll 4
-    for (int k = 0; k < H; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bw;
-      wmma::load_matrix_sync(a, ys + hm * 16 * XS + k, XS);
-      wmma::load_matrix_sync(bw, w2 + (size_t)k * F + f0 + hn * 16, F);
-      wmma::mma_sync(t, a, bw, t);
-    }
-    wmma::store_matrix_sync(dgs + hm * 16 * kFC + hn * 16, t, kFC, wmma::mem_row_major);
-    __syncthreads();
-
-    // bias, GELU and its derivative in fp32; g and dh rounded to bf16
-    for (int i = tid; i < kT * kFC; i += blockDim.x) {
-      const int r = i / kFC, c = i % kFC;
-      const float hv = hs[i] + __bfloat162float(b1[f0 + c]);
-      const float e = erff(hv * 0.70710678118654752f);
-      const float gv = 0.5f * hv * (1.f + e);  // the forward kernel's expression
-      const float dgelu = 0.5f * (1.f + e) + hv * expf(-0.5f * hv * hv) * 0.39894228040143268f;
-      const bf16 dhv = __float2bfloat16(dgs[i] * dgelu);
-      dhs[r * GS + c] = dhv;
-      if (r0 + r < R) {
-        const size_t o = (size_t)(r0 + r) * F + f0 + c;
-        g[o] = __float2bfloat16(gv);
-        dh[o] = dhv;
+  // thread 0 initializes the barriers: the producer's expect_tx completes a
+  // full barrier, one arrival of each consumer warpgroup an empty one
+  __device__ void init() const {
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < STAGES; ++s) {
+        cxr::mbar_init(full(s), 1);
+        cxr::mbar_init(empty(s), kConsumers / 128);
       }
+      cxr::fence_barrier_init();
     }
     __syncthreads();
-
-    // dx[32, H] += dh[32, 64] . W1[f0 : f0 + 64, :]
-#pragma unroll
-    for (int kk = 0; kk < kFC; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a0, a1;
-      wmma::load_matrix_sync(a0, dhs + kk, GS);
-      wmma::load_matrix_sync(a1, dhs + 16 * GS + kk, GS);
-#pragma unroll
-      for (int j = 0; j < NPW; ++j) {
-        const int n = warp + j * kWarps;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bw;
-        wmma::load_matrix_sync(bw, w1 + (size_t)(f0 + kk) * H + n * 16, H);
-        wmma::mma_sync(acc[0][j], a0, bw, acc[0][j]);
-        wmma::mma_sync(acc[1][j], a1, bw, acc[1][j]);
-      }
-    }
   }
-  __syncthreads();  // hs is reused below as per-warp staging
+};
 
-  float* stage = hs + warp * 256;
-#pragma unroll
-  for (int m = 0; m < 2; ++m) {
-#pragma unroll
-    for (int j = 0; j < NPW; ++j) {
-      const int n = warp + j * kWarps;
-      wmma::store_matrix_sync(stage, acc[m][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int row = r0 + m * 16 + e / 16, col = n * 16 + e % 16;
-        if (row < R) dx[(size_t)row * H + col] = __float2bfloat16(stage[e]);
-      }
-      __syncwarp();
-    }
+template <int STAGES, uint32_t STAGE>
+__device__ Ring<STAGES, STAGE> make_ring(unsigned char* smem) {
+  return {(cxr::smem_addr(smem) + 1023u) & ~1023u};
+}
+
+// The producer warp's lane 0: for each of nk k-steps, wait for a free stage,
+// then load(stage address, its full barrier, k) issues that step's TMA
+// copies of STAGE bytes in all.
+template <int STAGES, uint32_t STAGE, typename Load>
+__device__ __forceinline__ void produce(const Ring<STAGES, STAGE>& ring, int nk, Load load) {
+  for (int k = 0, s = 0, phase = 0; k < nk; ++k) {
+    cxr::mbar_wait(ring.empty(s), phase ^ 1);
+    cxr::mbar_expect_tx(ring.full(s), STAGE);
+    load(ring.stage(s), ring.full(s), k);
+    if (++s == STAGES) s = 0, phase ^= 1;
   }
 }
 
-template <int H>
-cudaError_t launch(const void* x, const void* w1, const void* b1, const void* w2,
-                   const void* dy, void* dx, void* g, void* dh, int R, int F,
-                   cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<H>();
-  cudaError_t err = cxr::allow_smem(mlp_bwd_kernel<H>, smem);
-  if (err != cudaSuccess) return err;
-  const int blocks = (R + kT - 1) / kT;
-  mlp_bwd_kernel<H><<<blocks, kWarps * 32, smem, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w1), static_cast<const bf16*>(b1),
-      static_cast<const bf16*>(w2), static_cast<const bf16*>(dy), static_cast<bf16*>(dx),
-      static_cast<bf16*>(g), static_cast<bf16*>(dh), R, F);
-  return cudaGetLastError();
+// A consumer warpgroup: for each of nk k-steps, wait for the stage, issue
+// mma(stage address) (the step's wgmma instructions), commit them, and
+// release the previous step's stage once its products are done. Returns with
+// every product complete.
+template <int STAGES, uint32_t STAGE, typename Mma>
+__device__ __forceinline__ void consume(const Ring<STAGES, STAGE>& ring, int nk, Mma mma) {
+  const bool leader = threadIdx.x % 128 == 0;
+  int prev = 0;
+  for (int k = 0, s = 0, phase = 0; k < nk; ++k) {
+    cxr::mbar_wait(ring.full(s), phase);
+    cxr::wgmma_fence();
+    mma(ring.stage(s));
+    cxr::wgmma_commit();
+    cxr::wgmma_wait<1>();  // the previous step's products have read their stage
+    if (k > 0 && leader) cxr::mbar_arrive(ring.empty(prev));
+    prev = s;
+    if (++s == STAGES) s = 0, phase ^= 1;
+  }
+  cxr::wgmma_wait<0>();
+}
+
+// B8a: g and dh of one 128 x 128 tile of [R, F]
+__global__ void __launch_bounds__(kThreads, 1)
+mlp_bwd_gelu_kernel(const __grid_constant__ CUtensorMap x_map,
+                    const __grid_constant__ CUtensorMap dy_map,
+                    const __grid_constant__ CUtensorMap w1_map,
+                    const __grid_constant__ CUtensorMap w2_map, const bf16* __restrict__ b1,
+                    bf16* __restrict__ g, bf16* __restrict__ dh, int R, int H, int F) {
+  extern __shared__ unsigned char smem[];
+  const auto ring = make_ring<kStagesGelu, kStageGelu>(smem);
+  ring.init();
+  const int nf = (F + kCols - 1) / kCols;
+  const int f0 = (blockIdx.x % nf) * kCols, r0 = (blockIdx.x / nf) * kRows;
+  const int nk = H / kK;
+
+  if (threadIdx.x >= kConsumers) {  // the producer warp
+    if (threadIdx.x == kConsumers)
+      produce(ring, nk, [&](uint32_t st, uint32_t full, int k) {
+        cxr::tma_load(st, &x_map, full, k * kK, r0);
+        cxr::tma_load(st + kBox, &dy_map, full, k * kK, r0);
+        cxr::tma_load(st + 2 * kBox, &w1_map, full, k * kK, f0);
+        cxr::tma_load(st + 3 * kBox, &w2_map, full, f0, k * kK);
+        cxr::tma_load(st + 3 * kBox + kHalf, &w2_map, full, f0 + 64, k * kK);
+      });
+    return;
+  }
+
+  const int wg = threadIdx.x / 128;
+  float h[64], dg[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) h[i] = dg[i] = 0.f;
+  cxr::fence_accumulators(h);
+  cxr::fence_accumulators(dg);
+  consume(ring, nk, [&](uint32_t st) {
+    const uint32_t xa = st + wg * kWarpgroupRows, dya = xa + kBox;
+#pragma unroll
+    for (int kk = 0; kk < kK / 16; ++kk) {
+      cxr::wgmma_128<0>(h, cxr::desc_k_major(xa + 32 * kk),
+                        cxr::desc_k_major(st + 2 * kBox + 32 * kk));
+      cxr::wgmma_128<1>(dg, cxr::desc_k_major(dya + 32 * kk),
+                        cxr::desc_n_major(st + 3 * kBox + 2048 * kk, kHalf));
+    }
+  });
+  cxr::fence_accumulators(h);
+  cxr::fence_accumulators(dg);
+
+  // epilogue: bias, GELU and its derivative in fp32; g and dh rounded to bf16
+  const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
+  const int row = r0 + wg * 64 + warp * 16 + lane / 4;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int col = f0 + 8 * j + 2 * (lane % 4);
+    if (col < F) {  // F is a multiple of 64: col and col + 1 lie on one side
+      const float bias[2] = {__bfloat162float(b1[col]), __bfloat162float(b1[col + 1])};
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = row + 8 * half;
+        if (r < R) {
+          float gv[2], dhv[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 4 * j + 2 * half + e;
+            const float hv = h[i] + bias[e];
+            const float erfv = erff(hv * 0.70710678118654752f);
+            gv[e] = 0.5f * hv * (1.f + erfv);  // the forward kernel's expression
+            const float dgelu =
+                0.5f * (1.f + erfv) + hv * expf(-0.5f * hv * hv) * 0.39894228040143268f;
+            dhv[e] = dg[i] * dgelu;
+          }
+          const size_t o = (size_t)r * F + col;
+          *reinterpret_cast<uint32_t*>(g + o) = cxr::f2_to_bf2(gv[0], gv[1]);
+          *reinterpret_cast<uint32_t*>(dh + o) = cxr::f2_to_bf2(dhv[0], dhv[1]);
+        }
+      }
+    }
+  }
+}
+
+// B8b: one 128 x 128 tile of dx = dh W1
+__global__ void __launch_bounds__(kThreads, 1)
+mlp_bwd_dx_kernel(const __grid_constant__ CUtensorMap dh_map,
+                  const __grid_constant__ CUtensorMap w1_map, bf16* __restrict__ dx, int R,
+                  int H, int F) {
+  extern __shared__ unsigned char smem[];
+  const auto ring = make_ring<kStagesDx, kStageDx>(smem);
+  ring.init();
+  const int nh = (H + kCols - 1) / kCols;
+  const int n0 = (blockIdx.x % nh) * kCols, r0 = (blockIdx.x / nh) * kRows;
+  const int nk = F / kK;
+
+  if (threadIdx.x >= kConsumers) {
+    if (threadIdx.x == kConsumers)
+      produce(ring, nk, [&](uint32_t st, uint32_t full, int k) {
+        cxr::tma_load(st, &dh_map, full, k * kK, r0);
+        cxr::tma_load(st + kBox, &w1_map, full, n0, k * kK);
+        cxr::tma_load(st + kBox + kHalf, &w1_map, full, n0 + 64, k * kK);
+      });
+    return;
+  }
+
+  const int wg = threadIdx.x / 128;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  cxr::fence_accumulators(acc);
+  consume(ring, nk, [&](uint32_t st) {
+    const uint32_t a = st + wg * kWarpgroupRows;
+#pragma unroll
+    for (int kk = 0; kk < kK / 16; ++kk)
+      cxr::wgmma_128<1>(acc, cxr::desc_k_major(a + 32 * kk),
+                        cxr::desc_n_major(st + kBox + 2048 * kk, kHalf));
+  });
+  cxr::fence_accumulators(acc);
+
+  const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
+  const int row = r0 + wg * 64 + warp * 16 + lane / 4;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int col = n0 + 8 * j + 2 * (lane % 4);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = row + 8 * half;
+      if (col < H && r < R)
+        *reinterpret_cast<uint32_t*>(dx + (size_t)r * H + col) =
+            cxr::f2_to_bf2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+    }
+  }
 }
 
 }  // namespace
 
-// x, dy, dx [R, H], w1 [F, H], b1 [F], w2 [H, F], g, dh [R, F], all bf16; x and
-// dy 16-byte and the weights 32-byte aligned (WMMA loads them from global
-// memory); H a multiple of 128 up to 1024, F a positive multiple of 64.
+// x, dy, dx [R, H], w1 [F, H], b1 [F], w2 [H, F], g, dh [R, F], all bf16 and
+// every pointer 16-byte aligned (TMA); R >= 1, H and F positive multiples
+// of 64. Launches B8a, then B8b, on ``stream``.
 CXR_API int cxr_mlp_bwd(const void* x, const void* w1, const void* b1, const void* w2,
                         const void* dy, void* dx, void* g, void* dh, int R, int H, int F,
                         void* stream) {
-  if (R < 1 || F < kFC || F % kFC != 0) return cudaErrorInvalidValue;
+  if (R < 1 || H < kK || H % kK != 0 || F < kK || F % kK != 0) return cudaErrorInvalidValue;
+  const long long row_tiles = (R + kRows - 1) / kRows;
+  const long long gelu_tiles = row_tiles * ((F + kCols - 1) / kCols);
+  const long long dx_tiles = row_tiles * ((H + kCols - 1) / kCols);
+  if (gelu_tiles > 0x7fffffffLL || dx_tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  CUtensorMap x_map, dy_map, w1_k, w2_n, dh_map, w1_n;
+  cudaError_t err;
+  if ((err = cxr::bf16_tensor_map(&x_map, x, H, R, kRows)) != cudaSuccess ||
+      (err = cxr::bf16_tensor_map(&dy_map, dy, H, R, kRows)) != cudaSuccess ||
+      (err = cxr::bf16_tensor_map(&w1_k, w1, H, F, kCols)) != cudaSuccess ||
+      (err = cxr::bf16_tensor_map(&w2_n, w2, F, H, kK)) != cudaSuccess ||
+      (err = cxr::bf16_tensor_map(&dh_map, dh, F, R, kRows)) != cudaSuccess ||
+      (err = cxr::bf16_tensor_map(&w1_n, w1, H, F, kK)) != cudaSuccess)
+    return err;
+  constexpr size_t gelu_smem = smem_bytes<kStagesGelu, kStageGelu>();
+  constexpr size_t dx_smem = smem_bytes<kStagesDx, kStageDx>();
+  if ((err = cxr::allow_smem(mlp_bwd_gelu_kernel, gelu_smem)) != cudaSuccess ||
+      (err = cxr::allow_smem(mlp_bwd_dx_kernel, dx_smem)) != cudaSuccess)
+    return err;
   auto s = static_cast<cudaStream_t>(stream);
-  switch (H) {
-#define CXR_CASE(h) \
-  case h: return launch<h>(x, w1, b1, w2, dy, dx, g, dh, R, F, s);
-    CXR_MLP_WIDTHS(CXR_CASE)
-#undef CXR_CASE
-    default: return cudaErrorInvalidValue;
-  }
+  mlp_bwd_gelu_kernel<<<(unsigned)gelu_tiles, kThreads, gelu_smem, s>>>(
+      x_map, dy_map, w1_k, w2_n, static_cast<const bf16*>(b1), static_cast<bf16*>(g),
+      static_cast<bf16*>(dh), R, H, F);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  mlp_bwd_dx_kernel<<<(unsigned)dx_tiles, kThreads, dx_smem, s>>>(dh_map, w1_n,
+                                                                    static_cast<bf16*>(dx), R, H, F);
+  return cudaGetLastError();
 }

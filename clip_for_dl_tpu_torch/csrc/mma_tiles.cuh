@@ -96,11 +96,22 @@ inline cudaError_t for_batch_chunks(int B, Launch launch) {
   return cudaSuccess;
 }
 
+// Head dims over 128 run in slices of kSlice columns (flash_attention.cu,
+// flash_attention_bwd.cu): the contractions over D in chunks of kSlice
+// columns, each block writing one kSlice-wide slice of its output.
+constexpr int kSlice = 64;
+
+// The blocks along gridDim.y of a head: one, or one per output slice.
+inline int head_slices(int D) { return D > 128 ? D / kSlice : 1; }
+
 // What every attention entry point refuses: N outside [1, 512], no batch
-// row, heads outside [1, 65535] (gridDim.y), a rate outside [0, 1).
-inline bool bad_attention_args(int B, int N, int H, float rate) {
-  return N < 1 || N > kMaxSeq || B < 1 || H < 1 || H > kMaxGridZ || !(rate >= 0.f) ||
-         !(rate < 1.f);
+// row, heads (times slices) outside [1, 65535] (gridDim.y), a head dim that
+// is neither 32, 64 nor 128 nor a multiple of kSlice over 128, a rate
+// outside [0, 1).
+inline bool bad_attention_args(int B, int N, int H, int D, float rate) {
+  const bool built = D == 32 || D == 64 || D == 128 || (D > 128 && D % kSlice == 0);
+  return N < 1 || N > kMaxSeq || B < 1 || H < 1 || !built ||
+         (long long)H * head_slices(D) > kMaxGridZ || !(rate >= 0.f) || !(rate < 1.f);
 }
 
 // ---- tiles ------------------------------------------------------------------
@@ -160,13 +171,11 @@ __device__ __forceinline__ void load_b_cols(uint32_t tile, int kk, int p, uint32
                 b);
 }
 
-// acc (16 x 8 NT) = A[r0..r0 + 15, :] B^T, both tiles D wide; B's first 8 NT
-// rows are the columns of acc
+// acc (16 x 8 NT) += A[r0..r0 + 15, :] B^T, both tiles D wide; B's first
+// 8 NT rows are the columns of acc
 template <int D, int NT>
-__device__ __forceinline__ void product_abt(float (&acc)[NT][4], uint32_t a_tile, int r0,
-                                            uint32_t b_tile) {
-#pragma unroll
-  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+__device__ __forceinline__ void add_abt(float (&acc)[NT][4], uint32_t a_tile, int r0,
+                                        uint32_t b_tile) {
 #pragma unroll
   for (int ks = 0; ks < D / 16; ++ks) {
     uint32_t a[4];
@@ -179,6 +188,20 @@ __device__ __forceinline__ void product_abt(float (&acc)[NT][4], uint32_t a_tile
       mma(acc[2 * p + 1], a, b[2], b[3]);
     }
   }
+}
+
+template <int NT>
+__device__ __forceinline__ void zero(float (&acc)[NT][4]) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+}
+
+// acc (16 x 8 NT) = A[r0..r0 + 15, :] B^T
+template <int D, int NT>
+__device__ __forceinline__ void product_abt(float (&acc)[NT][4], uint32_t a_tile, int r0,
+                                            uint32_t b_tile) {
+  zero(acc);
+  add_abt<D>(acc, a_tile, r0, b_tile);
 }
 
 // accumulators of a 16 x 16 KS product, rounded to bf16, as the A fragments

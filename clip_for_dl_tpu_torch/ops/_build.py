@@ -4,6 +4,9 @@ Every source under ``clip_for_dl_tpu_torch/csrc/`` is compiled by its own
 ``nvcc`` for ``sm_90a``, all of them started together, and the objects are
 linked into one shared library with a plain C interface, loaded with ctypes.
 The sources include no PyTorch header, so the build takes seconds.
+The TMA tensor maps of B8 (``csrc/wgmma_tiles.cuh``) are encoded with
+libcuda's ``cuTensorMapEncodeTiled``, fetched at run time through the
+runtime's ``cudaGetDriverEntryPoint``, so the link needs no ``-lcuda``.
 It runs on first use, never at import (the CPU tests import every module),
 into ``_kernel_build/`` beside this package, under a name that hashes the
 sources and flags, so an edited source is rebuilt and a stale library is

@@ -30,13 +30,16 @@ When a gradient is required the call goes through :class:`_FlashPacked` or
 the JAX custom VJPs do, and recompute the probabilities in the backward. The
 bias and the seeds get no gradient.
 
-Head dims: the kernels are built for D ∈ :data:`HEAD_DIMS` (32, 64, 128).
-Any other D ≤ 128 runs through the next wider one: the wrappers copy each
-head's q, k, v (and d(out)) into zero-padded rows, which leaves q·kᵀ
-unchanged and gives zero output (and gradient) columns, launch with the
-scale of the original D and slice the result (:func:`_pad_heads`,
-:func:`_unpad_heads`). The pad is a copy of the operands and of the result;
-no preset reaches it (they use D = 64). D > 128 raises.
+Head dims: the kernels are built for D ∈ :data:`HEAD_DIMS` (32, 64, 128)
+and, over 128, for every multiple of :data:`SLICE` (64), which they run in
+64-column slices of the output (one block a slice) with the contractions
+over D taken in 64-column chunks. Any other D runs through the next wider
+one (:func:`_kernel_dim`): the wrappers copy each head's q, k, v (and
+d(out)) into zero-padded rows, which leaves q·kᵀ unchanged and gives zero
+output (and gradient) columns, launch with the scale of the original D and
+slice the result (:func:`_pad_heads`, :func:`_unpad_heads`). The pad is a
+copy of the operands and of the result; no preset reaches it or D > 128
+(they use D = 64).
 """
 
 from __future__ import annotations
@@ -59,8 +62,10 @@ LAYOUTS = ("bnhd", "bhnd")
 # memory does not grow with N but for one key-bias row (2 KB at 512); they
 # keep the JAX package's bound.
 MAX_SEQ_LEN = 512
-# head dims the kernels are built for; others up to the last are padded
+# head dims the kernels are built for up to 128, and the width of a slice
+# over 128 (any multiple of it is built); others are padded to the next
 HEAD_DIMS = (32, 64, 128)
+SLICE = 64
 
 _M32 = 0xFFFFFFFF
 
@@ -496,11 +501,12 @@ class _Flash(torch.autograd.Function):
 
 def _kernel_dim(D: int) -> int:
     """The built head dim that runs head dim ``D``: the narrowest of
-    :data:`HEAD_DIMS` that holds it."""
+    :data:`HEAD_DIMS` that holds it, or over 128 the next multiple of
+    :data:`SLICE`."""
     for width in HEAD_DIMS:
         if D <= width:
             return width
-    raise ValueError(f"head dim {D} not supported by the kernels: at most {HEAD_DIMS[-1]}")
+    return -(-D // SLICE) * SLICE
 
 
 def _pad_heads(t: torch.Tensor, D: int, width: int) -> torch.Tensor:

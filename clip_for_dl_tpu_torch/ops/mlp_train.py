@@ -16,7 +16,9 @@ only (x, w1, b1, w2, b2), as the JAX custom VJP does. Its backward runs B8,
 which recomputes h from x and returns dx with the bf16 ``g = gelu(h)`` and
 ``dh = (dy·W2)⊙gelu′(h)``; the two weight gradients are then plain products
 outside the kernel (``dW1 = dhᵀ·x``, ``dW2 = dyᵀ·g``), and the bias
-gradients fp32 sums, as ``_mlp_bwd`` does.
+gradients fp32 sums, as ``_mlp_bwd`` does. B8 is two wgmma kernels fed by
+TMA (g and dh, then dx = dh·W1) and takes any hidden and intermediate width
+that is a multiple of 64 (:func:`check_bwd_widths`).
 """
 
 from __future__ import annotations
@@ -27,10 +29,11 @@ from . import _build
 
 KERNEL = "cxr_mlp_fwd"
 KERNEL_BWD = "cxr_mlp_bwd"
-# The kernels (B4, B8 and B9 in ops/mlp_block.py) are instantiated for every
-# hidden width that is a multiple of 128 up to this bound (CXR_MLP_WIDTHS in
-# csrc/common.cuh): their fp32 [32, H] accumulator lives in registers, at
-# 255 a thread and 8 bytes of spill in B8 at H = 1024.
+# B4 and B9 (ops/mlp_block.py) are instantiated for every hidden width that
+# is a multiple of 128 up to this bound (CXR_MLP_WIDTHS in csrc/common.cuh):
+# each block keeps an fp32 [32, H] accumulator in its warps' WMMA registers,
+# which the bound keeps within 255 a thread. B8 keeps no [rows, H]
+# accumulator and has no such bound.
 MAX_HIDDEN = 1024
 _INV_SQRT2 = 0.7071067811865476
 _INV_SQRT2PI = 0.3989422804014327
@@ -125,24 +128,36 @@ class _MLP(torch.autograd.Function):
 
 
 def check_hidden(H: int) -> None:
-    """Raise unless hidden ``H`` is one the MLP kernels (B4, B8, B9) are
-    built for (CXR_MLP_WIDTHS)."""
+    """Raise unless hidden ``H`` is one the WMMA kernels (B4, B9) are built
+    for (CXR_MLP_WIDTHS)."""
     if H % 128 or not 0 < H <= MAX_HIDDEN:
         raise ValueError(f"hidden {H} not supported by the kernel: a multiple of 128 "
                          f"up to MAX_HIDDEN = {MAX_HIDDEN}")
 
 
-def check_widths(H: int, F: int) -> None:
-    """Raise unless B4 and B8 take hidden ``H`` and intermediate ``F``."""
-    check_hidden(H)
+def _check_intermediate(F: int) -> None:
     if F <= 0 or F % 64:
         raise ValueError(f"intermediate {F} must be a positive multiple of 64")
 
 
-def _check_kernel_args(x, w1, b1, w2):
+def check_widths(H: int, F: int) -> None:
+    """Raise unless B4 takes hidden ``H`` and intermediate ``F``."""
+    check_hidden(H)
+    _check_intermediate(F)
+
+
+def check_bwd_widths(H: int, F: int) -> None:
+    """Raise unless B8 takes hidden ``H`` and intermediate ``F``: positive
+    multiples of 64, its TMA box and k-step."""
+    if H <= 0 or H % 64:
+        raise ValueError(f"hidden {H} must be a positive multiple of 64")
+    _check_intermediate(F)
+
+
+def _check_kernel_args(x, w1, b1, w2, check):
     R, H = x.shape
     F = w1.shape[0]
-    check_widths(H, F)
+    check(H, F)
     dev = x.device
     bf = torch.bfloat16
     _build.check_tensor(x, "x", bf, align=16)
@@ -153,7 +168,7 @@ def _check_kernel_args(x, w1, b1, w2):
 
 
 def _kernel(x, w1, b1, w2, b2):
-    R, H, F = _check_kernel_args(x, w1, b1, w2)
+    R, H, F = _check_kernel_args(x, w1, b1, w2, check_widths)
     _build.check_tensor(b2, "b2", torch.bfloat16, (H,), x.device, align=2)
     y = torch.empty((R, H), dtype=torch.bfloat16, device=x.device)
     if R:
@@ -163,7 +178,7 @@ def _kernel(x, w1, b1, w2, b2):
 
 
 def _kernel_bwd(x, w1, b1, w2, dy):
-    R, H, F = _check_kernel_args(x, w1, b1, w2)
+    R, H, F = _check_kernel_args(x, w1, b1, w2, check_bwd_widths)
     _build.check_tensor(dy, "dy", torch.bfloat16, (R, H), x.device, align=16)
     bf = torch.bfloat16
     dx = torch.empty((R, H), dtype=bf, device=x.device)

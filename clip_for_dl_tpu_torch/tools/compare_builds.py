@@ -1,7 +1,8 @@
 """Hold this checkout's packed attention kernels, B3 (forward) and B6
-(backward), against another checkout's build of them on one card: the same
-inputs, the outputs compared bit for bit, and the times taken in turns
-(other, this, this, other) so that drift of the card's clocks shows.
+(backward), and its MLP backward B8 against another checkout's build of them
+on one card: the same inputs, the outputs compared bit for bit, and the
+times taken in turns (other, this, this, other) so that drift of the card's
+clocks shows.
 
 For a change that must not move the packed kernels' numerics, such as a
 refactor of how they address their operands:
@@ -12,11 +13,13 @@ refactor of how they address their operands:
 ``--redesigned`` names the kernels that a change computes in another order
 and so may move within tolerance instead of bit for bit: B6's gradients per
 (batch row, head) slice within two bf16 steps of the other build's
-(``grad_slice_error``), B3's output within 2e-2 (two bf16 steps at |o| ≤ 3).
-For a redesign of the backward, or of the forward:
+(``grad_slice_error``), B3's output within 2e-2 (two bf16 steps at |o| ≤ 3),
+B8's dx, g and dh each within two bf16 steps of the other build's largest
+entry. For a redesign of the attention backward, of its forward, or of B8:
 
     python -m clip_for_dl_tpu_torch.tools.compare_builds --other other --redesigned B6
     python -m clip_for_dl_tpu_torch.tools.compare_builds --other other --redesigned B3
+    python -m clip_for_dl_tpu_torch.tools.compare_builds --other other --redesigned B8
 
 Every row prints, for each kernel, whether it is bit-equal and its largest
 difference.
@@ -42,6 +45,7 @@ import torch
 from ..core.device import require_cuda
 from ..ops import _build
 from ..ops import flash_attention as fa
+from ..ops import mlp_train as mlp
 from .probe_bwd_layouts import time_ms
 
 # (B, N, H, D): the prompt bank, the train step, the ViT batch, C1
@@ -49,6 +53,9 @@ SHAPES = ((64, 200, 12, 64), (128, 200, 12, 64), (256, 197, 12, 64), (2, 512, 2,
 RATES = (0.0, 0.1)
 ENTRIES = ("cxr_flash_fwd_packed", "cxr_flash_bwd_packed")
 FWD_TOL = 2e-2  # B3's output, max abs: two bf16 steps at |o| ≤ 3
+# (R, H, F) of B8: the train step, and hidden 256 (C3)
+MLP_SHAPES = ((25600, 768, 3072), (12800, 256, 1024))
+MLP_BWD_REL = 2.0 ** -6  # B8's outputs: two bf16 steps at each one's largest entry
 
 
 def other_library(root: Path) -> ctypes.CDLL:
@@ -70,7 +77,7 @@ def main(argv=None) -> int:
                    help="root of the other checkout (holds clip_for_dl_tpu_torch/)")
     p.add_argument("--device", default="cuda")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--redesigned", nargs="+", choices=("B3", "B6"), default=(),
+    p.add_argument("--redesigned", nargs="+", choices=("B3", "B6", "B8"), default=(),
                    help="kernels held to the other build within tolerance, not bit for bit")
     args = p.parse_args(argv)
 
@@ -122,6 +129,27 @@ def main(argv=None) -> int:
                 ok = ok and (row[f"{name} bit-equal"]
                              or (name in args.redesigned and within[name]))
             print(json.dumps(row), flush=True)
+    for R, H, F in MLP_SHAPES:
+        x = torch.randn(R, H, device=dev, generator=g).bfloat16()
+        w1 = (torch.randn(F, H, device=dev, generator=g) * H ** -0.5).bfloat16()
+        b1 = (torch.randn(F, device=dev, generator=g) * 0.1).bfloat16()
+        w2 = (torch.randn(H, F, device=dev, generator=g) * F ** -0.5).bfloat16()
+        dy = (torch.randn(R, H, device=dev, generator=g) * 0.1).bfloat16()
+        outs = [torch.empty(R, n, dtype=torch.bfloat16, device=dev) for n in (H, F, F)]
+        other_b8 = partial(call, "cxr_mlp_bwd", x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+                           w2.data_ptr(), dy.data_ptr(), *(t.data_ptr() for t in outs), R, H, F)
+        this_b8 = partial(mlp._kernel_bwd, x, w1, b1, w2, dy)
+        other_b8()
+        got = this_b8()
+        errs = [float((a.float() - b.float()).abs().max()) for a, b in zip(got, outs)]
+        worst = max(e / (MLP_BWD_REL * float(b.float().abs().max())) for e, b in zip(errs, outs))
+        row = {"B8 shape": [R, H, F],
+               "B8 bit-equal": all(torch.equal(a, b) for a, b in zip(got, outs)),
+               "B8 max_abs_err dx,g,dh": errs, "B8 worst / tol": worst,
+               "B8 ms other,this,this,other": [time_ms(fn, 5, dev)
+                                               for fn in (other_b8, this_b8, this_b8, other_b8)]}
+        ok = ok and (row["B8 bit-equal"] or ("B8" in args.redesigned and worst <= 1.0))
+        print(json.dumps(row), flush=True)
     print("as required" if ok else "MISMATCH")
     return 0 if ok else 1
 

@@ -52,10 +52,10 @@ TOL = 1e-3  # of the window: device time outside it, or buckets over the busy ti
 
 # (bucket, substrings of a lower-cased kernel name), the first match wins
 BUCKETS = (
-    ("B3/B5 attention forward", ("flash_fwd_kernel",)),
-    ("B6/B7 attention backward", ("flash_bwd",)),
+    ("B3/B5 attention forward", ("flash_fwd_",)),
+    ("B6/B7 attention backward", ("flash_bwd_",)),
     ("B9 MLP block", ("mlp_block_kernel",)),
-    ("B8 MLP backward", ("mlp_bwd_kernel",)),
+    ("B8 MLP backward", ("mlp_bwd_",)),
     ("B4 MLP forward", ("mlp_fwd_kernel",)),
     ("B2 image prep", ("image_prep_kernel",)),
     ("B1 similarity", ("similarity_kernel",)),

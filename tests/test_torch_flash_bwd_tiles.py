@@ -127,6 +127,99 @@ def tiled_bwd(q, k, v, do, bias, rate=0.0, seeds=None, bf16=False):
     return rnd(dq * scale), rnd(dk * scale), rnd(dv)
 
 
+SLICE = 64  # columns of a head-dim chunk and of a gradient slice, over D = 128
+
+
+def sliced_bwd(q, k, v, do, bias, rate=0.0, seeds=None):
+    """(dq, dk, dv) [B, H, N, D] fp32 by the sliced form the kernels run at
+    D > 128: D zero-padded to a multiple of 64; one block per 64-column
+    slice of each gradient, each recomputing S and dP as sums over 64-column
+    chunks of the head dim (rows pass over 64-key tiles, columns pass over
+    64-row query tiles); the columns pass reads slice 0's row statistics.
+    Also returns every slice's (m, 1/l, delta)."""
+    B, H, N, D = q.shape
+    scale = 1.0 / float(D) ** 0.5
+    inv = 1.0 / (1.0 - rate)
+    ninf = float("-inf")
+    W = -(-D // SLICE) * SLICE
+    q, k, v, do = (torch.nn.functional.pad(t, (0, W - D)) for t in (q, k, v, do))
+    chunks = [slice(c0, c0 + SLICE) for c0 in range(0, W, SLICE)]
+    keep = (fa.uniform01(torch.from_numpy(seeds), torch.arange(H)[None], N, N) >= rate
+            if rate else None)
+
+    def chunked(a, b):  # a·bᵀ summed over the chunks of the head dim
+        out = 0
+        for c in chunks:
+            out = out + a[..., c] @ b[..., c].transpose(-1, -2)
+        return out
+
+    # -- rows pass, one block a slice ----------------------------------------------
+    kp, vp = _pad(k, KEY_TILE), _pad(v, KEY_TILE)
+    bp = _pad(bias, KEY_TILE, ninf, -1)[:, None, None, :]
+    keep_r = _pad(keep, KEY_TILE, True, -1) if rate else None
+    tiles = range(0, kp.shape[-2], KEY_TILE)
+
+    def scores(j0):
+        kt, vt = kp[..., j0:j0 + KEY_TILE, :], vp[..., j0:j0 + KEY_TILE, :]
+        s = chunked(q, kt) * scale + bp[..., j0:j0 + KEY_TILE]
+        dp = chunked(do, vt)
+        if rate:
+            dp = torch.where(keep_r[..., j0:j0 + KEY_TILE], dp * inv, 0.0)
+        return s, dp, kt
+
+    dq, stats = [], []
+    for c in chunks:
+        m = torch.full((B, H, N, 1), ninf)
+        l = torch.zeros(B, H, N, 1)
+        pdp = torch.zeros(B, H, N, 1)
+        for j0 in tiles:
+            s, dp, _ = scores(j0)
+            mt = torch.maximum(m, s.amax(-1, keepdim=True))
+            mu = torch.where(mt == ninf, 0.0, mt)
+            corr = torch.exp(m - mu)
+            x = torch.exp(s - mu)
+            l = l * corr + x.sum(-1, keepdim=True)
+            pdp = pdp * corr + (x * dp).sum(-1, keepdim=True)
+            m = mt
+        delta, inv_l = pdp / l, 1.0 / l
+        m = torch.where(m == ninf, 0.0, m)
+        acc = torch.zeros(B, H, N, SLICE)
+        for j0 in tiles:
+            s, dp, kt = scores(j0)
+            acc = acc + torch.exp(s - m) * inv_l * (dp - delta) @ kt[..., c]
+        dq.append(acc)
+        stats.append((m, inv_l, delta))
+
+    # -- columns pass, one block a slice, slice 0's statistics --------------------
+    QT = 64
+    qp, dop = _pad(q, QT), _pad(do, QT)
+    mT, lT, dT = (_pad(x[..., 0], QT, 0.0, -1)[:, :, None, :] for x in stats[0])
+    valid = _pad(torch.ones(N, dtype=torch.bool), QT, False, -1)
+    keep_c = _pad(keep.transpose(-1, -2), QT, True, -1) if rate else None
+    kb = bias[:, None, :, None]
+    dk, dv = [], []
+    for c in chunks:
+        dka = torch.zeros(B, H, N, SLICE)
+        dva = torch.zeros(B, H, N, SLICE)
+        for i0 in range(0, qp.shape[-2], QT):
+            rows = slice(i0, i0 + QT)
+            qt, ot = qp[..., rows, :], dop[..., rows, :]
+            sT = chunked(k, qt) * scale + kb
+            dpT = chunked(v, ot)
+            p = torch.where(valid[rows], torch.exp(sT - mT[..., rows]) * lT[..., rows], 0.0)
+            if rate:
+                kt_ = keep_c[..., rows]
+                pd, dpT = torch.where(kt_, p * inv, 0.0), torch.where(kt_, dpT * inv, 0.0)
+            else:
+                pd = p
+            dva = dva + pd @ ot[..., c]
+            dka = dka + p * (dpT - dT[..., rows]) @ qt[..., c]
+        dk.append(dka)
+        dv.append(dva)
+    grads = (torch.cat(dq, -1) * scale, torch.cat(dk, -1) * scale, torch.cat(dv, -1))
+    return tuple(g[..., :D] for g in grads), stats
+
+
 def _case(N, D, seed=0, masked_row=False):
     """Head-major fp32 q, k, v, d(out) [2, 2, N, D] and a [2, N] bias with
     padded keys in batch row 0 (or, with ``masked_row``, every key of batch
@@ -200,6 +293,41 @@ def test_tiled_backward_in_bf16_within_two_steps_of_the_plain_version(N, D, rate
     for name, g, p in zip(("dq", "dk", "dv"), got, plain):
         _, worst = fa.grad_slice_error(g, p, "bhnd")
         assert worst <= 1.0, (name, worst)
+
+
+def _jax_split_grads(q, k, v, do, bias, rate):
+    """Gradients of q, k, v through the JAX split kernel (interpret mode)."""
+    def f(q_, k_, v_):
+        return jfa.flash_attention(q_, k_, v_, jnp.asarray(bias), dropout_rate=rate,
+                                   dropout_seeds=jnp.asarray(SEEDS) if rate else None,
+                                   layout="bhnd", interpret=True)
+
+    _, vjp = jax.vjp(f, *(jnp.asarray(a) for a in (q, k, v)))
+    return [np.asarray(g) for g in vjp(jnp.asarray(do))]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("D", [160, 320])
+@pytest.mark.parametrize("N", [13, 200])
+def test_sliced_backward_matches_plain_and_jax_in_fp32(N, D, rate):
+    """ROADMAP C4: the sliced form at D = 160 (padded to 192) and 320, fp32:
+    within 1e-5 of each gradient's largest entry of the plain backward and
+    of jax.vjp through the JAX split kernel in interpret mode; every slice's
+    row statistics equal bit for bit, so the one slice that writes them
+    writes what every slice used."""
+    q, k, v, do, bias = _case(N, D, seed=N + D)
+    ts = [torch.from_numpy(a) for a in (q, k, v, do, bias)]
+    got, stats = sliced_bwd(*ts, rate=rate, seeds=SEEDS if rate else None)
+    plain = fa.flash_attention_bwd_reference(
+        *ts[:4], ts[4], dropout_rate=rate,
+        dropout_seeds=torch.from_numpy(SEEDS) if rate else None)
+    want_jax = _jax_split_grads(q, k, v, do, bias, rate)
+    for name, g, p, j in zip(("dq", "dk", "dv"), got, plain, want_jax):
+        assert torch.isfinite(g).all(), name
+        tol = 1e-5 * float(p.abs().max())
+        np.testing.assert_allclose(g.numpy(), p.numpy(), atol=tol, rtol=0, err_msg=name)
+        np.testing.assert_allclose(g.numpy(), j, atol=tol, rtol=0, err_msg=name)
+    assert all(torch.equal(a, b) for st in stats[1:] for a, b in zip(st, stats[0]))
 
 
 def _train_like_case(B=8, H=2, N=200, D=64, seed=3):

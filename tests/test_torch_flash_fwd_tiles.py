@@ -104,6 +104,75 @@ def tiled_fwd(q, k, v, bias, rate=0.0, seeds=None, bf16=False, fault=None):
     return rnd(o), torch.cat(pv, -1)
 
 
+SLICE = 64  # columns of a head-dim chunk and of an output slice, over D = 128
+
+
+def sliced_fwd(q, k, v, bias, rate=0.0, seeds=None):
+    """(o [B, H, N, D], the (m, 1/l) of every slice) in fp32 by the sliced
+    form the kernels run at D > 128: D zero-padded to a multiple of 64, one
+    block per 64-column slice of o, each running both sweeps with
+    s = Σ over 64-column chunks of q_c·k_cᵀ, V's slice alone in PV."""
+    B, H, N, D = q.shape
+    scale = 1.0 / float(D) ** 0.5
+    inv = 1.0 / (1.0 - rate)
+    W = -(-D // SLICE) * SLICE
+    qp, kp, vp = (torch.nn.functional.pad(t, (0, W - D)) for t in (q, k, v))
+    kp, vp = _pad(kp), _pad(vp)
+    bp = _pad(bias, NINF, -1)[:, None, None, :]
+    tiles = range(0, kp.shape[-2], KEY_TILE)
+    chunks = range(0, W, SLICE)
+
+    def scores(j0):
+        s = torch.zeros(B, H, N, KEY_TILE)
+        for c0 in chunks:
+            s = s + qp[..., c0:c0 + SLICE] @ kp[..., j0:j0 + KEY_TILE, c0:c0 + SLICE].transpose(-1, -2)
+        return s * scale + bp[..., j0:j0 + KEY_TILE]
+
+    outs, stats = [], []
+    for c0 in chunks:  # one block a slice
+        m = torch.full((B, H, N, 1), NINF)
+        l = torch.zeros(B, H, N, 1)
+        for j0 in tiles:
+            s = scores(j0)
+            mt = torch.maximum(m, s.amax(-1, keepdim=True))
+            mu = torch.where(mt == NINF, 0.0, mt)
+            l = l * torch.exp(m - mu) + torch.exp(s - mu).sum(-1, keepdim=True)
+            m = mt
+        inv_l = 1.0 / l
+        m = torch.where(m == NINF, 0.0, m)
+        o = torch.zeros(B, H, N, SLICE)
+        for j0 in tiles:
+            p = torch.exp(scores(j0) - m) * inv_l
+            if rate:
+                u = fa.uniform01(torch.from_numpy(seeds), torch.arange(H)[None], N, j0 + KEY_TILE)
+                p = torch.where(u[..., j0:] >= rate, p * inv, 0.0)
+            o = o + p @ vp[..., j0:j0 + KEY_TILE, c0:c0 + SLICE]
+        outs.append(o)
+        stats.append((m, inv_l))
+    return torch.cat(outs, -1)[..., :D], stats
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("D", [160, 320])
+@pytest.mark.parametrize("N", [13, 200])
+def test_sliced_forward_matches_plain_and_jax_in_fp32(N, D, rate):
+    """ROADMAP C4: the sliced form at D = 160 (padded to 192) and 320, fp32:
+    within 1e-5 of the plain forward and of the JAX packed kernel in
+    interpret mode, and every slice's row statistics equal bit for bit."""
+    qkv_np, bias_np = _case(N, D, seed=N + D)
+    qkv, bias = torch.from_numpy(qkv_np), torch.from_numpy(bias_np)
+    kw = dict(dropout_rate=rate, dropout_seeds=torch.from_numpy(SEEDS)) if rate else {}
+    jkw = dict(dropout_rate=rate, dropout_seeds=jnp.asarray(SEEDS)) if rate else {}
+    o, stats = sliced_fwd(*_heads(qkv), bias, rate=rate, seeds=SEEDS)
+    got = o.transpose(1, 2).reshape(2, N, -1)
+    plain = fa.flash_attention_packed_reference(qkv, 2, bias, **kw)
+    want_jax = np.asarray(jfa.flash_attention_packed(jnp.asarray(qkv_np), 2, jnp.asarray(bias_np),
+                                                     interpret=True, **jkw))
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(got.numpy(), want_jax, atol=1e-5, rtol=0)
+    assert all(torch.equal(a, b) for st in stats[1:] for a, b in zip(st, stats[0]))
+
+
 FAULTS = ("p_rounded_before_the_division", "dropout_in_tile_coordinates",
           "keys_past_n_unmasked")
 

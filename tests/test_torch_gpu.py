@@ -185,7 +185,7 @@ def test_flash_attention_autograd_on_the_card(cuda):
 @pytest.mark.parametrize("R,H,F", [(4096, 768, 3072), (100, 768, 3072), (33, 512, 192)])
 def test_mlp_bwd_kernel(cuda, R, H, F):
     """(dx, g, dh) vs the plain backward: two bf16 steps at each output's
-    largest entry; R not a multiple of the 32-row tile."""
+    largest entry; R not a multiple of the 128-row tile."""
     gen = torch.Generator(cuda).manual_seed(0)
     x = torch.randn(R, H, device=cuda, generator=gen).bfloat16()
     w1 = (torch.randn(F, H, device=cuda, generator=gen) * H ** -0.5).bfloat16()
@@ -206,9 +206,13 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="dropout_seeds"):
         fa.flash_attention_packed(torch.zeros(2, 8, 6 * 64, device=cuda,
                                               dtype=torch.bfloat16), 2, dropout_rate=0.1)
-    with pytest.raises(ValueError, match="head dim"):
-        fa._kernel_bwd(torch.zeros(2, 8, 6 * 160, device=cuda, dtype=torch.bfloat16),
-                       torch.zeros(2, 8, 2 * 160, device=cuda, dtype=torch.bfloat16), 2, None)
+    with pytest.raises(ValueError, match="sequence length"):
+        fa._kernel_bwd(torch.zeros(2, 513, 6 * 64, device=cuda, dtype=torch.bfloat16),
+                       torch.zeros(2, 513, 2 * 64, device=cuda, dtype=torch.bfloat16), 2, None)
+    # ROADMAP C4, closed: head dim 160 is taken (padded to 192, run in slices)
+    qkv, do, bias = _attention_inputs(cuda, 2, 8, 2, 160)
+    _assert_grad_slices(fa._kernel_bwd(qkv, do, 2, bias),
+                        fa.flash_attention_packed_bwd_reference(qkv, do, 2, bias), "packed", 2)
     with pytest.raises(TypeError):
         fa._kernel_bwd(torch.zeros(2, 8, 6 * 64, device=cuda, dtype=torch.bfloat16),
                        torch.zeros(2, 8, 2 * 64, device=cuda), 2, None)
@@ -579,9 +583,16 @@ def test_flash_attention_bwd_is_deterministic(cuda):
 
 
 def test_split_kernels_refuse_what_they_do_not_take(cuda):
-    z = torch.zeros(2, 8, 2, 160, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head dim"):
+    z = torch.zeros(2, 513, 2, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="sequence length"):
         fa.flash_attention(z, z, z, layout="bnhd")
+    # ROADMAP C4, closed: head dim 160 is taken and matches the plain version
+    qkv, _, bias = _attention_inputs(cuda, 2, 8, 2, 160)
+    q, k, v = _split_from_packed(qkv, 2, "bnhd")
+    torch.testing.assert_close(
+        fa.flash_attention(q, k, v, bias, layout="bnhd").float(),
+        fa.flash_attention_reference(*(t.transpose(1, 2) for t in (q, k, v)), bias)
+        .transpose(1, 2).float(), atol=2e-2, rtol=0)
     with pytest.raises(TypeError):
         fa.flash_attention(*(torch.zeros(2, 8, 2, 64, device=cuda) for _ in range(3)),
                            layout="bnhd")
@@ -711,3 +722,106 @@ def test_kernels_take_a_batch_of_65537(cuda):
     _assert_grad_slices(fa._kernel_bwd(qkv, do, H, bias, **kw),
                         fa.flash_attention_packed_bwd_reference(qkv, do, H, bias, **kw),
                         "packed", H)
+
+
+# ---------------------------------------------------------------------------
+# B8 on wgmma with TMA-fed tiles: any multiple of 64, determinism
+# ---------------------------------------------------------------------------
+
+
+def _mlp_bwd_inputs(cuda, R, H, F, seed=0):
+    gen = torch.Generator(cuda).manual_seed(seed)
+    x = torch.randn(R, H, device=cuda, generator=gen).bfloat16()
+    w1 = (torch.randn(F, H, device=cuda, generator=gen) * H ** -0.5).bfloat16()
+    b1 = (torch.randn(F, device=cuda, generator=gen) * 0.1).bfloat16()
+    w2 = (torch.randn(H, F, device=cuda, generator=gen) * F ** -0.5).bfloat16()
+    dy = torch.randn(R, H, device=cuda, generator=gen).bfloat16()
+    return x, w1, b1, w2, dy
+
+
+@pytest.mark.parametrize("F", [64, 3072])
+@pytest.mark.parametrize("H", [192, 768, 1280])
+@pytest.mark.parametrize("R", [1, 129, 25600])
+def test_mlp_bwd_kernel_at_any_multiple_of_64(cuda, R, H, F):
+    """B8 (two wgmma kernels fed by TMA) at one row, one past a 128-row tile
+    and the train shape's rows; H past a 128-column tile (192), the train
+    width, and past the old MAX_HIDDEN (1280); F of one k-step and the train
+    width: (dx, g, dh) within two bf16 steps of each output's largest entry
+    of the plain backward."""
+    args = _mlp_bwd_inputs(cuda, R, H, F)
+    got = mlp._kernel_bwd(*args)
+    want = mlp.dense_gelu_dense_bwd_reference(*args)
+    for name, a, b in zip(("dx", "g", "dh"), got, want):
+        assert a.shape == b.shape and a.dtype == torch.bfloat16, name
+        assert torch.isfinite(a.float()).all(), name
+        torch.testing.assert_close(a.float(), b.float(), atol=_rel_tol(b), rtol=0, msg=name)
+
+
+def test_mlp_bwd_is_deterministic(cuda):
+    """No split of K and no atomics: two calls give the same bits, at the
+    train shape."""
+    args = _mlp_bwd_inputs(cuda, 25600, 768, 3072, seed=3)
+    first, second = mlp._kernel_bwd(*args), mlp._kernel_bwd(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+# ---------------------------------------------------------------------------
+# Head dims over 128 (ROADMAP C4, closed): B3/B5/B6/B7 in 64-column slices
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("D", [160, 256, 320])
+def test_flash_attention_kernels_over_head_dim_128(cuda, D, rate):
+    """B3 and B5 within two bf16 steps (2e-2) of the plain versions, B6 and
+    B7 per (batch row, head) slice within two bf16 steps; B5 and B7
+    bit-equal to B3 and B6 in both layouts; N = 200, padded keys, a fully
+    masked batch row 0. D = 160 runs padded to 192."""
+    B, N, H = 3, 200, 2
+    qkv, do, bias, kw = _bwd_case(cuda, B, N, H, D, rate)
+    out = fa.flash_attention_packed(qkv, H, bias, **kw)
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(),
+                               fa.flash_attention_packed_reference(qkv, H, bias, **kw).float(),
+                               atol=2e-2, rtol=0)
+    dqkv = fa._kernel_bwd(qkv, do, H, bias, **kw)
+    _assert_grad_slices(dqkv, fa.flash_attention_packed_bwd_reference(qkv, do, H, bias, **kw),
+                        "packed", H)
+    packed = dqkv.view(B, N, 3, H, D)
+    for layout in ("bnhd", "bhnd"):
+        q, k, v = _split_from_packed(qkv, H, layout)
+        dos = _to_bnhd(do.view(B, N, H, D), layout).contiguous()
+        split = fa.flash_attention(q, k, v, bias, layout=layout, **kw)
+        assert torch.equal(_to_bnhd(split, layout).reshape(B, N, H * D), out), layout
+        for i, g in enumerate(fa.flash_attention_bwd(q, k, v, dos, bias, layout=layout, **kw)):
+            assert torch.equal(_to_bnhd(g, layout), packed[:, :, i]), (layout, i)
+
+
+@pytest.mark.parametrize("D", [160, 320])
+def test_flash_attention_dropout_mask_over_head_dim_128(cuda, D):
+    """Every slice draws the same dropout mask: with q = k = 0, key windows
+    of D keys and one-hot v and d(out) (as chip_smoke.py's dropout_probe),
+    out and dv are nonzero exactly where (row, key) is kept, in B3's output
+    and B6's dv alike; their zero patterns equal the plain version's."""
+    B, N, H = 4, 200, 2
+    nwin = -(-N // D)
+    pos = torch.arange(N, device=cuda)
+    win = torch.arange(B, device=cuda) % nwin
+    in_key = (pos[None] // D) == win[:, None]
+    in_row = (pos[None] // D) == ((torch.arange(B, device=cuda) // nwin) % nwin)[:, None]
+    onehot = torch.nn.functional.one_hot(pos % D, D).float()
+    qkv = torch.zeros(B, N, 3, H, D, device=cuda)
+    qkv[:, :, 2] = (onehot[None] * in_key[..., None])[:, :, None, :]
+    qkv = qkv.reshape(B, N, 3 * H * D).bfloat16()
+    do = (onehot[None] * in_row[..., None])[:, :, None, :].expand(B, N, H, D)
+    do = do.reshape(B, N, H * D).bfloat16()
+    bias = torch.where(in_key, 0.0, -1e10)
+    kw = dict(dropout_rate=0.1, dropout_seeds=_seeds(cuda, B, 7))
+    got = fa.flash_attention_packed(qkv, H, bias, **kw)
+    want = fa.flash_attention_packed_reference(qkv, H, bias, **kw)
+    assert torch.equal(got != 0, want != 0)
+    gdv = fa._kernel_bwd(qkv, do, H, bias, **kw).view(B, N, 3, H, D)[:, :, 2]
+    wdv = fa.flash_attention_packed_bwd_reference(qkv, do, H, bias, **kw).view(
+        B, N, 3, H, D)[:, :, 2]
+    assert torch.equal(gdv != 0, wdv != 0)
+    assert 0.8 < float((want != 0).sum()) / (int(in_key.sum()) * N * H) < 0.97

@@ -180,7 +180,7 @@ def test_flash_attention_packed_at_head_dims_32_and_96(D, rate):
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-@pytest.mark.parametrize("D,width", [(20, 32), (96, 128), (33, 64)])
+@pytest.mark.parametrize("D,width", [(20, 32), (96, 128), (33, 64), (160, 192)])
 def test_padded_head_dim_route_is_the_plain_version_bit_for_bit(D, width, rate):
     """The kernel wrappers' route for a head dim that is not built: zero-pad
     each head to the built width, run at the scale of the original D, slice.
@@ -215,10 +215,23 @@ def test_padded_head_dim_route_is_the_plain_version_bit_for_bit(D, width, rate):
 
 
 def test_kernels_refuse_head_dims_over_128_before_the_card():
-    """D > 128 has no built width to pad to."""
-    with pytest.raises(ValueError, match="head dim 160"):
-        fa._kernel_dim(160)
+    """ROADMAP C4, closed: no head dim is refused. Over 128 the kernels run
+    every multiple of 64 in 64-column slices, and the wrappers pad any other
+    D to the next one; D = 160 reaches the device check of all four kernel
+    wrappers (the kernels run in tests/test_torch_gpu.py)."""
     assert [fa._kernel_dim(d) for d in (1, 32, 33, 64, 65, 128)] == [32, 32, 64, 64, 128, 128]
+    assert [fa._kernel_dim(d) for d in (129, 160, 192, 256, 300, 320, 1000)] == [
+        192, 192, 192, 256, 320, 320, 1024]
+    bf = torch.bfloat16
+    for call in (lambda: fa._kernel(torch.zeros(2, 8, 6 * 160, dtype=bf), 2, None),
+                 lambda: fa._kernel_bwd(torch.zeros(2, 8, 6 * 160, dtype=bf),
+                                        torch.zeros(2, 8, 2 * 160, dtype=bf), 2, None),
+                 lambda: fa._kernel_split(*(torch.zeros(2, 8, 2, 160, dtype=bf)
+                                            for _ in range(3)), None, "bnhd"),
+                 lambda: fa._kernel_split_bwd(*(torch.zeros(2, 2, 8, 160, dtype=bf)
+                                                for _ in range(4)), None, "bhnd")):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            call()
 
 
 def test_flash_attention_fully_masked_row_is_finite():
@@ -323,15 +336,27 @@ def _mlp_at(H, F=256):
                                                    eps=1e-6, gelu_approximate=False),
 ], ids=["mlp", "mlp_bwd", "mlp_block"])
 @pytest.mark.parametrize("H", [1152, 192])
-def test_mlp_kernels_name_their_width_bound(call, H):
-    """ROADMAP C3: B4, B8 and B9 take every hidden width that is a multiple
-    of 128 up to MAX_HIDDEN = 1024 (CXR_MLP_WIDTHS); anything else raises a
+def test_mlp_kernels_name_their_width_bound(call, H, request):
+    """ROADMAP C3: B4 and B9 take every hidden width that is a multiple of
+    128 up to MAX_HIDDEN = 1024 (CXR_MLP_WIDTHS); anything else raises a
     ValueError naming the bound before any launch, as MAX_SEQ_LEN does for
-    attention. 1024 is the bound: the fp32 [32, H] accumulator lives in 255
-    registers a thread."""
+    attention. 1024 is their bound: the fp32 [32, H] accumulator lives in
+    255 registers a thread. B8 (wgmma, no such accumulator) takes both
+    widths and reaches the device check."""
     assert mlp.MAX_HIDDEN == 1024
-    with pytest.raises(ValueError, match="MAX_HIDDEN = 1024"):
+    bwd = request.node.callspec.id.endswith("mlp_bwd")
+    with pytest.raises(ValueError, match="CUDA tensor" if bwd else "MAX_HIDDEN = 1024"):
         call(*_mlp_at(H))
+
+
+@pytest.mark.parametrize("H,F", [(64, 64), (320, 64), (1280, 3072), (96, 64), (128, 96)])
+def test_mlp_bwd_takes_every_multiple_of_64(H, F):
+    """B8 takes any H and F that are multiples of 64 (its TMA box and
+    k-step) and refuses others, naming the rule, before any launch."""
+    x, w1, b1, w2, dy, _ = _mlp_at(H, F)
+    ok = H % 64 == 0 and F % 64 == 0
+    with pytest.raises(ValueError, match="CUDA tensor" if ok else "multiple of 64"):
+        mlp._kernel_bwd(x, w1, b1, w2, dy)
 
 
 @pytest.mark.parametrize("H", [128, 256, 384, 512, 640, 768, 896, 1024])

@@ -14,6 +14,11 @@ from clip_for_dl_tpu_torch.tools.profile_paths import TOL, account, bucket_of, u
 @pytest.mark.parametrize("name, bucket", [
     ("void (anonymous namespace)::flash_fwd_kernel<64>(...)", "B3/B5 attention forward"),
     ("void (anonymous namespace)::flash_bwd_rows_kernel<64>(...)", "B6/B7 attention backward"),
+    ("void (anonymous namespace)::flash_fwd_sliced_kernel(...)", "B3/B5 attention forward"),
+    ("void (anonymous namespace)::mlp_bwd_gelu_kernel(CUtensorMap_st, CUtensorMap_st, ...)",
+     "B8 MLP backward"),
+    ("void (anonymous namespace)::mlp_bwd_dx_kernel(CUtensorMap_st, CUtensorMap_st, "
+     "__nv_bfloat16*, int, int, int)", "B8 MLP backward"),
     ("similarity_kernel(float const*, ...)", "B1 similarity"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64", "cuBLAS GEMMs"),
     ("Memcpy DtoD (Device -> Device)", "copies and casts"),
