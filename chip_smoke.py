@@ -13,8 +13,10 @@ Phases (any failure exits non-zero and prints no result line):
    ptxas' per-kernel summary and, from cuobjdump's SASS of the library, the
    tensor-core instructions (HMMA, HGMMA) of each attention kernel (the
    forward, and the backward's rows and columns pass, at D = 32, 64 and 128
-   and in the sliced form over 128; fails if one has none) and the HGMMA of
-   B8's two kernels (fails if either has none).
+   and in the sliced form over 128; fails if one has none), the HGMMA of
+   B8's two kernels (fails if either has none) and the HGMMA and HMMA of
+   the GEMM pair of B4 and of B9 (mlp_fwd_gelu_kernel, mlp_fwd_out_kernel;
+   fails at no HGMMA or any HMMA).
 2. Kernels: each of B1-B9 against its plain PyTorch version on the card at
    the main paths' shapes (B3 also with dropout 0.1 at the train shape, its
    dropout mask compared bit for bit, and at the ViT shape; B6 at rates 0
@@ -32,7 +34,9 @@ Phases (any failure exits non-zero and prints no result line):
    head dims over 128 (C4 closed): B3/B5/B6/B7 at D = 160, 256 and 320,
    rates 0 and 0.1, B5/B7 bit-equal to B3/B6, the dropout masks bit for
    bit. B8 is also timed beside its three products alone in cuBLAS (a
-   yardstick the port never calls) and held at H = 1280 and 192.
+   yardstick the port never calls), B4 and B9 beside their two, each with
+   its kernels' device times from torch.profiler; B4, B8 and B9 are held at
+   H = 1280 (F = 5120) and H = 192 (F = 768).
    Max abs/rel difference against
    the tolerance below (B6 and B7 per (batch row, head) slice of each
    gradient), both times the median of five CUDA-event timings after
@@ -440,6 +444,7 @@ def phase2(mods, dev, seed: int, batch: int, results: dict) -> None:
         lambda: mlp.dense_gelu_dense_reference(x, w1, b1, w2, b2), iters=10)
     set_bound(results, "mlp", 4 * 12800 * 768 * 3072,
               (x, w1, b1, w2, b2, mlp.dense_gelu_dense(x, w1, b1, w2, b2)))
+    mlp_fwd_yardstick("B4", lambda: mlp.dense_gelu_dense(x, w1, b1, w2, b2), x, w1, w2)
     del x
 
     print(f"B3 attention at the ViT shape: qkv [{batch}, {VIT_TOKENS}, 2304] bf16, no key bias")
@@ -491,9 +496,28 @@ def check_mlp_block(blk, dev, seed: int, rows: int, results: dict) -> None:
     results["mlp_block"]["plain_ms"] = cuda_ms(
         lambda: blk.fused_mlp_block_reference(*args), iters=10)
     set_bound(results, "mlp_block", 4 * rows * H * F, args + (blk.fused_mlp_block(*args),))
+    mlp_fwd_yardstick("B9", lambda: blk.fused_mlp_block(*args), x, w1, w2)
     extra_times(f"B9 at one request ({VIT_TOKENS} rows)", lambda: blk.fused_mlp_block(*one),
                 lambda: blk.fused_mlp_block_reference(*one), 4 * VIT_TOKENS * H * F,
                 one + (blk.fused_mlp_block(*one),))
+    mlp_fwd_yardstick(f"B9 at one request ({VIT_TOKENS} rows)",
+                      lambda: blk.fused_mlp_block(*one), one[0], w1, w2)
+
+
+def mlp_fwd_yardstick(what: str, kernel, x, w1, w2) -> None:
+    """Print the device time of each kernel of an MLP forward call (B4: the
+    GEMM pair; B9: also its LayerNorm pass) and, as a yardstick the port
+    never calls, the time of its two products alone in cuBLAS (torch.matmul,
+    bf16: x·W1ᵀ, then g·W2ᵀ on a bf16 g of the same shape)."""
+    import torch
+
+    g = torch.empty(x.shape[0], w1.shape[0], dtype=torch.bfloat16, device=x.device).normal_()
+    products = cuda_ms(lambda: (torch.matmul(x, w1.T), torch.matmul(g, w2.T)), iters=10)
+    split = kernel_device_ms(kernel, ("mlp_block_ln_kernel", "mlp_fwd_gelu_kernel",
+                                      "mlp_fwd_out_kernel"))
+    print(f"  {what}: its two products alone in cuBLAS {products:.4f} ms (a yardstick, never "
+          "called by the port); device ms a call (torch.profiler): "
+          + ", ".join(f"{k} {v}" for k, v in split.items()))
 
 
 def extra_times(what: str, kernel, plain, flops: float, io, library_ms=None,
@@ -681,13 +705,15 @@ def phase2_repairs(mods, dev, seed: int, results: dict) -> None:
     extra_times("C3: B8 at hidden 256", lambda: mlp._kernel_bwd(x, w1, b1, w2, dy),
                 lambda: mlp.dense_gelu_dense_bwd_reference(x, w1, b1, w2, dy), 6 * R * HID * F,
                 (x, w1, b1, w2, dy) + tuple(mlp._kernel_bwd(x, w1, b1, w2, dy)))
+    blk = mods["mlp_block"]
     for HID, F in ((1280, 5120), (192, 768)):
-        print(f"B8 past the old width bounds: x, dy [{R}, {HID}] bf16, F = {F}")
+        print(f"B4, B8 and B9 past the old width bounds: x, dy [{R}, {HID}] bf16, F = {F}")
         x = torch.randn(R, HID, device=dev, generator=g).bfloat16()
         dy = (torch.randn(R, HID, device=dev, generator=g) * 0.1).bfloat16()
         w1 = (torch.randn(F, HID, device=dev, generator=g) * HID ** -0.5).bfloat16()
         b1 = (torch.randn(F, device=dev, generator=g) * 0.02).bfloat16()
         w2 = (torch.randn(HID, F, device=dev, generator=g) * F ** -0.5).bfloat16()
+        b2 = (torch.randn(HID, device=dev, generator=g) * 0.02).bfloat16()
         got = mlp._kernel_bwd(x, w1, b1, w2, dy)
         for a_, b_ in zip(got, mlp.dense_gelu_dense_bwd_reference(x, w1, b1, w2, dy)):
             compare("mlp_bwd", a_, b_, TOL["bwd_rel"] * float(b_.float().abs().max()), results)
@@ -695,6 +721,30 @@ def phase2_repairs(mods, dev, seed: int, results: dict) -> None:
                     lambda: mlp.dense_gelu_dense_bwd_reference(x, w1, b1, w2, dy),
                     6 * R * HID * F, (x, w1, b1, w2, dy) + tuple(got))
         del got
+        compare("mlp", mlp._kernel(x, w1, b1, w2, b2),
+                mlp.dense_gelu_dense_reference(x, w1, b1, w2, b2), TOL["mlp"], results)
+        extra_times(f"B4 at hidden {HID}, F = {F}", lambda: mlp._kernel(x, w1, b1, w2, b2),
+                    lambda: mlp.dense_gelu_dense_reference(x, w1, b1, w2, b2),
+                    4 * R * HID * F, (x, w1, b1, w2, b2, mlp._kernel(x, w1, b1, w2, b2)))
+        mlp_fwd_yardstick(f"B4 at hidden {HID}", lambda: mlp._kernel(x, w1, b1, w2, b2),
+                          x, w1, w2)
+        # B9 through its wrapper's kernel entry: the public function keeps
+        # JAX's rule (multiples of 128), which 192 breaks
+        ls = 1.0 + 0.1 * torch.randn(HID, device=dev, generator=g)
+        lb, fb2 = (0.1 * torch.randn(HID, device=dev, generator=g) for _ in range(2))
+        fb1 = 0.1 * torch.randn(F, device=dev, generator=g)
+        args = (x, ls, lb, w1, fb1, w2, fb2)
+        for approximate in (False, True):
+            kw = dict(eps=1e-6, gelu_approximate=approximate)
+            want = blk.fused_mlp_block_reference(*args, **kw).float() - x.float()
+            compare("mlp_block", blk._kernel(*args, **kw).float() - x.float(), want,
+                    TOL["mlp_block_rel"] * float(want.abs().max()), results)
+        del want
+        kw = dict(eps=1e-6, gelu_approximate=False)
+        extra_times(f"B9 at hidden {HID}, F = {F}", lambda: blk._kernel(*args, **kw),
+                    lambda: blk.fused_mlp_block_reference(*args, **kw), 4 * R * HID * F,
+                    args + (blk._kernel(*args, **kw),))
+        mlp_fwd_yardstick(f"B9 at hidden {HID}", lambda: blk._kernel(*args, **kw), x, w1, w2)
 
 
 def phase2_limits(mods, dev, seed: int, results: dict) -> None:
@@ -1506,6 +1556,13 @@ def main(argv=None) -> int:
                        for i in (0, 1))
         print(f"B8 {kernel}: HGMMA {hgmma}, HMMA {hmma}")
         check(hgmma > 0, f"{kernel} has no HGMMA instruction")
+    for which, epilogue in (("B4", "Dense"), ("B9", "MlpBlock")):
+        for kernel in ("mlp_fwd_gelu_kernel", "mlp_fwd_out_kernel"):
+            found = [c for name, c in counts.items() if kernel in name and epilogue in name]
+            hmma, hgmma = (sum(c[i] for c in found) for i in (0, 1))
+            print(f"{which} {kernel}: HGMMA {hgmma}, HMMA {hmma}")
+            check(len(found) == 1 and hgmma > 0 and hmma == 0,
+                  f"{which} {kernel}: {len(found)} instances, HGMMA {hgmma}, HMMA {hmma}")
 
     results: dict = {}
     phase2(mods, dev, args.seed, BATCH, results)

@@ -70,13 +70,6 @@ struct HeadStrides {
   long long b, n, h;
 };
 
-// Hidden widths the WMMA MLP kernels (B4, B9) are instantiated for: every
-// multiple of 128 up to 1024 (MAX_HIDDEN in ops/mlp_train.py), the widths the
-// TPU kernels take (a multiple of 128) within one block's shared memory and
-// 255 registers a thread. X(h) is expanded once for each. B8 (wgmma) takes
-// any multiple of 64.
-#define CXR_MLP_WIDTHS(X) X(128) X(256) X(384) X(512) X(640) X(768) X(896) X(1024)
-
 // Opt a kernel into more than 48 KB of dynamic shared memory.
 template <typename K>
 inline cudaError_t allow_smem(K kernel, size_t bytes) {

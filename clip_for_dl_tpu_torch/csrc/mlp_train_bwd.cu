@@ -47,14 +47,14 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kRows = 128;  // rows of a block tile: two consumer warpgroups of 64
-constexpr int kCols = 128;  // output columns of a block tile
-constexpr int kK = 64;      // k-step: one 128-byte swizzle row of bf16
-constexpr int kConsumers = 256;
-constexpr int kThreads = kConsumers + 32;  // and one producer warp
-constexpr uint32_t kBox = kRows * kK * 2;  // a K-major box, 128 rows x 64 k: 16 KB
-constexpr uint32_t kHalf = kK * 64 * 2;    // an N-major box, 64 k-rows x 64 columns: 8 KB
-constexpr uint32_t kWarpgroupRows = 64 * kK * 2;  // a consumer's 64 rows of a K-major box
+using cxr::kBox;
+using cxr::kCols;
+using cxr::kK;
+using cxr::kRows;
+using cxr::kWarpgroupRows;
+constexpr int kConsumers = cxr::kConsumerThreads;
+constexpr int kThreads = cxr::kRingThreads;
+constexpr uint32_t kHalf = kK * 64 * 2;  // an N-major box, 64 k-rows x 64 columns: 8 KB
 
 // B8a: x, dy, W1 (K-major) and W2 (two N-major halves) a stage
 constexpr int kStagesGelu = 3;
@@ -62,73 +62,6 @@ constexpr uint32_t kStageGelu = 4 * kBox;
 // B8b: dh (K-major) and W1 (two N-major halves) a stage
 constexpr int kStagesDx = 4;
 constexpr uint32_t kStageDx = 2 * kBox;
-
-template <int STAGES, uint32_t STAGE>
-constexpr size_t smem_bytes() {
-  return (size_t)STAGES * STAGE + 2 * STAGES * 8 + 1024;  // stages, barriers, alignment
-}
-
-// The ring of a block: the 1024-byte aligned base of its stages, and a full
-// and an empty barrier a stage after them.
-template <int STAGES, uint32_t STAGE>
-struct Ring {
-  uint32_t base;
-  __device__ uint32_t stage(int s) const { return base + s * STAGE; }
-  __device__ uint32_t full(int s) const { return base + STAGES * STAGE + 8 * s; }
-  __device__ uint32_t empty(int s) const { return base + STAGES * STAGE + 8 * (STAGES + s); }
-
-  // thread 0 initializes the barriers: the producer's expect_tx completes a
-  // full barrier, one arrival of each consumer warpgroup an empty one
-  __device__ void init() const {
-    if (threadIdx.x == 0) {
-      for (int s = 0; s < STAGES; ++s) {
-        cxr::mbar_init(full(s), 1);
-        cxr::mbar_init(empty(s), kConsumers / 128);
-      }
-      cxr::fence_barrier_init();
-    }
-    __syncthreads();
-  }
-};
-
-template <int STAGES, uint32_t STAGE>
-__device__ Ring<STAGES, STAGE> make_ring(unsigned char* smem) {
-  return {(cxr::smem_addr(smem) + 1023u) & ~1023u};
-}
-
-// The producer warp's lane 0: for each of nk k-steps, wait for a free stage,
-// then load(stage address, its full barrier, k) issues that step's TMA
-// copies of STAGE bytes in all.
-template <int STAGES, uint32_t STAGE, typename Load>
-__device__ __forceinline__ void produce(const Ring<STAGES, STAGE>& ring, int nk, Load load) {
-  for (int k = 0, s = 0, phase = 0; k < nk; ++k) {
-    cxr::mbar_wait(ring.empty(s), phase ^ 1);
-    cxr::mbar_expect_tx(ring.full(s), STAGE);
-    load(ring.stage(s), ring.full(s), k);
-    if (++s == STAGES) s = 0, phase ^= 1;
-  }
-}
-
-// A consumer warpgroup: for each of nk k-steps, wait for the stage, issue
-// mma(stage address) (the step's wgmma instructions), commit them, and
-// release the previous step's stage once its products are done. Returns with
-// every product complete.
-template <int STAGES, uint32_t STAGE, typename Mma>
-__device__ __forceinline__ void consume(const Ring<STAGES, STAGE>& ring, int nk, Mma mma) {
-  const bool leader = threadIdx.x % 128 == 0;
-  int prev = 0;
-  for (int k = 0, s = 0, phase = 0; k < nk; ++k) {
-    cxr::mbar_wait(ring.full(s), phase);
-    cxr::wgmma_fence();
-    mma(ring.stage(s));
-    cxr::wgmma_commit();
-    cxr::wgmma_wait<1>();  // the previous step's products have read their stage
-    if (k > 0 && leader) cxr::mbar_arrive(ring.empty(prev));
-    prev = s;
-    if (++s == STAGES) s = 0, phase ^= 1;
-  }
-  cxr::wgmma_wait<0>();
-}
 
 // B8a: g and dh of one 128 x 128 tile of [R, F]
 __global__ void __launch_bounds__(kThreads, 1)
@@ -138,7 +71,7 @@ mlp_bwd_gelu_kernel(const __grid_constant__ CUtensorMap x_map,
                     const __grid_constant__ CUtensorMap w2_map, const bf16* __restrict__ b1,
                     bf16* __restrict__ g, bf16* __restrict__ dh, int R, int H, int F) {
   extern __shared__ unsigned char smem[];
-  const auto ring = make_ring<kStagesGelu, kStageGelu>(smem);
+  const auto ring = cxr::make_ring<kStagesGelu, kStageGelu>(smem);
   ring.init();
   const int nf = (F + kCols - 1) / kCols;
   const int f0 = (blockIdx.x % nf) * kCols, r0 = (blockIdx.x / nf) * kRows;
@@ -146,7 +79,7 @@ mlp_bwd_gelu_kernel(const __grid_constant__ CUtensorMap x_map,
 
   if (threadIdx.x >= kConsumers) {  // the producer warp
     if (threadIdx.x == kConsumers)
-      produce(ring, nk, [&](uint32_t st, uint32_t full, int k) {
+      cxr::produce(ring, nk, [&](uint32_t st, uint32_t full, int k) {
         cxr::tma_load(st, &x_map, full, k * kK, r0);
         cxr::tma_load(st + kBox, &dy_map, full, k * kK, r0);
         cxr::tma_load(st + 2 * kBox, &w1_map, full, k * kK, f0);
@@ -162,7 +95,7 @@ mlp_bwd_gelu_kernel(const __grid_constant__ CUtensorMap x_map,
   for (int i = 0; i < 64; ++i) h[i] = dg[i] = 0.f;
   cxr::fence_accumulators(h);
   cxr::fence_accumulators(dg);
-  consume(ring, nk, [&](uint32_t st) {
+  cxr::consume(ring, nk, [&](uint32_t st) {
     const uint32_t xa = st + wg * kWarpgroupRows, dya = xa + kBox;
 #pragma unroll
     for (int kk = 0; kk < kK / 16; ++kk) {
@@ -213,7 +146,7 @@ mlp_bwd_dx_kernel(const __grid_constant__ CUtensorMap dh_map,
                   const __grid_constant__ CUtensorMap w1_map, bf16* __restrict__ dx, int R,
                   int H, int F) {
   extern __shared__ unsigned char smem[];
-  const auto ring = make_ring<kStagesDx, kStageDx>(smem);
+  const auto ring = cxr::make_ring<kStagesDx, kStageDx>(smem);
   ring.init();
   const int nh = (H + kCols - 1) / kCols;
   const int n0 = (blockIdx.x % nh) * kCols, r0 = (blockIdx.x / nh) * kRows;
@@ -221,7 +154,7 @@ mlp_bwd_dx_kernel(const __grid_constant__ CUtensorMap dh_map,
 
   if (threadIdx.x >= kConsumers) {
     if (threadIdx.x == kConsumers)
-      produce(ring, nk, [&](uint32_t st, uint32_t full, int k) {
+      cxr::produce(ring, nk, [&](uint32_t st, uint32_t full, int k) {
         cxr::tma_load(st, &dh_map, full, k * kK, r0);
         cxr::tma_load(st + kBox, &w1_map, full, n0, k * kK);
         cxr::tma_load(st + kBox + kHalf, &w1_map, full, n0 + 64, k * kK);
@@ -234,7 +167,7 @@ mlp_bwd_dx_kernel(const __grid_constant__ CUtensorMap dh_map,
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.f;
   cxr::fence_accumulators(acc);
-  consume(ring, nk, [&](uint32_t st) {
+  cxr::consume(ring, nk, [&](uint32_t st) {
     const uint32_t a = st + wg * kWarpgroupRows;
 #pragma unroll
     for (int kk = 0; kk < kK / 16; ++kk)
@@ -280,8 +213,8 @@ CXR_API int cxr_mlp_bwd(const void* x, const void* w1, const void* b1, const voi
       (err = cxr::bf16_tensor_map(&dh_map, dh, F, R, kRows)) != cudaSuccess ||
       (err = cxr::bf16_tensor_map(&w1_n, w1, H, F, kK)) != cudaSuccess)
     return err;
-  constexpr size_t gelu_smem = smem_bytes<kStagesGelu, kStageGelu>();
-  constexpr size_t dx_smem = smem_bytes<kStagesDx, kStageDx>();
+  constexpr size_t gelu_smem = cxr::ring_smem_bytes<kStagesGelu, kStageGelu>();
+  constexpr size_t dx_smem = cxr::ring_smem_bytes<kStagesDx, kStageDx>();
   if ((err = cxr::allow_smem(mlp_bwd_gelu_kernel, gelu_smem)) != cudaSuccess ||
       (err = cxr::allow_smem(mlp_bwd_dx_kernel, dx_smem)) != cudaSuccess)
     return err;

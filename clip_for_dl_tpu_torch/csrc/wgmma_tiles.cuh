@@ -1,10 +1,13 @@
 // Hopper's asynchronous tensor-core path, shared by the MLP kernels that run
-// on it (B8: mlp_train_bwd.cu): TMA tensor maps and loads into shared
-// memory, mbarriers that tell a consumer a stage has landed and a producer a
-// stage is free again, and wgmma.mma_async on operands read from shared
-// memory through matrix descriptors. All of it is inline PTX, as
-// mma_tiles.cuh is for mma.sync; every kernel that includes it is built for
-// sm_90a (wgmma exists for that target only).
+// on it (B8: mlp_train_bwd.cu; B4 and B9 through mlp_fwd.cuh): TMA tensor
+// maps and loads into shared memory, mbarriers that tell a consumer a stage
+// has landed and a producer a stage is free again, wgmma.mma_async on
+// operands read from shared memory through matrix descriptors, and the ring
+// that ties them together: one producer warp keeps TMA loads of whole
+// k-steps in flight through STAGES stages while two consumer warpgroups of
+// 64 rows run wgmma on the stages that have landed. All of it is inline
+// PTX, as mma_tiles.cuh is for mma.sync; every kernel that includes it is
+// built for sm_90a (wgmma exists for that target only).
 //
 // Tiles. Every operand is bf16 and reaches shared memory as TMA boxes with
 // the 128-byte swizzle: a box row is 64 values (128 bytes), and each group
@@ -184,6 +187,86 @@ __device__ __forceinline__ void wgmma_128(float (&d)[64], uint64_t a, uint64_t b
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
         "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(a), "l"(b), "r"(1), "n"(TransB));
+}
+
+// ---- device: the producer/consumer ring ---------------------------------------
+
+// The block of every kernel on the ring: two consumer warpgroups, then one
+// producer warp; its output tile is kRows x kCols, its k-steps kK wide.
+constexpr int kConsumerThreads = 256;
+constexpr int kRingThreads = kConsumerThreads + 32;
+constexpr int kRows = 128;  // rows of a block tile: two consumer warpgroups of 64
+constexpr int kCols = 128;  // output columns of a block tile
+constexpr int kK = 64;      // k-step: one 128-byte swizzle row of bf16
+constexpr uint32_t kBox = kRows * kK * 2;  // a K-major box, 128 rows x 64 k: 16 KB
+constexpr uint32_t kWarpgroupRows = 64 * kK * 2;  // a consumer's 64 rows of a K-major box
+
+// dynamic shared memory of a ring: stages, barriers, alignment
+template <int STAGES, uint32_t STAGE>
+constexpr size_t ring_smem_bytes() {
+  return (size_t)STAGES * STAGE + 2 * STAGES * 8 + 1024;
+}
+
+// The ring of a block: the 1024-byte aligned base of its stages, and a full
+// and an empty barrier a stage after them.
+template <int STAGES, uint32_t STAGE>
+struct Ring {
+  uint32_t base;
+  __device__ uint32_t stage(int s) const { return base + s * STAGE; }
+  __device__ uint32_t full(int s) const { return base + STAGES * STAGE + 8 * s; }
+  __device__ uint32_t empty(int s) const { return base + STAGES * STAGE + 8 * (STAGES + s); }
+
+  // thread 0 initializes the barriers: the producer's expect_tx completes a
+  // full barrier, one arrival of each consumer warpgroup an empty one
+  __device__ void init() const {
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < STAGES; ++s) {
+        mbar_init(full(s), 1);
+        mbar_init(empty(s), kConsumerThreads / 128);
+      }
+      fence_barrier_init();
+    }
+    __syncthreads();
+  }
+};
+
+template <int STAGES, uint32_t STAGE>
+__device__ Ring<STAGES, STAGE> make_ring(unsigned char* smem) {
+  return {(smem_addr(smem) + 1023u) & ~1023u};
+}
+
+// The producer warp's lane 0: for each of nk k-steps, wait for a free stage,
+// then load(stage address, its full barrier, k) issues that step's TMA
+// copies of STAGE bytes in all.
+template <int STAGES, uint32_t STAGE, typename Load>
+__device__ __forceinline__ void produce(const Ring<STAGES, STAGE>& ring, int nk, Load load) {
+  for (int k = 0, s = 0, phase = 0; k < nk; ++k) {
+    mbar_wait(ring.empty(s), phase ^ 1);
+    mbar_expect_tx(ring.full(s), STAGE);
+    load(ring.stage(s), ring.full(s), k);
+    if (++s == STAGES) s = 0, phase ^= 1;
+  }
+}
+
+// A consumer warpgroup: for each of nk k-steps, wait for the stage, issue
+// mma(stage address) (the step's wgmma instructions), commit them, and
+// release the previous step's stage once its products are done. Returns with
+// every product complete.
+template <int STAGES, uint32_t STAGE, typename Mma>
+__device__ __forceinline__ void consume(const Ring<STAGES, STAGE>& ring, int nk, Mma mma) {
+  const bool leader = threadIdx.x % 128 == 0;
+  int prev = 0;
+  for (int k = 0, s = 0, phase = 0; k < nk; ++k) {
+    mbar_wait(ring.full(s), phase);
+    wgmma_fence();
+    mma(ring.stage(s));
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous step's products have read their stage
+    if (k > 0 && leader) mbar_arrive(ring.empty(prev));
+    prev = s;
+    if (++s == STAGES) s = 0, phase ^= 1;
+  }
+  wgmma_wait<0>();
 }
 
 }  // namespace cxr

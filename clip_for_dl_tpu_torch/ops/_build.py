@@ -4,8 +4,8 @@ Every source under ``clip_for_dl_tpu_torch/csrc/`` is compiled by its own
 ``nvcc`` for ``sm_90a``, all of them started together, and the objects are
 linked into one shared library with a plain C interface, loaded with ctypes.
 The sources include no PyTorch header, so the build takes seconds.
-The TMA tensor maps of B8 (``csrc/wgmma_tiles.cuh``) are encoded with
-libcuda's ``cuTensorMapEncodeTiled``, fetched at run time through the
+The TMA tensor maps of B4, B8 and B9 (``csrc/wgmma_tiles.cuh``) are encoded
+with libcuda's ``cuTensorMapEncodeTiled``, fetched at run time through the
 runtime's ``cudaGetDriverEntryPoint``, so the link needs no ``-lcuda``.
 It runs on first use, never at import (the CPU tests import every module),
 into ``_kernel_build/`` beside this package, under a name that hashes the
@@ -62,12 +62,13 @@ _SIGNATURES = {
     # q, k, v, do, bias, seeds, dq, dk, dv, stats, strides (21 int64 in host
     # memory), B, N, H, D, scale, rate, 1/(1-rate), stream
     "cxr_flash_bwd": (_P,) * 11 + (_I,) * 4 + (_F,) * 3 + (_P,),
-    # x, w1, b1, w2, b2, y, R, H, F, stream
-    "cxr_mlp_fwd": (_P,) * 6 + (_I,) * 3 + (_P,),
+    # x, w1, b1, w2, b2, y, g (scratch), R, H, F, stream
+    "cxr_mlp_fwd": (_P,) * 7 + (_I,) * 3 + (_P,),
     # x, w1, b1, w2, dy, dx, g, dh, R, H, F, stream
     "cxr_mlp_bwd": (_P,) * 8 + (_I,) * 3 + (_P,),
-    # x, ln_scale, ln_bias, w1, b1, w2, b2, out, R, H, F, eps, approximate, stream
-    "cxr_mlp_block": (_P,) * 8 + (_I,) * 3 + (_F, _I, _P),
+    # x, ln_scale, ln_bias, w1, b1, w2, b2, out, y, g (scratch), R, H, F, eps,
+    # approximate, stream
+    "cxr_mlp_block": (_P,) * 10 + (_I,) * 3 + (_F, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -143,10 +144,12 @@ def build() -> ctypes.CDLL:
         return lib
 
 
-def load(path) -> ctypes.CDLL:
-    """The kernel library at ``path``, every entry point's signature set."""
+def load(path, signatures=None) -> ctypes.CDLL:
+    """The kernel library at ``path``, every entry point's signature set:
+    this checkout's, or ``signatures`` (another checkout's, whose C
+    interface may differ)."""
     lib = ctypes.CDLL(str(path))
-    for name, argtypes in _SIGNATURES.items():
+    for name, argtypes in (signatures or _SIGNATURES).items():
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
@@ -155,9 +158,10 @@ def load(path) -> ctypes.CDLL:
     return lib
 
 
-def use_library(lib: ctypes.CDLL) -> None:
-    """Launch every kernel from ``lib`` from now on: another build of the
-    same C interface, such as another checkout's (``tools/compare_builds``)."""
+def use_library(lib) -> None:
+    """Launch every kernel from ``lib`` from now on: another build, such as
+    another checkout's, called with this checkout's arguments
+    (``tools/compare_builds.other_library``)."""
     global _lib
     with _lock:
         _lib = lib

@@ -14,6 +14,17 @@ function takes them transposed) and are cast to x's dtype, while the
 LayerNorm parameters and both biases stay as given, as ``fused_mlp_block``
 passes them to its kernel. H and F must be multiples of 128, as in JAX.
 
+B9 replaces the TPU kernel ``_mlp_block_kernel``
+(``clip_for_dl_tpu/ops/mlp_block.py:78``) with three launches: a LayerNorm
+row pass (memory-bound) that writes the bf16 y, then the two wgmma kernels
+of ``csrc/mlp_fwd.cuh``, bound by tensor-core math: g = bf16(gelu(y·W1ᵀ +
+b1)), then out = x + bf16(g·W2ᵀ + b2). y and g are scratch that the wrapper
+allocates. The TPU kernel kept both on chip; on the card a fused kernel
+would hold an fp32 [64, H] output accumulator a warpgroup (49,152
+registers at H = 768, all 65,536 of an SM at H = 1024), so they pass
+through device memory, rounded where the TPU kernel rounds them. The kernel
+itself takes any H and F that are multiples of 64 (``check_widths``).
+
 :func:`fused_mlp_block_trainable` runs the same forward inside
 :class:`_MLPBlock`, which saves only its inputs; the backward is autograd
 through :func:`fused_mlp_block_reference`, recomputed from them, as the JAX
@@ -27,7 +38,7 @@ import torch
 from torch.nn.functional import gelu
 
 from . import _build
-from .mlp_train import check_hidden
+from .mlp_train import check_widths
 
 KERNEL = "cxr_mlp_block"
 
@@ -132,19 +143,21 @@ class _MLPBlock(torch.autograd.Function):
 def _kernel(x, ln_scale, ln_bias, w1, b1, w2, b2, *, eps, gelu_approximate):
     R, H = x.shape
     F = w1.shape[0]
-    check_hidden(H)  # F % 128 is _check_shapes' rule, the caller's
+    check_widths(H, F)  # the public function holds JAX's stricter rule
     dev = x.device
     bf, f32 = torch.bfloat16, torch.float32
     _build.check_tensor(x, "x", bf, align=16)
-    _build.check_tensor(w1, "w1", bf, (F, H), dev, align=32)
-    _build.check_tensor(w2, "w2", bf, (H, F), dev, align=32)
+    _build.check_tensor(w1, "w1", bf, (F, H), dev, align=16)
+    _build.check_tensor(w2, "w2", bf, (H, F), dev, align=16)
     # the LayerNorm parameters and biases enter the kernel in fp32
     ls, lb, b1, b2 = (t.float() for t in (ln_scale, ln_bias, b1, b2))
     for t, name, n in ((ls, "ln_scale", H), (lb, "ln_bias", H), (b1, "b1", F), (b2, "b2", H)):
         _build.check_tensor(t, name, f32, (n,), dev, align=4)
     out = torch.empty_like(x)
     if R:
+        y = torch.empty_like(x)  # the LayerNorm pass's output
+        g = torch.empty((R, F), dtype=bf, device=dev)  # GEMM-1's output
         _build.launch(KERNEL, dev, x.data_ptr(), ls.data_ptr(), lb.data_ptr(), w1.data_ptr(),
-                      b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(), R, H, F,
-                      float(eps), int(gelu_approximate))
+                      b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
+                      y.data_ptr(), g.data_ptr(), R, H, F, float(eps), int(gelu_approximate))
     return out

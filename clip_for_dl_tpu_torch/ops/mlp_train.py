@@ -8,8 +8,16 @@ Counterpart of ``clip_for_dl_tpu.ops.mlp_train.dense_gelu_dense``:
 with the weights in ``nn.Linear`` layout (w1 [F, H], w2 [H2, F]; the JAX
 function takes them transposed). Both products accumulate in fp32, GELU is
 exact erf in fp32 and its output is cast to x's dtype before the second
-product. The [rows, F] intermediate never reaches device memory in the
-forward.
+product.
+
+B4 replaces the TPU kernel ``_fwd_kernel`` (``clip_for_dl_tpu/ops/
+mlp_train.py:99``) and is two wgmma kernels fed by TMA
+(``csrc/mlp_fwd.cuh``): ``g = bf16(gelu(x·W1ᵀ + b1))`` into a scratch
+[rows, F] that the wrapper allocates, then ``y = g·W2ᵀ + b2``. Both are
+bound by tensor-core math. The TPU kernel kept g on chip; on the card a
+fused kernel would hold an fp32 [64, H] output accumulator a warpgroup
+(49,152 registers at H = 768, all 65,536 of an SM at H = 1024), so g passes
+through device memory, rounded where the TPU kernel rounds it.
 
 When a gradient is required the call goes through :class:`_MLP`, which saves
 only (x, w1, b1, w2, b2), as the JAX custom VJP does. Its backward runs B8,
@@ -17,8 +25,8 @@ which recomputes h from x and returns dx with the bf16 ``g = gelu(h)`` and
 ``dh = (dy·W2)⊙gelu′(h)``; the two weight gradients are then plain products
 outside the kernel (``dW1 = dhᵀ·x``, ``dW2 = dyᵀ·g``), and the bias
 gradients fp32 sums, as ``_mlp_bwd`` does. B8 is two wgmma kernels fed by
-TMA (g and dh, then dx = dh·W1) and takes any hidden and intermediate width
-that is a multiple of 64 (:func:`check_bwd_widths`).
+TMA too (g and dh, then dx = dh·W1). B4 and B8 take any hidden and
+intermediate width that is a multiple of 64 (:func:`check_widths`).
 """
 
 from __future__ import annotations
@@ -29,12 +37,6 @@ from . import _build
 
 KERNEL = "cxr_mlp_fwd"
 KERNEL_BWD = "cxr_mlp_bwd"
-# B4 and B9 (ops/mlp_block.py) are instantiated for every hidden width that
-# is a multiple of 128 up to this bound (CXR_MLP_WIDTHS in csrc/common.cuh):
-# each block keeps an fp32 [32, H] accumulator in its warps' WMMA registers,
-# which the bound keeps within 255 a thread. B8 keeps no [rows, H]
-# accumulator and has no such bound.
-MAX_HIDDEN = 1024
 _INV_SQRT2 = 0.7071067811865476
 _INV_SQRT2PI = 0.3989422804014327
 
@@ -127,58 +129,43 @@ class _MLP(torch.autograd.Function):
         return dx, dw1, db1, dw2, db2
 
 
-def check_hidden(H: int) -> None:
-    """Raise unless hidden ``H`` is one the WMMA kernels (B4, B9) are built
-    for (CXR_MLP_WIDTHS)."""
-    if H % 128 or not 0 < H <= MAX_HIDDEN:
-        raise ValueError(f"hidden {H} not supported by the kernel: a multiple of 128 "
-                         f"up to MAX_HIDDEN = {MAX_HIDDEN}")
-
-
-def _check_intermediate(F: int) -> None:
-    if F <= 0 or F % 64:
-        raise ValueError(f"intermediate {F} must be a positive multiple of 64")
-
-
 def check_widths(H: int, F: int) -> None:
-    """Raise unless B4 takes hidden ``H`` and intermediate ``F``."""
-    check_hidden(H)
-    _check_intermediate(F)
+    """Raise unless the MLP kernels (B4, B8 and B9) take hidden ``H`` and
+    intermediate ``F``: positive multiples of 64, their TMA box and
+    k-step."""
+    for name, n in (("hidden", H), ("intermediate", F)):
+        if n <= 0 or n % 64:
+            raise ValueError(f"{name} {n} must be a positive multiple of 64")
 
 
-def check_bwd_widths(H: int, F: int) -> None:
-    """Raise unless B8 takes hidden ``H`` and intermediate ``F``: positive
-    multiples of 64, its TMA box and k-step."""
-    if H <= 0 or H % 64:
-        raise ValueError(f"hidden {H} must be a positive multiple of 64")
-    _check_intermediate(F)
-
-
-def _check_kernel_args(x, w1, b1, w2, check):
+def _check_kernel_args(x, w1, b1, w2):
+    """(R, H, F) once x, w1, b1 and w2 are what B4 and B8 take; the TMA
+    loads want 16-byte aligned operands."""
     R, H = x.shape
     F = w1.shape[0]
-    check(H, F)
+    check_widths(H, F)
     dev = x.device
     bf = torch.bfloat16
     _build.check_tensor(x, "x", bf, align=16)
-    _build.check_tensor(w1, "w1", bf, (F, H), dev, align=32)
+    _build.check_tensor(w1, "w1", bf, (F, H), dev, align=16)
     _build.check_tensor(b1, "b1", bf, (F,), dev, align=2)
-    _build.check_tensor(w2, "w2", bf, (H, F), dev, align=32)
+    _build.check_tensor(w2, "w2", bf, (H, F), dev, align=16)
     return R, H, F
 
 
 def _kernel(x, w1, b1, w2, b2):
-    R, H, F = _check_kernel_args(x, w1, b1, w2, check_widths)
+    R, H, F = _check_kernel_args(x, w1, b1, w2)
     _build.check_tensor(b2, "b2", torch.bfloat16, (H,), x.device, align=2)
     y = torch.empty((R, H), dtype=torch.bfloat16, device=x.device)
     if R:
+        g = torch.empty((R, F), dtype=torch.bfloat16, device=x.device)  # GEMM-1's output
         _build.launch(KERNEL, x.device, x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-                      w2.data_ptr(), b2.data_ptr(), y.data_ptr(), R, H, F)
+                      w2.data_ptr(), b2.data_ptr(), y.data_ptr(), g.data_ptr(), R, H, F)
     return y
 
 
 def _kernel_bwd(x, w1, b1, w2, dy):
-    R, H, F = _check_kernel_args(x, w1, b1, w2, check_bwd_widths)
+    R, H, F = _check_kernel_args(x, w1, b1, w2)
     _build.check_tensor(dy, "dy", torch.bfloat16, (R, H), x.device, align=16)
     bf = torch.bfloat16
     dx = torch.empty((R, H), dtype=bf, device=x.device)

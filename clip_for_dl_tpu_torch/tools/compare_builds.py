@@ -1,11 +1,11 @@
 """Hold this checkout's packed attention kernels, B3 (forward) and B6
-(backward), and its MLP backward B8 against another checkout's build of them
-on one card: the same inputs, the outputs compared bit for bit, and the
-times taken in turns (other, this, this, other) so that drift of the card's
-clocks shows.
+(backward), and its MLP kernels, B4 (forward), B8 (backward) and B9 (the
+ViT block), against another checkout's build of them on one card: the same
+inputs, the outputs compared bit for bit, and the times taken in turns
+(other, this, this, other) so that drift of the card's clocks shows.
 
-For a change that must not move the packed kernels' numerics, such as a
-refactor of how they address their operands:
+For a change that must not move the kernels' numerics, such as a refactor
+of how they address their operands:
 
     mkdir other && git archive <commit> | tar -x -C other
     python -m clip_for_dl_tpu_torch.tools.compare_builds --other other
@@ -15,19 +15,23 @@ and so may move within tolerance instead of bit for bit: B6's gradients per
 (batch row, head) slice within two bf16 steps of the other build's
 (``grad_slice_error``), B3's output within 2e-2 (two bf16 steps at |o| ≤ 3),
 B8's dx, g and dh each within two bf16 steps of the other build's largest
-entry. For a redesign of the attention backward, of its forward, or of B8:
+entry, B4's output within 2e-2 (two bf16 steps at |y| ≲ 2), B9's MLP
+branch out - x within two bf16 steps of its largest entry. For a redesign
+of the attention backward, of its forward, of B8, or of the MLP forwards:
 
     python -m clip_for_dl_tpu_torch.tools.compare_builds --other other --redesigned B6
     python -m clip_for_dl_tpu_torch.tools.compare_builds --other other --redesigned B3
     python -m clip_for_dl_tpu_torch.tools.compare_builds --other other --redesigned B8
+    python -m clip_for_dl_tpu_torch.tools.compare_builds --other other --redesigned B4 B9
 
 Every row prints, for each kernel, whether it is bit-equal and its largest
 difference.
 
 The other checkout's kernels are built by its own ``ops/_build.py`` in a
-child process and loaded beside this checkout's. Prints one JSON line per
-(shape, dropout rate) and exits 1 if any output differs beyond what is
-allowed.
+child process and loaded beside this checkout's with that checkout's own C
+signatures; this checkout's kernels run through their wrappers. Prints one
+JSON line per (shape, dropout rate) and exits 1 if any output differs
+beyond what is allowed.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ import torch
 from ..core.device import require_cuda
 from ..ops import _build
 from ..ops import flash_attention as fa
+from ..ops import mlp_block as blk
 from ..ops import mlp_train as mlp
 from .probe_bwd_layouts import time_ms
 
@@ -56,19 +61,59 @@ FWD_TOL = 2e-2  # B3's output, max abs: two bf16 steps at |o| ≤ 3
 # (R, H, F) of B8: the train step, and hidden 256 (C3)
 MLP_SHAPES = ((25600, 768, 3072), (12800, 256, 1024))
 MLP_BWD_REL = 2.0 ** -6  # B8's outputs: two bf16 steps at each one's largest entry
+# (R, H, F) of B4: the prompt bank, and hidden 256 (C3); of B9: the ViT
+# batch, and one request
+B4_SHAPES = ((12800, 768, 3072), (12800, 256, 1024))
+B9_SHAPES = ((50432, 768, 3072), (197, 768, 3072))
+B4_TOL = 2e-2  # B4's output, max abs: two bf16 steps at |y| ≲ 2
+B9_REL = 2.0 ** -6  # B9's branch out - x: two bf16 steps at its largest entry
 
 
-def other_library(root: Path) -> ctypes.CDLL:
+def _pointers(signature) -> int:
+    """How many pointers lead an entry point's arguments."""
+    return next(i for i, t in enumerate(signature) if t is not ctypes.c_void_p)
+
+
+class ThisInterface:
+    """Another build's kernel library, called as this checkout's wrappers
+    call their own. An entry point's scratch buffers come last among its
+    pointers; where the other build's entry takes fewer pointers (the MLP
+    forwards before they took scratch), the extra ones are left out of the
+    call, so the other build runs with its own C signature."""
+
+    def __init__(self, lib: ctypes.CDLL, signatures: dict):
+        self._lib, self._signatures = lib, signatures
+
+    def __getattr__(self, name):
+        fn = getattr(self._lib, name)
+        if name not in _build._SIGNATURES:
+            return fn
+        n = _pointers(_build._SIGNATURES[name])
+        keep = _pointers(self._signatures[name])
+        return fn if keep == n else (lambda *args: fn(*args[:keep], *args[n:]))
+
+
+def other_library(root: Path) -> ThisInterface:
     """The kernel library of the checkout at ``root``, built by its own
-    ``ops/_build.py`` in a child process and loaded beside this one's."""
-    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+    ``ops/_build.py`` in a child process and loaded beside this one's with
+    that checkout's signatures."""
+    code = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
             "from clip_for_dl_tpu_torch.ops import _build; _build.build(); "
+            "print(json.dumps({k: [t.__name__ for t in v] "
+            "for k, v in _build._SIGNATURES.items()})); "
             "print(_build.build_info['path'])")
     out = subprocess.run([sys.executable, "-c", code, str(root)], capture_output=True,
                          text=True)
     if out.returncode != 0:
         raise RuntimeError(f"building {root}'s kernels failed:\n{out.stderr}")
-    return _build.load(out.stdout.strip().splitlines()[-1])
+    *_, names, path = out.stdout.strip().splitlines()
+    signatures = {k: tuple(getattr(ctypes, t) for t in v) for k, v in json.loads(names).items()}
+    return ThisInterface(_build.load(path, signatures), signatures)
+
+
+def in_turns(other, this, iters: int, dev) -> list:
+    """ms of ``other``, ``this``, ``this``, ``other``."""
+    return [time_ms(fn, iters, dev) for fn in (other, this, this, other)]
 
 
 def main(argv=None) -> int:
@@ -77,7 +122,8 @@ def main(argv=None) -> int:
                    help="root of the other checkout (holds clip_for_dl_tpu_torch/)")
     p.add_argument("--device", default="cuda")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--redesigned", nargs="+", choices=("B3", "B6", "B8"), default=(),
+    p.add_argument("--redesigned", nargs="+", choices=("B3", "B4", "B6", "B8", "B9"),
+                   default=(),
                    help="kernels held to the other build within tolerance, not bit for bit")
     args = p.parse_args(argv)
 
@@ -124,8 +170,7 @@ def main(argv=None) -> int:
             within = {"B3": b3_err <= FWD_TOL, "B6": b6_worst <= 1.0}
             for name, (o, t) in (("B3", (other_fwd, this_fwd)), ("B6", (other_bwd, this_bwd))):
                 iters = 20 if name == "B3" else 10
-                row[f"{name} ms other,this,this,other"] = [
-                    time_ms(fn, iters, dev) for fn in (o, t, t, o)]
+                row[f"{name} ms other,this,this,other"] = in_turns(o, t, iters, dev)
                 ok = ok and (row[f"{name} bit-equal"]
                              or (name in args.redesigned and within[name]))
             print(json.dumps(row), flush=True)
@@ -146,9 +191,52 @@ def main(argv=None) -> int:
         row = {"B8 shape": [R, H, F],
                "B8 bit-equal": all(torch.equal(a, b) for a, b in zip(got, outs)),
                "B8 max_abs_err dx,g,dh": errs, "B8 worst / tol": worst,
-               "B8 ms other,this,this,other": [time_ms(fn, 5, dev)
-                                               for fn in (other_b8, this_b8, this_b8, other_b8)]}
+               "B8 ms other,this,this,other": in_turns(other_b8, this_b8, 5, dev)}
         ok = ok and (row["B8 bit-equal"] or ("B8" in args.redesigned and worst <= 1.0))
+        print(json.dumps(row), flush=True)
+    for R, H, F in B4_SHAPES:
+        x = torch.randn(R, H, device=dev, generator=g).bfloat16()
+        w1 = (torch.randn(F, H, device=dev, generator=g) * H ** -0.5).bfloat16()
+        b1 = (torch.randn(F, device=dev, generator=g) * 0.1).bfloat16()
+        w2 = (torch.randn(H, F, device=dev, generator=g) * F ** -0.5).bfloat16()
+        b2 = (torch.randn(H, device=dev, generator=g) * 0.1).bfloat16()
+        y = torch.empty(R, H, dtype=torch.bfloat16, device=dev)
+        scratch = torch.empty(R, F, dtype=torch.bfloat16, device=dev)
+        other_b4 = partial(call, "cxr_mlp_fwd", x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+                           w2.data_ptr(), b2.data_ptr(), y.data_ptr(), scratch.data_ptr(),
+                           R, H, F)
+        this_b4 = partial(mlp._kernel, x, w1, b1, w2, b2)
+        other_b4()
+        got = this_b4()
+        err = float((got.float() - y.float()).abs().max())
+        row = {"B4 shape": [R, H, F], "B4 bit-equal": bool(torch.equal(got, y)),
+               "B4 max_abs_err": err, "B4 tol": B4_TOL,
+               "B4 ms other,this,this,other": in_turns(other_b4, this_b4, 10, dev)}
+        ok = ok and (row["B4 bit-equal"] or ("B4" in args.redesigned and err <= B4_TOL))
+        print(json.dumps(row), flush=True)
+    for R, H, F in B9_SHAPES:
+        x = torch.randn(R, H, device=dev, generator=g).bfloat16()
+        ls = 1.0 + 0.1 * torch.randn(H, device=dev, generator=g)
+        lb = 0.1 * torch.randn(H, device=dev, generator=g)
+        w1 = (torch.randn(F, H, device=dev, generator=g) * H ** -0.5).bfloat16()
+        b1 = 0.1 * torch.randn(F, device=dev, generator=g)
+        w2 = (torch.randn(H, F, device=dev, generator=g) * F ** -0.5).bfloat16()
+        b2 = 0.1 * torch.randn(H, device=dev, generator=g)
+        out = torch.empty_like(x)
+        scratch = (torch.empty_like(x), torch.empty(R, F, dtype=torch.bfloat16, device=dev))
+        other_b9 = partial(call, "cxr_mlp_block", *(t.data_ptr() for t in (
+            x, ls, lb, w1, b1, w2, b2, out) + scratch), R, H, F, 1e-6, 0)
+        this_b9 = partial(blk._kernel, x, ls, lb, w1, b1, w2, b2, eps=1e-6,
+                          gelu_approximate=False)
+        other_b9()
+        got = this_b9()
+        branch = out.float() - x.float()
+        err = float((got.float() - out.float()).abs().max())
+        tol = B9_REL * float(branch.abs().max())
+        row = {"B9 shape": [R, H, F], "B9 bit-equal": bool(torch.equal(got, out)),
+               "B9 max_abs_err": err, "B9 tol (out - x)": tol,
+               "B9 ms other,this,this,other": in_turns(other_b9, this_b9, 10, dev)}
+        ok = ok and (row["B9 bit-equal"] or ("B9" in args.redesigned and err <= tol))
         print(json.dumps(row), flush=True)
     print("as required" if ok else "MISMATCH")
     return 0 if ok else 1

@@ -31,8 +31,9 @@ Run on the card, from the root of a checkout:
 
 ``--other`` runs the paths on another checkout's kernels: its library is
 built by its own ``ops/_build.py`` and loaded as ``compare_builds --other``
-loads it (the C interface is the same), and everything above the kernels
-is this checkout's. For a before/after, run other, this, this, other in one
+loads it (with that checkout's C signatures, called as this checkout's
+wrappers call theirs), and everything above the kernels is this
+checkout's. For a before/after, run other, this, this, other in one
 call.
 """
 
@@ -50,13 +51,17 @@ TRAIN_BATCH = 128  # image-report pairs of a step, as phase 4
 WINDOW = "profile_paths.window"
 TOL = 1e-3  # of the window: device time outside it, or buckets over the busy time
 
-# (bucket, substrings of a lower-cased kernel name), the first match wins
+# (bucket, substrings of a lower-cased kernel name), the first match wins.
+# B4 and B9 share their two GEMM kernels (mlp_fwd_gelu_kernel,
+# mlp_fwd_out_kernel), told apart by their epilogue types: B9's are
+# MlpBlockGelu and MlpBlockOut, and its LayerNorm pass counts as B9 (as
+# does the single mlp_block_kernel of builds before the pair).
 BUCKETS = (
     ("B3/B5 attention forward", ("flash_fwd_",)),
     ("B6/B7 attention backward", ("flash_bwd_",)),
-    ("B9 MLP block", ("mlp_block_kernel",)),
+    ("B9 MLP block", ("mlp_block", "mlpblock")),
     ("B8 MLP backward", ("mlp_bwd_",)),
-    ("B4 MLP forward", ("mlp_fwd_kernel",)),
+    ("B4 MLP forward", ("mlp_fwd_",)),
     ("B2 image prep", ("image_prep_kernel",)),
     ("B1 similarity", ("similarity_kernel",)),
     ("cuBLAS GEMMs", ("gemm", "cutlass", "xmma", "cublas", "splitk")),

@@ -80,7 +80,7 @@ def test_flash_attention_kernel(cuda, B, N, H, D):
 @pytest.mark.parametrize("R,H,F", [(12800, 768, 3072), (100, 768, 3072), (33, 512, 192)])
 def test_mlp_kernel(cuda, R, H, F):
     """bf16 output |y| ≲ 2: two bf16 steps (2e-2); R not a multiple of the
-    32-row tile."""
+    128-row tile, F (192) past one 128-column tile of GEMM-1."""
     g = torch.Generator(cuda).manual_seed(0)
     x = torch.randn(R, H, device=cuda, generator=g).bfloat16()
     w1 = (torch.randn(F, H, device=cuda, generator=g) * H ** -0.5).bfloat16()
@@ -335,8 +335,8 @@ def _block_inputs(cuda, R, H, F, dtype=torch.bfloat16, seed=0):
                                    (70, 1024, 512)])
 def test_mlp_block_kernel(cuda, R, H, F, approximate):
     """B9 vs its plain version: the ViT-B/16 serving shape (256 images of
-    197 tokens), one request's 197 rows, R not a multiple of the 32-row tile,
-    the narrowest and widest hidden. The MLP branch out - x within two bf16
+    197 tokens), one request's 197 rows, R not a multiple of the 128-row
+    tile, a narrow and a wide hidden. The MLP branch out - x within two bf16
     steps at its largest entry (the residual, which both sides add, would
     set the scale of a tolerance on out): a summation-order flip of the
     GELU or o rounding moves out by at most one step of o, the residual's
@@ -755,6 +755,49 @@ def test_mlp_bwd_kernel_at_any_multiple_of_64(cuda, R, H, F):
         assert a.shape == b.shape and a.dtype == torch.bfloat16, name
         assert torch.isfinite(a.float()).all(), name
         torch.testing.assert_close(a.float(), b.float(), atol=_rel_tol(b), rtol=0, msg=name)
+
+
+def _mlp_fwd_inputs(cuda, R, H, F, which, seed=0):
+    """(B4's or B9's kernel entry, its inputs, its plain version)."""
+    if which == "B9":
+        return (lambda *a: mlp_block._kernel(*a, eps=1e-6, gelu_approximate=False),
+                _block_inputs(cuda, R, H, F, seed=seed), mlp_block.fused_mlp_block_reference)
+    gen = torch.Generator(cuda).manual_seed(seed)
+    x = torch.randn(R, H, device=cuda, generator=gen).bfloat16()
+    w1 = (torch.randn(F, H, device=cuda, generator=gen) * H ** -0.5).bfloat16()
+    b1 = (torch.randn(F, device=cuda, generator=gen) * 0.1).bfloat16()
+    w2 = (torch.randn(H, F, device=cuda, generator=gen) * F ** -0.5).bfloat16()
+    b2 = (torch.randn(H, device=cuda, generator=gen) * 0.1).bfloat16()
+    return mlp._kernel, (x, w1, b1, w2, b2), mlp.dense_gelu_dense_reference
+
+
+@pytest.mark.parametrize("which", ["B4", "B9"])
+@pytest.mark.parametrize("H", [192, 1280])
+@pytest.mark.parametrize("R", [1, 197, 12801])
+def test_mlp_fwd_kernels_at_any_multiple_of_64(cuda, R, H, which):
+    """B4 and B9 (the GEMM pair on wgmma, fed by TMA) at one row, one
+    request's 197 rows and one past a 128-row tile of the bank; H past a
+    128-column tile (192, not a multiple of 128) and past the old
+    MAX_HIDDEN (1280), F = 4 H. B4 within two bf16 steps of its largest
+    entry; B9's branch out - x within two bf16 steps of its largest entry,
+    through the kernel's own entry (the public function keeps JAX's rule of
+    multiples of 128)."""
+    kernel, args, plain = _mlp_fwd_inputs(cuda, R, H, 4 * H, which)
+    got = kernel(*args)
+    want = plain(*args)
+    assert got.shape == want.shape == (R, H) and got.dtype == torch.bfloat16
+    assert torch.isfinite(got.float()).all()
+    base = args[0].float() if which == "B9" else 0.0
+    torch.testing.assert_close(got.float() - base, want.float() - base,
+                               atol=_rel_tol(want.float() - base), rtol=0)
+
+
+@pytest.mark.parametrize("which,R", [("B4", 12800), ("B9", 50432)])
+def test_mlp_fwd_kernels_are_deterministic(cuda, which, R):
+    """No split of K and no atomics: two calls give the same bits, at the
+    prompt bank's and the ViT batch's shapes."""
+    kernel, args, _ = _mlp_fwd_inputs(cuda, R, 768, 3072, which, seed=5)
+    assert torch.equal(kernel(*args), kernel(*args))
 
 
 def test_mlp_bwd_is_deterministic(cuda):

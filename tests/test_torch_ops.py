@@ -329,44 +329,44 @@ def _mlp_at(H, F=256):
     return x, w1, b1, w2, torch.zeros(4, H, dtype=torch.bfloat16), torch.zeros(H)
 
 
-@pytest.mark.parametrize("call", [
+MLP_KERNELS = [
     lambda x, w1, b1, w2, dy, f: mlp._kernel(x, w1, b1, w2, dy[0]),
     lambda x, w1, b1, w2, dy, f: mlp._kernel_bwd(x, w1, b1, w2, dy),
     lambda x, w1, b1, w2, dy, f: mlp_block._kernel(x, f + 1, f, w1, b1.float(), w2, f,
                                                    eps=1e-6, gelu_approximate=False),
-], ids=["mlp", "mlp_bwd", "mlp_block"])
+]
+MLP_KERNEL_IDS = ["mlp", "mlp_bwd", "mlp_block"]
+
+
+@pytest.mark.parametrize("call", MLP_KERNELS, ids=MLP_KERNEL_IDS)
 @pytest.mark.parametrize("H", [1152, 192])
-def test_mlp_kernels_name_their_width_bound(call, H, request):
-    """ROADMAP C3: B4 and B9 take every hidden width that is a multiple of
-    128 up to MAX_HIDDEN = 1024 (CXR_MLP_WIDTHS); anything else raises a
-    ValueError naming the bound before any launch, as MAX_SEQ_LEN does for
-    attention. 1024 is their bound: the fp32 [32, H] accumulator lives in
-    255 registers a thread. B8 (wgmma, no such accumulator) takes both
-    widths and reaches the device check."""
-    assert mlp.MAX_HIDDEN == 1024
-    bwd = request.node.callspec.id.endswith("mlp_bwd")
-    with pytest.raises(ValueError, match="CUDA tensor" if bwd else "MAX_HIDDEN = 1024"):
+def test_mlp_kernels_name_their_width_bound(call, H):
+    """B4, B8 and B9 are bounded by one rule, positive multiples of 64 (their
+    TMA box and k-step; ``check_widths``), and by no largest width: no
+    [rows, H] accumulator lives in registers. 1152 (past the old
+    MAX_HIDDEN = 1024 of the WMMA forwards) and 192 (not a multiple of 128)
+    pass the width check and reach the device check."""
+    assert not hasattr(mlp, "MAX_HIDDEN")
+    with pytest.raises(ValueError, match="CUDA tensor"):
         call(*_mlp_at(H))
 
 
+@pytest.mark.parametrize("call", MLP_KERNELS, ids=MLP_KERNEL_IDS)
 @pytest.mark.parametrize("H,F", [(64, 64), (320, 64), (1280, 3072), (96, 64), (128, 96)])
-def test_mlp_bwd_takes_every_multiple_of_64(H, F):
-    """B8 takes any H and F that are multiples of 64 (its TMA box and
-    k-step) and refuses others, naming the rule, before any launch."""
-    x, w1, b1, w2, dy, _ = _mlp_at(H, F)
+def test_mlp_bwd_takes_every_multiple_of_64(call, H, F):
+    """B4, B8 and B9 take any H and F that are multiples of 64 (their TMA
+    box and k-step) and refuse others, naming the rule, before any launch."""
     ok = H % 64 == 0 and F % 64 == 0
     with pytest.raises(ValueError, match="CUDA tensor" if ok else "multiple of 64"):
-        mlp._kernel_bwd(x, w1, b1, w2, dy)
+        call(*_mlp_at(H, F))
 
 
-@pytest.mark.parametrize("H", [128, 256, 384, 512, 640, 768, 896, 1024])
+@pytest.mark.parametrize("H", range(64, 1281, 64))
 def test_mlp_kernels_take_every_width_to_the_bound(H):
-    """ROADMAP C3: each multiple of 128 up to 1024 passes B4's, B8's and
-    B9's width check and reaches the device check (the kernels run in
+    """Each multiple of 64 from 64 to 1280 passes B4's, B8's and B9's width
+    check and reaches the device check (the kernels run in
     tests/test_torch_gpu.py)."""
-    for call in (lambda *a: mlp._kernel(*a[:4], a[4][0]), lambda *a: mlp._kernel_bwd(*a[:5]),
-                 lambda x, w1, b1, w2, dy, f: mlp_block._kernel(
-                     x, f + 1, f, w1, b1.float(), w2, f, eps=1e-6, gelu_approximate=False)):
+    for call in MLP_KERNELS:
         with pytest.raises(ValueError, match="CUDA tensor"):
             call(*_mlp_at(H))
 

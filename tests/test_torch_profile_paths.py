@@ -19,6 +19,24 @@ from clip_for_dl_tpu_torch.tools.profile_paths import TOL, account, bucket_of, u
      "B8 MLP backward"),
     ("void (anonymous namespace)::mlp_bwd_dx_kernel(CUtensorMap_st, CUtensorMap_st, "
      "__nv_bfloat16*, int, int, int)", "B8 MLP backward"),
+    ("void (anonymous namespace)::mlp_fwd_gelu_kernel<(anonymous namespace)::DenseGelu>"
+     "(CUtensorMap_st, CUtensorMap_st, (anonymous namespace)::DenseGelu, __nv_bfloat16*, int, "
+     "int, int)", "B4 MLP forward"),
+    ("void (anonymous namespace)::mlp_fwd_out_kernel<(anonymous namespace)::DenseOut>"
+     "(CUtensorMap_st, CUtensorMap_st, (anonymous namespace)::DenseOut, int, int, int)",
+     "B4 MLP forward"),
+    ("void (anonymous namespace)::mlp_fwd_gelu_kernel<(anonymous namespace)::MlpBlockGelu>"
+     "(CUtensorMap_st, CUtensorMap_st, (anonymous namespace)::MlpBlockGelu, __nv_bfloat16*, "
+     "int, int, int)", "B9 MLP block"),
+    ("void (anonymous namespace)::mlp_fwd_out_kernel<(anonymous namespace)::MlpBlockOut>"
+     "(CUtensorMap_st, CUtensorMap_st, (anonymous namespace)::MlpBlockOut, int, int, int)",
+     "B9 MLP block"),
+    ("void (anonymous namespace)::mlp_block_ln_kernel(__nv_bfloat16 const*, float const*, "
+     "float const*, __nv_bfloat16*, int, int, float)", "B9 MLP block"),
+    ("void (anonymous namespace)::mlp_block_kernel<768>(__nv_bfloat16 const*, ...)",
+     "B9 MLP block"),
+    ("void (anonymous namespace)::mlp_fwd_kernel<768>(__nv_bfloat16 const*, ...)",
+     "B4 MLP forward"),
     ("similarity_kernel(float const*, ...)", "B1 similarity"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64", "cuBLAS GEMMs"),
     ("Memcpy DtoD (Device -> Device)", "copies and casts"),
@@ -90,3 +108,31 @@ def test_base_lrs_of_the_pretrain_preset():
     lrs = main_paths.base_lrs(preset)
     assert lrs["default"] == preset.train.lr
     assert {g.name for g in preset.train.groups} <= set(lrs)
+
+
+@pytest.mark.parametrize("name, old_pointers", [("cxr_mlp_fwd", 6), ("cxr_mlp_block", 8),
+                                                ("cxr_mlp_bwd", None)])
+def test_another_build_is_called_with_its_own_signature(name, old_pointers):
+    """``compare_builds.ThisInterface`` calls another build's entry point
+    with this checkout's arguments, less the scratch pointers (the last of
+    the pointers) that the other build's signature does not take: the MLP
+    forwards before they took scratch. An unchanged signature passes every
+    argument."""
+    import ctypes
+
+    from clip_for_dl_tpu_torch.ops import _build
+    from clip_for_dl_tpu_torch.tools.compare_builds import ThisInterface
+
+    ours = _build._SIGNATURES[name]
+    n = next(i for i, t in enumerate(ours) if t is not ctypes.c_void_p)
+    theirs = ours if old_pointers is None else (ours[:old_pointers] + ours[n:])
+    calls = []
+
+    class Lib:
+        def __getattr__(self, attr):
+            return lambda *args: calls.append((attr, args)) or 0
+
+    args = tuple(range(len(ours)))
+    assert getattr(ThisInterface(Lib(), {name: theirs}), name)(*args) == 0
+    kept = args if old_pointers is None else args[:old_pointers] + args[n:]
+    assert calls == [(name, kept)] and len(kept) == len(theirs)
