@@ -33,7 +33,10 @@ Phases (any failure exits non-zero and prints no result line):
    and 96 with C = 200 prompts, and B2, B3 and B6 at a batch of 65537; and
    head dims over 128 (C4 closed): B3/B5/B6/B7 at D = 160, 256 and 320,
    rates 0 and 0.1, B5/B7 bit-equal to B3/B6, the dropout masks bit for
-   bit. B8 is also timed beside its three products alone in cuBLAS (a
+   bit. B2 also runs at one request ([1, 224, 224, 3]), and is timed with
+   its device time (torch.profiler), its GB/s and a Tensor.copy_ of its
+   output's size beside it; B1 beside one F.cosine_similarity call (its
+   library_ms). B8 is also timed beside its three products alone in cuBLAS (a
    yardstick the port never calls), B4 and B9 beside their two, each with
    its kernels' device times from torch.profiler; B4, B8 and B9 are held at
    H = 1280 (F = 5120) and H = 192 (F = 768).
@@ -390,16 +393,26 @@ def phase2(mods, dev, seed: int, batch: int, results: dict) -> None:
             sim.similarity_reference(img, txt, 0.5), TOL["similarity"], results)
     results["similarity"]["ms"] = cuda_ms(lambda: sim.similarity(img, txt, 0.5))
     results["similarity"]["plain_ms"] = cuda_ms(lambda: sim.similarity_reference(img, txt, 0.5))
+    # one PyTorch call of B1's function, each norm clamped at eps; a yardstick
+    # the port never calls
+    cos = torch.nn.functional.cosine_similarity
+    results["similarity"]["library_ms"] = cuda_ms(
+        lambda: cos(img[:, None], txt[None], dim=-1, eps=1e-12) / 0.5)
+    lib_err = float((cos(img[:, None], txt[None], dim=-1, eps=1e-12) / 0.5
+                     - sim.similarity(img, txt, 0.5)).abs().max())
+    print(f"  F.cosine_similarity / T: {results['similarity']['library_ms']:.4f} ms, "
+          f"max_abs {lib_err:.3e} from the kernel; B1's device ms a call (torch.profiler) "
+          f"{kernel_device_ms(lambda: sim.similarity(img, txt, 0.5), ('similarity',))}")
     # the product, and a square, a sum and a scale per input value
     set_bound(results, "similarity", 2 * batch * 16 * 512 + 3 * (batch + 16) * 512,
               (img, txt, sim.similarity(img, txt, 0.5)), "fp32")
 
     print(f"B2 image prep: [{batch}, 512, 512, 1] uint8 -> [{batch}, 224, 224, 3] bf16; "
-          "and [8, 224, 224, 3] identity")
+          "and [8, 224, 224, 3] and [1, 224, 224, 3] identity")
     grey = torch.randint(0, 256, (batch, 512, 512, 1), device=dev, generator=g,
                          dtype=torch.uint8)
     rgb = torch.randint(0, 256, (8, 224, 224, 3), device=dev, generator=g, dtype=torch.uint8)
-    for images in (grey, rgb):
+    for images in (grey, rgb, rgb[:1]):
         compare("image_prep", prep.preprocess_images(images, 224, 224, mean, std),
                 prep.preprocess_reference(images, 224, 224, mean, std),
                 TOL["image_prep"], results)
@@ -416,6 +429,14 @@ def phase2(mods, dev, seed: int, batch: int, results: dict) -> None:
     # per output value: a 2x2 bilinear blend (4 multiply-adds) and a scale
     # and shift
     set_bound(results, "image_prep", 10 * out.numel(), (grey, out), "fp32")
+    prep_yardstick(prep, grey, out, mean, std, results["image_prep"]["ms"])
+    one = rgb[:1]
+    one_out = prep.preprocess_images(one, 224, 224, mean, std)
+    extra_times("B2 at one request [1, 224, 224, 3]",
+                lambda: prep.preprocess_images(one, 224, 224, mean, std),
+                lambda: prep.preprocess_reference(one, 224, 224, mean, std),
+                10 * one_out.numel(), (one, one_out), peak="fp32")
+    prep_yardstick(prep, one, one_out, mean, std, None)
 
     print("B3 attention: qkv [64, 200, 2304] bf16, 12 heads of 64, padded keys")
     qkv = torch.randn(64, 200, 3 * 768, device=dev, generator=g).bfloat16()
@@ -518,6 +539,31 @@ def mlp_fwd_yardstick(what: str, kernel, x, w1, w2) -> None:
     print(f"  {what}: its two products alone in cuBLAS {products:.4f} ms (a yardstick, never "
           "called by the port); device ms a call (torch.profiler): "
           + ", ".join(f"{k} {v}" for k, v in split.items()))
+
+
+def prep_yardstick(prep, images, out, mean, std, event_ms) -> None:
+    """Print B2's device time (torch.profiler) beside its event time, the
+    GB/s it reaches on the bytes it must move (input read once, output
+    written once), and as a bandwidth yardstick the port never calls, one
+    ``Tensor.copy_`` of a tensor of the output's size (bytes read and
+    written)."""
+    import torch
+
+    dev_ms = kernel_device_ms(
+        lambda: prep.preprocess_images(images, 224, 224, mean, std), ("image_prep",),
+        calls=20)["image_prep"]
+    nbytes = images.numel() + out.numel() * out.element_size()
+    src = torch.empty_like(out).normal_()
+    dst = torch.empty_like(out)
+    copy_ms = cuda_ms(lambda: dst.copy_(src))
+    copy_bytes = 2 * out.numel() * out.element_size()
+    rate = "not measured" if dev_ms == "not measured" else \
+        f"{nbytes / float(dev_ms) / 1e6:.1f} GB/s"
+    event = "" if event_ms is None else f"events {event_ms:.4f} ms, "
+    print(f"  B2 at {list(images.shape)}: {event}device {dev_ms} ms a call (torch.profiler), "
+          f"{rate} on {nbytes / 1e6:.1f} MB; Tensor.copy_ of {list(out.shape)} "
+          f"{out.dtype}: {copy_ms:.4f} ms, {copy_bytes / copy_ms / 1e6:.1f} GB/s on "
+          f"{copy_bytes / 1e6:.1f} MB (a yardstick, never called by the port)")
 
 
 def extra_times(what: str, kernel, plain, flops: float, io, library_ms=None,

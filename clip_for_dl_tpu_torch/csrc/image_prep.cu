@@ -18,13 +18,71 @@
 // memory of the NCHW tensor the ResNet's convolutions take.
 //
 // What bounds it on the card: bytes. A 512x512 grey image is 256 KB in and
-// 224*224*3*2 = 294 KB out for ~10 flops per output value. Design: one block
-// per (image, output row), all in gridDim.x so that the batch is not bounded
-// by gridDim.y's 65535, one thread per output column; the two source rows it
-// reads stay in L1/L2, and the stores of a row are contiguous.
-#include "common.cuh"
+// 224*224*3*2 = 294 KB out for ~10 flops per output value.
+//
+// What held the first design back: one block of 256 threads per (image,
+// output row), 57,344 blocks at B = 256, each writing 1,344 bytes and
+// exiting, about 54 waves of 8 blocks an SM. Each thread loaded its column
+// taps from device memory, then four bytes at addresses that depended on
+// them, then stored three scalar bf16 at a 6-byte stride: two dependent
+// round trips to device memory in every wave, so latency, not bytes, set its
+// time (0.103-0.108 ms against a 0.043 ms bound).
+//
+// This design: kBlocksPerSm long-lived blocks an SM walk (image, band of R
+// output rows, column chunk) items in a grid-stride loop. Three blocks of
+// 256 threads an SM leave 80 registers a thread; at four (64) the pixel
+// loop spilled.
+//  - A thread owns kPix consecutive output pixels of the block's column
+//    chunk; the chunk is fixed for a block (gridDim.x is a multiple of the
+//    chunk count), so its column taps and, for C_out of 1 or 3, scale and
+//    bias are loaded into registers once.
+//  - Warp 0 plans each band: the at most 2R distinct source rows its row
+//    taps name (a warp-wide dedup of lo and hi, so a row shared by two
+//    output rows is staged once), their 16-byte-aligned window starts, and
+//    each output row's two slots and weights, in shared memory. It plans the
+//    band after next while the block computes (a ring of three plans, two
+//    __syncthreads an item), from taps it loaded an item earlier, with
+//    32-bit index arithmetic.
+//  - The named rows' windows are staged into shared memory with 16-byte
+//    cp.async, neighbouring threads on neighbouring addresses, in two
+//    buffers: the next band's rows load while this band computes. A window
+//    starts at the aligned address at or below its first byte and keeps the
+//    offset; a 16-byte piece that would reach before the tensor or past its
+//    end is copied byte by byte, so nothing outside the input is read.
+//  - A source row too wide for the buffer is staged in column chunks: the
+//    host narrows the chunk (then the band) until 2R rows of its window fit
+//    kBufBytes. Only a row pair wider than that at one output column (C_in
+//    in the thousands) gets a larger buffer, up to the card's shared memory.
+//  - Stores are 16 bytes wide and coalesced. A thread's kPix pixels (48
+//    bytes at C_out = 3 in bf16, three 16-byte pieces) go to its warp's
+//    store region in shared memory when their first byte is 16-byte aligned
+//    and all lie inside the chunk, else out as scalars; then lane l of the
+//    warp stores the region's pieces l, l + 32, ..., so one instruction
+//    writes up to 512 contiguous bytes. Each thread storing its own three
+//    pieces, at a 48-byte stride across the warp, was the largest cost at
+//    the serving batch (PERF.md §6): such a store instruction touches 12
+//    lines of 128 bytes where a contiguous one touches 4.
+// Each output keeps the first design's expressions in the same order
+// (lerp2x2 and u * scale + bias), so nvcc forms the same multiply-adds.
+//
+// The host's rule for R, the chunk width, the row stride and the grid is
+// mirrored by clip_for_dl_tpu_torch/ops/image_prep.py band_plan, which the
+// CPU tests hold (tests/test_torch_image_prep_tiles.py); change both together.
+#include <algorithm>
+
+#include "mma_tiles.cuh"
 
 namespace {
+
+constexpr int kThreads = 256;
+constexpr int kBlocksPerSm = 3;
+constexpr int kMaxBand = 16;            // R, output rows of a band
+constexpr int kSlots = 32;              // a band's taps and staged rows: one a lane of warp 0
+static_assert(2 * kMaxBand <= kSlots, "a band's 2R taps are planned by one warp");
+constexpr int kPix = 8;                 // output pixels a thread owns in a row
+constexpr int kMaxCols = kPix * kThreads;
+constexpr int kBufBytes = 22528;        // one of the two staging buffers
+constexpr int kMaxSmem = 232448 - 4096; // dynamic shared memory a block may opt into
 
 template <typename OutT>
 __device__ __forceinline__ OutT to_out(float v);
@@ -42,69 +100,392 @@ struct Taps {
   const float* w1;
 };
 
-template <typename OutT>
-__global__ void __launch_bounds__(256)
-image_prep_kernel(const uint8_t* __restrict__ img, Taps ty, Taps tx,
-                  const float* __restrict__ scale, const float* __restrict__ bias,
-                  OutT* __restrict__ out, int H_in, int W_in, int C_in, int H_out,
-                  int W_out, int C_out) {
-  const int b = blockIdx.x / H_out;
-  const int y = blockIdx.x - b * H_out;
-  const int r0 = ty.lo[y], r1 = ty.hi[y];
-  const float wy0 = ty.w0[y], wy1 = ty.w1[y];
-  const size_t row_elems = (size_t)W_in * C_in;
-  const uint8_t* row0 = img + ((size_t)b * H_in + r0) * row_elems;
-  const uint8_t* row1 = img + ((size_t)b * H_in + r1) * row_elems;
-  OutT* orow = out + ((size_t)b * H_out + y) * W_out * C_out;
-  for (int x = threadIdx.x; x < W_out; x += blockDim.x) {
-    const int c0 = tx.lo[x], c1 = tx.hi[x];
-    const float wx0 = tx.w0[x], wx1 = tx.w1[x];
-    if (C_in == 1) {
-      const float t0 = wy0 * (float)row0[c0] + wy1 * (float)row1[c0];
-      const float t1 = wy0 * (float)row0[c1] + wy1 * (float)row1[c1];
-      const float v = wx0 * t0 + wx1 * t1;
-      for (int c = 0; c < C_out; ++c) orow[x * C_out + c] = to_out<OutT>(v * scale[c] + bias[c]);
+struct Geometry {
+  const uint8_t* img;
+  uintptr_t img_begin, img_end;  // the input's bytes, as addresses
+  Taps ty, tx;
+  const float* scale;
+  const float* bias;
+  int H_in, W_in, C_in, H_out, W_out, C_out;
+  int R, Xc, stride, nbands, nchunks;  // the host's plan (band_plan)
+  int items;                           // B * nbands * nchunks, below 2^30
+};
+
+// One band of one image, as warp 0 planned it.
+struct Band {
+  int b, y0, rows, n_slots;
+  int slot_row[kSlots];    // source row staged in each slot, ascending
+  int slot_shift[kSlots];  // bytes from the slot's aligned start to its window
+  int tap_slot[kSlots];    // 2i: slot of lo[y0 + i]; 2i + 1: slot of hi[y0 + i]
+  float wy[kSlots];        // 2i: w0[y0 + i]; 2i + 1: w1[y0 + i]
+};
+
+__device__ __forceinline__ const uint8_t* row_start(const Geometry& g, int b, int row) {
+  return g.img + ((size_t)b * g.H_in + row) * g.W_in * g.C_in;
+}
+
+// The row tap of warp 0's lane for ``item``: lanes 2i and 2i + 1 read lo and
+// hi of the band's row i; lanes past the band repeat its last row.
+__device__ __forceinline__ void load_taps(const Geometry& g, int item, int lane, int& row,
+                                          float& w) {
+  const int band = (item / g.nchunks) % g.nbands;
+  const int y0 = band * g.R, rows = min(g.R, g.H_out - y0);
+  const int y = y0 + min(lane >> 1, rows - 1);
+  row = (lane & 1) ? g.ty.hi[y] : g.ty.lo[y];
+  w = (lane & 1) ? g.ty.w1[y] : g.ty.w0[y];
+}
+
+// Warp 0: the band's distinct rows in ascending slots (a lane's rank among
+// the first lanes holding each distinct row), their window offsets, and
+// each tap's slot.
+__device__ __forceinline__ void plan_band(const Geometry& g, Band& s, int item, int lane,
+                                          int row, float w, int c_lo) {
+  const unsigned same = __match_any_sync(0xffffffffu, row);
+  const bool first = __ffs(same) - 1 == lane;
+  const unsigned firsts = __ballot_sync(0xffffffffu, first);
+  int rank = 0;
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const int rj = __shfl_sync(0xffffffffu, row, j);
+    rank += ((firsts >> j) & 1u) && rj < row;
+  }
+  const int band_idx = item / g.nchunks;
+  const int b = band_idx / g.nbands;
+  if (first) {
+    s.slot_row[rank] = row;
+    s.slot_shift[rank] =
+        (int)(reinterpret_cast<uintptr_t>(row_start(g, b, row) + (size_t)c_lo * g.C_in) & 15);
+  }
+  s.tap_slot[lane] = rank;
+  s.wy[lane] = w;
+  if (lane == 0) {
+    s.b = b;
+    s.y0 = (band_idx - b * g.nbands) * g.R;
+    s.rows = min(g.R, g.H_out - s.y0);
+    s.n_slots = __popc(firsts);
+  }
+}
+
+// All threads: copy each slot's window, from its aligned start, as 16-byte
+// pieces into buf (slot k at k * stride).
+__device__ __forceinline__ void stage_rows(const Geometry& g, const Band& s, uint8_t* buf,
+                                           int c_lo, int win) {
+  const int per_row = g.stride / 16;
+  const int n = s.n_slots * per_row;
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    const int slot = i / per_row, j = i - slot * per_row;
+    const int shift = s.slot_shift[slot];
+    if (16 * j >= shift + win) continue;
+    const uint8_t* src =
+        row_start(g, s.b, s.slot_row[slot]) + (size_t)c_lo * g.C_in - shift + 16 * j;
+    uint8_t* dst = buf + slot * g.stride + 16 * j;
+    const uintptr_t a = reinterpret_cast<uintptr_t>(src);
+    if (a >= g.img_begin && a + 16 <= g.img_end) {
+      cxr::cp_async16(static_cast<uint32_t>(__cvta_generic_to_shared(dst)), src, true);
+    } else {  // the tensor's first or last piece: only its own bytes
+      for (int q = 0; q < 16; ++q)
+        if (a + q >= g.img_begin && a + q < g.img_end) dst[q] = src[q];
+    }
+  }
+}
+
+__device__ __forceinline__ float lerp2x2(const uint8_t* r0, const uint8_t* r1, int o0, int o1,
+                                         float wy0, float wy1, float wx0, float wx1) {
+  const float t0 = wy0 * (float)r0[o0] + wy1 * (float)r1[o0];
+  const float t1 = wy0 * (float)r0[o1] + wy1 * (float)r1[o1];
+  return wx0 * t0 + wx1 * t1;
+}
+
+// Piece k of a thread's outputs (kPer values, 16 bytes): into the thread's
+// pieces of its warp's store region, or as scalar stores of those of its
+// first n outputs that it holds.
+template <typename OutT, int kPer>
+__device__ __forceinline__ void emit(OutT* dst, uint4* mine, int k, const float (&q)[kPer],
+                                     bool vec, int n) {
+  if (vec) {
+    uint4 v;
+    if constexpr (kPer == 8) {
+      v = make_uint4(cxr::f2_to_bf2(q[0], q[1]), cxr::f2_to_bf2(q[2], q[3]),
+                     cxr::f2_to_bf2(q[4], q[5]), cxr::f2_to_bf2(q[6], q[7]));
     } else {
-      for (int c = 0; c < C_in; ++c) {
-        const float t0 = wy0 * (float)row0[c0 * C_in + c] + wy1 * (float)row1[c0 * C_in + c];
-        const float t1 = wy0 * (float)row0[c1 * C_in + c] + wy1 * (float)row1[c1 * C_in + c];
-        const float v = wx0 * t0 + wx1 * t1;
-        orow[x * C_out + c] = to_out<OutT>(v * scale[c] + bias[c]);
+      v = make_uint4(__float_as_uint(q[0]), __float_as_uint(q[1]), __float_as_uint(q[2]),
+                     __float_as_uint(q[3]));
+    }
+    mine[k] = v;
+  } else {
+#pragma unroll
+    for (int j = 0; j < kPer; ++j)
+      if (k * kPer + j < n) dst[k * kPer + j] = to_out<OutT>(q[j]);
+  }
+}
+
+// kC: C_out known at compile time (1 or 3), or 0 for any C_out read at run
+// time (scalar stores).
+template <typename OutT, int kC>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+image_prep_kernel(Geometry g, OutT* __restrict__ out) {
+  // two staging buffers of 2R slots, then (kC > 0) the warps' store regions
+  extern __shared__ __align__(16) uint8_t stage[];
+  __shared__ Band band[3];  // the band computed, the band staged, the band planned
+  const int tid = threadIdx.x, lane = tid & 31;
+  const bool planner = tid < 32;
+  const int buf_bytes = 2 * g.R * g.stride;
+  const int step = gridDim.x;
+  uint4* store_region = reinterpret_cast<uint4*>(stage + 2 * buf_bytes);
+
+  // the block's column chunk, and this thread's pixels in it
+  const int chunk = blockIdx.x % g.nchunks;
+  const int x_begin = chunk * g.Xc, x_end = min(x_begin + g.Xc, g.W_out);
+  const int c_lo = g.tx.lo[x_begin];
+  const int win = (g.tx.hi[x_end - 1] - c_lo + 1) * g.C_in;
+  const int groups = (g.Xc + kPix - 1) / kPix, lanes = kThreads / groups;
+  const int row_lane = tid / groups;
+  const int x0 = x_begin + (tid - row_lane * groups) * kPix;
+  const int nvalid = min(kPix, x_end - x0);  // ≤ 0: no pixel of this thread
+  // a pixel's lo column as a byte offset into the window, times 2, plus 1
+  // where hi is the next column (hi = lo where the taps clamp)
+  int tap[kPix];
+  float wx0[kPix], wx1[kPix];
+#pragma unroll
+  for (int p = 0; p < kPix; ++p) {
+    const int x = min(x0 + p, x_end - 1);
+    const int lo = g.tx.lo[x];
+    tap[p] = (lo - c_lo) * g.C_in * 2 + (g.tx.hi[x] != lo);
+    wx0[p] = g.tx.w0[x];
+    wx1[p] = g.tx.w1[x];
+  }
+  float sc[kC > 0 ? kC : 1], bi[kC > 0 ? kC : 1];
+#pragma unroll
+  for (int c = 0; c < kC; ++c) {
+    sc[c] = g.scale[c];
+    bi[c] = g.bias[c];
+  }
+  const bool grey = g.C_in == 1;
+
+  // Item k of this block is blockIdx.x + k * step, computed from band[k % 3]
+  // and buffer k % 2; while it computes, item k + 1 loads and warp 0 plans
+  // item k + 2 from the taps it loaded during item k - 1.
+  int item = blockIdx.x;
+  int tap_row = 0;
+  float tap_w = 0.f;
+  if (planner) {
+    load_taps(g, item, lane, tap_row, tap_w);
+    plan_band(g, band[0], item, lane, tap_row, tap_w, c_lo);
+    if (item + step < g.items) load_taps(g, item + step, lane, tap_row, tap_w);
+  }
+  __syncthreads();
+  stage_rows(g, band[0], stage, c_lo, win);
+  cxr::cp_async_commit();
+  if (planner && item + step < g.items) {
+    plan_band(g, band[1], item + step, lane, tap_row, tap_w, c_lo);
+    if (item + 2 * step < g.items) load_taps(g, item + 2 * step, lane, tap_row, tap_w);
+  }
+
+  for (int k = 0; item < g.items; item += step, ++k) {
+    const int next = item + step;
+    __syncthreads();  // band k + 1 planned; buffer (k + 1) % 2's last readers done
+    if (next < g.items) {
+      stage_rows(g, band[(k + 1) % 3], stage + ((k + 1) & 1) * buf_bytes, c_lo, win);
+    }
+    cxr::cp_async_commit();
+    cxr::cp_async_wait_one();
+    __syncthreads();  // item k's rows have landed, from every thread
+    if (planner && next + step < g.items) {
+      plan_band(g, band[(k + 2) % 3], next + step, lane, tap_row, tap_w, c_lo);
+      if (next + 2 * step < g.items) load_taps(g, next + 2 * step, lane, tap_row, tap_w);
+    }
+
+    const Band& s = band[k % 3];
+    const uint8_t* buf = stage + (k & 1) * buf_bytes;
+    const int C = kC > 0 ? kC : g.C_out;
+    // every thread of a warp runs the same rows' iterations, for __syncwarp
+    for (int j = 0, iters = (s.rows + lanes - 1) / lanes; j < iters; ++j) {
+      const int i = row_lane + j * lanes;
+      const bool valid = nvalid > 0 && row_lane < lanes && i < s.rows;
+      OutT* dst = nullptr;
+      const uint8_t *r0 = buf, *r1 = buf;
+      float wy0 = 0.f, wy1 = 0.f;
+      if (valid) {
+        const int k0 = s.tap_slot[2 * i], k1 = s.tap_slot[2 * i + 1];
+        r0 = buf + k0 * g.stride + s.slot_shift[k0];
+        r1 = buf + k1 * g.stride + s.slot_shift[k1];
+        wy0 = s.wy[2 * i];
+        wy1 = s.wy[2 * i + 1];
+        dst = out + (((size_t)s.b * g.H_out + s.y0 + i) * g.W_out + x0) * C;
+      }
+      if constexpr (kC > 0) {
+        // A thread's kPieces 16-byte pieces go to its warp's region when they
+        // are whole and aligned; then the warp stores the region's pieces,
+        // lane l the pieces l, l + 32, ..., so that one store instruction
+        // covers up to 512 contiguous bytes.
+        constexpr int kPer = 16 / sizeof(OutT), kPieces = kPix * kC / kPer;
+        uint4* region = store_region + (tid >> 5) * 32 * kPieces;
+        const bool vec =
+            valid && nvalid == kPix && (reinterpret_cast<uintptr_t>(dst) & 15) == 0;
+        if (valid) {
+          float q[kPer];
+#pragma unroll
+          for (int p = 0; p < kPix; ++p) {
+            const int o0 = tap[p] >> 1, o1 = o0 + (tap[p] & 1) * g.C_in;
+            float u = 0.f;
+            if (grey) u = lerp2x2(r0, r1, o0, o1, wy0, wy1, wx0[p], wx1[p]);
+#pragma unroll
+            for (int c = 0; c < kC; ++c) {
+              if (!grey) u = lerp2x2(r0, r1, o0 + c, o1 + c, wy0, wy1, wx0[p], wx1[p]);
+              const int e = p * kC + c;
+              q[e % kPer] = u * sc[c] + bi[c];
+              if (e % kPer == kPer - 1)
+                emit<OutT, kPer>(dst, region + lane * kPieces, e / kPer, q, vec, nvalid * kC);
+            }
+          }
+        }
+        __syncwarp();
+#pragma unroll
+        for (int r = 0; r < kPieces; ++r) {
+          const int idx = lane + 32 * r, t = idx / kPieces;
+          const auto d = __shfl_sync(0xffffffffu, reinterpret_cast<unsigned long long>(dst), t);
+          if (__shfl_sync(0xffffffffu, (int)vec, t))
+            reinterpret_cast<uint4*>(d)[idx - t * kPieces] = region[idx];
+        }
+        __syncwarp();  // the region is written again next row
+      } else if (valid) {
+        for (int p = 0; p < nvalid; ++p) {
+          const int o0 = tap[p] >> 1, o1 = o0 + (tap[p] & 1) * g.C_in;
+          if (grey) {
+            const float u = lerp2x2(r0, r1, o0, o1, wy0, wy1, wx0[p], wx1[p]);
+            for (int c = 0; c < C; ++c)
+              dst[p * C + c] = to_out<OutT>(u * g.scale[c] + g.bias[c]);
+          } else {
+            for (int c = 0; c < C; ++c) {
+              const float u = lerp2x2(r0, r1, o0 + c, o1 + c, wy0, wy1, wx0[p], wx1[p]);
+              dst[p * C + c] = to_out<OutT>(u * g.scale[c] + g.bias[c]);
+            }
+          }
+        }
       }
     }
   }
+}
+
+// ---- the host's plan (mirrored by ops/image_prep.py band_plan) ------------
+
+// Bytes a staged source row needs for Xc output columns: the columns [lo,
+// hi] they name span at most (Xc - 1) * W_in / W_out + 3 (+ 1 for the
+// float64 taps' rounding; one column names at most 2), and the window starts
+// up to 15 bytes after its aligned start; rounded up to whole 16-byte pieces.
+long long row_stride(long long Xc, int W_in, int W_out, int C_in) {
+  const long long cols =
+      std::min<long long>(W_in, Xc == 1 ? 2 : (Xc - 1) * W_in / W_out + 4);
+  return (15 + cols * C_in + 15) / 16 * 16;
+}
+
+struct Plan {
+  int R, Xc, stride, nbands, nchunks, grid;
+  long long items;
+  size_t staging;  // bytes of the two staging buffers
+};
+
+// R: kMaxBand, halved while B bands of R rows would leave SMs without an
+// item. The chunk: the whole row (at most kMaxCols columns), else the widest
+// run of whole kPix-column groups, else of columns, whose 2R staged rows fit
+// kBufBytes; if not even one column fits, R is halved; at R = 1 one column's
+// row pair gets a buffer of its own size. Returns false past kMaxSmem, or
+// at 2^30 items.
+bool make_plan(long long B, int W_in, int C_in, int H_out, int W_out, int n_sms, Plan& p) {
+  int R = kMaxBand;
+  while (R > 1 && B * ((H_out + R - 1) / R) < n_sms) R /= 2;
+  long long Xc = 0, stride = 0, buf = 0;
+  for (;; R /= 2) {
+    const long long cap = kBufBytes / (2 * R);
+    Xc = std::min<long long>((W_out + kPix - 1) / kPix * kPix, kMaxCols);
+    while (Xc > kPix && row_stride(Xc, W_in, W_out, C_in) > cap) Xc -= kPix;
+    while (Xc > 0 && row_stride(Xc, W_in, W_out, C_in) > cap) --Xc;
+    if (Xc > 0) {
+      stride = row_stride(Xc, W_in, W_out, C_in);
+      buf = 2LL * R * stride;
+      break;
+    }
+    if (R == 1) {
+      Xc = 1;
+      stride = row_stride(1, W_in, W_out, C_in);
+      buf = 2 * stride;
+      break;
+    }
+  }
+  if (2 * buf > kMaxSmem) return false;
+  p.R = R;
+  p.Xc = (int)Xc;
+  p.stride = (int)stride;
+  p.nbands = (H_out + R - 1) / R;
+  p.nchunks = (int)((W_out + Xc - 1) / Xc);
+  p.items = B * p.nbands * p.nchunks;
+  if (p.items >= (1LL << 30)) return false;  // item + 2 * step stays an int
+  const long long blocks = (long long)n_sms * kBlocksPerSm;
+  p.grid = (int)(p.items <= blocks ? p.items
+                                   : std::max<long long>(1, blocks / p.nchunks) * p.nchunks);
+  p.staging = (size_t)(2 * buf);
+  return true;
+}
+
+// Dynamic shared memory: the staging buffers, then for kC > 0 each warp's
+// store region of its threads' outputs (24 KB in fp32 at C_out = 3).
+template <typename OutT, int kC>
+cudaError_t launch(const Geometry& g, const Plan& p, void* out, cudaStream_t s) {
+  auto kernel = image_prep_kernel<OutT, kC>;
+  const size_t smem = p.staging + (size_t)kThreads * kPix * kC * sizeof(OutT);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  if (smem > 40 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<p.grid, kThreads, smem, s>>>(g, static_cast<OutT*>(out));
+  return cudaGetLastError();
+}
+
+template <typename OutT>
+cudaError_t launch_for(int C_out, const Geometry& g, const Plan& p, void* out, cudaStream_t s) {
+  if (C_out == 3) return launch<OutT, 3>(g, p, out, s);
+  if (C_out == 1) return launch<OutT, 1>(g, p, out, s);
+  return launch<OutT, 0>(g, p, out, s);
 }
 
 }  // namespace
 
 // img [B, H_in, W_in, C_in] uint8; taps [H_out] / [W_out]; scale, bias [C_out] fp32;
 // out [B, H_out, W_out, C_out], bf16 (out_bf16 = 1) or fp32 (out_bf16 = 0).
-// C_out equals C_in, or C_in = 1 broadcast to C_out; B * H_out < 2^31.
+// C_out equals C_in, or C_in = 1 broadcast to C_out.
 CXR_API int cxr_image_prep(const void* img, const void* y_lo, const void* y_hi,
                            const void* y_w0, const void* y_w1, const void* x_lo,
                            const void* x_hi, const void* x_w0, const void* x_w1,
                            const void* scale, const void* bias, void* out, int B, int H_in,
                            int W_in, int C_in, int H_out, int W_out, int C_out, int out_bf16,
                            void* stream) {
-  if (B <= 0 || H_out <= 0 || (long long)B * H_out > 2147483647LL ||
+  if (B <= 0 || H_in <= 0 || W_in <= 0 || C_in <= 0 || H_out <= 0 || W_out <= 0 ||
       (C_in != C_out && C_in != 1))
     return cudaErrorInvalidValue;
-  Taps ty{static_cast<const int*>(y_lo), static_cast<const int*>(y_hi),
-          static_cast<const float*>(y_w0), static_cast<const float*>(y_w1)};
-  Taps tx{static_cast<const int*>(x_lo), static_cast<const int*>(x_hi),
-          static_cast<const float*>(x_w0), static_cast<const float*>(x_w1)};
-  const dim3 grid(static_cast<unsigned>(B * H_out));
+  int dev = 0, n_sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  Plan p;
+  if (!make_plan(B, W_in, C_in, H_out, W_out, n_sms, p)) return cudaErrorInvalidValue;
+  Geometry g;
+  g.img = static_cast<const uint8_t*>(img);
+  g.img_begin = reinterpret_cast<uintptr_t>(img);
+  g.img_end = g.img_begin + (size_t)B * H_in * W_in * C_in;
+  g.ty = Taps{static_cast<const int*>(y_lo), static_cast<const int*>(y_hi),
+              static_cast<const float*>(y_w0), static_cast<const float*>(y_w1)};
+  g.tx = Taps{static_cast<const int*>(x_lo), static_cast<const int*>(x_hi),
+              static_cast<const float*>(x_w0), static_cast<const float*>(x_w1)};
+  g.scale = static_cast<const float*>(scale);
+  g.bias = static_cast<const float*>(bias);
+  g.H_in = H_in; g.W_in = W_in; g.C_in = C_in;
+  g.H_out = H_out; g.W_out = W_out; g.C_out = C_out;
+  g.R = p.R; g.Xc = p.Xc; g.stride = p.stride; g.nbands = p.nbands; g.nchunks = p.nchunks;
+  g.items = (int)p.items;
   auto s = static_cast<cudaStream_t>(stream);
-  auto in = static_cast<const uint8_t*>(img);
-  auto sc = static_cast<const float*>(scale);
-  auto bi = static_cast<const float*>(bias);
-  if (out_bf16) {
-    image_prep_kernel<__nv_bfloat16><<<grid, 256, 0, s>>>(
-        in, ty, tx, sc, bi, static_cast<__nv_bfloat16*>(out), H_in, W_in, C_in, H_out, W_out,
-        C_out);
-  } else {
-    image_prep_kernel<float><<<grid, 256, 0, s>>>(in, ty, tx, sc, bi, static_cast<float*>(out),
-                                                 H_in, W_in, C_in, H_out, W_out, C_out);
-  }
-  return cudaGetLastError();
+  return out_bf16 ? launch_for<__nv_bfloat16>(C_out, g, p, out, s)
+                  : launch_for<float>(C_out, g, p, out, s);
 }

@@ -11,13 +11,15 @@ to 3 channels after the resize.
 two matmuls with the dense :func:`_resize_weights` matrices, the JAX
 package's own formulation. :func:`preprocess_images` launches the kernel
 on CUDA tensors (every batch, an identity 224→224 resize included) and runs
-the plain version on CPU tensors.
+the plain version on CPU tensors. :func:`band_plan` mirrors how the kernel's
+C entry splits the work (bands of output rows, column chunks, the grid),
+so that the CPU tests can hold it.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -25,6 +27,77 @@ import torch
 from . import _build
 
 KERNEL = "cxr_image_prep"
+
+# csrc/image_prep.cu's constants: threads and blocks an SM, the most output
+# rows of a band, pixels a thread owns in a row, bytes of one of the two
+# staging buffers, and the dynamic shared memory a block may opt into
+THREADS, BLOCKS_PER_SM, MAX_BAND, PIX = 256, 3, 16, 8
+MAX_COLS = PIX * THREADS
+BUF_BYTES = 22528
+MAX_SMEM = 232448 - 4096
+
+
+class BandPlan(NamedTuple):
+    rows: int  # R, output rows of a band
+    cols: int  # output columns of a chunk
+    stride: int  # bytes of a staged source row
+    bands: int  # bands of an image
+    chunks: int  # column chunks of a row
+    items: int  # (image, band, chunk) items
+    grid: int  # blocks, a multiple of ``chunks``
+    staging: int  # bytes of a block's two staging buffers
+
+
+def row_stride(cols: int, in_w: int, out_w: int, channels: int) -> int:
+    """Bytes a staged source row needs for ``cols`` output columns: the
+    source columns they name span at most ⌊(cols - 1)·in_w/out_w⌋ + 3 (+ 1
+    for the float64 taps' rounding; one column names at most 2), the window
+    starts up to 15 bytes past its 16-byte-aligned start, and whole 16-byte
+    pieces are copied."""
+    span = min(in_w, 2 if cols == 1 else (cols - 1) * in_w // out_w + 4)
+    return (15 + span * channels + 15) // 16 * 16
+
+
+def band_plan(batch: int, in_w: int, channels: int, out_h: int, out_w: int,
+              n_sms: int) -> BandPlan:
+    """The kernel's work split, as ``cxr_image_prep`` makes it (make_plan in
+    csrc/image_prep.cu; change both together). R starts at MAX_BAND and
+    halves while ``batch`` images of ⌈out_h/R⌉ bands would leave SMs without
+    an item. The column chunk is the whole row (at most MAX_COLS columns),
+    else the widest run of whole PIX-column groups, else of columns, whose
+    2R staged rows fit BUF_BYTES; if no column fits, R halves, and at R = 1
+    one column's row pair gets a buffer of its own size. Raises where the
+    kernel refuses: past MAX_SMEM, or at 2^30 items."""
+    R = MAX_BAND
+    while R > 1 and batch * -(-out_h // R) < n_sms:
+        R //= 2
+
+    def stride(c):
+        return row_stride(c, in_w, out_w, channels)
+
+    while True:
+        cap = BUF_BYTES // (2 * R)
+        cols = min(-(-out_w // PIX) * PIX, MAX_COLS)
+        while cols > PIX and stride(cols) > cap:
+            cols -= PIX
+        while cols > 0 and stride(cols) > cap:
+            cols -= 1
+        if cols > 0:
+            buf = 2 * R * stride(cols)
+            break
+        if R == 1:
+            cols, buf = 1, 2 * stride(1)
+            break
+        R //= 2
+    if 2 * buf > MAX_SMEM:
+        raise ValueError(f"a source row pair of {channels} channels exceeds shared memory")
+    bands, chunks = -(-out_h // R), -(-out_w // cols)
+    items = batch * bands * chunks
+    if items >= 2 ** 30:
+        raise ValueError(f"{items} (image, band, chunk) items reach 2^30")
+    blocks = n_sms * BLOCKS_PER_SM
+    grid = items if items <= blocks else max(1, blocks // chunks) * chunks
+    return BandPlan(R, cols, stride(cols), bands, chunks, items, grid, 2 * buf)
 
 
 @functools.lru_cache(maxsize=64)

@@ -1,8 +1,9 @@
 """Hold this checkout's packed attention kernels, B3 (forward) and B6
-(backward), and its MLP kernels, B4 (forward), B8 (backward) and B9 (the
-ViT block), against another checkout's build of them on one card: the same
-inputs, the outputs compared bit for bit, and the times taken in turns
-(other, this, this, other) so that drift of the card's clocks shows.
+(backward), its MLP kernels, B4 (forward), B8 (backward) and B9 (the ViT
+block), and its image prep, B2, against another checkout's build of them on
+one card: the same inputs, the outputs compared bit for bit, and the times
+taken in turns (other, this, this, other) so that drift of the card's
+clocks shows.
 
 For a change that must not move the kernels' numerics, such as a refactor
 of how they address their operands:
@@ -16,16 +17,22 @@ and so may move within tolerance instead of bit for bit: B6's gradients per
 (``grad_slice_error``), B3's output within 2e-2 (two bf16 steps at |o| ≤ 3),
 B8's dx, g and dh each within two bf16 steps of the other build's largest
 entry, B4's output within 2e-2 (two bf16 steps at |y| ≲ 2), B9's MLP
-branch out - x within two bf16 steps of its largest entry. For a redesign
-of the attention backward, of its forward, of B8, or of the MLP forwards:
+branch out - x within two bf16 steps of its largest entry, B2's output
+within its plain-version tolerances (1.6e-2 in bf16, one step at |x| ≤
+2.2; 1e-4 in fp32). For a redesign of the attention backward, of its
+forward, of B8, of the MLP forwards, or of B2:
 
     python -m clip_for_dl_tpu_torch.tools.compare_builds --other other --redesigned B6
     python -m clip_for_dl_tpu_torch.tools.compare_builds --other other --redesigned B3
     python -m clip_for_dl_tpu_torch.tools.compare_builds --other other --redesigned B8
     python -m clip_for_dl_tpu_torch.tools.compare_builds --other other --redesigned B4 B9
+    python -m clip_for_dl_tpu_torch.tools.compare_builds --other other --redesigned B2
 
 Every row prints, for each kernel, whether it is bit-equal and its largest
-difference.
+difference. B2's rows call both builds' C entries with the same pointers
+(no wrapper on either side), check this build against its wrapper, and add
+each one's device time from torch.profiler, since one request's kernel is
+shorter than a launch from Python.
 
 The other checkout's kernels are built by its own ``ops/_build.py`` in a
 child process and loaded beside this checkout's with that checkout's own C
@@ -49,6 +56,7 @@ import torch
 from ..core.device import require_cuda
 from ..ops import _build
 from ..ops import flash_attention as fa
+from ..ops import image_prep as prep
 from ..ops import mlp_block as blk
 from ..ops import mlp_train as mlp
 from .probe_bwd_layouts import time_ms
@@ -67,6 +75,12 @@ B4_SHAPES = ((12800, 768, 3072), (12800, 256, 1024))
 B9_SHAPES = ((50432, 768, 3072), (197, 768, 3072))
 B4_TOL = 2e-2  # B4's output, max abs: two bf16 steps at |y| ≲ 2
 B9_REL = 2.0 ** -6  # B9's branch out - x: two bf16 steps at its largest entry
+# B2: (B, H_in, W_in, C) -> 224 x 224: the serving batch, the identity at
+# eight requests and at one, odd widths
+B2_SHAPES = ((256, 512, 512, 1), (8, 224, 224, 3), (1, 224, 224, 3), (2, 333, 97, 3))
+B2_TOL = {torch.bfloat16: 1.6e-2, torch.float32: 1e-4}  # its plain-version tolerances
+CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
+CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
 
 
 def _pointers(signature) -> int:
@@ -116,13 +130,31 @@ def in_turns(other, this, iters: int, dev) -> list:
     return [time_ms(fn, iters, dev) for fn in (other, this, this, other)]
 
 
+def device_ms(fn, name: str, calls: int = 20) -> float:
+    """Device ms a call of ``fn`` spends in kernels whose names contain
+    ``name`` (torch.profiler over ``calls`` calls after one)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(a, "device_time_total", 0.0) for a in prof.key_averages()
+                if name in a.key)
+    if total <= 0:
+        raise RuntimeError(f"the profiler recorded no device time for {name}")
+    return total / 1e3 / calls
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--other", required=True, type=Path,
                    help="root of the other checkout (holds clip_for_dl_tpu_torch/)")
     p.add_argument("--device", default="cuda")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--redesigned", nargs="+", choices=("B3", "B4", "B6", "B8", "B9"),
+    p.add_argument("--redesigned", nargs="+", choices=("B2", "B3", "B4", "B6", "B8", "B9"),
                    default=(),
                    help="kernels held to the other build within tolerance, not bit for bit")
     args = p.parse_args(argv)
@@ -238,6 +270,42 @@ def main(argv=None) -> int:
                "B9 ms other,this,this,other": in_turns(other_b9, this_b9, 10, dev)}
         ok = ok and (row["B9 bit-equal"] or ("B9" in args.redesigned and err <= tol))
         print(json.dumps(row), flush=True)
+    this = _build.build()
+    scale, bias = prep._device_scale_bias(CLIP_MEAN, CLIP_STD, 1.0 / 255.0, dev)
+    for B, H, W, C in B2_SHAPES:
+        images = torch.randint(0, 256, (B, H, W, C), device=dev, generator=g,
+                               dtype=torch.uint8)
+        taps = (*prep._device_taps(H, 224, dev), *prep._device_taps(W, 224, dev))
+        for dt in (torch.bfloat16, torch.float32):
+            outs = [torch.empty(B, 224, 224, 3, dtype=dt, device=dev) for _ in range(2)]
+            other_args, this_args = (
+                (images.data_ptr(), *(t.data_ptr() for t in taps), scale.data_ptr(),
+                 bias.data_ptr(), o.data_ptr(), B, H, W, C, 224, 224, 3,
+                 int(dt == torch.bfloat16)) for o in outs)
+
+            def this_b2():
+                with torch.cuda.device(dev):
+                    err = this.cxr_image_prep(*this_args,
+                                              torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"cxr_image_prep returned CUDA error {err}")
+
+            other_b2 = partial(call, "cxr_image_prep", *other_args)
+            other_b2()
+            this_b2()
+            wrapper = prep.preprocess_images(images, 224, 224, CLIP_MEAN, CLIP_STD, dt)
+            err = float((outs[1].float() - outs[0].float()).abs().max())
+            row = {"B2 shape": [B, H, W, C], "dtype": str(dt).split(".")[-1],
+                   "B2 bit-equal": bool(torch.equal(outs[1], outs[0])),
+                   "B2 max_abs_err": err, "B2 tol": B2_TOL[dt],
+                   "B2 wrapper bit-equal": bool(torch.equal(wrapper, outs[1])),
+                   "B2 ms other,this,this,other": in_turns(other_b2, this_b2, 20, dev),
+                   "B2 device ms other,this,this,other": [
+                       device_ms(fn, "image_prep") for fn in (other_b2, this_b2, this_b2,
+                                                              other_b2)]}
+            ok = ok and row["B2 wrapper bit-equal"] and (
+                row["B2 bit-equal"] or ("B2" in args.redesigned and err <= B2_TOL[dt]))
+            print(json.dumps(row), flush=True)
     print("as required" if ok else "MISMATCH")
     return 0 if ok else 1
 

@@ -705,9 +705,9 @@ def test_similarity_kernel_at_any_width(cuda, D, C):
 
 def test_kernels_take_a_batch_of_65537(cuda):
     """ROADMAP C6: B2 and B3/B6 at a batch past the 65535 of gridDim.y and
-    gridDim.z, at a small image and N. B2 folds (image, output row) into
-    gridDim.x; B3 and B6 launch batch chunks of at most 65535 rows on their
-    3-D grid (gridDim.z)."""
+    gridDim.z, at a small image and N. B2's blocks walk (image, band, column
+    chunk) items in a grid-stride loop; B3 and B6 launch batch chunks of at
+    most 65535 rows on their 3-D grid (gridDim.z)."""
     B = 65537
     g = torch.Generator(cuda).manual_seed(6)
     imgs = torch.randint(0, 256, (B, 12, 10, 1), device=cuda, generator=g, dtype=torch.uint8)
@@ -868,3 +868,90 @@ def test_flash_attention_dropout_mask_over_head_dim_128(cuda, D):
         B, N, 3, H, D)[:, :, 2]
     assert torch.equal(gdv != 0, wdv != 0)
     assert 0.8 < float((want != 0).sum()) / (int(in_key.sum()) * N * H) < 0.97
+
+
+# ---------------------------------------------------------------------------
+# B2 over bands of output rows, staged source rows and 16-byte stores
+# ---------------------------------------------------------------------------
+
+
+def _prep_plan(cuda, imgs, out_h, out_w):
+    """The kernel's work split for this card (ops/image_prep.py band_plan)."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    B, _, W, C = imgs.shape
+    return prep.band_plan(B, W, C, out_h, out_w, sms)
+
+
+def _assert_prep(imgs, out_h, out_w, mean=CLIP_MEAN, std=CLIP_STD):
+    """fp32 output: 1e-4; bf16 output: one bf16 step at |x| ≤ 2.2 (1.6e-2)."""
+    for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1.6e-2)):
+        got = prep.preprocess_images(imgs, out_h, out_w, mean, std, dt)
+        want = prep.preprocess_reference(imgs, out_h, out_w, mean, std, dt)
+        assert got.shape == want.shape and got.dtype == dt
+        torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+
+
+PREP_EDGES = {
+    # B = 1: bands of one row
+    "one_request": ((1, 224, 224, 3), (224, 224)),
+    "one_grey_image": ((1, 512, 512, 1), (224, 224)),
+    # H_out = 100 at R = 16: a last band of 4 rows
+    "rows_not_a_multiple_of_r": ((64, 120, 100, 3), (100, 75)),
+    # 7-wide output rows, 42 bytes in bf16 and 84 in fp32: scalar stores
+    "seven_wide_out_rows": ((2, 50, 30, 3), (7, 7)),
+    # a 12 KB source row: staged in column chunks
+    "wide_source_in_chunks": ((1, 512, 4096, 3), (224, 224)),
+    "strong_downsampling": ((2, 2048, 1536, 1), (224, 224)),
+    "upsampling": ((3, 100, 150, 1), (224, 224)),
+}
+
+
+@pytest.mark.parametrize("case", list(PREP_EDGES), ids=list(PREP_EDGES))
+def test_image_prep_kernel_over_band_edges(cuda, case):
+    shape, (oh, ow) = PREP_EDGES[case]
+    g = torch.Generator(cuda).manual_seed(len(case))
+    imgs = torch.randint(0, 256, shape, device=cuda, generator=g, dtype=torch.uint8)
+    plan = _prep_plan(cuda, imgs, oh, ow)
+    if case == "rows_not_a_multiple_of_r":
+        assert oh % plan.rows != 0
+    if case == "wide_source_in_chunks":
+        assert plan.chunks > 1
+    _assert_prep(imgs, oh, ow)
+
+
+def test_image_prep_kernel_reads_no_byte_past_the_last_row(cuda):
+    """A 333 x 3 source row (999 bytes) in a view that starts 3 bytes into its
+    buffer and ends 4 bytes before the buffer's end: no row start, and not the
+    tensor's end, is on the 16-byte grid."""
+    shape = (3, 97, 333, 3)
+    n = 3 * 97 * 333 * 3
+    g = torch.Generator(cuda).manual_seed(11)
+    buf = torch.randint(0, 256, (n + 7,), device=cuda, generator=g, dtype=torch.uint8)
+    imgs = buf[3:3 + n].view(shape)
+    assert imgs.data_ptr() % 16 and (imgs.data_ptr() + n) % 16
+    _assert_prep(imgs, 224, 224)
+    _assert_prep(imgs, 96, 331)
+
+
+@pytest.mark.parametrize("channels,stats", [(4, 4), (1, 1), (12000, 12000)],
+                         ids=["rgba", "grey_to_grey", "row_pair_past_the_buffer"])
+def test_image_prep_kernel_at_other_channel_counts(cuda, channels, stats):
+    """C_out of 4 (any count, scalar stores), 1, and 12000 channels, whose
+    one-column row pair outgrows the two 22 KB buffers and takes more shared
+    memory."""
+    g = torch.Generator(cuda).manual_seed(channels)
+    shape = (2, 40, 50, channels) if channels < 100 else (1, 3, 3, channels)
+    out_hw = (24, 31) if channels < 100 else (2, 2)
+    imgs = torch.randint(0, 256, shape, device=cuda, generator=g, dtype=torch.uint8)
+    mean = tuple(0.1 + 0.8 * i / stats for i in range(stats))
+    std = tuple(0.2 + 0.1 * (i % 3) for i in range(stats))
+    _assert_prep(imgs, *out_hw, mean, std)
+
+
+def test_image_prep_kernel_is_deterministic(cuda):
+    g = torch.Generator(cuda).manual_seed(12)
+    imgs = torch.randint(0, 256, (16, 512, 512, 1), device=cuda, generator=g,
+                         dtype=torch.uint8)
+    for dt in (torch.bfloat16, torch.float32):
+        first = prep.preprocess_images(imgs, 224, 224, CLIP_MEAN, CLIP_STD, dt)
+        assert torch.equal(first, prep.preprocess_images(imgs, 224, 224, CLIP_MEAN, CLIP_STD, dt))
