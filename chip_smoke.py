@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's zero-shot serving paths (ResNet-50 and ViT-B/16),
-its phase-A train step, its split-q/k/v attention entry point and the chain
-pretrain -> adapter (phase B) once on one CUDA GPU.
+its phase-A train step, its split-q/k/v attention entry point, the chain
+pretrain -> adapter (phase B) and the fp32 parity mode once on one CUDA GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -90,6 +90,23 @@ Phases (any failure exits non-zero and prints no result line):
    probabilities, and B2 launched. Prints adapter samples/s, checkpoint save
    ms and the peak device memory.
 
+Phase 2 also holds ROADMAP C7 and C8: the fp32 and fp16 instances of
+B3/B5/B6/B7 at head dims 32, 64, 128 and 160 and N = 512, rates 0 and 0.1
+(fp32 within 1e-5, gradients within 1e-4 of each slice's largest entry;
+fp16 two fp16 steps; masks bit for bit; split bit-equal to packed), timed
+beside SDPA in their type, and the autograd entry points in fp16 and fp32
+split (path typed_attention); B1 on bf16, fp16 and mixed features, B2 on
+fp32 and bf16 images, writing fp16 and fp64, on rows too wide to stage
+(the direct body, bit-equal to the staged one) and on views (path
+c8_cases).
+7. Parity mode (the JAX CLI's --fp32 --flash-attention): the ``zero_shot``
+   model in fp32 encodes the prompt bank and scores a batch through the fp32
+   attention kernels, and one fp32 phase-A step of ``pretrain_clip`` at its
+   B = 16, each against the same model on the plain route (B2 kept): text
+   features and probabilities within 1e-5, the loss within 1e-5 relative,
+   each group's gradient cosine >= 0.9999. Then tools/launch_times.py times
+   the wrappers from the host.
+
 The second-to-last line is the kernels JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -156,31 +173,53 @@ TOL = {
     # service answer vs engine.probs on the same image at batch 1: the same
     # kernels on the same shapes; host vs device sigmoid
     "service": 1e-6,
+    # fp16 output |x| ≤ 2.2: a 1e-6 fp32 difference can flip one fp16
+    # rounding step, 2^-9 there
+    "image_prep_f16": 2.0 ** -9,
+    # the parity mode (fp32 compute, flash attention) against the plain
+    # route from the same weights and images: only the attention kernels'
+    # summation order differs, ~1e-7 relative a layer. The unit text
+    # features within 1e-5, the probabilities within 1e-5; one step's loss
+    # within 1e-5 relative and each group's gradient cosine ≥ 0.9999
+    "fp32_features": 1e-5,
+    "fp32_probs": 1e-5,
+    "fp32_loss_rel": 1e-5,
+    "fp32_grad_cos": 0.9999,
 }
 
-KERNELS = {  # name -> (wrapper module, entry attribute, CUDA source, TPU kernel it replaces)
-    "similarity": ("similarity", "KERNEL", "clip_for_dl_tpu_torch/csrc/similarity.cu",
-                   "clip_for_dl_tpu/ops/similarity.py:45"),
-    "image_prep": ("image_prep", "KERNEL", "clip_for_dl_tpu_torch/csrc/image_prep.cu",
-                   "clip_for_dl_tpu/ops/image_prep.py:185"),
-    "flash_attention": ("flash_attention", "KERNEL",
-                        "clip_for_dl_tpu_torch/csrc/flash_attention.cu",
-                        "clip_for_dl_tpu/ops/flash_attention.py:309"),
-    "flash_attention_bwd": ("flash_attention", "KERNEL_BWD",
-                            "clip_for_dl_tpu_torch/csrc/flash_attention_bwd.cu",
-                            "clip_for_dl_tpu/ops/flash_attention.py:375"),
-    "mlp": ("mlp_train", "KERNEL", "clip_for_dl_tpu_torch/csrc/mlp_train.cu",
-            "clip_for_dl_tpu/ops/mlp_train.py:99"),
-    "mlp_bwd": ("mlp_train", "KERNEL_BWD", "clip_for_dl_tpu_torch/csrc/mlp_train_bwd.cu",
-                "clip_for_dl_tpu/ops/mlp_train.py:112"),
-    "mlp_block": ("mlp_block", "KERNEL", "clip_for_dl_tpu_torch/csrc/mlp_block.cu",
-                  "clip_for_dl_tpu/ops/mlp_block.py:78"),
-    "flash_attention_split": ("flash_attention", "KERNEL_SPLIT",
-                              "clip_for_dl_tpu_torch/csrc/flash_attention.cu",
-                              "clip_for_dl_tpu/ops/flash_attention.py:278"),
-    "flash_attention_split_bwd": ("flash_attention", "KERNEL_SPLIT_BWD",
-                                  "clip_for_dl_tpu_torch/csrc/flash_attention_bwd.cu",
-                                  "clip_for_dl_tpu/ops/flash_attention.py:343"),
+SRC = "clip_for_dl_tpu_torch/csrc/"
+TPU = "clip_for_dl_tpu/ops/"
+# name -> (the key its launches count under in _build.LAUNCHES, CUDA source,
+# TPU kernel it replaces): one row per instance of the kernels line. The
+# attention kernels have a C entry per operand type (fp16 "_f16", fp32
+# "_f32"); B1 counts each pair of feature types apart, B2 its fp16 output
+KERNELS = {
+    "similarity": ("cxr_similarity", SRC + "similarity.cu", TPU + "similarity.py:45"),
+    "similarity_bf16": ("cxr_similarity_bf16_bf16", SRC + "similarity.cu",
+                        TPU + "similarity.py:45"),
+    "similarity_fp16": ("cxr_similarity_fp16_fp16", SRC + "similarity.cu",
+                        TPU + "similarity.py:45"),
+    "image_prep": ("cxr_image_prep", SRC + "image_prep.cu", TPU + "image_prep.py:185"),
+    "image_prep_f32src": ("cxr_image_prep_f32src", SRC + "image_prep.cu",
+                          TPU + "image_prep.py:185"),
+    "image_prep_fp16": ("cxr_image_prep_fp16", SRC + "image_prep.cu", TPU + "image_prep.py:185"),
+    "image_prep_direct": ("cxr_image_prep_direct", SRC + "image_prep.cu",
+                          TPU + "image_prep.py:185"),
+    **{f"flash_attention{tag}": (f"cxr_flash_fwd_packed{x}", SRC + "flash_attention.cu",
+                                 TPU + "flash_attention.py:309")
+       for tag, x in (("", ""), ("_fp16", "_f16"), ("_fp32", "_f32"))},
+    **{f"flash_attention_bwd{tag}": (f"cxr_flash_bwd_packed{x}", SRC + "flash_attention_bwd.cu",
+                                     TPU + "flash_attention.py:375")
+       for tag, x in (("", ""), ("_fp16", "_f16"), ("_fp32", "_f32"))},
+    "mlp": ("cxr_mlp_fwd", SRC + "mlp_train.cu", TPU + "mlp_train.py:99"),
+    "mlp_bwd": ("cxr_mlp_bwd", SRC + "mlp_train_bwd.cu", TPU + "mlp_train.py:112"),
+    "mlp_block": ("cxr_mlp_block", SRC + "mlp_block.cu", TPU + "mlp_block.py:78"),
+    **{f"flash_attention_split{tag}": (f"cxr_flash_fwd{x}", SRC + "flash_attention.cu",
+                                       TPU + "flash_attention.py:278")
+       for tag, x in (("", ""), ("_fp16", "_f16"), ("_fp32", "_f32"))},
+    **{f"flash_attention_split_bwd{tag}": (f"cxr_flash_bwd{x}", SRC + "flash_attention_bwd.cu",
+                                           TPU + "flash_attention.py:343")
+       for tag, x in (("", ""), ("_fp16", "_f16"), ("_fp32", "_f32"))},
 }
 TRAIN_KERNELS = ("image_prep", "flash_attention", "flash_attention_bwd", "mlp", "mlp_bwd")
 PATHS = {  # main path -> the kernels it must launch
@@ -191,10 +230,22 @@ PATHS = {  # main path -> the kernels it must launch
     "layout_probe": ("flash_attention_bwd", "flash_attention_split_bwd"),
     "pretrain_fit": TRAIN_KERNELS,
     "adapter": ("image_prep",),
+    # the parity mode (--fp32 --flash-attention): zero-shot serving and a
+    # phase-A step in fp32
+    "serve_fp32": ("similarity", "image_prep", "flash_attention_fp32"),
+    "train_fp32": ("image_prep", "flash_attention_fp32", "flash_attention_bwd_fp32"),
+    # the attention entry points with autograd in the types no preset runs
+    "typed_attention": ("flash_attention_fp16", "flash_attention_bwd_fp16",
+                        "flash_attention_split_fp16", "flash_attention_split_bwd_fp16",
+                        "flash_attention_split_fp32", "flash_attention_split_bwd_fp32"),
+    # B1 and B2 on the inputs C8 opened to them, through the public functions
+    "c8_cases": ("similarity_bf16", "similarity_fp16", "image_prep_f32src", "image_prep_fp16",
+                 "image_prep_direct"),
 }
-# H100 SXM peaks (NVIDIA's data sheet, dense): bf16 on the tensor cores and
-# fp32 on the CUDA cores, in operations a second; HBM3 in bytes a second
-PEAK = {"bf16": 989e12, "fp32": 67e12}
+# H100 SXM peaks (NVIDIA's data sheet, dense): bf16 and fp16 on the tensor
+# cores and fp32 on the CUDA cores, in operations a second; HBM3 in bytes a
+# second
+PEAK = {"bf16": 989e12, "fp16": 989e12, "fp32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
 VIT_TOKENS = 197  # ViT-B/16 at 224: 14 x 14 patches and the class token
 BATCH = 256  # images per zero-shot batch (512x512 grey uint8)
@@ -552,7 +603,7 @@ def prep_yardstick(prep, images, out, mean, std, event_ms) -> None:
     dev_ms = kernel_device_ms(
         lambda: prep.preprocess_images(images, 224, 224, mean, std), ("image_prep",),
         calls=20)["image_prep"]
-    nbytes = images.numel() + out.numel() * out.element_size()
+    nbytes = images.numel() * images.element_size() + out.numel() * out.element_size()
     src = torch.empty_like(out).normal_()
     dst = torch.empty_like(out)
     copy_ms = cuda_ms(lambda: dst.copy_(src))
@@ -1056,6 +1107,442 @@ def phase2_split(_build, mods, dev, seed: int, results: dict) -> dict:
     check_launched(mods, by_path["layout_probe"], "layout_probe")
     return by_path
 
+def typed_grads(name, got, want, layout, dtype, results, heads=None):
+    """compare_grads at ``dtype``'s per-slice rule (fa.GRAD_TOL)."""
+    import torch
+
+    from clip_for_dl_tpu_torch.ops.flash_attention import grad_slice_error
+
+    check(got.dtype == dtype, f"{name}: {got.dtype}, not {dtype}")
+    check(bool(torch.isfinite(got.float()).all()), f"{name}: non-finite kernel output")
+    max_abs, worst = grad_slice_error(got, want, layout, heads, dtype)
+    print(f"  {name}: max_abs {max_abs:.3e}  worst (batch row, head) slice at {worst:.3f} "
+          "of its tolerance")
+    check(worst <= 1.0, f"{name}: a slice is off by {worst} of its tolerance")
+    results.setdefault(name, {})["max_abs_err"] = max(
+        max_abs, results.get(name, {}).get("max_abs_err", 0.0))
+
+
+def phase2_types(mods, dev, seed: int, results: dict) -> None:
+    """ROADMAP C7: the fp32 and fp16 instances of B3, B5, B6 and B7 against
+    their plain versions (the plain fp32 products in full fp32) at rates 0
+    and 0.1 and head dims 32, 64, 128 and 160 (N = 200, padded keys), and
+    at N = 512; B5/B7 bit-equal to B3/B6 in both layouts; the dropout masks
+    bit for bit; then each instance's times at its main shape beside SDPA
+    in its type."""
+    import torch
+
+    fa = mods["flash_attention"]
+    g = torch.Generator(dev).manual_seed(seed + 9)
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def inputs(B, N, H, D, dt, min_len=3):
+        qkv = torch.randn(B, N, 3 * H * D, device=dev, generator=g).to(dt)
+        do = torch.randn(B, N, H * D, device=dev, generator=g).to(dt)
+        lengths = torch.randint(min_len, N + 1, (B, 1), device=dev, generator=g)
+        bias = torch.where(torch.arange(N, device=dev)[None] < lengths, 0.0, -1e10)
+        return qkv, do, bias, dict(dropout_rate=0.1, dropout_seeds=fa.dropout_seeds(g, B, dev))
+
+    for tag, dt in (("fp32", torch.float32), ("fp16", torch.float16)):
+        fwd, bwd = f"flash_attention_{tag}", f"flash_attention_bwd_{tag}"
+        sfwd, sbwd = f"flash_attention_split_{tag}", f"flash_attention_split_bwd_{tag}"
+        for B, N, H, D in ((4, 200, 4, 32), (4, 200, 4, 64), (4, 200, 4, 128), (4, 200, 4, 160),
+                           (2, 512, 2, 64)):
+            print(f"C7: B3/B5/B6/B7 in {tag} at (B, N, H, D) = {(B, N, H, D)}, padded keys, "
+                  "rates 0 and 0.1")
+            qkv, do, bias, drop = inputs(B, N, H, D, dt)
+            for kw in ({}, drop):
+                out = fa.flash_attention_packed(qkv, H, bias, **kw)
+                want = fa.flash_attention_packed_reference(qkv, H, bias, **kw)
+                check(out.dtype == dt, f"B3 {tag} wrote {out.dtype}")
+                compare(fwd, out, want, fa.fwd_tolerance(want), results)
+                dqkv = fa._kernel_bwd(qkv, do, H, bias, **kw)
+                typed_grads(bwd, dqkv, fa.flash_attention_packed_bwd_reference(
+                    qkv, do, H, bias, **kw), "packed", dt, results, H)
+                for layout in ("bnhd", "bhnd"):
+                    q, k, v = split_operands(qkv, H, layout)
+                    dos = as_bnhd(do.view(B, N, H, D), layout).contiguous()
+                    split = fa.flash_attention(q, k, v, bias, layout=layout, **kw)
+                    want = head_major(fa.flash_attention_reference(
+                        *(head_major(t, layout) for t in (q, k, v)), bias, **kw), layout)
+                    compare(sfwd, split, want, fa.fwd_tolerance(want), results)
+                    check(torch.equal(as_bnhd(split, layout).reshape(B, N, H * D), out),
+                          f"B5 {tag} ({layout}) differs from B3 at {(B, N, H, D)}")
+                    grads = fa.flash_attention_bwd(q, k, v, dos, bias, layout=layout, **kw)
+                    plain = fa.flash_attention_bwd_reference(
+                        *(head_major(t, layout) for t in (q, k, v, dos)), bias, **kw)
+                    for i, (a_, b_) in enumerate(zip(grads, plain)):
+                        typed_grads(sbwd, a_, head_major(b_, layout), layout, dt, results)
+                        check(torch.equal(as_bnhd(a_, layout), dqkv.view(B, N, 3, H, D)[:, :, i]),
+                              f"B7 {tag} ({layout}) differs from B6 at {(B, N, H, D)}")
+            print(f"  B5 and B7 bit-equal to B3 and B6 in {tag}, both layouts, rates 0 and 0.1")
+            if N == 200 and D in (64, 160):
+                pq, pdo, pbias = (t.to(dt) if t.is_floating_point() and t.dim() == 3 else t
+                                  for t in dropout_probe(B, N, H, D, dev))
+                want = fa.flash_attention_packed_reference(pq, H, pbias, **drop)
+                check(torch.equal(fa.flash_attention_packed(pq, H, pbias, **drop) != 0, want != 0),
+                      f"B3 {tag} dropout mask at D = {D} differs from the plain version's")
+                gdv = fa._kernel_bwd(pq, pdo, H, pbias, **drop).view(B, N, 3, H, D)[:, :, 2]
+                wdv = fa.flash_attention_packed_bwd_reference(pq, pdo, H, pbias, **drop).view(
+                    B, N, 3, H, D)[:, :, 2]
+                check(torch.equal(gdv != 0, wdv != 0),
+                      f"B6 {tag} dropout mask at D = {D} differs from the plain version's")
+                q, k, v = split_operands(pq, H, "bnhd")
+                sp = fa.flash_attention(q, k, v, pbias, layout="bnhd", **drop)
+                check(torch.equal(sp.reshape(want.shape) != 0, want != 0),
+                      f"B5 {tag} dropout mask at D = {D} differs")
+                print(f"  dropout masks in {tag} at D = {D} equal bit for bit in B3's and B5's "
+                      f"output and B6's dv; kept share "
+                      f"{float((want != 0).sum()) / (int((pbias == 0).sum()) * N * H):.4f}")
+
+        # the main shapes: fp32 the parity mode's prompt bank and its
+        # phase-A batch (16); fp16 those of bf16's rows
+        peak = tag
+        fB, bB = (64, 16) if tag == "fp32" else (64, TRAIN_BATCH)
+        N, H, D = TRAIN_LEN, 12, 64
+        qkv, _, bias, _ = inputs(fB, N, H, D, dt)
+        results[fwd]["ms"] = cuda_ms(lambda: fa.flash_attention_packed(qkv, H, bias), iters=10)
+        results[fwd]["plain_ms"] = cuda_ms(
+            lambda: fa.flash_attention_packed_reference(qkv, H, bias), iters=10)
+        set_bound(results, fwd, 4 * fB * H * N * N * D,
+                  (qkv, bias, fa.flash_attention_packed(qkv, H, bias)), peak)
+        results[fwd]["library_ms"] = sdpa_ms(*heads_of(qkv, H), bias)
+        qkv, do, bias, drop = inputs(bB, N, H, D, dt)
+        results[bwd]["ms"] = cuda_ms(lambda: fa._kernel_bwd(qkv, do, H, bias, **drop), iters=5)
+        results[bwd]["plain_ms"] = cuda_ms(
+            lambda: fa.flash_attention_packed_bwd_reference(qkv, do, H, bias, **drop), iters=5)
+        set_bound(results, bwd, 10 * bB * H * N * N * D,
+                  (qkv, do, bias, drop["dropout_seeds"], fa._kernel_bwd(qkv, do, H, bias, **drop)),
+                  peak)
+        heads = heads_of(qkv, H)
+        results[bwd]["library_ms"] = sdpa_ms(*heads, bias, do.view(bB, N, H, D).transpose(1, 2))
+        q, k, v = split_operands(qkv, H, "bnhd")
+        dos = do.view(bB, N, H, D)
+        out = fa.flash_attention(q, k, v, bias, layout="bnhd", **drop)
+        grads = fa.flash_attention_bwd(q, k, v, dos, bias, layout="bnhd", **drop)
+        for name, kernel, plain, flops, io in (
+            (sfwd, lambda: fa.flash_attention(q, k, v, bias, layout="bnhd", **drop),
+             lambda: fa.flash_attention_reference(*(t.transpose(1, 2) for t in (q, k, v)), bias,
+                                                  **drop),
+             4 * bB * H * N * N * D, (q, k, v, bias, drop["dropout_seeds"], out)),
+            (sbwd, lambda: fa.flash_attention_bwd(q, k, v, dos, bias, layout="bnhd", **drop),
+             lambda: fa.flash_attention_bwd_reference(
+                 *(t.transpose(1, 2) for t in (q, k, v, dos)), bias, **drop),
+             10 * bB * H * N * N * D, (q, k, v, dos, bias, drop["dropout_seeds"]) + tuple(grads)),
+        ):
+            results[name]["ms"] = cuda_ms(kernel, iters=5)
+            results[name]["plain_ms"] = cuda_ms(plain, iters=5)
+            set_bound(results, name, flops, io, peak)
+        results[sfwd]["library_ms"] = sdpa_ms(*heads, bias)
+        results[sbwd]["library_ms"] = results[bwd]["library_ms"]
+        for name in (fwd, bwd, sfwd, sbwd):
+            r = results[name]
+            print(f"  {name}: kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
+                  f"bound {r['bound_ms']:.4f} ms  SDPA {r['library_ms']:.4f} ms")
+        del qkv, do, q, k, v, dos, out, grads, heads
+
+
+def direct_equals_staged(prep, dev, g) -> None:
+    """The direct body gives the staged body's bits where both run: both C
+    entries on the same uint8 and fp32 images, each output type."""
+    import torch
+
+    from clip_for_dl_tpu_torch.ops import _build
+
+    for src, staged in ((torch.uint8, prep.KERNEL), (torch.float32, prep.KERNEL_F32SRC)):
+        for shape in ((2, 333, 97, 3), (3, 512, 512, 1)):
+            imgs = (torch.randint(0, 256, shape, device=dev, generator=g, dtype=torch.uint8)
+                    if src == torch.uint8 else torch.rand(shape, device=dev, generator=g))
+            B, H, W, C = shape
+            ty, tx = prep._device_taps(H, 224, dev), prep._device_taps(W, 224, dev)
+            scale, bias = prep._device_scale_bias(
+                (0.48145466, 0.4578275, 0.40821073), (0.26862954, 0.26130258, 0.27577711),
+                1 / 255 if src == torch.uint8 else 1.0, dev)
+            for out_t in (torch.float32, torch.bfloat16, torch.float16):
+                outs = [torch.empty(B, 224, 224, 3, dtype=out_t, device=dev) for _ in range(2)]
+                for o, entry, extra in ((outs[0], staged, ()),
+                                        (outs[1], prep.KERNEL_DIRECT,
+                                         (int(src != torch.uint8),))):
+                    _build.launch(entry, dev, imgs.data_ptr(), *(t.data_ptr() for t in ty + tx),
+                                  scale.data_ptr(), bias.data_ptr(), o.data_ptr(), B, H, W, C,
+                                  224, 224, 3, prep.OUT_TYPES[out_t], *extra)
+                check(torch.equal(outs[0], outs[1]),
+                      f"B2's direct body differs from the staged body at {shape} {src} -> {out_t}")
+    print("  B2's direct body bit-equal to the staged body (uint8 and fp32 sources, fp32, bf16 "
+          "and fp16 outputs)")
+
+
+def phase2_c8(_build, mods, dev, seed: int, results: dict) -> dict:
+    """ROADMAP C8: B1 on bf16, fp16 and mixed features; B2 on fp32 and bf16
+    images, writing fp16 and fp64, on rows too wide to stage (the direct
+    body, bit-equal to the staged one where both run), and on views; each
+    against its plain version, timed at the serving shapes; then the
+    c8_cases path (the public functions on those inputs), counted."""
+    import torch
+
+    sim, prep = mods["similarity"], mods["image_prep"]
+    g = torch.Generator(dev).manual_seed(seed + 10)
+    mean, std = (0.48145466, 0.4578275, 0.40821073), (0.26862954, 0.26130258, 0.27577711)
+    cos = torch.nn.functional.cosine_similarity
+
+    print(f"C8: B1 on bf16 and fp16 features: img [{BATCH}, 512] x txt [16, 512], T = 0.5")
+    img32 = torch.randn(BATCH, 512, device=dev, generator=g)
+    img32[-1] = 0.0
+    txt32 = torch.randn(16, 512, device=dev, generator=g)
+    for tag, dt in (("bf16", torch.bfloat16), ("fp16", torch.float16)):
+        name = f"similarity_{tag}"
+        img, txt = img32.to(dt), txt32.to(dt)
+        compare(name, sim.similarity(img, txt, 0.5), sim.similarity_reference(img, txt, 0.5),
+                TOL["similarity"], results)
+        for a, b in ((img32, txt), (img, txt32)):  # each side on its own
+            compare(name, sim.similarity(a, b, 0.5), sim.similarity_reference(a, b, 0.5),
+                    TOL["similarity"], results)
+        r = results[name]
+        r["ms"] = cuda_ms(lambda: sim.similarity(img, txt, 0.5))
+        r["plain_ms"] = cuda_ms(lambda: sim.similarity_reference(img, txt, 0.5))
+        r["library_ms"] = cuda_ms(lambda: cos(img[:, None], txt[None], dim=-1, eps=1e-12) / 0.5)
+        set_bound(results, name, 2 * BATCH * 16 * 512 + 3 * (BATCH + 16) * 512,
+                  (img, txt, sim.similarity(img, txt, 0.5)), "fp32")
+        print(f"  {name}: kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  "
+              f"F.cosine_similarity in {tag} {r['library_ms']:.4f} ms; device ms a call "
+              f"(torch.profiler) "
+              f"{kernel_device_ms(lambda: sim.similarity(img, txt, 0.5), ('similarity',))}")
+    views = (img32.T.contiguous().T, txt32[:, ::1].T.contiguous().T)
+    check(not views[0].is_contiguous(), "the B1 view case is contiguous")
+    compare("similarity", sim.similarity(*views, 0.5), sim.similarity_reference(*views, 0.5),
+            TOL["similarity"], results)
+    print("  B1 on transposed (non-contiguous) views: copied, matches")
+
+    print(f"C8: B2 on fp32 and bf16 images [{BATCH}, 512, 512, 1] in [0, 1] -> bf16 and fp32; "
+          "fp16 output of the uint8 batch; rows too wide to stage; views")
+    grey = torch.randint(0, 256, (BATCH, 512, 512, 1), device=dev, generator=g,
+                         dtype=torch.uint8)
+    fimgs = torch.rand(BATCH, 512, 512, 1, device=dev, generator=g)
+    for imgs in (fimgs, fimgs.bfloat16()):
+        compare("image_prep_f32src", prep.preprocess_images(imgs, 224, 224, mean, std),
+                prep.preprocess_reference(imgs, 224, 224, mean, std), TOL["image_prep"],
+                results)
+        compare("image_prep_f32src",
+                prep.preprocess_images(imgs, 224, 224, mean, std, torch.float32),
+                prep.preprocess_reference(imgs, 224, 224, mean, std, torch.float32),
+                TOL["image_prep_f32"], results)
+    r = results["image_prep_f32src"]
+    r["ms"] = cuda_ms(lambda: prep.preprocess_images(fimgs, 224, 224, mean, std))
+    r["plain_ms"] = cuda_ms(lambda: prep.preprocess_reference(fimgs, 224, 224, mean, std))
+    out = prep.preprocess_images(fimgs, 224, 224, mean, std)
+    set_bound(results, "image_prep_f32src", 10 * out.numel(), (fimgs, out), "fp32")
+    prep_yardstick(prep, fimgs, out, mean, std, r["ms"])
+    for imgs in (grey, fimgs):
+        compare("image_prep_fp16",
+                prep.preprocess_images(imgs, 224, 224, mean, std, torch.float16),
+                prep.preprocess_reference(imgs, 224, 224, mean, std, torch.float16),
+                TOL["image_prep_f16"], results)
+    wide64 = prep.preprocess_images(grey[:8], 224, 224, mean, std, torch.float64)
+    check(wide64.dtype == torch.float64 and torch.equal(
+        wide64, prep.preprocess_images(grey[:8], 224, 224, mean, std, torch.float32).double()),
+        "B2's fp64 output is not its fp32 output cast")
+    r = results["image_prep_fp16"]
+    r["ms"] = cuda_ms(lambda: prep.preprocess_images(grey, 224, 224, mean, std, torch.float16))
+    r["plain_ms"] = cuda_ms(
+        lambda: prep.preprocess_reference(grey, 224, 224, mean, std, torch.float16))
+    out = prep.preprocess_images(grey, 224, 224, mean, std, torch.float16)
+    set_bound(results, "image_prep_fp16", 10 * out.numel(), (grey, out), "fp32")
+    del fimgs, out
+
+    # a row pair past shared memory at one output column: 30000 uint8
+    # channels (60 KB), and 8000 fp32 ones (64 KB)
+    wstats = tuple(0.1 + 0.8 * (i % 7) / 7 for i in range(30000))
+    wstd = tuple(0.2 + 0.1 * (i % 3) for i in range(30000))
+    wide = torch.randint(0, 256, (4, 12, 10, 30000), device=dev, generator=g, dtype=torch.uint8)
+    wide32 = torch.rand(4, 12, 10, 8000, device=dev, generator=g)
+    check(prep.needs_direct(10, 6, 30000, 1) and prep.needs_direct(10, 6, 8000, 4),
+          "the wide rows would be staged")
+    for imgs, c in ((wide, 30000), (wide32, 8000)):
+        for out_t, tol in ((torch.bfloat16, TOL["image_prep"]),
+                           (torch.float32, TOL["image_prep_f32"])):
+            compare("image_prep_direct",
+                    prep.preprocess_images(imgs, 6, 6, wstats[:c], wstd[:c], out_t),
+                    prep.preprocess_reference(imgs, 6, 6, wstats[:c], wstd[:c], out_t), tol,
+                    results)
+    r = results["image_prep_direct"]
+    print("  B2's direct body at [4, 12, 10, 30000] uint8 -> [4, 6, 6, 30000] bf16, device ms a "
+          "call (torch.profiler) " + str(kernel_device_ms(
+              lambda: prep.preprocess_images(wide, 6, 6, wstats, wstd), ("image_prep",))))
+    r["ms"] = cuda_ms(lambda: prep.preprocess_images(wide, 6, 6, wstats, wstd))
+    r["plain_ms"] = cuda_ms(lambda: prep.preprocess_reference(wide, 6, 6, wstats, wstd))
+    out = prep.preprocess_images(wide, 6, 6, wstats, wstd)
+    set_bound(results, "image_prep_direct", 10 * out.numel(), (wide, out), "fp32")
+    direct_equals_staged(prep, dev, g)
+    crop = grey[:16, 20:500, 10:490]
+    perm = torch.rand(8, 3, 240, 200, device=dev, generator=g).permute(0, 2, 3, 1)
+    for imgs in (crop, perm):
+        check(not imgs.is_contiguous(), "the B2 view case is contiguous")
+        compare("image_prep", prep.preprocess_images(imgs, 224, 224, mean, std),
+                prep.preprocess_reference(imgs, 224, 224, mean, std), TOL["image_prep"],
+                results)
+    print("  B2 on a cropped uint8 view and a permuted fp32 NCHW tensor: copied, matches")
+    for name in ("image_prep_f32src", "image_prep_fp16", "image_prep_direct"):
+        r = results[name]
+        print(f"  {name}: kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  bound "
+              f"{r['bound_ms']:.4f} ms")
+
+    # -- the c8_cases path: the public functions on those inputs, counted ----
+    torch.cuda.synchronize(dev)
+    _build.reset_launches()
+    for dt in (torch.bfloat16, torch.float16):
+        sim.similarity(img32.to(dt), txt32.to(dt), 0.5)
+    prep.preprocess_images(grey[:8].float() / 255.0, 224, 224, mean, std)
+    prep.preprocess_images(grey[:8], 224, 224, mean, std, torch.float16)
+    prep.preprocess_images(wide, 6, 6, wstats, wstd)
+    torch.cuda.synchronize(dev)
+    launches = dict(_build.LAUNCHES)
+    print(f"launches on the c8_cases path: {launches}")
+    check_launched(mods, launches, "c8_cases")
+    return launches
+
+
+def typed_attention_path(_build, mods, dev, seed: int) -> dict:
+    """The attention entry points with autograd in the types no preset runs:
+    packed and split (both layouts) in fp16, split in fp32; counted."""
+    import torch
+
+    fa = mods["flash_attention"]
+    g = torch.Generator(dev).manual_seed(seed + 11)
+    B, N, H, D = 16, TRAIN_LEN, 12, 64
+    lengths = torch.randint(3, N + 1, (B, 1), device=dev, generator=g)
+    bias = torch.where(torch.arange(N, device=dev)[None] < lengths, 0.0, -1e10)
+    drop = dict(dropout_rate=0.1, dropout_seeds=fa.dropout_seeds(g, B, dev))
+    torch.cuda.synchronize(dev)
+    _build.reset_launches()
+    for dt in (torch.float16, torch.float32):
+        qkv = torch.randn(B, N, 3 * H * D, device=dev, generator=g).to(dt)
+        ct = torch.randn(B, N, H, D, device=dev, generator=g).to(dt)
+        if dt == torch.float16:
+            x = qkv.clone().requires_grad_()
+            fa.flash_attention_packed(x, H, bias, **drop).backward(ct.reshape(B, N, H * D))
+            check(bool(torch.isfinite(x.grad.float()).all()), "non-finite fp16 packed gradient")
+        for layout in ("bnhd", "bhnd"):
+            xs = [t.detach().clone().requires_grad_() for t in split_operands(qkv, H, layout)]
+            fa.flash_attention(*xs, bias, layout=layout, **drop).backward(as_bnhd(ct, layout))
+            check(all(torch.isfinite(t.grad.float()).all() for t in xs),
+                  f"non-finite {dt} split gradients ({layout})")
+    torch.cuda.synchronize(dev)
+    launches = dict(_build.LAUNCHES)
+    print(f"launches on the typed_attention path: {launches}")
+    check_launched(mods, launches, "typed_attention")
+    return launches
+
+
+def serve_fp32_phase(_build, mods, dev, seed: int, card: str) -> dict:
+    """The parity mode's zero-shot path (--fp32 --flash-attention): the
+    zero_shot model in fp32 with flash attention encodes the prompt bank and
+    scores a batch through the fp32 attention kernels, held against the
+    same model on the plain route (B2 kept, so the images are the same)."""
+    import numpy as np
+    import torch
+
+    from clip_for_dl_tpu_torch.core.config import DISEASE_LABELS
+    from clip_for_dl_tpu_torch.tools.main_paths import build_engine, grey_images
+    from clip_for_dl_tpu_torch.zeroshot import ZeroShotEngine, prompts_for_family
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cudnn = torch.backends.cudnn
+    flags = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        t0 = time.perf_counter()
+        cfg, engine = build_engine(dev, seed, "serve_fp32")
+        print(f"model: {describe(cfg)}; fp32 weights and compute, flash attention; built in "
+              f"{time.perf_counter() - t0:.1f} s")
+        prompts = prompts_for_family("prediction", DISEASE_LABELS)
+        images = grey_images(np.random.default_rng(seed + 12), BATCH)
+        torch.cuda.synchronize(dev)
+        _build.reset_launches()
+        t = time.perf_counter()
+        engine.build_text_features(prompts)
+        probs = engine.probs(images)
+        torch.cuda.synchronize(dev)
+        launches = dict(_build.LAUNCHES)
+        print(f"  prompt bank and a batch of {BATCH} in {time.perf_counter() - t:.2f} s on "
+              f"{card}; launches {launches}")
+        check(probs.shape == (BATCH, 16) and bool(np.isfinite(probs).all()),
+              "fp32 probabilities")
+        check_launched(mods, launches, "serve_fp32")
+        with plain_kernels(mods, keep=("image_prep",)):
+            before = dict(_build.LAUNCHES)
+            plain = ZeroShotEngine(engine.model, engine.tokenizer, engine.disease_list,
+                                   engine.config, engine.mean, engine.std, engine.image_size,
+                                   engine.max_text_length, engine.compute_dtype)
+            plain.build_text_features(prompts)
+            plain_probs = plain.probs(images)
+            check(all(v == before.get(k) for k, v in _build.LAUNCHES.items()
+                      if k != mods["image_prep"].KERNEL),
+                  "a kernel other than B2 ran during the plain run")
+    finally:
+        cudnn.deterministic, cudnn.benchmark = flags
+    feat_err = float((engine.text_features - plain.text_features).abs().max())
+    probs_err = float(np.abs(probs - plain_probs).max())
+    print(f"  kernels vs plain route in fp32: text features max_abs {feat_err:.3e} (tol "
+          f"{TOL['fp32_features']:.0e}); probs max_abs {probs_err:.3e} (tol "
+          f"{TOL['fp32_probs']:.0e}); probs std over images {float(probs.std(0).mean()):.3e}")
+    check(feat_err <= TOL["fp32_features"], "fp32 text features differ from the plain route")
+    check(probs_err <= TOL["fp32_probs"], "fp32 probabilities differ from the plain route")
+    return launches
+
+
+def train_fp32_phase(_build, mods, dev, seed: int) -> dict:
+    """One phase-A step of pretrain_clip in fp32 with flash attention at the
+    preset's own batch (16), dropout 0, against the same step on the plain
+    route from the same weights: the loss within 1e-5 relative, each
+    parameter group's gradient cosine ≥ 0.9999."""
+    import numpy as np
+    import torch
+
+    from clip_for_dl_tpu_torch.tools.main_paths import (
+        base_lrs, pretrain_step, tokenizer, train_batch, train_model,
+    )
+    from clip_for_dl_tpu_torch.train import TrainState, make_label_fn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    preset, cfg, model = train_model(dev, seed, "pretrain_clip", torch.float32)
+    B = preset.data.batch_size
+    groups = [g.name for g in preset.train.groups]
+    label_fn = make_label_fn(groups)
+    batch = train_batch(np.random.default_rng(seed + 13), tokenizer(), dev, B, TRAIN_LEN)
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def one_step():
+        model.load_state_dict(init)
+        opt, step = pretrain_step(model, preset, cfg, torch.float32)
+        loss = float(step(TrainState(model, opt), batch, base_lrs(preset))[1]["loss"])
+        return loss, group_grads(model, label_fn)
+
+    cudnn = torch.backends.cudnn
+    flags = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        torch.cuda.synchronize(dev)
+        _build.reset_launches()
+        loss_k, grads_k = one_step()
+        torch.cuda.synchronize(dev)
+        launches = dict(_build.LAUNCHES)
+        with plain_kernels(mods, keep=("image_prep",)):
+            loss_p, grads_p = one_step()
+    finally:
+        cudnn.deterministic, cudnn.benchmark = flags
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    print(f"  one fp32 step at B = {B}: loss {loss_k:.8f} with the kernels, {loss_p:.8f} on the "
+          f"plain route (rel {rel:.2e}, tol {TOL['fp32_loss_rel']:.0e}); launches {launches}")
+    check(np.isfinite(loss_k) and rel <= TOL["fp32_loss_rel"],
+          "the fp32 step's loss differs from the plain route's")
+    compare_groups("fp32 step", grads_k, grads_p, groups, TOL["fp32_grad_cos"])
+    check_launched(mods, launches, "train_fp32")
+    return launches
+
+
 def plain_kernels(mods, keep=()):
     """Test-only substitution: every kernel entry, forward and backward,
     replaced by its plain version, as phase 2 calls it (the wrappers' own
@@ -1205,9 +1692,8 @@ def tensor_core_counts(_build) -> dict:
 
 def check_launched(mods, launches: dict, path: str) -> None:
     for name in PATHS[path]:
-        module, attr, _, _ = KERNELS[name]
-        entry = getattr(mods[module], attr)
-        check(launches.get(entry, 0) > 0, f"kernel {name} ({entry}) never launched by the "
+        key = KERNELS[name][0]
+        check(launches.get(key, 0) > 0, f"kernel {name} ({key}) never launched by the "
               f"{path} path")
 
 
@@ -1586,17 +2072,26 @@ def main(argv=None) -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"  {line.strip()}")
     counts = tensor_core_counts(_build)
-    for kernel in ("flash_fwd_kernel", "flash_bwd_rows_kernel", "flash_bwd_cols_kernel"):
-        for d in (32, 64, 128):
+    # the 16-bit attention bodies, templated on their type (the mangled
+    # names' "13__nv_bfloat16" and "6__half")
+    for t, mangled in (("bf16", "I13__nv_bfloat16"), ("fp16", "I6__half")):
+        for kernel in ("flash_fwd_kernel", "flash_bwd_rows_kernel", "flash_bwd_cols_kernel"):
+            for d in (32, 64, 128):
+                n = sum(c[0] + c[1] for name, c in counts.items()
+                        if kernel in name and f"{mangled}Li{d}E" in name)
+                print(f"tensor-core instructions (HMMA/HGMMA) in {kernel}<{t}, {d}>: {n}")
+                check(n > 0, f"{kernel}<{t}, {d}> has no tensor-core instruction")
+        for kernel in ("flash_fwd_sliced_kernel", "flash_bwd_rows_sliced_kernel",
+                       "flash_bwd_cols_sliced_kernel"):
             n = sum(c[0] + c[1] for name, c in counts.items()
-                    if kernel in name and f"ILi{d}E" in name)
-            print(f"tensor-core instructions (HMMA/HGMMA) in {kernel}<{d}>: {n}")
-            check(n > 0, f"{kernel}<{d}> has no tensor-core instruction")
-    for kernel in ("flash_fwd_sliced_kernel", "flash_bwd_rows_sliced_kernel",
-                   "flash_bwd_cols_sliced_kernel"):
-        n = sum(c[0] + c[1] for name, c in counts.items() if kernel in name)
-        print(f"tensor-core instructions (HMMA/HGMMA) in {kernel}: {n}")
-        check(n > 0, f"{kernel} has no tensor-core instruction")
+                    if kernel in name and f"{mangled}E" in name)
+            print(f"tensor-core instructions (HMMA/HGMMA) in {kernel}<{t}>: {n}")
+            check(n > 0, f"{kernel}<{t}> has no tensor-core instruction")
+    # the fp32 attention bodies run on the CUDA cores
+    for kernel in ("flash_fwd_f32_kernel", "flash_bwd_rows_f32_kernel",
+                   "flash_bwd_cols_f32_kernel"):
+        found = [name for name in counts if kernel in name]
+        check(len(found) == 1, f"{kernel}: {len(found)} instances in the library")
     for kernel in ("mlp_bwd_gelu_kernel", "mlp_bwd_dx_kernel"):
         hmma, hgmma = (sum(c[i] for name, c in counts.items() if kernel in name)
                        for i in (0, 1))
@@ -1616,6 +2111,11 @@ def main(argv=None) -> int:
     phase2_repairs(mods, dev, args.seed, results)
     by_path = phase2_split(_build, mods, dev, args.seed, results)
     phase2_limits(mods, dev, args.seed, results)
+    print("== phase 2, C7: attention in fp32 and fp16")
+    phase2_types(mods, dev, args.seed, results)
+    by_path["typed_attention"] = typed_attention_path(_build, mods, dev, args.seed)
+    print("== phase 2, C8: B1 and B2 on every input the JAX kernels take")
+    by_path["c8_cases"] = phase2_c8(_build, mods, dev, args.seed, results)
     print("== phase 3: zero-shot serving, ResNet-50")
     by_path["serve"] = serve_phase(_build, mods, dev, args.seed, BATCH, N_BATCHES, card, "serve")
     print("== phase 4: the phase-A train step")
@@ -1625,11 +2125,18 @@ def main(argv=None) -> int:
                                        "serve_vit")
     print("== phase 6: the chain pretrain -> adapter")
     by_path.update(phase6(_build, mods, dev, args.seed, card))
+    print("== phase 7: the parity mode, --fp32 --flash-attention")
+    by_path["serve_fp32"] = serve_fp32_phase(_build, mods, dev, args.seed, card)
+    by_path["train_fp32"] = train_fp32_phase(_build, mods, dev, args.seed)
+    print("== the wrappers' host time (tools/launch_times.py)")
+    from clip_for_dl_tpu_torch.tools import launch_times
+
+    check(launch_times.main(["--root", str(ROOT), "--requests", "10"]) == 0,
+          "launch_times failed")
 
     kernels = []
-    for name, (module, attr, src, tpu) in KERNELS.items():
-        entry = getattr(mods[module], attr)
-        counts = {path: launches.get(entry, 0) for path, launches in by_path.items()}
+    for name, (key, src, tpu) in KERNELS.items():
+        counts = {path: launches.get(key, 0) for path, launches in by_path.items()}
         r = results[name]
         kernels.append({"name": name, "route": "cuda", "source": src, "replaces": tpu,
                         "launches": sum(counts.values()), "launches_by_path": counts,

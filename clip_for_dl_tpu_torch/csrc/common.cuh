@@ -8,6 +8,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -42,6 +43,33 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
+// The same for either 16-bit type of the attention kernels' template
+// parameter T (__nv_bfloat16 or __half): two floats rounded to T and packed
+// in one word, low half first; and two T of a word back to floats
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float a, float b);
+template <>
+__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float a, float b) {
+  return f2_to_bf2(a, b);
+}
+template <>
+__device__ __forceinline__ uint32_t pack2<__half>(float a, float b) {
+  __half2 h = __floats2half2_rn(a, b);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+template <typename T>
+__device__ __forceinline__ float2 unpack2(uint32_t w);
+template <>
+__device__ __forceinline__ float2 unpack2<__nv_bfloat16>(uint32_t w) {
+  return bf2_to_f2(w);
+}
+template <>
+__device__ __forceinline__ float2 unpack2<__half>(uint32_t w) {
+  __half2 h = *reinterpret_cast<__half2*>(&w);
+  return __half22float2(h);
+}
+
 // Attention-probability dropout bits: the JAX package's counter hash
 // (_uniform01, clip_for_dl_tpu/ops/flash_attention.py:132), a murmur3 fmix32
 // over the absolute (query row, key column) grid, salted per batch row and
@@ -62,7 +90,8 @@ __device__ __forceinline__ float uniform01(uint32_t salt, uint32_t row, uint32_t
 }
 
 // Where one attention operand's head rows lie (kernels B3, B5, B6, B7): the
-// strides, in 32-bit words (bf16 pairs), of its batch, token and head dims;
+// strides, in 32-bit words (16-bit pairs, or single fp32 values), of its
+// batch, token and head dims;
 // the head's D values are contiguous. Packed qkv [B, N, 3*H*D] is three views
 // of one buffer with token stride 3*H*D/2; split [B, N, H, D] ("bnhd") and
 // [B, H, N, D] ("bhnd") are two other stride sets over the same kernel body.

@@ -1,5 +1,8 @@
 // Attention backward: packed qkv (kernel B6) and split q/k/v (kernel B7), one
-// kernel body on Hopper's tensor cores.
+// kernel body on Hopper's tensor cores for bf16 and fp16 operands (the
+// 16-bit type T a template parameter: mma.sync's .bf16 or .f16 form and the
+// roundings to T; bf16 below), and one on the CUDA cores for fp32 (at the
+// end of this file).
 //
 // Replaces the TPU kernels clip_for_dl_tpu/ops/flash_attention.py
 // _bwd_kernel_packed (:375), reached through _pallas_bwd_packed's
@@ -89,7 +92,7 @@
 // writer.
 #include <math_constants.h>
 
-#include "mma_tiles.cuh"
+#include "attention_f32.cuh"
 
 namespace {
 
@@ -157,8 +160,8 @@ __device__ __forceinline__ void finish_sweep1(float (&m)[2], float (&l)[2], cons
 // scores (hashed in sweep 1 and kept in ``keep_word`` for sweep 2) applied
 // to dp, s scaled, biased and masked past N; then sweep 1 moves the online
 // m, l and sum exp(s - m) dp, and sweep 2 forms ds = p (dp - delta) and adds
-// bf16(ds) K into dq, K the tile at kt.
-template <int D>
+// T(ds) K into dq, K the tile at kt.
+template <typename T, int D>
 __device__ __forceinline__ void rows_key_tile(float (&s)[NT][4], float (&dp)[NT][4], bool sweep2,
                                               int j0, int N, float scale, const float* s_bias,
                                               uint32_t* keep_word, float (&m)[2], float (&l)[2],
@@ -221,21 +224,21 @@ __device__ __forceinline__ void rows_key_tile(float (&s)[NT][4], float (&dp)[NT]
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1;
         const float p = expf(s[n][e] - m[r]) * l[r];
-        s[n][e] = p * (dp[n][e] - delta[r]);  // ds, rounded to bf16 by to_a
+        s[n][e] = p * (dp[n][e] - delta[r]);  // ds, rounded to T by to_a
       }
     }
     uint32_t ds[NT / 2][4];
-    to_a<NT / 2>(s, ds);
-    product_ab<D, NT / 2>(dqa, ds, kt);
+    to_a<T, NT / 2>(s, ds);
+    product_ab<T, D, NT / 2>(dqa, ds, kt);
   }
 }
 
 // A columns-pass query tile's work once s and dp (the warp's 16 x 8 QN of
 // K Q^T and V dO^T over query rows i0..) are whole: p from the rows pass's
 // m, 1/l and delta of those rows (sm, sl, sd), zero on rows past N, the
-// dropout mask hashed at (row, key); then dv += bf16(pd)^T dO and
-// dk += bf16(ds)^T Q, Q and dO the tiles at qt and ot.
-template <int D, int QN>
+// dropout mask hashed at (row, key); then dv += T(pd)^T dO and
+// dk += T(ds)^T Q, Q and dO the tiles at qt and ot.
+template <typename T, int D, int QN>
 __device__ __forceinline__ void cols_query_tile(float (&s)[QN][4], float (&dp)[QN][4], int i0,
                                                 int N, float scale, const float (&kbias)[2],
                                                 const float* sm, const float* sl,
@@ -263,15 +266,15 @@ __device__ __forceinline__ void cols_query_tile(float (&s)[QN][4], float (&dp)[Q
     }
   }
   uint32_t a[QN / 2][4];
-  to_a<QN / 2>(s, a);
-  product_ab<D, QN / 2>(dva, a, ot);
-  to_a<QN / 2>(dp, a);
-  product_ab<D, QN / 2>(dka, a, qt);
+  to_a<T, QN / 2>(s, a);
+  product_ab<T, D, QN / 2>(dva, a, ot);
+  to_a<T, QN / 2>(dp, a);
+  product_ab<T, D, QN / 2>(dka, a, qt);
 }
 
 // ---- pass 1: dq and the row statistics ------------------------------------
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_rows_kernel(const uint32_t* __restrict__ q, HeadStrides sq,
                       const uint32_t* __restrict__ k, HeadStrides sk,
@@ -331,9 +334,9 @@ flash_bwd_rows_kernel(const uint32_t* __restrict__ q, HeadStrides sq,
     if (t == nkt) finish_sweep1(m, l, pdp, delta);
     if (active) {
       float s[NT][4], dp[NT][4];
-      product_abt<D, NT>(s, s_q, r0, kt);
-      product_abt<D, NT>(dp, s_do, r0, vt);
-      rows_key_tile<D>(s, dp, t >= nkt, j0, N, scale, s_bias,
+      product_abt<T, D, NT>(s, s_q, r0, kt);
+      product_abt<T, D, NT>(dp, s_do, r0, vt);
+      rows_key_tile<T, D>(s, dp, t >= nkt, j0, N, scale, s_bias,
                        s_keep + (t % nkt) * kThreads + threadIdx.x, m, l, pdp, delta, drop, salt,
                        rows, rate, inv_keep, dqa, kt);
     }
@@ -342,7 +345,7 @@ flash_bwd_rows_kernel(const uint32_t* __restrict__ q, HeadStrides sq,
 
   if (active) {
     uint32_t* gq = dq + b * sdq.b + h * sdq.h;
-    store_rows<D>(dqa, scale, smem, s_q - sbase, r0, gq, sdq.n, row0 + r0, N);
+    store_rows<T, D>(dqa, scale, smem, s_q - sbase, r0, gq, sdq.n, row0 + r0, N);
     if (qd == 0) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
@@ -358,7 +361,7 @@ flash_bwd_rows_kernel(const uint32_t* __restrict__ q, HeadStrides sq,
 
 // ---- pass 2: dk and dv ----------------------------------------------------
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_cols_kernel(const uint32_t* __restrict__ q, HeadStrides sq,
                       const uint32_t* __restrict__ k, HeadStrides sk,
@@ -428,19 +431,19 @@ flash_bwd_cols_kernel(const uint32_t* __restrict__ q, HeadStrides sq,
     const int i0 = t * QT;
     if (active) {
       float s[NT][4], dp[NT][4];
-      product_abt<D, NT>(s, s_k, r0, qt);   // S^T: rows the warp's keys, columns query rows
-      product_abt<D, NT>(dp, s_v, r0, ot);  // dP^T
-      cols_query_tile<D>(s, dp, i0, N, scale, kbias, sm, sl, sd, drop, salt, keys, rate,
+      product_abt<T, D, NT>(s, s_k, r0, qt);   // S^T: rows the warp's keys, columns query rows
+      product_abt<T, D, NT>(dp, s_v, r0, ot);  // dP^T
+      cols_query_tile<T, D>(s, dp, i0, N, scale, kbias, sm, sl, sd, drop, salt, keys, rate,
                          inv_keep, dka, dva, qt, ot);
     }
     __syncthreads();  // the next iteration's copy overwrites this stage
   }
 
   if (active) {
-    store_rows<D>(dka, scale, smem, s_k - sbase, r0, dk + b * sdk.b + h * sdk.h, sdk.n,
-                  col0 + r0, N);
-    store_rows<D>(dva, 1.f, smem, s_v - sbase, r0, dv + b * sdv.b + h * sdv.h, sdv.n,
-                  col0 + r0, N);
+    store_rows<T, D>(dka, scale, smem, s_k - sbase, r0, dk + b * sdk.b + h * sdk.h, sdk.n,
+                     col0 + r0, N);
+    store_rows<T, D>(dva, 1.f, smem, s_v - sbase, r0, dv + b * sdv.b + h * sdv.h, sdv.n,
+                     col0 + r0, N);
   }
 }
 
@@ -457,6 +460,7 @@ constexpr size_t kRowsSlicedSmem = (size_t)10 * kTile + kMaxN * 4 + kKeepBytes;
 constexpr int kColsSlicedStage = 6 * kTile + 3 * kSlicedQT * 4;
 constexpr size_t kColsSlicedSmem = (size_t)2 * kColsSlicedStage;
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_rows_sliced_kernel(const uint32_t* __restrict__ q, HeadStrides sq,
                              const uint32_t* __restrict__ k, HeadStrides sk,
@@ -521,10 +525,10 @@ flash_bwd_rows_sliced_kernel(const uint32_t* __restrict__ q, HeadStrides sq,
         cxr::zero(s);
         cxr::zero(dp);
       }
-      cxr::add_abt<kC>(s, at, r0, at + 2 * kTile);
-      cxr::add_abt<kC>(dp, at + kTile, r0, at + 3 * kTile);
+      cxr::add_abt<T, kC>(s, at, r0, at + 2 * kTile);
+      cxr::add_abt<T, kC>(dp, at + kTile, r0, at + 3 * kTile);
       if (c == nc - 1)  // s and dp of the tile are whole
-        rows_key_tile<kC>(s, dp, t >= nkt, j0, N, scale, s_bias,
+        rows_key_tile<T, kC>(s, dp, t >= nkt, j0, N, scale, s_bias,
                           s_keep + (t % nkt) * kThreads + threadIdx.x, m, l, pdp, delta, drop,
                           salt, rows, rate, inv_keep, dqa, at + 4 * kTile);
     }
@@ -532,7 +536,7 @@ flash_bwd_rows_sliced_kernel(const uint32_t* __restrict__ q, HeadStrides sq,
   }
 
   if (active) {  // stage 0's Q chunk is free: the warps stage their rows of dq there
-    store_rows<kC>(dqa, scale, smem, 0, r0, dq + b * sdq.b + h * sdq.h + sl * kC / 2, sdq.n,
+    store_rows<T, kC>(dqa, scale, smem, 0, r0, dq + b * sdq.b + h * sdq.h + sl * kC / 2, sdq.n,
                    row0 + r0, N);
     if (sl == 0 && qd == 0) {
 #pragma unroll
@@ -547,6 +551,7 @@ flash_bwd_rows_sliced_kernel(const uint32_t* __restrict__ q, HeadStrides sq,
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_cols_sliced_kernel(const uint32_t* __restrict__ q, HeadStrides sq,
                              const uint32_t* __restrict__ k, HeadStrides sk,
@@ -620,11 +625,11 @@ flash_bwd_cols_sliced_kernel(const uint32_t* __restrict__ q, HeadStrides sq,
         cxr::zero(s);
         cxr::zero(dp);
       }
-      cxr::add_abt<kC>(s, at, r0, at + 2 * kTile);           // S^T
-      cxr::add_abt<kC>(dp, at + kTile, r0, at + 3 * kTile);  // dP^T
+      cxr::add_abt<T, kC>(s, at, r0, at + 2 * kTile);           // S^T
+      cxr::add_abt<T, kC>(dp, at + kTile, r0, at + 3 * kTile);  // dP^T
       if (c == nc - 1) {  // s and dp of the tile are whole
         const float* sm = reinterpret_cast<const float*>(smem + (at - sbase) + 6 * kTile);
-        cols_query_tile<kC>(s, dp, i0, N, scale, kbias, sm, sm + QT, sm + 2 * QT, drop, salt,
+        cols_query_tile<T, kC>(s, dp, i0, N, scale, kbias, sm, sm + QT, sm + 2 * QT, drop, salt,
                             keys, rate, inv_keep, dka, dva, at + 4 * kTile, at + 5 * kTile);
       }
     }
@@ -632,9 +637,9 @@ flash_bwd_cols_sliced_kernel(const uint32_t* __restrict__ q, HeadStrides sq,
   }
 
   if (active) {  // stage 0's K and V chunks are free: the warps stage their rows there
-    store_rows<kC>(dka, scale, smem, 0, r0, dk + b * sdk.b + h * sdk.h + sl * kC / 2, sdk.n,
+    store_rows<T, kC>(dka, scale, smem, 0, r0, dk + b * sdk.b + h * sdk.h + sl * kC / 2, sdk.n,
                    col0 + r0, N);
-    store_rows<kC>(dva, 1.f, smem, kTile, r0, dv + b * sdv.b + h * sdv.h + sl * kC / 2, sdv.n,
+    store_rows<T, kC>(dva, 1.f, smem, kTile, r0, dv + b * sdv.b + h * sdv.h + sl * kC / 2, sdv.n,
                    col0 + r0, N);
   }
 }
@@ -650,14 +655,14 @@ struct Gradient {
   HeadStrides s;
 };
 
-template <int D>
+template <typename T, int D>
 cudaError_t launch(Operand q, Operand k, Operand v, Operand dout, const void* bias,
                    const void* seeds, Gradient dq, Gradient dk, Gradient dv, void* stats, int B,
                    int N, int H, float scale, float rate, float inv_keep, cudaStream_t stream) {
   constexpr size_t rows_smem = rows_smem_bytes<D>(), cols_smem = cols_smem_bytes<D>();
-  cudaError_t err = cxr::allow_smem(flash_bwd_rows_kernel<D>, rows_smem);
+  cudaError_t err = cxr::allow_smem(flash_bwd_rows_kernel<T, D>, rows_smem);
   if (err != cudaSuccess) return err;
-  err = cxr::allow_smem(flash_bwd_cols_kernel<D>, cols_smem);
+  err = cxr::allow_smem(flash_bwd_cols_kernel<T, D>, cols_smem);
   if (err != cudaSuccess) return err;
   return cxr::for_batch_chunks(B, [&](int b0, int rows) {
     // the chunk's operands start at its first batch row
@@ -667,25 +672,26 @@ cudaError_t launch(Operand q, Operand k, Operand v, Operand dout, const void* bi
     const auto* sd = static_cast<const int*>(seeds) + b0;
     auto* st = static_cast<float*>(stats) + (size_t)b0 * H * N;
     const dim3 grid = cxr::head_grid(rows, N, H);
-    flash_bwd_rows_kernel<D><<<grid, kThreads, rows_smem, stream>>>(
+    flash_bwd_rows_kernel<T, D><<<grid, kThreads, rows_smem, stream>>>(
         in(q), q.s, in(k), k.s, in(v), v.s, in(dout), dout.s, bi, sd, out(dq), dq.s, st, B, N,
         H, scale, rate, inv_keep);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
-    flash_bwd_cols_kernel<D><<<grid, kThreads, cols_smem, stream>>>(
+    flash_bwd_cols_kernel<T, D><<<grid, kThreads, cols_smem, stream>>>(
         in(q), q.s, in(k), k.s, in(v), v.s, in(dout), dout.s, bi, sd, out(dk), dk.s, out(dv),
         dv.s, st, B, N, H, scale, rate, inv_keep);
     return cudaGetLastError();
   });
 }
 
+template <typename T>
 cudaError_t launch_sliced(Operand q, Operand k, Operand v, Operand dout, const void* bias,
                           const void* seeds, Gradient dq, Gradient dk, Gradient dv, void* stats,
                           int B, int N, int H, int D, float scale, float rate, float inv_keep,
                           cudaStream_t stream) {
-  cudaError_t err = cxr::allow_smem(flash_bwd_rows_sliced_kernel, kRowsSlicedSmem);
+  cudaError_t err = cxr::allow_smem(flash_bwd_rows_sliced_kernel<T>, kRowsSlicedSmem);
   if (err != cudaSuccess) return err;
-  err = cxr::allow_smem(flash_bwd_cols_sliced_kernel, kColsSlicedSmem);
+  err = cxr::allow_smem(flash_bwd_cols_sliced_kernel<T>, kColsSlicedSmem);
   if (err != cudaSuccess) return err;
   const int nc = D / kC;
   return cxr::for_batch_chunks(B, [&](int b0, int rows) {
@@ -695,18 +701,19 @@ cudaError_t launch_sliced(Operand q, Operand k, Operand v, Operand dout, const v
     const auto* sd = static_cast<const int*>(seeds) + b0;
     auto* st = static_cast<float*>(stats) + (size_t)b0 * H * N;
     const dim3 grid = cxr::head_grid(rows, N, H * nc);
-    flash_bwd_rows_sliced_kernel<<<grid, kThreads, kRowsSlicedSmem, stream>>>(
+    flash_bwd_rows_sliced_kernel<T><<<grid, kThreads, kRowsSlicedSmem, stream>>>(
         in(q), q.s, in(k), k.s, in(v), v.s, in(dout), dout.s, bi, sd, out(dq), dq.s, st, B, N,
         H, nc, scale, rate, inv_keep);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
-    flash_bwd_cols_sliced_kernel<<<grid, kThreads, kColsSlicedSmem, stream>>>(
+    flash_bwd_cols_sliced_kernel<T><<<grid, kThreads, kColsSlicedSmem, stream>>>(
         in(q), q.s, in(k), k.s, in(v), v.s, in(dout), dout.s, bi, sd, out(dk), dk.s, out(dv),
         dv.s, st, B, N, H, nc, scale, rate, inv_keep);
     return cudaGetLastError();
   });
 }
 
+template <typename T>
 cudaError_t dispatch(int D, Operand q, Operand k, Operand v, Operand dout, const void* bias,
                      const void* seeds, Gradient dq, Gradient dk, Gradient dv, void* stats,
                      int B, int N, int H, float scale, float rate, float inv_keep,
@@ -714,58 +721,376 @@ cudaError_t dispatch(int D, Operand q, Operand k, Operand v, Operand dout, const
   auto s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 32:
-      return launch<32>(q, k, v, dout, bias, seeds, dq, dk, dv, stats, B, N, H, scale, rate,
+      return launch<T, 32>(q, k, v, dout, bias, seeds, dq, dk, dv, stats, B, N, H, scale, rate,
                         inv_keep, s);
     case 64:
-      return launch<64>(q, k, v, dout, bias, seeds, dq, dk, dv, stats, B, N, H, scale, rate,
+      return launch<T, 64>(q, k, v, dout, bias, seeds, dq, dk, dv, stats, B, N, H, scale, rate,
                         inv_keep, s);
     case 128:
-      return launch<128>(q, k, v, dout, bias, seeds, dq, dk, dv, stats, B, N, H, scale, rate,
+      return launch<T, 128>(q, k, v, dout, bias, seeds, dq, dk, dv, stats, B, N, H, scale, rate,
                          inv_keep, s);
     default:
-      return launch_sliced(q, k, v, dout, bias, seeds, dq, dk, dv, stats, B, N, H, D, scale,
+      return launch_sliced<T>(q, k, v, dout, bias, seeds, dq, dk, dv, stats, B, N, H, D, scale,
                            rate, inv_keep, s);
   }
 }
 
+// ---- fp32: the CUDA-core bodies -------------------------------------------
+//
+// fp32 operands (the parity mode) run FlashAttention-2's same two passes on
+// the CUDA cores in fp32 FMAs, with no atomics: right, not fast. Every
+// operand passes through shared memory in chunks of kF32Tokens tokens by
+// kF32Cols columns of the head dim, so any D and N <= 512 fit (staged bytes
+// double against bf16: a head's Q, K, V and dO at N = 512, D = 64 are 512 KB).
+//
+//  1. rows: a block takes kF32Rows query rows of a (head, batch row), 8 warps
+//     of kF32Rows / 8. For each key chunk it sums s = q k^T and dp = do v^T
+//     over the head dim (Q, dO, K and V chunks staged in turn; K and V rows
+//     padded by one word so that the lanes' keys fall in distinct banks),
+//     each lane two keys of its warp's rows, into the block's [rows, N]
+//     scores and dp. Each warp then takes its rows: m, l, p = exp(s - m) / l,
+//     dp masked and scaled by the regenerated dropout mask, delta =
+//     sum p dp, ds = p (dp - delta) in place of s; (m, l, delta) go to the
+//     stats scratch. dq = ds K * scale, one column chunk at a time, K's
+//     chunks staged over the keys.
+//  2. columns: a block takes kF32Rows keys; for each query chunk it sums
+//     s^T = k q^T and dp^T = v do^T the same way, in the same column order
+//     (so s, hence p, has the rows pass's bits), forms p from the rows
+//     pass's m and l, pd and ds with the mask hashed at (query row, key), and
+//     keeps them in [keys, N] buffers; then dv = pd^T dO and dk = ds^T Q *
+//     scale, one column chunk at a time.
+//
+// Shared memory is 4 chunks plus two [kF32Rows, N] fp32 buffers: 180 KB at
+// N = 512 (one block an SM), any D.
+
+using cxr::kF32Cols;
+using cxr::kF32Pad;
+using cxr::kF32Rows;
+using cxr::kF32RowsPerWarp;
+using cxr::kF32Threads;
+using cxr::kF32Tokens;
+
+// the block's own [kF32Rows, kF32Cols] chunks (2), the streamed padded
+// chunks (2), two [kF32Rows, N] buffers, and N floats (the key bias) or 3 N
+// (the row statistics)
+__host__ __device__ constexpr size_t f32_smem_bytes(int N, int per_token) {
+  return ((size_t)2 * kF32Rows * kF32Cols + (size_t)2 * kF32Tokens * kF32Pad +
+          (size_t)2 * kF32Rows * N + (size_t)per_token * N) *
+         4;
+}
+
+__global__ void __launch_bounds__(kF32Threads)
+flash_bwd_rows_f32_kernel(const float* __restrict__ q, HeadStrides sq,
+                          const float* __restrict__ k, HeadStrides sk,
+                          const float* __restrict__ v, HeadStrides sv,
+                          const float* __restrict__ dout, HeadStrides sdo,
+                          const float* __restrict__ bias, const int* __restrict__ seeds,
+                          float* __restrict__ dq, HeadStrides sdq, float* __restrict__ stats,
+                          int B, int N, int H, int D, float scale, float rate, float inv_keep) {
+  extern __shared__ float fsm[];
+  float* s_q = fsm;                                   // [kF32Rows][kF32Cols]
+  float* s_do = s_q + kF32Rows * kF32Cols;            // [kF32Rows][kF32Cols]
+  float* s_k = s_do + kF32Rows * kF32Cols;            // [kF32Tokens][kF32Pad]
+  float* s_v = s_k + kF32Tokens * kF32Pad;            // [kF32Tokens][kF32Pad]
+  float* s_s = s_v + kF32Tokens * kF32Pad;            // [kF32Rows][N]: s, then ds
+  float* s_dp = s_s + (size_t)kF32Rows * N;           // [kF32Rows][N]
+  float* s_bias = s_dp + (size_t)kF32Rows * N;        // [N]
+
+  const int b = blockIdx.z, h = blockIdx.y, row0 = blockIdx.x * kF32Rows;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r0 = warp * kF32RowsPerWarp;
+  const float* qb = q + b * sq.b + h * sq.h;
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
+  const float* ob = dout + b * sdo.b + h * sdo.h;
+  const size_t plane = (size_t)B * H * N;
+  float* st = stats + ((size_t)b * H + h) * N;  // max at st, sum at +plane, delta at +2 plane
+  for (int j = threadIdx.x; j < N; j += kF32Threads) s_bias[j] = bias[(size_t)b * N + j];
+
+  for (int j0 = 0; j0 < N; j0 += kF32Tokens) {
+    float as[kF32RowsPerWarp][2] = {}, adp[kF32RowsPerWarp][2] = {};
+    for (int c0 = 0; c0 < D; c0 += kF32Cols) {
+      __syncthreads();  // the previous chunks are read
+      cxr::stage_f32<kF32Rows>(s_q, kF32Cols, qb, sq.n, row0, N, c0, D);
+      cxr::stage_f32<kF32Rows>(s_do, kF32Cols, ob, sdo.n, row0, N, c0, D);
+      cxr::stage_f32<kF32Tokens>(s_k, kF32Pad, kb, sk.n, j0, N, c0, D);
+      cxr::stage_f32<kF32Tokens>(s_v, kF32Pad, vb, sv.n, j0, N, c0, D);
+      __syncthreads();
+      cxr::f32_chunk_dots(as, s_q, s_k, r0, lane);
+      cxr::f32_chunk_dots(adp, s_do, s_v, r0, lane);
+    }
+#pragma unroll
+    for (int i = 0; i < kF32RowsPerWarp; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int j = j0 + lane + 32 * e;
+        if (j < N) {
+          s_s[(r0 + i) * N + j] = fmaf(as[i][e], scale, s_bias[j]);
+          s_dp[(r0 + i) * N + j] = adp[i][e];
+        }
+      }
+  }
+
+  const bool drop = rate > 0.f;
+  const uint32_t salt = cxr::dropout_salt(seeds[b], h);
+  for (int i = 0; i < kF32RowsPerWarp; ++i) {
+    const int t = row0 + r0 + i;
+    if (t >= N) break;
+    float* srow = s_s + (r0 + i) * N;
+    float* drow = s_dp + (r0 + i) * N;
+    float m = -CUDART_INF_F;
+    for (int j = lane; j < N; j += 32) m = fmaxf(m, srow[j]);
+    m = cxr::warp_max(m);
+    if (m == -CUDART_INF_F) m = 0.f;  // no finite score: exp(s - m) is 0, not NaN
+    float l = 0.f;
+    for (int j = lane; j < N; j += 32) l += expf(srow[j] - m);
+    l = cxr::warp_sum(l);
+    float pdp = 0.f;
+    for (int j = lane; j < N; j += 32) {
+      const float p = expf(srow[j] - m) / l;
+      float d = drow[j];
+      if (drop) d = cxr::uniform01(salt, t, j) >= rate ? d * inv_keep : 0.f;
+      srow[j] = p;
+      drow[j] = d;
+      pdp = fmaf(p, d, pdp);
+    }
+    const float delta = cxr::warp_sum(pdp);
+    for (int j = lane; j < N; j += 32) srow[j] = srow[j] * (drow[j] - delta);  // ds
+    if (lane == 0) {
+      st[t] = m;
+      st[plane + t] = l;
+      st[2 * plane + t] = delta;
+    }
+  }
+
+  cxr::f32_weighted_rows(s_s, N, kb, sk.n, s_k, dq + b * sdq.b + h * sdq.h, sdq.n, row0, r0,
+                         lane, D, scale);
+}
+
+__global__ void __launch_bounds__(kF32Threads)
+flash_bwd_cols_f32_kernel(const float* __restrict__ q, HeadStrides sq,
+                          const float* __restrict__ k, HeadStrides sk,
+                          const float* __restrict__ v, HeadStrides sv,
+                          const float* __restrict__ dout, HeadStrides sdo,
+                          const float* __restrict__ bias, const int* __restrict__ seeds,
+                          float* __restrict__ dk, HeadStrides sdk, float* __restrict__ dv,
+                          HeadStrides sdv, const float* __restrict__ stats, int B, int N, int H,
+                          int D, float scale, float rate, float inv_keep) {
+  extern __shared__ float fsm[];
+  float* s_k = fsm;                                   // [kF32Rows][kF32Cols]
+  float* s_v = s_k + kF32Rows * kF32Cols;             // [kF32Rows][kF32Cols]
+  float* s_q = s_v + kF32Rows * kF32Cols;             // [kF32Tokens][kF32Pad]
+  float* s_o = s_q + kF32Tokens * kF32Pad;            // [kF32Tokens][kF32Pad]
+  float* s_pd = s_o + kF32Tokens * kF32Pad;           // [kF32Rows][N]
+  float* s_ds = s_pd + (size_t)kF32Rows * N;          // [kF32Rows][N]
+  float* s_st = s_ds + (size_t)kF32Rows * N;          // [3][N]: m, l, delta
+
+  const int b = blockIdx.z, h = blockIdx.y, col0 = blockIdx.x * kF32Rows;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r0 = warp * kF32RowsPerWarp;
+  const float* qb = q + b * sq.b + h * sq.h;
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
+  const float* ob = dout + b * sdo.b + h * sdo.h;
+  const size_t plane = (size_t)B * H * N;
+  const float* st = stats + ((size_t)b * H + h) * N;
+  for (int x = threadIdx.x; x < 3 * N; x += kF32Threads)
+    s_st[x] = st[(x / N) * plane + x % N];
+
+  const bool drop = rate > 0.f;
+  const uint32_t salt = cxr::dropout_salt(seeds[b], h);
+  float kbias[kF32RowsPerWarp];
+#pragma unroll
+  for (int i = 0; i < kF32RowsPerWarp; ++i) {
+    const int j = col0 + r0 + i;
+    kbias[i] = j < N ? bias[(size_t)b * N + j] : 0.f;
+  }
+  for (int i0 = 0; i0 < N; i0 += kF32Tokens) {
+    float as[kF32RowsPerWarp][2] = {}, adp[kF32RowsPerWarp][2] = {};
+    for (int c0 = 0; c0 < D; c0 += kF32Cols) {
+      __syncthreads();  // the previous chunks are read
+      cxr::stage_f32<kF32Rows>(s_k, kF32Cols, kb, sk.n, col0, N, c0, D);
+      cxr::stage_f32<kF32Rows>(s_v, kF32Cols, vb, sv.n, col0, N, c0, D);
+      cxr::stage_f32<kF32Tokens>(s_q, kF32Pad, qb, sq.n, i0, N, c0, D);
+      cxr::stage_f32<kF32Tokens>(s_o, kF32Pad, ob, sdo.n, i0, N, c0, D);
+      __syncthreads();
+      cxr::f32_chunk_dots(as, s_k, s_q, r0, lane);
+      cxr::f32_chunk_dots(adp, s_v, s_o, r0, lane);
+    }
+#pragma unroll
+    for (int i = 0; i < kF32RowsPerWarp; ++i) {
+      const int j = col0 + r0 + i;  // the key
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int t = i0 + lane + 32 * e;  // the query row
+        if (t < N && j < N) {
+          const float p = expf(fmaf(as[i][e], scale, kbias[i]) - s_st[t]) / s_st[N + t];
+          float pd = p, d = adp[i][e];
+          if (drop) {
+            const bool keep = cxr::uniform01(salt, t, j) >= rate;
+            pd = keep ? p * inv_keep : 0.f;
+            d = keep ? d * inv_keep : 0.f;
+          }
+          s_pd[(r0 + i) * N + t] = pd;
+          s_ds[(r0 + i) * N + t] = p * (d - s_st[2 * N + t]);
+        }
+      }
+    }
+  }
+
+  cxr::f32_weighted_rows(s_pd, N, ob, sdo.n, s_o, dv + b * sdv.b + h * sdv.h, sdv.n, col0, r0,
+                         lane, D, 1.f);
+  cxr::f32_weighted_rows(s_ds, N, qb, sq.n, s_q, dk + b * sdk.b + h * sdk.h, sdk.n, col0, r0,
+                         lane, D, scale);
+}
+
+struct F32Operand {
+  const float* p;
+  HeadStrides s;
+};
+
+struct F32Gradient {
+  float* p;
+  HeadStrides s;
+};
+
+cudaError_t launch_f32(F32Operand q, F32Operand k, F32Operand v, F32Operand dout,
+                       const void* bias, const void* seeds, F32Gradient dq, F32Gradient dk,
+                       F32Gradient dv, void* stats, int B, int N, int H, int D, float scale,
+                       float rate, float inv_keep, cudaStream_t stream) {
+  const size_t rows_smem = f32_smem_bytes(N, 1), cols_smem = f32_smem_bytes(N, 3);
+  cudaError_t err = cxr::allow_smem(flash_bwd_rows_f32_kernel, rows_smem);
+  if (err != cudaSuccess) return err;
+  err = cxr::allow_smem(flash_bwd_cols_f32_kernel, cols_smem);
+  if (err != cudaSuccess) return err;
+  return cxr::for_batch_chunks(B, [&](int b0, int rows) {
+    auto in = [b0](F32Operand o) { return o.p + b0 * o.s.b; };
+    auto out = [b0](F32Gradient g) { return g.p + b0 * g.s.b; };
+    const auto* bi = static_cast<const float*>(bias) + (size_t)b0 * N;
+    const auto* sd = static_cast<const int*>(seeds) + b0;
+    auto* st = static_cast<float*>(stats) + (size_t)b0 * H * N;
+    const dim3 grid((N + kF32Rows - 1) / kF32Rows, H, rows);
+    flash_bwd_rows_f32_kernel<<<grid, kF32Threads, rows_smem, stream>>>(
+        in(q), q.s, in(k), k.s, in(v), v.s, in(dout), dout.s, bi, sd, out(dq), dq.s, st, B, N,
+        H, D, scale, rate, inv_keep);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    flash_bwd_cols_f32_kernel<<<grid, kF32Threads, cols_smem, stream>>>(
+        in(q), q.s, in(k), k.s, in(v), v.s, in(dout), dout.s, bi, sd, out(dk), dk.s, out(dv),
+        dv.s, st, B, N, H, D, scale, rate, inv_keep);
+    return cudaGetLastError();
+  });
+}
+
+// the seven operands' strides, in 32-bit words: q, k, v, dout, dq, dk, dv
+template <typename T>
+int bwd(const void* q, const void* k, const void* v, const void* dout, const void* bias,
+        const void* seeds, void* dq, void* dk, void* dv, void* stats, const HeadStrides (&s)[7],
+        int B, int N, int H, int D, float scale, float rate, float inv_keep, void* stream) {
+  if constexpr (sizeof(T) == 4) {
+    if (cxr::bad_f32_attention_args(B, N, H, D, rate)) return cudaErrorInvalidValue;
+    auto in = [](const void* p) { return static_cast<const float*>(p); };
+    auto out = [](void* p) { return static_cast<float*>(p); };
+    return launch_f32({in(q), s[0]}, {in(k), s[1]}, {in(v), s[2]}, {in(dout), s[3]}, bias,
+                      seeds, {out(dq), s[4]}, {out(dk), s[5]}, {out(dv), s[6]}, stats, B, N, H,
+                      D, scale, rate, inv_keep, static_cast<cudaStream_t>(stream));
+  } else {
+    if (cxr::bad_attention_args(B, N, H, D, rate)) return cudaErrorInvalidValue;
+    auto in = [](const void* p) { return static_cast<const uint32_t*>(p); };
+    auto out = [](void* p) { return static_cast<uint32_t*>(p); };
+    return dispatch<T>(D, {in(q), s[0]}, {in(k), s[1]}, {in(v), s[2]}, {in(dout), s[3]}, bias,
+                       seeds, {out(dq), s[4]}, {out(dk), s[5]}, {out(dv), s[6]}, stats, B, N,
+                       H, scale, rate, inv_keep, stream);
+  }
+}
+
+// B6 in one type: the packed operands' strides, W words a head (D / 2 in a
+// 16-bit type, D in fp32)
+template <typename T>
+int bwd_packed(const void* qkv, const void* dout, const void* bias, const void* seeds,
+               void* dqkv, void* stats, int B, int N, int H, int D, float scale, float rate,
+               float inv_keep, void* stream) {
+  const long long W = sizeof(T) == 4 ? D : D / 2, row = 3 * H * W;
+  const HeadStrides sqkv{N * row, row, W}, sdo{N * H * W, H * W, W};
+  const HeadStrides s[7] = {sqkv, sqkv, sqkv, sdo, sqkv, sqkv, sqkv};
+  const auto* in = static_cast<const uint32_t*>(qkv);
+  auto* g = static_cast<uint32_t*>(dqkv);
+  return bwd<T>(in, in + H * W, in + 2 * H * W, dout, bias, seeds, g, g + H * W, g + 2 * H * W,
+                stats, s, B, N, H, D, scale, rate, inv_keep, stream);
+}
+
+// B7 in one type: ``strides`` in 32-bit words (21 values)
+template <typename T>
+int bwd_split(const void* q, const void* k, const void* v, const void* dout, const void* bias,
+              const void* seeds, void* dq, void* dk, void* dv, void* stats,
+              const long long* strides, int B, int N, int H, int D, float scale, float rate,
+              float inv_keep, void* stream) {
+  HeadStrides s[7];
+  for (int t = 0; t < 7; ++t) s[t] = {strides[3 * t], strides[3 * t + 1], strides[3 * t + 2]};
+  return bwd<T>(q, k, v, dout, bias, seeds, dq, dk, dv, stats, s, B, N, H, D, scale, rate,
+                inv_keep, stream);
+}
+
 }  // namespace
 
-// B6: qkv [B, N, 3*H*D] bf16, dout [B, N, H*D] bf16, bias [B, N] fp32, seeds
-// [B] int32, dqkv [B, N, 3*H*D] bf16 (every element written), stats
-// [3, B, H, N] fp32 scratch; D in {32, 64, 128} or a multiple of 64 over
-// 128, 1 <= N <= 512, H (times D / 64 over 128) <= 65535, any B;
+// B6: qkv [B, N, 3*H*D], dout [B, N, H*D] and dqkv [B, N, 3*H*D] (every
+// element written) in one type: bf16 (cxr_flash_bwd_packed), fp16 (_f16) or
+// fp32 (_f32); bias [B, N] fp32, seeds [B] int32, stats [3, B, H, N] fp32
+// scratch. In bf16 and fp16 D is 32, 64, 128 or a multiple of 64 over 128,
+// H (times D / 64 over 128) <= 65535, and qkv, dout and dqkv 16-byte
+// aligned; in fp32 any D >= 1 and H <= 65535. 1 <= N <= 512, any B;
 // 0 <= rate < 1 and inv_keep = 1 / (1 - rate), as in the forward that made
-// dout's output; qkv, dout and dqkv 16-byte aligned.
+// dout's output.
 CXR_API int cxr_flash_bwd_packed(const void* qkv, const void* dout, const void* bias,
                                  const void* seeds, void* dqkv, void* stats, int B, int N,
                                  int H, int D, float scale, float rate, float inv_keep,
                                  void* stream) {
-  if (cxr::bad_attention_args(B, N, H, D, rate)) return cudaErrorInvalidValue;
-  const long long W = D / 2, row = 3 * H * W;
-  const cxr::HeadStrides sqkv{N * row, row, W}, sdo{N * H * W, H * W, W};
-  const auto* in = static_cast<const uint32_t*>(qkv);
-  auto* g = static_cast<uint32_t*>(dqkv);
-  return dispatch(D, {in, sqkv}, {in + H * W, sqkv}, {in + 2 * H * W, sqkv},
-                  {static_cast<const uint32_t*>(dout), sdo}, bias, seeds, {g, sqkv},
-                  {g + H * W, sqkv}, {g + 2 * H * W, sqkv}, stats, B, N, H, scale, rate,
-                  inv_keep, stream);
+  return bwd_packed<__nv_bfloat16>(qkv, dout, bias, seeds, dqkv, stats, B, N, H, D, scale, rate,
+                                   inv_keep, stream);
 }
 
-// B7: q, k, v, dout, dq, dk and dv bf16 with the head dim contiguous, each
-// addressed by three strides in 32-bit words in ``strides`` (host memory, 21
-// values: q, k, v, dout, dq, dk, dv, each as batch, token, head); every
-// stride a multiple of 4 words and every pointer 16-byte aligned (the
-// 16-byte copies and stores). Other arguments as B6's.
+CXR_API int cxr_flash_bwd_packed_f16(const void* qkv, const void* dout, const void* bias,
+                                     const void* seeds, void* dqkv, void* stats, int B, int N,
+                                     int H, int D, float scale, float rate, float inv_keep,
+                                     void* stream) {
+  return bwd_packed<__half>(qkv, dout, bias, seeds, dqkv, stats, B, N, H, D, scale, rate,
+                            inv_keep, stream);
+}
+
+CXR_API int cxr_flash_bwd_packed_f32(const void* qkv, const void* dout, const void* bias,
+                                     const void* seeds, void* dqkv, void* stats, int B, int N,
+                                     int H, int D, float scale, float rate, float inv_keep,
+                                     void* stream) {
+  return bwd_packed<float>(qkv, dout, bias, seeds, dqkv, stats, B, N, H, D, scale, rate,
+                           inv_keep, stream);
+}
+
+// B7: q, k, v, dout, dq, dk and dv of one type with the head dim contiguous,
+// each addressed by three strides in 32-bit words in ``strides`` (host
+// memory, 21 values: q, k, v, dout, dq, dk, dv, each as batch, token, head).
+// In bf16 (cxr_flash_bwd) and fp16 (_f16) every stride a multiple of 4 words
+// and every pointer 16-byte aligned (the 16-byte copies and stores); in fp32
+// (_f32) any. Other arguments as B6's.
 CXR_API int cxr_flash_bwd(const void* q, const void* k, const void* v, const void* dout,
                           const void* bias, const void* seeds, void* dq, void* dk, void* dv,
                           void* stats, const long long* strides, int B, int N, int H, int D,
                           float scale, float rate, float inv_keep, void* stream) {
-  if (cxr::bad_attention_args(B, N, H, D, rate)) return cudaErrorInvalidValue;
-  cxr::HeadStrides s[7];
-  for (int t = 0; t < 7; ++t) s[t] = {strides[3 * t], strides[3 * t + 1], strides[3 * t + 2]};
-  auto in = [](const void* p) { return static_cast<const uint32_t*>(p); };
-  auto out = [](void* p) { return static_cast<uint32_t*>(p); };
-  return dispatch(D, {in(q), s[0]}, {in(k), s[1]}, {in(v), s[2]}, {in(dout), s[3]}, bias,
-                  seeds, {out(dq), s[4]}, {out(dk), s[5]}, {out(dv), s[6]}, stats, B, N, H,
-                  scale, rate, inv_keep, stream);
+  return bwd_split<__nv_bfloat16>(q, k, v, dout, bias, seeds, dq, dk, dv, stats, strides, B, N,
+                                  H, D, scale, rate, inv_keep, stream);
+}
+
+CXR_API int cxr_flash_bwd_f16(const void* q, const void* k, const void* v, const void* dout,
+                              const void* bias, const void* seeds, void* dq, void* dk, void* dv,
+                              void* stats, const long long* strides, int B, int N, int H, int D,
+                              float scale, float rate, float inv_keep, void* stream) {
+  return bwd_split<__half>(q, k, v, dout, bias, seeds, dq, dk, dv, stats, strides, B, N, H, D,
+                           scale, rate, inv_keep, stream);
+}
+
+CXR_API int cxr_flash_bwd_f32(const void* q, const void* k, const void* v, const void* dout,
+                              const void* bias, const void* seeds, void* dq, void* dk, void* dv,
+                              void* stats, const long long* strides, int B, int N, int H, int D,
+                              float scale, float rate, float inv_keep, void* stream) {
+  return bwd_split<float>(q, k, v, dout, bias, seeds, dq, dk, dv, stats, strides, B, N, H, D,
+                          scale, rate, inv_keep, stream);
 }

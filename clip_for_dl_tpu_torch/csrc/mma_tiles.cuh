@@ -1,9 +1,11 @@
 // Tensor-core tiles shared by the attention kernels B3/B5
 // (flash_attention.cu) and B6/B7 (flash_attention_bwd.cu): the PTX they are
-// built from (cp.async, ldmatrix, mma.sync m16n8k16 with bf16 inputs and fp32
-// accumulators), the shared-memory tile layout and the products on it.
+// built from (cp.async, ldmatrix, mma.sync m16n8k16 with 16-bit inputs and
+// fp32 accumulators), the shared-memory tile layout and the products on it.
+// The 16-bit type T (__nv_bfloat16 or __half) is a template parameter of the
+// products and of the roundings to T; the tiles and ldmatrix are type-blind.
 //
-// A tile holds R token rows of one head's D bf16 values as 16-byte chunks.
+// A tile holds R token rows of one head's D 16-bit values as 16-byte chunks.
 // Chunk c of row r is stored at c ^ swizzle(r), so that the eight row
 // addresses of an ldmatrix, and a warp's cp.async writes, fall in distinct
 // banks: swizzle(r) = r % 8 for rows of 8 or 16 chunks (D = 64, 128), and
@@ -50,10 +52,24 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t (&r)[4]) {
                : "r"(addr));
 }
 
-// c (16 x 8, fp32) += a (16 x 16, bf16, row-major) b (16 x 8, bf16, col-major)
+// c (16 x 8, fp32) += a (16 x 16, T, row-major) b (16 x 8, T, col-major)
+template <typename T>
 __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
+                                    uint32_t b1);
+
+template <>
+__device__ __forceinline__ void mma<__nv_bfloat16>(float (&c)[4], const uint32_t (&a)[4],
+                                                   uint32_t b0, uint32_t b1) {
   asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <>
+__device__ __forceinline__ void mma<__half>(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                            uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
@@ -173,7 +189,7 @@ __device__ __forceinline__ void load_b_cols(uint32_t tile, int kk, int p, uint32
 
 // acc (16 x 8 NT) += A[r0..r0 + 15, :] B^T, both tiles D wide; B's first
 // 8 NT rows are the columns of acc
-template <int D, int NT>
+template <typename T, int D, int NT>
 __device__ __forceinline__ void add_abt(float (&acc)[NT][4], uint32_t a_tile, int r0,
                                         uint32_t b_tile) {
 #pragma unroll
@@ -184,8 +200,8 @@ __device__ __forceinline__ void add_abt(float (&acc)[NT][4], uint32_t a_tile, in
     for (int p = 0; p < NT / 2; ++p) {
       uint32_t b[4];
       load_b_rows<D>(b_tile, 16 * p, ks, b);
-      mma(acc[2 * p], a, b[0], b[1]);
-      mma(acc[2 * p + 1], a, b[2], b[3]);
+      mma<T>(acc[2 * p], a, b[0], b[1]);
+      mma<T>(acc[2 * p + 1], a, b[2], b[3]);
     }
   }
 }
@@ -197,28 +213,28 @@ __device__ __forceinline__ void zero(float (&acc)[NT][4]) {
 }
 
 // acc (16 x 8 NT) = A[r0..r0 + 15, :] B^T
-template <int D, int NT>
+template <typename T, int D, int NT>
 __device__ __forceinline__ void product_abt(float (&acc)[NT][4], uint32_t a_tile, int r0,
                                             uint32_t b_tile) {
   zero(acc);
-  add_abt<D>(acc, a_tile, r0, b_tile);
+  add_abt<T, D>(acc, a_tile, r0, b_tile);
 }
 
-// accumulators of a 16 x 16 KS product, rounded to bf16, as the A fragments
-// of the next product (the C and A layouts of m16n8k16 line up)
-template <int KS>
+// accumulators of a 16 x 16 KS product, rounded to T, as the A fragments of
+// the next product (the C and A layouts of m16n8k16 line up)
+template <typename T, int KS>
 __device__ __forceinline__ void to_a(const float (&c)[2 * KS][4], uint32_t (&a)[KS][4]) {
 #pragma unroll
   for (int k = 0; k < KS; ++k) {
-    a[k][0] = f2_to_bf2(c[2 * k][0], c[2 * k][1]);
-    a[k][1] = f2_to_bf2(c[2 * k][2], c[2 * k][3]);
-    a[k][2] = f2_to_bf2(c[2 * k + 1][0], c[2 * k + 1][1]);
-    a[k][3] = f2_to_bf2(c[2 * k + 1][2], c[2 * k + 1][3]);
+    a[k][0] = pack2<T>(c[2 * k][0], c[2 * k][1]);
+    a[k][1] = pack2<T>(c[2 * k][2], c[2 * k][3]);
+    a[k][2] = pack2<T>(c[2 * k + 1][0], c[2 * k + 1][1]);
+    a[k][3] = pack2<T>(c[2 * k + 1][2], c[2 * k + 1][3]);
   }
 }
 
 // acc (16 x D) += A (16 x 16 KS, fragments) B, B the tile's first 16 KS rows
-template <int D, int KS>
+template <typename T, int D, int KS>
 __device__ __forceinline__ void product_ab(float (&acc)[D / 8][4], const uint32_t (&a)[KS][4],
                                            uint32_t b_tile) {
 #pragma unroll
@@ -227,16 +243,16 @@ __device__ __forceinline__ void product_ab(float (&acc)[D / 8][4], const uint32_
     for (int p = 0; p < D / 16; ++p) {
       uint32_t b[4];
       load_b_cols<D>(b_tile, k, p, b);
-      mma(acc[2 * p], a[k], b[0], b[1]);
-      mma(acc[2 * p + 1], a[k], b[2], b[3]);
+      mma<T>(acc[2 * p], a[k], b[0], b[1]);
+      mma<T>(acc[2 * p + 1], a[k], b[2], b[3]);
     }
   }
 }
 
-// a warp's 16 x D accumulator, times mul and rounded to bf16, into its own
-// 16 rows of a tile, then from there to tokens t0.. (< N) of the output as
+// a warp's 16 x D accumulator, times mul and rounded to T, into its own 16
+// rows of a tile, then from there to tokens t0.. (< N) of the output as
 // 16-byte stores
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4], float mul,
                                            unsigned char* smem, uint32_t tile, int r0,
                                            uint32_t* out, long long stride, int t0, int N) {
@@ -244,9 +260,9 @@ __device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4], float m
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
     *reinterpret_cast<uint32_t*>(smem + tile + chunk_at<D>(r0 + g, n) + 4 * qd) =
-        f2_to_bf2(acc[n][0] * mul, acc[n][1] * mul);
+        pack2<T>(acc[n][0] * mul, acc[n][1] * mul);
     *reinterpret_cast<uint32_t*>(smem + tile + chunk_at<D>(r0 + g + 8, n) + 4 * qd) =
-        f2_to_bf2(acc[n][2] * mul, acc[n][3] * mul);
+        pack2<T>(acc[n][2] * mul, acc[n][3] * mul);
   }
   __syncwarp();
   constexpr int C = D / 8;

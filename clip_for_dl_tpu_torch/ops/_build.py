@@ -15,6 +15,17 @@ never loaded.
 Each wrapper checks its tensors, allocates outputs with ``torch.empty`` and
 calls :func:`launch`, which passes PyTorch's current stream, raises if the C
 function returns a CUDA error, and counts the launch in :data:`LAUNCHES`.
+
+The launch path runs on every call of every wrapper, and at one request the
+host's time in it is longer than the kernels' (a B1 call takes ~0.036 ms
+from the host for ~0.004 ms on the card, on an NVIDIA H100 80GB HBM3 at
+700 W). So once the library is loaded :func:`launch` takes no lock but the
+count's, keeps each entry point's ctypes function in :data:`_entries`
+(dropped whenever :func:`use_library` swaps the library), reads the raw
+stream handle instead of building a ``torch.cuda.Stream``, and switches
+the current device only when the tensors lie on another one;
+:func:`check_tensor` makes one pass of comparisons and builds a message
+only when one fails.
 """
 
 from __future__ import annotations
@@ -45,23 +56,33 @@ NVCC_FLAGS = (
 LAUNCHES: Counter = Counter()
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_PREP = (_P,) * 12 + (_I,) * 8  # img, y taps x4, x taps x4, scale, bias, out, B,
+# H_in, W_in, C_in, H_out, W_out, C_out, out_type (0 fp32, 1 bf16, 2 fp16)
 _SIGNATURES = {
-    # img, txt, out, B, C, D, inv_temp, eps, stream
-    "cxr_similarity": (_P, _P, _P, _I, _I, _I, _F, _F, _P),
-    # img, y taps x4, x taps x4, scale, bias, out, B, H_in, W_in, C_in,
-    # H_out, W_out, C_out, out_bf16, stream
-    "cxr_image_prep": (_P,) * 12 + (_I,) * 8 + (_P,),
+    # img, txt, out, B, C, D, inv_temp, eps, img_type, txt_type (0 fp32,
+    # 1 bf16, 2 fp16), stream
+    "cxr_similarity": (_P, _P, _P, _I, _I, _I, _F, _F, _I, _I, _P),
+    # uint8 images, the staged body; fp32 images, the staged body; either
+    # (src_type 0 uint8, 1 fp32), the direct body
+    "cxr_image_prep": _PREP + (_P,),
+    "cxr_image_prep_f32src": _PREP + (_P,),
+    "cxr_image_prep_direct": _PREP + (_I, _P),
+    # attention, each in bf16 (the name), fp16 (_f16) and fp32 (_f32):
     # qkv, bias, seeds, out, B, N, H, D, scale, rate, 1/(1-rate), stream
-    "cxr_flash_fwd_packed": (_P,) * 4 + (_I,) * 4 + (_F,) * 3 + (_P,),
+    **{"cxr_flash_fwd_packed" + x: (_P,) * 4 + (_I,) * 4 + (_F,) * 3 + (_P,)
+       for x in ("", "_f16", "_f32")},
     # qkv, do, bias, seeds, dqkv, stats, B, N, H, D, scale, rate, 1/(1-rate),
     # stream
-    "cxr_flash_bwd_packed": (_P,) * 6 + (_I,) * 4 + (_F,) * 3 + (_P,),
+    **{"cxr_flash_bwd_packed" + x: (_P,) * 6 + (_I,) * 4 + (_F,) * 3 + (_P,)
+       for x in ("", "_f16", "_f32")},
     # q, k, v, bias, seeds, out, strides (12 int64 in host memory), B, N, H,
     # D, scale, rate, 1/(1-rate), stream
-    "cxr_flash_fwd": (_P,) * 7 + (_I,) * 4 + (_F,) * 3 + (_P,),
+    **{"cxr_flash_fwd" + x: (_P,) * 7 + (_I,) * 4 + (_F,) * 3 + (_P,)
+       for x in ("", "_f16", "_f32")},
     # q, k, v, do, bias, seeds, dq, dk, dv, stats, strides (21 int64 in host
     # memory), B, N, H, D, scale, rate, 1/(1-rate), stream
-    "cxr_flash_bwd": (_P,) * 11 + (_I,) * 4 + (_F,) * 3 + (_P,),
+    **{"cxr_flash_bwd" + x: (_P,) * 11 + (_I,) * 4 + (_F,) * 3 + (_P,)
+       for x in ("", "_f16", "_f32")},
     # x, w1, b1, w2, b2, y, g (scratch), R, H, F, stream
     "cxr_mlp_fwd": (_P,) * 7 + (_I,) * 3 + (_P,),
     # x, w1, b1, w2, dy, dx, g, dh, R, H, F, stream
@@ -74,7 +95,13 @@ _SIGNATURES = {
 _lock = threading.Lock()
 _count_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+# entry point -> its ctypes function in _lib; filled by launch, emptied by
+# use_library
+_entries: dict = {}
 build_info: dict = {}
+# the device type the kernels run on; the CPU tests of the wrappers' routing
+# set it to "cpu" (with launch replaced)
+CARD = "cuda"
 
 
 def _nvcc() -> str:
@@ -161,23 +188,49 @@ def load(path, signatures=None) -> ctypes.CDLL:
 def use_library(lib) -> None:
     """Launch every kernel from ``lib`` from now on: another build, such as
     another checkout's, called with this checkout's arguments
-    (``tools/compare_builds.other_library``)."""
+    (``tools/compare_builds.other_library``). The cached entry points of the
+    library it replaces are dropped."""
     global _lib
     with _lock:
         _lib = lib
+        _entries.clear()
 
 
-def launch(name: str, device: torch.device, *args) -> None:
-    """Call kernel entry point ``name`` on ``device``'s current stream."""
-    lib = build()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, name)(*args, stream)
+def _entry(name: str):
+    """The ctypes function of entry point ``name``, from the library
+    :func:`build` loads, cached in :data:`_entries`."""
+    build()
+    with _lock:  # _lib is the library in use, another build's after use_library
+        fn = _entries.get(name)
+        if fn is None:
+            fn = _entries[name] = getattr(_lib, name)
+        return fn
+
+
+try:  # the stream handle as an int, without a torch.cuda.Stream object
+    _raw_stream = torch._C._cuda_getCurrentRawStream
+except AttributeError:  # a torch without it, or built without CUDA
+    def _raw_stream(index: int) -> int:
+        return torch.cuda.current_stream(index).cuda_stream
+
+
+def launch(name: str, device: torch.device, *args, key: Optional[str] = None) -> None:
+    """Call kernel entry point ``name`` on ``device``'s current stream, and
+    count it in :data:`LAUNCHES` under ``key`` (``name`` when None: a
+    wrapper names another key where one entry point runs instances that
+    are counted apart)."""
+    fn = _entries.get(name) or _entry(name)
+    index = device.index
+    if index is None or index == torch.cuda.current_device():
+        err = fn(*args, _raw_stream(torch.cuda.current_device() if index is None else index))
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, _raw_stream(index))
     if err != 0:
-        msg = lib.cxr_error_string(err).decode()
+        msg = build().cxr_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
     with _count_lock:  # the service launches from its batcher thread
-        LAUNCHES[name] += 1
+        LAUNCHES[key or name] += 1
 
 
 def reset_launches() -> None:
@@ -185,19 +238,28 @@ def reset_launches() -> None:
         LAUNCHES.clear()
 
 
+def check_device(t: torch.Tensor, name: str, device: Optional[torch.device] = None) -> None:
+    """Raise unless ``t`` lies on the card (on ``device`` when given)."""
+    if t.device.type != CARD:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+
+
 def check_tensor(t: torch.Tensor, name: str, dtype, shape=None,
                  device: Optional[torch.device] = None, align: int = 16) -> None:
     """Raise unless ``t`` is a contiguous, ``align``-byte aligned CUDA
     tensor of ``dtype`` (and ``shape``/``device`` when given)."""
-    if t.device.type != "cuda":
-        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if device is not None and t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    dev = t.device
+    if (dev.type == CARD and (device is None or dev == device) and t.dtype == dtype
+            and (shape is None or t.shape == shape) and t.is_contiguous()
+            and not t.data_ptr() % align):
+        return
+    check_device(t, name, device)
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
-    if t.data_ptr() % align:
-        raise ValueError(f"{name}: data must be {align}-byte aligned")
+    raise ValueError(f"{name}: data must be {align}-byte aligned")

@@ -30,21 +30,31 @@ When a gradient is required the call goes through :class:`_FlashPacked` or
 the JAX custom VJPs do, and recompute the probabilities in the backward. The
 bias and the seeds get no gradient.
 
-Head dims: the kernels are built for D ∈ :data:`HEAD_DIMS` (32, 64, 128)
-and, over 128, for every multiple of :data:`SLICE` (64), which they run in
-64-column slices of the output (one block a slice) with the contractions
-over D taken in 64-column chunks. Any other D runs through the next wider
-one (:func:`_kernel_dim`): the wrappers copy each head's q, k, v (and
-d(out)) into zero-padded rows, which leaves q·kᵀ unchanged and gives zero
-output (and gradient) columns, launch with the scale of the original D and
-slice the result (:func:`_pad_heads`, :func:`_unpad_heads`). The pad is a
-copy of the operands and of the result; no preset reaches it or D > 128
-(they use D = 64).
+Types: q, k and v (or qkv) of one type in :data:`DTYPES`, which the
+outputs keep, as the JAX kernels build their outputs from q's dtype. bf16
+and fp16 run the tensor-core bodies, the 16-bit type a template parameter
+(probabilities and ds rounded to it before their products); fp32, the
+parity mode (``--fp32``), runs CUDA-core bodies in fp32 FMAs, where that
+rounding is a no-op. Each type has its own C entry points
+(:data:`SUFFIXES`), so each counts its own launches.
+
+Head dims: the 16-bit kernels are built for D ∈ :data:`HEAD_DIMS` (32, 64,
+128) and, over 128, for every multiple of :data:`SLICE` (64), which they
+run in 64-column slices of the output (one block a slice) with the
+contractions over D taken in 64-column chunks. Any other D runs through the
+next wider one (:func:`_kernel_dim`): the wrappers copy each head's q, k, v
+(and d(out)) into zero-padded rows, which leaves q·kᵀ unchanged and gives
+zero output (and gradient) columns, launch with the scale of the original D
+and slice the result (:func:`_pad_heads`, :func:`_unpad_heads`). The pad is
+a copy of the operands and of the result; no preset reaches it or D > 128
+(they use D = 64). The fp32 kernels loop over any D in chunks and take it
+as it is.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -55,6 +65,20 @@ KERNEL = "cxr_flash_fwd_packed"
 KERNEL_BWD = "cxr_flash_bwd_packed"
 KERNEL_SPLIT = "cxr_flash_fwd"
 KERNEL_SPLIT_BWD = "cxr_flash_bwd"
+
+# the operand types the kernels take, and the suffix of each one's entry
+# points (KERNEL + suffix; bf16's are the names above)
+SUFFIXES = {torch.bfloat16: "", torch.float16: "_f16", torch.float32: "_f32"}
+DTYPES = tuple(SUFFIXES)
+
+
+def entry(name: str, dtype: torch.dtype) -> str:
+    """The C entry point of kernel ``name`` (one of the four above) for
+    operands of ``dtype``; raises TypeError for a type no kernel takes."""
+    if dtype not in SUFFIXES:
+        raise TypeError(f"the attention kernels take {', '.join(map(str, DTYPES))}, "
+                        f"not {dtype}")
+    return name + SUFFIXES[dtype]
 
 LAYOUTS = ("bnhd", "bhnd")
 
@@ -306,20 +330,39 @@ def flash_attention_packed_bwd_reference(
     return dqkv.permute(0, 3, 2, 1, 4).reshape(B, N, 3 * heads * D)
 
 
-# A backward kernel's gradient against the plain version's: each (batch row,
-# head) slice within two bf16 steps (2^-6) of that slice's own largest entry,
-# plus an absolute floor for slices that are zero in exact arithmetic (with
-# one key ds = p (dp − delta) = 0, which the kernels' two passes meet only to
-# fp32 rounding).
-GRAD_REL_TOL = 2.0 ** -6
-GRAD_ABS_FLOOR = 1e-5
+# A backward kernel's gradient against the plain version's, by operand type:
+# (relative, absolute floor). Each (batch row, head) slice is held within
+# two steps of the type (bf16 2^-6, fp16 2^-9) of that slice's own largest
+# entry, plus an absolute floor for slices that are zero in exact arithmetic
+# (with one key ds = p (dp − delta) = 0, which the kernels' two passes meet
+# only to fp32 rounding); in fp32, whose kernels round nothing and differ
+# from the plain version by summation order alone over at most 512 keys and
+# the head dim, within 1e-4 of it plus 1e-6.
+GRAD_TOL = {torch.bfloat16: (2.0 ** -6, 1e-5), torch.float16: (2.0 ** -9, 1e-5),
+            torch.float32: (1e-4, 1e-6)}
+
+
+def fwd_tolerance(want: torch.Tensor) -> float:
+    """A forward kernel's tolerance (max abs) against the plain version's
+    output ``want``, by its type: bf16 2e-2 (two bf16 steps at |o| ≤ 3: a
+    summation-order flip of a probability's or of the output's rounding);
+    fp16 the same two steps of fp16 at ``want``'s largest entry; fp32 1e-5
+    (summation order alone)."""
+    if want.dtype == torch.float32:
+        return 1e-5
+    if want.dtype == torch.float16:
+        top = float(want.float().abs().max())
+        return 2.0 * 2.0 ** (math.floor(math.log2(top)) - 10) if top > 0 else 1e-7
+    return 2e-2
 
 
 def grad_slice_error(got: torch.Tensor, want: torch.Tensor, layout: str,
-                     heads: Optional[int] = None) -> Tuple[float, float]:
+                     heads: Optional[int] = None,
+                     dtype: torch.dtype = torch.bfloat16) -> Tuple[float, float]:
     """(largest |got − want|, largest ratio of a slice's max |got − want| to
     its tolerance) over the (batch row, head) slices of an attention
-    gradient; the gradient passes when the ratio is ≤ 1.
+    gradient; the gradient passes when the ratio is ≤ 1. The tolerance is
+    :data:`GRAD_TOL` of ``dtype``, the kernel's operand type.
 
     ``layout`` is "packed" (B6's dqkv [B, N, 3·H·D] with ``heads``; dq, dk
     and dv of a head are three slices), "bnhd" or "bhnd" (one of B7's
@@ -336,8 +379,9 @@ def grad_slice_error(got: torch.Tensor, want: torch.Tensor, layout: str,
         dims = (1, 3) if layout == "bnhd" else (2, 3)
     else:
         raise ValueError(f"layout must be 'packed', 'bnhd' or 'bhnd', got {layout!r}")
+    rel, floor = GRAD_TOL[dtype]
     err = (got - want).abs().amax(dims)
-    tol = GRAD_REL_TOL * want.abs().amax(dims) + GRAD_ABS_FLOOR
+    tol = rel * want.abs().amax(dims) + floor
     return float(err.max()), float((err / tol).max())
 
 
@@ -499,10 +543,12 @@ class _Flash(torch.autograd.Function):
 # ---------------------------------------------------------------------------
 
 
-def _kernel_dim(D: int) -> int:
-    """The built head dim that runs head dim ``D``: the narrowest of
-    :data:`HEAD_DIMS` that holds it, or over 128 the next multiple of
-    :data:`SLICE`."""
+def _kernel_dim(D: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """The head dim that runs head dim ``D`` in ``dtype``: in fp32, D itself;
+    in a 16-bit type the narrowest of :data:`HEAD_DIMS` that holds it, or
+    over 128 the next multiple of :data:`SLICE`."""
+    if dtype == torch.float32:
+        return D
     for width in HEAD_DIMS:
         if D <= width:
             return width
@@ -553,16 +599,23 @@ def _rate_args(D, dropout_rate):
     return 1.0 / float(D) ** 0.5, float(dropout_rate), 1.0 / (1.0 - float(dropout_rate))
 
 
+def _align(dtype) -> int:
+    """Bytes the kernels of ``dtype`` ask of their operands' addresses: the
+    16-bit bodies copy and store 16-byte pieces, the fp32 ones scalars."""
+    return 4 if dtype == torch.float32 else 16
+
+
 def _kernel(qkv, heads, key_bias, *, dropout_rate=0.0, dropout_seeds=None):
     B, N, HD3 = qkv.shape
-    _build.check_tensor(qkv, "qkv", torch.bfloat16)
+    name = entry(KERNEL, qkv.dtype)
+    _build.check_tensor(qkv, "qkv", qkv.dtype, align=_align(qkv.dtype))
     D = HD3 // (3 * heads)
-    W = _kernel_dim(D)
+    W = _kernel_dim(D, qkv.dtype)
     key_bias, seeds = _side_args(B, N, qkv.device, key_bias, dropout_rate, dropout_seeds)
     qkv = _pad_heads(qkv, D, W)
     out = torch.empty((B, N, heads * W), dtype=qkv.dtype, device=qkv.device)
     if B:
-        _build.launch(KERNEL, qkv.device, qkv.data_ptr(), key_bias.data_ptr(),
+        _build.launch(name, qkv.device, qkv.data_ptr(), key_bias.data_ptr(),
                       seeds.data_ptr(), out.data_ptr(), B, N, heads, W,
                       *_rate_args(D, dropout_rate))
     return _unpad_heads(out, D, W)
@@ -571,47 +624,53 @@ def _kernel(qkv, heads, key_bias, *, dropout_rate=0.0, dropout_seeds=None):
 def _kernel_bwd(qkv, do, heads, key_bias, *, dropout_rate=0.0, dropout_seeds=None):
     B, N, HD3 = qkv.shape
     dev = qkv.device
-    _build.check_tensor(qkv, "qkv", torch.bfloat16)
+    name = entry(KERNEL_BWD, qkv.dtype)
+    _build.check_tensor(qkv, "qkv", qkv.dtype, align=_align(qkv.dtype))
     D = HD3 // (3 * heads)
-    W = _kernel_dim(D)
+    W = _kernel_dim(D, qkv.dtype)
     key_bias, seeds = _side_args(B, N, dev, key_bias, dropout_rate, dropout_seeds)
-    _build.check_tensor(do, "do", torch.bfloat16, (B, N, heads * D), dev)
+    _build.check_tensor(do, "do", qkv.dtype, (B, N, heads * D), dev, align=_align(qkv.dtype))
     qkv, do = _pad_heads(qkv, D, W), _pad_heads(do, D, W)
     dqkv = torch.empty_like(qkv)
     # per (batch row, head, query row): softmax max, 1 / sum and delta, fp32
     stats = torch.empty((3, B, heads, N), dtype=torch.float32, device=dev)
     if B:
-        _build.launch(KERNEL_BWD, dev, qkv.data_ptr(), do.data_ptr(), key_bias.data_ptr(),
+        _build.launch(name, dev, qkv.data_ptr(), do.data_ptr(), key_bias.data_ptr(),
                       seeds.data_ptr(), dqkv.data_ptr(), stats.data_ptr(), B, N, heads, W,
                       *_rate_args(D, dropout_rate))
     return _unpad_heads(dqkv, D, W)
 
 
 def _strides_fit(t: torch.Tensor) -> bool:
-    """The head dim contiguous, every other stride of a dim longer than 1 a
-    multiple of 16 bytes, and the data 16-byte aligned."""
+    """The head dim contiguous and, for the 16-bit kernels, every other
+    stride of a dim longer than 1 a multiple of 16 bytes and the data
+    16-byte aligned (fp32: every stride a whole number of 32-bit words,
+    which its element stride is)."""
+    if t.stride(3) != 1:
+        return False
+    if t.dtype == torch.float32:
+        return True
     el = 16 // t.element_size()
-    return (t.stride(3) == 1 and t.data_ptr() % 16 == 0
+    return (t.data_ptr() % 16 == 0
             and all(s % el == 0 for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1))
 
 
-def _operand(t: torch.Tensor, name: str, layout: str, device, width: int):
+def _operand(t: torch.Tensor, name: str, layout: str, device, width: int, dtype):
     """(tensor, its (batch, token, head) strides in 32-bit words) for a split
-    kernel: bf16 on ``device``; a head dim below ``width`` is zero-padded to
-    it (:func:`_pad_heads`), and strides that the kernels cannot address
-    (the head dim not contiguous, or strides or data off the 16-byte grid of
-    their 16-byte copies and stores) get a contiguous copy."""
-    if t.device.type != "cuda":
-        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != torch.bfloat16:
-        raise TypeError(f"{name}: expected {torch.bfloat16}, got {t.dtype}")
+    kernel: ``dtype`` on ``device``; a head dim below ``width`` is
+    zero-padded to it (:func:`_pad_heads`), and strides that the kernels
+    cannot address (the head dim not contiguous, or for a 16-bit type
+    strides or data off the 16-byte grid of their 16-byte copies and stores)
+    get a contiguous copy."""
+    _build.check_device(t, name, device)
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if t.shape[3] != width:
         t = _pad_heads(t, t.shape[3], width)
     elif not _strides_fit(t):
         t = t.clone(memory_format=torch.contiguous_format)
-    sb, s1, s2 = (s // 2 if n > 1 else 0 for s, n in zip(t.stride()[:3], t.shape[:3]))
+    el = t.element_size()
+    sb, s1, s2 = (s * el // 4 if n > 1 else 0 for s, n in zip(t.stride()[:3], t.shape[:3]))
     return t, ((sb, s1, s2) if layout == "bnhd" else (sb, s2, s1))
 
 
@@ -622,14 +681,15 @@ def _strides(*word_strides) -> ctypes.Array:
 
 def _kernel_split(q, k, v, key_bias, layout, *, dropout_rate=0.0, dropout_seeds=None):
     B, N, H, D = _dims(q, layout)
-    W = _kernel_dim(D)
-    dev = q.device
-    (q, sq), (k, sk), (v, sv) = (_operand(t, n, layout, dev, W)
+    dt, dev = q.dtype, q.device
+    name = entry(KERNEL_SPLIT, dt)
+    W = _kernel_dim(D, dt)
+    (q, sq), (k, sk), (v, sv) = (_operand(t, n, layout, dev, W, dt)
                                  for t, n in ((q, "q"), (k, "k"), (v, "v")))
     key_bias, seeds = _side_args(B, N, dev, key_bias, dropout_rate, dropout_seeds)
-    out, so = _operand(torch.empty(q.shape, dtype=q.dtype, device=dev), "out", layout, dev, W)
+    out, so = _operand(torch.empty(q.shape, dtype=dt, device=dev), "out", layout, dev, W, dt)
     if B:
-        _build.launch(KERNEL_SPLIT, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        _build.launch(name, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                       key_bias.data_ptr(), seeds.data_ptr(), out.data_ptr(),
                       _strides(sq, sk, sv, so), B, N, H, W, *_rate_args(D, dropout_rate))
     return _unpad_heads(out, D, W)
@@ -637,18 +697,20 @@ def _kernel_split(q, k, v, key_bias, layout, *, dropout_rate=0.0, dropout_seeds=
 
 def _kernel_split_bwd(q, k, v, do, key_bias, layout, *, dropout_rate=0.0, dropout_seeds=None):
     B, N, H, D = _dims(q, layout)
-    W = _kernel_dim(D)
-    dev = q.device
+    dt, dev = q.dtype, q.device
+    name = entry(KERNEL_SPLIT_BWD, dt)
+    W = _kernel_dim(D, dt)
     (q, sq), (k, sk), (v, sv), (do, sdo) = (
-        _operand(t, n, layout, dev, W) for t, n in ((q, "q"), (k, "k"), (v, "v"), (do, "do")))
+        _operand(t, n, layout, dev, W, dt)
+        for t, n in ((q, "q"), (k, "k"), (v, "v"), (do, "do")))
     key_bias, seeds = _side_args(B, N, dev, key_bias, dropout_rate, dropout_seeds)
     (dq, sdq), (dk, sdk), (dv, sdv) = (
-        _operand(torch.empty(q.shape, dtype=q.dtype, device=dev), n, layout, dev, W)
+        _operand(torch.empty(q.shape, dtype=dt, device=dev), n, layout, dev, W, dt)
         for n in ("dq", "dk", "dv"))
     # per (batch row, head, query row): softmax max, 1 / sum and delta, fp32
     stats = torch.empty((3, B, H, N), dtype=torch.float32, device=dev)
     if B:
-        _build.launch(KERNEL_SPLIT_BWD, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        _build.launch(name, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                       do.data_ptr(), key_bias.data_ptr(), seeds.data_ptr(), dq.data_ptr(),
                       dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
                       _strides(sq, sk, sv, sdo, sdq, sdk, sdv), B, N, H, W,

@@ -2,7 +2,9 @@
 
 Counterpart of ``clip_for_dl_tpu.ops.similarity``: image features [B, D]
 against text/class features [C, D] → fp32 logits [B, C] / T, at any D and
-any C (the kernel stages the text block in tiles).
+any C. Each side is fp32, bf16 or fp16 (:data:`TYPES`), on its own; the
+kernel reads it in its type and widens it in registers, as the JAX kernel
+casts inside itself. A view that is not contiguous is copied first.
 
 :func:`similarity` launches the CUDA kernel on CUDA tensors and runs
 :func:`similarity_reference`, the plain PyTorch version of the same math,
@@ -17,6 +19,16 @@ from . import _build
 
 KERNEL = "cxr_similarity"
 _EPS = 1e-12
+# feature type -> the C entry's type code and the name it is counted under
+TYPES = {torch.float32: (0, "fp32"), torch.bfloat16: (1, "bf16"), torch.float16: (2, "fp16")}
+
+
+def launch_key(img_dtype: torch.dtype, txt_dtype: torch.dtype) -> str:
+    """The name :data:`_build.LAUNCHES` counts a launch under: KERNEL for fp32
+    features on both sides, else KERNEL_<image type>_<text type>."""
+    if img_dtype == txt_dtype == torch.float32:
+        return KERNEL
+    return f"{KERNEL}_{TYPES[img_dtype][1]}_{TYPES[txt_dtype][1]}"
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = _EPS) -> torch.Tensor:
@@ -50,14 +62,25 @@ def similarity(
     return _kernel(image_features, text_features, temperature)
 
 
+def _features(t: torch.Tensor, name: str, shape, device=None) -> torch.Tensor:
+    """``t`` checked for the kernel, or its contiguous copy if it is a view."""
+    _build.check_device(t, name, device)
+    if t.dtype not in TYPES:
+        raise TypeError(f"{name}: expected one of {', '.join(map(str, TYPES))}, got {t.dtype}")
+    if t.shape != shape:
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    return t if t.is_contiguous() else t.contiguous()
+
+
 def _kernel(image_features, text_features, temperature):
     B, D = image_features.shape
     C = text_features.shape[0]
     dev = image_features.device
-    _build.check_tensor(image_features, "image_features", torch.float32, (B, D))
-    _build.check_tensor(text_features, "text_features", torch.float32, (C, D), dev)
+    img = _features(image_features, "image_features", (B, D))
+    txt = _features(text_features, "text_features", (C, D), dev)
     out = torch.empty((B, C), dtype=torch.float32, device=dev)
     if B and C:
-        _build.launch(KERNEL, dev, image_features.data_ptr(), text_features.data_ptr(),
-                      out.data_ptr(), B, C, D, 1.0 / float(temperature), _EPS)
+        _build.launch(KERNEL, dev, img.data_ptr(), txt.data_ptr(), out.data_ptr(), B, C, D,
+                      1.0 / float(temperature), _EPS, TYPES[img.dtype][0], TYPES[txt.dtype][0],
+                      key=launch_key(img.dtype, txt.dtype))
     return out

@@ -1,9 +1,9 @@
 """Hold this checkout's packed attention kernels, B3 (forward) and B6
 (backward), its MLP kernels, B4 (forward), B8 (backward) and B9 (the ViT
-block), and its image prep, B2, against another checkout's build of them on
-one card: the same inputs, the outputs compared bit for bit, and the times
-taken in turns (other, this, this, other) so that drift of the card's
-clocks shows.
+block), its image prep, B2, and its similarity, B1, against another
+checkout's build of them on one card: the same inputs, the outputs
+compared bit for bit, and the times taken in turns (other, this, this,
+other) so that drift of the card's clocks shows.
 
 For a change that must not move the kernels' numerics, such as a refactor
 of how they address their operands:
@@ -19,20 +19,23 @@ B8's dx, g and dh each within two bf16 steps of the other build's largest
 entry, B4's output within 2e-2 (two bf16 steps at |y| ≲ 2), B9's MLP
 branch out - x within two bf16 steps of its largest entry, B2's output
 within its plain-version tolerances (1.6e-2 in bf16, one step at |x| ≤
-2.2; 1e-4 in fp32). For a redesign of the attention backward, of its
-forward, of B8, of the MLP forwards, or of B2:
+2.2; 1e-4 in fp32), B1's logits within 1e-5 (fp32, summation order). For a
+redesign of the attention backward, of its forward, of B8, of the MLP
+forwards, of B2 or of B1:
 
     python -m clip_for_dl_tpu_torch.tools.compare_builds --other other --redesigned B6
     python -m clip_for_dl_tpu_torch.tools.compare_builds --other other --redesigned B3
     python -m clip_for_dl_tpu_torch.tools.compare_builds --other other --redesigned B8
     python -m clip_for_dl_tpu_torch.tools.compare_builds --other other --redesigned B4 B9
     python -m clip_for_dl_tpu_torch.tools.compare_builds --other other --redesigned B2
+    python -m clip_for_dl_tpu_torch.tools.compare_builds --other other --redesigned B1
 
 Every row prints, for each kernel, whether it is bit-equal and its largest
-difference. B2's rows call both builds' C entries with the same pointers
-(no wrapper on either side), check this build against its wrapper, and add
-each one's device time from torch.profiler, since one request's kernel is
-shorter than a launch from Python.
+difference. B2's and B1's rows call both builds' C entries with the same
+pointers (no wrapper on either side), check this build against its
+wrapper, and add each one's device time from torch.profiler, since one
+request's kernel is shorter than a launch from Python (the wrappers' own
+host time is tools/launch_times.py's).
 
 The other checkout's kernels are built by its own ``ops/_build.py`` in a
 child process and loaded beside this checkout's with that checkout's own C
@@ -59,6 +62,7 @@ from ..ops import flash_attention as fa
 from ..ops import image_prep as prep
 from ..ops import mlp_block as blk
 from ..ops import mlp_train as mlp
+from ..ops import similarity as sim
 from .probe_bwd_layouts import time_ms
 
 # (B, N, H, D): the prompt bank, the train step, the ViT batch, C1
@@ -79,6 +83,9 @@ B9_REL = 2.0 ** -6  # B9's branch out - x: two bf16 steps at its largest entry
 # eight requests and at one, odd widths
 B2_SHAPES = ((256, 512, 512, 1), (8, 224, 224, 3), (1, 224, 224, 3), (2, 333, 97, 3))
 B2_TOL = {torch.bfloat16: 1.6e-2, torch.float32: 1e-4}  # its plain-version tolerances
+# B1: (B, C, D) fp32 features: the serving batch, one request, 200 prompts
+B1_SHAPES = ((256, 16, 512), (1, 16, 512), (256, 200, 96))
+B1_TOL = 1e-5  # fp32 logits ≤ 1/T = 2, summation order
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
 
@@ -130,22 +137,25 @@ def in_turns(other, this, iters: int, dev) -> list:
     return [time_ms(fn, iters, dev) for fn in (other, this, this, other)]
 
 
-def device_ms(fn, name: str, calls: int = 20) -> float:
+def device_ms(fn, name: str, calls: int = 20, tries: int = 3) -> float:
     """Device ms a call of ``fn`` spends in kernels whose names contain
-    ``name`` (torch.profiler over ``calls`` calls after one)."""
+    ``name`` (torch.profiler over ``calls`` calls after one). A window in
+    which the profiler recorded none of them (it drops a run of short
+    kernels now and then) is profiled again, up to ``tries`` times."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(getattr(a, "device_time_total", 0.0) for a in prof.key_averages()
-                if name in a.key)
-    if total <= 0:
-        raise RuntimeError(f"the profiler recorded no device time for {name}")
-    return total / 1e3 / calls
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(getattr(a, "device_time_total", 0.0) for a in prof.key_averages()
+                    if name in a.key)
+        if total > 0:
+            return total / 1e3 / calls
+    raise RuntimeError(f"the profiler recorded no device time for {name} in {tries} windows")
 
 
 def main(argv=None) -> int:
@@ -154,7 +164,8 @@ def main(argv=None) -> int:
                    help="root of the other checkout (holds clip_for_dl_tpu_torch/)")
     p.add_argument("--device", default="cuda")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--redesigned", nargs="+", choices=("B2", "B3", "B4", "B6", "B8", "B9"),
+    p.add_argument("--redesigned", nargs="+",
+                   choices=("B1", "B2", "B3", "B4", "B6", "B8", "B9"),
                    default=(),
                    help="kernels held to the other build within tolerance, not bit for bit")
     args = p.parse_args(argv)
@@ -306,6 +317,33 @@ def main(argv=None) -> int:
             ok = ok and row["B2 wrapper bit-equal"] and (
                 row["B2 bit-equal"] or ("B2" in args.redesigned and err <= B2_TOL[dt]))
             print(json.dumps(row), flush=True)
+    for B, C, D in B1_SHAPES:
+        img = torch.randn(B, D, device=dev, generator=g)
+        img[-1] = 0.0  # a padded bucket row
+        txt = torch.randn(C, D, device=dev, generator=g)
+        outs = [torch.empty(B, C, device=dev) for _ in range(2)]
+        ptrs = [(img.data_ptr(), txt.data_ptr(), o.data_ptr(), B, C, D, 2.0, 1e-12) for o in outs]
+
+        def this_b1():
+            with torch.cuda.device(dev):
+                err = this.cxr_similarity(*ptrs[1], 0, 0, torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"cxr_similarity returned CUDA error {err}")
+
+        other_b1 = partial(call, "cxr_similarity", *ptrs[0])
+        other_b1()
+        this_b1()
+        wrapper = sim.similarity(img, txt, 0.5)
+        err = float((outs[1] - outs[0]).abs().max())
+        row = {"B1 shape": [B, C, D], "B1 bit-equal": bool(torch.equal(outs[1], outs[0])),
+               "B1 max_abs_err": err, "B1 tol": B1_TOL,
+               "B1 wrapper bit-equal": bool(torch.equal(wrapper, outs[1])),
+               "B1 ms other,this,this,other": in_turns(other_b1, this_b1, 20, dev),
+               "B1 device ms other,this,this,other": [
+                   device_ms(fn, "similarity") for fn in (other_b1, this_b1, this_b1, other_b1)]}
+        ok = ok and row["B1 wrapper bit-equal"] and (
+            row["B1 bit-equal"] or ("B1" in args.redesigned and err <= B1_TOL))
+        print(json.dumps(row), flush=True)
     print("as required" if ok else "MISMATCH")
     return 0 if ok else 1
 

@@ -22,7 +22,12 @@ from ..zeroshot import ZeroShotEngine
 
 # serving path -> (preset, model switches beyond flash attention and the
 # fused BERT MLP, which every path turns on)
-SERVE_MODELS = {"serve": ("zero_shot", {}), "serve_vit": ("vit", {"vit_fused_mlp": True})}
+SERVE_MODELS = {"serve": ("zero_shot", {}), "serve_vit": ("vit", {"vit_fused_mlp": True}),
+                "serve_fp32": ("zero_shot", {})}
+# serving paths in the parity mode (the JAX CLI's --fp32 --flash-attention):
+# fp32 weights and compute, so the attention runs its fp32 kernels and the
+# BERT MLP, whose fused kernel takes bf16 only, its plain route
+FP32_PATHS = ("serve_fp32",)
 
 
 def grey_images(rng, n: int, size: int = 512) -> np.ndarray:
@@ -50,37 +55,44 @@ def _model(dev, seed: int, preset_name: str, **switches):
 
 def build_engine(dev, seed: int, path: str):
     """(model config, ZeroShotEngine) of serving path ``path``
-    (SERVE_MODELS): matmul weights cast to bf16, bf16 compute."""
+    (SERVE_MODELS): matmul weights cast to bf16, bf16 compute; fp32 weights
+    and compute on the FP32_PATHS."""
     name, switches = SERVE_MODELS[path]
     preset, cfg, model = _model(dev, seed, name, **switches)
-    cast_matmul_weights(model, torch.bfloat16)
+    dtype = torch.float32 if path in FP32_PATHS else torch.bfloat16
+    if dtype != torch.float32:
+        cast_matmul_weights(model, dtype)
     engine = ZeroShotEngine(
         model, tokenizer(), DISEASE_LABELS, preset.zeroshot, preset.augment.mean,
-        preset.augment.std, cfg.image_size, cfg.max_text_length, torch.bfloat16,
+        preset.augment.std, cfg.image_size, cfg.max_text_length, dtype,
     )
     return cfg, engine
 
 
-def train_model(dev, seed: int, preset_name: str):
+def train_model(dev, seed: int, preset_name: str, compute_dtype=torch.bfloat16):
     """(preset, model config, model): the preset's model at full width with
     flash attention and the fused BERT MLP, fp32 masters cast to bf16 in the
-    forward, weights from ``seed``."""
+    forward (left in fp32 when ``compute_dtype`` is fp32), weights from
+    ``seed``."""
     preset, cfg, model = _model(dev, seed, preset_name)
-    return preset, cfg, cast_in_forward(model, torch.bfloat16)
+    if compute_dtype == torch.float32:
+        return preset, cfg, model
+    return preset, cfg, cast_in_forward(model, compute_dtype)
 
 
 def base_lrs(preset) -> dict:
     return {**{g.name: g.lr for g in preset.train.groups}, "default": preset.train.lr}
 
 
-def pretrain_step(model, preset, cfg):
+def pretrain_step(model, preset, cfg, compute_dtype=torch.bfloat16):
     """(optimizer, step): the preset's AdamW over ``model`` and the phase-A
-    step (bf16 compute, the preset's temperature, prep and clip)."""
+    step (``compute_dtype`` compute, the preset's temperature, prep and
+    clip)."""
     label_fn = make_label_fn([g.name for g in preset.train.groups])
     opt = make_optimizer(model, label_fn, weight_decay=preset.train.weight_decay)
     step = make_clip_pretrain_step(
         model, opt, label_fn, temperature=cfg.temperature, image_size=cfg.image_size,
-        mean=preset.augment.mean, std=preset.augment.std, compute_dtype=torch.bfloat16,
+        mean=preset.augment.mean, std=preset.augment.std, compute_dtype=compute_dtype,
         max_grad_norm=preset.train.max_grad_norm)
     return opt, step
 

@@ -593,9 +593,9 @@ def test_split_kernels_refuse_what_they_do_not_take(cuda):
         fa.flash_attention(q, k, v, bias, layout="bnhd").float(),
         fa.flash_attention_reference(*(t.transpose(1, 2) for t in (q, k, v)), bias)
         .transpose(1, 2).float(), atol=2e-2, rtol=0)
-    with pytest.raises(TypeError):
-        fa.flash_attention(*(torch.zeros(2, 8, 2, 64, device=cuda) for _ in range(3)),
-                           layout="bnhd")
+    with pytest.raises(TypeError):  # fp32, bf16 and fp16 are taken (C7), fp64 is not
+        fa.flash_attention(*(torch.zeros(2, 8, 2, 64, device=cuda, dtype=torch.float64)
+                             for _ in range(3)), layout="bnhd")
 
 
 # ---------------------------------------------------------------------------
@@ -955,3 +955,346 @@ def test_image_prep_kernel_is_deterministic(cuda):
     for dt in (torch.bfloat16, torch.float32):
         first = prep.preprocess_images(imgs, 224, 224, CLIP_MEAN, CLIP_STD, dt)
         assert torch.equal(first, prep.preprocess_images(imgs, 224, 224, CLIP_MEAN, CLIP_STD, dt))
+
+
+# ---------------------------------------------------------------------------
+# fp32 and fp16 attention (ROADMAP C7): B3/B5/B6/B7 in every operand type
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def full_fp32(cuda):
+    """The plain versions' fp32 products in full fp32, not TF32."""
+    flag = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield cuda
+    torch.backends.cuda.matmul.allow_tf32 = flag
+
+
+def _typed_case(cuda, B, N, H, D, dtype, rate, seed=0):
+    qkv, do, bias, kw = _bwd_case(cuda, B, N, H, D, rate, seed)
+    return qkv.to(dtype), do.to(dtype), bias, kw
+
+
+def _assert_fwd(got, want, msg=None):
+    assert got.dtype == want.dtype and got.shape == want.shape, msg
+    assert torch.isfinite(got.float()).all(), msg
+    torch.testing.assert_close(got.float(), want.float(), atol=fa.fwd_tolerance(want), rtol=0,
+                               msg=msg)
+
+
+def _assert_typed_grad(got, want, layout, dtype, heads=None, msg=None):
+    assert got.dtype == dtype, msg
+    assert torch.isfinite(got.float()).all(), msg
+    max_abs, worst = fa.grad_slice_error(got, want, layout, heads, dtype)
+    assert worst <= 1.0, (msg, f"max_abs {max_abs}, worst slice at {worst} of its tolerance")
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("D", [32, 64, 128, 160])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16], ids=["fp32", "fp16"])
+def test_flash_attention_kernels_in_fp32_and_fp16(full_fp32, dtype, D, rate):
+    """B3 and B5 against the plain versions (fp32 1e-5; fp16 two fp16 steps
+    at the largest entry), B6 and B7 per (batch row, head) slice (fp32 1e-4
+    of the slice's largest entry + 1e-6; fp16 two fp16 steps); B5 and B7
+    bit-equal to B3 and B6 in both layouts; N = 200, padded keys, a fully
+    masked batch row 0. Each type's entry points count their launches."""
+    cuda = full_fp32
+    B, N, H = 3, 200, 2
+    qkv, do, bias, kw = _typed_case(cuda, B, N, H, D, dtype, rate)
+    suffix = fa.SUFFIXES[dtype]
+    from clip_for_dl_tpu_torch.ops import _build
+    before = dict(_build.LAUNCHES)
+    out = fa.flash_attention_packed(qkv, H, bias, **kw)
+    _assert_fwd(out, fa.flash_attention_packed_reference(qkv, H, bias, **kw))
+    dqkv = fa._kernel_bwd(qkv, do, H, bias, **kw)
+    _assert_typed_grad(dqkv, fa.flash_attention_packed_bwd_reference(qkv, do, H, bias, **kw),
+                       "packed", dtype, H)
+    packed = dqkv.view(B, N, 3, H, D)
+    for layout in ("bnhd", "bhnd"):
+        q, k, v = _split_from_packed(qkv, H, layout)
+        dos = _to_bnhd(do.view(B, N, H, D), layout).contiguous()
+        split = fa.flash_attention(q, k, v, bias, layout=layout, **kw)
+        assert torch.equal(_to_bnhd(split, layout).reshape(B, N, H * D), out), layout
+        plain = fa.flash_attention_bwd_reference(*(_head_major(t, layout) for t in (q, k, v, dos)),
+                                                 bias, **kw)
+        for i, g in enumerate(fa.flash_attention_bwd(q, k, v, dos, bias, layout=layout, **kw)):
+            assert torch.equal(_to_bnhd(g, layout), packed[:, :, i]), (layout, i)
+            _assert_typed_grad(g, _head_major(plain[i], layout), layout, dtype, msg=(layout, i))
+    for name, n in ((fa.KERNEL, 1), (fa.KERNEL_BWD, 1), (fa.KERNEL_SPLIT, 2),
+                    (fa.KERNEL_SPLIT_BWD, 2)):
+        assert _build.LAUNCHES[name + suffix] - before.get(name + suffix, 0) == n, name
+
+
+@pytest.mark.parametrize("N", [1, 13, 64, 65, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16], ids=["fp32", "fp16"])
+def test_flash_attention_fp32_fp16_over_sequence_edges(full_fp32, dtype, N):
+    """Packed forward and backward at rate 0.1 over N at and around the
+    kernels' 32- and 64-token chunks, up to MAX_SEQ_LEN, D = 64."""
+    qkv, do, bias, kw = _typed_case(full_fp32, 2, N, 2, 64, dtype, 0.1)
+    _assert_fwd(fa.flash_attention_packed(qkv, 2, bias, **kw),
+                fa.flash_attention_packed_reference(qkv, 2, bias, **kw))
+    _assert_typed_grad(fa._kernel_bwd(qkv, do, 2, bias, **kw),
+                       fa.flash_attention_packed_bwd_reference(qkv, do, 2, bias, **kw),
+                       "packed", dtype, 2)
+
+
+@pytest.mark.parametrize("D", [64, 160])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16], ids=["fp32", "fp16"])
+def test_flash_attention_fp32_fp16_dropout_masks(cuda, dtype, D):
+    """The dropout mask of B3's output and of B6's dv equals the plain
+    version's bit for bit (q = k = 0, one-hot v and d(out) in key windows,
+    as chip_smoke.py's dropout_probe)."""
+    B, N, H = 4, 200, 2
+    nwin = -(-N // D)
+    pos = torch.arange(N, device=cuda)
+    win = torch.arange(B, device=cuda) % nwin
+    in_key = (pos[None] // D) == win[:, None]
+    in_row = (pos[None] // D) == ((torch.arange(B, device=cuda) // nwin) % nwin)[:, None]
+    onehot = torch.nn.functional.one_hot(pos % D, D).float()
+    qkv = torch.zeros(B, N, 3, H, D, device=cuda)
+    qkv[:, :, 2] = (onehot[None] * in_key[..., None])[:, :, None, :]
+    qkv = qkv.reshape(B, N, 3 * H * D).to(dtype)
+    do = (onehot[None] * in_row[..., None])[:, :, None, :].expand(B, N, H, D)
+    do = do.reshape(B, N, H * D).to(dtype)
+    bias = torch.where(in_key, 0.0, -1e10)
+    kw = dict(dropout_rate=0.1, dropout_seeds=_seeds(cuda, B, 7))
+    got = fa.flash_attention_packed(qkv, H, bias, **kw)
+    want = fa.flash_attention_packed_reference(qkv, H, bias, **kw)
+    assert torch.equal(got != 0, want != 0)
+    gdv = fa._kernel_bwd(qkv, do, H, bias, **kw).view(B, N, 3, H, D)[:, :, 2]
+    wdv = fa.flash_attention_packed_bwd_reference(qkv, do, H, bias, **kw).view(
+        B, N, 3, H, D)[:, :, 2]
+    assert torch.equal(gdv != 0, wdv != 0)
+    assert 0.8 < float((want != 0).sum()) / (int(in_key.sum()) * N * H) < 0.97
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16], ids=["fp32", "fp16"])
+def test_flash_attention_fp32_fp16_autograd_on_the_card(full_fp32, dtype):
+    """The entry points with a gradient required run the kernels of the
+    operands' type and give the plain versions' gradients."""
+    cuda = full_fp32
+    B, N, H, D = 2, 40, 2, 64
+    qkv, do, bias, kw = _typed_case(cuda, B, N, H, D, dtype, 0.1)
+    x = qkv.clone().requires_grad_()
+    fa.flash_attention_packed(x, H, bias, **kw).backward(do)
+    _assert_typed_grad(x.grad, fa.flash_attention_packed_bwd_reference(qkv, do, H, bias, **kw),
+                       "packed", dtype, H)
+    xs = [t.clone().requires_grad_() for t in _split_from_packed(qkv, H, "bnhd")]
+    fa.flash_attention(*xs, bias, layout="bnhd", **kw).backward(do.view(B, N, H, D))
+    for i, t in enumerate(xs):
+        assert torch.equal(t.grad, x.grad.view(B, N, 3, H, D)[:, :, i]), i
+
+
+def test_flash_attention_fp32_takes_unaligned_views(full_fp32):
+    """fp32 operands need no 16-byte grid: a split view one element into its
+    buffer runs without a copy's refusal and matches the plain version."""
+    cuda = full_fp32
+    B, N, H, D = 2, 33, 2, 40
+    g = torch.Generator(cuda).manual_seed(3)
+    buf = torch.randn(3 * B * N * H * D + 1, device=cuda, generator=g)
+    q, k, v = buf[1:].view(3, B, N, H, D).unbind(0)
+    assert q.data_ptr() % 16
+    got = fa.flash_attention(q, k, v, layout="bnhd")
+    want = fa.flash_attention_reference(*(t.transpose(1, 2) for t in (q, k, v))).transpose(1, 2)
+    _assert_fwd(got, want.contiguous())
+
+
+def test_bf16_attention_kernels_equal_another_build(cuda):
+    """B3/B5/B6/B7 in bf16 bit for bit against another checkout's build of
+    them (the parent commit's, unpacked where CXR_OTHER_CHECKOUT names):
+    templating the 16-bit type must leave the bf16 instances' bits."""
+    import os
+    from pathlib import Path
+
+    from clip_for_dl_tpu_torch.ops import _build
+    from clip_for_dl_tpu_torch.tools import compare_builds
+
+    root = os.environ.get("CXR_OTHER_CHECKOUT")
+    if not root:
+        pytest.skip("set CXR_OTHER_CHECKOUT to another checkout's root")
+    other = compare_builds.other_library(Path(root).resolve())
+    this = _build.build()
+    try:
+        for B, N, H, D, rate in ((3, 200, 2, 64, 0.1), (2, 77, 2, 128, 0.0), (2, 65, 2, 192, 0.1)):
+            qkv, do, bias, kw = _bwd_case(cuda, B, N, H, D, rate)
+            want_o, want_g = fa._kernel(qkv, H, bias, **kw), fa._kernel_bwd(qkv, do, H, bias, **kw)
+            q, k, v = _split_from_packed(qkv, H, "bhnd")
+            dos = do.view(B, N, H, D).transpose(1, 2).contiguous()
+            want_s = fa.flash_attention(q, k, v, bias, layout="bhnd", **kw)
+            want_sg = fa.flash_attention_bwd(q, k, v, dos, bias, layout="bhnd", **kw)
+            _build.use_library(other)
+            try:
+                assert torch.equal(fa._kernel(qkv, H, bias, **kw), want_o), (B, N, H, D)
+                assert torch.equal(fa._kernel_bwd(qkv, do, H, bias, **kw), want_g), (B, N, H, D)
+                assert torch.equal(fa.flash_attention(q, k, v, bias, layout="bhnd", **kw), want_s)
+                got = fa.flash_attention_bwd(q, k, v, dos, bias, layout="bhnd", **kw)
+                assert all(torch.equal(a, b) for a, b in zip(got, want_sg))
+            finally:
+                _build.use_library(this)
+    finally:
+        _build.use_library(this)
+
+
+# ---------------------------------------------------------------------------
+# B1 and B2 as wide as the JAX kernels (ROADMAP C8)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("img_t,txt_t", [(torch.bfloat16, torch.bfloat16),
+                                         (torch.float16, torch.float16),
+                                         (torch.float32, torch.bfloat16),
+                                         (torch.float16, torch.float32)],
+                         ids=["bf16", "fp16", "fp32_bf16", "fp16_fp32"])
+@pytest.mark.parametrize("B,C,D", [(256, 16, 512), (13, 5, 100), (3, 200, 2048)])
+def test_similarity_kernel_in_every_feature_type(cuda, img_t, txt_t, B, C, D):
+    """Each side in its own type, widened in the kernel: against the plain
+    version on the same (rounded) features, 1e-5; counted under its types'
+    key."""
+    from clip_for_dl_tpu_torch.ops import _build
+
+    g = torch.Generator(cuda).manual_seed(D)
+    img = torch.randn(B, D, device=cuda, generator=g).to(img_t)
+    img[0] = 0.0
+    txt = torch.randn(C, D, device=cuda, generator=g).to(txt_t)
+    key = sim.launch_key(img_t, txt_t)
+    before = _build.LAUNCHES[key]
+    got = sim.similarity(img, txt, 0.5)
+    assert _build.LAUNCHES[key] == before + 1
+    torch.testing.assert_close(got, sim.similarity_reference(img, txt, 0.5), atol=1e-5, rtol=0)
+    assert torch.all(got[0] == 0.0)
+
+
+def test_similarity_kernel_takes_views(cuda):
+    """Transposed and strided views are copied, not refused; an unaligned
+    contiguous view takes the element-wise loads."""
+    g = torch.Generator(cuda).manual_seed(4)
+    base = torch.randn(512, 64, device=cuda, generator=g)
+    img = base.T[:, ::2]  # [64, 256], strided
+    txt = torch.randn(16, 257, device=cuda, generator=g)[:, 1:]  # rows off the 16-byte grid
+    assert not img.is_contiguous() and not txt.is_contiguous()
+    torch.testing.assert_close(sim.similarity(img, txt, 0.5),
+                               sim.similarity_reference(img, txt, 0.5), atol=1e-5, rtol=0)
+    flat = torch.randn(16 * 256 + 1, device=cuda, generator=g)[1:].view(16, 256)
+    assert flat.is_contiguous() and flat.data_ptr() % 16
+    torch.testing.assert_close(sim.similarity(flat, txt, 0.5),
+                               sim.similarity_reference(flat, txt, 0.5), atol=1e-5, rtol=0)
+
+
+def _float_images(cuda, shape, dtype, seed=0):
+    """Float images in [0, 1], as a float pipeline hands them over."""
+    g = torch.Generator(cuda).manual_seed(seed)
+    return torch.rand(shape, device=cuda, generator=g).to(dtype)
+
+
+@pytest.mark.parametrize("src", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=["fp32", "bf16", "fp16"])
+@pytest.mark.parametrize("shape", [(4, 512, 512, 1), (2, 333, 97, 3), (1, 224, 224, 3)])
+def test_image_prep_kernel_takes_float_images(cuda, src, shape):
+    """Float sources at input_scale 1 (fp32 read by the kernel, bf16 and fp16
+    widened first), fp32 output within 1e-4 and bf16 within one bf16 step
+    (1.6e-2) of the plain version; counted under the fp32-source entry."""
+    from clip_for_dl_tpu_torch.ops import _build
+
+    imgs = _float_images(cuda, shape, src)
+    before = _build.LAUNCHES[prep.KERNEL_F32SRC]
+    _assert_prep(imgs, 224, 224)
+    assert _build.LAUNCHES[prep.KERNEL_F32SRC] == before + 2
+
+
+@pytest.mark.parametrize("src", [torch.uint8, torch.float32], ids=["uint8", "fp32"])
+def test_image_prep_kernel_writes_fp16_and_fp64(cuda, src):
+    """fp16 output within one fp16 step at |x| ≤ 2.2 (2^-9) of the plain
+    version, counted under the _fp16 key; fp64 through the fp32 instance and
+    a cast, equal to the fp32 output."""
+    from clip_for_dl_tpu_torch.ops import _build
+
+    shape = (3, 333, 97, 3)
+    if src == torch.uint8:
+        g = torch.Generator(cuda).manual_seed(5)
+        imgs = torch.randint(0, 256, shape, device=cuda, generator=g, dtype=torch.uint8)
+    else:
+        imgs = _float_images(cuda, shape, src, 5)
+    entry = prep.KERNEL if src == torch.uint8 else prep.KERNEL_F32SRC
+    before = _build.LAUNCHES[entry + "_fp16"]
+    got = prep.preprocess_images(imgs, 224, 224, CLIP_MEAN, CLIP_STD, torch.float16)
+    assert got.dtype == torch.float16 and _build.LAUNCHES[entry + "_fp16"] == before + 1
+    want = prep.preprocess_reference(imgs, 224, 224, CLIP_MEAN, CLIP_STD, torch.float16)
+    torch.testing.assert_close(got.float(), want.float(), atol=2.0 ** -9, rtol=0)
+    wide = prep.preprocess_images(imgs, 224, 224, CLIP_MEAN, CLIP_STD, torch.float64)
+    assert wide.dtype == torch.float64
+    assert torch.equal(wide, prep.preprocess_images(imgs, 224, 224, CLIP_MEAN, CLIP_STD,
+                                                    torch.float32).double())
+
+
+def _prep_entry(entry, imgs, out_h, out_w, out_dtype, src_type=None):
+    """``entry``'s output for ``imgs`` (uint8 or fp32), called as the wrapper
+    calls it, ``src_type`` appended for the direct entry."""
+    from clip_for_dl_tpu_torch.ops import _build
+
+    B, H, W, C = imgs.shape
+    dev = imgs.device
+    c_out = 3 if C == 1 else C
+    out = torch.empty(B, out_h, out_w, c_out, dtype=out_dtype, device=dev)
+    ty, tx = prep._device_taps(H, out_h, dev), prep._device_taps(W, out_w, dev)
+    scale, bias = prep._device_scale_bias(CLIP_MEAN[:c_out] if c_out == 3 else (0.5,) * c_out,
+                                          CLIP_STD[:c_out] if c_out == 3 else (0.25,) * c_out,
+                                          1 / 255 if imgs.dtype == torch.uint8 else 1.0, dev)
+    extra = () if src_type is None else (src_type,)
+    _build.launch(entry, dev, imgs.data_ptr(), *(t.data_ptr() for t in ty + tx),
+                  scale.data_ptr(), bias.data_ptr(), out.data_ptr(), B, H, W, C, out_h, out_w,
+                  c_out, prep.OUT_TYPES[out_dtype], *extra)
+    return out
+
+
+@pytest.mark.parametrize("shape", [(2, 333, 97, 3), (3, 512, 512, 1), (1, 50, 30, 3)])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=["fp32", "bf16", "fp16"])
+@pytest.mark.parametrize("src", [torch.uint8, torch.float32], ids=["uint8", "fp32"])
+def test_image_prep_direct_body_equals_the_staged_body(cuda, src, out_dtype, shape):
+    """Where both run, the direct body gives the staged body's bits."""
+    g = torch.Generator(cuda).manual_seed(6)
+    if src == torch.uint8:
+        imgs = torch.randint(0, 256, shape, device=cuda, generator=g, dtype=torch.uint8)
+        staged = prep.KERNEL
+    else:
+        imgs = torch.rand(shape, device=cuda, generator=g)
+        staged = prep.KERNEL_F32SRC
+    for oh, ow in ((224, 224), (7, 21)):
+        a = _prep_entry(staged, imgs, oh, ow, out_dtype)
+        b = _prep_entry(prep.KERNEL_DIRECT, imgs, oh, ow, out_dtype, int(src != torch.uint8))
+        assert torch.equal(a, b), (oh, ow)
+
+
+@pytest.mark.parametrize("src,channels", [(torch.uint8, 30000), (torch.float32, 8000),
+                                          (torch.bfloat16, 8000)],
+                         ids=["uint8", "fp32", "bf16"])
+def test_image_prep_kernel_runs_rows_too_wide_to_stage(cuda, src, channels):
+    """A source row pair past shared memory at one output column runs the
+    direct body (counted under its entry) and matches the plain version."""
+    from clip_for_dl_tpu_torch.ops import _build
+
+    shape = (2, 5, 4, channels)
+    assert prep.band_plan(2, 4, channels, 3, 3, 132, 1 if src == torch.uint8 else 4).direct
+    if src == torch.uint8:
+        g = torch.Generator(cuda).manual_seed(7)
+        imgs = torch.randint(0, 256, shape, device=cuda, generator=g, dtype=torch.uint8)
+    else:
+        imgs = _float_images(cuda, shape, src, 7)
+    mean = tuple(0.1 + 0.8 * (i % 7) / 7 for i in range(channels))
+    std = tuple(0.2 + 0.1 * (i % 3) for i in range(channels))
+    before = _build.LAUNCHES[prep.KERNEL_DIRECT]
+    _assert_prep(imgs, 3, 3, mean, std)
+    assert _build.LAUNCHES[prep.KERNEL_DIRECT] == before + 2
+
+
+def test_image_prep_kernel_takes_views(cuda):
+    """A cropped view (rows strided) and a channels-first tensor permuted to
+    NHWC are copied, not refused."""
+    g = torch.Generator(cuda).manual_seed(8)
+    big = torch.randint(0, 256, (2, 300, 300, 3), device=cuda, generator=g, dtype=torch.uint8)
+    crop = big[:, 10:250, 20:260]
+    nchw = torch.rand(2, 3, 200, 180, device=cuda, generator=g)
+    for imgs in (crop, nchw.permute(0, 2, 3, 1)):
+        assert not imgs.is_contiguous()
+        _assert_prep(imgs, 224, 224)

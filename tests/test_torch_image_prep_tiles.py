@@ -286,6 +286,10 @@ def test_planned_stride_holds_every_window():
 
 
 def test_band_plan_refuses_only_past_shared_memory():
-    assert prep.band_plan(1, 4, 20000, 4, 4, H100_SMS).cols == 1
-    with pytest.raises(ValueError, match="shared memory"):
-        prep.band_plan(1, 4, 40000, 4, 4, H100_SMS)
+    """The staged body takes a row pair up to shared memory; past it the
+    plan is the direct body's (a row of blocks an (image, output row)),
+    not a refusal."""
+    staged = prep.band_plan(1, 4, 20000, 4, 4, H100_SMS)
+    assert staged.cols == 1 and not staged.direct
+    assert prep.band_plan(1, 4, 40000, 4, 4, H100_SMS) == prep.BandPlan(
+        1, 4, 0, 4, 1, 4, 4, 0, True)
