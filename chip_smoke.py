@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's zero-shot serving paths (ResNet-50 and ViT-B/16),
 its phase-A train step, its split-q/k/v attention entry point, the chain
-pretrain -> adapter (phase B) and the fp32 parity mode once on one CUDA GPU.
+pretrain -> adapter (phase B), the fp32 parity mode and the evaluation from
+files once on one CUDA GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases (any failure exits non-zero and prints no result line):
 
 0. Card: name and power limit from nvidia-smi. Without CUDA, exit at once.
+   Then the host probe: g++, libpng's and zlib's headers, -lpng16 / -lpng /
+   -lz at link time, and which of safetensors, PIL, scikit-learn, pandas and
+   cv2 are installed (the port imports none of them).
 1. Build: compile the port's kernels (clip_for_dl_tpu_torch/csrc/*.cu) with
    nvcc for sm_90a, one nvcc per source, all at once; print the build time,
    ptxas' per-kernel summary and, from cuobjdump's SASS of the library, the
@@ -104,8 +108,24 @@ c8_cases).
    attention kernels, and one fp32 phase-A step of ``pretrain_clip`` at its
    B = 16, each against the same model on the plain route (B2 kept): text
    features and probabilities within 1e-5, the loss within 1e-5 relative,
-   each group's gradient cosine >= 0.9999. Then tools/launch_times.py times
-   the wrappers from the host.
+   each group's gradient cosine >= 0.9999.
+8. Evaluation from files (the evaluation half of the JAX CLI's zeroshot, as
+   library calls; after phase 7, over phase 6's checkpoints): the Kaggle
+   layout written by testing/kaggle.py (EVAL_UIDS uids, grey 8-bit PNGs at
+   EVAL_SIZES with random row filters, one exam with one view, one file not
+   a PNG, some empty findings) -> prepare_labeled_csv, merge_image_report,
+   split_by_uid, build_exam_index -> build_image_cache (grey-packed, 224) ->
+   ChestXrayMultiViewDataset -> HostLoader (EVAL_BATCH exams a batch). The
+   zero_shot model at full width (flash attention, fused BERT MLP, bf16)
+   from phase 6's phase-A checkpoint directory, and from a reference .pth
+   and a .safetensors mirror the port writes of the same weights: logits
+   bit-equal. Then (the eval_files path, counted) the prompt bank,
+   run_zero_shot_eval, run_dynamic_threshold_eval and an InferenceSession
+   batch; AdapterEngine over phase 6's adapter checkpoint (the eval_adapter
+   path); and the same evaluation on the plain route: probabilities within
+   5e-3, prediction sets equal except at a decision edge (counted). Prints
+   the cache build img/s, loader batches/s and eval img/s, and the phase's
+   time. Then tools/launch_times.py times the wrappers from the host.
 
 The second-to-last line is the kernels JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -114,6 +134,7 @@ The second-to-last line is the kernels JSON; the last line is
 from __future__ import annotations
 
 import argparse
+import csv
 import itertools
 import json
 import statistics
@@ -185,6 +206,10 @@ TOL = {
     "fp32_probs": 1e-5,
     "fp32_loss_rel": 1e-5,
     "fp32_grad_cos": 0.9999,
+    # phase 8, the evaluation from files, kernels vs plain versions from the
+    # same weights and batches: PERF.md §2's serving tolerance on the
+    # probabilities of every view
+    "eval_vs_plain": 5e-3,
 }
 
 SRC = "clip_for_dl_tpu_torch/csrc/"
@@ -230,6 +255,10 @@ PATHS = {  # main path -> the kernels it must launch
     "layout_probe": ("flash_attention_bwd", "flash_attention_split_bwd"),
     "pretrain_fit": TRAIN_KERNELS,
     "adapter": ("image_prep",),
+    # evaluation from files (phase 8): the prompt bank, the zero-shot drivers
+    # and InferenceSession; the adapter checkpoint through AdapterEngine
+    "eval_files": ("similarity", "image_prep", "flash_attention", "mlp"),
+    "eval_adapter": ("image_prep",),
     # the parity mode (--fp32 --flash-attention): zero-shot serving and a
     # phase-A step in fp32
     "serve_fp32": ("similarity", "image_prep", "flash_attention_fp32"),
@@ -254,6 +283,9 @@ TRAIN_BATCH = 128  # image-report pairs per train step
 TRAIN_STEPS = 10  # steps on one fixed batch
 TRAIN_LEN = 200  # report tokens (the preset's max_text_length)
 CHAIN_STEPS = 4  # steps per epoch of phase 6's fits
+EVAL_UIDS = 256  # exams of phase 8's files
+EVAL_SIZES = ((512, 512), (600, 512))  # their PNGs' sizes, in turn
+EVAL_BATCH = 128  # exams a batch of phase 8's loader
 
 
 class SmokeFailure(RuntimeError):
@@ -592,6 +624,18 @@ def mlp_fwd_yardstick(what: str, kernel, x, w1, w2) -> None:
           + ", ".join(f"{k} {v}" for k, v in split.items()))
 
 
+def mlp_bwd_yardstick(what: str, mlp, x, w1, b1, w2, dy) -> None:
+    """Print, as a yardstick the port never calls, the time of B8's three
+    products alone in cuBLAS (torch.matmul, bf16: x·W1ᵀ, dy·W2, dh·W1)."""
+    import torch
+
+    dh = mlp._kernel_bwd(x, w1, b1, w2, dy)[2]
+    products = cuda_ms(lambda: (torch.matmul(x, w1.T), torch.matmul(dy, w2),
+                                torch.matmul(dh, w1)), iters=5)
+    print(f"  yardstick, never called by the port: {what}'s three products alone in cuBLAS "
+          f"(torch.matmul, bf16: x·W1ᵀ, dy·W2, dh·W1) {products:.4f} ms")
+
+
 def prep_yardstick(prep, images, out, mean, std, event_ms) -> None:
     """Print B2's device time (torch.profiler) beside its event time, the
     GB/s it reaches on the bytes it must move (input read once, output
@@ -729,12 +773,7 @@ def phase2_train(mods, dev, seed: int, results: dict) -> None:
     results["mlp_bwd"]["ms"] = cuda_ms(lambda: mlp._kernel_bwd(x, w1, b1, w2, dy), iters=5)
     results["mlp_bwd"]["plain_ms"] = cuda_ms(
         lambda: mlp.dense_gelu_dense_bwd_reference(x, w1, b1, w2, dy), iters=5)
-    dh = mlp._kernel_bwd(x, w1, b1, w2, dy)[2]
-    products = cuda_ms(lambda: (torch.matmul(x, w1.T), torch.matmul(dy, w2),
-                                torch.matmul(dh, w1)), iters=5)
-    print(f"  yardstick, never called by the port: B8's three products alone in cuBLAS "
-          f"(torch.matmul, bf16: x·W1ᵀ, dy·W2, dh·W1) {products:.4f} ms")
-    del dh
+    mlp_bwd_yardstick("B8", mlp, x, w1, b1, w2, dy)
     split = kernel_device_ms(lambda: mlp._kernel_bwd(x, w1, b1, w2, dy),
                              ("mlp_bwd_gelu_kernel", "mlp_bwd_dx_kernel"))
     print("  B8's two kernels, device ms a call (torch.profiler): "
@@ -799,9 +838,12 @@ def phase2_repairs(mods, dev, seed: int, results: dict) -> None:
     extra_times("C3: B4 at hidden 256", lambda: mlp.dense_gelu_dense(x, w1, b1, w2, b2),
                 lambda: mlp.dense_gelu_dense_reference(x, w1, b1, w2, b2), 4 * R * HID * F,
                 (x, w1, b1, w2, b2, mlp.dense_gelu_dense(x, w1, b1, w2, b2)))
+    mlp_fwd_yardstick("C3: B4 at hidden 256", lambda: mlp.dense_gelu_dense(x, w1, b1, w2, b2),
+                      x, w1, w2)
     extra_times("C3: B8 at hidden 256", lambda: mlp._kernel_bwd(x, w1, b1, w2, dy),
                 lambda: mlp.dense_gelu_dense_bwd_reference(x, w1, b1, w2, dy), 6 * R * HID * F,
                 (x, w1, b1, w2, dy) + tuple(mlp._kernel_bwd(x, w1, b1, w2, dy)))
+    mlp_bwd_yardstick("C3: B8 at hidden 256", mlp, x, w1, b1, w2, dy)
     blk = mods["mlp_block"]
     for HID, F in ((1280, 5120), (192, 768)):
         print(f"B4, B8 and B9 past the old width bounds: x, dy [{R}, {HID}] bf16, F = {F}")
@@ -818,6 +860,7 @@ def phase2_repairs(mods, dev, seed: int, results: dict) -> None:
                     lambda: mlp.dense_gelu_dense_bwd_reference(x, w1, b1, w2, dy),
                     6 * R * HID * F, (x, w1, b1, w2, dy) + tuple(got))
         del got
+        mlp_bwd_yardstick(f"B8 at hidden {HID}", mlp, x, w1, b1, w2, dy)
         compare("mlp", mlp._kernel(x, w1, b1, w2, b2),
                 mlp.dense_gelu_dense_reference(x, w1, b1, w2, b2), TOL["mlp"], results)
         extra_times(f"B4 at hidden {HID}, F = {F}", lambda: mlp._kernel(x, w1, b1, w2, b2),
@@ -932,6 +975,10 @@ def phase2_limits(mods, dev, seed: int, results: dict) -> None:
                     lambda: sim.similarity_reference(img, txt, 0.5),
                     2 * BATCH * 200 * D + 3 * (BATCH + 200) * D,
                     (img, txt, sim.similarity(img, txt, 0.5)), peak="fp32")
+        cos = torch.nn.functional.cosine_similarity
+        lib_ms = cuda_ms(lambda: cos(img[:, None], txt[None], dim=-1, eps=1e-12) / 0.5)
+        print(f"  yardstick, never called by the port: F.cosine_similarity / T at D = {D}, "
+              f"C = 200: {lib_ms:.4f} ms")
 
     B = 65537
     print(f"C6: a batch of {B}: B2 [{B}, 12, 10, 1] uint8 -> [{B}, 8, 8, 3] bf16; B3 and B6 at "
@@ -1876,9 +1923,10 @@ def torch_equal(a, b) -> bool:
     return a == b
 
 
-def phase6(_build, mods, dev, seed: int, card: str) -> dict:
-    """The chain pretrain -> adapter through fit and CheckpointManager;
-    returns the launches of the pretrain_fit and adapter paths."""
+def phase6(_build, mods, dev, seed: int, card: str, tmp: str) -> dict:
+    """The chain pretrain -> adapter through fit and CheckpointManager, the
+    checkpoints under ``tmp`` (``pretrain/``, ``adapter/``; phase 8 reads
+    them); returns the launches of the pretrain_fit and adapter paths."""
     import numpy as np
     import torch
 
@@ -1913,143 +1961,426 @@ def phase6(_build, mods, dev, seed: int, card: str) -> dict:
             setattr(mgr, name, timed)
         return mgr
 
-    with tempfile.TemporaryDirectory(prefix="chain_") as tmp:
-        # -- phase A: pretrain through fit, one epoch ---------------------------
-        preset, cfg, model = train_model(dev, seed, "pretrain_clip")
-        opt, step = pretrain_step(model, preset, cfg)
-        eval_step = make_clip_eval_step(
-            model, temperature=cfg.temperature, image_size=cfg.image_size,
-            mean=preset.augment.mean, std=preset.augment.std, compute_dtype=torch.bfloat16)
-        ckpt_a = timed_saves(CheckpointManager(f"{tmp}/pretrain", max_to_keep=1))
-        lrs = base_lrs(preset)
-        print(f"phase A: pretrain_clip, fit for 1 epoch of {CHAIN_STEPS} steps at "
-              f"B = {TRAIN_BATCH}, scheduler {preset.train.scheduler}")
-        torch.cuda.synchronize(dev)
-        _build.reset_launches()
-        t = time.perf_counter()
-        state_a, hist_a = fit(
-            TrainState(model, opt), step, eval_step,
-            lambda: (batches[i % 2] for i in range(CHAIN_STEPS)), lambda: iter(batches[1:]),
-            base_lrs=lrs, num_epochs=1,
-            rng_stream=itertools.repeat(torch.Generator(dev).manual_seed(seed)),
-            scheduler=preset.train.scheduler, early_stop_patience=None, checkpointer=ckpt_a,
-            log_every=1)
-        torch.cuda.synchronize(dev)
-        by_path["pretrain_fit"] = dict(_build.LAUNCHES)
-        print(f"  history {hist_a.rows} in {time.perf_counter() - t:.1f} s; checkpoint save "
-              f"{[round(x, 1) for x in save_ms]} ms; launches {by_path['pretrain_fit']}")
-        check(len(hist_a.rows) == 1 and all(np.isfinite([hist_a.rows[0]["train_loss"],
-                                                         hist_a.rows[0]["val_loss"]])),
-              f"phase A history {hist_a.rows}")
-        check(ckpt_a.all_epochs() == [0] and state_a.step == CHAIN_STEPS,
-              f"phase A checkpoints {ckpt_a.all_epochs()}, step {state_a.step}")
-        check_launched(mods, by_path["pretrain_fit"], "pretrain_fit")
-        pretrained = {k: v.clone() for k, v in model_state(model).items()}
-        del model, opt, step, eval_step, state_a
-        torch.cuda.empty_cache()
+    # -- phase A: pretrain through fit, one epoch ---------------------------
+    preset, cfg, model = train_model(dev, seed, "pretrain_clip")
+    opt, step = pretrain_step(model, preset, cfg)
+    eval_step = make_clip_eval_step(
+        model, temperature=cfg.temperature, image_size=cfg.image_size,
+        mean=preset.augment.mean, std=preset.augment.std, compute_dtype=torch.bfloat16)
+    ckpt_a = timed_saves(CheckpointManager(f"{tmp}/pretrain", max_to_keep=1))
+    lrs = base_lrs(preset)
+    print(f"phase A: pretrain_clip, fit for 1 epoch of {CHAIN_STEPS} steps at "
+          f"B = {TRAIN_BATCH}, scheduler {preset.train.scheduler}")
+    torch.cuda.synchronize(dev)
+    _build.reset_launches()
+    t = time.perf_counter()
+    state_a, hist_a = fit(
+        TrainState(model, opt), step, eval_step,
+        lambda: (batches[i % 2] for i in range(CHAIN_STEPS)), lambda: iter(batches[1:]),
+        base_lrs=lrs, num_epochs=1,
+        rng_stream=itertools.repeat(torch.Generator(dev).manual_seed(seed)),
+        scheduler=preset.train.scheduler, early_stop_patience=None, checkpointer=ckpt_a,
+        log_every=1)
+    torch.cuda.synchronize(dev)
+    by_path["pretrain_fit"] = dict(_build.LAUNCHES)
+    print(f"  history {hist_a.rows} in {time.perf_counter() - t:.1f} s; checkpoint save "
+          f"{[round(x, 1) for x in save_ms]} ms; launches {by_path['pretrain_fit']}")
+    check(len(hist_a.rows) == 1 and all(np.isfinite([hist_a.rows[0]["train_loss"],
+                                                     hist_a.rows[0]["val_loss"]])),
+          f"phase A history {hist_a.rows}")
+    check(ckpt_a.all_epochs() == [0] and state_a.step == CHAIN_STEPS,
+          f"phase A checkpoints {ckpt_a.all_epochs()}, step {state_a.step}")
+    check_launched(mods, by_path["pretrain_fit"], "pretrain_fit")
+    pretrained = {k: v.clone() for k, v in model_state(model).items()}
+    del model, opt, step, eval_step, state_a
+    torch.cuda.empty_cache()
 
-        # -- phase B: the adapter from the phase-A epoch --------------------------
-        preset_b, cfg_b, model_b = train_model(dev, seed + 1, "adapter")
-        check(ckpt_a.restore_variables(model_b) is model_b, "no phase-A checkpoint to restore")
-        check(states_equal(model_state(model_b), pretrained),
-              "restore_variables did not give the phase-A weights")
-        del pretrained
-        label_b = make_label_fn([g.name for g in preset_b.train.groups])
-        opt_b = make_optimizer(model_b, label_b, weight_decay=preset_b.train.weight_decay)
-        prep_b = dict(image_size=cfg_b.image_size, mean=preset_b.augment.mean,
-                      std=preset_b.augment.std, compute_dtype=torch.bfloat16)
-        step_b = make_adapter_train_step(model_b, opt_b, label_b, **prep_b)
-        eval_b = make_adapter_eval_step(model_b, **prep_b)
-        labels = rng.random((TRAIN_BATCH, cfg_b.num_classes)) < 0.3
-        labels[0], labels[1] = True, False  # every class has both outcomes
-        batch = {"images": batches[0]["images"],
-                 "labels": torch.from_numpy(labels.astype(np.float32)).to(dev)}
-        before = model_state(model_b)
-        frozen = {k: v.clone() for k, v in before.items() if not k.startswith("adapter.")}
-        adapter0 = {k: v.clone() for k, v in before.items() if k.startswith("adapter.")}
-        guard = PreemptionGuard(signals=())
-        preempt_after = 2 * CHAIN_STEPS + 2
-        times, losses = [], []
+    # -- phase B: the adapter from the phase-A epoch --------------------------
+    preset_b, cfg_b, model_b = train_model(dev, seed + 1, "adapter")
+    check(ckpt_a.restore_variables(model_b) is model_b, "no phase-A checkpoint to restore")
+    check(states_equal(model_state(model_b), pretrained),
+          "restore_variables did not give the phase-A weights")
+    del pretrained
+    label_b = make_label_fn([g.name for g in preset_b.train.groups])
+    opt_b = make_optimizer(model_b, label_b, weight_decay=preset_b.train.weight_decay)
+    prep_b = dict(image_size=cfg_b.image_size, mean=preset_b.augment.mean,
+                  std=preset_b.augment.std, compute_dtype=torch.bfloat16)
+    step_b = make_adapter_train_step(model_b, opt_b, label_b, **prep_b)
+    eval_b = make_adapter_eval_step(model_b, **prep_b)
+    labels = rng.random((TRAIN_BATCH, cfg_b.num_classes)) < 0.3
+    labels[0], labels[1] = True, False  # every class has both outcomes
+    batch = {"images": batches[0]["images"],
+             "labels": torch.from_numpy(labels.astype(np.float32)).to(dev)}
+    before = model_state(model_b)
+    frozen = {k: v.clone() for k, v in before.items() if not k.startswith("adapter.")}
+    adapter0 = {k: v.clone() for k, v in before.items() if k.startswith("adapter.")}
+    guard = PreemptionGuard(signals=())
+    preempt_after = 2 * CHAIN_STEPS + 2
+    times, losses = [], []
 
-        def timed_step(state, b, lrs_, gen):
-            t0 = time.perf_counter()
-            state, metrics = step_b(state, b, lrs_, gen)
-            losses.append(float(metrics["loss"]))  # syncs the step
-            times.append(time.perf_counter() - t0)
-            if len(times) == preempt_after:
-                guard.trigger()
-            return state, metrics
+    def timed_step(state, b, lrs_, gen):
+        t0 = time.perf_counter()
+        state, metrics = step_b(state, b, lrs_, gen)
+        losses.append(float(metrics["loss"]))  # syncs the step
+        times.append(time.perf_counter() - t0)
+        if len(times) == preempt_after:
+            guard.trigger()
+        return state, metrics
 
-        ckpt_b = timed_saves(CheckpointManager(f"{tmp}/adapter", max_to_keep=1))
-        base_b = {"adapter": preset_b.train.lr, "default": 0.0}
-        print(f"phase B: adapter, fit for 2 epochs of {CHAIN_STEPS} steps at B = "
-              f"{TRAIN_BATCH}, best-1 retention, preemption after step 2 of epoch 2")
-        torch.cuda.synchronize(dev)
-        torch.cuda.reset_peak_memory_stats(dev)
-        save_ms.clear()
-        _build.reset_launches()
-        state_b, hist_b = fit(
-            TrainState(model_b, opt_b), timed_step, eval_b,
-            lambda: itertools.repeat(batch, CHAIN_STEPS), lambda: iter([batch]),
-            base_lrs=base_b, num_epochs=3, rng_stream=itertools.repeat(None),
-            scheduler=preset_b.train.scheduler,
-            early_stop_patience=preset_b.train.early_stop_patience, checkpointer=ckpt_b,
-            preemption_guard=guard, log_every=1)
-        torch.cuda.synchronize(dev)
-        by_path["adapter"] = dict(_build.LAUNCHES)
-        peak = torch.cuda.max_memory_allocated(dev) / 2**30
-        steady = times[1:]
-        print(f"  history {hist_b.rows}")
-        print(f"  step losses {[round(x, 6) for x in losses]}")
-        print(f"adapter path on {card}: {TRAIN_BATCH * len(steady) / sum(steady):.1f} "
-              f"samples/s over steps 1-{len(times) - 1} (each synced; step 0 "
-              f"{times[0] * 1e3:.1f} ms); checkpoint saves {[round(x, 1) for x in save_ms]} ms; "
-              f"peak device memory {peak:.2f} GiB; launches {by_path['adapter']}")
+    ckpt_b = timed_saves(CheckpointManager(f"{tmp}/adapter", max_to_keep=1))
+    base_b = {"adapter": preset_b.train.lr, "default": 0.0}
+    print(f"phase B: adapter, fit for 2 epochs of {CHAIN_STEPS} steps at B = "
+          f"{TRAIN_BATCH}, best-1 retention, preemption after step 2 of epoch 2")
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    save_ms.clear()
+    _build.reset_launches()
+    state_b, hist_b = fit(
+        TrainState(model_b, opt_b), timed_step, eval_b,
+        lambda: itertools.repeat(batch, CHAIN_STEPS), lambda: iter([batch]),
+        base_lrs=base_b, num_epochs=3, rng_stream=itertools.repeat(None),
+        scheduler=preset_b.train.scheduler,
+        early_stop_patience=preset_b.train.early_stop_patience, checkpointer=ckpt_b,
+        preemption_guard=guard, log_every=1)
+    torch.cuda.synchronize(dev)
+    by_path["adapter"] = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    steady = times[1:]
+    print(f"  history {hist_b.rows}")
+    print(f"  step losses {[round(x, 6) for x in losses]}")
+    print(f"adapter path on {card}: {TRAIN_BATCH * len(steady) / sum(steady):.1f} "
+          f"samples/s over steps 1-{len(times) - 1} (each synced; step 0 "
+          f"{times[0] * 1e3:.1f} ms); checkpoint saves {[round(x, 1) for x in save_ms]} ms; "
+          f"peak device memory {peak:.2f} GiB; launches {by_path['adapter']}")
 
-        after = model_state(model_b)
-        check(all(torch.equal(after[k], v) for k, v in frozen.items()),
-              "a tower parameter or BatchNorm statistic changed in phase B")
-        check(all(not torch.equal(after[k], v) for k, v in adapter0.items()),
-              "the adapter did not move")
-        check(len(losses) == preempt_after and all(np.isfinite(losses)),
-              f"phase B step losses {losses}")
-        val = [r["val_loss"] for r in hist_b.rows]
-        # Adam at the preset's lr 1e-3 overshoots on the fixed batch within
-        # an epoch, so the check is against the first step's loss
-        check(len(val) == 2 and losses[-1] < losses[0] and min(val) < losses[0],
-              f"phase B losses did not fall on the fixed batch: {losses}, val {val}")
-        best = 1 if val[1] <= val[0] else 0  # ties rank the newest best
-        check(ckpt_b.all_epochs() == [best] and ckpt_b.best_epoch() == best,
-              f"retained {ckpt_b.all_epochs()}, best {ckpt_b.best_epoch()}; val {val}")
-        check(ckpt_b.preempt_latest() == 2, f"preemption slot {ckpt_b.preempt_latest()}")
-        _, _, fresh = train_model(dev, seed + 2, "adapter")
-        fresh_opt = make_optimizer(fresh, label_b, weight_decay=preset_b.train.weight_decay)
-        resumed, start = resume_or_init(ckpt_b, TrainState(fresh, fresh_opt))
-        # JAX's rule: a mid-epoch save newer than every kept epoch, no loader
-        # to replay into -> the next epoch
-        check(start == 3, f"resume_or_init started at epoch {start}, not 3")
-        check(resumed.step == state_b.step == preempt_after, f"step {resumed.step}")
-        check(states_equal(model_state(fresh), after), "resumed weights differ")
-        check(torch_equal(fresh_opt.state_dict(), opt_b.state_dict()),
-              "resumed optimizer state differs")
-        print(f"  retained epoch {ckpt_b.all_epochs()} (val {val}); preemption slot at "
-              f"epoch {ckpt_b.preempt_latest()}; resume_or_init -> epoch {start}, "
-              "state bit-equal")
-        del fresh, fresh_opt, resumed
-        ev = run_eval(eval_b, state_b, [batch])
-        metrics = multilabel_metrics(ev["probs"], ev["labels"], class_names=DISEASE_LABELS)
-        check(ev["probs"].shape == (TRAIN_BATCH, cfg_b.num_classes)
-              and np.isfinite(metrics["auroc_macro"]), f"run_eval metrics {metrics}")
-        print(f"  run_eval: loss {ev['loss']:.6f}, macro AUROC {metrics['auroc_macro']:.4f}, "
-              f"mAP {metrics['mAP']:.4f}")
-        check_launched(mods, by_path["adapter"], "adapter")
+    after = model_state(model_b)
+    check(all(torch.equal(after[k], v) for k, v in frozen.items()),
+          "a tower parameter or BatchNorm statistic changed in phase B")
+    check(all(not torch.equal(after[k], v) for k, v in adapter0.items()),
+          "the adapter did not move")
+    check(len(losses) == preempt_after and all(np.isfinite(losses)),
+          f"phase B step losses {losses}")
+    val = [r["val_loss"] for r in hist_b.rows]
+    # Adam at the preset's lr 1e-3 overshoots on the fixed batch within
+    # an epoch, so the check is against the first step's loss
+    check(len(val) == 2 and losses[-1] < losses[0] and min(val) < losses[0],
+          f"phase B losses did not fall on the fixed batch: {losses}, val {val}")
+    best = 1 if val[1] <= val[0] else 0  # ties rank the newest best
+    check(ckpt_b.all_epochs() == [best] and ckpt_b.best_epoch() == best,
+          f"retained {ckpt_b.all_epochs()}, best {ckpt_b.best_epoch()}; val {val}")
+    check(ckpt_b.preempt_latest() == 2, f"preemption slot {ckpt_b.preempt_latest()}")
+    _, _, fresh = train_model(dev, seed + 2, "adapter")
+    fresh_opt = make_optimizer(fresh, label_b, weight_decay=preset_b.train.weight_decay)
+    resumed, start = resume_or_init(ckpt_b, TrainState(fresh, fresh_opt))
+    # JAX's rule: a mid-epoch save newer than every kept epoch, no loader
+    # to replay into -> the next epoch
+    check(start == 3, f"resume_or_init started at epoch {start}, not 3")
+    check(resumed.step == state_b.step == preempt_after, f"step {resumed.step}")
+    check(states_equal(model_state(fresh), after), "resumed weights differ")
+    check(torch_equal(fresh_opt.state_dict(), opt_b.state_dict()),
+          "resumed optimizer state differs")
+    print(f"  retained epoch {ckpt_b.all_epochs()} (val {val}); preemption slot at "
+          f"epoch {ckpt_b.preempt_latest()}; resume_or_init -> epoch {start}, "
+          "state bit-equal")
+    del fresh, fresh_opt, resumed
+    ev = run_eval(eval_b, state_b, [batch])
+    metrics = multilabel_metrics(ev["probs"], ev["labels"], class_names=DISEASE_LABELS)
+    check(ev["probs"].shape == (TRAIN_BATCH, cfg_b.num_classes)
+          and np.isfinite(metrics["auroc_macro"]), f"run_eval metrics {metrics}")
+    print(f"  run_eval: loss {ev['loss']:.6f}, macro AUROC {metrics['auroc_macro']:.4f}, "
+          f"mAP {metrics['mAP']:.4f}")
+    check_launched(mods, by_path["adapter"], "adapter")
     return by_path
+
+def host_probe() -> str:
+    """What the machine offers the host side of the port, as one line: g++,
+    libpng's and zlib's headers, -lpng16 / -lpng / -lz at link time, and
+    whether the packages the port may not import (the CPU tests' oracles)
+    are installed, found without importing them. The port's PNG decoder
+    (native/bindings.py) is written for a machine without libpng."""
+    import importlib.util
+    import shutil
+
+    gxx = shutil.which("g++")
+    parts = [f"g++ {gxx or 'missing'}"]
+
+    def builds(src: str, *args) -> bool:
+        with tempfile.TemporaryDirectory(prefix="probe_") as tmp:
+            path = Path(tmp) / "probe.cpp"
+            path.write_text(src)
+            return gxx is not None and subprocess.run(
+                [gxx, str(path), "-o", str(Path(tmp) / "probe"), *args],
+                capture_output=True, timeout=120).returncode == 0
+
+    for header in ("png.h", "zlib.h"):
+        found = builds(f"#include <{header}>\nint main() {{ return 0; }}\n", "-c")
+        parts.append(f"{header} {'found' if found else 'missing'}")
+    for lib in ("-lpng16", "-lpng", "-lz"):
+        parts.append(f"{lib} {'links' if builds('int main() { return 0; }', lib) else 'missing'}")
+    for mod in ("safetensors", "PIL", "sklearn", "pandas", "cv2"):
+        parts.append(f"{mod} {'installed' if importlib.util.find_spec(mod) else 'missing'}")
+    return "; ".join(parts)
+
+
+def edge_counts(got: list, want: list, near_edge) -> tuple:
+    """(samples whose prediction sets differ, how many of those lie near a
+    decision edge by ``near_edge(i)``)."""
+    differ = [i for i, (a, b) in enumerate(zip(got, want)) if set(a) != set(b)]
+    return len(differ), sum(bool(near_edge(i)) for i in differ)
+
+
+def eval_files_phase(_build, mods, dev, seed: int, card: str, workdir: str) -> dict:
+    """Phase 8: the evaluation half of the JAX CLI's ``zeroshot`` as library
+    calls, from PNG and CSV files to metrics, over phase 6's checkpoints in
+    ``workdir``; returns the launches of the eval_files and eval_adapter
+    paths."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from clip_for_dl_tpu_torch.core.config import DISEASE_LABELS, get_preset
+    from clip_for_dl_tpu_torch.core.device import cast_matmul_weights
+    from clip_for_dl_tpu_torch.data import (
+        ChestXrayMultiViewDataset, HostLoader, build_exam_index, build_image_cache,
+        merge_image_report, prepare_labeled_csv, read_csv, split_by_uid,
+    )
+    from clip_for_dl_tpu_torch.data.frame import key
+    from clip_for_dl_tpu_torch.inference import AdapterEngine, InferenceSession, load_trained_model
+    from clip_for_dl_tpu_torch.models.safetensors_io import save_reference_checkpoint_safetensors
+    from clip_for_dl_tpu_torch.testing.kaggle import write_kaggle_layout
+    from clip_for_dl_tpu_torch.tools.main_paths import tokenizer
+    from clip_for_dl_tpu_torch.train import CheckpointManager
+    from clip_for_dl_tpu_torch.train.checkpoint import model_state, reference_models
+    from clip_for_dl_tpu_torch.zeroshot import (
+        ZeroShotEngine, prompts_for_family, run_dynamic_threshold_eval, run_zero_shot_eval,
+    )
+
+    t_phase = time.perf_counter()
+    root = f"{workdir}/kaggle"
+    t = time.perf_counter()
+    paths = write_kaggle_layout(root, EVAL_UIDS, sizes=EVAL_SIZES, empty_findings_every=9,
+                                single_view_uids=(5,), not_png_uids=(11,), seed=seed)
+    print(f"wrote the Kaggle layout: {EVAL_UIDS} uids, grey 8-bit PNGs at {EVAL_SIZES} with "
+          f"random row filters, uid 5 frontal only, uid 11's frontal not a PNG, every 9th "
+          f"report's findings empty, in {time.perf_counter() - t:.1f} s")
+
+    # -- the data side: labels, merge, split, exam index ----------------------
+    preset = get_preset("zero_shot")
+    cfg = preset.replace(model=dataclasses.replace(preset.model, flash_attention=True,
+                                                   bert_fused_mlp=True))
+    size = cfg.model.image_size
+    labeled_csv = f"{root}/indiana_reports_labeled.csv"
+    prepare_labeled_csv(paths["reports"], labeled_csv)
+    reports, projections = read_csv(labeled_csv), read_csv(paths["projections"])
+    merged = merge_image_report(projections, reports)
+    train_f, val_f = split_by_uid(merged, cfg.data.test_size, cfg.data.seed)
+    uids = {key(u) for u in merged.column("uid")}
+    train_u, val_u = ({key(u) for u in f.column("uid")} for f in (train_f, val_f))
+    check(not train_u & val_u and train_u | val_u == uids, "split_by_uid lost or shared a uid")
+    # the weights are random and nothing was trained on these files, so the
+    # smoke scores the exams of both splits (the CLI scores the validation one)
+    index = build_exam_index(reports.where(lambda r: key(r["uid"]) in uids), projections,
+                             paths["image_dir"])
+    n = len(index)
+    check(n == len(uids) and 5 in uids and 11 in uids and not any(u % 9 == 0 for u in uids),
+          f"exam index of {n} exams for {len(uids)} uids")
+    check(index.view_types[list(index.uids).index(5)] == ("frontal", "frontal"),
+          "the single-view exam was not duplicated")
+    print(f"labels and exam index: {len(reports)} reports, {len(merged)} labeled images with "
+          f"findings, split {len(train_u)} / {len(val_u)} uids, {n} exams")
+
+    # -- the image cache and the loader ----------------------------------------
+    files = list(dict.fromkeys(p for pair in zip(index.frontal_paths, index.lateral_paths)
+                               for p in pair))
+    t = time.perf_counter()
+    cache = build_image_cache(files, size, f"{root}/cache", workers=8)
+    cache_s = time.perf_counter() - t
+    bad = index.frontal_paths[list(index.uids).index(11)]
+    check(cache.channels == 1 and len(cache) == len(files), f"cache {len(cache)} rows, "
+          f"{cache.channels} channels")
+    check(not cache.get(bad).any() and all(cache.get(p).any() for p in files if p != bad),
+          "the cache's zero rows are not exactly the file that is not a PNG")
+    dataset = ChestXrayMultiViewDataset(index, size, cache=cache)
+    loader = HostLoader(dataset, EVAL_BATCH, num_threads=8)
+    t = time.perf_counter()
+    batches = list(loader)
+    loader_s = time.perf_counter() - t
+    check(len(batches) == -(-n // EVAL_BATCH)
+          and all(b["images"].shape == (EVAL_BATCH, 2, size, size, 1) for b in batches)
+          and int(sum(b["mask"].sum() for b in batches)) == n, "loader batches")
+
+    # -- the weights, three ways -------------------------------------------------
+    weights = load_trained_model(f"{workdir}/pretrain", cfg, torch.float32, seed=seed,
+                                 device=dev)
+    state = model_state(weights)
+    saved = torch.load(f"{workdir}/pretrain/0.pt", map_location="cpu", weights_only=True)
+    check(all(torch.equal(state[k].cpu(), v) for k, v in saved["model"].items()),
+          "load_trained_model did not give the phase-A checkpoint's weights")
+    pth = f"{workdir}/model_best.pth"
+    torch.save({"epoch": 0, "models": reference_models({k: v.cpu() for k, v in state.items()})},
+               pth)
+    mirror = save_reference_checkpoint_safetensors(state, f"{workdir}/model_best.safetensors")
+    del state, saved
+    cast_matmul_weights(weights, torch.bfloat16)
+    models = {"checkpoint directory": weights,
+              ".pth": load_trained_model(pth, cfg, seed=seed, device=dev),
+              ".safetensors": load_trained_model(mirror, cfg, seed=seed, device=dev)}
+    tok = tokenizer()
+    prompts = prompts_for_family("prediction", DISEASE_LABELS)
+
+    def engine_of(model):
+        return ZeroShotEngine(model, tok, DISEASE_LABELS, cfg.zeroshot, cfg.augment.mean,
+                              cfg.augment.std, size, cfg.model.max_text_length, torch.bfloat16)
+
+    logits = {}
+    for name, model in models.items():
+        e = engine_of(model)
+        e.build_text_features(prompts)
+        logits[name] = e.logits(batches[0]["images"])
+    check(all(np.array_equal(v, logits[".pth"]) for v in logits.values()),
+          "the three weight sources give different logits")
+    print(f"weights from the phase-A checkpoint directory, a reference .pth and a .safetensors "
+          f"mirror: logits {logits['.pth'].shape} bit-equal")
+    del models[".pth"], models[".safetensors"]
+    torch.cuda.empty_cache()
+
+    # -- the main path, counted --------------------------------------------------
+    engine = engine_of(weights)
+    by_path = {}
+    zc = cfg.zeroshot
+    torch.cuda.synchronize(dev)
+    _build.reset_launches()
+    engine.build_text_features(prompts)
+    t = time.perf_counter()
+    zs = run_zero_shot_eval(engine, loader, zc.top_k, f"{workdir}/zero_shot_results.csv")
+    eval_s = time.perf_counter() - t
+    dyn = run_dynamic_threshold_eval(engine, lambda: iter(loader), zc.threshold_calib_frac,
+                                     zc.threshold_grid_points, zc.frontal_weight,
+                                     zc.lateral_weight, f"{workdir}/zero_shot_dynamic.csv")
+    session = InferenceSession(weights, tok, DISEASE_LABELS, cfg.augment.mean, cfg.augment.std,
+                               size, max_text_length=cfg.model.max_text_length)
+    s_preds, s_probs = session(batches[0]["images"])
+    torch.cuda.synchronize(dev)
+    by_path["eval_files"] = dict(_build.LAUNCHES)
+    print(f"launches on the eval_files path: {by_path['eval_files']}")
+    check_launched(mods, by_path["eval_files"], "eval_files")
+    for out in (zs, dyn):
+        check(len(out["predictions"]) == n and out["pred_matrix"].shape == (n, 16)
+              and np.array_equal(out["labels"], index.labels), "driver outputs")
+        check(all(np.isfinite(out["metrics"][k]) for k in ("f1_micro", "exact_match", "mAP")),
+              f"metrics {out['metrics']}")
+        with open(out["csv_path"], newline="") as f:
+            rows = list(csv.reader(f))
+        check(rows[0] == ["predictions", "scores", "true_labels"] and len(rows) == n + 1,
+              f"{out['csv_path']}: {len(rows)} lines")
+    check(s_probs.shape == (EVAL_BATCH, 16) and bool(np.isfinite(s_probs).all()),
+          "InferenceSession probabilities")
+    keys = sorted(k for k in zs["metrics"] if not k.startswith("auroc/"))
+    print(f"metric keys (run_zero_shot_eval): {keys}")
+    print(f"metric keys added by run_dynamic_threshold_eval: "
+          f"{sorted(set(dyn['metrics']) - set(zs['metrics']))}; per_class of "
+          f"{len(dyn['per_class'])} diseases")
+    print("run_zero_shot_eval: " + ", ".join(f"{k} {zs['metrics'][k]:.4f}" for k in
+                                              ("f1_micro", "exact_match", "mAP")))
+    thresholds = [round(v, 4) for v in dyn["thresholds"].values()]
+    print(f"run_dynamic_threshold_eval: thresholds {thresholds}")
+
+    # -- the adapter checkpoint on the same loader, counted -----------------------
+    preset_b = get_preset("adapter")
+    cfg_b = preset_b.replace(model=cfg.model)
+    adapter = load_trained_model(f"{workdir}/adapter", cfg_b, seed=seed, device=dev)
+    best = CheckpointManager(f"{workdir}/adapter").best_epoch()
+    saved = torch.load(f"{workdir}/adapter/{best}.pt", map_location="cpu",
+                       weights_only=True)["model"]
+    check(torch.equal(adapter.adapter.classifier.weight.cpu(),
+                      saved["adapter.classifier.weight"].to(torch.bfloat16)),
+          "the adapter checkpoint's classifier did not load")
+    torch.cuda.synchronize(dev)
+    _build.reset_launches()
+    ad = AdapterEngine(adapter, cfg_b.augment.mean, cfg_b.augment.std, size)
+    ad_probs = np.concatenate([ad.probs(b["images"]) for b in batches])
+    torch.cuda.synchronize(dev)
+    by_path["eval_adapter"] = dict(_build.LAUNCHES)
+    check(ad_probs.shape == (2 * EVAL_BATCH * len(batches), 16) and bool(
+        np.isfinite(ad_probs).all()), "AdapterEngine probabilities")
+    check_launched(mods, by_path["eval_adapter"], "eval_adapter")
+    print(f"AdapterEngine over the phase-B checkpoint: probs {ad_probs.shape}; launches "
+          f"{by_path['eval_adapter']}")
+    del adapter, ad
+
+    # -- the same path with every kernel replaced by its plain version -----------
+    view_logits = np.concatenate([engine.logits(b["images"]) for b in batches])
+    with plain_kernels(mods):
+        before = dict(_build.LAUNCHES)
+        plain = engine_of(weights)
+        plain.build_text_features(prompts)
+        plain_logits = np.concatenate([plain.logits(b["images"]) for b in batches])
+        zs_p = run_zero_shot_eval(plain, loader, zc.top_k)
+        dyn_p = run_dynamic_threshold_eval(plain, lambda: iter(loader), zc.threshold_calib_frac,
+                                           zc.threshold_grid_points, zc.frontal_weight,
+                                           zc.lateral_weight)
+        check(dict(_build.LAUNCHES) == before, "a kernel ran during the plain run")
+    tol = TOL["eval_vs_plain"]
+    probs, plain_probs = (1 / (1 + np.exp(-x)) for x in (view_logits, plain_logits))
+    err = float(np.abs(probs - plain_probs).max())
+    print(f"kernels vs plain versions, every view of every batch: probs max_abs {err:.3e}  "
+          f"tol {tol:.1e}; probs std over classes {float(probs.std(1).mean()):.3e}, over "
+          f"views {float(probs.std(0).mean()):.3e}")
+    check(err <= tol, "evaluation probabilities differ from the plain route's")
+
+    # A prediction set can differ only where two of the decisions behind it
+    # lie within the routes' difference of each other: the k-th and (k+1)-th
+    # softmax probabilities of a view (top-k), a weighted view-max probability
+    # and its threshold, or the two largest (the argmax fallback). Counted at
+    # the tolerance, and held at the difference measured in this run.
+    def softmax(x):  # in float64, as softmax_topk_predictions computes it
+        x = x.astype(np.float64)
+        e = np.exp(x - x.max(1, keepdims=True))
+        return e / e.sum(1, keepdims=True)
+
+    sm, sm_p = softmax(view_logits), softmax(plain_logits)
+    ordered = np.sort(sm, axis=1)[:, ::-1]
+    gap = (ordered[:, zc.top_k - 1] - ordered[:, zc.top_k]).reshape(-1, 2).min(1)
+    sm_err = float(np.abs(sm - sm_p).max())
+    weights_v = np.array([zc.frontal_weight, zc.lateral_weight])[:, None]
+    w, w_p = ((p.reshape(-1, 2, 16) * weights_v).max(1) for p in (probs, plain_probs))
+    t_k, t_p = (np.array(list(d["thresholds"].values())) for d in (dyn, dyn_p))
+    w_err, t_err = float(np.abs(w - w_p).max()), float(np.abs(t_k - t_p).max())
+    ws = np.sort(w, axis=1)
+    for what, got, want, near in (
+            ("run_zero_shot_eval", zs, zs_p, lambda i, m: gap[i] <= 2 * m),
+            ("run_dynamic_threshold_eval", dyn, dyn_p,
+             lambda i, m: np.abs(w[i] - t_k).min() <= m + t_err
+             or ws[i, -1] - ws[i, -2] <= 2 * m)):
+        measured = sm_err if what == "run_zero_shot_eval" else w_err
+        differ, edge = edge_counts(got["predictions"], want["predictions"],
+                                   lambda i: near(i, tol))
+        _, held = edge_counts(got["predictions"], want["predictions"],
+                              lambda i: near(i, measured))
+        print(f"{what} prediction sets: {differ} of {n} differ from the plain route's; "
+              f"{edge} of them within {tol:.0e} of a decision edge, {held} within the "
+              f"measured difference ({measured:.3e})")
+        check(differ == held, f"{what}: prediction sets differ away from a decision edge")
+    print(f"  top-{zc.top_k} gap of softmax probabilities, median over exams "
+          f"{float(np.median(gap)):.3e}; thresholds max diff {t_err:.3e}")
+
+    views = 2 * n
+    print(f"evaluation from files on {card}: cache build {len(files) / cache_s:.1f} img/s "
+          f"({len(files)} PNGs -> {size}x{size} grey, 8 threads); loader "
+          f"{len(batches) / loader_s:.2f} batches/s ({len(batches)} batches of {EVAL_BATCH} "
+          f"exams from the cache); eval {views / eval_s:.1f} img/s (run_zero_shot_eval, "
+          f"{views} views from the cache to metrics, {eval_s:.2f} s)")
+    print(f"phase 8 took {time.perf_counter() - t_phase:.1f} s")
+    return by_path
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of weights and inputs")
     args = ap.parse_args(argv)
 
+    t_start = time.perf_counter()
     _build, mods = import_port()
     import torch
 
@@ -2064,6 +2395,7 @@ def main(argv=None) -> int:
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
           f"matmul tf32 {torch.backends.cuda.matmul.allow_tf32}, "
           f"cudnn tf32 {torch.backends.cudnn.allow_tf32}")
+    print(f"host probe: {host_probe()}")
 
     t0 = time.perf_counter()
     _build.build()
@@ -2123,11 +2455,14 @@ def main(argv=None) -> int:
     print("== phase 5: zero-shot serving, ViT-B/16")
     by_path["serve_vit"] = serve_phase(_build, mods, dev, args.seed, BATCH, N_BATCHES, card,
                                        "serve_vit")
-    print("== phase 6: the chain pretrain -> adapter")
-    by_path.update(phase6(_build, mods, dev, args.seed, card))
-    print("== phase 7: the parity mode, --fp32 --flash-attention")
-    by_path["serve_fp32"] = serve_fp32_phase(_build, mods, dev, args.seed, card)
-    by_path["train_fp32"] = train_fp32_phase(_build, mods, dev, args.seed)
+    with tempfile.TemporaryDirectory(prefix="smoke_") as workdir:
+        print("== phase 6: the chain pretrain -> adapter")
+        by_path.update(phase6(_build, mods, dev, args.seed, card, workdir))
+        print("== phase 7: the parity mode, --fp32 --flash-attention")
+        by_path["serve_fp32"] = serve_fp32_phase(_build, mods, dev, args.seed, card)
+        by_path["train_fp32"] = train_fp32_phase(_build, mods, dev, args.seed)
+        print("== phase 8: evaluation from files")
+        by_path.update(eval_files_phase(_build, mods, dev, args.seed, card, workdir))
     print("== the wrappers' host time (tools/launch_times.py)")
     from clip_for_dl_tpu_torch.tools import launch_times
 
@@ -2143,6 +2478,7 @@ def main(argv=None) -> int:
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r.get("library_ms")})
+    print(f"smoke took {time.perf_counter() - t_start:.1f} s")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

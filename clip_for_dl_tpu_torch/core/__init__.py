@@ -8,7 +8,7 @@ from .config import (
     ZeroShotConfig,
     get_preset,
 )
-from .device import cast_in_forward, cast_matmul_weights, require_cuda
+from .device import cast_in_forward, cast_matmul_weights, require_cuda, resolve_device
 
 __all__ = [
     "CLIP_MEAN",
@@ -22,4 +22,5 @@ __all__ = [
     "cast_in_forward",
     "cast_matmul_weights",
     "require_cuda",
+    "resolve_device",
 ]

@@ -42,6 +42,14 @@ def require_cuda(device=None) -> torch.device:
     return dev
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the card unless the caller names
+    another (the CPU tests pass ``"cpu"``)."""
+    if device is None or torch.device(device).type == "cuda":
+        return require_cuda(device)
+    return torch.device(device)
+
+
 def _compute_dtype_params(module: nn.Module):
     """[(owning module, name)] of every parameter that runs in the compute
     dtype: those of each Linear, Conv2d and Embedding and those a module

@@ -4,8 +4,9 @@ Counterpart of ``clip_for_dl_tpu.models.clip.CXRClip``: one ``nn.Module``
 holding the image tower (ResNet-50, or the ViT with ``image_tower="vit_b16"``),
 the text tower and every head, so that a converted
 JAX checkpoint (``models/convert.py``) loads into it completely. The ported
-entry points are ``encode_image``, ``encode_text``, ``adapter_logits`` and
-the joint ``forward`` of the pretrain step; ``.train()`` / ``.eval()``
+entry points are ``encode_image``, ``encode_text``, ``encode_multiview``
+(forward only), ``adapter_logits`` and the joint ``forward`` of the pretrain
+step; ``.train()`` / ``.eval()``
 switch BatchNorm statistics and dropout as flax's ``train=True`` does.
 
 Parameters are created in fp32. For serving,
@@ -83,6 +84,15 @@ class CXRClip(nn.Module):
         hidden = self.text_tower(input_ids, attention_mask)
         feats = self.text_projector(hidden[:, 0, :])
         return l2_normalize(feats) if normalize else feats
+
+    def encode_multiview(self, images: torch.Tensor) -> torch.Tensor:
+        """[B, 2, H, W, 3] (frontal, lateral) → fused features [B, D]: each
+        view through ``encode_image``, then ``MultiViewFusion`` (forward
+        only)."""
+        b = images.shape[0]
+        feats = self.encode_image(images.reshape(b * 2, *images.shape[2:]))
+        feats = feats.reshape(b, 2, -1)
+        return self.view_fusion(feats[:, 0], feats[:, 1])
 
     def adapter_logits(self, image_features: torch.Tensor) -> torch.Tensor:
         """C-Adapter classification logits over (frozen) image features."""

@@ -338,16 +338,35 @@ def convert_reference_models(models: Mapping[str, Any]) -> Dict[str, torch.Tenso
     return sd
 
 
+def reference_models(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The inverse of :func:`convert_reference_models`: a port ``CXRClip``
+    state dict → {reference module name: state_dict}. Tensors under no
+    module of the mapping (the shared adapter) are left out, as the
+    reference's file has none."""
+    prefixes = sorted(((port + ".", ref) for ref, port in _MODULES.items()),
+                      key=lambda pr: -len(pr[0]))
+    models: Dict[str, Dict[str, torch.Tensor]] = {}
+    for k, v in state_dict.items():
+        for prefix, ref in prefixes:
+            if k.startswith(prefix):
+                models.setdefault(ref, {})[k[len(prefix):]] = v
+                break
+    return models
+
+
 def import_reference_checkpoint(path: str) -> Dict[str, Any]:
     """Load a reference checkpoint ``{epoch, models: {name: state_dict},
-    ...}`` (a torch ``.pth`` pickle: load only files you trust) and map each
+    ...}`` (a torch ``.pth`` pickle: load only files you trust) or its flat
+    ``.safetensors`` mirror (``models/safetensors_io.py``), and map each
     module onto the port's submodules. Returns ``{"state_dict", "epoch"}``;
     the state dict goes to ``CXRClip.load_state_dict``. Modules absent from
     the file are absent from it (the reference's tolerant load,
     0425/train.py:523-541)."""
     if path.endswith(".safetensors"):
-        raise NotImplementedError("the .safetensors mirror needs models/safetensors_io.py, "
-                                  "which is not ported yet (ROADMAP A4b)")
+        from ..models.safetensors_io import load_reference_checkpoint_safetensors
+
+        models, epoch = load_reference_checkpoint_safetensors(path)
+        return {"state_dict": convert_reference_models(models), "epoch": epoch}
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     models = ckpt.get("models", ckpt)
     return {

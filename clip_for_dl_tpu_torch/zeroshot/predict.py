@@ -1,13 +1,16 @@
-"""Zero-shot predictors: host-side set logic over the engine's score
-matrices (copy of ``clip_for_dl_tpu.zeroshot.predict:25-88``).
+"""Zero-shot predictors and multi-view merging: host-side set logic over
+the engine's score matrices (copy of the pandas-free functions of
+``clip_for_dl_tpu.zeroshot.predict``).
 
 - sigmoid + scalar-or-per-disease threshold + top-k backfill
 - softmax + top-k names/scores
+- union/max view merging and weighted frontal/lateral merging with argmax
+  fallback; prediction sets → binary matrix
 """
 
 from __future__ import annotations
 
-from typing import List, Mapping, Sequence, Tuple, Union
+from typing import Dict, List, Mapping, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -76,3 +79,59 @@ def softmax_topk_predictions(
         [float(p[i, j]) for j in row] for i, row in enumerate(order)
     ]
     return preds, scores
+
+
+def merge_views_union_max(
+    preds_a: Sequence[str],
+    scores_a: Sequence[float],
+    preds_b: Sequence[str],
+    scores_b: Sequence[float],
+) -> Tuple[List[str], List[float]]:
+    """Union the two views' prediction sets, keep each disease's max score."""
+    merged: Dict[str, float] = {}
+    for preds, scores in ((preds_a, scores_a), (preds_b, scores_b)):
+        for d, s in zip(preds, scores):
+            merged[d] = max(merged.get(d, -np.inf), float(s))
+    out = sorted(merged.items(), key=lambda kv: -kv[1])
+    return [d for d, _ in out], [s for _, s in out]
+
+
+def merge_views_weighted(
+    view_probs: np.ndarray,
+    disease_list: Sequence[str],
+    thresholds: Mapping[str, float],
+    frontal_weight: float = 1.0,
+    lateral_weight: float = 0.8,
+) -> Tuple[List[List[str]], List[List[float]]]:
+    """Weighted-max view merge with per-disease thresholds and argmax
+    fallback when nothing clears threshold.
+
+    view_probs: [B, 2, C] (frontal, lateral) probabilities.
+    """
+    view_probs = np.asarray(view_probs)
+    weights = np.asarray([frontal_weight, lateral_weight])
+    weighted = (view_probs * weights[None, :, None]).max(axis=1)  # [B, C]
+    thresh = np.asarray([thresholds[d] for d in disease_list])
+    all_preds: List[List[str]] = []
+    all_scores: List[List[float]] = []
+    for row in weighted:
+        keep = np.flatnonzero(row >= thresh)
+        if keep.size == 0:
+            keep = np.asarray([int(np.argmax(row))])
+        order = keep[np.argsort(-row[keep], kind="stable")]
+        all_preds.append([disease_list[j] for j in order])
+        all_scores.append([float(row[j]) for j in order])
+    return all_preds, all_scores
+
+
+def predictions_to_matrix(
+    predictions: Sequence[Sequence[str]], disease_list: Sequence[str]
+) -> np.ndarray:
+    """Prediction sets → binary [B, C] matrix for the metric suite."""
+    index = {d: j for j, d in enumerate(disease_list)}
+    out = np.zeros((len(predictions), len(disease_list)), np.float32)
+    for i, preds in enumerate(predictions):
+        for d in preds:
+            if d in index:
+                out[i, index[d]] = 1.0
+    return out

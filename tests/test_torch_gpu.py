@@ -1298,3 +1298,106 @@ def test_image_prep_kernel_takes_views(cuda):
     for imgs in (crop, nchw.permute(0, 2, 3, 1)):
         assert not imgs.is_contiguous()
         _assert_prep(imgs, 224, 224)
+
+
+# ---------------------------------------------------------------------------
+# evaluation from files (chip_smoke.py phase 8, at a tiny size)
+# ---------------------------------------------------------------------------
+
+
+def _tiny_eval_config():
+    import dataclasses
+
+    from clip_for_dl_tpu_torch.core.config import DISEASE_LABELS, get_preset
+    from clip_for_dl_tpu_torch.text.tokenizer import build_dev_vocab
+
+    preset = get_preset("zero_shot")
+    model = dataclasses.replace(
+        preset.model, image_size=64, max_text_length=32,
+        vocab_size=len(build_dev_vocab(DISEASE_LABELS)), text_embedding_dim=128,
+        text_layers=2, text_heads=2, text_intermediate_dim=256, shared_embedding_dim=64,
+        text_max_position=64, resnet_stages=(1, 1, 1, 1), resnet_width=16,
+        flash_attention=True, bert_fused_mlp=True)
+    return preset.replace(model=model)
+
+
+def _weight_sources(tmp_path, cfg):
+    """A CheckpointManager directory of a seeded model, and the reference
+    .pth and .safetensors mirror of the same weights."""
+    from clip_for_dl_tpu_torch.models import CXRClip, init_weights
+    from clip_for_dl_tpu_torch.models.safetensors_io import save_reference_checkpoint_safetensors
+    from clip_for_dl_tpu_torch.train import CheckpointManager, TrainState
+    from clip_for_dl_tpu_torch.train.checkpoint import model_state, reference_models
+
+    model = init_weights(CXRClip(cfg.model), torch.Generator().manual_seed(5))
+    CheckpointManager(str(tmp_path / "ckpt")).save(
+        0, TrainState(model, torch.optim.SGD(model.parameters(), lr=0.1)))
+    torch.save({"epoch": 0, "models": reference_models(model_state(model))},
+               tmp_path / "ref.pth")
+    save_reference_checkpoint_safetensors(model_state(model), str(tmp_path / "ref.safetensors"))
+    return [str(tmp_path / "ckpt"), str(tmp_path / "ref.pth"), str(tmp_path / "ref.safetensors")]
+
+
+def _eval_loader(tmp_path, size):
+    from clip_for_dl_tpu_torch.data import (
+        ChestXrayMultiViewDataset, HostLoader, build_exam_index, build_image_cache,
+        prepare_labeled_csv, read_csv,
+    )
+    from clip_for_dl_tpu_torch.testing.kaggle import write_kaggle_layout
+
+    paths = write_kaggle_layout(str(tmp_path / "kaggle"), 20, sizes=((80, 80), (96, 72)),
+                                single_view_uids=(3,), not_png_uids=(7,))
+    labeled = prepare_labeled_csv(paths["reports"], str(tmp_path / "labeled.csv"))
+    index = build_exam_index(labeled, read_csv(paths["projections"]), paths["image_dir"])
+    cache = build_image_cache([p for pair in zip(index.frontal_paths, index.lateral_paths)
+                               for p in pair], size, str(tmp_path / "cache"), workers=2)
+    return HostLoader(ChestXrayMultiViewDataset(index, size, cache=cache), 8, num_threads=2)
+
+
+def _engine(model, cfg):
+    from clip_for_dl_tpu_torch.core.config import DISEASE_LABELS
+    from clip_for_dl_tpu_torch.text import BertTokenizer
+    from clip_for_dl_tpu_torch.text.tokenizer import build_dev_vocab
+    from clip_for_dl_tpu_torch.zeroshot import ZeroShotEngine, prompts_for_family
+
+    engine = ZeroShotEngine(model, BertTokenizer(build_dev_vocab(DISEASE_LABELS)),
+                            DISEASE_LABELS, cfg.zeroshot, cfg.augment.mean, cfg.augment.std,
+                            cfg.model.image_size, cfg.model.max_text_length, torch.bfloat16)
+    engine.build_text_features(prompts_for_family("prediction", DISEASE_LABELS))
+    return engine
+
+
+def test_three_weight_sources_give_equal_logits_on_the_card(cuda, tmp_path):
+    """load_trained_model from a checkpoint directory, a reference .pth and
+    a .safetensors mirror of the same weights: bit-equal bf16 logits on a
+    grey-packed batch from the cache."""
+    from clip_for_dl_tpu_torch.inference import load_trained_model
+
+    cfg = _tiny_eval_config()
+    batch = next(iter(_eval_loader(tmp_path, cfg.model.image_size)))["images"]
+    logits = [_engine(load_trained_model(src, cfg, device=cuda), cfg).logits(batch)
+              for src in _weight_sources(tmp_path, cfg)]
+    assert logits[0].shape == (16, 16)
+    assert all((x == logits[0]).all() for x in logits[1:])
+
+
+def test_eval_from_files_runs_b1_to_b4_on_the_card(cuda, tmp_path):
+    """run_zero_shot_eval and run_dynamic_threshold_eval over the loader
+    launch B1, B2, B3 and B4, and score every exam."""
+    from clip_for_dl_tpu_torch.inference import load_trained_model
+    from clip_for_dl_tpu_torch.ops import _build
+    from clip_for_dl_tpu_torch.zeroshot import run_dynamic_threshold_eval, run_zero_shot_eval
+
+    cfg = _tiny_eval_config()
+    loader = _eval_loader(tmp_path, cfg.model.image_size)
+    model = load_trained_model(_weight_sources(tmp_path, cfg)[0], cfg, device=cuda)
+    _build.reset_launches()
+    engine = _engine(model, cfg)
+    zs = run_zero_shot_eval(engine, loader, 3, str(tmp_path / "zs.csv"))
+    dyn = run_dynamic_threshold_eval(engine, lambda: iter(loader))
+    torch.cuda.synchronize()
+    for key in (sim.KERNEL, prep.KERNEL, "cxr_flash_fwd_packed", "cxr_mlp_fwd"):
+        assert _build.LAUNCHES[key] > 0, key
+    n = len(loader.dataset)
+    assert len(zs["predictions"]) == len(dyn["predictions"]) == n
+    assert all(0 < len(p) for p in zs["predictions"])

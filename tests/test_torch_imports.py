@@ -1,6 +1,7 @@
-"""The port stands alone: it never imports the JAX package, imports on a
-CPU-only machine without triton or nvcc, and its chip smoke refuses to run
-without a GPU."""
+"""The port stands alone: it never imports the JAX package, nor the
+packages the GPU machine need not have (pandas, cv2, scikit-learn,
+safetensors, PIL), imports on a CPU-only machine without triton or nvcc, and
+its chip smoke refuses to run without a GPU."""
 
 import ast
 import os
@@ -15,7 +16,8 @@ torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "clip_for_dl_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "clip_for_dl_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "clip_for_dl_tpu",
+             "pandas", "cv2", "sklearn", "safetensors", "PIL")
 SMOKE_OK_PREFIX = '{"ok": true'
 
 
@@ -41,13 +43,16 @@ def test_no_jax_imports(path):
 def test_scan_sees_forbidden_imports():
     """The scan is not vacuous: it flags both import forms, relative
     imports excepted."""
-    src = "import jax.numpy as jnp\nfrom clip_for_dl_tpu.ops import x\nfrom . import y\n"
+    src = ("import jax.numpy as jnp\nfrom clip_for_dl_tpu.ops import x\nfrom . import y\n"
+           "import pandas as pd\nfrom sklearn.model_selection import train_test_split\n"
+           "from PIL import Image\nimport cv2, safetensors.torch\n")
     tree = ast.parse(src)
     mods = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
     mods += [n.module for n in ast.walk(tree)
              if isinstance(n, ast.ImportFrom) and n.level == 0]
     assert [m for m in mods if m.split(".")[0] in FORBIDDEN] == [
-        "jax.numpy", "clip_for_dl_tpu.ops"]
+        "jax.numpy", "pandas", "cv2", "safetensors.torch", "clip_for_dl_tpu.ops",
+        "sklearn.model_selection", "PIL"]
 
 
 _IMPORT_ALL = r"""
@@ -55,8 +60,8 @@ import importlib, pkgutil, sys
 
 class Block:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] == "triton":
-            raise ImportError("triton is blocked in this check")
+        if name.split(".")[0] in ("triton", "pandas", "cv2", "sklearn", "safetensors", "PIL"):
+            raise ImportError(f"{name} is blocked in this check")
         return None
 
 sys.meta_path.insert(0, Block())
@@ -71,6 +76,8 @@ print(len(names))
 
 
 def test_port_imports_on_cpu_without_triton_or_nvcc():
+    """Every module imports with triton and the packages the GPU machine
+    need not have blocked, and with no nvcc on the path."""
     env = dict(os.environ, PATH=os.path.dirname(sys.executable), CUDA_HOME="",
                CUDA_PATH="", PYTHONPATH=f"{REPO}{os.pathsep}{os.environ.get('PYTHONPATH', '')}")
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env,

@@ -557,7 +557,8 @@ def test_import_reference_checkpoint_equals_state_dict_from_jax(tmp_path):
     """A ``.pth`` written by the JAX ``save_reference_checkpoint`` maps onto
     the port's names with the values ``state_dict_from_jax`` gives, and
     loads into ``CXRClip`` with only the shared adapter (not in the
-    reference's file) left out."""
+    reference's file) left out; its ``.safetensors`` mirror imports to the
+    same tensors."""
     _, variables = _jax_model()
     path = save_reference_checkpoint(variables, str(tmp_path / "ref.pth"), epoch=5,
                                      text_layers=TINY["text_layers"])
@@ -570,8 +571,15 @@ def test_import_reference_checkpoint_equals_state_dict_from_jax(tmp_path):
     model = CXRClip(ModelConfig(**TINY))
     missing, unexpected = model.load_state_dict(out["state_dict"], strict=False)
     assert not unexpected and all(k.startswith("shared_adapter.") for k in missing)
-    with pytest.raises(NotImplementedError, match="A4b"):
-        import_reference_checkpoint(str(tmp_path / "ref.safetensors"))
+    # the flat .safetensors mirror of the same file gives the same weights
+    from clip_for_dl_tpu.models.safetensors_io import save_reference_checkpoint_safetensors
+
+    mirror = import_reference_checkpoint(save_reference_checkpoint_safetensors(
+        variables, str(tmp_path / "ref.safetensors"), epoch=5,
+        text_layers=TINY["text_layers"]))
+    assert mirror["epoch"] == 5 and mirror["state_dict"].keys() == out["state_dict"].keys()
+    for k, v in mirror["state_dict"].items():
+        assert torch.equal(v.reshape(out["state_dict"][k].shape), out["state_dict"][k]), k
 
 
 # ---------------------------------------------------------------------------
