@@ -17,13 +17,16 @@ same results byte for byte:
   coefficients from float32 source coordinates, the vectorized path's
   rounding), as ``cxr_native.cpp`` computes it.
 - :func:`batch_resize_u8` and :func:`batch_load_resize_u8`: the batched
-  forms, over a thread pool (``zlib`` and numpy's larger operations release
-  the interpreter lock).
+  forms. Reading, inflating and resizing run over a thread pool (``zlib``
+  and numpy's larger operations release the interpreter lock); the
+  scanline reconstruction runs in the calling thread, since its many small
+  numpy steps hold the lock (``tools/decode_threads.py`` times each stage
+  both ways).
 
 Average and Paeth rows depend on the pixel to their left, so they are
 reconstructed one anti-diagonal of pixels a numpy step; the images a call
 decodes share those steps, zero-padded into stacks of up to _STACK_BYTES of
-working arrays (~100 MB a thread).
+working arrays (~100 MB).
 """
 
 from __future__ import annotations
@@ -236,12 +239,11 @@ def _stacks(blocks: List[np.ndarray], bpp: int) -> List[List[int]]:
     return out
 
 
-def _unfilter_blocks(blocks: List[np.ndarray], bpp: int, pool=None) -> List[np.ndarray]:
+def _unfilter_blocks(blocks: List[np.ndarray], bpp: int) -> List[np.ndarray]:
     """Each [h, stride + 1] scanline block (one bpp) → its [h, stride]
     bytes, through :func:`_unfilter` on zero-padded stacks."""
     out: List[Optional[np.ndarray]] = [None] * len(blocks)
-
-    def run(stack):
+    for stack in _stacks(blocks, bpp):
         h = max(blocks[i].shape[0] for i in stack)
         w = max(blocks[i].shape[1] for i in stack)
         padded = np.zeros((len(stack), h, w), np.uint8)
@@ -250,8 +252,6 @@ def _unfilter_blocks(blocks: List[np.ndarray], bpp: int, pool=None) -> List[np.n
         got = _unfilter(padded, bpp)
         for j, i in enumerate(stack):
             out[i] = got[j, :blocks[i].shape[0], :blocks[i].shape[1] - 1]
-
-    list((pool.map if pool else map)(run, _stacks(blocks, bpp)))
     return out
 
 
@@ -286,9 +286,9 @@ def _rgb(png: _Png, unfiltered: List[np.ndarray]) -> np.ndarray:
 
 def _decode_many(datas: Sequence[Optional[bytes]], pool=None) -> List[Optional[np.ndarray]]:
     """PNG bytes (or None) → RGB images (or None where a file is not a PNG
-    or fails to decode). The scanlines of all the images, by bytes per
-    pixel, are reconstructed in stacks, so one numpy step serves many
-    images."""
+    or fails to decode), inflated over ``pool`` if one is given. The
+    scanlines of all the images, by bytes per pixel, are reconstructed in
+    stacks, so one numpy step serves many images."""
     mapper = pool.map if pool else map
     pngs = [None if d is None else _parse(d) for d in datas]
     raws = list(mapper(lambda png: None if png is None else _inflate(png), pngs))
@@ -301,7 +301,7 @@ def _decode_many(datas: Sequence[Optional[bytes]], pool=None) -> List[Optional[n
             by_bpp.setdefault(max(1, _CHANNELS[png.color] * png.depth // 8), []).append(
                 (i, j, block))
     for bpp, items in by_bpp.items():
-        for (i, j, _), rows in zip(items, _unfilter_blocks([b for *_, b in items], bpp, pool)):
+        for (i, j, _), rows in zip(items, _unfilter_blocks([b for *_, b in items], bpp)):
             unfiltered[i][j] = rows
     return [None if blocks is None else _rgb(png, unfiltered[i])
             for i, (png, blocks) in enumerate(zip(pngs, scans))]

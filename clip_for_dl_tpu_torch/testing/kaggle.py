@@ -24,9 +24,17 @@ REPORT_COLUMNS = ("uid", "MeSH", "Problems", "image", "indication", "comparison"
 
 
 def _image(rng, shape: Tuple[int, int], channels: int) -> np.ndarray:
-    """A smooth gradient with noise: rows that the filters can predict."""
+    """A smooth field with grain, different in every image (its level, a
+    gradient of random direction and one to four bright or dark blobs), so
+    that a model's outputs differ between images; rows that the filters
+    can predict."""
     h, w = shape
-    base = np.add.outer(np.linspace(30, 200, h), np.linspace(0, 40, w))
+    y, x = np.linspace(0, 1, h)[:, None], np.linspace(0, 1, w)[None, :]
+    base = rng.uniform(40, 160) + rng.uniform(-60, 60) * y + rng.uniform(-60, 60) * x
+    for _ in range(rng.integers(1, 5)):
+        cy, cx = rng.uniform(0, 1, 2)
+        base = base + rng.uniform(-90, 90) * np.exp(
+            -((y - cy) ** 2 + (x - cx) ** 2) / (2 * rng.uniform(0.05, 0.3) ** 2))
     img = np.clip(base + rng.normal(0, 6, (h, w)), 0, 255).astype(np.uint8)
     return img if channels == 1 else np.repeat(img[..., None], channels, axis=2)
 

@@ -162,3 +162,21 @@ def test_stacked_decode_equals_jax_image_by_image(monkeypatch, stack_bytes):
         assert (img is None) == (want is None)
         if want is not None:
             np.testing.assert_array_equal(img, want)
+
+
+def test_decode_threads_times_every_stage(tmp_path, capsys):
+    import json
+
+    from clip_for_dl_tpu_torch.testing.kaggle import write_kaggle_layout
+    from clip_for_dl_tpu_torch.tools import decode_threads
+
+    paths = write_kaggle_layout(str(tmp_path / "kaggle"), 3, sizes=((40, 32), (48, 40)),
+                                not_png_uids=(2,))
+    assert decode_threads.main([paths["image_dir"], "--size", "16", "--threads", "2"]) == 0
+    out = json.loads(capsys.readouterr().out)
+    assert out["files"] == 6 and out["threads"] == 2
+    for run in ("1_thread", "2_threads"):
+        assert set(out[run]) == {"read", "inflate", "unfilter", "resize", "whole",
+                                 "whole_img_per_s"}
+        assert all(v > 0 for v in out[run].values())
+    assert decode_threads.main([str(tmp_path / "empty")]) == 2
