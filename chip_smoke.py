@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's zero-shot serving paths (ResNet-50 and ViT-B/16),
 its phase-A train step, its split-q/k/v attention entry point, the chain
-pretrain -> adapter (phase B), the fp32 parity mode and the evaluation from
-files once on one CUDA GPU.
+pretrain -> adapter (phase B), the fp32 parity mode, the evaluation from
+files and the command line once on one CUDA GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -134,8 +134,26 @@ c8_cases).
    routes' measured difference, those so decided counted. Prints
    the cache build img/s, loader batches/s and eval img/s (over EVAL_PASSES
    passes), the decode's stages in one thread and in 8
-   (tools/decode_threads.py), and the phase's time. Then
-   tools/launch_times.py times the wrappers from the host.
+   (tools/decode_threads.py), and the phase's time.
+9. The command line (ROADMAP A4b-2, A5): ``cli.main.main(argv)`` in this
+   process on phase 8's layout, at the presets' full width and B = 16, with
+   stand-ins from tools/day_one.py (a vocab of the layout's reports padded
+   to 28996 entries, the preset's vocab_size; tower files from seeded port
+   modules): prep, cache-images, pretrain (--flash-attention
+   --bert-fused-mlp --device-cache --bucket-text --length-grouped, the tower
+   files, one epoch), adapter, zeroshot and zeroshot --dynamic, eval
+   (--bootstrap) and eval --head adapter, convert to .pth and .safetensors,
+   each command's launches counted on its cli path. Checks eval on the
+   adapter's directory, .pth and .safetensors byte-equal; zeroshot and eval
+   --head adapter with --device-cache bit-equal to the streamed feed, every
+   gathered batch reaching the model as the same CUDA tensor; zeroshot
+   --preset vit --fused-mlp (B9); then zeroshot against itself on the plain
+   route, phase 8's split: B2 and B1 at the command's inputs and the image
+   half bound below their spreads, the text half and the whole route
+   printed with theirs. Prints each command's wall time, pretrain and
+   adapter samples/s (steps synced) and checkpoint save ms, the cache build
+   img/s and zeroshot views/s. Then tools/launch_times.py times the
+   wrappers from the host.
 
 The second-to-last line is the kernels JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -282,6 +300,14 @@ PATHS = {  # main path -> the kernels it must launch
     # and InferenceSession; the adapter checkpoint through AdapterEngine
     "eval_files": ("similarity", "image_prep", "flash_attention", "mlp"),
     "eval_adapter": ("image_prep",),
+    # the command line (phase 9): each command's run in the process
+    "cli_pretrain": TRAIN_KERNELS,
+    "cli_adapter": ("image_prep",),
+    "cli_zeroshot": ("similarity", "image_prep", "flash_attention", "mlp"),
+    "cli_zeroshot_dynamic": ("similarity", "image_prep", "flash_attention", "mlp"),
+    "cli_eval": ("similarity", "image_prep", "flash_attention", "mlp"),
+    "cli_eval_adapter": ("image_prep",),
+    "cli_zeroshot_vit": ("similarity", "image_prep", "flash_attention", "mlp", "mlp_block"),
     # the parity mode (--fp32 --flash-attention): zero-shot serving and a
     # phase-A step in fp32
     "serve_fp32": ("similarity", "image_prep", "flash_attention_fp32"),
@@ -2550,6 +2576,310 @@ def eval_files_phase(_build, mods, dev, seed: int, card: str, workdir: str,
     return by_path
 
 
+def cli_phase(_build, mods, dev, seed: int, card: str, workdir: str, results: dict) -> dict:
+    """Phase 9: the chain from the command line, ``cli.main.main(argv)`` in
+    this process, on phase 8's Kaggle layout in ``workdir``; returns the
+    launches of the cli paths."""
+    import argparse
+    import importlib
+    import io
+    import os
+    from contextlib import redirect_stdout
+
+    import numpy as np
+    import torch
+
+    cli = importlib.import_module("clip_for_dl_tpu_torch.cli.main")
+    engine_module = importlib.import_module("clip_for_dl_tpu_torch.zeroshot.engine")
+    from clip_for_dl_tpu_torch import inference, zeroshot
+    from clip_for_dl_tpu_torch.core.config import get_preset
+    from clip_for_dl_tpu_torch.data import DeviceImageCache, read_csv
+    from clip_for_dl_tpu_torch.models import CXRClip
+    from clip_for_dl_tpu_torch.text import load_vocab
+    from clip_for_dl_tpu_torch.tools.day_one import (
+        BIO_CLINICALBERT_VOCAB, standin_towers, standin_vocab,
+    )
+    from clip_for_dl_tpu_torch.train import CheckpointManager, loop
+    from clip_for_dl_tpu_torch.zeroshot.engine import ZeroShotEngine
+
+    t_phase = time.perf_counter()
+    kaggle, work = f"{workdir}/kaggle", f"{workdir}/cli"
+    os.makedirs(work)
+    image_dir = f"{kaggle}/images/images_normalized"
+    projections = f"{kaggle}/indiana_projections.csv"
+    t = time.perf_counter()
+    vocab = standin_vocab(f"{kaggle}/indiana_reports.csv", f"{work}/vocab.txt",
+                          BIO_CLINICALBERT_VOCAB)
+    check(len(load_vocab(vocab)) == BIO_CLINICALBERT_VOCAB == get_preset("pretrain_clip")
+          .model.vocab_size, "the stand-in vocab is not at the preset's vocab_size")
+    cfg = cli._apply_tiny(get_preset("pretrain_clip"), argparse.Namespace(), BIO_CLINICALBERT_VOCAB)
+    image_tower, text_tower = standin_towers(work, cfg.model, seed=seed, device=dev)
+    print(f"stand-ins: vocab of {BIO_CLINICALBERT_VOCAB} entries from the layout's reports, "
+          f"padded; tower files from a seeded {describe(cfg.model)} in "
+          f"{time.perf_counter() - t:.1f} s")
+
+    by_path, walls = {}, {}
+
+    def run(name, argv, path=None):
+        """One command in this process; its launches counted under ``path``."""
+        out = io.StringIO()
+        torch.cuda.synchronize(dev)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        with redirect_stdout(out):
+            rc = cli.main(argv)
+        torch.cuda.synchronize(dev)
+        walls[name] = time.perf_counter() - t0
+        check(rc == 0, f"{name} exited with {rc}: {out.getvalue()[-2000:]}")
+        if path:
+            by_path[path] = dict(_build.LAUNCHES)
+            check_launched(mods, by_path[path], path)
+        torch.cuda.empty_cache()
+        print(f"  {name}: exit 0 in {walls[name]:.1f} s on {card}"
+              + (f"; launches {by_path[path]}" if path else ""))
+        return out.getvalue()
+
+    labeled, cache = f"{work}/labeled.csv", f"{work}/cache"
+    run("prep", ["prep", "--reports", f"{kaggle}/indiana_reports.csv", "--out", labeled,
+                 "--unlabeled-out", f"{work}/unlabeled.csv"])
+    run("cache-images", ["cache-images", "--image-dir", image_dir, "--out", cache,
+                         "--projections-csv", projections, "--image-size", "224"])
+    n_cached = len(read_csv(projections))
+    data = ["--reports-csv", labeled, "--projections-csv", projections, "--image-dir", image_dir,
+            "--image-cache", cache, "--vocab", vocab]
+    kernels = ["--flash-attention", "--bert-fused-mlp"]
+    logs, pre, ad = f"{work}/logs", f"{work}/pretrain", f"{work}/adapter"
+
+    # -- pretrain, the adapter: timed epochs and checkpoint saves ------------------
+    epochs, saves = [], []
+    run_epoch, save = loop.run_epoch, CheckpointManager.save
+
+    def timed_epoch(step_fn, state, loader, *a, **kw):
+        """The epoch with each step synced and timed: (batch sizes, step s)."""
+        sizes, steps = [], []
+
+        def timed_step(st, batch, *rest):
+            t0 = time.perf_counter()
+            out = step_fn(st, batch, *rest)
+            torch.cuda.synchronize(dev)
+            steps.append(time.perf_counter() - t0)
+            sizes.append(batch["images"].shape[0])
+            return out
+
+        out = run_epoch(timed_step, state, loader, *a, **kw)
+        epochs.append((sizes, steps))
+        return out
+
+    def timed_save(self, *a, **kw):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        save(self, *a, **kw)
+        saves.append((time.perf_counter() - t0) * 1e3)
+
+    with mock.patch.object(loop, "run_epoch", timed_epoch), \
+            mock.patch.object(CheckpointManager, "save", timed_save):
+        run("pretrain", ["pretrain", *data, *kernels, "--epochs", "1", "--device-cache",
+                         "--bucket-text", "--length-grouped", "--init-image-tower", image_tower,
+                         "--init-text-tower", text_tower, "--checkpoint-dir", pre,
+                         "--log-dir", logs], "cli_pretrain")
+        pre_epoch, pre_saves = epochs.pop(), list(saves)
+        saves.clear()
+        run("adapter", ["adapter", *data, *kernels, "--epochs", "1", "--checkpoint", pre,
+                        "--checkpoint-dir", ad, "--log-dir", logs], "cli_adapter")
+    with open(f"{logs}/training_history.csv", newline="") as f:
+        history = list(csv.DictReader(f))
+    check(len(history) == 1 and all(np.isfinite(float(history[0][k]))
+                                    for k in ("train_loss", "val_loss")), f"history {history}")
+    def rate(epoch):
+        sizes, steps = epoch
+        k = min(1, len(steps) - 1)  # steps after the first, where there are any
+        return (f"{sum(sizes[k:]) / sum(steps[k:]):.1f} samples/s over steps {k}-"
+                f"{len(steps) - 1} of B = {sizes[0]} (each synced; step 0 "
+                f"{steps[0] * 1e3:.1f} ms, the epoch's {len(steps)} steps {sum(steps):.2f} s)")
+
+    print(f"pretrain (--device-cache --bucket-text --length-grouped) on {card}: "
+          f"{rate(pre_epoch)}; checkpoint save {[round(x, 1) for x in pre_saves]} "
+          f"ms; history {history[0]}")
+    print(f"adapter on {card}: {rate(epochs[-1])}; checkpoint save "
+          f"{[round(x, 1) for x in saves]} ms")
+
+    # -- zeroshot, counted, with what the route comparison needs --------------------
+    def recorders():
+        """Patches recording the kernel inputs (B2's first batch, B1's first
+        call), the unit image features, the bank and the logits of a
+        zeroshot run."""
+        rec = {"prep": [], "sim": [], "feats": [], "logits": [], "text": []}
+        prep_fn, sim_fn = engine_module.preprocess_images, engine_module.similarity
+        encode, dispatch = CXRClip.encode_image, ZeroShotEngine._dispatch
+        build = ZeroShotEngine.build_text_features
+
+        def rec_prep(images, *a, **kw):
+            if not rec["prep"]:
+                rec["prep"].append((images.clone(), a, kw))
+            return prep_fn(images, *a, **kw)
+
+        def rec_sim(a, b, t):
+            if not rec["sim"]:
+                rec["sim"].append((a.clone(), b.clone(), t))
+            return sim_fn(a, b, t)
+
+        def rec_encode(self, images, **kw):
+            out = encode(self, images, **kw)
+            rec["feats"].append(out.detach().float().clone())
+            return out
+
+        def rec_dispatch(self, images):
+            out, n = dispatch(self, images)
+            rec["logits"].append(out.clone())
+            return out, n
+
+        def rec_build(self, prompts):
+            rec["text"].append(build(self, prompts).clone())
+            return rec["text"][-1]
+
+        stack = ExitStack()
+        for owner, name, fn in ((engine_module, "preprocess_images", rec_prep),
+                                (engine_module, "similarity", rec_sim),
+                                (CXRClip, "encode_image", rec_encode),
+                                (ZeroShotEngine, "_dispatch", rec_dispatch),
+                                (ZeroShotEngine, "build_text_features", rec_build)):
+            stack.enter_context(mock.patch.object(owner, name, fn))
+        return stack, rec
+
+    driver_s = []
+    run_zs = zeroshot.run_zero_shot_eval
+
+    def timed_driver(*a, **kw):
+        t0 = time.perf_counter()
+        out = run_zs(*a, **kw)
+        torch.cuda.synchronize(dev)
+        driver_s.append(time.perf_counter() - t0)
+        return out
+
+    zs = ["zeroshot", *data, *kernels, "--checkpoint", pre]
+    stack, kernel_rec = recorders()
+    with stack, mock.patch.object(zeroshot, "run_zero_shot_eval", timed_driver):
+        run("zeroshot", [*zs, "--log-dir", f"{work}/zs"], "cli_zeroshot")
+    with open(f"{work}/zs/zero_shot_results.csv", newline="") as f:
+        n_val = len(list(csv.reader(f))) - 1
+    views = 2 * n_val
+    print(f"zeroshot on {card}: {views / driver_s[-1]:.1f} views/s (run_zero_shot_eval over "
+          f"{n_val} exams of the validation split, from the cache to metrics, "
+          f"{driver_s[-1]:.2f} s; the command {walls['zeroshot']:.1f} s with the model's "
+          f"load and the prompt bank)")
+    run("zeroshot --dynamic", [*zs, "--dynamic", "--log-dir", f"{work}/zs_dyn"],
+        "cli_zeroshot_dynamic")
+    with open(f"{work}/zs_dyn/thresholds.json") as f:
+        check(len(json.load(f)) == 16, "thresholds.json")
+
+    # -- eval, both heads; the three weight sources ------------------------------------
+    def eval_csv(name, argv, path=None):
+        log = f"{work}/{name.replace(' ', '_').replace('.', '')}"
+        out = run(name, [*argv, "--log-dir", log], path)
+        with open(f"{log}/eval_predictions.csv", "rb") as f:
+            return out, f.read()
+
+    ev = ["eval", *data, *kernels]
+    out, by_dir = eval_csv("eval", [*ev, "--checkpoint", ad, "--bootstrap", "50"], "cli_eval")
+    check('"bootstrap_ci_95"' in out, "eval --bootstrap printed no intervals")
+    _, adapter_csv = eval_csv("eval --head adapter", [*ev, "--checkpoint", ad, "--head",
+                                                      "adapter"], "cli_eval_adapter")
+    for ext in ("pth", "safetensors"):
+        run(f"convert .{ext}", ["convert", "--vocab", vocab, "--checkpoint", ad, "--out",
+                                f"{work}/model.{ext}"])
+    sources = {".pth": eval_csv("eval .pth", [*ev, "--checkpoint", f"{work}/model.pth"])[1],
+               ".safetensors": eval_csv("eval .safetensors",
+                                        [*ev, "--checkpoint", f"{work}/model.safetensors"])[1]}
+    rows = by_dir.count(b"\n") - 1
+    check(rows == n_val and all(v == by_dir for v in sources.values()),
+          "eval on the checkpoint directory, the .pth and the .safetensors differ")
+    print(f"eval on the adapter's checkpoint directory, its .pth and its .safetensors: "
+          f"eval_predictions.csv ({rows} exams x 16 probabilities) byte-equal")
+
+    # -- the device cache: the same bytes through the same B2 --------------------------
+    gathered, reached = [], []
+    gather, to_device = DeviceImageCache.gather, engine_module.to_device
+
+    def rec_gather(self, r):
+        out = gather(self, r)
+        gathered.append(out.data_ptr())
+        return out
+
+    def rec_to_device(images, device):
+        reached.append(images)
+        out = to_device(images, device)
+        check(not torch.is_tensor(images) or out is images, "to_device moved a device batch")
+        return out
+
+    stack, cached_rec = recorders()
+    with stack, mock.patch.object(DeviceImageCache, "gather", rec_gather), \
+            mock.patch.object(engine_module, "to_device", rec_to_device), \
+            mock.patch.object(inference, "to_device", rec_to_device):
+        run("zeroshot --device-cache", [*zs, "--device-cache", "--log-dir", f"{work}/zs_dc"])
+        _, adapter_dc = eval_csv("eval --head adapter --device-cache",
+                                 [*ev, "--checkpoint", ad, "--head", "adapter", "--device-cache"])
+    check(len(cached_rec["logits"]) == len(kernel_rec["logits"]) and all(
+        torch.equal(a, b) for a, b in zip(cached_rec["logits"], kernel_rec["logits"])),
+        "zeroshot --device-cache logits differ from the streamed feed's")
+    check(adapter_dc == adapter_csv, "eval --head adapter --device-cache differs from the "
+                                     "streamed feed")
+    check(reached and all(torch.is_tensor(x) and x.device.type == dev.type for x in reached)
+          and {x.data_ptr() for x in reached} <= set(gathered),
+          "a gathered batch reached the model through the host")
+    print(f"--device-cache: zeroshot logits ({sum(len(x) for x in kernel_rec['logits'])} views) "
+          f"and eval --head adapter's CSV bit-equal to the streamed feed; all {len(reached)} "
+          f"batches reached the model as the gathered device tensors")
+
+    # -- the ViT preset, B9 on the command line path -------------------------------------
+    run("zeroshot --preset vit", ["zeroshot", *data, *kernels, "--preset", "vit", "--fused-mlp",
+                                  "--log-dir", f"{work}/zs_vit"], "cli_zeroshot_vit")
+
+    # -- zeroshot against itself on the plain route ---------------------------------------
+    stack, plain_rec = recorders()
+    with stack, plain_kernels(mods):
+        run("zeroshot, plain route", [*zs, "--log-dir", f"{work}/zs_plain"])
+        check(not _build.LAUNCHES, f"a kernel ran during the plain run: {_build.LAUNCHES}")
+    failures: list = []
+    prep, sim = mods["image_prep"], mods["similarity"]
+    grey, a, kw = kernel_rec["prep"][0]
+    x_ref = prep.preprocess_reference(grey, *a, **kw)
+    x = prep.preprocess_images(grey, *a, **kw)
+    neighbour = float((x_ref[:, :, 1:].float() - x_ref[:, :, :-1].float()).abs().median())
+    print("phase 9, kernels against their plain versions at the zeroshot command's inputs, "
+          "and the command against itself on the plain route:")
+    held(f"B2 on the command's first batch {list(grey.shape)} uint8 -> {list(x.shape)}",
+         x, x_ref, TOL["image_prep"], {"a pixel and its neighbour (median)": neighbour},
+         failures, results, "image_prep")
+    f, b, T = kernel_rec["sim"][0]
+    want = sim.similarity_reference(f, b, T)
+    held(f"B1 at the command's inputs {list(f.shape)} x {list(b.shape)}, T = {T}",
+         sim.similarity(f, b, T), want, TOL["similarity"],
+         {"rows": apart(want), "classes": apart(want.T)}, failures, results, "similarity")
+    real = slice(0, views)
+    feats, plain_feats = (torch.cat(r["feats"])[real] for r in (kernel_rec, plain_rec))
+    logits, plain_logits = (torch.cat(r["logits"])[real].float().cpu().numpy()
+                            for r in (kernel_rec, plain_rec))
+    text, plain_text = kernel_rec["text"][0], plain_rec["text"][0]
+    probs, plain_probs = (1 / (1 + np.exp(-v)) for v in (logits, plain_logits))
+    for what, got, want_, tol, spreads, bound in (
+            ("image half: unit image features (B2)", feats, plain_feats,
+             TOL["eval_image_features"], {"views": apart(plain_feats)}, True),
+            ("text half: the bank's unit text features (B3, B4)", text, plain_text,
+             TOL["eval_text_features"], {"classes": apart(plain_text)}, False),
+            ("whole route: zero-shot logits (B1-B4), every view", logits, plain_logits,
+             TOL["eval_logits"], {"views": apart(plain_logits),
+                                  "classes": apart(plain_logits.T)}, False),
+            ("whole route: zero-shot probabilities, every view", probs, plain_probs,
+             TOL["eval_vs_plain"], {"views": apart(plain_probs)}, False)):
+        held(what, got, want_, tol, spreads, failures, bound=bound)
+    check(not failures, "; ".join(failures))
+    print(f"phase 9 on {card}: cache build {n_cached / walls['cache-images']:.1f} img/s "
+          f"({n_cached} PNGs -> 224x224 grey, the command's wall time); command wall times "
+          f"{json.dumps({k: round(v, 2) for k, v in walls.items()})} s")
+    print(f"phase 9 took {time.perf_counter() - t_phase:.1f} s")
+    return by_path
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of weights and inputs")
@@ -2639,6 +2969,8 @@ def main(argv=None) -> int:
         print("== phase 8: evaluation from files")
         by_path.update(eval_files_phase(_build, mods, dev, args.seed, card, workdir,
                                         results))
+        print("== phase 9: the chain from the command line")
+        by_path.update(cli_phase(_build, mods, dev, args.seed, card, workdir, results))
     print("== the wrappers' host time (tools/launch_times.py)")
     from clip_for_dl_tpu_torch.tools import launch_times
 

@@ -1,0 +1,1005 @@
+"""Command-line entry points of the PyTorch port (counterpart of
+``clip_for_dl_tpu.cli.main``):
+
+  prep          01_datapreprocess: raw reports CSV → labeled CSV + unlabeled CSV
+  cache-images  decode and resize the image set once into a memmap cache
+  pretrain      CLIP contrastive pretraining (notebook phase A)
+  adapter       frozen-CLIP C-Adapter training (notebook phase B)
+  zeroshot      zero-shot evaluation (union-max or dynamic-threshold pipeline)
+  eval          metric suite over a checkpoint on the held-out split
+  convert       checkpoint directory / .pth / .safetensors → reference layout
+
+The parser is the JAX CLI's, command for command and flag for flag, so a
+JAX command line parses unchanged. A command or a flag the port does not
+run yet exits with status 2 and names the ROADMAP item that owns it.
+
+Every command runs on the card (the kernels of ``ops/``); with
+``CLIP_FOR_DL_TPU_FORCE_CPU`` set it runs on the CPU, where every kernel's
+wrapper runs its plain version. With neither a card nor the switch, every
+command fails. Each command runs end to end on synthetic data when the
+Indiana images are absent (``--synthetic``, or auto-detected).
+"""
+
+from __future__ import annotations
+
+import argparse
+import itertools
+import json
+import logging
+import os
+import sys
+
+import numpy as np
+
+ENV_FORCE_CPU = "CLIP_FOR_DL_TPU_FORCE_CPU"
+
+# command → the ROADMAP item that ports it
+UNPORTED_COMMANDS = {"train": "A6", "shared-adapter": "A8", "gradcam": "A9",
+                     "rollout": "A9", "serve": "A2b"}
+# flag → (the values it takes unported, the ROADMAP item); ``None`` stands
+# for any value but the ones a single-device, default run passes
+_ANY = None
+UNPORTED_FLAGS = {
+    "lora": (_ANY, "A8"),
+    "vit_fused_mlp_train": (_ANY, "A8"),
+    "num_devices": (_ANY, "A7"),
+    "virtual_devices": (_ANY, "A7"),
+    "tp": (_ANY, "A7"),
+    "pp": (_ANY, "A7"),
+    "ep": (_ANY, "A7"),
+    "num_processes": (_ANY, "A7"),
+    "local_loss": (_ANY, "A7"),
+    "accum_steps": (_ANY, "A7"),
+    "moe_experts": (_ANY, "A7"),
+    "loss": (("info_nce", "siglip"), "A3b"),
+    "learnable_temperature": (_ANY, "A3b"),
+    "ema_decay": (_ANY, "A3b"),
+    "use_ema": (_ANY, "A3b"),
+    "bf16_moments": (_ANY, "A3b"),
+    "prompts": (("rich", "findings"), "A2b"),
+    "remat": (_ANY, "not ported (torch.utils.checkpoint)"),
+    "bf16_attention_probs": (_ANY, "not ported (the attention kernels keep no "
+                                   "probabilities; use --flash-attention)"),
+}
+# degrees and counts whose value 1 is the single-device default
+_DEGREES = ("num_devices", "virtual_devices", "tp", "pp", "ep", "num_processes",
+            "accum_steps")
+
+
+def _unported(args) -> str | None:
+    """Why ``args`` cannot run in the port, or None."""
+    if args.command in UNPORTED_COMMANDS:
+        return (f"the {args.command!r} command is not ported yet "
+                f"(ROADMAP {UNPORTED_COMMANDS[args.command]})")
+    for dest, (values, item) in UNPORTED_FLAGS.items():
+        v = getattr(args, dest, None)
+        if values is _ANY:
+            used = v not in (None, False, 0) and not (dest in _DEGREES and v == 1)
+        else:
+            used = v in values
+        if used:
+            flag = "--" + dest.replace("_", "-")
+            where = item if item.startswith("not ported") else f"ROADMAP {item}"
+            return f"{flag} {v!r} is not ported yet ({where})"
+    return None
+
+
+def _device():
+    """The card, or the CPU when ``CLIP_FOR_DL_TPU_FORCE_CPU`` is set;
+    raises RuntimeError without a card."""
+    import torch
+
+    from ..core.device import require_cuda
+
+    if os.environ.get(ENV_FORCE_CPU):
+        return torch.device("cpu")
+    return require_cuda()
+
+
+def _setup_logging(log_dir: str, name: str) -> None:
+    os.makedirs(log_dir, exist_ok=True)
+    logging.basicConfig(
+        level=logging.INFO,
+        format="%(asctime)s %(name)s %(levelname)s %(message)s",
+        handlers=[
+            logging.StreamHandler(),
+            logging.FileHandler(os.path.join(log_dir, f"{name}.log")),
+        ],
+    )
+
+
+def _tokenizer(args):
+    from ..core.config import DISEASE_LABELS
+    from ..text import BertTokenizer
+    from ..text.tokenizer import build_dev_vocab
+
+    if args.vocab and os.path.exists(args.vocab):
+        return BertTokenizer(args.vocab, do_lower_case=False)
+    logging.warning("no vocab file — building a synthetic dev vocabulary")
+    return BertTokenizer(build_dev_vocab(DISEASE_LABELS))
+
+
+def _apply_tiny(cfg, args, vocab_size: int):
+    """--tiny: shrink towers for smoke runs; also size the text tower's
+    vocabulary to the loaded tokenizer."""
+    import dataclasses
+
+    model = dataclasses.replace(cfg.model, vocab_size=vocab_size)
+    if getattr(args, "fast_gelu", False):
+        model = dataclasses.replace(model, vit_gelu_approximate=True)
+    if getattr(args, "fused_mlp", False):
+        model = dataclasses.replace(model, vit_fused_mlp=True)
+    if getattr(args, "flash_attention", False):
+        model = dataclasses.replace(model, flash_attention=True)
+    if getattr(args, "bert_fused_mlp", False):
+        model = dataclasses.replace(model, bert_fused_mlp=True)
+    if getattr(args, "tiny", False):
+        model = dataclasses.replace(
+            model,
+            image_size=64, max_text_length=32, text_embedding_dim=64,
+            text_layers=2, text_heads=2, text_intermediate_dim=128,
+            shared_embedding_dim=64, resnet_stages=(1, 1, 1, 1),
+            resnet_width=16, vit_layers=2, vit_hidden=64, vit_heads=2,
+            vit_mlp_dim=128,
+        )
+    return cfg.replace(model=model)
+
+
+def _compute_dtype(args):
+    import torch
+
+    return torch.float32 if args.fp32 else torch.bfloat16
+
+
+def _preset(args, name=None):
+    from ..core.config import get_preset
+
+    name = name or args.preset
+    try:
+        return get_preset(name)
+    except KeyError:
+        items = {"scripts_train": "A6", "multimodal_attention": "A8"}
+        if name in items:
+            raise SystemExit(f"the {name!r} preset is not ported yet (ROADMAP {items[name]})")
+        raise SystemExit(f"unknown preset {name!r}")
+
+
+def _model(cfg, args, train: bool = False):
+    """The model of ``cfg`` on the command's device, from ``--checkpoint``
+    and the tower files. Serving: matmul weights in the compute dtype.
+    Training (``train``): fp32 master weights, cast to the compute dtype in
+    the forward, as flax's ``param_dtype=float32`` does."""
+    import torch
+
+    from ..core.device import cast_in_forward
+    from ..inference import load_trained_model
+
+    compute = _compute_dtype(args)
+    model = load_trained_model(
+        args.checkpoint, cfg, torch.float32 if train else compute,
+        allow_partial=getattr(args, "allow_partial_restore", False),
+        init_image_tower=getattr(args, "init_image_tower", None),
+        init_text_tower=getattr(args, "init_text_tower", None),
+        device=args.device,
+    )
+    if train and compute != torch.float32:
+        cast_in_forward(model, compute)
+    return model
+
+
+def _apply_data_paths(cfg, args):
+    """--reports-csv/--projections-csv/--image-dir override the preset."""
+    import dataclasses
+
+    updates = {}
+    if getattr(args, "reports_csv", None):
+        updates["reports_csv"] = args.reports_csv
+    if getattr(args, "projections_csv", None):
+        updates["projections_csv"] = args.projections_csv
+    if getattr(args, "image_dir", None):
+        updates["image_dir"] = args.image_dir
+    if getattr(args, "batch_size", None):
+        updates["batch_size"] = args.batch_size
+    if updates:
+        cfg = cfg.replace(data=dataclasses.replace(cfg.data, **updates))
+    return cfg
+
+
+def _loaders(cfg, args, multi_view=True):
+    cfg = _apply_data_paths(cfg, args)
+    from ..data import (
+        ChestXrayMultiViewDataset,
+        HostLoader,
+        SyntheticImageTextDataset,
+        SyntheticMultiViewDataset,
+        build_exam_index,
+        split_by_uid,
+    )
+
+    have_real = (
+        not args.synthetic
+        and os.path.exists(cfg.data.reports_csv)
+        and os.path.exists(cfg.data.projections_csv)
+        and os.path.isdir(cfg.data.image_dir)
+    )
+    dcache = None
+    if have_real:
+        from ..data import frame_to_image_text_dataset, merge_image_report, read_csv
+        from ..data.frame import key
+
+        cache = None
+        if getattr(args, "image_cache", None):
+            from ..data import ImageCache
+
+            cache = ImageCache(args.image_cache)
+            logging.info(
+                "image cache: %d preprocessed images from %s",
+                len(cache), args.image_cache,
+            )
+            if getattr(args, "device_cache", False):
+                from ..data import DeviceCacheBudgetError, DeviceImageCache
+
+                try:
+                    dcache = DeviceImageCache(cache, device=args.device)
+                except DeviceCacheBudgetError as e:
+                    logging.warning("--device-cache: %s — streaming instead", e)
+        elif getattr(args, "device_cache", False):
+            raise SystemExit("--device-cache requires --image-cache")
+        image_rows = dcache is not None
+        reports = read_csv(cfg.data.reports_csv)
+        projections = read_csv(cfg.data.projections_csv)
+        merged = merge_image_report(projections, reports)
+        train_f, val_f = split_by_uid(merged, cfg.data.test_size, cfg.data.seed)
+        if multi_view:
+            def exams(frame):
+                uids = {key(u) for u in frame.column("uid")}
+                index = build_exam_index(reports.where(lambda r: key(r["uid"]) in uids),
+                                         projections, cfg.data.image_dir)
+                return ChestXrayMultiViewDataset(index, cfg.model.image_size, cache=cache,
+                                                 image_rows=image_rows)
+
+            train_ds, val_ds = exams(train_f), exams(val_f)
+        else:
+            # CLIP pretrain: flat (image, report) pairs over every image
+            # (02 nb cell 12 semantics — 4497 rows, not per-exam views)
+            train_ds, val_ds = (
+                frame_to_image_text_dataset(f, cfg.data.image_dir, cfg.model.image_size,
+                                            cache=cache, image_rows=image_rows)
+                for f in (train_f, val_f))
+    else:
+        if getattr(args, "device_cache", False):
+            # the user asked for the device-resident feed and would otherwise
+            # get silently streamed synthetic data
+            raise SystemExit(
+                "--device-cache requires the real dataset "
+                "(reports/projections CSVs + --image-dir resolve), which "
+                "was not found"
+            )
+        logging.warning("Indiana images unavailable — using synthetic data")
+        n = args.synthetic_samples
+        kind = SyntheticMultiViewDataset if multi_view else SyntheticImageTextDataset
+        train_ds = kind(n, cfg.model.image_size, 0)
+        val_ds = kind(n // 4, cfg.model.image_size, 1)
+    # train: drop the ragged final batch (a zero-padded sample would skew the
+    # batch-global contrastive losses); eval: pad + mask so nothing is lost.
+    bs = cfg.data.batch_size
+    train_loader = HostLoader(
+        train_ds, bs, shuffle=True, seed=cfg.data.seed,
+        num_threads=cfg.data.num_workers,
+        drop_last=len(train_ds) > bs, pad_final=True,
+    )
+    val_loader = HostLoader(
+        val_ds, bs, shuffle=False, seed=cfg.data.seed,
+        num_threads=cfg.data.num_workers, pad_final=True,
+    )
+    if dcache is not None:
+        from ..data import DeviceFeedLoader
+
+        train_loader = DeviceFeedLoader(train_loader, dcache)
+        val_loader = DeviceFeedLoader(val_loader, dcache)
+    return train_loader, val_loader
+
+
+def _step_images(batch, single_view: bool = False):
+    """Image entry of a collated batch, ready for the step. Host batches
+    become contiguous numpy (``prefetch_to_device`` copies them); batches
+    the ``--device-cache`` feed gathered on the device stay there. The
+    multi-view → frontal-only select runs wherever the batch lives."""
+    import torch
+
+    img = batch.get("image", batch.get("images"))
+    if single_view and img.ndim == 5:
+        img = img[:, 0]
+    return img if isinstance(img, torch.Tensor) else np.ascontiguousarray(img)
+
+
+def _rng_stream(args, cfg):
+    """The dropout generator stream of ``fit`` (the JAX CLI's
+    ``KeyChain(cfg.data.seed)``): one ``torch.Generator`` on the command's
+    device, seeded with the data seed, whose state advances from step to
+    step; it seeds the attention kernel's dropout. The dropout layers
+    outside the kernel draw from torch's global generator, seeded here with
+    the same seed, so that a run repeats."""
+    import torch
+
+    torch.manual_seed(cfg.data.seed)
+    return itertools.repeat(torch.Generator(args.device).manual_seed(cfg.data.seed))
+
+
+def _feed(args, batches):
+    from ..data import prefetch_to_device
+
+    return prefetch_to_device(batches, device=args.device)
+
+
+# ---------------------------------------------------------------------------
+# commands
+# ---------------------------------------------------------------------------
+
+
+def cmd_prep(args) -> int:
+    from ..data.labels import prepare_labeled_csv
+
+    df = prepare_labeled_csv(args.reports, args.out, args.unlabeled_out)
+    print(f"labeled {len(df)} reports → {args.out}")
+    return 0
+
+
+def cmd_cache_images(args) -> int:
+    """One-time decode+resize of the dataset into a memmap cache
+    (data/cache.py); later runs pass --image-cache DIR to skip the
+    per-epoch decode."""
+    import time
+
+    from ..data import build_image_cache, read_csv
+
+    if args.projections_csv and os.path.exists(args.projections_csv):
+        names = [str(n) for n in read_csv(args.projections_csv).column("filename")]
+        paths = [os.path.join(args.image_dir, n) for n in names]
+    else:
+        exts = (".png", ".jpg", ".jpeg")
+        paths = sorted(
+            os.path.join(root, f)
+            for root, _, files in os.walk(args.image_dir)
+            for f in files
+            if f.lower().endswith(exts)
+        )
+    if not paths:
+        print(f"error: no images found under {args.image_dir}",
+              file=sys.stderr)
+        return 2
+    t0 = time.time()
+    cache = build_image_cache(
+        paths, args.image_size, args.out, workers=args.workers,
+        channels=getattr(args, "channels", "auto"),
+    )
+    dt = time.time() - t0
+    layout = "gray-packed (1ch)" if cache.channels == 1 else "rgb (3ch)"
+    print(
+        f"cached {len(cache)} images at {args.image_size}px {layout} → "
+        f"{args.out} ({dt:.1f}s, {len(cache) / max(dt, 1e-9):.0f} img/s)"
+    )
+    return 0
+
+
+def cmd_pretrain(args) -> int:
+    from ..evals import MetricWriter
+    from ..train import (
+        CheckpointManager,
+        PreemptionGuard,
+        TrainState,
+        fit,
+        make_clip_eval_step,
+        make_clip_pretrain_step,
+        make_label_fn,
+        make_optimizer,
+        resume_or_init,
+    )
+
+    cfg = _preset(args)
+    _setup_logging(args.log_dir, "pretrain")
+    tokenizer = _tokenizer(args)
+    cfg = _apply_tiny(cfg, args, len(tokenizer.vocab))
+    model = _model(cfg, args, train=True)
+    compute = _compute_dtype(args)
+
+    groups = {g.name: g.lr for g in cfg.train.groups} or {"default": cfg.train.lr}
+    groups.setdefault("default", cfg.train.lr)
+    label_fn = make_label_fn([g for g in groups if g != "default"])
+    optimizer = make_optimizer(model, label_fn, weight_decay=cfg.train.weight_decay)
+
+    train_loader, val_loader = _loaders(cfg, args, multi_view=False)
+    max_len = cfg.model.max_text_length
+
+    if getattr(args, "length_grouped", False):
+        if not args.bucket_text:
+            raise SystemExit(
+                "--length-grouped requires --bucket-text (grouping only "
+                "pays off when batches pad to their own bucket)"
+            )
+        ds = train_loader.dataset
+        texts = getattr(ds, "texts", None)
+        if texts is None and hasattr(ds, "base"):  # synthetic wrapper
+            # read the precomputed findings list — indexing ds itself would
+            # synthesize (and discard) every image just to reach the text
+            texts = ds.base.findings
+        if texts is None:
+            raise SystemExit("--length-grouped needs a text dataset")
+        # one host-side tokenize pass; lengths key the windowed sort
+        enc_lens = tokenizer.encode(
+            list(texts), max_length=max_len, padding="longest"
+        )["attention_mask"].sum(1)
+        train_loader.set_lengths(enc_lens)
+        logging.info(
+            "length-grouped batching: %d samples, token length p50=%d "
+            "p90=%d max=%d",
+            len(enc_lens), int(np.percentile(enc_lens, 50)),
+            int(np.percentile(enc_lens, 90)), int(enc_lens.max()),
+        )
+
+    def tokenize_batch(batch):
+        texts = batch.get("text") or batch.get("findings")
+        if args.bucket_text:
+            # length bucketing: identical outputs (masked attention), but
+            # short reports skip most of the 200/512-token pad compute
+            enc = tokenizer.encode_bucketed(
+                list(texts), max_length=max_len,
+                buckets=(32, 64, 128),
+            )
+        else:
+            enc = tokenizer.encode(list(texts), max_length=max_len)
+        return {
+            # multi-view → frontal only for pretrain
+            "images": _step_images(batch, single_view=True),
+            "input_ids": enc["input_ids"],
+            "attention_mask": enc["attention_mask"],
+        }
+
+    loss_name = (
+        cfg.train.loss
+        if cfg.train.loss in ("clip_self_distill", "info_nce", "siglip")
+        else "clip_self_distill"
+    )
+    if getattr(args, "loss", None):
+        loss_name = args.loss
+    prep = dict(image_size=cfg.model.image_size, mean=cfg.augment.mean, std=cfg.augment.std,
+                compute_dtype=compute)
+    step = make_clip_pretrain_step(model, optimizer, label_fn, loss_name,
+                                   cfg.model.temperature, max_grad_norm=cfg.train.max_grad_norm,
+                                   **prep)
+    eval_step = make_clip_eval_step(model, loss_name, cfg.model.temperature, **prep)
+    ckpt = None
+    if args.checkpoint_dir:
+        ckpt = CheckpointManager(args.checkpoint_dir, cfg.train.max_checkpoints_to_keep)
+    state, start_epoch = resume_or_init(ckpt, TrainState(model, optimizer),
+                                        loader=train_loader)
+    writer = MetricWriter(args.log_dir, "pretrain")
+
+    with PreemptionGuard() as guard:
+        state, history = fit(
+            state, step, eval_step,
+            train_loader_fn=lambda: _feed(args, map(tokenize_batch, train_loader)),
+            val_loader_fn=lambda: _feed(args, map(tokenize_batch, val_loader)),
+            base_lrs=groups,
+            num_epochs=args.epochs or cfg.train.num_epochs,
+            rng_stream=_rng_stream(args, cfg),
+            scheduler=cfg.train.scheduler,
+            eta_min=cfg.train.eta_min,
+            plateau_patience=cfg.train.plateau_patience,
+            plateau_factor=cfg.train.plateau_factor,
+            early_stop_patience=cfg.train.early_stop_patience,
+            checkpointer=ckpt,
+            start_epoch=start_epoch,
+            log_every=cfg.train.log_every,
+            preemption_guard=guard,
+            metric_writer=writer,
+            stateful_loader=train_loader,
+            warmup_steps=int(getattr(args, "warmup_steps", 0) or 0),
+        )
+    writer.close()
+    history.save_csv(os.path.join(args.log_dir, "training_history.csv"))
+    print(f"pretrain done: {len(history.rows)} epochs")
+    return 0
+
+
+def cmd_adapter(args) -> int:
+    from ..core.config import DISEASE_LABELS
+    from ..evals.metrics import multilabel_metrics
+    from ..train import (
+        CheckpointManager,
+        TrainState,
+        fit,
+        make_adapter_eval_step,
+        make_adapter_train_step,
+        make_label_fn,
+        make_optimizer,
+        resume_or_init,
+        run_eval,
+    )
+    from ..utils.visualization import save_predictions_csv
+
+    cfg = _preset(args, "adapter")
+    _setup_logging(args.log_dir, "adapter")
+    tokenizer = _tokenizer(args)
+    cfg = _apply_tiny(cfg, args, len(tokenizer.vocab))
+    model = _model(cfg, args, train=True)
+
+    # Adam without clipping or decay on the adapter alone (the JAX CLI's
+    # base_transform(None, 0.0) and freeze_mask): the step gives no other
+    # parameter a gradient, so the towers stay as they are
+    label_fn = make_label_fn(["adapter"])
+    optimizer = make_optimizer(model, label_fn, weight_decay=0.0)
+    prep = dict(image_size=cfg.model.image_size, mean=cfg.augment.mean, std=cfg.augment.std,
+                compute_dtype=_compute_dtype(args))
+    step = make_adapter_train_step(model, optimizer, label_fn, **prep)
+    eval_step = make_adapter_eval_step(model, **prep)
+    train_loader, val_loader = _loaders(cfg, args, multi_view=True)
+
+    def to_single_view(batch):
+        return {"images": _step_images(batch, single_view=True),
+                "labels": np.asarray(batch["labels"]),
+                "mask": batch.get("mask")}
+
+    ckpt = None
+    if args.checkpoint_dir:
+        ckpt = CheckpointManager(args.checkpoint_dir, cfg.train.max_checkpoints_to_keep)
+    state, start_epoch = resume_or_init(ckpt, TrainState(model, optimizer))
+    state, history = fit(
+        state, step, eval_step,
+        train_loader_fn=lambda: _feed(args, map(to_single_view, train_loader)),
+        val_loader_fn=lambda: _feed(args, map(to_single_view, val_loader)),
+        base_lrs={"adapter": cfg.train.lr, "default": 0.0},
+        num_epochs=args.epochs or cfg.train.num_epochs,
+        rng_stream=_rng_stream(args, cfg),
+        scheduler="none",
+        early_stop_patience=cfg.train.early_stop_patience,
+        checkpointer=ckpt,
+        start_epoch=start_epoch,
+        log_every=cfg.train.log_every,
+    )
+    history.save_csv(os.path.join(args.log_dir, "adapter_history.csv"))
+    # final test-set suite from the ADAPTER logits — the metric family the
+    # reference publishes for phase B (02 nb cell 30: Jaccard / Hamming /
+    # F1 / mAP / LRAP; BASELINE.md "C-Adapter" rows) plus per-class AUROC
+    val = run_eval(eval_step, state, _feed(args, map(to_single_view, val_loader)))
+    metrics = multilabel_metrics(val["probs"], val["labels"], class_names=DISEASE_LABELS)
+    save_predictions_csv(val["probs"], val["labels"], DISEASE_LABELS,
+                         os.path.join(args.log_dir, "adapter_predictions.csv"))
+    with open(os.path.join(args.log_dir, "adapter_metrics.json"), "w") as f:
+        json.dump(metrics, f, indent=2)
+    print(json.dumps({k: v for k, v in metrics.items() if not k.startswith("auroc/")},
+                     indent=2))
+    print(f"adapter done: {len(history.rows)} epochs")
+    return 0
+
+
+def cmd_zeroshot(args) -> int:
+    from ..core.config import DISEASE_LABELS
+    from ..zeroshot import (
+        ZeroShotEngine,
+        prompts_for_family,
+        run_dynamic_threshold_eval,
+        run_zero_shot_eval,
+    )
+
+    cfg = _preset(args)
+    _setup_logging(args.log_dir, "zero_shot")
+    tokenizer = _tokenizer(args)
+    cfg = _apply_tiny(cfg, args, len(tokenizer.vocab))
+    model = _model(cfg, args)
+    engine = ZeroShotEngine(
+        model, tokenizer, DISEASE_LABELS, cfg.zeroshot,
+        cfg.augment.mean, cfg.augment.std, cfg.model.image_size,
+        cfg.model.max_text_length, _compute_dtype(args),
+    )
+    engine.build_text_features(prompts_for_family(args.prompts, DISEASE_LABELS))
+    _, val_loader = _loaders(cfg, args, multi_view=True)
+    csv = os.path.join(args.log_dir, "zero_shot_results.csv")
+    if args.dynamic or cfg.zeroshot.dynamic_thresholds:
+        out = run_dynamic_threshold_eval(
+            engine, lambda: iter(val_loader),
+            cfg.zeroshot.threshold_calib_frac,
+            cfg.zeroshot.threshold_grid_points,
+            cfg.zeroshot.frontal_weight, cfg.zeroshot.lateral_weight,
+            csv_path=csv,
+        )
+        print(json.dumps({"thresholds": out["thresholds"]}, indent=2))
+        # persist the calibration so `serve --thresholds` / later evals can
+        # reuse it without re-running the two-pass pipeline
+        tpath = os.path.join(args.log_dir, "thresholds.json")
+        with open(tpath, "w") as f:
+            json.dump(out["thresholds"], f, indent=2)
+        logging.info("calibrated thresholds → %s", tpath)
+    else:
+        out = run_zero_shot_eval(engine, val_loader, cfg.zeroshot.top_k, csv)
+    print(json.dumps(
+        {k: v for k, v in out["metrics"].items() if not k.startswith("auroc/")},
+        indent=2,
+    ))
+    return 0
+
+
+def cmd_eval(args) -> int:
+    from ..core.config import DISEASE_LABELS
+    from ..evals.metrics import multilabel_metrics
+    from ..inference import AdapterEngine, InferenceSession
+    from ..utils.visualization import save_predictions_csv
+
+    cfg = _preset(args)
+    _setup_logging(args.log_dir, "eval")
+    tokenizer = _tokenizer(args)
+    cfg = _apply_tiny(cfg, args, len(tokenizer.vocab))
+    model = _model(cfg, args)
+    if getattr(args, "head", "zeroshot") == "adapter":
+        # score from the C-ADAPTER classifier (02 nb cell 30 semantics:
+        # frontal view, frozen-tower encode, sigmoid(Linear(512,16))) —
+        # point it at the checkpoint written by the `adapter` command;
+        # a pretrain-only checkpoint restores an UNTRAINED adapter head
+        # (structurally identical), so metrics near chance mean the wrong
+        # checkpoint was given
+        engine = AdapterEngine(model, cfg.augment.mean, cfg.augment.std,
+                               cfg.model.image_size, _compute_dtype(args))
+
+        def score(images):
+            return engine.probs(images[:, 0])  # the frontal view, the adapter's input
+    else:
+        session = InferenceSession(
+            model, tokenizer, DISEASE_LABELS,
+            cfg.augment.mean, cfg.augment.std, cfg.model.image_size,
+            max_text_length=cfg.model.max_text_length,
+        )
+
+        def score(images):
+            _, probs = session(images)
+            return probs
+
+    _, val_loader = _loaders(cfg, args, multi_view=True)
+    probs_all, labels_all = [], []
+    for batch in val_loader:
+        # the batch goes to the scorer as it is: a batch gathered on the
+        # device by --device-cache stays there
+        probs = score(batch["images"])
+        mask = np.asarray(batch.get("mask", np.ones(len(probs)))).astype(bool)
+        probs_all.append(probs[mask])
+        labels_all.append(np.asarray(batch["labels"])[mask])
+    probs_cat = np.concatenate(probs_all)
+    labels_cat = np.concatenate(labels_all)
+    metrics = multilabel_metrics(probs_cat, labels_cat, class_names=DISEASE_LABELS)
+    save_predictions_csv(probs_cat, labels_cat, DISEASE_LABELS,
+                         os.path.join(args.log_dir, "eval_predictions.csv"))
+    if getattr(args, "bootstrap", 0):
+        from ..evals.metrics import bootstrap_ci
+
+        metrics = {
+            "point": metrics,
+            "bootstrap_ci_95": bootstrap_ci(
+                probs_cat, labels_cat, n_boot=args.bootstrap,
+                class_names=DISEASE_LABELS,
+                point=metrics,  # already computed above — don't redo
+            ),
+        }
+    print(json.dumps(metrics, indent=2))
+    return 0
+
+
+def cmd_convert(args) -> int:
+    """Checkpoint interop: checkpoint directory / reference .pth / flat
+    .safetensors → reference-layout .pth or .safetensors (the reference's
+    {epoch, models:{name: state_dict}} contract, 0425/train.py:505-541)."""
+    import torch
+
+    from ..inference import load_trained_model
+    from ..models.safetensors_io import save_reference_checkpoint_safetensors
+    from ..train.checkpoint import (
+        CheckpointManager,
+        import_reference_checkpoint,
+        model_state,
+        save_reference_checkpoint,
+    )
+
+    if not args.checkpoint:
+        print("error: convert requires --checkpoint (checkpoint dir, .pth or "
+              ".safetensors)", file=sys.stderr)
+        return 2
+    if not args.out.endswith((".safetensors", ".pth", ".pt")):
+        print("error: --out must end in .safetensors, .pth or .pt", file=sys.stderr)
+        return 2
+    cfg = _preset(args)
+    tokenizer = _tokenizer(args)
+    cfg = _apply_tiny(cfg, args, len(tokenizer.vocab))
+    # fp32 restore: the converted artifact carries full-precision weights
+    # whatever the serving compute dtype
+    model = load_trained_model(
+        args.checkpoint, cfg, torch.float32,
+        allow_partial=getattr(args, "allow_partial_restore", False),
+        device=args.device,
+    )
+    epoch = args.epoch
+    if epoch is None:
+        # the epoch the source checkpoint carries (stamping 0 over a
+        # trained checkpoint's epoch loses provenance)
+        if args.checkpoint.endswith((".pth", ".pt", ".safetensors")):
+            epoch = import_reference_checkpoint(args.checkpoint)["epoch"]
+        else:
+            epoch = CheckpointManager(args.checkpoint).best_epoch() or 0
+    state = model_state(model)
+    if args.out.endswith(".safetensors"):
+        save_reference_checkpoint_safetensors(state, args.out, epoch=epoch)
+    else:
+        save_reference_checkpoint(state, args.out, epoch=epoch)
+    print(f"wrote {args.out}")
+    return 0
+
+
+def _tower_init_args(sp) -> None:
+    sp.add_argument(
+        "--init-image-tower", default=None, metavar="FILE",
+        help="initialize the image tower from a torchvision "
+             "resnet50/vit_b_16 state_dict (.safetensors/.pth/.bin) — "
+             "the reference's pretrained=True construction; a restored "
+             "checkpoint still wins",
+    )
+    sp.add_argument(
+        "--init-text-tower", default=None, metavar="FILE_OR_DIR",
+        help="initialize the text tower from an HF BertModel weight file "
+             "or snapshot dir (Bio_ClinicalBERT: model.safetensors / "
+             "pytorch_model.bin; 'bert.'-prefixed keys accepted)",
+    )
+
+
+def _not_ported_help(item: str) -> str:
+    return f"not ported yet (ROADMAP {item}): exits with status 2"
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="clip_for_dl_tpu_torch", description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter,
+    )
+    sub = p.add_subparsers(dest="command", required=True)
+
+    def common(sp):
+        sp.add_argument("--preset", default="zero_shot")
+        sp.add_argument("--checkpoint", default=None,
+                        help="checkpoint dir, reference .pth or .safetensors")
+        sp.add_argument("--checkpoint-dir", default=None)
+        sp.add_argument("--vocab", default=None, help="BERT vocab.txt")
+        sp.add_argument("--log-dir", default="logs")
+        sp.add_argument("--epochs", type=int, default=None)
+        sp.add_argument("--fp32", action="store_true")
+        sp.add_argument("--synthetic", action="store_true")
+        sp.add_argument("--synthetic-samples", type=int, default=64)
+        sp.add_argument("--tiny", action="store_true",
+                        help="shrink towers for smoke runs")
+        sp.add_argument("--reports-csv", default=None,
+                        help="labeled reports CSV (overrides preset)")
+        sp.add_argument("--projections-csv", default=None)
+        sp.add_argument("--image-dir", default=None)
+        sp.add_argument("--image-cache", default=None, metavar="DIR",
+                        help="preprocessed-image cache directory (built by "
+                             "`cache-images`): epochs read decoded uint8 "
+                             "rows from a memmap instead of decoding every "
+                             "image every epoch")
+        sp.add_argument("--device-cache", action="store_true",
+                        help="with --image-cache: copy the WHOLE cache to "
+                             "device memory once and gather batches on the "
+                             "device by index — per batch only the index "
+                             "vector crosses from the host (the Indiana set "
+                             "is ~225 MB grey-packed). Streams with a "
+                             "warning if the set exceeds half the device's "
+                             "memory (CLIP_FOR_DL_TPU_HBM_BYTES overrides)")
+        sp.add_argument("--batch-size", type=int, default=None)
+        sp.add_argument("--num-devices", type=int, default=None,
+                        help=_not_ported_help("A7"))
+        sp.add_argument("--virtual-devices", type=int, default=None,
+                        metavar="N", help=_not_ported_help("A7"))
+        sp.add_argument("--bucket-text", action="store_true",
+                        help="length-bucket text batches (identical math, "
+                             "faster text tower on short reports)")
+        sp.add_argument("--length-grouped", action="store_true",
+                        help="with --bucket-text: group each shuffled "
+                             "epoch's batches by report length (windowed "
+                             "sort, window contents stay random) so short "
+                             "batches actually land in the small buckets")
+        sp.add_argument("--fast-gelu", action="store_true",
+                        help="tanh-approximate GELU in the ViT tower "
+                             "(~1e-3 departure from the torchvision-exact "
+                             "erf — not for parity runs)")
+        sp.add_argument("--fused-mlp", action="store_true",
+                        help="the fused MLP block kernel in the ViT layers "
+                             "(inference)")
+        sp.add_argument("--flash-attention", action="store_true",
+                        help="the fused attention kernels in both towers: "
+                             "forward and backward, dropout inside the "
+                             "kernel, no [B,H,L,L] residual")
+        sp.add_argument("--bert-fused-mlp", action="store_true",
+                        help="the fused Dense-GELU-Dense training kernels "
+                             "in the BERT MLPs: forward and backward, the "
+                             "[B,L,3072] intermediate never reaches memory")
+        sp.add_argument("--vit-fused-mlp-train", action="store_true",
+                        help=_not_ported_help("A8"))
+        sp.add_argument("--bf16-attention-probs", action="store_true",
+                        help="not ported (the attention kernels keep no "
+                             "probabilities): exits with status 2")
+        sp.add_argument("--remat", action="store_true",
+                        help="not ported (torch.utils.checkpoint): exits "
+                             "with status 2")
+        sp.add_argument("--remat-policy", default="full",
+                        choices=("full", "dots", "dots_no_batch"),
+                        help="with --remat")
+        sp.add_argument("--moe-experts", type=int, default=0, metavar="E",
+                        help=_not_ported_help("A7"))
+        sp.add_argument("--allow-partial-restore", action="store_true",
+                        help="accept a checkpoint missing some of the "
+                             "model's arrays (those stay random-init). "
+                             "Default is a hard error — a geometry "
+                             "mismatch would otherwise score with "
+                             "untrained weights")
+        sp.add_argument("--use-ema", action="store_true",
+                        help=_not_ported_help("A3b"))
+        sp.add_argument("--coordinator", default="localhost:12321",
+                        metavar="HOST:PORT", help="with --num-processes")
+        sp.add_argument("--num-processes", type=int, default=1,
+                        help=_not_ported_help("A7"))
+        sp.add_argument("--process-id", type=int, default=0,
+                        help="with --num-processes")
+
+    sp = sub.add_parser("prep", help="label extraction")
+    sp.add_argument("--reports", required=True)
+    sp.add_argument("--out", default="indiana_reports_labeled.csv")
+    sp.add_argument("--unlabeled-out", default="unlabeled_samples.csv")
+    sp.set_defaults(fn=cmd_prep)
+
+    sp = sub.add_parser(
+        "cache-images",
+        help="decode+resize the image set once into a memmap cache "
+             "(pass --image-cache to training/eval commands to use it)",
+    )
+    sp.add_argument("--image-dir", required=True)
+    sp.add_argument("--out", required=True, help="cache directory to write")
+    sp.add_argument("--projections-csv", default=None,
+                    help="cache exactly this CSV's filename column "
+                         "(default: recursive glob of --image-dir)")
+    sp.add_argument("--image-size", type=int, default=224)
+    sp.add_argument("--workers", type=int, default=8)
+    sp.add_argument("--channels", choices=["auto", "rgb"], default="auto",
+                    help="auto (default): pack to one uint8 channel when "
+                         "every image is grayscale (3x smaller cache and "
+                         "host-to-device copy; the same model input — the "
+                         "prep kernel broadcasts grey to RGB). rgb: force "
+                         "3-channel rows")
+    sp.set_defaults(fn=cmd_cache_images)
+
+    sp = sub.add_parser("pretrain", help="CLIP contrastive pretraining")
+    common(sp)
+    sp.add_argument("--lora", type=int, default=0, metavar="RANK",
+                    help=_not_ported_help("A8"))
+    sp.add_argument("--lora-alpha", type=float, default=16.0, help="with --lora")
+    sp.add_argument("--ep", type=int, default=1, help=_not_ported_help("A7"))
+    sp.add_argument("--pp", type=int, default=0, metavar="S",
+                    help=_not_ported_help("A7"))
+    sp.add_argument("--pp-microbatches", type=int, default=2, help="with --pp")
+    sp.add_argument("--loss",
+                    choices=["clip_self_distill", "info_nce", "siglip"],
+                    default=None,
+                    help="override the preset's contrastive loss; info_nce "
+                         "and siglip are not ported yet (ROADMAP A3b)")
+    sp.add_argument("--local-loss", action="store_true",
+                    help=_not_ported_help("A7"))
+    sp.add_argument("--accum-steps", type=int, default=1, metavar="A",
+                    help=_not_ported_help("A7"))
+    sp.add_argument("--bf16-moments", action="store_true",
+                    help=_not_ported_help("A3b"))
+    sp.add_argument("--warmup-steps", type=int, default=0, metavar="N",
+                    help="linear LR warmup over the first N global steps "
+                         "(0 = off, the reference's behavior); composes "
+                         "with the epoch scheduler and survives resume")
+    sp.add_argument("--learnable-temperature", action="store_true",
+                    help=_not_ported_help("A3b"))
+    sp.add_argument("--ema-decay", type=float, default=0.0, metavar="D",
+                    help=_not_ported_help("A3b"))
+    _tower_init_args(sp)
+    sp.set_defaults(fn=cmd_pretrain, preset="pretrain_clip")
+
+    sp = sub.add_parser("train", help="scripts-path multi-view training "
+                                      "(" + _not_ported_help("A6") + ")")
+    common(sp)
+    sp.add_argument("--warmup-steps", type=int, default=0, metavar="N")
+    _tower_init_args(sp)
+    sp.set_defaults(preset="scripts_train")
+
+    sp = sub.add_parser("adapter", help="frozen-CLIP C-Adapter training")
+    common(sp)
+    sp.set_defaults(fn=cmd_adapter, preset="adapter")
+
+    sp = sub.add_parser("shared-adapter", help="shared-embedding adapter "
+                                               "(" + _not_ported_help("A8") + ")")
+    common(sp)
+    sp.set_defaults(preset="adapter")
+
+    sp = sub.add_parser("zeroshot", help="zero-shot evaluation")
+    common(sp)
+    sp.add_argument("--prompts", default="prediction",
+                    choices=["prediction", "basic", "showing", "rich", "findings"],
+                    help="'rich' and 'findings' are not ported yet (ROADMAP A2b)")
+    sp.add_argument("--dynamic", action="store_true",
+                    help="two-pass dynamic-threshold pipeline")
+    sp.add_argument("--tp", type=int, default=1, help=_not_ported_help("A7"))
+    sp.set_defaults(fn=cmd_zeroshot)
+
+    sp = sub.add_parser("gradcam", help="Grad-CAM saliency maps "
+                                        "(" + _not_ported_help("A9") + ")")
+    common(sp)
+    sp.add_argument("--sample_index", type=int, default=0)
+
+    sp = sub.add_parser("rollout", help="ViT attention-rollout saliency "
+                                        "(" + _not_ported_help("A9") + ")")
+    common(sp)
+    sp.add_argument("--sample_index", type=int, default=0)
+    sp.add_argument("--head-fusion", default="mean", choices=["mean", "max", "min"])
+    sp.add_argument("--discard-ratio", type=float, default=0.0)
+    sp.set_defaults(preset="vit")
+
+    sp = sub.add_parser("eval", help="metric suite over a checkpoint")
+    common(sp)
+    sp.add_argument("--bootstrap", type=int, default=0, metavar="B",
+                    help="append percentile-bootstrap 95%% confidence "
+                         "intervals over B sample resamples to every "
+                         "metric (0 = point estimates only)")
+    sp.add_argument("--head", default="zeroshot",
+                    choices=["zeroshot", "adapter"],
+                    help="scoring head: 'zeroshot' = sigmoid(sim*4) vs the "
+                         "prompt bank (load_model.py contract); 'adapter' "
+                         "= the trained C-Adapter classifier (02 nb cell "
+                         "30 contract — use the `adapter` command's "
+                         "--checkpoint-dir output)")
+    sp.set_defaults(fn=cmd_eval)
+
+    sp = sub.add_parser("serve", help="dynamic-batching HTTP inference server "
+                                      "(" + _not_ported_help("A2b") + ")")
+    common(sp)
+    sp.add_argument("--prompts", default="prediction",
+                    choices=["prediction", "basic", "showing", "rich", "findings"])
+    sp.add_argument("--host", default="0.0.0.0")
+    sp.add_argument("--port", type=int, default=8008)
+    sp.add_argument("--threshold", type=float, default=0.5)
+    sp.add_argument("--thresholds", default=None, metavar="FILE")
+    sp.add_argument("--buckets", type=int, nargs="+", default=[1, 4, 16, 64])
+    sp.add_argument("--max-wait-ms", type=float, default=5.0)
+    sp.add_argument("--max-pending", type=int, default=256)
+    sp.add_argument("--tp", type=int, default=1)
+    sp.add_argument("--exported", default=None, metavar="DIR")
+    sp.add_argument("--head", default="zeroshot", choices=["zeroshot", "adapter"])
+
+    sp = sub.add_parser(
+        "convert",
+        help="checkpoint interop: checkpoint dir / .pth / .safetensors → "
+             "reference-layout .pth or .safetensors",
+    )
+    common(sp)
+    sp.add_argument("--out", required=True,
+                    help="output file (.safetensors, .pth or .pt)")
+    sp.add_argument("--epoch", type=int, default=None,
+                    help="epoch stamp for the artifact header (default: "
+                         "the epoch carried by the source checkpoint, "
+                         "0 for fresh-init sources)")
+    sp.set_defaults(fn=cmd_convert)
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    refused = _unported(args)
+    if refused:
+        print(f"error: {refused}", file=sys.stderr)
+        return 2
+    try:
+        args.device = _device()
+    except RuntimeError as exc:
+        print(f"error: {exc} (set {ENV_FORCE_CPU}=1 to run on the CPU)", file=sys.stderr)
+        return 1
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

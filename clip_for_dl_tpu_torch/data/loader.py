@@ -1,6 +1,5 @@
-"""Host-side batch loader with threaded prefetch (the host half of
-``clip_for_dl_tpu.data.loader``; its ``prefetch_to_device`` is not ported
-yet).
+"""Host-side batch loader with threaded prefetch, and the copy of its
+batches to the device (counterpart of ``clip_for_dl_tpu.data.loader``).
 
 The reference uses torch DataLoader with 4 worker processes
 (0425/prepare_data.py:256-268). Here a thread pool decodes images (zlib and
@@ -10,6 +9,10 @@ consumer.
 
 Fixed shapes: the final partial batch is padded and carries a ``mask``, so
 every batch has one shape.
+
+``prefetch_to_device`` copies batch N+1 to the card while batch N computes:
+from pinned host memory, on a side CUDA stream, and the consumer's stream
+waits for that copy's event before it uses the batch.
 
 One reference fault is not copied: the JAX ``_drain_producer`` gives up on
 a producer that does not stop (a dataset ``__getitem__`` stuck in I/O)
@@ -23,9 +26,12 @@ import logging
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from queue import Empty, Full, Queue
-from typing import Any, Dict, Iterator, Optional, Sequence
+from typing import Any, Callable, Dict, Iterator, Optional, Sequence
 
 import numpy as np
+import torch
+
+from ..core.device import resolve_device
 
 logger = logging.getLogger("clip_for_dl_tpu_torch.loader")
 
@@ -335,3 +341,101 @@ def _pad_batch(batch: Dict[str, Any], size: int, real: int) -> Dict[str, Any]:
     mask[:real] = 1.0
     out["mask"] = mask
     return out
+
+
+def prefetch_to_device(
+    iterator: Iterator[Dict[str, Any]],
+    device=None,
+    keys: Optional[Sequence[str]] = None,
+    transform: Optional[Callable[[Dict], Dict]] = None,
+    threaded: bool = False,
+    depth: int = 2,
+) -> Iterator[Dict[str, Any]]:
+    """Double-buffered host-to-device copy: batch N+1 is copied while batch
+    N computes. ``device`` is the card unless another is named (the CPU
+    tests pass ``"cpu"``).
+
+    Each numpy entry (of ``keys``, when given) becomes a tensor on
+    ``device``; tensors already there and other entries (strings, lists)
+    pass through untouched. ``transform`` runs on the host first. On the
+    card an entry is staged in pinned memory and copied with
+    ``non_blocking=True`` on a side stream; the consumer's stream waits on
+    that copy's event before the batch is yielded, and each copied tensor
+    is recorded on the consumer's stream, so the allocator does not reuse
+    its memory while the consumer's work is queued.
+
+    ``threaded=True`` moves the host read and the copy into a producer
+    thread behind a queue ``depth`` batches deep; the producer's exceptions
+    re-raise in the consumer, and a consumer that leaves early stops it."""
+    dev = resolve_device(device)
+    cuda = dev.type == "cuda"
+    side = torch.cuda.Stream(dev) if cuda else None
+    consumer = torch.cuda.current_stream(dev) if cuda else None
+
+    def put(batch: Dict[str, Any]):
+        if transform is not None:
+            batch = transform(batch)
+        out = {}
+        for k, v in batch.items():
+            if isinstance(v, np.ndarray) and (keys is None or k in keys):
+                t = torch.from_numpy(np.ascontiguousarray(v))
+                if cuda:
+                    with torch.cuda.stream(side):
+                        t = t.pin_memory().to(dev, non_blocking=True)
+                else:
+                    t = t.to(dev)
+                out[k] = t
+            else:
+                out[k] = v
+        done = None
+        if cuda:
+            done = torch.cuda.Event()
+            done.record(side)
+        return out, done
+
+    def ready(item):
+        out, done = item
+        if done is not None:
+            consumer.wait_event(done)
+            for v in out.values():
+                if isinstance(v, torch.Tensor) and v.device.type == "cuda":
+                    v.record_stream(consumer)
+        return out
+
+    if threaded:
+        q: Queue = Queue(maxsize=max(1, depth))
+        finished = object()
+        stop = threading.Event()
+
+        def producer():
+            try:
+                for batch in iterator:
+                    if stop.is_set() or not _bounded_put(q, put(batch), stop):
+                        return
+            except BaseException as exc:  # re-raised consumer-side
+                _bounded_put(q, exc, stop)
+                return
+            _bounded_put(q, finished, stop)
+
+        t = threading.Thread(target=producer, daemon=True, name="prefetch_to_device")
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is finished:
+                    return
+                if isinstance(item, BaseException):
+                    raise item
+                yield ready(item)
+        finally:
+            _drain_producer(q, stop, t)
+        return
+
+    pending = None
+    for batch in iterator:
+        nxt = put(batch)
+        if pending is not None:
+            yield ready(pending)
+        pending = nxt
+    if pending is not None:
+        yield ready(pending)

@@ -29,6 +29,7 @@ from .core.device import cast_matmul_weights, resolve_device
 from .models import CXRClip, init_weights
 from .ops.image_prep import preprocess_images
 from .ops.similarity import similarity
+from .zeroshot.engine import to_device
 from .zeroshot.prompts import create_basic_prompts
 
 
@@ -89,13 +90,6 @@ def load_trained_model(
     return model.eval()
 
 
-def _to_device(images_u8, device: torch.device) -> torch.Tensor:
-    imgs = torch.as_tensor(np.ascontiguousarray(images_u8))
-    if device.type == "cuda":  # from pageable memory the copy waits for the stream
-        imgs = imgs.pin_memory()
-    return imgs.to(device, non_blocking=True)
-
-
 class InferenceSession:
     """``get_model_predictions`` as a reusable session: the prompt features
     are encoded once. ``model`` is a port ``CXRClip`` on its device (see
@@ -143,7 +137,7 @@ class InferenceSession:
     def __call__(self, images_u8) -> Tuple[np.ndarray, np.ndarray]:
         """[B, 2, H, W, C] uint8 (C = 3, or 1 for grey) → (binary predictions
         [B, C], probabilities [B, C])."""
-        probs = self._forward(_to_device(images_u8, self.device)).cpu().numpy()
+        probs = self._forward(to_device(images_u8, self.device)).cpu().numpy()
         return (probs > self.threshold).astype(np.float32), probs
 
 
@@ -177,10 +171,10 @@ class AdapterEngine:
     def _dispatch(self, images_u8) -> Tuple[torch.Tensor, int]:
         """Queue one batch; returns (device logits [B, C], rows). A
         [B, V, H, W, C] batch is flattened to its views."""
-        imgs = np.asarray(images_u8)
-        if imgs.ndim == 5:
+        imgs = to_device(images_u8, self.device)
+        if imgs.dim() == 5:
             imgs = imgs.reshape(-1, *imgs.shape[2:])
-        return self._logits(_to_device(imgs, self.device)), imgs.shape[0]
+        return self._logits(imgs), imgs.shape[0]
 
     def logits(self, images_u8) -> np.ndarray:
         out, n_real = self._dispatch(images_u8)

@@ -224,6 +224,40 @@ class BertTokenizer:
             "token_type_ids": np.zeros_like(input_ids),
         }
 
+    def encode_bucketed(
+        self,
+        texts: Sequence[str] | str,
+        max_length: int = 512,
+        buckets: Sequence[int] = (32, 64, 128),
+    ) -> Dict[str, np.ndarray]:
+        """Length-bucketed encode: pad to the smallest bucket ≥ the batch's
+        longest sequence (capped at max_length).
+
+        The same features as padding='max_length' (masked attention makes
+        padded positions inert), but a batch of short reports runs the text
+        tower on a fraction of the 200/512-token pad, at one of a few
+        shapes."""
+        enc = self.encode(texts, max_length=max_length, padding="longest")
+        cur = enc["input_ids"].shape[1]
+        target = max_length
+        for b in sorted(buckets):
+            if cur <= b <= max_length:
+                target = b
+                break
+        if target > cur:
+            pad = target - cur
+            n = enc["input_ids"].shape[0]
+            enc["input_ids"] = np.concatenate(
+                [enc["input_ids"], np.full((n, pad), self.pad_id, np.int32)], 1
+            )
+            enc["attention_mask"] = np.concatenate(
+                [enc["attention_mask"], np.zeros((n, pad), np.int32)], 1
+            )
+            enc["token_type_ids"] = np.zeros_like(enc["input_ids"])
+        elif target < cur:
+            enc = {k: v[:, :target] for k, v in enc.items()}
+        return enc
+
 
 def build_tiny_vocab(words: Iterable[str], do_lower_case: bool = False) -> Dict[str, int]:
     """Test/dev helper: specials + whole words + all char pieces."""
@@ -254,10 +288,16 @@ _DEV_WORDS = (
 )
 
 
-def build_dev_vocab(disease_labels: Sequence[str]) -> Dict[str, int]:
-    """The JAX CLI's synthetic vocabulary for ``disease_labels``."""
-    return build_tiny_vocab(
+def dev_words(disease_labels: Sequence[str]) -> List[str]:
+    """The words of the JAX CLI's synthetic vocabulary: the prompt
+    templates' words and the disease names, cased and lowercased."""
+    return (
         _DEV_WORDS.split()
         + [w for d in disease_labels for w in d.split()]
         + [w for d in disease_labels for w in d.lower().split()]
     )
+
+
+def build_dev_vocab(disease_labels: Sequence[str]) -> Dict[str, int]:
+    """The JAX CLI's synthetic vocabulary for ``disease_labels``."""
+    return build_tiny_vocab(dev_words(disease_labels))

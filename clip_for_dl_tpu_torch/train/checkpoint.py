@@ -354,6 +354,19 @@ def reference_models(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Dict[s
     return models
 
 
+def save_reference_checkpoint(state_dict: Mapping[str, torch.Tensor], path: str,
+                              epoch: int = 0) -> str:
+    """A port ``CXRClip`` state dict (:func:`model_state`) → the reference's
+    ``.pth`` checkpoint ``{epoch, models: {name: state_dict}}``, floating
+    tensors in fp32 on the host (counterpart of the JAX
+    ``models/torch_export.py save_reference_checkpoint``)."""
+    models = {name: {k: v.detach().to("cpu", torch.float32) if v.is_floating_point()
+                     else v.detach().cpu() for k, v in sd.items()}
+              for name, sd in reference_models(state_dict).items()}
+    torch.save({"epoch": int(epoch), "models": models}, path)
+    return path
+
+
 def import_reference_checkpoint(path: str) -> Dict[str, Any]:
     """Load a reference checkpoint ``{epoch, models: {name: state_dict},
     ...}`` (a torch ``.pth`` pickle: load only files you trust) or its flat

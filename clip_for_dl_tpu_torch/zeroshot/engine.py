@@ -12,7 +12,8 @@ Counterpart of ``clip_for_dl_tpu.zeroshot.engine``:
 
 ``_dispatch`` returns the device tensor without synchronising: the uint8
 batch is staged in pinned memory, so its copy to the device is queued like
-the kernels. ``stream_logits`` queues batch N+1, and the copy of its logits
+the kernels; a batch already on the device (``--device-cache``) is used
+where it lies. ``stream_logits`` queues batch N+1, and the copy of its logits
 to the host, before it waits for batch N's copy alone (:class:`HostCopy`),
 so the host stages the next batch while the device computes.
 """
@@ -71,6 +72,20 @@ def encode_prompt_bank(
     np.add.at(sums, seg, all_feats)
     counts = np.bincount(seg, minlength=c).astype(np.float32)[:, None]
     return torch.from_numpy(sums / np.maximum(counts, 1.0))
+
+
+def to_device(images_u8, device: torch.device) -> torch.Tensor:
+    """A batch of images as a tensor on ``device``: a tensor already there
+    passes untouched (a batch gathered on the card by the device cache
+    never returns to the host); a host array or tensor is staged in pinned
+    memory and copied without blocking (from pageable memory the copy
+    would wait for the whole stream)."""
+    if isinstance(images_u8, torch.Tensor) and images_u8.device == device:
+        return images_u8
+    imgs = torch.as_tensor(np.ascontiguousarray(images_u8))
+    if device.type == "cuda":
+        imgs = imgs.pin_memory()
+    return imgs.to(device, non_blocking=True)
 
 
 class HostCopy:
@@ -157,14 +172,10 @@ class ZeroShotEngine:
         """Queue one batch; returns (device logits [B, C], rows) unsynchronised."""
         if self.text_features is None:
             raise RuntimeError("call build_text_features first")
-        imgs = torch.as_tensor(np.ascontiguousarray(images_u8))
+        imgs = to_device(images_u8, self.device)
         if imgs.dim() == 5:
             imgs = imgs.reshape(-1, *imgs.shape[2:])
-        n_real = imgs.shape[0]
-        if self.device.type == "cuda":
-            # from pageable memory the copy would wait for the whole stream
-            imgs = imgs.pin_memory()
-        return self._logits(imgs.to(self.device, non_blocking=True)), n_real
+        return self._logits(imgs), imgs.shape[0]
 
     def logits(self, images_u8) -> np.ndarray:
         """[B, H, W, C] uint8 (or [B, V, H, W, C], flattened) → [B, C]."""

@@ -1401,3 +1401,81 @@ def test_eval_from_files_runs_b1_to_b4_on_the_card(cuda, tmp_path):
     n = len(loader.dataset)
     assert len(zs["predictions"]) == len(dyn["predictions"]) == n
     assert all(0 < len(p) for p in zs["predictions"])
+
+
+def _grey_cache(tmp_path, n=6):
+    import numpy as np
+
+    from clip_for_dl_tpu_torch.data import build_image_cache
+    from clip_for_dl_tpu_torch.testing.png import write_png
+
+    rng = np.random.default_rng(2)
+    paths = []
+    for i in range(n):
+        paths.append(str(tmp_path / f"CXR{i}_IM.png"))
+        write_png(paths[-1], rng.integers(0, 256, (40, 36), np.uint8))
+    return build_image_cache(paths, 32, str(tmp_path / "cache"), workers=2), paths
+
+
+def test_device_cache_gathers_on_the_card(cuda, tmp_path):
+    """The whole cache in one card tensor; gather selects rows there: the
+    disk cache's bytes, −1 the zero image; rows out of range raise."""
+    import numpy as np
+
+    from clip_for_dl_tpu_torch.data import DeviceImageCache
+
+    cache, paths = _grey_cache(tmp_path)
+    dcache = DeviceImageCache(cache, device=cuda)
+    assert dcache.array.device.type == "cuda" and dcache.array.shape == (7, 32, 32, 1)
+    rows = np.array([[0, 5], [3, -1]])
+    got = dcache.gather(rows)
+    assert got.device.type == "cuda" and got.shape == (2, 2, 32, 32, 1)
+    for (i, j), r in np.ndenumerate(rows):
+        want = cache.get(paths[r]) if r >= 0 else np.zeros((32, 32, 1), np.uint8)
+        assert (got[i, j].cpu().numpy() == want).all()
+    for bad in ([-2], [6]):
+        with pytest.raises(IndexError):
+            dcache.gather(np.array(bad))
+
+
+@pytest.mark.parametrize("threaded", [False, True])
+def test_prefetch_to_device_on_the_card(cuda, threaded):
+    """Numpy batches reach the card equal, each copied on a side stream the
+    consumer's stream waits for; tensors already there pass untouched."""
+    import numpy as np
+
+    from clip_for_dl_tpu_torch.data import prefetch_to_device
+
+    rng = np.random.default_rng(0)
+    on_card = torch.ones(3, device=cuda)
+    batches = [{"images": rng.integers(0, 256, (64, 224, 224, 1), np.uint8),
+                "ids": rng.integers(0, 100, (64, 200)).astype(np.int32), "kept": on_card}
+               for _ in range(6)]
+    got = []
+    for b in prefetch_to_device(iter(batches), device=cuda, threaded=threaded):
+        # consumer work queued behind the copy on the current stream
+        got.append((b["images"].sum(), b["ids"].clone(), b["kept"]))
+    assert len(got) == len(batches)
+    for (total, ids, kept), b in zip(got, batches):
+        assert ids.device.type == "cuda" and kept is on_card
+        assert int(total) == int(b["images"].sum(dtype=np.int64))
+        assert (ids.cpu().numpy() == b["ids"]).all()
+
+
+def test_cli_zeroshot_tiny_on_the_card(cuda, tmp_path):
+    """python -m clip_for_dl_tpu_torch zeroshot --tiny on the card: exit 0
+    and the metrics printed."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    env = {k: v for k, v in os.environ.items() if k != "CLIP_FOR_DL_TPU_FORCE_CPU"}
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-m", "clip_for_dl_tpu_torch", "zeroshot", "--tiny", "--synthetic",
+         "--synthetic-samples", "32", "--flash-attention", "--log-dir", str(tmp_path)],
+        cwd=root, env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    metrics = json.loads(proc.stdout)  # the command's only output: the metrics
+    assert "mAP" in metrics and os.path.exists(tmp_path / "zero_shot_results.csv")
