@@ -150,7 +150,12 @@ c8_cases).
    --preset vit --fused-mlp (B9); then zeroshot against itself on the plain
    route, phase 8's split: B2 and B1 at the command's inputs and the image
    half bound below their spreads, the text half and the whole route
-   printed with theirs. Prints each command's wall time, pretrain and
+   printed with theirs; B3, B6, B4 and B8 at the first inputs pretrain
+   gave them (dropout 0.1, a bucketed length), B3 and B4 at the prompt
+   bank's and B3 and B9 at the ViT tower's, each against its plain version
+   at its phase-2 tolerance; and pretrain's first step from the weights it
+   started from against the plain route, as in phase 4. Prints each
+   command's wall time, pretrain and
    adapter samples/s (steps synced) and checkpoint save ms, the cache build
    img/s and zeroshot views/s. Then tools/launch_times.py times the
    wrappers from the host.
@@ -162,6 +167,7 @@ The second-to-last line is the kernels JSON; the last line is
 from __future__ import annotations
 
 import argparse
+import copy
 import csv
 import itertools
 import json
@@ -1641,23 +1647,92 @@ def train_fp32_phase(_build, mods, dev, seed: int) -> dict:
     return launches
 
 
+# the entries through which the wrappers launch the kernels of the main
+# paths: (module, entry, its plain version, the kernels line's name)
+ENTRIES = (
+    ("similarity", "_kernel", "similarity_reference", "similarity"),
+    ("image_prep", "_kernel", "preprocess_reference", "image_prep"),
+    ("flash_attention", "_kernel", "flash_attention_packed_reference", "flash_attention"),
+    ("flash_attention", "_kernel_bwd", "flash_attention_packed_bwd_reference",
+     "flash_attention_bwd"),
+    ("mlp_train", "_kernel", "dense_gelu_dense_reference", "mlp"),
+    ("mlp_train", "_kernel_bwd", "dense_gelu_dense_bwd_reference", "mlp_bwd"),
+    ("mlp_block", "_kernel", "fused_mlp_block_reference", "mlp_block"),
+)
+
+
 def plain_kernels(mods, keep=()):
     """Test-only substitution: every kernel entry, forward and backward,
     replaced by its plain version, as phase 2 calls it (the wrappers' own
     dispatch is untouched); the modules named in ``keep`` keep theirs."""
     stack = ExitStack()
-    for module, entry, plain in (
-            ("similarity", "_kernel", "similarity_reference"),
-            ("image_prep", "_kernel", "preprocess_reference"),
-            ("flash_attention", "_kernel", "flash_attention_packed_reference"),
-            ("flash_attention", "_kernel_bwd", "flash_attention_packed_bwd_reference"),
-            ("mlp_train", "_kernel", "dense_gelu_dense_reference"),
-            ("mlp_train", "_kernel_bwd", "dense_gelu_dense_bwd_reference"),
-            ("mlp_block", "_kernel", "fused_mlp_block_reference")):
+    for module, entry, plain, _ in ENTRIES:
         if module not in keep:
             stack.enter_context(mock.patch.object(mods[module], entry,
                                                   getattr(mods[module], plain)))
     return stack
+
+
+def first_inputs(mods, which: dict):
+    """Test-only patches that keep a copy of the inputs of one call of each
+    kernel named in ``which`` (the kernels line's names): the first call,
+    or the first for which ``which[name](args, kwargs)`` is true. Every call
+    goes on to the kernel. Returns (the patches, name -> (args, kwargs))."""
+    import torch
+
+    def clone(x):
+        return x.detach().clone() if torch.is_tensor(x) else x
+
+    kept, stack = {}, ExitStack()
+    for module, entry, _, name in ENTRIES:
+        if name not in which:
+            continue
+
+        def keep(*a, _name=name, _kernel=getattr(mods[module], entry), **kw):
+            wanted = which[_name]
+            if _name not in kept and (wanted is None or wanted(a, kw)):
+                kept[_name] = (tuple(map(clone, a)), {k: clone(v) for k, v in kw.items()})
+            return _kernel(*a, **kw)
+
+        stack.enter_context(mock.patch.object(mods[module], entry, keep))
+    return stack, kept
+
+
+def hold_first_inputs(mods, kept: dict, which, where: str, results: dict) -> None:
+    """Each kernel that first_inputs kept against its plain version on the
+    same tensors, at its phase-2 tolerance (B6 per (batch row, head) slice,
+    B8 and B9 relative to each output's largest entry)."""
+    import torch
+
+    check(set(kept) == set(which), f"{where}: kept the inputs of {sorted(kept)}, not of "
+                                   f"{sorted(which)}")
+    fa, mlp, blk = mods["flash_attention"], mods["mlp_train"], mods["mlp_block"]
+    for name in sorted(kept):
+        a, kw = kept[name]
+        shapes = " ".join(str(list(t.shape)) for t in a if torch.is_tensor(t))
+        rate = f", dropout {kw['dropout_rate']}" if kw.get("dropout_rate") else ""
+        print(f"  {name} at {where}'s inputs {shapes} {a[0].dtype}{rate}:")
+        if name == "flash_attention":
+            compare(name, fa._kernel(*a, **kw), fa.flash_attention_packed_reference(*a, **kw),
+                    TOL[name], results)
+        elif name == "flash_attention_bwd":
+            compare_grads(name, fa._kernel_bwd(*a, **kw),
+                          fa.flash_attention_packed_bwd_reference(*a, **kw), "packed", results,
+                          a[2])
+        elif name == "mlp":
+            compare(name, mlp._kernel(*a), mlp.dense_gelu_dense_reference(*a), TOL[name],
+                    results)
+        elif name == "mlp_bwd":
+            for part, got, want in zip(("dx", "g", "dh"), mlp._kernel_bwd(*a),
+                                       mlp.dense_gelu_dense_bwd_reference(*a)):
+                print(f"    {part}:", end="")
+                compare(name, got, want, TOL["bwd_rel"] * float(want.float().abs().max()),
+                        results)
+        else:  # B9: its MLP branch out - x, as check_mlp_block holds it
+            x = a[0].float()
+            want = blk.fused_mlp_block_reference(*a, **kw).float() - x
+            compare(name, blk._kernel(*a, **kw).float() - x, want,
+                    TOL["mlp_block_rel"] * float(want.abs().max()), results)
 
 
 def describe(cfg) -> str:
@@ -1956,6 +2031,53 @@ def phase4(_build, mods, dev, seed: int, card: str) -> dict:
     check(n_moved == len(stats), "BatchNorm running statistics did not all move")
     check_launched(mods, launches, "train")
     return launches
+
+
+def step_against_plain(_build, mods, first: dict, groups) -> None:
+    """Phase 4's check on the first step a command took: its step function
+    from the weights, optimizer state and generator state that step started
+    from, on the batch it took, at dropout 0, once with the kernels and once
+    with their plain versions (B2 kept, as in phase 4); the loss within
+    train_loss_rel and each parameter group's gradient cosine at least
+    grad_cos."""
+    import torch
+
+    from clip_for_dl_tpu_torch.train import TrainState, make_label_fn
+
+    model, opt = first["state"].model, first["state"].optimizer
+    label_fn = make_label_fn(groups)
+
+    def one_step():
+        model.load_state_dict(first["weights"])
+        opt.load_state_dict(first["optimizer"])
+        for m in model.modules():
+            if isinstance(m, torch.nn.Dropout):
+                m.p = 0.0
+        if first["generator"] is not None:
+            first["rest"][-1].set_state(first["generator"])
+        out = first["step"](TrainState(model, opt), first["batch"], *first["rest"])
+        return float(out[1]["loss"]), group_grads(model, label_fn)
+
+    cudnn = torch.backends.cudnn
+    flags = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        loss_k, grads_k = one_step()
+        with plain_kernels(mods, keep=("image_prep",)):
+            before = dict(_build.LAUNCHES)
+            loss_p, grads_p = one_step()
+            check(all(v == before.get(k) for k, v in _build.LAUNCHES.items()
+                      if k != mods["image_prep"].KERNEL),
+                  "a kernel other than B2 ran during the plain step")
+    finally:
+        cudnn.deterministic, cudnn.benchmark = flags
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    print(f"  the command's first step, dropout 0: loss {loss_k:.6f} with the kernels, "
+          f"{loss_p:.6f} with the plain versions (rel {loss_err:.2e}, tol "
+          f"{TOL['train_loss_rel']:.0e})")
+    check(loss_err <= TOL["train_loss_rel"], "the command's step loss differs from the plain "
+                                             "step's")
+    compare_groups("the command's first step", grads_k, grads_p, groups, TOL["grad_cos"])
 
 
 def states_equal(a: dict, b: dict) -> bool:
@@ -2593,6 +2715,7 @@ def cli_phase(_build, mods, dev, seed: int, card: str, workdir: str, results: di
     engine_module = importlib.import_module("clip_for_dl_tpu_torch.zeroshot.engine")
     from clip_for_dl_tpu_torch import inference, zeroshot
     from clip_for_dl_tpu_torch.core.config import get_preset
+    from clip_for_dl_tpu_torch.core.device import to_device
     from clip_for_dl_tpu_torch.data import DeviceImageCache, read_csv
     from clip_for_dl_tpu_torch.models import CXRClip
     from clip_for_dl_tpu_torch.text import load_vocab
@@ -2651,14 +2774,24 @@ def cli_phase(_build, mods, dev, seed: int, card: str, workdir: str, results: di
     logs, pre, ad = f"{work}/logs", f"{work}/pretrain", f"{work}/adapter"
 
     # -- pretrain, the adapter: timed epochs and checkpoint saves ------------------
-    epochs, saves = [], []
+    epochs, saves, first_step = [], [], {}
     run_epoch, save = loop.run_epoch, CheckpointManager.save
 
     def timed_epoch(step_fn, state, loader, *a, **kw):
-        """The epoch with each step synced and timed: (batch sizes, step s)."""
+        """The epoch with each step synced and timed: (batch sizes, step s);
+        the phase's first step is kept with what it started from."""
         sizes, steps = [], []
 
         def timed_step(st, batch, *rest):
+            if not first_step:
+                gen = rest[-1] if isinstance(rest[-1], torch.Generator) else None
+                first_step.update(
+                    step=step_fn, state=st, rest=rest,
+                    batch={k: v.clone() if torch.is_tensor(v) else np.array(v, copy=True)
+                           for k, v in batch.items()},
+                    weights={k: v.detach().clone() for k, v in st.model.state_dict().items()},
+                    optimizer=copy.deepcopy(st.optimizer.state_dict()),
+                    generator=None if gen is None else gen.get_state())
             t0 = time.perf_counter()
             out = step_fn(st, batch, *rest)
             torch.cuda.synchronize(dev)
@@ -2676,12 +2809,15 @@ def cli_phase(_build, mods, dev, seed: int, card: str, workdir: str, results: di
         save(self, *a, **kw)
         saves.append((time.perf_counter() - t0) * 1e3)
 
+    train_kernels = dict.fromkeys(("flash_attention", "flash_attention_bwd", "mlp", "mlp_bwd"))
+    stack, pretrain_in = first_inputs(mods, train_kernels)
     with mock.patch.object(loop, "run_epoch", timed_epoch), \
             mock.patch.object(CheckpointManager, "save", timed_save):
-        run("pretrain", ["pretrain", *data, *kernels, "--epochs", "1", "--device-cache",
-                         "--bucket-text", "--length-grouped", "--init-image-tower", image_tower,
-                         "--init-text-tower", text_tower, "--checkpoint-dir", pre,
-                         "--log-dir", logs], "cli_pretrain")
+        with stack:
+            run("pretrain", ["pretrain", *data, *kernels, "--epochs", "1", "--device-cache",
+                             "--bucket-text", "--length-grouped", "--init-image-tower",
+                             image_tower, "--init-text-tower", text_tower, "--checkpoint-dir",
+                             pre, "--log-dir", logs], "cli_pretrain")
         pre_epoch, pre_saves = epochs.pop(), list(saves)
         saves.clear()
         run("adapter", ["adapter", *data, *kernels, "--epochs", "1", "--checkpoint", pre,
@@ -2758,7 +2894,9 @@ def cli_phase(_build, mods, dev, seed: int, card: str, workdir: str, results: di
 
     zs = ["zeroshot", *data, *kernels, "--checkpoint", pre]
     stack, kernel_rec = recorders()
-    with stack, mock.patch.object(zeroshot, "run_zero_shot_eval", timed_driver):
+    bank_kernels = dict.fromkeys(("flash_attention", "mlp"))
+    bank_stack, bank_in = first_inputs(mods, bank_kernels)
+    with stack, bank_stack, mock.patch.object(zeroshot, "run_zero_shot_eval", timed_driver):
         run("zeroshot", [*zs, "--log-dir", f"{work}/zs"], "cli_zeroshot")
     with open(f"{work}/zs/zero_shot_results.csv", newline="") as f:
         n_val = len(list(csv.reader(f))) - 1
@@ -2798,7 +2936,7 @@ def cli_phase(_build, mods, dev, seed: int, card: str, workdir: str, results: di
 
     # -- the device cache: the same bytes through the same B2 --------------------------
     gathered, reached = [], []
-    gather, to_device = DeviceImageCache.gather, engine_module.to_device
+    gather = DeviceImageCache.gather
 
     def rec_gather(self, r):
         out = gather(self, r)
@@ -2831,8 +2969,13 @@ def cli_phase(_build, mods, dev, seed: int, card: str, workdir: str, results: di
           f"batches reached the model as the gathered device tensors")
 
     # -- the ViT preset, B9 on the command line path -------------------------------------
-    run("zeroshot --preset vit", ["zeroshot", *data, *kernels, "--preset", "vit", "--fused-mlp",
-                                  "--log-dir", f"{work}/zs_vit"], "cli_zeroshot_vit")
+    vit_kernels = {"flash_attention": lambda a, kw: a[0].shape[1] == VIT_TOKENS,
+                   "mlp_block": None}  # B3 in the image tower, not in the bank
+    stack, vit_in = first_inputs(mods, vit_kernels)
+    with stack:
+        run("zeroshot --preset vit", ["zeroshot", *data, *kernels, "--preset", "vit",
+                                      "--fused-mlp", "--log-dir", f"{work}/zs_vit"],
+            "cli_zeroshot_vit")
 
     # -- zeroshot against itself on the plain route ---------------------------------------
     stack, plain_rec = recorders()
@@ -2873,6 +3016,14 @@ def cli_phase(_build, mods, dev, seed: int, card: str, workdir: str, results: di
              TOL["eval_vs_plain"], {"views": apart(plain_probs)}, False)):
         held(what, got, want_, tol, spreads, failures, bound=bound)
     check(not failures, "; ".join(failures))
+    print("phase 9, the kernels of the other commands against their plain versions at the "
+          "first inputs each command gave them:")
+    hold_first_inputs(mods, pretrain_in, train_kernels, "pretrain", results)
+    hold_first_inputs(mods, bank_in, bank_kernels, "zeroshot's prompt bank", results)
+    hold_first_inputs(mods, vit_in, vit_kernels, "zeroshot --preset vit", results)
+    print("phase 9, pretrain's first step against the plain route (phase 4's check):")
+    step_against_plain(_build, mods, first_step,
+                       [g.name for g in get_preset("pretrain_clip").train.groups])
     print(f"phase 9 on {card}: cache build {n_cached / walls['cache-images']:.1f} img/s "
           f"({n_cached} PNGs -> 224x224 grey, the command's wall time); command wall times "
           f"{json.dumps({k: round(v, 2) for k, v in walls.items()})} s")

@@ -24,6 +24,7 @@ weight either way.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 from torch.nn.utils import parametrize
@@ -48,6 +49,20 @@ def resolve_device(device=None) -> torch.device:
     if device is None or torch.device(device).type == "cuda":
         return require_cuda(device)
     return torch.device(device)
+
+
+def to_device(images_u8, device: torch.device) -> torch.Tensor:
+    """A batch of images as a tensor on ``device``: a tensor already there
+    passes untouched (a batch gathered on the card by the device cache
+    never returns to the host); a host array or tensor is staged in pinned
+    memory and copied without blocking (from pageable memory the copy
+    would wait for the whole stream)."""
+    if isinstance(images_u8, torch.Tensor) and images_u8.device == device:
+        return images_u8
+    imgs = torch.as_tensor(np.ascontiguousarray(images_u8))
+    if device.type == "cuda":
+        imgs = imgs.pin_memory()
+    return imgs.to(device, non_blocking=True)
 
 
 def _compute_dtype_params(module: nn.Module):

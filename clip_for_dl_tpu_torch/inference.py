@@ -25,11 +25,10 @@ import numpy as np
 import torch
 
 from .core.config import DISEASE_LABELS, ExperimentConfig, get_preset
-from .core.device import cast_matmul_weights, resolve_device
+from .core.device import cast_matmul_weights, resolve_device, to_device
 from .models import CXRClip, init_weights
 from .ops.image_prep import preprocess_images
 from .ops.similarity import similarity
-from .zeroshot.engine import to_device
 from .zeroshot.prompts import create_basic_prompts
 
 

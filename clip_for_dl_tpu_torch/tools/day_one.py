@@ -26,12 +26,13 @@ Bio_ClinicalBERT's 28996 entries at full width, the preset's
 dicts carry torchvision's and HF's names.
 
 Usage:
-    python -m clip_for_dl_tpu_torch.tools.day_one          # --tiny --fp32 on the CPU
-    python -m clip_for_dl_tpu_torch.tools.day_one --full   # full width on the card
+    python -m clip_for_dl_tpu_torch.tools.day_one                   # full width on the card
+    python -m clip_for_dl_tpu_torch.tools.day_one --cpu-rehearsal   # --tiny --fp32 on the CPU
 
-The rehearsal runs on the CPU through ``CLIP_FOR_DL_TPU_FORCE_CPU``; ``--full``
-needs the card. The JAX tool's last leg (``parity_harness`` against the torch
-reference) stays JAX-only.
+The chain runs on the card; ``--cpu-rehearsal`` asks for the CPU (it sets
+``CLIP_FOR_DL_TPU_FORCE_CPU``) and runs it at tiny width in fp32. The JAX
+tool's last leg (``parity_harness`` against the torch reference) stays
+JAX-only.
 """
 
 from __future__ import annotations
@@ -123,15 +124,21 @@ def run_cli(argv) -> None:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--full", action="store_true",
-                   help="full width on the card; default: --tiny --fp32 on the CPU")
+    p.add_argument("--cpu-rehearsal", action="store_true",
+                   help="--tiny --fp32 on the CPU (sets CLIP_FOR_DL_TPU_FORCE_CPU); "
+                        "default: full width on the card")
     p.add_argument("--work", default=None, help="working dir (default: a temp dir, removed)")
     p.add_argument("--keep", action="store_true")
     p.add_argument("--uids", type=int, default=None,
-                   help="exams of the stand-in layout (default 40; 128 with --full)")
+                   help="exams of the stand-in layout (default 128; 40 with --cpu-rehearsal)")
     args = p.parse_args(argv)
+    full = not args.cpu_rehearsal
 
-    if not args.full:
+    if full:
+        from ..core.device import require_cuda
+
+        require_cuda()  # before any file is written; the switch does not apply here
+    else:
         os.environ["CLIP_FOR_DL_TPU_FORCE_CPU"] = "1"
     from ..core.config import get_preset
     from ..text import load_vocab
@@ -139,9 +146,9 @@ def main(argv=None) -> int:
     cli = importlib.import_module("clip_for_dl_tpu_torch.cli.main")
     work = args.work or tempfile.mkdtemp(prefix="day_one_")
     os.makedirs(work, exist_ok=True)
-    sizing = [] if args.full else ["--tiny", "--fp32"]
-    image_size = "224" if args.full else "64"
-    report: Dict = {"work": work, "mode": "full" if args.full else "rehearsal",
+    sizing = [] if full else ["--tiny", "--fp32"]
+    image_size = "224" if full else "64"
+    report: Dict = {"work": work, "mode": "full" if full else "rehearsal",
                     "assets_dir": ASSETS, "real": {}, "standin": {}}
 
     # ---- assets ------------------------------------------------------------------
@@ -153,8 +160,8 @@ def main(argv=None) -> int:
     else:
         from ..testing.kaggle import write_kaggle_layout
 
-        n = args.uids or (128 if args.full else 40)
-        sizes = ((512, 512), (600, 512)) if args.full else ((64, 64), (72, 60))
+        n = args.uids or (128 if full else 40)
+        sizes = ((512, 512), (600, 512)) if full else ((64, 64), (72, 60))
         paths = write_kaggle_layout(os.path.join(work, "data"), n, sizes=sizes,
                                     empty_findings_every=9, single_view_uids=(5,))
         report["standin"]["images"] = paths["image_dir"]
@@ -163,21 +170,21 @@ def main(argv=None) -> int:
         report["real"]["vocab"] = vocab
     else:
         vocab = standin_vocab(paths["reports"], os.path.join(work, "vocab.txt"),
-                              BIO_CLINICALBERT_VOCAB if args.full else None)
+                              BIO_CLINICALBERT_VOCAB if full else None)
         report["standin"]["vocab"] = vocab
     image_w = _find(["resnet50.safetensors", "resnet50.pth", "resnet50.bin"])
     bert_w = _find(["bio_clinicalbert", "bert.safetensors", "bert.bin"])
-    if image_w and bert_w and args.full:
+    if image_w and bert_w and full:
         _check("vocab" in report["real"],
                "real tower weights found but no real vocab.txt — the BERT embedding is "
                "sized for the real 28,996-entry vocab; drop Bio_ClinicalBERT's vocab.txt "
                f"under {ASSETS} first")
         report["real"]["towers"] = [image_w, bert_w]
     else:
-        cfg = cli._apply_tiny(get_preset("pretrain_clip"), argparse.Namespace(tiny=not args.full),
+        cfg = cli._apply_tiny(get_preset("pretrain_clip"), argparse.Namespace(tiny=not full),
                               len(load_vocab(vocab)))
         image_w, bert_w = standin_towers(work, cfg.model,
-                                         device="cuda" if args.full else "cpu")
+                                         device="cuda" if full else "cpu")
         report["standin"]["towers"] = [image_w, bert_w]
 
     # ---- the chain ---------------------------------------------------------------------
@@ -194,7 +201,7 @@ def main(argv=None) -> int:
     data = ["--reports-csv", labeled, "--projections-csv", paths["projections"],
             "--image-dir", paths["image_dir"], "--image-cache", cache_dir, "--vocab", vocab,
             *sizing]
-    kernels = ["--flash-attention", "--bert-fused-mlp"] if args.full else []
+    kernels = ["--flash-attention", "--bert-fused-mlp"] if full else []
     logs, ckpt, adapter = (os.path.join(work, d) for d in ("logs", "ckpts", "adapter_ckpt"))
     run_cli(["pretrain", *data, *kernels, "--epochs", "1", "--init-image-tower", image_w,
              "--init-text-tower", bert_w, "--checkpoint-dir", ckpt, "--log-dir", logs])

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..core.config import ZeroShotConfig
+from ..core.device import to_device
 from ..ops.image_prep import preprocess_images
 from ..ops.similarity import l2_normalize, similarity
 from .predict import sigmoid_predictions, softmax_topk_predictions
@@ -72,20 +73,6 @@ def encode_prompt_bank(
     np.add.at(sums, seg, all_feats)
     counts = np.bincount(seg, minlength=c).astype(np.float32)[:, None]
     return torch.from_numpy(sums / np.maximum(counts, 1.0))
-
-
-def to_device(images_u8, device: torch.device) -> torch.Tensor:
-    """A batch of images as a tensor on ``device``: a tensor already there
-    passes untouched (a batch gathered on the card by the device cache
-    never returns to the host); a host array or tensor is staged in pinned
-    memory and copied without blocking (from pageable memory the copy
-    would wait for the whole stream)."""
-    if isinstance(images_u8, torch.Tensor) and images_u8.device == device:
-        return images_u8
-    imgs = torch.as_tensor(np.ascontiguousarray(images_u8))
-    if device.type == "cuda":
-        imgs = imgs.pin_memory()
-    return imgs.to(device, non_blocking=True)
 
 
 class HostCopy:

@@ -486,18 +486,38 @@ def test_encode_bucketed_matches_jax(lengths):
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
-def test_day_one_rehearsal_runs_the_chain(tmp_path, monkeypatch):
-    """The port's tools/day_one.py on its stand-ins (--tiny --fp32 on the
-    CPU): every stage exits 0 and the report names the stand-ins."""
+def test_day_one_runs_on_the_card_unless_asked(tmp_path, monkeypatch):
+    """Without --cpu-rehearsal the port's tools/day_one.py needs the card,
+    whatever the environment switch says, and writes nothing without it."""
     from clip_for_dl_tpu_torch.tools import day_one
 
-    monkeypatch.setenv("CLIP_FOR_DL_TPU_FORCE_CPU", "1")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    work = tmp_path / "work"
+    for switch in (None, "1"):
+        if switch is None:
+            monkeypatch.delenv("CLIP_FOR_DL_TPU_FORCE_CPU", raising=False)
+        else:
+            monkeypatch.setenv("CLIP_FOR_DL_TPU_FORCE_CPU", switch)
+        with pytest.raises(RuntimeError, match="CUDA GPU is required"):
+            day_one.main(["--work", str(work)])
+        assert not work.exists()
+
+
+def test_day_one_rehearsal_runs_the_chain(tmp_path, monkeypatch):
+    """The port's tools/day_one.py on its stand-ins (--cpu-rehearsal: --tiny
+    --fp32 on the CPU): every stage exits 0 and the report names the
+    stand-ins."""
+    from clip_for_dl_tpu_torch.tools import day_one
+
+    monkeypatch.delenv("CLIP_FOR_DL_TPU_FORCE_CPU", raising=False)
     monkeypatch.setattr(day_one, "ASSETS", str(tmp_path / "no_assets"))
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        assert day_one.main(["--uids", "16", "--work", str(tmp_path / "work")]) == 0
+        assert day_one.main(["--cpu-rehearsal", "--uids", "16",
+                             "--work", str(tmp_path / "work")]) == 0
     text = out.getvalue()
     report = json.loads(next(line for line in text.splitlines() if line.startswith('{"work"')))
+    assert report["mode"] == "rehearsal"
     assert report["real"] == {} and set(report["standin"]) == {"images", "vocab", "towers"}
     assert report["cache_channels"] == 1 and text.rstrip().endswith("(all stand-ins — rehearsal)")
     assert all(os.path.getsize(p) > 0 for p in report["converted"])

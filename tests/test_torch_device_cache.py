@@ -26,6 +26,7 @@ import torch
 from clip_for_dl_tpu.data import DeviceCacheBudgetError as JDeviceCacheBudgetError
 from clip_for_dl_tpu.data import DeviceImageCache as JDeviceImageCache
 from clip_for_dl_tpu.data import ImageCache as JImageCache
+from clip_for_dl_tpu_torch.core.device import to_device
 from clip_for_dl_tpu_torch.data import (
     ChestXrayMultiViewDataset,
     DeviceCacheBudgetError,
@@ -233,7 +234,7 @@ def fed_batches():
     """The tensors the device cache gathers, and every batch that reaches
     an engine's or a step's prep, as (object, data pointer)."""
     gathered, reached = [], []
-    gather, to_device = DeviceImageCache.gather, engine_module.to_device
+    gather = DeviceImageCache.gather
 
     def record_gather(self, rows):
         out = gather(self, rows)
