@@ -2,16 +2,21 @@
 """Drive the PyTorch port's zero-shot serving paths (ResNet-50 and ViT-B/16),
 its phase-A train step, its split-q/k/v attention entry point, the chain
 pretrain -> adapter (phase B), the fp32 parity mode, the evaluation from
-files and the command line once on one CUDA GPU.
+files, the command line and its HTTP server once on one CUDA GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
+
+``python3 chip_smoke.py --first-step-seeds 0 1 2 3 4 5 6 7`` only builds
+the kernels and prints the readings behind phase 10's own bounds
+(first_step_sweep), and checks nothing.
 
 Phases (any failure exits non-zero and prints no result line):
 
 0. Card: name and power limit from nvidia-smi. Without CUDA, exit at once.
-   Then the host probe: g++, libpng's and zlib's headers, -lpng16 / -lpng /
-   -lz at link time, and which of safetensors, PIL, scikit-learn, pandas and
-   cv2 are installed (the port imports none of them).
+   Then the host probe: g++, libpng's, zlib's and libjpeg's headers,
+   -lpng16 / -lpng / -lz / -ljpeg at link time, and which of safetensors,
+   PIL, scikit-learn, pandas and cv2 are installed (the port imports none of
+   them).
 1. Build: compile the port's kernels (clip_for_dl_tpu_torch/csrc/*.cu) with
    nvcc for sm_90a, one nvcc per source, all at once; print the build time,
    ptxas' per-kernel summary and, from cuobjdump's SASS of the library, the
@@ -157,8 +162,40 @@ c8_cases).
    started from against the plain route, as in phase 4. Prints each
    command's wall time, pretrain and
    adapter samples/s (steps synced) and checkpoint save ms, the cache build
-   img/s and zeroshot views/s. Then tools/launch_times.py times the
-   wrappers from the host.
+   img/s and zeroshot views/s.
+10. The server, the report-built prompts and the rest of the pretrain
+   options (ROADMAP A2b, A3b) on phase 9's layout, vocab, adapter directory
+   and thresholds.json: ``python -m clip_for_dl_tpu_torch serve`` in a child
+   process (the zero_shot preset at full width, bf16, --thresholds, the
+   default buckets, --max-pending 8; its launches written by the child at
+   exit): /healthz, SERVE_PNGS layout PNGs sent one by one, then
+   SERVE_CLIENTS clients of SERVE_PER_CLIENT requests each, raw and JSON
+   mixed; a garbage and a non-PNG body (400, the latter naming A2c), unknown
+   routes (404); /stats counting every request; SIGINT, exit 0. Every
+   answer's probabilities against the plain route on its decoded image
+   (5e-3) and the decided predictions equal; requests/s, client and server
+   p50/p99, the decode's ms a request and the card's busy share (nvidia-smi
+   at 100 ms). Then ``serve --head adapter --buckets 1 --max-pending 8``:
+   8 answers against AdapterEngine on the plain route, and BURST clients at
+   once (at least one 429 with Retry-After: 1). Then the findings and rich
+   banks from the layout's reports through the kernels, against the plain
+   route (4e-3). Then ``pretrain --loss siglip --learnable-temperature
+   --ema-decay 0.999 --bf16-moments --device-cache`` (one epoch, B = 16) and
+   ``pretrain --loss info_nce --learnable-temperature`` (64 synthetic
+   pairs): logit_scale at most log 100 after every step, exp_avg half the
+   bytes of the fp32 run's, B3, B6, B4 and B8 at each run's first inputs;
+   the step's parts timed (step_split: the optimizer, the loss, the EMA);
+   each run's first step against the plain route and on the fp32 route
+   (a3b_first_step): the loss within 1e-3 relative and each group's
+   gradient cosine at least 0.999, but info_nce's loss (2e-2) and its
+   projectors' and text tower's cosines (0.995), whose own bounds come from
+   the readings of --first-step-seeds and are borne out on the fp32 route;
+   each calibration scalar's gradient within 1e-4 + 1e-2 relative; one
+   step from logit_scale = log 200 ends at log 100. Samples/s, peak memory
+   and the EMA update's ms. Last ``eval --use-ema`` and
+   ``convert --use-ema``: the converted .pth scores byte-equal to the slot,
+   and --use-ema on a directory without one raises.
+   Then tools/launch_times.py times the wrappers from the host.
 
 The second-to-last line is the kernels JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -177,7 +214,7 @@ import sys
 import tempfile
 import time
 import traceback
-from contextlib import ExitStack
+from contextlib import ExitStack, contextmanager
 from pathlib import Path
 from unittest import mock
 
@@ -221,6 +258,31 @@ TOL = {
     # loss on raw 512-d features (norm ≈ 22) at T = 2 has logits up to ~20
     "grad_cos": 0.99,
     "train_loss_rel": 2e-2,
+    # phase 10, the first step of each pretrain run with a learnable
+    # temperature against the plain route: the loss within 1e-3 relative
+    # and each group's gradient cosine at least 0.999, but where the loss or
+    # a group has its own bound, (loss name, "loss" or group) -> bound. The
+    # own bounds come from the readings of `chip_smoke.py --first-step-seeds
+    # 0 1 2 3 4 5 6 7` (PERF.md, "The first-step sweep"): info_nce at s = 1/T = 0.5 on raw
+    # features differs from the plain route by up to 1.10e-2 in its loss
+    # and down to 0.99769 in the projectors' and the text tower's cosines
+    # (siglip: 3.0e-4, 0.99949). Each own bound is borne out on the fp32
+    # route in every run: there the kernels within fp32_loss_rel and
+    # fp32_grad_cos of the plain route, and the kernels' departure from the
+    # plain route (relative, or 1 - cosine) no larger than the plain bf16
+    # route's own departure from the plain fp32 one (readings: at most 0.31
+    # of it for the loss, 0.021 for the gradients)
+    "a3b_loss_rel": 1e-3,
+    "a3b_grad_cos": 0.999,
+    "a3b_own": {("info_nce", "loss"): 2e-2, ("info_nce", "text_tower"): 0.995,
+                ("info_nce", "image_projector"): 0.995, ("info_nce", "text_projector"): 0.995},
+    # each calibration scalar's gradient (logit_scale, logit_bias) against
+    # the plain route's, |kernels - plain| <= atol + rel * |plain|, in the
+    # units of the clipped step (the whole gradient's norm at most 1); the
+    # readings above differ by 5.4e-7 to 5.47e-5, where a scalar's gradient
+    # is 2.0e-4 to 1.0e-2
+    "calibration_grad_atol": 1e-4,
+    "calibration_grad_rel": 1e-2,
     # engine probabilities, kernels vs plain versions through the whole bf16
     # model (phases 3 and 5): the kernel differences above move cosines by
     # ~1e-3
@@ -314,6 +376,15 @@ PATHS = {  # main path -> the kernels it must launch
     "cli_eval": ("similarity", "image_prep", "flash_attention", "mlp"),
     "cli_eval_adapter": ("image_prep",),
     "cli_zeroshot_vit": ("similarity", "image_prep", "flash_attention", "mlp", "mlp_block"),
+    # phase 10: the HTTP server in a child process, both heads (the child's
+    # own counts); the report-built banks; pretrain with the A3b options;
+    # eval of the EMA slot
+    "cli_serve": ("similarity", "image_prep", "flash_attention", "mlp"),
+    "cli_serve_adapter": ("image_prep",),
+    "cli_banks": ("flash_attention", "mlp"),
+    "cli_pretrain_a3b": TRAIN_KERNELS,
+    "cli_pretrain_info_nce": TRAIN_KERNELS,
+    "cli_eval_ema": ("similarity", "image_prep", "flash_attention", "mlp"),
     # the parity mode (--fp32 --flash-attention): zero-shot serving and a
     # phase-A step in fp32
     "serve_fp32": ("similarity", "image_prep", "flash_attention_fp32"),
@@ -1870,31 +1941,112 @@ def check_launched(mods, launches: dict, path: str) -> None:
               f"{path} path")
 
 
+CALIBRATION = ("logit_scale", "logit_bias")  # a learnable temperature's scalars
+
+
 def group_grads(model, label_fn) -> dict:
     """label -> every gradient of the group (zeros where there is none),
-    flattened into one fp32 vector."""
+    flattened into one fp32 vector; a learnable temperature's scalars each
+    under its own name, apart from the default group's heads."""
     import torch
 
     parts: dict = {}
     for name, p in model.named_parameters():
         g = torch.zeros_like(p) if p.grad is None else p.grad
-        parts.setdefault(label_fn(tuple(name.split("."))), []).append(g.float().flatten())
+        label = name if name in CALIBRATION else label_fn(tuple(name.split(".")))
+        parts.setdefault(label, []).append(g.float().flatten())
     return {k: torch.cat(v) for k, v in parts.items()}
 
 
-def compare_groups(what: str, got: dict, want: dict, groups, tol: float) -> None:
+def cosine(a, b) -> float:
     import torch
 
+    return float(torch.nn.functional.cosine_similarity(a, b, dim=0))
+
+
+def compare_groups(what: str, got: dict, want: dict, groups, tol) -> None:
+    """Each group's gradient cosine at least ``tol`` (one bound, or a dict
+    group -> bound); the groups not in ``groups`` zero in both."""
     for label in sorted(want):
         gk, gp = got[label], want[label]
         if label not in groups:  # heads the pretrain forward skips
             check(not gk.any() and not gp.any(), f"{what}: {label} gradients not zero")
             print(f"  {label}: zero gradients in both ({gk.numel()} parameters)")
             continue
-        cos = float(torch.nn.functional.cosine_similarity(gk, gp, dim=0))
+        bound = tol[label] if isinstance(tol, dict) else tol
+        cos = cosine(gk, gp)
         print(f"  {label}: gradient cosine {cos:.6f}  norms {float(gk.norm()):.4e} / "
-              f"{float(gp.norm()):.4e}  tol {tol}")
-        check(cos >= tol, f"{what}: {label} gradient differs from the plain version's")
+              f"{float(gp.norm()):.4e}  tol {bound}")
+        check(cos >= bound, f"{what}: {label} gradient differs from the plain version's")
+
+
+@contextmanager
+def fp32_compute(model):
+    """Test-only: the fp32 route of a model built with cast_in_forward (its
+    casts to fp32, TF32 off in matmuls and cuDNN) while inside."""
+    import torch
+
+    from clip_for_dl_tpu_torch.core import device
+
+    casts = [m for m in model.modules() if isinstance(m, device._Cast)]
+    dtypes = [c.dtype for c in casts]
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    for c in casts:
+        c.dtype = torch.float32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        for c, dtype in zip(casts, dtypes):
+            c.dtype = dtype
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+
+
+def first_step_routes(_build, mods, first: dict, label_fn, step32=None) -> dict:
+    """The first step a command took, from the weights, optimizer state and
+    generator state that step started from, on the batch it took, at
+    dropout 0: route -> (loss, group_grads). "kernels" and "plain" (their
+    plain versions, B2 kept, as in phase 4) run the command's step; given
+    ``step32``, the same step in fp32, "kernels_fp32" and "plain_fp32" run
+    that on the model's fp32 route (fp32_compute)."""
+    import torch
+
+    from clip_for_dl_tpu_torch.train import TrainState
+
+    model, opt = first["state"].model, first["state"].optimizer
+
+    def one_step(step):
+        model.load_state_dict(first["weights"])
+        opt.load_state_dict(first["optimizer"])
+        for m in model.modules():
+            if isinstance(m, torch.nn.Dropout):
+                m.p = 0.0
+        if first["generator"] is not None:
+            first["rest"][-1].set_state(first["generator"])
+        out = step(TrainState(model, opt), first["batch"], *first["rest"])
+        return float(out[1]["loss"]), group_grads(model, label_fn)
+
+    def plain(step):
+        with plain_kernels(mods, keep=("image_prep",)):
+            before = dict(_build.LAUNCHES)
+            out = one_step(step)
+            check(all(v == before.get(k) for k, v in _build.LAUNCHES.items()
+                      if k != mods["image_prep"].KERNEL),
+                  "a kernel other than B2 ran during the plain step")
+        return out
+
+    cudnn = torch.backends.cudnn
+    flags = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        routes = {"kernels": one_step(first["step"]), "plain": plain(first["step"])}
+        if step32 is not None:
+            with fp32_compute(model):
+                routes["kernels_fp32"] = one_step(step32)
+                routes["plain_fp32"] = plain(step32)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = flags
+    return routes
 
 
 def phase4(_build, mods, dev, seed: int, card: str) -> dict:
@@ -2034,43 +2186,13 @@ def phase4(_build, mods, dev, seed: int, card: str) -> dict:
 
 
 def step_against_plain(_build, mods, first: dict, groups) -> None:
-    """Phase 4's check on the first step a command took: its step function
-    from the weights, optimizer state and generator state that step started
-    from, on the batch it took, at dropout 0, once with the kernels and once
-    with their plain versions (B2 kept, as in phase 4); the loss within
-    train_loss_rel and each parameter group's gradient cosine at least
-    grad_cos."""
-    import torch
+    """Phase 4's check on the first step a command took (first_step_routes):
+    the loss within train_loss_rel and each parameter group's gradient
+    cosine at least grad_cos."""
+    from clip_for_dl_tpu_torch.train import make_label_fn
 
-    from clip_for_dl_tpu_torch.train import TrainState, make_label_fn
-
-    model, opt = first["state"].model, first["state"].optimizer
-    label_fn = make_label_fn(groups)
-
-    def one_step():
-        model.load_state_dict(first["weights"])
-        opt.load_state_dict(first["optimizer"])
-        for m in model.modules():
-            if isinstance(m, torch.nn.Dropout):
-                m.p = 0.0
-        if first["generator"] is not None:
-            first["rest"][-1].set_state(first["generator"])
-        out = first["step"](TrainState(model, opt), first["batch"], *first["rest"])
-        return float(out[1]["loss"]), group_grads(model, label_fn)
-
-    cudnn = torch.backends.cudnn
-    flags = (cudnn.deterministic, cudnn.benchmark)
-    cudnn.deterministic, cudnn.benchmark = True, False
-    try:
-        loss_k, grads_k = one_step()
-        with plain_kernels(mods, keep=("image_prep",)):
-            before = dict(_build.LAUNCHES)
-            loss_p, grads_p = one_step()
-            check(all(v == before.get(k) for k, v in _build.LAUNCHES.items()
-                      if k != mods["image_prep"].KERNEL),
-                  "a kernel other than B2 ran during the plain step")
-    finally:
-        cudnn.deterministic, cudnn.benchmark = flags
+    routes = first_step_routes(_build, mods, first, make_label_fn(groups))
+    (loss_k, grads_k), (loss_p, grads_p) = routes["kernels"], routes["plain"]
     loss_err = abs(loss_k - loss_p) / abs(loss_p)
     print(f"  the command's first step, dropout 0: loss {loss_k:.6f} with the kernels, "
           f"{loss_p:.6f} with the plain versions (rel {loss_err:.2e}, tol "
@@ -2078,6 +2200,240 @@ def step_against_plain(_build, mods, first: dict, groups) -> None:
     check(loss_err <= TOL["train_loss_rel"], "the command's step loss differs from the plain "
                                              "step's")
     compare_groups("the command's first step", grads_k, grads_p, groups, TOL["grad_cos"])
+
+
+def a3b_first_step(_build, mods, first: dict, groups, step32) -> None:
+    """Phase 10's check on the first step of a pretrain run with a learnable
+    temperature (first_step_routes, the fp32 route from ``step32``): the
+    loss within a3b_loss_rel and each parameter group's gradient cosine
+    with the plain route's at least a3b_grad_cos, or within their own
+    bounds (a3b_own) where the fp32 route bears those out; each calibration
+    scalar's gradient within calibration_grad_atol + calibration_grad_rel
+    of the plain one's (info_nce's bias: zero in both). Then one step of the
+    command from logit_scale = log 200 leaves it at log 100."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from clip_for_dl_tpu_torch.train import TrainState, make_label_fn
+
+    name = first["loss_name"]
+    own = {what: bound for (loss, what), bound in TOL["a3b_own"].items() if loss == name}
+    routes = first_step_routes(_build, mods, first, make_label_fn(groups), step32)
+    (loss_k, grads_k), (loss_p, grads_p) = routes["kernels"], routes["plain"]
+    (loss_k32, grads_k32), (loss_p32, grads_p32) = routes["kernels_fp32"], routes["plain_fp32"]
+
+    def borne_out(what, departure, rounding, fp32_ok):
+        print(f"  {what}: its own bound, on the fp32 route: the kernels' departure from the "
+              f"plain route {departure:.3e}, the plain route's from fp32 {rounding:.3e}; the "
+              f"fp32 kernels within their tolerance: {fp32_ok}")
+        check(fp32_ok and departure <= rounding, f"{name} {what}: the fp32 route does not bear "
+                                                 "out its own bound")
+
+    rel, rel32 = abs(loss_k - loss_p) / abs(loss_p), abs(loss_k32 - loss_p32) / abs(loss_p32)
+    bound = own.get("loss", TOL["a3b_loss_rel"])
+    print(f"  the command's first step, dropout 0: loss {loss_k:.6f} with the kernels, "
+          f"{loss_p:.6f} with the plain versions (rel {rel:.2e}, tol {bound:.0e}); the fp32 "
+          f"route {loss_k32:.6f} / {loss_p32:.6f} (rel {rel32:.2e})")
+    check(rel <= bound, "the command's step loss differs from the plain step's")
+    if "loss" in own:
+        borne_out("the loss", rel, abs(loss_p - loss_p32) / abs(loss_p32),
+                  rel32 <= TOL["fp32_loss_rel"])
+    calibration = {k: (grads_k.pop(k), grads_p.pop(k), grads_p32.pop(k)) for k in CALIBRATION}
+    compare_groups("the command's first step", grads_k, grads_p, groups,
+                   {g: own.get(g, TOL["a3b_grad_cos"]) for g in groups})
+    for g in groups:
+        cos, cos32 = cosine(grads_k[g], grads_p[g]), cosine(grads_k32[g], grads_p32[g])
+        rounding = 1 - cosine(grads_p[g], grads_p32[g])
+        print(f"  {g}: 1 - cosine with the plain fp32 gradient {rounding:.3e} on the plain "
+              f"route; the fp32 kernels' cosine with it {cos32:.7f}")
+        if g in own:
+            borne_out(g, 1 - cos, rounding, cos32 >= TOL["fp32_grad_cos"])
+    for scalar, (gk, gp, gp32) in calibration.items():
+        gk, gp, gp32 = float(gk), float(gp), float(gp32)
+        tol = TOL["calibration_grad_atol"] + TOL["calibration_grad_rel"] * abs(gp)
+        print(f"  {scalar}: gradient {gk:.6e} with the kernels, {gp:.6e} on the plain route "
+              f"(|difference| {abs(gk - gp):.2e}, tol {tol:.2e}), {gp32:.6e} on the plain fp32 "
+              f"route")
+        check(abs(gk - gp) <= tol and (gp != 0 or gk == 0),
+              f"{scalar}: gradient differs from the plain route's")
+    model, opt = first["state"].model, first["state"].optimizer
+    model.load_state_dict(first["weights"])
+    opt.load_state_dict(first["optimizer"])
+    with torch.no_grad():
+        model.logit_scale.fill_(math.log(200.0))
+    first["step"](TrainState(model, opt), first["batch"], *first["rest"])
+    after, cap = float(model.logit_scale.detach()), float(np.float32(math.log(100.0)))
+    print(f"  one step from logit_scale = log 200: {after:.6f} after it (cap {cap:.6f})")
+    check(after == cap, f"the step left logit_scale at {after}, not at log 100")
+
+
+def step_split(dev, first: dict, steps_module, n: int = 5) -> dict:
+    """Test-only instrumentation: the command's own step and state, n times
+    after one warm-up, each from the weights and optimizer state its first
+    step started from, on that batch, synchronized at the bounds of its
+    parts: the median ms of prep (B2), forward, loss and backward, clip,
+    optimizer, EMA and the rest (learning rates, zero_grad, the clamp),
+    of the whole step so instrumented, and of the loss alone (forward and
+    backward on the step's features, CUDA events over 20 calls)."""
+    import torch
+
+    state, model, opt = first["state"], first["state"].model, first["state"].optimizer
+    marks, feats = {}, []
+
+    def mark(label):
+        torch.cuda.synchronize(dev)
+        marks[label] = time.perf_counter()
+
+    def around(fn, label):
+        def timed(*a, **kw):
+            mark(label + "<")
+            out = fn(*a, **kw)
+            mark(label + ">")
+            return out
+        return timed
+
+    def forward_done(module, args, out):
+        mark("forward>")
+        feats[:] = [out[0].detach(), out[1].detach()]
+
+    hooks = [model.register_forward_pre_hook(lambda module, args: mark("forward<")),
+             model.register_forward_hook(forward_done)]
+    parts = {k: [] for k in ("prep", "forward", "loss_backward", "clip", "optimizer", "ema",
+                             "rest", "step")}
+    try:
+        with mock.patch.object(steps_module, "preprocess_images",
+                               around(steps_module.preprocess_images, "prep")), \
+                mock.patch.object(steps_module, "clip_by_global_norm_",
+                                  around(steps_module.clip_by_global_norm_, "clip")), \
+                mock.patch.object(steps_module, "update_ema",
+                                  around(steps_module.update_ema, "ema")), \
+                mock.patch.object(opt, "step", around(opt.step, "optimizer")):
+            for i in range(n + 1):
+                model.load_state_dict(first["weights"])
+                opt.load_state_dict(first["optimizer"])
+                marks.clear()
+                mark("step<")
+                first["step"](state, first["batch"], *first["rest"])
+                mark("step>")
+                if i == 0:
+                    continue
+                t = {k: (marks[k + ">"] - marks[k + "<"]) * 1e3 if k + "<" in marks else 0.0
+                     for k in ("prep", "forward", "clip", "optimizer", "ema", "step")}
+                t["loss_backward"] = (marks["clip<"] - marks["forward>"]) * 1e3
+                t["rest"] = t["step"] - sum(v for k, v in t.items() if k != "step")
+                for k, v in t.items():
+                    parts[k].append(v)
+    finally:
+        for h in hooks:
+            h.remove()
+    split = {k: statistics.median(v) for k, v in parts.items()}
+    contrastive = steps_module._contrastive(first["loss_name"], first["temperature"])
+    params = dict(model.named_parameters(recurse=False))
+    img, txt = (f.clone().requires_grad_() for f in feats)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    contrastive(txt, img, params).backward()
+    start.record()
+    for _ in range(20):
+        contrastive(txt, img, params).backward()
+    end.record()
+    torch.cuda.synchronize(dev)
+    split["loss_alone"] = start.elapsed_time(end) / 20
+    model.zero_grad(set_to_none=True)
+    return split
+
+
+def first_step_sweep(_build, mods, dev, seeds) -> None:
+    """The readings behind phase 10's own bounds (a3b_own, and the
+    calibration scalars' tolerance): the first step of pretrain_clip at full width with a
+    learnable temperature, siglip (s = 10, b = -10) and info_nce (s = 1/T),
+    B = 16, dropout 0, from the weights and a train_batch of each seed, on
+    the four routes of first_step_routes. One JSON line a run: the losses,
+    and for each group the cosine of the kernels' gradient with the plain
+    one's, of each with the plain fp32 one's, and of the fp32 kernels' with
+    it; each calibration scalar's gradient on each route. Then the extremes
+    over the seeds. Checks nothing."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from clip_for_dl_tpu_torch.core.config import get_preset
+    from clip_for_dl_tpu_torch.core.device import cast_in_forward
+    from clip_for_dl_tpu_torch.models import CXRClip, init_weights
+    from clip_for_dl_tpu_torch.tools.main_paths import base_lrs, tokenizer, train_batch
+    from clip_for_dl_tpu_torch.train import (
+        TrainState, make_clip_pretrain_step, make_label_fn, make_optimizer,
+    )
+
+    preset = get_preset("pretrain_clip")
+    groups = [g.name for g in preset.train.groups]
+    label_fn = make_label_fn(groups)
+    tok = tokenizer()
+    rows = []
+    for loss_name in ("siglip", "info_nce"):
+        cfg = dataclasses.replace(
+            preset.model, flash_attention=True, bert_fused_mlp=True, learnable_temperature=True,
+            logit_scale_init=10.0 if loss_name == "siglip" else None)
+        for seed in seeds:
+            with torch.device(dev):
+                model = CXRClip(cfg)
+            init_weights(model, torch.Generator(dev).manual_seed(seed))
+            cast_in_forward(model, torch.bfloat16)
+            opt = make_optimizer(model, label_fn, weight_decay=preset.train.weight_decay)
+            kw = dict(loss_name=loss_name, temperature=cfg.temperature,
+                      image_size=cfg.image_size, mean=preset.augment.mean,
+                      std=preset.augment.std, max_grad_norm=preset.train.max_grad_norm)
+            gen = torch.Generator(dev).manual_seed(seed)
+            first = dict(
+                state=TrainState(model, opt),
+                step=make_clip_pretrain_step(model, opt, label_fn, **kw),
+                batch=train_batch(np.random.default_rng(seed), tok, dev,
+                                  preset.data.batch_size, cfg.max_text_length),
+                rest=(base_lrs(preset), gen), generator=gen.get_state(),
+                weights={k: v.detach().clone() for k, v in model.state_dict().items()},
+                optimizer=copy.deepcopy(opt.state_dict()))
+            step32 = make_clip_pretrain_step(model, opt, label_fn, compute_dtype=torch.float32,
+                                             **kw)
+            r = first_step_routes(_build, mods, first, label_fn, step32)
+            k, p, k32, p32 = (r[x][1] for x in ("kernels", "plain", "kernels_fp32",
+                                               "plain_fp32"))
+            row = {"loss": loss_name, "seed": seed,
+                   "losses": {x: r[x][0] for x in r},
+                   "groups": {g: {"kernels_plain": cosine(k[g], p[g]),
+                                  "kernels_plain_fp32": cosine(k[g], p32[g]),
+                                  "plain_plain_fp32": cosine(p[g], p32[g]),
+                                  "fp32_kernels_plain_fp32": cosine(k32[g], p32[g]),
+                                  "norm": float(p[g].norm())} for g in groups},
+                   "calibration": {c: {x: float(r[x][1][c]) for x in r} for c in CALIBRATION}}
+            rows.append(row)
+            print(json.dumps(row))
+            del model, opt, first, step32, r, k, p, k32, p32
+            torch.cuda.empty_cache()
+    for loss_name in ("siglip", "info_nce"):
+        mine = [r for r in rows if r["loss"] == loss_name]
+        losses = [r["losses"] for r in mine]
+        rel = [abs(x["kernels"] - x["plain"]) / abs(x["plain"]) for x in losses]
+        ratio = [abs(x["kernels"] - x["plain"]) / abs(x["plain"] - x["plain_fp32"])
+                 * abs(x["plain_fp32"]) / abs(x["plain"]) for x in losses]
+        rel32 = [abs(x["kernels_fp32"] - x["plain_fp32"]) / abs(x["plain_fp32"]) for x in losses]
+        print(f"{loss_name}, seeds {list(seeds)}: loss rel, kernels vs plain, max {max(rel):.3e}; "
+              f"its ratio to the plain route's rel from fp32 max {max(ratio):.3f}; fp32 kernels "
+              f"vs plain max {max(rel32):.2e}")
+        for g in groups:
+            c = {key: [r["groups"][g][key] for r in mine] for key in mine[0]["groups"][g]}
+            ratio = [(1 - a) / (1 - b) for a, b in zip(c["kernels_plain"], c["plain_plain_fp32"])]
+            print(f"  {g}: cosine kernels vs plain min {min(c['kernels_plain']):.6f}; with the "
+                  f"plain fp32 gradient min {min(c['kernels_plain_fp32']):.6f} (kernels), "
+                  f"{min(c['plain_plain_fp32']):.6f} (plain); 1 - cosine of kernels vs plain "
+                  f"over the plain route's from fp32, max {max(ratio):.4f}; fp32 kernels min "
+                  f"{min(c['fp32_kernels_plain_fp32']):.7f}; norms "
+                  f"{min(c['norm']):.3e}-{max(c['norm']):.3e}")
+        for name in CALIBRATION:
+            d = [abs(r["calibration"][name]["kernels"] - r["calibration"][name]["plain"])
+                 for r in mine]
+            print(f"  {name}: gradient |kernels - plain| max {max(d):.3e}, min {min(d):.3e}")
 
 
 def states_equal(a: dict, b: dict) -> bool:
@@ -2267,7 +2623,8 @@ def phase6(_build, mods, dev, seed: int, card: str, tmp: str) -> dict:
 
 def host_probe() -> str:
     """What the machine offers the host side of the port, as one line: g++,
-    libpng's and zlib's headers, -lpng16 / -lpng / -lz at link time, and
+    libpng's, zlib's and libjpeg's headers, -lpng16 / -lpng / -lz / -ljpeg at
+    link time (a JPEG decoder for requests is ROADMAP A2c), and
     whether the packages the port may not import (the CPU tests' oracles)
     are installed, found without importing them. The port's PNG decoder
     (native/bindings.py) is written for a machine without libpng."""
@@ -2285,10 +2642,11 @@ def host_probe() -> str:
                 [gxx, str(path), "-o", str(Path(tmp) / "probe"), *args],
                 capture_output=True, timeout=120).returncode == 0
 
-    for header in ("png.h", "zlib.h"):
-        found = builds(f"#include <{header}>\nint main() {{ return 0; }}\n", "-c")
+    for header in ("png.h", "zlib.h", "jpeglib.h"):
+        found = builds(f"#include <stdio.h>\n#include <{header}>\nint main() {{ return 0; }}\n",
+                       "-c")
         parts.append(f"{header} {'found' if found else 'missing'}")
-    for lib in ("-lpng16", "-lpng", "-lz"):
+    for lib in ("-lpng16", "-lpng", "-lz", "-ljpeg"):
         parts.append(f"{lib} {'links' if builds('int main() { return 0; }', lib) else 'missing'}")
     for mod in ("safetensors", "PIL", "sklearn", "pandas", "cv2"):
         parts.append(f"{mod} {'installed' if importlib.util.find_spec(mod) else 'missing'}")
@@ -3031,9 +3389,514 @@ def cli_phase(_build, mods, dev, seed: int, card: str, workdir: str, results: di
     return by_path
 
 
+# the command ``python -m clip_for_dl_tpu_torch`` in a child process that
+# writes the kernel launches it counted to the file named first (phase 10)
+SERVE_CHILD = (
+    "import atexit, json, runpy, sys\n"
+    "from clip_for_dl_tpu_torch.ops import _build\n"
+    "path = sys.argv.pop(1)\n"
+    "atexit.register(lambda: json.dump(dict(_build.LAUNCHES), open(path, 'w')))\n"
+    "sys.argv[0] = 'clip_for_dl_tpu_torch'\n"
+    "runpy.run_module('clip_for_dl_tpu_torch', run_name='__main__', alter_sys=True)\n"
+)
+SERVE_PNGS = 32  # distinct layout PNGs the server is sent
+SERVE_CLIENTS, SERVE_PER_CLIENT = 8, 32  # the concurrent pass
+BURST = 96  # clients that post at once at the adapter server (--buckets 1 --max-pending 8)
+
+
+class Served:
+    """``serve`` in a child process on this machine: the bound port from its
+    "serving on" line, its log collected by a reader thread, HTTP requests
+    to it, and SIGINT to stop it."""
+
+    def __init__(self, argv: list, launches_path: str, env: dict):
+        import re
+        import threading
+
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", SERVE_CHILD, launches_path, *argv], cwd=str(ROOT), env=env,
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        self.lines, self.port = [], None
+        found = threading.Event()
+
+        def read():
+            for line in self.proc.stderr:
+                self.lines.append(line)
+                m = re.search(r"serving on http://[\d.]+:(\d+)", line)
+                if m:
+                    self.port = int(m.group(1))
+                    found.set()
+            found.set()
+
+        threading.Thread(target=read, daemon=True).start()
+        found.wait(300)
+        if self.port is None:
+            self.proc.kill()
+            self.proc.wait()
+        check(self.port is not None, "serve did not bind: " + "".join(self.lines[-30:]))
+
+    def request(self, method: str, path: str, body=None, ctype="image/png"):
+        """(status, headers, JSON body, client seconds)."""
+        import http.client
+
+        t0 = time.perf_counter()
+        conn = http.client.HTTPConnection("127.0.0.1", self.port, timeout=120)
+        try:
+            conn.request(method, path, body=body,
+                         headers={"Content-Type": ctype} if body is not None else {})
+            resp = conn.getresponse()
+            payload = json.loads(resp.read())
+            return resp.status, dict(resp.getheaders()), payload, time.perf_counter() - t0
+        finally:
+            conn.close()
+
+    def stop(self) -> int:
+        import signal
+
+        self.proc.send_signal(signal.SIGINT)
+        try:
+            return self.proc.wait(120)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+            return -9
+
+
+def busy_sampler():
+    """nvidia-smi sampling the card's utilization (the share of each 100 ms
+    in which a kernel ran) until the returned stop function is called,
+    which returns the samples."""
+    proc = subprocess.Popen(["nvidia-smi", "--query-gpu=utilization.gpu",
+                             "--format=csv,noheader,nounits", "-lms", "100"],
+                            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+
+    def stop():
+        proc.terminate()
+        out, _ = proc.communicate(timeout=30)
+        return [int(v) for v in out.split() if v.strip().isdigit()]
+
+    return stop
+
+
+def pct(values, q: float) -> float:
+    import numpy as np
+
+    return float(np.percentile(np.asarray(values, np.float64), q))
+
+
+def serve_phase10(_build, mods, dev, seed: int, card: str, workdir: str,
+                  results: dict) -> dict:
+    """Phase 10: the HTTP server, the report-built banks and the rest of the
+    pretrain options on phase 9's layout, vocab, adapter directory and
+    thresholds.json; returns the launches of its paths."""
+    import argparse
+    import base64
+    import importlib
+    import io
+    import os
+    import threading
+    from contextlib import redirect_stdout
+
+    import numpy as np
+    import torch
+
+    cli = importlib.import_module("clip_for_dl_tpu_torch.cli.main")
+    steps_module = importlib.import_module("clip_for_dl_tpu_torch.train.steps")
+    train_package = importlib.import_module("clip_for_dl_tpu_torch.train")
+    from clip_for_dl_tpu_torch.core.config import DISEASE_LABELS, get_preset
+    from clip_for_dl_tpu_torch.data.frame import read_csv, rename
+    from clip_for_dl_tpu_torch.inference import AdapterEngine, load_trained_model
+    from clip_for_dl_tpu_torch.serving import decode_request_image
+    from clip_for_dl_tpu_torch.testing.png import encode_png
+    from clip_for_dl_tpu_torch.text import BertTokenizer
+    from clip_for_dl_tpu_torch.train import loop
+    from clip_for_dl_tpu_torch.zeroshot import ZeroShotEngine, prompts_for_family
+
+    t_phase = time.perf_counter()
+    kaggle, work9, work = f"{workdir}/kaggle", f"{workdir}/cli", f"{workdir}/serve"
+    os.makedirs(work)
+    vocab, ad, thresholds = f"{work9}/vocab.txt", f"{work9}/adapter", f"{work9}/zs_dyn/thresholds.json"
+    image_dir = f"{kaggle}/images/images_normalized"
+    data = ["--reports-csv", f"{work9}/labeled.csv", "--projections-csv",
+            f"{kaggle}/indiana_projections.csv", "--image-dir", image_dir,
+            "--image-cache", f"{work9}/cache", "--vocab", vocab]
+    kernels = ["--flash-attention", "--bert-fused-mlp"]
+    by_path, failures = {}, []
+    tok = BertTokenizer(vocab, do_lower_case=False)
+    cfg = cli._apply_tiny(get_preset("zero_shot"), argparse.Namespace(
+        flash_attention=True, bert_fused_mlp=True), len(tok.vocab))
+    size = cfg.model.image_size
+    with open(thresholds) as f:
+        thr = json.load(f)
+    thr_vec = np.array([thr.get(d, 0.5) for d in DISEASE_LABELS])
+
+    # -- the bodies: layout PNGs, raw and as JSON ----------------------------------------
+    names = sorted(n for n in os.listdir(image_dir) if n.endswith(".png"))
+    pngs = []
+    for n in names:
+        with open(f"{image_dir}/{n}", "rb") as f:
+            raw = f.read()
+        if raw[:8] == b"\x89PNG\r\n\x1a\n":
+            pngs.append(raw)
+        if len(pngs) == SERVE_PNGS:
+            break
+
+    def body(i, as_json):
+        raw = pngs[i % len(pngs)]
+        if as_json:
+            return json.dumps({"image_b64": base64.b64encode(raw).decode()}).encode(), \
+                "application/json"
+        return raw, "image/png"
+
+    t0 = time.perf_counter()
+    decoded = [decode_request_image(b, "image/png", size) for b in pngs]
+    decode_ms = (time.perf_counter() - t0) * 1e3 / len(pngs)
+    shapes = sorted({(int.from_bytes(b[20:24], "big"), int.from_bytes(b[16:20], "big"))
+                     for b in pngs})
+
+    # -- 1. serve, the zero_shot preset ----------------------------------------------------
+    env = dict(os.environ, PYTHONUNBUFFERED="1")
+    if dev.type == "cuda":  # the child takes the card, as the smoke does
+        env.pop("CLIP_FOR_DL_TPU_FORCE_CPU", None)
+    torch.cuda.synchronize(dev)
+    t_start = time.perf_counter()
+    served = Served(["serve", "--vocab", vocab, *kernels, "--checkpoint", ad, "--thresholds",
+                     thresholds, "--host", "127.0.0.1", "--port", "0", "--max-pending", "8",
+                     "--log-dir", f"{work}/logs"], f"{work}/launches_serve.json", env)
+    start_s = time.perf_counter() - t_start
+    answers = []  # (image index, status, payload, seconds)
+    try:
+        status, _, health, _ = served.request("GET", "/healthz")
+        check(status == 200 and health["diseases"] == list(DISEASE_LABELS)
+              and health["buckets"] == [1, 4, 16, 64], f"/healthz {status} {health}")
+        t0 = time.perf_counter()
+        for i in range(len(pngs)):
+            st, _, payload, sec = served.request("POST", "/predict", *body(i, i % 2 == 1))
+            answers.append((i, st, payload, sec))
+        sequential_s = time.perf_counter() - t0
+        concurrent = [None] * (SERVE_CLIENTS * SERVE_PER_CLIENT)
+
+        def client(c):
+            for j in range(SERVE_PER_CLIENT):
+                k = c * SERVE_PER_CLIENT + j
+                st, _, payload, sec = served.request("POST", "/predict", *body(k, (c + j) % 2))
+                concurrent[k] = (k % len(pngs), st, payload, sec)
+
+        stop_sampler = busy_sampler()
+        try:
+            threads = [threading.Thread(target=client, args=(c,))
+                       for c in range(SERVE_CLIENTS)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            concurrent_s = time.perf_counter() - t0
+        finally:
+            busy = stop_sampler()
+        answers += concurrent
+        odd = {"garbage": served.request("POST", "/predict", os.urandom(4096)),
+               "non-PNG": served.request("POST", "/predict", b"BM" + os.urandom(4094),
+                                         "image/bmp"),
+               "no route": served.request("POST", "/classify", pngs[0]),
+               "no route (GET)": served.request("GET", "/metrics")}
+        stats = served.request("GET", "/stats")[2]
+    finally:
+        rc = served.stop()
+    with open(f"{work}/launches_serve.json") as f:
+        by_path["cli_serve"] = json.load(f)
+    check(rc == 0, f"serve exited with {rc} on SIGINT: {''.join(served.lines[-20:])}")
+    check_launched(mods, by_path["cli_serve"], "cli_serve")
+    check(all(a[1] == 200 for a in answers), "a /predict request failed: "
+          + str([a[:3] for a in answers if a[1] != 200][:3]))
+    for what, want in (("garbage", 400), ("non-PNG", 400), ("no route", 404),
+                       ("no route (GET)", 404)):
+        check(odd[what][0] == want, f"{what}: {odd[what][0]} {odd[what][2]}")
+    check("A2c" in odd["non-PNG"][2]["error"], f"non-PNG: {odd['non-PNG'][2]}")
+    check(stats["requests"] == len(answers) and stats["shed"] == 0,
+          f"/stats counts {stats['requests']} requests, {stats['shed']} shed; sent {len(answers)}")
+    client_ms = [a[3] * 1e3 for a in concurrent]
+    print(f"serve (zero_shot, {describe(cfg.model)}, bf16, --thresholds, buckets 1/4/16/64, "
+          f"--max-pending 8) on {card}: up in {start_s:.1f} s (process, model, bank, warm-up); "
+          f"exit 0 on SIGINT; launches {by_path['cli_serve']}")
+    print(f"  {len(pngs)} PNGs {shapes} grey, sequential: {len(pngs) / sequential_s:.1f} req/s; "
+          f"{SERVE_CLIENTS} clients x {SERVE_PER_CLIENT}, raw and JSON: "
+          f"{len(concurrent) / concurrent_s:.1f} req/s, client p50 {pct(client_ms, 50):.1f} "
+          f"p99 {pct(client_ms, 99):.1f} ms; the server's queue {stats['queue_ms']}, assemble "
+          f"{stats['assemble_ms']}, fetch {stats['fetch_ms']} ms, batch sizes "
+          f"{stats['batch_size_hist']}; the decode {decode_ms:.2f} ms a request in one thread "
+          f"(this process); the card busy {np.mean(busy) if busy else float('nan'):.1f}% of "
+          f"the concurrent pass ({len(busy)} nvidia-smi samples at 100 ms)")
+    print(f"  garbage {odd['garbage'][0]}, non-PNG {odd['non-PNG'][0]} "
+          f"({odd['non-PNG'][2]['error']!r}), unknown routes {odd['no route'][0]} / "
+          f"{odd['no route (GET)'][0]}; /stats requests {stats['requests']}, shed "
+          f"{stats['shed']}")
+
+    # the plain route on the same decoded images, from the same weights
+    model = load_trained_model(ad, cfg, torch.bfloat16, device=dev)
+    engine = ZeroShotEngine(model, tok, DISEASE_LABELS, cfg.zeroshot, cfg.augment.mean,
+                            cfg.augment.std, size, cfg.model.max_text_length, torch.bfloat16)
+    with plain_kernels(mods):
+        before = dict(_build.LAUNCHES)
+        engine.build_text_features(prompts_for_family("prediction", DISEASE_LABELS))
+        plain = np.concatenate([engine.probs(np.stack(decoded[i:i + 16]))
+                                for i in range(0, len(decoded), 16)])
+        check(dict(_build.LAUNCHES) == before, "a kernel ran on the plain route")
+    got = np.array([[a[2]["probs"][d] for d in DISEASE_LABELS] for a in answers])
+    want = plain[[a[0] for a in answers]]
+    err = float(np.abs(got - want).max())
+    edge = np.abs(want - thr_vec)
+    decided = edge > err
+    server_sets = np.array([[d in a[2]["predictions"] for d in DISEASE_LABELS] for a in answers])
+    differ = server_sets != (want > thr_vec)
+    held("every 200 answer's probabilities against the plain route on its decoded image",
+         got, want, TOL["probs_vs_plain"], {"images": apart(plain)}, failures, bound=False)
+    print(f"  predictions: {int(decided.sum())} of {decided.size} (answer, class) pairs decided "
+          f"(further than {err:.3e} from their threshold), {int(differ[decided].sum())} of them "
+          f"differ from the plain route's; {int(differ[~decided].sum())} undecided differ")
+    if differ[decided].any():
+        failures.append("serve: decided predictions differ from the plain route's")
+
+    # -- 2. serve --head adapter, and the burst past --max-pending ----------------------------
+    served = Served(["serve", "--vocab", vocab, "--head", "adapter", "--checkpoint", ad,
+                     "--buckets", "1", "--max-pending", "8", "--host", "127.0.0.1", "--port",
+                     "0", "--log-dir", f"{work}/logs_adapter"],
+                    f"{work}/launches_adapter.json", env)
+    try:
+        short = [served.request("POST", "/predict", *body(i, i % 2 == 0)) for i in range(8)]
+        tiny = encode_png(np.random.default_rng(seed).integers(0, 256, (16, 16), np.uint8))
+        burst = [None] * BURST
+        go = threading.Event()
+
+        def poster(k):
+            go.wait()
+            burst[k] = served.request("POST", "/predict", tiny)
+
+        threads = [threading.Thread(target=poster, args=(k,)) for k in range(BURST)]
+        for t in threads:
+            t.start()
+        go.set()
+        for t in threads:
+            t.join()
+        stats = served.request("GET", "/stats")[2]
+    finally:
+        rc = served.stop()
+    with open(f"{work}/launches_adapter.json") as f:
+        by_path["cli_serve_adapter"] = json.load(f)
+    check(rc == 0, f"serve --head adapter exited with {rc} on SIGINT")
+    check_launched(mods, by_path["cli_serve_adapter"], "cli_serve_adapter")
+    codes = [b[0] for b in burst]
+    shed = codes.count(429)
+    check(all(a[0] == 200 for a in short) and set(codes) <= {200, 429} and shed >= 1
+          and all(b[1].get("Retry-After") == "1" for b in burst if b[0] == 429),
+          f"adapter server: {[a[0] for a in short]}, burst {sorted(set(codes))} ({shed} shed)")
+    check(stats["shed"] == shed and stats["requests"] == len(short) + codes.count(200),
+          f"adapter /stats {stats['requests']} requests, {stats['shed']} shed")
+    adapter = AdapterEngine(load_trained_model(ad, cfg, torch.bfloat16, device=dev),
+                            cfg.augment.mean, cfg.augment.std, size, torch.bfloat16)
+    with plain_kernels(mods):
+        want = adapter.probs(np.stack(decoded[:8]))
+    got = np.array([[a[2]["probs"][d] for d in DISEASE_LABELS] for a in short])
+    held("serve --head adapter: 8 answers against AdapterEngine on the plain route", got, want,
+         TOL["eval_vs_plain"], {"images": apart(want)}, failures, bound=False)
+    print(f"serve --head adapter (--buckets 1 --max-pending 8) on {card}: {BURST} clients at "
+          f"once: {codes.count(200)} answered 200, {shed} shed with 429 + Retry-After: 1; "
+          f"launches {by_path['cli_serve_adapter']}")
+
+    # -- 3. the findings and rich banks from the layout's reports ------------------------------
+    reports = read_csv(f"{kaggle}/indiana_reports.csv")
+    banks = {"findings": prompts_for_family("findings", DISEASE_LABELS,
+                                            rename(reports, {"findings": "Findings"})),
+             "rich": prompts_for_family("rich", DISEASE_LABELS, reports)}
+    _build.reset_launches()
+    feats = {}
+    for family, prompts in banks.items():
+        flat = [p for d in DISEASE_LABELS for p in prompts[d]]
+        lengths = tok.encode(flat, max_length=cfg.model.max_text_length)["attention_mask"].sum(1)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        feats[family] = engine.build_text_features(prompts).clone()
+        torch.cuda.synchronize(dev)
+        print(f"the {family} bank: {len(flat)} prompts, tokens min {lengths.min()} median "
+              f"{int(np.median(lengths))} max {lengths.max()}, encoded in "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} ms on {card}")
+    by_path["cli_banks"] = dict(_build.LAUNCHES)
+    check_launched(mods, by_path["cli_banks"], "cli_banks")
+    with plain_kernels(mods):
+        for family, prompts in banks.items():
+            want = engine.build_text_features(prompts)
+            held(f"the {family} bank's unit text features (B3, B4) against the plain route",
+                 feats[family], want, TOL["eval_text_features"], {"classes": apart(want)},
+                 failures, bound=False)
+    del engine, adapter, model
+    torch.cuda.empty_cache()
+    check(not failures, "; ".join(failures))
+
+    # -- 4. pretrain with the A3b options, in this process --------------------------------------
+    walls, epochs, first, ema_ms, scales = {}, [], {}, [], []
+    run_epoch, update_ema = loop.run_epoch, steps_module.update_ema
+    cap = float(np.float32(np.log(100.0)))
+
+    def run(name, argv, path=None):
+        out = io.StringIO()
+        torch.cuda.synchronize(dev)
+        _build.reset_launches()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        with redirect_stdout(out):
+            rc = cli.main(argv)
+        torch.cuda.synchronize(dev)
+        walls[name] = time.perf_counter() - t0
+        check(rc == 0, f"{name} exited with {rc}: {out.getvalue()[-2000:]}")
+        if path:
+            by_path[path] = dict(_build.LAUNCHES)
+            check_launched(mods, by_path[path], path)
+        print(f"  {name}: exit 0 in {walls[name]:.1f} s on {card}, peak "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB"
+              + (f"; launches {by_path[path]}" if path else ""))
+        torch.cuda.empty_cache()
+        return out.getvalue()
+
+    def timed_epoch(step_fn, state, loader, *a, **kw):
+        sizes, secs = [], []
+
+        def timed_step(st, batch, *rest):
+            if not first:
+                gen = rest[-1] if isinstance(rest[-1], torch.Generator) else None
+                first.update(
+                    step=step_fn, state=st, rest=rest,
+                    batch={k: v.clone() if torch.is_tensor(v) else np.array(v, copy=True)
+                           for k, v in batch.items()},
+                    weights={k: v.detach().clone() for k, v in st.model.state_dict().items()},
+                    optimizer=copy.deepcopy(st.optimizer.state_dict()),
+                    generator=None if gen is None else gen.get_state())
+            t0 = time.perf_counter()
+            out = step_fn(st, batch, *rest)
+            torch.cuda.synchronize(dev)
+            secs.append(time.perf_counter() - t0)
+            sizes.append(batch["images"].shape[0])
+            scales.append(float(st.model.logit_scale.detach()))
+            first["optimizer_state"] = st.optimizer.state
+            return out
+
+        out = run_epoch(timed_step, state, loader, *a, **kw)
+        epochs.append((sizes, secs))
+        return out
+
+    def timed_ema(*a, **kw):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        update_ema(*a, **kw)
+        torch.cuda.synchronize(dev)
+        ema_ms.append((time.perf_counter() - t0) * 1e3)
+
+    def moment_bytes():
+        return sum(s["exp_avg"].nbytes for s in first["optimizer_state"].values())
+
+    def rate():
+        sizes, secs = epochs[-1]
+        k = min(1, len(secs) - 1)
+        return (f"{sum(sizes[k:]) / sum(secs[k:]):.1f} samples/s over steps {k}-"
+                f"{len(secs) - 1} of B = {sizes[0]} (each synced; step 0 {secs[0] * 1e3:.1f} ms)")
+
+    made, splits = [], {}
+    make_real = train_package.make_clip_pretrain_step
+
+    def make_step(*a, **kw):  # the command's step, and what it was built from
+        made.append((a, kw))
+        return make_real(*a, **kw)
+
+    groups = [g.name for g in get_preset("pretrain_clip").train.groups]
+    pre, logs = f"{work}/pretrain_ema", f"{work}/logs_pretrain"
+    train_kernels = dict.fromkeys(("flash_attention", "flash_attention_bwd", "mlp", "mlp_bwd"))
+    moments = {}
+    for name, argv, path in (
+            ("pretrain --loss siglip --learnable-temperature --ema-decay 0.999 --bf16-moments "
+             "--device-cache",
+             ["pretrain", *data, *kernels, "--epochs", "1", "--device-cache", "--loss", "siglip",
+              "--learnable-temperature", "--ema-decay", "0.999", "--bf16-moments",
+              "--checkpoint-dir", pre, "--log-dir", logs], "cli_pretrain_a3b"),
+            ("pretrain --loss info_nce --learnable-temperature (64 synthetic pairs)",
+             ["pretrain", "--vocab", vocab, *kernels, "--epochs", "1", "--synthetic",
+              "--synthetic-samples", "64", "--loss", "info_nce", "--learnable-temperature",
+              "--log-dir", f"{work}/logs_info_nce"], "cli_pretrain_info_nce")):
+        first.clear()
+        scales.clear()
+        made.clear()
+        stack, kept = first_inputs(mods, train_kernels)
+        with mock.patch.object(loop, "run_epoch", timed_epoch), \
+                mock.patch.object(steps_module, "update_ema", timed_ema), \
+                mock.patch.object(train_package, "make_clip_pretrain_step", make_step), stack:
+            run(name, argv, path)
+        check(scales and max(scales) <= cap, f"{name}: logit_scale above log 100: {scales}")
+        moments[path] = moment_bytes()
+        print(f"  {rate()}; logit_scale after each step in [{min(scales):.6f}, "
+              f"{max(scales):.6f}] (cap {cap:.6f}); exp_avg {moments[path] / 1e6:.1f} MB")
+        check(len(made) == 1, f"{name} built {len(made)} pretrain steps")
+        (a, kw), = made
+        first.update(loss_name=a[3], temperature=a[4])
+        split = step_split(dev, first, steps_module)
+        splits[path] = split
+        print(f"  the step in parts, ms (median of 5, synced at each part's bounds): "
+              f"{json.dumps({k: round(v, 3) for k, v in split.items()})}")
+        print(f"phase 10, {path}: B3, B6, B4, B8 at the run's first inputs, and its first step "
+              f"against the plain route and on the fp32 route:")
+        hold_first_inputs(mods, kept, train_kernels, path, results)
+        a3b_first_step(_build, mods, first, groups,
+                       make_real(*a, **{**kw, "compute_dtype": torch.float32, "ema_decay": 0.0}))
+        first.clear()  # the run's model and optimizer go before the next run's peak
+        kept.clear()
+        torch.cuda.empty_cache()
+    a3b, fp32 = moments["cli_pretrain_a3b"], moments["cli_pretrain_info_nce"]
+    check(2 * a3b == fp32, f"exp_avg bytes {a3b} (bf16) vs {fp32} (fp32)")
+    print(f"  --bf16-moments: exp_avg {a3b / 1e6:.1f} MB against {fp32 / 1e6:.1f} MB in fp32 "
+          f"({(fp32 - a3b) / 1e6:.1f} MB less); the EMA update {np.median(ema_ms):.3f} ms a "
+          f"step (median of {len(ema_ms)}, synced)")
+    sa, si = splits["cli_pretrain_a3b"], splits["cli_pretrain_info_nce"]
+    print(f"  the optimizer step {sa['optimizer']:.3f} ms (AdamWBf16FirstMoment) against "
+          f"{si['optimizer']:.3f} ms (AdamW, fp32 moments); the loss alone, forward and "
+          f"backward, {sa['loss_alone']:.3f} ms (siglip) and {si['loss_alone']:.3f} ms "
+          f"(info_nce); the whole step so split {sa['step']:.3f} and {si['step']:.3f} ms")
+
+    # -- 5. eval --use-ema and convert --use-ema --------------------------------------------------
+    ev = ["eval", *data, *kernels]
+
+    def eval_csv(name, argv, path=None):
+        log = f"{work}/{name.replace(' ', '_').replace('-', '').replace('.', '')}"
+        run(name, [*argv, "--log-dir", log], path)
+        with open(f"{log}/eval_predictions.csv", "rb") as f:
+            return f.read()
+
+    slot = eval_csv("eval --use-ema", [*ev, "--checkpoint", pre, "--use-ema"], "cli_eval_ema")
+    run("convert --use-ema", ["convert", "--vocab", vocab, "--checkpoint", pre, "--use-ema",
+                              "--out", f"{work}/ema.pth"])
+    converted = eval_csv("eval ema.pth", [*ev, "--checkpoint", f"{work}/ema.pth"])
+    live = eval_csv("eval, live weights", [*ev, "--checkpoint", pre])
+    check(slot == converted and slot != live, "eval --use-ema and the converted .pth differ, or "
+                                              "the EMA scores as the live weights")
+    try:
+        with redirect_stdout(io.StringIO()):
+            cli.main([*ev, "--checkpoint", f"{work9}/pretrain", "--use-ema", "--log-dir",
+                      f"{work}/no_ema"])
+        raise SmokeFailure("eval --use-ema on a directory without the slot did not fail")
+    except ValueError as exc:
+        check("the EMA slot of checkpoint" in str(exc) and "lacks" in str(exc), str(exc))
+        print(f"  eval --use-ema on phase 9's pretrain directory: ValueError {str(exc)[:120]!r}")
+    rows = slot.count(b"\n") - 1
+    print(f"eval --use-ema and eval of the .pth that convert --use-ema wrote: "
+          f"eval_predictions.csv ({rows} exams) byte-equal; the live weights score otherwise")
+    print(f"phase 10 on {card}: command wall times "
+          f"{json.dumps({k: round(v, 2) for k, v in walls.items()})} s")
+    print(f"phase 10 took {time.perf_counter() - t_phase:.1f} s")
+    return by_path
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of weights and inputs")
+    ap.add_argument("--first-step-seeds", type=int, nargs="+", metavar="SEED",
+                    help="only build the kernels and print the readings of first_step_sweep "
+                         "at these seeds")
     args = ap.parse_args(argv)
 
     t_start = time.perf_counter()
@@ -3056,6 +3919,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     _build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s -> {_build.build_info['path']}")
+    if args.first_step_seeds:
+        first_step_sweep(_build, mods, dev, args.first_step_seeds)
+        return 0
     for line in _build.build_info["log"].splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"  {line.strip()}")
@@ -3122,6 +3988,8 @@ def main(argv=None) -> int:
                                         results))
         print("== phase 9: the chain from the command line")
         by_path.update(cli_phase(_build, mods, dev, args.seed, card, workdir, results))
+        print("== phase 10: serve, the report-built banks, the rest of the pretrain options")
+        by_path.update(serve_phase10(_build, mods, dev, args.seed, card, workdir, results))
     print("== the wrappers' host time (tools/launch_times.py)")
     from clip_for_dl_tpu_torch.tools import launch_times
 

@@ -7,6 +7,7 @@
   adapter       frozen-CLIP C-Adapter training (notebook phase B)
   zeroshot      zero-shot evaluation (union-max or dynamic-threshold pipeline)
   eval          metric suite over a checkpoint on the held-out split
+  serve         dynamic-batching HTTP inference server
   convert       checkpoint directory / .pth / .safetensors → reference layout
 
 The parser is the JAX CLI's, command for command and flag for flag, so a
@@ -35,7 +36,7 @@ ENV_FORCE_CPU = "CLIP_FOR_DL_TPU_FORCE_CPU"
 
 # command → the ROADMAP item that ports it
 UNPORTED_COMMANDS = {"train": "A6", "shared-adapter": "A8", "gradcam": "A9",
-                     "rollout": "A9", "serve": "A2b"}
+                     "rollout": "A9"}
 # flag → (the values it takes unported, the ROADMAP item); ``None`` stands
 # for any value but the ones a single-device, default run passes
 _ANY = None
@@ -51,12 +52,7 @@ UNPORTED_FLAGS = {
     "local_loss": (_ANY, "A7"),
     "accum_steps": (_ANY, "A7"),
     "moe_experts": (_ANY, "A7"),
-    "loss": (("info_nce", "siglip"), "A3b"),
-    "learnable_temperature": (_ANY, "A3b"),
-    "ema_decay": (_ANY, "A3b"),
-    "use_ema": (_ANY, "A3b"),
-    "bf16_moments": (_ANY, "A3b"),
-    "prompts": (("rich", "findings"), "A2b"),
+    "exported": (_ANY, "A9"),
     "remat": (_ANY, "not ported (torch.utils.checkpoint)"),
     "bf16_attention_probs": (_ANY, "not ported (the attention kernels keep no "
                                    "probabilities; use --flash-attention)"),
@@ -133,6 +129,14 @@ def _apply_tiny(cfg, args, vocab_size: int):
         model = dataclasses.replace(model, flash_attention=True)
     if getattr(args, "bert_fused_mlp", False):
         model = dataclasses.replace(model, bert_fused_mlp=True)
+    if getattr(args, "learnable_temperature", False):
+        loss = getattr(args, "loss", None) or cfg.train.loss
+        model = dataclasses.replace(
+            model, learnable_temperature=True,
+            # siglip trains from the paper's operating point (s = 10,
+            # b = -10); the softmax losses start at the preset's fixed T
+            logit_scale_init=10.0 if loss == "siglip" else None,
+        )
     if getattr(args, "tiny", False):
         model = dataclasses.replace(
             model,
@@ -178,6 +182,7 @@ def _model(cfg, args, train: bool = False):
     model = load_trained_model(
         args.checkpoint, cfg, torch.float32 if train else compute,
         allow_partial=getattr(args, "allow_partial_restore", False),
+        use_ema=getattr(args, "use_ema", False),
         init_image_tower=getattr(args, "init_image_tower", None),
         init_text_tower=getattr(args, "init_text_tower", None),
         device=args.device,
@@ -383,6 +388,8 @@ def cmd_cache_images(args) -> int:
 
 
 def cmd_pretrain(args) -> int:
+    import torch
+
     from ..evals import MetricWriter
     from ..train import (
         CheckpointManager,
@@ -406,7 +413,9 @@ def cmd_pretrain(args) -> int:
     groups = {g.name: g.lr for g in cfg.train.groups} or {"default": cfg.train.lr}
     groups.setdefault("default", cfg.train.lr)
     label_fn = make_label_fn([g for g in groups if g != "default"])
-    optimizer = make_optimizer(model, label_fn, weight_decay=cfg.train.weight_decay)
+    optimizer = make_optimizer(
+        model, label_fn, weight_decay=cfg.train.weight_decay,
+        moment_dtype=torch.bfloat16 if getattr(args, "bf16_moments", False) else None)
 
     train_loader, val_loader = _loaders(cfg, args, multi_view=False)
     max_len = cfg.model.max_text_length
@@ -462,17 +471,21 @@ def cmd_pretrain(args) -> int:
     )
     if getattr(args, "loss", None):
         loss_name = args.loss
+    ema_decay = float(getattr(args, "ema_decay", 0.0) or 0.0)
     prep = dict(image_size=cfg.model.image_size, mean=cfg.augment.mean, std=cfg.augment.std,
                 compute_dtype=compute)
     step = make_clip_pretrain_step(model, optimizer, label_fn, loss_name,
                                    cfg.model.temperature, max_grad_norm=cfg.train.max_grad_norm,
-                                   **prep)
-    eval_step = make_clip_eval_step(model, loss_name, cfg.model.temperature, **prep)
+                                   ema_decay=ema_decay, **prep)
+    # with an EMA, validation scores the smoothed weights: they drive the
+    # plateau schedule, early stopping and the best checkpoint
+    eval_step = make_clip_eval_step(model, loss_name, cfg.model.temperature,
+                                    use_ema=bool(ema_decay), **prep)
     ckpt = None
     if args.checkpoint_dir:
         ckpt = CheckpointManager(args.checkpoint_dir, cfg.train.max_checkpoints_to_keep)
-    state, start_epoch = resume_or_init(ckpt, TrainState(model, optimizer),
-                                        loader=train_loader)
+    state, start_epoch = resume_or_init(
+        ckpt, TrainState.create(model, optimizer, ema=bool(ema_decay)), loader=train_loader)
     writer = MetricWriter(args.log_dir, "pretrain")
 
     with PreemptionGuard() as guard:
@@ -682,6 +695,88 @@ def cmd_eval(args) -> int:
     return 0
 
 
+def cmd_serve(args) -> int:
+    """Dynamic-batching HTTP inference server over the zero-shot engine, or
+    the trained C-Adapter with ``--head adapter``."""
+    from ..core.config import DISEASE_LABELS
+    from ..inference import AdapterEngine
+    from ..serving import ZeroShotService, create_server
+    from ..zeroshot import ZeroShotEngine, prompts_for_family
+
+    if min(args.buckets) < 1:
+        print("error: --buckets entries must be >= 1", file=sys.stderr)
+        return 2
+    # parse and check the calibration file before the (slow) engine build,
+    # so that a bad file fails in milliseconds
+    threshold = args.threshold
+    if getattr(args, "thresholds", None):
+        with open(args.thresholds) as f:
+            raw = json.load(f)
+        threshold = {}
+        for k, v in raw.items():
+            try:
+                threshold[str(k)] = float(v)
+            except (TypeError, ValueError):
+                print(f"error: --thresholds[{k!r}] = {v!r} is not a number", file=sys.stderr)
+                return 2
+        unknown = set(threshold) - set(DISEASE_LABELS)
+        if unknown:
+            print(f"error: --thresholds has unknown diseases {sorted(unknown)}",
+                  file=sys.stderr)
+            return 2
+        bad = {k: v for k, v in threshold.items() if not 0.0 <= v <= 1.0}
+        if bad:
+            # a threshold outside [0, 1] pins its disease to always or never
+            print("error: --thresholds values must be probabilities in "
+                  f"[0, 1]; got {bad}", file=sys.stderr)
+            return 2
+    cfg = _preset(args)
+    _setup_logging(args.log_dir, "serve")
+    tokenizer = _tokenizer(args)
+    cfg = _apply_tiny(cfg, args, len(tokenizer.vocab))
+    model = _model(cfg, args)
+    size = cfg.model.image_size
+    if getattr(args, "head", "zeroshot") == "adapter":
+        # sigmoid(classifier logits) of a trained C-Adapter checkpoint (the
+        # adapter command's --checkpoint-dir): no prompt bank, no text tower
+        engine = AdapterEngine(model, cfg.augment.mean, cfg.augment.std, size,
+                               _compute_dtype(args))
+    else:
+        engine = ZeroShotEngine(
+            model, tokenizer, DISEASE_LABELS, cfg.zeroshot, cfg.augment.mean,
+            cfg.augment.std, size, cfg.model.max_text_length, _compute_dtype(args),
+        )
+        engine.build_text_features(prompts_for_family(args.prompts, DISEASE_LABELS))
+    service = ZeroShotService(
+        engine, DISEASE_LABELS, threshold=threshold, buckets=tuple(sorted(args.buckets)),
+        max_wait_ms=args.max_wait_ms, image_size=size, max_pending=args.max_pending or None,
+    )
+    # every bucket runs once before the socket binds, so that no request
+    # pays a first launch
+    for b in sorted(set(args.buckets)):
+        engine.probs(np.zeros((b, size, size, 3), np.uint8))
+        logging.info("warmed batch bucket %d", b)
+    try:
+        server = create_server(service, args.host, args.port, model_info={
+            "image_size": size, "checkpoint": args.checkpoint or "fresh",
+            "buckets": sorted(set(args.buckets))})
+    except OSError as exc:
+        print(f"error: cannot bind {args.host}:{args.port}: {exc}", file=sys.stderr)
+        service.close()
+        return 2
+    host, port = server.server_address[:2]
+    logging.info("serving on http://%s:%d (POST /predict, GET /healthz, GET /stats)",
+                 host, port)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        logging.info("shutting down")
+    finally:
+        server.server_close()
+        service.close()
+    return 0
+
+
 def cmd_convert(args) -> int:
     """Checkpoint interop: checkpoint directory / reference .pth / flat
     .safetensors → reference-layout .pth or .safetensors (the reference's
@@ -712,6 +807,7 @@ def cmd_convert(args) -> int:
     model = load_trained_model(
         args.checkpoint, cfg, torch.float32,
         allow_partial=getattr(args, "allow_partial_restore", False),
+        use_ema=getattr(args, "use_ema", False),
         device=args.device,
     )
     epoch = args.epoch
@@ -836,7 +932,9 @@ def build_parser() -> argparse.ArgumentParser:
                              "mismatch would otherwise score with "
                              "untrained weights")
         sp.add_argument("--use-ema", action="store_true",
-                        help=_not_ported_help("A3b"))
+                        help="load the EMA weight slot (written by "
+                             "pretrain --ema-decay) instead of the live "
+                             "params — errors if the checkpoint has none")
         sp.add_argument("--coordinator", default="localhost:12321",
                         metavar="HOST:PORT", help="with --num-processes")
         sp.add_argument("--num-processes", type=int, default=1,
@@ -882,22 +980,34 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--loss",
                     choices=["clip_self_distill", "info_nce", "siglip"],
                     default=None,
-                    help="override the preset's contrastive loss; info_nce "
-                         "and siglip are not ported yet (ROADMAP A3b)")
+                    help="override the preset's contrastive loss; siglip "
+                         "is the pairwise sigmoid loss (Zhai et al. 2023)")
     sp.add_argument("--local-loss", action="store_true",
                     help=_not_ported_help("A7"))
     sp.add_argument("--accum-steps", type=int, default=1, metavar="A",
                     help=_not_ported_help("A7"))
     sp.add_argument("--bf16-moments", action="store_true",
-                    help=_not_ported_help("A3b"))
+                    help="store the first Adam moment in bf16 (halves "
+                         "that optimizer-state slice; second moment "
+                         "stays fp32 for sqrt(nu) dynamic range)")
     sp.add_argument("--warmup-steps", type=int, default=0, metavar="N",
                     help="linear LR warmup over the first N global steps "
                          "(0 = off, the reference's behavior); composes "
                          "with the epoch scheduler and survives resume")
     sp.add_argument("--learnable-temperature", action="store_true",
-                    help=_not_ported_help("A3b"))
+                    help="train the contrastive temperature (real-CLIP/"
+                         "SigLIP semantics): scalar logit_scale "
+                         "(clamped s<=100) and, for siglip, logit_bias "
+                         "join the params; scalars are excluded from "
+                         "weight decay. Resuming such a run needs the "
+                         "flag again; inference commands ignore the "
+                         "extra scalars")
     sp.add_argument("--ema-decay", type=float, default=0.0, metavar="D",
-                    help=_not_ported_help("A3b"))
+                    help="keep an exponential moving average of the "
+                         "params (decay D, e.g. 0.999; warmup-capped) "
+                         "updated after every step; validation "
+                         "and the saved checkpoints carry both the live "
+                         "and the smoothed weights")
     _tower_init_args(sp)
     sp.set_defaults(fn=cmd_pretrain, preset="pretrain_clip")
 
@@ -921,7 +1031,9 @@ def build_parser() -> argparse.ArgumentParser:
     common(sp)
     sp.add_argument("--prompts", default="prediction",
                     choices=["prediction", "basic", "showing", "rich", "findings"],
-                    help="'rich' and 'findings' are not ported yet (ROADMAP A2b)")
+                    help="'rich' and 'findings' are built from the reports "
+                         "table, which this command does not pass: they "
+                         "raise, as in the JAX CLI")
     sp.add_argument("--dynamic", action="store_true",
                     help="two-pass dynamic-threshold pipeline")
     sp.add_argument("--tp", type=int, default=1, help=_not_ported_help("A7"))
@@ -955,21 +1067,36 @@ def build_parser() -> argparse.ArgumentParser:
                          "--checkpoint-dir output)")
     sp.set_defaults(fn=cmd_eval)
 
-    sp = sub.add_parser("serve", help="dynamic-batching HTTP inference server "
-                                      "(" + _not_ported_help("A2b") + ")")
+    sp = sub.add_parser("serve", help="dynamic-batching HTTP inference server")
     common(sp)
     sp.add_argument("--prompts", default="prediction",
                     choices=["prediction", "basic", "showing", "rich", "findings"])
     sp.add_argument("--host", default="0.0.0.0")
     sp.add_argument("--port", type=int, default=8008)
     sp.add_argument("--threshold", type=float, default=0.5)
-    sp.add_argument("--thresholds", default=None, metavar="FILE")
-    sp.add_argument("--buckets", type=int, nargs="+", default=[1, 4, 16, 64])
-    sp.add_argument("--max-wait-ms", type=float, default=5.0)
-    sp.add_argument("--max-pending", type=int, default=256)
-    sp.add_argument("--tp", type=int, default=1)
-    sp.add_argument("--exported", default=None, metavar="DIR")
-    sp.add_argument("--head", default="zeroshot", choices=["zeroshot", "adapter"])
+    sp.add_argument("--thresholds", default=None, metavar="FILE",
+                    help="per-disease threshold JSON (written by "
+                         "`zeroshot --dynamic` as thresholds.json); "
+                         "overrides --threshold per disease, 0.5 for "
+                         "diseases absent from the file")
+    sp.add_argument("--buckets", type=int, nargs="+", default=[1, 4, 16, 64],
+                    help="batch sizes for the micro-batcher, each run once "
+                         "before the server binds")
+    sp.add_argument("--max-wait-ms", type=float, default=5.0,
+                    help="max coalescing wait for a lone request")
+    sp.add_argument("--max-pending", type=int, default=256,
+                    help="admission bound on the batcher backlog: past "
+                         "this many queued requests, new ones get 429 "
+                         "(load shedding) instead of unbounded queueing; "
+                         "0 = unbounded")
+    sp.add_argument("--tp", type=int, default=1, help=_not_ported_help("A7"))
+    sp.add_argument("--exported", default=None, metavar="DIR",
+                    help=_not_ported_help("A9"))
+    sp.add_argument("--head", default="zeroshot", choices=["zeroshot", "adapter"],
+                    help="'zeroshot' scores against the prompt bank; "
+                         "'adapter' deploys a trained C-Adapter checkpoint "
+                         "(sigmoid classifier logits, no text tower)")
+    sp.set_defaults(fn=cmd_serve)
 
     sp = sub.add_parser(
         "convert",

@@ -53,9 +53,11 @@ def load_trained_model(
     reference-layout file (modules it lacks keep their weights), or a
     ``CheckpointManager`` directory, whose best epoch is restored (a tensor
     the checkpoint lacks is an error unless ``allow_partial``; an empty
-    directory leaves the weights as they are). ``use_ema`` raises where the
-    JAX function raises (no checkpoint, a reference file, an empty
-    directory); the EMA slot itself is not ported yet."""
+    directory leaves the weights as they are). ``use_ema`` reads the
+    directory's EMA slot (written by ``pretrain --ema-decay``) as the
+    parameters, with the checkpoint's live BatchNorm statistics; it raises
+    where the JAX function raises (no checkpoint, a reference file, an empty
+    directory, a checkpoint without the slot)."""
     from .models.pretrained import init_tower_weights
     from .train.checkpoint import CheckpointManager, import_reference_checkpoint
 

@@ -8,6 +8,10 @@ entry points are ``encode_image``, ``encode_text``, ``encode_multiview``
 (forward only), ``adapter_logits`` and the joint ``forward`` of the pretrain
 step; ``.train()`` / ``.eval()``
 switch BatchNorm statistics and dropout as flax's ``train=True`` does.
+With ``config.learnable_temperature`` the model also holds the loss's two
+0-dim fp32 calibration scalars, ``logit_scale`` (log s, from
+``log(logit_scale_init or 1/temperature)``) and ``logit_bias`` (from
+``logit_bias_init``); only the train and eval steps read them.
 
 Parameters are created in fp32. For serving,
 ``core.device.cast_matmul_weights`` casts the matmul, conv and embedding
@@ -19,6 +23,7 @@ model from a ``torch.Generator``.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -44,6 +49,11 @@ class CXRClip(nn.Module):
         if config.use_multimodal_attention:
             raise NotImplementedError("multimodal attention is not ported yet")
         self.config = config
+        if config.learnable_temperature:
+            s0 = config.logit_scale_init or 1.0 / config.temperature
+            self.logit_scale = nn.Parameter(torch.tensor(math.log(s0), dtype=torch.float32))
+            self.logit_bias = nn.Parameter(torch.tensor(config.logit_bias_init,
+                                                        dtype=torch.float32))
         if config.image_tower == "resnet50":
             self.image_tower = ResNet(config.resnet_stages, config.resnet_width)
         elif config.image_tower == "vit_b16":

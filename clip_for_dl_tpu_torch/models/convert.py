@@ -9,7 +9,9 @@ accepts:
 - Conv kernel HWIO → ``weight`` OIHW;
 - BatchNorm scale/bias → weight/bias, batch statistics mean/var →
   running_mean/running_var (``num_batches_tracked`` 0);
-- LayerNorm scale/bias → weight/bias; Embed embedding → weight.
+- LayerNorm scale/bias → weight/bias; Embed embedding → weight;
+- the learnable-temperature scalars ``logit_scale`` / ``logit_bias``
+  (0-dim) under their own names.
 
 Names are the ones ``clip_for_dl_tpu/models/torch_export.py`` emits
 (torchvision ResNet, HF BertModel, the reference's head attributes) under
@@ -149,4 +151,7 @@ def state_dict_from_jax(
     sd.update(_linear(params["view_fusion"]["fc2"], "view_fusion.fusion.3"))
     sd.update(_linear(params["adapter"]["classifier"], "adapter.classifier"))
     sd.update(_linear(params["shared_adapter"]["classifier"], "shared_adapter.classifier"))
+    for name in ("logit_scale", "logit_bias"):
+        if name in params:
+            sd[name] = _t(params[name])
     return sd

@@ -1,30 +1,44 @@
-"""Serving: a micro-batcher and the zero-shot service over the port's engine.
+"""Serving: a micro-batcher, the zero-shot service over the port's engine,
+and its HTTP server (counterpart of ``clip_for_dl_tpu.serving``).
 
-Counterpart of ``clip_for_dl_tpu.serving`` without its HTTP layer. Single
-uint8 image requests are coalesced into bucketed batches (1/4/16/64 by
-default); the assembler thread dispatches a batch to the engine, which
+Single uint8 image requests are coalesced into bucketed batches (1/4/16/64
+by default); the assembler thread dispatches a batch to the engine, which
 queues it on the GPU and returns at once, and a finalizer thread waits for
 each batch's result and resolves the callers' futures, so the device
 computes batch N while batch N+1 assembles.
 
-The HTTP server (``create_server``) and request decoding
-(``decode_request_image``) are not ported yet: decoding needs cv2 or the
-native runtime, and the port depends on neither.
+:func:`create_server` binds a ``ThreadingHTTPServer`` over a
+:class:`ZeroShotService`: ``POST /predict`` (raw image bytes, or JSON
+``{"image_b64": ...}``) → 200 with the probabilities and the predictions;
+400 for a body that does not decode, 429 with ``Retry-After: 1`` past the
+batcher's ``max_pending``, 500 for a failure in the engine; ``GET
+/healthz`` and ``GET /stats``; 404 elsewhere.
+:func:`decode_request_image` decodes PNG only, on the port's decoder
+(``native/bindings.py``: the bytes cv2 and the native runtime give, in RGB
+order); JPEG, BMP, TIFF and WebP, which the JAX server reads through cv2,
+get a 400 that names ROADMAP A2c.
 """
 
 from __future__ import annotations
 
+import base64
+import json
+import logging
 import threading
 import time
 from collections import Counter, deque
 from concurrent.futures import Future
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from queue import Empty, Full, Queue
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from .native.bindings import decode_png, resize_u8
 from .zeroshot.engine import HostCopy
+
+logger = logging.getLogger("clip_for_dl_tpu_torch.serving")
 
 DEFAULT_BUCKETS = (1, 4, 16, 64)
 
@@ -277,20 +291,56 @@ class MicroBatcher:
                 self._t_fetch.append(fetch_ms)
 
 
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+
+
+def decode_request_image(body: bytes, content_type: str,
+                         image_size: int) -> np.ndarray:
+    """Request payload → RGB uint8 [image_size, image_size, 3].
+
+    Accepts raw PNG bytes, or JSON {"image_b64": ...} holding them.
+    Raises ValueError on undecodable input."""
+    if content_type.startswith("application/json"):
+        try:
+            payload = json.loads(body)
+            raw = base64.b64decode(payload["image_b64"])
+        except Exception as exc:
+            raise ValueError(f"bad JSON request: {exc}") from exc
+    else:
+        raw = body
+    img = decode_png(raw)
+    if img is None:
+        if raw[:8] != _PNG_SIGNATURE:
+            raise ValueError("could not decode image bytes: only PNG is decoded (JPEG, BMP, "
+                             "TIFF and WebP are ROADMAP A2c)")
+        raise ValueError("could not decode image bytes")
+    return resize_u8(img, image_size, image_size)
+
+
 class ZeroShotService:
-    """Engine + batcher + prediction formatting."""
+    """Engine + batcher + prediction formatting, independent of HTTP.
+
+    ``threshold`` is a scalar, or a per-disease mapping (the calibration
+    ``zeroshot --dynamic`` writes to thresholds.json); a disease the mapping
+    lacks is decided at 0.5."""
 
     def __init__(
         self,
         engine,
         disease_list: Sequence[str],
-        threshold: float = 0.5,
+        threshold: Union[float, Mapping[str, float]] = 0.5,
         buckets: Sequence[int] = DEFAULT_BUCKETS,
         max_wait_ms: float = 5.0,
+        image_size: int = 224,
         max_pending: Optional[int] = None,
     ):
         self.disease_list = list(disease_list)
-        self.threshold = float(threshold)
+        if isinstance(threshold, Mapping):
+            self.thresholds = np.array([float(threshold.get(d, 0.5)) for d in disease_list],
+                                       np.float64)
+        else:
+            self.thresholds = np.full(len(disease_list), float(threshold), np.float64)
+        self.image_size = image_size
 
         # dispatch queues the batch, the sigmoid and the copy of the result
         # to the host, so the GPU computes batch N while the batcher
@@ -310,11 +360,79 @@ class ZeroShotService:
         probs = self.batcher.submit(image_u8).result(timeout=timeout_s)
         return {
             "probs": {d: float(p) for d, p in zip(self.disease_list, probs)},
-            "predictions": [
-                d for d, p in zip(self.disease_list, probs) if p > self.threshold
-            ],
+            "predictions": [d for d, p, t in zip(self.disease_list, probs, self.thresholds)
+                            if p > t],
             "latency_ms": round((time.perf_counter() - t0) * 1e3, 2),
         }
 
     def close(self):
         self.batcher.close()
+
+
+def _make_handler(service: ZeroShotService, model_info: Dict):
+    class Handler(BaseHTTPRequestHandler):
+        def _send(self, code: int, payload: Dict, headers: Sequence[Tuple[str, str]] = ()):
+            body = json.dumps(payload).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            for name, value in headers:
+                self.send_header(name, value)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            if self.path == "/healthz":
+                self._send(200, {"status": "ok", "diseases": service.disease_list,
+                                 **model_info})
+            elif self.path == "/stats":
+                self._send(200, service.batcher.stats())
+            else:
+                self._send(404, {"error": f"no route {self.path}"})
+
+        def do_POST(self):
+            if self.path != "/predict":
+                self._send(404, {"error": f"no route {self.path}"})
+                return
+            length = int(self.headers.get("Content-Length", 0))
+            if length <= 0:
+                self._send(400, {"error": "empty body"})
+                return
+            body = self.rfile.read(length)
+            try:
+                image = decode_request_image(body, self.headers.get("Content-Type", ""),
+                                             service.image_size)
+            except ValueError as exc:
+                self._send(400, {"error": str(exc)})
+                return
+            try:
+                self._send(200, service.predict_one(image))
+            except BacklogFull as exc:
+                # deliberate load shedding, not a failure: clients back off
+                # and retry (Retry-After is advisory)
+                self._send(429, {"error": str(exc)}, (("Retry-After", "1"),))
+            except Exception as exc:
+                self._send(500, {"error": f"{type(exc).__name__}: {exc}"})
+
+        def log_message(self, fmt, *args):  # to the log, not stderr
+            logger.info(fmt, *args)
+
+    return Handler
+
+
+class _Server(ThreadingHTTPServer):
+    # socketserver's listen backlog is 5: a burst of concurrent clients past
+    # it gets connection resets before the batcher sees them. Overload is
+    # the batcher's max_pending → 429, not the accept queue's.
+    request_queue_size = 128
+
+
+def create_server(
+    service: ZeroShotService,
+    host: str = "0.0.0.0",
+    port: int = 8008,
+    model_info: Optional[Dict] = None,
+) -> ThreadingHTTPServer:
+    """Bind (port 0 → ephemeral) and return the server; call
+    ``serve_forever()`` on it (or run it in a thread) to start handling."""
+    return _Server((host, port), _make_handler(service, model_info or {}))

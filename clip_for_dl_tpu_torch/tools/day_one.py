@@ -65,14 +65,29 @@ def _check(ok: bool, msg: str) -> None:
         raise SystemExit(f"day-one gate failed: {msg}")
 
 
+def _template_texts() -> list:
+    """Every template of the report-built prompt families ("rich" in its
+    three frequency and three primacy branches, "findings"), filled with
+    placeholders."""
+    from ..data.frame import Frame
+    from ..zeroshot.prompts import create_enhanced_prompts_with_findings, create_rich_prompts
+
+    stats = {f"d{i}": {"frequency": f, "percentage_as_first": q}
+             for i, (f, q) in enumerate(((11, 90.0), (6, 60.0), (1, 10.0)))}
+    texts = [p for ps in create_rich_prompts(stats).values() for p in ps]
+    frame = Frame(["Problems", "Findings"], [{"Problems": "d", "Findings": "f"}])
+    return texts + create_enhanced_prompts_with_findings(frame)["d"]
+
+
 def standin_vocab(reports_csv: str, path: str, size: Optional[int] = None) -> str:
     """vocab.txt of the words of the reports' findings and impressions and
     of the prompts (their templates and the disease names, which the real
     vocab holds and a small corpus may not: a word whose first letter is
     missing tokenizes to [UNK], and prompts alike in all but such a word
-    encode alike). ``build_tiny_vocab``: the specials, each word and its
-    characters as pieces; padded with ``[unused{i}]`` entries to ``size``
-    when given."""
+    encode alike), the report-built families' templates last, so that the
+    other words keep their ids. ``build_tiny_vocab``: the specials, each
+    word and its characters as pieces; padded with ``[unused{i}]`` entries
+    to ``size`` when given."""
     from ..core.config import DISEASE_LABELS
     from ..data import read_csv
     from ..text import build_tiny_vocab
@@ -81,7 +96,7 @@ def standin_vocab(reports_csv: str, path: str, size: Optional[int] = None) -> st
     reports = read_csv(reports_csv)
     words = [w for col in ("findings", "impression") for t in reports.column(col) if t
              for w in t.split()]
-    vocab = build_tiny_vocab(words + dev_words(DISEASE_LABELS))
+    vocab = build_tiny_vocab(words + dev_words(DISEASE_LABELS) + _template_texts())
     tokens = sorted(vocab, key=vocab.get)
     if size is not None:
         _check(len(tokens) <= size, f"{len(tokens)} corpus tokens exceed the vocab's {size}")

@@ -6,7 +6,9 @@ The JAX package keeps an orbax manager; this one keeps its rules on plain
 files in ``directory``:
 
 - ``{epoch}.pt`` holds ``{"model", "optimizer", "step"}`` of a
-  ``TrainState``, and ``{epoch}.json`` its metrics. Each is written to a
+  ``TrainState``, with ``"ema"`` (the EMA of the parameters, the JAX
+  state's ``ema_params`` slot) when the state has one, and
+  ``{epoch}.json`` its metrics. Each is written to a
   ``.tmp`` name and renamed, the metrics first, so a crash never leaves half
   a checkpoint under an epoch's name.
 - Retention is orbax's ``BestN``: once more than ``max_to_keep`` epochs
@@ -24,11 +26,12 @@ so ``wait`` only prunes preemption saves that a completed epoch superseded.
 Restores load into the template state's model and optimizer, whose
 ``load_state_dict`` puts every tensor on the template's device.
 
-Model tensors are stored under the model's state-dict names with
+Model and EMA tensors are stored under the model's state-dict names with
 ``core.device.cast_in_forward``'s parametrization taken out
 (``conv1.parametrizations.weight.original`` → ``conv1.weight``): the
 reference's names, so a checkpoint loads into a model with or without that
-parametrization.
+parametrization. Optimizer moments keep their dtype (a bf16 first moment
+stays bf16).
 """
 
 from __future__ import annotations
@@ -52,14 +55,27 @@ _PREEMPT_BASE = 1_000_000
 _PARAMETRIZED = re.compile(r"\.parametrizations\.([^.]+)\.original$")
 
 
+def _plain(name: str) -> str:
+    return _PARAMETRIZED.sub(r".\1", name)
+
+
 def model_state(model: nn.Module) -> Dict[str, torch.Tensor]:
     """``model.state_dict()`` under the reference's names (see above)."""
-    return {_PARAMETRIZED.sub(r".\1", k): v for k, v in model.state_dict().items()}
+    return {_plain(k): v for k, v in model.state_dict().items()}
+
+
+def _payload(state) -> Dict[str, Any]:
+    payload = {"model": model_state(state.model),
+               "optimizer": state.optimizer.state_dict(), "step": int(state.step)}
+    ema = getattr(state, "ema_params", None)
+    if ema is not None:
+        payload["ema"] = {_plain(k): v for k, v in ema.items()}
+    return payload
 
 
 def _load_model(model: nn.Module, saved: Mapping[str, torch.Tensor], *,
                 allow_missing: bool, what: str) -> None:
-    own = {_PARAMETRIZED.sub(r".\1", k): k for k in model.state_dict()}
+    own = {_plain(k): k for k in model.state_dict()}
     missing = [k for k in own if k not in saved]
     if missing:
         msg = (f"{what} lacks {len(missing)} of the model's tensors (e.g. {missing[:4]}): "
@@ -125,8 +141,7 @@ class _Store:
         os.makedirs(self.directory, exist_ok=True)
         if metrics is not None:
             _write_json(self.path(key, ".json"), metrics)
-        payload = {"model": model_state(state.model),
-                   "optimizer": state.optimizer.state_dict(), "step": int(state.step)}
+        payload = _payload(state)
         _replace_write(self.path(key), lambda tmp: torch.save(payload, tmp))
         return True
 
@@ -151,6 +166,14 @@ def _restore_into(store: _Store, key: int, template):
                 what=store.path(key))
     template.optimizer.load_state_dict(saved["optimizer"])
     template.step = int(saved["step"])
+    ema = getattr(template, "ema_params", None)
+    if ema is not None:
+        if "ema" not in saved:
+            raise ValueError(f"{store.path(key)} has no EMA of the parameters; the state "
+                             "to restore into has one (train with ema_decay)")
+        with torch.no_grad():
+            for name, e in ema.items():
+                e.copy_(saved["ema"][_plain(name)])
     return template, _read_json(store.extra_path(key))
 
 
@@ -248,15 +271,23 @@ class CheckpointManager:
         keep its initial value and score as an untrained weight. Pass
         ``allow_partial=True`` for the reference's tolerant load
         (0425/train.py:523-541). Tensors of the checkpoint that ``model``
-        lacks are ignored."""
-        if use_ema:
-            raise NotImplementedError("EMA of the parameters is not ported yet (ROADMAP A3)")
+        lacks are ignored.
+
+        ``use_ema=True`` loads the EMA slot as the parameters, with the
+        checkpoint's live BatchNorm statistics (the JAX ``to_variables``); a
+        checkpoint without one lacks every parameter, which raises as above."""
         key = epoch if epoch is not None else self._store.latest()
         if key is None:
             return None
         saved = self._store.read(key)
-        _load_model(model, saved["model"], allow_missing=allow_partial,
-                    what=f"checkpoint {self._store.path(key)}")
+        what = f"checkpoint {self._store.path(key)}"
+        tensors = saved["model"]
+        if use_ema:
+            params = {_plain(n) for n, _ in model.named_parameters()}
+            tensors = {k: v for k, v in tensors.items() if k not in params}
+            tensors.update(saved.get("ema", {}))
+            what = f"the EMA slot of {what}"
+        _load_model(model, tensors, allow_missing=allow_partial, what=what)
         return model
 
     # -- mid-epoch preemption slot -------------------------------------------

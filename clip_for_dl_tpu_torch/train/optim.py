@@ -15,13 +15,18 @@ per-group learning rate:
   ``t / max(norm, max_norm) · max_norm`` with no epsilon (torch's
   ``clip_grad_norm_`` divides by ``norm + 1e-6``);
 - :func:`set_group_lrs` writes a host ``{group: lr}`` dict into the groups
-  before a step, as the JAX step scales each update by its group's rate.
+  before a step, as the JAX step scales each update by its group's rate;
+- ``moment_dtype=torch.bfloat16`` (the JAX ``base_transform``'s
+  ``moment_dtype``, the CLI's ``--bf16-moments``) gives
+  :class:`AdamWBf16FirstMoment`, optax's ``scale_by_adam(mu_dtype=bf16)``:
+  torch's AdamW keeps ``exp_avg`` in the parameter's dtype;
+- :func:`freeze_mask` is the JAX mask of trainable top-level modules.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Iterable, List, Mapping, Sequence, Tuple
+from typing import Callable, Dict, Iterable, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -46,6 +51,65 @@ def make_label_fn(
     return label
 
 
+class AdamWBf16FirstMoment(torch.optim.AdamW):
+    """AdamW with the first moment ``exp_avg`` stored in bf16 and the second
+    in fp32, as optax's ``scale_by_adam(mu_dtype=jnp.bfloat16)`` updates:
+
+    - mu = (1 − b1)·g + b1·mu in fp32, where b1·mu is a bf16 product (JAX
+      multiplies the stored bf16 moment by b1 rounded to bf16);
+    - the step's update is mu / (1 − b1ᵗ) / (sqrt(nu / (1 − b2ᵗ)) + eps),
+      from that fp32 mu;
+    - mu is stored rounded to bf16 (to nearest even).
+
+    Decoupled decay and the group's learning rate apply as in AdamW. The
+    first moment takes half the bytes of AdamW's; a state dict loads back
+    with it in bf16 (``Optimizer.load_state_dict`` casts it to the
+    parameter's dtype, exactly, and it is rounded back, exactly)."""
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("closure is not supported")
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            b1, b2 = group["betas"]
+            b1_bf16 = float(torch.tensor(b1, dtype=torch.bfloat16))
+            for p in params:
+                state = self.state[p]
+                if not state:
+                    state["step"] = torch.tensor(0.0, dtype=torch.float32)
+                    state["exp_avg"] = torch.zeros_like(p, dtype=torch.bfloat16)
+                    state["exp_avg_sq"] = torch.zeros_like(p, dtype=torch.float32)
+                state["step"] += 1
+            counts = [int(self.state[p]["step"]) for p in params]
+            grads = [p.grad for p in params]
+            mus = [self.state[p]["exp_avg"] for p in params]
+            nus = [self.state[p]["exp_avg_sq"] for p in params]
+            mu = torch._foreach_mul(grads, 1.0 - b1)
+            torch._foreach_add_(mu, torch._foreach_mul(mus, b1_bf16))
+            # nu = (1 - b2) g² + b2 nu
+            torch._foreach_mul_(nus, b2)
+            torch._foreach_add_(nus, torch._foreach_mul(torch._foreach_mul(grads, grads), 1.0 - b2))
+            update = torch._foreach_div(mu, [1.0 - b1 ** t for t in counts])
+            denom = torch._foreach_sqrt(torch._foreach_div(nus, [1.0 - b2 ** t for t in counts]))
+            torch._foreach_add_(denom, group["eps"])
+            torch._foreach_div_(update, denom)
+            if group["weight_decay"]:
+                torch._foreach_mul_(params, 1.0 - group["lr"] * group["weight_decay"])
+            torch._foreach_add_(params, update, alpha=-group["lr"])
+            for m, m32 in zip(mus, mu):
+                m.copy_(m32)
+        return None
+
+    def load_state_dict(self, state_dict) -> None:
+        super().load_state_dict(state_dict)
+        for state in self.state.values():
+            if "exp_avg" in state:
+                state["exp_avg"] = state["exp_avg"].to(torch.bfloat16)
+
+
 def make_optimizer(
     model: nn.Module,
     label_fn: Callable[[Tuple], str],
@@ -53,19 +117,32 @@ def make_optimizer(
     b1: float = 0.9,
     b2: float = 0.999,
     eps: float = 1e-8,
+    moment_dtype: Optional[torch.dtype] = None,
 ) -> torch.optim.AdamW:
     """AdamW over ``model``'s parameters, one group per (label, decays): each
     group carries its ``label`` (``label_fn`` of the parameter's dotted name,
-    split into a path); the learning rates come from :func:`set_group_lrs`."""
+    split into a path); the learning rates come from :func:`set_group_lrs`.
+    ``moment_dtype=torch.bfloat16`` stores the first moment in bf16
+    (:class:`AdamWBf16FirstMoment`); None keeps ``torch.optim.AdamW``."""
+    if moment_dtype not in (None, torch.float32, torch.bfloat16):
+        raise ValueError(f"moment_dtype {moment_dtype} is not supported (bf16 or None)")
     groups: Dict[Tuple[str, bool], List[nn.Parameter]] = {}
     for name, p in model.named_parameters():
         key = (label_fn(tuple(name.split("."))), p.ndim > 0)
         groups.setdefault(key, []).append(p)
-    return torch.optim.AdamW(
+    kind = AdamWBf16FirstMoment if moment_dtype == torch.bfloat16 else torch.optim.AdamW
+    return kind(
         [{"params": ps, "label": label, "weight_decay": weight_decay if decays else 0.0}
          for (label, decays), ps in groups.items()],
         lr=0.0, betas=(b1, b2), eps=eps,
     )
+
+
+def freeze_mask(model: nn.Module, trainable: Sequence[str]) -> Dict[str, bool]:
+    """Parameter name → True where its top-level module is in ``trainable``
+    (the JAX ``freeze_mask``; the adapter phase trains only ``adapter``)."""
+    allowed = set(trainable)
+    return {name: name.split(".")[0] in allowed for name, _ in model.named_parameters()}
 
 
 def set_group_lrs(optimizer: torch.optim.Optimizer, lrs: Mapping[str, float]) -> None:

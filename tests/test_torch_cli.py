@@ -5,7 +5,10 @@ One miniature Kaggle layout (``testing/kaggle.py``) serves the module: the
 port's and the JAX CLI's ``prep`` and ``cache-images`` must agree on it,
 then both CLIs score one reference ``.pth`` that the JAX package writes
 from seeded flax variables. The port's chain ``pretrain → adapter →
-convert`` is read back by the JAX package. Tolerances are stated per test.
+convert`` is read back by the JAX package, and so is its chain with the
+A3b options (``pretrain --loss siglip --learnable-temperature --ema-decay
+--bf16-moments`` → ``eval --use-ema`` → ``convert --use-ema``). Tolerances
+are stated per test.
 """
 
 import argparse
@@ -216,17 +219,14 @@ def test_parser_takes_every_jax_command_and_flag():
 
 @pytest.mark.parametrize("argv,item", [
     (["train"], "A6"), (["shared-adapter"], "A8"), (["gradcam"], "A9"),
-    (["rollout"], "A9"), (["serve"], "A2b"),
+    (["rollout"], "A9"), (["serve", "--exported", "artifact"], "A9"),
+    (["serve", "--tp", "2"], "A7"),
     (["pretrain", "--lora", "4"], "A8"), (["zeroshot", "--vit-fused-mlp-train"], "A8"),
     (["zeroshot", "--num-devices", "2"], "A7"), (["eval", "--virtual-devices", "8"], "A7"),
     (["zeroshot", "--tp", "2"], "A7"), (["pretrain", "--pp", "2"], "A7"),
     (["pretrain", "--ep", "2"], "A7"), (["adapter", "--num-processes", "2"], "A7"),
     (["pretrain", "--local-loss"], "A7"), (["pretrain", "--accum-steps", "2"], "A7"),
     (["pretrain", "--moe-experts", "4"], "A7"),
-    (["pretrain", "--loss", "info_nce"], "A3b"), (["pretrain", "--loss", "siglip"], "A3b"),
-    (["pretrain", "--learnable-temperature"], "A3b"), (["pretrain", "--ema-decay", "0.99"], "A3b"),
-    (["eval", "--use-ema"], "A3b"), (["pretrain", "--bf16-moments"], "A3b"),
-    (["zeroshot", "--prompts", "rich"], "A2b"), (["zeroshot", "--prompts", "findings"], "A2b"),
     (["pretrain", "--remat"], "not ported"), (["zeroshot", "--bf16-attention-probs"], "not ported"),
 ])
 def test_unported_commands_and_flags_exit_2(argv, item, capsys):
@@ -430,6 +430,143 @@ def test_pretrain_history_has_the_jax_clis_columns(layout, chain, tmp_path):
     assert len(rows) == 1 and np.isfinite(np.array(rows[0], np.float64)).all()
     for name in ("adapter_history.csv", "adapter_predictions.csv", "adapter_metrics.json"):
         assert os.path.exists(os.path.join(chain["logs"], name)), name
+
+
+# -- the A3b options through the command line -------------------------------------------
+
+A3B_FLAGS = ["--loss", "siglip", "--learnable-temperature", "--ema-decay", "0.9",
+             "--bf16-moments"]
+
+
+@pytest.fixture(scope="module")
+def a3b_chain(layout, tmp_path_factory):
+    """The port's pretrain with the A3b options; eval of its directory with
+    and without --use-ema; convert --use-ema to a .pth and eval of that."""
+    root = str(tmp_path_factory.mktemp("a3b"))
+    pre = os.path.join(root, "pretrain")
+    rc, _ = run(cli.main, ["pretrain", *data_flags(layout), *A3B_FLAGS, "--epochs", "1",
+                           "--checkpoint-dir", pre, "--log-dir", os.path.join(root, "logs")])
+    assert rc == 0
+    out = {"root": root, "pretrain": pre, "pth_file": os.path.join(root, "ema.pth")}
+    for name, argv in (("ema", [pre, "--use-ema"]), ("live", [pre]), ("pth", [out["pth_file"]])):
+        if name == "pth":
+            assert run(cli.main, ["convert", "--tiny", "--checkpoint", pre, "--use-ema",
+                                  "--out", out["pth_file"]])[0] == 0
+        log = os.path.join(root, name)
+        rc, stdout = run(cli.main, ["eval", *data_flags(layout), "--checkpoint", *argv,
+                                    "--log-dir", log])
+        assert rc == 0
+        with open(os.path.join(log, "eval_predictions.csv"), "rb") as f:
+            out[name] = {"csv": f.read(), "metrics": printed_json(stdout), "log": log}
+    return out
+
+
+def test_a3b_pretrain_writes_the_ema_slot_and_bf16_moments(a3b_chain):
+    """The checkpoint holds the EMA slot beside the live weights (the
+    calibration scalars in both), the bf16 first moments and fp32 second
+    moments; the learned scale stays at or below log 100."""
+    from clip_for_dl_tpu_torch.train import CheckpointManager
+
+    best = CheckpointManager(a3b_chain["pretrain"]).best_epoch()
+    saved = torch.load(os.path.join(a3b_chain["pretrain"], f"{best}.pt"), weights_only=True)
+    assert {"logit_scale", "logit_bias"} <= set(saved["ema"]) <= set(saved["model"])
+    assert float(saved["model"]["logit_scale"]) <= np.float32(np.log(100.0))
+    assert any(not torch.equal(saved["ema"][k], saved["model"][k]) for k in saved["ema"])
+    moments = saved["optimizer"]["state"].values()
+    assert moments and all(m["exp_avg"].dtype == torch.bfloat16 and
+                           m["exp_avg_sq"].dtype == torch.float32 for m in moments)
+
+
+def test_eval_and_convert_read_the_ema_slot(a3b_chain):
+    """eval --use-ema on the directory and eval of the .pth that convert
+    --use-ema wrote: byte-equal eval_predictions.csv and equal metrics; the
+    live weights score otherwise."""
+    assert a3b_chain["ema"]["csv"] == a3b_chain["pth"]["csv"]
+    assert a3b_chain["ema"]["metrics"] == a3b_chain["pth"]["metrics"]
+    assert a3b_chain["ema"]["csv"] != a3b_chain["live"]["csv"]
+
+
+def test_the_jax_cli_scores_the_ports_ema_weights(layout, a3b_chain, tmp_path):
+    """The JAX CLI's eval of the converted EMA weights against the port's
+    eval --use-ema of the directory: the header and labels equal,
+    probabilities and printed metrics within 1e-4."""
+    log = str(tmp_path / "jax")
+    rc, stdout = run(jcli.main, ["eval", *data_flags(layout), "--checkpoint",
+                                 a3b_chain["pth_file"], "--log-dir", log])
+    assert rc == 0
+    header, rows = read_rows(os.path.join(log, "eval_predictions.csv"))
+    got_header, got_rows = read_rows(os.path.join(a3b_chain["ema"]["log"],
+                                                  "eval_predictions.csv"))
+    assert got_header == header
+    want, got = np.array(rows, np.float64), np.array(got_rows, np.float64)
+    np.testing.assert_allclose(got[:, 0::2], want[:, 0::2], atol=TOL, rtol=0)
+    np.testing.assert_array_equal(got[:, 1::2], want[:, 1::2])
+    assert_metrics_close(a3b_chain["ema"]["metrics"], printed_json(stdout))
+
+
+def test_a3b_pretrain_history_has_the_plain_runs_columns(a3b_chain, chain):
+    """training_history.csv of the run with the A3b options: the plain
+    run's columns (the JAX CLI's, test_pretrain_history_has_the_jax_clis_columns)
+    and one epoch of finite losses."""
+    header, rows = read_rows(os.path.join(a3b_chain["root"], "logs", "training_history.csv"))
+    assert header == read_rows(os.path.join(chain["logs"], "training_history.csv"))[0]
+    assert len(rows) == 1 and np.isfinite(np.array(rows[0], np.float64)).all()
+
+
+def test_use_ema_on_a_directory_without_the_slot_fails(layout, chain):
+    """--use-ema on the plain chain's pretrain directory: the restore raises
+    (the JAX CheckpointManager's rule: every parameter of the slot is
+    missing), naming the EMA slot."""
+    with pytest.raises(ValueError, match="the EMA slot of checkpoint .* lacks"):
+        run(cli.main, ["eval", *data_flags(layout), "--checkpoint", chain["pretrain"],
+                       "--use-ema", "--log-dir", os.path.join(chain["root"], "no_ema")])
+
+
+@pytest.mark.parametrize("family", ["rich", "findings"])
+def test_report_prompt_families_raise_in_both_clis(layout, family):
+    """The JAX CLI calls prompts_for_family without the reports table, so
+    --prompts rich|findings raises there; the port's CLI raises the same
+    error (the JAX model and engine are stubbed: the error comes first)."""
+    argv = ["zeroshot", *data_flags(layout), "--prompts", family]
+
+    class Engine:
+        def __init__(self, *a, **kw):
+            pass
+
+        def build_text_features(self, prompts):
+            raise AssertionError("prompts_for_family did not raise")
+
+    with pytest.raises(ValueError) as want, \
+            mock.patch.object(jcli, "_model_and_state", lambda *a, **kw: (None, None)), \
+            mock.patch("clip_for_dl_tpu.zeroshot.ZeroShotEngine", Engine):
+        jcli.main(argv)
+    with pytest.raises(ValueError) as got:
+        cli.main(argv)
+    assert str(got.value) == str(want.value) == f"{family} prompts need the reports dataframe"
+
+
+@pytest.mark.parametrize("content", [
+    {"Mass": "high"}, {"Mass": 0.5, "Unknown disease": 0.1}, {"Mass": 1.5, "Nodule": -0.1},
+    {"Mass": None},
+])
+def test_serve_thresholds_validation_matches_the_jax_cli(tmp_path, content, capsys):
+    """A bad --thresholds file: the same exit status (2) and message as the
+    JAX CLI's, before any model is built."""
+    path = tmp_path / "t.json"
+    path.write_text(json.dumps(content))
+    argv = ["serve", "--tiny", "--thresholds", str(path)]
+    assert jcli.main(argv) == 2
+    want = capsys.readouterr().err
+    assert cli.main(argv) == 2
+    got = capsys.readouterr().err
+    assert got == want and got.startswith("error: --thresholds")
+
+
+def test_serve_buckets_validation_matches_the_jax_cli(capsys):
+    argv = ["serve", "--tiny", "--buckets", "0", "4"]
+    assert jcli.main(argv) == cli.main(argv) == 2
+    err = capsys.readouterr().err.splitlines()
+    assert err == ["error: --buckets entries must be >= 1"] * 2
 
 
 # -- the pieces the commands write with ---------------------------------------------------

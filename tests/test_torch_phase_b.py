@@ -59,6 +59,8 @@ from clip_for_dl_tpu_torch.train import (
     run_eval,
 )
 from clip_for_dl_tpu_torch.train import preemption as port_preemption
+from clip_for_dl_tpu_torch.train.optim import freeze_mask as port_freeze_mask
+from clip_for_dl_tpu_torch.train.steps import make_clip_pretrain_step, update_ema
 
 jmetrics = importlib.import_module("clip_for_dl_tpu.evals.metrics")
 jwriter = importlib.import_module("clip_for_dl_tpu.evals.writer")
@@ -228,16 +230,28 @@ def test_bce_with_logits_matches_jax_and_torch():
             torch.from_numpy(logits), torch.from_numpy(targets)), atol=1e-6, rtol=0)
 
 
-@pytest.mark.parametrize("case", ["ema", "shared_adapter"])
+@pytest.mark.parametrize("case", ["shared_adapter"])
 def test_unported_adapter_options_raise(case):
     model = CXRClip(ModelConfig(**TINY))
     label_fn = make_label_fn(["adapter"])
     opt = make_optimizer(model, label_fn)
-    with pytest.raises(NotImplementedError, match="ROADMAP A3" if case == "ema" else "A8"):
-        if case == "ema":
-            make_adapter_train_step(model, opt, label_fn, ema_decay=0.999)
-        else:
-            make_shared_adapter_train_step(model, opt, label_fn)
+    with pytest.raises(NotImplementedError, match="A8"):
+        make_shared_adapter_train_step(model, opt, label_fn)
+
+
+@pytest.mark.parametrize("trainable", [["adapter"], ["image_projector", "text_projector"], []])
+def test_freeze_mask_matches_jax(trainable):
+    """``freeze_mask(model, trainable)`` marks the parameters the JAX mask
+    marks on the same model."""
+    jmodel, variables = _jax_model()
+    jmask = freeze_mask(variables["params"], trainable)
+    marks = jax.tree.map(lambda m, p: np.full(p.shape, m, np.float32), jmask,
+                         variables["params"])
+    want = state_dict_from_jax(marks, variables["batch_stats"])
+    got = port_freeze_mask(_port_model(), trainable)
+    assert set(got) <= set(want) and any(got.values()) == bool(trainable)
+    for name, m in got.items():
+        assert bool(want[name].all()) == m and bool(want[name].any()) == m, name
 
 
 # ---------------------------------------------------------------------------
@@ -533,8 +547,124 @@ def test_restore_variables_loads_weights_only_and_guards_missing_tensors(tmp_pat
     with pytest.raises(ValueError, match="lacks"):
         mgr.restore_variables(wider)
     assert mgr.restore_variables(wider, allow_partial=True) is wider
-    with pytest.raises(NotImplementedError, match="A3"):
+    with pytest.raises(ValueError, match="the EMA slot of checkpoint .* lacks"):
         mgr.restore_variables(target, use_ema=True)
+
+
+def _ema_state(seed, ema=True):
+    """A _tiny_state with the bf16 first moment and an EMA."""
+    model = _tiny_state(seed).model
+    opt = make_optimizer(model, make_label_fn([]), weight_decay=1e-2,
+                         moment_dtype=torch.bfloat16)
+    return TrainState.create(model, opt, ema=ema)
+
+
+def _train(state, steps, seed=0):
+    x = torch.randn(5, 3, generator=torch.Generator().manual_seed(seed))
+    params = list(state.model.parameters())
+    names = [n for n, _ in state.model.named_parameters()]
+    for _ in range(steps):
+        state.optimizer.zero_grad()
+        state.model.train()(x).square().sum().backward()
+        state.optimizer.param_groups[0]["lr"] = 1e-2
+        state.optimizer.step()
+        update_ema([state.ema_params[n] for n in names], params, state.step, 0.99)
+        state.step += 1
+    return state
+
+
+def test_checkpoint_round_trip_keeps_the_ema_and_bf16_moments(tmp_path):
+    """The EMA slot, the bf16 first moments (still bf16) and the rest come
+    back bit for bit; a template with an EMA refuses a checkpoint without
+    one; a template without one ignores the slot."""
+    state = _train(_ema_state(1), 3)
+    mgr = CheckpointManager(str(tmp_path / "ck"))
+    mgr.save(0, state, metrics={"val_loss": 0.5})
+    restored, _ = mgr.restore(_ema_state(2))
+    assert restored.step == 3
+    for n, e in state.ema_params.items():
+        assert torch.equal(restored.ema_params[n], e), n
+        assert not torch.equal(e, dict(state.model.named_parameters())[n]), n
+    for p, q in zip(state.model.parameters(), restored.model.parameters()):
+        for k in ("exp_avg", "exp_avg_sq"):
+            got, want = restored.optimizer.state[q][k], state.optimizer.state[p][k]
+            assert got.dtype == want.dtype == (torch.bfloat16 if k == "exp_avg"
+                                               else torch.float32)
+            assert torch.equal(got, want), k
+    mgr.save(1, _tiny_state(4))
+    with pytest.raises(ValueError, match="no EMA"):
+        mgr.restore(_ema_state(5), epoch=1)
+    assert mgr.restore(_ema_state(5, ema=False), epoch=0)[0].ema_params is None
+
+
+def test_restore_variables_with_use_ema_gives_the_ema_and_live_batchnorm(tmp_path):
+    """The EMA parameters with the checkpoint's live BatchNorm statistics
+    (the JAX ``to_variables(use_ema=True)``)."""
+    state = _train(_ema_state(6), 4)
+    mgr = CheckpointManager(str(tmp_path / "ck"))
+    mgr.save(0, state)
+    target = _tiny_state(7).model
+    assert mgr.restore_variables(target, use_ema=True) is target
+    got = target.state_dict()
+    for n, e in state.ema_params.items():
+        assert torch.equal(got[n], e), n
+    for k in ("1.running_mean", "1.running_var", "1.num_batches_tracked"):
+        assert torch.equal(got[k], state.model.state_dict()[k]), k
+
+
+def _pretrain_state():
+    cfg = ModelConfig(**dict(TINY, learnable_temperature=True, logit_scale_init=10.0,
+                             flash_attention=True))
+    model = CXRClip(cfg)
+    model.load_state_dict(_port_model().state_dict(), strict=False)
+    label_fn = make_label_fn(["image_tower", "text_tower"])
+    opt = make_optimizer(model, label_fn, weight_decay=1e-3, moment_dtype=torch.bfloat16)
+    step = make_clip_pretrain_step(model, opt, label_fn, "siglip", ema_decay=0.9,
+                                   compute_dtype=torch.float32, **STEP_KW)
+    return TrainState.create(model, opt, ema=True), step
+
+
+def _pretrain_batch(seed):
+    rng = np.random.default_rng(seed)
+    return {"images": torch.from_numpy(rng.integers(0, 256, (4, 48, 48, 1), dtype=np.uint8)),
+            "input_ids": torch.from_numpy(rng.integers(5, 64, (4, 12)).astype(np.int64)),
+            "attention_mask": torch.ones(4, 12, dtype=torch.int64)}
+
+
+def test_mid_epoch_resume_continues_bit_equal(tmp_path):
+    """The siglip step with a learnable scale, an EMA and bf16 moments: two
+    steps, a preemption save, a restore into a fresh state and two more
+    steps give the model, EMA, optimizer state and step of four
+    uninterrupted steps, bit for bit."""
+    lrs = {"image_tower": 1e-3, "text_tower": 1e-3, "default": 1e-2}
+    batches = [_pretrain_batch(30 + i) for i in range(4)]
+    straight, step = _pretrain_state()
+    for b in batches:
+        step(straight, b, lrs)
+    first, step = _pretrain_state()
+    for b in batches[:2]:
+        step(first, b, lrs)
+    mgr = CheckpointManager(str(tmp_path / "ck"))
+    mgr.save_preempt(0, first, {"mid_epoch": True, "loader": {"epoch": 0, "step": 2},
+                                "num_batches": 4})
+    resumed, step = _pretrain_state()
+    with torch.no_grad():
+        for p in resumed.model.parameters():
+            p.add_(1.0)  # the restore must overwrite everything
+    resumed, _ = mgr.restore_preempt(resumed)
+    assert resumed.step == 2
+    for b in batches[2:]:
+        step(resumed, b, lrs)
+    assert resumed.step == straight.step == 4
+    for k, v in straight.model.state_dict().items():
+        assert torch.equal(resumed.model.state_dict()[k], v), k
+    for n, e in straight.ema_params.items():
+        assert torch.equal(resumed.ema_params[n], e), n
+    got, want = resumed.optimizer.state_dict(), straight.optimizer.state_dict()
+    for i, s in want["state"].items():
+        for name, t in s.items():
+            assert t.dtype == got["state"][i][name].dtype, (i, name)
+            assert torch.equal(got["state"][i][name], t), (i, name)
 
 
 def test_checkpoint_names_ignore_the_cast_parametrization(tmp_path):
