@@ -2,13 +2,15 @@
 """Drive the PyTorch port's zero-shot serving paths (ResNet-50 and ViT-B/16),
 its phase-A train step, its split-q/k/v attention entry point, the chain
 pretrain -> adapter (phase B), the fp32 parity mode, the evaluation from
-files, the command line and its HTTP server once on one CUDA GPU.
+files, the command line, its HTTP server and its multi-view training once on
+one CUDA GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
 ``python3 chip_smoke.py --first-step-seeds 0 1 2 3 4 5 6 7`` only builds
 the kernels and prints the readings behind phase 10's own bounds
-(first_step_sweep), and checks nothing.
+(first_step_sweep), and checks nothing; ``--train-first-step-seeds`` does
+the same for phase 11's (train_first_step_sweep).
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -195,6 +197,38 @@ c8_cases).
    and the EMA update's ms. Last ``eval --use-ema`` and
    ``convert --use-ema``: the converted .pth scores byte-equal to the slot,
    and --use-ema on a directory without one raises.
+11. The scripts' multi-view training, its cross-modal attention variant and
+   the shared-embedding adapter (ROADMAP A6, A8) on phase 9's layout, vocab,
+   tower files and pretrain directory, in this process, at full width
+   (ResNet-50, BERT-base, shared 512, bf16, --flash-attention
+   --bert-fused-mlp --device-cache): ``train --preset scripts_train`` and
+   ``train --preset multimodal_attention`` (three epochs of four steps at
+   B = 32 exams, the preset's augmentation and cosine schedule, a
+   checkpoint directory), ``zeroshot --preset multimodal_attention
+   --dynamic`` on the latter's directory, and ``shared-adapter`` (one
+   epoch at B = 16 from phase 9's pretrain directory). Checks B2 launched
+   once a step and an evaluation batch, B3 and B4 twelve times a bank
+   encode; B2 at the first step's input and B3, B4 at the 512-token bank's
+   first inputs against their plain versions; each run's first step, from
+   the weights it started from, B2's output shared and the same
+   augmentation draw, against the plain route (each route encodes its own
+   bank): the bank's unit text features within 4e-3 (the bf16 guard on B3
+   and B4 there), the loss within 3e-3 (scripts_train) and 5e-3
+   (multimodal_attention) relative, bounds from the readings of
+   --train-first-step-seeds alone, each group's gradient cosine at least
+   0.999, and on the fp32 route the kernels' fp32 instances (bank 1e-5,
+   loss 1e-5, cosines 0.9999); the last checkpoint restoring the weights,
+   BatchNorm statistics and AdamW moments bit for bit; nothing of a run
+   left on the device after it (64 MiB); the multimodal zero-shot's B1 and
+   B2 at their first inputs, its probabilities against the plain route
+   (5e-3), and both runs' prediction sets under their own thresholds.json
+   equal on the (exam, class) pairs decided by more than that; the shared
+   adapter's B3 and B4 at the reports' first inputs, only its head moved,
+   finite metrics. Prints exams/s and images/s over steps 1 on (each step
+   synced) with the median and range of the step, the step's parts (prep,
+   augment, towers, loss, backward, clip, optimizer; synced at their
+   bounds, step_split), the bank encode's ms at 512 tokens, the saves' ms,
+   each command's peak memory and wall time.
    Then tools/launch_times.py times the wrappers from the host.
 
 The second-to-last line is the kernels JSON; the last line is
@@ -283,10 +317,38 @@ TOL = {
     # is 2.0e-4 to 1.0e-2
     "calibration_grad_atol": 1e-4,
     "calibration_grad_rel": 1e-2,
+    # phase 11, the first step of each train run against the plain route,
+    # B2's output shared and the same augmentation draw: the step runs no
+    # kernel but B2, so the routes differ only in the epoch's prompt bank
+    # (B3 and B4 in twelve bf16 BERT layers, within eval_text_features):
+    # the loss within 1e-3 relative, each group's gradient cosine >= 0.999,
+    # but where a preset's loss or group has its own bound, (preset, "loss"
+    # or group) -> bound
+    "train_first_loss_rel": 1e-3,
+    "train_first_grad_cos": 0.999,
+    # the own bounds come from the readings of `chip_smoke.py
+    # --train-first-step-seeds 0 1 2 3 4 5 6 7` (PERF.md, "PR 15"): the
+    # loss departs from the plain route's by up to 7.2e-4 (scripts_train;
+    # 1.09e-3 on the layout's images) and 1.91e-3 (multimodal_attention;
+    # 2.70e-3 on the layout's images), where the banks differ by 1.96e-3
+    # to 2.44e-3 and the logits are cosines over T = 0.07; every cosine
+    # stays >= 0.99961. The loss bounds rest on those readings alone: no
+    # run can bear them out in bf16 (the kernels' bank lies 0.77 to 1.15
+    # times as far from the plain bank as that lies from the fp32 one, and
+    # a bf16 loss can land near the fp32 one by chance). In bf16 the guard
+    # on B3 and B4 at 512 tokens is the bank against the plain route's,
+    # within eval_text_features; the fp32 route checks only the kernels'
+    # fp32 instances (the bank within fp32_features, the loss within
+    # fp32_loss_rel)
+    "train_first_own": {("scripts_train", "loss"): 3e-3,
+                        ("multimodal_attention", "loss"): 5e-3},
     # engine probabilities, kernels vs plain versions through the whole bf16
     # model (phases 3 and 5): the kernel differences above move cosines by
     # ~1e-3
     "probs_vs_plain": 5e-3,
+    # MiB phase 11 may still hold on the device after a command and its
+    # checks, above what it started with (what a run leaves is freed)
+    "held_mib": 64,
     # service answer vs engine.probs on the same image at batch 1: the same
     # kernels on the same shapes; host vs device sigmoid
     "service": 1e-6,
@@ -385,6 +447,13 @@ PATHS = {  # main path -> the kernels it must launch
     "cli_pretrain_a3b": TRAIN_KERNELS,
     "cli_pretrain_info_nce": TRAIN_KERNELS,
     "cli_eval_ema": ("similarity", "image_prep", "flash_attention", "mlp"),
+    # phase 11: train in both presets (B2 a step, B3 and B4 in the epoch's
+    # prompt bank), the multimodal zero-shot, the shared adapter (the reports
+    # through BERT each step)
+    "cli_train": ("image_prep", "flash_attention", "mlp"),
+    "cli_train_multimodal": ("image_prep", "flash_attention", "mlp"),
+    "cli_zeroshot_multimodal": ("similarity", "image_prep", "flash_attention", "mlp"),
+    "cli_shared_adapter": ("image_prep", "flash_attention", "mlp"),
     # the parity mode (--fp32 --flash-attention): zero-shot serving and a
     # phase-A step in fp32
     "serve_fp32": ("similarity", "image_prep", "flash_attention_fp32"),
@@ -409,6 +478,7 @@ TRAIN_BATCH = 128  # image-report pairs per train step
 TRAIN_STEPS = 10  # steps on one fixed batch
 TRAIN_LEN = 200  # report tokens (the preset's max_text_length)
 CHAIN_STEPS = 4  # steps per epoch of phase 6's fits
+TRAIN_EPOCHS = 3  # epochs of phase 11's train commands, 4 steps each at B = 32
 EVAL_UIDS = 256  # exams of phase 8's files
 EVAL_SIZES = ((512, 512), (600, 512))  # their PNGs' sizes, in turn
 EVAL_BATCH = 128  # exams a batch of phase 8's loader
@@ -1772,7 +1842,8 @@ def first_inputs(mods, which: dict):
 def hold_first_inputs(mods, kept: dict, which, where: str, results: dict) -> None:
     """Each kernel that first_inputs kept against its plain version on the
     same tensors, at its phase-2 tolerance (B6 per (batch row, head) slice,
-    B8 and B9 relative to each output's largest entry)."""
+    B8 and B9 relative to each output's largest entry; B2's bf16 output at
+    one bf16 step)."""
     import torch
 
     check(set(kept) == set(which), f"{where}: kept the inputs of {sorted(kept)}, not of "
@@ -1783,7 +1854,15 @@ def hold_first_inputs(mods, kept: dict, which, where: str, results: dict) -> Non
         shapes = " ".join(str(list(t.shape)) for t in a if torch.is_tensor(t))
         rate = f", dropout {kw['dropout_rate']}" if kw.get("dropout_rate") else ""
         print(f"  {name} at {where}'s inputs {shapes} {a[0].dtype}{rate}:")
-        if name == "flash_attention":
+        if name == "image_prep":
+            prep = mods["image_prep"]
+            compare(name, prep._kernel(*a, **kw), prep.preprocess_reference(*a, **kw),
+                    TOL[name], results)
+        elif name == "similarity":
+            sim = mods["similarity"]
+            compare(name, sim._kernel(*a, **kw), sim.similarity_reference(*a, **kw), TOL[name],
+                    results)
+        elif name == "flash_attention":
             compare(name, fa._kernel(*a, **kw), fa.flash_attention_packed_reference(*a, **kw),
                     TOL[name], results)
         elif name == "flash_attention_bwd":
@@ -2002,34 +2081,44 @@ def fp32_compute(model):
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
 
 
-def first_step_routes(_build, mods, first: dict, label_fn, step32=None) -> dict:
+def first_step_routes(_build, mods, first: dict, label_fn, step32=None,
+                      encode_bank=None) -> dict:
     """The first step a command took, from the weights, optimizer state and
     generator state that step started from, on the batch it took, at
     dropout 0: route -> (loss, group_grads). "kernels" and "plain" (their
     plain versions, B2 kept, as in phase 4) run the command's step; given
     ``step32``, the same step in fp32, "kernels_fp32" and "plain_fp32" run
-    that on the model's fp32 route (fp32_compute)."""
+    that on the model's fp32 route (fp32_compute). Given ``encode_bank``
+    (the multi-view step), each route first encodes the prompt bank from
+    those weights on its own route, ``encode_bank(model)``, and passes it
+    as the step's first argument after the batch; the banks are kept
+    under ``"banks"``."""
     import torch
 
     from clip_for_dl_tpu_torch.train import TrainState
 
     model, opt = first["state"].model, first["state"].optimizer
+    banks = {}
 
-    def one_step(step):
+    def one_step(step, route):
         model.load_state_dict(first["weights"])
         opt.load_state_dict(first["optimizer"])
         for m in model.modules():
             if isinstance(m, torch.nn.Dropout):
                 m.p = 0.0
+        rest = first["rest"]
+        if encode_bank is not None:
+            banks[route] = encode_bank(model)
+            rest = (banks[route], *rest[1:])
         if first["generator"] is not None:
-            first["rest"][-1].set_state(first["generator"])
-        out = step(TrainState(model, opt), first["batch"], *first["rest"])
+            rest[-1].set_state(first["generator"])
+        out = step(TrainState(model, opt), first["batch"], *rest)
         return float(out[1]["loss"]), group_grads(model, label_fn)
 
-    def plain(step):
+    def plain(step, route):
         with plain_kernels(mods, keep=("image_prep",)):
             before = dict(_build.LAUNCHES)
-            out = one_step(step)
+            out = one_step(step, route)
             check(all(v == before.get(k) for k, v in _build.LAUNCHES.items()
                       if k != mods["image_prep"].KERNEL),
                   "a kernel other than B2 ran during the plain step")
@@ -2039,13 +2128,16 @@ def first_step_routes(_build, mods, first: dict, label_fn, step32=None) -> dict:
     flags = (cudnn.deterministic, cudnn.benchmark)
     cudnn.deterministic, cudnn.benchmark = True, False
     try:
-        routes = {"kernels": one_step(first["step"]), "plain": plain(first["step"])}
+        routes = {"kernels": one_step(first["step"], "kernels"),
+                  "plain": plain(first["step"], "plain")}
         if step32 is not None:
             with fp32_compute(model):
-                routes["kernels_fp32"] = one_step(step32)
-                routes["plain_fp32"] = plain(step32)
+                routes["kernels_fp32"] = one_step(step32, "kernels_fp32")
+                routes["plain_fp32"] = plain(step32, "plain_fp32")
     finally:
         cudnn.deterministic, cudnn.benchmark = flags
+    if encode_bank is not None:
+        routes["banks"] = banks
     return routes
 
 
@@ -2269,18 +2361,19 @@ def a3b_first_step(_build, mods, first: dict, groups, step32) -> None:
     check(after == cap, f"the step left logit_scale at {after}, not at log 100")
 
 
-def step_split(dev, first: dict, steps_module, n: int = 5) -> dict:
+def step_split(dev, first: dict, points: dict, gaps: dict, n: int = 5) -> tuple:
     """Test-only instrumentation: the command's own step and state, n times
-    after one warm-up, each from the weights and optimizer state its first
-    step started from, on that batch, synchronized at the bounds of its
-    parts: the median ms of prep (B2), forward, loss and backward, clip,
-    optimizer, EMA and the rest (learning rates, zero_grad, the clamp),
-    of the whole step so instrumented, and of the loss alone (forward and
-    backward on the step's features, CUDA events over 20 calls)."""
+    after one warm-up, each from the weights, optimizer state and generator
+    state its first step started from, on that batch, synchronized at the
+    bounds of its parts. Returns the median ms of each part in ``points``
+    (part -> (owner, attribute): that call, patched), of each in ``gaps``
+    (part -> (part a, part b): from the end of a to the start of b), of the
+    rest (what lies between them) and of the whole step so instrumented;
+    and the last output of each call in ``points``."""
     import torch
 
-    state, model, opt = first["state"], first["state"].model, first["state"].optimizer
-    marks, feats = {}, []
+    model, opt = first["state"].model, first["state"].optimizer
+    marks, last = {}, {}
 
     def mark(label):
         torch.cuda.synchronize(dev)
@@ -2289,49 +2382,45 @@ def step_split(dev, first: dict, steps_module, n: int = 5) -> dict:
     def around(fn, label):
         def timed(*a, **kw):
             mark(label + "<")
-            out = fn(*a, **kw)
+            last[label] = fn(*a, **kw)
             mark(label + ">")
-            return out
+            return last[label]
         return timed
 
-    def forward_done(module, args, out):
-        mark("forward>")
-        feats[:] = [out[0].detach(), out[1].detach()]
+    parts = {k: [] for k in (*points, *gaps, "rest", "step")}
+    with ExitStack() as stack:
+        for label, (owner, attribute) in points.items():
+            stack.enter_context(mock.patch.object(
+                owner, attribute, around(getattr(owner, attribute), label)))
+        for i in range(n + 1):
+            model.load_state_dict(first["weights"])
+            opt.load_state_dict(first["optimizer"])
+            if first.get("generator") is not None:
+                first["rest"][-1].set_state(first["generator"])
+            marks.clear()
+            mark("step<")
+            first["step"](first["state"], first["batch"], *first["rest"])
+            mark("step>")
+            if i == 0:
+                continue
+            t = {k: (marks[k + ">"] - marks[k + "<"]) * 1e3 if k + "<" in marks else 0.0
+                 for k in (*points, "step")}
+            t.update({k: (marks[b + "<"] - marks[a + ">"]) * 1e3 for k, (a, b) in gaps.items()})
+            t["rest"] = t["step"] - sum(v for k, v in t.items() if k != "step")
+            for k, v in t.items():
+                parts[k].append(v)
+    return {k: statistics.median(v) for k, v in parts.items()}, last
 
-    hooks = [model.register_forward_pre_hook(lambda module, args: mark("forward<")),
-             model.register_forward_hook(forward_done)]
-    parts = {k: [] for k in ("prep", "forward", "loss_backward", "clip", "optimizer", "ema",
-                             "rest", "step")}
-    try:
-        with mock.patch.object(steps_module, "preprocess_images",
-                               around(steps_module.preprocess_images, "prep")), \
-                mock.patch.object(steps_module, "clip_by_global_norm_",
-                                  around(steps_module.clip_by_global_norm_, "clip")), \
-                mock.patch.object(steps_module, "update_ema",
-                                  around(steps_module.update_ema, "ema")), \
-                mock.patch.object(opt, "step", around(opt.step, "optimizer")):
-            for i in range(n + 1):
-                model.load_state_dict(first["weights"])
-                opt.load_state_dict(first["optimizer"])
-                marks.clear()
-                mark("step<")
-                first["step"](state, first["batch"], *first["rest"])
-                mark("step>")
-                if i == 0:
-                    continue
-                t = {k: (marks[k + ">"] - marks[k + "<"]) * 1e3 if k + "<" in marks else 0.0
-                     for k in ("prep", "forward", "clip", "optimizer", "ema", "step")}
-                t["loss_backward"] = (marks["clip<"] - marks["forward>"]) * 1e3
-                t["rest"] = t["step"] - sum(v for k, v in t.items() if k != "step")
-                for k, v in t.items():
-                    parts[k].append(v)
-    finally:
-        for h in hooks:
-            h.remove()
-    split = {k: statistics.median(v) for k, v in parts.items()}
+
+def loss_alone(dev, first: dict, steps_module, feats) -> float:
+    """Test-only: ms of the pretrain loss alone, forward and backward, on the
+    step's features (image, text), CUDA events over 20 calls."""
+    import torch
+
+    model = first["state"].model
     contrastive = steps_module._contrastive(first["loss_name"], first["temperature"])
     params = dict(model.named_parameters(recurse=False))
-    img, txt = (f.clone().requires_grad_() for f in feats)
+    img, txt = (f.detach().clone().requires_grad_() for f in feats)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     contrastive(txt, img, params).backward()
     start.record()
@@ -2339,100 +2428,127 @@ def step_split(dev, first: dict, steps_module, n: int = 5) -> dict:
         contrastive(txt, img, params).backward()
     end.record()
     torch.cuda.synchronize(dev)
-    split["loss_alone"] = start.elapsed_time(end) / 20
     model.zero_grad(set_to_none=True)
-    return split
+    return start.elapsed_time(end) / 20
+
+
+def first_step_readings(_build, mods, dev, case: str, cfg, seeds, weight_decay, label_fn,
+                        groups, make, encode_bank=None) -> list:
+    """The readings of a sweep: for each seed, a model of ``cfg`` at full
+    width from that seed's weights, bf16 compute, AdamW under ``label_fn``;
+    ``make(model, opt, seed) -> (step, step32, batch, rest)`` builds the
+    step, its fp32 twin, the batch and the step's arguments before the
+    generator (seeded with the seed); the first step on the four routes of
+    first_step_routes at dropout 0, with ``encode_bank`` when given. One
+    JSON row a seed, printed and returned: the losses and, for each of
+    ``groups``, the cosine of the kernels' gradient with the plain one's, of
+    each with the plain fp32 one's, of the fp32 kernels' with it, and the
+    plain norm; each calibration scalar's gradient on each route, where the
+    model has them; and, returned only, the banks when encoded."""
+    import torch
+
+    from clip_for_dl_tpu_torch.core.device import cast_in_forward
+    from clip_for_dl_tpu_torch.models import CXRClip, init_weights
+    from clip_for_dl_tpu_torch.train import TrainState, make_label_fn, make_optimizer
+
+    rows = []
+    for seed in seeds:
+        with torch.device(dev):
+            model = CXRClip(cfg)
+        init_weights(model, torch.Generator(dev).manual_seed(seed))
+        cast_in_forward(model, torch.bfloat16)
+        opt = make_optimizer(model, label_fn, weight_decay=weight_decay)
+        step, step32, batch, rest = make(model, opt, seed)
+        gen = torch.Generator(dev).manual_seed(seed)
+        first = dict(state=TrainState(model, opt), step=step, batch=batch, rest=(*rest, gen),
+                     generator=gen.get_state(),
+                     weights={k: v.detach().clone() for k, v in model.state_dict().items()},
+                     optimizer=copy.deepcopy(opt.state_dict()))
+        r = first_step_routes(_build, mods, first, make_label_fn(groups), step32, encode_bank)
+        banks = r.pop("banks", None)
+        k, p, k32, p32 = (r[x][1] for x in ("kernels", "plain", "kernels_fp32", "plain_fp32"))
+        row = {"case": case, "seed": seed, "losses": {x: r[x][0] for x in r},
+               "groups": {g: {"kernels_plain": cosine(k[g], p[g]),
+                              "kernels_plain_fp32": cosine(k[g], p32[g]),
+                              "plain_plain_fp32": cosine(p[g], p32[g]),
+                              "fp32_kernels_plain_fp32": cosine(k32[g], p32[g]),
+                              "norm": float(p[g].norm())} for g in groups}}
+        if all(c in k for c in CALIBRATION):
+            row["calibration"] = {c: {x: float(r[x][1][c]) for x in r} for c in CALIBRATION}
+        print(json.dumps(row))
+        rows.append(dict(row, banks=banks))
+        del model, opt, first, step, step32, r, k, p, k32, p32
+        torch.cuda.empty_cache()
+    return rows
+
+
+def print_extremes(case: str, rows: list, groups) -> None:
+    """A sweep's extremes over its seeds: the loss's relative departure of
+    the kernels from the plain route, the plain route's from fp32, their
+    ratio and the fp32 kernels' departure; for each group the cosines'
+    minima, the ratio of 1 − cosine (kernels vs plain) to 1 − cosine (plain
+    vs plain fp32), and the norms."""
+    losses = [r["losses"] for r in rows]
+    rel = [abs(x["kernels"] - x["plain"]) / abs(x["plain"]) for x in losses]
+    rounding = [abs(x["plain"] - x["plain_fp32"]) / abs(x["plain_fp32"]) for x in losses]
+    rel32 = [abs(x["kernels_fp32"] - x["plain_fp32"]) / abs(x["plain_fp32"]) for x in losses]
+    print(f"{case}, seeds {[r['seed'] for r in rows]}: loss rel, kernels vs plain, max "
+          f"{max(rel):.3e}; the plain route's rel from fp32 min {min(rounding):.3e}; their ratio "
+          f"max {max(a / b for a, b in zip(rel, rounding)):.3f}; fp32 kernels vs plain max "
+          f"{max(rel32):.2e}")
+    for g in groups:
+        c = {key: [r["groups"][g][key] for r in rows] for key in rows[0]["groups"][g]}
+        ratio = [(1 - a) / (1 - b) for a, b in zip(c["kernels_plain"], c["plain_plain_fp32"])]
+        print(f"  {g}: cosine kernels vs plain min {min(c['kernels_plain']):.6f}; with the "
+              f"plain fp32 gradient min {min(c['kernels_plain_fp32']):.6f} (kernels), "
+              f"{min(c['plain_plain_fp32']):.6f} (plain); 1 - cosine of kernels vs plain over "
+              f"the plain route's from fp32, max {max(ratio):.4f}; fp32 kernels min "
+              f"{min(c['fp32_kernels_plain_fp32']):.7f}; norms "
+              f"{min(c['norm']):.3e}-{max(c['norm']):.3e}")
 
 
 def first_step_sweep(_build, mods, dev, seeds) -> None:
     """The readings behind phase 10's own bounds (a3b_own, and the
-    calibration scalars' tolerance): the first step of pretrain_clip at full width with a
-    learnable temperature, siglip (s = 10, b = -10) and info_nce (s = 1/T),
-    B = 16, dropout 0, from the weights and a train_batch of each seed, on
-    the four routes of first_step_routes. One JSON line a run: the losses,
-    and for each group the cosine of the kernels' gradient with the plain
-    one's, of each with the plain fp32 one's, and of the fp32 kernels' with
-    it; each calibration scalar's gradient on each route. Then the extremes
-    over the seeds. Checks nothing."""
+    calibration scalars' tolerance): the first step of pretrain_clip at full
+    width with a learnable temperature, siglip (s = 10, b = -10) and
+    info_nce (s = 1/T), B = 16, from the weights and a train_batch of each
+    seed (first_step_readings). Then the extremes over the seeds. Checks
+    nothing."""
     import dataclasses
 
     import numpy as np
     import torch
 
     from clip_for_dl_tpu_torch.core.config import get_preset
-    from clip_for_dl_tpu_torch.core.device import cast_in_forward
-    from clip_for_dl_tpu_torch.models import CXRClip, init_weights
     from clip_for_dl_tpu_torch.tools.main_paths import base_lrs, tokenizer, train_batch
-    from clip_for_dl_tpu_torch.train import (
-        TrainState, make_clip_pretrain_step, make_label_fn, make_optimizer,
-    )
+    from clip_for_dl_tpu_torch.train import make_clip_pretrain_step, make_label_fn
 
     preset = get_preset("pretrain_clip")
     groups = [g.name for g in preset.train.groups]
     label_fn = make_label_fn(groups)
     tok = tokenizer()
-    rows = []
     for loss_name in ("siglip", "info_nce"):
         cfg = dataclasses.replace(
             preset.model, flash_attention=True, bert_fused_mlp=True, learnable_temperature=True,
             logit_scale_init=10.0 if loss_name == "siglip" else None)
-        for seed in seeds:
-            with torch.device(dev):
-                model = CXRClip(cfg)
-            init_weights(model, torch.Generator(dev).manual_seed(seed))
-            cast_in_forward(model, torch.bfloat16)
-            opt = make_optimizer(model, label_fn, weight_decay=preset.train.weight_decay)
-            kw = dict(loss_name=loss_name, temperature=cfg.temperature,
-                      image_size=cfg.image_size, mean=preset.augment.mean,
-                      std=preset.augment.std, max_grad_norm=preset.train.max_grad_norm)
-            gen = torch.Generator(dev).manual_seed(seed)
-            first = dict(
-                state=TrainState(model, opt),
-                step=make_clip_pretrain_step(model, opt, label_fn, **kw),
-                batch=train_batch(np.random.default_rng(seed), tok, dev,
-                                  preset.data.batch_size, cfg.max_text_length),
-                rest=(base_lrs(preset), gen), generator=gen.get_state(),
-                weights={k: v.detach().clone() for k, v in model.state_dict().items()},
-                optimizer=copy.deepcopy(opt.state_dict()))
-            step32 = make_clip_pretrain_step(model, opt, label_fn, compute_dtype=torch.float32,
-                                             **kw)
-            r = first_step_routes(_build, mods, first, label_fn, step32)
-            k, p, k32, p32 = (r[x][1] for x in ("kernels", "plain", "kernels_fp32",
-                                               "plain_fp32"))
-            row = {"loss": loss_name, "seed": seed,
-                   "losses": {x: r[x][0] for x in r},
-                   "groups": {g: {"kernels_plain": cosine(k[g], p[g]),
-                                  "kernels_plain_fp32": cosine(k[g], p32[g]),
-                                  "plain_plain_fp32": cosine(p[g], p32[g]),
-                                  "fp32_kernels_plain_fp32": cosine(k32[g], p32[g]),
-                                  "norm": float(p[g].norm())} for g in groups},
-                   "calibration": {c: {x: float(r[x][1][c]) for x in r} for c in CALIBRATION}}
-            rows.append(row)
-            print(json.dumps(row))
-            del model, opt, first, step32, r, k, p, k32, p32
-            torch.cuda.empty_cache()
-    for loss_name in ("siglip", "info_nce"):
-        mine = [r for r in rows if r["loss"] == loss_name]
-        losses = [r["losses"] for r in mine]
-        rel = [abs(x["kernels"] - x["plain"]) / abs(x["plain"]) for x in losses]
-        ratio = [abs(x["kernels"] - x["plain"]) / abs(x["plain"] - x["plain_fp32"])
-                 * abs(x["plain_fp32"]) / abs(x["plain"]) for x in losses]
-        rel32 = [abs(x["kernels_fp32"] - x["plain_fp32"]) / abs(x["plain_fp32"]) for x in losses]
-        print(f"{loss_name}, seeds {list(seeds)}: loss rel, kernels vs plain, max {max(rel):.3e}; "
-              f"its ratio to the plain route's rel from fp32 max {max(ratio):.3f}; fp32 kernels "
-              f"vs plain max {max(rel32):.2e}")
-        for g in groups:
-            c = {key: [r["groups"][g][key] for r in mine] for key in mine[0]["groups"][g]}
-            ratio = [(1 - a) / (1 - b) for a, b in zip(c["kernels_plain"], c["plain_plain_fp32"])]
-            print(f"  {g}: cosine kernels vs plain min {min(c['kernels_plain']):.6f}; with the "
-                  f"plain fp32 gradient min {min(c['kernels_plain_fp32']):.6f} (kernels), "
-                  f"{min(c['plain_plain_fp32']):.6f} (plain); 1 - cosine of kernels vs plain "
-                  f"over the plain route's from fp32, max {max(ratio):.4f}; fp32 kernels min "
-                  f"{min(c['fp32_kernels_plain_fp32']):.7f}; norms "
-                  f"{min(c['norm']):.3e}-{max(c['norm']):.3e}")
+        kw = dict(loss_name=loss_name, temperature=cfg.temperature, image_size=cfg.image_size,
+                  mean=preset.augment.mean, std=preset.augment.std,
+                  max_grad_norm=preset.train.max_grad_norm)
+
+        def make(model, opt, seed):
+            return (make_clip_pretrain_step(model, opt, label_fn, **kw),
+                    make_clip_pretrain_step(model, opt, label_fn, compute_dtype=torch.float32,
+                                            **kw),
+                    train_batch(np.random.default_rng(seed), tok, dev, preset.data.batch_size,
+                                cfg.max_text_length),
+                    (base_lrs(preset),))
+
+        rows = first_step_readings(_build, mods, dev, loss_name, cfg, seeds,
+                                   preset.train.weight_decay, label_fn, groups, make)
+        print_extremes(loss_name, rows, groups)
         for name in CALIBRATION:
             d = [abs(r["calibration"][name]["kernels"] - r["calibration"][name]["plain"])
-                 for r in mine]
+                 for r in rows]
             print(f"  {name}: gradient |kernels - plain| max {max(d):.3e}, min {min(d):.3e}")
 
 
@@ -3834,9 +3950,18 @@ def serve_phase10(_build, mods, dev, seed: int, card: str, workdir: str,
               f"{max(scales):.6f}] (cap {cap:.6f}); exp_avg {moments[path] / 1e6:.1f} MB")
         check(len(made) == 1, f"{name} built {len(made)} pretrain steps")
         (a, kw), = made
+        made.clear()
         first.update(loss_name=a[3], temperature=a[4])
-        split = step_split(dev, first, steps_module)
+        model, opt = first["state"].model, first["state"].optimizer
+        split, last = step_split(
+            dev, first, {"prep": (steps_module, "preprocess_images"),
+                         "forward": (model, "forward"),
+                         "clip": (steps_module, "clip_by_global_norm_"),
+                         "optimizer": (opt, "step"), "ema": (steps_module, "update_ema")},
+            {"loss_backward": ("forward", "clip")})
+        split["loss_alone"] = loss_alone(dev, first, steps_module, last["forward"])
         splits[path] = split
+        del model, opt, last
         print(f"  the step in parts, ms (median of 5, synced at each part's bounds): "
               f"{json.dumps({k: round(v, 3) for k, v in split.items()})}")
         print(f"phase 10, {path}: B3, B6, B4, B8 at the run's first inputs, and its first step "
@@ -3844,6 +3969,7 @@ def serve_phase10(_build, mods, dev, seed: int, card: str, workdir: str,
         hold_first_inputs(mods, kept, train_kernels, path, results)
         a3b_first_step(_build, mods, first, groups,
                        make_real(*a, **{**kw, "compute_dtype": torch.float32, "ema_decay": 0.0}))
+        del a, kw
         first.clear()  # the run's model and optimizer go before the next run's peak
         kept.clear()
         torch.cuda.empty_cache()
@@ -3891,12 +4017,556 @@ def serve_phase10(_build, mods, dev, seed: int, card: str, workdir: str,
     return by_path
 
 
+def multiview_first_step(_build, mods, first: dict, groups, encode_bank, step32,
+                         name: str) -> None:
+    """Phase 11's check on the first step of a train run (first_step_routes
+    with each route's own prompt bank, and the fp32 route from ``step32``):
+    the kernels' bank is the command's bit for bit and within
+    eval_text_features of the plain route's (the bf16 guard on B3 and B4
+    at 512 tokens); the loss within train_first_loss_rel of the plain
+    route's, or within the preset's own bound (train_first_own, from the
+    readings alone), and each group's gradient cosine at least
+    train_first_grad_cos. On the fp32 route the kernels' fp32 instances:
+    the bank within fp32_features, the loss within fp32_loss_rel and each
+    group's cosine at least fp32_grad_cos. The groups not in ``groups``
+    (the text tower and the adapters, which the step does not reach) have
+    zero gradients on both routes."""
+    import torch
+
+    from clip_for_dl_tpu_torch.train import make_label_fn
+
+    routes = first_step_routes(_build, mods, first, make_label_fn(groups), step32, encode_bank)
+    banks = routes["banks"]
+    check(torch.equal(banks["kernels"], first["rest"][0]),
+          f"{name}: the bank encoded again differs from the command's")
+    failures: list = []
+    held("the bank's unit text features (B3, B4) against the plain route", banks["kernels"],
+         banks["plain"], TOL["eval_text_features"], {"classes": apart(banks["plain"])},
+         failures, bound=False)
+    held("the fp32 bank (B3 fp32) against the plain fp32 route", banks["kernels_fp32"],
+         banks["plain_fp32"], TOL["fp32_features"], {"classes": apart(banks["plain_fp32"])},
+         failures, bound=False)
+    check(not failures, "; ".join(failures))
+    print(f"  in bf16 the plain bank lies "
+          f"{float((banks['plain'] - banks['plain_fp32']).abs().max()):.3e} from the fp32 one")
+    (loss_k, grads_k), (loss_p, grads_p) = routes["kernels"], routes["plain"]
+    (loss_k32, grads_k32), (loss_p32, grads_p32) = routes["kernels_fp32"], routes["plain_fp32"]
+    rel, rel32 = abs(loss_k - loss_p) / abs(loss_p), abs(loss_k32 - loss_p32) / abs(loss_p32)
+    bound = TOL["train_first_own"].get((name, "loss"), TOL["train_first_loss_rel"])
+    print(f"  the first step, dropout 0: loss {loss_k:.6f} with the kernels, {loss_p:.6f} on the "
+          f"plain route (rel {rel:.2e}, tol {bound:.0e}); the fp32 route {loss_k32:.6f} / "
+          f"{loss_p32:.6f} (rel {rel32:.2e}, tol {TOL['fp32_loss_rel']:.0e})")
+    check(rel <= bound, f"{name}: the first step's loss differs from the plain route's")
+    check(rel32 <= TOL["fp32_loss_rel"], f"{name}: the fp32 first step's loss differs from the "
+                                         "plain fp32 route's")
+    compare_groups(f"{name} first step", grads_k, grads_p, groups, TOL["train_first_grad_cos"])
+    compare_groups(f"{name} first step in fp32", grads_k32, grads_p32, groups,
+                   TOL["fp32_grad_cos"])
+    for g in groups:
+        print(f"  {g}: 1 - cosine with the plain fp32 gradient "
+              f"{1 - cosine(grads_p[g], grads_p32[g]):.3e} on the plain route")
+
+
+def multiview_groups(preset: str) -> list:
+    """The parameter groups the multi-view step reaches."""
+    groups = ["image_tower", "image_projector", "view_fusion"]
+    return groups + ["multimodal_attention"] if preset == "multimodal_attention" else groups
+
+
+def prompt_bank_encoder(tok, max_length: int):
+    """``encode(model)``: the "prediction" prompt bank as the train command
+    encodes it once an epoch (eval mode, no_grad, unit text features)."""
+    import torch
+
+    from clip_for_dl_tpu_torch.core.config import DISEASE_LABELS
+    from clip_for_dl_tpu_torch.zeroshot import prompts_for_family
+    from clip_for_dl_tpu_torch.zeroshot.engine import encode_prompt_bank
+
+    prompts = prompts_for_family("prediction", DISEASE_LABELS)
+
+    def encode(model):
+        dev = next(model.parameters()).device
+        model.eval()
+        with torch.no_grad():
+            feats = encode_prompt_bank(
+                prompts, DISEASE_LABELS, lambda ids, mask: model.encode_text(
+                    torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev),
+                    normalize=True), tok, max_length)
+        return feats.to(dev)
+
+    return encode
+
+
+def train_first_step_sweep(_build, mods, dev, seeds) -> None:
+    """The readings behind phase 11's own bounds (train_first_own): the
+    first multi-view step of scripts_train and multimodal_attention at full
+    width, B = 32 exams of 224x224 grey noise (two views each, as the
+    device cache gives them), 16-label targets, augmentation on, from the
+    weights of each seed, each route with its own prompt bank
+    (first_step_readings). Beside them, each seed's bank: the kernels' max
+    |difference| from the plain route's, the plain bank's from the plain
+    fp32 one and the fp32 kernels' from that. Then the extremes over the
+    seeds. Checks nothing."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from clip_for_dl_tpu_torch.core.config import get_preset
+    from clip_for_dl_tpu_torch.tools.main_paths import tokenizer
+    from clip_for_dl_tpu_torch.train import make_label_fn, make_multiview_train_step
+
+    tok = tokenizer()
+    label_fn = make_label_fn([])
+    for name in ("scripts_train", "multimodal_attention"):
+        preset = get_preset(name)
+        cfg = dataclasses.replace(preset.model, flash_attention=True, bert_fused_mlp=True)
+        aug = preset.augment
+        kw = dict(temperature=cfg.temperature, image_size=cfg.image_size, mean=aug.mean,
+                  std=aug.std, use_enhance=cfg.use_multimodal_attention, augment=aug.enabled,
+                  flip_prob=aug.horizontal_flip_prob, rotation_degrees=aug.rotation_degrees,
+                  translate_frac=aug.translate_frac, max_grad_norm=preset.train.max_grad_norm)
+
+        def make(model, opt, seed):
+            rng = np.random.default_rng(seed)
+            labels = (rng.random((32, 16)) < 0.2).astype(np.float32)
+            labels[np.arange(32), rng.integers(0, 16, 32)] = 1.0
+            batch = {"images": torch.from_numpy(rng.integers(
+                0, 256, (32, 2, 224, 224, 1), dtype=np.uint8)).to(dev),
+                "labels": torch.from_numpy(labels).to(dev)}
+            return (make_multiview_train_step(model, opt, label_fn, **kw),
+                    make_multiview_train_step(model, opt, label_fn, compute_dtype=torch.float32,
+                                              **kw),
+                    batch, (None, {"default": preset.train.lr}))
+
+        groups = multiview_groups(name)
+        rows = first_step_readings(_build, mods, dev, name, cfg, seeds,
+                                   preset.train.weight_decay, label_fn, groups, make,
+                                   prompt_bank_encoder(tok, cfg.max_text_length))
+
+        def apart_max(a, b):
+            return [float((r["banks"][a] - r["banks"][b]).abs().max()) for r in rows]
+
+        bank, rounding = apart_max("kernels", "plain"), apart_max("plain", "plain_fp32")
+        bank32 = apart_max("kernels_fp32", "plain_fp32")
+        for r, x, y, z in zip(rows, bank, rounding, bank32):
+            print(json.dumps({"case": name, "seed": r["seed"], "bank": x, "bank_rounding": y,
+                              "bank_fp32": z}))
+        print_extremes(name, rows, groups)
+        print(f"  bank max |kernels - plain| {max(bank):.3e} (fp32 {max(bank32):.3e}), max "
+              f"|plain - plain fp32| {max(rounding):.3e}, min {min(rounding):.3e}, their ratio "
+              f"max {max(x / y for x, y in zip(bank, rounding)):.3f}")
+
+
+def train_phase11(_build, mods, dev, seed: int, card: str, workdir: str,
+                  results: dict) -> dict:
+    """Phase 11: the scripts' multi-view training in both presets, the
+    multimodal zero-shot and the shared-embedding adapter through
+    ``cli.main.main(argv)`` on phase 9's layout, vocab, tower files and
+    pretrain directory; returns the launches of its paths."""
+    import gc
+    import importlib
+    import io
+    import math
+    import os
+    from contextlib import redirect_stdout
+
+    import numpy as np
+    import torch
+
+    cli = importlib.import_module("clip_for_dl_tpu_torch.cli.main")
+    steps_module = importlib.import_module("clip_for_dl_tpu_torch.train.steps")
+    train_package = importlib.import_module("clip_for_dl_tpu_torch.train")
+    engine_module = importlib.import_module("clip_for_dl_tpu_torch.zeroshot.engine")
+    driver = importlib.import_module("clip_for_dl_tpu_torch.zeroshot.driver")
+    from clip_for_dl_tpu_torch.core.config import DISEASE_LABELS, get_preset
+    from clip_for_dl_tpu_torch.text import BertTokenizer
+    from clip_for_dl_tpu_torch.train import (
+        CheckpointManager, TrainState, loop, make_label_fn, make_optimizer,
+    )
+    from clip_for_dl_tpu_torch.train.checkpoint import model_state
+    from clip_for_dl_tpu_torch.zeroshot import ZeroShotEngine, prompts_for_family
+
+    t_phase = time.perf_counter()
+    kaggle, work9, work = f"{workdir}/kaggle", f"{workdir}/cli", f"{workdir}/train"
+    os.makedirs(work)
+    vocab = f"{work9}/vocab.txt"
+    data = ["--reports-csv", f"{work9}/labeled.csv", "--projections-csv",
+            f"{kaggle}/indiana_projections.csv", "--image-dir",
+            f"{kaggle}/images/images_normalized", "--image-cache", f"{work9}/cache",
+            "--vocab", vocab, "--device-cache"]
+    kernels = ["--flash-attention", "--bert-fused-mlp"]
+    towers = ["--init-image-tower", f"{work9}/image_tower.safetensors", "--init-text-tower",
+              f"{work9}/bert.safetensors"]
+    tok = BertTokenizer(vocab, do_lower_case=False)
+    prompts = prompts_for_family("prediction", DISEASE_LABELS)
+    layers = get_preset("scripts_train").model.text_layers
+    by_path, walls, failures = {}, {}, []
+    def storages():
+        """The CUDA storages Python can reach: data pointer -> (bytes, a
+        tensor on it)."""
+        found = {}
+        for o in gc.get_objects():
+            try:
+                if torch.is_tensor(o) and o.is_cuda:
+                    found[o.untyped_storage().data_ptr()] = (o.untyped_storage().nbytes(), o)
+            except Exception:  # objects that refuse inspection
+                continue
+        return found
+
+    def settled():
+        """memory_allocated after a collection, with cuBLAS's workspaces (one
+        a handle and stream, kept by torch) cleared."""
+        gc.collect()
+        torch._C._cuda_clearCublasWorkspaces()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_allocated(dev)
+
+    base_mem, base_storages = settled(), set(storages())
+
+    def released(what):
+        """What phase 11 still holds on the device after ``what`` above its
+        start (settled): nothing of a run may outlive it (its model and
+        AdamW state would sit under the next run's peak and rate). Over the
+        limit, the largest new storages Python can reach, and who refers to
+        them."""
+        held_mib = (settled() - base_mem) / 2**20
+        new = {k: v for k, v in storages().items() if k not in base_storages}
+        seen_mib = sum(n for n, _ in new.values()) / 2**20
+        print(f"  after {what}: {held_mib:.1f} MiB allocated above phase 11's start "
+              f"({base_mem / 2**30:.2f} GiB), {seen_mib:.1f} MiB of it in {len(new)} storages "
+              f"Python reaches")
+        if held_mib > TOL["held_mib"]:
+            for n, t in sorted(new.values(), key=lambda v: -v[0])[:12]:
+                holders = [type(r).__name__ for r in gc.get_referrers(t)
+                           if r is not new.get(t.untyped_storage().data_ptr())][:4]
+                print(f"    {n / 2**20:.1f} MiB {list(t.shape)} {t.dtype} held by "
+                      f"{holders or 'nothing Python sees (an autograd graph?)'}")
+        check(held_mib <= TOL["held_mib"], f"{what} left {held_mib:.1f} MiB on the device")
+
+    def run(name, argv, path=None):
+        out = io.StringIO()
+        torch.cuda.synchronize(dev)
+        _build.reset_launches()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        with redirect_stdout(out):
+            rc = cli.main(argv)
+        torch.cuda.synchronize(dev)
+        walls[name] = time.perf_counter() - t0
+        check(rc == 0, f"{name} exited with {rc}: {out.getvalue()[-2000:]}")
+        if path:
+            by_path[path] = dict(_build.LAUNCHES)
+            check_launched(mods, by_path[path], path)
+        print(f"  {name}: exit 0 in {walls[name]:.1f} s on {card}, peak "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB"
+              + (f"; launches {by_path[path]}" if path else ""))
+        return out.getvalue()
+
+    # the steps (timed, the first kept), the evaluation batches, the bank
+    # encodes and the checkpoint saves of a command
+    first, epoch, eval_batches, bank_ms, saves = {}, [], [], [], []
+    run_epoch, run_eval = loop.run_epoch, loop.run_eval
+    encode_bank, save = engine_module.encode_prompt_bank, CheckpointManager.save
+
+    def timed_epoch(step_fn, state, loader, *a, **kw):
+        def timed_step(st, batch, *rest):
+            if not first:
+                gen = rest[-1] if isinstance(rest[-1], torch.Generator) else None
+                first.update(
+                    step=step_fn, state=st, rest=rest,
+                    batch={k: v.clone() if torch.is_tensor(v) else np.array(v, copy=True)
+                           for k, v in batch.items()},
+                    weights={k: v.detach().clone() for k, v in st.model.state_dict().items()},
+                    optimizer=copy.deepcopy(st.optimizer.state_dict()),
+                    generator=None if gen is None else gen.get_state())
+            t0 = time.perf_counter()
+            out = step_fn(st, batch, *rest)
+            torch.cuda.synchronize(dev)
+            epoch.append((batch["images"].shape[0], time.perf_counter() - t0))
+            return out
+
+        return run_epoch(timed_step, state, loader, *a, **kw)
+
+    def counted_eval(eval_fn, state, loader, *a, **kw):
+        def count(batches):
+            for b in batches:
+                eval_batches.append(b["images"].shape[0])
+                yield b
+        return run_eval(eval_fn, state, count(loader), *a, **kw)
+
+    def timed_bank(*a, **kw):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = encode_bank(*a, **kw)
+        torch.cuda.synchronize(dev)
+        bank_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def timed_save(self, *a, **kw):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        save(self, *a, **kw)
+        saves.append((time.perf_counter() - t0) * 1e3)
+
+    made, make_real = [], train_package.make_multiview_train_step
+
+    def make_step(*a, **kw):  # the command's step, and what it was built from
+        made.append((a, kw))
+        return make_real(*a, **kw)
+
+    def instrumented():
+        first.clear()
+        for kept in (epoch, eval_batches, bank_ms, saves, made):
+            kept.clear()
+        stack = ExitStack()
+        for owner, name, fn in ((loop, "run_epoch", timed_epoch), (loop, "run_eval", counted_eval),
+                                (engine_module, "encode_prompt_bank", timed_bank),
+                                (CheckpointManager, "save", timed_save),
+                                (train_package, "make_multiview_train_step", make_step)):
+            stack.enter_context(mock.patch.object(owner, name, fn))
+        return stack
+
+    # -- 1, 2. train in both presets ------------------------------------------------------
+    train_dirs, bank_kernels = {}, dict.fromkeys(("image_prep", "flash_attention", "mlp"))
+    for preset, path in (("scripts_train", "cli_train"),
+                         ("multimodal_attention", "cli_train_multimodal")):
+        d = train_dirs[preset] = f"{work}/{preset}"
+        stack, kept = first_inputs(mods, bank_kernels)
+        with instrumented(), stack:
+            run(f"train --preset {preset}",
+                ["train", "--preset", preset, *data, *kernels, *towers, "--epochs",
+                 str(TRAIN_EPOCHS), "--batch-size", "32", "--checkpoint-dir", f"{d}/ck",
+                 "--log-dir", f"{d}/logs"], path)
+        launches = by_path[path]
+        steps = len(epoch)
+        exams = [b for b, _ in epoch]
+        secs = [t for _, t in epoch]
+        b2, b3, b4 = (launches.get(KERNELS[k][0], 0)
+                      for k in ("image_prep", "flash_attention", "mlp"))
+        chunks = math.ceil(sum(len(v) for v in prompts.values()) / engine_module._PROMPT_BATCH)
+        print(f"  {steps} steps of B = {exams[0]} exams ({2 * exams[0]} views), "
+              f"{len(eval_batches)} validation batches, {len(bank_ms)} bank encode(s): B2 "
+              f"launched {b2} times, B3 {b3}, B4 {b4}")
+        check(b2 == steps + len(eval_batches), f"{path}: B2 launched {b2} times for {steps} "
+                                               f"steps and {len(eval_batches)} eval batches")
+        check(b3 == b4 == layers * chunks * len(bank_ms),
+              f"{path}: B3 {b3}, B4 {b4} launches for {len(bank_ms)} bank encodes")
+        with open(f"{d}/logs/training_history.csv", newline="") as f:
+            history = list(csv.DictReader(f))
+        check(len(history) == TRAIN_EPOCHS
+              and all(np.isfinite(float(row[k])) for row in history
+                      for k in ("train_loss", "val_loss")), f"history {history}")
+        rate = sum(exams[1:]) / sum(secs[1:])
+        ms = sorted(t * 1e3 for t in secs[1:])
+        print(f"train --preset {preset} on {card}: {rate:.1f} exams/s, {2 * rate:.1f} images/s "
+              f"over steps 1-{steps - 1} of {TRAIN_EPOCHS} epochs (each synced; the step "
+              f"{statistics.median(ms):.1f} ms median, {ms[0]:.1f}-{ms[-1]:.1f}; step 0 "
+              f"{secs[0] * 1e3:.1f} ms); the bank encode at "
+              f"{get_preset(preset).model.max_text_length} tokens "
+              f"{[round(x, 1) for x in bank_ms]} ms; checkpoint save "
+              f"{[round(x, 1) for x in saves]} ms; history {history}")
+        # the last checkpoint restores bit-equal into a zeroed twin
+        state = first["state"]
+        twin = copy.deepcopy(state.model)
+        with torch.no_grad():
+            for p in twin.parameters():
+                p.zero_()
+        label_fn = make_label_fn([])
+        twin_opt = make_optimizer(twin, label_fn,
+                                  weight_decay=get_preset(preset).train.weight_decay)
+        CheckpointManager(f"{d}/ck").restore(TrainState(twin, twin_opt), TRAIN_EPOCHS - 1)
+        check(states_equal(model_state(twin), model_state(state.model))
+              and torch_equal(twin_opt.state_dict()["state"],
+                              state.optimizer.state_dict()["state"]),
+              f"{path}: the checkpoint does not restore the state bit for bit")
+        print(f"  the epoch-{TRAIN_EPOCHS - 1} checkpoint restores the weights, BatchNorm "
+              f"statistics and AdamW moments bit-equal")
+        del twin, twin_opt
+        model, opt = state.model, state.optimizer
+        split = step_split(
+            dev, first, {"prep": (steps_module, "preprocess_images"),
+                         "augment": (steps_module, "augment_batch"),
+                         "towers": (model, "encode_multiview"),
+                         "loss": (steps_module, "_multiview_loss"),
+                         "clip": (steps_module, "clip_by_global_norm_"),
+                         "optimizer": (opt, "step")},
+            {"backward": ("loss", "clip")})[0]  # the outputs would hold the step's graph
+        del model, opt
+        print(f"  the step in parts, ms (median of 5, synced at each part's bounds; augment is "
+              f"the warp): {json.dumps({k: round(v, 3) for k, v in split.items()})}")
+        print(f"phase 11, {path}: B2 at the first step's input, B3 and B4 at the bank's first "
+              f"inputs, against their plain versions:")
+        hold_first_inputs(mods, kept, bank_kernels, path, results)
+        print(f"phase 11, {path}: the first step against the plain route, each route with its "
+              f"own prompt bank (B2's output shared, the same augmentation draw), and on the "
+              f"fp32 route:")
+        check(len(made) == 1, f"{path} built {len(made)} multi-view steps")
+        (a, kw), = made
+        step32 = make_real(*a, **{**kw, "compute_dtype": torch.float32})
+        multiview_first_step(_build, mods, first, multiview_groups(preset),
+                             prompt_bank_encoder(tok, get_preset(preset).model.max_text_length),
+                             step32, preset)
+        first.clear()
+        kept.clear()
+        made.clear()
+        del state, step32, a, kw
+        released(f"train --preset {preset}")
+
+    # -- 3. zeroshot --preset multimodal_attention --dynamic, and on the plain route ---------
+    def recorded():
+        """Each view's logits as the engine dispatches them (both passes),
+        and the weighted view-max probabilities [exams, 16] of the second
+        pass, the rows the command's CSV holds, as merge_views_weighted
+        thresholds them."""
+        got = {"logits": [], "weighted": [], "mask": None}
+        dispatch, merge, mask_of = ZeroShotEngine._dispatch, driver.merge_views_weighted, \
+            driver._mask_of
+
+        def record_dispatch(self, images):
+            out, n = dispatch(self, images)
+            got["logits"].append(out[:n].float().clone())
+            return out, n
+
+        def record_mask(batch):
+            got["mask"] = mask_of(batch)
+            return got["mask"]
+
+        def record_merge(view_probs, disease_list, thresholds, frontal, lateral):
+            w = (np.asarray(view_probs) * np.array([frontal, lateral])[None, :, None]).max(1)
+            got["weighted"].append(w if got["mask"] is None else w[got["mask"]])
+            return merge(view_probs, disease_list, thresholds, frontal, lateral)
+
+        stack = ExitStack()
+        for owner, name, fn in ((ZeroShotEngine, "_dispatch", record_dispatch),
+                                (driver, "_mask_of", record_mask),
+                                (driver, "merge_views_weighted", record_merge)):
+            stack.enter_context(mock.patch.object(owner, name, fn))
+        return stack, got
+
+    def outputs(log):
+        """The command's thresholds [16] and prediction sets [exams, 16]."""
+        with open(f"{log}/thresholds.json") as f:
+            thresholds = json.load(f)
+        with open(f"{log}/zero_shot_results.csv", newline="") as f:
+            rows = list(csv.DictReader(f))
+        check(sorted(thresholds) == sorted(DISEASE_LABELS), f"thresholds.json {thresholds}")
+        sets = [set(r["predictions"].split("; ")) for r in rows]
+        return (np.array([thresholds[d] for d in DISEASE_LABELS]),
+                np.array([[d in p for d in DISEASE_LABELS] for p in sets]))
+
+    zs = ["zeroshot", "--preset", "multimodal_attention", *data, *kernels, "--dynamic",
+          "--checkpoint", f"{train_dirs['multimodal_attention']}/ck"]
+    zs_kernels = dict.fromkeys(("similarity", "image_prep"))
+    stack, kept = first_inputs(mods, zs_kernels)
+    record, rec_k = recorded()
+    with record, stack:
+        out = run("zeroshot --preset multimodal_attention --dynamic",
+                  [*zs, "--log-dir", f"{work}/zs"], "cli_zeroshot_multimodal")
+    record, rec_p = recorded()
+    with record, plain_kernels(mods):
+        run("zeroshot --preset multimodal_attention --dynamic, plain route",
+            [*zs, "--log-dir", f"{work}/zs_plain"])
+        check(not _build.LAUNCHES, f"a kernel ran during the plain run: {_build.LAUNCHES}")
+    print("phase 11, zeroshot --preset multimodal_attention: B1 on the enhance path and B2 at "
+          "the command's first inputs, against their plain versions:")
+    hold_first_inputs(mods, kept, zs_kernels, "the multimodal zeroshot", results)
+    probs_k, probs_p = (torch.sigmoid(torch.cat(r["logits"])).cpu().numpy()
+                        for r in (rec_k, rec_p))
+    held("the multimodal zero-shot's probabilities (B1-B4, enhance), every view", probs_k,
+         probs_p, TOL["probs_vs_plain"], {"views": apart(probs_p)}, failures, bound=False)
+    check(not failures, "; ".join(failures))
+    # The predictions each run made under its own calibrated thresholds.
+    # The probabilities agree within probs_vs_plain, so where the plain
+    # weighted probability lies further than that above both runs'
+    # thresholds, the class clears them in both runs and is in both sets.
+    # Where it lies further than that below both, the class clears neither,
+    # and the argmax fallback cannot take it in either run where the exam's
+    # top weighted probability lies more than twice that above it: in
+    # neither set. In an exam where every class lies below both, the
+    # fallback takes the top class in both runs where the next lies more
+    # than twice that below it. Those decided (exam, class) pairs must
+    # agree. (A model whose probabilities in an exam all lie within twice
+    # the tolerance of each other, below the thresholds, decides no pair:
+    # then the sets carry nothing beyond the probability bound, and the
+    # count says so.)
+    (t_k, sets_k), (t_p, sets_p) = outputs(f"{work}/zs"), outputs(f"{work}/zs_plain")
+    w_p = np.concatenate(rec_p["weighted"])
+    check(w_p.shape == sets_p.shape == sets_k.shape,
+          f"{w_p.shape} weighted rows, {sets_p.shape} and {sets_k.shape} prediction sets")
+    tol = TOL["probs_vs_plain"]
+    above, below = w_p - np.maximum(t_k, t_p) > tol, np.minimum(t_k, t_p) - w_p > tol
+    top = np.sort(w_p, axis=1)
+    fallback = (below.all(1, keepdims=True) & (top[:, -1:] - top[:, -2:-1] > 2 * tol)
+                & (w_p == top[:, -1:]))
+    decided = above | (below & (top[:, -1:] - w_p > 2 * tol)) | fallback
+    differ = sets_k != sets_p
+    print(f"  the prediction sets of both runs under their thresholds.json (thresholds differ "
+          f"by up to {float(np.abs(t_k - t_p).max()):.3e}): {int(decided.sum())} of "
+          f"{decided.size} (exam, class) pairs decided ({int(above.sum())} above both "
+          f"thresholds by more than {tol:.0e}, {int(fallback.sum())} decided fallbacks, the "
+          f"rest absent in both), {int(differ[decided].sum())} of them differ; "
+          f"{int(differ[~decided].sum())} of the other {int((~decided).sum())} differ")
+    print(f"  an exam's weighted probabilities span {float(np.median(top[:, -1] - top[:, 0])):.3e}"
+          f" (median); {int(below.all(1).sum())} of {len(w_p)} exams lie below both thresholds "
+          f"in every class and take the argmax fallback, decided where the top two lie more "
+          f"than {2 * tol:.0e} apart")
+    check(not differ[decided].any(), "the multimodal zero-shot's decided predictions differ "
+                                     "from the plain route's")
+    metrics = json.loads(out[out.rindex("\n{\n") + 1:]) if "\n{\n" in out else {}
+    print(f"  metrics {json.dumps({k: metrics[k] for k in sorted(metrics)[:6]})}")
+
+    # -- 4. shared-adapter from phase 9's pretrain directory -------------------------------------
+    sa, reports_kernels = f"{work}/shared", dict.fromkeys(("flash_attention", "mlp"))
+    stack, kept = first_inputs(mods, reports_kernels)
+    with instrumented(), stack:
+        out = run("shared-adapter", ["shared-adapter", *data, *kernels, "--epochs", "1",
+                                     "--batch-size", "16", "--checkpoint", f"{work9}/pretrain",
+                                     "--checkpoint-dir", f"{sa}/ck", "--log-dir", f"{sa}/logs"],
+                  "cli_shared_adapter")
+    exams = [b for b, _ in epoch]
+    secs = [t for _, t in epoch]
+    k = min(1, len(secs) - 1)
+    with open(f"{sa}/logs/shared_adapter_metrics.json") as f:
+        metrics = json.load(f)
+    # a class without positives in the validation split has no AUROC of its own
+    check(all(np.isfinite(v) for k_, v in metrics.items() if not k_.startswith("auroc/")),
+          f"non-finite shared-adapter metrics {metrics}")
+    best = CheckpointManager(f"{work9}/pretrain").best_epoch()
+    before = torch.load(f"{work9}/pretrain/{best}.pt", map_location="cpu",
+                        weights_only=True)["model"]
+    after = torch.load(f"{sa}/ck/0.pt", map_location="cpu", weights_only=True)["model"]
+    moved = sorted(k_ for k_, v in after.items() if not torch.equal(v, before[k_]))
+    check(moved == ["shared_adapter.classifier.bias", "shared_adapter.classifier.weight"],
+          f"shared-adapter moved {moved[:8]}")
+    ms = sorted(t * 1e3 for t in secs[k:])
+    print(f"shared-adapter on {card}: {sum(exams[k:]) / sum(secs[k:]):.1f} exams/s over steps "
+          f"{k}-{len(secs) - 1} of B = {exams[0]} (each synced; the step "
+          f"{statistics.median(ms):.1f} ms median, {ms[0]:.1f}-{ms[-1]:.1f}; the reports through "
+          f"BERT every step; step 0 {secs[0] * 1e3:.1f} ms); checkpoint save "
+          f"{[round(x, 1) for x in saves]} ms; only the shared adapter moved; macro AUROC "
+          f"{metrics.get('auroc_macro')}, mAP {metrics.get('mAP')}")
+    print("phase 11, shared-adapter: B3 and B4 at the reports' first inputs against their "
+          "plain versions:")
+    hold_first_inputs(mods, kept, reports_kernels, "shared-adapter", results)
+    kept.clear()
+    first.clear()
+    released("shared-adapter")
+    print(f"phase 11 on {card}: command wall times "
+          f"{json.dumps({k_: round(v, 2) for k_, v in walls.items()})} s")
+    print(f"phase 11 took {time.perf_counter() - t_phase:.1f} s")
+    return by_path
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of weights and inputs")
     ap.add_argument("--first-step-seeds", type=int, nargs="+", metavar="SEED",
                     help="only build the kernels and print the readings of first_step_sweep "
                          "at these seeds")
+    ap.add_argument("--train-first-step-seeds", type=int, nargs="+", metavar="SEED",
+                    help="only build the kernels and print the readings of "
+                         "train_first_step_sweep at these seeds")
     args = ap.parse_args(argv)
 
     t_start = time.perf_counter()
@@ -3921,6 +4591,9 @@ def main(argv=None) -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s -> {_build.build_info['path']}")
     if args.first_step_seeds:
         first_step_sweep(_build, mods, dev, args.first_step_seeds)
+        return 0
+    if args.train_first_step_seeds:
+        train_first_step_sweep(_build, mods, dev, args.train_first_step_seeds)
         return 0
     for line in _build.build_info["log"].splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -3990,6 +4663,9 @@ def main(argv=None) -> int:
         by_path.update(cli_phase(_build, mods, dev, args.seed, card, workdir, results))
         print("== phase 10: serve, the report-built banks, the rest of the pretrain options")
         by_path.update(serve_phase10(_build, mods, dev, args.seed, card, workdir, results))
+        print("== phase 11: the scripts' multi-view training, the multimodal zero-shot, the "
+              "shared adapter")
+        by_path.update(train_phase11(_build, mods, dev, args.seed, card, workdir, results))
     print("== the wrappers' host time (tools/launch_times.py)")
     from clip_for_dl_tpu_torch.tools import launch_times
 

@@ -4,7 +4,10 @@
   prep          01_datapreprocess: raw reports CSV → labeled CSV + unlabeled CSV
   cache-images  decode and resize the image set once into a memmap cache
   pretrain      CLIP contrastive pretraining (notebook phase A)
+  train         the scripts' multi-view training (0426/train.py; the
+                multimodal_attention preset adds the cross-modal attention)
   adapter       frozen-CLIP C-Adapter training (notebook phase B)
+  shared-adapter  the shared-embedding adapter over concat(image, report)
   zeroshot      zero-shot evaluation (union-max or dynamic-threshold pipeline)
   eval          metric suite over a checkpoint on the held-out split
   serve         dynamic-batching HTTP inference server
@@ -35,8 +38,7 @@ import numpy as np
 ENV_FORCE_CPU = "CLIP_FOR_DL_TPU_FORCE_CPU"
 
 # command → the ROADMAP item that ports it
-UNPORTED_COMMANDS = {"train": "A6", "shared-adapter": "A8", "gradcam": "A9",
-                     "rollout": "A9"}
+UNPORTED_COMMANDS = {"gradcam": "A9", "rollout": "A9"}
 # flag → (the values it takes unported, the ROADMAP item); ``None`` stands
 # for any value but the ones a single-device, default run passes
 _ANY = None
@@ -162,9 +164,6 @@ def _preset(args, name=None):
     try:
         return get_preset(name)
     except KeyError:
-        items = {"scripts_train": "A6", "multimodal_attention": "A8"}
-        if name in items:
-            raise SystemExit(f"the {name!r} preset is not ported yet (ROADMAP {items[name]})")
         raise SystemExit(f"unknown preset {name!r}")
 
 
@@ -515,6 +514,179 @@ def cmd_pretrain(args) -> int:
     return 0
 
 
+def cmd_train(args) -> int:
+    """The scripts' training path (0426/train.py): multi-view exams against
+    the prompt bank encoded once an epoch with the current text tower,
+    multilabel contrastive loss (or, with the ``multimodal_attention``
+    preset, the cross-modal attention and the asymmetric loss), the
+    preset's augmentation on the card, a cosine schedule."""
+    import torch
+
+    from ..core.config import DISEASE_LABELS
+    from ..evals import MetricWriter
+    from ..train import (
+        CheckpointManager,
+        PreemptionGuard,
+        TrainState,
+        fit,
+        make_label_fn,
+        make_multiview_eval_step,
+        make_multiview_train_step,
+        make_optimizer,
+        resume_or_init,
+    )
+    from ..zeroshot import prompts_for_family
+    from ..zeroshot.engine import encode_prompt_bank
+
+    cfg = _preset(args)
+    _setup_logging(args.log_dir, "train")
+    tokenizer = _tokenizer(args)
+    cfg = _apply_tiny(cfg, args, len(tokenizer.vocab))
+    model = _model(cfg, args, train=True)
+    use_enhance = cfg.model.use_multimodal_attention
+
+    # one group at the preset's rate, clipped and decayed as the preset says
+    label_fn = make_label_fn([])
+    optimizer = make_optimizer(model, label_fn, weight_decay=cfg.train.weight_decay)
+    prep = dict(image_size=cfg.model.image_size, mean=cfg.augment.mean, std=cfg.augment.std,
+                compute_dtype=_compute_dtype(args), use_enhance=use_enhance)
+    aug = cfg.augment
+    # the scripts' train transform stack, on the card (0425/prepare_data.py:39-55);
+    # validation stays un-augmented
+    step = make_multiview_train_step(
+        model, optimizer, label_fn, cfg.model.temperature, augment=aug.enabled,
+        flip_prob=aug.horizontal_flip_prob, rotation_degrees=aug.rotation_degrees,
+        translate_frac=aug.translate_frac, max_grad_norm=cfg.train.max_grad_norm, **prep)
+    eval_step = make_multiview_eval_step(model, cfg.model.temperature, **prep)
+    train_loader, val_loader = _loaders(cfg, args, multi_view=True)
+    prompts = prompts_for_family("prediction", DISEASE_LABELS)
+
+    @torch.no_grad()
+    def encode(ids, mask):
+        return model.encode_text(torch.from_numpy(ids).to(args.device),
+                                 torch.from_numpy(mask).to(args.device), normalize=True)
+
+    def epoch_text_features(state):
+        # once an epoch with the current text tower (the 0426 hoisting), in
+        # eval mode; the step puts the model back in train mode
+        model.eval()
+        feats = encode_prompt_bank(prompts, DISEASE_LABELS, encode, tokenizer,
+                                   cfg.model.max_text_length)
+        model.train()
+        return (feats.to(args.device),)
+
+    def to_batch(batch):
+        return {"images": _step_images(batch), "labels": np.asarray(batch["labels"])}
+
+    ckpt = None
+    if args.checkpoint_dir:
+        ckpt = CheckpointManager(args.checkpoint_dir, cfg.train.max_checkpoints_to_keep)
+    state, start_epoch = resume_or_init(ckpt, TrainState(model, optimizer), loader=train_loader)
+    writer = MetricWriter(args.log_dir, "train")
+    with PreemptionGuard() as guard:
+        state, history = fit(
+            state, step, eval_step,
+            train_loader_fn=lambda: _feed(args, map(to_batch, train_loader)),
+            val_loader_fn=lambda: _feed(args, map(to_batch, val_loader)),
+            base_lrs={"default": cfg.train.lr},
+            num_epochs=args.epochs or cfg.train.num_epochs,
+            rng_stream=_rng_stream(args, cfg),
+            scheduler=cfg.train.scheduler,
+            eta_min=cfg.train.eta_min,
+            early_stop_patience=cfg.train.early_stop_patience,
+            epoch_args_fn=epoch_text_features,
+            checkpointer=ckpt,
+            start_epoch=start_epoch,
+            log_every=cfg.train.log_every,
+            preemption_guard=guard,
+            metric_writer=writer,
+            stateful_loader=train_loader,
+            warmup_steps=int(getattr(args, "warmup_steps", 0) or 0),
+        )
+    writer.close()
+    history.save_csv(os.path.join(args.log_dir, "training_history.csv"))
+    print(f"train done: {len(history.rows)} epochs")
+    return 0
+
+
+def cmd_shared_adapter(args) -> int:
+    """The 03 notebook's shared-embedding adapter: a Linear over
+    concat(image features, the report's text features), towers frozen."""
+    from ..core.config import DISEASE_LABELS
+    from ..evals.metrics import multilabel_metrics
+    from ..train import (
+        CheckpointManager,
+        TrainState,
+        fit,
+        make_label_fn,
+        make_optimizer,
+        make_shared_adapter_eval_step,
+        make_shared_adapter_train_step,
+        resume_or_init,
+        run_eval,
+    )
+    from ..utils.visualization import save_predictions_csv
+
+    cfg = _preset(args, "adapter")
+    _setup_logging(args.log_dir, "shared_adapter")
+    tokenizer = _tokenizer(args)
+    cfg = _apply_tiny(cfg, args, len(tokenizer.vocab))
+    model = _model(cfg, args, train=True)
+
+    # Adam without clipping or decay on the shared adapter alone (the JAX
+    # CLI's base_transform(None, 0.0) and freeze_mask)
+    label_fn = make_label_fn(["shared_adapter"])
+    optimizer = make_optimizer(model, label_fn, weight_decay=0.0)
+    prep = dict(image_size=cfg.model.image_size, mean=cfg.augment.mean, std=cfg.augment.std,
+                compute_dtype=_compute_dtype(args))
+    step = make_shared_adapter_train_step(model, optimizer, label_fn, **prep)
+    eval_step = make_shared_adapter_eval_step(model, **prep)
+    train_loader, val_loader = _loaders(cfg, args, multi_view=True)
+    max_len = cfg.model.max_text_length
+
+    def to_batch(batch):
+        texts = list(batch.get("findings") or batch.get("text"))
+        if args.bucket_text:
+            enc = tokenizer.encode_bucketed(texts, max_length=max_len, buckets=(32, 64, 128))
+        else:
+            enc = tokenizer.encode(texts, max_length=max_len)
+        return {"images": _step_images(batch, single_view=True),
+                "input_ids": enc["input_ids"], "attention_mask": enc["attention_mask"],
+                "labels": np.asarray(batch["labels"])}
+
+    ckpt = None
+    if args.checkpoint_dir:
+        ckpt = CheckpointManager(args.checkpoint_dir, cfg.train.max_checkpoints_to_keep)
+    state, start_epoch = resume_or_init(ckpt, TrainState(model, optimizer))
+    state, history = fit(
+        state, step, eval_step,
+        train_loader_fn=lambda: _feed(args, map(to_batch, train_loader)),
+        val_loader_fn=lambda: _feed(args, map(to_batch, val_loader)),
+        base_lrs={"shared_adapter": cfg.train.lr, "default": 0.0},
+        num_epochs=args.epochs or cfg.train.num_epochs,
+        rng_stream=_rng_stream(args, cfg),
+        scheduler="none",
+        early_stop_patience=None,
+        checkpointer=ckpt,
+        start_epoch=start_epoch,
+        log_every=cfg.train.log_every,
+    )
+    history.save_csv(os.path.join(args.log_dir, "shared_adapter_history.csv"))
+    # the 03 notebook's metric family (cell 30) from the shared adapter's
+    # logits; it needs the report at inference, which is why the reference
+    # left it
+    val = run_eval(eval_step, state, _feed(args, map(to_batch, val_loader)))
+    metrics = multilabel_metrics(val["probs"], val["labels"], class_names=DISEASE_LABELS)
+    save_predictions_csv(val["probs"], val["labels"], DISEASE_LABELS,
+                         os.path.join(args.log_dir, "shared_adapter_predictions.csv"))
+    with open(os.path.join(args.log_dir, "shared_adapter_metrics.json"), "w") as f:
+        json.dump(metrics, f, indent=2)
+    print(json.dumps({k: v for k, v in metrics.items() if not k.startswith("auroc/")},
+                     indent=2))
+    print(f"shared-adapter done: {len(history.rows)} epochs")
+    return 0
+
+
 def cmd_adapter(args) -> int:
     from ..core.config import DISEASE_LABELS
     from ..evals.metrics import multilabel_metrics
@@ -604,6 +776,7 @@ def cmd_zeroshot(args) -> int:
         model, tokenizer, DISEASE_LABELS, cfg.zeroshot,
         cfg.augment.mean, cfg.augment.std, cfg.model.image_size,
         cfg.model.max_text_length, _compute_dtype(args),
+        use_enhance=cfg.model.use_multimodal_attention,
     )
     engine.build_text_features(prompts_for_family(args.prompts, DISEASE_LABELS))
     _, val_loader = _loaders(cfg, args, multi_view=True)
@@ -745,6 +918,7 @@ def cmd_serve(args) -> int:
         engine = ZeroShotEngine(
             model, tokenizer, DISEASE_LABELS, cfg.zeroshot, cfg.augment.mean,
             cfg.augment.std, size, cfg.model.max_text_length, _compute_dtype(args),
+            use_enhance=cfg.model.use_multimodal_attention,
         )
         engine.build_text_features(prompts_for_family(args.prompts, DISEASE_LABELS))
     service = ZeroShotService(
@@ -1011,21 +1185,19 @@ def build_parser() -> argparse.ArgumentParser:
     _tower_init_args(sp)
     sp.set_defaults(fn=cmd_pretrain, preset="pretrain_clip")
 
-    sp = sub.add_parser("train", help="scripts-path multi-view training "
-                                      "(" + _not_ported_help("A6") + ")")
+    sp = sub.add_parser("train", help="scripts-path multi-view training")
     common(sp)
     sp.add_argument("--warmup-steps", type=int, default=0, metavar="N")
     _tower_init_args(sp)
-    sp.set_defaults(preset="scripts_train")
+    sp.set_defaults(fn=cmd_train, preset="scripts_train")
 
     sp = sub.add_parser("adapter", help="frozen-CLIP C-Adapter training")
     common(sp)
     sp.set_defaults(fn=cmd_adapter, preset="adapter")
 
-    sp = sub.add_parser("shared-adapter", help="shared-embedding adapter "
-                                               "(" + _not_ported_help("A8") + ")")
+    sp = sub.add_parser("shared-adapter", help="shared-embedding adapter")
     common(sp)
-    sp.set_defaults(preset="adapter")
+    sp.set_defaults(fn=cmd_shared_adapter, preset="adapter")
 
     sp = sub.add_parser("zeroshot", help="zero-shot evaluation")
     common(sp)

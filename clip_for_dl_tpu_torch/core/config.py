@@ -5,9 +5,11 @@ its package ``__init__``, which imports jax. So the framework-neutral config
 is copied here field for field, default for default;
 ``tests/test_torch_zeroshot.py`` holds the two copies equal.
 
-Only the presets of the ported slices exist here: ``pretrain_clip`` (the
+Every preset of the JAX package exists here: ``pretrain_clip`` (the
 notebook phase-A constants), ``adapter`` (phase B), ``zero_shot`` (phase C,
-which inherits them) and ``vit`` (the ViT-B/16 vision variant).
+which inherits them), ``vit`` (the ViT-B/16 vision variant),
+``scripts_train`` (the scripts' multi-view training, the defaults) and
+``multimodal_attention`` (its cross-modal attention variant).
 """
 
 from __future__ import annotations
@@ -229,6 +231,13 @@ def preset_adapter() -> ExperimentConfig:
     )
 
 
+def preset_scripts_train() -> ExperimentConfig:
+    """Script training path (0425/config.py + 0426/train.py): batch 32,
+    max_len 512, T 0.07, ImageNet stats, augmentation, multi-view fusion,
+    cosine schedule, multilabel contrastive loss."""
+    return ExperimentConfig(name="scripts_train")
+
+
 def preset_zero_shot() -> ExperimentConfig:
     """Zero-shot evaluation with the phase-A model constants."""
     return preset_pretrain_clip().replace(name="zero_shot")
@@ -253,11 +262,28 @@ def preset_vit() -> ExperimentConfig:
     )
 
 
+def preset_multimodal_attention() -> ExperimentConfig:
+    """Cross-modal additive-attention fusion variant with asymmetric loss and
+    dynamic per-disease thresholds (multimodal_attention/train.py:951-995,
+    zero_shot_predict.py:65-208)."""
+    base = preset_scripts_train()
+    return base.replace(
+        name="multimodal_attention",
+        model=dataclasses.replace(base.model, use_multimodal_attention=True),
+        train=dataclasses.replace(base.train, loss="asymmetric"),
+        zeroshot=dataclasses.replace(
+            base.zeroshot, dynamic_thresholds=True, predictor="sigmoid"
+        ),
+    )
+
+
 PRESETS = {
     "pretrain_clip": preset_pretrain_clip,
     "adapter": preset_adapter,
+    "scripts_train": preset_scripts_train,
     "zero_shot": preset_zero_shot,
     "vit": preset_vit,
+    "multimodal_attention": preset_multimodal_attention,
 }
 
 

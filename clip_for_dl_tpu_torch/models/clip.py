@@ -4,9 +4,10 @@ Counterpart of ``clip_for_dl_tpu.models.clip.CXRClip``: one ``nn.Module``
 holding the image tower (ResNet-50, or the ViT with ``image_tower="vit_b16"``),
 the text tower and every head, so that a converted
 JAX checkpoint (``models/convert.py``) loads into it completely. The ported
-entry points are ``encode_image``, ``encode_text``, ``encode_multiview``
-(forward only), ``adapter_logits`` and the joint ``forward`` of the pretrain
-step; ``.train()`` / ``.eval()``
+entry points are ``encode_image``, ``encode_text``, ``encode_multiview``,
+``enhance`` (the cross-modal attention of a model built with
+``use_multimodal_attention``), ``adapter_logits``, ``shared_adapter_logits``
+and the joint ``forward`` of the pretrain step; ``.train()`` / ``.eval()``
 switch BatchNorm statistics and dropout as flax's ``train=True`` does.
 With ``config.learnable_temperature`` the model also holds the loss's two
 0-dim fp32 calibration scalars, ``logit_scale`` (log s, from
@@ -31,6 +32,7 @@ from torch import nn
 
 from ..core.config import ModelConfig
 from ..ops.similarity import l2_normalize
+from .attention_fusion import AdditiveMultiModalAttention
 from .bert import BertEncoder
 from .heads import (
     CAdapter,
@@ -46,8 +48,6 @@ from .vit import MultiheadSelfAttention, ViT
 class CXRClip(nn.Module):
     def __init__(self, config: ModelConfig):
         super().__init__()
-        if config.use_multimodal_attention:
-            raise NotImplementedError("multimodal attention is not ported yet")
         self.config = config
         if config.learnable_temperature:
             s0 = config.logit_scale_init or 1.0 / config.temperature
@@ -81,6 +81,8 @@ class CXRClip(nn.Module):
         self.view_fusion = MultiViewFusion(d)
         self.adapter = CAdapter(d, config.num_classes)
         self.shared_adapter = SharedEmbeddingAdapter(d, config.num_classes)
+        if config.use_multimodal_attention:
+            self.multimodal_attention = AdditiveMultiModalAttention(d)
 
     def encode_image(self, images: torch.Tensor, *, normalize: bool = False) -> torch.Tensor:
         """NHWC images [B, H, W, 3] → shared-space features [B, D]."""
@@ -95,26 +97,40 @@ class CXRClip(nn.Module):
         feats = self.text_projector(hidden[:, 0, :])
         return l2_normalize(feats) if normalize else feats
 
-    def encode_multiview(self, images: torch.Tensor) -> torch.Tensor:
-        """[B, 2, H, W, 3] (frontal, lateral) → fused features [B, D]: each
-        view through ``encode_image``, then ``MultiViewFusion`` (forward
-        only)."""
+    def encode_multiview(self, images: torch.Tensor, *,
+                         generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """[B, 2, H, W, 3] (frontal, lateral) → fused features [B, D]: both
+        views through ``encode_image`` in one call of 2B images (in train
+        mode BatchNorm takes its statistics over all of them), then
+        ``MultiViewFusion``, whose dropout draws from ``generator`` in train
+        mode."""
         b = images.shape[0]
         feats = self.encode_image(images.reshape(b * 2, *images.shape[2:]))
         feats = feats.reshape(b, 2, -1)
-        return self.view_fusion(feats[:, 0], feats[:, 1])
+        return self.view_fusion(feats[:, 0], feats[:, 1], generator=generator)
+
+    def enhance(self, image_features: torch.Tensor, text_features: torch.Tensor):
+        """Cross-modal attention enhancement (the multimodal variant):
+        (enhanced [B, D], attention weights [B, C])."""
+        return self.multimodal_attention(image_features, text_features)
 
     def adapter_logits(self, image_features: torch.Tensor) -> torch.Tensor:
         """C-Adapter classification logits over (frozen) image features."""
         return self.adapter(image_features)
+
+    def shared_adapter_logits(self, image_features: torch.Tensor,
+                              text_features: torch.Tensor) -> torch.Tensor:
+        """Shared-embedding adapter logits over concat(image, text) (03 nb)."""
+        return self.shared_adapter(image_features, text_features)
 
     def forward(self, images: torch.Tensor, input_ids: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None, *,
                 generator: Optional[torch.Generator] = None):
         """Joint forward of the pretrain step: (image features, text
         features), neither normalized. ``generator`` seeds the attention
-        kernel's dropout in train mode. The fusion and adapter heads take no
-        part, so their gradients are zero, as in the JAX ``__call__``."""
+        kernel's dropout in train mode. The fusion, attention and adapter
+        heads take no part, so their gradients are zero, as in the JAX
+        ``__call__``."""
         img = self.encode_image(images)
         hidden = self.text_tower(input_ids, attention_mask, generator=generator)
         return img, self.text_projector(hidden[:, 0, :])

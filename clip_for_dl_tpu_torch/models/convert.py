@@ -11,7 +11,9 @@ accepts:
   running_mean/running_var (``num_batches_tracked`` 0);
 - LayerNorm scale/bias → weight/bias; Embed embedding → weight;
 - the learnable-temperature scalars ``logit_scale`` / ``logit_bias``
-  (0-dim) under their own names.
+  (0-dim) under their own names;
+- the cross-modal attention of a ``use_multimodal_attention`` model under
+  ``multimodal_attention.{image_proj,text_proj,attention,output_proj}``.
 
 Names are the ones ``clip_for_dl_tpu/models/torch_export.py`` emits
 (torchvision ResNet, HF BertModel, the reference's head attributes) under
@@ -151,6 +153,10 @@ def state_dict_from_jax(
     sd.update(_linear(params["view_fusion"]["fc2"], "view_fusion.fusion.3"))
     sd.update(_linear(params["adapter"]["classifier"], "adapter.classifier"))
     sd.update(_linear(params["shared_adapter"]["classifier"], "shared_adapter.classifier"))
+    if "multimodal_attention" in params:
+        for name in ("image_proj", "text_proj", "attention", "output_proj"):
+            sd.update(_linear(params["multimodal_attention"][name],
+                              f"multimodal_attention.{name}"))
     for name in ("logit_scale", "logit_bias"):
         if name in params:
             sd[name] = _t(params[name])

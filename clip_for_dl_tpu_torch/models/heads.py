@@ -7,7 +7,7 @@ state-dict names (``models/torch_export.py`` emits the same):
   (linear attribute ``image_projection`` / ``text_projection``, then ``fc``
   and ``layer_norm``; exact-erf GELU; LayerNorm in fp32, eps 1e-5)
 - MultiViewFusion: concat(frontal, lateral) → Linear → ReLU → Dropout → Linear
-  (``fusion.0`` and ``fusion.3``)
+  (``fusion.0`` and ``fusion.3``; dropout 0.2, fixed as in JAX)
 - CAdapter: Linear(shared_dim → num_classes) (``classifier``)
 - SharedEmbeddingAdapter: Linear(2·shared_dim → num_classes) over
   concat(image, text) (``classifier``)
@@ -16,6 +16,8 @@ Every head computes in the dtype of its weights.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -61,9 +63,19 @@ class MultiViewFusion(nn.Module):
             nn.Linear(2 * dim, dim), nn.ReLU(), nn.Dropout(dropout), nn.Linear(dim, dim)
         )
 
-    def forward(self, frontal: torch.Tensor, lateral: torch.Tensor) -> torch.Tensor:
+    def forward(self, frontal: torch.Tensor, lateral: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """In train mode the dropout's mask is drawn from ``generator`` (the
+        train step's stream, as flax draws it from the step's key; torch's
+        global generator when None)."""
         x = torch.cat([frontal, lateral], dim=-1)
-        return self.fusion(x.to(self.fusion[0].weight.dtype))
+        fc1, _, drop, fc2 = self.fusion
+        h = F.relu(fc1(x.to(fc1.weight.dtype)))
+        if self.training and drop.p > 0.0:
+            keep = torch.rand(h.shape, generator=generator, device=h.device) >= drop.p
+            h = torch.where(keep, h / (1.0 - drop.p), torch.zeros((), dtype=h.dtype,
+                                                                  device=h.device))
+        return fc2(h)
 
 
 class CAdapter(nn.Module):

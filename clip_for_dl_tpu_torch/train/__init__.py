@@ -19,6 +19,8 @@ from .steps import (
     make_adapter_train_step,
     make_clip_eval_step,
     make_clip_pretrain_step,
+    make_multiview_eval_step,
+    make_multiview_train_step,
     make_shared_adapter_eval_step,
     make_shared_adapter_train_step,
 )
@@ -44,6 +46,8 @@ __all__ = [
     "make_clip_eval_step",
     "make_clip_pretrain_step",
     "make_label_fn",
+    "make_multiview_eval_step",
+    "make_multiview_train_step",
     "make_optimizer",
     "make_shared_adapter_eval_step",
     "make_shared_adapter_train_step",

@@ -1,6 +1,8 @@
 """Train and eval step factories (counterpart of
-``clip_for_dl_tpu.train.steps``). Ported so far: the phase-A CLIP pretrain
-step and the phase-B C-Adapter step, each with its eval step.
+``clip_for_dl_tpu.train.steps``): the phase-A CLIP pretrain step, the
+scripts' multi-view step (with its cross-modal attention variant), the
+phase-B C-Adapter step and the shared-embedding adapter step, each with its
+eval step.
 
 ``step(state, batch, lrs, generator) -> (state, {"loss"})`` runs, in order:
 uint8 images → ``preprocess_images`` (kernel B2); the joint forward in train
@@ -12,7 +14,10 @@ optax-style clipping by global norm; AdamW with the group learning rates of
 ``lrs``; the clamp of a learnable ``logit_scale`` at log 100; the EMA of
 the parameters. Batches are dicts of device tensors: ``images`` uint8
 [B, H, W, C], ``input_ids`` and ``attention_mask`` [B, L]; the adapter
-steps read ``images`` and the multi-hot ``labels`` [B, C].
+steps read ``images`` and the multi-hot ``labels`` [B, C]. The multi-view
+steps read ``images`` [B, 2, H, W, C] (frontal, lateral) and ``labels``,
+and take the epoch's prompt-bank text features [C, D] before ``lrs``:
+``step(state, batch, text_features, lrs, generator)``.
 
 The pretrain losses are ``clip_self_distill``, ``info_nce`` and
 ``siglip``. A model built with ``learnable_temperature`` trains its scale
@@ -28,10 +33,20 @@ from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 from torch.func import functional_call
 
-from ..losses import bce_with_logits_loss, clip_self_distill_loss, info_nce_loss, siglip_loss
+from ..losses import (
+    asymmetric_loss,
+    bce_with_logits_loss,
+    clip_self_distill_loss,
+    info_nce_loss,
+    multilabel_contrastive_loss,
+    siglip_loss,
+)
+from ..ops.augment import augment_batch
 from ..ops.image_prep import preprocess_images
+from ..ops.similarity import l2_normalize
 from .optim import clip_by_global_norm_, set_group_lrs
 from .state import TrainState
 
@@ -267,11 +282,213 @@ def make_adapter_eval_step(
     return step
 
 
-def make_shared_adapter_train_step(*args, **kwargs):
-    """The shared-embedding adapter (03 nb "nouse" variant)."""
-    raise _not_ported("the shared-embedding adapter step", "A8")
+class _Bound(nn.Module):
+    """``fn(model, *args)`` as a module's forward, so that
+    ``torch.func.functional_call`` can run a method other than ``forward``
+    with other parameters (under the prefix ``model.``)."""
+
+    def __init__(self, model, fn):
+        super().__init__()
+        self.model, self.fn = model, fn
+
+    def forward(self, *args):
+        return self.fn(self.model, *args)
 
 
-def make_shared_adapter_eval_step(*args, **kwargs):
-    """The shared-embedding adapter's eval step."""
-    raise _not_ported("the shared-embedding adapter eval step", "A8")
+def _prep_views(batch: Batch, image_size, mean, std, compute_dtype):
+    """[B, 2, H, W, C] uint8 → (B, the 2B views through B2, flattened, in
+    the compute dtype)."""
+    imgs = batch["images"]
+    b = imgs.shape[0]
+    flat = imgs.reshape(b * 2, *imgs.shape[2:])
+    return b, preprocess_images(flat, image_size, image_size, mean, std, compute_dtype)
+
+
+def _multiview_loss(model, feats, text_features, labels, temperature, use_enhance):
+    """(loss, logits or None): the multilabel contrastive loss of the fused
+    features against the bank, or with ``use_enhance`` the asymmetric loss
+    of l2_normalize(enhance(feats, bank)) · bankᵀ / T."""
+    if not use_enhance:
+        return multilabel_contrastive_loss(feats, text_features, labels, temperature), None
+    enhanced, _ = model.enhance(feats, text_features)
+    logits = l2_normalize(enhanced).float() @ text_features.float().T / temperature
+    return asymmetric_loss(logits, labels), logits
+
+
+def make_multiview_train_step(
+    model,
+    optimizer: torch.optim.Optimizer,
+    label_fn,
+    temperature: float = 0.07,
+    image_size: int = 224,
+    mean: Tuple[float, ...] = (0.0, 0.0, 0.0),
+    std: Tuple[float, ...] = (1.0, 1.0, 1.0),
+    compute_dtype: torch.dtype = torch.bfloat16,
+    use_enhance: bool = False,
+    augment: bool = False,
+    flip_prob: float = 0.5,
+    rotation_degrees: float = 10.0,
+    translate_frac: float = 0.1,
+    max_grad_norm: Optional[float] = 1.0,
+    ema_decay: float = 0.0,
+):
+    """The scripts' training step (0426/train.py): (frontal, lateral) exams
+    against the epoch's prompt-bank features [C, D] (encoded once an epoch,
+    not per batch). One B2 call over the 2B views writes the compute dtype;
+    with ``augment`` the scripts' flip / rotate / translate stack
+    (``ops/augment.py``) widens them to fp32, warps and casts back, its
+    parameters drawn from ``generator`` before the fusion's dropout mask;
+    then ``encode_multiview`` in train mode, and the multilabel contrastive
+    loss, or with ``use_enhance`` the cross-modal attention and the
+    asymmetric loss. Every parameter the forward does not reach (the text
+    tower, the adapters) gets a zero gradient, so that AdamW decays it as
+    optax does; then the clip, the update and, with ``ema_decay``, the EMA
+    as in the pretrain step (the JAX step has the option; the JAX CLI does
+    not pass it, and ``make_multiview_eval_step(use_ema=True)`` scores it)."""
+    params = _check_groups(model, optimizer, label_fn)
+    names = [n for n, _ in model.named_parameters()]
+    live = [p for _, p in model.named_parameters()]
+
+    def step(state: TrainState, batch: Batch, text_features: torch.Tensor,
+             lrs: Mapping[str, float],
+             generator: Optional[torch.Generator] = None) -> Tuple[TrainState, Metrics]:
+        _check_state(state, model, optimizer)
+        b, images = _prep_views(batch, image_size, mean, std, compute_dtype)
+        if augment:
+            images = augment_batch(images, generator, flip_prob, rotation_degrees,
+                                   translate_frac)
+        set_group_lrs(optimizer, lrs)
+        optimizer.zero_grad(set_to_none=True)
+        model.train()
+        feats = model.encode_multiview(images.reshape(b, 2, *images.shape[1:]),
+                                       generator=generator)
+        loss, _ = _multiview_loss(model, feats, text_features, batch["labels"], temperature,
+                                  use_enhance)
+        loss.backward()
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if max_grad_norm is not None:
+            clip_by_global_norm_(params, max_grad_norm)
+        optimizer.step()
+        if ema_decay and state.ema_params is not None:
+            update_ema([state.ema_params[n] for n in names], live, state.step, ema_decay)
+        state.step += 1
+        return state, {"loss": loss.detach()}
+
+    return step
+
+
+def make_multiview_eval_step(
+    model,
+    temperature: float = 0.07,
+    image_size: int = 224,
+    mean: Tuple[float, ...] = (0.0, 0.0, 0.0),
+    std: Tuple[float, ...] = (1.0, 1.0, 1.0),
+    compute_dtype: torch.dtype = torch.bfloat16,
+    use_enhance: bool = False,
+    threshold: float = 0.5,
+    use_ema: bool = False,
+):
+    """``step(state, batch, text_features) -> {"loss", "probs",
+    "sample_accuracy", "per_class_accuracy"}`` in eval mode, un-augmented:
+    the training loss, sigmoid probabilities of the logits (the enhanced
+    ones, or the plain product l2_normalize(f) · l2_normalize(t)ᵀ / T),
+    and the accuracies of the predictions at ``threshold`` (per exam, in
+    percent, averaged; per class). ``use_ema`` scores the EMA parameters
+    with the live BatchNorm statistics."""
+
+    def forward(m, x, text_features, labels):
+        feats = m.encode_multiview(x)
+        loss, logits = _multiview_loss(m, feats, text_features, labels, temperature,
+                                       use_enhance)
+        if logits is None:
+            logits = (l2_normalize(feats.float()) @ l2_normalize(text_features.float()).T
+                      / temperature)
+        return loss, logits
+
+    @torch.no_grad()
+    def step(state: TrainState, batch: Batch, text_features: torch.Tensor) -> Metrics:
+        m = state.model.eval()
+        b, images = _prep_views(batch, image_size, mean, std, compute_dtype)
+        args = (images.reshape(b, 2, *images.shape[1:]), text_features, batch["labels"])
+        if use_ema:
+            variables = {f"model.{k}": v for k, v in state.to_variables(True).items()}
+            loss, logits = functional_call(_Bound(m, forward), variables, args)
+        else:
+            loss, logits = forward(m, *args)
+        probs = torch.sigmoid(logits)
+        correct = ((probs > threshold).float() == batch["labels"].float()).float()
+        return {"loss": loss, "probs": probs,
+                "sample_accuracy": correct.mean(dim=1).mean() * 100.0,
+                "per_class_accuracy": correct.mean(dim=0)}
+
+    return step
+
+
+def _report_features(model, batch: Batch, image_size, mean, std, compute_dtype):
+    """(image features, report text features) of the frozen towers in eval
+    mode, under ``no_grad``."""
+    images = preprocess_images(batch["images"], image_size, image_size, mean, std,
+                               compute_dtype)
+    model.eval()
+    with torch.no_grad():
+        return (model.encode_image(images),
+                model.encode_text(batch["input_ids"], batch["attention_mask"]))
+
+
+def make_shared_adapter_train_step(
+    model,
+    optimizer: torch.optim.Optimizer,
+    label_fn,
+    image_size: int = 224,
+    mean: Tuple[float, ...] = (0.0, 0.0, 0.0),
+    std: Tuple[float, ...] = (1.0, 1.0, 1.0),
+    compute_dtype: torch.dtype = torch.bfloat16,
+):
+    """The shared-embedding adapter (the 03 notebook's "nouse" variant): a
+    Linear over concat(image features, the report's text features) with
+    BCE; both towers frozen, in eval mode. Batch: ``images`` [B, H, W, C]
+    uint8, ``input_ids`` / ``attention_mask``, ``labels``.
+
+    ``optimizer`` is ``make_optimizer(model, make_label_fn(["shared_adapter"]))``
+    with no weight decay, and ``lrs`` is ``{"shared_adapter": lr,
+    "default": 0.0}``: the JAX CLI's Adam without clipping under
+    ``freeze_mask``. Only the shared adapter gets a gradient, so every other
+    parameter and the BatchNorm statistics stay bit-equal."""
+    _check_groups(model, optimizer, label_fn)
+
+    def step(state: TrainState, batch: Batch, lrs: Mapping[str, float],
+             generator: Optional[torch.Generator] = None) -> Tuple[TrainState, Metrics]:
+        _check_state(state, model, optimizer)
+        img_f, txt_f = _report_features(model, batch, image_size, mean, std, compute_dtype)
+        set_group_lrs(optimizer, lrs)
+        optimizer.zero_grad(set_to_none=True)
+        loss = bce_with_logits_loss(model.shared_adapter_logits(img_f, txt_f), batch["labels"])
+        loss.backward()
+        optimizer.step()
+        state.step += 1
+        return state, {"loss": loss.detach()}
+
+    return step
+
+
+def make_shared_adapter_eval_step(
+    model,
+    image_size: int = 224,
+    mean: Tuple[float, ...] = (0.0, 0.0, 0.0),
+    std: Tuple[float, ...] = (1.0, 1.0, 1.0),
+    compute_dtype: torch.dtype = torch.bfloat16,
+):
+    """``step(state, batch) -> {"loss", "probs"}``: the shared adapter's BCE
+    and sigmoid probabilities [B, C] (03 nb cell 30)."""
+
+    @torch.no_grad()
+    def step(state: TrainState, batch: Batch) -> Metrics:
+        img_f, txt_f = _report_features(state.model, batch, image_size, mean, std,
+                                        compute_dtype)
+        logits = state.model.shared_adapter_logits(img_f, txt_f)
+        return {"loss": bce_with_logits_loss(logits, batch["labels"]),
+                "probs": torch.sigmoid(logits)}
+
+    return step

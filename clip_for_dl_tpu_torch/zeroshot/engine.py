@@ -6,9 +6,10 @@ Counterpart of ``clip_for_dl_tpu.zeroshot.engine``:
   run through the text tower once, L2-normalized per prompt and averaged
   per disease into a cached [C, D] text-feature matrix;
 - an image batch goes uint8 → fused resize + normalize (kernel B2) → image
-  tower → projection → L2-normalize → normalize + similarity (kernel B1),
-  as work queued on the device; the host turns logits into probabilities
-  and prediction sets (predict.py).
+  tower → projection → L2-normalize (with ``use_enhance``: the model's
+  cross-modal attention against the bank, then L2-normalize again) →
+  normalize + similarity (kernel B1), as work queued on the device; the
+  host turns logits into probabilities and prediction sets (predict.py).
 
 ``_dispatch`` returns the device tensor without synchronising: the uint8
 batch is staged in pinned memory, so its copy to the device is queued like
@@ -116,6 +117,7 @@ class ZeroShotEngine:
         image_size: int = 224,
         max_text_length: int = 512,
         compute_dtype: torch.dtype = torch.bfloat16,
+        use_enhance: bool = False,
     ):
         self.model = model.eval()
         self.device = next(model.parameters()).device
@@ -126,6 +128,7 @@ class ZeroShotEngine:
         self.image_size = image_size
         self.max_text_length = max_text_length
         self.compute_dtype = compute_dtype
+        self.use_enhance = use_enhance
         self.text_features: Optional[torch.Tensor] = None
 
     # -- text ---------------------------------------------------------------
@@ -153,6 +156,8 @@ class ZeroShotEngine:
             out_dtype=self.compute_dtype,
         )
         feats = self.model.encode_image(x, normalize=True)
+        if self.use_enhance:
+            feats = l2_normalize(self.model.enhance(feats, self.text_features)[0])
         return similarity(feats.float(), self.text_features, self.config.temperature)
 
     def _dispatch(self, images_u8) -> Tuple[torch.Tensor, int]:

@@ -7,8 +7,9 @@ then both CLIs score one reference ``.pth`` that the JAX package writes
 from seeded flax variables. The port's chain ``pretrain → adapter →
 convert`` is read back by the JAX package, and so is its chain with the
 A3b options (``pretrain --loss siglip --learnable-temperature --ema-decay
---bf16-moments`` → ``eval --use-ema`` → ``convert --use-ema``). Tolerances
-are stated per test.
+--bf16-moments`` → ``eval --use-ema`` → ``convert --use-ema``), and its
+``train`` in both presets and ``shared-adapter``. Tolerances are stated per
+test.
 """
 
 import argparse
@@ -218,7 +219,7 @@ def test_parser_takes_every_jax_command_and_flag():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["train"], "A6"), (["shared-adapter"], "A8"), (["gradcam"], "A9"),
+    (["gradcam"], "A9"),
     (["rollout"], "A9"), (["serve", "--exported", "artifact"], "A9"),
     (["serve", "--tp", "2"], "A7"),
     (["pretrain", "--lora", "4"], "A8"), (["zeroshot", "--vit-fused-mlp-train"], "A8"),
@@ -251,7 +252,7 @@ def test_single_device_values_of_those_flags_run(argv, capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("command", ["prep", "cache-images", "pretrain", "adapter", "zeroshot",
-                                     "eval", "convert"])
+                                     "eval", "convert", "train", "shared-adapter"])
 def test_without_a_card_or_the_switch_every_command_fails(command, tmp_path, capsys,
                                                            monkeypatch):
     """No card and no CLIP_FOR_DL_TPU_FORCE_CPU: a non-zero exit with
@@ -430,6 +431,174 @@ def test_pretrain_history_has_the_jax_clis_columns(layout, chain, tmp_path):
     assert len(rows) == 1 and np.isfinite(np.array(rows[0], np.float64)).all()
     for name in ("adapter_history.csv", "adapter_predictions.csv", "adapter_metrics.json"):
         assert os.path.exists(os.path.join(chain["logs"], name)), name
+
+
+# -- train (both presets) and shared-adapter ------------------------------------------------
+
+TRAIN_PRESETS = ("scripts_train", "multimodal_attention")
+
+
+@pytest.fixture(scope="module")
+def train_chain(layout, chain, tmp_path_factory):
+    """The port's ``train`` in each preset (one epoch; the multimodal run
+    through --device-cache), each directory converted to a .pth; and
+    ``shared-adapter`` from the port's pretrain directory, converted too."""
+    root = str(tmp_path_factory.mktemp("train"))
+    out = {}
+    for preset in TRAIN_PRESETS:
+        d = os.path.join(root, preset)
+        extra = ["--device-cache"] if preset == "multimodal_attention" else []
+        rc, stdout = run(cli.main, ["train", "--preset", preset, *data_flags(layout, *extra),
+                                    "--epochs", "1", "--checkpoint-dir", os.path.join(d, "ck"),
+                                    "--log-dir", os.path.join(d, "logs")])
+        assert rc == 0 and "train done: 1 epochs" in stdout
+        for ext in ("pth", "safetensors"):
+            assert run(cli.main, ["convert", "--tiny", "--preset", preset, "--checkpoint",
+                                  os.path.join(d, "ck"), "--out",
+                                  os.path.join(d, f"model.{ext}")])[0] == 0
+        out[preset] = d
+    d = os.path.join(root, "shared")
+    rc, stdout = run(cli.main, ["shared-adapter", *data_flags(layout, "--bucket-text"),
+                                "--epochs", "1", "--checkpoint", chain["pretrain"],
+                                "--checkpoint-dir", os.path.join(d, "ck"),
+                                "--log-dir", os.path.join(d, "logs")])
+    assert rc == 0 and "shared-adapter done: 1 epochs" in stdout
+    out["shared"], out["shared_metrics"] = d, printed_json(stdout)
+    return out
+
+
+@pytest.mark.parametrize("preset", TRAIN_PRESETS)
+def test_train_writes_its_history_and_checkpoint(train_chain, preset):
+    """training_history.csv with the fit loop's columns and one epoch of
+    finite losses at the preset's learning rate (cosine at epoch 0); one
+    checkpoint; the cross-modal attention's tensors in it only for the
+    multimodal preset."""
+    from clip_for_dl_tpu_torch.train import CheckpointManager
+
+    d = train_chain[preset]
+    header, rows = read_rows(os.path.join(d, "logs", "training_history.csv"))
+    assert header == ["epoch", "train_loss", "val_loss", "epoch_time", "lr/default"]
+    assert len(rows) == 1 and np.isfinite(np.array(rows[0], np.float64)).all()
+    assert float(rows[0][4]) == pytest.approx(1e-4)
+    manager = CheckpointManager(os.path.join(d, "ck"))
+    assert manager.all_epochs() == [0]
+    saved = torch.load(os.path.join(d, "ck", "0.pt"), weights_only=True)["model"]
+    assert any(k.startswith("multimodal_attention.") for k in saved) == (
+        preset == "multimodal_attention")
+
+
+@pytest.mark.parametrize("preset", TRAIN_PRESETS)
+def test_the_jax_cli_scores_the_ports_trained_model(layout, train_chain, preset, tmp_path):
+    """The JAX importer reads the .pth converted from the port's train
+    directory (the cross-modal attention with it, for the multimodal
+    preset), and the same tensors from its .safetensors mirror; the JAX
+    CLI's ``zeroshot --preset`` on that .pth (the
+    multimodal preset: enhanced features, dynamic thresholds) gives the
+    port's ``zeroshot`` on the directory: every view's probabilities
+    within 1e-4, the printed metrics within 1e-4."""
+    d = train_chain[preset]
+    params = jimport_reference_checkpoint(os.path.join(d, "model.pth"))["params"]
+    assert ("multimodal_attention" in params) == (preset == "multimodal_attention")
+    mirror = jimport_reference_checkpoint(os.path.join(d, "model.safetensors"))["params"]
+    leaves = jax.tree_util.tree_leaves_with_path(params)
+    assert len(leaves) == len(jax.tree_util.tree_leaves(mirror))
+    for (path, x), y in zip(leaves, jax.tree_util.tree_leaves(mirror)):
+        np.testing.assert_array_equal(np.asarray(x), np.asarray(y), err_msg=str(path))
+    out = {}
+    for tag, main, engine_cls, host, ckpt in (
+            ("port", cli.main, ZeroShotEngine, lambda t: t.float().cpu().numpy(),
+             os.path.join(d, "ck")),
+            ("jax", jcli.main, JZeroShotEngine, np.asarray, os.path.join(d, "model.pth"))):
+        with recorded_logits(engine_cls, host) as logits:
+            rc, stdout = run(main, ["zeroshot", "--preset", preset, *data_flags(layout),
+                                    "--checkpoint", ckpt, "--log-dir", str(tmp_path / tag)])
+        assert rc == 0
+        out[tag] = (1 / (1 + np.exp(-np.concatenate(logits).astype(np.float64))),
+                    printed_json(stdout))
+    np.testing.assert_allclose(out["port"][0], out["jax"][0], atol=TOL, rtol=0)
+    assert_metrics_close(out["port"][1], out["jax"][1])
+
+
+def test_train_resumes_from_its_checkpoint_directory(layout, train_chain, tmp_path):
+    """``train --epochs 2`` on the directory of a finished epoch resumes at
+    epoch 1 (resume_or_init): one more history row, epoch 1 at the cosine
+    schedule's epoch-1 rate, and the restored weights moved by its steps."""
+    import shutil
+
+    from clip_for_dl_tpu_torch.train import CheckpointManager
+
+    ck = str(tmp_path / "ck")
+    shutil.copytree(os.path.join(train_chain["scripts_train"], "ck"), ck)
+    rc, stdout = run(cli.main, ["train", *data_flags(layout), "--epochs", "2",
+                                "--checkpoint-dir", ck, "--log-dir", str(tmp_path / "logs")])
+    assert rc == 0 and "train done: 1 epochs" in stdout
+    header, rows = read_rows(str(tmp_path / "logs" / "training_history.csv"))
+    assert len(rows) == 1 and float(rows[0][0]) == 1.0
+    # cosine over 2 epochs from 1e-4 to eta_min 1e-6, at epoch 1: half way
+    assert float(rows[0][4]) == pytest.approx(1e-6 + (1e-4 - 1e-6) / 2)
+    assert CheckpointManager(ck).all_epochs() == [0, 1]
+    first, second = (torch.load(os.path.join(ck, f"{e}.pt"), weights_only=True)["model"]
+                     for e in (0, 1))
+    assert not torch.equal(first["view_fusion.fusion.0.weight"],
+                           second["view_fusion.fusion.0.weight"])
+
+
+@pytest.mark.parametrize("preset", TRAIN_PRESETS)
+def test_serve_scores_the_enhanced_features_with_the_multimodal_preset(train_chain, preset,
+                                                                       monkeypatch):
+    """``serve --preset`` builds its engine with the cross-modal attention
+    exactly when the preset has it (the JAX CLI's use_enhance), warms its
+    bucket through it and stops at the bind (exit 2)."""
+    zeroshot = importlib.import_module("clip_for_dl_tpu_torch.zeroshot")
+    serving = importlib.import_module("clip_for_dl_tpu_torch.serving")
+    engines = []
+
+    class Recorded(ZeroShotEngine):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            engines.append(self)
+
+    def refuse(*a, **kw):
+        raise OSError("the test binds nothing")
+
+    monkeypatch.setattr(zeroshot, "ZeroShotEngine", Recorded)
+    monkeypatch.setattr(serving, "create_server", refuse)
+    rc = cli.main(["serve", "--preset", preset, "--tiny", "--fp32", "--buckets", "2",
+                   "--checkpoint", os.path.join(train_chain[preset], "ck"), "--log-dir",
+                   os.path.join(train_chain[preset], "serve")])
+    assert rc == 2 and len(engines) == 1
+    assert engines[0].use_enhance == (preset == "multimodal_attention")
+    assert engines[0].text_features.shape == (16, 64)
+
+
+def test_shared_adapter_trains_only_its_head_and_writes_the_metrics(train_chain, chain):
+    """shared-adapter from the pretrain directory: every tensor but the
+    shared adapter's bit-equal to the source checkpoint's, the shared
+    adapter moved; its history, predictions and metrics written; the JAX
+    package's multilabel_metrics on the predictions CSV's probabilities
+    give the printed and saved metrics (1e-6)."""
+    from clip_for_dl_tpu.evals.metrics import multilabel_metrics as jmetrics
+    from clip_for_dl_tpu_torch.train import CheckpointManager
+
+    src = CheckpointManager(chain["pretrain"])
+    before = torch.load(os.path.join(chain["pretrain"], f"{src.best_epoch()}.pt"),
+                        weights_only=True)["model"]
+    after = torch.load(os.path.join(train_chain["shared"], "ck", "0.pt"),
+                       weights_only=True)["model"]
+    assert set(after) == set(before)
+    for k, v in after.items():
+        assert torch.equal(v, before[k]) != k.startswith("shared_adapter."), k
+    logs = os.path.join(train_chain["shared"], "logs")
+    header, rows = read_rows(os.path.join(logs, "shared_adapter_history.csv"))
+    assert header[:3] == ["epoch", "train_loss", "val_loss"] and len(rows) == 1
+    header, rows = read_rows(os.path.join(logs, "shared_adapter_predictions.csv"))
+    values = np.array(rows, np.float64)
+    want = jmetrics(values[:, 0::2], values[:, 1::2], class_names=DISEASE_LABELS)
+    with open(os.path.join(logs, "shared_adapter_metrics.json")) as f:
+        saved = json.load(f)
+    assert_metrics_close(saved, want, tol=1e-6)
+    assert train_chain["shared_metrics"] == {k: v for k, v in saved.items()
+                                             if not k.startswith("auroc/")}
 
 
 # -- the A3b options through the command line -------------------------------------------

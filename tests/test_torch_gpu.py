@@ -1479,3 +1479,144 @@ def test_cli_zeroshot_tiny_on_the_card(cuda, tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     metrics = json.loads(proc.stdout)  # the command's only output: the metrics
     assert "mAP" in metrics and os.path.exists(tmp_path / "zero_shot_results.csv")
+
+
+# ---------------------------------------------------------------------------
+# the scripts' multi-view training and the enhance engine (chip_smoke.py
+# phase 11, at a tiny size)
+# ---------------------------------------------------------------------------
+
+
+def _tiny_multiview_model(device, compute=torch.bfloat16, seed=0):
+    import dataclasses
+
+    from clip_for_dl_tpu_torch.core.config import get_preset
+    from clip_for_dl_tpu_torch.core.device import cast_in_forward
+    from clip_for_dl_tpu_torch.models import CXRClip, init_weights
+
+    preset = get_preset("multimodal_attention")
+    cfg = dataclasses.replace(
+        preset.model, image_size=64, max_text_length=32, vocab_size=128,
+        text_embedding_dim=128, text_layers=2, text_heads=2, text_intermediate_dim=256,
+        shared_embedding_dim=64, text_max_position=64, resnet_stages=(1, 1, 1, 1),
+        resnet_width=16, flash_attention=True, bert_fused_mlp=True)
+    model = init_weights(CXRClip(cfg), torch.Generator().manual_seed(seed)).to(device)
+    if compute != torch.float32:
+        cast_in_forward(model, compute)
+    return preset, cfg, model
+
+
+def test_augment_warp_on_the_card_equals_its_cpu_result(cuda):
+    """warp of a normalized bf16 and fp32 batch on the card, on parameters
+    drawn on the CPU: fp32 within 1e-5 of the CPU result; bf16 within one
+    bf16 step at |x| ≤ 2.7 (2^-6)."""
+    from clip_for_dl_tpu_torch.ops.augment import sample_augment, warp
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(16, 224, 224, 3, generator=g)
+    params = sample_augment(16, g, 0.5, 10.0, 0.1, 224, 224)
+    for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -6)):
+        want = warp(x.to(dt), *params)
+        got = warp(x.to(dt).to(cuda), *(p.to(cuda) for p in params))
+        assert got.device.type == "cuda" and got.dtype == dt
+        torch.testing.assert_close(got.cpu().float(), want.float(), atol=tol, rtol=0)
+
+
+def test_multiview_step_on_the_card_matches_the_plain_route(cuda):
+    """The multimodal preset's step (bf16, augmentation, the attention and
+    the asymmetric loss) on the card, twice from the same weights,
+    generator, global seed and shared B2 output: once as it runs (B2
+    launched once a step, on the 2B views) and once with B2's plain
+    version: the same loss and gradients, bit for bit (no other kernel is
+    on the step's path, and cuDNN runs deterministically here)."""
+    from unittest import mock
+
+    import numpy as np
+
+    from clip_for_dl_tpu_torch.ops import _build
+    from clip_for_dl_tpu_torch.train import (
+        TrainState, make_label_fn, make_multiview_train_step, make_optimizer, steps,
+    )
+
+    preset, cfg, model = _tiny_multiview_model(cuda)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    rng = np.random.default_rng(0)
+    views = rng.integers(0, 256, (8, 2, 96, 96, 1), np.uint8)
+    batch = {"images": torch.from_numpy(views).to(cuda),
+             "labels": torch.from_numpy((rng.random((8, 16)) < 0.3).astype(np.float32)).to(cuda)}
+    bank = torch.nn.functional.normalize(torch.randn(16, 64, device=cuda), dim=-1)
+    prep_args = (64, 64, preset.augment.mean, preset.augment.std, torch.bfloat16)
+    flat = batch["images"].reshape(16, 96, 96, 1)
+    shared = prep.preprocess_images(flat, *prep_args)
+    torch.testing.assert_close(shared.float(), prep.preprocess_reference(flat, *prep_args).float(),
+                               atol=1.6e-2, rtol=0)
+
+    def one_step(fn):
+        torch.manual_seed(2)  # the dropouts outside the fusion draw from the global generator
+        model.load_state_dict(init)
+        label_fn = make_label_fn([])
+        opt = make_optimizer(model, label_fn, weight_decay=preset.train.weight_decay)
+        step = make_multiview_train_step(
+            model, opt, label_fn, cfg.temperature, image_size=64, mean=preset.augment.mean,
+            std=preset.augment.std, use_enhance=True, augment=True)
+        with mock.patch.object(steps, "preprocess_images", fn):
+            _, out = step(TrainState(model, opt), batch, bank, {"default": 1e-4},
+                          torch.Generator(cuda).manual_seed(1))
+        return float(out["loss"]), [p.grad.clone() for p in model.parameters()]
+
+    def kernel_route(images, *a):
+        assert images.shape == flat.shape
+        prep.preprocess_images(images, *a)  # the launch the step makes
+        return shared
+
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        _build.reset_launches()
+        loss_k, grads_k = one_step(kernel_route)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES == {prep.KERNEL: 1}, dict(_build.LAUNCHES)
+        loss_p, grads_p = one_step(lambda images, *a: shared)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    assert np.isfinite(loss_k) and loss_k == loss_p
+    assert all(torch.equal(a, b) for a, b in zip(grads_k, grads_p))
+
+
+def test_enhance_engine_launches_b1_on_the_card(cuda):
+    """ZeroShotEngine(use_enhance=True) over the multimodal model in bf16:
+    B1 (and B2) launched per batch, the probabilities within 5e-3 of the
+    same engine with B1 and B2 on their plain versions."""
+    from unittest import mock
+
+    import numpy as np
+
+    from clip_for_dl_tpu_torch.core.config import DISEASE_LABELS
+    from clip_for_dl_tpu_torch.core.device import cast_matmul_weights
+    from clip_for_dl_tpu_torch.models import CXRClip, init_weights
+    from clip_for_dl_tpu_torch.ops import _build
+    from clip_for_dl_tpu_torch.text import BertTokenizer
+    from clip_for_dl_tpu_torch.text.tokenizer import build_dev_vocab
+    from clip_for_dl_tpu_torch.zeroshot import ZeroShotEngine, prompts_for_family
+
+    import dataclasses
+
+    preset, cfg, _ = _tiny_multiview_model(cuda)
+    vocab = build_dev_vocab(DISEASE_LABELS)
+    cfg = dataclasses.replace(cfg, vocab_size=len(vocab))
+    model = init_weights(CXRClip(cfg), torch.Generator().manual_seed(3)).to(cuda)
+    cast_matmul_weights(model, torch.bfloat16)
+    engine = ZeroShotEngine(model, BertTokenizer(vocab), DISEASE_LABELS, preset.zeroshot,
+                            preset.augment.mean, preset.augment.std, 64, 32, torch.bfloat16,
+                            use_enhance=True)
+    engine.build_text_features(prompts_for_family("prediction", DISEASE_LABELS))
+    imgs = np.random.default_rng(4).integers(0, 256, (12, 80, 80, 1), np.uint8)
+    _build.reset_launches()
+    got = engine.probs(imgs)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[sim.KERNEL] == 1 and _build.LAUNCHES[prep.KERNEL] == 1
+    with mock.patch.object(sim, "_kernel", sim.similarity_reference), \
+            mock.patch.object(prep, "_kernel", prep.preprocess_reference):
+        want = engine.probs(imgs)
+    assert got.shape == (12, 16) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, atol=5e-3, rtol=0)

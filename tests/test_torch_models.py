@@ -6,6 +6,7 @@ into the port's CXRClip by ``state_dict_from_jax``; the same numpy inputs
 then go through both. Tolerances are stated per test.
 """
 
+import copy
 import dataclasses
 import functools
 
@@ -207,9 +208,163 @@ def test_init_weights_is_seeded_and_casts_keep_norms_fp32():
 
 
 def test_unported_variants_raise():
-    """The ViT tower is ported (tests/test_torch_vit.py); its training MLP
-    and multimodal attention are not."""
+    """The ViT tower is ported (tests/test_torch_vit.py), and the
+    multimodal attention (below); the ViT's training MLP is not."""
     with pytest.raises(NotImplementedError, match="A8"):
         CXRClip(dataclasses.replace(ModelConfig(**TINY).with_vit(), vit_fused_mlp_train=True))
-    with pytest.raises(NotImplementedError):
-        CXRClip(dataclasses.replace(ModelConfig(**TINY), use_multimodal_attention=True))
+
+
+# -- the cross-modal attention and the fusion alternatives ----------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _multimodal():
+    """A tiny multimodal JAX CXRClip (the cross-modal attention built), its
+    variables from a seed and the port's model holding them."""
+    cfg = dict(TINY, use_multimodal_attention=True)
+    jmodel = JCXRClip(JModelConfig(**cfg))
+    shapes = jax.eval_shape(jmodel.init, jax.random.key(0), jnp.zeros((1, 32, 32, 3)),
+                            jnp.zeros((1, 12), jnp.int32))
+    rng = np.random.default_rng(11)
+    variables = {"params": _fill(shapes["params"], rng),
+                 "batch_stats": _fill(shapes["batch_stats"], rng)}
+    model = CXRClip(ModelConfig(**cfg))
+    model.load_state_dict(state_dict_from_jax(variables["params"], variables["batch_stats"]),
+                          strict=True)
+    return jmodel, variables, model.eval()
+
+
+def test_multimodal_model_matches_jax():
+    """The multimodal model in eval mode: encode_multiview of (frontal,
+    lateral) pairs, enhance against a 16-class bank (the enhanced features
+    and the attention weights) and the shared adapter's logits: 1e-5."""
+    jmodel, variables, model = _multimodal()
+    rng = np.random.default_rng(12)
+    views = rng.standard_normal((3, 2, 32, 32, 3)).astype(np.float32)
+    bank = rng.standard_normal((16, 64)).astype(np.float32)
+    want_f = _apply(jmodel, variables, views, method="encode_multiview")
+    want_e, want_w = jax.jit(functools.partial(jmodel.apply, method="enhance"))(
+        variables, want_f, bank)
+    want_s = _apply(jmodel, variables, want_f, bank[:3], method="shared_adapter_logits")
+    with torch.no_grad():
+        got_f = model.encode_multiview(torch.from_numpy(views))
+        got_e, got_w = model.enhance(got_f, torch.from_numpy(bank))
+        got_s = model.shared_adapter_logits(got_f, torch.from_numpy(bank[:3]))
+    assert got_e.shape == (3, 64) and got_w.shape == (3, 16) and got_w.dtype == torch.float32
+    for got, want in ((got_f, want_f), (got_e, want_e), (got_w, want_w), (got_s, want_s)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+
+
+def test_multimodal_attention_in_bf16_matches_jax():
+    """The attention with bf16 weights (``cast_matmul_weights``, the
+    serving form) against the JAX module at dtype bf16: the Linears, tanh
+    and img + attended in bf16, the softmax in fp32, the weighted sum
+    accumulated in fp32. Enhanced features within two bf16 steps of their
+    largest entry (2^-6 relative), weights within 2e-3 (softmax of scores
+    that differ by a bf16 rounding)."""
+    from clip_for_dl_tpu.models.attention_fusion import (
+        AdditiveMultiModalAttention as JAttention,
+    )
+
+    _, variables, model = _multimodal()
+    params = {"params": variables["params"]["multimodal_attention"]}
+    rng = np.random.default_rng(13)
+    img = rng.standard_normal((5, 64)).astype(np.float32)
+    bank = rng.standard_normal((16, 64)).astype(np.float32)
+    want_e, want_w = JAttention(64, dtype=jnp.bfloat16).apply(params, img, bank)
+    attention = cast_matmul_weights(copy.deepcopy(model.multimodal_attention), torch.bfloat16)
+    with torch.no_grad():
+        got_e, got_w = attention(torch.from_numpy(img), torch.from_numpy(bank))
+    assert got_e.dtype == torch.bfloat16 and got_w.dtype == torch.float32
+    want_e = np.asarray(want_e.astype(jnp.float32))
+    np.testing.assert_allclose(got_e.float().numpy(), want_e,
+                               atol=2.0 ** -6 * float(np.abs(want_e).max()), rtol=0)
+    np.testing.assert_allclose(got_w.numpy(), np.asarray(want_w), atol=2e-3, rtol=0)
+
+
+def test_multimodal_names_match_export_and_a_jax_pth_loads(tmp_path):
+    """export_reference_checkpoint writes the attention under
+    ``multimodal_attention`` with the names state_dict_from_jax gives
+    (``image_proj``, ``text_proj``, ``attention``, ``output_proj``); a
+    reference .pth the JAX package writes of the model imports into the
+    port with every tensor the port's (exactly), all but the shared
+    adapter's (which the reference file has none of)."""
+    from clip_for_dl_tpu.models.torch_export import save_reference_checkpoint as jsave
+    from clip_for_dl_tpu_torch.train.checkpoint import import_reference_checkpoint
+
+    _, variables, model = _multimodal()
+    ckpt = export_reference_checkpoint(variables, text_layers=TINY["text_layers"])
+    part = ckpt["models"]["multimodal_attention"]
+    assert sorted(part) == sorted(f"{n}.{w}" for n in ("image_proj", "text_proj", "attention",
+                                                        "output_proj")
+                                  for w in ("weight", "bias"))
+    sd = model.state_dict()
+    for key, value in part.items():
+        np.testing.assert_array_equal(sd[f"multimodal_attention.{key}"].numpy(), value)
+    path = str(tmp_path / "multimodal.pth")
+    jsave(variables, path, epoch=2, text_layers=TINY["text_layers"])
+    got = import_reference_checkpoint(path)
+    assert got["epoch"] == 2
+    assert set(sd) - set(got["state_dict"]) == {"shared_adapter.classifier.weight",
+                                                "shared_adapter.classifier.bias"}
+    for key, value in got["state_dict"].items():
+        assert torch.equal(value.to(sd[key].dtype), sd[key]), key
+    twin = CXRClip(ModelConfig(**dict(TINY, use_multimodal_attention=True)))
+    missing, unexpected = twin.load_state_dict(got["state_dict"], strict=False)
+    assert not unexpected and set(missing) == {"shared_adapter.classifier.weight",
+                                               "shared_adapter.classifier.bias"}
+
+
+def _torch_names(params, prefix=""):
+    """A flax parameter tree of Dense and LayerNorm leaves → torch names:
+    kernel [in, out] → weight [out, in], scale → weight, bias as is."""
+    sd = {}
+    for name, p in params.items():
+        dst = f"{prefix}{name}"
+        if "kernel" in p:
+            sd[f"{dst}.weight"] = torch.from_numpy(np.asarray(p["kernel"]).T.copy())
+            sd[f"{dst}.bias"] = torch.from_numpy(np.asarray(p["bias"]))
+        elif "scale" in p:
+            sd[f"{dst}.weight"] = torch.from_numpy(np.asarray(p["scale"]))
+            sd[f"{dst}.bias"] = torch.from_numpy(np.asarray(p["bias"]))
+        else:
+            sd.update(_torch_names(p, dst + "."))
+    return sd
+
+
+@pytest.mark.parametrize("which", ["additive", "mha", "cross_modal", "mld"])
+def test_attention_fusion_modules_match_jax(which):
+    """Each module of models/attention_fusion.py, forward in eval mode, on
+    the state dict its flax twin's parameters map to by name: every output
+    within 1e-5. The three alternatives have no caller in either package."""
+    from clip_for_dl_tpu.models import attention_fusion as jfusion
+    from clip_for_dl_tpu_torch.models import attention_fusion as fusion
+
+    rng = np.random.default_rng(14)
+
+    def x(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    jmod, mod, args = {
+        "additive": (jfusion.AdditiveMultiModalAttention(32),
+                     fusion.AdditiveMultiModalAttention(32), (x(5, 32), x(16, 32))),
+        "mha": (jfusion.TorchStyleMHA(32, 4), fusion.TorchStyleMHA(32, 4),
+                (x(3, 6, 32), x(3, 9, 32), x(3, 9, 32))),
+        "cross_modal": (jfusion.CrossModalTransformerFusion(48, 40, 32, 4),
+                        fusion.CrossModalTransformerFusion(48, 40, 32, 4),
+                        (x(5, 48), x(16, 40))),
+        "mld": (jfusion.MLDAdapterBlock(32, 4), fusion.MLDAdapterBlock(32, 4),
+                (x(3, 16, 32), x(3, 10, 32))),
+    }[which]
+    shapes = jax.eval_shape(jmod.init, jax.random.key(0), *args)
+    params = _fill(shapes["params"], np.random.default_rng(15))
+    want = jmod.apply({"params": params}, *args)
+    mod.load_state_dict(_torch_names(params), strict=True)
+    with torch.no_grad():
+        got = mod.eval()(*map(torch.from_numpy, args))
+    want = want if isinstance(want, tuple) else (want,)
+    got = got if isinstance(got, tuple) else (got,)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == w.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5, rtol=0)

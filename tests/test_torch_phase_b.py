@@ -232,11 +232,16 @@ def test_bce_with_logits_matches_jax_and_torch():
 
 @pytest.mark.parametrize("case", ["shared_adapter"])
 def test_unported_adapter_options_raise(case):
+    """The shared-embedding adapter's step is ported (its parity with JAX:
+    tests/test_torch_multiview.py); what it refuses is an optimizer whose
+    groups are not its label_fn's (one built for the C-Adapter)."""
     model = CXRClip(ModelConfig(**TINY))
-    label_fn = make_label_fn(["adapter"])
-    opt = make_optimizer(model, label_fn)
-    with pytest.raises(NotImplementedError, match="A8"):
-        make_shared_adapter_train_step(model, opt, label_fn)
+    opt = make_optimizer(model, make_label_fn(["adapter"]))
+    with pytest.raises(ValueError, match="label_fn group"):
+        make_shared_adapter_train_step(model, opt, make_label_fn([case]))
+    label_fn = make_label_fn([case])
+    assert callable(make_shared_adapter_train_step(model, make_optimizer(model, label_fn),
+                                                   label_fn))
 
 
 @pytest.mark.parametrize("trainable", [["adapter"], ["image_projector", "text_projector"], []])

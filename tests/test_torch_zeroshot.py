@@ -54,7 +54,8 @@ def test_config_fields_and_defaults_match(name):
     ]
 
 
-@pytest.mark.parametrize("preset", ["pretrain_clip", "adapter", "zero_shot", "vit"])
+@pytest.mark.parametrize("preset", ["pretrain_clip", "adapter", "zero_shot", "vit",
+                                    "scripts_train", "multimodal_attention"])
 def test_presets_match(preset):
     assert dataclasses.asdict(config.get_preset(preset)) == dataclasses.asdict(
         jconfig.get_preset(preset)
@@ -132,10 +133,12 @@ def _fill(tree, rng, path=()):
     return v.astype(np.float32)
 
 
-@pytest.fixture(scope="module")
-def engines():
+def _engines(enhance: bool = False):
+    """The JAX and the port's engine over one tiny model's weights (with the
+    cross-modal attention and ``use_enhance`` when ``enhance``), their
+    prompt banks built."""
     vocab = build_dev_vocab(LABELS)
-    cfg = dict(TINY, vocab_size=len(vocab))
+    cfg = dict(TINY, vocab_size=len(vocab), use_multimodal_attention=enhance)
     jmodel = JCXRClip(jconfig.ModelConfig(**cfg))
     shapes = jax.eval_shape(jmodel.init, jax.random.key(0), jnp.zeros((1, 32, 32, 3)),
                             jnp.zeros((1, 16), jnp.int32))
@@ -148,13 +151,34 @@ def engines():
     common = dict(image_size=32, max_text_length=16)
     jeng = JZeroShotEngine(jmodel, variables, JBertTokenizer(vocab), LABELS,
                            jconfig.ZeroShotConfig(), jconfig.CLIP_MEAN, jconfig.CLIP_STD,
-                           compute_dtype=jnp.float32, **common)
+                           compute_dtype=jnp.float32, use_enhance=enhance, **common)
     jeng.build_text_features(prompts)
     eng = ZeroShotEngine(model, BertTokenizer(vocab), LABELS, config.ZeroShotConfig(),
                          config.CLIP_MEAN, config.CLIP_STD,
-                         compute_dtype=torch.float32, **common)
+                         compute_dtype=torch.float32, use_enhance=enhance, **common)
     eng.build_text_features(prompts)
     return jeng, eng
+
+
+@pytest.fixture(scope="module")
+def engines():
+    return _engines()
+
+
+def test_enhance_engine_matches_jax():
+    """``use_enhance`` (the multimodal_attention preset's zero-shot): the
+    unit image features through the cross-modal attention against the
+    bank, normalized again, then B1. Probabilities within 1e-4 of the JAX
+    engine's and the same prediction sets; the attention moves them (the
+    same weights without it score otherwise)."""
+    jeng, eng = _engines(enhance=True)
+    imgs = _batch(4, 6)
+    got, want = eng.probs(imgs), jeng.probs(imgs)
+    assert got.shape == (6, 16)
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+    assert eng.predict(imgs)[0] == jeng.predict(imgs)[0]
+    eng.use_enhance = False
+    assert np.abs(eng.probs(imgs) - got).max() > 1e-3
 
 
 def _batch(seed=0, b=5):
