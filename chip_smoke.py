@@ -2,8 +2,8 @@
 """Drive the PyTorch port's zero-shot serving paths (ResNet-50 and ViT-B/16),
 its phase-A train step, its split-q/k/v attention entry point, the chain
 pretrain -> adapter (phase B), the fp32 parity mode, the evaluation from
-files, the command line, its HTTP server and its multi-view training once on
-one CUDA GPU.
+files, the command line, its HTTP server, its multi-view training, its ViT
+training and LoRA once on one CUDA GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -25,7 +25,8 @@ Phases (any failure exits non-zero and prints no result line):
    tensor-core instructions (HMMA, HGMMA) of each attention kernel (the
    forward, and the backward's rows and columns pass, at D = 32, 64 and 128
    and in the sliced form over 128; fails if one has none), the HGMMA of
-   B8's two kernels (fails if either has none) and the HGMMA and HMMA of
+   B8's kernels (B8a in both GELU forms; fails if one has none) and the
+   HGMMA and HMMA of
    the GEMM pair of B4 and of B9 (mlp_fwd_gelu_kernel, mlp_fwd_out_kernel;
    fails at no HGMMA or any HMMA).
 2. Kernels: each of B1-B9 against its plain PyTorch version on the card at
@@ -50,7 +51,10 @@ Phases (any failure exits non-zero and prints no result line):
    library_ms). B8 is also timed beside its three products alone in cuBLAS (a
    yardstick the port never calls), B4 and B9 beside their two, each with
    its kernels' device times from torch.profiler; B4, B8 and B9 are held at
-   H = 1280 (F = 5120) and H = 192 (F = 768).
+   H = 1280 (F = 5120) and H = 192 (F = 768). B4 and B8 with the tanh GELU
+   (the ViT's --fast-gelu; rows mlp_tanh, mlp_bwd_tanh) at the ViT train
+   shape, [25216, 768] x 3072 (B = 128 x 197 tokens), at the erf rows'
+   tolerances, with their products in cuBLAS beside them.
    Max abs/rel difference against
    the tolerance below (B6 and B7 per (batch row, head) slice of each
    gradient), both times the median of five CUDA-event timings after
@@ -231,6 +235,24 @@ c8_cases).
    each command's peak memory and wall time.
    Then tools/launch_times.py times the wrappers from the host.
 
+12. ViT training and LoRA (ROADMAP A8), after phase 11, on phase 9's
+   layout, vocab, BERT file and pretrain directory. First the ``vit``
+   preset's step at B = 128 (ViT-B/16 + BERT-base, 200 tokens, bf16,
+   --flash-attention --bert-fused-mlp --vit-fused-mlp-train, dropout 0)
+   with the exact and with the tanh GELU: one step with the kernels against
+   one with their plain versions from the same weights (phase 4's bounds),
+   then 11 synced steps (samples/s over the last 10, peak memory; paths
+   vit_train, vit_train_tanh). Then the command line: ``pretrain --preset
+   vit --fast-gelu --flash-attention --bert-fused-mlp --vit-fused-mlp-train``
+   (two epochs), ``pretrain --lora 8`` (ResNet-50, from phase 9's pretrain
+   directory), ``pretrain --preset vit --lora 8 --fused-mlp
+   --flash-attention`` (from the ViT run's directory) and ``zeroshot
+   --checkpoint <dir>/folded`` for each LoRA run: each run's first step
+   against the plain route (phase 4's bounds), each folded model against
+   the merged one bit for bit (features and zero-shot probabilities), each
+   command's wall time, samples/s over its steps after the first, peak
+   memory and what it leaves on the device (at most 64 MiB).
+
 The second-to-last line is the kernels JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -342,6 +364,18 @@ TOL = {
     # fp32_loss_rel)
     "train_first_own": {("scripts_train", "loss"): 3e-3,
                         ("multimodal_attention", "loss"): 5e-3},
+    # phase 12, the first step of a LoRA run from a trained checkpoint:
+    # where a group's factor gradient falls below grad_cos against the
+    # plain route, the plain bf16 route itself lies as far from the plain
+    # fp32 one (on an H100 80GB HBM3 at 700 W, pretrain --lora 8 from phase
+    # 9's checkpoint: the text tower 0.131 from plain where plain lies 0.093
+    # from fp32, √2 times it, as two independent roundings of one
+    # ill-conditioned gradient lie), so the kernels' bf16 gradient must lie
+    # no further from the fp32 one than this many times the plain bf16
+    # route's. Readings over both LoRA runs' seven groups: 0.60 to 1.47
+    # times (PERF.md). The kernels on the LoRA paths are held directly at
+    # their first inputs too (hold_first_inputs, phase-2 tolerances)
+    "lora_bf16_ratio": 2.0,
     # engine probabilities, kernels vs plain versions through the whole bf16
     # model (phases 3 and 5): the kernel differences above move cosines by
     # ~1e-3
@@ -409,6 +443,10 @@ KERNELS = {
        for tag, x in (("", ""), ("_fp16", "_f16"), ("_fp32", "_f32"))},
     "mlp": ("cxr_mlp_fwd", SRC + "mlp_train.cu", TPU + "mlp_train.py:99"),
     "mlp_bwd": ("cxr_mlp_bwd", SRC + "mlp_train_bwd.cu", TPU + "mlp_train.py:112"),
+    # B4 and B8 with the tanh GELU (the ViT's --fast-gelu): the same entry
+    # points, counted apart
+    "mlp_tanh": ("cxr_mlp_fwd_tanh", SRC + "mlp_train.cu", TPU + "mlp_train.py:99"),
+    "mlp_bwd_tanh": ("cxr_mlp_bwd_tanh", SRC + "mlp_train_bwd.cu", TPU + "mlp_train.py:112"),
     "mlp_block": ("cxr_mlp_block", SRC + "mlp_block.cu", TPU + "mlp_block.py:78"),
     **{f"flash_attention_split{tag}": (f"cxr_flash_fwd{x}", SRC + "flash_attention.cu",
                                        TPU + "flash_attention.py:278")
@@ -458,6 +496,19 @@ PATHS = {  # main path -> the kernels it must launch
     # phase-A step in fp32
     "serve_fp32": ("similarity", "image_prep", "flash_attention_fp32"),
     "train_fp32": ("image_prep", "flash_attention_fp32", "flash_attention_bwd_fp32"),
+    # phase 12: the ViT train step with the exact and the tanh GELU (B4 and
+    # B8 in both towers; the tanh form in the ViT's); pretrain --preset vit
+    # --fast-gelu --vit-fused-mlp-train; LoRA on ResNet (the text tower's
+    # kernels) and on a --fused-mlp ViT (B9 in eval mode, its plain
+    # backward); zeroshot on each folded model
+    "vit_train": TRAIN_KERNELS,
+    "vit_train_tanh": TRAIN_KERNELS + ("mlp_tanh", "mlp_bwd_tanh"),
+    "cli_pretrain_vit": TRAIN_KERNELS + ("mlp_tanh", "mlp_bwd_tanh"),
+    "cli_pretrain_lora": TRAIN_KERNELS,
+    "cli_pretrain_vit_lora": ("image_prep", "flash_attention", "flash_attention_bwd",
+                              "mlp_block"),
+    "cli_zeroshot_lora": ("similarity", "image_prep", "flash_attention", "mlp"),
+    "cli_zeroshot_vit_lora": ("similarity", "image_prep", "flash_attention", "mlp_block"),
     # the attention entry points with autograd in the types no preset runs
     "typed_attention": ("flash_attention_fp16", "flash_attention_bwd_fp16",
                         "flash_attention_split_fp16", "flash_attention_split_bwd_fp16",
@@ -483,7 +534,7 @@ EVAL_UIDS = 256  # exams of phase 8's files
 EVAL_SIZES = ((512, 512), (600, 512))  # their PNGs' sizes, in turn
 EVAL_BATCH = 128  # exams a batch of phase 8's loader
 EVAL_PASSES = 10  # passes over the cached loader that phase 8's host rates time
-DECODE_FILES = 128  # PNGs whose decode phase 8 times in one thread and in 8
+DECODE_FILES = 48  # PNGs whose decode phase 8 times in one thread and in 8
 
 
 class SmokeFailure(RuntimeError):
@@ -979,6 +1030,63 @@ def phase2_train(mods, dev, seed: int, results: dict) -> None:
     for name in ("flash_attention_bwd", "mlp_bwd"):
         r = results[name]
         print(f"  {name}: kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms")
+
+
+def phase2_tanh(mods, dev, seed: int, results: dict) -> None:
+    """B4 and B8 with the tanh GELU (the ViT's --fast-gelu) at the ViT train
+    shape, B = 128 images of 197 tokens: [25216, 768] x 3072, against their
+    plain versions at the erf rows' tolerances; times, bounds and the
+    products alone in cuBLAS."""
+    import torch
+
+    mlp = mods["mlp_train"]
+    g = torch.Generator(dev).manual_seed(seed + 11)
+    R, HID, F = TRAIN_BATCH * VIT_TOKENS, 768, 3072
+    print(f"B4 and B8 with the tanh GELU: x, dy [{R}, {HID}] bf16, W1 [{F}, {HID}], "
+          f"W2 [{HID}, {F}]")
+    x = torch.randn(R, HID, device=dev, generator=g).bfloat16()
+    dy = (torch.randn(R, HID, device=dev, generator=g) * 0.1).bfloat16()
+    w1 = (torch.randn(F, HID, device=dev, generator=g) * HID ** -0.5).bfloat16()
+    b1 = (torch.randn(F, device=dev, generator=g) * 0.1).bfloat16()
+    w2 = (torch.randn(HID, F, device=dev, generator=g) * F ** -0.5).bfloat16()
+    b2 = (torch.randn(HID, device=dev, generator=g) * 0.1).bfloat16()
+
+    def fwd():
+        return mlp._kernel(x, w1, b1, w2, b2, True)
+
+    def fwd_plain():
+        return mlp.dense_gelu_dense_reference(x, w1, b1, w2, b2, True)
+
+    def bwd():
+        return mlp._kernel_bwd(x, w1, b1, w2, dy, True)
+
+    def bwd_plain():
+        return mlp.dense_gelu_dense_bwd_reference(x, w1, b1, w2, dy, True)
+
+    compare("mlp_tanh", fwd(), fwd_plain(), TOL["mlp"], results)
+    check(not torch.equal(fwd(), mlp._kernel(x, w1, b1, w2, b2)),
+          "B4 gives the erf form's output with the tanh flag")
+    results["mlp_tanh"].update(ms=cuda_ms(fwd, iters=10), plain_ms=cuda_ms(fwd_plain, iters=5))
+    set_bound(results, "mlp_tanh", 4 * R * HID * F, (x, w1, b1, w2, b2, fwd()))
+    mlp_fwd_yardstick("B4, tanh", fwd, x, w1, w2)
+    got = bwd()
+    for name, a_, b_ in zip(("dx", "g", "dh"), got, bwd_plain()):
+        print(f"  {name}:", end="")
+        compare("mlp_bwd_tanh", a_, b_, TOL["bwd_rel"] * float(b_.float().abs().max()),
+                results)
+    check(not torch.equal(got[1], mlp._kernel_bwd(x, w1, b1, w2, dy)[1]),
+          "B8 gives the erf form's g with the tanh flag")
+    set_bound(results, "mlp_bwd_tanh", 6 * R * HID * F, (x, w1, b1, w2, dy) + tuple(got))
+    del got
+    results["mlp_bwd_tanh"].update(ms=cuda_ms(bwd, iters=5), plain_ms=cuda_ms(bwd_plain, iters=3))
+    mlp_bwd_yardstick("B8, tanh", mlp, x, w1, b1, w2, dy)
+    split = kernel_device_ms(bwd, ("mlp_bwd_gelu_kernel", "mlp_bwd_dx_kernel"))
+    print("  B8's two kernels with the tanh GELU, device ms a call (torch.profiler): "
+          + ", ".join(f"{k} {v}" for k, v in split.items()))
+    for name in ("mlp_tanh", "mlp_bwd_tanh"):
+        r = results[name]
+        print(f"  {name}: kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  bound "
+              f"{r['bound_ms']:.4f} ms")
 
 
 def phase2_repairs(mods, dev, seed: int, results: dict) -> None:
@@ -1869,15 +1977,15 @@ def hold_first_inputs(mods, kept: dict, which, where: str, results: dict) -> Non
             compare_grads(name, fa._kernel_bwd(*a, **kw),
                           fa.flash_attention_packed_bwd_reference(*a, **kw), "packed", results,
                           a[2])
-        elif name == "mlp":
-            compare(name, mlp._kernel(*a), mlp.dense_gelu_dense_reference(*a), TOL[name],
-                    results)
+        elif name == "mlp":  # the tanh form's row when the call took it
+            compare(name + "_tanh" * bool(a[5:6] and a[5]), mlp._kernel(*a),
+                    mlp.dense_gelu_dense_reference(*a), TOL[name], results)
         elif name == "mlp_bwd":
             for part, got, want in zip(("dx", "g", "dh"), mlp._kernel_bwd(*a),
                                        mlp.dense_gelu_dense_bwd_reference(*a)):
                 print(f"    {part}:", end="")
-                compare(name, got, want, TOL["bwd_rel"] * float(want.float().abs().max()),
-                        results)
+                compare(name + "_tanh" * bool(a[5:6] and a[5]), got, want,
+                        TOL["bwd_rel"] * float(want.float().abs().max()), results)
         else:  # B9: its MLP branch out - x, as check_mlp_block holds it
             x = a[0].float()
             want = blk.fused_mlp_block_reference(*a, **kw).float() - x
@@ -2082,7 +2190,7 @@ def fp32_compute(model):
 
 
 def first_step_routes(_build, mods, first: dict, label_fn, step32=None,
-                      encode_bank=None) -> dict:
+                      encode_bank=None, cast_model=None) -> dict:
     """The first step a command took, from the weights, optimizer state and
     generator state that step started from, on the batch it took, at
     dropout 0: route -> (loss, group_grads). "kernels" and "plain" (their
@@ -2092,7 +2200,8 @@ def first_step_routes(_build, mods, first: dict, label_fn, step32=None,
     (the multi-view step), each route first encodes the prompt bank from
     those weights on its own route, ``encode_bank(model)``, and passes it
     as the step's first argument after the batch; the banks are kept
-    under ``"banks"``."""
+    under ``"banks"``. ``cast_model`` is the model whose casts the fp32
+    route flips when it is not the state's (LoRA's frozen model)."""
     import torch
 
     from clip_for_dl_tpu_torch.train import TrainState
@@ -2131,7 +2240,7 @@ def first_step_routes(_build, mods, first: dict, label_fn, step32=None,
         routes = {"kernels": one_step(first["step"], "kernels"),
                   "plain": plain(first["step"], "plain")}
         if step32 is not None:
-            with fp32_compute(model):
+            with fp32_compute(cast_model or model):
                 routes["kernels_fp32"] = one_step(step32, "kernels_fp32")
                 routes["plain_fp32"] = plain(step32, "plain_fp32")
     finally:
@@ -2359,6 +2468,54 @@ def a3b_first_step(_build, mods, first: dict, groups, step32) -> None:
     after, cap = float(model.logit_scale.detach()), float(np.float32(math.log(100.0)))
     print(f"  one step from logit_scale = log 200: {after:.6f} after it (cap {cap:.6f})")
     check(after == cap, f"the step left logit_scale at {after}, not at log 100")
+
+
+def lora_first_step(_build, mods, first: dict, groups, frozen, step32) -> None:
+    """Phase 12's check on the first step of a LoRA run (first_step_routes
+    on the factors, the fp32 route from ``step32`` with the frozen model's
+    casts flipped): the loss within train_loss_rel, and each group's factor
+    gradient cosine with the plain route's at least grad_cos, or, where it
+    is not, the fp32 route bearing the departure out: the fp32 kernels
+    within fp32_grad_cos of the plain fp32 route, and the kernels' bf16
+    gradient no further from the plain fp32 one (1 - cosine) than
+    lora_bf16_ratio times the plain bf16 route's. Prints every reading
+    before it fails."""
+    from clip_for_dl_tpu_torch.train import make_label_fn
+
+    routes = first_step_routes(_build, mods, first, make_label_fn(groups), step32,
+                               cast_model=frozen)
+    (loss_k, grads_k), (loss_p, grads_p) = routes["kernels"], routes["plain"]
+    (loss_k32, grads_k32), (loss_p32, grads_p32) = routes["kernels_fp32"], routes["plain_fp32"]
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    print(f"  the command's first step, dropout 0: loss {loss_k:.6f} with the kernels, "
+          f"{loss_p:.6f} with the plain versions (rel {rel:.2e}, tol "
+          f"{TOL['train_loss_rel']:.0e}); the fp32 route {loss_k32:.6f} / {loss_p32:.6f}, the "
+          f"plain bf16 route's loss {abs(loss_p - loss_p32) / abs(loss_p32):.2e} from fp32")
+    failures = []
+    for label in sorted(grads_p):
+        gk, gp = grads_k[label], grads_p[label]
+        if label not in groups:  # the factors the forward does not reach
+            print(f"  {label}: zero gradients in both ({gk.numel()} factor entries)")
+            if gk.any() or gp.any():
+                failures.append(f"{label} gradients not zero")
+            continue
+        cos, cos32 = cosine(gk, gp), cosine(grads_k32[label], grads_p32[label])
+        rounding = 1 - cosine(gp, grads_p32[label])
+        kernels_off = 1 - cosine(gk, grads_p32[label])
+        ok = cos >= TOL["grad_cos"] or (
+            kernels_off <= TOL["lora_bf16_ratio"] * rounding
+            and cos32 >= TOL["fp32_grad_cos"])
+        print(f"  {label}: gradient cosine {cos:.6f} (tol {TOL['grad_cos']}), norms "
+              f"{float(gk.norm()):.4e} / {float(gp.norm()):.4e}; from the plain fp32 gradient "
+              f"(1 - cosine): the kernels {kernels_off:.3e}, the plain bf16 route "
+              f"{rounding:.3e}; the fp32 kernels' cosine {cos32:.7f}"
+              + ("" if cos >= TOL["grad_cos"] else
+                 f"; below the bound, borne out by the fp32 route: {ok}"))
+        if not ok:
+            failures.append(f"{label} gradient differs from the plain version's")
+    if rel > TOL["train_loss_rel"]:
+        failures.append("the loss differs from the plain step's")
+    check(not failures, f"the LoRA run's first step: {failures}")
 
 
 def step_split(dev, first: dict, points: dict, gaps: dict, n: int = 5) -> tuple:
@@ -3516,7 +3673,7 @@ SERVE_CHILD = (
     "runpy.run_module('clip_for_dl_tpu_torch', run_name='__main__', alter_sys=True)\n"
 )
 SERVE_PNGS = 32  # distinct layout PNGs the server is sent
-SERVE_CLIENTS, SERVE_PER_CLIENT = 8, 32  # the concurrent pass
+SERVE_CLIENTS, SERVE_PER_CLIENT = 8, 16  # the concurrent pass
 BURST = 96  # clients that post at once at the adapter server (--buckets 1 --max-pending 8)
 
 
@@ -4558,6 +4715,317 @@ def train_phase11(_build, mods, dev, seed: int, card: str, workdir: str,
     return by_path
 
 
+
+VIT_TRAIN_STEPS = 11  # phase 12's timed ViT train steps at B = 128 (the first not counted)
+
+
+def vit_train_step(_build, mods, dev, seed: int, card: str) -> dict:
+    """Phase 12, part 1: the ``vit`` preset's train step at B = 128 (ViT-B/16
+    and BERT-base, 200 tokens, bf16, flash attention, the fused BERT MLP and
+    vit_fused_mlp_train, dropout 0), with the exact and with the tanh GELU
+    in the ViT's MLPs: from the same weights, one step with the kernels
+    against one with their plain versions (B2 kept, as in phase 4; the loss
+    within train_loss_rel, each group's gradient cosine at least
+    grad_cos), then VIT_TRAIN_STEPS synced steps, counted. Returns the
+    launches of the vit_train and vit_train_tanh paths."""
+    import numpy as np
+    import torch
+
+    from clip_for_dl_tpu_torch.tools.main_paths import (
+        base_lrs, pretrain_step, tokenizer, train_batch, train_model,
+    )
+    from clip_for_dl_tpu_torch.train import TrainState, make_label_fn
+
+    t0 = time.perf_counter()
+    preset, cfg, model = train_model(dev, seed, "vit", vit_fused_mlp_train=True)
+    groups = [g.name for g in preset.train.groups]
+    label_fn, lrs = make_label_fn(groups), base_lrs(preset)
+    batch = train_batch(np.random.default_rng(seed + 12), tokenizer(), dev, TRAIN_BATCH,
+                        TRAIN_LEN)
+    print(f"model: {describe(cfg)}, training MLP in the ViT; "
+          f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M fp32 master parameters, "
+          f"bf16 compute, dropout 0; built in {time.perf_counter() - t0:.1f} s; batch "
+          f"{TRAIN_BATCH} x 512x512 grey uint8 at {cfg.image_size}, {TRAIN_LEN}-token reports")
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    layers = list(model.image_tower.encoder.layers)
+
+    def fresh():
+        model.load_state_dict(init)
+        opt, step = pretrain_step(model, preset, cfg)
+        return TrainState(model, opt), step
+
+    def one_step():
+        state, step = fresh()
+        loss = float(step(state, batch, lrs)[1]["loss"])
+        return loss, group_grads(model, label_fn)
+
+    by_path = {}
+    for path, approximate in (("vit_train", False), ("vit_train_tanh", True)):
+        for layer in layers:
+            layer.gelu_approximate = approximate
+        print(f"the ViT's GELU: {'tanh' if approximate else 'exact erf'}")
+        cudnn = torch.backends.cudnn
+        flags = (cudnn.deterministic, cudnn.benchmark)
+        cudnn.deterministic, cudnn.benchmark = True, False
+        try:
+            loss_k, grads_k = one_step()
+            with plain_kernels(mods, keep=("image_prep",)):
+                before = dict(_build.LAUNCHES)
+                loss_p, grads_p = one_step()
+                check(all(v == before.get(k) for k, v in _build.LAUNCHES.items()
+                          if k != mods["image_prep"].KERNEL),
+                      "a kernel other than B2 ran during the plain ViT step")
+        finally:
+            cudnn.deterministic, cudnn.benchmark = flags
+        loss_err = abs(loss_k - loss_p) / abs(loss_p)
+        print(f"  one step: loss {loss_k:.6f} with the kernels, {loss_p:.6f} with the plain "
+              f"versions (rel {loss_err:.2e}, tol {TOL['train_loss_rel']:.0e})")
+        check(loss_err <= TOL["train_loss_rel"], "the ViT step's loss differs from the plain "
+                                                 "step's")
+        compare_groups("the ViT step", grads_k, grads_p, groups, TOL["grad_cos"])
+        del grads_k, grads_p
+        state, step = fresh()
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        _build.reset_launches()
+        times, losses = [], []
+        for _ in range(VIT_TRAIN_STEPS):
+            t = time.perf_counter()
+            losses.append(float(step(state, batch, lrs)[1]["loss"]))  # syncs the step
+            times.append(time.perf_counter() - t)
+        by_path[path] = dict(_build.LAUNCHES)
+        steady = times[1:]
+        print(f"  {path} on {card}: {TRAIN_BATCH * len(steady) / sum(steady):.1f} samples/s "
+              f"over steps 1-{VIT_TRAIN_STEPS - 1} ({1e3 * statistics.median(steady):.1f} ms "
+              f"median, {1e3 * min(steady):.1f}-{1e3 * max(steady):.1f}; step 0 "
+              f"{times[0] * 1e3:.1f} ms); peak "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; losses "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f}; launches {by_path[path]}")
+        # at random init the preset's projector rate (1e-3) makes the loss
+        # on one fixed batch jump after the first Adam step: finite is the
+        # check, the step against the plain route the numerics'
+        check(all(np.isfinite(losses)), f"the ViT steps' losses {losses}")
+        check_launched(mods, by_path[path], path)
+    return by_path
+
+
+def vit_lora_phase12(_build, mods, dev, seed: int, card: str, workdir: str,
+                     results: dict) -> dict:
+    """Phase 12: ViT training and LoRA (ROADMAP A8). Part 1 is
+    vit_train_step; part 2 runs ``cli.main.main(argv)`` on phase 9's
+    layout, vocab, BERT file and pretrain directory: ``pretrain --preset
+    vit --fast-gelu --flash-attention --bert-fused-mlp --vit-fused-mlp-train``
+    (two epochs), ``pretrain --lora 8`` from phase 9's pretrain directory
+    (ResNet-50: the text tower and the heads adapted), ``pretrain --preset
+    vit --lora 8 --fused-mlp --flash-attention`` from the ViT run's
+    directory, and ``zeroshot --checkpoint <dir>/folded`` for each LoRA run.
+    Holds the kernels of each training run at their first inputs against
+    their plain versions (the ViT run's B4 and B8 in the tanh form), each
+    run's first step against the plain route (phase 4's bounds; in a LoRA
+    run a group below them only where the fp32 route bears the departure
+    out, lora_first_step) and each folded model against the merged one (the frozen
+    weights with the trained factors merged inside the forward, as the LoRA
+    steps run it): features and zero-shot probabilities. Prints each
+    command's wall time, samples/s over its steps after the first (each
+    synced), peak memory and what it leaves on the device (at most
+    held_mib). Returns the launches of its paths."""
+    import gc
+    import importlib
+    import io
+    import os
+    from contextlib import redirect_stdout
+
+    import numpy as np
+    import torch
+
+    cli = importlib.import_module("clip_for_dl_tpu_torch.cli.main")
+    lora_module = importlib.import_module("clip_for_dl_tpu_torch.models.lora")
+    from clip_for_dl_tpu_torch.core.config import DISEASE_LABELS, get_preset
+    from clip_for_dl_tpu_torch.inference import load_trained_model
+    from clip_for_dl_tpu_torch.text import BertTokenizer
+    from clip_for_dl_tpu_torch.train import loop
+    from clip_for_dl_tpu_torch.train.checkpoint import load_model, model_state
+    from clip_for_dl_tpu_torch.zeroshot import prompts_for_family
+
+    t_phase = time.perf_counter()
+    by_path = vit_train_step(_build, mods, dev, seed, card)
+    print(f"  part 1 took {time.perf_counter() - t_phase:.1f} s")
+
+    def settled():
+        gc.collect()
+        torch._C._cuda_clearCublasWorkspaces()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_allocated(dev)
+
+    base_mem = settled()
+    kaggle, work9, work = f"{workdir}/kaggle", f"{workdir}/cli", f"{workdir}/vit_lora"
+    os.makedirs(work)
+    vocab = f"{work9}/vocab.txt"
+    data = ["--reports-csv", f"{work9}/labeled.csv", "--projections-csv",
+            f"{kaggle}/indiana_projections.csv", "--image-dir",
+            f"{kaggle}/images/images_normalized", "--image-cache", f"{work9}/cache",
+            "--vocab", vocab, "--device-cache"]
+    walls, steps, first, kept = {}, [], {}, {}
+    run_epoch, make_lora = loop.run_epoch, lora_module.make_lora_pretrain_step
+
+    def timed_epoch(step_fn, state, loader, *a, **kw):
+        def timed_step(st, batch, *rest):
+            if not first:
+                gen = rest[-1] if isinstance(rest[-1], torch.Generator) else None
+                first.update(
+                    step=step_fn, state=st, rest=rest,
+                    batch={k: v.clone() if torch.is_tensor(v) else np.array(v, copy=True)
+                           for k, v in batch.items()},
+                    weights={k: v.detach().clone() for k, v in st.model.state_dict().items()},
+                    optimizer=copy.deepcopy(st.optimizer.state_dict()),
+                    generator=None if gen is None else gen.get_state())
+            t0 = time.perf_counter()
+            out = step_fn(st, batch, *rest)
+            torch.cuda.synchronize(dev)
+            steps.append((batch["images"].shape[0], time.perf_counter() - t0))
+            return out
+
+        return run_epoch(timed_step, state, loader, *a, **kw)
+
+    def keep_lora(model, lora, *a, **kw):  # the frozen model and the factors it trains
+        kept.update(model=model, lora=lora, alpha=kw["alpha"],
+                    frozen={k: v.clone() for k, v in model_state(model).items()},
+                    step32=make_lora(model, lora, *a, **dict(kw, compute_dtype=torch.float32)))
+        return make_lora(model, lora, *a, **kw)
+
+    def run(name, argv, path, groups=None, folded=None, hold=()):
+        """One command in this process, its launches counted under ``path``;
+        the kernels named in ``hold`` (names, or a dict of first_inputs'
+        predicates) held at their first inputs against their plain
+        versions; with ``folded``, folded_against_merged(*folded)
+        (before the first step's check, which runs a step on the command's
+        factors); with ``groups``, its first step held against the plain
+        route."""
+        first.clear()
+        steps.clear()
+        out = io.StringIO()
+        torch.cuda.synchronize(dev)
+        _build.reset_launches()
+        torch.cuda.reset_peak_memory_stats(dev)
+        which = hold if isinstance(hold, dict) else dict.fromkeys(hold)
+        inputs_kept, inputs = first_inputs(mods, which)
+        t0 = time.perf_counter()
+        with mock.patch.object(loop, "run_epoch", timed_epoch), \
+                mock.patch.object(lora_module, "make_lora_pretrain_step", keep_lora), \
+                inputs_kept, redirect_stdout(out):
+            rc = cli.main(argv)
+        torch.cuda.synchronize(dev)
+        walls[name] = time.perf_counter() - t0
+        check(rc == 0, f"{name} exited with {rc}: {out.getvalue()[-2000:]}")
+        by_path[path] = dict(_build.LAUNCHES)
+        check_launched(mods, by_path[path], path)
+        rate = ""
+        if len(steps) > 1:
+            n, s = sum(b for b, _ in steps[1:]), sum(t for _, t in steps[1:])
+            rate = (f", {n / s:.1f} samples/s over {len(steps) - 1} steps after the first "
+                    f"(B = {steps[0][0]}; step 0 {steps[0][1] * 1e3:.1f} ms)")
+        print(f"  {name}: exit 0 in {walls[name]:.1f} s on {card}{rate}, peak "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; launches "
+              f"{by_path[path]}")
+        if hold:
+            hold_first_inputs(mods, inputs, which, name, results)
+        del inputs
+        if folded is not None:
+            model, step32 = kept["model"], kept.pop("step32")
+            folded_against_merged(*folded)
+            lora_first_step(_build, mods, first, groups, model, step32)
+        elif groups is not None:
+            step_against_plain(_build, mods, first, groups)
+        first.clear()
+        return out.getvalue()
+
+    def released(what):
+        held = (settled() - base_mem) / 2**20
+        print(f"  after {what}: {held:.1f} MiB held on the device above phase 12's start")
+        check(held <= TOL["held_mib"], f"{what} left {held:.1f} MiB on the device")
+
+    vit_groups = [g.name for g in get_preset("vit").train.groups]
+    base_groups = [g.name for g in get_preset("pretrain_clip").train.groups]
+    tok = BertTokenizer(vocab, do_lower_case=False)
+    prompts = tok.encode([p for ps in prompts_for_family("basic", DISEASE_LABELS).values()
+                          for p in ps], max_length=200)
+
+    def folded_against_merged(name, preset, *flags):
+        """The folded model from ``<dir>/folded`` (as zeroshot loads it)
+        against the merged one, on 32 grey images and the basic prompts:
+        image and text features, and the zero-shot probabilities
+        sigmoid(similarity / T)."""
+        from clip_for_dl_tpu_torch.tools.main_paths import grey_images
+
+        model, lora = kept.pop("model"), kept.pop("lora")
+        load_model(model, kept.pop("frozen"))  # the command folded it in place at its end
+        cfg = cli._apply_tiny(get_preset(preset), cli.build_parser().parse_args(
+            ["zeroshot", *flags]), len(tok.vocab))
+        folded = load_trained_model(f"{work}/{name}/folded", cfg, torch.bfloat16, device=dev)
+        size = cfg.model.image_size
+        images = mods["image_prep"].preprocess_images(
+            torch.from_numpy(grey_images(np.random.default_rng(seed + 13), 32)).to(dev), size,
+            size, cfg.augment.mean, cfg.augment.std)
+        args = (images, torch.from_numpy(prompts["input_ids"]).to(dev),
+                torch.from_numpy(prompts["attention_mask"]).to(dev))
+        with torch.no_grad():
+            merged = lora_module._merged_call(model.eval(), lora, kept.pop("alpha"))(*args)
+            got = folded(*args)
+        sim = mods["similarity"]
+        probs = [torch.sigmoid(sim.similarity(i.float(), t.float(), cfg.model.temperature))
+                 for i, t in (got, merged)]
+        for what, a_, b_ in (("image features", got[0], merged[0]),
+                             ("text features", got[1], merged[1]),
+                             ("probabilities", *probs)):
+            diff = float((a_.float() - b_.float()).abs().max())
+            print(f"  {name}: folded vs merged {what} {list(a_.shape)}: max |difference| "
+                  f"{diff:.3e}, bit-equal {torch.equal(a_, b_)}")
+            check(torch.equal(a_, b_), f"{name}: the folded model's {what} differ from the "
+                                       "merged model's")
+        del lora, folded, merged, got
+
+    def tanh(args, kwargs):  # the ViT's B4 and B8 calls: the tanh form
+        return bool(args[5:6] and args[5])
+
+    print("part 2: the command line on phase 9's layout")
+    vit_flags = ["--preset", "vit", "--flash-attention"]
+    run("pretrain --preset vit --vit-fused-mlp-train --fast-gelu",
+        ["pretrain", *data, *vit_flags, "--fast-gelu", "--bert-fused-mlp",
+         "--vit-fused-mlp-train", "--epochs", "2", "--init-text-tower",
+         f"{work9}/bert.safetensors", "--checkpoint-dir", f"{work}/vit",
+         "--log-dir", f"{work}/logs_vit"], "cli_pretrain_vit", vit_groups,
+        hold={"mlp": tanh, "mlp_bwd": tanh})
+    released("pretrain --preset vit")
+    run("pretrain --lora 8", ["pretrain", *data, "--flash-attention", "--bert-fused-mlp",
+                              "--lora", "8", "--epochs", "1", "--checkpoint",
+                              f"{work9}/pretrain", "--checkpoint-dir", f"{work}/lora",
+                              "--log-dir", f"{work}/logs_lora"], "cli_pretrain_lora",
+        base_groups, ("lora", "zero_shot", "--flash-attention", "--bert-fused-mlp"),
+        ("flash_attention", "flash_attention_bwd", "mlp", "mlp_bwd"))
+    released("pretrain --lora 8")
+    run("pretrain --preset vit --lora 8 --fused-mlp",
+        ["pretrain", *data, *vit_flags, "--fused-mlp", "--lora", "8", "--epochs", "1",
+         "--checkpoint", f"{work}/vit", "--checkpoint-dir", f"{work}/vit_lora",
+         "--log-dir", f"{work}/logs_vit_lora"], "cli_pretrain_vit_lora", vit_groups,
+        ("vit_lora", "vit", "--fused-mlp", "--flash-attention"),
+        ("flash_attention", "flash_attention_bwd", "mlp_block"))
+    released("pretrain --preset vit --lora 8")
+    run("zeroshot --checkpoint lora/folded",
+        ["zeroshot", *data, "--flash-attention", "--bert-fused-mlp", "--checkpoint",
+         f"{work}/lora/folded", "--log-dir", f"{work}/zs_lora"], "cli_zeroshot_lora")
+    run("zeroshot --preset vit --checkpoint vit_lora/folded",
+        ["zeroshot", *data, *vit_flags, "--fused-mlp", "--checkpoint",
+         f"{work}/vit_lora/folded", "--log-dir", f"{work}/zs_vit_lora"],
+        "cli_zeroshot_vit_lora")
+    released("the zero-shot runs")
+    print(f"phase 12 on {card}: " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()))
+    print(f"phase 12 took {time.perf_counter() - t_phase:.1f} s")
+    return by_path
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of weights and inputs")
@@ -4619,11 +5087,13 @@ def main(argv=None) -> int:
                    "flash_bwd_cols_f32_kernel"):
         found = [name for name in counts if kernel in name]
         check(len(found) == 1, f"{kernel}: {len(found)} instances in the library")
-    for kernel in ("mlp_bwd_gelu_kernel", "mlp_bwd_dx_kernel"):
-        hmma, hgmma = (sum(c[i] for name, c in counts.items() if kernel in name)
-                       for i in (0, 1))
-        print(f"B8 {kernel}: HGMMA {hgmma}, HMMA {hmma}")
-        check(hgmma > 0, f"{kernel} has no HGMMA instruction")
+    # B8a in both GELU forms (its template parameter), B8b once
+    for kernel, instances in (("mlp_bwd_gelu_kernel", 2), ("mlp_bwd_dx_kernel", 1)):
+        found = [c for name, c in counts.items() if kernel in name]
+        for hmma, hgmma in found:
+            print(f"B8 {kernel}: HGMMA {hgmma}, HMMA {hmma}")
+        check(len(found) == instances and all(hgmma > 0 for _, hgmma in found),
+              f"{kernel}: {len(found)} instances, HGMMA {[c[1] for c in found]}")
     for which, epilogue in (("B4", "Dense"), ("B9", "MlpBlock")):
         for kernel in ("mlp_fwd_gelu_kernel", "mlp_fwd_out_kernel"):
             found = [c for name, c in counts.items() if kernel in name and epilogue in name]
@@ -4635,6 +5105,7 @@ def main(argv=None) -> int:
     results: dict = {}
     phase2(mods, dev, args.seed, BATCH, results)
     phase2_train(mods, dev, args.seed, results)
+    phase2_tanh(mods, dev, args.seed, results)
     phase2_repairs(mods, dev, args.seed, results)
     by_path = phase2_split(_build, mods, dev, args.seed, results)
     phase2_limits(mods, dev, args.seed, results)
@@ -4666,6 +5137,8 @@ def main(argv=None) -> int:
         print("== phase 11: the scripts' multi-view training, the multimodal zero-shot, the "
               "shared adapter")
         by_path.update(train_phase11(_build, mods, dev, args.seed, card, workdir, results))
+        print("== phase 12: ViT training with the tanh GELU, LoRA")
+        by_path.update(vit_lora_phase12(_build, mods, dev, args.seed, card, workdir, results))
     print("== the wrappers' host time (tools/launch_times.py)")
     from clip_for_dl_tpu_torch.tools import launch_times
 

@@ -43,8 +43,6 @@ UNPORTED_COMMANDS = {"gradcam": "A9", "rollout": "A9"}
 # for any value but the ones a single-device, default run passes
 _ANY = None
 UNPORTED_FLAGS = {
-    "lora": (_ANY, "A8"),
-    "vit_fused_mlp_train": (_ANY, "A8"),
     "num_devices": (_ANY, "A7"),
     "virtual_devices": (_ANY, "A7"),
     "tp": (_ANY, "A7"),
@@ -79,6 +77,33 @@ def _unported(args) -> str | None:
             flag = "--" + dest.replace("_", "-")
             where = item if item.startswith("not ported") else f"ROADMAP {item}"
             return f"{flag} {v!r} is not ported yet ({where})"
+    return None
+
+
+def _lora_refused(args) -> int | None:
+    """The JAX CLI's refusals of ``pretrain --lora``, its messages word for
+    word, ahead of the unported flags (``--local-loss`` and
+    ``--accum-steps`` are refused for their composition with LoRA first, as
+    in the JAX CLI; ``--pp`` and ``--num-devices`` stay the A7 flags that
+    exit 2). Returns an exit status, or None."""
+    if args.command != "pretrain" or not args.lora:
+        return None
+    if args.lora < 0:
+        print("error: --lora rank must be >= 1 (0 disables)", file=sys.stderr)
+        return 2
+    if getattr(args, "local_loss", False):
+        raise SystemExit("--local-loss does not compose with --lora")
+    if getattr(args, "ema_decay", 0.0):
+        raise SystemExit("--ema-decay does not compose with --lora "
+                         "(adapter params train, not the towers)")
+    if int(getattr(args, "accum_steps", 1) or 1) > 1:
+        raise SystemExit("--accum-steps does not compose with --lora")
+    if getattr(args, "learnable_temperature", False):
+        raise SystemExit(
+            "--learnable-temperature does not compose with --lora "
+            "(the LoRA step trains adapter deltas only — the "
+            "calibration scalars would receive no gradient)"
+        )
     return None
 
 
@@ -131,6 +156,8 @@ def _apply_tiny(cfg, args, vocab_size: int):
         model = dataclasses.replace(model, flash_attention=True)
     if getattr(args, "bert_fused_mlp", False):
         model = dataclasses.replace(model, bert_fused_mlp=True)
+    if getattr(args, "vit_fused_mlp_train", False):
+        model = dataclasses.replace(model, vit_fused_mlp_train=True)
     if getattr(args, "learnable_temperature", False):
         loss = getattr(args, "loss", None) or cfg.train.loss
         model = dataclasses.replace(
@@ -412,9 +439,9 @@ def cmd_pretrain(args) -> int:
     groups = {g.name: g.lr for g in cfg.train.groups} or {"default": cfg.train.lr}
     groups.setdefault("default", cfg.train.lr)
     label_fn = make_label_fn([g for g in groups if g != "default"])
-    optimizer = make_optimizer(
-        model, label_fn, weight_decay=cfg.train.weight_decay,
-        moment_dtype=torch.bfloat16 if getattr(args, "bf16_moments", False) else None)
+    # AdamW over the model's parameters, or with --lora over the factors
+    adamw = dict(weight_decay=cfg.train.weight_decay,
+                 moment_dtype=torch.bfloat16 if getattr(args, "bf16_moments", False) else None)
 
     train_loader, val_loader = _loaders(cfg, args, multi_view=False)
     max_len = cfg.model.max_text_length
@@ -473,18 +500,44 @@ def cmd_pretrain(args) -> int:
     ema_decay = float(getattr(args, "ema_decay", 0.0) or 0.0)
     prep = dict(image_size=cfg.model.image_size, mean=cfg.augment.mean, std=cfg.augment.std,
                 compute_dtype=compute)
-    step = make_clip_pretrain_step(model, optimizer, label_fn, loss_name,
-                                   cfg.model.temperature, max_grad_norm=cfg.train.max_grad_norm,
-                                   ema_decay=ema_decay, **prep)
-    # with an EMA, validation scores the smoothed weights: they drive the
-    # plateau schedule, early stopping and the best checkpoint
-    eval_step = make_clip_eval_step(model, loss_name, cfg.model.temperature,
-                                    use_ema=bool(ema_decay), **prep)
+    if args.lora:
+        # parameter-efficient fine-tuning: the frozen towers and rank-r
+        # deltas on the attention and MLP projections (models/lora.py); the
+        # state and its checkpoints hold only the factors and their moments
+        from ..models.lora import (
+            init_lora,
+            lora_param_count,
+            make_lora_eval_step,
+            make_lora_pretrain_step,
+        )
+
+        lora = init_lora(torch.Generator().manual_seed(cfg.data.seed), model, rank=args.lora)
+        n = lora_param_count(lora)
+        logging.info("LoRA rank %d: %d trainable params (%.2f%% of the model)", args.lora, n,
+                     100 * n / sum(p.numel() for p in model.parameters()))
+        optimizer = make_optimizer(lora, label_fn, **adamw)
+        lora_kw = dict(loss_name=loss_name, temperature=cfg.model.temperature,
+                       alpha=args.lora_alpha, **prep)
+        step = make_lora_pretrain_step(model, lora, optimizer,
+                                       max_grad_norm=cfg.train.max_grad_norm, **lora_kw)
+        # validation scores the objective the LoRA step trains
+        eval_step = make_lora_eval_step(model, lora, **lora_kw)
+        template = TrainState(lora, optimizer)
+    else:
+        optimizer = make_optimizer(model, label_fn, **adamw)
+        step = make_clip_pretrain_step(model, optimizer, label_fn, loss_name,
+                                       cfg.model.temperature,
+                                       max_grad_norm=cfg.train.max_grad_norm,
+                                       ema_decay=ema_decay, **prep)
+        # with an EMA, validation scores the smoothed weights: they drive the
+        # plateau schedule, early stopping and the best checkpoint
+        eval_step = make_clip_eval_step(model, loss_name, cfg.model.temperature,
+                                        use_ema=bool(ema_decay), **prep)
+        template = TrainState.create(model, optimizer, ema=bool(ema_decay))
     ckpt = None
     if args.checkpoint_dir:
         ckpt = CheckpointManager(args.checkpoint_dir, cfg.train.max_checkpoints_to_keep)
-    state, start_epoch = resume_or_init(
-        ckpt, TrainState.create(model, optimizer, ema=bool(ema_decay)), loader=train_loader)
+    state, start_epoch = resume_or_init(ckpt, template, loader=train_loader)
     writer = MetricWriter(args.log_dir, "pretrain")
 
     with PreemptionGuard() as guard:
@@ -510,6 +563,21 @@ def cmd_pretrain(args) -> int:
         )
     writer.close()
     history.save_csv(os.path.join(args.log_dir, "training_history.csv"))
+    if args.lora and args.checkpoint_dir:
+        # the LoRA checkpoint holds only the factors (for resume); also fold
+        # them into the frozen base and save a full-model checkpoint that
+        # zeroshot/serve/eval --checkpoint load directly
+        from ..models.lora import fold_lora
+        from ..train.checkpoint import load_model, model_state
+
+        load_model(model, fold_lora(model_state(model), lora, args.lora_alpha))
+        folded_dir = os.path.join(args.checkpoint_dir, "folded")
+        fm = CheckpointManager(folded_dir, max_to_keep=1)
+        fm.save(0, TrainState(model, None))
+        fm.wait()
+        fm.close()
+        print(f"folded LoRA model saved to {folded_dir} "
+              f"(servable: --checkpoint {folded_dir})")
     print(f"pretrain done: {len(history.rows)} epochs")
     return 0
 
@@ -1087,7 +1155,10 @@ def build_parser() -> argparse.ArgumentParser:
                              "in the BERT MLPs: forward and backward, the "
                              "[B,L,3072] intermediate never reaches memory")
         sp.add_argument("--vit-fused-mlp-train", action="store_true",
-                        help=_not_ported_help("A8"))
+                        help="the same fused training MLP kernels in the "
+                             "ViT tower (dropout-free MLPs only; the "
+                             "inference --fused-mlp kernel still wins "
+                             "at serving)")
         sp.add_argument("--bf16-attention-probs", action="store_true",
                         help="not ported (the attention kernels keep no "
                              "probabilities): exits with status 2")
@@ -1145,7 +1216,9 @@ def build_parser() -> argparse.ArgumentParser:
     sp = sub.add_parser("pretrain", help="CLIP contrastive pretraining")
     common(sp)
     sp.add_argument("--lora", type=int, default=0, metavar="RANK",
-                    help=_not_ported_help("A8"))
+                    help="parameter-efficient fine-tuning: freeze the "
+                         "towers, train rank-RANK LoRA deltas on the "
+                         "attention/MLP kernels")
     sp.add_argument("--lora-alpha", type=float, default=16.0, help="with --lora")
     sp.add_argument("--ep", type=int, default=1, help=_not_ported_help("A7"))
     sp.add_argument("--pp", type=int, default=0, metavar="S",
@@ -1288,6 +1361,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    code = _lora_refused(args)
+    if code is not None:
+        return code
     refused = _unported(args)
     if refused:
         print(f"error: {refused}", file=sys.stderr)

@@ -24,6 +24,8 @@ weight either way.
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import torch
 from torch import nn
@@ -31,6 +33,14 @@ from torch.nn.utils import parametrize
 
 # layers whose weights run in the compute dtype; norms stay fp32
 _MATMUL_LAYERS = (nn.Linear, nn.Conv2d, nn.Embedding)
+_PARAMETRIZED = re.compile(r"\.parametrizations\.([^.]+)\.original$")
+
+
+def plain_name(name: str) -> str:
+    """A parameter's name with :func:`cast_in_forward`'s parametrization
+    taken out (``conv1.parametrizations.weight.original`` →
+    ``conv1.weight``): its name in a model without it."""
+    return _PARAMETRIZED.sub(r".\1", name)
 
 
 def require_cuda(device=None) -> torch.device:

@@ -43,6 +43,27 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
+// GELU in fp32 as B4 computes g and B8 recomputes it (one expression, so the
+// two round g alike): exact erf, or jax.nn.gelu(approximate=True)'s tanh form
+// 0.5 h (1 + t) with t = tanh(c (h + a h^3)), c = sqrt(2/pi), a = 0.044715
+constexpr float kGeluC = 0.7978845608028654f;
+constexpr float kGeluA = 0.044715f;
+
+__device__ __forceinline__ float gelu_erf(float h) {
+  return 0.5f * h * (1.f + erff(h * 0.70710678118654752f));
+}
+
+__device__ __forceinline__ float gelu_tanh_t(float h) {
+  return tanhf(kGeluC * (h + kGeluA * h * h * h));
+}
+
+__device__ __forceinline__ float gelu_tanh(float h, float t) { return 0.5f * h * (1.f + t); }
+
+// d/dh of the tanh form, from its t: 0.5 (1 + t) + 0.5 h (1 - t^2) c (1 + 3 a h^2)
+__device__ __forceinline__ float gelu_tanh_grad(float h, float t) {
+  return 0.5f * (1.f + t) + 0.5f * h * (1.f - t * t) * kGeluC * (1.f + 3.f * kGeluA * h * h);
+}
+
 // The same for either 16-bit type of the attention kernels' template
 // parameter T (__nv_bfloat16 or __half): two floats rounded to T and packed
 // in one word, low half first; and two T of a word back to floats

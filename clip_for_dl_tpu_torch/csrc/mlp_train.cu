@@ -10,9 +10,11 @@
 //
 // with the weights in nn.Linear layout (W1 [F, H], W2 [H, F]). x, W1, W2 and
 // the biases are bf16; both products accumulate in fp32; GELU is exact erff
-// in fp32 (the TPU kernel's A&S erf is within 5.3e-7 of it) and its output
-// is rounded to bf16 before the second product, as the TPU kernel does
-// (:106).
+// in fp32 (the TPU kernel's A&S erf is within 5.3e-7 of it), or with
+// ``approximate`` the tanh form of jax.nn.gelu(approximate=True) (the ViT's
+// --fast-gelu), and its output is rounded to bf16 before the second
+// product, as the TPU kernel does (:106). B8 recomputes g with the same
+// expressions (cxr::gelu_erf, cxr::gelu_tanh), so the two round it alike.
 //
 // What bounds it on the card: tensor-core math. At the prompt-bank shape
 // (R = 12,800 rows, H = 768, F = 3072) it is 2 products of 2 R H F = 121
@@ -28,12 +30,13 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-// GEMM-1's epilogue: h + b1 (bf16), exact GELU in fp32
+// GEMM-1's epilogue: h + b1 (bf16), GELU in fp32: exact erf, or tanh
 struct DenseGelu {
   const bf16* b1;
+  bool approximate;
   __device__ float operator()(float h, int col) const {
     const float v = h + __bfloat162float(b1[col]);
-    return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+    return approximate ? cxr::gelu_tanh(v, cxr::gelu_tanh_t(v)) : cxr::gelu_erf(v);
   }
 };
 
@@ -52,11 +55,13 @@ struct DenseOut {
 
 // x, y [R, H], w1 [F, H], b1 [F], w2 [H, F], b2 [H] and the scratch g
 // [R, F], all bf16; x, w1, w2 and g 16-byte aligned (TMA), y 4-byte; R >= 1,
-// H and F positive multiples of 64. Launches GEMM-1, then GEMM-2, on
-// ``stream``.
+// H and F positive multiples of 64; approximate != 0 selects the tanh GELU.
+// Launches GEMM-1, then GEMM-2, on ``stream``.
 CXR_API int cxr_mlp_fwd(const void* x, const void* w1, const void* b1, const void* w2,
-                        const void* b2, void* y, void* g, int R, int H, int F, void* stream) {
-  return launch_mlp_fwd(x, w1, w2, g, DenseGelu{static_cast<const bf16*>(b1)},
+                        const void* b2, void* y, void* g, int R, int H, int F, int approximate,
+                        void* stream) {
+  return launch_mlp_fwd(x, w1, w2, g,
+                        DenseGelu{static_cast<const bf16*>(b1), approximate != 0},
                         DenseOut{static_cast<const bf16*>(b2), static_cast<bf16*>(y), H}, R, H,
                         F, static_cast<cudaStream_t>(stream));
 }

@@ -11,7 +11,11 @@
 //   dx = bf16(dh W1)                      from the bf16 dh, fp32 accumulation
 //
 // exactly the TPU kernel's roundings (exact erff where the TPU used an A&S
-// erf, as the forward does). The weight gradients dW1 = dh^T x and
+// erf, as the forward does). With ``approximate`` GELU is the tanh form and
+// gelu' its derivative, 0.5 (1 + t) + 0.5 h (1 - t^2) c (1 + 3 a h^2) (the
+// TPU kernel's _gelu_grad_f32); g is the forward kernel's expression either
+// way (common.cuh), and the form is B8a's template parameter, so the erf
+// instance is the kernel it was. The weight gradients dW1 = dh^T x and
 // dW2 = dy^T g are plain GEMMs outside the kernel, as in the TPU's _mlp_bwd.
 //
 // What bounds it on the card: tensor-core math. At the train shape
@@ -63,7 +67,8 @@ constexpr uint32_t kStageGelu = 4 * kBox;
 constexpr int kStagesDx = 4;
 constexpr uint32_t kStageDx = 2 * kBox;
 
-// B8a: g and dh of one 128 x 128 tile of [R, F]
+// B8a: g and dh of one 128 x 128 tile of [R, F]; kTanh selects the tanh GELU
+template <bool kTanh>
 __global__ void __launch_bounds__(kThreads, 1)
 mlp_bwd_gelu_kernel(const __grid_constant__ CUtensorMap x_map,
                     const __grid_constant__ CUtensorMap dy_map,
@@ -125,10 +130,16 @@ mlp_bwd_gelu_kernel(const __grid_constant__ CUtensorMap x_map,
           for (int e = 0; e < 2; ++e) {
             const int i = 4 * j + 2 * half + e;
             const float hv = h[i] + bias[e];
-            const float erfv = erff(hv * 0.70710678118654752f);
-            gv[e] = 0.5f * hv * (1.f + erfv);  // the forward kernel's expression
-            const float dgelu =
-                0.5f * (1.f + erfv) + hv * expf(-0.5f * hv * hv) * 0.39894228040143268f;
+            float dgelu;
+            if constexpr (kTanh) {
+              const float t = cxr::gelu_tanh_t(hv);
+              gv[e] = cxr::gelu_tanh(hv, t);  // the forward kernel's expression
+              dgelu = cxr::gelu_tanh_grad(hv, t);
+            } else {
+              const float erfv = erff(hv * 0.70710678118654752f);
+              gv[e] = 0.5f * hv * (1.f + erfv);  // the forward kernel's expression
+              dgelu = 0.5f * (1.f + erfv) + hv * expf(-0.5f * hv * hv) * 0.39894228040143268f;
+            }
             dhv[e] = dg[i] * dgelu;
           }
           const size_t o = (size_t)r * F + col;
@@ -195,10 +206,11 @@ mlp_bwd_dx_kernel(const __grid_constant__ CUtensorMap dh_map,
 
 // x, dy, dx [R, H], w1 [F, H], b1 [F], w2 [H, F], g, dh [R, F], all bf16 and
 // every pointer 16-byte aligned (TMA); R >= 1, H and F positive multiples
-// of 64. Launches B8a, then B8b, on ``stream``.
+// of 64; approximate != 0 selects the tanh GELU. Launches B8a, then B8b, on
+// ``stream``.
 CXR_API int cxr_mlp_bwd(const void* x, const void* w1, const void* b1, const void* w2,
                         const void* dy, void* dx, void* g, void* dh, int R, int H, int F,
-                        void* stream) {
+                        int approximate, void* stream) {
   if (R < 1 || H < kK || H % kK != 0 || F < kK || F % kK != 0) return cudaErrorInvalidValue;
   const long long row_tiles = (R + kRows - 1) / kRows;
   const long long gelu_tiles = row_tiles * ((F + kCols - 1) / kCols);
@@ -215,11 +227,13 @@ CXR_API int cxr_mlp_bwd(const void* x, const void* w1, const void* b1, const voi
     return err;
   constexpr size_t gelu_smem = cxr::ring_smem_bytes<kStagesGelu, kStageGelu>();
   constexpr size_t dx_smem = cxr::ring_smem_bytes<kStagesDx, kStageDx>();
-  if ((err = cxr::allow_smem(mlp_bwd_gelu_kernel, gelu_smem)) != cudaSuccess ||
+  auto* const gelu_kernel =
+      approximate ? &mlp_bwd_gelu_kernel<true> : &mlp_bwd_gelu_kernel<false>;
+  if ((err = cxr::allow_smem(gelu_kernel, gelu_smem)) != cudaSuccess ||
       (err = cxr::allow_smem(mlp_bwd_dx_kernel, dx_smem)) != cudaSuccess)
     return err;
   auto s = static_cast<cudaStream_t>(stream);
-  mlp_bwd_gelu_kernel<<<(unsigned)gelu_tiles, kThreads, gelu_smem, s>>>(
+  gelu_kernel<<<(unsigned)gelu_tiles, kThreads, gelu_smem, s>>>(
       x_map, dy_map, w1_k, w2_n, static_cast<const bf16*>(b1), static_cast<bf16*>(g),
       static_cast<bf16*>(dh), R, H, F);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;

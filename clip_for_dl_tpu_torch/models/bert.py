@@ -17,8 +17,9 @@ Two switches mirror the JAX tower and route to the port's kernels:
 In train mode the flash attention drops probabilities inside the kernel,
 with per-batch-row seeds drawn from the ``generator`` passed to ``forward``
 (one draw per layer, as each JAX layer takes its own dropout key); every
-other dropout is an ``nn.Dropout``. Both kernels take their backward when a
-gradient is required.
+other dropout draws its mask from the same generator
+(``models.heads.dropout``; the ``nn.Dropout`` modules keep the rate). Both
+kernels take their backward when a gradient is required.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from torch import nn
 
 from ..ops import flash_attention as fa
 from ..ops import mlp_train
+from .heads import dropout
 
 
 def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -48,14 +50,15 @@ class BertEmbeddings(nn.Module):
         self.dropout = nn.Dropout(dropout)
 
     def forward(self, input_ids: torch.Tensor,
-                token_type_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+                token_type_ids: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
         positions = torch.arange(input_ids.shape[1], device=input_ids.device)
         x = (self.word_embeddings(input_ids)
              + self.position_embeddings(positions)[None]
              + self.token_type_embeddings(token_type_ids))
-        return self.dropout(_layer_norm(self.LayerNorm, x, x.dtype))
+        return dropout(self.dropout, _layer_norm(self.LayerNorm, x, x.dtype), generator)
 
 
 class BertSelfAttention(nn.Module):
@@ -90,7 +93,7 @@ class BertSelfAttention(nn.Module):
         logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) / float(hd) ** 0.5
         if bias is not None:
             logits = logits + bias[:, None, None, :]
-        probs = self.dropout(torch.softmax(logits, dim=-1))
+        probs = dropout(self.dropout, torch.softmax(logits, dim=-1), generator)
         out = torch.matmul(probs.to(x.dtype).float(), v.float()).to(x.dtype)
         return out.transpose(1, 2).reshape(B, N, hidden)
 
@@ -142,7 +145,7 @@ class BertLayer(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         dt = x.dtype
         attn = self.attention.self(x, bias, generator)
-        attn = self.dropout(self.attention.output.dense(attn))
+        attn = dropout(self.dropout, self.attention.output.dense(attn), generator)
         x = _layer_norm(self.attention.output.LayerNorm, x + attn, dt)
         if self._use_fused_mlp(dt):
             h = mlp_train.dense_gelu_dense(
@@ -151,7 +154,7 @@ class BertLayer(nn.Module):
             )
         else:
             h = self.output.dense(F.gelu(self.intermediate.dense(x)))
-        h = self.dropout(h)
+        h = dropout(self.dropout, h, generator)
         return _layer_norm(self.output.LayerNorm, x + h, dt)
 
 
@@ -174,7 +177,7 @@ class BertEncoder(nn.Module):
                 token_type_ids: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Token ids [B, L] → last_hidden_state [B, L, hidden]."""
-        x = self.embeddings(input_ids, token_type_ids)
+        x = self.embeddings(input_ids, token_type_ids, generator)
         bias = None
         if attention_mask is not None:
             bias = torch.where(attention_mask > 0, 0.0, -1e10).to(torch.float32)

@@ -57,14 +57,11 @@ class CXRClip(nn.Module):
         if config.image_tower == "resnet50":
             self.image_tower = ResNet(config.resnet_stages, config.resnet_width)
         elif config.image_tower == "vit_b16":
-            if config.vit_fused_mlp_train:
-                raise NotImplementedError("the ViT training MLP (vit_fused_mlp_train) is not "
-                                          "ported yet (ROADMAP A8)")
             self.image_tower = ViT(
                 config.image_size, config.vit_patch, config.vit_hidden, config.vit_layers,
                 config.vit_heads, config.vit_mlp_dim,
                 gelu_approximate=config.vit_gelu_approximate, fused_mlp=config.vit_fused_mlp,
-                flash=config.flash_attention,
+                flash=config.flash_attention, fused_mlp_train=config.vit_fused_mlp_train,
             )
         else:
             raise ValueError(f"unknown image tower {config.image_tower!r}")
@@ -84,17 +81,21 @@ class CXRClip(nn.Module):
         if config.use_multimodal_attention:
             self.multimodal_attention = AdditiveMultiModalAttention(d)
 
-    def encode_image(self, images: torch.Tensor, *, normalize: bool = False) -> torch.Tensor:
-        """NHWC images [B, H, W, 3] → shared-space features [B, D]."""
-        feats = self.image_projector(self.image_tower(images))
+    def encode_image(self, images: torch.Tensor, *, normalize: bool = False,
+                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """NHWC images [B, H, W, 3] → shared-space features [B, D]; in train
+        mode the projection's dropout draws from ``generator``."""
+        feats = self.image_projector(self.image_tower(images), generator)
         return l2_normalize(feats) if normalize else feats
 
     def encode_text(self, input_ids: torch.Tensor,
                     attention_mask: Optional[torch.Tensor] = None, *,
-                    normalize: bool = False) -> torch.Tensor:
-        """Token ids [B, L] → CLS-pooled shared-space features [B, D]."""
-        hidden = self.text_tower(input_ids, attention_mask)
-        feats = self.text_projector(hidden[:, 0, :])
+                    normalize: bool = False,
+                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Token ids [B, L] → CLS-pooled shared-space features [B, D]; in
+        train mode every dropout draws from ``generator``."""
+        hidden = self.text_tower(input_ids, attention_mask, generator=generator)
+        feats = self.text_projector(hidden[:, 0, :], generator)
         return l2_normalize(feats) if normalize else feats
 
     def encode_multiview(self, images: torch.Tensor, *,
@@ -102,10 +103,11 @@ class CXRClip(nn.Module):
         """[B, 2, H, W, 3] (frontal, lateral) → fused features [B, D]: both
         views through ``encode_image`` in one call of 2B images (in train
         mode BatchNorm takes its statistics over all of them), then
-        ``MultiViewFusion``, whose dropout draws from ``generator`` in train
-        mode."""
+        ``MultiViewFusion``; in train mode the projection's dropout and the
+        fusion's draw from ``generator``."""
         b = images.shape[0]
-        feats = self.encode_image(images.reshape(b * 2, *images.shape[2:]))
+        feats = self.encode_image(images.reshape(b * 2, *images.shape[2:]),
+                                  generator=generator)
         feats = feats.reshape(b, 2, -1)
         return self.view_fusion(feats[:, 0], feats[:, 1], generator=generator)
 
@@ -127,13 +129,12 @@ class CXRClip(nn.Module):
                 attention_mask: Optional[torch.Tensor] = None, *,
                 generator: Optional[torch.Generator] = None):
         """Joint forward of the pretrain step: (image features, text
-        features), neither normalized. ``generator`` seeds the attention
-        kernel's dropout in train mode. The fusion, attention and adapter
-        heads take no part, so their gradients are zero, as in the JAX
-        ``__call__``."""
-        img = self.encode_image(images)
-        hidden = self.text_tower(input_ids, attention_mask, generator=generator)
-        return img, self.text_projector(hidden[:, 0, :])
+        features), neither normalized. In train mode every dropout (the
+        attention kernel's seeds among them) draws from ``generator``. The
+        fusion, attention and adapter heads take no part, so their gradients
+        are zero, as in the JAX ``__call__``."""
+        img = self.encode_image(images, generator=generator)
+        return img, self.encode_text(input_ids, attention_mask, generator=generator)
 
 
 @torch.no_grad()

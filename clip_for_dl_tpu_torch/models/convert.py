@@ -15,6 +15,9 @@ accepts:
 - the cross-modal attention of a ``use_multimodal_attention`` model under
   ``multimodal_attention.{image_proj,text_proj,attention,output_proj}``.
 
+:func:`lora_from_jax` carries a JAX LoRA state ({path: {"a", "b"}}) over
+under the port's target names (``models/lora.py``).
+
 Names are the ones ``clip_for_dl_tpu/models/torch_export.py`` emits
 (torchvision ResNet, HF BertModel, the reference's head attributes) under
 the port's module prefixes; ``tests/test_torch_models.py`` holds the two
@@ -30,6 +33,8 @@ from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
+
+from .lora import LoRA
 
 
 def _t(x) -> torch.Tensor:
@@ -161,3 +166,42 @@ def state_dict_from_jax(
         if name in params:
             sd[name] = _t(params[name])
     return sd
+
+
+# a JAX LoRA path's kernel (below its layer) -> the port's target name
+_BERT_LORA = {"attention/query": "attention.self.query", "attention/key": "attention.self.key",
+              "attention/value": "attention.self.value",
+              "attention_output": "attention.output.dense",
+              "intermediate": "intermediate.dense", "output": "output.dense"}
+_VIT_LORA = {"q_proj": "self_attention.q_proj", "k_proj": "self_attention.k_proj",
+             "v_proj": "self_attention.v_proj", "out_proj": "self_attention.out_proj",
+             "mlp_1": "mlp.0", "mlp_2": "mlp.3"}
+_HEAD_LORA = {"image_projector/projection": "image_projector.image_projection",
+              "text_projector/projection": "text_projector.text_projection",
+              "view_fusion/fc1": "view_fusion.fusion.0",
+              "view_fusion/fc2": "view_fusion.fusion.3"}
+
+
+def lora_path_from_jax(path: str) -> str:
+    """A JAX LoRA path (``text_tower/layer_0/attention/query/kernel``) →
+    the port's target name (``text_tower.encoder.layer.0.attention.self.
+    query.weight``)."""
+    parts = path.split("/")
+    stem = "/".join(parts[:-1])
+    if parts[-1] == "kernel" and stem in _HEAD_LORA:
+        return _HEAD_LORA[stem] + ".weight"
+    if parts[-1] == "kernel" and len(parts) >= 4 and parts[1].startswith("layer_"):
+        i, rest = parts[1][len("layer_"):], "/".join(parts[2:-1])
+        if parts[0] == "text_tower" and rest in _BERT_LORA:
+            return f"text_tower.encoder.layer.{i}.{_BERT_LORA[rest]}.weight"
+        if parts[0] == "image_tower" and rest in _VIT_LORA:
+            return f"image_tower.encoder.layers.encoder_layer_{i}.{_VIT_LORA[rest]}.weight"
+    raise ValueError(f"no port target for the JAX LoRA path {path!r}")
+
+
+def lora_from_jax(lora: Mapping[str, Mapping[str, Any]]) -> LoRA:
+    """A JAX LoRA state {path: {"a" [in, r], "b" [r, out]}} (numpy or JAX
+    arrays) → the port's :class:`~.lora.LoRA` in fp32 on the CPU, the
+    factors in the same layout."""
+    return LoRA({lora_path_from_jax(path): (_t(ab["a"]), _t(ab["b"]))
+                 for path, ab in lora.items()})

@@ -12,7 +12,11 @@ state-dict names (``models/torch_export.py`` emits the same):
 - SharedEmbeddingAdapter: Linear(2·shared_dim → num_classes) over
   concat(image, text) (``classifier``)
 
-Every head computes in the dtype of its weights.
+Every head computes in the dtype of its weights. In train mode every
+dropout of the port's models (the heads', the fusion's and BERT's) draws its
+mask from the generator the step passes down (:func:`dropout`), as flax
+draws each from the step's key; torch's global generator only when none is
+given.
 """
 
 from __future__ import annotations
@@ -22,6 +26,18 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+def dropout(layer: nn.Dropout, x: torch.Tensor,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """``layer``'s dropout (its rate, in train mode only) on ``x``, the mask
+    drawn from ``generator`` (torch's global generator when None): kept
+    entries scaled by 1 / (1 − rate), the rest zero."""
+    if not layer.training or layer.p == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= layer.p
+    return torch.where(keep, x / (1.0 - layer.p), torch.zeros((), dtype=x.dtype,
+                                                              device=x.device))
 
 
 class ResidualProjection(nn.Module):
@@ -34,13 +50,14 @@ class ResidualProjection(nn.Module):
         self.dropout = nn.Dropout(dropout)
         self.layer_norm = nn.LayerNorm(out_dim, eps=1e-5)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if x.dim() > 2:
             x = x.flatten(1)  # pooled conv maps
         proj_layer = getattr(self, self.proj_attr)
         dt = proj_layer.weight.dtype
         proj = proj_layer(x.to(dt))
-        h = self.dropout(self.fc(F.gelu(proj)))
+        h = dropout(self.dropout, self.fc(F.gelu(proj)), generator)
         return self.layer_norm((h + proj).float()).to(dt)
 
 
@@ -70,12 +87,7 @@ class MultiViewFusion(nn.Module):
         global generator when None)."""
         x = torch.cat([frontal, lateral], dim=-1)
         fc1, _, drop, fc2 = self.fusion
-        h = F.relu(fc1(x.to(fc1.weight.dtype)))
-        if self.training and drop.p > 0.0:
-            keep = torch.rand(h.shape, generator=generator, device=h.device) >= drop.p
-            h = torch.where(keep, h / (1.0 - drop.p), torch.zeros((), dtype=h.dtype,
-                                                                  device=h.device))
-        return fc2(h)
+        return fc2(dropout(drop, F.relu(fc1(x.to(fc1.weight.dtype))), generator))
 
 
 class CAdapter(nn.Module):

@@ -24,7 +24,7 @@ from typing import Dict, Mapping, Optional, Sequence
 import torch
 from torch import nn
 
-from ..train.checkpoint import _PARAMETRIZED
+from ..core.device import plain_name
 from .safetensors_io import load_state_dict
 
 # entries a torchvision ResNet file may carry that a model may lack (or the
@@ -37,7 +37,7 @@ _BERT_DROPPED = ("cls.", "pooler.", "embeddings.position_ids", "embeddings.token
 def _own(tower: nn.Module) -> Dict[str, str]:
     """Reference name → the tower's own state-dict name (they differ under
     ``core.device.cast_in_forward``'s parametrization)."""
-    return {_PARAMETRIZED.sub(r".\1", k): k for k in tower.state_dict()}
+    return {plain_name(k): k for k in tower.state_dict()}
 
 
 def check_tree_matches(name: str, got: Mapping[str, torch.Tensor],

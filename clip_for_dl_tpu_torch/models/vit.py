@@ -19,8 +19,14 @@ Two switches mirror the JAX layer:
 - ``fused_mlp``: in eval mode, in bf16, with both widths multiples of 128
   (vit.py:191-208 in the JAX package), the MLP half runs as
   ``ops.mlp_block.fused_mlp_block_trainable`` (kernel B9), whose biases stay
-  fp32 (``core.device`` keeps the names in ``fp32_params``); otherwise the
-  plain LayerNorm → Linear → GELU → Linear → residual.
+  fp32 (``core.device`` keeps the names in ``fp32_params``);
+- ``fused_mlp_train``: otherwise, in bf16, with both widths multiples of
+  128 and no MLP dropout (the tower has none; vit.py:224-250), the
+  LayerNorm in fp32 and then ``ops.mlp_train.dense_gelu_dense`` (kernels B4
+  forward, B8 backward) with the biases cast to bf16 and the layer's GELU
+  form; with both switches on, eval mode takes B9 and train mode B4/B8, as
+  the JAX layer orders them;
+- otherwise the plain LayerNorm → Linear → GELU → Linear → residual.
 
 The tower has no dropout: the JAX ``CXRClip`` builds it at rate 0. Attention
 rollout (``sow_weights``, ROADMAP A9) is not ported and raises.
@@ -35,7 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import flash_attention as fa
-from ..ops import mlp_block
+from ..ops import mlp_block, mlp_train
 
 
 def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -73,10 +79,11 @@ class MultiheadSelfAttention(nn.Module):
 
 class ViTEncoderLayer(nn.Module):
     def __init__(self, hidden: int, heads: int, mlp_dim: int, gelu_approximate: bool = False,
-                 fused_mlp: bool = False, flash: bool = False):
+                 fused_mlp: bool = False, flash: bool = False, fused_mlp_train: bool = False):
         super().__init__()
         self.hidden, self.mlp_dim = hidden, mlp_dim
         self.gelu_approximate, self.fused_mlp = gelu_approximate, fused_mlp
+        self.fused_mlp_train = fused_mlp_train
         self.ln_1 = nn.LayerNorm(hidden, eps=1e-6)
         self.self_attention = MultiheadSelfAttention(hidden, heads, flash)
         self.ln_2 = nn.LayerNorm(hidden, eps=1e-6)
@@ -86,14 +93,17 @@ class ViTEncoderLayer(nn.Module):
         # B9 takes its biases in fp32, as the JAX fused_mlp_block hands them over
         self.fp32_params = ("mlp.0.bias", "mlp.3.bias") if fused_mlp else ()
 
+    def _kernel_widths(self, dtype: torch.dtype) -> bool:
+        """The JAX gate shared by both MLP kernels: both widths multiples of
+        128, bf16 compute."""
+        return self.hidden % 128 == 0 and self.mlp_dim % 128 == 0 and dtype == torch.bfloat16
+
     def _use_fused_mlp(self, dtype: torch.dtype) -> bool:
-        return (
-            self.fused_mlp
-            and not self.training
-            and self.hidden % 128 == 0
-            and self.mlp_dim % 128 == 0
-            and dtype == torch.bfloat16
-        )
+        return self.fused_mlp and not self.training and self._kernel_widths(dtype)
+
+    def _use_fused_mlp_train(self, dtype: torch.dtype) -> bool:
+        # the MLP's dropout rate is 0: the CLIP ViT is built without dropout
+        return self.fused_mlp_train and self._kernel_widths(dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = x.dtype
@@ -103,6 +113,11 @@ class ViTEncoderLayer(nn.Module):
             return mlp_block.fused_mlp_block_trainable(
                 x, self.ln_2.weight, self.ln_2.bias, fc1.weight, fc1.bias, fc2.weight,
                 fc2.bias, eps=1e-6, gelu_approximate=self.gelu_approximate,
+            )
+        if self._use_fused_mlp_train(dt):
+            return x + mlp_train.dense_gelu_dense(
+                _layer_norm(self.ln_2, x, dt), fc1.weight, fc1.bias.to(dt), fc2.weight,
+                fc2.bias.to(dt), approximate=self.gelu_approximate,
             )
         y = F.linear(_layer_norm(self.ln_2, x, dt), fc1.weight, fc1.bias.to(dt))
         y = F.gelu(y, approximate="tanh" if self.gelu_approximate else "none")
@@ -133,14 +148,15 @@ class ViT(nn.Module):
 
     def __init__(self, image_size: int = 224, patch: int = 16, hidden: int = 768,
                  layers: int = 12, heads: int = 12, mlp_dim: int = 3072,
-                 gelu_approximate: bool = False, fused_mlp: bool = False, flash: bool = False):
+                 gelu_approximate: bool = False, fused_mlp: bool = False, flash: bool = False,
+                 fused_mlp_train: bool = False):
         super().__init__()
         self.patch, self.out_dim = patch, hidden
         self.conv_proj = nn.Conv2d(3, hidden, patch, stride=patch)
         self.class_token = nn.Parameter(torch.zeros(1, 1, hidden))
         self.encoder = _Encoder((image_size // patch) ** 2 + 1, hidden, layers, heads, mlp_dim,
                                 gelu_approximate=gelu_approximate, fused_mlp=fused_mlp,
-                                flash=flash)
+                                flash=flash, fused_mlp_train=fused_mlp_train)
 
     def forward(self, images: torch.Tensor, *, sow_weights: bool = False) -> torch.Tensor:
         if sow_weights:

@@ -83,10 +83,10 @@ _SIGNATURES = {
     # memory), B, N, H, D, scale, rate, 1/(1-rate), stream
     **{"cxr_flash_bwd" + x: (_P,) * 11 + (_I,) * 4 + (_F,) * 3 + (_P,)
        for x in ("", "_f16", "_f32")},
-    # x, w1, b1, w2, b2, y, g (scratch), R, H, F, stream
-    "cxr_mlp_fwd": (_P,) * 7 + (_I,) * 3 + (_P,),
-    # x, w1, b1, w2, dy, dx, g, dh, R, H, F, stream
-    "cxr_mlp_bwd": (_P,) * 8 + (_I,) * 3 + (_P,),
+    # x, w1, b1, w2, b2, y, g (scratch), R, H, F, approximate, stream
+    "cxr_mlp_fwd": (_P,) * 7 + (_I,) * 4 + (_P,),
+    # x, w1, b1, w2, dy, dx, g, dh, R, H, F, approximate, stream
+    "cxr_mlp_bwd": (_P,) * 8 + (_I,) * 4 + (_P,),
     # x, ln_scale, ln_bias, w1, b1, w2, b2, out, y, g (scratch), R, H, F, eps,
     # approximate, stream
     "cxr_mlp_block": (_P,) * 10 + (_I,) * 3 + (_F, _I, _P),

@@ -98,8 +98,10 @@ def _pointers(signature) -> int:
 class ThisInterface:
     """Another build's kernel library, called as this checkout's wrappers
     call their own. An entry point's scratch buffers come last among its
-    pointers; where the other build's entry takes fewer pointers (the MLP
-    forwards before they took scratch), the extra ones are left out of the
+    pointers, and its newest scalar arguments last among its scalars, just
+    before the stream; where the other build's entry takes fewer pointers
+    (the MLP forwards before they took scratch) or fewer scalars (B4 and B8
+    before they took the GELU form), the extra ones are left out of the
     call, so the other build runs with its own C signature."""
 
     def __init__(self, lib: ctypes.CDLL, signatures: dict):
@@ -109,9 +111,12 @@ class ThisInterface:
         fn = getattr(self._lib, name)
         if name not in _build._SIGNATURES:
             return fn
-        n = _pointers(_build._SIGNATURES[name])
-        keep = _pointers(self._signatures[name])
-        return fn if keep == n else (lambda *args: fn(*args[:keep], *args[n:]))
+        mine, theirs = _build._SIGNATURES[name], self._signatures[name]
+        n, keep = _pointers(mine), _pointers(theirs)
+        scalars = len(theirs) - 1 - keep
+        if keep == n and len(theirs) == len(mine):
+            return fn
+        return lambda *args: fn(*args[:keep], *args[n:n + scalars], args[-1])
 
 
 def other_library(root: Path) -> ThisInterface:
@@ -330,7 +335,9 @@ def main(argv=None) -> int:
             if err:
                 raise RuntimeError(f"cxr_similarity returned CUDA error {err}")
 
-        other_b1 = partial(call, "cxr_similarity", *ptrs[0])
+        # fp32 features (types 0, 0); a build before C8 takes no types, and
+        # ThisInterface leaves them out
+        other_b1 = partial(call, "cxr_similarity", *ptrs[0], 0, 0)
         other_b1()
         this_b1()
         wrapper = sim.similarity(img, txt, 0.5)

@@ -69,12 +69,12 @@ def build_engine(dev, seed: int, path: str):
     return cfg, engine
 
 
-def train_model(dev, seed: int, preset_name: str, compute_dtype=torch.bfloat16):
+def train_model(dev, seed: int, preset_name: str, compute_dtype=torch.bfloat16, **switches):
     """(preset, model config, model): the preset's model at full width with
-    flash attention and the fused BERT MLP, fp32 masters cast to bf16 in the
-    forward (left in fp32 when ``compute_dtype`` is fp32), weights from
-    ``seed``."""
-    preset, cfg, model = _model(dev, seed, preset_name)
+    flash attention, the fused BERT MLP and the model ``switches`` (such as
+    ``vit_fused_mlp_train``), fp32 masters cast to bf16 in the forward (left
+    in fp32 when ``compute_dtype`` is fp32), weights from ``seed``."""
+    preset, cfg, model = _model(dev, seed, preset_name, **switches)
     if compute_dtype == torch.float32:
         return preset, cfg, model
     return preset, cfg, cast_in_forward(model, compute_dtype)

@@ -39,11 +39,12 @@ from __future__ import annotations
 import json
 import logging
 import os
-import re
 from typing import Any, Dict, List, Mapping, Optional
 
 import torch
 from torch import nn
+
+from ..core.device import plain_name as _plain
 
 logger = logging.getLogger("clip_for_dl_tpu_torch.checkpoint")
 
@@ -52,29 +53,28 @@ logger = logging.getLogger("clip_for_dl_tpu_torch.checkpoint")
 # of the copy it replaces.
 _PREEMPT_BASE = 1_000_000
 
-_PARAMETRIZED = re.compile(r"\.parametrizations\.([^.]+)\.original$")
-
-
-def _plain(name: str) -> str:
-    return _PARAMETRIZED.sub(r".\1", name)
-
-
 def model_state(model: nn.Module) -> Dict[str, torch.Tensor]:
     """``model.state_dict()`` under the reference's names (see above)."""
     return {_plain(k): v for k, v in model.state_dict().items()}
 
 
 def _payload(state) -> Dict[str, Any]:
-    payload = {"model": model_state(state.model),
-               "optimizer": state.optimizer.state_dict(), "step": int(state.step)}
+    # a state without an optimizer saves weights only (LoRA's folded model)
+    optimizer = state.optimizer.state_dict() if state.optimizer is not None else {}
+    payload = {"model": model_state(state.model), "optimizer": optimizer,
+               "step": int(state.step)}
     ema = getattr(state, "ema_params", None)
     if ema is not None:
         payload["ema"] = {_plain(k): v for k, v in ema.items()}
     return payload
 
 
-def _load_model(model: nn.Module, saved: Mapping[str, torch.Tensor], *,
-                allow_missing: bool, what: str) -> None:
+def load_model(model: nn.Module, saved: Mapping[str, torch.Tensor], *,
+               allow_missing: bool = False, what: str = "the state dict") -> None:
+    """Load ``saved`` (tensors by the reference's names, as
+    :func:`model_state` gives them) into ``model``, parametrized or not; a
+    tensor of the model that ``saved`` lacks raises unless
+    ``allow_missing``."""
     own = {_plain(k): k for k in model.state_dict()}
     missing = [k for k in own if k not in saved]
     if missing:
@@ -162,7 +162,7 @@ class _Store:
 
 def _restore_into(store: _Store, key: int, template):
     saved = store.read(key)
-    _load_model(template.model, saved["model"], allow_missing=False,
+    load_model(template.model, saved["model"], allow_missing=False,
                 what=store.path(key))
     template.optimizer.load_state_dict(saved["optimizer"])
     template.step = int(saved["step"])
@@ -287,7 +287,7 @@ class CheckpointManager:
             tensors = {k: v for k, v in tensors.items() if k not in params}
             tensors.update(saved.get("ema", {}))
             what = f"the EMA slot of {what}"
-        _load_model(model, tensors, allow_missing=allow_partial, what=what)
+        load_model(model, tensors, allow_missing=allow_partial, what=what)
         return model
 
     # -- mid-epoch preemption slot -------------------------------------------

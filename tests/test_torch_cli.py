@@ -222,7 +222,8 @@ def test_parser_takes_every_jax_command_and_flag():
     (["gradcam"], "A9"),
     (["rollout"], "A9"), (["serve", "--exported", "artifact"], "A9"),
     (["serve", "--tp", "2"], "A7"),
-    (["pretrain", "--lora", "4"], "A8"), (["zeroshot", "--vit-fused-mlp-train"], "A8"),
+    (["pretrain", "--lora", "4", "--pp", "2"], "A7"),
+    (["pretrain", "--lora", "4", "--num-devices", "2"], "A7"),
     (["zeroshot", "--num-devices", "2"], "A7"), (["eval", "--virtual-devices", "8"], "A7"),
     (["zeroshot", "--tp", "2"], "A7"), (["pretrain", "--pp", "2"], "A7"),
     (["pretrain", "--ep", "2"], "A7"), (["adapter", "--num-processes", "2"], "A7"),

@@ -199,6 +199,80 @@ def test_mlp_bwd_kernel(cuda, R, H, F):
         torch.testing.assert_close(a.float(), b.float(), atol=_rel_tol(b), rtol=0, msg=name)
 
 
+@pytest.mark.parametrize("R,H,F", [(25216, 768, 3072), (100, 768, 3072), (33, 512, 192)])
+def test_mlp_kernels_tanh(cuda, R, H, F):
+    """B4 and B8 with the tanh GELU (the ViT's --fast-gelu) against their
+    plain versions: B4's output within two bf16 steps (2e-2), B8's (dx, g,
+    dh) within two bf16 steps at each output's largest entry; at the ViT
+    train shape (B = 128 × 197 tokens), a ragged R and F past one tile.
+    The erf form's outputs differ (the flag reaches the kernels), and the
+    launches count under the tanh keys."""
+    gen = torch.Generator(cuda).manual_seed(1)
+    x = torch.randn(R, H, device=cuda, generator=gen).bfloat16()
+    w1 = (torch.randn(F, H, device=cuda, generator=gen) * H ** -0.5).bfloat16()
+    b1 = (torch.randn(F, device=cuda, generator=gen) * 0.1).bfloat16()
+    w2 = (torch.randn(H, F, device=cuda, generator=gen) * F ** -0.5).bfloat16()
+    b2 = (torch.randn(H, device=cuda, generator=gen) * 0.1).bfloat16()
+    dy = torch.randn(R, H, device=cuda, generator=gen).bfloat16()
+    before = (_build_launches(mlp.KEY_TANH), _build_launches(mlp.KEY_BWD_TANH))
+    with torch.no_grad():
+        got = mlp.dense_gelu_dense(x, w1, b1, w2, b2, approximate=True)
+    torch.testing.assert_close(
+        got.float(), mlp.dense_gelu_dense_reference(x, w1, b1, w2, b2, True).float(),
+        atol=2e-2, rtol=0)
+    grads = mlp._kernel_bwd(x, w1, b1, w2, dy, True)
+    for name, a, b in zip(("dx", "g", "dh"), grads,
+                          mlp.dense_gelu_dense_bwd_reference(x, w1, b1, w2, dy, True)):
+        torch.testing.assert_close(a.float(), b.float(), atol=_rel_tol(b), rtol=0, msg=name)
+    assert (_build_launches(mlp.KEY_TANH), _build_launches(mlp.KEY_BWD_TANH)) == (
+        before[0] + 1, before[1] + 1)
+    assert not torch.equal(grads[1], mlp._kernel_bwd(x, w1, b1, w2, dy)[1])
+
+
+def _build_launches(key: str) -> int:
+    from clip_for_dl_tpu_torch.ops import _build
+
+    return _build.LAUNCHES[key]
+
+
+def test_vit_fused_mlp_train_step_on_the_card(cuda):
+    """A ViT layer with ``fused_mlp_train`` (hidden 128, MLP 256, bf16) in
+    train mode, both GELU forms: B4 forward and B8 backward launch, and the
+    output and every gradient stay within two bf16 steps of the plain
+    route's (the kernels' plain versions on the same tensors)."""
+    import contextlib
+    from unittest import mock
+
+    from clip_for_dl_tpu_torch.core.device import cast_matmul_weights
+    from clip_for_dl_tpu_torch.models.vit import ViTEncoderLayer
+
+    for approximate in (False, True):
+        torch.manual_seed(0)
+        layer = ViTEncoderLayer(128, 2, 256, gelu_approximate=approximate, flash=True,
+                                fused_mlp_train=True).to(cuda)
+        cast_matmul_weights(layer, torch.bfloat16).train()
+        x = torch.randn(4, 17, 128, device=cuda).bfloat16()
+        keys = (mlp.KEY_TANH, mlp.KEY_BWD_TANH) if approximate else (mlp.KERNEL,
+                                                                       mlp.KERNEL_BWD)
+        before = [_build_launches(k) for k in keys]
+        runs = []
+        for plain in (False, True):
+            layer.zero_grad()
+            route = (mock.patch.multiple(mlp, _kernel=mlp.dense_gelu_dense_reference,
+                                         _kernel_bwd=mlp.dense_gelu_dense_bwd_reference)
+                     if plain else contextlib.nullcontext())
+            with route:
+                out = layer(x)
+                out.float().square().sum().backward()
+            runs.append((out.detach(), {n: p.grad.clone() for n, p in layer.named_parameters()}))
+        assert [_build_launches(k) for k in keys] == [b + 1 for b in before]
+        (out_k, grads_k), (out_p, grads_p) = runs
+        torch.testing.assert_close(out_k.float(), out_p.float(), atol=_rel_tol(out_p), rtol=0)
+        for name, g in grads_k.items():
+            torch.testing.assert_close(g.float(), grads_p[name].float(),
+                                       atol=_rel_tol(grads_p[name], 4), rtol=0, msg=name)
+
+
 def test_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(TypeError):
         sim.similarity(torch.zeros(4, 512, device=cuda, dtype=torch.float64),

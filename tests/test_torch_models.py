@@ -209,9 +209,11 @@ def test_init_weights_is_seeded_and_casts_keep_norms_fp32():
 
 def test_unported_variants_raise():
     """The ViT tower is ported (tests/test_torch_vit.py), and the
-    multimodal attention (below); the ViT's training MLP is not."""
-    with pytest.raises(NotImplementedError, match="A8"):
-        CXRClip(dataclasses.replace(ModelConfig(**TINY).with_vit(), vit_fused_mlp_train=True))
+    multimodal attention (below); so is the ViT's training MLP now
+    (tests/test_torch_vit_train.py): a model with ``vit_fused_mlp_train``
+    builds, every ViT layer carrying the switch, and no variant raises."""
+    model = CXRClip(dataclasses.replace(ModelConfig(**TINY).with_vit(), vit_fused_mlp_train=True))
+    assert all(layer.fused_mlp_train for layer in model.image_tower.encoder.layers)
 
 
 # -- the cross-modal attention and the fusion alternatives ----------------------------------

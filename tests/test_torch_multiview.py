@@ -553,8 +553,8 @@ def test_bf16_multiview_step_with_augmentation_and_dropout_repeats():
     size: bf16 compute (cast_in_forward), the scripts' augmentation,
     dropout 0.1 and the fusion's 0.2, the cross-modal attention. Two runs
     from the same weights and generator seed give the same finite losses
-    (the augmentation and the fusion's mask come from the step's
-    generator; the other dropouts from torch's global one, reseeded); the
+    (the augmentation and every dropout mask come from the step's
+    generator); the
     image tower and the attention move, the bank's text tower only by the
     decay."""
     cfg = ModelConfig(**dict(_config(True), dropout=0.1))
@@ -581,3 +581,28 @@ def test_bf16_multiview_step_with_augmentation_and_dropout_repeats():
     word = "text_tower.embeddings.word_embeddings.parametrizations.weight.original"
     torch.testing.assert_close(after[word], before[word] * (1 - LR * WEIGHT_DECAY) ** 2,
                                atol=0, rtol=1e-6)
+
+
+def test_multiview_step_repeats_with_only_the_step_generator_seeded():
+    """Every dropout of the step (the image projection's and the fusion's)
+    and the augmentation draw from the step's generator, as flax draws each
+    from the step's key: two runs from the same weights and the same
+    generator seed, with torch's global generator seeded differently, end
+    bit-equal (losses and every tensor of the model)."""
+    cfg = ModelConfig(**dict(_config(True), dropout=0.1))
+    runs = []
+    for global_seed in (0, 1):
+        model = init_weights(CXRClip(cfg), torch.Generator().manual_seed(0))
+        label_fn = make_label_fn([])
+        opt = make_optimizer(model, label_fn, weight_decay=WEIGHT_DECAY)
+        step = make_multiview_train_step(model, opt, label_fn, T, use_enhance=True,
+                                         augment=True, max_grad_norm=CLIP, **PREP)
+        torch.manual_seed(global_seed)
+        state, gen = TrainState(model, opt), torch.Generator().manual_seed(1)
+        losses = [float(step(state, _port_batch(), torch.from_numpy(_bank()), {"default": LR},
+                             gen)[1]["loss"]) for _ in range(2)]
+        runs.append((losses, model.state_dict()))
+    (losses_a, sd_a), (losses_b, sd_b) = runs
+    assert losses_a == losses_b
+    for k, v in sd_a.items():
+        assert torch.equal(v, sd_b[k]), k

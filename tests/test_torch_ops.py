@@ -251,19 +251,47 @@ def test_flash_attention_rejects_long_sequences():
 # ---------------------------------------------------------------------------
 
 
-def test_dense_gelu_dense_matches_interpreted_kernel():
-    """fp32, weights in nn.Linear layout on the port side: 1e-5 absolute."""
-    rng = np.random.default_rng(6)
-    R, H, F = 20, 128, 256
-    x = rng.standard_normal((R, H)).astype(np.float32)
-    w1 = (rng.standard_normal((H, F)) / np.sqrt(H)).astype(np.float32)
-    b1 = rng.standard_normal(F).astype(np.float32) * 0.1
-    w2 = (rng.standard_normal((F, H)) / np.sqrt(F)).astype(np.float32)
-    b2 = rng.standard_normal(H).astype(np.float32) * 0.1
-    got = mlp.dense_gelu_dense(_t(x), _t(w1.T.copy()), _t(b1), _t(w2.T.copy()), _t(b2))
-    want = jmlp.dense_gelu_dense(*(jnp.asarray(a) for a in (x, w1, b1, w2, b2)),
-                                 interpret=True)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+# the MLP cases' operand types: (torch, JAX, tolerance). fp32: 1e-5 (the
+# JAX kernel's A&S erf is within 5.3e-7 of the exact erf; tanh is the same
+# formula on both sides). bf16: 2e-2, B4's tolerance on the card, two bf16
+# steps at |y| ≲ 2 (the two sides round the same intermediates, but their
+# fp32 sums run in other orders and can flip a rounding of g or of y); the
+# backward's outputs relative to each one's largest entry
+MLP_TYPES = {"fp32": (torch.float32, jnp.float32, 1e-5),
+             "bf16": (torch.bfloat16, jnp.bfloat16, 2e-2)}
+
+
+def _mlp_case(seed, R, H, F, dtype):
+    """x, w1 [H, F], b1, w2 [F, H], b2 and a cotangent [R, H], numpy fp32
+    rounded to ``dtype``'s values (so that both sides take the same
+    operands)."""
+    rng = np.random.default_rng(seed)
+    arrays = (rng.standard_normal((R, H)), rng.standard_normal((H, F)) / np.sqrt(H),
+              rng.standard_normal(F) * 0.1, rng.standard_normal((F, H)) / np.sqrt(F),
+              rng.standard_normal(H) * 0.1, rng.standard_normal((R, H)))
+    return [torch.from_numpy(a.astype(np.float32)).to(dtype).float().numpy() for a in arrays]
+
+
+def _port_mlp_args(x, w1, b1, w2, b2, dtype, grad=False):
+    """The port's operands, weights in nn.Linear layout."""
+    return [_t(a.copy()).to(dtype).requires_grad_(grad) for a in (x, w1.T, b1, w2.T, b2)]
+
+
+@pytest.mark.parametrize("dtype", sorted(MLP_TYPES))
+@pytest.mark.parametrize("approximate", [False, True], ids=["erf", "tanh"])
+def test_dense_gelu_dense_matches_interpreted_kernel(approximate, dtype):
+    """The forward, weights in nn.Linear layout on the port side, exact and
+    tanh GELU, against the JAX function in interpret mode; tolerances in
+    MLP_TYPES."""
+    tdt, jdt, tol = MLP_TYPES[dtype]
+    x, w1, b1, w2, b2, _ = _mlp_case(6, 20, 128, 256, tdt)
+    got = mlp.dense_gelu_dense(*_port_mlp_args(x, w1, b1, w2, b2, tdt),
+                               approximate=approximate)
+    want = jmlp.dense_gelu_dense(*(jnp.asarray(a, jdt) for a in (x, w1, b1, w2, b2)),
+                                 approximate=approximate, interpret=True)
+    assert got.dtype == tdt
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), atol=tol,
+                               rtol=0)
 
 
 # ---------------------------------------------------------------------------
@@ -484,43 +512,42 @@ def test_flash_attention_backward_fully_masked_row_is_finite():
 # ---------------------------------------------------------------------------
 
 
-def test_dense_gelu_dense_backward_matches_jax_grad():
-    """fp32 gradients of x, both weights and both biases through the
-    autograd function vs jax.grad through the interpreted kernels: 1e-5
-    relative to each gradient's largest entry (the JAX kernel's A&S erf is
-    within 5.3e-7 of the exact erf used here)."""
-    rng = np.random.default_rng(10)
-    R, H, F = 20, 128, 256
-    x = rng.standard_normal((R, H)).astype(np.float32)
-    w1 = (rng.standard_normal((H, F)) / np.sqrt(H)).astype(np.float32)
-    b1 = rng.standard_normal(F).astype(np.float32) * 0.1
-    w2 = (rng.standard_normal((F, H)) / np.sqrt(F)).astype(np.float32)
-    b2 = rng.standard_normal(H).astype(np.float32) * 0.1
-    ct = rng.standard_normal((R, H)).astype(np.float32)
-    want = jax.grad(lambda *a: jnp.sum(jmlp.dense_gelu_dense(*a, interpret=True) * ct),
-                    argnums=(0, 1, 2, 3, 4))(*(jnp.asarray(a) for a in (x, w1, b1, w2, b2)))
-    args = [_t(a.copy()).requires_grad_() for a in (x, w1.T, b1, w2.T, b2)]
-    (mlp.dense_gelu_dense(*args) * _t(ct)).sum().backward()
+@pytest.mark.parametrize("dtype", sorted(MLP_TYPES))
+@pytest.mark.parametrize("approximate", [False, True], ids=["erf", "tanh"])
+def test_dense_gelu_dense_backward_matches_jax_grad(approximate, dtype):
+    """Gradients of x, both weights and both biases through the autograd
+    function vs jax.grad through the interpreted kernels, exact and tanh
+    GELU: within MLP_TYPES' tolerance of each gradient's largest entry."""
+    tdt, jdt, tol = MLP_TYPES[dtype]
+    x, w1, b1, w2, b2, ct = _mlp_case(10, 20, 128, 256, tdt)
+    want = jax.grad(
+        lambda *a: jnp.sum(jmlp.dense_gelu_dense(*a, approximate=approximate, interpret=True)
+                           .astype(jnp.float32) * ct),
+        argnums=(0, 1, 2, 3, 4))(*(jnp.asarray(a, jdt) for a in (x, w1, b1, w2, b2)))
+    args = _port_mlp_args(x, w1, b1, w2, b2, tdt, grad=True)
+    (mlp.dense_gelu_dense(*args, approximate=approximate).float() * _t(ct)).sum().backward()
     got = [args[0].grad, args[1].grad.T, args[2].grad, args[3].grad.T, args[4].grad]
     for name, g, w in zip(("dx", "dw1", "db1", "dw2", "db2"), got, want):
-        w = np.asarray(w)
-        np.testing.assert_allclose(g.numpy(), w, atol=1e-5 * np.abs(w).max(), rtol=0,
+        w = np.asarray(w, np.float32)
+        assert g.dtype == tdt, name
+        np.testing.assert_allclose(g.float().numpy(), w, atol=tol * np.abs(w).max(), rtol=0,
                                    err_msg=name)
 
 
-def test_dense_gelu_dense_bwd_reference_matches_jax_kernel_outputs():
+@pytest.mark.parametrize("dtype", sorted(MLP_TYPES))
+@pytest.mark.parametrize("approximate", [False, True], ids=["erf", "tanh"])
+def test_dense_gelu_dense_bwd_reference_matches_jax_kernel_outputs(approximate, dtype):
     """(dx, g, dh) of the plain backward vs the interpreted JAX backward
-    kernel itself, fp32: 1e-5."""
-    rng = np.random.default_rng(11)
-    R, H, F = 12, 128, 192
-    x = rng.standard_normal((R, H)).astype(np.float32)
-    w1 = (rng.standard_normal((H, F)) / np.sqrt(H)).astype(np.float32)
-    b1 = rng.standard_normal(F).astype(np.float32) * 0.1
-    w2 = (rng.standard_normal((F, H)) / np.sqrt(F)).astype(np.float32)
-    dy = rng.standard_normal((R, H)).astype(np.float32)
-    want = jmlp._pallas_bwd(*(jnp.asarray(a) for a in (x, w1, b1, w2, dy)),
-                            approximate=False, interpret=True)
-    got = mlp.dense_gelu_dense_bwd_reference(_t(x), _t(w1.T.copy()), _t(b1),
-                                             _t(w2.T.copy()), _t(dy))
-    for g, w in zip(got, want):
-        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5, rtol=0)
+    kernel itself, exact and tanh GELU: fp32 within 1e-5, bf16 within
+    MLP_TYPES' tolerance of each output's largest entry."""
+    tdt, jdt, tol = MLP_TYPES[dtype]
+    x, w1, b1, w2, _, dy = _mlp_case(11, 12, 128, 192, tdt)
+    want = jmlp._pallas_bwd(*(jnp.asarray(a, jdt) for a in (x, w1, b1, w2, dy)),
+                            approximate=approximate, interpret=True)
+    got = mlp.dense_gelu_dense_bwd_reference(
+        *(_t(a.copy()).to(tdt) for a in (x, w1.T, b1, w2.T, dy)), approximate=approximate)
+    for name, g, w in zip(("dx", "g", "dh"), got, want):
+        w = np.asarray(w, np.float32)
+        assert g.dtype == tdt, name
+        atol = tol if dtype == "fp32" else tol * np.abs(w).max()
+        np.testing.assert_allclose(g.float().numpy(), w, atol=atol, rtol=0, err_msg=name)

@@ -31,12 +31,13 @@ from clip_for_dl_tpu.train import base_transform
 from clip_for_dl_tpu.train import make_clip_eval_step as jmake_eval_step
 from clip_for_dl_tpu.train import make_clip_pretrain_step as jmake_step
 from clip_for_dl_tpu_torch.core.config import CLIP_MEAN, CLIP_STD, ModelConfig, get_preset
-from clip_for_dl_tpu_torch.core.device import cast_in_forward, cast_matmul_weights
+from clip_for_dl_tpu_torch.core.device import cast_in_forward, cast_matmul_weights, plain_name
 from clip_for_dl_tpu_torch.losses import clip_self_distill_loss
 from clip_for_dl_tpu_torch.models import CXRClip, init_weights, state_dict_from_jax
 from clip_for_dl_tpu_torch.models.resnet import _bn
 from clip_for_dl_tpu_torch.ops import flash_attention as fa
 from clip_for_dl_tpu_torch.ops import mlp_train as mlp
+from clip_for_dl_tpu_torch.ops.image_prep import preprocess_images
 from clip_for_dl_tpu_torch.train import (
     TrainState,
     clip_by_global_norm_,
@@ -409,3 +410,103 @@ def test_step_refuses_a_state_with_another_model():
     with pytest.raises(ValueError, match="another model"):
         step(other, _port_batch(), LRS)
 
+
+
+def test_pretrain_step_repeats_with_only_the_step_generator_seeded():
+    """Every dropout of the pretrain step (BERT's embeddings, attention
+    output and MLP output, the attention kernel's seeds, both projection
+    heads) draws from the step's generator, as flax draws each from the
+    step's key: two runs from the same weights and generator seed, with
+    torch's global generator seeded differently, end bit-equal; a third
+    with another generator seed differs."""
+    cfg = ModelConfig(**dict(TINY, dropout=0.1))
+    runs = []
+    for global_seed, step_seed in ((0, 9), (1, 9), (0, 10)):
+        model = init_weights(CXRClip(cfg), torch.Generator().manual_seed(8))
+        label_fn = make_label_fn(GROUPS)
+        opt = make_optimizer(model, label_fn, weight_decay=WEIGHT_DECAY)
+        step = make_clip_pretrain_step(model, opt, label_fn, image_size=32, mean=CLIP_MEAN,
+                                       std=CLIP_STD, compute_dtype=torch.float32)
+        torch.manual_seed(global_seed)
+        state, gen = TrainState(model, opt), torch.Generator().manual_seed(step_seed)
+        losses = [float(step(state, _port_batch(), LRS, gen)[1]["loss"]) for _ in range(2)]
+        runs.append((losses, model.state_dict()))
+    (losses_a, sd_a), (losses_b, sd_b), (losses_c, _) = runs
+    assert losses_a == losses_b and losses_a != losses_c
+    for k, v in sd_a.items():
+        assert torch.equal(v, sd_b[k]), k
+
+
+def _image_tower_departure(jax_side: bool, seed: int) -> float:
+    """1 − cosine between the first-step image-tower gradient in bf16
+    compute and in fp32, in one framework, on seeded weights and batch."""
+    shapes = _jax_shapes()
+    rng = np.random.default_rng(100 + seed)
+    variables = {"params": _fill(shapes["params"], rng),
+                 "batch_stats": _fill(shapes["batch_stats"], rng)}
+    batch = _batch(seed=10 + seed)
+    grads = []
+    for bf16 in (False, True):
+        if jax_side:
+            g = _jax_image_tower_grad(bf16)(variables, {k: jnp.asarray(v)
+                                                        for k, v in batch.items()})
+            grads.append(np.concatenate([np.asarray(x, np.float32).ravel()
+                                         for x in jax.tree.leaves(g)]))
+            continue
+        model = _port_model(variables)
+        if bf16:
+            cast_in_forward(model, torch.bfloat16)
+        images = preprocess_images(torch.from_numpy(batch["images"]), 32, 32, CLIP_MEAN,
+                                   CLIP_STD, torch.bfloat16 if bf16 else torch.float32)
+        img, txt = model.train()(images, torch.from_numpy(batch["input_ids"]),
+                                 torch.from_numpy(batch["attention_mask"]))
+        clip_self_distill_loss(txt, img, 2.0).backward()
+        named = {plain_name(n): p.grad.float() for n, p in model.named_parameters()
+                 if n.startswith("image_tower.")}
+        grads.append(torch.cat([named[n].flatten() for n in sorted(named)]).numpy())
+    a, b = grads
+    return 1.0 - float(a @ b / np.linalg.norm(a) / np.linalg.norm(b))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_shapes():
+    return jax.eval_shape(JCXRClip(JModelConfig(**TINY)).init, jax.random.key(0),
+                          jnp.zeros((1, 32, 32, 3)), jnp.zeros((1, 12), jnp.int32))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_image_tower_grad(bf16: bool):
+    jmodel = JCXRClip(JModelConfig(**TINY), dtype=jnp.bfloat16 if bf16 else jnp.float32)
+    dt = jnp.bfloat16 if bf16 else jnp.float32
+
+    def grad(variables, batch):
+        def loss_fn(params):
+            images = jpreprocess(batch["images"], 32, 32, CLIP_MEAN, CLIP_STD, dt)
+            (img, txt), _ = jmodel.apply(
+                {"params": params, "batch_stats": variables["batch_stats"]}, images,
+                batch["input_ids"], batch["attention_mask"], train=True,
+                mutable=["batch_stats", "losses"], rngs={"dropout": jax.random.key(0)})
+            return jclip_loss(txt, img, 2.0)
+
+        return jax.grad(loss_fn)(variables["params"])["image_tower"]
+
+    return jax.jit(grad)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_bf16_image_tower_gradient_departs_from_fp32_as_in_jax(seed):
+    """ROADMAP C's "to settle" item: the bf16 image tower's first-step
+    gradient against the same framework's fp32 one, at random weights, on
+    the same seeded weights and batch in both frameworks (JAX's step
+    jitted, as the JAX package runs it). Both depart: over seeds 0-5 here
+    JAX by 1 - cos = 0.048-0.226 and the port by 0.084-0.277, 0.82-1.97
+    times JAX's (run op by op, unjitted, JAX departs by as much as the
+    port: 0.87-1.10 times over seeds 0-3; under jit XLA keeps some fused
+    intermediates in fp32). So the port's departure is JAX's own, within a
+    factor 2.5, and the near-orthogonal gradient the card shows at full
+    width belongs to bf16 compute at random init, not to the port's dtype
+    policy."""
+    jax_dep = _image_tower_departure(True, seed)
+    port_dep = _image_tower_departure(False, seed)
+    assert jax_dep > 0.01
+    assert port_dep <= 2.5 * jax_dep, (port_dep, jax_dep)
