@@ -3,22 +3,24 @@
 its phase-A train step, its split-q/k/v attention entry point, the chain
 pretrain -> adapter (phase B), the fp32 parity mode, the evaluation from
 files, the command line, its HTTP server, its multi-view training, its ViT
-training and LoRA once on one CUDA GPU.
+training and LoRA, and Grad-CAM and attention rollout once on one CUDA GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
 ``python3 chip_smoke.py --first-step-seeds 0 1 2 3 4 5 6 7`` only builds
 the kernels and prints the readings behind phase 10's own bounds
 (first_step_sweep), and checks nothing; ``--train-first-step-seeds`` does
-the same for phase 11's (train_first_step_sweep).
+the same for phase 11's (train_first_step_sweep), and ``--gradcam-seeds``
+for phase 13's gradcam bounds (gradcam_sweep).
 
 Phases (any failure exits non-zero and prints no result line):
 
 0. Card: name and power limit from nvidia-smi. Without CUDA, exit at once.
    Then the host probe: g++, libpng's, zlib's and libjpeg's headers,
-   -lpng16 / -lpng / -lz / -ljpeg at link time, and which of safetensors,
+   -lpng16 / -lpng / -lz / -ljpeg at link time, which of safetensors,
    PIL, scikit-learn, pandas and cv2 are installed (the port imports none of
-   them).
+   them), and whether matplotlib is (the plots of gradcam and rollout
+   import it).
 1. Build: compile the port's kernels (clip_for_dl_tpu_torch/csrc/*.cu) with
    nvcc for sm_90a, one nvcc per source, all at once; print the build time,
    ptxas' per-kernel summary and, from cuobjdump's SASS of the library, the
@@ -253,6 +255,34 @@ c8_cases).
    command's wall time, samples/s over its steps after the first, peak
    memory and what it leaves on the device (at most 64 MiB).
 
+13. Interpretability (ROADMAP A9), after phase 12. The library half: the
+   zero_shot model (ResNet-50 + BERT-base, bf16, flash attention and the
+   fused BERT MLP, random weights from --seed) encodes the "prediction"
+   bank and runs ``interpret.gradcam`` on two 512x512 grey views prepared to
+   fp32 by B2 (path gradcam: B2, B3, B4): B2 at its input within 1e-4 of
+   its plain version; the same call with the same text features and B2 on
+   its plain version, in bf16 and on the model's fp32 twin: the bf16
+   kernels from the fp32 route within 8e-2 (scores, of the largest) and
+   0.25 (CAMs), the fp32 scores within 2e-3 of the largest (TOL says why
+   the bf16 routes are not held to 1e-3, and that these bounds only
+   witness the path); the batched backward bit-equal to 16 single ones;
+   the bank against the plain route (4e-3).
+   The vit model (ViT-B/16 at 224, bf16, --fused-mlp, flash attention on)
+   through ``interpret.vit_rollout`` on the same views (path rollout: B2
+   and B9, and B3 never: sowing turns flash off), its mask against the
+   plain route (max |difference| 2e-2, cosine 0.999: a witness of the
+   path only, as the mask is nearly flat on random weights), and the
+   sowing forward's features bit-equal to the forward with flash off. Then
+   ``gradcam --synthetic --flash-attention --bert-fused-mlp`` and
+   ``rollout --synthetic --fused-mlp --flash-attention --discard-ratio 0.1``
+   at full width (paths cli_gradcam, cli_rollout): the JAX commands' file
+   names and count; where matplotlib is missing, each overlay is recorded
+   (name, shape, range) in place of its drawing, and that is printed. On
+   all four paths each kernel is held at its first inputs against its
+   plain version at its phase-2 tolerance (B2 to fp32 within 1e-4, B3 and
+   B4 within 2e-2, B9 within 2^-6 of its branch's largest entry): that is
+   the guard of the kernels here. Prints each call's time.
+
 The second-to-last line is the kernels JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -376,6 +406,43 @@ TOL = {
     # times (PERF.md). The kernels on the LoRA paths are held directly at
     # their first inputs too (hold_first_inputs, phase-2 tolerances)
     "lora_bf16_ratio": 2.0,
+    # phase 13, gradcam with B2 against its plain version. B2's fp32 output
+    # lies within 6e-7 of the plain one, yet that flips the bf16 rounding of
+    # 44-72 of the 301056 input values, and the random-weight bf16 ResNet-50
+    # carries a one-step flip to stage 4 as far (1.0e-2 to 1.2e-2 relative,
+    # seeds 0-2) as its own rounding carries the plain route from fp32:
+    # against the bf16 route with B2 plain the scores differ by 1.1e-3 to
+    # 3.8e-2 of the largest and the min-max CAMs by 4.3e-2 to 1.6e-1, so no
+    # bf16 route holds another to 1e-3. Readings of `chip_smoke.py
+    # --gradcam-seeds 0 1 2 3 4 5 6 7` (PERF.md, "Grad-CAM and attention
+    # rollout"; H100 80GB HBM3, 700 W): from the fp32 twin with B2 plain, the bf16 kernels lie 3.7e-3
+    # to 2.2e-2 (scores) and 3.7e-2 to 9.9e-2 (CAMs), the plain bf16 route
+    # 3.1e-3 to 4.0e-2 and 2.5e-2 to 1.2e-1 (their ratio 0.29 to 3.56: one
+    # seed's pair is too noisy for a ratio rule). So the bf16 kernels are
+    # held from the fp32 route within about twice the largest reading of
+    # either bf16 route. That bound only guards against a blow-up of the
+    # bf16 path, not against a kernel fault: planted in B2 on the same
+    # sweep (seeds 0-2, gradcam_routes' faults), each std one bf16 step
+    # too large reads 2.1e-3 to 9.1e-3 (scores) and 3.7e-2 to 6.5e-2
+    # (CAMs), and the resize one source row off 9.9e-3 to 3.0e-2 and 0.18
+    # to 0.56, so both pass the scores bound and the row fault passes the
+    # CAMs bound at seed 2. Both routes share the plain head, so no head
+    # fault shows here either (the CPU tests hold the head against JAX).
+    # The kernel guard is B2 at its input within image_prep_f32 (1e-4; the
+    # planted faults read 4.1e-3 to 8.0e-3 and 0.44 to 1.6 there) and each
+    # kernel at its first inputs (hold_first_inputs). On the fp32 twin B2
+    # against its plain version keeps the scores within
+    # cam_fp32_scores_rel of the largest (readings 9.6e-5 to 1.1e-3)
+    "cam_bf16_scores_rel": 8e-2,
+    "cam_bf16_abs": 0.25,
+    "cam_fp32_scores_rel": 2e-3,
+    # phase 13, the rollout mask of the bf16 --fused-mlp ViT, kernels (B2,
+    # B9) against the plain route: max |difference| and cosine (readings
+    # 3.4e-4 to 4.2e-4, cosine 1.000000 to six places). A witness of the
+    # path only: on random weights the mask lies in [0.88, 1], so a wrong
+    # B9 would hardly move it; B9 and B2 are held at their first inputs
+    "rollout": 2e-2,
+    "rollout_cos": 0.999,
     # engine probabilities, kernels vs plain versions through the whole bf16
     # model (phases 3 and 5): the kernel differences above move cosines by
     # ~1e-3
@@ -510,6 +577,12 @@ PATHS = {  # main path -> the kernels it must launch
     "cli_zeroshot_lora": ("similarity", "image_prep", "flash_attention", "mlp"),
     "cli_zeroshot_vit_lora": ("similarity", "image_prep", "flash_attention", "mlp_block"),
     # the attention entry points with autograd in the types no preset runs
+    # phase 13: Grad-CAM (the bank's B3 and B4, B2 to fp32) and the rollout
+    # (B2, B9; sowing keeps B3 off), as library calls and as commands
+    "gradcam": ("image_prep", "flash_attention", "mlp"),
+    "rollout": ("image_prep", "mlp_block"),
+    "cli_gradcam": ("image_prep", "flash_attention", "mlp"),
+    "cli_rollout": ("image_prep", "mlp_block"),
     "typed_attention": ("flash_attention_fp16", "flash_attention_bwd_fp16",
                         "flash_attention_split_fp16", "flash_attention_split_bwd_fp16",
                         "flash_attention_split_fp32", "flash_attention_split_bwd_fp32"),
@@ -1950,8 +2023,8 @@ def first_inputs(mods, which: dict):
 def hold_first_inputs(mods, kept: dict, which, where: str, results: dict) -> None:
     """Each kernel that first_inputs kept against its plain version on the
     same tensors, at its phase-2 tolerance (B6 per (batch row, head) slice,
-    B8 and B9 relative to each output's largest entry; B2's bf16 output at
-    one bf16 step)."""
+    B8 and B9 relative to each output's largest entry; B2 at its output
+    dtype's: one bf16 or fp16 step, or image_prep_f32)."""
     import torch
 
     check(set(kept) == set(which), f"{where}: kept the inputs of {sorted(kept)}, not of "
@@ -1964,8 +2037,10 @@ def hold_first_inputs(mods, kept: dict, which, where: str, results: dict) -> Non
         print(f"  {name} at {where}'s inputs {shapes} {a[0].dtype}{rate}:")
         if name == "image_prep":
             prep = mods["image_prep"]
-            compare(name, prep._kernel(*a, **kw), prep.preprocess_reference(*a, **kw),
-                    TOL[name], results)
+            got = prep._kernel(*a, **kw)
+            tol = {torch.float32: "image_prep_f32", torch.float16: "image_prep_f16"}.get(
+                got.dtype, name)
+            compare(name, got, prep.preprocess_reference(*a, **kw), TOL[tol], results)
         elif name == "similarity":
             sim = mods["similarity"]
             compare(name, sim._kernel(*a, **kw), sim.similarity_reference(*a, **kw), TOL[name],
@@ -2921,7 +2996,7 @@ def host_probe() -> str:
         parts.append(f"{header} {'found' if found else 'missing'}")
     for lib in ("-lpng16", "-lpng", "-lz", "-ljpeg"):
         parts.append(f"{lib} {'links' if builds('int main() { return 0; }', lib) else 'missing'}")
-    for mod in ("safetensors", "PIL", "sklearn", "pandas", "cv2"):
+    for mod in ("safetensors", "PIL", "sklearn", "pandas", "cv2", "matplotlib"):
         parts.append(f"{mod} {'installed' if importlib.util.find_spec(mod) else 'missing'}")
     return "; ".join(parts)
 
@@ -5026,6 +5101,310 @@ def vit_lora_phase12(_build, mods, dev, seed: int, card: str, workdir: str,
     return by_path
 
 
+GRADCAM_VIEWS = 512  # the side of phase 13's two grey views
+
+
+def gradcam_routes(mods, model, model32, views, text, prep_args, faults=False) -> dict:
+    """Phase 13's readings of ``interpret.gradcam`` with B2 against its plain
+    version, from one bank ``text``, on ``model`` (bf16) and ``model32``,
+    its fp32 twin: "b2", B2 at gradcam's input against its plain version;
+    and pairs (scores' max |difference| over the largest score, CAMs' max
+    |difference|): "bf16", the kernels against the bf16 route with B2
+    plain; "kernels" and "plain", the bf16 kernels and the plain bf16
+    route, each against the fp32 route with B2 plain; "fp32", B2 against
+    its plain version on the fp32 twin. With ``faults``, also planted faults
+    of B2 on the bf16 kernel route, name -> (B2's output from the right
+    one, max |difference|; the pair against the fp32 route): "std", each
+    channel's std one bf16 step (2^-7) too large; "row", the resize one
+    source row off (the views rolled down by one row)."""
+    import torch
+
+    from clip_for_dl_tpu_torch.interpret import gradcam
+
+    prep = mods["image_prep"]
+    x = prep.preprocess_images(views, *prep_args)
+    b2 = float((x - prep.preprocess_reference(views, *prep_args)).abs().max())
+    # plain_kernels' keep: every kernel module but B2's
+    with plain_kernels(mods, keep=("similarity", "flash_attention", "mlp_train", "mlp_block")):
+        plain_b2 = prep.preprocess_images(views, *prep_args)
+        bf16_p, fp32_p = gradcam(model, plain_b2, text), gradcam(model32, plain_b2, text)
+    bf16_k, fp32_k = gradcam(model, x, text), gradcam(model32, x, text)
+
+    def pair(a, b):
+        (cams_a, scores_a), (cams_b, scores_b) = a, b
+        return (float((scores_a - scores_b).abs().max() / scores_b.abs().max()),
+                float((cams_a - cams_b).abs().max()))
+
+    out = {"b2": b2, "bf16": pair(bf16_k, bf16_p), "kernels": pair(bf16_k, fp32_p),
+           "plain": pair(bf16_p, fp32_p), "fp32": pair(fp32_k, fp32_p)}
+    if faults:
+        size_h, size_w, mean, std, dtype = prep_args
+        planted = {"std": (views, (size_h, size_w, mean, [v * (1 + 2 ** -7) for v in std],
+                                   dtype)),
+                   "row": (torch.roll(views, 1, dims=1), prep_args)}
+        for name, (v, a) in planted.items():
+            xf = prep.preprocess_images(v, *a)
+            out[name] = (float((xf - x).abs().max()), pair(gradcam(model, xf, text), fp32_p))
+    return out
+
+
+def gradcam_sweep(_build, mods, dev, seeds) -> None:
+    """The readings behind phase 13's gradcam bounds (cam_bf16_scores_rel,
+    cam_bf16_abs, cam_fp32_scores_rel): gradcam_routes on the weights and views of each
+    seed, as phase 13 draws them. Prints; checks nothing."""
+    import numpy as np
+    import torch
+
+    from clip_for_dl_tpu_torch.core.config import DISEASE_LABELS
+    from clip_for_dl_tpu_torch.tools.main_paths import build_engine, grey_images
+    from clip_for_dl_tpu_torch.zeroshot import prompts_for_family
+
+    print(f"gradcam readings on {card_line()}")
+    rows = []
+    for seed in seeds:
+        cfg, engine = build_engine(dev, seed, "serve")
+        _, engine32 = build_engine(dev, seed, "serve_fp32")
+        views = torch.from_numpy(grey_images(np.random.default_rng(seed + 17), 2,
+                                             GRADCAM_VIEWS)).to(dev)
+        text = engine.build_text_features(prompts_for_family("prediction", DISEASE_LABELS))
+        size = cfg.image_size
+        r = gradcam_routes(mods, engine.model, engine32.model, views, text,
+                           (size, size, engine.mean, engine.std, torch.float32), faults=True)
+        ratios = tuple(k / p for k, p in zip(r["kernels"], r["plain"]))
+        rows.append(r)
+        print(f"  seed {seed}: B2 {r['b2']:.3e}; scores, CAMs: bf16 B2 plain {r['bf16'][0]:.3e}, "
+              f"{r['bf16'][1]:.3e}; from fp32: kernels {r['kernels'][0]:.3e}, "
+              f"{r['kernels'][1]:.3e}, plain bf16 {r['plain'][0]:.3e}, {r['plain'][1]:.3e} "
+              f"(ratios {ratios[0]:.2f}, {ratios[1]:.2f}); fp32 B2 plain {r['fp32'][0]:.3e}, "
+              f"{r['fp32'][1]:.3e}")
+        for name in ("std", "row"):
+            b2_off, (sc, cam) = r[name]
+            print(f"    planted B2 fault {name}: B2's output {b2_off:.3e} from the right one "
+                  f"(guard {TOL['image_prep_f32']}); from fp32: scores {sc:.3e} (bound "
+                  f"{TOL['cam_bf16_scores_rel']}), CAMs {cam:.3e} (bound {TOL['cam_bf16_abs']})")
+        del engine, engine32
+    for key in ("kernels", "plain", "fp32"):
+        print(f"  {key}: scores {min(r[key][0] for r in rows):.3e} to "
+              f"{max(r[key][0] for r in rows):.3e}, CAMs {min(r[key][1] for r in rows):.3e} "
+              f"to {max(r[key][1] for r in rows):.3e}")
+
+
+def interpret_phase13(_build, mods, dev, seed: int, card: str, workdir: str,
+                      results: dict) -> dict:
+    """Phase 13: Grad-CAM and attention rollout (ROADMAP A9). The library
+    half runs ``interpret.gradcam`` on the zero_shot model and
+    ``interpret.vit_rollout`` on the vit model (bf16, the kernels on), each
+    on two GRADCAM_VIEWS grey views prepared to fp32 by B2, against its
+    plain route; the command half runs ``gradcam`` and ``rollout`` with
+    --synthetic at full width, their drawing replaced by a recorder where
+    matplotlib is missing (and that printed). On every path each kernel is
+    also held at its first inputs against its plain version
+    (hold_first_inputs, phase-2 tolerances): the end-to-end bounds below
+    are witnesses of the whole path, not the kernels' guard. Returns the
+    launches of its paths."""
+    import importlib
+    import importlib.util
+    import io
+    import os
+    from contextlib import redirect_stdout
+
+    import numpy as np
+    import torch
+
+    from clip_for_dl_tpu_torch.core.config import DISEASE_LABELS
+    from clip_for_dl_tpu_torch.data import SyntheticMultiViewDataset
+    from clip_for_dl_tpu_torch.interpret import gradcam, vit_rollout
+    from clip_for_dl_tpu_torch.interpret.gradcam import _class_grads, _head_scores
+    from clip_for_dl_tpu_torch.tools.main_paths import build_engine, grey_images
+    from clip_for_dl_tpu_torch.zeroshot import prompts_for_family
+
+    t_phase = time.perf_counter()
+    prep, by_path, walls = mods["image_prep"], {}, {}
+    views = torch.from_numpy(grey_images(np.random.default_rng(seed + 17), 2,
+                                         GRADCAM_VIEWS)).to(dev)
+    prompts = prompts_for_family("prediction", DISEASE_LABELS)
+
+    def timed(name, fn):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    # Grad-CAM, the library calls; the zero_shot model's fp32 twin (the same
+    # seeded weights) is the witness of the bf16 route's own rounding
+    cfg, engine = build_engine(dev, seed, "serve")
+    _, engine32 = build_engine(dev, seed, "serve_fp32")
+    model, model32, size = engine.model, engine32.model, cfg.image_size
+    prep_args = (size, size, engine.mean, engine.std, torch.float32)
+
+    def prepared():
+        return prep.preprocess_images(views, *prep_args)
+
+    bank_kernels = dict.fromkeys(("image_prep", "flash_attention", "mlp"))
+    stack, gradcam_in = first_inputs(mods, bank_kernels)
+    torch.cuda.synchronize(dev)
+    _build.reset_launches()
+    with stack:
+        text = timed("bank", lambda: engine.build_text_features(prompts))
+        x = prepared()
+        cams, scores = timed("gradcam", lambda: gradcam(model, x, text))
+    by_path["gradcam"] = dict(_build.LAUNCHES)
+    check_launched(mods, by_path["gradcam"], "gradcam")
+    timed("gradcam, second call", lambda: gradcam(model, prepared(), text))
+    check(cams.shape == (16, 2, size // 32, size // 32) and scores.shape == (2, 16),
+          f"gradcam gave {list(cams.shape)}, {list(scores.shape)}")
+    check(bool(torch.isfinite(cams).all()) and float(cams.min()) >= 0.0
+          and float(cams.max()) <= 1.0 + 1e-6, "gradcam's CAMs are not finite in [0, 1]")
+    r = gradcam_routes(mods, model, model32, views, text, prep_args)
+    with plain_kernels(mods):
+        text_p = engine.build_text_features(prompts)
+    with torch.no_grad():
+        _, stage4 = model.image_tower(x, capture_stage4=True)
+    batched, _ = _class_grads(model, stage4.float(), text, 1.0, "similarity")
+    s4 = stage4.float().requires_grad_(True)
+    looped = torch.stack([torch.autograd.grad(
+        _head_scores(model, s4, text, 1.0, "similarity")[:, c].sum(), s4)[0]
+        for c in range(16)])
+
+    bank_diff = float((text - text_p).abs().max())
+    b2_diff, kernels, plain, fp32 = r["b2"], r["kernels"], r["plain"], r["fp32"]
+    bf16_tol = TOL["cam_bf16_scores_rel"], TOL["cam_bf16_abs"]
+    print(f"  gradcam on {card}: ResNet-50 bf16, views {list(views.shape)} -> fp32 "
+          f"[2, {size}, {size}, 3], CAMs {list(cams.shape)}; B2 at its input "
+          f"{b2_diff:.3e} from its plain version (tol {TOL['image_prep_f32']}); the batched "
+          f"backward bit-equal to 16 single ones: {torch.equal(batched, looped)}; the bank "
+          f"against the plain route {bank_diff:.3e} (tol {TOL['eval_text_features']})")
+    print(f"    scores (max |difference| over the largest) and CAMs (max |difference|): bf16, "
+          f"B2 against its plain version {r['bf16'][0]:.3e}, {r['bf16'][1]:.3e}; from the "
+          f"fp32 route with B2 plain: the kernels {kernels[0]:.3e}, {kernels[1]:.3e} (tol "
+          f"{bf16_tol[0]}, {bf16_tol[1]}), the plain bf16 route {plain[0]:.3e}, "
+          f"{plain[1]:.3e}; fp32, B2 against its plain version {fp32[0]:.3e} (tol "
+          f"{TOL['cam_fp32_scores_rel']}), {fp32[1]:.3e}")
+    print(f"    bank {walls['bank'] * 1e3:.1f} ms, gradcam {walls['gradcam'] * 1e3:.1f} / "
+          f"{walls['gradcam, second call'] * 1e3:.1f} ms (first / second call); launches "
+          f"{by_path['gradcam']}")
+    check(b2_diff <= TOL["image_prep_f32"], f"B2 at gradcam's input differs by {b2_diff:.3e}")
+    check(torch.equal(batched, looped), "the batched backward differs from single ones")
+    check(bank_diff <= TOL["eval_text_features"], f"the bank differs by {bank_diff:.3e}")
+    check(fp32[0] <= TOL["cam_fp32_scores_rel"],
+          f"fp32 gradcam scores differ by {fp32[0]:.3e} of the largest")
+    for what, k, tol in zip(("scores", "CAMs"), kernels, bf16_tol):
+        check(k <= tol, f"the bf16 gradcam {what} lie {k:.3e} from the fp32 route")
+    hold_first_inputs(mods, gradcam_in, bank_kernels, "gradcam", results)
+    del cfg, engine, engine32, model, model32, text, text_p, stage4, s4, batched, looped
+    del gradcam_in
+
+    # rollout, the library calls
+    cfg, engine = build_engine(dev, seed, "serve_vit")
+    tower, size = engine.model.image_tower, cfg.image_size
+    check(cfg.flash_attention and cfg.vit_fused_mlp, "the vit model runs without its kernels")
+    vit_kernels = dict.fromkeys(("image_prep", "mlp_block"))
+    stack, rollout_in = first_inputs(mods, vit_kernels)
+    torch.cuda.synchronize(dev)
+    _build.reset_launches()
+    with stack:
+        mask = timed("rollout", lambda: vit_rollout(tower, prepared()))
+    by_path["rollout"] = dict(_build.LAUNCHES)
+    check_launched(mods, by_path["rollout"], "rollout")
+    b3 = by_path["rollout"].get(KERNELS["flash_attention"][0], 0)
+    check(b3 == 0, f"the rollout launched B3 {b3} times")
+    timed("rollout, second call", lambda: vit_rollout(tower, prepared()))
+    with plain_kernels(mods):
+        mask_p = vit_rollout(tower, prepared())
+    g = size // cfg.vit_patch
+    check(mask.shape == (2, g, g) and bool(torch.isfinite(mask).all()),
+          f"the rollout mask is {list(mask.shape)} or not finite")
+    mask_diff = float((mask - mask_p).abs().max())
+    mask_cos = float(torch.nn.functional.cosine_similarity(mask.flatten(), mask_p.flatten(),
+                                                           dim=0))
+    x = prepared()
+    with torch.no_grad():
+        feats, attns = tower(x, sow_weights=True)
+        layers = list(tower.encoder.layers)
+        for layer in layers:
+            layer.self_attention.flash = False
+        try:
+            plain_feats = tower(x)
+        finally:
+            for layer in layers:
+                layer.self_attention.flash = True
+        discard = vit_rollout(tower, x, "mean", 0.1)
+    bit_equal = torch.equal(feats, plain_feats)
+    print(f"  rollout on {card}: ViT-B/16 bf16 --fused-mlp, {len(attns)} layers of "
+          f"{list(attns[0].shape)} probabilities, mask {list(mask.shape)}: against the plain "
+          f"route max |difference| {mask_diff:.3e} (tol {TOL['rollout']}), cosine "
+          f"{mask_cos:.6f} (tol {TOL['rollout_cos']}); sowing features bit-equal to flash "
+          f"off: {bit_equal}; "
+          f"rollout {walls['rollout'] * 1e3:.1f} / {walls['rollout, second call'] * 1e3:.1f} "
+          f"ms (first / second call); launches {by_path['rollout']}")
+    check(mask_diff <= TOL["rollout"] and mask_cos >= TOL["rollout_cos"],
+          f"the rollout mask differs by {mask_diff:.3e}, cosine {mask_cos:.6f}")
+    check(bit_equal, "the sowing forward's features differ from the forward with flash off")
+    check(bool(torch.isfinite(discard).all()) and float(discard.max()) == 1.0,
+          "the rollout with --discard-ratio 0.1 is not a finite mask with maximum 1")
+    hold_first_inputs(mods, rollout_in, vit_kernels, "rollout", results)
+    del cfg, engine, tower, attns, rollout_in
+
+    # the commands, at full width on synthetic data; without matplotlib their
+    # drawing is replaced by a recorder of the overlays it would draw
+    cli = importlib.import_module("clip_for_dl_tpu_torch.cli.main")
+    viz = importlib.import_module("clip_for_dl_tpu_torch.utils.visualization")
+    plots = importlib.util.find_spec("matplotlib") is not None
+    drawn = {}
+
+    def record(image, path=None, title=""):
+        drawn[os.path.basename(path)] = (image.shape, float(image.min()), float(image.max()))
+        return path
+
+    if not plots:
+        print("  gradcam and rollout commands: matplotlib is not installed on this machine, "
+              "so their PNGs are NOT written: each overlay is recorded (name, shape, range) "
+              "where the command would draw it; the files wait for matplotlib")
+    labels = SyntheticMultiViewDataset(16, 224, 1)[0]["labels"]
+    positive = [c for c, v in enumerate(labels) if v > 0] or [0]
+    sides = ("frontal", "lateral")
+    runs = (
+        ("gradcam", ["--flash-attention", "--bert-fused-mlp"], "cli_gradcam",
+         {f"sample0_{DISEASE_LABELS[c].replace(' ', '_')}_{v}.png"
+          for c in positive for v in sides}, bank_kernels),
+        ("rollout", ["--fused-mlp", "--flash-attention", "--discard-ratio", "0.1"],
+         "cli_rollout", {f"sample0_{v}.png" for v in sides}, vit_kernels),
+    )
+    for command, flags, path, want, hold in runs:
+        log_dir = f"{workdir}/{command}"
+        out = io.StringIO()
+        drawn.clear()
+        inputs_kept, inputs = first_inputs(mods, hold)
+        torch.cuda.synchronize(dev)
+        _build.reset_launches()
+        with ExitStack() as stack:
+            stack.enter_context(inputs_kept)
+            if not plots:
+                stack.enter_context(mock.patch.object(viz, "save_or_show_image", record))
+            stack.enter_context(redirect_stdout(out))
+            rc = timed(command, lambda: cli.main([command, "--synthetic", *flags,
+                                                  "--log-dir", log_dir]))
+        check(rc == 0, f"{command} exited with {rc}: {out.getvalue()[-2000:]}")
+        by_path[path] = dict(_build.LAUNCHES)
+        check_launched(mods, by_path[path], path)
+        written = set(os.listdir(f"{log_dir}/{command}")) if plots else set(drawn)
+        print(f"  {command} {' '.join(flags)}: exit 0 in {walls[command]:.1f} s on {card}, "
+              f"{len(written)} overlays {'written' if plots else 'recorded'}; launches "
+              f"{by_path[path]}")
+        check(written == want, f"{command} wrote {sorted(written)}, not {sorted(want)}")
+        check(all(shape == (224, 224, 3) and lo >= 0.0 and hi <= 1.0
+                  for shape, lo, hi in drawn.values()),
+              f"{command}'s overlays are not [224, 224, 3] in [0, 1]: {drawn}")
+        hold_first_inputs(mods, inputs, hold, command, results)
+        del inputs
+    b3 = by_path["cli_rollout"].get(KERNELS["flash_attention"][0], 0)
+    check(b3 == 0, f"the rollout command launched B3 {b3} times")
+    print(f"phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    return by_path
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of weights and inputs")
@@ -5035,6 +5414,9 @@ def main(argv=None) -> int:
     ap.add_argument("--train-first-step-seeds", type=int, nargs="+", metavar="SEED",
                     help="only build the kernels and print the readings of "
                          "train_first_step_sweep at these seeds")
+    ap.add_argument("--gradcam-seeds", type=int, nargs="+", metavar="SEED",
+                    help="only build the kernels and print the readings of gradcam_sweep "
+                         "at these seeds")
     args = ap.parse_args(argv)
 
     t_start = time.perf_counter()
@@ -5062,6 +5444,9 @@ def main(argv=None) -> int:
         return 0
     if args.train_first_step_seeds:
         train_first_step_sweep(_build, mods, dev, args.train_first_step_seeds)
+        return 0
+    if args.gradcam_seeds:
+        gradcam_sweep(_build, mods, dev, args.gradcam_seeds)
         return 0
     for line in _build.build_info["log"].splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -5139,6 +5524,9 @@ def main(argv=None) -> int:
         by_path.update(train_phase11(_build, mods, dev, args.seed, card, workdir, results))
         print("== phase 12: ViT training with the tanh GELU, LoRA")
         by_path.update(vit_lora_phase12(_build, mods, dev, args.seed, card, workdir, results))
+        print("== phase 13: Grad-CAM and attention rollout")
+        by_path.update(interpret_phase13(_build, mods, dev, args.seed, card, workdir,
+                                         results))
     print("== the wrappers' host time (tools/launch_times.py)")
     from clip_for_dl_tpu_torch.tools import launch_times
 

@@ -9,13 +9,15 @@
   adapter       frozen-CLIP C-Adapter training (notebook phase B)
   shared-adapter  the shared-embedding adapter over concat(image, report)
   zeroshot      zero-shot evaluation (union-max or dynamic-threshold pipeline)
+  gradcam       Grad-CAM saliency for one sample (--sample_index)
+  rollout       ViT attention-rollout saliency for one sample
   eval          metric suite over a checkpoint on the held-out split
   serve         dynamic-batching HTTP inference server
   convert       checkpoint directory / .pth / .safetensors → reference layout
 
 The parser is the JAX CLI's, command for command and flag for flag, so a
-JAX command line parses unchanged. A command or a flag the port does not
-run yet exits with status 2 and names the ROADMAP item that owns it.
+JAX command line parses unchanged. A flag the port does not run yet exits
+with status 2 and names the ROADMAP item that owns it.
 
 Every command runs on the card (the kernels of ``ops/``); with
 ``CLIP_FOR_DL_TPU_FORCE_CPU`` set it runs on the CPU, where every kernel's
@@ -37,8 +39,6 @@ import numpy as np
 
 ENV_FORCE_CPU = "CLIP_FOR_DL_TPU_FORCE_CPU"
 
-# command → the ROADMAP item that ports it
-UNPORTED_COMMANDS = {"gradcam": "A9", "rollout": "A9"}
 # flag → (the values it takes unported, the ROADMAP item); ``None`` stands
 # for any value but the ones a single-device, default run passes
 _ANY = None
@@ -52,7 +52,7 @@ UNPORTED_FLAGS = {
     "local_loss": (_ANY, "A7"),
     "accum_steps": (_ANY, "A7"),
     "moe_experts": (_ANY, "A7"),
-    "exported": (_ANY, "A9"),
+    "exported": (_ANY, "A9b"),
     "remat": (_ANY, "not ported (torch.utils.checkpoint)"),
     "bf16_attention_probs": (_ANY, "not ported (the attention kernels keep no "
                                    "probabilities; use --flash-attention)"),
@@ -64,9 +64,6 @@ _DEGREES = ("num_devices", "virtual_devices", "tp", "pp", "ep", "num_processes",
 
 def _unported(args) -> str | None:
     """Why ``args`` cannot run in the port, or None."""
-    if args.command in UNPORTED_COMMANDS:
-        return (f"the {args.command!r} command is not ported yet "
-                f"(ROADMAP {UNPORTED_COMMANDS[args.command]})")
     for dest, (values, item) in UNPORTED_FLAGS.items():
         v = getattr(args, dest, None)
         if values is _ANY:
@@ -873,6 +870,115 @@ def cmd_zeroshot(args) -> int:
     return 0
 
 
+def _sample_views(val_loader, index: int):
+    """The ``index``-th exam of the multi-view val loader: (its views
+    [2, H, W, C] uint8, on the host or, from ``--device-cache``, on the
+    device; its labels [C])."""
+    idx = index
+    for batch in val_loader:
+        if idx < len(batch["labels"]):
+            break
+        idx -= len(batch["labels"])
+    return _step_images(batch)[idx], np.asarray(batch["labels"])[idx]
+
+
+def _overlay_views(args, cfg, views, maps, out_dir: str, name: str, title: str) -> list:
+    """Each view's saliency map [2, h, w] upsampled to the image size and
+    drawn in JET over the view, saved as ``<out_dir>/<name>_<view>.png``."""
+    import torch
+
+    from ..interpret import overlay_cam, upsample_cam
+    from ..utils.visualization import save_or_show_image
+
+    size = cfg.model.image_size
+    views = torch.as_tensor(views, device=args.device)
+    written = []
+    for v, view_name in enumerate(("frontal", "lateral")):
+        cam = upsample_cam(maps[v : v + 1], size, size)[0]
+        overlay = overlay_cam(views[v].float() / 255.0, cam)
+        path = os.path.join(out_dir, f"{name}_{view_name}.png")
+        save_or_show_image(overlay.cpu().numpy(), path, f"{title} ({view_name})")
+        written.append(path)
+    return written
+
+
+def _prep_fp32(args, cfg, views):
+    """A sample's views through the image prep (kernel B2) to fp32, as the
+    JAX commands prepare them."""
+    import torch
+
+    from ..ops.image_prep import preprocess_images
+
+    size = cfg.model.image_size
+    return preprocess_images(torch.as_tensor(views, device=args.device), size, size,
+                             cfg.augment.mean, cfg.augment.std, torch.float32)
+
+
+def cmd_gradcam(args) -> int:
+    """Grad-CAM over the ResNet tower for one sample, each positive label's
+    (or class 0's) map over both views, against the "prediction" bank."""
+    import torch
+
+    from ..core.config import DISEASE_LABELS
+    from ..interpret import gradcam
+    from ..zeroshot import prompts_for_family
+    from ..zeroshot.engine import encode_prompt_bank
+
+    cfg = _preset(args)
+    _setup_logging(args.log_dir, "gradcam")
+    tokenizer = _tokenizer(args)
+    cfg = _apply_tiny(cfg, args, len(tokenizer.vocab))
+    model = _model(cfg, args)
+    _, val_loader = _loaders(cfg, args, multi_view=True)
+    views, labels = _sample_views(val_loader, args.sample_index)
+
+    @torch.no_grad()
+    def encode(ids, mask):
+        return model.encode_text(torch.from_numpy(ids).to(args.device),
+                                 torch.from_numpy(mask).to(args.device), normalize=True)
+
+    text_features = encode_prompt_bank(
+        prompts_for_family("prediction", DISEASE_LABELS), DISEASE_LABELS, encode, tokenizer,
+        cfg.model.max_text_length)
+    cams, _ = gradcam(model, _prep_fp32(args, cfg, views), text_features.to(args.device))
+    positive = [i for i, v in enumerate(labels) if v > 0] or [0]
+    out_dir = os.path.join(args.log_dir, "gradcam")
+    os.makedirs(out_dir, exist_ok=True)
+    written = []
+    for c in positive:
+        disease = DISEASE_LABELS[c]
+        written += _overlay_views(args, cfg, views, cams[c],
+                                  out_dir, f"sample{args.sample_index}_{disease.replace(' ', '_')}",
+                                  disease)
+    print(f"wrote {len(written)} Grad-CAM overlays to {out_dir}")
+    return 0
+
+
+def cmd_rollout(args) -> int:
+    """ViT attention-rollout saliency for one sample (vit nb cell 34), from
+    the ``vit`` preset whatever ``--preset`` says, as in the JAX CLI."""
+    import torch
+
+    from ..interpret import attention_rollout
+
+    cfg = _preset(args, "vit")
+    _setup_logging(args.log_dir, "rollout")
+    tokenizer = _tokenizer(args)
+    cfg = _apply_tiny(cfg, args, len(tokenizer.vocab))
+    model = _model(cfg, args)
+    _, val_loader = _loaders(cfg, args, multi_view=True)
+    views, _ = _sample_views(val_loader, args.sample_index)
+    with torch.no_grad():
+        _, attns = model.encode_image_sowed(_prep_fp32(args, cfg, views))
+    mask = attention_rollout(attns, args.head_fusion, args.discard_ratio)
+    out_dir = os.path.join(args.log_dir, "rollout")
+    os.makedirs(out_dir, exist_ok=True)
+    written = _overlay_views(args, cfg, views, mask, out_dir, f"sample{args.sample_index}",
+                             "attention rollout")
+    print(f"wrote {len(written)} rollout overlays to {out_dir}")
+    return 0
+
+
 def cmd_eval(args) -> int:
     from ..core.config import DISEASE_LABELS
     from ..evals.metrics import multilabel_metrics
@@ -1284,18 +1390,19 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--tp", type=int, default=1, help=_not_ported_help("A7"))
     sp.set_defaults(fn=cmd_zeroshot)
 
-    sp = sub.add_parser("gradcam", help="Grad-CAM saliency maps "
-                                        "(" + _not_ported_help("A9") + ")")
+    sp = sub.add_parser("gradcam", help="Grad-CAM saliency maps")
     common(sp)
     sp.add_argument("--sample_index", type=int, default=0)
+    sp.set_defaults(fn=cmd_gradcam)
 
-    sp = sub.add_parser("rollout", help="ViT attention-rollout saliency "
-                                        "(" + _not_ported_help("A9") + ")")
+    sp = sub.add_parser("rollout", help="ViT attention-rollout saliency")
     common(sp)
     sp.add_argument("--sample_index", type=int, default=0)
     sp.add_argument("--head-fusion", default="mean", choices=["mean", "max", "min"])
-    sp.add_argument("--discard-ratio", type=float, default=0.0)
-    sp.set_defaults(preset="vit")
+    sp.add_argument("--discard-ratio", type=float, default=0.0,
+                    help="zero this share of each row's smallest attention "
+                         "entries (never the CLS column) before folding")
+    sp.set_defaults(fn=cmd_rollout, preset="vit")
 
     sp = sub.add_parser("eval", help="metric suite over a checkpoint")
     common(sp)
@@ -1336,7 +1443,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "0 = unbounded")
     sp.add_argument("--tp", type=int, default=1, help=_not_ported_help("A7"))
     sp.add_argument("--exported", default=None, metavar="DIR",
-                    help=_not_ported_help("A9"))
+                    help=_not_ported_help("A9b"))
     sp.add_argument("--head", default="zeroshot", choices=["zeroshot", "adapter"],
                     help="'zeroshot' scores against the prompt bank; "
                          "'adapter' deploys a trained C-Adapter checkpoint "

@@ -6,7 +6,9 @@ the text tower and every head, so that a converted
 JAX checkpoint (``models/convert.py``) loads into it completely. The ported
 entry points are ``encode_image``, ``encode_text``, ``encode_multiview``,
 ``enhance`` (the cross-modal attention of a model built with
-``use_multimodal_attention``), ``adapter_logits``, ``shared_adapter_logits``
+``use_multimodal_attention``), the interpretability paths
+``encode_image_with_stage4``, ``project_image_features`` (Grad-CAM) and
+``encode_image_sowed`` (rollout), ``adapter_logits``, ``shared_adapter_logits``
 and the joint ``forward`` of the pretrain step; ``.train()`` / ``.eval()``
 switch BatchNorm statistics and dropout as flax's ``train=True`` does.
 With ``config.learnable_temperature`` the model also holds the loss's two
@@ -87,6 +89,28 @@ class CXRClip(nn.Module):
         mode the projection's dropout draws from ``generator``."""
         feats = self.image_projector(self.image_tower(images), generator)
         return l2_normalize(feats) if normalize else feats
+
+    def encode_image_with_stage4(self, images: torch.Tensor):
+        """Grad-CAM path (ResNet tower only): (shared-space features, the
+        tower's stage-4 activations NHWC [B, h, w, 2048])."""
+        if not isinstance(self.image_tower, ResNet):
+            raise ValueError(f"encode_image_with_stage4 needs the resnet50 image tower, not "
+                             f"{self.config.image_tower!r}")
+        pooled, stage4 = self.image_tower(images, capture_stage4=True)
+        return self.image_projector(pooled), stage4
+
+    def encode_image_sowed(self, images: torch.Tensor):
+        """Rollout path (ViT tower only): (CLS features, the layers' attention
+        probabilities, each [B, H, N, N] fp32)."""
+        if not isinstance(self.image_tower, ViT):
+            raise ValueError(f"encode_image_sowed needs the vit_b16 image tower, not "
+                             f"{self.config.image_tower!r}")
+        return self.image_tower(images, sow_weights=True)
+
+    def project_image_features(self, pooled: torch.Tensor) -> torch.Tensor:
+        """Tower-pooled features → shared space, in the model's dtype (the
+        Grad-CAM head)."""
+        return self.image_projector(pooled)
 
     def encode_text(self, input_ids: torch.Tensor,
                     attention_mask: Optional[torch.Tensor] = None, *,

@@ -94,8 +94,11 @@ class ResNet(nn.Module):
         self.out_dim = inplanes
         self.to(memory_format=torch.channels_last)
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
-        """NHWC images [B, H, W, 3] → pooled features [B, out_dim]."""
+    def forward(self, images: torch.Tensor, *, capture_stage4: bool = False):
+        """NHWC images [B, H, W, 3] → pooled features [B, out_dim]; with
+        ``capture_stage4`` → (pooled, the last block's activations), the
+        latter NHWC [B, h, w, out_dim] (7 × 7 at 224) in the compute dtype,
+        as the JAX tower returns them: a view of the channels_last map."""
         x = images.permute(0, 3, 1, 2).to(
             dtype=self.conv1.weight.dtype, memory_format=torch.channels_last
         )
@@ -104,4 +107,7 @@ class ResNet(nn.Module):
         for stage in range(self.num_stages):
             x = getattr(self, f"layer{stage + 1}")(x)
         # global average pool in fp32 == torch AdaptiveAvgPool2d(1)
-        return x.float().mean(dim=(2, 3)).to(x.dtype)
+        pooled = x.float().mean(dim=(2, 3)).to(x.dtype)
+        if capture_stage4:
+            return pooled, x.permute(0, 2, 3, 1)
+        return pooled

@@ -28,13 +28,19 @@ Two switches mirror the JAX layer:
   the JAX layer orders them;
 - otherwise the plain LayerNorm → Linear → GELU → Linear → residual.
 
-The tower has no dropout: the JAX ``CXRClip`` builds it at rate 0. Attention
-rollout (``sow_weights``, ROADMAP A9) is not ported and raises.
+The tower has no dropout: the JAX ``CXRClip`` builds it at rate 0.
+
+``sow_weights=True`` (attention rollout) also returns each layer's softmax
+probabilities, [B, H, N, N] fp32, taken before the cast for PV, as the JAX
+tower sows them (vit.py:165-176); as in JAX it turns ``flash`` off for that
+call, since the kernel keeps no probabilities. The MLP switches are
+untouched: a ``fused_mlp`` tower in eval mode and bf16 still runs B9.
 """
 
 from __future__ import annotations
 
 from collections import OrderedDict
+from typing import List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -62,16 +68,21 @@ class MultiheadSelfAttention(nn.Module):
         self.out_proj = nn.Linear(hidden, hidden)
         nn.init.xavier_uniform_(self.in_proj_weight)
 
-    def forward(self, y: torch.Tensor) -> torch.Tensor:
+    def forward(self, y: torch.Tensor, sown: Optional[List[torch.Tensor]] = None
+                ) -> torch.Tensor:
+        """With ``sown`` (a list), the plain branch runs and appends its fp32
+        probabilities [B, H, N, N] to it."""
         B, N, hidden = y.shape
         qkv = F.linear(y, self.in_proj_weight, self.in_proj_bias)
-        if self.flash:
+        if self.flash and sown is None:
             attn = fa.flash_attention_packed(qkv, self.heads)
         else:
             h, hd = self.heads, hidden // self.heads
             q, k, v = qkv.view(B, N, 3, h, hd).permute(2, 0, 3, 1, 4).unbind(0)
             logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) / float(hd) ** 0.5
             probs = torch.softmax(logits, dim=-1)
+            if sown is not None:
+                sown.append(probs)
             attn = torch.matmul(probs.to(y.dtype).float(), v.float()).to(y.dtype)
             attn = attn.transpose(1, 2).reshape(B, N, hidden)
         return self.out_proj(attn)
@@ -105,9 +116,10 @@ class ViTEncoderLayer(nn.Module):
         # the MLP's dropout rate is 0: the CLIP ViT is built without dropout
         return self.fused_mlp_train and self._kernel_widths(dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, sown: Optional[List[torch.Tensor]] = None
+                ) -> torch.Tensor:
         dt = x.dtype
-        x = x + self.self_attention(_layer_norm(self.ln_1, x, dt))
+        x = x + self.self_attention(_layer_norm(self.ln_1, x, dt), sown)
         fc1, fc2 = self.mlp["0"], self.mlp["3"]
         if self._use_fused_mlp(dt):
             return mlp_block.fused_mlp_block_trainable(
@@ -158,10 +170,9 @@ class ViT(nn.Module):
                                 gelu_approximate=gelu_approximate, fused_mlp=fused_mlp,
                                 flash=flash, fused_mlp_train=fused_mlp_train)
 
-    def forward(self, images: torch.Tensor, *, sow_weights: bool = False) -> torch.Tensor:
-        if sow_weights:
-            raise NotImplementedError("attention rollout (sow_weights) is not ported yet "
-                                      "(ROADMAP A9)")
+    def forward(self, images: torch.Tensor, *, sow_weights: bool = False):
+        """CLS features [B, hidden]; with ``sow_weights``, (features, the
+        layers' attention probabilities in order, each [B, H, N, N] fp32)."""
         dt = self.conv_proj.weight.dtype
         b, hgt, wdt, c = images.shape
         p = self.patch
@@ -173,7 +184,9 @@ class ViT(nn.Module):
         x = F.linear(x, w, self.conv_proj.bias)
         x = torch.cat([self.class_token.expand(b, -1, -1), x], dim=1)
         x = x + self.encoder.pos_embedding
+        sown = [] if sow_weights else None
         for layer in self.encoder.layers:
-            x = layer(x)
+            x = layer(x, sown)
         # LayerNorm is per row, so only the CLS row is normalized
-        return _layer_norm(self.encoder.ln, x[:, 0], dt)
+        feats = _layer_norm(self.encoder.ln, x[:, 0], dt)
+        return (feats, sown) if sow_weights else feats

@@ -1,6 +1,12 @@
 from .driver import run_dynamic_threshold_eval, run_zero_shot_eval
 from .engine import ZeroShotEngine, encode_prompt_bank
-from .predict import sigmoid_predictions, softmax_topk_predictions
+from .predict import (
+    adjust_predictions_by_cooccurrence,
+    frequency_thresholds,
+    sigmoid_predictions,
+    softmax_topk_predictions,
+    unique_problem_labels,
+)
 from .prompts import prompts_for_family
 from .thresholds import search_thresholds
 
@@ -10,7 +16,10 @@ __all__ = [
     "run_dynamic_threshold_eval",
     "run_zero_shot_eval",
     "search_thresholds",
+    "adjust_predictions_by_cooccurrence",
+    "frequency_thresholds",
     "sigmoid_predictions",
     "softmax_topk_predictions",
+    "unique_problem_labels",
     "prompts_for_family",
 ]

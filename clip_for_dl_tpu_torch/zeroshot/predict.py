@@ -1,11 +1,13 @@
 """Zero-shot predictors and multi-view merging: host-side set logic over
-the engine's score matrices (copy of the pandas-free functions of
-``clip_for_dl_tpu.zeroshot.predict``).
+the engine's score matrices (counterpart of ``clip_for_dl_tpu.zeroshot.predict``).
 
 - sigmoid + scalar-or-per-disease threshold + top-k backfill
 - softmax + top-k names/scores
 - union/max view merging and weighted frontal/lateral merging with argmax
   fallback; prediction sets → binary matrix
+- the label and threshold helpers (unique terms of a Problems column,
+  frequency-conditioned thresholds, co-occurrence adjustment), over the
+  port's tables where the JAX ones take pandas frames
 """
 
 from __future__ import annotations
@@ -122,6 +124,57 @@ def merge_views_weighted(
         all_preds.append([disease_list[j] for j in order])
         all_scores.append([float(row[j]) for j in order])
     return all_preds, all_scores
+
+
+def unique_problem_labels(problems_column) -> List[str]:
+    """All unique semicolon-separated diagnosis terms of a Problems column
+    (0425/prepare_data.py:15-30 process_multiple_labels); non-string cells
+    (missing ones) are skipped."""
+    seen = set()
+    for problems in problems_column:
+        if isinstance(problems, str):
+            seen.update(p.strip() for p in problems.split(";"))
+    return list(seen)
+
+
+def frequency_thresholds(
+    disease_stats: Mapping[str, Mapping[str, float]], common_cutoff: int = 100,
+    common_threshold: float = 0.4, rare_threshold: float = 0.6,
+) -> List[float]:
+    """Frequency-conditioned thresholds, one a disease in the order of
+    ``disease_stats`` (``prompts.analyze_disease_distribution``'s dict, the
+    rows of the JAX DataFrame): lower for common diseases, higher for rare
+    ones (the intent of 0425/prepare_data.py:288-301)."""
+    return [
+        common_threshold if stats["frequency"] > common_cutoff else rare_threshold
+        for stats in disease_stats.values()
+    ]
+
+
+def adjust_predictions_by_cooccurrence(
+    pred_matrix: np.ndarray,
+    cooccurrence: Mapping[str, Mapping[str, int]],
+    disease_list: Sequence[str],
+    min_count: int = 5,
+) -> np.ndarray:
+    """For single-prediction samples, switch on the diseases that co-occur
+    with the predicted one more than ``min_count`` times (the intent of
+    0425/prepare_data.py:316-325), over ``prompts.disease_cooccurrence``'s
+    dict of rows (the JAX DataFrame's ``.loc[row, column]`` as
+    ``[row][column]``)."""
+    pred = np.array(pred_matrix, copy=True)
+    for i, row in enumerate(pred):
+        if row.sum() == 1:
+            disease = disease_list[int(np.argmax(row))]
+            if disease not in cooccurrence:
+                continue
+            counts = cooccurrence[disease]
+            for j, other in enumerate(disease_list):
+                if other == disease or other not in counts:
+                    continue
+                if counts[other] > min_count:
+                    pred[i, j] = 1.0
+    return pred
 
 
 def predictions_to_matrix(

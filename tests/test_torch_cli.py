@@ -219,8 +219,7 @@ def test_parser_takes_every_jax_command_and_flag():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["gradcam"], "A9"),
-    (["rollout"], "A9"), (["serve", "--exported", "artifact"], "A9"),
+    (["serve", "--exported", "artifact"], "A9b"),
     (["serve", "--tp", "2"], "A7"),
     (["pretrain", "--lora", "4", "--pp", "2"], "A7"),
     (["pretrain", "--lora", "4", "--num-devices", "2"], "A7"),
@@ -253,7 +252,8 @@ def test_single_device_values_of_those_flags_run(argv, capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("command", ["prep", "cache-images", "pretrain", "adapter", "zeroshot",
-                                     "eval", "convert", "train", "shared-adapter"])
+                                     "eval", "convert", "train", "shared-adapter", "gradcam",
+                                     "rollout"])
 def test_without_a_card_or_the_switch_every_command_fails(command, tmp_path, capsys,
                                                            monkeypatch):
     """No card and no CLIP_FOR_DL_TPU_FORCE_CPU: a non-zero exit with
@@ -268,6 +268,39 @@ def test_without_a_card_or_the_switch_every_command_fails(command, tmp_path, cap
     assert cli.main(argv) != 0
     assert "a CUDA GPU is required" in capsys.readouterr().err
     assert not os.listdir(tmp_path)
+
+
+# -- gradcam and rollout -------------------------------------------------------------
+
+
+@pytest.mark.parametrize("argv", [
+    ["gradcam", "--sample_index", "1"],
+    ["rollout"],
+    ["rollout", "--sample_index", "1", "--head-fusion", "min", "--discard-ratio", "0.5"],
+], ids=["gradcam", "rollout", "rollout_discard"])
+def test_gradcam_and_rollout_write_the_jax_clis_files(argv, tmp_path, force_cpu):
+    """``--tiny --synthetic --fp32``: the file names the JAX commands write
+    for the sample (gradcam: each positive label's map over both views, or
+    class 0's; rollout: both views), read off the JAX package's synthetic
+    validation set; the JAX CLI itself runs in the slow tier
+    (tests/test_cli.py). ``--discard-ratio`` runs where the JAX command
+    raises (ROADMAP C9)."""
+    from clip_for_dl_tpu.data import SyntheticMultiViewDataset as JSyntheticMultiViewDataset
+
+    rc, out = run(cli.main, [*argv, "--tiny", "--synthetic", "--fp32", "--synthetic-samples",
+                             "8", "--log-dir", str(tmp_path)])
+    assert rc == 0, out
+    index = int(argv[2]) if "--sample_index" in argv else 0
+    views = ("frontal", "lateral")
+    if argv[0] == "gradcam":
+        labels = JSyntheticMultiViewDataset(2, 64, 1)[index]["labels"]
+        positive = [c for c, v in enumerate(labels) if v > 0] or [0]
+        want = {f"sample{index}_{DISEASE_LABELS[c].replace(' ', '_')}_{v}.png"
+                for c in positive for v in views}
+    else:
+        want = {f"sample{index}_{v}.png" for v in views}
+    assert set(os.listdir(tmp_path / argv[0])) == want
+    assert f"wrote {len(want)} " in out
 
 
 # -- prep and cache-images ----------------------------------------------------------

@@ -1694,3 +1694,115 @@ def test_enhance_engine_launches_b1_on_the_card(cuda):
         want = engine.probs(imgs)
     assert got.shape == (12, 16) and np.isfinite(got).all()
     np.testing.assert_allclose(got, want, atol=5e-3, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# interpretability (chip_smoke.py phase 13, at a tiny size)
+# ---------------------------------------------------------------------------
+
+
+def _tiny_interpret_model(device, tower: str):
+    """A bf16 serving model (matmul weights cast) with both towers' kernel
+    gates open: BERT and the ViT at hidden 128, MLP 256; flash attention,
+    the BERT MLP kernel and the ViT's fused MLP on."""
+    import dataclasses
+
+    from clip_for_dl_tpu_torch.core.config import get_preset
+    from clip_for_dl_tpu_torch.core.device import cast_matmul_weights
+    from clip_for_dl_tpu_torch.models import CXRClip, init_weights
+
+    preset = get_preset("vit" if tower == "vit" else "zero_shot")
+    cfg = dataclasses.replace(
+        preset.model, image_size=64, max_text_length=32, vocab_size=128,
+        text_embedding_dim=128, text_layers=2, text_heads=2, text_intermediate_dim=256,
+        shared_embedding_dim=64, text_max_position=64, resnet_stages=(1, 1, 1, 1),
+        resnet_width=16, vit_layers=2, vit_hidden=128, vit_heads=2, vit_mlp_dim=256,
+        flash_attention=True, bert_fused_mlp=True, vit_fused_mlp=True)
+    model = init_weights(CXRClip(cfg), torch.Generator().manual_seed(5)).to(device)
+    cast_matmul_weights(model, torch.bfloat16)
+    return preset, model.eval()
+
+
+def test_gradcam_on_the_card_holds_against_b2s_plain_version(cuda):
+    """gradcam on a bf16 ResNet, fp32 prep of two grey 96 × 96 views: B2
+    launched once, and against the same call with B2's plain version the
+    scores within 1e-3 of the largest one and the CAMs [16, 2, 2, 2] within 1e-3
+    (B2's fp32 outputs differ by ≤ 1e-4 and the tower casts them to
+    bf16)."""
+    from unittest import mock
+
+    from clip_for_dl_tpu_torch.interpret import gradcam
+    from clip_for_dl_tpu_torch.ops import _build
+
+    preset, model = _tiny_interpret_model(cuda, "resnet")
+    g = torch.Generator(cuda).manual_seed(6)
+    views = torch.randint(0, 256, (2, 96, 96, 1), device=cuda, generator=g, dtype=torch.uint8)
+    text = torch.randn(16, 64, device=cuda, generator=g)
+    args = (64, 64, preset.augment.mean, preset.augment.std, torch.float32)
+    _build.reset_launches()
+    cams, scores = gradcam(model, prep.preprocess_images(views, *args), text)
+    torch.cuda.synchronize()
+    assert dict(_build.LAUNCHES) == {prep.KERNEL: 1}
+    with mock.patch.object(prep, "_kernel", prep.preprocess_reference):
+        cams_p, scores_p = gradcam(model, prep.preprocess_images(views, *args), text)
+    assert cams.shape == (16, 2, 2, 2) and torch.isfinite(cams).all()
+    assert float((scores - scores_p).abs().max()) <= 1e-3 * float(scores_p.abs().max())
+    torch.testing.assert_close(cams, cams_p, atol=1e-3, rtol=0)
+
+
+def test_rollout_on_the_card_holds_against_the_plain_route(cuda):
+    """vit_rollout on a bf16 --fused-mlp --flash-attention ViT: B2 and B9
+    launched, B3 never (sowing turns flash off); B9 at its first inputs on
+    this path against its plain version, on the MLP branch out - x within
+    2^-6 of its largest entry (chip_smoke.py's mlp_block_rel: the mask
+    below is nearly flat on random weights, so it alone would not catch a
+    wrong B9); the sowing forward's features bit-equal to the forward with
+    flash off; the mask within 2e-2 of the plain route's (B2 and B9 on
+    their plain versions), cosine ≥ 0.999."""
+    from unittest import mock
+
+    from clip_for_dl_tpu_torch.interpret import vit_rollout
+    from clip_for_dl_tpu_torch.ops import _build
+
+    preset, model = _tiny_interpret_model(cuda, "vit")
+    tower = model.image_tower
+    g = torch.Generator(cuda).manual_seed(7)
+    views = torch.randint(0, 256, (2, 96, 96, 1), device=cuda, generator=g, dtype=torch.uint8)
+    args = (64, 64, preset.augment.mean, preset.augment.std, torch.float32)
+    kept, kernel = [], mlp_block._kernel
+
+    def keep(*a, **kw):
+        if not kept:
+            kept.append(([t.clone() if torch.is_tensor(t) else t for t in a], dict(kw)))
+        return kernel(*a, **kw)
+
+    _build.reset_launches()
+    with mock.patch.object(mlp_block, "_kernel", keep):
+        mask = vit_rollout(tower, prep.preprocess_images(views, *args))
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    assert launches.get(prep.KERNEL) == 1 and launches.get(mlp_block.KERNEL) == 2
+    assert launches.get(fa.KERNEL, 0) == 0
+    a, kw = kept[0]
+    x0 = a[0].float()
+    want = mlp_block.fused_mlp_block_reference(*a, **kw).float() - x0
+    branch_err = float((mlp_block._kernel(*a, **kw).float() - x0 - want).abs().max())
+    assert branch_err <= 2.0 ** -6 * float(want.abs().max())
+    x = prep.preprocess_images(views, *args)
+    with torch.no_grad():
+        feats, _ = tower(x, sow_weights=True)
+        for layer in tower.encoder.layers:
+            layer.self_attention.flash = False
+        try:
+            plain_feats = tower(x)
+        finally:
+            for layer in tower.encoder.layers:
+                layer.self_attention.flash = True
+    assert torch.equal(feats, plain_feats)
+    with mock.patch.object(prep, "_kernel", prep.preprocess_reference), \
+            mock.patch.object(mlp_block, "_kernel", mlp_block.fused_mlp_block_reference):
+        mask_p = vit_rollout(tower, prep.preprocess_images(views, *args))
+    assert mask.shape == (2, 4, 4) and torch.isfinite(mask).all()
+    torch.testing.assert_close(mask, mask_p, atol=2e-2, rtol=0)
+    cos = torch.nn.functional.cosine_similarity(mask.flatten(), mask_p.flatten(), dim=0)
+    assert float(cos) >= 0.999

@@ -340,15 +340,19 @@ def test_unported_vit_options_raise():
     """The training MLP (vit_fused_mlp_train, ROADMAP A8) is ported: its
     model builds, and in bf16 train mode each layer's MLP goes through
     dense_gelu_dense, where eval mode with both switches takes B9 (the JAX
-    order); attention rollout (A9) still raises."""
+    order); attention rollout (A9, ported) returns each layer's fp32
+    probabilities beside the unchanged features."""
     model = CXRClip(config.ModelConfig(**_cfg(vit_fused_mlp_train=True, vit_fused_mlp=True)))
     layer = model.image_tower.encoder.layers[0]
     assert layer._use_fused_mlp_train(torch.bfloat16)
     assert not layer._use_fused_mlp_train(torch.float32)
     assert layer.eval()._use_fused_mlp(torch.bfloat16)
     assert not layer.train()._use_fused_mlp(torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="A9"):
-        _port_model().image_tower(torch.zeros(1, 32, 32, 3), sow_weights=True)
+    tower, x = _port_model().image_tower, torch.zeros(1, 32, 32, 3)
+    feats, attns = tower(x, sow_weights=True)
+    assert torch.equal(feats, tower(x))
+    assert [a.shape for a in attns] == [(1, 2, 5, 5)] * 2
+    assert all(a.dtype == torch.float32 for a in attns)
 
 
 def test_init_weights_is_seeded_for_the_vit():
