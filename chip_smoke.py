@@ -3,7 +3,8 @@
 its phase-A train step, its split-q/k/v attention entry point, the chain
 pretrain -> adapter (phase B), the fp32 parity mode, the evaluation from
 files, the command line, its HTTP server, its multi-view training, its ViT
-training and LoRA, and Grad-CAM and attention rollout once on one CUDA GPU.
+training and LoRA, Grad-CAM and attention rollout, and its exported programs
+once on one CUDA GPU.
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -283,6 +284,28 @@ c8_cases).
    B4 within 2e-2, B9 within 2^-6 of its branch's largest entry): that is
    the guard of the kernels here. Prints each call's time.
 
+14. Export (ROADMAP A9b), after phase 13, on phase 9's files.
+   ``tools/export_inference --checkpoint <phase 9's adapter directory>
+   --stablehlo --dtype bfloat16 --source-size 512 --cpu`` at full width
+   (the zero_shot model, folded), in this process: the four programs
+   traced on the CPU, the folded weights and the manifest, with the
+   export time and the files' sizes. ``serve --exported`` in a child
+   process, and again with ``--head adapter`` (paths export_serve,
+   export_serve_adapter: B1 and B2, B2), each sent EXPORT_ALONE 512x512x3
+   PNGs one at a time and EXPORT_CLIENTS x EXPORT_PER_CLIENT at once: every
+   answer held against the live engine on the card (the tool's folded
+   weights, ``load_folded_model``, and the bank baked into score_image.pt2)
+   at the bucket it ran in, probabilities within 1e-6; the request rates and
+   the load times. In this process both programs against the live engines
+   at b = 1, 3 and 16, logits within 1e-5 (path export_programs), and the
+   folded against the unfolded bf16 model printed as a reading. Then, on
+   the card, ``export_text_encoder`` of the zero_shot model with flash
+   attention and the fused BERT MLP (L = 200; path export_text: B3, B4)
+   and ``export_singleview_scorer`` of the fused-MLP ViT-B/16 at 512x512
+   input (path export_vit: B1, B2, B3, B9), each against its live forward
+   within 1e-5. On every path each kernel is held at its first inputs
+   against its plain version (hold_first_inputs, phase-2 tolerances).
+
 The second-to-last line is the kernels JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -453,6 +476,10 @@ TOL = {
     # service answer vs engine.probs on the same image at batch 1: the same
     # kernels on the same shapes; host vs device sigmoid
     "service": 1e-6,
+    # phase 14, an exported program against the live forward on the same
+    # weights, inputs and batch: the same operations and kernels in the same
+    # order (logits, unit features; the probabilities within "service")
+    "exported": 1e-5,
     # fp16 output |x| ≤ 2.2: a 1e-6 fp32 difference can flip one fp16
     # rounding step, 2^-9 there
     "image_prep_f16": 2.0 ** -9,
@@ -583,6 +610,14 @@ PATHS = {  # main path -> the kernels it must launch
     "rollout": ("image_prep", "mlp_block"),
     "cli_gradcam": ("image_prep", "flash_attention", "mlp"),
     "cli_rollout": ("image_prep", "mlp_block"),
+    # phase 14: serve --exported in a child process, both heads; both
+    # programs in this process; the text encoder and the ViT scorer exported
+    # on the card
+    "export_serve": ("similarity", "image_prep"),
+    "export_serve_adapter": ("image_prep",),
+    "export_programs": ("similarity", "image_prep"),
+    "export_text": ("flash_attention", "mlp"),
+    "export_vit": ("similarity", "image_prep", "flash_attention", "mlp_block"),
     "typed_attention": ("flash_attention_fp16", "flash_attention_bwd_fp16",
                         "flash_attention_split_fp16", "flash_attention_split_bwd_fp16",
                         "flash_attention_split_fp32", "flash_attention_split_bwd_fp32"),
@@ -5405,6 +5440,266 @@ def interpret_phase13(_build, mods, dev, seed: int, card: str, workdir: str,
     return by_path
 
 
+EXPORT_SOURCE = 512  # the side of the exported scorers' uint8 input (phase 14)
+# /predict requests each exported server answers: one at a time, then
+# clients posting at once
+EXPORT_ALONE, EXPORT_CLIENTS, EXPORT_PER_CLIENT = 8, 4, 4
+
+
+def export_phase14(_build, mods, dev, seed: int, card: str, workdir: str,
+                   results: dict) -> dict:
+    """Phase 14: the export tool on phase 9's adapter checkpoint, ``serve
+    --exported`` with both heads, the programs against the live engines on
+    the folded weights, and the library exports of the flash, fused-MLP
+    BERT and the fused-MLP ViT on the card. Returns the launches of its
+    paths."""
+    import io
+    import os
+    import threading
+    from contextlib import redirect_stdout
+
+    import numpy as np
+    import torch
+
+    from clip_for_dl_tpu_torch import export
+    from clip_for_dl_tpu_torch.core.config import DISEASE_LABELS, ZeroShotConfig, get_preset
+    from clip_for_dl_tpu_torch.inference import AdapterEngine, load_trained_model
+    from clip_for_dl_tpu_torch.serving import decode_request_image
+    from clip_for_dl_tpu_torch.testing.png import encode_png
+    from clip_for_dl_tpu_torch.tools import export_inference
+    from clip_for_dl_tpu_torch.tools.main_paths import build_engine, grey_images
+    from clip_for_dl_tpu_torch.zeroshot import ZeroShotEngine, prompts_for_family
+
+    t_phase = time.perf_counter()
+    work9, work = f"{workdir}/cli", f"{workdir}/export"
+    art, lib = f"{work}/artifact", f"{work}/library"
+    os.makedirs(lib)
+    by_path, walls = {}, {}
+
+    def mb(path):
+        return os.path.getsize(path) / 1e6
+
+    # -- 1. the tool, traced on the CPU at full width ------------------------------------
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with redirect_stdout(out):
+        rc = export_inference.main([
+            "--checkpoint", f"{work9}/adapter", "--out", art, "--vocab", f"{work9}/vocab.txt",
+            "--stablehlo", "--dtype", "bfloat16", "--source-size", str(EXPORT_SOURCE), "--cpu"])
+    walls["export tool (CPU)"] = time.perf_counter() - t0
+    check(rc == 0, f"export_inference exited with {rc}")
+    with open(f"{art}/manifest.json") as f:
+        manifest = json.load(f)
+    files = (export.SCORER_FILE, export.SINGLEVIEW_FILE, export.ADAPTER_FILE,
+             export.TEXT_ENCODER_FILE, "weights.safetensors")
+    for line in out.getvalue().splitlines():
+        print(f"  {line}")
+    print(f"export_inference --stablehlo --dtype bfloat16 --source-size {EXPORT_SOURCE} --cpu "
+          f"on phase 9's adapter checkpoint: {walls['export tool (CPU)']:.1f} s on the CPU; "
+          + ", ".join(f"{n} {mb(f'{art}/{n}'):.1f} MB" for n in files)
+          + f"; traced on {manifest['stablehlo']['traced_on']} with torch "
+          f"{manifest['stablehlo']['torch_version']}")
+
+    # -- 2. the live engines on the card: the folded weights, the baked bank --------------
+    pre = manifest["preprocess"]
+    mean, std, size = tuple(pre["mean"]), tuple(pre["std"]), pre["image_size"]
+    t0 = time.perf_counter()
+    programs = {"zeroshot": export.ExportedEngine(art, device=dev),
+                "adapter": export.ExportedEngine(art, module=export.ADAPTER_FILE, device=dev)}
+    torch.cuda.synchronize(dev)
+    walls["load both programs onto the card"] = time.perf_counter() - t0
+    check(all(p.device == dev and p.image_size == EXPORT_SOURCE for p in programs.values()),
+          "the programs did not load onto the card at 512")
+    bank = programs["zeroshot"].exported.state_dict["text_features"]
+    folded = export_inference.load_folded_model(art, device=dev)
+    zs_config = ZeroShotConfig(**manifest["zeroshot"])
+    live = {"zeroshot": ZeroShotEngine(folded, None, DISEASE_LABELS, zs_config, mean, std, size,
+                                       compute_dtype=torch.bfloat16),
+            "adapter": AdapterEngine(folded, mean, std, size, torch.bfloat16)}
+    live["zeroshot"].text_features = bank
+
+    rng = np.random.default_rng(seed + 53)
+    n_req = EXPORT_ALONE + EXPORT_CLIENTS * EXPORT_PER_CLIENT
+    rgb = grey_images(rng, 3 * n_req, EXPORT_SOURCE).reshape(
+        n_req, 3, EXPORT_SOURCE, EXPORT_SOURCE).transpose(0, 2, 3, 1)
+    pngs = [encode_png(np.ascontiguousarray(im)) for im in rgb]
+    decoded = np.stack([decode_request_image(b, "image/png", EXPORT_SOURCE) for b in pngs])
+    check(np.array_equal(decoded, rgb), "the request PNGs did not decode to their images")
+    imgs = torch.from_numpy(decoded).to(dev)
+
+    # both programs in this process against the live engines, at b = 1, 3, 16
+    cases = [(head, b) for head in ("zeroshot", "adapter") for b in (1, 3, 16)]
+    stack, kept = first_inputs(mods, dict.fromkeys(("similarity", "image_prep")))
+    torch.cuda.synchronize(dev)
+    _build.reset_launches()
+    with stack:
+        got = {(h, b): programs[h].logits(imgs[:b]) for h, b in cases}
+    torch.cuda.synchronize(dev)
+    by_path["export_programs"] = dict(_build.LAUNCHES)
+    check_launched(mods, by_path["export_programs"], "export_programs")
+    worst = {(h, b): float(np.abs(got[h, b] - live[h].logits(imgs[:b])).max())
+             for h, b in cases}
+    print("the programs on the card against the live engines on the folded weights, max "
+          "|logits difference|: " + ", ".join(f"{h} b={b} {v:.3g}" for (h, b), v in worst.items()))
+    hold_first_inputs(mods, kept, dict.fromkeys(("similarity", "image_prep")),
+                      "export_programs", results)
+    unfolded = load_trained_model(f"{work9}/adapter", get_preset("zero_shot").replace(
+        model=export_inference.model_config(manifest)), torch.bfloat16, device=dev)
+    gap_zs = ZeroShotEngine(unfolded, None, DISEASE_LABELS, zs_config, mean, std, size,
+                            compute_dtype=torch.bfloat16)
+    gap_zs.text_features = bank
+    gap_ad = AdapterEngine(unfolded, mean, std, size, torch.bfloat16)
+    gaps = [float(np.abs(gap_zs.logits(imgs) - live["zeroshot"].logits(imgs)).max()),
+            float(np.abs(gap_ad.logits(imgs) - live["adapter"].logits(imgs)).max())]
+    print(f"  the folded bf16 model against the unfolded one (a reading, not a bound), max "
+          f"|logits difference| over {n_req} images: zero-shot {gaps[0]:.4g}, adapter "
+          f"{gaps[1]:.4g}")
+    del unfolded, gap_zs, gap_ad
+    failures = [f"{h} b={b}: {v:.3g}" for (h, b), v in worst.items() if v > TOL["exported"]]
+
+    # the answers the live engine gives at each bucket a request can run in
+    # (the batcher pads with zero images; rows do not mix)
+    @torch.inference_mode()
+    def live_probs(head, bucket):
+        rows = []
+        for i in range(n_req):
+            batch = torch.zeros((bucket, *imgs.shape[1:]), dtype=torch.uint8, device=dev)
+            batch[0] = imgs[i]
+            rows.append(torch.sigmoid(live[head]._dispatch(batch)[0][0]).cpu().numpy())
+        return np.stack(rows)
+
+    # -- 3. serve --exported, both heads ---------------------------------------------------
+    env = dict(os.environ, PYTHONUNBUFFERED="1")
+    if dev.type == "cuda":  # the child takes the card, as the smoke does
+        env.pop("CLIP_FOR_DL_TPU_FORCE_CPU", None)
+    for head, path in (("zeroshot", "export_serve"), ("adapter", "export_serve_adapter")):
+        argv = ["serve", "--exported", art, "--head", head, "--host", "127.0.0.1", "--port",
+                "0", "--log-dir", f"{work}/logs_{head}"]
+        t0 = time.perf_counter()
+        served = Served(argv, f"{work}/launches_{head}.json", env)
+        start_s = time.perf_counter() - t0
+        answers = [None] * n_req
+        try:
+            status, _, health, _ = served.request("GET", "/healthz")
+            check(status == 200 and health["image_size"] == EXPORT_SOURCE
+                  and health["checkpoint"] == art and health["buckets"] == [1, 4, 16, 64],
+                  f"/healthz {status} {health}")
+            t0 = time.perf_counter()
+            for i in range(EXPORT_ALONE):
+                answers[i] = served.request("POST", "/predict", pngs[i])
+            alone_s = time.perf_counter() - t0
+
+            def client(c):
+                for j in range(EXPORT_PER_CLIENT):
+                    k = EXPORT_ALONE + c * EXPORT_PER_CLIENT + j
+                    answers[k] = served.request("POST", "/predict", pngs[k])
+
+            threads = [threading.Thread(target=client, args=(c,))
+                       for c in range(EXPORT_CLIENTS)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            concurrent_s = time.perf_counter() - t0
+            stats = served.request("GET", "/stats")[2]
+        finally:
+            rc = served.stop()
+        with open(f"{work}/launches_{head}.json") as f:
+            by_path[path] = json.load(f)
+        check(rc == 0, f"serve --exported exited with {rc}: {''.join(served.lines[-20:])}")
+        check_launched(mods, by_path[path], path)
+        check(all(a is not None and a[0] == 200 for a in answers),
+              f"{path}: a /predict request failed: "
+              + str([a[:3] for a in answers if a is None or a[0] != 200][:3]))
+        got = np.array([[a[2]["probs"][d] for d in DISEASE_LABELS] for a in answers])
+        # each answer against the live engine at the bucket it ran in: alone
+        # at 1, at once at 1, 4 or 16
+        diffs = np.stack([np.abs(got - live_probs(head, b)).max(axis=1) for b in (1, 4, 16)])
+        err_alone = float(diffs[0, :EXPORT_ALONE].max())
+        err_all = float(diffs.min(axis=0).max())
+        print(f"serve --exported --head {head} on {card}: up in {start_s:.1f} s (process, "
+              f"program, warm-up of buckets 1/4/16/64 at {EXPORT_SOURCE}x{EXPORT_SOURCE}x3); "
+              f"exit 0 on SIGINT; launches {by_path[path]}")
+        print(f"  {EXPORT_ALONE} requests alone {EXPORT_ALONE / alone_s:.1f} req/s, "
+              f"{EXPORT_CLIENTS} clients x {EXPORT_PER_CLIENT} at once "
+              f"{EXPORT_CLIENTS * EXPORT_PER_CLIENT / concurrent_s:.1f} req/s, batch sizes "
+              f"{stats['batch_size_hist']}; against the live engine: max |probability "
+              f"difference| {err_alone:.3g} alone (bucket 1), {err_all:.3g} over every answer "
+              f"at its nearest bucket (bound {TOL['service']})")
+        if err_all > TOL["service"]:
+            failures.append(f"{path}: answers {err_all:.3g} from the live engine")
+
+    # -- 4. the library exports on the card: the kernels' BERT and ViT ------------------
+    prompts = prompts_for_family("prediction", DISEASE_LABELS)
+    for path, build_path in (("export_text", "serve"), ("export_vit", "serve_vit")):
+        cfg, engine = build_engine(dev, seed, build_path)
+        model = engine.model
+        if path == "export_text":
+            t0 = time.perf_counter()
+            data = export.export_text_encoder(model, cfg.max_text_length)
+            walls["export encode_text on the card"] = time.perf_counter() - t0
+            file = f"{lib}/{export.TEXT_ENCODER_FILE}"
+            with open(file, "wb") as f:
+                f.write(data)
+            program = export.ExportedTextEncoder(file, device=dev)
+            enc = engine.tokenizer.encode([p for d in DISEASE_LABELS for p in prompts[d]],
+                                          max_length=cfg.max_text_length)
+            ids, mask = enc["input_ids"], enc["attention_mask"]
+            live_fn = export.make_text_encoder(model)
+
+            def run():
+                return torch.from_numpy(program(ids, mask))
+
+            def want_fn():
+                with torch.inference_mode():
+                    return live_fn(torch.from_numpy(ids).to(dev),
+                                   torch.from_numpy(mask).to(dev)).cpu()
+            which = ("flash_attention", "mlp")
+            shape = f"ids [{len(ids)}, {cfg.max_text_length}]"
+        else:
+            bank_v = engine.build_text_features(prompts)
+            args = (bank_v, cfg.image_size, engine.mean, engine.std, engine.config.temperature)
+            t0 = time.perf_counter()
+            data = export.export_singleview_scorer(model, *args,
+                                                   source_hw=(EXPORT_SOURCE, EXPORT_SOURCE))
+            walls["export score_image (ViT) on the card"] = time.perf_counter() - t0
+            file = f"{lib}/{export.SINGLEVIEW_FILE}"
+            with open(file, "wb") as f:
+                f.write(data)
+            program = export.ExportedEngine(file, device=dev)
+            live_fn = export.make_singleview_scorer(model, *args)
+
+            def run():
+                return torch.from_numpy(program.logits(imgs[:4]))
+
+            def want_fn():
+                with torch.inference_mode():
+                    return live_fn(imgs[:4]).cpu()
+            which = ("similarity", "image_prep", "flash_attention", "mlp_block")
+            shape = f"images [4, {EXPORT_SOURCE}, {EXPORT_SOURCE}, 3]"
+        stack, kept = first_inputs(mods, dict.fromkeys(which))
+        torch.cuda.synchronize(dev)
+        _build.reset_launches()
+        with stack:
+            got = run()
+        torch.cuda.synchronize(dev)
+        by_path[path] = dict(_build.LAUNCHES)
+        check_launched(mods, by_path[path], path)
+        err = float((got - want_fn()).abs().max())
+        print(f"{path}: {describe(cfg)} bf16, {os.path.basename(file)} exported on the card "
+              f"({mb(file):.1f} MB), {shape}: max |difference| from the live forward {err:.3g} "
+              f"(bound {TOL['exported']}); launches {by_path[path]}")
+        if not (err <= TOL["exported"]):
+            failures.append(f"{path}: {err:.3g} from the live forward")
+        hold_first_inputs(mods, kept, dict.fromkeys(which), path, results)
+        del engine, model, program, live_fn
+    print(f"phase 14 on {card}: " + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()))
+    check(not failures, "phase 14: " + "; ".join(failures))
+    print(f"phase 14 took {time.perf_counter() - t_phase:.1f} s")
+    return by_path
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of weights and inputs")
@@ -5527,6 +5822,8 @@ def main(argv=None) -> int:
         print("== phase 13: Grad-CAM and attention rollout")
         by_path.update(interpret_phase13(_build, mods, dev, args.seed, card, workdir,
                                          results))
+        print("== phase 14: export, serve --exported")
+        by_path.update(export_phase14(_build, mods, dev, args.seed, card, workdir, results))
     print("== the wrappers' host time (tools/launch_times.py)")
     from clip_for_dl_tpu_torch.tools import launch_times
 

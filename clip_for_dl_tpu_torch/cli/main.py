@@ -52,7 +52,6 @@ UNPORTED_FLAGS = {
     "local_loss": (_ANY, "A7"),
     "accum_steps": (_ANY, "A7"),
     "moe_experts": (_ANY, "A7"),
-    "exported": (_ANY, "A9b"),
     "remat": (_ANY, "not ported (torch.utils.checkpoint)"),
     "bf16_attention_probs": (_ANY, "not ported (the attention kernels keep no "
                                    "probabilities; use --flash-attention)"),
@@ -1044,11 +1043,10 @@ def cmd_eval(args) -> int:
 
 def cmd_serve(args) -> int:
     """Dynamic-batching HTTP inference server over the zero-shot engine, or
-    the trained C-Adapter with ``--head adapter``."""
+    the trained C-Adapter with ``--head adapter``, or a program that
+    ``tools/export_inference --stablehlo`` wrote with ``--exported DIR``."""
     from ..core.config import DISEASE_LABELS
-    from ..inference import AdapterEngine
     from ..serving import ZeroShotService, create_server
-    from ..zeroshot import ZeroShotEngine, prompts_for_family
 
     if min(args.buckets) < 1:
         print("error: --buckets entries must be >= 1", file=sys.stderr)
@@ -1079,24 +1077,28 @@ def cmd_serve(args) -> int:
             return 2
     cfg = _preset(args)
     _setup_logging(args.log_dir, "serve")
-    tokenizer = _tokenizer(args)
-    cfg = _apply_tiny(cfg, args, len(tokenizer.vocab))
-    model = _model(cfg, args)
-    size = cfg.model.image_size
-    if getattr(args, "head", "zeroshot") == "adapter":
-        # sigmoid(classifier logits) of a trained C-Adapter checkpoint (the
-        # adapter command's --checkpoint-dir): no prompt bank, no text tower
-        engine = AdapterEngine(model, cfg.augment.mean, cfg.augment.std, size,
-                               _compute_dtype(args))
+    if args.exported:
+        # the program is the model: no checkpoint, no tokenizer, no prompt
+        # encoding (the bank and the temperature were baked in at export)
+        for flag, why in (("checkpoint", "the artifact carries its own weights"),
+                          ("use_ema", "EMA was resolved at export time")):
+            if getattr(args, flag, None):
+                raise SystemExit(f"--{flag.replace('_', '-')} does not compose with "
+                                 f"--exported ({why})")
+        from ..export import ADAPTER_FILE, SINGLEVIEW_FILE, ExportedEngine
+
+        engine = ExportedEngine(
+            args.exported, device=args.device,
+            module=ADAPTER_FILE if args.head == "adapter" else SINGLEVIEW_FILE)
+        size, labels, checkpoint_info = engine.image_size, engine.disease_list, args.exported
     else:
-        engine = ZeroShotEngine(
-            model, tokenizer, DISEASE_LABELS, cfg.zeroshot, cfg.augment.mean,
-            cfg.augment.std, size, cfg.model.max_text_length, _compute_dtype(args),
-            use_enhance=cfg.model.use_multimodal_attention,
-        )
-        engine.build_text_features(prompts_for_family(args.prompts, DISEASE_LABELS))
+        tokenizer = _tokenizer(args)
+        cfg = _apply_tiny(cfg, args, len(tokenizer.vocab))
+        engine = _live_engine(cfg, args, tokenizer)
+        size, labels = cfg.model.image_size, DISEASE_LABELS
+        checkpoint_info = args.checkpoint or "fresh"
     service = ZeroShotService(
-        engine, DISEASE_LABELS, threshold=threshold, buckets=tuple(sorted(args.buckets)),
+        engine, labels, threshold=threshold, buckets=tuple(sorted(args.buckets)),
         max_wait_ms=args.max_wait_ms, image_size=size, max_pending=args.max_pending or None,
     )
     # every bucket runs once before the socket binds, so that no request
@@ -1106,7 +1108,7 @@ def cmd_serve(args) -> int:
         logging.info("warmed batch bucket %d", b)
     try:
         server = create_server(service, args.host, args.port, model_info={
-            "image_size": size, "checkpoint": args.checkpoint or "fresh",
+            "image_size": size, "checkpoint": checkpoint_info,
             "buckets": sorted(set(args.buckets))})
     except OSError as exc:
         print(f"error: cannot bind {args.host}:{args.port}: {exc}", file=sys.stderr)
@@ -1123,6 +1125,29 @@ def cmd_serve(args) -> int:
         server.server_close()
         service.close()
     return 0
+
+
+def _live_engine(cfg, args, tokenizer):
+    """The serve command's engine over the model: the zero-shot engine with
+    its prompt bank built, or the C-Adapter (``--head adapter``)."""
+    from ..core.config import DISEASE_LABELS
+    from ..inference import AdapterEngine
+    from ..zeroshot import ZeroShotEngine, prompts_for_family
+
+    model = _model(cfg, args)
+    size = cfg.model.image_size
+    if args.head == "adapter":
+        # sigmoid(classifier logits) of a trained C-Adapter checkpoint (the
+        # adapter command's --checkpoint-dir): no prompt bank, no text tower
+        return AdapterEngine(model, cfg.augment.mean, cfg.augment.std, size,
+                             _compute_dtype(args))
+    engine = ZeroShotEngine(
+        model, tokenizer, DISEASE_LABELS, cfg.zeroshot, cfg.augment.mean,
+        cfg.augment.std, size, cfg.model.max_text_length, _compute_dtype(args),
+        use_enhance=cfg.model.use_multimodal_attention,
+    )
+    engine.build_text_features(prompts_for_family(args.prompts, DISEASE_LABELS))
+    return engine
 
 
 def cmd_convert(args) -> int:
@@ -1443,11 +1468,14 @@ def build_parser() -> argparse.ArgumentParser:
                          "0 = unbounded")
     sp.add_argument("--tp", type=int, default=1, help=_not_ported_help("A7"))
     sp.add_argument("--exported", default=None, metavar="DIR",
-                    help=_not_ported_help("A9b"))
+                    help="serve a deployment artifact (python -m clip_for_dl_tpu_torch.tools."
+                         "export_inference --stablehlo) instead of rebuilding the model: "
+                         "weights, prompt bank and temperature are baked into the program")
     sp.add_argument("--head", default="zeroshot", choices=["zeroshot", "adapter"],
                     help="'zeroshot' scores against the prompt bank; "
                          "'adapter' deploys a trained C-Adapter checkpoint "
-                         "(sigmoid classifier logits, no text tower)")
+                         "(sigmoid classifier logits, no text tower) — "
+                         "with --exported it selects score_adapter.pt2")
     sp.set_defaults(fn=cmd_serve)
 
     sp = sub.add_parser(

@@ -19,6 +19,7 @@ when None (``core.device.resolve_device``).
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -31,6 +32,9 @@ from .ops.image_prep import preprocess_images
 from .ops.similarity import similarity
 from .zeroshot.prompts import create_basic_prompts
 
+# the folded weights of an export directory (tools/export_inference.py)
+FOLDED_WEIGHTS_FILE = "weights.safetensors"
+
 
 def load_trained_model(
     checkpoint: Optional[str] = None,
@@ -42,6 +46,7 @@ def load_trained_model(
     init_image_tower: Optional[str] = None,
     init_text_tower: Optional[str] = None,
     device=None,
+    fold_bn: bool = False,
 ) -> CXRClip:
     """The ``CXRClip`` of ``config`` (the ``zero_shot`` preset by default) on
     ``device``, in eval mode, its matmul weights in ``compute_dtype``.
@@ -57,15 +62,39 @@ def load_trained_model(
     directory's EMA slot (written by ``pretrain --ema-decay``) as the
     parameters, with the checkpoint's live BatchNorm statistics; it raises
     where the JAX function raises (no checkpoint, a reference file, an empty
-    directory, a checkpoint without the slot)."""
-    from .models.pretrained import init_tower_weights
-    from .train.checkpoint import CheckpointManager, import_reference_checkpoint
+    directory, a checkpoint without the slot).
 
+    ``fold_bn``: a ``CXRClip(config.model, fold_bn=True)`` loaded from the
+    folded weights that ``tools/export_inference`` writes (``checkpoint``:
+    its ``weights.safetensors``, or the directory holding it), every tensor
+    required."""
     cfg = config or get_preset("zero_shot")
     dev = resolve_device(device)
     with torch.device(dev):
-        model = CXRClip(cfg.model)
+        model = CXRClip(cfg.model, fold_bn=fold_bn)
     init_weights(model, torch.Generator(dev).manual_seed(seed))
+    if fold_bn:
+        from .models.safetensors_io import read_safetensors
+
+        if not checkpoint or use_ema or init_image_tower or init_text_tower:
+            raise ValueError("fold_bn loads the folded weights file alone (no EMA slot, "
+                             "no tower files)")
+        if os.path.isdir(checkpoint):
+            checkpoint = os.path.join(checkpoint, FOLDED_WEIGHTS_FILE)
+        model.load_state_dict(read_safetensors(checkpoint)[0])
+    else:
+        _restore(model, checkpoint, allow_partial, use_ema, init_image_tower, init_text_tower)
+    if compute_dtype != torch.float32:
+        cast_matmul_weights(model, compute_dtype)
+    return model.eval()
+
+
+def _restore(model, checkpoint, allow_partial, use_ema, init_image_tower, init_text_tower):
+    """The tower files, then the checkpoint, laid over ``model`` (see
+    :func:`load_trained_model`)."""
+    from .models.pretrained import init_tower_weights
+    from .train.checkpoint import CheckpointManager, import_reference_checkpoint
+
     if init_image_tower or init_text_tower:
         init_tower_weights(model, init_image_tower, init_text_tower)
     if not checkpoint:
@@ -86,9 +115,6 @@ def load_trained_model(
         mgr.restore_variables(model, mgr.best_epoch(), allow_partial=allow_partial,
                               use_ema=use_ema)
         mgr.close()
-    if compute_dtype != torch.float32:
-        cast_matmul_weights(model, compute_dtype)
-    return model.eval()
 
 
 class InferenceSession:

@@ -16,6 +16,11 @@ With ``config.learnable_temperature`` the model also holds the loss's two
 ``log(logit_scale_init or 1/temperature)``) and ``logit_bias`` (from
 ``logit_bias_init``); only the train and eval steps read them.
 
+``CXRClip(config, fold_bn=True)`` builds the ResNet tower with its
+BatchNorm folded into the convolutions (``models/resnet.py``), the
+inference-only topology that ``tools/export_inference`` writes weights for,
+as the JAX ``CXRClip(config, fold_bn=True)``; a ViT tower ignores it.
+
 Parameters are created in fp32. For serving,
 ``core.device.cast_matmul_weights`` casts the matmul, conv and embedding
 weights to the compute dtype (bf16 on the GPU); for training,
@@ -48,16 +53,17 @@ from .vit import MultiheadSelfAttention, ViT
 
 
 class CXRClip(nn.Module):
-    def __init__(self, config: ModelConfig):
+    def __init__(self, config: ModelConfig, fold_bn: bool = False):
         super().__init__()
         self.config = config
+        self.fold_bn = fold_bn
         if config.learnable_temperature:
             s0 = config.logit_scale_init or 1.0 / config.temperature
             self.logit_scale = nn.Parameter(torch.tensor(math.log(s0), dtype=torch.float32))
             self.logit_bias = nn.Parameter(torch.tensor(config.logit_bias_init,
                                                         dtype=torch.float32))
         if config.image_tower == "resnet50":
-            self.image_tower = ResNet(config.resnet_stages, config.resnet_width)
+            self.image_tower = ResNet(config.resnet_stages, config.resnet_width, fold_bn)
         elif config.image_tower == "vit_b16":
             self.image_tower = ViT(
                 config.image_size, config.vit_patch, config.vit_hidden, config.vit_layers,

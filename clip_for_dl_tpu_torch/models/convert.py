@@ -6,7 +6,8 @@ returns a state dict that ``CXRClip.load_state_dict(..., strict=True)``
 accepts:
 
 - Dense kernel [in, out] → ``weight`` [out, in]; bias as is;
-- Conv kernel HWIO → ``weight`` OIHW;
+- Conv kernel HWIO → ``weight`` OIHW (and its bias, where a BatchNorm
+  was folded into it);
 - BatchNorm scale/bias → weight/bias, batch statistics mean/var →
   running_mean/running_var (``num_batches_tracked`` 0);
 - LayerNorm scale/bias → weight/bias; Embed embedding → weight;
@@ -25,6 +26,11 @@ equal. A ViT image tower gets torchvision ``vit_b_16`` names, the ones the
 JAX ``import_torchvision_vit_b16`` reads (``tests/test_torch_vit.py`` holds
 the round trip): the patch Dense kernel [P·P·C, hidden] becomes
 ``conv_proj.weight`` [hidden, C, P, P], and q/k/v stack into ``in_proj_*``.
+
+A folded ResNet tower (the JAX ``fold_clip_image_tower``'s output: convs
+with biases, no BatchNorm, no tower statistics) maps onto
+``CXRClip(config, fold_bn=True)``; :func:`fold_clip_image_tower` folds the
+port's own state dict the same way.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import numpy as np
 import torch
 
 from .lora import LoRA
+from .resnet import fold_batchnorm
 
 
 def _t(x) -> torch.Tensor:
@@ -51,7 +58,10 @@ def _norm(p: Mapping[str, Any], prefix: str) -> Dict[str, torch.Tensor]:
 
 
 def _conv(p: Mapping[str, Any], prefix: str) -> Dict[str, torch.Tensor]:
-    return {f"{prefix}.weight": _t(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))}
+    sd = {f"{prefix}.weight": _t(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))}
+    if "bias" in p:  # a folded BatchNorm's
+        sd[f"{prefix}.bias"] = _t(p["bias"])
+    return sd
 
 
 def _batchnorm(p, stats, prefix: str) -> Dict[str, torch.Tensor]:
@@ -63,19 +73,25 @@ def _batchnorm(p, stats, prefix: str) -> Dict[str, torch.Tensor]:
 
 
 def _resnet(params, stats, prefix: str) -> Dict[str, torch.Tensor]:
+    """A ResNet tower's params and statistics; a folded tower (no ``bn1``)
+    has convs with biases and no statistics."""
+    folded = "bn1" not in params
     sd = _conv(params["conv1"], f"{prefix}.conv1")
-    sd.update(_batchnorm(params["bn1"], stats["bn1"], f"{prefix}.bn1"))
+    if not folded:
+        sd.update(_batchnorm(params["bn1"], stats["bn1"], f"{prefix}.bn1"))
     for name in sorted(k for k in params if k.startswith("layer")):
         stage, block = name[len("layer"):].split("_")
         dst = f"{prefix}.layer{stage}.{block}"
-        p, s = params[name], stats[name]
+        p = params[name]
         for i in (1, 2, 3):
             sd.update(_conv(p[f"conv{i}"], f"{dst}.conv{i}"))
-            sd.update(_batchnorm(p[f"bn{i}"], s[f"bn{i}"], f"{dst}.bn{i}"))
+            if not folded:
+                sd.update(_batchnorm(p[f"bn{i}"], stats[name][f"bn{i}"], f"{dst}.bn{i}"))
         if "downsample_conv" in p:
             sd.update(_conv(p["downsample_conv"], f"{dst}.downsample.0"))
-            sd.update(_batchnorm(p["downsample_bn"], s["downsample_bn"],
-                                 f"{dst}.downsample.1"))
+            if not folded:
+                sd.update(_batchnorm(p["downsample_bn"], stats[name]["downsample_bn"],
+                                     f"{dst}.downsample.1"))
     return sd
 
 
@@ -144,13 +160,14 @@ def state_dict_from_jax(
 ) -> Dict[str, torch.Tensor]:
     """flax CXRClip (params, batch_stats) → port ``CXRClip`` state dict.
     A ViT image tower (recognized by its ``patch_embed``) has no batch
-    statistics."""
+    statistics, nor has a folded ResNet tower (``fold_clip_image_tower``'s
+    output, for ``CXRClip(config, fold_bn=True)``)."""
     sd: Dict[str, torch.Tensor] = {}
     tower = params["image_tower"]
     if "patch_embed" in tower:
         sd.update(_vit(tower, "image_tower"))
     else:
-        sd.update(_resnet(tower, batch_stats["image_tower"], "image_tower"))
+        sd.update(_resnet(tower, batch_stats.get("image_tower"), "image_tower"))
     sd.update(_bert(params["text_tower"], "text_tower"))
     sd.update(_projection(params["image_projector"], "image_projection", "image_projector"))
     sd.update(_projection(params["text_projector"], "text_projection", "text_projector"))
@@ -166,6 +183,21 @@ def state_dict_from_jax(
         if name in params:
             sd[name] = _t(params[name])
     return sd
+
+
+def fold_clip_image_tower(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A ``CXRClip`` state dict → the state dict of ``CXRClip(config,
+    fold_bn=True)``: the ResNet tower's BatchNorm folded into its
+    convolutions (``resnet.fold_batchnorm``), every other entry as it is;
+    a tower without BatchNorm (the ViT's) stays as it is. Counterpart of the
+    JAX ``fold_clip_image_tower``."""
+    prefix = "image_tower."
+    if prefix + "bn1.weight" not in state_dict:
+        return dict(state_dict)
+    tower = {k[len(prefix):]: v for k, v in state_dict.items() if k.startswith(prefix)}
+    out = {k: v for k, v in state_dict.items() if not k.startswith(prefix)}
+    out.update({prefix + k: v for k, v in fold_batchnorm(tower).items()})
+    return out
 
 
 # a JAX LoRA path's kernel (below its layer) -> the port's target name

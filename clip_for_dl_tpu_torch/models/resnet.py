@@ -12,11 +12,19 @@ BatchNorm follows flax's ``nn.BatchNorm(momentum=0.9)``: in eval mode it
 normalizes with the running statistics; in train mode with the batch
 statistics, and the running statistics become ``0.9·old + 0.1·batch`` with
 the biased batch variance (``nn.BatchNorm2d`` would use the unbiased one).
+
+``fold_bn=True`` builds the inference topology of the JAX tower's
+``fold_bn``: every convolution has a bias and no BatchNorm follows it; the
+residual add and the ReLUs run in the compute dtype. :func:`fold_batchnorm`
+turns a tower's state dict into its weights: per output channel
+W' = W·γ/√(σ² + ε) and b' = β − μ·γ/√(σ² + ε), in fp32, as
+``clip_for_dl_tpu.models.resnet.fold_batchnorm`` folds them. A folded
+tower runs only in eval mode.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Dict, Mapping, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -47,24 +55,27 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 downsample: bool = False):
+                 downsample: bool = False, fold_bn: bool = False):
         super().__init__()
-        self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(planes, eps=1e-5)
-        self.conv2 = nn.Conv2d(planes, planes, 3, stride, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(planes, eps=1e-5)
-        self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
-        self.bn3 = nn.BatchNorm2d(planes * 4, eps=1e-5)
-        self.downsample = (
-            nn.Sequential(
-                nn.Conv2d(inplanes, planes * 4, 1, stride, bias=False),
-                nn.BatchNorm2d(planes * 4, eps=1e-5),
-            )
-            if downsample
-            else None
-        )
+        self.fold_bn = fold_bn
+        # registered in torchvision's order (the seeded init draws in it)
+        for i, (c_in, c_out, k, s, pad) in enumerate(
+                ((inplanes, planes, 1, 1, 0), (planes, planes, 3, stride, 1),
+                 (planes, planes * 4, 1, 1, 0)), start=1):
+            self.add_module(f"conv{i}", nn.Conv2d(c_in, c_out, k, s, pad, bias=fold_bn))
+            if not fold_bn:
+                self.add_module(f"bn{i}", nn.BatchNorm2d(c_out, eps=1e-5))
+        layers = [nn.Conv2d(inplanes, planes * 4, 1, stride, bias=fold_bn)]
+        if not fold_bn:
+            layers.append(nn.BatchNorm2d(planes * 4, eps=1e-5))
+        self.downsample = nn.Sequential(*layers) if downsample else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.fold_bn:
+            y = F.relu(self.conv1(x))
+            y = F.relu(self.conv2(y))
+            residual = x if self.downsample is None else self.downsample[0](x)
+            return F.relu(self.conv3(y) + residual)
         y = F.relu(_bn(self.bn1, self.conv1(x)))
         y = F.relu(_bn(self.bn2, self.conv2(y)))
         y = _bn(self.bn3, self.conv3(y))
@@ -77,17 +88,21 @@ class Bottleneck(nn.Module):
 class ResNet(nn.Module):
     """ResNet v1 feature extractor without the FC head."""
 
-    def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3), width: int = 64):
+    def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3), width: int = 64,
+                 fold_bn: bool = False):
         super().__init__()
-        self.conv1 = nn.Conv2d(3, width, 7, 2, 3, bias=False)
-        self.bn1 = nn.BatchNorm2d(width, eps=1e-5)
+        self.fold_bn = fold_bn
+        self.conv1 = nn.Conv2d(3, width, 7, 2, 3, bias=fold_bn)
+        if not fold_bn:
+            self.bn1 = nn.BatchNorm2d(width, eps=1e-5)
         inplanes = width
         for stage, blocks in enumerate(stage_sizes):
             planes = width * 2 ** stage
             layer = []
             for block in range(blocks):
                 stride = 2 if stage > 0 and block == 0 else 1
-                layer.append(Bottleneck(inplanes, planes, stride, downsample=block == 0))
+                layer.append(Bottleneck(inplanes, planes, stride, downsample=block == 0,
+                                        fold_bn=fold_bn))
                 inplanes = planes * 4
             self.add_module(f"layer{stage + 1}", nn.Sequential(*layer))
         self.num_stages = len(stage_sizes)
@@ -99,10 +114,13 @@ class ResNet(nn.Module):
         ``capture_stage4`` → (pooled, the last block's activations), the
         latter NHWC [B, h, w, out_dim] (7 × 7 at 224) in the compute dtype,
         as the JAX tower returns them: a view of the channels_last map."""
+        if self.fold_bn and self.training:
+            raise RuntimeError("a folded ResNet (fold_bn=True) runs in eval mode only")
         x = images.permute(0, 3, 1, 2).to(
             dtype=self.conv1.weight.dtype, memory_format=torch.channels_last
         )
-        x = F.relu(_bn(self.bn1, self.conv1(x)))
+        x = self.conv1(x)
+        x = F.relu(x if self.fold_bn else _bn(self.bn1, x))
         x = F.max_pool2d(x, 3, 2, 1)
         for stage in range(self.num_stages):
             x = getattr(self, f"layer{stage + 1}")(x)
@@ -111,3 +129,38 @@ class ResNet(nn.Module):
         if capture_stage4:
             return pooled, x.permute(0, 2, 3, 1)
         return pooled
+
+
+def _fold_pair(conv_w: torch.Tensor, bn: Mapping[str, torch.Tensor], eps: float):
+    """(W', b') of one convolution and the BatchNorm after it, computed in
+    fp32 and returned in the convolution's dtype."""
+    gamma, beta = bn["weight"].float(), bn["bias"].float()
+    mean, var = bn["running_mean"].float(), bn["running_var"].float()
+    scale = gamma / torch.sqrt(var + eps)
+    return ((conv_w.float() * scale[:, None, None, None]).to(conv_w.dtype),
+            (beta - mean * scale).to(conv_w.dtype))
+
+
+def fold_batchnorm(state_dict: Mapping[str, torch.Tensor], eps: float = 1e-5
+                   ) -> Dict[str, torch.Tensor]:
+    """A :class:`ResNet`'s state dict → the state dict of ``ResNet(...,
+    fold_bn=True)``: each BatchNorm (``bn1``, ``bnK`` of a block,
+    ``downsample.1``) folded into the convolution before it, which gains a
+    bias; the BatchNorm entries are dropped. Counterpart of the JAX
+    ``fold_batchnorm``."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, w in state_dict.items():
+        if not name.endswith(".weight") or w.dim() != 4:
+            continue
+        conv = name[: -len(".weight")]
+        head, _, leaf = conv.rpartition(".")
+        if leaf.startswith("conv"):
+            bn = f"{head}.bn{leaf[4:]}" if head else f"bn{leaf[4:]}"
+        elif leaf == "0" and head.endswith("downsample"):
+            bn = f"{head}.1"
+        else:
+            raise ValueError(f"{name}: no BatchNorm follows this convolution")
+        stats = {k: state_dict[f"{bn}.{k}"]
+                 for k in ("weight", "bias", "running_mean", "running_var")}
+        out[f"{conv}.weight"], out[f"{conv}.bias"] = _fold_pair(w, stats, eps)
+    return out

@@ -59,7 +59,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import _build
+from . import _build, library
 
 KERNEL = "cxr_flash_fwd_packed"
 KERNEL_BWD = "cxr_flash_bwd_packed"
@@ -415,10 +415,9 @@ def flash_attention_packed(
 
 
 def _forward(qkv, heads, key_bias, rate, seeds):
-    if qkv.device.type == "cpu":
-        return flash_attention_packed_reference(
-            qkv, heads, key_bias, dropout_rate=rate, dropout_seeds=seeds)
-    return _kernel(qkv, heads, key_bias, dropout_rate=rate, dropout_seeds=seeds)
+    """The packed forward through the operator ``cxr::flash_attention_packed``
+    (``ops/library.py``): B3 on CUDA tensors, the plain version on CPU ones."""
+    return _OP(qkv, heads, key_bias, rate, seeds)
 
 
 def flash_attention_packed_bwd(
@@ -716,3 +715,19 @@ def _kernel_split_bwd(q, k, v, do, key_bias, layout, *, dropout_rate=0.0, dropou
                       _strides(sq, sk, sv, sdo, sdq, sdk, sdv), B, N, H, W,
                       *_rate_args(D, dropout_rate))
     return tuple(_unpad_heads(g, D, W) for g in (dq, dk, dv))
+
+
+def _fake(qkv, heads, key_bias, dropout_rate, dropout_seeds):
+    B, N, HD3 = qkv.shape
+    return qkv.new_empty((B, N, HD3 // 3))
+
+
+_OP = library.define(
+    "flash_attention_packed",
+    "(Tensor qkv, int heads, Tensor? key_bias, float dropout_rate, Tensor? dropout_seeds)"
+    " -> Tensor",
+    lambda qkv, heads, key_bias, rate, seeds: flash_attention_packed_reference(
+        qkv, heads, key_bias, dropout_rate=rate, dropout_seeds=seeds),
+    lambda qkv, heads, key_bias, rate, seeds: _kernel(
+        qkv, heads, key_bias, dropout_rate=rate, dropout_seeds=seeds),
+    _fake)

@@ -10,7 +10,8 @@ statistics broadcasts to 3 channels after the resize.
 
 :func:`preprocess_reference` is the plain PyTorch version: the resize as
 two matmuls with the dense :func:`_resize_weights` matrices, the JAX
-package's own formulation. :func:`preprocess_images` launches the kernel
+package's own formulation. :func:`preprocess_images` calls the operator
+``cxr::preprocess_images`` (``ops/library.py``), which launches the kernel
 on CUDA tensors (every batch, an identity 224→224 resize included) and runs
 the plain version on CPU tensors. :func:`band_plan` mirrors how the kernel's
 C entry splits the work (bands of output rows, column chunks, the grid),
@@ -33,7 +34,7 @@ from typing import NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, library
 
 KERNEL = "cxr_image_prep"  # uint8 images, the staged body
 KERNEL_F32SRC = "cxr_image_prep_f32src"  # fp32 images, the staged body
@@ -240,9 +241,8 @@ def preprocess_images(
     """uint8 (or float) NHWC batch → resized, normalized ``out_dtype`` NHWC
     batch in one pass (``.permute(0, 3, 1, 2)`` of the result is a
     channels_last NCHW tensor for the convolutions)."""
-    if images.device.type == "cpu":
-        return preprocess_reference(images, out_h, out_w, mean, std, out_dtype)
-    return _kernel(images, out_h, out_w, tuple(mean), tuple(std), out_dtype)
+    return _OP(images, out_h, out_w, [float(m) for m in mean], [float(s) for s in std],
+               out_dtype)
 
 
 def _kernel(images, out_h, out_w, mean, std, out_dtype):
@@ -279,3 +279,20 @@ def _kernel(images, out_h, out_w, mean, std, out_dtype):
             entry = KERNEL if uint8 else KERNEL_F32SRC
         _build.launch(entry, dev, *args, key=launch_key(entry, written))
     return out if written == out_dtype else out.to(out_dtype)
+
+
+def _fake(images, out_h, out_w, mean, std, out_dtype):
+    c = images.shape[-1]
+    c_out = len(mean) if (c == 1 and len(mean) == 3) else c
+    return images.new_empty((images.shape[0], out_h, out_w, c_out), dtype=out_dtype)
+
+
+_OP = library.define(
+    "preprocess_images",
+    "(Tensor images, int out_h, int out_w, float[] mean, float[] std, ScalarType out_dtype)"
+    " -> Tensor",
+    lambda images, out_h, out_w, mean, std, out_dtype: preprocess_reference(
+        images, out_h, out_w, tuple(mean), tuple(std), out_dtype),
+    lambda images, out_h, out_w, mean, std, out_dtype: _kernel(
+        images, out_h, out_w, tuple(mean), tuple(std), out_dtype),
+    _fake)

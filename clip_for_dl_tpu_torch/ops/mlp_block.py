@@ -37,7 +37,7 @@ from __future__ import annotations
 import torch
 from torch.nn.functional import gelu
 
-from . import _build
+from . import _build, library
 from .mlp_train import check_widths
 
 KERNEL = "cxr_mlp_block"
@@ -94,11 +94,10 @@ def fused_mlp_block(
     flattened to rows."""
     _check_shapes(x, w1, w2)
     x2 = x.reshape(-1, x.shape[-1])
-    args = (x2, ln_scale, ln_bias, w1.to(x.dtype), b1, w2.to(x.dtype), b2)
-    if x.device.type == "cpu":
-        out = fused_mlp_block_reference(*args, eps=eps, gelu_approximate=gelu_approximate)
-    else:
-        out = _kernel(*args, eps=eps, gelu_approximate=gelu_approximate)
+    # the operator cxr::fused_mlp_block (ops/library.py): B9 on CUDA tensors,
+    # the plain version on CPU ones
+    out = _OP(x2, ln_scale, ln_bias, w1.to(x.dtype), b1, w2.to(x.dtype), b2, float(eps),
+              bool(gelu_approximate))
     return out.reshape(x.shape)
 
 
@@ -161,3 +160,18 @@ def _kernel(x, ln_scale, ln_bias, w1, b1, w2, b2, *, eps, gelu_approximate):
                       b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
                       y.data_ptr(), g.data_ptr(), R, H, F, float(eps), int(gelu_approximate))
     return out
+
+
+def _fake(x, ln_scale, ln_bias, w1, b1, w2, b2, eps, gelu_approximate):
+    return torch.empty_like(x)
+
+
+_OP = library.define(
+    "fused_mlp_block",
+    "(Tensor x, Tensor ln_scale, Tensor ln_bias, Tensor w1, Tensor b1, Tensor w2, Tensor b2,"
+    " float eps, bool gelu_approximate) -> Tensor",
+    lambda x, ls, lb, w1, b1, w2, b2, eps, approx: fused_mlp_block_reference(
+        x, ls, lb, w1, b1, w2, b2, eps=eps, gelu_approximate=approx),
+    lambda x, ls, lb, w1, b1, w2, b2, eps, approx: _kernel(
+        x, ls, lb, w1, b1, w2, b2, eps=eps, gelu_approximate=approx),
+    _fake)

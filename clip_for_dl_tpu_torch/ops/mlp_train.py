@@ -39,7 +39,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, library
 
 KERNEL = "cxr_mlp_fwd"
 KERNEL_BWD = "cxr_mlp_bwd"
@@ -120,9 +120,9 @@ def dense_gelu_dense(
 
 
 def _forward(x, w1, b1, w2, b2, approximate=False):
-    if x.device.type == "cpu":
-        return dense_gelu_dense_reference(x, w1, b1, w2, b2, approximate)
-    return _kernel(x, w1, b1, w2, b2, approximate)
+    """The forward through the operator ``cxr::dense_gelu_dense``
+    (``ops/library.py``): B4 on CUDA tensors, the plain version on CPU ones."""
+    return _OP(x, w1, b1, w2, b2, approximate)
 
 
 class _MLP(torch.autograd.Function):
@@ -200,3 +200,13 @@ def _kernel_bwd(x, w1, b1, w2, dy, approximate=False):
                       dh.data_ptr(), R, H, F, int(approximate),
                       key=KEY_BWD_TANH if approximate else None)
     return dx, g, dh
+
+
+def _fake(x, w1, b1, w2, b2, approximate):
+    return x.new_empty((x.shape[0], w2.shape[0]))
+
+
+_OP = library.define(
+    "dense_gelu_dense",
+    "(Tensor x, Tensor w1, Tensor b1, Tensor w2, Tensor b2, bool approximate) -> Tensor",
+    lambda *a: dense_gelu_dense_reference(*a), lambda *a: _kernel(*a), _fake)

@@ -6,16 +6,17 @@ any C. Each side is fp32, bf16 or fp16 (:data:`TYPES`), on its own; the
 kernel reads it in its type and widens it in registers, as the JAX kernel
 casts inside itself. A view that is not contiguous is copied first.
 
-:func:`similarity` launches the CUDA kernel on CUDA tensors and runs
-:func:`similarity_reference`, the plain PyTorch version of the same math,
-on CPU tensors; there is no other route.
+:func:`similarity` calls the operator ``cxr::similarity``
+(``ops/library.py``), which launches the CUDA kernel on CUDA tensors and
+runs :func:`similarity_reference`, the plain PyTorch version of the same
+math, on CPU tensors; there is no other route.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, library
 
 KERNEL = "cxr_similarity"
 _EPS = 1e-12
@@ -57,9 +58,7 @@ def similarity(
     temperature: float = 1.0,
 ) -> torch.Tensor:
     """Cosine-similarity logits: [B, D] x [C, D] → [B, C] fp32 / temperature."""
-    if image_features.device.type == "cpu":
-        return similarity_reference(image_features, text_features, temperature)
-    return _kernel(image_features, text_features, temperature)
+    return _OP(image_features, text_features, float(temperature))
 
 
 def _features(t: torch.Tensor, name: str, shape, device=None) -> torch.Tensor:
@@ -84,3 +83,14 @@ def _kernel(image_features, text_features, temperature):
                       1.0 / float(temperature), _EPS, TYPES[img.dtype][0], TYPES[txt.dtype][0],
                       key=launch_key(img.dtype, txt.dtype))
     return out
+
+
+def _fake(image_features, text_features, temperature):
+    return image_features.new_empty((image_features.shape[0], text_features.shape[0]),
+                                    dtype=torch.float32)
+
+
+_OP = library.define(
+    "similarity", "(Tensor image_features, Tensor text_features, float temperature) -> Tensor",
+    lambda img, txt, temperature: similarity_reference(img, txt, temperature),
+    lambda img, txt, temperature: _kernel(img, txt, temperature), _fake)

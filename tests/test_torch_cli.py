@@ -219,7 +219,7 @@ def test_parser_takes_every_jax_command_and_flag():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["serve", "--exported", "artifact"], "A9b"),
+    (["serve", "--exported", "artifact", "--tp", "2"], "A7"),
     (["serve", "--tp", "2"], "A7"),
     (["pretrain", "--lora", "4", "--pp", "2"], "A7"),
     (["pretrain", "--lora", "4", "--num-devices", "2"], "A7"),

@@ -1806,3 +1806,154 @@ def test_rollout_on_the_card_holds_against_the_plain_route(cuda):
     torch.testing.assert_close(mask, mask_p, atol=2e-2, rtol=0)
     cos = torch.nn.functional.cosine_similarity(mask.flatten(), mask_p.flatten(), dim=0)
     assert float(cos) >= 0.999
+
+
+# -- the operators and the exported programs (ROADMAP A9b) ----------------------------------
+
+
+def _launch_delta(fn):
+    """(fn's result, the launches it added, per key)."""
+    from clip_for_dl_tpu_torch.ops import _build
+
+    before = dict(_build.LAUNCHES)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()
+                 if v != before.get(k, 0)}
+
+
+def test_operators_launch_their_kernels(cuda):
+    """Each ``cxr`` operator on CUDA tensors launches its kernel once and
+    matches the plain version at the kernel tests' tolerances (B1 1e-5, B2
+    bf16 one step, B3 and B4 2e-2, B9's branch two bf16 steps of its
+    largest entry)."""
+    ops = torch.ops.cxr
+    g = torch.Generator(cuda).manual_seed(3)
+    img, txt = torch.randn(8, 512, device=cuda, generator=g), torch.randn(16, 512, device=cuda,
+                                                                          generator=g)
+    got, n = _launch_delta(lambda: ops.similarity(img, txt, 0.5))
+    assert n == {sim.KERNEL: 1}
+    torch.testing.assert_close(got, sim.similarity_reference(img, txt, 0.5), atol=1e-5, rtol=0)
+    u8 = torch.randint(0, 256, (2, 512, 512, 3), device=cuda, generator=g, dtype=torch.uint8)
+    args = (224, 224, list(CLIP_MEAN), list(CLIP_STD), torch.bfloat16)
+    got, n = _launch_delta(lambda: ops.preprocess_images(u8, *args))
+    assert n == {prep.KERNEL: 1}
+    want = prep.preprocess_reference(u8, 224, 224, CLIP_MEAN, CLIP_STD, torch.bfloat16)
+    torch.testing.assert_close(got.float(), want.float(), atol=1.6e-2, rtol=0)
+    qkv = torch.randn(2, 200, 3 * 12 * 64, device=cuda, generator=g).bfloat16()
+    bias = torch.zeros(2, 200, device=cuda)
+    got, n = _launch_delta(lambda: ops.flash_attention_packed(qkv, 12, bias, 0.0, None))
+    assert n == {fa.KERNEL: 1}
+    torch.testing.assert_close(got.float(), fa.flash_attention_packed_reference(
+        qkv, 12, bias).float(), atol=2e-2, rtol=0)
+    x = torch.randn(400, 768, device=cuda, generator=g).bfloat16()
+    w1 = (torch.randn(3072, 768, device=cuda, generator=g) / 28).bfloat16()
+    w2 = (torch.randn(768, 3072, device=cuda, generator=g) / 55).bfloat16()
+    b1, b2 = torch.zeros(3072, device=cuda).bfloat16(), torch.zeros(768, device=cuda).bfloat16()
+    got, n = _launch_delta(lambda: ops.dense_gelu_dense(x, w1, b1, w2, b2, False))
+    assert n == {mlp.KERNEL: 1}
+    torch.testing.assert_close(got.float(), mlp.dense_gelu_dense_reference(
+        x, w1, b1, w2, b2).float(), atol=2e-2, rtol=0)
+    ls, lb = torch.ones(768, device=cuda), torch.zeros(768, device=cuda)
+    fb1, fb2 = torch.zeros(3072, device=cuda), torch.zeros(768, device=cuda)
+    got, n = _launch_delta(lambda: ops.fused_mlp_block(x, ls, lb, w1, fb1, w2, fb2, 1e-6, False))
+    assert n == {mlp_block.KERNEL: 1}
+    want = mlp_block.fused_mlp_block_reference(x, ls, lb, w1, fb1, w2, fb2).float() - x.float()
+    err = float((got.float() - x.float() - want).abs().max())
+    assert err <= 2.0 ** -6 * float(want.abs().max())
+
+
+def _export_config(tower: str):
+    import dataclasses
+
+    from clip_for_dl_tpu_torch.core.config import get_preset
+
+    preset = get_preset("vit" if tower == "vit" else "zero_shot")
+    return preset.replace(model=dataclasses.replace(
+        preset.model, image_size=64, max_text_length=32, vocab_size=128,
+        text_embedding_dim=128, text_layers=1, text_heads=2, text_intermediate_dim=256,
+        shared_embedding_dim=64, text_max_position=64, resnet_stages=(1, 1, 1, 1),
+        resnet_width=16, vit_layers=1, vit_hidden=128, vit_heads=2, vit_mlp_dim=256,
+        flash_attention=True, bert_fused_mlp=True, vit_fused_mlp=True))
+
+
+def test_cpu_traced_artifact_runs_b1_and_b2_on_the_card(cuda, tmp_path):
+    """A folded bf16 ResNet scorer and its adapter head, traced on the CPU
+    and loaded onto the card, launch B2 (and B1) on every batch; each
+    answer equals the live engines' on the card over the same weights and
+    bank, bit for bit, at b = 1 and 3."""
+    from clip_for_dl_tpu_torch import export
+    from clip_for_dl_tpu_torch.core.config import DISEASE_LABELS
+    from clip_for_dl_tpu_torch.core.device import cast_matmul_weights
+    from clip_for_dl_tpu_torch.inference import AdapterEngine
+    from clip_for_dl_tpu_torch.models import CXRClip, fold_clip_image_tower, init_weights
+    from clip_for_dl_tpu_torch.zeroshot import ZeroShotEngine
+
+    cfg = _export_config("resnet")
+    m = cfg.model
+    model = init_weights(CXRClip(m), torch.Generator().manual_seed(5))
+    folded = CXRClip(m, fold_bn=True)
+    folded.load_state_dict(fold_clip_image_tower(model.state_dict()))
+    cast_matmul_weights(folded, torch.bfloat16).eval()
+    bank = torch.nn.functional.normalize(torch.randn(16, 64, generator=torch.Generator()
+                                                     .manual_seed(1)), dim=-1)
+    mean, std = cfg.augment.mean, cfg.augment.std
+    export.write_artifact(
+        str(tmp_path), None,
+        singleview_bytes=export.export_singleview_scorer(
+            folded, bank, 64, mean, std, cfg.zeroshot.temperature, source_hw=(96, 96)),
+        adapter_bytes=export.export_adapter_scorer(folded, 64, mean, std, source_hw=(96, 96)))
+    programs = {"zeroshot": export.ExportedEngine(str(tmp_path)),
+                "adapter": export.ExportedEngine(str(tmp_path), module=export.ADAPTER_FILE)}
+    assert programs["zeroshot"].device.type == "cuda"
+    live_model = folded.to(cuda)
+    live = {"zeroshot": ZeroShotEngine(live_model, None, DISEASE_LABELS, cfg.zeroshot, mean,
+                                       std, 64),
+            "adapter": AdapterEngine(live_model, mean, std, 64)}
+    live["zeroshot"].text_features = bank.to(cuda)
+    g = torch.Generator(cuda).manual_seed(2)
+    for b in (1, 3):
+        imgs = torch.randint(0, 256, (b, 96, 96, 3), device=cuda, generator=g,
+                             dtype=torch.uint8)
+        for head, kernels in (("zeroshot", {sim.launch_key(torch.float32, torch.float32),
+                                            prep.KERNEL}), ("adapter", {prep.KERNEL})):
+            got, n = _launch_delta(lambda: programs[head].logits(imgs))
+            assert set(n) == kernels and all(v == 1 for v in n.values()), (head, n)
+            assert (got == live[head].logits(imgs)).all(), head
+
+
+def test_vit_and_bert_exports_launch_b3_b4_b9(cuda):
+    """The fused-MLP ViT's score_image and the flash, fused-MLP BERT's
+    encode_text, exported on the card: B3 and B9 (ViT), B3 and B4 (BERT)
+    launch, and each program's output equals its live forward."""
+    from clip_for_dl_tpu_torch import export
+    from clip_for_dl_tpu_torch.core.device import cast_matmul_weights
+    import io
+
+    from clip_for_dl_tpu_torch.models import CXRClip, init_weights
+
+    cfg = _export_config("vit")
+    model = init_weights(CXRClip(cfg.model), torch.Generator().manual_seed(6)).to(cuda)
+    cast_matmul_weights(model, torch.bfloat16).eval()
+    bank = torch.nn.functional.normalize(torch.randn(16, 64, device=cuda), dim=-1)
+    mean, std = cfg.augment.mean, cfg.augment.std
+
+    def load(data):
+        return torch.export.load(io.BytesIO(data)).module()
+
+    image = load(export.export_singleview_scorer(model, bank, 64, mean, std, 0.5))
+    text = load(export.export_text_encoder(model, 32))
+    live_image = export.make_singleview_scorer(model, bank, 64, mean, std, 0.5)
+    live_text = export.make_text_encoder(model)
+    g = torch.Generator(cuda).manual_seed(4)
+    imgs = torch.randint(0, 256, (3, 64, 64, 3), device=cuda, generator=g, dtype=torch.uint8)
+    ids = torch.randint(1, 128, (5, 32), device=cuda, generator=g, dtype=torch.int32)
+    mask = (torch.arange(32, device=cuda)[None] < torch.tensor([[32], [5], [9], [1], [20]],
+                                                               device=cuda)).int()
+    with torch.inference_mode():
+        got, n = _launch_delta(lambda: image(imgs))
+        assert {fa.KERNEL, mlp_block.KERNEL, prep.KERNEL} <= set(n), n
+        assert torch.equal(got, live_image(imgs))
+        got, n = _launch_delta(lambda: text(ids, mask))
+        assert {fa.KERNEL, mlp.KERNEL} <= set(n), n
+        assert torch.equal(got, live_text(ids, mask))
