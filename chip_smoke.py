@@ -4,7 +4,8 @@ its phase-A train step, its split-q/k/v attention entry point, the chain
 pretrain -> adapter (phase B), the fp32 parity mode, the evaluation from
 files, the command line, its HTTP server, its multi-view training, its ViT
 training and LoRA, Grad-CAM and attention rollout, and its exported programs
-once on one CUDA GPU.
+once on one CUDA GPU, and its data parallelism over every card of the host
+(phase 15; one card is enough).
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -306,6 +307,33 @@ c8_cases).
    within 1e-5. On every path each kernel is held at its first inputs
    against its plain version (hold_first_inputs, phase-2 tolerances).
 
+15. Data parallelism (ROADMAP A7), after phase 14, on phase 9's files.
+   ``python -m torch.distributed.run --standalone --nproc-per-node <cards>
+   chip_smoke.py --phase15-rank DIR``: each rank joins the NCCL group on
+   its card, prints (rank 0) the world size and NCCL's version, and runs
+   (a) the phase-A step (ResNet-50 + BERT-base, 200 tokens, dropout 0) at a
+   global batch of 128 through parallel.dp against the single-device step
+   on the whole batch, three steps of each from the same weights, on the
+   fp32 route (the first step's loss 1e-5 rel, each group's gradient
+   cosine 0.9999) and in bf16 (2% and 0.99), but where BatchNorm's
+   arithmetic reaches, at TOL["dp_bn"], which a planted fault (BatchNorm
+   statistics of each half of the batch) must fail; both routes timed
+   (samples/s);
+   (b) on the fp32 route the local-loss form of clip_self_distill and
+   siglip's ring against their all-gather forms (1e-5, 0.9999); (c)
+   GradCache on the ViT-B/16 step (4 microbatches, LayerNorm only) against
+   the full batch of 128 (2%, 0.99), and its peak above the resident state
+   below the full step's; (d) ``pretrain --accum-steps 2`` over the group
+   (two steps of 16 synthetic pairs at full width, phase 9's vocabulary, a
+   checkpoint) and ``zeroshot`` of that checkpoint on phase 9's files. Each
+   path holds its kernels (B2, B3, B6, and on the bf16 paths B4, B8; B1
+   in zeroshot) at their first inputs, the fp32 instances at their type's
+   rule; each rank's launches count as path@rankN; ranks other than 0 must
+   write no file. Then, in this process, a single-device ``zeroshot`` of
+   the group's checkpoint: probabilities within 5e-3 of the group's. The
+   data-parallel steps take BatchNorm's statistics through the group at
+   every world size, one card included (models/resnet.py _global_bn).
+
 The second-to-last line is the kernels JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -492,6 +520,24 @@ TOL = {
     "fp32_probs": 1e-5,
     "fp32_loss_rel": 1e-5,
     "fp32_grad_cos": 0.9999,
+    # phase 15 (a): the data-parallel step's own bounds against the plain
+    # step, where its BatchNorm (flax's E[x²] − E[x]² from sums all-reduced
+    # through the group) meets cuDNN's on the plain step: route -> (loss
+    # rel, group -> gradient cosine), the rest at the route's bounds. Set
+    # between the readings of the sound step and of a planted fault (each
+    # half of the batch normalized by its own statistics: rank-local
+    # BatchNorm at two ranks), which phase 15 runs and must fail every
+    # bound. Readings at B = 128 (PERF.md, PR 19 runs 7-8): fp32, the image
+    # tower 0.999786 against the fault's 0.187345 (the fault's loss 4.08e-2
+    # rel, the other groups 0.890-0.898); bf16, the loss 1.90e-2 against
+    # 4.31e-2, the image tower 0.395085 against -0.018573, the other groups
+    # 0.975-0.979 against 0.869-0.883. In bf16 the random-init ResNet-50
+    # carries the roundings that another BatchNorm arithmetic moves through
+    # 50 layers into features, and the self-distill targets on raw features
+    # (S·T up to ~1e3) into other targets; the fp32 route holds the step
+    "dp_bn": {"fp32": (1e-5, {"image_tower": 0.9995}),
+              "bf16": (3e-2, {"image_tower": 0.2, "image_projector": 0.95, "text_tower": 0.95,
+                              "text_projector": 0.95})},
     # phase 8, the evaluation from files, kernels vs plain versions from the
     # same weights and batches. The image half, held below the spread of its
     # outputs between inputs (held): at most B2's rounding flips (one bf16
@@ -624,6 +670,16 @@ PATHS = {  # main path -> the kernels it must launch
     # B1 and B2 on the inputs C8 opened to them, through the public functions
     "c8_cases": ("similarity_bf16", "similarity_fp16", "image_prep_f32src", "image_prep_fp16",
                  "image_prep_direct"),
+    # phase 15, each rank of the NCCL group (the kernels line counts them
+    # as path@rankN): the phase-A step through parallel.dp in bf16 and on
+    # the fp32 route, the local-loss forms (fp32), GradCache on the ViT, and
+    # pretrain --accum-steps and zeroshot from the command line
+    "dp_step": TRAIN_KERNELS,
+    "dp_step_fp32": ("image_prep", "flash_attention_fp32", "flash_attention_bwd_fp32"),
+    "dp_local": ("image_prep", "flash_attention_fp32", "flash_attention_bwd_fp32"),
+    "dp_accum": TRAIN_KERNELS,
+    "cli_dp_pretrain": TRAIN_KERNELS,
+    "cli_dp_zeroshot": ("similarity", "image_prep", "flash_attention", "mlp"),
 }
 # H100 SXM peaks (NVIDIA's data sheet, dense): bf16 and fp16 on the tensor
 # cores and fp32 on the CUDA cores, in operations a second; HBM3 in bytes a
@@ -2059,12 +2115,14 @@ def hold_first_inputs(mods, kept: dict, which, where: str, results: dict) -> Non
     """Each kernel that first_inputs kept against its plain version on the
     same tensors, at its phase-2 tolerance (B6 per (batch row, head) slice,
     B8 and B9 relative to each output's largest entry; B2 at its output
-    dtype's: one bf16 or fp16 step, or image_prep_f32)."""
+    dtype's: one bf16 or fp16 step, or image_prep_f32; the fp32 and fp16
+    instances of B3 and B6 at their type's rule, as phase 2 holds them)."""
     import torch
 
     check(set(kept) == set(which), f"{where}: kept the inputs of {sorted(kept)}, not of "
                                    f"{sorted(which)}")
     fa, mlp, blk = mods["flash_attention"], mods["mlp_train"], mods["mlp_block"]
+    type_tag = {torch.float32: "_fp32", torch.float16: "_fp16"}
     for name in sorted(kept):
         a, kw = kept[name]
         shapes = " ".join(str(list(t.shape)) for t in a if torch.is_tensor(t))
@@ -2080,6 +2138,15 @@ def hold_first_inputs(mods, kept: dict, which, where: str, results: dict) -> Non
             sim = mods["similarity"]
             compare(name, sim._kernel(*a, **kw), sim.similarity_reference(*a, **kw), TOL[name],
                     results)
+        elif name == "flash_attention" and a[0].dtype != torch.bfloat16:
+            # the fp32 and fp16 instances at their type's rule, as phase 2 (C7)
+            want = fa.flash_attention_packed_reference(*a, **kw)
+            compare(name + type_tag[a[0].dtype], fa._kernel(*a, **kw), want,
+                    fa.fwd_tolerance(want), results)
+        elif name == "flash_attention_bwd" and a[0].dtype != torch.bfloat16:
+            typed_grads(name + type_tag[a[0].dtype], fa._kernel_bwd(*a, **kw),
+                        fa.flash_attention_packed_bwd_reference(*a, **kw), "packed", a[0].dtype,
+                        results, a[2])
         elif name == "flash_attention":
             compare(name, fa._kernel(*a, **kw), fa.flash_attention_packed_reference(*a, **kw),
                     TOL[name], results)
@@ -5700,6 +5767,473 @@ def export_phase14(_build, mods, dev, seed: int, card: str, workdir: str,
     return by_path
 
 
+# -- phase 15: data parallelism over NCCL -------------------------------------------------
+
+DP_BATCH = 128  # phase 15's global batch: the phase-A step's (a, b) and the ViT's (c)
+DP_STEPS = 3  # steps of each route in phase 15 (a): the first held, the rest printed
+DP_TIMED = 4  # steps of each route timed at the world size (the first not counted)
+DP_ACCUM = 4  # phase 15 (c)'s microbatches
+DP_CLI_BATCH = 16  # phase 15 (d)'s pretrain batch: two steps of 32 synthetic pairs
+DP_TIMEOUT = 480  # seconds the phase's torchrun may take, the build's load included
+# a collective's wait in phase 15's ranks: a rank that fails leaves the
+# others waiting, and the phase must end inside the call
+DP_PG_TIMEOUT = 120
+
+
+def dp_phase15(_build, mods, dev, seed: int, card: str, workdir: str, results: dict) -> dict:
+    """Phase 15: ``torchrun --standalone --nproc-per-node <cards>`` of this
+    script's rank program (:func:`phase15_rank`, ``--phase15-rank``), each
+    rank on its card over NCCL; then the checkpoint of its ``pretrain``
+    restored into a single-device ``zeroshot`` in this process, the
+    probabilities against the group's. Returns the launches by path and
+    rank (``path@rankN``)."""
+    import importlib
+    import io
+    import os
+    from contextlib import redirect_stdout
+
+    import numpy as np
+    import torch
+
+    t_phase = time.perf_counter()
+    world = torch.cuda.device_count()
+    w = f"{workdir}/phase15"
+    os.makedirs(w, exist_ok=True)
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={world}", str(ROOT / "chip_smoke.py"), "--phase15-rank", w,
+           "--seed", str(seed)]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, cwd=str(ROOT), capture_output=True, text=True,
+                              timeout=DP_TIMEOUT)
+    except subprocess.TimeoutExpired as exc:
+        raise SmokeFailure(f"phase 15's ranks ran past {DP_TIMEOUT} s: "
+                           f"{(exc.stdout or '')[-3000:]}")
+    wall = time.perf_counter() - t0
+    print(proc.stdout.rstrip())
+    if proc.returncode:
+        print(proc.stderr[-8000:], file=sys.stderr)
+    check(proc.returncode == 0, f"phase 15's torchrun exited with {proc.returncode}")
+    ranks_out = []
+    for r in range(world):
+        with open(f"{w}/rank{r}.json") as f:
+            ranks_out.append(json.load(f))
+    by_path = {}
+    for r, out in enumerate(ranks_out):
+        check(out["ok"], f"phase 15, rank {r} did not finish")
+        for path, launches in out["launches"].items():
+            check_launched(mods, launches, path)
+            by_path[f"{path}@rank{r}"] = launches
+        for name, v in out["results"].items():
+            results.setdefault(name, {})["max_abs_err"] = max(
+                v["max_abs_err"], results.get(name, {}).get("max_abs_err", 0.0))
+    written = [out["written"] for out in ranks_out]
+    print(f"phase 15 (d): files written by each rank's commands: "
+          f"{[len(x) for x in written]} (rank 0: {sorted(os.path.basename(p) for p in written[0])})")
+    check(written[0] and not any(written[1:]), "a rank other than 0 wrote a file")
+
+    # (d) the checkpoint the group wrote, in a plain single-device zeroshot
+    cli = importlib.import_module("clip_for_dl_tpu_torch.cli.main")
+    engine_module = importlib.import_module("clip_for_dl_tpu_torch.zeroshot.engine")
+    got, stream = [], engine_module.ZeroShotEngine.stream_logits
+
+    def recording(self, batches):
+        for batch, logits in stream(self, batches):
+            got.append(np.asarray(logits, np.float64))
+            yield batch, logits
+
+    argv = dp_zeroshot_argv(workdir, f"{w}/zs_single")
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with mock.patch.object(engine_module.ZeroShotEngine, "stream_logits", recording), \
+            redirect_stdout(out):
+        rc = cli.main(argv)
+    check(rc == 0, f"the single-device zeroshot exited with {rc}: {out.getvalue()[-2000:]}")
+    single = 1 / (1 + np.exp(-np.concatenate(got)))
+    group = 1 / (1 + np.exp(-np.load(f"{w}/zs_dp_logits.npy")))
+    check(single.shape == group.shape, f"zeroshot: {single.shape} vs {group.shape}")
+    diff = float(np.abs(single - group).max())
+    print(f"phase 15 (d): the group's checkpoint in a single-device zeroshot "
+          f"({time.perf_counter() - t0:.1f} s): {single.shape[0]} views x {single.shape[1]} "
+          f"classes, probabilities max |difference| {diff:.3e} from the group's "
+          f"(tol {TOL['eval_vs_plain']:.0e})")
+    check(diff <= TOL["eval_vs_plain"], "the group's zeroshot differs from the single device's")
+    torch.cuda.empty_cache()
+    print(f"phase 15 on {card}: torchrun {wall:.1f} s; phase {time.perf_counter() - t_phase:.1f} s")
+    return by_path
+
+
+def dp_zeroshot_argv(workdir: str, log_dir: str) -> list:
+    """``zeroshot`` on phase 9's files with the checkpoint phase 15's
+    pretrain wrote."""
+    work, kaggle = f"{workdir}/cli", f"{workdir}/kaggle"
+    return ["zeroshot", "--reports-csv", f"{work}/labeled.csv", "--projections-csv",
+            f"{kaggle}/indiana_projections.csv", "--image-dir",
+            f"{kaggle}/images/images_normalized", "--image-cache", f"{work}/cache", "--vocab",
+            f"{work}/vocab.txt", "--flash-attention", "--bert-fused-mlp", "--checkpoint",
+            f"{workdir}/phase15/ckpt", "--log-dir", log_dir]
+
+
+def phase15_rank(w: str, seed: int) -> int:
+    """One rank of phase 15 (``--phase15-rank W``, under torchrun): joins the
+    NCCL group, loads the kernels the parent built, runs (a) to (d) and
+    writes ``W/rank{r}.json`` (launches by path, the kernels' first-input
+    holds, readings, the files its commands wrote). Rank 0 prints."""
+    import datetime
+    import os
+
+    import torch
+
+    _build, mods = import_port()
+    from clip_for_dl_tpu_torch.parallel import multihost
+
+    dev = multihost.init_process_group(device="cuda",
+                                       timeout=datetime.timedelta(seconds=DP_PG_TIMEOUT))
+    rank, world = torch.distributed.get_rank(), torch.distributed.get_world_size()
+    out = {"ok": False, "launches": {}, "results": {}, "readings": {}, "written": []}
+    if rank:
+        sys.stdout = open(os.devnull, "w")
+    try:
+        t0 = time.perf_counter()
+        _build.build()
+        nccl = ".".join(map(str, torch.cuda.nccl.version()))
+        print(f"phase 15: world size {world} over NCCL {nccl} (torch {torch.__version__}); "
+              f"rank 0 on {torch.cuda.get_device_name(dev)}; kernels loaded in "
+              f"{time.perf_counter() - t0:.1f} s")
+        dp_steps15(_build, mods, dev, seed, out)
+        dp_accum15(_build, mods, dev, seed, out)
+        dp_cli15(_build, mods, dev, w, out)
+        out["ok"] = True
+    finally:
+        with open(f"{w}/rank{rank}.json", "w") as f:
+            json.dump(out, f)
+        multihost.destroy()
+    return 0
+
+
+def _route_tols(compute):
+    """(loss rel, gradient cosine) bounds of a route: phase 7's on the fp32
+    route, phase 4's on the bf16 one."""
+    import torch
+
+    if compute == torch.float32:
+        return TOL["fp32_loss_rel"], TOL["fp32_grad_cos"]
+    return TOL["train_loss_rel"], TOL["grad_cos"]
+
+
+def dp_steps15(_build, mods, dev, seed: int, out: dict) -> None:
+    """Phase 15 (a) and (b): the phase-A step (ResNet-50 + BERT-base, 200
+    tokens, dropout 0) at a global batch of DP_BATCH, through parallel.dp
+    (this rank's rows, global BatchNorm and loss, the gradients'
+    all-reduce before the clip) against the single-device step on the whole
+    batch, DP_STEPS steps of each from the same weights, on the fp32 route
+    (fp32_compute: fp32 attention kernels, TF32 off) and on the bf16 route;
+    the local-loss forms against the global ones; then both routes timed."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from clip_for_dl_tpu_torch.parallel import data_parallel_step, replicate_state
+    from clip_for_dl_tpu_torch.parallel.multihost import assert_same_across_processes
+    from clip_for_dl_tpu_torch.tools.main_paths import (
+        base_lrs, pretrain_step, tokenizer, train_batch, train_model,
+    )
+    from clip_for_dl_tpu_torch.train import TrainState, make_label_fn
+
+    group = dist.group.WORLD
+    world = dist.get_world_size()
+    t0 = time.perf_counter()
+    preset, cfg, model = train_model(dev, seed, "pretrain_clip")
+    groups = [g.name for g in preset.train.groups]
+    label_fn, lrs = make_label_fn(groups), base_lrs(preset)
+    batch = train_batch(np.random.default_rng(seed + 15), tokenizer(), dev, DP_BATCH, TRAIN_LEN)
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    print(f"phase 15 (a): {describe(cfg)}; global batch {DP_BATCH} ({DP_BATCH // world} a "
+          f"rank), {TRAIN_LEN} tokens, dropout 0; built in {time.perf_counter() - t0:.1f} s")
+
+    def steps(compute, dp: bool, n: int, **kw):
+        """n steps from the initial weights: (losses, the first step's group
+        gradients, the seconds of each step)."""
+        model.load_state_dict(init)
+        opt, step = pretrain_step(model, preset, cfg, compute, **({"group": group, **kw}
+                                                                   if dp else kw))
+        state = TrainState(model, opt)
+        if dp:
+            replicate_state(state, group)
+            step = data_parallel_step(step, group)
+        losses, grads, times = [], None, []
+        for i in range(n):
+            torch.cuda.synchronize(dev)
+            t = time.perf_counter()
+            losses.append(float(step(state, batch, lrs)[1]["loss"]))  # syncs the step
+            times.append(time.perf_counter() - t)
+            if i == 0:
+                grads = group_grads(model, label_fn)
+        if dp:
+            assert_same_across_processes(
+                float(sum(float(p.double().sum()) for p in model.parameters())),
+                "the replicated parameters")
+        return losses, grads, times
+
+    def against(what, got, want, compute, loss_tol=None, cos_tol=None):
+        """The first step's loss and gradients at the route's bounds (or
+        the ones given); the later losses printed: Adam's first update moves
+        each element by about ±lr whatever its gradient's size, so the
+        trajectory after it (at random init the projectors' 1e-3 throws the
+        loss to ~50) measures the dynamics, not the step."""
+        route_loss_tol, route_cos_tol = _route_tols(compute)
+        loss_tol, cos_tol = loss_tol or route_loss_tol, cos_tol or route_cos_tol
+        rel = [abs(a - b) / abs(b) for a, b in zip(got[0], want[0])]
+        print(f"  {what}: losses {['%.6f' % x for x in got[0]]} vs "
+              f"{['%.6f' % x for x in want[0]]} (rel {', '.join('%.2e' % r for r in rel)}; "
+              f"the first step's tol {loss_tol:.0e})")
+        compare_groups(f"phase 15, {what}", got[1], want[1], groups, cos_tol)
+        check(all(np.isfinite(got[0])) and rel[0] <= loss_tol,
+              f"phase 15, {what}: the first step's loss differs")
+
+    def dp_tols(route):
+        """(loss rel, group -> cosine) of the data-parallel step against the
+        plain one: the route's bounds, but TOL["dp_bn"]'s where the
+        BatchNorm arithmetic reaches."""
+        loss_tol, cos_tol = _route_tols(torch.float32 if route == "fp32" else torch.bfloat16)
+        loss_own, cos_own = TOL["dp_bn"][route]
+        return max(loss_tol, loss_own), {**dict.fromkeys(groups, cos_tol), **cos_own}
+
+    def bn_control(plain, compute, route):
+        """The planted fault that the bounds must catch: each half of the
+        batch normalized by its own statistics (rank-local BatchNorm at two
+        ranks), one step through parallel.dp; it must fail the loss's bound
+        and every group's."""
+        from clip_for_dl_tpu_torch.models import resnet
+
+        real = resnet._global_bn
+
+        def halves(x, bn, group):
+            parts = [real(h, bn, group) for h in x.chunk(2)]
+            return (torch.cat([o for o, _, _ in parts]), sum(m for _, m, _ in parts) / 2,
+                    sum(v for _, _, v in parts) / 2)
+
+        with mock.patch.object(resnet, "_global_bn", halves):
+            fault = steps(compute, True, 1)
+        cos = {g: cosine(fault[1][g], plain[1][g]) for g in groups}
+        rel = abs(fault[0][0] - plain[0][0]) / abs(plain[0][0])
+        loss_tol, cos_tol = dp_tols(route)
+        print(f"  control on the {route} route, BatchNorm statistics of each half of the batch: "
+              f"loss rel {rel:.2e} (must be above {loss_tol:.0e}), gradient cosines "
+              f"{', '.join(f'{g} {c:.6f}' for g, c in cos.items())} (each must be below "
+              f"its bound)")
+        out["readings"][f"bn_control_{route}"] = {"loss_rel": rel, "cos": cos}
+        missed = [g for g in groups if cos[g] >= cos_tol[g]] + ["loss"] * (rel <= loss_tol)
+        check(not missed, f"phase 15 (a): the {route} bounds of {missed} do not catch "
+                          "BatchNorm statistics of half the batch")
+
+    # the kernels each route runs (the fp32 route's BERT has no fused MLP),
+    # each held at its first inputs on the path
+    route_kernels = {"bf16": dict.fromkeys(("image_prep", "flash_attention",
+                                            "flash_attention_bwd", "mlp", "mlp_bwd")),
+                     "fp32": dict.fromkeys(("image_prep", "flash_attention",
+                                            "flash_attention_bwd"))}
+    cudnn = torch.backends.cudnn
+    flags = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        for route, compute in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            path = "dp_step" if route == "bf16" else "dp_step_fp32"
+            which = route_kernels[route]
+            ctx = fp32_compute(model) if route == "fp32" else ExitStack()
+            with ctx:
+                stack, kept = first_inputs(mods, which)
+                torch.cuda.synchronize(dev)
+                _build.reset_launches()
+                with stack:
+                    dp = steps(compute, True, DP_STEPS)
+                torch.cuda.synchronize(dev)
+                out["launches"][path] = dict(_build.LAUNCHES)
+                plain = steps(compute, False, DP_STEPS)
+                against(f"the {route} step over {world} rank(s) vs one device", dp, plain,
+                        compute, *dp_tols(route))
+                bn_control(plain, compute, route)
+                print(f"  the {route} data-parallel step's kernels at their first inputs:")
+                hold_first_inputs(mods, kept, which, f"phase 15's {route} dp step",
+                                  out["results"])
+                if route == "fp32":  # (b)
+                    stack, kept = first_inputs(mods, which)
+                    torch.cuda.synchronize(dev)
+                    _build.reset_launches()
+                    with stack:
+                        local = {name: steps(compute, True, 1, loss_name=name, local_loss=True)
+                                 for name in ("clip_self_distill", "siglip")}
+                    torch.cuda.synchronize(dev)
+                    out["launches"]["dp_local"] = dict(_build.LAUNCHES)
+                    for loss_name, got in local.items():
+                        full = steps(compute, True, 1, loss_name=loss_name)
+                        ring = loss_name == "siglip"
+                        against(f"(b) {loss_name}, {'the ring' if ring else 'the local-loss form'}"
+                                " vs the all-gather form", got, full, compute)
+                    print("  the local-loss steps' kernels at their first inputs:")
+                    hold_first_inputs(mods, kept, which, "phase 15's local-loss steps",
+                                      out["results"])
+    finally:
+        cudnn.deterministic, cudnn.benchmark = flags
+    rates = {}
+    for name, dp in (("dp", True), ("plain", False)):
+        t = steps(torch.bfloat16, dp, DP_TIMED)[2][1:]
+        rates[name] = DP_BATCH * len(t) / sum(t)
+    print(f"phase 15 (a): bf16 step, global batch {DP_BATCH}: {rates['dp']:.1f} samples/s "
+          f"through parallel.dp over {world} rank(s), {rates['plain']:.1f} samples/s on the "
+          f"single-device step (steps 1-{DP_TIMED - 1}, synced; dp / plain "
+          f"{rates['dp'] / rates['plain']:.3f})")
+    out["readings"]["samples_per_s"] = rates
+    del model, init
+    torch.cuda.empty_cache()
+
+
+def dp_accum15(_build, mods, dev, seed: int, out: dict) -> None:
+    """Phase 15 (c): GradCache on the ViT-B/16 tower (LayerNorm only, the
+    training MLP kernels in both towers): the accumulating step in DP_ACCUM
+    microbatches through parallel.dp (each rank its share of each global
+    microbatch) against the single-device full-batch step on the same
+    DP_BATCH pairs, bf16, one step each from the same weights: the loss and
+    each group's gradient at phase 4's bounds; the accumulating step's peak
+    below the full step's."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from clip_for_dl_tpu_torch.parallel import data_parallel_step, replicate_state
+    from clip_for_dl_tpu_torch.tools.main_paths import (
+        base_lrs, pretrain_step, tokenizer, train_batch, train_model,
+    )
+    from clip_for_dl_tpu_torch.train import (
+        TrainState, make_accum_clip_pretrain_step, make_label_fn,
+    )
+
+    group = dist.group.WORLD
+    preset, cfg, model = train_model(dev, seed, "vit", vit_fused_mlp_train=True)
+    groups = [g.name for g in preset.train.groups]
+    label_fn, lrs = make_label_fn(groups), base_lrs(preset)
+    batch = train_batch(np.random.default_rng(seed + 16), tokenizer(), dev, DP_BATCH, TRAIN_LEN)
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    def accum(m, opt, lf, **kw):
+        return make_accum_clip_pretrain_step(m, opt, lf, DP_ACCUM, **kw)
+
+    def one_step(dp: bool):
+        model.load_state_dict(init)
+        opt, step = pretrain_step(model, preset, cfg, **({"group": group, "make": accum}
+                                                          if dp else {}))
+        state = TrainState(model, opt)
+        if dp:
+            replicate_state(state, group)
+            step = data_parallel_step(step, group, microbatches=DP_ACCUM)
+        torch.cuda.synchronize(dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        loss = float(step(state, batch, lrs)[1]["loss"])
+        peak = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+        return loss, group_grads(model, label_fn), peak
+
+    vit_kernels = dict.fromkeys(("image_prep", "flash_attention", "flash_attention_bwd", "mlp",
+                                 "mlp_bwd"))
+    cudnn = torch.backends.cudnn
+    flags = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        full = one_step(False)
+        stack, kept = first_inputs(mods, vit_kernels)
+        torch.cuda.synchronize(dev)
+        _build.reset_launches()
+        with stack:
+            acc = one_step(True)
+        torch.cuda.synchronize(dev)
+        out["launches"]["dp_accum"] = dict(_build.LAUNCHES)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = flags
+    rel = abs(acc[0] - full[0]) / abs(full[0])
+    print(f"phase 15 (c): {describe(cfg)}, training MLP in the ViT; GradCache in {DP_ACCUM} "
+          f"microbatches over {dist.get_world_size()} rank(s) vs the full batch of "
+          f"{DP_BATCH}: loss {acc[0]:.6f} vs {full[0]:.6f} (rel {rel:.2e}, tol "
+          f"{TOL['train_loss_rel']:.0e}); peak above the resident state {acc[2]:.2f} GiB vs "
+          f"{full[2]:.2f} GiB")
+    check(np.isfinite(acc[0]) and rel <= TOL["train_loss_rel"],
+          "phase 15 (c): the accumulating step's loss differs")
+    compare_groups("phase 15 (c)", acc[1], full[1], groups, TOL["grad_cos"])
+    check(acc[2] < full[2], "phase 15 (c): the accumulating step's peak is not below the "
+                            "full step's")
+    out["readings"]["vit_peak_gib"] = {"accum": acc[2], "full": full[2]}
+    print("  the accumulating ViT step's kernels at their first inputs:")
+    hold_first_inputs(mods, kept, vit_kernels, "phase 15's GradCache step", out["results"])
+    del model, init
+    torch.cuda.empty_cache()
+
+
+def dp_cli15(_build, mods, dev, w: str, out: dict) -> None:
+    """Phase 15 (d): the command line over the group, in this rank:
+    ``pretrain --accum-steps 2`` at full width on phase 9's vocabulary, two
+    steps of DP_CLI_BATCH synthetic pairs and a checkpoint (path
+    cli_dp_pretrain), then ``zeroshot`` of that checkpoint on phase 9's
+    files (path cli_dp_zeroshot, its logits kept for the parent). The files
+    each rank's commands write are recorded; B2, B3, B6, B4, B8 and B1 held
+    at their first inputs."""
+    import importlib
+    import io
+    import os
+    from contextlib import redirect_stdout
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from clip_for_dl_tpu_torch.testing.ranks import recorded_writes
+
+    cli = importlib.import_module("clip_for_dl_tpu_torch.cli.main")
+    engine_module = importlib.import_module("clip_for_dl_tpu_torch.zeroshot.engine")
+    workdir = os.path.dirname(w)
+    vocab = f"{workdir}/cli/vocab.txt"
+    pretrain = ["pretrain", "--vocab", vocab, "--flash-attention", "--bert-fused-mlp",
+                "--synthetic", "--synthetic-samples", str(2 * DP_CLI_BATCH), "--batch-size",
+                str(DP_CLI_BATCH), "--epochs", "1", "--accum-steps", "2", "--checkpoint-dir",
+                f"{w}/ckpt", "--log-dir", f"{w}/logs"]
+    logits, stream = [], engine_module.ZeroShotEngine.stream_logits
+
+    def recording(self, batches):
+        for batch, lg in stream(self, batches):
+            logits.append(np.asarray(lg, np.float64))
+            yield batch, lg
+
+    for path, argv, which in (
+            ("cli_dp_pretrain", pretrain,
+             ("image_prep", "flash_attention", "flash_attention_bwd", "mlp", "mlp_bwd")),
+            ("cli_dp_zeroshot", dp_zeroshot_argv(workdir, f"{w}/zs_dp"),
+             ("similarity", "image_prep", "flash_attention", "mlp"))):
+        stack, kept = first_inputs(mods, dict.fromkeys(which))
+        text = io.StringIO()
+        torch.cuda.synchronize(dev)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        with stack, recorded_writes() as written, redirect_stdout(text), \
+                mock.patch.object(engine_module.ZeroShotEngine, "stream_logits", recording):
+            rc = cli.main(argv)
+        torch.cuda.synchronize(dev)
+        check(rc == 0, f"phase 15 (d): {argv[0]} exited with {rc}: {text.getvalue()[-2000:]}")
+        out["launches"][path] = dict(_build.LAUNCHES)
+        out["written"] += written
+        print(f"phase 15 (d): {' '.join(argv[:1] + argv[1:][-12:])} over "
+              f"{dist.get_world_size()} rank(s): exit 0 in {time.perf_counter() - t0:.1f} s; "
+              f"launches {out['launches'][path]}")
+        hold_first_inputs(mods, kept, dict.fromkeys(which), path, out["results"])
+        torch.cuda.empty_cache()
+    if dist.get_rank() == 0:
+        np.save(f"{w}/zs_dp_logits.npy", np.concatenate(logits))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of weights and inputs")
@@ -5712,7 +6246,12 @@ def main(argv=None) -> int:
     ap.add_argument("--gradcam-seeds", type=int, nargs="+", metavar="SEED",
                     help="only build the kernels and print the readings of gradcam_sweep "
                          "at these seeds")
+    ap.add_argument("--phase15-rank", metavar="DIR",
+                    help="(under torchrun, as phase 15 starts it) one rank of phase 15 on "
+                         "the files of phases 9 and 15 beside DIR")
     args = ap.parse_args(argv)
+    if args.phase15_rank:
+        return phase15_rank(args.phase15_rank, args.seed)
 
     t_start = time.perf_counter()
     _build, mods = import_port()
@@ -5824,6 +6363,8 @@ def main(argv=None) -> int:
                                          results))
         print("== phase 14: export, serve --exported")
         by_path.update(export_phase14(_build, mods, dev, args.seed, card, workdir, results))
+        print("== phase 15: data parallelism over NCCL, one rank a card (torchrun)")
+        by_path.update(dp_phase15(_build, mods, dev, args.seed, card, workdir, results))
     print("== the wrappers' host time (tools/launch_times.py)")
     from clip_for_dl_tpu_torch.tools import launch_times
 

@@ -19,6 +19,19 @@ The parser is the JAX CLI's, command for command and flag for flag, so a
 JAX command line parses unchanged. A flag the port does not run yet exits
 with status 2 and names the ROADMAP item that owns it.
 
+``pretrain``, ``train``, ``adapter``, ``shared-adapter`` and ``zeroshot``
+run data-parallel over a ``torch.distributed`` group (``parallel/``), with
+the JAX CLI's flags and messages: ``--num-devices N`` in one launch starts N
+ranks, one a card (the JAX single-process mesh: each rank takes its
+contiguous slice of every global batch); under ``torchrun`` the process
+joins the group ``torchrun`` made; ``--num-processes`` with
+``--coordinator`` and ``--process-id`` joins by TCP, each process loading
+its strided shard of the data (the JAX multi-process run);
+``--virtual-devices N`` emulates N devices as N gloo ranks on the CPU. Only
+rank 0 writes logs, checkpoints, CSV and metric files. ``pretrain
+--local-loss`` takes the contrastive loss's block form (siglip's ring) and
+``--accum-steps A`` the GradCache step (``train/accum.py``).
+
 Every command runs on the card (the kernels of ``ops/``); with
 ``CLIP_FOR_DL_TPU_FORCE_CPU`` set it runs on the CPU, where every kernel's
 wrapper runs its plain version. With neither a card nor the switch, every
@@ -43,22 +56,19 @@ ENV_FORCE_CPU = "CLIP_FOR_DL_TPU_FORCE_CPU"
 # for any value but the ones a single-device, default run passes
 _ANY = None
 UNPORTED_FLAGS = {
-    "num_devices": (_ANY, "A7"),
-    "virtual_devices": (_ANY, "A7"),
-    "tp": (_ANY, "A7"),
-    "pp": (_ANY, "A7"),
-    "ep": (_ANY, "A7"),
-    "num_processes": (_ANY, "A7"),
-    "local_loss": (_ANY, "A7"),
-    "accum_steps": (_ANY, "A7"),
-    "moe_experts": (_ANY, "A7"),
+    "tp": (_ANY, "A7b"),
+    "pp": (_ANY, "A7b"),
+    "ep": (_ANY, "A7b"),
+    "moe_experts": (_ANY, "A7b"),
     "remat": (_ANY, "not ported (torch.utils.checkpoint)"),
     "bf16_attention_probs": (_ANY, "not ported (the attention kernels keep no "
                                    "probabilities; use --flash-attention)"),
 }
 # degrees and counts whose value 1 is the single-device default
-_DEGREES = ("num_devices", "virtual_devices", "tp", "pp", "ep", "num_processes",
-            "accum_steps")
+_DEGREES = ("tp", "pp", "ep")
+# the commands that run data-parallel over a process group; serve's
+# --num-devices and the other commands' --num-processes are ROADMAP A7b
+DP_COMMANDS = ("pretrain", "train", "adapter", "shared-adapter", "zeroshot")
 
 
 def _unported(args) -> str | None:
@@ -73,15 +83,94 @@ def _unported(args) -> str | None:
             flag = "--" + dest.replace("_", "-")
             where = item if item.startswith("not ported") else f"ROADMAP {item}"
             return f"{flag} {v!r} is not ported yet ({where})"
+    if args.command not in DP_COMMANDS:
+        for dest in ("num_processes",) + (("num_devices",) if args.command == "serve" else ()):
+            v = getattr(args, dest, None)
+            if v not in (None, 0, 1):
+                return f"--{dest.replace('_', '-')} {v!r} is not ported yet (ROADMAP A7b)"
     return None
+
+
+def _visible_devices(args) -> int:
+    """The devices a mesh may cover: the group's ranks (one device each),
+    the emulated CPU devices, the CPU, or the cards."""
+    from ..parallel import multihost
+
+    if int(args.num_processes or 1) > 1:
+        return int(args.num_processes)
+    if multihost.launched():
+        return int(os.environ["WORLD_SIZE"])
+    if getattr(args, "virtual_devices", None):
+        return int(args.virtual_devices)
+    if os.environ.get(ENV_FORCE_CPU):
+        return 1
+    import torch
+
+    return torch.cuda.device_count()
+
+
+def _dp_devices(args) -> int:
+    """The data-parallel world the command runs at (the JAX
+    ``_effective_dp_devices``): ``--num-devices``, or the whole group in a
+    multi-process run; 0 for a single-device run."""
+    from ..parallel import multihost
+
+    n = int(getattr(args, "num_devices", None) or 0)
+    if not n and (int(args.num_processes or 1) > 1 or multihost.launched()):
+        n = _visible_devices(args)
+    return n
+
+
+def _dp_refused(args) -> None:
+    """The JAX CLI's refusals of the data-parallel flags and their
+    compositions, its messages word for word (raised as ``SystemExit``),
+    before any rank starts."""
+    if args.command not in DP_COMMANDS:
+        return
+    n = _dp_devices(args)
+    if args.command == "pretrain" and not args.lora:
+        if args.local_loss and n <= 1:
+            raise SystemExit(
+                "--local-loss requires a dp mesh (--num-devices > 1, "
+                "or a multi-process run whose slice has > 1 device)"
+            )
+        if int(args.accum_steps or 1) > 1:
+            if args.local_loss:
+                raise SystemExit("--accum-steps does not compose with --local-loss")
+            if args.learnable_temperature:
+                raise SystemExit(
+                    "--learnable-temperature does not compose with "
+                    "--accum-steps (the GradCache step caches features at "
+                    "a fixed temperature — the scalars would silently "
+                    "train at zero gradient)"
+                )
+    if args.command == "pretrain" and args.lora and n > 1:
+        raise SystemExit("--num-devices is not supported with --lora")
+    if n <= 1:
+        return
+    if args.command != "zeroshot":
+        preset = "adapter" if args.command in ("adapter", "shared-adapter") else None
+        bs = args.batch_size or _preset(args, preset).data.batch_size
+        if bs % n:
+            raise SystemExit(f"--num-devices {n} must divide the batch size ({bs})")
+    from ..parallel import check_devices, multihost
+
+    try:
+        check_devices(n, _visible_devices(args))
+    except ValueError as e:
+        raise SystemExit(str(e))
+    if n != _visible_devices(args) and (_strided(args) or multihost.launched()):
+        raise SystemExit(f"--num-devices {n} != {_visible_devices(args)} processes in the "
+                         "group: the mesh must cover every rank")
 
 
 def _lora_refused(args) -> int | None:
     """The JAX CLI's refusals of ``pretrain --lora``, its messages word for
     word, ahead of the unported flags (``--local-loss`` and
     ``--accum-steps`` are refused for their composition with LoRA first, as
-    in the JAX CLI; ``--pp`` and ``--num-devices`` stay the A7 flags that
-    exit 2). Returns an exit status, or None."""
+    in the JAX CLI; ``--pp`` stays an A7b flag that exits 2, and
+    ``--num-devices`` is refused after it, by ``_dp_refused``). Returns an
+    exit status, or None."""
     if args.command != "pretrain" or not args.lora:
         return None
     if args.lora < 0:
@@ -103,27 +192,63 @@ def _lora_refused(args) -> int | None:
     return None
 
 
-def _device():
-    """The card, or the CPU when ``CLIP_FOR_DL_TPU_FORCE_CPU`` is set;
-    raises RuntimeError without a card."""
+def _on_cpu(args) -> bool:
+    """``CLIP_FOR_DL_TPU_FORCE_CPU``, or ``--virtual-devices`` (the JAX
+    CLI's emulated CPU devices: gloo ranks on the CPU, never the card)."""
+    return bool(os.environ.get(ENV_FORCE_CPU) or getattr(args, "virtual_devices", None))
+
+
+def _device(args):
+    """The card, or the CPU (see :func:`_on_cpu`); raises RuntimeError
+    without a card. A process of a group drives its rank's device."""
     import torch
+    import torch.distributed as dist
 
     from ..core.device import require_cuda
 
-    if os.environ.get(ENV_FORCE_CPU):
+    if dist.is_initialized():
+        if dist.get_backend() == "nccl":
+            return torch.device("cuda", torch.cuda.current_device())
+        return torch.device("cpu")
+    if _on_cpu(args):
         return torch.device("cpu")
     return require_cuda()
 
 
+def _group():
+    """The process group a command runs data-parallel over, or None."""
+    from ..parallel import multihost
+
+    if not multihost.is_distributed():
+        return None
+    import torch.distributed as dist
+
+    return dist.group.WORLD
+
+
+def _dp(group) -> dict:
+    """The steps' keyword for ``group``: none for a single-device run."""
+    return {} if group is None else {"group": group}
+
+
+def _primary() -> bool:
+    """True on the process that writes logs, checkpoints and metric files
+    (the JAX CLI's ``_primary``)."""
+    from ..parallel import multihost
+
+    return multihost.is_primary()
+
+
 def _setup_logging(log_dir: str, name: str) -> None:
-    os.makedirs(log_dir, exist_ok=True)
+    """Log to stderr, and on the primary to ``<log_dir>/<name>.log``."""
+    handlers = [logging.StreamHandler()]
+    if _primary():
+        os.makedirs(log_dir, exist_ok=True)
+        handlers.append(logging.FileHandler(os.path.join(log_dir, f"{name}.log")))
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s %(name)s %(levelname)s %(message)s",
-        handlers=[
-            logging.StreamHandler(),
-            logging.FileHandler(os.path.join(log_dir, f"{name}.log")),
-        ],
+        handlers=handlers,
     )
 
 
@@ -232,7 +357,10 @@ def _apply_data_paths(cfg, args):
     return cfg
 
 
-def _loaders(cfg, args, multi_view=True):
+def _loaders(cfg, args, multi_view=True, shard=True):
+    """The train and validation loaders. In a ``--num-processes`` run each
+    process loads its strided shard (``shard``; zeroshot's engine shards
+    the batches itself), at its slice of the global batch."""
     cfg = _apply_data_paths(cfg, args)
     from ..data import (
         ChestXrayMultiViewDataset,
@@ -263,9 +391,14 @@ def _loaders(cfg, args, multi_view=True):
                 "image cache: %d preprocessed images from %s",
                 len(cache), args.image_cache,
             )
-            if getattr(args, "device_cache", False):
+            if getattr(args, "device_cache", False) and _strided(args):
+                logging.warning("--device-cache composes with dp only (got "
+                                "--num-processes) — streaming instead")
+            elif getattr(args, "device_cache", False):
                 from ..data import DeviceCacheBudgetError, DeviceImageCache
 
+                # one resident copy a rank, on its card (the JAX cache is
+                # replicated over the mesh)
                 try:
                     dcache = DeviceImageCache(cache, device=args.device)
                 except DeviceCacheBudgetError as e:
@@ -309,15 +442,25 @@ def _loaders(cfg, args, multi_view=True):
         val_ds = kind(n // 4, cfg.model.image_size, 1)
     # train: drop the ragged final batch (a zero-padded sample would skew the
     # batch-global contrastive losses); eval: pad + mask so nothing is lost.
-    bs = cfg.data.batch_size
+    bs, shard_kwargs = cfg.data.batch_size, {}
+    if shard and _strided(args):
+        from ..parallel.multihost import process_sharded_loader_kwargs
+
+        shard_kwargs = process_sharded_loader_kwargs(cfg.data.batch_size)
+        bs = shard_kwargs.pop("batch_size")
     train_loader = HostLoader(
         train_ds, bs, shuffle=True, seed=cfg.data.seed,
         num_threads=cfg.data.num_workers,
-        drop_last=len(train_ds) > bs, pad_final=True,
+        drop_last=len(train_ds) > bs, pad_final=True, **shard_kwargs,
     )
+    # eval keeps every sample: pad the shard (mask-0 repeats keep the ranks
+    # in step) instead of truncating like the train loader
+    val_shard_kwargs = dict(shard_kwargs)
+    if val_shard_kwargs.pop("even_shards", False):
+        val_shard_kwargs["pad_shards"] = True
     val_loader = HostLoader(
         val_ds, bs, shuffle=False, seed=cfg.data.seed,
-        num_threads=cfg.data.num_workers, pad_final=True,
+        num_threads=cfg.data.num_workers, pad_final=True, **val_shard_kwargs,
     )
     if dcache is not None:
         from ..data import DeviceFeedLoader
@@ -349,14 +492,43 @@ def _rng_stream(args, cfg):
     the same seed, so that a run repeats."""
     import torch
 
-    torch.manual_seed(cfg.data.seed)
-    return itertools.repeat(torch.Generator(args.device).manual_seed(cfg.data.seed))
+    from ..parallel import multihost
+
+    # each rank its own stream, so that rows at the same place of two ranks'
+    # slices do not share their dropout masks
+    seed = cfg.data.seed + multihost.process_index()
+    torch.manual_seed(seed)
+    return itertools.repeat(torch.Generator(args.device).manual_seed(seed))
 
 
-def _feed(args, batches):
+def _strided(args) -> bool:
+    """A ``--num-processes`` run: each process loads its own strided shard."""
+    return int(args.num_processes or 1) > 1
+
+
+def _feed(args, batches, microbatches: int = 1):
+    """Batches on the command's device. Under ``--num-devices`` (a group
+    whose ranks load the same global batches) each rank keeps its slice:
+    its contiguous rows, or with ``microbatches`` its share of each global
+    microbatch."""
     from ..data import prefetch_to_device
 
+    group = _group()
+    if group is not None and not _strided(args):
+        from ..parallel import shard_batch
+
+        batches = (shard_batch(b, group, microbatches) for b in batches)
     return prefetch_to_device(batches, device=args.device)
+
+
+def _replicated(state):
+    """``state`` with rank 0's weights on every rank of the group."""
+    group = _group()
+    if group is not None:
+        from ..parallel import replicate_state
+
+        replicate_state(state, group)
+    return state
 
 
 # ---------------------------------------------------------------------------
@@ -418,6 +590,7 @@ def cmd_pretrain(args) -> int:
         PreemptionGuard,
         TrainState,
         fit,
+        make_accum_clip_pretrain_step,
         make_clip_eval_step,
         make_clip_pretrain_step,
         make_label_fn,
@@ -426,6 +599,7 @@ def cmd_pretrain(args) -> int:
     )
 
     cfg = _preset(args)
+    group = _group()
     _setup_logging(args.log_dir, "pretrain")
     tokenizer = _tokenizer(args)
     cfg = _apply_tiny(cfg, args, len(tokenizer.vocab))
@@ -496,6 +670,7 @@ def cmd_pretrain(args) -> int:
     ema_decay = float(getattr(args, "ema_decay", 0.0) or 0.0)
     prep = dict(image_size=cfg.model.image_size, mean=cfg.augment.mean, std=cfg.augment.std,
                 compute_dtype=compute)
+    accum = 1
     if args.lora:
         # parameter-efficient fine-tuning: the frozen towers and rank-r
         # deltas on the attention and MLP projections (models/lora.py); the
@@ -521,25 +696,36 @@ def cmd_pretrain(args) -> int:
         template = TrainState(lora, optimizer)
     else:
         optimizer = make_optimizer(model, label_fn, **adamw)
-        step = make_clip_pretrain_step(model, optimizer, label_fn, loss_name,
-                                       cfg.model.temperature,
-                                       max_grad_norm=cfg.train.max_grad_norm,
-                                       ema_decay=ema_decay, **prep)
+        accum = int(args.accum_steps or 1)
+        if accum > 1:
+            # GradCache: the towers in microbatches, the contrastive loss and
+            # its negatives over the full batch
+            step = make_accum_clip_pretrain_step(model, optimizer, label_fn, accum, loss_name,
+                                                 cfg.model.temperature,
+                                                 max_grad_norm=cfg.train.max_grad_norm,
+                                                 ema_decay=ema_decay, **_dp(group), **prep)
+        else:
+            local = {"local_loss": True} if args.local_loss else {}
+            step = make_clip_pretrain_step(model, optimizer, label_fn, loss_name,
+                                           cfg.model.temperature,
+                                           max_grad_norm=cfg.train.max_grad_norm,
+                                           ema_decay=ema_decay, **_dp(group), **local, **prep)
         # with an EMA, validation scores the smoothed weights: they drive the
         # plateau schedule, early stopping and the best checkpoint
         eval_step = make_clip_eval_step(model, loss_name, cfg.model.temperature,
-                                        use_ema=bool(ema_decay), **prep)
+                                        use_ema=bool(ema_decay), **_dp(group), **prep)
         template = TrainState.create(model, optimizer, ema=bool(ema_decay))
     ckpt = None
     if args.checkpoint_dir:
         ckpt = CheckpointManager(args.checkpoint_dir, cfg.train.max_checkpoints_to_keep)
     state, start_epoch = resume_or_init(ckpt, template, loader=train_loader)
-    writer = MetricWriter(args.log_dir, "pretrain")
+    state = _replicated(state)
+    writer = MetricWriter(args.log_dir, "pretrain") if _primary() else None
 
     with PreemptionGuard() as guard:
         state, history = fit(
             state, step, eval_step,
-            train_loader_fn=lambda: _feed(args, map(tokenize_batch, train_loader)),
+            train_loader_fn=lambda: _feed(args, map(tokenize_batch, train_loader), accum),
             val_loader_fn=lambda: _feed(args, map(tokenize_batch, val_loader)),
             base_lrs=groups,
             num_epochs=args.epochs or cfg.train.num_epochs,
@@ -557,9 +743,11 @@ def cmd_pretrain(args) -> int:
             stateful_loader=train_loader,
             warmup_steps=int(getattr(args, "warmup_steps", 0) or 0),
         )
-    writer.close()
-    history.save_csv(os.path.join(args.log_dir, "training_history.csv"))
-    if args.lora and args.checkpoint_dir:
+    if writer is not None:
+        writer.close()
+    if _primary():
+        history.save_csv(os.path.join(args.log_dir, "training_history.csv"))
+    if args.lora and args.checkpoint_dir and _primary():
         # the LoRA checkpoint holds only the factors (for resume); also fold
         # them into the frozen base and save a full-model checkpoint that
         # zeroshot/serve/eval --checkpoint load directly
@@ -574,7 +762,8 @@ def cmd_pretrain(args) -> int:
         fm.close()
         print(f"folded LoRA model saved to {folded_dir} "
               f"(servable: --checkpoint {folded_dir})")
-    print(f"pretrain done: {len(history.rows)} epochs")
+    if _primary():
+        print(f"pretrain done: {len(history.rows)} epochs")
     return 0
 
 
@@ -603,6 +792,7 @@ def cmd_train(args) -> int:
     from ..zeroshot.engine import encode_prompt_bank
 
     cfg = _preset(args)
+    group = _group()
     _setup_logging(args.log_dir, "train")
     tokenizer = _tokenizer(args)
     cfg = _apply_tiny(cfg, args, len(tokenizer.vocab))
@@ -620,8 +810,9 @@ def cmd_train(args) -> int:
     step = make_multiview_train_step(
         model, optimizer, label_fn, cfg.model.temperature, augment=aug.enabled,
         flip_prob=aug.horizontal_flip_prob, rotation_degrees=aug.rotation_degrees,
-        translate_frac=aug.translate_frac, max_grad_norm=cfg.train.max_grad_norm, **prep)
-    eval_step = make_multiview_eval_step(model, cfg.model.temperature, **prep)
+        translate_frac=aug.translate_frac, max_grad_norm=cfg.train.max_grad_norm,
+        **_dp(group), **prep)
+    eval_step = make_multiview_eval_step(model, cfg.model.temperature, **_dp(group), **prep)
     train_loader, val_loader = _loaders(cfg, args, multi_view=True)
     prompts = prompts_for_family("prediction", DISEASE_LABELS)
 
@@ -646,7 +837,8 @@ def cmd_train(args) -> int:
     if args.checkpoint_dir:
         ckpt = CheckpointManager(args.checkpoint_dir, cfg.train.max_checkpoints_to_keep)
     state, start_epoch = resume_or_init(ckpt, TrainState(model, optimizer), loader=train_loader)
-    writer = MetricWriter(args.log_dir, "train")
+    state = _replicated(state)
+    writer = MetricWriter(args.log_dir, "train") if _primary() else None
     with PreemptionGuard() as guard:
         state, history = fit(
             state, step, eval_step,
@@ -667,9 +859,11 @@ def cmd_train(args) -> int:
             stateful_loader=train_loader,
             warmup_steps=int(getattr(args, "warmup_steps", 0) or 0),
         )
-    writer.close()
-    history.save_csv(os.path.join(args.log_dir, "training_history.csv"))
-    print(f"train done: {len(history.rows)} epochs")
+    if writer is not None:
+        writer.close()
+    if _primary():
+        history.save_csv(os.path.join(args.log_dir, "training_history.csv"))
+        print(f"train done: {len(history.rows)} epochs")
     return 0
 
 
@@ -692,6 +886,7 @@ def cmd_shared_adapter(args) -> int:
     from ..utils.visualization import save_predictions_csv
 
     cfg = _preset(args, "adapter")
+    group = _group()
     _setup_logging(args.log_dir, "shared_adapter")
     tokenizer = _tokenizer(args)
     cfg = _apply_tiny(cfg, args, len(tokenizer.vocab))
@@ -703,8 +898,8 @@ def cmd_shared_adapter(args) -> int:
     optimizer = make_optimizer(model, label_fn, weight_decay=0.0)
     prep = dict(image_size=cfg.model.image_size, mean=cfg.augment.mean, std=cfg.augment.std,
                 compute_dtype=_compute_dtype(args))
-    step = make_shared_adapter_train_step(model, optimizer, label_fn, **prep)
-    eval_step = make_shared_adapter_eval_step(model, **prep)
+    step = make_shared_adapter_train_step(model, optimizer, label_fn, **_dp(group), **prep)
+    eval_step = make_shared_adapter_eval_step(model, **_dp(group), **prep)
     train_loader, val_loader = _loaders(cfg, args, multi_view=True)
     max_len = cfg.model.max_text_length
 
@@ -722,6 +917,7 @@ def cmd_shared_adapter(args) -> int:
     if args.checkpoint_dir:
         ckpt = CheckpointManager(args.checkpoint_dir, cfg.train.max_checkpoints_to_keep)
     state, start_epoch = resume_or_init(ckpt, TrainState(model, optimizer))
+    state = _replicated(state)
     state, history = fit(
         state, step, eval_step,
         train_loader_fn=lambda: _feed(args, map(to_batch, train_loader)),
@@ -735,11 +931,13 @@ def cmd_shared_adapter(args) -> int:
         start_epoch=start_epoch,
         log_every=cfg.train.log_every,
     )
-    history.save_csv(os.path.join(args.log_dir, "shared_adapter_history.csv"))
     # the 03 notebook's metric family (cell 30) from the shared adapter's
     # logits; it needs the report at inference, which is why the reference
     # left it
     val = run_eval(eval_step, state, _feed(args, map(to_batch, val_loader)))
+    if not _primary():
+        return 0
+    history.save_csv(os.path.join(args.log_dir, "shared_adapter_history.csv"))
     metrics = multilabel_metrics(val["probs"], val["labels"], class_names=DISEASE_LABELS)
     save_predictions_csv(val["probs"], val["labels"], DISEASE_LABELS,
                          os.path.join(args.log_dir, "shared_adapter_predictions.csv"))
@@ -768,6 +966,7 @@ def cmd_adapter(args) -> int:
     from ..utils.visualization import save_predictions_csv
 
     cfg = _preset(args, "adapter")
+    group = _group()
     _setup_logging(args.log_dir, "adapter")
     tokenizer = _tokenizer(args)
     cfg = _apply_tiny(cfg, args, len(tokenizer.vocab))
@@ -780,8 +979,8 @@ def cmd_adapter(args) -> int:
     optimizer = make_optimizer(model, label_fn, weight_decay=0.0)
     prep = dict(image_size=cfg.model.image_size, mean=cfg.augment.mean, std=cfg.augment.std,
                 compute_dtype=_compute_dtype(args))
-    step = make_adapter_train_step(model, optimizer, label_fn, **prep)
-    eval_step = make_adapter_eval_step(model, **prep)
+    step = make_adapter_train_step(model, optimizer, label_fn, **_dp(group), **prep)
+    eval_step = make_adapter_eval_step(model, **_dp(group), **prep)
     train_loader, val_loader = _loaders(cfg, args, multi_view=True)
 
     def to_single_view(batch):
@@ -793,6 +992,7 @@ def cmd_adapter(args) -> int:
     if args.checkpoint_dir:
         ckpt = CheckpointManager(args.checkpoint_dir, cfg.train.max_checkpoints_to_keep)
     state, start_epoch = resume_or_init(ckpt, TrainState(model, optimizer))
+    state = _replicated(state)
     state, history = fit(
         state, step, eval_step,
         train_loader_fn=lambda: _feed(args, map(to_single_view, train_loader)),
@@ -806,11 +1006,13 @@ def cmd_adapter(args) -> int:
         start_epoch=start_epoch,
         log_every=cfg.train.log_every,
     )
-    history.save_csv(os.path.join(args.log_dir, "adapter_history.csv"))
     # final test-set suite from the ADAPTER logits — the metric family the
     # reference publishes for phase B (02 nb cell 30: Jaccard / Hamming /
     # F1 / mAP / LRAP; BASELINE.md "C-Adapter" rows) plus per-class AUROC
     val = run_eval(eval_step, state, _feed(args, map(to_single_view, val_loader)))
+    if not _primary():
+        return 0
+    history.save_csv(os.path.join(args.log_dir, "adapter_history.csv"))
     metrics = multilabel_metrics(val["probs"], val["labels"], class_names=DISEASE_LABELS)
     save_predictions_csv(val["probs"], val["labels"], DISEASE_LABELS,
                          os.path.join(args.log_dir, "adapter_predictions.csv"))
@@ -836,15 +1038,17 @@ def cmd_zeroshot(args) -> int:
     tokenizer = _tokenizer(args)
     cfg = _apply_tiny(cfg, args, len(tokenizer.vocab))
     model = _model(cfg, args)
+    # with a group, each rank scores its slice of every batch and holds the
+    # batch's logits in rank order; the primary writes the results
     engine = ZeroShotEngine(
         model, tokenizer, DISEASE_LABELS, cfg.zeroshot,
         cfg.augment.mean, cfg.augment.std, cfg.model.image_size,
         cfg.model.max_text_length, _compute_dtype(args),
-        use_enhance=cfg.model.use_multimodal_attention,
+        use_enhance=cfg.model.use_multimodal_attention, **_dp(_group()),
     )
     engine.build_text_features(prompts_for_family(args.prompts, DISEASE_LABELS))
-    _, val_loader = _loaders(cfg, args, multi_view=True)
-    csv = os.path.join(args.log_dir, "zero_shot_results.csv")
+    _, val_loader = _loaders(cfg, args, multi_view=True, shard=False)
+    csv = os.path.join(args.log_dir, "zero_shot_results.csv") if _primary() else None
     if args.dynamic or cfg.zeroshot.dynamic_thresholds:
         out = run_dynamic_threshold_eval(
             engine, lambda: iter(val_loader),
@@ -853,6 +1057,8 @@ def cmd_zeroshot(args) -> int:
             cfg.zeroshot.frontal_weight, cfg.zeroshot.lateral_weight,
             csv_path=csv,
         )
+        if not _primary():
+            return 0
         print(json.dumps({"thresholds": out["thresholds"]}, indent=2))
         # persist the calibration so `serve --thresholds` / later evals can
         # reuse it without re-running the two-pass pipeline
@@ -862,6 +1068,8 @@ def cmd_zeroshot(args) -> int:
         logging.info("calibrated thresholds → %s", tpath)
     else:
         out = run_zero_shot_eval(engine, val_loader, cfg.zeroshot.top_k, csv)
+        if not _primary():
+            return 0
     print(json.dumps(
         {k: v for k, v in out["metrics"].items() if not k.startswith("auroc/")},
         indent=2,
@@ -1259,9 +1467,15 @@ def build_parser() -> argparse.ArgumentParser:
                              "memory (CLIP_FOR_DL_TPU_HBM_BYTES overrides)")
         sp.add_argument("--batch-size", type=int, default=None)
         sp.add_argument("--num-devices", type=int, default=None,
-                        help=_not_ported_help("A7"))
+                        help="run data-parallel over N devices: N ranks of a "
+                             "process group, one a card, each on its slice of "
+                             "every global batch (pretrain, train, adapter, "
+                             "shared-adapter, zeroshot); under torchrun, the "
+                             "group torchrun made; default single-device")
         sp.add_argument("--virtual-devices", type=int, default=None,
-                        metavar="N", help=_not_ported_help("A7"))
+                        metavar="N",
+                        help="debug: emulate N devices as gloo ranks on the "
+                             "CPU, so that --num-devices runs without cards")
         sp.add_argument("--bucket-text", action="store_true",
                         help="length-bucket text batches (identical math, "
                              "faster text tower on short reports)")
@@ -1300,7 +1514,7 @@ def build_parser() -> argparse.ArgumentParser:
                         choices=("full", "dots", "dots_no_batch"),
                         help="with --remat")
         sp.add_argument("--moe-experts", type=int, default=0, metavar="E",
-                        help=_not_ported_help("A7"))
+                        help=_not_ported_help("A7b"))
         sp.add_argument("--allow-partial-restore", action="store_true",
                         help="accept a checkpoint missing some of the "
                              "model's arrays (those stay random-init). "
@@ -1312,9 +1526,12 @@ def build_parser() -> argparse.ArgumentParser:
                              "pretrain --ema-decay) instead of the live "
                              "params — errors if the checkpoint has none")
         sp.add_argument("--coordinator", default="localhost:12321",
-                        metavar="HOST:PORT", help="with --num-processes")
+                        metavar="HOST:PORT",
+                        help="multi-host: rank 0's address (tcp://HOST:PORT)")
         sp.add_argument("--num-processes", type=int, default=1,
-                        help=_not_ported_help("A7"))
+                        help="multi-host: the number of processes, one a "
+                             "card; >1 joins the process group and loads "
+                             "each process's strided shard of the data")
         sp.add_argument("--process-id", type=int, default=0,
                         help="with --num-processes")
 
@@ -1351,9 +1568,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "towers, train rank-RANK LoRA deltas on the "
                          "attention/MLP kernels")
     sp.add_argument("--lora-alpha", type=float, default=16.0, help="with --lora")
-    sp.add_argument("--ep", type=int, default=1, help=_not_ported_help("A7"))
+    sp.add_argument("--ep", type=int, default=1, help=_not_ported_help("A7b"))
     sp.add_argument("--pp", type=int, default=0, metavar="S",
-                    help=_not_ported_help("A7"))
+                    help=_not_ported_help("A7b"))
     sp.add_argument("--pp-microbatches", type=int, default=2, help="with --pp")
     sp.add_argument("--loss",
                     choices=["clip_self_distill", "info_nce", "siglip"],
@@ -1361,9 +1578,15 @@ def build_parser() -> argparse.ArgumentParser:
                     help="override the preset's contrastive loss; siglip "
                          "is the pairwise sigmoid loss (Zhai et al. 2023)")
     sp.add_argument("--local-loss", action="store_true",
-                    help=_not_ported_help("A7"))
+                    help="with --num-devices: the contrastive loss in "
+                         "open-CLIP local-loss block form ([b, B_global] "
+                         "a rank, not B_global**2; the same loss and "
+                         "gradients); with --loss siglip the ring, [b, b] "
+                         "a rank")
     sp.add_argument("--accum-steps", type=int, default=1, metavar="A",
-                    help=_not_ported_help("A7"))
+                    help="GradCache gradient accumulation: the towers in A "
+                         "microbatches, the contrastive loss and its "
+                         "negatives over the full batch")
     sp.add_argument("--bf16-moments", action="store_true",
                     help="store the first Adam moment in bf16 (halves "
                          "that optimizer-state slice; second moment "
@@ -1412,7 +1635,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "raise, as in the JAX CLI")
     sp.add_argument("--dynamic", action="store_true",
                     help="two-pass dynamic-threshold pipeline")
-    sp.add_argument("--tp", type=int, default=1, help=_not_ported_help("A7"))
+    sp.add_argument("--tp", type=int, default=1, help=_not_ported_help("A7b"))
     sp.set_defaults(fn=cmd_zeroshot)
 
     sp = sub.add_parser("gradcam", help="Grad-CAM saliency maps")
@@ -1466,7 +1689,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "this many queued requests, new ones get 429 "
                          "(load shedding) instead of unbounded queueing; "
                          "0 = unbounded")
-    sp.add_argument("--tp", type=int, default=1, help=_not_ported_help("A7"))
+    sp.add_argument("--tp", type=int, default=1, help=_not_ported_help("A7b"))
     sp.add_argument("--exported", default=None, metavar="DIR",
                     help="serve a deployment artifact (python -m clip_for_dl_tpu_torch.tools."
                          "export_inference --stablehlo) instead of rebuilding the model: "
@@ -1494,7 +1717,29 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _spawn(argv, world: int) -> int:
+    """``--num-devices N`` in one launch: the same command line as N ranks
+    of a group under ``torchrun``; its exit status. SIGTERM reaching this
+    process is passed on, so that a preemption reaches every rank."""
+    import signal
+    import subprocess
+    import threading
+
+    from ..parallel.multihost import torchrun_command
+
+    proc = subprocess.Popen(torchrun_command(world, "clip_for_dl_tpu_torch", argv))
+    previous = None
+    if threading.current_thread() is threading.main_thread():
+        previous = signal.signal(signal.SIGTERM, lambda signum, frame: proc.send_signal(signum))
+    try:
+        return proc.wait()
+    finally:
+        if previous is not None:
+            signal.signal(signal.SIGTERM, previous)
+
+
 def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
     code = _lora_refused(args)
     if code is not None:
@@ -1503,12 +1748,34 @@ def main(argv=None) -> int:
     if refused:
         print(f"error: {refused}", file=sys.stderr)
         return 2
+    _dp_refused(args)
+    from ..parallel import multihost
+
+    joins = (args.command in DP_COMMANDS and not multihost.is_distributed()
+             and (multihost.launched() or _strided(args)))
+    if (args.command in DP_COMMANDS and _dp_devices(args) > 1 and not joins
+            and not multihost.is_distributed()):
+        return _spawn(argv, _dp_devices(args))
     try:
-        args.device = _device()
+        if joins:
+            multihost.init_process_group(args.coordinator, int(args.num_processes or 1),
+                                         args.process_id,
+                                         device="cpu" if _on_cpu(args) else "cuda")
+            if _on_cpu(args):
+                # the CPU ranks of one host share its cores
+                import torch
+
+                torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                                          // int(os.environ.get("LOCAL_WORLD_SIZE", 1))))
+        args.device = _device(args)
     except RuntimeError as exc:
         print(f"error: {exc} (set {ENV_FORCE_CPU}=1 to run on the CPU)", file=sys.stderr)
         return 1
-    return args.fn(args)
+    try:
+        return args.fn(args)
+    finally:
+        if joins:
+            multihost.destroy()
 
 
 if __name__ == "__main__":

@@ -8,6 +8,16 @@ tensors with channels_last strides without a copy, and the convolutions
 dtype; BatchNorm runs in fp32 (eps 1e-5) and its output is cast back, and
 the residual add is fp32, as in the JAX tower.
 
+Inside :func:`batch_norm_context` with a process group, train mode takes
+its statistics over every rank's rows (the JAX step's global batch on a
+mesh), at every world size, one rank included: the per-channel sums of x
+and x² and the count are all-reduced with their gradient, and the mean and
+biased variance are flax's E[x] and E[x²] − E[x]², which the JAX package
+computes (an exact two-pass combine departs from the JAX CLI's losses by
+2e-3 after an epoch of the tiny pretrain; ``tests/test_torch_cli.py``).
+``update_stats=False`` leaves the running statistics as they are
+(GradCache's replayed forward, ``train/accum.py``).
+
 BatchNorm follows flax's ``nn.BatchNorm(momentum=0.9)``: in eval mode it
 normalizes with the running statistics; in train mode with the batch
 statistics, and the running statistics become ``0.9·old + 0.1·batch`` with
@@ -24,6 +34,8 @@ tower runs only in eval mode.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Dict, Mapping, Sequence
 
 import torch
@@ -35,17 +47,61 @@ from torch import nn
 BN_MOMENTUM = 0.9
 
 
+# train mode's (process group, update the running statistics): set by
+# batch_norm_context for the forwards inside it
+_CONTEXT: contextvars.ContextVar = contextvars.ContextVar("batch_norm", default=(None, True))
+
+
+@contextlib.contextmanager
+def batch_norm_context(group=None, update_stats: bool = True):
+    """Train-mode BatchNorm inside the block: with ``group``, statistics
+    over every rank's rows (the global batch); with ``update_stats=False``,
+    the running statistics left as they are (a replayed forward)."""
+    token = _CONTEXT.set((group, update_stats))
+    try:
+        yield
+    finally:
+        _CONTEXT.reset(token)
+
+
+def _global_bn(x: torch.Tensor, bn: nn.BatchNorm2d, group):
+    """Normalization with the statistics of every rank's rows, as flax
+    computes them over a batch: the fp32 per-channel sums of x and x² and
+    the row count all-reduced with their gradient, the mean E[x] and the
+    biased variance max(E[x²] − E[x]², 0) (flax's ``use_fast_variance``),
+    and the output (x − E[x])·γ/√(σ² + ε) + β. Returns (out, mean, var)."""
+    from ..parallel.collectives import all_reduce_sum
+
+    c = x.shape[1]
+    sums = all_reduce_sum(torch.cat([x.sum((0, 2, 3)), (x * x).sum((0, 2, 3)),
+                                     x.new_full((1,), x.numel() // c)]), group)
+    n = sums[2 * c].detach()
+    mean = sums[:c] / n
+    var = torch.clamp_min(sums[c:2 * c] / n - mean * mean, 0.0)
+    scale = bn.weight * torch.rsqrt(var + bn.eps)
+    out = torch.addcmul(bn.bias.view(1, c, 1, 1), x - mean.view(1, c, 1, 1),
+                        scale.view(1, c, 1, 1))
+    return out, mean, var
+
+
 def _bn(bn: nn.BatchNorm2d, y: torch.Tensor) -> torch.Tensor:
     """BatchNorm in fp32, output in the input's dtype (flax semantics in
     train mode, see the module docstring)."""
     x = y.float()
     if not bn.training:
         return bn(x).to(y.dtype)
-    with torch.no_grad():
-        var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
-        bn.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1.0 - BN_MOMENTUM)
-        bn.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1.0 - BN_MOMENTUM)
-    out = F.batch_norm(x, None, None, bn.weight, bn.bias, training=True, eps=bn.eps)
+    group, update = _CONTEXT.get()
+    if group is None:
+        out = F.batch_norm(x, None, None, bn.weight, bn.bias, training=True, eps=bn.eps)
+        if update:
+            with torch.no_grad():
+                var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+    else:
+        out, mean, var = _global_bn(x, bn, group)
+    if update:
+        with torch.no_grad():
+            bn.running_mean.mul_(BN_MOMENTUM).add_(mean.detach(), alpha=1.0 - BN_MOMENTUM)
+            bn.running_var.mul_(BN_MOMENTUM).add_(var.detach(), alpha=1.0 - BN_MOMENTUM)
     return out.to(y.dtype)
 
 

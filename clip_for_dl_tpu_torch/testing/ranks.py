@@ -1,0 +1,402 @@
+"""The rank side of the CPU data-parallel tests (``tests/test_torch_dp.py``,
+``test_torch_global_batch.py``, ``test_torch_accum.py``).
+
+A test writes its cases to ``WORKDIR/cases.pkl`` (numpy arrays and plain
+values: flax-layout variables, model configurations, batches), starts N gloo
+ranks under ``torchrun`` running ``parallel.worker`` on :func:`run_cases`,
+and reads each rank's results from ``WORKDIR/out{r}.pkl``.
+Each case runs the port's code on this rank's rows of the case's global
+batch; the test holds the results against the JAX package and against the
+port's single-process run on the global batch. The functions live in the
+package because a child process imports its target by module name.
+"""
+
+from __future__ import annotations
+
+import builtins
+import os
+import pickle
+from contextlib import contextmanager
+from typing import Dict
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from ..core.config import ModelConfig
+from ..losses import contrastive, global_batch
+from ..models import CXRClip, init_weights, state_dict_from_jax
+from ..models.resnet import _bn, batch_norm_context
+from ..parallel import data_parallel_step, multihost, replicate_state, shard_batch, shard_rows
+from ..train import (
+    CheckpointManager,
+    PreemptionGuard,
+    TrainState,
+    fit,
+    make_accum_clip_pretrain_step,
+    make_adapter_eval_step,
+    make_adapter_train_step,
+    make_clip_pretrain_step,
+    make_label_fn,
+    make_multiview_train_step,
+    make_optimizer,
+    make_shared_adapter_train_step,
+    run_eval,
+)
+
+
+def device_of(case) -> torch.device:
+    """The case's device: the CPU, or with ``device="cuda"`` this rank's card."""
+    if case.get("device", "cpu") == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def model_from(case) -> CXRClip:
+    """The case's model on its device, from its flax-layout ``variables``
+    (or, where JAX is absent, the port's init from ``seed``); the
+    multi-view fusion's dropout off (the JAX side patches flax's Dropout)."""
+    model = CXRClip(ModelConfig(**case["config"]))
+    if "variables" in case:
+        v = case["variables"]
+        model.load_state_dict(state_dict_from_jax(v["params"], v.get("batch_stats", {})),
+                              strict=True)
+    else:
+        init_weights(model, torch.Generator().manual_seed(case["seed"]))
+    model.view_fusion.fusion[2].p = 0.0
+    return model.to(device_of(case))
+
+
+def sgd(model, label_fn) -> torch.optim.SGD:
+    """SGD (the update is −lr · the clipped gradient), one group per label."""
+    groups: Dict[str, list] = {}
+    for name, p in model.named_parameters():
+        groups.setdefault(label_fn(tuple(name.split("."))), []).append(p)
+    return torch.optim.SGD([{"params": ps, "label": k} for k, ps in groups.items()], lr=1.0)
+
+
+def tensors(batch, device="cpu") -> dict:
+    return {k: torch.from_numpy(np.asarray(v)).to(device) for k, v in batch.items()}
+
+
+def host_state(model) -> dict:
+    return {k: v.detach().cpu().clone().numpy() for k, v in model.state_dict().items()}
+
+
+def state_checksum(model) -> float:
+    return float(sum(float(t.double().sum()) for t in model.state_dict().values()))
+
+
+@contextmanager
+def fp32_exact():
+    """cuDNN deterministic, and TF32 off in matmuls and convolutions, while
+    inside (a card's fp32 otherwise rounds products to TF32's 10 bits)."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    flags = (cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32, matmul.allow_tf32)
+    cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32, matmul.allow_tf32 = (
+        True, False, False, False)
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32, matmul.allow_tf32 = flags
+
+
+def step_case(case, group=None):
+    """One step of the case's kind on this rank's rows (with ``group``) or
+    on the global batch (without): (loss, the state after, the parameters'
+    change). On a card, in fp32 without TF32 (:func:`fp32_exact`)."""
+    with fp32_exact():
+        return _step_case(case, group)
+
+
+def _step_case(case, group):
+    model = model_from(case)
+    kind = case["kind"]
+    trainable = {"adapter": ["adapter"], "shared": ["shared_adapter"]}.get(kind,
+                                                                          case.get("groups", []))
+    label_fn = make_label_fn(trainable)
+    if case.get("adamw"):
+        opt = make_optimizer(model, label_fn, weight_decay=case.get("weight_decay", 0.0))
+    else:
+        opt = sgd(model, label_fn)
+    prep = dict(image_size=case["image_size"], mean=case["mean"], std=case["std"],
+                compute_dtype=torch.float32)
+    dp = {} if group is None else {"group": group}
+    rest = ()
+    if kind == "pretrain":
+        if case.get("accum", 1) > 1:
+            step = make_accum_clip_pretrain_step(model, opt, label_fn, case["accum"],
+                                                 case["loss"], case["temperature"],
+                                                 max_grad_norm=case["clip"], **dp, **prep)
+        else:
+            local = {"local_loss": True} if case.get("local") else {}
+            step = make_clip_pretrain_step(model, opt, label_fn, case["loss"],
+                                           case["temperature"], max_grad_norm=case["clip"],
+                                           **dp, **local, **prep)
+    elif kind == "adapter":
+        step = make_adapter_train_step(model, opt, label_fn, **dp, **prep)
+    elif kind == "shared":
+        step = make_shared_adapter_train_step(model, opt, label_fn, **dp, **prep)
+    else:
+        step = make_multiview_train_step(model, opt, label_fn, case["temperature"],
+                                         use_enhance=case.get("enhance", False), augment=False,
+                                         max_grad_norm=case["clip"], **dp, **prep)
+        rest = (torch.from_numpy(case["bank"]).to(device_of(case)),)
+    state = TrainState(model, opt)
+    if group is not None:
+        replicate_state(state, group)
+        step = data_parallel_step(step, group, microbatches=case.get("accum", 1))
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    losses = []
+    for _ in range(case.get("steps", 1)):
+        state, metrics = step(state, tensors(case["batch"], device_of(case)), *rest,
+                              case["lrs"])
+        losses.append(float(metrics["loss"]))
+    delta = {n: (p.detach() - before[n]).cpu().numpy() for n, p in model.named_parameters()}
+    return losses, model, delta
+
+
+def _pretrain_like(case):
+    losses, model, delta = step_case(case, dist.group.WORLD)
+    # the replicated state stays replicated: every rank's bits agree
+    multihost.assert_same_across_processes(state_checksum(model), "the state after the steps")
+    out = {"losses": losses}
+    if dist.get_rank() == 0:
+        out.update(state=host_state(model), delta=delta)
+    return out
+
+
+def _bn_case(case):
+    """``_bn`` under the group on this rank's rows: Σ over the rank's rows
+    of out · c, backward; returns the rows' output and input gradient, the
+    weight's and bias's gradient of this rank and the running statistics."""
+    bn = torch.nn.BatchNorm2d(case["x"].shape[1], eps=1e-5).train()
+    with torch.no_grad():
+        for name in ("weight", "bias", "running_mean", "running_var"):
+            getattr(bn, name).copy_(torch.from_numpy(case[name]))
+    r, n = dist.get_rank(), dist.get_world_size()
+    x = shard_rows(torch.from_numpy(case["x"]), r, n).requires_grad_()
+    c = shard_rows(torch.from_numpy(case["c"]), r, n)
+    with batch_norm_context(dist.group.WORLD):
+        out = _bn(bn, x)
+    (out * c).sum().backward()
+    return {"out": out.detach().numpy(), "dx": x.grad.numpy(),
+            "dweight": bn.weight.grad.numpy(), "dbias": bn.bias.grad.numpy(),
+            "running_mean": bn.running_mean.numpy(), "running_var": bn.running_var.numpy()}
+
+
+LOSSES = {
+    "global_clip_self_distill": lambda t, i, lbl, bank, s, b: (
+        global_batch.global_clip_self_distill_loss(t, i, 2.0)),
+    "global_info_nce": lambda t, i, lbl, bank, s, b: global_batch.global_info_nce_loss(i, t, 0.5),
+    "global_multilabel": lambda t, i, lbl, bank, s, b: (
+        global_batch.global_multilabel_contrastive_loss(i, bank, lbl, 0.07)),
+    "global_siglip": lambda t, i, lbl, bank, s, b: global_batch.global_siglip_loss(t, i, s, b),
+    "ring_siglip": lambda t, i, lbl, bank, s, b: global_batch.ring_siglip_loss(t, i, s, b),
+    "local_info_nce": lambda t, i, lbl, bank, s, b: global_batch.local_info_nce_loss(i, t, 0.5),
+    "local_clip_self_distill": lambda t, i, lbl, bank, s, b: (
+        global_batch.local_clip_self_distill_loss(t, i, 2.0)),
+    "make_global": lambda t, i, lbl, bank, s, b: global_batch.make_global(
+        contrastive.clip_self_distill_loss)(t, i, 2.0),
+}
+
+
+def _losses_case(case):
+    """Every global-batch loss on this rank's rows: its value and the
+    gradients of the rows, the scale and the bias, each divided by the
+    world size (the factor the data-parallel average takes out)."""
+    r, n = dist.get_rank(), dist.get_world_size()
+    x = tensors({k: case[k] for k in ("txt", "img", "labels", "bank")}, device_of(case))
+    out = {}
+    for name, fn in LOSSES.items():
+        t = shard_rows(x["txt"], r, n).clone().requires_grad_()
+        i = shard_rows(x["img"], r, n).clone().requires_grad_()
+        lbl = shard_rows(x["labels"], r, n)
+        s = torch.tensor(case["scale"], requires_grad=True, device=t.device)
+        b = torch.tensor(case["bias"], requires_grad=True, device=t.device)
+        loss = fn(t, i, lbl, x["bank"], s, b)
+        loss.backward()
+        out[name] = {"loss": float(loss.detach()),
+                     "dtxt": np.zeros(t.shape, np.float32) if t.grad is None
+                     else (t.grad / n).cpu().numpy(),
+                     "dimg": (i.grad / n).cpu().numpy(),
+                     "dscale": None if s.grad is None else float(s.grad),
+                     "dbias": None if b.grad is None else float(b.grad)}
+    return out
+
+
+def _eval_case(case):
+    """``run_eval`` of the adapter's eval step over the case's global
+    batches, each rank fed its rows (the command line's feed)."""
+    model = model_from(case)
+    step = make_adapter_eval_step(model, image_size=case["image_size"], mean=case["mean"],
+                                  std=case["std"], compute_dtype=torch.float32,
+                                  group=dist.group.WORLD)
+    state = TrainState(model, None)
+    batches = [shard_batch(tensors(b), dist.group.WORLD) for b in case["batches"]]
+    real = [int(b["mask"].sum()) for b in batches]
+    return {"eval": run_eval(step, state, batches), "real_rows": real}
+
+
+@contextmanager
+def recorded_writes():
+    """The paths this process opens for writing (``open`` with w, a or x)
+    or renames a file to (``os.replace``: ``torch.save`` opens its file in
+    C++)."""
+    paths, original, replace = [], builtins.open, os.replace
+
+    def recording(file, mode="r", *a, **kw):
+        if isinstance(file, (str, os.PathLike)) and any(c in mode for c in "wax"):
+            paths.append(os.fspath(file))
+        return original(file, mode, *a, **kw)
+
+    def renaming(src, dst, *a, **kw):
+        paths.append(os.fspath(dst))
+        return replace(src, dst, *a, **kw)
+
+    builtins.open, os.replace = recording, renaming
+    try:
+        yield paths
+    finally:
+        builtins.open, os.replace = original, replace
+
+
+def _checkpoint_case(case):
+    """``write``: one AdamW step on the group, then a save (the files this
+    rank wrote); ``restore``: the latest checkpoint into a fresh model and
+    optimizer, replicated, and one more step."""
+    case = dict(case, adamw=True)
+    model = model_from(case)
+    label_fn = make_label_fn(case["groups"])
+    opt = make_optimizer(model, label_fn, weight_decay=1e-3)
+    step = data_parallel_step(make_clip_pretrain_step(
+        model, opt, label_fn, case["loss"], case["temperature"], image_size=case["image_size"],
+        mean=case["mean"], std=case["std"], compute_dtype=torch.float32,
+        max_grad_norm=case["clip"], group=dist.group.WORLD), dist.group.WORLD)
+    manager = CheckpointManager(case["dir"], max_to_keep=2)
+    state = TrainState(model, opt)
+    out = {}
+    if case["mode"] == "write":
+        replicate_state(state, dist.group.WORLD)
+        state, _ = step(state, tensors(case["batch"]), case["lrs"])
+        with recorded_writes() as written:
+            manager.save(0, state, metrics={"val_loss": 1.0})
+            manager.wait()
+        out["written"] = written
+    else:
+        state, _ = manager.restore(state)
+        replicate_state(state, dist.group.WORLD)
+        out["restored"] = host_state(model)
+        out["step"] = state.step
+        state, metrics = step(state, tensors(case["batch"]), case["lrs"])
+        out["loss"] = float(metrics["loss"])
+        multihost.assert_same_across_processes(state_checksum(model), "the state")
+    return out
+
+
+def _preempt_case(case):
+    """``fit`` with a preemption signal that reaches rank 1 alone after its
+    step ``at``: every rank must stop after the same step and the
+    mid-epoch checkpoint be written once."""
+    model = model_from(case)
+    label_fn = make_label_fn(case["groups"])
+    opt = sgd(model, label_fn)
+    group = dist.group.WORLD
+    inner = data_parallel_step(make_clip_pretrain_step(
+        model, opt, label_fn, case["loss"], case["temperature"], image_size=case["image_size"],
+        mean=case["mean"], std=case["std"], compute_dtype=torch.float32,
+        max_grad_norm=case["clip"], group=group), group)
+    taken = []
+
+    with PreemptionGuard(signals=()) as guard:
+        def step(state, batch, lrs, generator):
+            state, metrics = inner(state, batch, lrs)
+            taken.append(state.step)
+            if dist.get_rank() == 1 and state.step == case["at"]:
+                guard.trigger()
+            return state, metrics
+
+        manager = CheckpointManager(case["dir"])
+        batches = [tensors(case["batch"])] * case["steps"]
+        _, history = fit(TrainState(model, opt), step, None, lambda: iter(batches), None,
+                         case["lrs"], num_epochs=2, rng_stream=iter([None] * 100),
+                         scheduler="none", checkpointer=manager, preemption_guard=guard)
+    return {"taken": taken, "epochs": len(history.rows),
+            "preempt": manager.preempt_latest(), "requested": guard.requested}
+
+
+def _cli_case(case):
+    """The command line (``cli.main(argv)``) on this rank of the group, with
+    every preset's dropout at 0 (its rate has no flag) when the case says
+    ``no_dropout``: the JAX CLI's run, patched the same way, then draws no
+    mask either."""
+    import dataclasses
+    import importlib
+    from unittest import mock
+
+    from ..core import config
+
+    cli = importlib.import_module("clip_for_dl_tpu_torch.cli.main")
+    real = config.get_preset
+
+    def no_dropout(name):
+        cfg = real(name)
+        return cfg.replace(model=dataclasses.replace(cfg.model, dropout=0.0))
+
+    with mock.patch.object(config, "get_preset",
+                           no_dropout if case.get("no_dropout") else real):
+        return {"rc": cli.main(list(case["argv"]))}
+
+
+CASES = {"cli": _cli_case, "pretrain": _pretrain_like, "adapter": _pretrain_like, "shared": _pretrain_like,
+         "multiview": _pretrain_like, "bn": _bn_case, "losses": _losses_case,
+         "eval": _eval_case, "checkpoint": _checkpoint_case, "preempt": _preempt_case}
+
+
+def run_cases(workdir: str) -> None:
+    """Every case of ``WORKDIR/cases.pkl`` (name → case) on this rank;
+    the results to ``WORKDIR/out{rank}.pkl``."""
+    with open(os.path.join(workdir, "cases.pkl"), "rb") as f:
+        cases = pickle.load(f)
+    out = {name: CASES[case["kind"]](case) for name, case in cases.items()}
+    with open(os.path.join(workdir, f"out{dist.get_rank()}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def launch(cases: dict, world: int, workdir: str, timeout: float = 180.0,
+           device: str = "cpu") -> list:
+    """Run ``cases`` on ``world`` ranks in ``workdir`` (gloo on the CPU; with
+    ``device="cuda"`` NCCL, a card a rank); returns each rank's results, in
+    rank order. Raises with the ranks' output when one fails; stops them all
+    past ``timeout`` seconds (torchrun's SIGTERM to the ranks, then SIGKILL)."""
+    import signal
+    import subprocess
+
+    os.makedirs(workdir, exist_ok=True)
+    with open(os.path.join(workdir, "cases.pkl"), "wb") as f:
+        pickle.dump(cases, f)
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    log = os.path.join(workdir, "ranks.log")
+    command = multihost.torchrun_command(
+        world, "clip_for_dl_tpu_torch.parallel.worker",
+        [f"{__name__}:run_cases", workdir, "--device", device, "--timeout", str(timeout)])
+    with open(log, "w") as out:
+        proc = subprocess.Popen(command, cwd=root, stdout=out, stderr=subprocess.STDOUT)
+        try:
+            code = proc.wait(timeout)
+        except subprocess.TimeoutExpired:
+            proc.send_signal(signal.SIGTERM)
+            try:
+                proc.wait(40)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+            raise TimeoutError(f"ranks still running after {timeout} s: stopped")
+    if code:
+        with open(log) as f:
+            raise RuntimeError(f"a rank failed (torchrun exit {code}):\n" + f.read()[-8000:])
+    out = []
+    for r in range(world):
+        with open(os.path.join(workdir, f"out{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out

@@ -84,16 +84,18 @@ def base_lrs(preset) -> dict:
     return {**{g.name: g.lr for g in preset.train.groups}, "default": preset.train.lr}
 
 
-def pretrain_step(model, preset, cfg, compute_dtype=torch.bfloat16):
+def pretrain_step(model, preset, cfg, compute_dtype=torch.bfloat16, make=None, **step_kw):
     """(optimizer, step): the preset's AdamW over ``model`` and the phase-A
     step (``compute_dtype`` compute, the preset's temperature, prep and
-    clip)."""
+    clip); ``step_kw`` go to the step factory (``make``, by default
+    ``make_clip_pretrain_step``): a ``group`` to run data-parallel, the
+    ``loss_name``, ``local_loss``."""
     label_fn = make_label_fn([g.name for g in preset.train.groups])
     opt = make_optimizer(model, label_fn, weight_decay=preset.train.weight_decay)
-    step = make_clip_pretrain_step(
+    step = (make or make_clip_pretrain_step)(
         model, opt, label_fn, temperature=cfg.temperature, image_size=cfg.image_size,
         mean=preset.augment.mean, std=preset.augment.std, compute_dtype=compute_dtype,
-        max_grad_norm=preset.train.max_grad_norm)
+        max_grad_norm=preset.train.max_grad_norm, **step_kw)
     return opt, step
 
 

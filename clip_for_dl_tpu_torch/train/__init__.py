@@ -1,3 +1,4 @@
+from .accum import make_accum_clip_pretrain_step
 from .checkpoint import CheckpointManager, import_reference_checkpoint
 from .loop import History, fit, resume_or_init, run_epoch, run_eval
 from .optim import (
@@ -41,6 +42,7 @@ __all__ = [
     "TrainState",
     "clip_by_global_norm_",
     "cosine_annealing_lr",
+    "make_accum_clip_pretrain_step",
     "make_adapter_eval_step",
     "make_adapter_train_step",
     "make_clip_eval_step",

@@ -23,6 +23,9 @@ files in ``directory``:
 
 Saves are synchronous (the state is copied to the host by ``torch.save``),
 so ``wait`` only prunes preemption saves that a completed epoch superseded.
+In a process group only the primary writes and prunes, with a barrier on
+each side of the write; every rank restores (the state is replicated, so a
+checkpoint written at one world size restores at any other).
 Restores load into the template state's model and optimizer, whose
 ``load_state_dict`` puts every tensor on the template's device.
 
@@ -45,6 +48,7 @@ import torch
 from torch import nn
 
 from ..core.device import plain_name as _plain
+from ..parallel import multihost
 
 logger = logging.getLogger("clip_for_dl_tpu_torch.checkpoint")
 
@@ -234,6 +238,12 @@ class CheckpointManager:
 
     def save(self, epoch: int, state, extra: Optional[Dict[str, Any]] = None,
              metrics: Optional[Dict[str, float]] = None) -> None:
+        multihost.sync("checkpoint save")
+        if multihost.is_primary():
+            self._save(epoch, state, extra, metrics)
+        multihost.sync("checkpoint saved")
+
+    def _save(self, epoch, state, extra, metrics) -> None:
         if epoch in self._store.keys():
             # replace, don't collide (mid-epoch saves go through save_preempt
             # and never reuse an epoch key)
@@ -296,6 +306,12 @@ class CheckpointManager:
                      extra: Optional[Dict[str, Any]] = None) -> None:
         """Durable mid-epoch save, outside best-k retention. `extra` is the
         resume payload ({mid_epoch, loader, num_batches})."""
+        multihost.sync("preemption save")
+        if multihost.is_primary():
+            self._save_preempt(epoch, state, extra)
+        multihost.sync("preemption saved")
+
+    def _save_preempt(self, epoch, state, extra) -> None:
         step = 0
         if extra and isinstance(extra.get("loader"), dict):
             step = int(extra["loader"].get("step", 0))
@@ -334,7 +350,9 @@ class CheckpointManager:
                 self._drop_preempt(key)
 
     def wait(self) -> None:
-        self.prune_preempt()
+        if multihost.is_primary():
+            self.prune_preempt()
+        multihost.sync("checkpoint pruned")
 
     def close(self) -> None:
         """Nothing stays open between calls; kept for the JAX interface."""

@@ -12,7 +12,12 @@ follow the JAX functions line for line; what differs is the framework:
   ``itertools.repeat(generator)`` gives one generator whose state advances
   from step to step;
 - ``run_eval`` moves each step's ``probs`` (and the batch's ``labels`` and
-  ``mask``) to host numpy arrays; the multi-host gather is ROADMAP A7;
+  ``mask``) to host numpy arrays; in a process group each batch's rows of
+  every rank are gathered in rank order (the JAX loop's ``fetch_global``
+  and ``gather_host``), so every rank holds the global batch's;
+- in a process group a preemption signal that reached any rank stops every
+  rank at the same step (``multihost.agree_any``: an all-reduce of the
+  flag after each step; on one process, the flag itself);
 - ``History.save_csv`` writes with the ``csv`` module (the GPU machine has
   no pandas), with the JAX frame's columns in the same order.
 
@@ -31,6 +36,7 @@ import numpy as np
 import torch
 
 from ..evals.metrics import MeanAccumulator
+from ..parallel import multihost
 from .optim import CosineSchedule, EarlyStopping, ReduceLROnPlateau, warmup_scale
 from .state import TrainState
 
@@ -116,7 +122,7 @@ def run_epoch(
                 "epoch %d batch %d loss %.4f (%.3fs/batch)",
                 epoch, i, loss, per_batch,
             )
-        if preemption_guard is not None and preemption_guard.requested:
+        if preemption_guard is not None and multihost.agree_any(preemption_guard.requested):
             interrupted = True
             logger.warning(
                 "preemption mid-epoch %d — stopping after batch %d",
@@ -154,6 +160,12 @@ def run_eval(
                 labels.append(_host(batch["labels"]))
             if "mask" in batch and batch["mask"] is not None:
                 masks.append(_host(batch["mask"]))
+    if multihost.is_distributed() and probs:
+        # each batch's rows of every rank, in rank order, batch after batch
+        parts = [None] * multihost.process_count()
+        torch.distributed.all_gather_object(parts, (probs, labels, masks))
+        probs, labels, masks = ([np.concatenate([p[k][j] for p in parts])
+                                 for j in range(len(parts[0][k]))] for k in range(3))
     out: Dict[str, Any] = {"loss": float(np.mean(losses))}
     if probs:
         out["probs"] = np.concatenate(probs)
@@ -270,7 +282,7 @@ def fit(
             )
         if val_loss < best_val:
             best_val = val_loss
-        if preemption_guard is not None and preemption_guard.requested:
+        if preemption_guard is not None and multihost.agree_any(preemption_guard.requested):
             logger.warning("preemption requested — stopping after epoch %d",
                            epoch)
             break

@@ -19,6 +19,14 @@ steps read ``images`` [B, 2, H, W, C] (frontal, lateral) and ``labels``,
 and take the epoch's prompt-bank text features [C, D] before ``lrs``:
 ``step(state, batch, text_features, lrs, generator)``.
 
+Every factory takes ``group``, a ``torch.distributed`` process group:
+the step then runs data-parallel on this rank's rows of the global batch
+(``parallel/dp.py``), as the JAX step runs on a batch-sharded mesh.
+BatchNorm takes its statistics over the global batch, the contrastive
+losses are their ``losses/global_batch.py`` forms, the gradients are
+averaged over the ranks between the backward and the clip, and the metrics
+are means over the global batch.
+
 The pretrain losses are ``clip_self_distill``, ``info_nce`` and
 ``siglip``. A model built with ``learnable_temperature`` trains its scale
 s = exp(min(logit_scale, log 100)) and bias: the softmax losses run at
@@ -28,6 +36,7 @@ b = -10 and ignores T.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
@@ -44,9 +53,12 @@ from ..losses import (
     multilabel_contrastive_loss,
     siglip_loss,
 )
+from ..losses import global_batch
+from ..models.resnet import batch_norm_context
 from ..ops.augment import augment_batch
 from ..ops.image_prep import preprocess_images
 from ..ops.similarity import l2_normalize
+from ..parallel.dp import all_reduce_grads_, global_mean
 from .optim import clip_by_global_norm_, set_group_lrs
 from .state import TrainState
 
@@ -65,8 +77,22 @@ PRETRAIN_LOSSES = {
 _LOG_SCALE_MAX = math.log(100.0)
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+# PRETRAIN_LOSSES over a process group's global batch, ``(txt, img, t,
+# group)``: the all-gather forms, and with local_loss the block forms
+# (siglip's is the ring)
+GLOBAL_LOSSES = {
+    "clip_self_distill": global_batch.global_clip_self_distill_loss,
+    "info_nce": lambda txt, img, t, group: global_batch.global_info_nce_loss(img, txt, t,
+                                                                             group),
+    "siglip": lambda txt, img, t, group: global_batch.global_siglip_loss(txt, img,
+                                                                         group=group),
+}
+LOCAL_LOSSES = {
+    "clip_self_distill": global_batch.local_clip_self_distill_loss,
+    "info_nce": lambda txt, img, t, group: global_batch.local_info_nce_loss(img, txt, t,
+                                                                            group),
+    "siglip": lambda txt, img, t, group: global_batch.ring_siglip_loss(txt, img, group=group),
+}
 
 
 def _learned_scale(params: Mapping[str, torch.Tensor]):
@@ -79,20 +105,41 @@ def _learned_scale(params: Mapping[str, torch.Tensor]):
     return s, params["logit_bias"].float()
 
 
-def _contrastive(loss_name: str, temperature: float) -> Callable:
+def _contrastive(loss_name: str, temperature: float, group=None,
+                 local_loss: bool = False) -> Callable:
     """``loss(txt, img, params)``: the pretrain loss at the model's learned
-    scale where it has one, else at ``temperature``."""
-    base = PRETRAIN_LOSSES[loss_name]
+    scale where it has one, else at ``temperature``; with ``group`` over the
+    global batch (``local_loss``: in block form)."""
+    if group is None:
+        if local_loss:
+            raise ValueError("the local-loss form needs a process group (a dp mesh)")
+        base, sig = PRETRAIN_LOSSES[loss_name], siglip_loss
+    else:
+        base = functools.partial((LOCAL_LOSSES if local_loss else GLOBAL_LOSSES)[loss_name],
+                                 group=group)
+        sig = functools.partial(global_batch.ring_siglip_loss if local_loss
+                                else global_batch.global_siglip_loss, group=group)
 
     def loss(txt_f, img_f, params):
         sb = _learned_scale(params)
         if sb is None:
             return base(txt_f, img_f, temperature)
         if loss_name == "siglip":
-            return siglip_loss(txt_f, img_f, *sb)
+            return sig(txt_f, img_f, *sb)
         return base(txt_f, img_f, 1.0 / sb[0])
 
     return loss
+
+
+def _reduce_grads(params, group) -> None:
+    """With a group, every gradient becomes its mean over the ranks."""
+    if group is not None:
+        all_reduce_grads_([p for p in params if p.grad is not None], group)
+
+
+def _global(x: torch.Tensor, group) -> torch.Tensor:
+    """A metric's mean over this rank's rows → over the global batch."""
+    return x if group is None else global_mean(x, group)
 
 
 @torch.no_grad()
@@ -135,18 +182,19 @@ def make_clip_pretrain_step(
     std: Tuple[float, ...] = (1.0, 1.0, 1.0),
     compute_dtype: torch.dtype = torch.bfloat16,
     max_grad_norm: Optional[float] = 1.0,
-    local_loss_mesh=None,
     ema_decay: float = 0.0,
+    group=None,
+    local_loss: bool = False,
 ):
     """The phase-A step for ``model`` and ``optimizer`` (built by
     ``optim.make_optimizer`` with ``label_fn``); the state passed to the step
     must hold these two. ``max_grad_norm`` is the clip the JAX package puts
     in its gradient transformation (``base_transform``). ``ema_decay``
     moves ``state.ema_params`` after each update, when the state has them
-    (``TrainState.create(..., ema=True)``)."""
-    contrastive = _contrastive(loss_name, temperature)
-    if local_loss_mesh is not None:
-        raise _not_ported("the local-loss (sharded) contrastive form", "A7")
+    (``TrainState.create(..., ema=True)``). ``local_loss`` (with ``group``)
+    is the JAX step's ``local_loss_mesh``: the contrastive loss in block
+    form, each rank scoring its [b, B_global] block (siglip: the ring)."""
+    contrastive = _contrastive(loss_name, temperature, group, local_loss)
     params = _check_groups(model, optimizer, label_fn)
     names = [n for n, _ in model.named_parameters()]
     live = [p for _, p in model.named_parameters()]
@@ -160,8 +208,9 @@ def make_clip_pretrain_step(
         set_group_lrs(optimizer, lrs)
         optimizer.zero_grad(set_to_none=True)
         model.train()
-        img_f, txt_f = model(images, batch["input_ids"], batch["attention_mask"],
-                             generator=generator)
+        with batch_norm_context(group):
+            img_f, txt_f = model(images, batch["input_ids"], batch["attention_mask"],
+                                 generator=generator)
         loss = contrastive(txt_f, img_f, dict(model.named_parameters(recurse=False)))
         loss.backward()
         # JAX differentiates every parameter: the heads the forward skips get
@@ -169,6 +218,7 @@ def make_clip_pretrain_step(
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        _reduce_grads(params, group)
         if max_grad_norm is not None:
             clip_by_global_norm_(params, max_grad_norm)
         optimizer.step()
@@ -194,12 +244,13 @@ def make_clip_eval_step(
     std: Tuple[float, ...] = (1.0, 1.0, 1.0),
     compute_dtype: torch.dtype = torch.bfloat16,
     use_ema: bool = False,
+    group=None,
 ):
     """``step(state, batch) -> {"loss"}`` in eval mode (running BatchNorm
     statistics, no dropout) with the pretrain loss; ``use_ema`` scores the
     EMA parameters (``state.ema_params``) with the live BatchNorm
     statistics."""
-    contrastive = _contrastive(loss_name, temperature)
+    contrastive = _contrastive(loss_name, temperature, group)
 
     @torch.no_grad()
     def step(state: TrainState, batch: Batch) -> Metrics:
@@ -227,6 +278,7 @@ def make_adapter_train_step(
     mean: Tuple[float, ...] = (0.0, 0.0, 0.0),
     std: Tuple[float, ...] = (1.0, 1.0, 1.0),
     compute_dtype: torch.dtype = torch.bfloat16,
+    group=None,
 ):
     """Phase B, the C-Adapter (02 nb cells 28-29): the image tower and its
     projection run in eval mode under ``no_grad`` (running BatchNorm
@@ -253,9 +305,10 @@ def make_adapter_train_step(
             feats = model.encode_image(images)
         loss = bce_with_logits_loss(model.adapter_logits(feats), batch["labels"])
         loss.backward()
+        _reduce_grads(model.parameters(), group)
         optimizer.step()
         state.step += 1
-        return state, {"loss": loss.detach()}
+        return state, {"loss": _global(loss.detach(), group)}
 
     return step
 
@@ -266,9 +319,11 @@ def make_adapter_eval_step(
     mean: Tuple[float, ...] = (0.0, 0.0, 0.0),
     std: Tuple[float, ...] = (1.0, 1.0, 1.0),
     compute_dtype: torch.dtype = torch.bfloat16,
+    group=None,
 ):
     """``step(state, batch) -> {"loss", "probs"}``: the adapter's BCE and
-    sigmoid probabilities [B, C] in eval mode."""
+    sigmoid probabilities [B, C] in eval mode (with ``group``: the loss over
+    the global batch, the probabilities of this rank's rows)."""
 
     @torch.no_grad()
     def step(state: TrainState, batch: Batch) -> Metrics:
@@ -276,7 +331,7 @@ def make_adapter_eval_step(
         images = preprocess_images(batch["images"], image_size, image_size, mean, std,
                                    compute_dtype)
         logits = m.adapter_logits(m.encode_image(images))
-        return {"loss": bce_with_logits_loss(logits, batch["labels"]),
+        return {"loss": _global(bce_with_logits_loss(logits, batch["labels"]), group),
                 "probs": torch.sigmoid(logits)}
 
     return step
@@ -304,11 +359,17 @@ def _prep_views(batch: Batch, image_size, mean, std, compute_dtype):
     return b, preprocess_images(flat, image_size, image_size, mean, std, compute_dtype)
 
 
-def _multiview_loss(model, feats, text_features, labels, temperature, use_enhance):
+def _multiview_loss(model, feats, text_features, labels, temperature, use_enhance,
+                    group=None):
     """(loss, logits or None): the multilabel contrastive loss of the fused
-    features against the bank, or with ``use_enhance`` the asymmetric loss
-    of l2_normalize(enhance(feats, bank)) · bankᵀ / T."""
+    features against the bank (with ``group``, over the global batch), or
+    with ``use_enhance`` the asymmetric loss of
+    l2_normalize(enhance(feats, bank)) · bankᵀ / T (a mean over rows: this
+    rank's rows' mean, which the gradient average makes global)."""
     if not use_enhance:
+        if group is not None:
+            return global_batch.global_multilabel_contrastive_loss(
+                feats, text_features, labels, temperature, group), None
         return multilabel_contrastive_loss(feats, text_features, labels, temperature), None
     enhanced, _ = model.enhance(feats, text_features)
     logits = l2_normalize(enhanced).float() @ text_features.float().T / temperature
@@ -331,6 +392,7 @@ def make_multiview_train_step(
     translate_frac: float = 0.1,
     max_grad_norm: Optional[float] = 1.0,
     ema_decay: float = 0.0,
+    group=None,
 ):
     """The scripts' training step (0426/train.py): (frontal, lateral) exams
     against the epoch's prompt-bank features [C, D] (encoded once an epoch,
@@ -360,21 +422,23 @@ def make_multiview_train_step(
         set_group_lrs(optimizer, lrs)
         optimizer.zero_grad(set_to_none=True)
         model.train()
-        feats = model.encode_multiview(images.reshape(b, 2, *images.shape[1:]),
-                                       generator=generator)
+        with batch_norm_context(group):
+            feats = model.encode_multiview(images.reshape(b, 2, *images.shape[1:]),
+                                           generator=generator)
         loss, _ = _multiview_loss(model, feats, text_features, batch["labels"], temperature,
-                                  use_enhance)
+                                  use_enhance, group)
         loss.backward()
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        _reduce_grads(params, group)
         if max_grad_norm is not None:
             clip_by_global_norm_(params, max_grad_norm)
         optimizer.step()
         if ema_decay and state.ema_params is not None:
             update_ema([state.ema_params[n] for n in names], live, state.step, ema_decay)
         state.step += 1
-        return state, {"loss": loss.detach()}
+        return state, {"loss": _global(loss.detach(), group) if use_enhance else loss.detach()}
 
     return step
 
@@ -389,6 +453,7 @@ def make_multiview_eval_step(
     use_enhance: bool = False,
     threshold: float = 0.5,
     use_ema: bool = False,
+    group=None,
 ):
     """``step(state, batch, text_features) -> {"loss", "probs",
     "sample_accuracy", "per_class_accuracy"}`` in eval mode, un-augmented:
@@ -401,7 +466,7 @@ def make_multiview_eval_step(
     def forward(m, x, text_features, labels):
         feats = m.encode_multiview(x)
         loss, logits = _multiview_loss(m, feats, text_features, labels, temperature,
-                                       use_enhance)
+                                       use_enhance, group)
         if logits is None:
             logits = (l2_normalize(feats.float()) @ l2_normalize(text_features.float()).T
                       / temperature)
@@ -419,9 +484,11 @@ def make_multiview_eval_step(
             loss, logits = forward(m, *args)
         probs = torch.sigmoid(logits)
         correct = ((probs > threshold).float() == batch["labels"].float()).float()
+        if use_enhance:
+            loss = _global(loss, group)
         return {"loss": loss, "probs": probs,
-                "sample_accuracy": correct.mean(dim=1).mean() * 100.0,
-                "per_class_accuracy": correct.mean(dim=0)}
+                "sample_accuracy": _global(correct.mean(dim=1).mean(), group) * 100.0,
+                "per_class_accuracy": _global(correct.mean(dim=0), group)}
 
     return step
 
@@ -445,6 +512,7 @@ def make_shared_adapter_train_step(
     mean: Tuple[float, ...] = (0.0, 0.0, 0.0),
     std: Tuple[float, ...] = (1.0, 1.0, 1.0),
     compute_dtype: torch.dtype = torch.bfloat16,
+    group=None,
 ):
     """The shared-embedding adapter (the 03 notebook's "nouse" variant): a
     Linear over concat(image features, the report's text features) with
@@ -466,9 +534,10 @@ def make_shared_adapter_train_step(
         optimizer.zero_grad(set_to_none=True)
         loss = bce_with_logits_loss(model.shared_adapter_logits(img_f, txt_f), batch["labels"])
         loss.backward()
+        _reduce_grads(model.parameters(), group)
         optimizer.step()
         state.step += 1
-        return state, {"loss": loss.detach()}
+        return state, {"loss": _global(loss.detach(), group)}
 
     return step
 
@@ -479,6 +548,7 @@ def make_shared_adapter_eval_step(
     mean: Tuple[float, ...] = (0.0, 0.0, 0.0),
     std: Tuple[float, ...] = (1.0, 1.0, 1.0),
     compute_dtype: torch.dtype = torch.bfloat16,
+    group=None,
 ):
     """``step(state, batch) -> {"loss", "probs"}``: the shared adapter's BCE
     and sigmoid probabilities [B, C] (03 nb cell 30)."""
@@ -488,7 +558,7 @@ def make_shared_adapter_eval_step(
         img_f, txt_f = _report_features(state.model, batch, image_size, mean, std,
                                         compute_dtype)
         logits = state.model.shared_adapter_logits(img_f, txt_f)
-        return {"loss": bce_with_logits_loss(logits, batch["labels"]),
+        return {"loss": _global(bce_with_logits_loss(logits, batch["labels"]), group),
                 "probs": torch.sigmoid(logits)}
 
     return step

@@ -17,6 +17,11 @@ the kernels; a batch already on the device (``--device-cache``) is used
 where it lies. ``stream_logits`` queues batch N+1, and the copy of its logits
 to the host, before it waits for batch N's copy alone (:class:`HostCopy`),
 so the host stages the next batch while the device computes.
+
+With ``group`` (``zeroshot --num-devices``, the JAX engine's 1-D mesh),
+every rank is handed the same batch: the rows are padded to a multiple of
+the ranks, each rank scores its contiguous slice, and the logits of every
+rank are gathered in rank order, so that each rank holds the batch's.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.config import ZeroShotConfig
 from ..core.device import to_device
@@ -118,8 +124,10 @@ class ZeroShotEngine:
         max_text_length: int = 512,
         compute_dtype: torch.dtype = torch.bfloat16,
         use_enhance: bool = False,
+        group=None,
     ):
         self.model = model.eval()
+        self.group = group
         self.device = next(model.parameters()).device
         self.tokenizer = tokenizer
         self.disease_list = list(disease_list)
@@ -167,7 +175,19 @@ class ZeroShotEngine:
         imgs = to_device(images_u8, self.device)
         if imgs.dim() == 5:
             imgs = imgs.reshape(-1, *imgs.shape[2:])
-        return self._logits(imgs), imgs.shape[0]
+        n_real = imgs.shape[0]
+        if self.group is None:
+            return self._logits(imgs), n_real
+        from ..parallel.collectives import all_gather_rows
+        from ..parallel.dp import shard_rows
+
+        world, rank = dist.get_world_size(self.group), dist.get_rank(self.group)
+        pad = -n_real % world
+        if pad:  # rows so that the batch shards evenly; sliced off by the caller
+            imgs = torch.cat([imgs, imgs.new_zeros((pad, *imgs.shape[1:]))])
+        with torch.inference_mode():
+            return all_gather_rows(self._logits(shard_rows(imgs, rank, world)),
+                                   self.group), n_real
 
     def logits(self, images_u8) -> np.ndarray:
         """[B, H, W, C] uint8 (or [B, V, H, W, C], flattened) → [B, C]."""

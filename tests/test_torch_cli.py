@@ -15,6 +15,7 @@ test.
 import argparse
 import contextlib
 import csv
+import dataclasses
 import importlib
 import io
 import json
@@ -219,23 +220,85 @@ def test_parser_takes_every_jax_command_and_flag():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["serve", "--exported", "artifact", "--tp", "2"], "A7"),
-    (["serve", "--tp", "2"], "A7"),
-    (["pretrain", "--lora", "4", "--pp", "2"], "A7"),
-    (["pretrain", "--lora", "4", "--num-devices", "2"], "A7"),
-    (["zeroshot", "--num-devices", "2"], "A7"), (["eval", "--virtual-devices", "8"], "A7"),
-    (["zeroshot", "--tp", "2"], "A7"), (["pretrain", "--pp", "2"], "A7"),
-    (["pretrain", "--ep", "2"], "A7"), (["adapter", "--num-processes", "2"], "A7"),
-    (["pretrain", "--local-loss"], "A7"), (["pretrain", "--accum-steps", "2"], "A7"),
-    (["pretrain", "--moe-experts", "4"], "A7"),
+    (["serve", "--exported", "artifact", "--tp", "2"], "A7b"),
+    (["serve", "--tp", "2"], "A7b"),
+    (["pretrain", "--lora", "4", "--pp", "2"], "A7b"),
+    (["zeroshot", "--tp", "2"], "A7b"), (["pretrain", "--pp", "2"], "A7b"),
+    (["pretrain", "--ep", "2"], "A7b"),
+    (["pretrain", "--moe-experts", "4"], "A7b"),
+    (["serve", "--num-devices", "2"], "A7b"), (["eval", "--num-processes", "2"], "A7b"),
     (["pretrain", "--remat"], "not ported"), (["zeroshot", "--bf16-attention-probs"], "not ported"),
-])
+], ids=lambda v: "_".join(v) if isinstance(v, list) else v)
 def test_unported_commands_and_flags_exit_2(argv, item, capsys):
     """A command or flag the port does not run exits with status 2 before
-    anything runs, naming the ROADMAP item that owns it."""
+    anything runs, naming the ROADMAP item that owns it: tensor, pipeline
+    and expert parallelism, MoE, data-parallel serving and the other
+    commands' multi-process runs are A7b."""
     assert cli.main(argv) == 2
     err = capsys.readouterr().err
     assert (f"ROADMAP {item})" if item != "not ported" else "(not ported") in err, err
+
+
+# the JAX CLI's refusals of the data-parallel flags, word for word, and where
+# its source holds each (``cmd_pretrain``, ``_maybe_dp``, ``create_mesh``)
+LOCAL_LOSS = ("--local-loss requires a dp mesh (--num-devices > 1, or a multi-process run "
+              "whose slice has > 1 device)")
+ACCUM_TEMPERATURE = ("--learnable-temperature does not compose with --accum-steps (the "
+                     "GradCache step caches features at a fixed temperature — the scalars "
+                     "would silently train at zero gradient)")
+
+
+def _jax_sources():
+    """(the source of the JAX functions that refuse, the string messages of
+    their ``SystemExit`` calls: adjacent literals joined, as Python joins
+    them)."""
+    import ast
+    import inspect
+
+    from clip_for_dl_tpu.core import mesh as jmesh
+
+    source = "".join(inspect.getsource(f) for f in (jcli.cmd_pretrain, jcli._maybe_dp,
+                                                     jmesh.create_mesh))
+    tree = ast.parse(inspect.getsource(jcli.cmd_pretrain).lstrip())
+    messages = {a.value for node in ast.walk(tree)
+                if isinstance(node, ast.Call) and getattr(node.func, "id", None) == "SystemExit"
+                for a in node.args if isinstance(a, ast.Constant)}
+    return source, messages
+
+
+@pytest.mark.parametrize("argv,message", [
+    (["pretrain", "--lora", "4", "--num-devices", "2"],
+     "--num-devices is not supported with --lora"),
+    (["zeroshot", "--num-devices", "2"],
+     "requested a 2-device mesh but only 1 devices are visible"),
+    (["pretrain", "--virtual-devices", "8", "--num-devices", "3", "--batch-size", "8"],
+     "--num-devices 3 must divide the batch size (8)"),
+    (["adapter", "--num-processes", "2", "--num-devices", "4"],
+     "requested a 4-device mesh but only 2 devices are visible"),
+    (["pretrain", "--local-loss"], LOCAL_LOSS),
+    (["pretrain", "--local-loss", "--num-devices", "1"], LOCAL_LOSS),
+    (["pretrain", "--accum-steps", "2", "--learnable-temperature"], ACCUM_TEMPERATURE),
+    (["pretrain", "--accum-steps", "2", "--local-loss", "--virtual-devices", "2",
+      "--num-devices", "2"], "--accum-steps does not compose with --local-loss"),
+    (["train", "--virtual-devices", "8", "--num-devices", "5"],
+     "--num-devices 5 must divide the batch size (32)"),
+], ids=lambda v: "_".join(v)[:60] if isinstance(v, list) else None)
+def test_data_parallel_refusals_are_the_jax_clis(argv, message, monkeypatch):
+    """The data-parallel flags' refusals: the JAX CLI's messages word for
+    word (its source formats each), before any rank starts; on the CPU
+    without ``--virtual-devices`` one device is in sight."""
+    monkeypatch.setenv("CLIP_FOR_DL_TPU_FORCE_CPU", "1")
+    with pytest.raises(SystemExit) as e:
+        cli.main([*argv, "--tiny", "--synthetic"])
+    assert e.value.code == message
+    source, messages = _jax_sources()
+    if "requested a" in message:
+        assert '"requested a {num_devices}-device mesh but only "' in source
+        assert '"{len(devs)} devices are visible"' in source
+    elif "must divide the batch size" in message:
+        assert '"--num-devices {n} must divide the batch size ({bs})"' in source
+    else:
+        assert message in messages
 
 
 @pytest.mark.parametrize("argv", [
@@ -864,3 +927,70 @@ def test_day_one_rehearsal_runs_the_chain(tmp_path, monkeypatch):
     prompts = [v[0] for v in prompts_for_family("prediction", DISEASE_LABELS).values()]
     ids = BertTokenizer(report["standin"]["vocab"]).encode(prompts, max_length=32)["input_ids"]
     assert len({tuple(r) for r in ids}) == len(DISEASE_LABELS)  # the vocab holds the prompts
+
+
+# -- data parallelism (ROADMAP A7) ---------------------------------------------------
+
+
+def test_pretrain_over_two_virtual_devices_matches_the_jax_cli(layout, jax_pth, tmp_path,
+                                                               monkeypatch):
+    """``pretrain --virtual-devices 2 --num-devices 2 --tiny --fp32`` from the
+    JAX-written .pth, two epochs of synthetic pairs at a global batch of 4:
+    the port's two gloo ranks (run by ``testing.ranks``, whose ranks start
+    the command in a group) against the JAX CLI's 2-device mesh, both with
+    every preset's dropout at 0 (the rate has no flag; the ranks patch the
+    port's ``get_preset``, this process the JAX one). The per-epoch train
+    and validation losses at 5e-4 (tests/test_torch_train.py's bound on a
+    trajectory of AdamW steps); only rank 0 wrote the log, the history and
+    the checkpoints."""
+    from clip_for_dl_tpu.core import config as jconfig
+    from clip_for_dl_tpu_torch.testing import ranks
+
+    argv = ["pretrain", "--tiny", "--fp32", "--synthetic", "--synthetic-samples", "16",
+            "--batch-size", "4", "--epochs", "2", "--virtual-devices", "2", "--num-devices",
+            "2", "--checkpoint", jax_pth[0]]
+    port, jlog = str(tmp_path / "port"), str(tmp_path / "jax")
+    out = ranks.launch({"cli": dict(kind="cli", no_dropout=True, argv=argv + [
+        "--log-dir", port, "--checkpoint-dir", str(tmp_path / "ckpt")])}, 2,
+        str(tmp_path / "ranks"))
+    assert [r["cli"]["rc"] for r in out] == [0, 0]
+    real = jconfig.get_preset
+
+    def no_dropout(name):
+        cfg = real(name)
+        return cfg.replace(model=dataclasses.replace(cfg.model, dropout=0.0))
+
+    monkeypatch.setattr(jconfig, "get_preset", no_dropout)
+    assert run(jcli.main, argv + ["--log-dir", jlog])[0] == 0
+    header, rows = read_rows(os.path.join(port, "training_history.csv"))
+    jheader, jrows = read_rows(os.path.join(jlog, "training_history.csv"))
+    assert header == jheader and len(rows) == len(jrows) == 2
+    cols = [header.index(c) for c in ("train_loss", "val_loss")]
+    np.testing.assert_allclose(np.array(rows, np.float64)[:, cols],
+                               np.array(jrows, np.float64)[:, cols], atol=5e-4, rtol=0)
+    with open(os.path.join(port, "pretrain.log")) as f:
+        assert f.read().count("epoch 1 done") == 1  # one rank's lines
+    assert sorted(os.listdir(tmp_path / "ckpt")) == ["0.json", "0.pt", "1.json", "1.pt"]
+
+
+def test_zeroshot_over_two_virtual_devices_writes_the_single_process_results(layout, jax_pth,
+                                                                              tmp_path):
+    """``zeroshot --virtual-devices 2 --num-devices 2`` in one launch: the
+    command starts two gloo ranks, each scores its slice of every batch, and
+    rank 0 writes the CSV of the single-process run (scores at 1e-6) and
+    prints its metrics."""
+    single, dp = str(tmp_path / "single"), str(tmp_path / "dp")
+    flags = ["zeroshot", *data_flags(layout), "--checkpoint", jax_pth[0]]
+    assert run(cli.main, flags + ["--log-dir", single])[0] == 0
+    assert cli.main(flags + ["--virtual-devices", "2", "--num-devices", "2",
+                             "--log-dir", dp]) == 0
+    header, rows = read_rows(os.path.join(single, "zero_shot_results.csv"))
+    got_header, got = read_rows(os.path.join(dp, "zero_shot_results.csv"))
+    assert got_header == header and len(got) == len(rows) > 0
+    for a, b in zip(got, rows):
+        for x, y in zip(a, b):
+            try:
+                assert float(x) == pytest.approx(float(y), abs=1e-6)
+            except ValueError:
+                assert x == y
+    assert sorted(os.listdir(dp)) == sorted(os.listdir(single))

@@ -1957,3 +1957,118 @@ def test_vit_and_bert_exports_launch_b3_b4_b9(cuda):
         got, n = _launch_delta(lambda: text(ids, mask))
         assert {fa.KERNEL, mlp.KERNEL} <= set(n), n
         assert torch.equal(got, live_text(ids, mask))
+
+
+# -- data parallelism over NCCL (ROADMAP A7), one rank a card ---------------------------
+
+
+def _dp_case(**extra):
+    """A phase-A step case for ``testing.ranks`` on the card: a narrow
+    CXRClip (ResNet (1, 1, 1, 1) at 16, BERT 2 x 128) from the port's seeded
+    init, fp32 through the fp32 attention kernels, 16 pairs of 64-px grey
+    images, SGD at lr 1 after the clip at 1."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    mask = np.ones((16, 24), np.int32)
+    mask[::3, 10:] = 0
+    config = dict(image_size=64, max_text_length=24, vocab_size=128, text_embedding_dim=128,
+                  text_layers=2, text_heads=2, text_intermediate_dim=256,
+                  shared_embedding_dim=64, text_max_position=32, resnet_stages=(1, 1, 1, 1),
+                  resnet_width=16, dropout=0.0, flash_attention=True)
+    case = dict(kind="pretrain", config=config, seed=3, device="cuda", loss="clip_self_distill",
+                temperature=2.0, clip=1.0, groups=[], lrs={"default": 1.0}, image_size=64,
+                mean=CLIP_MEAN, std=CLIP_STD,
+                batch={"images": rng.integers(0, 256, (16, 80, 80, 1), dtype=np.uint8),
+                       "input_ids": rng.integers(5, 128, (16, 24)).astype(np.int32),
+                       "attention_mask": mask})
+    return {**case, **extra}
+
+
+DP_CASES = {"self_distill": ("clip_self_distill", False), "siglip": ("siglip", False),
+            "self_distill_local": ("clip_self_distill", True), "siglip_ring": ("siglip", True)}
+
+
+@pytest.fixture(scope="module")
+def nccl_steps(tmp_path_factory):
+    """Every case of DP_CASES run once by one NCCL rank (its own process,
+    killed past a deadline)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    from clip_for_dl_tpu_torch.testing import ranks
+
+    cases = {name: _dp_case(loss=loss, local=local) for name, (loss, local) in DP_CASES.items()}
+    return cases, ranks.launch(cases, 1, str(tmp_path_factory.mktemp("nccl")), timeout=300,
+                               device="cuda")[0]
+
+
+@pytest.mark.parametrize("name", list(DP_CASES))
+def test_dp_step_over_nccl_equals_the_plain_step(cuda, nccl_steps, name):
+    """The step through parallel.dp on one NCCL rank (the global or
+    local-loss form, the gradients' all-reduce before the clip) against the
+    plain step in this process, on the fp32 route: the loss at 1e-5
+    relative, each module's change (its clipped gradient: the towers', the
+    projections', the rest's, concatenated, as the smoke's phases hold a
+    step's groups) at cosine 0.9999 or better."""
+    import numpy as np
+
+    from clip_for_dl_tpu_torch.testing import ranks
+
+    cases, out = nccl_steps
+    got = out[name]
+    want_losses, _, want = ranks.step_case(dict(cases[name], local=False))
+    assert got["losses"][0] == pytest.approx(want_losses[0], rel=1e-5)
+    for group in {k.split(".")[0] for k in want}:
+        keys = sorted(k for k in want if k.split(".")[0] == group)
+        a = np.concatenate([got["delta"][k].ravel() for k in keys]).astype(np.float64)
+        b = np.concatenate([want[k].ravel() for k in keys]).astype(np.float64)
+        if np.abs(b).max() > 0:
+            cos = a @ b / (np.linalg.norm(a) * np.linalg.norm(b))
+            assert cos >= 0.9999, (group, cos)
+
+
+def test_global_batch_losses_over_nccl_equal_the_plain_losses(cuda, tmp_path):
+    """The seven global-batch losses and make_global on one NCCL rank
+    against the plain losses on the card: values at 1e-5 relative, the
+    gradients at 5e-5 of their largest entry (the local forms build the
+    self-distill targets from the row normalizers, another order of the
+    same fp32 sums)."""
+    import numpy as np
+
+    from clip_for_dl_tpu_torch.losses import contrastive
+    from clip_for_dl_tpu_torch.testing import ranks
+
+    rng = np.random.default_rng(1)
+    bank = rng.standard_normal((16, 32)).astype(np.float32)
+    x = dict(txt=(rng.standard_normal((32, 32)) * 0.5).astype(np.float32),
+             img=(rng.standard_normal((32, 32)) * 0.5).astype(np.float32),
+             labels=(rng.random((32, 16)) < 0.3).astype(np.float32),
+             bank=bank / np.linalg.norm(bank, axis=1, keepdims=True), scale=7.0, bias=-4.0)
+    got = ranks.launch({"losses": dict(kind="losses", device="cuda", **x)}, 1, str(tmp_path),
+                       timeout=300, device="cuda")[0]["losses"]
+    plain = {
+        "global_clip_self_distill": lambda t, i, lbl, bank: contrastive.clip_self_distill_loss(
+            t, i, 2.0),
+        "global_info_nce": lambda t, i, lbl, bank: contrastive.info_nce_loss(i, t, 0.5),
+        "global_multilabel": lambda t, i, lbl, bank: contrastive.multilabel_contrastive_loss(
+            i, bank, lbl, 0.07),
+        "global_siglip": lambda t, i, lbl, bank: contrastive.siglip_loss(t, i, 7.0, -4.0),
+        "ring_siglip": lambda t, i, lbl, bank: contrastive.siglip_loss(t, i, 7.0, -4.0),
+        "local_info_nce": lambda t, i, lbl, bank: contrastive.info_nce_loss(i, t, 0.5),
+        "local_clip_self_distill": lambda t, i, lbl, bank: (
+            contrastive.clip_self_distill_loss(t, i, 2.0)),
+        "make_global": lambda t, i, lbl, bank: contrastive.clip_self_distill_loss(t, i, 2.0),
+    }
+    assert set(got) == set(plain)
+    for name, fn in plain.items():
+        t = torch.tensor(x["txt"], device=cuda, requires_grad=True)
+        i = torch.tensor(x["img"], device=cuda, requires_grad=True)
+        loss = fn(t, i, torch.tensor(x["labels"], device=cuda),
+                  torch.tensor(x["bank"], device=cuda))
+        loss.backward()
+        assert got[name]["loss"] == pytest.approx(float(loss.detach()), rel=1e-5), name
+        for key, want in (("dtxt", t.grad), ("dimg", i.grad)):
+            want = want.cpu().numpy() if want is not None else np.zeros_like(x["txt"])
+            np.testing.assert_allclose(got[name][key], want,
+                                       atol=5e-5 * float(np.abs(want).max()) + 1e-12, rtol=0,
+                                       err_msg=f"{name} {key}")

@@ -368,10 +368,19 @@ def test_lora_rank_below_zero_exits_2_as_the_jax_cli(capsys):
 
 @pytest.mark.parametrize("extra", [["--pp", "2"], ["--num-devices", "2"]], ids=["pp", "dp"])
 def test_lora_leaves_the_multi_device_flags_unported(extra, capsys):
-    """--pp and --num-devices are A7 flags: with --lora they still exit 2
-    naming A7 (the JAX CLI refuses their composition with LoRA later)."""
-    assert cli.main(["pretrain", "--tiny", "--synthetic", "--lora", "4", *extra]) == 2
-    assert "ROADMAP A7" in capsys.readouterr().err
+    """--pp is an A7b flag: with --lora it still exits 2 naming A7b (the
+    JAX CLI refuses its composition with LoRA later). --num-devices is
+    ported (A7) and refused beside --lora with the JAX CLI's message, before
+    any rank starts."""
+    argv = ["pretrain", "--tiny", "--synthetic", "--lora", "4", *extra]
+    if extra[0] == "--pp":
+        assert cli.main(argv) == 2
+        assert "ROADMAP A7b" in capsys.readouterr().err
+        return
+    with pytest.raises(SystemExit) as e:
+        cli.main(argv)
+    assert e.value.code == "--num-devices is not supported with --lora"
+    assert e.value.code in _jax_refusals()
 
 
 @pytest.fixture(scope="module")

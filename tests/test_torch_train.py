@@ -396,10 +396,14 @@ def test_bf16_step_with_dropout_runs_both_autograd_functions(monkeypatch):
 
 @pytest.mark.parametrize("case", ["local_loss"])
 def test_unported_step_options_raise(case):
+    """The local-loss form is ported (losses/global_batch.py) and is a form
+    of the loss over a process group's global batch: without a group the
+    step refuses it, as the JAX CLI refuses --local-loss without a dp
+    mesh (tests/test_torch_dp.py runs it over gloo ranks)."""
     model = CXRClip(ModelConfig(**TINY))
     opt = make_optimizer(model, make_label_fn(GROUPS))
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        make_clip_pretrain_step(model, opt, make_label_fn(GROUPS), local_loss_mesh=object())
+    with pytest.raises(ValueError, match="needs a process group"):
+        make_clip_pretrain_step(model, opt, make_label_fn(GROUPS), local_loss=True)
 
 
 def test_step_refuses_a_state_with_another_model():
