@@ -4,8 +4,8 @@ its phase-A train step, its split-q/k/v attention entry point, the chain
 pretrain -> adapter (phase B), the fp32 parity mode, the evaluation from
 files, the command line, its HTTP server, its multi-view training, its ViT
 training and LoRA, Grad-CAM and attention rollout, and its exported programs
-once on one CUDA GPU, and its data parallelism over every card of the host
-(phase 15; one card is enough).
+once on one CUDA GPU, and its data, tensor and sequence parallelism and its
+serving over every card of the host (phases 15 and 16; one card is enough).
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -330,9 +330,38 @@ c8_cases).
    in zeroshot) at their first inputs, the fp32 instances at their type's
    rule; each rank's launches count as path@rankN; ranks other than 0 must
    write no file. Then, in this process, a single-device ``zeroshot`` of
-   the group's checkpoint: probabilities within 5e-3 of the group's. The
+   the group's checkpoint: probabilities within 5e-3 of the group's, and
+   the same command scoring each rank's share of every batch apart: the
+   group's logits bit for bit (each rank scored a smaller batch). The
    data-parallel steps take BatchNorm's statistics through the group at
    every world size, one card included (models/resnet.py _global_bn).
+16. Tensor and sequence parallelism, serving over a group (ROADMAP A7b),
+   after phase 15, on phase 9's files. (a) On this card: B3 and B6 with
+   dropout 0.1 at the train shape on each rank's heads at tp 2 and 4
+   (``head_offset``) bit for bit the unsharded kernel's heads, their masks
+   bit for bit the plain version's on the probe, offset 0 bit for bit the
+   call without it; B3/B6 at 6 and 3 heads and B4/B8 at F 1536 and 768
+   against their plain versions and timed beside their bounds, SDPA and
+   cuBLAS; every rank's share of a full-width BERT-base layer (dropout 0.1)
+   and ViT-B/16 layer, forward and backward, run one after another and
+   summed here, against the unsharded layer (TOL tp_layer_rel,
+   tp_grad_cos), the kernels held at the shares' first inputs. (b)
+   ``torchrun --nproc-per-node <cards> chip_smoke.py --phase16-rank DIR``:
+   in each rank over NCCL the zero-shot engine data-parallel and at each tp
+   degree (at one card the TP layers' own path, bit for bit the plain
+   engine) against the single-device engine, with the bank's ms, images/s
+   and peak memory; the phase-A step through tensor_parallel_step (fp32
+   route against one card at TOL dp_bn fp32, shards gathered; the bf16 step
+   against the data-parallel step over the same data group at
+   train_loss_rel); sequence_sharded_fn replicated and with tp_params
+   against the tower's
+   forward (eval_text_features; at one card replicated bit for bit); and
+   ``zeroshot --num-devices <cards> --tp <t>``. (c) ``serve --num-devices
+   <cards>`` under torchrun with --tp (zero_shot preset, phase 9's adapter
+   checkpoint) and the ViT-B/16 preset with --fused-mlp (B9 on each rank's
+   data slice): concurrent requests answered, SIGTERM stops every rank
+   (rank 0 broadcasts the stop, each follower reports it); every rank's
+   launches count as path@rankN.
 
 The second-to-last line is the kernels JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -555,6 +584,18 @@ TOL = {
     "eval_logits": 4e-3,
     "eval_session_logits": 8e-3,
     "eval_adapter_logits": 5e-3,
+    # phase 16 (a), every tp rank's share of a full-width bf16 layer run on
+    # one card against the unsharded layer, both on the kernels: each share
+    # rounds its row-parallel partial product to bf16 before the sum (in
+    # fp32, the bias added once), where the unsharded GEMM rounds once, so
+    # an entry of the output or of the input gradient may move by one bf16
+    # step of each of the t <= 4 partials and one of its own: held within
+    # four bf16 steps (2^-5) of the tensor's largest entry; each weight's
+    # gradient (the shares' gathered) at cosine 0.999 or better. The kernels
+    # themselves are held at the shares' first inputs at their phase-2
+    # tolerances, and B3/B6 on a rank's heads bit for bit the unsharded ones
+    "tp_layer_rel": 2.0 ** -5,
+    "tp_grad_cos": 0.999,
 }
 
 SRC = "clip_for_dl_tpu_torch/csrc/"
@@ -680,6 +721,21 @@ PATHS = {  # main path -> the kernels it must launch
     "dp_accum": TRAIN_KERNELS,
     "cli_dp_pretrain": TRAIN_KERNELS,
     "cli_dp_zeroshot": ("similarity", "image_prep", "flash_attention", "mlp"),
+    # phase 16: every tp rank's share of a full-width BERT and ViT layer on
+    # one card (forward and backward); in each rank of the NCCL group the
+    # engine (data-parallel, and tensor-parallel at each degree), the TP
+    # step (bf16), sequence_sharded_fn (replicated and with tp_params) and
+    # zeroshot --tp; serve over the group, both towers (B9 on each rank's
+    # data slice), every rank's launches
+    **{f"tp_shares_{kind}_{t}": ("flash_attention", "flash_attention_bwd", "mlp", "mlp_bwd")
+       for kind in ("bert", "vit") for t in (2, 4)},
+    **{f"tp_engine_{name}": ("similarity", "image_prep", "flash_attention", "mlp")
+       for name in ("dp", "tp1", "tp2", "tp4")},
+    **{f"tp_step_{t}": TRAIN_KERNELS for t in (1, 2, 4)},
+    **{f"sp_text{tag}_{t}": ("flash_attention", "mlp") for tag in ("", "_tp") for t in (1, 2, 4)},
+    "cli_tp_zeroshot": ("similarity", "image_prep", "flash_attention", "mlp"),
+    "cli_group_serve": ("similarity", "image_prep", "flash_attention", "mlp"),
+    "cli_group_serve_vit": ("similarity", "image_prep", "flash_attention", "mlp", "mlp_block"),
 }
 # H100 SXM peaks (NVIDIA's data sheet, dense): bf16 and fp16 on the tensor
 # cores and fp32 on the CUDA cores, in operations a second; HBM3 in bytes a
@@ -3859,12 +3915,19 @@ class Served:
     "serving on" line, its log collected by a reader thread, HTTP requests
     to it, and SIGINT to stop it."""
 
-    def __init__(self, argv: list, launches_path: str, env: dict):
+    def __init__(self, argv: list, launches_path: str, env: dict, ranks: int = 0,
+                 script: str = ""):
+        """With ``ranks``: ``torchrun --standalone`` of ``script`` (SERVE_CHILD
+        that formats ``{rank}`` in the launches path) as that many ranks."""
         import re
         import threading
 
+        head = [sys.executable, "-c", SERVE_CHILD]
+        if ranks:
+            head = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                    f"--nproc-per-node={ranks}", script]
         self.proc = subprocess.Popen(
-            [sys.executable, "-c", SERVE_CHILD, launches_path, *argv], cwd=str(ROOT), env=env,
+            [*head, launches_path, *argv], cwd=str(ROOT), env=env,
             stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
         self.lines, self.port = [], None
         found = threading.Event()
@@ -3883,7 +3946,9 @@ class Served:
         if self.port is None:
             self.proc.kill()
             self.proc.wait()
-        check(self.port is not None, "serve did not bind: " + "".join(self.lines[-30:]))
+        first = next((i for i, line in enumerate(self.lines) if "Traceback" in line), 0)
+        check(self.port is not None, "serve did not bind: " + "".join(
+            self.lines[first:first + 40] + ["...\n"] + self.lines[-10:]))
 
     def request(self, method: str, path: str, body=None, ctype="image/png"):
         """(status, headers, JSON body, client seconds)."""
@@ -3900,10 +3965,10 @@ class Served:
         finally:
             conn.close()
 
-    def stop(self) -> int:
+    def stop(self, sig=None) -> int:
         import signal
 
-        self.proc.send_signal(signal.SIGINT)
+        self.proc.send_signal(signal.SIGINT if sig is None else sig)
         try:
             return self.proc.wait(120)
         except subprocess.TimeoutExpired:
@@ -5860,6 +5925,32 @@ def dp_phase15(_build, mods, dev, seed: int, card: str, workdir: str, results: d
           f"classes, probabilities max |difference| {diff:.3e} from the group's "
           f"(tol {TOL['eval_vs_plain']:.0e})")
     check(diff <= TOL["eval_vs_plain"], "the group's zeroshot differs from the single device's")
+    # each rank of the group scored its 1/world of every batch: the single
+    # device scoring the same shares one after another (the engine's _logits
+    # on each rank's rows, padded as the group pads) gives the group's
+    # logits bit for bit, so the difference above is the batch size's
+    shares, logits_fn = [], engine_module.ZeroShotEngine._logits
+
+    def by_shares(self, imgs):
+        n = imgs.shape[0]
+        pad = -n % world
+        if pad:
+            imgs = torch.cat([imgs, imgs.new_zeros((pad, *imgs.shape[1:]))])
+        m = imgs.shape[0] // world
+        return torch.cat([logits_fn(self, imgs[r * m:(r + 1) * m]) for r in range(world)])[:n]
+
+    got.clear()
+    with mock.patch.object(engine_module.ZeroShotEngine, "stream_logits", recording), \
+            mock.patch.object(engine_module.ZeroShotEngine, "_logits", by_shares), \
+            redirect_stdout(io.StringIO()):
+        rc = cli.main(dp_zeroshot_argv(workdir, f"{w}/zs_shares"))
+    check(rc == 0, f"the single-device zeroshot by shares exited with {rc}")
+    by_rank = np.concatenate(got)
+    exact = np.array_equal(by_rank, np.load(f"{w}/zs_dp_logits.npy"))
+    print(f"phase 15 (d): the single device scoring each rank's {world}-th of every batch "
+          f"apart: logits {'bit for bit' if exact else 'NOT bit for bit'} the group's "
+          f"(max |difference| {float(np.abs(by_rank - np.load(f'{w}/zs_dp_logits.npy')).max()):.3e})")
+    check(exact, "the group's zeroshot differs from the single device's on the same shares")
     torch.cuda.empty_cache()
     print(f"phase 15 on {card}: torchrun {wall:.1f} s; phase {time.perf_counter() - t_phase:.1f} s")
     return by_path
@@ -6234,6 +6325,738 @@ def dp_cli15(_build, mods, dev, w: str, out: dict) -> None:
         np.save(f"{w}/zs_dp_logits.npy", np.concatenate(logits))
 
 
+# -- phase 16: tensor and sequence parallelism, serving over a group -----------------------
+
+TP_DEGREES = (2, 4)  # the shares phase 16 (a) runs on the one card
+TP_VIT_BATCH = 64  # images of phase 16 (a)'s ViT-B/16 layer (197 tokens each)
+TP_STEP_BATCH = 128  # phase 16 (b)'s step and text batch (the phase-A step's)
+TP_ZS_BATCHES = 20  # phase 16 (b)'s engine batches of BATCH images a timed window
+TP_ZS_WINDOWS = 5  # phase 16 (b)'s timed windows an engine (the median and the spread)
+TP_TIMEOUT = 420  # seconds phase 16's torchrun may take, the build's load included
+TP_SERVE_REQUESTS = 48  # requests to a group server a timed window, 8 clients at once
+TP_SERVE_WINDOWS = 3  # phase 16 (c)'s timed windows a server (the median and the spread)
+
+
+def _tp_mesh(t: int, r: int):
+    """The layout of rank r's share among t, with no group: a share run
+    alone on this card (``tensor_parallel_(..., share=r)``)."""
+    from clip_for_dl_tpu_torch.parallel.common import Mesh2D, rank_grid
+
+    return Mesh2D(rank_grid(t, t), ("data", "model"), r, None, None)
+
+
+def tp_heads16(mods, dev, seed: int, results: dict) -> None:
+    """Phase 16 (a), the kernels: B3 and B6 on each tp rank's heads with
+    ``head_offset`` bit for bit the unsharded kernel's heads (dropout 0.1
+    at the train shape), their masks against the plain version's on the
+    probe, offset 0 bit for bit the call without the argument; then the
+    times of B3/B6 at H/tp heads and of B4/B8 at F/tp beside their bounds,
+    plain versions and library calls."""
+    import torch
+
+    fa, mlp = mods["flash_attention"], mods["mlp_train"]
+    g = torch.Generator(dev).manual_seed(seed + 16)
+    B, N, H, D, HID, F = TRAIN_BATCH, TRAIN_LEN, 12, 64, 768, 3072
+    qkv = torch.randn(B, N, 3 * H * D, device=dev, generator=g).bfloat16()
+    lengths = torch.randint(3, N + 1, (B, 1), device=dev, generator=g)
+    bias = torch.where(torch.arange(N, device=dev)[None] < lengths, 0.0, -1e10)
+    drop = dict(dropout_rate=0.1, dropout_seeds=fa.dropout_seeds(g, B, dev))
+    do = torch.randn(B, N, H * D, device=dev, generator=g).bfloat16()
+    full = fa.flash_attention_packed(qkv, H, bias, **drop)
+    dfull = fa.flash_attention_packed_bwd(qkv, do, H, bias, **drop)
+    check(torch.equal(fa.flash_attention_packed(qkv, H, bias, **drop, head_offset=0), full)
+          and torch.equal(fa.flash_attention_packed_bwd(qkv, do, H, bias, **drop,
+                                                        head_offset=0), dfull),
+          "B3/B6 at head_offset 0 differ from the call without it")
+    pq, pdo, pbias = dropout_probe(B, N, H, D, dev)
+    heads = lambda t, sl: torch.cat([x[:, :, sl].reshape(B, N, -1) for x in
+                                     t.view(B, N, 3, H, D).unbind(2)], -1)
+    for t in TP_DEGREES:
+        h = H // t
+        for r in range(t):
+            sl = slice(r * h, (r + 1) * h)
+            local, dlocal = heads(qkv, sl), do.view(B, N, H, D)[:, :, sl].reshape(B, N, -1)
+            kw = dict(drop, head_offset=r * h)
+            got = fa.flash_attention_packed(local, h, bias, **kw)
+            check(torch.equal(got, full.view(B, N, H, D)[:, :, sl].reshape(B, N, -1)),
+                  f"B3 at heads {sl.start}-{sl.stop - 1} of {H} differs from the unsharded heads")
+            dgot = fa.flash_attention_packed_bwd(local, dlocal, h, bias, **kw)
+            check(torch.equal(dgot.view(B, N, 3, h, D),
+                              dfull.view(B, N, 3, H, D)[:, :, :, sl]),
+                  f"B6 at heads {sl.start}-{sl.stop - 1} of {H} differs from the unsharded heads")
+            plocal = heads(pq, sl)
+            pdl = pdo.view(B, N, H, D)[:, :, sl].reshape(B, N, -1).contiguous()
+            pgot = fa.flash_attention_packed(plocal, h, pbias, **kw)
+            pwant = fa.flash_attention_packed_reference(plocal, h, pbias, **drop,
+                                                        head_offset=r * h)
+            gdv = fa.flash_attention_packed_bwd(plocal, pdl, h, pbias, **kw).view(
+                B, N, 3, h, D)[:, :, 2]
+            wdv = fa.flash_attention_packed_bwd_reference(
+                plocal, pdl, h, pbias, **drop, head_offset=r * h).view(B, N, 3, h, D)[:, :, 2]
+            check(torch.equal(pgot != 0, pwant != 0) and torch.equal(gdv != 0, wdv != 0),
+                  f"B3/B6 dropout masks at head_offset {r * h} differ from the plain version's")
+    print(f"  B3 and B6 with dropout 0.1 at [{B}, {N}], {H} heads: each rank's heads with "
+          f"head_offset (tp {' and '.join(map(str, TP_DEGREES))}) bit for bit the unsharded "
+          "kernel's heads, forward and backward; their masks (the probe) bit for bit the "
+          "plain version's; head_offset 0 bit for bit the call without it")
+    for t in TP_DEGREES:
+        h = H // t
+        local = heads(qkv, slice(0, h))
+        dl = do.view(B, N, H, D)[:, :, :h].reshape(B, N, -1).contiguous()
+        compare("flash_attention", fa.flash_attention_packed(local, h, bias, **drop),
+                fa.flash_attention_packed_reference(local, h, bias, **drop),
+                TOL["flash_attention"], results)
+        compare_grads("flash_attention_bwd", fa._kernel_bwd(local, dl, h, bias, **drop),
+                      fa.flash_attention_packed_bwd_reference(local, dl, h, bias, **drop),
+                      "packed", results, h)
+        out = fa.flash_attention_packed(local, h, bias, **drop)
+        extra_times(f"B3 at {h} heads (tp {t}), dropout 0.1, [{B}, {N}, {3 * h * D}]",
+                    lambda: fa.flash_attention_packed(local, h, bias, **drop),
+                    lambda: fa.flash_attention_packed_reference(local, h, bias, **drop),
+                    4 * B * h * N * N * D, (local, bias, drop["dropout_seeds"], out),
+                    sdpa_ms(*heads_of(local, h), bias))
+        dq = fa._kernel_bwd(local, dl, h, bias, **drop)
+        extra_times(f"B6 at {h} heads (tp {t}), dropout 0.1",
+                    lambda: fa._kernel_bwd(local, dl, h, bias, **drop),
+                    lambda: fa.flash_attention_packed_bwd_reference(local, dl, h, bias, **drop),
+                    10 * B * h * N * N * D, (local, dl, bias, drop["dropout_seeds"], dq),
+                    sdpa_ms(*heads_of(local, h), bias, dl.view(B, N, h, D).transpose(1, 2)))
+    R = B * N
+    x = torch.randn(R, HID, device=dev, generator=g).bfloat16()
+    dy = (torch.randn(R, HID, device=dev, generator=g) * 0.1).bfloat16()
+    w1 = (torch.randn(F, HID, device=dev, generator=g) * 0.02).bfloat16()
+    b1 = (torch.randn(F, device=dev, generator=g) * 0.02).bfloat16()
+    w2 = (torch.randn(HID, F, device=dev, generator=g) * 0.02).bfloat16()
+    zero = torch.zeros(HID, dtype=torch.bfloat16, device=dev)
+    for t in TP_DEGREES:
+        f = F // t
+        w1s, b1s, w2s = w1[:f].contiguous(), b1[:f].contiguous(), w2[:, :f].contiguous()
+        y = mlp._kernel(x, w1s, b1s, w2s, zero)
+        compare("mlp", y, mlp.dense_gelu_dense_reference(x, w1s, b1s, w2s, zero), TOL["mlp"],
+                results)
+        gm = torch.empty(R, f, dtype=torch.bfloat16, device=dev).normal_()
+        cublas = cuda_ms(lambda: (torch.matmul(x, w1s.T), torch.matmul(gm, w2s.T)), iters=10)
+        fwd_ms, fwd_by, fwd_work = bound(4 * R * HID * f, (x, w1s, b1s, w2s, zero, y))
+        print(f"  B4 at F {f} (tp {t}), [{R}, {HID}]: kernel "
+              f"{cuda_ms(lambda: mlp._kernel(x, w1s, b1s, w2s, zero), iters=10):.4f} ms  plain "
+              f"{cuda_ms(lambda: mlp.dense_gelu_dense_reference(x, w1s, b1s, w2s, zero), iters=10):.4f}"
+              f" ms  bound {fwd_ms:.4f} ms by {fwd_by} ({fwd_work})  its two products in "
+              f"cuBLAS {cublas:.4f} ms")
+        got = mlp._kernel_bwd(x, w1s, b1s, w2s, dy)
+        for name, a_, b_ in zip(("dx", "g", "dh"), got,
+                                mlp.dense_gelu_dense_bwd_reference(x, w1s, b1s, w2s, dy)):
+            print(f"    {name}:", end="")
+            compare("mlp_bwd", a_, b_, TOL["bwd_rel"] * float(b_.float().abs().max()), results)
+        dh = got[2]
+        cublas = cuda_ms(lambda: (torch.matmul(x, w1s.T), torch.matmul(dy, w2s),
+                                  torch.matmul(dh, w1s)), iters=5)
+        bwd_ms, bwd_by, bwd_work = bound(6 * R * HID * f, (x, w1s, b1s, w2s, dy) + tuple(got))
+        print(f"  B8 at F {f} (tp {t}): kernel "
+              f"{cuda_ms(lambda: mlp._kernel_bwd(x, w1s, b1s, w2s, dy), iters=5):.4f} ms  plain "
+              f"{cuda_ms(lambda: mlp.dense_gelu_dense_bwd_reference(x, w1s, b1s, w2s, dy), iters=5):.4f}"
+              f" ms  bound {bwd_ms:.4f} ms by {bwd_by} ({bwd_work})  its three products in "
+              f"cuBLAS {cublas:.4f} ms")
+        del got, dh, gm
+    torch.cuda.empty_cache()
+
+
+def tp_layers16(_build, mods, dev, seed: int, results: dict) -> dict:
+    """Phase 16 (a), the layers: a full-width BERT-base layer (dropout 0.1,
+    B3/B6 and B4/B8) and a ViT-B/16 layer (B3/B6, B4/B8), bf16 on fp32
+    masters in train mode, forward and backward, against every tp rank's
+    share of it run one after another on this card (the partial products
+    summed here, the masks drawn once): the output and the input gradient
+    within TOL["tp_layer_rel"] of their largest entry, each weight's
+    gradient (the shares' gathered) at cosine TOL["tp_grad_cos"]; each
+    kernel held at the shares' first inputs. Returns the launches of each
+    (layer, tp) path."""
+    import copy
+
+    import torch
+
+    from clip_for_dl_tpu_torch.core.device import cast_in_forward, plain_name
+    from clip_for_dl_tpu_torch.models import bert as bert_module
+    from clip_for_dl_tpu_torch.models import init_weights
+    from clip_for_dl_tpu_torch.models import vit as vit_module
+    from clip_for_dl_tpu_torch.parallel import tp
+
+    by_path = {}
+    which = dict.fromkeys(("flash_attention", "flash_attention_bwd", "mlp", "mlp_bwd"))
+    for kind in ("bert", "vit"):
+        g = torch.Generator(dev).manual_seed(seed + 17)
+        if kind == "bert":
+            B, N = TRAIN_BATCH, TRAIN_LEN
+            base = bert_module.BertLayer(768, 12, 3072, dropout=0.1, flash=True, fused_mlp=True)
+            lengths = torch.randint(3, N + 1, (B, 1), device=dev, generator=g)
+            bias = torch.where(torch.arange(N, device=dev)[None] < lengths, 0.0, -1e10)
+            run = lambda layers, x: bert_module.layer_shares(
+                layers, x, bias, torch.Generator(dev).manual_seed(seed))
+        else:
+            B, N = TP_VIT_BATCH, VIT_TOKENS
+            base = vit_module.ViTEncoderLayer(768, 12, 3072, flash=True, fused_mlp_train=True)
+            run = lambda layers, x: vit_module.layer_shares(layers, x)
+        base = init_weights(base.to(dev), g).train()
+        x = torch.randn(B, N, 768, device=dev, generator=g).bfloat16().requires_grad_()
+        whole = cast_in_forward(tp.tensor_parallel_(copy.deepcopy(base), _tp_mesh(1, 0),
+                                                    share=0), torch.bfloat16)
+        want = run([whole], x)
+        dy = (torch.randn(want.shape, device=dev, generator=g) * 0.1).bfloat16()
+        want.backward(dy)
+        wx, x.grad = x.grad.clone(), None
+        wgrads = {plain_name(n): p.grad.float() for n, p in whole.named_parameters()}
+        for t in TP_DEGREES:
+            shares = [cast_in_forward(tp.tensor_parallel_(copy.deepcopy(base), _tp_mesh(t, r),
+                                                          share=r), torch.bfloat16)
+                      for r in range(t)]
+            stack, kept = first_inputs(mods, which)
+            torch.cuda.synchronize(dev)
+            _build.reset_launches()
+            with stack:
+                got = run(shares, x)
+                got.backward(dy)
+            torch.cuda.synchronize(dev)
+            path = f"tp_shares_{kind}_{t}"
+            by_path[path] = dict(_build.LAUNCHES)
+            check_launched(mods, by_path[path], path)
+            errs = []
+            for what, a, b in (("output", got.detach(), want.detach()),
+                               ("input gradient", x.grad, wx)):
+                err = float((a.float() - b.float()).abs().max())
+                tol = TOL["tp_layer_rel"] * float(b.float().abs().max())
+                errs.append(f"{what} {err:.3e} (tol {tol:.3e})")
+                check(err <= tol, f"{path}: the {what} lies {err} from the unsharded layer's")
+            worst, vanishing = (1.0, ""), []
+            share_grads = [{plain_name(n): p.grad for n, p in s.named_parameters()}
+                           for s in shares]
+            top = max(float(w.norm()) for w in wgrads.values())
+            for n, w in wgrads.items():
+                gathered = tp.gather_tensor([sg[n] for sg in share_grads],
+                                            tp.layer_spec(n, w)).float()
+                if float(w.norm()) < 1e-3 * top:
+                    # zero in exact arithmetic (the key bias: softmax ignores
+                    # a shift of a row's logits): rounding noise, held in
+                    # absolute terms against the layer's largest gradient
+                    err = float((gathered - w).abs().max())
+                    vanishing.append(f"{n} {err:.2e}")
+                    check(err <= TOL["tp_layer_rel"] * float(max(
+                        v.abs().max() for v in wgrads.values())),
+                        f"{path}: {n}'s vanishing gradient lies {err} from the unsharded one")
+                    continue
+                cos = cosine(gathered.flatten(), w.flatten())
+                worst = min(worst, (cos, n))
+            check(worst[0] >= TOL["tp_grad_cos"], f"{path}: {worst[1]}'s gradient at cosine "
+                  f"{worst[0]:.6f} from the unsharded layer's")
+            print(f"  {kind} layer, {t} shares on {describe_shape(x)}: {'; '.join(errs)}; the "
+                  f"weights' gradients at cosine >= {worst[0]:.6f} ({worst[1]}), those that "
+                  f"vanish by |difference| {vanishing}; launches {by_path[path]}")
+            hold_first_inputs(mods, kept, which, f"the {kind} layer's shares at tp {t}", results)
+            x.grad = None
+            del shares, got
+        del whole, want, wgrads
+        torch.cuda.empty_cache()
+    return by_path
+
+
+def describe_shape(t) -> str:
+    return f"[{', '.join(map(str, t.shape))}] {str(t.dtype).replace('torch.', '')}"
+
+
+def tp_phase16(_build, mods, dev, seed: int, card: str, workdir: str, results: dict) -> dict:
+    """Phase 16: (a) the shares of tensor parallelism on this card;
+    (b) ``torchrun --standalone --nproc-per-node <cards>`` of this script's
+    rank program (:func:`phase16_rank`): the TP engine, the TP step and
+    ``sequence_sharded_fn`` over NCCL, and ``zeroshot --num-devices <cards>
+    --tp <cards>`` in each rank; (c) ``serve --num-devices <cards>`` over a
+    group (torchrun), both towers. Returns the launches by path (``path@rankN``
+    for the ranks)."""
+    import os
+
+    import torch
+
+    t_phase = time.perf_counter()
+    print("phase 16 (a): the shares of a tensor-parallel layer, one after another on this card")
+    tp_heads16(mods, dev, seed, results)
+    by_path = tp_layers16(_build, mods, dev, seed, results)
+    print(f"phase 16 (a) took {time.perf_counter() - t_phase:.1f} s")
+    world = torch.cuda.device_count()
+    w = f"{workdir}/phase16"
+    os.makedirs(w, exist_ok=True)
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={world}", str(ROOT / "chip_smoke.py"), "--phase16-rank", w,
+           "--seed", str(seed)]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, cwd=str(ROOT), capture_output=True, text=True,
+                              timeout=TP_TIMEOUT)
+    except subprocess.TimeoutExpired as exc:
+        raise SmokeFailure(f"phase 16's ranks ran past {TP_TIMEOUT} s: "
+                           f"{(exc.stdout or '')[-3000:]}")
+    print(proc.stdout.rstrip())
+    if proc.returncode:
+        print(proc.stderr[-8000:], file=sys.stderr)
+    check(proc.returncode == 0, f"phase 16's torchrun exited with {proc.returncode}")
+    for r in range(world):
+        with open(f"{w}/rank{r}.json") as f:
+            out = json.load(f)
+        check(out["ok"], f"phase 16, rank {r} did not finish")
+        for path, launches in out["launches"].items():
+            check_launched(mods, launches, path)
+            by_path[f"{path}@rank{r}"] = launches
+        for name, v in out["results"].items():
+            results.setdefault(name, {})["max_abs_err"] = max(
+                v["max_abs_err"], results.get(name, {}).get("max_abs_err", 0.0))
+    print(f"phase 16 (b): torchrun {time.perf_counter() - t0:.1f} s")
+    by_path.update(tp_serve16(mods, dev, card, workdir, world))
+    torch.cuda.empty_cache()
+    print(f"phase 16 on {card}: {time.perf_counter() - t_phase:.1f} s")
+    return by_path
+
+
+def tp_serve16(mods, dev, card: str, workdir: str, world: int) -> dict:
+    """Phase 16 (c): ``serve --num-devices <cards> --tp <cards>`` (the
+    zero_shot preset) and ``serve --preset vit --fused-mlp --num-devices
+    <cards>`` (B9 on each rank's data slice) over a group under torchrun,
+    on phase 9's vocabulary and adapter checkpoint: rank 0 serves, the
+    others follow its batches. TP_SERVE_WINDOWS windows of
+    TP_SERVE_REQUESTS concurrent requests each, req/s their median,
+    every answer 200 and equal across the bucket padding to the first
+    answer to its image; SIGTERM stops every rank (rank 0 broadcasts the
+    stop, each other rank reports it). Returns each server's launches by
+    rank."""
+    import os
+    import signal
+    import threading
+
+    import numpy as np
+    import torch
+
+    kaggle, work9, work = f"{workdir}/kaggle", f"{workdir}/cli", f"{workdir}/phase16/serve"
+    os.makedirs(work, exist_ok=True)
+    image_dir = f"{kaggle}/images/images_normalized"
+    pngs = []
+    for n in sorted(os.listdir(image_dir)):
+        with open(f"{image_dir}/{n}", "rb") as f:
+            raw = f.read()
+        if raw[:8] == b"\x89PNG\r\n\x1a\n":
+            pngs.append(raw)
+        if len(pngs) == 16:
+            break
+    script = f"{work}/serve_rank.py"
+    with open(script, "w") as f:
+        # a script's own directory heads sys.path, not the working directory
+        f.write(f"import sys\nsys.path.insert(0, {str(ROOT)!r})\n")
+        f.write(SERVE_CHILD.replace("path = sys.argv.pop(1)\n",
+                                    "path = sys.argv.pop(1).format(rank=__import__('os')"
+                                    ".environ.get('RANK', '0'))\n"))
+    env = dict(os.environ, PYTHONUNBUFFERED="1")
+    env.pop("CLIP_FOR_DL_TPU_FORCE_CPU", None)
+    by_path = {}
+    common = ["--vocab", f"{work9}/vocab.txt", "--flash-attention", "--bert-fused-mlp",
+              "--host", "127.0.0.1", "--port", "0", "--buckets", "1", "8", "--num-devices",
+              str(world)]
+    runs = {"cli_group_serve": ["serve", "--checkpoint", f"{work9}/adapter", "--tp",
+                                str(world)] + common,
+            "cli_group_serve_vit": ["serve", "--preset", "vit", "--fused-mlp"] + common}
+    launches = {path: f"{work}/launches_{path}_{{rank}}.json" for path in runs}
+    served, failed = {}, []
+
+    def start(path):  # both servers come up at once; the loads run in turn
+        t0 = time.perf_counter()
+        try:
+            served[path] = (Served(runs[path] + ["--log-dir", f"{work}/{path}"],
+                                   launches[path], env, ranks=world, script=script),
+                            time.perf_counter() - t0)
+        except Exception as exc:
+            failed.append(exc)
+
+    torch.cuda.synchronize(dev)
+    starters = [threading.Thread(target=start, args=(path,)) for path in runs]
+    for t in starters:
+        t.start()
+    for t in starters:
+        t.join()
+    stopped = {}
+    try:
+        if failed:
+            raise failed[0]
+        for path in runs:
+            server, start_s = served[path]
+            answers, rates = [], []
+            for _ in range(TP_SERVE_WINDOWS):
+                window = [None] * TP_SERVE_REQUESTS
+
+                def client(c):
+                    for k in range(c, TP_SERVE_REQUESTS, 8):
+                        window[k] = server.request("POST", "/predict", pngs[k % len(pngs)])
+
+                threads = [threading.Thread(target=client, args=(c,)) for c in range(8)]
+                t0 = time.perf_counter()
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join()
+                rates.append(TP_SERVE_REQUESTS / (time.perf_counter() - t0))
+                answers += window
+            stats = server.request("GET", "/stats")[2]
+            stopped[path] = server.stop(signal.SIGTERM)
+            check_served16(mods, path, runs[path], server, answers, pngs, launches[path],
+                           world, by_path)
+            print(f"phase 16 (c): {' '.join(runs[path][:6])} ... over {world} rank(s) on "
+                  f"{card}: up in {start_s:.1f} s (the two servers at once); "
+                  f"{TP_SERVE_WINDOWS} windows of {TP_SERVE_REQUESTS} requests from 8 clients: "
+                  f"median {float(np.median(rates)):.1f} req/s (windows "
+                  f"{', '.join(f'{r:.1f}' for r in rates)}; batch "
+                  f"sizes {stats['batch_size_hist']}; fetch {stats['fetch_ms']} ms); SIGTERM: "
+                  f"torchrun exit {stopped[path]}; launches by rank "
+                  f"{[by_path[f'{path}@rank{r}'] for r in range(world)]}")
+    finally:
+        for path, (server, _) in served.items():
+            if path not in stopped:
+                server.stop(signal.SIGTERM)
+    return by_path
+
+
+def check_served16(mods, path: str, argv, server, answers, pngs, launches: str, world: int,
+                   by_path: dict) -> None:
+    """Phase 16 (c)'s checks of one group server after its stop: every
+    answer 200, an image's answers equal across batches within
+    probs_vs_plain, rank 0's stop and each follower's report of it, and
+    each rank's launches."""
+    import numpy as np
+
+    text = "".join(server.lines)
+    check(all(a is not None and a[0] == 200 for a in answers),
+          f"{path}: a request failed: {[a[:3] for a in answers if a and a[0] != 200][:3]}")
+    probs = np.array([[a[2]["probs"][d] for d in sorted(a[2]["probs"])] for a in answers])
+    first = {k % len(pngs): probs[k] for k in reversed(range(len(answers)))}
+    spread = max(float(np.abs(probs[k] - first[k % len(pngs)]).max())
+                 for k in range(len(answers)))
+    check(spread <= TOL["probs_vs_plain"], f"{path}: one image's answers spread {spread}")
+    check("shutting down" in text, f"{path}: rank 0 did not stop: {text[-2000:]}")
+    followed = [line for line in text.splitlines() if "stopped by rank 0" in line]
+    check(len(followed) == world - 1, f"{path}: {len(followed)} of {world - 1} ranks "
+          f"reported rank 0's stop: {text[-2000:]}")
+    for r in range(world):
+        with open(launches.format(rank=r)) as f:
+            by_path[f"{path}@rank{r}"] = json.load(f)
+        check_launched(mods, by_path[f"{path}@rank{r}"], path)
+    print(f"  {path}: every answer 200, one image's answers within {spread:.2e}; "
+          f"{len(followed)} follower(s) stopped by rank 0")
+
+
+def phase16_rank(w: str, seed: int) -> int:
+    """One rank of phase 16 (``--phase16-rank W``, under torchrun): joins
+    the NCCL group, loads the kernels the parent built, runs (b) and writes
+    ``W/rank{r}.json``. Rank 0 prints."""
+    import datetime
+    import os
+
+    import torch
+
+    _build, mods = import_port()
+    from clip_for_dl_tpu_torch.parallel import multihost
+
+    dev = multihost.init_process_group(device="cuda",
+                                       timeout=datetime.timedelta(seconds=DP_PG_TIMEOUT))
+    rank, world = torch.distributed.get_rank(), torch.distributed.get_world_size()
+    out = {"ok": False, "launches": {}, "results": {}}
+    if rank:
+        sys.stdout = open(os.devnull, "w")
+    try:
+        _build.build()
+        degrees = [t for t in (2, 4) if world % t == 0] or [1]
+        print(f"phase 16 (b): world size {world} over NCCL; tp {degrees}")
+        tp_engine16(_build, mods, dev, seed, degrees, out)
+        tp_step16(_build, mods, dev, seed, degrees, out)
+        tp_sp16(_build, mods, dev, seed, degrees, out)
+        tp_cli16(_build, mods, dev, w, degrees, out)
+        out["ok"] = True
+    finally:
+        with open(f"{w}/rank{rank}.json", "w") as f:
+            json.dump(out, f)
+        multihost.destroy()
+    return 0
+
+
+def _peak_mib(dev) -> float:
+    """The largest peak of device memory over the group's cards, MiB."""
+    import torch
+    import torch.distributed as dist
+
+    peak = torch.tensor([float(torch.cuda.max_memory_allocated(dev))], device=dev)
+    dist.all_reduce(peak, op=dist.ReduceOp.MAX)
+    return float(peak) / 2 ** 20
+
+
+def tp_engine16(_build, mods, dev, seed: int, degrees, out: dict) -> None:
+    """Phase 16 (b): the zero-shot engine (ResNet-50 + BERT-base, bf16, B3,
+    B4, B2, B1) over the group data-parallel and at each tp degree, against
+    the single-device engine on this rank from the same weights: the
+    probabilities within TOL["eval_vs_plain"] (at tp 1 the TP layers' own
+    path, bit for bit the plain engine's); the bank encode's ms, images/s
+    (the median of TP_ZS_WINDOWS windows of TP_ZS_BATCHES batches of BATCH
+    images, and their spread) and the peak memory on the
+    card of each."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from clip_for_dl_tpu_torch.core.config import DISEASE_LABELS
+    from clip_for_dl_tpu_torch.parallel import tp
+    from clip_for_dl_tpu_torch.tools.main_paths import build_engine, grey_images
+    from clip_for_dl_tpu_torch.zeroshot import ZeroShotEngine, prompts_for_family
+
+    prompts = prompts_for_family("prediction", DISEASE_LABELS)
+    images = grey_images(np.random.default_rng(seed + 16), BATCH)
+    cfg, plain = build_engine(dev, seed, "serve")
+    plain.build_text_features(prompts)
+    want = plain.probs(images)
+    world = dist.get_world_size()
+    layouts = [("dp", None)] * (world > 1) + [(f"tp{t}", t) for t in degrees]
+    for name, t in layouts:
+        cfg, single = build_engine(dev, seed, "serve")
+        model = single.model
+        if t is None:
+            kw = {"group": dist.group.WORLD}
+        else:
+            mesh = tp.create_dp_tp_mesh(t)
+            if t == 1:  # the TP layers' path with identity collectives
+                tp.tensor_parallel_(model, mesh)
+            kw = {"mesh": mesh}
+        which = dict.fromkeys(("similarity", "image_prep", "flash_attention", "mlp"))
+        stack, kept = first_inputs(mods, which)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        _build.reset_launches()
+        with stack:
+            engine = ZeroShotEngine(model, single.tokenizer, DISEASE_LABELS, single.config,
+                                    single.mean, single.std, single.image_size,
+                                    single.max_text_length, single.compute_dtype, **kw)
+            bank_ms = []
+            for _ in range(2):  # the first also sets up the subgroups' communicators
+                dist.barrier()
+                t0 = time.perf_counter()
+                engine.build_text_features(prompts)
+                torch.cuda.synchronize(dev)
+                bank_ms.append((time.perf_counter() - t0) * 1e3)
+            got = engine.probs(images)
+            torch.cuda.synchronize(dev)
+        path = f"tp_engine_{name}"
+        out["launches"][path] = dict(_build.LAUNCHES)
+        err = float(np.abs(got - want).max())
+        if t == 1:
+            check(np.array_equal(got, want), f"{path}: the TP path at tp 1 differs from plain")
+        check(err <= TOL["eval_vs_plain"], f"{path}: probabilities {err} from the plain engine's")
+        rates = []
+        for _ in range(TP_ZS_WINDOWS):
+            dist.barrier()
+            t0 = time.perf_counter()
+            for _ in range(TP_ZS_BATCHES):
+                engine.logits(images)
+            torch.cuda.synchronize(dev)
+            rates.append(TP_ZS_BATCHES * BATCH / (time.perf_counter() - t0))
+        peak = _peak_mib(dev)
+        print(f"phase 16 (b) engine {name} over {world} rank(s) ({describe(cfg)}): the bank "
+              f"{bank_ms[1]:.1f} ms (the first {bank_ms[0]:.1f}); median "
+              f"{float(np.median(rates)):.1f} images/s (windows "
+              f"{', '.join(f'{r:.1f}' for r in rates)}, each {TP_ZS_BATCHES} x {BATCH} "
+              f"512x512 grey); "
+              f"peak {peak:.0f} MiB on the fullest card; probabilities {err:.3e} from "
+              f"the single-device engine's; launches {out['launches'][path]}")
+        hold_first_inputs(mods, kept, which, path, out["results"])
+        del engine, single, model
+        torch.cuda.empty_cache()
+
+
+def tp_step16(_build, mods, dev, seed: int, degrees, out: dict) -> None:
+    """Phase 16 (b): the phase-A step (ResNet-50 + BERT-base, dropout 0) at
+    a global batch of TP_STEP_BATCH through ``tensor_parallel_step`` at each
+    tp degree. On the fp32 route against the single-device step on this
+    rank from the same weights, at phase 15's dp_bn fp32 bounds (the loss,
+    each group's gradient, the shards gathered over the model group). In
+    bf16 against the data-parallel step over the same data group (the same
+    BatchNorm arithmetic and rows, the towers whole), so that only the
+    shares' partial sums differ: the loss within train_loss_rel, each
+    kernel held at its first inputs."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from clip_for_dl_tpu_torch.parallel import tp
+    from clip_for_dl_tpu_torch.testing.ranks import fp32_exact
+    from clip_for_dl_tpu_torch.tools.main_paths import (
+        base_lrs, pretrain_step, tokenizer, train_batch, train_model,
+    )
+    from clip_for_dl_tpu_torch.train import TrainState, make_label_fn
+
+    batch = train_batch(np.random.default_rng(seed + 161), tokenizer(), dev, TP_STEP_BATCH,
+                        TRAIN_LEN)
+
+    def run(t, compute, shard=True):
+        """(loss, group gradients, groups, config) of one step: single-device
+        without ``t``; else over the ``t`` layout, the towers tensor-parallel
+        or, without ``shard``, whole (data-parallel over its data group)."""
+        preset, cfg, model = train_model(dev, seed, "pretrain_clip", compute)
+        for m in model.modules():
+            if isinstance(m, torch.nn.Dropout):
+                m.p = 0.0
+        groups = [g.name for g in preset.train.groups]
+        label_fn = make_label_fn(groups)
+        gen = torch.Generator(dev).manual_seed(seed)
+        if t is None:
+            opt, step = pretrain_step(model, preset, cfg, compute)
+            state, m = step(TrainState(model, opt), batch, base_lrs(preset), gen)
+            return float(m["loss"]), group_grads(model, label_fn), groups, cfg
+        mesh = tp.create_dp_tp_mesh(t)
+        kw = tp.step_groups(mesh) if shard else {"group": mesh.data_group}
+        opt, step = pretrain_step(model, preset, cfg, compute, **kw)
+        state = TrainState(model, opt)
+        if shard:
+            state = tp.shard_state_tp(state, mesh)
+        step = tp.tensor_parallel_step(step, mesh)
+        state, m = step(state, batch, base_lrs(preset), mesh.generator(seed, dev))
+        return float(m["loss"]), gathered_group_grads(model, label_fn, mesh), groups, cfg
+
+    for t in degrees:
+        with fp32_exact():
+            loss, grads, groups, cfg = run(None, torch.float32)
+            tloss, tgrads, _, _ = run(t, torch.float32)
+        rel, cos = TOL["dp_bn"]["fp32"]
+        print(f"phase 16 (b) step, fp32 route, tp {t} over {dist.get_world_size()} rank(s), "
+              f"global batch {TP_STEP_BATCH}, {describe(cfg)}: loss {tloss:.6f} against "
+              f"{loss:.6f} on one card")
+        check(abs(tloss - loss) <= rel * abs(loss), f"tp {t}: the fp32 step's loss differs")
+        compare_groups(f"phase 16 tp {t}", tgrads, grads, groups,
+                       {g: cos.get(g, TOL["fp32_grad_cos"]) for g in groups})
+        which = dict.fromkeys(TRAIN_KERNELS)
+        stack, kept = first_inputs(mods, which)
+        torch.cuda.synchronize(dev)
+        _build.reset_launches()
+        with stack:
+            tloss, _, _, _ = run(t, torch.bfloat16)
+        torch.cuda.synchronize(dev)
+        path = f"tp_step_{t}"
+        out["launches"][path] = dict(_build.LAUNCHES)
+        loss, _, _, _ = run(t, torch.bfloat16, shard=False)
+        rel = TOL["train_loss_rel"]
+        print(f"  bf16 step: loss {tloss:.6f} against the data-parallel step's {loss:.6f} over "
+              f"the same data group (tol {rel} relative); launches {out['launches'][path]}")
+        check(abs(tloss - loss) <= rel * abs(loss), f"tp {t}: the bf16 step's loss differs")
+        hold_first_inputs(mods, kept, which, path, out["results"])
+        torch.cuda.empty_cache()
+
+
+def gathered_group_grads(model, label_fn, mesh) -> dict:
+    """group_grads of a tensor-parallel model: each sharded parameter's
+    gradient gathered over the model group into the whole one."""
+    import torch
+    import torch.distributed as dist
+
+    from clip_for_dl_tpu_torch.parallel import tp
+
+    parts: dict = {}
+    for name, p in model.named_parameters():
+        g = torch.zeros_like(p) if p.grad is None else p.grad
+        spec = getattr(p, "tp_spec", None)
+        if spec is not None and mesh.model_size > 1:
+            shards = [torch.empty_like(g) for _ in range(mesh.model_size)]
+            dist.all_gather(shards, g.contiguous(), group=mesh.model_group)
+            g = tp.gather_tensor(shards, spec)
+        label = name if name in CALIBRATION else label_fn(tuple(name.split(".")))
+        parts.setdefault(label, []).append(g.float().flatten())
+    return {k: torch.cat(v) for k, v in parts.items()}
+
+
+def tp_sp16(_build, mods, dev, seed: int, degrees, out: dict) -> None:
+    """Phase 16 (b): ``sequence_sharded_fn`` of the BERT-base text tower
+    (bf16, B3 over the gathered sequence, B4 on the local rows) at each
+    degree, replicated and with ``tp_params``, against the tower's plain
+    forward on this rank: the CLS's unit projected features within
+    TOL["eval_text_features"] (replicated at one rank: bit for bit)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from clip_for_dl_tpu_torch.ops.similarity import l2_normalize
+    from clip_for_dl_tpu_torch.parallel.sp import sequence_sharded_fn
+    from clip_for_dl_tpu_torch.parallel.tp import create_dp_tp_mesh
+    from clip_for_dl_tpu_torch.tools.main_paths import build_engine, tokenizer, train_batch
+
+    cfg, engine = build_engine(dev, seed, "serve")
+    model = engine.model.eval()
+    batch = train_batch(np.random.default_rng(seed + 162), tokenizer(), dev, TP_STEP_BATCH,
+                        TRAIN_LEN)
+    ids, mask = batch["input_ids"], batch["attention_mask"]
+    unit = lambda h: l2_normalize(model.text_projector(h[:, 0]).float())
+    with torch.inference_mode():
+        plain_h = model.text_tower(ids, mask)
+        want = unit(plain_h)
+    for t in degrees:
+        mesh = create_dp_tp_mesh(t)
+        for tp_params in (False, True):
+            which = dict.fromkeys(("flash_attention", "mlp"))
+            stack, kept = first_inputs(mods, which)
+            torch.cuda.synchronize(dev)
+            _build.reset_launches()
+            with stack, torch.inference_mode():
+                h = sequence_sharded_fn(model.text_tower, mesh, tp_params=tp_params)(ids, mask)
+            torch.cuda.synchronize(dev)
+            path = f"sp_text{'_tp' if tp_params else ''}_{t}"
+            out["launches"][path] = dict(_build.LAUNCHES)
+            with torch.inference_mode():
+                err = float((unit(h) - want).abs().max())
+            if t == 1 and not tp_params:
+                check(torch.equal(h, plain_h), f"{path}: one rank's SP differs from plain")
+            check(err <= TOL["eval_text_features"], f"{path}: unit features {err} from plain")
+            print(f"phase 16 (b) {path}: [{TP_STEP_BATCH}, {TRAIN_LEN}] tokens over "
+                  f"{dist.get_world_size()} rank(s) (sequence over {t}); unit text features "
+                  f"{err:.3e} from the tower's plain forward; launches {out['launches'][path]}")
+            hold_first_inputs(mods, kept, which, path, out["results"])
+    del engine, model
+    torch.cuda.empty_cache()
+
+
+def tp_cli16(_build, mods, dev, w: str, degrees, out: dict) -> None:
+    """Phase 16 (b): ``zeroshot --num-devices <world> --tp <t>`` on phase 9's
+    files and adapter checkpoint in this rank of the group (path
+    cli_tp_zeroshot), B2, B3, B4 and B1 held at their first inputs."""
+    import importlib
+    import io
+    import os
+    from contextlib import redirect_stdout
+
+    import torch
+    import torch.distributed as dist
+
+    cli = importlib.import_module("clip_for_dl_tpu_torch.cli.main")
+    workdir = os.path.dirname(w)
+    work, kaggle = f"{workdir}/cli", f"{workdir}/kaggle"
+    t = max(degrees)
+    argv = ["zeroshot", "--reports-csv", f"{work}/labeled.csv", "--projections-csv",
+            f"{kaggle}/indiana_projections.csv", "--image-dir",
+            f"{kaggle}/images/images_normalized", "--image-cache", f"{work}/cache", "--vocab",
+            f"{work}/vocab.txt", "--flash-attention", "--bert-fused-mlp", "--checkpoint",
+            f"{work}/adapter", "--num-devices", str(dist.get_world_size()), "--tp", str(t),
+            "--log-dir", f"{w}/zs_tp"]
+    which = dict.fromkeys(("similarity", "image_prep", "flash_attention", "mlp"))
+    stack, kept = first_inputs(mods, which)
+    text = io.StringIO()
+    torch.cuda.synchronize(dev)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with stack, redirect_stdout(text):
+        rc = cli.main(argv)
+    torch.cuda.synchronize(dev)
+    check(rc == 0, f"phase 16 (b): zeroshot --tp {t} exited with {rc}: {text.getvalue()[-2000:]}")
+    out["launches"]["cli_tp_zeroshot"] = dict(_build.LAUNCHES)
+    print(f"phase 16 (b): zeroshot --num-devices {dist.get_world_size()} --tp {t}: exit 0 in "
+          f"{time.perf_counter() - t0:.1f} s; launches {out['launches']['cli_tp_zeroshot']}")
+    hold_first_inputs(mods, kept, which, "cli_tp_zeroshot", out["results"])
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of weights and inputs")
@@ -6249,9 +7072,14 @@ def main(argv=None) -> int:
     ap.add_argument("--phase15-rank", metavar="DIR",
                     help="(under torchrun, as phase 15 starts it) one rank of phase 15 on "
                          "the files of phases 9 and 15 beside DIR")
+    ap.add_argument("--phase16-rank", metavar="DIR",
+                    help="(under torchrun, as phase 16 starts it) one rank of phase 16 on "
+                         "the files of phases 9 and 16 beside DIR")
     args = ap.parse_args(argv)
     if args.phase15_rank:
         return phase15_rank(args.phase15_rank, args.seed)
+    if args.phase16_rank:
+        return phase16_rank(args.phase16_rank, args.seed)
 
     t_start = time.perf_counter()
     _build, mods = import_port()
@@ -6365,6 +7193,8 @@ def main(argv=None) -> int:
         by_path.update(export_phase14(_build, mods, dev, args.seed, card, workdir, results))
         print("== phase 15: data parallelism over NCCL, one rank a card (torchrun)")
         by_path.update(dp_phase15(_build, mods, dev, args.seed, card, workdir, results))
+        print("== phase 16: tensor and sequence parallelism, serving over a group")
+        by_path.update(tp_phase16(_build, mods, dev, args.seed, card, workdir, results))
     print("== the wrappers' host time (tools/launch_times.py)")
     from clip_for_dl_tpu_torch.tools import launch_times
 

@@ -19,16 +19,20 @@ The parser is the JAX CLI's, command for command and flag for flag, so a
 JAX command line parses unchanged. A flag the port does not run yet exits
 with status 2 and names the ROADMAP item that owns it.
 
-``pretrain``, ``train``, ``adapter``, ``shared-adapter`` and ``zeroshot``
-run data-parallel over a ``torch.distributed`` group (``parallel/``), with
-the JAX CLI's flags and messages: ``--num-devices N`` in one launch starts N
-ranks, one a card (the JAX single-process mesh: each rank takes its
-contiguous slice of every global batch); under ``torchrun`` the process
+``pretrain``, ``train``, ``adapter``, ``shared-adapter``, ``zeroshot`` and
+``serve`` run data-parallel over a ``torch.distributed`` group
+(``parallel/``), with the JAX CLI's flags and messages: ``--num-devices N``
+in one launch starts N ranks, one a card (the JAX single-process mesh: each
+rank takes its contiguous slice of every global batch); under ``torchrun`` the process
 joins the group ``torchrun`` made; ``--num-processes`` with
 ``--coordinator`` and ``--process-id`` joins by TCP, each process loading
 its strided shard of the data (the JAX multi-process run);
-``--virtual-devices N`` emulates N devices as N gloo ranks on the CPU. Only
-rank 0 writes logs, checkpoints, CSV and metric files. ``pretrain
+``--virtual-devices N`` emulates N devices as N gloo ranks on the CPU.
+``zeroshot`` and ``serve`` also take ``--tp T`` with ``--num-devices N``:
+the towers tensor-parallel over T ranks of an N/T x T layout
+(``parallel/tp.py``); ``serve`` binds its server on rank 0, whose batches
+the other ranks follow (``serving.py``). Only rank 0 writes logs,
+checkpoints, CSV and metric files. ``pretrain
 --local-loss`` takes the contrastive loss's block form (siglip's ring) and
 ``--accum-steps A`` the GradCache step (``train/accum.py``).
 
@@ -51,12 +55,13 @@ import sys
 import numpy as np
 
 ENV_FORCE_CPU = "CLIP_FOR_DL_TPU_FORCE_CPU"
+# where the ranks of a ``--num-devices`` launch note a clean exit (``_spawn``)
+ENV_RANK_EXITS = "CLIP_FOR_DL_TPU_RANK_EXITS"
 
 # flag → (the values it takes unported, the ROADMAP item); ``None`` stands
 # for any value but the ones a single-device, default run passes
 _ANY = None
 UNPORTED_FLAGS = {
-    "tp": (_ANY, "A7b"),
     "pp": (_ANY, "A7b"),
     "ep": (_ANY, "A7b"),
     "moe_experts": (_ANY, "A7b"),
@@ -66,9 +71,11 @@ UNPORTED_FLAGS = {
 }
 # degrees and counts whose value 1 is the single-device default
 _DEGREES = ("tp", "pp", "ep")
-# the commands that run data-parallel over a process group; serve's
-# --num-devices and the other commands' --num-processes are ROADMAP A7b
+# the commands that run data-parallel over a process group; the other
+# commands' --num-processes is ROADMAP A7b
 DP_COMMANDS = ("pretrain", "train", "adapter", "shared-adapter", "zeroshot")
+# ... and serve, whose ranks follow rank 0's batches
+GROUP_COMMANDS = DP_COMMANDS + ("serve",)
 
 
 def _unported(args) -> str | None:
@@ -83,12 +90,22 @@ def _unported(args) -> str | None:
             flag = "--" + dest.replace("_", "-")
             where = item if item.startswith("not ported") else f"ROADMAP {item}"
             return f"{flag} {v!r} is not ported yet ({where})"
-    if args.command not in DP_COMMANDS:
-        for dest in ("num_processes",) + (("num_devices",) if args.command == "serve" else ()):
-            v = getattr(args, dest, None)
-            if v not in (None, 0, 1):
-                return f"--{dest.replace('_', '-')} {v!r} is not ported yet (ROADMAP A7b)"
+    if args.command not in GROUP_COMMANDS:
+        v = getattr(args, "num_processes", None)
+        if v not in (None, 0, 1):
+            return f"--num-processes {v!r} is not ported yet (ROADMAP A7b)"
     return None
+
+
+def _serve_single(args) -> bool:
+    """``serve --exported`` or ``--head adapter``: the JAX server gives them
+    no mesh, so they run in one process whatever ``--num-devices`` says."""
+    return args.command == "serve" and bool(args.exported or args.head == "adapter")
+
+
+def _in_group(args) -> bool:
+    """The command runs over a process group when it has one."""
+    return args.command in GROUP_COMMANDS and not _serve_single(args)
 
 
 def _visible_devices(args) -> int:
@@ -125,7 +142,7 @@ def _dp_refused(args) -> None:
     """The JAX CLI's refusals of the data-parallel flags and their
     compositions, its messages word for word (raised as ``SystemExit``),
     before any rank starts."""
-    if args.command not in DP_COMMANDS:
+    if not _in_group(args):
         return
     n = _dp_devices(args)
     if args.command == "pretrain" and not args.lora:
@@ -148,7 +165,7 @@ def _dp_refused(args) -> None:
         raise SystemExit("--num-devices is not supported with --lora")
     if n <= 1:
         return
-    if args.command != "zeroshot":
+    if args.command not in ("zeroshot", "serve"):
         preset = "adapter" if args.command in ("adapter", "shared-adapter") else None
         bs = args.batch_size or _preset(args, preset).data.batch_size
         if bs % n:
@@ -162,6 +179,60 @@ def _dp_refused(args) -> None:
     if n != _visible_devices(args) and (_strided(args) or multihost.launched()):
         raise SystemExit(f"--num-devices {n} != {_visible_devices(args)} processes in the "
                          "group: the mesh must cover every rank")
+    _inference_layout_refused(args, n)
+
+
+def _tp(args) -> int:
+    return int(getattr(args, "tp", None) or 1)
+
+
+def _tp_refused(cfg, tp: int) -> None:
+    """The JAX ``_inference_mesh``'s check: tp divides the text tower's
+    heads and MLP hidden, and the ViT's when the preset has one."""
+    from ..parallel.tp import validate_tp
+
+    try:
+        validate_tp(cfg.model.text_heads, cfg.model.text_intermediate_dim, tp)
+        if cfg.model.image_tower == "vit_b16":
+            validate_tp(cfg.model.vit_heads, cfg.model.vit_mlp_dim, tp)
+    except ValueError as e:
+        raise SystemExit(str(e))
+
+
+def _inference_layout_refused(args, n: int) -> None:
+    """zeroshot and serve at ``--tp T`` over n > 1 devices: the towers'
+    and the layout's refusals, before any rank starts."""
+    if args.command not in ("zeroshot", "serve") or _tp(args) <= 1:
+        return
+    from ..parallel.common import rank_grid
+
+    _tp_refused(_apply_tiny(_preset(args), args, 1), _tp(args))
+    try:
+        rank_grid(n, _tp(args))
+    except ValueError as e:
+        raise SystemExit(str(e))
+
+
+def _inference_mesh(args, cfg):
+    """zeroshot's and serve's layout (the JAX ``_inference_mesh``): under
+    ``--tp T`` > 1 over more than one device, the ``(data, model)`` mesh of
+    the group; else None, and the engine runs data-parallel over the
+    group, if there is one."""
+    if _dp_devices(args) <= 1 or _tp(args) <= 1:
+        return None
+    _tp_refused(cfg, _tp(args))
+    from ..parallel.tp import create_dp_tp_mesh
+
+    try:
+        return create_dp_tp_mesh(_tp(args), num_devices=_dp_devices(args))
+    except ValueError as e:
+        raise SystemExit(str(e))
+
+
+def _engine_layout(args, cfg) -> dict:
+    """The engine's keyword: the TP mesh, the data-parallel group, or none."""
+    mesh = _inference_mesh(args, cfg)
+    return {"mesh": mesh} if mesh is not None else _dp(_group())
 
 
 def _lora_refused(args) -> int | None:
@@ -272,6 +343,17 @@ def _apply_tiny(cfg, args, vocab_size: int):
     if getattr(args, "fast_gelu", False):
         model = dataclasses.replace(model, vit_gelu_approximate=True)
     if getattr(args, "fused_mlp", False):
+        if (
+            (getattr(args, "tp", 1) or 1) > 1
+            or (getattr(args, "pp", 0) or 0) > 1
+            or (getattr(args, "ep", 1) or 1) > 1
+        ):
+            # B9 takes no model-axis shard: it is refused as the JAX CLI
+            # refuses it
+            raise SystemExit(
+                "--fused-mlp composes with data parallelism only "
+                "(not --tp/--pp/--ep)"
+            )
         model = dataclasses.replace(model, vit_fused_mlp=True)
     if getattr(args, "flash_attention", False):
         model = dataclasses.replace(model, flash_attention=True)
@@ -1038,13 +1120,14 @@ def cmd_zeroshot(args) -> int:
     tokenizer = _tokenizer(args)
     cfg = _apply_tiny(cfg, args, len(tokenizer.vocab))
     model = _model(cfg, args)
-    # with a group, each rank scores its slice of every batch and holds the
-    # batch's logits in rank order; the primary writes the results
+    # with a group, each rank scores its slice of every batch (under --tp its
+    # data slice, with its shard of the towers) and holds the batch's logits
+    # in rank order; the primary writes the results
     engine = ZeroShotEngine(
         model, tokenizer, DISEASE_LABELS, cfg.zeroshot,
         cfg.augment.mean, cfg.augment.std, cfg.model.image_size,
         cfg.model.max_text_length, _compute_dtype(args),
-        use_enhance=cfg.model.use_multimodal_attention, **_dp(_group()),
+        use_enhance=cfg.model.use_multimodal_attention, **_engine_layout(args, cfg),
     )
     engine.build_text_features(prompts_for_family(args.prompts, DISEASE_LABELS))
     _, val_loader = _loaders(cfg, args, multi_view=True, shard=False)
@@ -1293,6 +1376,9 @@ def cmd_serve(args) -> int:
             if getattr(args, flag, None):
                 raise SystemExit(f"--{flag.replace('_', '-')} does not compose with "
                                  f"--exported ({why})")
+        if _tp(args) > 1:
+            raise SystemExit("--tp does not compose with --exported (the serialized "
+                             "module is a single-device program)")
         from ..export import ADAPTER_FILE, SINGLEVIEW_FILE, ExportedEngine
 
         engine = ExportedEngine(
@@ -1300,11 +1386,64 @@ def cmd_serve(args) -> int:
             module=ADAPTER_FILE if args.head == "adapter" else SINGLEVIEW_FILE)
         size, labels, checkpoint_info = engine.image_size, engine.disease_list, args.exported
     else:
+        if args.head == "adapter" and _tp(args) > 1:
+            raise SystemExit("--tp does not compose with --head adapter")
         tokenizer = _tokenizer(args)
         cfg = _apply_tiny(cfg, args, len(tokenizer.vocab))
         engine = _live_engine(cfg, args, tokenizer)
         size, labels = cfg.model.image_size, DISEASE_LABELS
         checkpoint_info = args.checkpoint or "fresh"
+    if _serve_single(args) and _dp_devices(args) > 1:
+        logging.warning("--num-devices %d has no effect with %s: serving on one device",
+                        _dp_devices(args), "--exported" if args.exported else "--head adapter")
+    group = _group() if _in_group(args) else None
+    if group is not None:
+        from ..serving import GroupEngine, follow
+
+        if not _primary():
+            _follow_quietly(follow, engine, group)
+            return 0
+        engine = GroupEngine(engine, group, on_failure=_interrupt_main)
+    try:
+        code = _serve(args, engine, labels, threshold, size, checkpoint_info)
+    finally:
+        if group is not None:
+            engine.stop()
+    return 1 if group is not None and engine.failed is not None else code
+
+
+def _interrupt_main() -> None:
+    """A group engine's failure off the main thread: a KeyboardInterrupt
+    there, as on Ctrl-C, so that the server shuts down (on the main thread
+    the failure raises by itself)."""
+    import _thread
+    import threading
+
+    if threading.current_thread() is not threading.main_thread():
+        _thread.interrupt_main()
+
+
+def _follow_quietly(follow, engine, group) -> None:
+    """A rank other than 0: follow rank 0's batches until its stop. SIGINT
+    and SIGTERM are left to rank 0, which broadcasts the stop on either."""
+    import signal
+
+    from ..parallel import multihost
+
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        signal.signal(sig, lambda signum, frame: logging.info(
+            "signal %d: waiting for rank 0's stop", signum))
+    n = follow(engine, group)
+    logging.info("rank %d ran %d batches; stopped by rank 0", multihost.process_index(), n)
+
+
+def _serve(args, engine, labels, threshold, size: int, checkpoint_info: str) -> int:
+    """Warm the buckets, bind, serve until SIGINT or SIGTERM."""
+    import signal
+    import threading
+
+    from ..serving import ZeroShotService, create_server
+
     service = ZeroShotService(
         engine, labels, threshold=threshold, buckets=tuple(sorted(args.buckets)),
         max_wait_ms=args.max_wait_ms, image_size=size, max_pending=args.max_pending or None,
@@ -1325,11 +1464,20 @@ def cmd_serve(args) -> int:
     host, port = server.server_address[:2]
     logging.info("serving on http://%s:%d (POST /predict, GET /healthz, GET /stats)",
                  host, port)
+    previous = None
+    if threading.current_thread() is threading.main_thread():
+        def interrupt(signum, frame):
+            raise KeyboardInterrupt
+
+        # SIGTERM stops the server as Ctrl-C does (a group's ranks then stop too)
+        previous = signal.signal(signal.SIGTERM, interrupt)
     try:
         server.serve_forever()
     except KeyboardInterrupt:
         logging.info("shutting down")
     finally:
+        if previous is not None:
+            signal.signal(signal.SIGTERM, previous)
         server.server_close()
         service.close()
     return 0
@@ -1349,10 +1497,11 @@ def _live_engine(cfg, args, tokenizer):
         # adapter command's --checkpoint-dir): no prompt bank, no text tower
         return AdapterEngine(model, cfg.augment.mean, cfg.augment.std, size,
                              _compute_dtype(args))
+    # over a group: each rank's share of every batch (the bank on every rank)
     engine = ZeroShotEngine(
         model, tokenizer, DISEASE_LABELS, cfg.zeroshot, cfg.augment.mean,
         cfg.augment.std, size, cfg.model.max_text_length, _compute_dtype(args),
-        use_enhance=cfg.model.use_multimodal_attention,
+        use_enhance=cfg.model.use_multimodal_attention, **_engine_layout(args, cfg),
     )
     engine.build_text_features(prompts_for_family(args.prompts, DISEASE_LABELS))
     return engine
@@ -1720,22 +1869,47 @@ def build_parser() -> argparse.ArgumentParser:
 def _spawn(argv, world: int) -> int:
     """``--num-devices N`` in one launch: the same command line as N ranks
     of a group under ``torchrun``; its exit status. SIGTERM reaching this
-    process is passed on, so that a preemption reaches every rank."""
+    process is passed on, so that a preemption reaches every rank (SIGINT,
+    which a terminal sends to every process of its group, is only noted).
+    ``torchrun``'s agent exits 1 on either signal; when every rank then
+    exits 0 (each notes it under ``ENV_RANK_EXITS``) the status is 0."""
     import signal
     import subprocess
+    import tempfile
     import threading
 
     from ..parallel.multihost import torchrun_command
 
-    proc = subprocess.Popen(torchrun_command(world, "clip_for_dl_tpu_torch", argv))
-    previous = None
-    if threading.current_thread() is threading.main_thread():
-        previous = signal.signal(signal.SIGTERM, lambda signum, frame: proc.send_signal(signum))
-    try:
-        return proc.wait()
-    finally:
-        if previous is not None:
-            signal.signal(signal.SIGTERM, previous)
+    with tempfile.TemporaryDirectory() as exits:
+        proc = subprocess.Popen(torchrun_command(world, "clip_for_dl_tpu_torch", argv),
+                                env=dict(os.environ, **{ENV_RANK_EXITS: exits}))
+        signalled = []
+
+        def on_signal(signum, frame):
+            signalled.append(signum)
+            if signum == signal.SIGTERM:
+                proc.send_signal(signum)
+
+        previous = {}
+        if threading.current_thread() is threading.main_thread():
+            previous = {sig: signal.signal(sig, on_signal)
+                        for sig in (signal.SIGTERM, signal.SIGINT)}
+        try:
+            code = proc.wait()
+        finally:
+            for sig, handler in previous.items():
+                signal.signal(sig, handler)
+        if code and signalled and len(os.listdir(exits)) == world:
+            logging.info("every rank stopped cleanly on signal %d", signalled[0])
+            return 0
+        return code
+
+
+def _note_rank_exit(code) -> None:
+    """A rank that ``_spawn`` started, exiting 0: its note for the spawner."""
+    exits = os.environ.get(ENV_RANK_EXITS)
+    if exits and not code:
+        open(os.path.join(exits, os.environ.get("RANK", "0")), "w").close()
 
 
 def main(argv=None) -> int:
@@ -1751,9 +1925,9 @@ def main(argv=None) -> int:
     _dp_refused(args)
     from ..parallel import multihost
 
-    joins = (args.command in DP_COMMANDS and not multihost.is_distributed()
+    joins = (_in_group(args) and not multihost.is_distributed()
              and (multihost.launched() or _strided(args)))
-    if (args.command in DP_COMMANDS and _dp_devices(args) > 1 and not joins
+    if (_in_group(args) and _dp_devices(args) > 1 and not joins
             and not multihost.is_distributed()):
         return _spawn(argv, _dp_devices(args))
     try:
@@ -1772,10 +1946,12 @@ def main(argv=None) -> int:
         print(f"error: {exc} (set {ENV_FORCE_CPU}=1 to run on the CPU)", file=sys.stderr)
         return 1
     try:
-        return args.fn(args)
+        code = args.fn(args)
     finally:
         if joins:
             multihost.destroy()
+    _note_rank_exit(code)
+    return code
 
 
 if __name__ == "__main__":

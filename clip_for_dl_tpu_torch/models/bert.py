@@ -20,6 +20,21 @@ with per-batch-row seeds drawn from the ``generator`` passed to ``forward``
 other dropout draws its mask from the same generator
 (``models.heads.dropout``; the ``nn.Dropout`` modules keep the rate). Both
 kernels take their backward when a gradient is required.
+
+A layer runs through :func:`layer_shares` with its ``tp`` context
+(``parallel/tp.py``; :data:`~clip_for_dl_tpu_torch.parallel.tp.UNSHARDED`
+unless ``tensor_parallel_`` gave it a shard). Under tensor parallelism the
+packed q|k|v product runs on the rank's three column shards, so its qkv is
+[B, L, 3·H/tp] and B3 runs at heads/tp with ``head_offset`` (the unsharded
+layer's dropout masks); ``attention.output.dense`` and ``output.dense``
+are row-parallel, their partial products summed in fp32 over the model
+group and their biases added once; the MLP runs through B4/B8 on the
+rank's slice of the hidden with b2 = 0 (``--bert-fused-mlp``) or the plain
+pair. The seeds and every mask are drawn once a layer, so the ranks of a
+data slice, their generators in lockstep, draw the same.
+:func:`layer_shares` also runs every rank's share in one process, the
+partial products summed there. Unsharded, the biases go into the products
+and no collective runs.
 """
 
 from __future__ import annotations
@@ -32,6 +47,7 @@ from torch import nn
 
 from ..ops import flash_attention as fa
 from ..ops import mlp_train
+from ..parallel.tp import UNSHARDED
 from .heads import dropout
 
 
@@ -51,10 +67,12 @@ class BertEmbeddings(nn.Module):
 
     def forward(self, input_ids: torch.Tensor,
                 token_type_ids: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None, start: int = 0) -> torch.Tensor:
+        """``start``: the position of the first token (a slice of the
+        sequence under sequence parallelism)."""
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
-        positions = torch.arange(input_ids.shape[1], device=input_ids.device)
+        positions = torch.arange(start, start + input_ids.shape[1], device=input_ids.device)
         x = (self.word_embeddings(input_ids)
              + self.position_embeddings(positions)[None]
              + self.token_type_embeddings(token_type_ids))
@@ -62,6 +80,9 @@ class BertEmbeddings(nn.Module):
 
 
 class BertSelfAttention(nn.Module):
+    """HF ``BertSelfAttention``'s parameters and the attention dropout's
+    rate; :meth:`BertLayer._attention_share` runs them."""
+
     def __init__(self, hidden: int, heads: int, dropout: float = 0.1,
                  flash: bool = False):
         super().__init__()
@@ -71,31 +92,6 @@ class BertSelfAttention(nn.Module):
         self.key = nn.Linear(hidden, hidden)
         self.value = nn.Linear(hidden, hidden)
         self.dropout = nn.Dropout(dropout)
-
-    def forward(self, x: torch.Tensor, bias: Optional[torch.Tensor],
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """x [B, N, hidden]; bias [B, N] fp32 additive key bias or None;
-        ``generator`` seeds the flash kernel's dropout in train mode."""
-        B, N, hidden = x.shape
-        h, hd = self.heads, hidden // self.heads
-        if self.flash:
-            w = torch.cat([self.query.weight, self.key.weight, self.value.weight])
-            b = torch.cat([self.query.bias, self.key.bias, self.value.bias])
-            qkv = F.linear(x, w, b)
-            rate = self.dropout.p if self.training else 0.0
-            seeds = fa.dropout_seeds(generator, B, x.device) if rate > 0.0 else None
-            return fa.flash_attention_packed(qkv, h, bias, dropout_rate=rate,
-                                             dropout_seeds=seeds)
-        q, k, v = (
-            t.view(B, N, h, hd).transpose(1, 2)
-            for t in (self.query(x), self.key(x), self.value(x))
-        )
-        logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) / float(hd) ** 0.5
-        if bias is not None:
-            logits = logits + bias[:, None, None, :]
-        probs = dropout(self.dropout, torch.softmax(logits, dim=-1), generator)
-        out = torch.matmul(probs.to(x.dtype).float(), v.float()).to(x.dtype)
-        return out.transpose(1, 2).reshape(B, N, hidden)
 
 
 class _DenseNorm(nn.Module):
@@ -123,6 +119,8 @@ class _Intermediate(nn.Module):
 
 
 class BertLayer(nn.Module):
+    tp = UNSHARDED  # its parallel.tp.TPContext
+
     def __init__(self, hidden: int, heads: int, intermediate: int,
                  dropout: float = 0.1, flash: bool = False, fused_mlp: bool = False):
         super().__init__()
@@ -141,21 +139,78 @@ class BertLayer(nn.Module):
             and dtype == torch.bfloat16
         )
 
+    def _attention_share(self, x: torch.Tensor, bias: Optional[torch.Tensor], seeds, keep,
+                         rate: float) -> torch.Tensor:
+        """This share's partial product of ``attention.output.dense`` over
+        its heads (with the bias when unsharded): [B, N, hidden]. ``seeds``
+        drive the flash kernel's dropout, ``keep`` [B, heads, N, N] the
+        plain one's."""
+        sa = self.attention.self
+        h, h0 = self.tp.heads(sa.heads)
+        hd = self.hidden // sa.heads
+        if sa.flash:
+            w = torch.cat([sa.query.weight, sa.key.weight, sa.value.weight])
+            b = torch.cat([sa.query.bias, sa.key.bias, sa.value.bias])
+            out = self.tp.attend(
+                lambda qkv: fa.flash_attention_packed(qkv, h, bias, dropout_rate=rate,
+                                                      dropout_seeds=seeds, head_offset=h0),
+                F.linear(x, w, b))
+        else:
+            def attend(q, k, v):
+                B, N, _ = q.shape
+                q, k, v = (t.view(B, N, h, hd).transpose(1, 2) for t in (q, k, v))
+                logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) / float(hd) ** 0.5
+                if bias is not None:
+                    logits = logits + bias[:, None, None, :]
+                probs = torch.softmax(logits, dim=-1)
+                if keep is not None:
+                    probs = torch.where(keep[:, h0:h0 + h], probs / (1.0 - rate),
+                                        torch.zeros((), dtype=probs.dtype, device=probs.device))
+                out = torch.matmul(probs.to(x.dtype).float(), v.float()).to(x.dtype)
+                return out.transpose(1, 2).reshape(B, N, h * hd)
+
+            out = self.tp.attend(attend, sa.query(x), sa.key(x), sa.value(x))
+        dense = self.attention.output.dense
+        return F.linear(out, dense.weight, dense.bias if self.tp.size == 1 else None)
+
+    def _mlp_share(self, x: torch.Tensor) -> torch.Tensor:
+        """This share's partial product of ``output.dense`` over its slice
+        of the hidden (with b2 at tp = 1)."""
+        inter, out = self.intermediate.dense, self.output.dense
+        if self._use_fused_mlp(x.dtype):
+            b2 = out.bias if self.tp.size == 1 else torch.zeros_like(out.bias)
+            return mlp_train.dense_gelu_dense(x, inter.weight, inter.bias, out.weight, b2)
+        return F.linear(F.gelu(inter(x)), out.weight, out.bias if self.tp.size == 1 else None)
+
     def forward(self, x: torch.Tensor, bias: Optional[torch.Tensor],
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        dt = x.dtype
-        attn = self.attention.self(x, bias, generator)
-        attn = dropout(self.dropout, self.attention.output.dense(attn), generator)
-        x = _layer_norm(self.attention.output.LayerNorm, x + attn, dt)
-        if self._use_fused_mlp(dt):
-            h = mlp_train.dense_gelu_dense(
-                x, self.intermediate.dense.weight, self.intermediate.dense.bias,
-                self.output.dense.weight, self.output.dense.bias,
-            )
-        else:
-            h = self.output.dense(F.gelu(self.intermediate.dense(x)))
-        h = dropout(self.dropout, h, generator)
-        return _layer_norm(self.output.LayerNorm, x + h, dt)
+        return layer_shares([self], x, bias, generator)
+
+
+def layer_shares(shares, x: torch.Tensor, bias: Optional[torch.Tensor],
+                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """A BERT layer over ``shares``: [the layer] with its context (over its
+    model group under tensor parallelism), or every rank's share (each
+    sharded with ``tensor_parallel_(..., share=r)``) in one process. The
+    seeds and masks are drawn once, as by the unsharded layer."""
+    lead = shares[0]
+    ctx, sa, dt = lead.tp, lead.attention.self, x.dtype
+    B, N, _ = x.shape
+    rate = sa.dropout.p if lead.training else 0.0
+    seeds = keep = None
+    if rate > 0.0 and sa.flash:
+        seeds = fa.dropout_seeds(generator, B, x.device)
+    elif rate > 0.0:
+        keep = torch.rand((B, sa.heads, N, N), generator=generator, device=x.device) >= rate
+    xin = ctx.enter(x)
+    attn = ctx.row_output([s._attention_share(xin, bias, seeds, keep, rate) for s in shares],
+                          lead.attention.output.dense.bias, dt)
+    attn = dropout(lead.dropout, attn, generator)
+    x = _layer_norm(lead.attention.output.LayerNorm, x + attn, dt)
+    xin = ctx.enter(x)
+    h = ctx.row_output([s._mlp_share(xin) for s in shares], lead.output.dense.bias, dt)
+    h = dropout(lead.dropout, h, generator)
+    return _layer_norm(lead.output.LayerNorm, x + h, dt)
 
 
 class BertEncoder(nn.Module):

@@ -35,6 +35,18 @@ probabilities, [B, H, N, N] fp32, taken before the cast for PV, as the JAX
 tower sows them (vit.py:165-176); as in JAX it turns ``flash`` off for that
 call, since the kernel keeps no probabilities. The MLP switches are
 untouched: a ``fused_mlp`` tower in eval mode and bf16 still runs B9.
+
+A layer runs through :func:`layer_shares` with its ``tp`` context
+(``parallel/tp.py``; unsharded unless ``tensor_parallel_`` gave it a
+shard). Under tensor parallelism rank r holds its rows of each third of the
+packed ``in_proj`` (its heads' q | k | v, B3 at heads/tp with
+``head_offset``), the columns of ``out_proj`` and ``mlp.3`` for them
+(row-parallel, partial products summed in fp32 over the model group, the
+biases added once) and its rows of ``mlp.0``; the MLP runs through B4/B8
+on that slice with b2 = 0 (``fused_mlp_train``) or the plain pair. B9
+takes no shard (``--fused-mlp`` is refused under tp > 1, as in the JAX
+CLI). :func:`layer_shares` also runs every rank's share in one process, as
+``models.bert.layer_shares`` does.
 """
 
 from __future__ import annotations
@@ -48,6 +60,7 @@ from torch import nn
 
 from ..ops import flash_attention as fa
 from ..ops import mlp_block, mlp_train
+from ..parallel.tp import UNSHARDED
 
 
 def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -68,27 +81,32 @@ class MultiheadSelfAttention(nn.Module):
         self.out_proj = nn.Linear(hidden, hidden)
         nn.init.xavier_uniform_(self.in_proj_weight)
 
-    def forward(self, y: torch.Tensor, sown: Optional[List[torch.Tensor]] = None
-                ) -> torch.Tensor:
-        """With ``sown`` (a list), the plain branch runs and appends its fp32
-        probabilities [B, H, N, N] to it."""
+    def forward(self, y: torch.Tensor, sown: Optional[List[torch.Tensor]] = None,
+                tp=UNSHARDED) -> torch.Tensor:
+        """Over the heads of ``tp`` (the layer's ``parallel.tp.TPContext``):
+        their attention and the partial product of ``out_proj`` (with its
+        bias when unsharded). With ``sown`` (a list), the plain branch runs
+        and appends its fp32 probabilities [B, heads, N, N] to it."""
         B, N, hidden = y.shape
+        h, h0 = tp.heads(self.heads)
         qkv = F.linear(y, self.in_proj_weight, self.in_proj_bias)
         if self.flash and sown is None:
-            attn = fa.flash_attention_packed(qkv, self.heads)
+            attn = fa.flash_attention_packed(qkv, h, head_offset=h0)
         else:
-            h, hd = self.heads, hidden // self.heads
+            hd = hidden // self.heads
             q, k, v = qkv.view(B, N, 3, h, hd).permute(2, 0, 3, 1, 4).unbind(0)
             logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) / float(hd) ** 0.5
             probs = torch.softmax(logits, dim=-1)
             if sown is not None:
                 sown.append(probs)
             attn = torch.matmul(probs.to(y.dtype).float(), v.float()).to(y.dtype)
-            attn = attn.transpose(1, 2).reshape(B, N, hidden)
-        return self.out_proj(attn)
+            attn = attn.transpose(1, 2).reshape(B, N, h * hd)
+        return F.linear(attn, self.out_proj.weight, self.out_proj.bias if tp.size == 1 else None)
 
 
 class ViTEncoderLayer(nn.Module):
+    tp = UNSHARDED  # its parallel.tp.TPContext
+
     def __init__(self, hidden: int, heads: int, mlp_dim: int, gelu_approximate: bool = False,
                  fused_mlp: bool = False, flash: bool = False, fused_mlp_train: bool = False):
         super().__init__()
@@ -116,24 +134,47 @@ class ViTEncoderLayer(nn.Module):
         # the MLP's dropout rate is 0: the CLIP ViT is built without dropout
         return self.fused_mlp_train and self._kernel_widths(dtype)
 
+    def _mlp_share(self, y: torch.Tensor) -> torch.Tensor:
+        """This share's partial product of ``mlp.3`` over its slice of the
+        hidden, from the normalized ``y`` (with b2 when unsharded)."""
+        fc1, fc2 = self.mlp["0"], self.mlp["3"]
+        dt = y.dtype
+        b2 = fc2.bias.to(dt) if self.tp.size == 1 else None
+        if self._use_fused_mlp_train(dt):
+            return mlp_train.dense_gelu_dense(
+                y, fc1.weight, fc1.bias.to(dt), fc2.weight,
+                torch.zeros_like(fc2.bias, dtype=dt) if b2 is None else b2,
+                approximate=self.gelu_approximate)
+        g = F.gelu(F.linear(y, fc1.weight, fc1.bias.to(dt)),
+                   approximate="tanh" if self.gelu_approximate else "none")
+        return F.linear(g, fc2.weight, b2)
+
     def forward(self, x: torch.Tensor, sown: Optional[List[torch.Tensor]] = None
                 ) -> torch.Tensor:
-        dt = x.dtype
-        x = x + self.self_attention(_layer_norm(self.ln_1, x, dt), sown)
-        fc1, fc2 = self.mlp["0"], self.mlp["3"]
-        if self._use_fused_mlp(dt):
-            return mlp_block.fused_mlp_block_trainable(
-                x, self.ln_2.weight, self.ln_2.bias, fc1.weight, fc1.bias, fc2.weight,
-                fc2.bias, eps=1e-6, gelu_approximate=self.gelu_approximate,
-            )
-        if self._use_fused_mlp_train(dt):
-            return x + mlp_train.dense_gelu_dense(
-                _layer_norm(self.ln_2, x, dt), fc1.weight, fc1.bias.to(dt), fc2.weight,
-                fc2.bias.to(dt), approximate=self.gelu_approximate,
-            )
-        y = F.linear(_layer_norm(self.ln_2, x, dt), fc1.weight, fc1.bias.to(dt))
-        y = F.gelu(y, approximate="tanh" if self.gelu_approximate else "none")
-        return x + F.linear(y, fc2.weight, fc2.bias.to(dt))
+        return layer_shares([self], x, sown)
+
+
+def layer_shares(shares, x: torch.Tensor, sown: Optional[List[torch.Tensor]] = None
+                 ) -> torch.Tensor:
+    """A ViT layer over ``shares``: [the layer] with its context (over its
+    model group under tensor parallelism), or every rank's share in one
+    process. ``sown`` as :meth:`MultiheadSelfAttention.forward` takes it,
+    unsharded only."""
+    lead = shares[0]
+    ctx, dt = lead.tp, x.dtype
+    if sown is not None and ctx.size > 1:
+        raise ValueError("the attention probabilities are not sown under tensor parallelism")
+    y = ctx.enter(_layer_norm(lead.ln_1, x, dt))
+    x = x + ctx.row_output([s.self_attention(y, sown, s.tp) for s in shares],
+                           lead.self_attention.out_proj.bias, dt)
+    if lead._use_fused_mlp(dt):  # B9, unsharded only (refused under tp > 1)
+        fc1, fc2 = lead.mlp["0"], lead.mlp["3"]
+        return mlp_block.fused_mlp_block_trainable(
+            x, lead.ln_2.weight, lead.ln_2.bias, fc1.weight, fc1.bias, fc2.weight,
+            fc2.bias, eps=1e-6, gelu_approximate=lead.gelu_approximate,
+        )
+    y = ctx.enter(_layer_norm(lead.ln_2, x, dt))
+    return x + ctx.row_output([s._mlp_share(y) for s in shares], lead.mlp["3"].bias, dt)
 
 
 class _Encoder(nn.Module):

@@ -25,6 +25,15 @@ key column) grid, seeded per batch row and head, so the backward regenerates
 the forward's mask instead of storing it, and the bits equal the JAX
 kernel's for the same seeds.
 
+``head_offset`` h0 (default 0) numbers the call's heads h0, h0 + 1, …
+in that hash: a tensor-parallel rank that holds heads h0 … h0 + H − 1 of a
+layer draws the masks those heads draw in the unsharded call. The hash
+salts a head as ``seed + head · 0xC2B2AE3D`` (mod 2^32; ``csrc/common.cuh
+dropout_salt``), so heads numbered from h0 under ``seed`` are heads
+numbered from 0 under ``seed + h0 · 0xC2B2AE3D``: the wrappers hand the
+kernels that seed (:func:`offset_seeds`), the kernels are unchanged, and
+at h0 = 0 the seeds, and so the bits, are the ones before.
+
 When a gradient is required the call goes through :class:`_FlashPacked` or
 :class:`_Flash`, which save only their inputs (q/k/v or qkv, bias, seeds), as
 the JAX custom VJPs do, and recompute the probabilities in the backward. The
@@ -190,10 +199,25 @@ def dropout_seeds(generator: Optional[torch.Generator], batch: int,
     return seeds if device is None else seeds.to(device)
 
 
-def _keep_mask(seeds: torch.Tensor, heads: int, n: int, rate: float) -> torch.Tensor:
-    """[B, H, N, N] bool: keep where the hash is ≥ rate."""
-    h = torch.arange(heads, device=seeds.device)[None, :]
+def _keep_mask(seeds: torch.Tensor, heads: int, n: int, rate: float,
+               head_offset: int = 0) -> torch.Tensor:
+    """[B, H, N, N] bool: keep where the hash of heads head_offset … is ≥ rate."""
+    h = torch.arange(head_offset, head_offset + heads, device=seeds.device)[None, :]
     return uniform01(seeds.reshape(-1, 1), h, n, n) >= rate
+
+
+_SALT = 0xC2B2AE3D  # the hash's per-head salt multiplier (csrc/common.cuh)
+
+
+def offset_seeds(seeds: Optional[torch.Tensor], head_offset: int) -> Optional[torch.Tensor]:
+    """int32 seeds under which head j hashes as head ``head_offset`` + j did
+    under ``seeds``: seed + head_offset · 0xC2B2AE3D mod 2^32 (``seeds``
+    itself at offset 0 or without seeds)."""
+    if seeds is None or not head_offset:
+        return seeds
+    shift = (int(head_offset) * _SALT) & _M32
+    wrapped = (seeds.to(torch.int64) + shift) & _M32
+    return torch.where(wrapped >= 2 ** 31, wrapped - 2 ** 32, wrapped).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -236,16 +260,18 @@ def flash_attention_reference(
     dropout_rate: float = 0.0,
     dropout_seeds: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
+    head_offset: int = 0,
 ) -> torch.Tensor:
     """Plain version of the forward kernels' math (the JAX ``_head_fwd``) on
     head-major q, k, v [B, H, N, D] → [B, H, N, D] in q's dtype; the
     counterpart of the JAX ``flash_attention_reference``. ``scale`` of the
-    logits is 1/√D unless given (as the kernels get it for a padded D)."""
+    logits is 1/√D unless given (as the kernels get it for a padded D);
+    ``head_offset`` numbers the heads from there in the dropout hash."""
     B, H, N, D = q.shape
     qf, kf, vf = _fp32(q, k, v)
     p = _probs(qf, kf, key_bias, _scale(D, scale))
     if dropout_rate > 0.0:
-        keep = _keep_mask(dropout_seeds, H, N, dropout_rate)
+        keep = _keep_mask(dropout_seeds, H, N, dropout_rate, head_offset)
         p = torch.where(keep, p * (1.0 / (1.0 - dropout_rate)), 0.0)
     return torch.matmul(p.to(q.dtype).float(), vf).to(q.dtype)
 
@@ -260,10 +286,12 @@ def flash_attention_bwd_reference(
     dropout_rate: float = 0.0,
     dropout_seeds: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
+    head_offset: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of the backward kernels' math (the JAX ``_head_bwd``):
     head-major q, k, v and d(out) [B, H, N, D] → (dq, dk, dv) [B, H, N, D]
-    in q's dtype; ``scale`` as in :func:`flash_attention_reference`.
+    in q's dtype; ``scale`` and ``head_offset`` as in
+    :func:`flash_attention_reference`.
 
     s and p are recomputed in fp32; the dropped, scaled probabilities are
     cast to the compute dtype before ``dv = pdᵀ·do``; ``dp = do·vᵀ`` is
@@ -277,7 +305,7 @@ def flash_attention_bwd_reference(
     p = _probs(qf, kf, key_bias, scale)
     dpd = torch.matmul(dof, vf.transpose(-1, -2))
     if dropout_rate > 0.0:
-        keep = _keep_mask(dropout_seeds, H, N, dropout_rate)
+        keep = _keep_mask(dropout_seeds, H, N, dropout_rate, head_offset)
         inv = 1.0 / (1.0 - dropout_rate)
         pd = torch.where(keep, p * inv, 0.0)
         dp = torch.where(keep, dpd * inv, 0.0)
@@ -299,13 +327,15 @@ def flash_attention_packed_reference(
     dropout_rate: float = 0.0,
     dropout_seeds: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
+    head_offset: int = 0,
 ) -> torch.Tensor:
     """Plain version of B3: :func:`flash_attention_reference` over qkv's
     head slices, [B, N, 3·H·D] → [B, N, H·D]."""
     B, N, _ = qkv.shape
     q, k, v, D = _split_heads(qkv, heads)
     out = flash_attention_reference(q, k, v, key_bias, dropout_rate=dropout_rate,
-                                    dropout_seeds=dropout_seeds, scale=scale)
+                                    dropout_seeds=dropout_seeds, scale=scale,
+                                    head_offset=head_offset)
     return out.transpose(1, 2).reshape(B, N, heads * D)
 
 
@@ -318,6 +348,7 @@ def flash_attention_packed_bwd_reference(
     dropout_rate: float = 0.0,
     dropout_seeds: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
+    head_offset: int = 0,
 ) -> torch.Tensor:
     """Plain version of B6: d(out) [B, N, H·D] → dqkv [B, N, 3·H·D] in qkv's
     dtype, through :func:`flash_attention_bwd_reference`."""
@@ -325,7 +356,8 @@ def flash_attention_packed_bwd_reference(
     q, k, v, D = _split_heads(qkv, heads)
     grads = flash_attention_bwd_reference(
         q, k, v, do.reshape(B, N, heads, D).transpose(1, 2), key_bias,
-        dropout_rate=dropout_rate, dropout_seeds=dropout_seeds, scale=scale)
+        dropout_rate=dropout_rate, dropout_seeds=dropout_seeds, scale=scale,
+        head_offset=head_offset)
     dqkv = torch.stack(grads, dim=2)  # [B, H, 3, N, D]
     return dqkv.permute(0, 3, 2, 1, 4).reshape(B, N, 3 * heads * D)
 
@@ -402,13 +434,15 @@ def flash_attention_packed(
     *,
     dropout_rate: float = 0.0,
     dropout_seeds: Optional[torch.Tensor] = None,
+    head_offset: int = 0,
 ) -> torch.Tensor:
     """Packed-QKV attention: [B, N, 3·H·D] → [B, N, H·D]. ``dropout_rate > 0``
     needs ``dropout_seeds`` [B] or [B, 1] (int32, one stream per batch row;
-    :func:`dropout_seeds` draws them)."""
+    :func:`dropout_seeds` draws them); ``head_offset`` numbers the heads
+    in the dropout hash from there (a tensor-parallel rank's heads)."""
     _check_args(qkv, heads, key_bias, dropout_rate)
     rate = float(dropout_rate)
-    seeds = _seeds(dropout_seeds, qkv.shape[0], rate)
+    seeds = offset_seeds(_seeds(dropout_seeds, qkv.shape[0], rate), head_offset)
     if torch.is_grad_enabled() and qkv.requires_grad:
         return _FlashPacked.apply(qkv, key_bias, seeds, heads, rate)
     return _forward(qkv, heads, key_bias, rate, seeds)
@@ -428,12 +462,13 @@ def flash_attention_packed_bwd(
     *,
     dropout_rate: float = 0.0,
     dropout_seeds: Optional[torch.Tensor] = None,
+    head_offset: int = 0,
 ) -> torch.Tensor:
     """Backward of :func:`flash_attention_packed`: d(out) [B, N, H·D] →
     dqkv [B, N, 3·H·D] (kernel B6; the plain version on CPU tensors)."""
     _check_args(qkv, heads, key_bias, dropout_rate)
     rate = float(dropout_rate)
-    seeds = _seeds(dropout_seeds, qkv.shape[0], rate)
+    seeds = offset_seeds(_seeds(dropout_seeds, qkv.shape[0], rate), head_offset)
     do = do.to(qkv.dtype).contiguous()
     if qkv.device.type == "cpu":
         return flash_attention_packed_bwd_reference(
@@ -468,15 +503,17 @@ def flash_attention(
     dropout_rate: float = 0.0,
     dropout_seeds: Optional[torch.Tensor] = None,
     layout: str = "bhnd",
+    head_offset: int = 0,
 ) -> torch.Tensor:
     """Split q/k/v attention over all heads of each batch row. ``layout``
     "bnhd" takes [B, N, H, D] (the towers' [B, N, H·D] projection outputs,
     viewed), "bhnd" head-major [B, H, N, D]; the output comes back in the
     same layout. ``key_bias`` [B, N] is the additive key-padding bias;
-    ``dropout_rate > 0`` needs ``dropout_seeds`` [B] or [B, 1]."""
+    ``dropout_rate > 0`` needs ``dropout_seeds`` [B] or [B, 1];
+    ``head_offset`` as in :func:`flash_attention_packed`."""
     B = _check_split(q, k, v, key_bias, dropout_rate, layout)[0]
     rate = float(dropout_rate)
-    seeds = _seeds(dropout_seeds, B, rate)
+    seeds = offset_seeds(_seeds(dropout_seeds, B, rate), head_offset)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _Flash.apply(q, k, v, key_bias, seeds, layout, rate)
     return _forward_split(q, k, v, key_bias, rate, seeds, layout)
@@ -501,6 +538,7 @@ def flash_attention_bwd(
     dropout_rate: float = 0.0,
     dropout_seeds: Optional[torch.Tensor] = None,
     layout: str = "bhnd",
+    head_offset: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Backward of :func:`flash_attention`: d(out) in ``layout`` → (dq, dk,
     dv) in ``layout`` (kernel B7; the plain version on CPU tensors)."""
@@ -508,7 +546,7 @@ def flash_attention_bwd(
     if do.shape != q.shape:
         raise ValueError(f"d(out) must have q's shape {tuple(q.shape)}, got {tuple(do.shape)}")
     rate = float(dropout_rate)
-    seeds = _seeds(dropout_seeds, B, rate)
+    seeds = offset_seeds(_seeds(dropout_seeds, B, rate), head_offset)
     do = do.to(q.dtype)
     if q.device.type == "cpu":
         grads = flash_attention_bwd_reference(

@@ -1,7 +1,8 @@
-"""Data parallelism over ``torch.distributed`` (counterpart of
-``clip_for_dl_tpu.parallel``, its data-parallel half; tensor, sequence,
-pipeline and expert parallelism are ROADMAP A7b)."""
+"""Data, tensor and sequence parallelism over ``torch.distributed``
+(counterpart of ``clip_for_dl_tpu.parallel``; pipeline and expert
+parallelism are ROADMAP A7b)."""
 
+from .common import MODEL_AXIS, create_2d_mesh
 from .dp import (
     all_reduce_grads_,
     check_devices,
@@ -10,6 +11,16 @@ from .dp import (
     replicate_state,
     shard_batch,
     shard_rows,
+)
+from .sp import sequence_sharded_fn
+from .tp import (
+    create_dp_tp_mesh,
+    shard_state_tp,
+    step_groups,
+    tensor_parallel_,
+    tensor_parallel_step,
+    tp_spec,
+    validate_tp,
 )
 
 __all__ = [
@@ -20,4 +31,14 @@ __all__ = [
     "replicate_state",
     "shard_batch",
     "shard_rows",
+    "MODEL_AXIS",
+    "create_2d_mesh",
+    "create_dp_tp_mesh",
+    "sequence_sharded_fn",
+    "shard_state_tp",
+    "step_groups",
+    "tensor_parallel_",
+    "tensor_parallel_step",
+    "tp_spec",
+    "validate_tp",
 ]

@@ -11,7 +11,17 @@ permutation. Here each is an ``autograd.Function`` written out:
 - :func:`all_reduce_sum` sums over the ranks, and so does its backward;
 - :func:`ring_shift` sends a block to the next rank and receives the
   previous rank's; its backward sends each gradient back the way the block
-  came.
+  came;
+- the Megatron pair of tensor parallelism: :func:`copy_to_model` is the
+  identity forward and an all-reduce backward (at a column-parallel input:
+  each rank's branch hands back a partial input gradient);
+  :func:`reduce_from_model` is an all-reduce forward and the identity
+  backward (after a row-parallel output: the partial products summed);
+- :func:`all_gather_dim` concatenates every rank's block along a dim, the
+  sequence's under sequence parallelism (its backward: the sum, then this
+  rank's block).
+
+On a group of one rank every collective here is the identity.
 
 Gradient scale: a loss that every rank computes identically from gathered
 features hands each rank N times the gradient of its own rows (the sum of N
@@ -70,6 +80,31 @@ class _AllReduceSum(torch.autograd.Function):
         return g, None
 
 
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
 def _shift(x: torch.Tensor, group, step: int) -> torch.Tensor:
     """x sent to rank r + step, the block of rank r − step received."""
     n, r = world(group), rank(group)
@@ -120,3 +155,25 @@ def ring_shift(x: torch.Tensor, group=None) -> torch.Tensor:
     if world(group) == 1:
         return x
     return _RingShift.apply(x, group)
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    """Identity forward, gradient all-reduced over ``group`` (Megatron's f)."""
+    if group is None or world(group) == 1:
+        return x
+    return _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
+    """Σ over ``group`` forward, identity backward (Megatron's g)."""
+    if group is None or world(group) == 1:
+        return x
+    return _ReduceFromModel.apply(x, group)
+
+
+def all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every rank's block of ``x`` concatenated along ``dim`` in rank order
+    (contiguous, as the kernels take their operands)."""
+    if group is None or world(group) == 1:
+        return x
+    return all_gather_rows(x.movedim(dim, 0), group).movedim(0, dim).contiguous()

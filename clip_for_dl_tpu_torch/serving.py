@@ -17,6 +17,22 @@ batcher's ``max_pending``, 500 for a failure in the engine; ``GET
 (``native/bindings.py``: the bytes cv2 and the native runtime give, in RGB
 order); JPEG, BMP, TIFF and WebP, which the JAX server reads through cv2,
 get a 400 that names ROADMAP A2c.
+
+Serving over a process group (``serve --num-devices N [--tp T]``, the JAX
+server's engine on a mesh): every rank builds the engine, its prompt bank
+encoded collectively; rank 0 binds the HTTP server and runs the
+micro-batcher over a :class:`GroupEngine`, which broadcasts each batch's
+shape and then its uint8 rows before it dispatches the batch itself; every
+other rank runs :func:`follow`, which receives each batch and dispatches
+it, so that every rank scores its share (its data slice, its tower shard
+under TP) and the logits are gathered as the engine gathers them. Rank 0
+broadcasts a stop when it shuts down (on SIGINT or SIGTERM), and an idle
+beat while no batch comes, so that no rank waits in a collective past the
+group's timeout. A failure of the engine, or of a broadcast, on any rank
+is fatal to the group, since the ranks' collectives would fall out of
+step: that rank logs it and leaves (rank 0 shuts its server down, every
+later dispatch raises), and its exit fails the other ranks' pending
+collective at once under gloo, while under NCCL ``torchrun`` stops them.
 """
 
 from __future__ import annotations
@@ -34,7 +50,9 @@ from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from .core.device import to_device
 from .native.bindings import decode_png, resize_u8
 from .zeroshot.engine import HostCopy
 
@@ -315,6 +333,123 @@ def decode_request_image(body: bytes, content_type: str,
                              "TIFF and WebP are ROADMAP A2c)")
         raise ValueError("could not decode image bytes")
     return resize_u8(img, image_size, image_size)
+
+
+# what a header broadcast announces: a batch (its shape follows), an idle
+# beat, or the stop
+_BATCH, _IDLE, _STOP = 0, 1, 2
+_HEADER = 7  # kind, ndim, up to five dims
+# seconds without a batch after which rank 0 broadcasts an idle beat: far
+# inside the group's timeout, which a follower waiting for a batch must not
+# reach
+IDLE_BEAT_S = 60.0
+
+
+def _header(device, kind: int, shape=()) -> torch.Tensor:
+    h = torch.zeros(_HEADER, dtype=torch.int64, device=device)
+    h[0], h[1] = kind, len(shape)
+    if shape:
+        h[2:2 + len(shape)] = torch.tensor(shape, dtype=torch.int64)
+    return h
+
+
+class GroupEngine:
+    """Rank 0's view of an engine that runs over a process group: each
+    batch is broadcast to the other ranks (:func:`follow`) before this rank
+    dispatches it; the engine's own collectives then run on every rank.
+    One lock orders the broadcasts of the batcher's thread, the idle beat
+    and :meth:`stop`.
+
+    A failure of the engine or of a broadcast stops the engine for good
+    (``failed`` holds it; no stop is broadcast, every later dispatch
+    raises) and calls ``on_failure``, with which the server shuts down."""
+
+    def __init__(self, engine, group, on_failure: Optional[Callable[[], None]] = None):
+        self.engine, self.group = engine, group
+        self.device = engine.device
+        self.failed: Optional[BaseException] = None
+        self._on_failure = on_failure
+        self._src = dist.get_global_rank(group, 0)
+        self._lock = threading.Lock()
+        self._last = time.monotonic()
+        self._done = threading.Event()
+        self._beat = threading.Thread(target=self._idle_beats, daemon=True)
+        self._beat.start()
+
+    def _send(self, kind: int, shape=()) -> None:
+        dist.broadcast(_header(self.device, kind, shape), self._src, group=self.group)
+        self._last = time.monotonic()
+
+    def _fail(self, exc: BaseException) -> None:
+        """Under the lock: the group's end (see the class)."""
+        self.failed = exc
+        self._done.set()
+        logger.error("the engine failed under the process group (%r): the server stops", exc)
+        if self._on_failure is not None:
+            self._on_failure()
+
+    def _idle_beats(self) -> None:
+        while not self._done.wait(IDLE_BEAT_S / 4):
+            with self._lock:
+                if not self._done.is_set() and time.monotonic() - self._last >= IDLE_BEAT_S:
+                    try:
+                        self._send(_IDLE)
+                    except Exception as exc:
+                        self._fail(exc)
+
+    def _dispatch(self, images_u8):
+        with self._lock:
+            if self._done.is_set():
+                raise RuntimeError("the group engine has stopped")
+            try:
+                imgs = to_device(images_u8, self.device).contiguous()
+                self._send(_BATCH, tuple(imgs.shape))
+                dist.broadcast(imgs, self._src, group=self.group)
+                return self.engine._dispatch(imgs)
+            except Exception as exc:
+                self._fail(exc)
+                raise
+
+    def logits(self, images_u8) -> np.ndarray:
+        out, n_real = self._dispatch(images_u8)
+        return out.cpu().numpy()[:n_real]
+
+    def probs(self, images_u8) -> np.ndarray:
+        return 1.0 / (1.0 + np.exp(-self.logits(images_u8)))
+
+    def stop(self) -> None:
+        """The stop to every other rank (once, unless the group failed);
+        later dispatches raise."""
+        with self._lock:
+            if not self._done.is_set():
+                self._done.set()
+                self._send(_STOP)
+        self._beat.join()
+
+
+def follow(engine, group) -> int:
+    """A rank other than 0 while rank 0 serves: dispatch every batch rank 0
+    broadcasts until it broadcasts the stop; returns the batches run. A
+    failure here is logged and raised: the process leaves the group."""
+    src = dist.get_global_rank(group, 0)
+    batches = 0
+    try:
+        while True:
+            header = torch.empty(_HEADER, dtype=torch.int64, device=engine.device)
+            dist.broadcast(header, src, group=group)
+            kind, ndim, *dims = header.tolist()
+            if kind == _STOP:
+                return batches
+            if kind == _IDLE:
+                continue
+            imgs = torch.empty(dims[:ndim], dtype=torch.uint8, device=engine.device)
+            dist.broadcast(imgs, src, group=group)
+            engine._dispatch(imgs)
+            batches += 1
+    except Exception as exc:
+        logger.error("rank %d: the group failed after %d batches (%r): leaving it",
+                     dist.get_rank(), batches, exc)
+        raise
 
 
 class ZeroShotService:

@@ -1,5 +1,7 @@
 """The rank side of the CPU data-parallel tests (``tests/test_torch_dp.py``,
-``test_torch_global_batch.py``, ``test_torch_accum.py``).
+``test_torch_global_batch.py``, ``test_torch_accum.py``) and of the tensor
+and sequence parallel ones (``tests/test_torch_tp.py``, ``test_torch_sp.py``:
+each case builds its 2-D layout over the ranks, ``parallel.tp.create_dp_tp_mesh``).
 
 A test writes its cases to ``WORKDIR/cases.pkl`` (numpy arrays and plain
 values: flax-layout variables, model configurations, batches), starts N gloo
@@ -329,7 +331,8 @@ def _cli_case(case):
     """The command line (``cli.main(argv)``) on this rank of the group, with
     every preset's dropout at 0 (its rate has no flag) when the case says
     ``no_dropout``: the JAX CLI's run, patched the same way, then draws no
-    mask either."""
+    mask either. Returns the exit status and the logits of the batches the
+    zero-shot engine dispatched (None for a command without one)."""
     import dataclasses
     import importlib
     from unittest import mock
@@ -343,12 +346,230 @@ def _cli_case(case):
         cfg = real(name)
         return cfg.replace(model=dataclasses.replace(cfg.model, dropout=0.0))
 
+    from ..zeroshot.engine import ZeroShotEngine
+
+    logits, dispatch = [], ZeroShotEngine._dispatch
+
+    def recording(self, images):
+        out, n = dispatch(self, images)
+        logits.append(out[:n].float().cpu().numpy())
+        return out, n
+
     with mock.patch.object(config, "get_preset",
-                           no_dropout if case.get("no_dropout") else real):
-        return {"rc": cli.main(list(case["argv"]))}
+                           no_dropout if case.get("no_dropout") else real), \
+            mock.patch.object(ZeroShotEngine, "_dispatch", recording):
+        rc = cli.main(list(case["argv"]))
+    # the zero-shot engine's logits of every batch, as this rank holds them
+    return {"rc": rc, "logits": np.concatenate(logits) if logits else None}
 
 
-CASES = {"cli": _cli_case, "pretrain": _pretrain_like, "adapter": _pretrain_like, "shared": _pretrain_like,
+def _tp_tower(case):
+    """The case's bare tower (``bert``: ``BertEncoder``, ``vit``: ``ViT``)
+    in eval mode with its state dict."""
+    from ..models.bert import BertEncoder
+    from ..models.vit import ViT
+
+    kind = BertEncoder if case["tower"] == "bert" else ViT
+    tower = kind(**case["config"])
+    tower.load_state_dict({k: torch.from_numpy(v) for k, v in case["state"].items()})
+    return tower.to(device_of(case)).eval()
+
+
+def _tp_forward_case(case):
+    """The tower tensor-parallel over the case's layout, each data slice
+    fed its rows; the output gathered over the data axis."""
+    from ..parallel.collectives import all_gather_rows
+    from ..parallel.tp import create_dp_tp_mesh, tensor_parallel_
+
+    mesh = create_dp_tp_mesh(case["tp"])
+    tower = tensor_parallel_(_tp_tower(case), mesh)
+    rows = {k: shard_rows(v, mesh.data_index, mesh.data_size)
+            for k, v in tensors(case["inputs"], device_of(case)).items()}
+    with torch.no_grad(), fp32_exact():
+        out = tower(*rows.values())
+        if mesh.data_group is not None:
+            out = all_gather_rows(out, mesh.data_group)
+        return {"out": out.cpu().numpy()}
+
+
+@contextmanager
+def attention_seeds(seeds, mesh):
+    """``flash_attention.dropout_seeds`` replaced by the case's seeds of
+    each layer in turn (``seeds[i]`` [B, 1] over the global batch), this
+    rank's data slice of them: the JAX side draws the same per layer."""
+    from unittest import mock
+
+    from ..ops import flash_attention as fa
+
+    calls = []
+
+    def fixed(generator, batch, device=None):
+        t = torch.from_numpy(seeds[len(calls) % len(seeds)])
+        calls.append(batch)
+        return shard_rows(t, mesh.data_index, mesh.data_size).to(device)
+
+    with mock.patch.object(fa, "dropout_seeds", fixed):
+        yield calls
+
+
+def _tp_step_case(case):
+    """One AdamW pretrain step through ``tensor_parallel_step`` on the
+    case's layout (with ``plain``: the unsharded step in one process): the
+    attention dropout at the case's rate with its seeds, every other
+    dropout off (the JAX side patches flax's Dropout); returns the loss,
+    this rank's shard of the state after and of the clipped gradient. On a
+    card, in fp32 without TF32 (:func:`fp32_exact`)."""
+    with fp32_exact():
+        return _tp_step(case)
+
+
+def _tp_step(case):
+    from ..parallel.tp import (
+        create_dp_tp_mesh, shard_state_tp, step_groups, tensor_parallel_step,
+    )
+
+    mesh = create_dp_tp_mesh(1 if case.get("plain") else case["tp"])
+    model = model_from(case)
+    for name, m in model.named_modules():
+        if isinstance(m, torch.nn.Dropout) and not name.endswith("attention.self.dropout"):
+            m.p = 0.0
+    label_fn = make_label_fn(case["groups"])
+    opt = make_optimizer(model, label_fn, weight_decay=case["weight_decay"])
+    state = TrainState(model, opt)
+    prep = dict(image_size=case["image_size"], mean=case["mean"], std=case["std"],
+                compute_dtype=torch.float32, max_grad_norm=case["clip"])
+    if case.get("plain"):
+        step = make_clip_pretrain_step(model, opt, label_fn, "clip_self_distill", 2.0, **prep)
+    else:
+        state = shard_state_tp(state, mesh)
+        step = tensor_parallel_step(make_clip_pretrain_step(
+            model, opt, label_fn, "clip_self_distill", 2.0, **prep, **step_groups(mesh)), mesh)
+    dev = device_of(case)
+    with attention_seeds(case["seeds"], mesh) as calls:
+        state, metrics = step(state, tensors(case["batch"], dev), case["lrs"],
+                              mesh.generator(0, dev))
+    return {"loss": float(metrics["loss"]), "state": host_state(model),
+            "grads": {n: p.grad.cpu().numpy().copy() for n, p in model.named_parameters()},
+            "seed_calls": len(calls), "grid": mesh.grid.tolist()}
+
+
+def _tp_engine_case(case):
+    """The zero-shot engine on the case's layout (towers tensor-parallel,
+    images over the data axis) on the case's uneven batch."""
+    from ..core.config import DISEASE_LABELS, ZeroShotConfig
+    from ..parallel.tp import create_dp_tp_mesh
+    from ..text import BertTokenizer
+    from ..zeroshot import ZeroShotEngine, prompts_for_family
+
+    mesh = create_dp_tp_mesh(case["tp"])
+    with fp32_exact():
+        engine = ZeroShotEngine(model_from(case), BertTokenizer(case["vocab"]), DISEASE_LABELS,
+                                ZeroShotConfig(), image_size=case["image_size"],
+                                max_text_length=case["max_text_length"],
+                                compute_dtype=torch.float32, mesh=mesh)
+        engine.build_text_features(prompts_for_family("prediction", DISEASE_LABELS))
+        return {"logits": engine.logits(case["images"])}
+
+
+def _sp_case(case):
+    """``sequence_sharded_fn`` of the case's BERT on its layout."""
+    from ..parallel.sp import sequence_sharded_fn
+    from ..parallel.tp import create_dp_tp_mesh
+
+    mesh = create_dp_tp_mesh(case["tp"])
+    fn = sequence_sharded_fn(_tp_tower(case), mesh, tp_params=case["tp_params"])
+    with fp32_exact():
+        return {"out": fn(*tensors(case["inputs"], device_of(case)).values()).cpu().numpy()}
+
+
+class _RowSums:
+    """A stand-in engine for the group server's protocol: records each
+    batch it dispatches and scores a row by its sum; with ``fail_at``, its
+    dispatch of that batch (counted from 0) raises."""
+
+    device = torch.device("cpu")
+
+    def __init__(self, fail_at=None):
+        self.seen, self.fail_at = [], fail_at
+
+    def _dispatch(self, images):
+        if len(self.seen) == self.fail_at:
+            raise RuntimeError("the stand-in engine fails")
+        self.seen.append(images.tolist())
+        return images.double().sum(dim=tuple(range(1, images.dim())))[:, None], len(images)
+
+
+def _group_serve_case(case):
+    """Rank 0 runs a ``serving.GroupEngine`` over the world, idles past the
+    case's idle beat, dispatches the case's batches and stops; every other
+    rank follows. Returns the batches each rank dispatched, rank 0's logits
+    and the beats it sent."""
+    import time
+    from unittest import mock
+
+    from .. import serving
+
+    engine = _RowSums()
+    header, beats = serving._header, []
+
+    def counting(device, kind, shape=()):
+        beats.append(kind == serving._IDLE)
+        return header(device, kind, shape)
+
+    with mock.patch.object(serving, "IDLE_BEAT_S", case["beat"]), \
+            mock.patch.object(serving, "_header", counting):
+        if dist.get_rank():
+            return {"seen": engine.seen, "followed": serving.follow(engine, dist.group.WORLD)}
+        group_engine = serving.GroupEngine(engine, dist.group.WORLD)
+        time.sleep(case["idle"])
+        logits = [group_engine.logits(b) for b in case["batches"]]
+        group_engine.stop()
+        return {"seen": engine.seen, "logits": logits, "beats": sum(beats)}
+
+
+def _group_serve_fault_case(case):
+    """The group server's protocol when the engine of rank ``case["fail"]``
+    raises at batch ``case["at"]``. Rank 0 dispatches the case's batches
+    until its engine stops (its own failure, or the failure of its idle
+    beat's broadcast once the failed follower has left), then tries one
+    more; it returns what it saw and exits 0. A failed follower's
+    ``follow`` raises, and so does every follower's once rank 0 has left."""
+    import time
+    from unittest import mock
+
+    from .. import serving
+
+    me = dist.get_rank()
+    engine = _RowSums(case["at"] if me == case["fail"] else None)
+    with mock.patch.object(serving, "IDLE_BEAT_S", case["beat"]):
+        if me:
+            serving.follow(engine, dist.group.WORLD)
+            return {"followed": True}
+        calls = []
+        group_engine = serving.GroupEngine(engine, dist.group.WORLD,
+                                           on_failure=lambda: calls.append(time.monotonic()))
+        raised = []
+        for b in case["batches"]:
+            try:
+                group_engine.logits(b)
+            except RuntimeError as exc:
+                raised.append(str(exc))
+                break
+        deadline = time.monotonic() + case["wait"]
+        while group_engine.failed is None and time.monotonic() < deadline:
+            time.sleep(0.05)
+        try:
+            group_engine.logits(case["batches"][0])
+        except RuntimeError as exc:
+            raised.append(str(exc))
+        group_engine.stop()
+        return {"seen": len(engine.seen), "raised": raised, "on_failure": len(calls),
+                "failed": repr(group_engine.failed)}
+
+
+CASES = {"tp_forward": _tp_forward_case, "group_serve": _group_serve_case,
+         "group_serve_fault": _group_serve_fault_case, "tp_step": _tp_step_case,
+         "tp_engine": _tp_engine_case, "sp": _sp_case, "cli": _cli_case, "pretrain": _pretrain_like, "adapter": _pretrain_like, "shared": _pretrain_like,
          "multiview": _pretrain_like, "bn": _bn_case, "losses": _losses_case,
          "eval": _eval_case, "checkpoint": _checkpoint_case, "preempt": _preempt_case}
 
@@ -399,4 +620,51 @@ def launch(cases: dict, world: int, workdir: str, timeout: float = 180.0,
     for r in range(world):
         with open(os.path.join(workdir, f"out{r}.pkl"), "rb") as f:
             out.append(pickle.load(f))
+    return out
+
+
+def launch_unsupervised(cases: dict, world: int, workdir: str, timeout: float = 60.0) -> list:
+    """Run ``cases`` on ``world`` gloo ranks started as plain processes (no
+    ``torchrun`` to stop the others when one fails): a collective waits at
+    most ``timeout`` seconds. Returns each rank's (exit code, output,
+    results or None), in rank order; every rank is killed after
+    2·``timeout`` seconds."""
+    import socket
+    import subprocess
+    import sys
+
+    os.makedirs(workdir, exist_ok=True)
+    with open(os.path.join(workdir, "cases.pkl"), "wb") as f:
+        pickle.dump(cases, f)
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs, logs = [], []
+    for r in range(world):
+        env = dict(os.environ, RANK=str(r), LOCAL_RANK=str(r), WORLD_SIZE=str(world),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        logs.append(os.path.join(workdir, f"rank{r}.log"))
+        with open(logs[-1], "w") as out:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "clip_for_dl_tpu_torch.parallel.worker",
+                 f"{__name__}:run_cases", workdir, "--timeout", str(timeout)],
+                cwd=root, env=env, stdout=out, stderr=subprocess.STDOUT))
+    codes = []
+    for proc in procs:
+        try:
+            codes.append(proc.wait(2 * timeout))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            codes.append(proc.wait())
+    out = []
+    for r, code in enumerate(codes):
+        with open(logs[r]) as f:
+            text = f.read()
+        path = os.path.join(workdir, f"out{r}.pkl")
+        results = None
+        if os.path.exists(path):
+            with open(path, "rb") as f:
+                results = pickle.load(f)
+        out.append((code, text, results))
     return out

@@ -153,12 +153,29 @@ def set_group_lrs(optimizer: torch.optim.Optimizer, lrs: Mapping[str, float]) ->
 
 
 @torch.no_grad()
-def clip_by_global_norm_(params: Iterable[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(params: Iterable[torch.Tensor], max_norm: float,
+                         model_group=None) -> torch.Tensor:
     """Scale the gradients of ``params`` in place as optax's
     ``clip_by_global_norm`` does; returns the global norm (a device tensor,
-    so no host sync). Every parameter must have a gradient."""
+    so no host sync). Every parameter must have a gradient. With
+    ``model_group`` (tensor parallelism) the squares of the sharded
+    parameters' gradients (those ``parallel.tp`` marked with ``tp_spec``)
+    are summed over the group, each replicated one counted once."""
+    params = list(params)
     grads = [p.grad for p in params]
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    if model_group is not None:
+        norms = torch._foreach_norm(grads)
+        sharded = [n for p, n in zip(params, norms) if getattr(p, "tp_spec", None)]
+        rest = [n for p, n in zip(params, norms) if not getattr(p, "tp_spec", None)]
+        sq = grads[0].new_zeros((), dtype=torch.float32)
+        if sharded:
+            sq = torch.stack(sharded).float().square().sum()
+        torch.distributed.all_reduce(sq, group=model_group)
+        if rest:
+            sq = sq + torch.stack(rest).float().square().sum()
+        norm = sq.sqrt()
+    else:
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
     torch._foreach_div_(grads, torch.clamp_min(norm, max_norm))
     torch._foreach_mul_(grads, max_norm)
     return norm

@@ -185,6 +185,7 @@ def make_clip_pretrain_step(
     ema_decay: float = 0.0,
     group=None,
     local_loss: bool = False,
+    model_group=None,
 ):
     """The phase-A step for ``model`` and ``optimizer`` (built by
     ``optim.make_optimizer`` with ``label_fn``); the state passed to the step
@@ -193,7 +194,10 @@ def make_clip_pretrain_step(
     moves ``state.ema_params`` after each update, when the state has them
     (``TrainState.create(..., ema=True)``). ``local_loss`` (with ``group``)
     is the JAX step's ``local_loss_mesh``: the contrastive loss in block
-    form, each rank scoring its [b, B_global] block (siglip: the ring)."""
+    form, each rank scoring its [b, B_global] block (siglip: the ring).
+    ``model_group`` is tensor parallelism's (``parallel/tp.py
+    step_groups``, ``group`` then the data group): the clip sums the
+    sharded parameters' squares over it."""
     contrastive = _contrastive(loss_name, temperature, group, local_loss)
     params = _check_groups(model, optimizer, label_fn)
     names = [n for n, _ in model.named_parameters()]
@@ -220,7 +224,7 @@ def make_clip_pretrain_step(
                 p.grad = torch.zeros_like(p)
         _reduce_grads(params, group)
         if max_grad_norm is not None:
-            clip_by_global_norm_(params, max_grad_norm)
+            clip_by_global_norm_(params, max_grad_norm, model_group)
         optimizer.step()
         if scale is not None:
             # the parameter itself is clamped (open-CLIP): a clamp in the

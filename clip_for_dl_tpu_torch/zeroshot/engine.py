@@ -22,6 +22,10 @@ With ``group`` (``zeroshot --num-devices``, the JAX engine's 1-D mesh),
 every rank is handed the same batch: the rows are padded to a multiple of
 the ranks, each rank scores its contiguous slice, and the logits of every
 rank are gathered in rank order, so that each rank holds the batch's.
+With ``mesh`` (``--tp``, the JAX engine's 2-D ``(data, model)`` mesh) the
+towers are tensor-parallel over the model axis (``parallel/tp.py``; the
+engine shards the model it is given) and the batch shards over the data
+axis as above; the prompt bank is encoded on every rank, collectively.
 """
 
 from __future__ import annotations
@@ -125,7 +129,16 @@ class ZeroShotEngine:
         compute_dtype: torch.dtype = torch.bfloat16,
         use_enhance: bool = False,
         group=None,
+        mesh=None,
     ):
+        if mesh is not None:
+            if group is not None:
+                raise ValueError("pass a group or a mesh, not both")
+            if mesh.model_size > 1:
+                from ..parallel.tp import tensor_parallel_
+
+                tensor_parallel_(model, mesh)
+            group = mesh.data_group
         self.model = model.eval()
         self.group = group
         self.device = next(model.parameters()).device

@@ -220,20 +220,20 @@ def test_parser_takes_every_jax_command_and_flag():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["serve", "--exported", "artifact", "--tp", "2"], "A7b"),
-    (["serve", "--tp", "2"], "A7b"),
     (["pretrain", "--lora", "4", "--pp", "2"], "A7b"),
-    (["zeroshot", "--tp", "2"], "A7b"), (["pretrain", "--pp", "2"], "A7b"),
+    (["pretrain", "--pp", "2"], "A7b"),
     (["pretrain", "--ep", "2"], "A7b"),
     (["pretrain", "--moe-experts", "4"], "A7b"),
-    (["serve", "--num-devices", "2"], "A7b"), (["eval", "--num-processes", "2"], "A7b"),
+    (["eval", "--num-processes", "2"], "A7b"),
+    (["serve", "--tp", "2", "--moe-experts", "4"], "A7b"),
+    (["zeroshot", "--moe-experts", "2"], "A7b"), (["gradcam", "--num-processes", "2"], "A7b"),
     (["pretrain", "--remat"], "not ported"), (["zeroshot", "--bf16-attention-probs"], "not ported"),
 ], ids=lambda v: "_".join(v) if isinstance(v, list) else v)
 def test_unported_commands_and_flags_exit_2(argv, item, capsys):
     """A command or flag the port does not run exits with status 2 before
-    anything runs, naming the ROADMAP item that owns it: tensor, pipeline
-    and expert parallelism, MoE, data-parallel serving and the other
-    commands' multi-process runs are A7b."""
+    anything runs, naming the ROADMAP item that owns it: pipeline and
+    expert parallelism, MoE and the other commands' multi-process runs are
+    A7b."""
     assert cli.main(argv) == 2
     err = capsys.readouterr().err
     assert (f"ROADMAP {item})" if item != "not ported" else "(not ported") in err, err
@@ -994,3 +994,194 @@ def test_zeroshot_over_two_virtual_devices_writes_the_single_process_results(lay
             except ValueError:
                 assert x == y
     assert sorted(os.listdir(dp)) == sorted(os.listdir(single))
+
+
+# -- tensor parallelism and serving over a group (ROADMAP A7b) -------------------------
+
+
+def _jax_literal_messages(*functions):
+    """The string messages of the ``SystemExit`` calls in the JAX CLI's
+    ``functions`` (adjacent literals joined, as Python joins them)."""
+    import ast
+    import inspect
+
+    out = set()
+    for f in functions:
+        tree = ast.parse(inspect.getsource(f).lstrip())
+        out |= {a.value for node in ast.walk(tree)
+                if isinstance(node, ast.Call) and getattr(node.func, "id", None) == "SystemExit"
+                for a in node.args if isinstance(a, ast.Constant)}
+    return out
+
+
+def _jax_tp_message(argv):
+    """What the JAX package says to the TP flags of ``argv`` (``--tiny``:
+    2 heads, MLP 128): its ``validate_tp`` on the text tower, or its 2-D
+    mesh over ``--num-devices``."""
+    from clip_for_dl_tpu.parallel import create_dp_tp_mesh as jmesh
+    from clip_for_dl_tpu.parallel import validate_tp as jvalidate
+
+    t, n = int(argv[argv.index("--tp") + 1]), int(argv[argv.index("--num-devices") + 1])
+    try:
+        jvalidate(2, 128, t)
+        jmesh(t, num_devices=n)
+    except ValueError as e:
+        return str(e)
+    raise AssertionError(f"the JAX package takes {argv}")
+
+
+@pytest.mark.parametrize("argv,message", [
+    (["serve", "--exported", "art", "--tp", "2"],
+     "--tp does not compose with --exported (the serialized module is a single-device "
+     "program)"),
+    (["serve", "--head", "adapter", "--tp", "2"], "--tp does not compose with --head adapter"),
+    (["zeroshot", "--fused-mlp", "--tp", "2"],
+     "--fused-mlp composes with data parallelism only (not --tp/--pp/--ep)"),
+    (["serve", "--fused-mlp", "--tp", "2", "--virtual-devices", "2", "--num-devices", "2"],
+     "--fused-mlp composes with data parallelism only (not --tp/--pp/--ep)"),
+    (["zeroshot", "--tp", "4", "--virtual-devices", "4", "--num-devices", "4"], None),
+    (["serve", "--tp", "2", "--virtual-devices", "3", "--num-devices", "3"], None),
+], ids=lambda v: "_".join(v)[:60] if isinstance(v, list) else None)
+def test_tp_refusals_are_the_jax_clis(argv, message, monkeypatch):
+    """``--tp``'s refusals, word for word the JAX CLI's (its ``cmd_serve``
+    and ``_apply_tiny`` literals; its ``validate_tp`` and 2-D mesh for the
+    degrees), before any rank starts."""
+    monkeypatch.setenv("CLIP_FOR_DL_TPU_FORCE_CPU", "1")
+    with pytest.raises(SystemExit) as e:
+        cli.main([*argv, "--tiny", "--synthetic"])
+    if message is None:
+        message = _jax_tp_message(argv)
+    else:
+        assert message in _jax_literal_messages(jcli.cmd_serve, jcli._apply_tiny)
+    assert e.value.code == message
+
+
+def test_zeroshot_tp_over_four_virtual_devices_matches_the_jax_cli(layout, jax_pth, tmp_path):
+    """``zeroshot --num-devices 4 --tp 2`` on four gloo ranks (2 x 2, the
+    towers tensor-parallel; run by ``testing.ranks``, which records each
+    rank's logits) against the JAX CLI's ``--num-devices 4 --tp 2`` on its
+    2 x 2 mesh, with test_zeroshot_matches_the_jax_cli's bounds: per-view
+    probabilities within TOL on every rank, and the CSV's rows: true labels
+    equal, each exam's top-k set equal where
+    both views' k-th and (k+1)-th probabilities lie further apart than
+    twice the measured difference."""
+    from clip_for_dl_tpu_torch.testing import ranks
+
+    flags = ["zeroshot", *data_flags(layout), "--checkpoint", jax_pth[0], "--num-devices",
+             "4", "--tp", "2"]
+    port, jlog = str(tmp_path / "port"), str(tmp_path / "jax")
+    out = ranks.launch({"cli": dict(kind="cli", argv=flags + ["--log-dir", port])}, 4,
+                       str(tmp_path / "ranks"))
+    assert [r["cli"]["rc"] for r in out] == [0] * 4
+    with recorded_logits(JZeroShotEngine, np.asarray) as logits:
+        rc, jstdout = run(jcli.main, flags + ["--log-dir", jlog])
+    assert rc == 0
+    want = 1 / (1 + np.exp(-np.concatenate(logits).astype(np.float64)))
+    err = 0.0
+    for r in out:
+        got = 1 / (1 + np.exp(-r["cli"]["logits"].astype(np.float64)))
+        assert got.shape == want.shape
+        err = max(err, float(np.abs(got - want).max()))
+    assert err <= TOL
+    lg = np.log(want / (1 - want))
+    sm = np.exp(lg - lg.max(1, keepdims=True))
+    sm = np.sort(sm / sm.sum(1, keepdims=True), axis=1)[:, ::-1]
+    decided = (sm[:, 2] - sm[:, 3]).reshape(-1, 2).min(1) > 2 * err
+    _, rows = read_rows(os.path.join(port, "zero_shot_results.csv"))
+    _, jrows = read_rows(os.path.join(jlog, "zero_shot_results.csv"))
+    assert len(rows) == len(jrows) > 0
+    for r, j, d in zip(rows, jrows, decided):
+        if d:
+            assert set(r[0].split("; ")) == set(j[0].split("; "))
+        assert r[2] == j[2]
+    assert sorted(os.listdir(port)) == sorted(os.listdir(jlog))
+
+
+def test_serve_over_two_ranks_answers_as_one_process_and_stops_both(layout, jax_pth, tmp_path):
+    """``serve --virtual-devices 2 --num-devices 2 --tp 2`` as a child: rank
+    0 serves, rank 1 follows its batches with its half of the towers; three
+    requests (one alone, two together) answer the single-process engine's
+    probabilities within 1e-5 (fp32 sums over the two shards); SIGTERM to
+    the command stops both ranks (rank 0 broadcasts the stop, rank 1
+    reports it) within the wait, and the command exits 0 as one process
+    does."""
+    import http.client
+    import re
+    import signal
+    import subprocess
+    import sys
+    import threading
+    import time
+
+    from clip_for_dl_tpu_torch.serving import decode_request_image
+
+    pngs = sorted(os.listdir(layout["image_dir"]))
+    pngs = [os.path.join(layout["image_dir"], p) for p in pngs if p.endswith(".png")][:3]
+    bodies = []
+    for p in pngs:
+        with open(p, "rb") as f:
+            bodies.append(f.read())
+    flags = ["serve", "--tiny", "--fp32", "--checkpoint", jax_pth[0], "--buckets", "1", "4"]
+    args = cli.build_parser().parse_args(flags)
+    args.device = torch.device("cpu")
+    tok = cli._tokenizer(args)
+    cfg = cli._apply_tiny(cli._preset(args), args, len(tok.vocab))
+    engine = cli._live_engine(cfg, args, tok)
+    size = cfg.model.image_size
+    want = [engine.probs(decode_request_image(b, "image/png", size)[None])[0] for b in bodies]
+
+    env = dict(os.environ, CLIP_FOR_DL_TPU_FORCE_CPU="1", PYTHONUNBUFFERED="1")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    child = subprocess.Popen(
+        [sys.executable, "-m", "clip_for_dl_tpu_torch", *flags, "--virtual-devices", "2",
+         "--num-devices", "2", "--tp", "2", "--host", "127.0.0.1", "--port", "0",
+         "--log-dir", str(tmp_path / "logs")],
+        cwd=root, env=env, stderr=subprocess.PIPE, stdout=subprocess.DEVNULL, text=True)
+    lines, port = [], []
+
+    def drain():
+        for line in child.stderr:
+            lines.append(line)
+            m = re.search(r"serving on http://[\d.]+:(\d+)", line)
+            if m:
+                port.append(int(m.group(1)))
+
+    reader = threading.Thread(target=drain, daemon=True)
+    reader.start()
+    try:
+        deadline = time.monotonic() + 150
+        while not port and time.monotonic() < deadline and child.poll() is None:
+            time.sleep(0.2)
+        assert port, "".join(lines)
+
+        def predict(body):
+            conn = http.client.HTTPConnection("127.0.0.1", port[0], timeout=60)
+            conn.request("POST", "/predict", body=body, headers={"Content-Type": "image/png"})
+            resp = conn.getresponse()
+            payload = json.loads(resp.read())
+            conn.close()
+            assert resp.status == 200, payload
+            return np.array([payload["probs"][d] for d in DISEASE_LABELS])
+
+        got = [predict(bodies[0])]
+        pair = [None, None]
+        threads = [threading.Thread(target=lambda i=i: pair.__setitem__(i, predict(bodies[i + 1])))
+                   for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        got += pair
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g, w, atol=1e-5, rtol=0)
+        child.send_signal(signal.SIGTERM)
+        child.wait(90)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    reader.join(10)
+    text = "".join(lines)
+    assert "shutting down" in text, text[-3000:]
+    assert re.search(r"rank 1 ran \d+ batches; stopped by rank 0", text), text[-3000:]
+    assert child.returncode == 0, text[-3000:]

@@ -369,9 +369,14 @@ def test_serve_exported_rejects_what_does_not_compose(tool_artifact, monkeypatch
         _cli().main(["serve", "--exported", tool_artifact] + extra)
 
 
-def test_serve_exported_tp_names_a7(tool_artifact, capsys):
-    assert _cli().main(["serve", "--exported", tool_artifact, "--tp", "2"]) == 2
-    assert "ROADMAP A7" in capsys.readouterr().err
+def test_serve_exported_tp_names_a7(tool_artifact, monkeypatch):
+    """``--tp`` is ported (ROADMAP A7b); with ``--exported`` it is refused
+    with the JAX CLI's message, as the JAX server refuses it."""
+    monkeypatch.setenv("CLIP_FOR_DL_TPU_FORCE_CPU", "1")
+    with pytest.raises(SystemExit) as e:
+        _cli().main(["serve", "--exported", tool_artifact, "--tp", "2"])
+    assert e.value.code == ("--tp does not compose with --exported (the serialized module is "
+                            "a single-device program)")
 
 
 def test_serve_exported_command_answers(tool_artifact, tmp_path):

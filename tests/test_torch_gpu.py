@@ -2072,3 +2072,178 @@ def test_global_batch_losses_over_nccl_equal_the_plain_losses(cuda, tmp_path):
             np.testing.assert_allclose(got[name][key], want,
                                        atol=5e-5 * float(np.abs(want).max()) + 1e-12, rtol=0,
                                        err_msg=f"{name} {key}")
+
+
+# -- tensor and sequence parallelism (ROADMAP A7b) ---------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32])
+@pytest.mark.parametrize("t", [2, 4])
+def test_head_offset_kernels_equal_the_unsharded_heads(cuda, t, dtype):
+    """B3 and B6 on each tensor-parallel rank's heads with ``head_offset``
+    (dropout 0.1, padded keys): bit for bit the unsharded kernel's heads;
+    offset 0 bit for bit the call without it."""
+    B, N, H, D = 4, 200, 12, 64
+    g = torch.Generator(cuda).manual_seed(3)
+    qkv = torch.randn(B, N, 3 * H * D, device=cuda, generator=g).to(dtype)
+    do = torch.randn(B, N, H * D, device=cuda, generator=g).to(dtype)
+    lengths = torch.randint(3, N + 1, (B, 1), device=cuda, generator=g)
+    bias = torch.where(torch.arange(N, device=cuda)[None] < lengths, 0.0, -1e10)
+    kw = dict(dropout_rate=0.1, dropout_seeds=fa.dropout_seeds(g, B, cuda))
+    full = fa.flash_attention_packed(qkv, H, bias, **kw).view(B, N, H, D)
+    dfull = fa.flash_attention_packed_bwd(qkv, do, H, bias, **kw).view(B, N, 3, H, D)
+    assert torch.equal(fa.flash_attention_packed(qkv, H, bias, **kw, head_offset=0),
+                       full.reshape(B, N, -1))
+    h = H // t
+    for r in range(t):
+        sl = slice(r * h, (r + 1) * h)
+        local = torch.cat([x[:, :, sl].reshape(B, N, -1)
+                           for x in qkv.view(B, N, 3, H, D).unbind(2)], -1)
+        dl = do.view(B, N, H, D)[:, :, sl].reshape(B, N, -1).contiguous()
+        got = fa.flash_attention_packed(local, h, bias, **kw, head_offset=r * h)
+        assert torch.equal(got, full[:, :, sl].reshape(B, N, -1)), r
+        dgot = fa.flash_attention_packed_bwd(local, dl, h, bias, **kw, head_offset=r * h)
+        assert torch.equal(dgot.view(B, N, 3, h, D), dfull[:, :, :, sl]), r
+
+
+@pytest.mark.parametrize("kind", ["bert", "vit"])
+def test_tp_layer_shares_on_the_card(cuda, kind):
+    """Every rank's share of a bf16 layer (hidden 256, 4 heads, MLP 1024:
+    B3/B6 at a head, B4/B8 at F/tp) run one after another on the card, the
+    partials summed here, against the unsharded layer on the kernels: the
+    output and the input gradient within four bf16 steps of their largest
+    entry, each weight's gradient at cosine 0.999 (chip_smoke.py phase 16's
+    rule, TOL tp_layer_rel and tp_grad_cos)."""
+    import copy
+
+    from clip_for_dl_tpu_torch.core.device import cast_in_forward, plain_name
+    from clip_for_dl_tpu_torch.models import bert as bert_module
+    from clip_for_dl_tpu_torch.models import init_weights
+    from clip_for_dl_tpu_torch.models import vit as vit_module
+    from clip_for_dl_tpu_torch.parallel import tp
+    from clip_for_dl_tpu_torch.parallel.common import Mesh2D, rank_grid
+
+    g = torch.Generator(cuda).manual_seed(5)
+    if kind == "bert":
+        base = bert_module.BertLayer(256, 4, 1024, dropout=0.1, flash=True, fused_mlp=True)
+        bias = torch.zeros(8, 128, device=cuda)
+        bias[::3, 100:] = -1e10
+        run = lambda layers, x: bert_module.layer_shares(
+            layers, x, bias, torch.Generator(cuda).manual_seed(1))
+    else:
+        base = vit_module.ViTEncoderLayer(256, 4, 1024, flash=True, fused_mlp_train=True)
+        run = lambda layers, x: vit_module.layer_shares(layers, x)
+    base = init_weights(base.to(cuda), g).train()
+    mesh = lambda t, r: Mesh2D(rank_grid(t, t), ("data", "model"), r, None, None)
+    shard = lambda t, r: cast_in_forward(tp.tensor_parallel_(copy.deepcopy(base), mesh(t, r),
+                                                             share=r), torch.bfloat16)
+    x = torch.randn(8, 128, 256, device=cuda, generator=g).bfloat16().requires_grad_()
+    whole = shard(1, 0)
+    want = run([whole], x)
+    dy = (torch.randn(want.shape, device=cuda, generator=g) * 0.1).bfloat16()
+    want.backward(dy)
+    wx, x.grad = x.grad.clone(), None
+    wgrads = {plain_name(n): p.grad.float() for n, p in whole.named_parameters()}
+    top = max(float(w.norm()) for w in wgrads.values())
+    for t in (2, 4):
+        shares = [shard(t, r) for r in range(t)]
+        got = run(shares, x)
+        got.backward(dy)
+        for a, b in ((got.detach(), want.detach()), (x.grad, wx)):
+            assert float((a.float() - b.float()).abs().max()) <= 2.0 ** -5 * float(
+                b.float().abs().max())
+        grads = [{plain_name(n): p.grad for n, p in s.named_parameters()} for s in shares]
+        for n, w in wgrads.items():
+            if float(w.norm()) < 1e-3 * top:  # the key bias: zero but for rounding
+                continue
+            gathered = tp.gather_tensor([s[n] for s in grads], tp.layer_spec(n, w)).float()
+            cos = torch.nn.functional.cosine_similarity(gathered.flatten(), w.flatten(), dim=0)
+            assert float(cos) >= 0.999, (n, float(cos))
+        x.grad = None
+
+
+@pytest.fixture(scope="module")
+def nccl_tp(tmp_path_factory):
+    """The tensor and sequence parallel cases of ``testing.ranks`` run once
+    by one NCCL rank (tp 1 over the group of one card): a narrow BERT
+    forward, the pretrain step with attention dropout 0.1, the engine and
+    sequence_sharded_fn, from the port's seeded init."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    import numpy as np
+
+    from clip_for_dl_tpu_torch.models.bert import BertEncoder
+    from clip_for_dl_tpu_torch.testing import ranks
+    from clip_for_dl_tpu_torch.text.tokenizer import build_dev_vocab
+    from clip_for_dl_tpu_torch.core.config import DISEASE_LABELS
+
+    torch.manual_seed(0)
+    bert = dict(vocab_size=128, hidden=128, layers=2, heads=2, intermediate=256,
+                max_position=64, flash=True)
+    state = {k: v.numpy() for k, v in BertEncoder(**bert).state_dict().items()}
+    rng = np.random.default_rng(2)
+    mask = np.ones((4, 50), np.int32)
+    mask[:, 45:] = 0
+    text = {"ids": rng.integers(0, 128, (4, 50)).astype(np.int32), "mask": mask}
+    step = _dp_case(config=dict(_dp_case()["config"], dropout=0.1), adamw=True,
+                    seeds=[rng.integers(-2 ** 31, 2 ** 31, (16, 1)).astype(np.int32)
+                           for _ in range(2)], groups=["text_tower", "image_tower"],
+                    lrs={"text_tower": 1e-3, "image_tower": 1e-3, "default": 0.0},
+                    weight_decay=1e-3, tp=1)
+    step["kind"] = "tp_step"
+    vocab = build_dev_vocab(DISEASE_LABELS)
+    engine = dict(kind="tp_engine", tp=1, device="cuda", seed=4, vocab=vocab,
+                  config=dict(_dp_case()["config"], vocab_size=len(vocab)), image_size=64,
+                  max_text_length=24,
+                  images=rng.integers(0, 255, (10, 64, 64, 3), dtype=np.uint8))
+    cases = {"fwd": dict(kind="tp_forward", tower="bert", config=bert, state=state,
+                         inputs=text, tp=1, device="cuda"),
+             "sp": dict(kind="sp", tower="bert", config=bert, state=state, inputs=text, tp=1,
+                        tp_params=False, device="cuda"),
+             "sp_tp": dict(kind="sp", tower="bert", config=bert, state=state, inputs=text,
+                           tp=1, tp_params=True, device="cuda"),
+             "step": step, "engine": engine}
+    return cases, ranks.launch(cases, 1, str(tmp_path_factory.mktemp("nccl_tp")), timeout=300,
+                               device="cuda")[0]
+
+
+def test_tp_cases_over_nccl_equal_the_plain_runs(cuda, nccl_tp):
+    """Over one NCCL rank (fp32, TF32 off): the BERT forward through the
+    TP layers at tp 1 and sequence_sharded_fn (replicated) bit for bit the
+    plain forward on the card, with tp_params within 1e-5; the TP step
+    (attention dropout 0.1 through the fixed seeds, BatchNorm over the
+    group's data axis) against the plain step as the data-parallel cases
+    above: the loss within 1e-5 relative, each module's clipped gradient
+    at cosine 0.9999; the engine's logits within 1e-5 of the plain
+    engine's."""
+    import numpy as np
+
+    from clip_for_dl_tpu_torch.core.config import DISEASE_LABELS, ZeroShotConfig
+    from clip_for_dl_tpu_torch.testing import ranks
+    from clip_for_dl_tpu_torch.text import BertTokenizer
+    from clip_for_dl_tpu_torch.zeroshot import ZeroShotEngine, prompts_for_family
+
+    cases, out = nccl_tp
+    with ranks.fp32_exact(), torch.no_grad():
+        tower = ranks._tp_tower(cases["fwd"])
+        want = tower(*ranks.tensors(cases["fwd"]["inputs"], cuda).values()).cpu().numpy()
+    assert np.array_equal(out["fwd"]["out"], want)
+    assert np.array_equal(out["sp"]["out"], want)
+    np.testing.assert_allclose(out["sp_tp"]["out"], want, atol=1e-5, rtol=0)
+    plain = ranks._tp_step_case(dict(cases["step"], plain=True))
+    assert out["step"]["loss"] == pytest.approx(plain["loss"], rel=1e-5)
+    assert out["step"]["seed_calls"] == plain["seed_calls"] == 2
+    for group in {k.split(".")[0] for k in plain["grads"]}:
+        keys = sorted(k for k in plain["grads"] if k.split(".")[0] == group)
+        a = np.concatenate([out["step"]["grads"][k].ravel() for k in keys]).astype(np.float64)
+        b = np.concatenate([plain["grads"][k].ravel() for k in keys]).astype(np.float64)
+        if np.abs(b).max() > 0:
+            assert a @ b / (np.linalg.norm(a) * np.linalg.norm(b)) >= 0.9999, group
+    case = cases["engine"]
+    with ranks.fp32_exact():
+        engine = ZeroShotEngine(ranks.model_from(case), BertTokenizer(case["vocab"]),
+                                DISEASE_LABELS, ZeroShotConfig(), image_size=64,
+                                max_text_length=24, compute_dtype=torch.float32)
+        engine.build_text_features(prompts_for_family("prediction", DISEASE_LABELS))
+        np.testing.assert_allclose(out["engine"]["logits"], engine.logits(case["images"]),
+                                   atol=1e-5, rtol=0)
