@@ -4,8 +4,9 @@ its phase-A train step, its split-q/k/v attention entry point, the chain
 pretrain -> adapter (phase B), the fp32 parity mode, the evaluation from
 files, the command line, its HTTP server, its multi-view training, its ViT
 training and LoRA, Grad-CAM and attention rollout, and its exported programs
-once on one CUDA GPU, and its data, tensor and sequence parallelism and its
-serving over every card of the host (phases 15 and 16; one card is enough).
+once on one CUDA GPU, and its data, tensor, sequence and expert parallelism,
+its MoE text tower and its serving over every card of the host (phases 15
+to 17; one card is enough).
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -362,6 +363,40 @@ c8_cases).
    data slice): concurrent requests answered, SIGTERM stops every rank
    (rank 0 broadcasts the stop, each follower reports it); every rank's
    launches count as path@rankN.
+17. The Switch-MoE text tower, routing over a group, expert parallelism
+   (ROADMAP A7b items 1-2), after phase 16, on phase 9's files. (a) On this
+   card: one MoE layer at BERT-base width (768 -> 3072, 8 experts,
+   capacity 1.25) on 128 reports of 200 tokens with their real padding,
+   the bf16 layer against its fp32 route (TOL moe_bf16_rel); each expert
+   product against the fp32 product of its operands (TOL moe_product_rel)
+   and its experts before the final cast against fp32 on its bf16
+   operands (TOL moe_products_rel), which a planted fault (products
+   rounded to bf16) must fail; every ep share (2, 4, 8) run one after another and summed,
+   against the unsharded layer: the output, the aux loss and every
+   gradient bit for bit; the time of one batched product over the experts
+   and of a product an expert; the tokens routed and dropped by each
+   expert, the aux loss. (b) pretrain_clip's step with the MoE text tower
+   at B = 128: the first step against the plain route (train_loss_rel,
+   grad_cos); 10 synced steps (path moe_train), samples/s and peak memory
+   beside phase 4's and beside the same step with a product an expert, the
+   launches a step (B3 and B6 12, B4 and B8 6), each kernel held at its
+   first inputs. (c) ``pretrain --moe-experts 8`` and ``zeroshot
+   --moe-experts 8`` of its checkpoint (paths cli_pretrain_moe,
+   cli_zeroshot_moe); ``zeroshot`` without the flag refused by the
+   missing-tensor guard. (d) ``torchrun --nproc-per-node <cards>
+   chip_smoke.py --phase17-rank DIR``: ``pretrain --num-devices <cards>
+   --moe-experts 8`` (path cli_dp_pretrain_moe), its first step against
+   the single-device step on the global batch (fp32 route, TOL dp_bn
+   fp32), its MoE text tower routing over the group against one card (bit
+   for bit at world size 1; on the fp32 route at a capacity factor that
+   drops tokens, at TOL moe_group_fp32_rel, which per-rank routing,
+   planted, must fail);
+   with more than one card, ``pretrain --num-devices <cards> --ep 2
+   --fp32`` (path cli_ep_pretrain_moe: its feed, its first step against
+   one card, its whole checkpoint) and the step through
+   ``expert_parallel_step`` at ep 2 and 4 against the data-parallel step
+   (fp32 route, TOL dp_bn fp32), and each route's samples/s in bf16
+   (paths ep_step_{ep}); every path's kernels held at their first inputs.
 
 The second-to-last line is the kernels JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -596,6 +631,49 @@ TOL = {
     # tolerances, and B3/B6 on a rank's heads bit for bit the unsharded ones
     "tp_layer_rel": 2.0 ** -5,
     "tp_grad_cos": 0.999,
+    # phase 17 (a), the bf16 MoE layer (fp32 masters cast in the forward)
+    # against its fp32 route on the same bf16 input, relative to the
+    # output's largest entry: the router runs in fp32 on the same values in
+    # both, so both route alike; wi and wo round to bf16 (2^-9 relative),
+    # and so do the hidden between the products and the output: each output
+    # entry moves by a few of its own bf16 steps, four steps of the largest
+    # entry (2^-6) bound them
+    "moe_bf16_rel": 2.0 ** -6,
+    # phase 17 (a), each expert product of the bf16 layer (its [E, C, K] x
+    # [E, K, N] batched product, forward and backward) against the fp32
+    # product of the same bf16 operands, TF32 off, relative to the
+    # output's largest entry: both sum exact products in fp32, in other
+    # orders (K ≤ 4000 terms: ~1e-6 typical, at most ~2e-5 of the largest
+    # where the tensor cores' accumulator adds blocks in another order).
+    # Products rounded to bf16, the fault this holds, move the largest
+    # entries by up to half their bf16 step, ~2^-9 of the largest; phase 17
+    # (a) plants that fault and must see it fail
+    "moe_product_rel": 2.0 ** -14,
+    # phase 17 (a), the whole layer's experts before the final cast (fp32:
+    # the products, the biases, GELU, the gate) against an fp32 reference on
+    # the same bf16 operands (x, wi, wo, and the hidden rounded to bf16
+    # between the products), relative to the largest entry. On top of the
+    # products' sums, a hidden entry that they move across a bf16 rounding
+    # boundary moves the output by one bf16 step of that entry times a
+    # weight: 3.126e-4 on an H100 80GB HBM3 at 700 W (PERF.md, the MoE
+    # findings), the planted bf16-product fault 3.995e-3. Held between the
+    # two
+    "moe_products_rel": 2.0 ** -10,
+    # phase 17 (d), the MoE text tower on the fp32 route at a capacity
+    # factor that drops tokens in every MoE layer, routing over the group
+    # against one card routing the global batch: the features relative to the largest
+    # entry (fp32 sums in other orders, ~1e-6), the text tower's gradient
+    # summed over the ranks at fp32_grad_cos. The planted fault, each rank
+    # routing its own rows alone, drops other tokens and must fail it
+    "moe_group_fp32_rel": 1e-4,
+    # phase 17 (d), ``pretrain --ep 2 --fp32``'s first-step loss at the
+    # command's B = 16 against one card's fp32 step on the same batch and
+    # weights: BatchNorm's sums over a data group of a few rows in other
+    # orders, at this batch 8.2e-6 relative for the --num-devices 4 step and
+    # 1.05e-5 for --ep 2 on four H100 80GB HBM3 at 700 W (PERF.md), where
+    # dp_bn's fp32 1e-5 was set at B = 128; a wrong feed or expert shard
+    # moves the loss by orders more
+    "moe_ep_command_rel": 5e-5,
 }
 
 SRC = "clip_for_dl_tpu_torch/csrc/"
@@ -736,6 +814,16 @@ PATHS = {  # main path -> the kernels it must launch
     "cli_tp_zeroshot": ("similarity", "image_prep", "flash_attention", "mlp"),
     "cli_group_serve": ("similarity", "image_prep", "flash_attention", "mlp"),
     "cli_group_serve_vit": ("similarity", "image_prep", "flash_attention", "mlp", "mlp_block"),
+    # phase 17: the phase-A step with the MoE text tower (B4 and B8 in its
+    # dense layers), pretrain and zeroshot with --moe-experts, and in each
+    # rank of the NCCL group pretrain --num-devices --moe-experts and the
+    # --ep steps (bf16)
+    "moe_train": TRAIN_KERNELS,
+    "cli_pretrain_moe": TRAIN_KERNELS,
+    "cli_zeroshot_moe": ("similarity", "image_prep", "flash_attention", "mlp"),
+    "cli_dp_pretrain_moe": TRAIN_KERNELS,
+    **{f"ep_step_{e}": TRAIN_KERNELS for e in (2, 4, 8)},
+    "cli_ep_pretrain_moe": ("image_prep", "flash_attention_fp32", "flash_attention_bwd_fp32"),
 }
 # H100 SXM peaks (NVIDIA's data sheet, dense): bf16 and fp16 on the tensor
 # cores and fp32 on the CUDA cores, in operations a second; HBM3 in bytes a
@@ -2483,7 +2571,7 @@ def first_step_routes(_build, mods, first: dict, label_fn, step32=None,
     return routes
 
 
-def phase4(_build, mods, dev, seed: int, card: str) -> dict:
+def phase4(_build, mods, dev, seed: int, card: str, readings: dict) -> dict:
     import numpy as np
     import torch
 
@@ -2600,6 +2688,8 @@ def phase4(_build, mods, dev, seed: int, card: str) -> dict:
     print(f"launches on the train path: {launches}")
     print(f"peak device memory on the train path: "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    readings["train"] = (TRAIN_BATCH * len(steady) / sum(steady),
+                         torch.cuda.max_memory_allocated(dev) / 2 ** 30)
 
     check(all(np.isfinite(losses)) and np.isfinite(eval_loss), f"non-finite loss {losses}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
@@ -7057,6 +7147,853 @@ def tp_cli16(_build, mods, dev, w: str, degrees, out: dict) -> None:
     torch.cuda.empty_cache()
 
 
+
+# -- phase 17: the Switch-MoE text tower, routing over a group, expert parallelism ---------
+
+MOE_EXPERTS = 8  # every other BERT-base layer's MLP routed over 8 experts (capacity 1.25)
+MOE_STEPS = 10  # phase 17 (b)'s synced steps at TRAIN_BATCH (the first not counted)
+MOE_CLI_BATCH = 16  # phase 17 (c) and (d)'s pretrain batch: two steps of 32 synthetic pairs
+MOE_EP_STEPS = 4  # phase 17 (d)'s timed steps of each route (the first not counted)
+MOE_TIMEOUT = 420  # seconds phase 17's torchrun may take, the build's load included
+# phase 17 (b)'s prediction of its peak, written before its first run: phase 4's
+# 18.5 GiB and 198 M more fp32 master parameters at 16 B each (the weights, two
+# AdamW moments and the gradient)
+MOE_PEAK_PREDICTED_GIB = 18.5 + 198e6 * 16 / 2 ** 30
+
+
+def moe_phase17(_build, mods, dev, seed: int, card: str, workdir: str, results: dict,
+                readings: dict) -> dict:
+    """Phase 17: (a) one MoE layer and its ep shares on this card; (b) the
+    phase-A step with the MoE text tower; (c) ``pretrain`` and ``zeroshot``
+    with ``--moe-experts``; (d) ``torchrun --nproc-per-node <cards>
+    chip_smoke.py --phase17-rank DIR``: ``pretrain --num-devices <cards>
+    --moe-experts`` against one card, and the ``--ep`` steps against the
+    data-parallel step. Returns the launches by path."""
+    import os
+
+    import torch
+
+    t_phase = time.perf_counter()
+    moe_layer17(dev, seed, card)
+    by_path = {"moe_train": moe_step17(_build, mods, dev, seed, card, results, readings)}
+    by_path.update(moe_cli17(_build, mods, dev, card, workdir, results))
+    world = torch.cuda.device_count()
+    w = f"{workdir}/phase17"
+    os.makedirs(w, exist_ok=True)
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={world}", str(ROOT / "chip_smoke.py"), "--phase17-rank", w,
+           "--seed", str(seed)]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, cwd=str(ROOT), capture_output=True, text=True,
+                              timeout=MOE_TIMEOUT)
+    except subprocess.TimeoutExpired as exc:
+        raise SmokeFailure(f"phase 17's ranks ran past {MOE_TIMEOUT} s: "
+                           f"{(exc.stdout or '')[-3000:]}")
+    print(proc.stdout.rstrip())
+    if proc.returncode:
+        print(proc.stderr[-8000:], file=sys.stderr)
+    check(proc.returncode == 0, f"phase 17's torchrun exited with {proc.returncode}")
+    for r in range(world):
+        with open(f"{w}/rank{r}.json") as f:
+            out = json.load(f)
+        check(out["ok"], f"phase 17, rank {r} did not finish")
+        for path, launches in out["launches"].items():
+            check_launched(mods, launches, path)
+            by_path[f"{path}@rank{r}"] = launches
+        for name, v in out["results"].items():
+            results.setdefault(name, {})["max_abs_err"] = max(
+                v["max_abs_err"], results.get(name, {}).get("max_abs_err", 0.0))
+    print(f"phase 17 (d): torchrun {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    print(f"phase 17 on {card}: {time.perf_counter() - t_phase:.1f} s")
+    return by_path
+
+
+def experts_loop(self, xf, slot, cap):
+    """Test-only: ``SwitchMoEMLP.experts`` as a loop of per-expert products
+    (each a batch of one), the formulation phase 17 times beside the
+    batched one the layer runs."""
+    import torch
+    import torch.nn.functional as F
+
+    from clip_for_dl_tpu_torch.models import moe
+
+    e_loc, d = self.wi.shape[0], xf.shape[1]
+    local = slot - self.ep.rank * e_loc * cap
+    local = torch.where((local >= 0) & (local < e_loc * cap), local, e_loc * cap)
+    xin = moe.copy_to_model(xf, self.ep.group)
+    xe = xin.new_zeros(e_loc * cap + 1, d).index_add(0, local, xin)
+    wi, wo = self.wi.to(xf.dtype), self.wo.to(xf.dtype)
+    ys = []
+    for j in range(e_loc):
+        h = moe._ExpertMatmul.apply(xe[None, j * cap:(j + 1) * cap], wi[j:j + 1])[0]
+        h = F.gelu(h + self.bi[j].float()).to(xf.dtype)
+        ys.append(moe._ExpertMatmul.apply(h[None], wo[j:j + 1])[0] + self.bo[j].float())
+    ys.append(xf.new_zeros((1, d), dtype=torch.float32))
+    return moe.reduce_from_model(torch.cat(ys)[local], self.ep.group)
+
+
+def moe_products_reference(layer, x, r):
+    """Test-only: the bf16 MoE layer's experts times the gate, before the
+    final cast, in fp32 on its bf16 operands: for each expert the tokens
+    ``r`` kept for it, x and wi, wo as bf16 values widened, the hidden
+    rounded to bf16 between the products; TF32 off (``fp32_exact``)."""
+    import torch
+    import torch.nn.functional as F
+
+    xf = x.reshape(-1, x.shape[-1]).float()
+    out = torch.zeros_like(xf)
+    cap = r.capacity
+    for e in range(layer.num_experts):
+        rows = torch.nonzero((r.slot >= e * cap) & (r.slot < (e + 1) * cap)).flatten()
+        h = xf[rows] @ layer.wi[e].float() + layer.bi[e].float()
+        h = F.gelu(h).to(torch.bfloat16).float()
+        out[rows] = (h @ layer.wo[e].float() + layer.bo[e].float()) * r.gate[rows, None]
+    return out
+
+
+def moe_layer17(dev, seed: int, card: str) -> dict:
+    """Phase 17 (a): one MoE layer at BERT-base width (768 -> 3072, 8
+    experts, capacity 1.25) on TRAIN_BATCH reports of TRAIN_LEN tokens with
+    their real padding: the bf16 layer (fp32 masters cast in the forward,
+    as the train step runs it) against the fp32 route on the same input
+    (TOL moe_bf16_rel of the output's largest entry); each expert product,
+    forward and backward, against the fp32 product of its operands (TOL
+    moe_product_rel) and its experts before the final cast against an
+    fp32 reference on its bf16 operands (TOL moe_products_rel), and a
+    planted fault, the products rounded to bf16, that must fail both; every ep share (2, 4, 8) run in this process
+    and summed, against the unsharded bf16 layer: the output, the aux loss
+    and every gradient bit for bit; the same for the per-expert loop
+    (``experts_loop``, printed); the forward and backward time of the
+    batched products and of the loop; the tokens routed and dropped by
+    each expert, and the aux loss. Returns the two times (ms)."""
+    import numpy as np
+    import torch
+
+    from clip_for_dl_tpu_torch.core.config import get_preset
+    from clip_for_dl_tpu_torch.core.device import cast_in_forward, plain_name
+    from clip_for_dl_tpu_torch.models import moe
+    from clip_for_dl_tpu_torch.models.moe import (
+        ExpertShard, SwitchMoEMLP, moe_shares, route, routing,
+    )
+    from clip_for_dl_tpu_torch.parallel.ep import shard_experts_
+    from clip_for_dl_tpu_torch.testing.ranks import fp32_exact
+    from clip_for_dl_tpu_torch.tools.main_paths import tokenizer, train_batch
+
+    t0 = time.perf_counter()
+    cfg = get_preset("pretrain_clip").model
+    d, f = cfg.text_embedding_dim, cfg.text_intermediate_dim
+    mask = train_batch(np.random.default_rng(seed + 171), tokenizer(), dev, TRAIN_BATCH,
+                       TRAIN_LEN)["attention_mask"]
+    g = torch.Generator(dev).manual_seed(seed + 172)
+    with torch.device(dev):
+        layer = SwitchMoEMLP(d, f, MOE_EXPERTS, cfg.moe_capacity_factor)
+    with torch.no_grad():
+        for p in layer.parameters():
+            p.normal_(0.0, 0.02, generator=g)
+    x = torch.randn(TRAIN_BATCH, TRAIN_LEN, d, device=dev, generator=g).to(torch.bfloat16)
+    cot = torch.randn(TRAIN_BATCH, TRAIN_LEN, d, device=dev, generator=g)
+    bf16 = cast_in_forward(copy.deepcopy(layer), torch.bfloat16)
+
+    r = route(layer, x, mask)
+    real = mask.reshape(-1) > 0
+    kept = r.slot < MOE_EXPERTS * r.capacity
+    routed = torch.bincount(r.expert[real], minlength=MOE_EXPERTS).tolist()
+    dropped = torch.bincount(r.expert[real & ~kept], minlength=MOE_EXPERTS).tolist()
+    print(f"phase 17 (a): MoE layer {d} -> {f}, {MOE_EXPERTS} experts, capacity "
+          f"{cfg.moe_capacity_factor} x {TRAIN_BATCH * TRAIN_LEN} tokens / {MOE_EXPERTS} = "
+          f"{r.capacity} slots an expert; {int(real.sum())} real tokens; routed per expert "
+          f"{routed}, dropped {dropped}; aux loss {float(r.aux.detach()):.6f}")
+    with torch.no_grad(), fp32_exact():
+        y32 = layer(x.float(), mask)
+        y16 = bf16(x, mask)
+    err = float((y16.float() - y32).abs().max()) / float(y32.abs().max())
+    print(f"  bf16 layer against the fp32 route: max |difference| {err:.3e} of the largest "
+          f"entry {float(y32.abs().max()):.4f} (tol {TOL['moe_bf16_rel']:.3e})")
+    check(err <= TOL["moe_bf16_rel"], "the bf16 MoE layer differs from the fp32 route")
+
+    def products():
+        """(the experts before the final cast against moe_products_reference,
+        the worst of the layer's expert products, forward and backward,
+        against fp32 products of their operands), relative to the largest
+        entries."""
+        calls, product = [], moe._bmm32
+
+        def recording(a, b):
+            calls.append((a, b, product(a, b)))
+            return calls[-1][2]
+
+        r16 = route(bf16, x, mask)
+        xt = x.clone().requires_grad_()
+        with fp32_exact(), mock.patch.object(moe, "_bmm32", recording):
+            got = bf16.experts(xt.reshape(-1, d), r16.slot, r16.capacity) * r16.gate[:, None]
+            got.backward(cot.reshape(-1, d))
+        with torch.no_grad(), fp32_exact():
+            want = moe_products_reference(bf16, x, r16)
+            each = []
+            for a, b, out in calls:
+                exact = torch.bmm(a.float(), b.float())
+                each.append(float((out - exact).abs().max()) / float(exact.abs().max()))
+        bf16.zero_grad(set_to_none=True)
+        return float((got.detach() - want).abs().max()) / float(want.abs().max()), max(each)
+
+    err, each = products()
+    real_bmm = moe._bmm32
+    with mock.patch.object(moe, "_bmm32",
+                           lambda a, b: real_bmm(a, b).to(torch.bfloat16).float()):
+        fault, fault_each = products()
+    bound, bound_each = TOL["moe_products_rel"], TOL["moe_product_rel"]
+    print(f"  the bf16 layer's expert products (forward and backward) against fp32 products of "
+          f"their operands: at most {each:.3e} of the largest entry (tol {bound_each:.3e}); "
+          f"its experts before the final cast against fp32 on its bf16 operands: {err:.3e} "
+          f"(tol {bound:.3e}); the planted fault (products rounded to bf16): {fault_each:.3e} "
+          f"and {fault:.3e}")
+    check(each <= bound_each and err <= bound,
+          "the bf16 MoE layer's products do not keep fp32 outputs")
+    check(fault_each > bound_each and fault > bound,
+          "the planted fault (bf16 products) passes the products' bounds")
+
+    def run(shares):
+        for s in shares:
+            s.zero_grad(set_to_none=True)
+        xt = x.clone().requires_grad_()
+        with routing() as aux:
+            y = moe_shares(shares, xt, mask)
+        ((y.float() * cot).sum() + aux[0]).backward()
+        grads: dict = {}
+        for s in shares:
+            for n, p in s.named_parameters():
+                if p.grad is not None:
+                    grads.setdefault(plain_name(f"moe_mlp.{n}"), []).append(p.grad)
+        return y, aux[0].detach(), xt.grad, {k: torch.cat(v) for k, v in grads.items()}
+
+    times = {}
+    for form, experts in (("batched", SwitchMoEMLP.experts), ("loop", experts_loop)):
+        with mock.patch.object(SwitchMoEMLP, "experts", experts):
+            want = run([bf16])
+            torch.cuda.synchronize(dev)
+            t = time.perf_counter()
+            for _ in range(5):
+                run([bf16])
+            torch.cuda.synchronize(dev)
+            times[form] = (time.perf_counter() - t) / 5 * 1e3
+            for e in (t for t in (2, 4, 8) if MOE_EXPERTS % t == 0):
+                shares = [shard_experts_(copy.deepcopy(bf16), ExpertShard(k, e))
+                          for k in range(e)]
+                got = run(shares)
+                same = {"output": torch.equal(got[0], want[0]),
+                        "aux": torch.equal(got[1], want[1]), "x": torch.equal(got[2], want[2])}
+                same.update({k: torch.equal(got[3][k], want[3][k]) for k in want[3]})
+                print(f"  {form} products, ep {e}: {e} shares of {MOE_EXPERTS // e} experts "
+                      f"summed, against the unsharded layer bit for bit: {same}")
+                if form == "batched":  # the layer's own products
+                    check(all(same.values()) and set(got[3]) == set(want[3]),
+                          f"ep {e}: the shares' sum differs from the unsharded layer")
+                del shares, got
+    print(f"  the bf16 layer's forward and backward on {card}: {times['batched']:.2f} ms with "
+          f"one batched product over the experts, {times['loop']:.2f} ms with a product an "
+          f"expert")
+    print(f"phase 17 (a) took {time.perf_counter() - t0:.1f} s")
+    return times
+
+
+def moe_step17(_build, mods, dev, seed: int, card: str, results: dict, readings: dict) -> dict:
+    """Phase 17 (b): pretrain_clip's step with the MoE text tower (8
+    experts in layers 1, 3, ..., 11) at TRAIN_BATCH on phase 4's batch:
+    the first step against the plain route from the same weights, dropout
+    0 (phase 4's bounds); then MOE_STEPS synced steps (path moe_train),
+    samples/s and peak memory beside phase 4's dense step, the launches a
+    step of each kernel, each held at its first inputs."""
+    import numpy as np
+    import torch
+
+    from clip_for_dl_tpu_torch.tools.main_paths import (
+        base_lrs, pretrain_step, tokenizer, train_batch, train_model,
+    )
+    from clip_for_dl_tpu_torch.train import TrainState, make_label_fn
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    preset, cfg, model = train_model(dev, seed, "pretrain_clip", text_moe_experts=MOE_EXPERTS)
+    groups = [g.name for g in preset.train.groups]
+    lrs, label_fn = base_lrs(preset), make_label_fn(groups)
+    batch = train_batch(np.random.default_rng(seed + 2), tokenizer(), dev, TRAIN_BATCH,
+                        TRAIN_LEN)
+    n = sum(p.numel() for p in model.parameters())
+    moe = [i for i, layer in enumerate(model.text_tower.encoder.layer)
+           if hasattr(layer, "moe_mlp")]
+    print(f"phase 17 (b): {describe(cfg)} with {MOE_EXPERTS} experts in layers {moe}: "
+          f"{n / 1e6:.1f} M fp32 master parameters, built in {time.perf_counter() - t0:.1f} s")
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def fresh(dropout: float):
+        model.load_state_dict(init)
+        for m in model.modules():
+            if isinstance(m, torch.nn.Dropout):
+                m.p = dropout
+        opt, step = pretrain_step(model, preset, cfg)
+        return TrainState(model, opt), step
+
+    def one_step():
+        state, step = fresh(0.0)
+        loss = float(step(state, batch, lrs)[1]["loss"])
+        return loss, group_grads(model, label_fn)
+
+    cudnn = torch.backends.cudnn
+    flags = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        loss_k, grads_k = one_step()
+        with plain_kernels(mods, keep=("image_prep",)):
+            before = dict(_build.LAUNCHES)
+            loss_p, grads_p = one_step()
+            check(all(v == before.get(k) for k, v in _build.LAUNCHES.items()
+                      if k != mods["image_prep"].KERNEL),
+                  "a kernel other than B2 ran during the plain MoE step")
+    finally:
+        cudnn.deterministic, cudnn.benchmark = flags
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    print(f"  first step, dropout 0: loss {loss_k:.6f} with the kernels, {loss_p:.6f} with the "
+          f"plain versions (rel {loss_err:.2e}, tol {TOL['train_loss_rel']:.0e})")
+    check(loss_err <= TOL["train_loss_rel"], "the MoE step's loss differs from the plain step's")
+    compare_groups("the MoE step", grads_k, grads_p, groups, TOL["grad_cos"])
+    del grads_k, grads_p
+
+    state, step = fresh(cfg.dropout)
+    which = dict.fromkeys(TRAIN_KERNELS)
+    stack, kept = first_inputs(mods, which)
+    gen = torch.Generator(dev).manual_seed(seed)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launches()
+    losses, times = [], []
+    with stack:
+        for i in range(MOE_STEPS):
+            t = time.perf_counter()
+            losses.append(float(step(state, batch, lrs, gen)[1]["loss"]))  # syncs the step
+            times.append(time.perf_counter() - t)
+    torch.cuda.synchronize(dev)
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    steady = times[1:]
+    rate = TRAIN_BATCH * len(steady) / sum(steady)
+    dense_rate, dense_peak = readings.get("train", (float("nan"), float("nan")))
+    print(f"  losses {[round(v, 4) for v in losses]}")
+    print(f"MoE train path on {card}: {rate:.1f} samples/s over steps 1-{MOE_STEPS - 1} "
+          f"({1e3 * sum(steady) / len(steady):.1f} ms/step; step 0 {times[0] * 1e3:.1f} ms), "
+          f"the dense step's {dense_rate:.1f} (phase 4); peak device memory {peak:.2f} GiB, "
+          f"the dense step's {dense_peak:.2f}, predicted {MOE_PEAK_PREDICTED_GIB:.1f}")
+    from clip_for_dl_tpu_torch.models.moe import SwitchMoEMLP
+
+    loop_times = []
+    with mock.patch.object(SwitchMoEMLP, "experts", experts_loop):
+        for i in range(MOE_STEPS):
+            t = time.perf_counter()
+            float(step(state, batch, lrs, gen)[1]["loss"])  # syncs the step
+            loop_times.append(time.perf_counter() - t)
+    loop_rate = TRAIN_BATCH * (MOE_STEPS - 1) / sum(loop_times[1:])
+    print(f"  the same step with a product an expert (experts_loop): {loop_rate:.1f} samples/s "
+          f"over steps 1-{MOE_STEPS - 1}, against {rate:.1f} with one batched product")
+    per_step = {name: launches.get(KERNELS[name][0], 0) / MOE_STEPS for name in TRAIN_KERNELS}
+    print(f"  launches a step: {per_step}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"MoE losses {losses}")
+    # B3 and B6 in every layer, B4 and B8 in the dense ones only
+    want = {"flash_attention": cfg.text_layers, "flash_attention_bwd": cfg.text_layers,
+            "mlp": cfg.text_layers - len(moe), "mlp_bwd": cfg.text_layers - len(moe)}
+    check(all(per_step[k] == v for k, v in want.items()),
+          f"the MoE step's launches a step: {per_step}, not {want}")
+    hold_first_inputs(mods, kept, which, "moe_train", results)
+    check_launched(mods, launches, "moe_train")
+    readings["moe_train"] = (rate, peak)
+    del state, step, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def moe_zeroshot_argv(workdir: str, checkpoint: str, log_dir: str, experts: bool = True) -> list:
+    """``zeroshot`` on phase 9's files from ``checkpoint``, with or without
+    ``--moe-experts``."""
+    argv = dp_zeroshot_argv(workdir, log_dir)
+    argv[argv.index("--checkpoint") + 1] = checkpoint
+    return argv + (["--moe-experts", str(MOE_EXPERTS)] if experts else [])
+
+
+def moe_cli17(_build, mods, dev, card: str, workdir: str, results: dict) -> dict:
+    """Phase 17 (c): ``pretrain --moe-experts 8`` at full width on phase
+    9's vocabulary (two steps of MOE_CLI_BATCH synthetic pairs, a
+    checkpoint; path cli_pretrain_moe), ``zeroshot --moe-experts 8`` of it
+    on phase 9's files (path cli_zeroshot_moe), each kernel held at its
+    first inputs; ``zeroshot`` without the flag raises in the missing-tensor
+    guard (the command exits 1), naming the dense tensors the checkpoint
+    lacks and the flag."""
+    import importlib
+    import io
+    import os
+    from contextlib import redirect_stdout
+
+    import torch
+
+    cli = importlib.import_module("clip_for_dl_tpu_torch.cli.main")
+    w = f"{workdir}/phase17"
+    os.makedirs(w, exist_ok=True)
+    pretrain = ["pretrain", "--vocab", f"{workdir}/cli/vocab.txt", "--flash-attention",
+                "--bert-fused-mlp", "--synthetic", "--synthetic-samples",
+                str(2 * MOE_CLI_BATCH), "--batch-size", str(MOE_CLI_BATCH), "--epochs", "1",
+                "--moe-experts", str(MOE_EXPERTS), "--checkpoint-dir", f"{w}/ckpt",
+                "--log-dir", f"{w}/logs"]
+    by_path = {}
+    for path, argv, which in (
+            ("cli_pretrain_moe", pretrain, TRAIN_KERNELS),
+            ("cli_zeroshot_moe", moe_zeroshot_argv(workdir, f"{w}/ckpt", f"{w}/zs"),
+             ("similarity", "image_prep", "flash_attention", "mlp"))):
+        stack, kept = first_inputs(mods, dict.fromkeys(which))
+        text = io.StringIO()
+        torch.cuda.synchronize(dev)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        with stack, redirect_stdout(text):
+            rc = cli.main(argv)
+        torch.cuda.synchronize(dev)
+        check(rc == 0, f"phase 17 (c): {argv[0]} exited with {rc}: {text.getvalue()[-2000:]}")
+        by_path[path] = dict(_build.LAUNCHES)
+        print(f"phase 17 (c): {argv[0]} --moe-experts {MOE_EXPERTS}: exit 0 in "
+              f"{time.perf_counter() - t0:.1f} s on {card}; launches {by_path[path]}")
+        check_launched(mods, by_path[path], path)
+        hold_first_inputs(mods, kept, dict.fromkeys(which), path, results)
+        torch.cuda.empty_cache()
+    check(os.path.exists(f"{w}/zs/zero_shot_results.csv"), "zeroshot wrote no results")
+    try:
+        with redirect_stdout(io.StringIO()):
+            cli.main(moe_zeroshot_argv(workdir, f"{w}/ckpt", f"{w}/zs_plain", experts=False))
+        refused = None
+    except ValueError as exc:
+        refused = str(exc)
+    print(f"  zeroshot without --moe-experts: {refused}")
+    check(refused is not None and "layer.1.intermediate.dense" in refused
+          and "--moe-experts" in refused, "zeroshot without --moe-experts was not refused")
+    torch.cuda.empty_cache()
+    return by_path
+
+
+def phase17_rank(w: str, seed: int) -> int:
+    """One rank of phase 17 (``--phase17-rank W``, under torchrun): joins
+    the NCCL group, loads the kernels the parent built, runs (d) and writes
+    ``W/rank{r}.json``. Rank 0 prints."""
+    import datetime
+    import os
+
+    import torch
+
+    _build, mods = import_port()
+    from clip_for_dl_tpu_torch.parallel import multihost
+
+    dev = multihost.init_process_group(device="cuda",
+                                       timeout=datetime.timedelta(seconds=DP_PG_TIMEOUT))
+    rank, world = torch.distributed.get_rank(), torch.distributed.get_world_size()
+    out = {"ok": False, "launches": {}, "results": {}}
+    if rank:
+        sys.stdout = open(os.devnull, "w")
+    try:
+        _build.build()
+        print(f"phase 17 (d): world size {world} over NCCL")
+        ref = moe_dp17(_build, mods, dev, seed, w, out)
+        degrees = [e for e in (2, 4, 8) if world % e == 0 and MOE_EXPERTS % e == 0]
+        if degrees:
+            moe_ep_cli17(_build, mods, dev, w, degrees[0], ref, out)
+            moe_ep17(_build, mods, dev, seed, degrees, out)
+        out["ok"] = True
+    finally:
+        with open(f"{w}/rank{rank}.json", "w") as f:
+            json.dump(out, f)
+        multihost.destroy()
+    return 0
+
+
+def moe_dp17(_build, mods, dev, seed: int, w: str, out: dict) -> dict:
+    """Phase 17 (d): ``pretrain --num-devices <cards> --moe-experts 8`` over
+    the group (path cli_dp_pretrain_moe, each kernel held at its first
+    inputs), its first step kept; then, from the weights and optimizer
+    state it started from, dropout 0: that step on this rank's rows against
+    the single-device step on the global batch (the ranks' rows gathered):
+    in bf16 printed (the group's BatchNorm runs through the group at every
+    world size, so no world size is bit for bit there, and at this batch
+    its bf16 sums move the loss by a few percent), and on the fp32 route
+    (the step rebuilt in fp32, fp32_compute) at TOL dp_bn fp32. Then the
+    MoE text tower alone (the features and the gradient of a fixed
+    cotangent, summed over the ranks, no BatchNorm on the way) routing over
+    the group against one card routing the global batch: in bf16 printed
+    with the tokens each MoE layer sends to another expert than one card
+    does (bit for bit at world size 1); on the fp32 route at a capacity
+    factor that drops tokens in every MoE layer (C half the real tokens'
+    mean share an expert), at TOL moe_group_fp32_rel and
+    fp32_grad_cos, and with more than one rank the planted fault (each rank
+    routing its own rows alone) must fail that bound. Returns the fp32
+    single-device step's loss and the global batch, the reference of the
+    ``--ep`` command (moe_ep_cli17)."""
+    import importlib
+    import io
+    import os
+    from contextlib import redirect_stdout
+
+    import torch
+    import torch.distributed as dist
+
+    from clip_for_dl_tpu_torch.models import moe
+    from clip_for_dl_tpu_torch.parallel.collectives import all_gather_rows
+    from clip_for_dl_tpu_torch.testing.ranks import fp32_exact
+    from clip_for_dl_tpu_torch.tools.main_paths import pretrain_step
+    from clip_for_dl_tpu_torch.train import TrainState, loop, make_label_fn
+
+    cli = importlib.import_module("clip_for_dl_tpu_torch.cli.main")
+    group, world = dist.group.WORLD, dist.get_world_size()
+    workdir = os.path.dirname(w)
+    argv = ["pretrain", "--vocab", f"{workdir}/cli/vocab.txt", "--flash-attention",
+            "--bert-fused-mlp", "--synthetic", "--synthetic-samples", str(2 * MOE_CLI_BATCH),
+            "--batch-size", str(MOE_CLI_BATCH), "--epochs", "1", "--moe-experts",
+            str(MOE_EXPERTS), "--num-devices", str(world), "--checkpoint-dir",
+            f"{w}/ckpt_dp", "--log-dir", f"{w}/logs_dp"]
+    first, run_epoch = {}, loop.run_epoch
+
+    def kept_epoch(step_fn, state, loader, *a, **kw):
+        def kept_step(st, batch, *rest):
+            if not first:
+                first.update(step=step_fn, state=st, rest=rest, batch={
+                    k: v.clone() for k, v in batch.items() if torch.is_tensor(v)},
+                    weights={k: v.detach().clone() for k, v in st.model.state_dict().items()},
+                    optimizer=copy.deepcopy(st.optimizer.state_dict()))
+            return step_fn(st, batch, *rest)
+
+        return run_epoch(kept_step, state, loader, *a, **kw)
+
+    path, which = "cli_dp_pretrain_moe", dict.fromkeys(TRAIN_KERNELS)
+    stack, kept = first_inputs(mods, which)
+    text = io.StringIO()
+    torch.cuda.synchronize(dev)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with stack, mock.patch.object(loop, "run_epoch", kept_epoch), redirect_stdout(text):
+        rc = cli.main(argv)
+    torch.cuda.synchronize(dev)
+    check(rc == 0, f"phase 17 (d): pretrain exited with {rc}: {text.getvalue()[-2000:]}")
+    out["launches"][path] = dict(_build.LAUNCHES)
+    print(f"phase 17 (d): pretrain --num-devices {world} --moe-experts {MOE_EXPERTS}: exit 0 "
+          f"in {time.perf_counter() - t0:.1f} s; launches {out['launches'][path]}")
+    hold_first_inputs(mods, kept, which, path, out["results"])
+
+    model, opt = first["state"].model, first["state"].optimizer
+    preset = cli._preset(argparse.Namespace(preset="pretrain_clip"))
+    cfg = model.config
+    groups = [g.name for g in preset.train.groups]
+    label_fn = make_label_fn(groups)
+    whole = {k: all_gather_rows(v, group) for k, v in first["batch"].items()}
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+
+    def one(step, optimizer, batch):
+        model.load_state_dict(first["weights"])
+        optimizer.load_state_dict(first["optimizer"])
+        state, metrics = step(TrainState(model, optimizer), batch, *first["rest"][:1])
+        return float(metrics["loss"]), group_grads(model, label_fn)
+
+    loss_g, _ = one(first["step"], opt, first["batch"])
+    single_opt, single = pretrain_step(model, preset, cfg)
+    loss_s, _ = one(single, single_opt, whole)
+    print(f"  the command's first step over {world} rank(s), dropout 0, bf16: loss {loss_g:.6f} "
+          f"against {loss_s:.6f} on one card on the global batch of {MOE_CLI_BATCH} (a reading: "
+          f"BatchNorm's bf16 sums over the group against cuDNN's at this batch)")
+    steps32 = [pretrain_step(model, preset, cfg, torch.float32, **kw) for kw in ({"group": group},
+                                                                              {})]
+    with fp32_compute(model), fp32_exact():
+        loss_g, grads_g = one(steps32[0][1], steps32[0][0], first["batch"])
+        loss_s, grads_s = one(steps32[1][1], steps32[1][0], whole)
+    rel, cos = TOL["dp_bn"]["fp32"]
+    print(f"  the same step on the fp32 route: loss {loss_g:.6f} over the group against "
+          f"{loss_s:.6f} on one card (tol {rel} relative)")
+    check(abs(loss_g - loss_s) <= rel * abs(loss_s), "the group's MoE step loss differs")
+    compare_groups("phase 17 (d) group step", grads_g, grads_s, groups,
+                   {g: cos.get(g, TOL["fp32_grad_cos"]) for g in groups})
+    ref = {"loss": loss_s, "whole": whole}
+    del grads_g, grads_s, steps32, single, single_opt
+
+    # the text tower alone: routing over the group against routing the global batch
+    model.load_state_dict(first["weights"])
+    model.train()
+    g = torch.Generator(dev).manual_seed(seed + 174)
+    cot = torch.randn(MOE_CLI_BATCH, cfg.shared_embedding_dim, device=dev, generator=g)
+    n = MOE_CLI_BATCH // world
+    rows = slice(dist.get_rank() * n, (dist.get_rank() + 1) * n)
+    text_params = [p for name, p in model.named_parameters() if name.startswith("text_tower.")]
+    layers = [m for m in model.modules() if isinstance(m, moe.SwitchMoEMLP)]
+    real = whole["attention_mask"] > 0
+    real_route = moe.route
+
+    def text(batch, cot_rows, over, aux_scale=1.0):
+        """(features, the text tower's gradient, each MoE layer's [B, L]
+        (expert, kept) choices); the aux losses weighted by aux_scale."""
+        model.zero_grad(set_to_none=True)
+        chosen = []
+
+        def recording(layer, x, mask=None, group=None):
+            r = real_route(layer, x, mask, group)
+            kept = r.slot < layer.num_experts * r.capacity
+            chosen.append((r.expert.view(x.shape[:2]), kept.view(x.shape[:2])))
+            return r
+
+        with mock.patch.object(moe, "route", recording), moe.routing(over) as aux:
+            feats = model.encode_text(batch["input_ids"], batch["attention_mask"])
+        ((feats.float() * cot_rows).sum() + aux_scale * sum(aux)).backward()
+        grad = torch.cat([(torch.zeros_like(p) if p.grad is None else p.grad).float().flatten()
+                          for p in text_params])
+        return feats.detach().float(), grad, chosen
+
+    def against_one_card(over):
+        """The group's rows routed over ``over`` (the group, or None: each
+        rank alone) against one card on the global batch: (features' max
+        difference over the largest entry, gradient cosine, bit for bit,
+        tokens routed to another expert per layer, tokens dropped per layer
+        on one card, tokens kept or dropped otherwise per layer). The
+        group's aux losses count 1/world: by the all_reduce_sum convention
+        each rank's aux gradient is world times its rows' share."""
+        feats_g, grad_g, chosen_g = text(first["batch"], cot[rows], over, 1.0 / world)
+        feats_s, grad_s, chosen_s = text(whole, cot, None)
+        dist.all_reduce(grad_g, group=group)
+        feats_g = all_gather_rows(feats_g, group)
+        moved, dropped, kept_other = [], [], []
+        for (e_g, k_g), (e_s, k_s) in zip(chosen_g, chosen_s):
+            e_g, k_g = all_gather_rows(e_g, group), all_gather_rows(k_g, group)
+            moved.append(int(((e_g != e_s) & real).sum()))
+            dropped.append(int((~k_s & real).sum()))
+            kept_other.append(int(((k_g != k_s) & real).sum()))
+        diff = float((feats_g - feats_s).abs().max()) / float(feats_s.abs().max())
+        same = torch.equal(feats_g, feats_s) and torch.equal(grad_g, grad_s)
+        return diff, cosine(grad_g.double(), grad_s.double()), same, moved, dropped, kept_other
+
+    diff, cos_t, same, moved, _, _ = against_one_card(group)
+    print(f"  the MoE text tower in bf16 routing over the group against one card routing the "
+          f"global batch: features max |difference| {diff:.3e} of the largest entry, gradient "
+          f"cosine {cos_t:.6f}, bit for bit: {same}; real tokens routed to another expert, by "
+          f"MoE layer: {moved} of {int(real.sum())}")
+    if world == 1:
+        check(same, "at world size 1 the group's MoE text tower is not the single card's")
+    factors = [m.capacity_factor for m in layers]
+    bound, cos_bound = TOL["moe_group_fp32_rel"], TOL["fp32_grad_cos"]
+    # half the real tokens' mean share an expert: every layer drops tokens
+    factor = 0.5 * float(real.sum()) / real.numel()
+    try:
+        for m in layers:
+            m.capacity_factor = factor
+        with fp32_compute(model), fp32_exact():
+            diff, cos_t, _, moved, dropped, other = against_one_card(group)
+            print(f"  the same on the fp32 route at capacity factor {factor:.4f}: tokens dropped "
+                  f"by layer {dropped} of {int(real.sum())}; features {diff:.3e} of the largest "
+                  f"entry (tol {bound:.0e}), gradient cosine {cos_t:.6f} (tol {cos_bound}); "
+                  f"tokens routed elsewhere {moved}, kept or dropped otherwise {other}")
+            check(all(dropped), f"capacity factor {factor}: a MoE layer dropped no token")
+            check(diff <= bound and cos_t >= cos_bound,
+                  "the MoE text tower routing over the group differs from one card")
+            if world > 1:
+                diff, cos_t, _, moved, _, other = against_one_card(None)
+                print(f"  the planted fault, each rank routing its own rows alone: features "
+                      f"{diff:.3e}, gradient cosine {cos_t:.6f}; tokens kept or dropped "
+                      f"otherwise {other}")
+                check(diff > bound or cos_t < cos_bound,
+                      "the planted fault (per-rank routing) passes the group's bound")
+    finally:
+        for m, f in zip(layers, factors):
+            m.capacity_factor = f
+    torch.cuda.empty_cache()
+    return ref
+
+
+def moe_ep_cli17(_build, mods, dev, w: str, e: int, ref: dict, out: dict) -> None:
+    """Phase 17 (d): ``pretrain --num-devices <cards> --ep e --moe-experts
+    8 --fp32 --flash-attention`` (path cli_ep_pretrain_moe, each kernel held
+    at its first inputs) with every preset's dropout at 0 (the rate has no
+    flag), TF32 off: the rows each rank's first step takes are its data
+    slice of the global batch the ``--num-devices`` command took (moe_dp17),
+    the step's loss is the fp32 single-device step's on that batch from the
+    same weights (TOL moe_ep_command_rel), and the checkpoint is whole: each expert
+    tensor holds the 8 experts, the rank's own rows those it trained, the
+    AdamW moments whole too."""
+    import dataclasses
+    import importlib
+    import io
+    import os
+    from contextlib import redirect_stdout
+
+    import torch
+    import torch.distributed as dist
+
+    from clip_for_dl_tpu_torch.core import config
+    from clip_for_dl_tpu_torch.core.device import plain_name
+    from clip_for_dl_tpu_torch.parallel.ep import ep_spec
+    from clip_for_dl_tpu_torch.testing.ranks import fp32_exact
+    from clip_for_dl_tpu_torch.train import loop
+
+    cli = importlib.import_module("clip_for_dl_tpu_torch.cli.main")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    workdir = os.path.dirname(w)
+    argv = ["pretrain", "--vocab", f"{workdir}/cli/vocab.txt", "--fp32", "--flash-attention",
+            "--synthetic", "--synthetic-samples", str(2 * MOE_CLI_BATCH), "--batch-size",
+            str(MOE_CLI_BATCH), "--epochs", "1", "--moe-experts", str(MOE_EXPERTS),
+            "--num-devices", str(world), "--ep", str(e), "--checkpoint-dir", f"{w}/ckpt_ep",
+            "--log-dir", f"{w}/logs_ep"]
+    real_preset = config.get_preset
+
+    def no_dropout(name):
+        cfg = real_preset(name)
+        return cfg.replace(model=dataclasses.replace(cfg.model, dropout=0.0))
+
+    first, run_epoch = {}, loop.run_epoch
+
+    def kept_epoch(step_fn, state, loader, *a, **kw):
+        def kept_step(st, batch, *rest):
+            if first:
+                return step_fn(st, batch, *rest)
+            rows = {k: v.clone() for k, v in batch.items() if torch.is_tensor(v)}
+            st, metrics = step_fn(st, batch, *rest)
+            first.update(model=st.model, batch=rows, loss=float(metrics["loss"]))
+            return st, metrics
+
+        return run_epoch(kept_step, state, loader, *a, **kw)
+
+    # the fp32 instances, which first_inputs keeps under their entries' names
+    path, which = "cli_ep_pretrain_moe", dict.fromkeys(("image_prep", "flash_attention",
+                                                        "flash_attention_bwd"))
+    stack, kept = first_inputs(mods, which)
+    text = io.StringIO()
+    torch.cuda.synchronize(dev)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with stack, fp32_exact(), mock.patch.object(config, "get_preset", no_dropout), \
+            mock.patch.object(loop, "run_epoch", kept_epoch), redirect_stdout(text):
+        rc = cli.main(argv)
+    torch.cuda.synchronize(dev)
+    check(rc == 0, f"phase 17 (d): pretrain --ep {e} exited with {rc}: "
+                   f"{text.getvalue()[-2000:]}")
+    out["launches"][path] = dict(_build.LAUNCHES)
+    print(f"phase 17 (d): pretrain --num-devices {world} --ep {e} --moe-experts {MOE_EXPERTS} "
+          f"--fp32, dropout 0: exit 0 in {time.perf_counter() - t0:.1f} s; launches "
+          f"{out['launches'][path]}")
+    hold_first_inputs(mods, kept, which, path, out["results"])
+    n, d = MOE_CLI_BATCH // (world // e), rank // e
+    fed = {k: torch.equal(first["batch"][k], ref["whole"][k][d * n:(d + 1) * n])
+           for k in ("input_ids", "attention_mask")}
+    rel = TOL["moe_ep_command_rel"]
+    print(f"  rank {rank}'s first rows are rows {d * n}-{(d + 1) * n - 1} of the global batch: "
+          f"{fed}; first step's loss {first['loss']:.6f} against {ref['loss']:.6f} on one card "
+          f"on the fp32 route (tol {rel} relative)")
+    check(all(fed.values()), f"--ep {e}: rank {rank} was not fed its data slice")
+    check(abs(first["loss"] - ref["loss"]) <= rel * abs(ref["loss"]),
+          f"--ep {e}: the command's first step differs from one card's")
+    saved = torch.load(f"{w}/ckpt_ep/0.pt", map_location="cpu", mmap=True, weights_only=False)
+    k, i = MOE_EXPERTS // e, rank % e
+    sharded = [(plain_name(name), p) for name, p in first["model"].named_parameters()
+               if ep_spec(name).dim is not None]
+    whole_rows = all(saved["model"][name].shape[0] == MOE_EXPERTS
+                     and torch.equal(saved["model"][name][i * k:(i + 1) * k], p.detach().cpu())
+                     for name, p in sharded)
+    moments = {tuple(v.shape) for s in saved["optimizer"]["state"].values() for v in s.values()
+               if torch.is_tensor(v) and v.dim() == 3}
+    print(f"  the checkpoint: {len(sharded)} expert tensors of {MOE_EXPERTS} experts, this "
+          f"rank's {k} its own: {whole_rows}; the moments' expert shapes {sorted(moments)}")
+    check(sharded and whole_rows and all(s[0] == MOE_EXPERTS for s in moments),
+          f"--ep {e}: the checkpoint is not the whole state")
+    del saved, first
+    torch.cuda.empty_cache()
+
+
+def moe_ep17(_build, mods, dev, seed: int, degrees, out: dict) -> None:
+    """Phase 17 (d): the phase-A step with the MoE text tower (dropout 0)
+    at a global batch of DP_BATCH through ``expert_parallel_step`` at each
+    ep degree, against the data-parallel step over every rank on the same
+    batch: on the fp32 route at TOL dp_bn fp32 (the loss, each group's
+    gradient, the expert shards gathered over the expert group); then each
+    route's samples/s in bf16 over MOE_EP_STEPS steps (path ep_step_{e},
+    each kernel held at its first inputs) and its peak memory."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from clip_for_dl_tpu_torch.parallel import data_parallel_step, ep, tp
+    from clip_for_dl_tpu_torch.testing.ranks import fp32_exact
+    from clip_for_dl_tpu_torch.tools.main_paths import (
+        base_lrs, pretrain_step, tokenizer, train_batch, train_model,
+    )
+    from clip_for_dl_tpu_torch.train import TrainState, make_label_fn
+
+    group, world = dist.group.WORLD, dist.get_world_size()
+    batch = train_batch(np.random.default_rng(seed + 175), tokenizer(), dev, DP_BATCH,
+                        TRAIN_LEN)
+
+    def run(e, compute, steps=1):
+        """(losses, the first step's group gradients, step seconds, config):
+        over the (data, expert) layout at ep ``e``, or data-parallel over
+        every rank without it."""
+        preset, cfg, model = train_model(dev, seed, "pretrain_clip", compute,
+                                         text_moe_experts=MOE_EXPERTS)
+        for m in model.modules():
+            if isinstance(m, torch.nn.Dropout):
+                m.p = 0.0
+        label_fn = make_label_fn([g.name for g in preset.train.groups])
+        if e is None:
+            opt, step = pretrain_step(model, preset, cfg, compute, group=group)
+            state, step = TrainState(model, opt), data_parallel_step(step, group)
+            mesh, gen = None, torch.Generator(dev).manual_seed(seed + dist.get_rank())
+        else:
+            mesh = ep.create_dp_ep_mesh(e)
+            opt, step = pretrain_step(model, preset, cfg, compute, **tp.step_groups(mesh))
+            state = ep.shard_state_ep(TrainState(model, opt), mesh)
+            step, gen = ep.expert_parallel_step(step, mesh), mesh.generator(seed, dev)
+        losses, times, grads = [], [], None
+        for i in range(steps):
+            torch.cuda.synchronize(dev)
+            t = time.perf_counter()
+            losses.append(float(step(state, batch, base_lrs(preset), gen)[1]["loss"]))
+            times.append(time.perf_counter() - t)
+            if i == 0:
+                grads = (group_grads(model, label_fn) if mesh is None
+                         else gathered_group_grads(model, label_fn, mesh))
+        return losses, grads, times, cfg, [g.name for g in preset.train.groups]
+
+    with fp32_exact():
+        dp_losses, dp_grads, _, cfg, groups = run(None, torch.float32)
+        for e in degrees:
+            losses, grads, _, _, _ = run(e, torch.float32)
+            rel, cos = TOL["dp_bn"]["fp32"]
+            print(f"phase 17 (d) step, fp32 route, ep {e} ({world // e} x {e}), global batch "
+                  f"{DP_BATCH}, {describe(cfg)} with {MOE_EXPERTS} experts: loss "
+                  f"{losses[0]:.6f} against {dp_losses[0]:.6f} data-parallel")
+            check(abs(losses[0] - dp_losses[0]) <= rel * abs(dp_losses[0]),
+                  f"ep {e}: the fp32 step's loss differs from the data-parallel step's")
+            compare_groups(f"phase 17 ep {e}", grads, dp_grads, groups,
+                           {g: cos.get(g, TOL["fp32_grad_cos"]) for g in groups})
+            torch.cuda.empty_cache()
+    rates = {}
+    for e in [None] + list(degrees):
+        name = "dp" if e is None else f"ep {e}"
+        which = dict.fromkeys(TRAIN_KERNELS)
+        stack, kept = first_inputs(mods, which) if e is not None else (ExitStack(), None)
+        torch.cuda.reset_peak_memory_stats(dev)
+        _build.reset_launches()
+        with stack:
+            losses, _, times, _, _ = run(e, torch.bfloat16, MOE_EP_STEPS)
+        torch.cuda.synchronize(dev)
+        if e is not None:
+            out["launches"][f"ep_step_{e}"] = dict(_build.LAUNCHES)
+            hold_first_inputs(mods, kept, which, f"ep_step_{e}", out["results"])
+        rates[name] = DP_BATCH * (len(times) - 1) / sum(times[1:])
+        check(all(np.isfinite(losses)), f"{name}: losses {losses}")
+        print(f"  bf16 {name}: {rates[name]:.1f} samples/s over steps 1-{MOE_EP_STEPS - 1} "
+              f"(global batch {DP_BATCH}); peak {_peak_mib(dev):.0f} MiB a card; losses "
+              f"{[round(v, 4) for v in losses]}")
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of weights and inputs")
@@ -7075,11 +8012,16 @@ def main(argv=None) -> int:
     ap.add_argument("--phase16-rank", metavar="DIR",
                     help="(under torchrun, as phase 16 starts it) one rank of phase 16 on "
                          "the files of phases 9 and 16 beside DIR")
+    ap.add_argument("--phase17-rank", metavar="DIR",
+                    help="(under torchrun, as phase 17 starts it) one rank of phase 17 on "
+                         "the files of phase 9 beside DIR")
     args = ap.parse_args(argv)
     if args.phase15_rank:
         return phase15_rank(args.phase15_rank, args.seed)
     if args.phase16_rank:
         return phase16_rank(args.phase16_rank, args.seed)
+    if args.phase17_rank:
+        return phase17_rank(args.phase17_rank, args.seed)
 
     t_start = time.perf_counter()
     _build, mods = import_port()
@@ -7164,7 +8106,8 @@ def main(argv=None) -> int:
     print("== phase 3: zero-shot serving, ResNet-50")
     by_path["serve"] = serve_phase(_build, mods, dev, args.seed, BATCH, N_BATCHES, card, "serve")
     print("== phase 4: the phase-A train step")
-    by_path["train"] = phase4(_build, mods, dev, args.seed, card)
+    readings: dict = {}
+    by_path["train"] = phase4(_build, mods, dev, args.seed, card, readings)
     print("== phase 5: zero-shot serving, ViT-B/16")
     by_path["serve_vit"] = serve_phase(_build, mods, dev, args.seed, BATCH, N_BATCHES, card,
                                        "serve_vit")
@@ -7195,6 +8138,10 @@ def main(argv=None) -> int:
         by_path.update(dp_phase15(_build, mods, dev, args.seed, card, workdir, results))
         print("== phase 16: tensor and sequence parallelism, serving over a group")
         by_path.update(tp_phase16(_build, mods, dev, args.seed, card, workdir, results))
+        print("== phase 17: the Switch-MoE text tower, routing over a group, expert "
+              "parallelism")
+        by_path.update(moe_phase17(_build, mods, dev, args.seed, card, workdir, results,
+                                   readings))
     print("== the wrappers' host time (tools/launch_times.py)")
     from clip_for_dl_tpu_torch.tools import launch_times
 

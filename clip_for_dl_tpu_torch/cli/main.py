@@ -31,8 +31,12 @@ its strided shard of the data (the JAX multi-process run);
 ``zeroshot`` and ``serve`` also take ``--tp T`` with ``--num-devices N``:
 the towers tensor-parallel over T ranks of an N/T x T layout
 (``parallel/tp.py``); ``serve`` binds its server on rank 0, whose batches
-the other ranks follow (``serving.py``). Only rank 0 writes logs,
-checkpoints, CSV and metric files. ``pretrain
+the other ranks follow (``serving.py``). ``pretrain --ep P`` with
+``--moe-experts E`` runs the MoE text tower's experts sharded over P ranks
+of an N/P x P layout (``parallel/ep.py``). Every command takes
+``--moe-experts E`` (``models/moe.py``: every other BERT layer's MLP routed
+over E experts; a MoE layer routes over the global batch of a group). Only
+rank 0 writes logs, checkpoints, CSV and metric files. ``pretrain
 --local-loss`` takes the contrastive loss's block form (siglip's ring) and
 ``--accum-steps A`` the GradCache step (``train/accum.py``).
 
@@ -63,14 +67,12 @@ ENV_RANK_EXITS = "CLIP_FOR_DL_TPU_RANK_EXITS"
 _ANY = None
 UNPORTED_FLAGS = {
     "pp": (_ANY, "A7b"),
-    "ep": (_ANY, "A7b"),
-    "moe_experts": (_ANY, "A7b"),
     "remat": (_ANY, "not ported (torch.utils.checkpoint)"),
     "bf16_attention_probs": (_ANY, "not ported (the attention kernels keep no "
                                    "probabilities; use --flash-attention)"),
 }
 # degrees and counts whose value 1 is the single-device default
-_DEGREES = ("tp", "pp", "ep")
+_DEGREES = ("pp",)
 # the commands that run data-parallel over a process group; the other
 # commands' --num-processes is ROADMAP A7b
 DP_COMMANDS = ("pretrain", "train", "adapter", "shared-adapter", "zeroshot")
@@ -90,10 +92,11 @@ def _unported(args) -> str | None:
             flag = "--" + dest.replace("_", "-")
             where = item if item.startswith("not ported") else f"ROADMAP {item}"
             return f"{flag} {v!r} is not ported yet ({where})"
-    if args.command not in GROUP_COMMANDS:
-        v = getattr(args, "num_processes", None)
-        if v not in (None, 0, 1):
-            return f"--num-processes {v!r} is not ported yet (ROADMAP A7b)"
+    v = getattr(args, "num_processes", None)
+    if args.command not in GROUP_COMMANDS and v not in (None, 0, 1):
+        return f"--num-processes {v!r} is not ported yet (ROADMAP A7b)"
+    if _ep(args) > 1 and v not in (None, 0, 1):
+        return f"--ep with --num-processes {v!r} is not ported yet (ROADMAP A7b)"
     return None
 
 
@@ -135,7 +138,35 @@ def _dp_devices(args) -> int:
     n = int(getattr(args, "num_devices", None) or 0)
     if not n and (int(args.num_processes or 1) > 1 or multihost.launched()):
         n = _visible_devices(args)
-    return n
+    return n or (_ep(args) if _ep(args) > 1 else 0)
+
+
+def _ep(args) -> int:
+    """pretrain's expert-parallel degree (the JAX LoRA path ignores ``--ep``)."""
+    if args.command != "pretrain" or args.lora:
+        return 1
+    return int(args.ep or 1)
+
+
+def _ep_refused(args, n: int) -> None:
+    """``pretrain --ep P``: the JAX CLI's four refusals, in its order and
+    with its messages, before any rank starts."""
+    from ..parallel.ep import validate_ep
+
+    ep = _ep(args)
+    cfg = _apply_tiny(_preset(args), args, 1)
+    experts = cfg.model.text_moe_experts
+    if not experts:
+        raise SystemExit("--ep requires --moe-experts")
+    if n % ep:
+        raise SystemExit(f"--num-devices {n} must divide into --ep {ep}")
+    try:
+        validate_ep(experts, ep)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    bs = args.batch_size or cfg.data.batch_size
+    if bs % (n // ep):
+        raise SystemExit(f"batch size {bs} must divide over the data axis ({n // ep})")
 
 
 def _dp_refused(args) -> None:
@@ -163,9 +194,11 @@ def _dp_refused(args) -> None:
                 )
     if args.command == "pretrain" and args.lora and n > 1:
         raise SystemExit("--num-devices is not supported with --lora")
+    if _ep(args) > 1:
+        _ep_refused(args, n)
     if n <= 1:
         return
-    if args.command not in ("zeroshot", "serve"):
+    if args.command not in ("zeroshot", "serve") and _ep(args) == 1:
         preset = "adapter" if args.command in ("adapter", "shared-adapter") else None
         bs = args.batch_size or _preset(args, preset).data.batch_size
         if bs % n:
@@ -361,6 +394,8 @@ def _apply_tiny(cfg, args, vocab_size: int):
         model = dataclasses.replace(model, bert_fused_mlp=True)
     if getattr(args, "vit_fused_mlp_train", False):
         model = dataclasses.replace(model, vit_fused_mlp_train=True)
+    if getattr(args, "moe_experts", 0):
+        model = dataclasses.replace(model, text_moe_experts=args.moe_experts)
     if getattr(args, "learnable_temperature", False):
         loss = getattr(args, "loss", None) or cfg.train.loss
         model = dataclasses.replace(
@@ -565,7 +600,7 @@ def _step_images(batch, single_view: bool = False):
     return img if isinstance(img, torch.Tensor) else np.ascontiguousarray(img)
 
 
-def _rng_stream(args, cfg):
+def _rng_stream(args, cfg, mesh=None):
     """The dropout generator stream of ``fit`` (the JAX CLI's
     ``KeyChain(cfg.data.seed)``): one ``torch.Generator`` on the command's
     device, seeded with the data seed, whose state advances from step to
@@ -576,9 +611,10 @@ def _rng_stream(args, cfg):
 
     from ..parallel import multihost
 
-    # each rank its own stream, so that rows at the same place of two ranks'
-    # slices do not share their dropout masks
-    seed = cfg.data.seed + multihost.process_index()
+    # each data slice its own stream, so that rows at the same place of two
+    # slices do not share their dropout masks; the ranks of one slice of a
+    # 2-D ``mesh`` share theirs
+    seed = cfg.data.seed + (multihost.process_index() if mesh is None else mesh.data_index)
     torch.manual_seed(seed)
     return itertools.repeat(torch.Generator(args.device).manual_seed(seed))
 
@@ -588,14 +624,15 @@ def _strided(args) -> bool:
     return int(args.num_processes or 1) > 1
 
 
-def _feed(args, batches, microbatches: int = 1):
+def _feed(args, batches, microbatches: int = 1, group=None):
     """Batches on the command's device. Under ``--num-devices`` (a group
-    whose ranks load the same global batches) each rank keeps its slice:
-    its contiguous rows, or with ``microbatches`` its share of each global
-    microbatch."""
+    whose ranks load the same global batches) each rank keeps its slice
+    over ``group`` (by default the whole group): its contiguous rows, or
+    with ``microbatches`` its share of each global microbatch."""
     from ..data import prefetch_to_device
 
-    group = _group()
+    if group is None:
+        group = _group()
     if group is not None and not _strided(args):
         from ..parallel import shard_batch
 
@@ -753,6 +790,19 @@ def cmd_pretrain(args) -> int:
     prep = dict(image_size=cfg.model.image_size, mean=cfg.augment.mean, std=cfg.augment.std,
                 compute_dtype=compute)
     accum = 1
+    # --ep: the (data, expert) layout; the steps take the data group (the
+    # losses, BatchNorm, routing, the gradient average) and the expert group
+    # (the clip's sum over the expert shards)
+    mesh = None
+    layout = _dp(group)
+    if _ep(args) > 1:
+        from ..parallel.ep import create_dp_ep_mesh
+        from ..parallel.tp import step_groups
+
+        mesh = create_dp_ep_mesh(_ep(args), num_devices=_dp_devices(args))
+        logging.info("expert-parallel over %s", mesh.shape)
+        layout = step_groups(mesh)
+    data_group = layout.get("group")
     if args.lora:
         # parameter-efficient fine-tuning: the frozen towers and rank-r
         # deltas on the attention and MLP projections (models/lora.py); the
@@ -791,27 +841,35 @@ def cmd_pretrain(args) -> int:
             step = make_clip_pretrain_step(model, optimizer, label_fn, loss_name,
                                            cfg.model.temperature,
                                            max_grad_norm=cfg.train.max_grad_norm,
-                                           ema_decay=ema_decay, **_dp(group), **local, **prep)
+                                           ema_decay=ema_decay, **layout, **local, **prep)
         # with an EMA, validation scores the smoothed weights: they drive the
         # plateau schedule, early stopping and the best checkpoint
         eval_step = make_clip_eval_step(model, loss_name, cfg.model.temperature,
-                                        use_ema=bool(ema_decay), **_dp(group), **prep)
+                                        use_ema=bool(ema_decay), **_dp(data_group), **prep)
         template = TrainState.create(model, optimizer, ema=bool(ema_decay))
     ckpt = None
     if args.checkpoint_dir:
         ckpt = CheckpointManager(args.checkpoint_dir, cfg.train.max_checkpoints_to_keep)
     state, start_epoch = resume_or_init(ckpt, template, loader=train_loader)
     state = _replicated(state)
+    if mesh is not None:
+        # restored whole, then sharded; saved whole (the checkpoint layout
+        # is unchanged)
+        from ..parallel.ep import WholeCheckpoints, shard_state_ep
+
+        state = shard_state_ep(state, mesh)
+        ckpt = WholeCheckpoints(ckpt, mesh) if ckpt is not None else None
     writer = MetricWriter(args.log_dir, "pretrain") if _primary() else None
 
     with PreemptionGuard() as guard:
         state, history = fit(
             state, step, eval_step,
-            train_loader_fn=lambda: _feed(args, map(tokenize_batch, train_loader), accum),
-            val_loader_fn=lambda: _feed(args, map(tokenize_batch, val_loader)),
+            train_loader_fn=lambda: _feed(args, map(tokenize_batch, train_loader), accum,
+                                          data_group),
+            val_loader_fn=lambda: _feed(args, map(tokenize_batch, val_loader), group=data_group),
             base_lrs=groups,
             num_epochs=args.epochs or cfg.train.num_epochs,
-            rng_stream=_rng_stream(args, cfg),
+            rng_stream=_rng_stream(args, cfg, mesh),
             scheduler=cfg.train.scheduler,
             eta_min=cfg.train.eta_min,
             plateau_patience=cfg.train.plateau_patience,
@@ -1532,6 +1590,12 @@ def cmd_convert(args) -> int:
     cfg = _preset(args)
     tokenizer = _tokenizer(args)
     cfg = _apply_tiny(cfg, args, len(tokenizer.vocab))
+    if cfg.model.text_moe_experts:
+        # the JAX convert raises here too: its export_bert reads a dense
+        # MLP in every layer (KeyError 'intermediate'; ROADMAP, reference
+        # behaviour copied)
+        raise SystemExit("convert --moe-experts: the reference layout (HF BertModel names) "
+                         "has no place for a MoE layer's router and experts")
     # fp32 restore: the converted artifact carries full-precision weights
     # whatever the serving compute dtype
     model = load_trained_model(
@@ -1663,7 +1727,11 @@ def build_parser() -> argparse.ArgumentParser:
                         choices=("full", "dots", "dots_no_batch"),
                         help="with --remat")
         sp.add_argument("--moe-experts", type=int, default=0, metavar="E",
-                        help=_not_ported_help("A7b"))
+                        help="Switch-MoE text tower: every other block's "
+                             "MLP routes over E experts (0 = dense parity "
+                             "path). Pass the SAME value to every command "
+                             "that loads a MoE checkpoint — the geometry "
+                             "is not stored in the checkpoint")
         sp.add_argument("--allow-partial-restore", action="store_true",
                         help="accept a checkpoint missing some of the "
                              "model's arrays (those stay random-init). "
@@ -1717,7 +1785,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "towers, train rank-RANK LoRA deltas on the "
                          "attention/MLP kernels")
     sp.add_argument("--lora-alpha", type=float, default=16.0, help="with --lora")
-    sp.add_argument("--ep", type=int, default=1, help=_not_ported_help("A7b"))
+    sp.add_argument("--ep", type=int, default=1,
+                    help="with --num-devices and --moe-experts: expert-"
+                         "parallel degree (N/ep × ep mesh, expert weights "
+                         "sharded)")
     sp.add_argument("--pp", type=int, default=0, metavar="S",
                     help=_not_ported_help("A7b"))
     sp.add_argument("--pp-microbatches", type=int, default=2, help="with --pp")
@@ -1784,7 +1855,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "raise, as in the JAX CLI")
     sp.add_argument("--dynamic", action="store_true",
                     help="two-pass dynamic-threshold pipeline")
-    sp.add_argument("--tp", type=int, default=1, help=_not_ported_help("A7b"))
+    sp.add_argument("--tp", type=int, default=1,
+                    help="with --num-devices: tensor-parallel degree for "
+                         "the transformer towers (N/tp × tp mesh)")
     sp.set_defaults(fn=cmd_zeroshot)
 
     sp = sub.add_parser("gradcam", help="Grad-CAM saliency maps")
@@ -1838,7 +1911,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "this many queued requests, new ones get 429 "
                          "(load shedding) instead of unbounded queueing; "
                          "0 = unbounded")
-    sp.add_argument("--tp", type=int, default=1, help=_not_ported_help("A7b"))
+    sp.add_argument("--tp", type=int, default=1,
+                    help="with --num-devices: tensor-parallel degree for "
+                         "the transformer towers (N/tp × tp mesh)")
     sp.add_argument("--exported", default=None, metavar="DIR",
                     help="serve a deployment artifact (python -m clip_for_dl_tpu_torch.tools."
                          "export_inference --stablehlo) instead of rebuilding the model: "

@@ -35,6 +35,16 @@ data slice, their generators in lockstep, draw the same.
 :func:`layer_shares` also runs every rank's share in one process, the
 partial products summed there. Unsharded, the biases go into the products
 and no collective runs.
+
+``moe_experts`` E > 0 (``BertEncoder``: every ``moe_every``-th layer, i %
+moe_every == moe_every − 1, as bert.py:293-297 in the JAX package) swaps
+the layer's MLP for ``models.moe.SwitchMoEMLP`` under ``moe_mlp``: such a
+layer has ``moe_mlp`` and ``output.LayerNorm`` and no ``intermediate`` or
+``output.dense``, its token mask read off the attention bias (bias > −1e4),
+and the MoE wins over ``fused_mlp``. The MoE is replicated under tensor
+parallelism (the JAX ``tp_spec`` shards no ``moe_mlp`` leaf), so it runs
+once on the layer's whole input, outside the sum over shares; under
+sequence parallelism on the gathered sequence (``TPContext.replicated``).
 """
 
 from __future__ import annotations
@@ -49,6 +59,7 @@ from ..ops import flash_attention as fa
 from ..ops import mlp_train
 from ..parallel.tp import UNSHARDED
 from .heads import dropout
+from .moe import SwitchMoEMLP
 
 
 def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -112,6 +123,14 @@ class _Attention(nn.Module):
         self.output = _DenseNorm(hidden, hidden)
 
 
+class _Norm(nn.Module):
+    """A MoE layer's ``output``: its LayerNorm alone."""
+
+    def __init__(self, hidden: int):
+        super().__init__()
+        self.LayerNorm = nn.LayerNorm(hidden, eps=1e-12)
+
+
 class _Intermediate(nn.Module):
     def __init__(self, hidden: int, intermediate: int):
         super().__init__()
@@ -122,13 +141,18 @@ class BertLayer(nn.Module):
     tp = UNSHARDED  # its parallel.tp.TPContext
 
     def __init__(self, hidden: int, heads: int, intermediate: int,
-                 dropout: float = 0.1, flash: bool = False, fused_mlp: bool = False):
+                 dropout: float = 0.1, flash: bool = False, fused_mlp: bool = False,
+                 moe_experts: int = 0, moe_capacity_factor: float = 1.25):
         super().__init__()
         self.hidden, self.intermediate_dim = hidden, intermediate
         self.fused_mlp = fused_mlp
         self.attention = _Attention(hidden, heads, dropout, flash)
-        self.intermediate = _Intermediate(hidden, intermediate)
-        self.output = _DenseNorm(intermediate, hidden)
+        if moe_experts:
+            self.moe_mlp = SwitchMoEMLP(hidden, intermediate, moe_experts, moe_capacity_factor)
+            self.output = _Norm(hidden)
+        else:
+            self.intermediate = _Intermediate(hidden, intermediate)
+            self.output = _DenseNorm(intermediate, hidden)
         self.dropout = nn.Dropout(dropout)
 
     def _use_fused_mlp(self, dtype: torch.dtype) -> bool:
@@ -207,8 +231,12 @@ def layer_shares(shares, x: torch.Tensor, bias: Optional[torch.Tensor],
                           lead.attention.output.dense.bias, dt)
     attn = dropout(lead.dropout, attn, generator)
     x = _layer_norm(lead.attention.output.LayerNorm, x + attn, dt)
-    xin = ctx.enter(x)
-    h = ctx.row_output([s._mlp_share(xin) for s in shares], lead.output.dense.bias, dt)
+    if hasattr(lead, "moe_mlp"):
+        mask = None if bias is None else bias > -1e4
+        h = ctx.replicated(lambda v: lead.moe_mlp(v, mask), x)
+    else:
+        xin = ctx.enter(x)
+        h = ctx.row_output([s._mlp_share(xin) for s in shares], lead.output.dense.bias, dt)
     h = dropout(lead.dropout, h, generator)
     return _layer_norm(lead.output.LayerNorm, x + h, dt)
 
@@ -218,13 +246,16 @@ class BertEncoder(nn.Module):
 
     def __init__(self, vocab_size: int = 28996, hidden: int = 768, layers: int = 12,
                  heads: int = 12, intermediate: int = 3072, max_position: int = 512,
-                 dropout: float = 0.1, flash: bool = False, fused_mlp: bool = False):
+                 dropout: float = 0.1, flash: bool = False, fused_mlp: bool = False,
+                 moe_experts: int = 0, moe_every: int = 2, moe_capacity_factor: float = 1.25):
         super().__init__()
         self.embeddings = BertEmbeddings(vocab_size, hidden, max_position, dropout=dropout)
         self.encoder = nn.Module()
         self.encoder.layer = nn.ModuleList(
-            BertLayer(hidden, heads, intermediate, dropout, flash, fused_mlp)
-            for _ in range(layers)
+            BertLayer(hidden, heads, intermediate, dropout, flash, fused_mlp,
+                      moe_experts if moe_experts and i % moe_every == moe_every - 1 else 0,
+                      moe_capacity_factor)
+            for i in range(layers)
         )
 
     def forward(self, input_ids: torch.Tensor,

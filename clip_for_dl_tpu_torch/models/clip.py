@@ -41,6 +41,7 @@ from ..core.config import ModelConfig
 from ..ops.similarity import l2_normalize
 from .attention_fusion import AdditiveMultiModalAttention
 from .bert import BertEncoder
+from .moe import SwitchMoEMLP
 from .heads import (
     CAdapter,
     ImageProjection,
@@ -79,6 +80,8 @@ class CXRClip(nn.Module):
             intermediate=config.text_intermediate_dim,
             max_position=config.text_max_position, dropout=config.dropout,
             flash=config.flash_attention, fused_mlp=config.bert_fused_mlp,
+            moe_experts=config.text_moe_experts, moe_every=config.text_moe_every,
+            moe_capacity_factor=config.moe_capacity_factor,
         )
         d = config.shared_embedding_dim
         self.image_projector = ImageProjection(self.image_tower.out_dim, d, config.dropout)
@@ -170,7 +173,8 @@ class CXRClip(nn.Module):
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded random weights: linear, embedding, the ViT's packed attention
-    projection and position embedding N(0, 0.02) (BERT's init), conv
+    projection and position embedding, the MoE experts' ``wi``/``wo``
+    N(0, 0.02) (BERT's init), conv
     He-normal over fan-out (torchvision's), zero biases and class token, unit
     norms, BatchNorm running statistics mean 0 / variance 1. ``generator``
     must live on the parameters' device."""
@@ -187,6 +191,11 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
         elif isinstance(m, MultiheadSelfAttention):
             m.in_proj_weight.normal_(0.0, 0.02, generator=generator)
             m.in_proj_bias.zero_()
+        elif isinstance(m, SwitchMoEMLP):
+            m.wi.normal_(0.0, 0.02, generator=generator)
+            m.wo.normal_(0.0, 0.02, generator=generator)
+            m.bi.zero_()
+            m.bo.zero_()
         elif isinstance(m, ViT):
             m.class_token.zero_()
             m.encoder.pos_embedding.normal_(0.0, 0.02, generator=generator)

@@ -14,7 +14,9 @@ accepts:
 - the learnable-temperature scalars ``logit_scale`` / ``logit_bias``
   (0-dim) under their own names;
 - the cross-modal attention of a ``use_multimodal_attention`` model under
-  ``multimodal_attention.{image_proj,text_proj,attention,output_proj}``.
+  ``multimodal_attention.{image_proj,text_proj,attention,output_proj}``;
+- a MoE layer's ``moe_mlp``: the router as a Dense, ``wi/bi/wo/bo`` as
+  they are (``models/moe.py``).
 
 :func:`lora_from_jax` carries a JAX LoRA state ({path: {"a", "b"}}) over
 under the port's target names (``models/lora.py``).
@@ -111,8 +113,13 @@ def _bert(params, prefix: str) -> Dict[str, torch.Tensor]:
             sd.update(_linear(p["attention"][qkv], f"{dst}.attention.self.{qkv}"))
         sd.update(_linear(p["attention_output"], f"{dst}.attention.output.dense"))
         sd.update(_norm(p["attention_layer_norm"], f"{dst}.attention.output.LayerNorm"))
-        sd.update(_linear(p["intermediate"], f"{dst}.intermediate.dense"))
-        sd.update(_linear(p["output"], f"{dst}.output.dense"))
+        if "moe_mlp" in p:
+            moe = p["moe_mlp"]
+            sd.update(_linear(moe["router"], f"{dst}.moe_mlp.router"))
+            sd.update({f"{dst}.moe_mlp.{k}": _t(moe[k]) for k in ("wi", "bi", "wo", "bo")})
+        else:
+            sd.update(_linear(p["intermediate"], f"{dst}.intermediate.dense"))
+            sd.update(_linear(p["output"], f"{dst}.output.dense"))
         sd.update(_norm(p["output_layer_norm"], f"{dst}.output.LayerNorm"))
     return sd
 

@@ -1,6 +1,6 @@
-"""Data, tensor and sequence parallelism over ``torch.distributed``
-(counterpart of ``clip_for_dl_tpu.parallel``; pipeline and expert
-parallelism are ROADMAP A7b)."""
+"""Data, tensor, sequence and expert parallelism over ``torch.distributed``
+(counterpart of ``clip_for_dl_tpu.parallel``; pipeline parallelism is
+ROADMAP A7b)."""
 
 from .common import MODEL_AXIS, create_2d_mesh
 from .dp import (
@@ -11,6 +11,15 @@ from .dp import (
     replicate_state,
     shard_batch,
     shard_rows,
+)
+from .ep import (
+    EXPERT_AXIS,
+    WholeCheckpoints,
+    create_dp_ep_mesh,
+    ep_spec,
+    expert_parallel_step,
+    shard_state_ep,
+    validate_ep,
 )
 from .sp import sequence_sharded_fn
 from .tp import (
@@ -24,6 +33,13 @@ from .tp import (
 )
 
 __all__ = [
+    "EXPERT_AXIS",
+    "WholeCheckpoints",
+    "create_dp_ep_mesh",
+    "ep_spec",
+    "expert_parallel_step",
+    "shard_state_ep",
+    "validate_ep",
     "all_reduce_grads_",
     "check_devices",
     "data_parallel_step",

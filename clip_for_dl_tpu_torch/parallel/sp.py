@@ -22,6 +22,12 @@ schedule runs the BERT layers' own forward (``models/bert.py``) under a
 
 Ragged sequences and batches are padded (tokens with mask 0, rows of zeros)
 and sliced back off the output, as the JAX wrapper does.
+
+A MoE layer's MLP (``models/moe.py``; replicated, as the JAX ``tp_spec``
+leaves it) runs on the sequence gathered over the model axis, routing over
+the data axis (``moe.routing``) in the padded global batch's (row, token)
+order, which is the unsharded layer's on the padded batch (GSPMD's result
+in the JAX package); each rank keeps its tokens of the output.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from typing import Callable, List, Optional
 import torch
 import torch.nn.functional as F
 
+from ..models.moe import routing
 from .collectives import all_gather_dim
 from .common import DATA_AXIS, MODEL_AXIS, Mesh2D
 from .tp import TPContext, check_model_tp, shard_layers_
@@ -67,6 +74,9 @@ class SequenceContext(TPContext):
         if self.size > 1:  # the sequence was gathered at the layer's input
             return fn(*qkv)
         return self._local(fn(*(all_gather_dim(t, 1, self.seq_group) for t in qkv)))
+
+    def replicated(self, fn: Callable, x: torch.Tensor) -> torch.Tensor:
+        return self._local(fn(all_gather_dim(x, 1, self.seq_group)))
 
 
 def sequence_sharded_fn(
@@ -111,8 +121,9 @@ def sequence_sharded_fn(
         mask = attention_mask[r_batch * bl:(r_batch + 1) * bl]
         x = tower.embeddings(ids, start=r_seq * sl)
         bias = torch.where(mask > 0, 0.0, -1e10).to(torch.float32)
-        for layer in tower.encoder.layer:
-            x = layer(x, bias)
+        with routing(batch_group):
+            for layer in tower.encoder.layer:
+                x = layer(x, bias)
         out = all_gather_dim(all_gather_dim(x, 1, seq_group), 0, batch_group)
         return out[:b, :s]
 

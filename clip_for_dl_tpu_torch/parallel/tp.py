@@ -183,6 +183,12 @@ class TPContext:
         sequence here."""
         return fn(*qkv)
 
+    def replicated(self, fn: Callable, x: torch.Tensor) -> torch.Tensor:
+        """``fn`` (a module no rank shards: a MoE layer's MLP) once, on the
+        layer's tokens as they are; ``parallel/sp.py`` runs it on the
+        gathered sequence."""
+        return fn(x)
+
 
 UNSHARDED = TPContext()
 

@@ -1,7 +1,9 @@
 """The rank side of the CPU data-parallel tests (``tests/test_torch_dp.py``,
-``test_torch_global_batch.py``, ``test_torch_accum.py``) and of the tensor
+``test_torch_global_batch.py``, ``test_torch_accum.py``), of the tensor
 and sequence parallel ones (``tests/test_torch_tp.py``, ``test_torch_sp.py``:
-each case builds its 2-D layout over the ranks, ``parallel.tp.create_dp_tp_mesh``).
+each case builds its 2-D layout over the ranks, ``parallel.tp.create_dp_tp_mesh``)
+and of the MoE and expert parallel ones (``tests/test_torch_moe.py``,
+``test_torch_ep.py``).
 
 A test writes its cases to ``WORKDIR/cases.pkl`` (numpy arrays and plain
 values: flax-layout variables, model configurations, batches), starts N gloo
@@ -567,7 +569,60 @@ def _group_serve_fault_case(case):
                 "failed": repr(group_engine.failed)}
 
 
-CASES = {"tp_forward": _tp_forward_case, "group_serve": _group_serve_case,
+def _moe_dp_case(case):
+    """N = 2 data parallel over the data group of a 2 x 2 layout (the two
+    ranks of each model index a run of their own) with a MoE text tower;
+    with ``local_routing``, the planted fault: each rank routes its own
+    rows alone (its own capacity and queue positions)."""
+    from unittest import mock
+
+    from ..models import moe
+    from ..parallel.common import create_2d_mesh
+    from ..train import steps
+
+    mesh = create_2d_mesh(2)
+    local = (lambda group=None: moe.routing(None)) if case.get("local_routing") else moe.routing
+    with mock.patch.object(steps, "routing", local):
+        losses, model, delta = step_case(dict(case, kind="pretrain"), mesh.data_group)
+    return {"losses": losses, "delta": delta}
+
+
+def _ep_case(case):
+    """One AdamW pretrain step through ``expert_parallel_step`` on the
+    case's ``(data, expert)`` layout, dropout off: the loss, this rank's
+    clipped gradients (its expert shards among them) and state after; with
+    ``dir``, a checkpoint written through ``WholeCheckpoints``."""
+    from ..parallel.ep import (
+        WholeCheckpoints, create_dp_ep_mesh, expert_parallel_step, shard_state_ep,
+    )
+    from ..parallel.tp import step_groups
+
+    mesh = create_dp_ep_mesh(case["ep"])
+    with fp32_exact():
+        model = model_from(case)
+        label_fn = make_label_fn(case["groups"])
+        opt = make_optimizer(model, label_fn, weight_decay=case["weight_decay"])
+        state = shard_state_ep(TrainState(model, opt), mesh)
+        prep = dict(image_size=case["image_size"], mean=case["mean"], std=case["std"],
+                    compute_dtype=torch.float32, max_grad_norm=case["clip"])
+        step = expert_parallel_step(make_clip_pretrain_step(
+            model, opt, label_fn, "clip_self_distill", 2.0, **prep, **step_groups(mesh)), mesh)
+        dev = device_of(case)
+        state, metrics = step(state, tensors(case["batch"], dev), case["lrs"],
+                              mesh.generator(0, dev))
+        out = {"loss": float(metrics["loss"]), "state": host_state(model),
+               "grads": {n: p.grad.cpu().numpy().copy() for n, p in model.named_parameters()},
+               "expert_index": mesh.model_index, "data_index": mesh.data_index}
+        if case.get("dir"):
+            ckpt = WholeCheckpoints(CheckpointManager(case["dir"]), mesh)
+            ckpt.save(0, state, metrics={"val_loss": 0.0})
+            ckpt.wait()
+            # the shards are back after the save
+            out["after_save"] = host_state(model)
+    return out
+
+
+CASES = {"tp_forward": _tp_forward_case, "moe_dp": _moe_dp_case, "ep_step": _ep_case, "group_serve": _group_serve_case,
          "group_serve_fault": _group_serve_fault_case, "tp_step": _tp_step_case,
          "tp_engine": _tp_engine_case, "sp": _sp_case, "cli": _cli_case, "pretrain": _pretrain_like, "adapter": _pretrain_like, "shared": _pretrain_like,
          "multiview": _pretrain_like, "bn": _bn_case, "losses": _losses_case,

@@ -83,8 +83,9 @@ def load_model(model: nn.Module, saved: Mapping[str, torch.Tensor], *,
     missing = [k for k in own if k not in saved]
     if missing:
         msg = (f"{what} lacks {len(missing)} of the model's tensors (e.g. {missing[:4]}): "
-               "those would keep their initial values. Build the model the checkpoint "
-               "was trained with, or pass allow_partial=True to accept partial weights.")
+               "those would keep their initial values. Rebuild with the flags the "
+               "checkpoint was trained with (--moe-experts / --tiny / tower geometry), or "
+               "pass --allow-partial-restore (allow_partial=True) to accept partial weights.")
         if not allow_missing:
             raise ValueError(msg)
         logger.warning(msg)

@@ -27,6 +27,12 @@ losses are their ``losses/global_batch.py`` forms, the gradients are
 averaged over the ranks between the backward and the clip, and the metrics
 are means over the global batch.
 
+A model with a MoE text tower (``models/moe.py``) routes inside
+``moe.routing(group)``: over the global batch, as the JAX steps do. The
+pretrain and multi-view train steps add ``config.moe_aux_weight`` × the sum
+of the layers' aux losses to the loss (the JAX steps' sown ``losses``); the
+eval and adapter steps route the same way and add nothing.
+
 The pretrain losses are ``clip_self_distill``, ``info_nce`` and
 ``siglip``. A model built with ``learnable_temperature`` trains its scale
 s = exp(min(logit_scale, log 100)) and bias: the softmax losses run at
@@ -54,6 +60,7 @@ from ..losses import (
     siglip_loss,
 )
 from ..losses import global_batch
+from ..models.moe import routing
 from ..models.resnet import batch_norm_context
 from ..ops.augment import augment_batch
 from ..ops.image_prep import preprocess_images
@@ -131,6 +138,16 @@ def _contrastive(loss_name: str, temperature: float, group=None,
     return loss
 
 
+def _aux_weight(model) -> float:
+    return getattr(getattr(model, "config", None), "moe_aux_weight", 0.0)
+
+
+def _with_aux(loss: torch.Tensor, aux: List[torch.Tensor], weight: float) -> torch.Tensor:
+    """The loss plus ``weight`` × Σ the MoE layers' aux losses, when a MoE
+    layer ran (the JAX steps' ``if sown``)."""
+    return loss + weight * sum(aux) if aux else loss
+
+
 def _reduce_grads(params, group) -> None:
     """With a group, every gradient becomes its mean over the ranks."""
     if group is not None:
@@ -203,6 +220,7 @@ def make_clip_pretrain_step(
     names = [n for n, _ in model.named_parameters()]
     live = [p for _, p in model.named_parameters()]
     scale = getattr(model, "logit_scale", None)
+    aux_weight = _aux_weight(model)
 
     def step(state: TrainState, batch: Batch, lrs: Mapping[str, float],
              generator: Optional[torch.Generator] = None) -> Tuple[TrainState, Metrics]:
@@ -212,10 +230,11 @@ def make_clip_pretrain_step(
         set_group_lrs(optimizer, lrs)
         optimizer.zero_grad(set_to_none=True)
         model.train()
-        with batch_norm_context(group):
+        with batch_norm_context(group), routing(group) as aux:
             img_f, txt_f = model(images, batch["input_ids"], batch["attention_mask"],
                                  generator=generator)
-        loss = contrastive(txt_f, img_f, dict(model.named_parameters(recurse=False)))
+        loss = _with_aux(contrastive(txt_f, img_f, dict(model.named_parameters(recurse=False))),
+                         aux, aux_weight)
         loss.backward()
         # JAX differentiates every parameter: the heads the forward skips get
         # zero gradients, so that AdamW decays them as optax does
@@ -261,14 +280,15 @@ def make_clip_eval_step(
         m = state.model.eval()
         images = preprocess_images(batch["images"], image_size, image_size, mean, std,
                                    compute_dtype)
-        if use_ema:
-            variables = state.to_variables(use_ema=True)
-            img_f, txt_f = functional_call(
-                m, variables, (images, batch["input_ids"], batch["attention_mask"]))
-        else:
-            variables = dict(m.named_parameters(recurse=False))
-            img_f = m.encode_image(images)
-            txt_f = m.encode_text(batch["input_ids"], batch["attention_mask"])
+        with routing(group):
+            if use_ema:
+                variables = state.to_variables(use_ema=True)
+                img_f, txt_f = functional_call(
+                    m, variables, (images, batch["input_ids"], batch["attention_mask"]))
+            else:
+                variables = dict(m.named_parameters(recurse=False))
+                img_f = m.encode_image(images)
+                txt_f = m.encode_text(batch["input_ids"], batch["attention_mask"])
         return {"loss": contrastive(txt_f, img_f, variables)}
 
     return step
@@ -414,6 +434,7 @@ def make_multiview_train_step(
     params = _check_groups(model, optimizer, label_fn)
     names = [n for n, _ in model.named_parameters()]
     live = [p for _, p in model.named_parameters()]
+    aux_weight = _aux_weight(model)
 
     def step(state: TrainState, batch: Batch, text_features: torch.Tensor,
              lrs: Mapping[str, float],
@@ -426,11 +447,12 @@ def make_multiview_train_step(
         set_group_lrs(optimizer, lrs)
         optimizer.zero_grad(set_to_none=True)
         model.train()
-        with batch_norm_context(group):
+        with batch_norm_context(group), routing(group) as aux:
             feats = model.encode_multiview(images.reshape(b, 2, *images.shape[1:]),
                                            generator=generator)
         loss, _ = _multiview_loss(model, feats, text_features, batch["labels"], temperature,
                                   use_enhance, group)
+        loss = _with_aux(loss, aux, aux_weight)
         loss.backward()
         for p in params:
             if p.grad is None:
@@ -497,13 +519,14 @@ def make_multiview_eval_step(
     return step
 
 
-def _report_features(model, batch: Batch, image_size, mean, std, compute_dtype):
+def _report_features(model, batch: Batch, image_size, mean, std, compute_dtype, group=None):
     """(image features, report text features) of the frozen towers in eval
-    mode, under ``no_grad``."""
+    mode, under ``no_grad``; a MoE text tower routes over ``group``'s
+    global batch."""
     images = preprocess_images(batch["images"], image_size, image_size, mean, std,
                                compute_dtype)
     model.eval()
-    with torch.no_grad():
+    with torch.no_grad(), routing(group):
         return (model.encode_image(images),
                 model.encode_text(batch["input_ids"], batch["attention_mask"]))
 
@@ -533,7 +556,8 @@ def make_shared_adapter_train_step(
     def step(state: TrainState, batch: Batch, lrs: Mapping[str, float],
              generator: Optional[torch.Generator] = None) -> Tuple[TrainState, Metrics]:
         _check_state(state, model, optimizer)
-        img_f, txt_f = _report_features(model, batch, image_size, mean, std, compute_dtype)
+        img_f, txt_f = _report_features(model, batch, image_size, mean, std, compute_dtype,
+                                        group)
         set_group_lrs(optimizer, lrs)
         optimizer.zero_grad(set_to_none=True)
         loss = bce_with_logits_loss(model.shared_adapter_logits(img_f, txt_f), batch["labels"])
@@ -560,7 +584,7 @@ def make_shared_adapter_eval_step(
     @torch.no_grad()
     def step(state: TrainState, batch: Batch) -> Metrics:
         img_f, txt_f = _report_features(state.model, batch, image_size, mean, std,
-                                        compute_dtype)
+                                        compute_dtype, group)
         logits = state.model.shared_adapter_logits(img_f, txt_f)
         return {"loss": _global(bce_with_logits_loss(logits, batch["labels"]), group),
                 "probs": torch.sigmoid(logits)}

@@ -222,18 +222,18 @@ def test_parser_takes_every_jax_command_and_flag():
 @pytest.mark.parametrize("argv,item", [
     (["pretrain", "--lora", "4", "--pp", "2"], "A7b"),
     (["pretrain", "--pp", "2"], "A7b"),
-    (["pretrain", "--ep", "2"], "A7b"),
-    (["pretrain", "--moe-experts", "4"], "A7b"),
-    (["eval", "--num-processes", "2"], "A7b"),
-    (["serve", "--tp", "2", "--moe-experts", "4"], "A7b"),
-    (["zeroshot", "--moe-experts", "2"], "A7b"), (["gradcam", "--num-processes", "2"], "A7b"),
+    (["pretrain", "--pp", "2", "--moe-experts", "4"], "A7b"),
+    (["pretrain", "--pp", "2", "--ep", "2", "--moe-experts", "4"], "A7b"),
+    (["pretrain", "--ep", "2", "--moe-experts", "4", "--num-processes", "2"], "A7b"),
+    (["eval", "--num-processes", "2"], "A7b"), (["gradcam", "--num-processes", "2"], "A7b"),
     (["pretrain", "--remat"], "not ported"), (["zeroshot", "--bf16-attention-probs"], "not ported"),
 ], ids=lambda v: "_".join(v) if isinstance(v, list) else v)
 def test_unported_commands_and_flags_exit_2(argv, item, capsys):
     """A command or flag the port does not run exits with status 2 before
-    anything runs, naming the ROADMAP item that owns it: pipeline and
-    expert parallelism, MoE and the other commands' multi-process runs are
-    A7b."""
+    anything runs, naming the ROADMAP item that owns it: pipeline
+    parallelism (with or without the MoE tower and ``--ep``, which run
+    without it), ``--ep`` over several processes and the other commands'
+    multi-process runs are A7b."""
     assert cli.main(argv) == 2
     err = capsys.readouterr().err
     assert (f"ROADMAP {item})" if item != "not ported" else "(not ported") in err, err

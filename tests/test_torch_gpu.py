@@ -2247,3 +2247,105 @@ def test_tp_cases_over_nccl_equal_the_plain_runs(cuda, nccl_tp):
         engine.build_text_features(prompts_for_family("prediction", DISEASE_LABELS))
         np.testing.assert_allclose(out["engine"]["logits"], engine.logits(case["images"]),
                                    atol=1e-5, rtol=0)
+
+
+def test_moe_layer_on_the_card(cuda):
+    """The MoE layer's expert products on the card (16-bit operands into
+    fp32 outputs, ``torch.bmm(..., out_dtype=torch.float32)``) at 4 experts
+    of 256 -> 512 over 8 x 100 tokens, some padding: the bf16 layer (fp32
+    masters cast in the forward) within four bf16 steps (2^-6) of the
+    output's largest entry from its fp32 route (TF32 off); each expert
+    product, forward and backward, within 2^-14 of its largest entry from
+    the fp32 product of its operands, and the experts before the final
+    cast within 2^-10 from fp32 on the layer's bf16 operands (x, wi, wo,
+    the hidden rounded to bf16 between the products), TF32 off, both of
+    which products rounded to bf16 fail (chip_smoke.py's moe_product_rel
+    and moe_products_rel); its backward runs; every ep share (2, 4) run one
+    after another and summed gives the unsharded bf16 layer's output, aux
+    loss and every gradient bit for bit."""
+    import copy
+    from unittest import mock
+
+    import torch.nn.functional as F
+
+    from clip_for_dl_tpu_torch.core.device import cast_in_forward
+    from clip_for_dl_tpu_torch.models import moe
+    from clip_for_dl_tpu_torch.models.moe import (
+        ExpertShard, SwitchMoEMLP, moe_shares, route, routing,
+    )
+    from clip_for_dl_tpu_torch.parallel.ep import shard_experts_
+    from clip_for_dl_tpu_torch.testing.ranks import fp32_exact
+
+    g = torch.Generator(cuda).manual_seed(0)
+    with torch.device(cuda):
+        layer = SwitchMoEMLP(256, 512, 4, 1.25)
+    with torch.no_grad():
+        for p in layer.parameters():
+            p.normal_(0.0, 0.05, generator=g)
+    x = torch.randn(8, 100, 256, device=cuda, generator=g).bfloat16()
+    mask = torch.ones(8, 100, device=cuda)
+    mask[::2, 60:] = 0
+    bf16 = cast_in_forward(copy.deepcopy(layer), torch.bfloat16)
+    with torch.no_grad(), fp32_exact():
+        want = layer(x.float(), mask)
+        got = bf16(x, mask)
+    assert got.dtype == torch.bfloat16
+    assert float((got.float() - want).abs().max()) <= 2.0 ** -6 * float(want.abs().max())
+
+    r = route(bf16, x, mask)
+    r = r._replace(gate=r.gate.detach())  # products() runs twice: no graph through the router
+    xf = x.reshape(-1, 256).float()
+    ref = torch.zeros_like(xf)
+    with torch.no_grad(), fp32_exact():
+        for e in range(4):
+            rows = torch.nonzero((r.slot >= e * r.capacity)
+                                 & (r.slot < (e + 1) * r.capacity)).flatten()
+            h = F.gelu(xf[rows] @ bf16.wi[e].float() + bf16.bi[e]).bfloat16().float()
+            ref[rows] = (h @ bf16.wo[e].float() + bf16.bo[e]) * r.gate[rows, None]
+
+    def products():
+        calls, product = [], moe._bmm32
+
+        def recording(a, b):
+            calls.append((a, b, product(a, b)))
+            return calls[-1][2]
+
+        xt = x.clone().requires_grad_()
+        with fp32_exact(), mock.patch.object(moe, "_bmm32", recording):
+            out = bf16.experts(xt.reshape(-1, 256), r.slot, r.capacity) * r.gate[:, None]
+            out.backward(torch.ones_like(out))
+        bf16.zero_grad(set_to_none=True)
+        with torch.no_grad(), fp32_exact():
+            each = [float((o - torch.bmm(a.float(), b.float())).abs().max())
+                    / float(torch.bmm(a.float(), b.float()).abs().max()) for a, b, o in calls]
+        assert len(each) == 6  # two products forward, four backward
+        return max(each), float((out.detach() - ref).abs().max()) / float(ref.abs().max())
+
+    each, whole_err = products()
+    assert each <= 2.0 ** -14 and whole_err <= 2.0 ** -10
+    real_bmm = moe._bmm32
+    with mock.patch.object(moe, "_bmm32", lambda a, b: real_bmm(a, b).bfloat16().float()):
+        each, whole_err = products()
+    assert each > 2.0 ** -14 and whole_err > 2.0 ** -10
+
+    def run(shares):
+        xt = x.clone().requires_grad_()
+        with routing() as aux:
+            y = moe_shares(shares, xt, mask)
+        (y.float().square().sum() + aux[0]).backward()
+        grads = {}
+        for s in shares:
+            for n, p in s.named_parameters():
+                if p.grad is not None:
+                    grads.setdefault(n, []).append(p.grad)
+        return [y, aux[0].detach(), xt.grad], {k: torch.cat(v) for k, v in grads.items()}
+
+    whole, wgrads = run([bf16])
+    for e in (2, 4):
+        shares = [shard_experts_(copy.deepcopy(bf16), ExpertShard(k, e)) for k in range(e)]
+        for s in shares:
+            s.zero_grad(set_to_none=True)
+        parts, grads = run(shares)
+        assert all(torch.equal(a, b) for a, b in zip(parts, whole)), e
+        assert set(grads) == set(wgrads)
+        assert all(torch.equal(grads[k], wgrads[k]) for k in wgrads), e
