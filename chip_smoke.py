@@ -5,8 +5,8 @@ pretrain -> adapter (phase B), the fp32 parity mode, the evaluation from
 files, the command line, its HTTP server, its multi-view training, its ViT
 training and LoRA, Grad-CAM and attention rollout, and its exported programs
 once on one CUDA GPU, and its data, tensor, sequence and expert parallelism,
-its MoE text tower and its serving over every card of the host (phases 15
-to 17; one card is enough).
+its MoE text tower and its serving over every card of the host, and its
+pipeline parallelism (phases 15 to 18; one card is enough).
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -397,6 +397,28 @@ c8_cases).
    ``expert_parallel_step`` at ep 2 and 4 against the data-parallel step
    (fp32 route, TOL dp_bn fp32), and each route's samples/s in bf16
    (paths ep_step_{ep}); every path's kernels held at their first inputs.
+18. Pipeline parallelism (ROADMAP A7b item 1), after phase 17, on phase
+   9's files. (a) On this card: BERT-base at full width, built with flash
+   attention and the fused MLP (which the pipeline ignores), on 128 reports
+   of 200 tokens with their real padding: every stage's share at S = 2 and
+   4 run one after another (``pipelined_bert_shares``, 4 microbatches),
+   forward and backward, against the unpipelined tower on the plain routes
+   (fp32 route TOL pp_fp32_rel, bf16 TOL pp_bf16; the output, the stack's
+   and every share's embeddings' gradients), no kernel launched; the
+   broadcast's summing backward and the embeddings' stage sum left out,
+   planted, must each fail. (b) ``torchrun --nproc-per-node <cards>
+   chip_smoke.py --phase18-rank DIR``: the phase-A step through
+   ``pipeline_parallel_step`` (at one card S = 1, 4 microbatches, no hop;
+   with more cards pp 2 and 4) on the fp32 route against the
+   data-parallel (one card: the single-card) step at TOL dp_bn fp32, B2
+   alone launched (paths pp_step_{S}); with more than one card ``pretrain
+   --num-devices <cards> --pp 2 --fp32`` (path cli_pp_pretrain: its first
+   step against one card's, TOL pp_command_rel; its whole ``unstacked/``
+   checkpoint; no file from ranks other than 0) and each route's bf16
+   samples/s and peak memory beside the data-parallel step's. Then
+   ``zeroshot`` of the ``unstacked/`` checkpoint (written at one card from
+   the S = 1 step's state as the command writes it; path cli_zeroshot_pp);
+   every path's kernels held at their first inputs.
 
 The second-to-last line is the kernels JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -666,6 +688,28 @@ TOL = {
     # summed over the ranks at fp32_grad_cos. The planted fault, each rank
     # routing its own rows alone, drops other tokens and must fail it
     "moe_group_fp32_rel": 1e-4,
+    # phase 18 (a): every pipeline stage of a full-width BERT-base run one
+    # after another on one card against the unpipelined tower, both on the
+    # plain routes and deterministic, TF32 off: the output relative to its
+    # largest entry, and each group's gradient (the stack of layers, every
+    # share's embeddings) in norm relative to the tower's. Only the order of
+    # fp32 sums differs: the microbatches sum the weights' gradients in M
+    # parts: 1.468e-6 (the stack) and at most 1.785e-6 (a share's
+    # embeddings) on an H100 80GB HBM3 at 700 W, the output bit for bit
+    # (PERF.md, the pipeline's findings). The planted faults move the stack's gradient
+    # by S − 1 of its norm and a share's embeddings' by all of it
+    "pp_fp32_rel": 5e-6,
+    # phase 18 (a) in bf16 (fp32 masters cast in the forward): the
+    # microbatches' weight gradients sum bf16 products in M parts, 2.361e-3
+    # of the stack's norm at cosine 0.9999971 in the same run, the output
+    # and the embeddings' gradients bit for bit
+    "pp_bf16": {"rel": 1e-2, "cos": 0.9999},
+    # phase 18 (b), ``pretrain --pp 2 --fp32``'s first-step loss at the
+    # command's B = 16 against one card's fp32 step on the same batch and
+    # weights: BatchNorm's sums over a data group of a few rows in another
+    # order, as moe_ep_command_rel holds phase 17's ``--ep 2``; a wrong
+    # feed, stage or embeddings gradient moves the loss by orders more
+    "pp_command_rel": 5e-5,
     # phase 17 (d), ``pretrain --ep 2 --fp32``'s first-step loss at the
     # command's B = 16 against one card's fp32 step on the same batch and
     # weights: BatchNorm's sums over a data group of a few rows in other
@@ -824,6 +868,13 @@ PATHS = {  # main path -> the kernels it must launch
     "cli_dp_pretrain_moe": TRAIN_KERNELS,
     **{f"ep_step_{e}": TRAIN_KERNELS for e in (2, 4, 8)},
     "cli_ep_pretrain_moe": ("image_prep", "flash_attention_fp32", "flash_attention_bwd_fp32"),
+    # phase 18: in each rank the pipelined step (B2 alone: the pipelined
+    # text tower runs on the plain routes, as JAX builds it) and pretrain
+    # --pp 2 --fp32 (B2 a step, B3's fp32 instance in the eval pass on the
+    # gathered tower); zeroshot of its unstacked checkpoint in this process
+    **{f"pp_step_{s}": ("image_prep",) for s in (1, 2, 4)},
+    "cli_pp_pretrain": ("image_prep", "flash_attention_fp32"),
+    "cli_zeroshot_pp": ("similarity", "image_prep", "flash_attention", "mlp"),
 }
 # H100 SXM peaks (NVIDIA's data sheet, dense): bf16 and fp16 on the tensor
 # cores and fp32 on the CUDA cores, in operations a second; HBM3 in bytes a
@@ -7994,6 +8045,478 @@ def moe_ep17(_build, mods, dev, seed: int, degrees, out: dict) -> None:
         torch.cuda.empty_cache()
 
 
+PP_DEGREES = (2, 4)  # the stage counts phase 18 (a) runs on one card, (b) over the cards
+PP_MICROBATCHES = 4
+PP_CLI_BATCH = 16  # phase 18 (b)'s pretrain batch: two steps of 32 synthetic pairs
+PP_STEPS = 4  # phase 18 (b)'s timed bf16 steps of each route (the first not counted)
+PP_TIMEOUT = 420  # seconds phase 18's torchrun may take, the build's load included
+
+
+def pp_phase18(_build, mods, dev, seed: int, card: str, workdir: str, results: dict) -> dict:
+    """Phase 18: (a) every pipeline stage of a full-width BERT-base run one
+    after another on this card (pp_shares18); (b) ``torchrun
+    --nproc-per-node <cards> chip_smoke.py --phase18-rank DIR``
+    (phase18_rank): the pipelined step over NCCL, and with more than one
+    card ``pretrain --num-devices <cards> --pp 2`` and the steps at pp 2
+    and 4 against the data-parallel step; then ``zeroshot --checkpoint
+    DIR/ckpt_pp/unstacked`` on phase 9's files in this process (path
+    cli_zeroshot_pp, B1-B4 held at their first inputs). Returns the
+    launches by path."""
+    import importlib
+    import io
+    import os
+    from contextlib import redirect_stdout
+
+    import torch
+
+    t_phase = time.perf_counter()
+    pp_shares18(_build, dev, seed, card)
+    world = torch.cuda.device_count()
+    w = f"{workdir}/phase18"
+    os.makedirs(w, exist_ok=True)
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={world}", str(ROOT / "chip_smoke.py"), "--phase18-rank", w,
+           "--seed", str(seed)]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, cwd=str(ROOT), capture_output=True, text=True,
+                              timeout=PP_TIMEOUT)
+    except subprocess.TimeoutExpired as exc:
+        raise SmokeFailure(f"phase 18's ranks ran past {PP_TIMEOUT} s: "
+                           f"{(exc.stdout or '')[-3000:]}")
+    print(proc.stdout.rstrip())
+    if proc.returncode:
+        print(proc.stderr[-8000:], file=sys.stderr)
+    check(proc.returncode == 0, f"phase 18's torchrun exited with {proc.returncode}")
+    by_path = {}
+    for r in range(world):
+        with open(f"{w}/rank{r}.json") as f:
+            out = json.load(f)
+        check(out["ok"], f"phase 18, rank {r} did not finish")
+        for path, launches in out["launches"].items():
+            check_launched(mods, launches, path)
+            by_path[f"{path}@rank{r}"] = launches
+        for name, v in out["results"].items():
+            results.setdefault(name, {})["max_abs_err"] = max(
+                v["max_abs_err"], results.get(name, {}).get("max_abs_err", 0.0))
+    print(f"phase 18 (b): torchrun {time.perf_counter() - t0:.1f} s")
+
+    cli = importlib.import_module("clip_for_dl_tpu_torch.cli.main")
+    argv = moe_zeroshot_argv(workdir, f"{w}/ckpt_pp/unstacked", f"{w}/zs", experts=False)
+    path, which = "cli_zeroshot_pp", dict.fromkeys(PATHS["cli_zeroshot_pp"])
+    stack, kept = first_inputs(mods, which)
+    text = io.StringIO()
+    torch.cuda.synchronize(dev)
+    _build.reset_launches()
+    with stack, redirect_stdout(text):
+        rc = cli.main(argv)
+    torch.cuda.synchronize(dev)
+    check(rc == 0, f"phase 18: zeroshot of the unstacked checkpoint exited with {rc}: "
+                   f"{text.getvalue()[-2000:]}")
+    check(os.path.exists(f"{w}/zs/zero_shot_results.csv"), "zeroshot wrote no results")
+    by_path[path] = dict(_build.LAUNCHES)
+    print(f"phase 18: zeroshot --checkpoint {w}/ckpt_pp/unstacked: exit 0; launches "
+          f"{by_path[path]}")
+    check_launched(mods, by_path[path], path)
+    hold_first_inputs(mods, kept, which, path, results)
+    torch.cuda.empty_cache()
+    print(f"phase 18 on {card}: {time.perf_counter() - t_phase:.1f} s")
+    return by_path
+
+
+def pp_groups(tower, shares=None) -> dict:
+    """The gradients of a BERT tower by group: "stack" (every layer's, in
+    layer order, from the share of its stage when ``shares`` are given) and
+    "embeddings" (of the tower, or of each share as "embeddings@s")."""
+    import torch
+
+    def flat(params):
+        return torch.cat([p.grad.float().flatten() for p in params])
+
+    layers = list(tower.encoder.layer)
+    if shares is None:
+        return {"stack": flat([p for layer in layers for p in layer.parameters()]),
+                "embeddings": flat(tower.embeddings.parameters())}
+    lps = len(layers) // len(shares)
+    out = {"stack": flat([p for i in range(len(layers))
+                          for p in shares[i // lps].encoder.layer[i].parameters()])}
+    out.update({f"embeddings@{s}": flat(sh.embeddings.parameters())
+                for s, sh in enumerate(shares)})
+    return out
+
+
+def pp_shares18(_build, dev, seed: int, card: str) -> None:
+    """Phase 18 (a): BERT-base at full width (12 layers, 768, 12 heads, MLP
+    3072), built with flash attention and the fused MLP, which the pipeline
+    ignores, on TRAIN_BATCH reports of TRAIN_LEN tokens with their padding:
+    every stage's share run one after another on this card
+    (``pipelined_bert_shares``) at S = 2 and 4, PP_MICROBATCHES
+    microbatches, forward and backward of Σ out · cot, against the
+    unpipelined tower on the plain routes, deterministic. On the fp32 route
+    (TF32 off) the output within TOL pp_fp32_rel of its largest entry and
+    each group's gradient (the stack; every share's embeddings) within it in
+    norm, at cosine fp32_grad_cos; in bf16 (fp32 masters cast in the
+    forward) at TOL pp_bf16. No kernel launches. The two planted faults at
+    S = 2 on the fp32 route (the broadcast's summing backward: the stack's
+    gradient S times; the embeddings' stage sum left out: share 1's
+    embeddings without gradient) must each fail."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from clip_for_dl_tpu_torch.core.device import cast_in_forward
+    from clip_for_dl_tpu_torch.models import init_weights
+    from clip_for_dl_tpu_torch.models.bert import BertEncoder
+    from clip_for_dl_tpu_torch.parallel import pp
+    from clip_for_dl_tpu_torch.testing.ranks import fp32_exact, pp_fault
+    from clip_for_dl_tpu_torch.tools.main_paths import tokenizer, train_batch
+
+    t0 = time.perf_counter()
+    tok = tokenizer()
+    batch = train_batch(np.random.default_rng(seed + 2), tok, dev, TRAIN_BATCH, TRAIN_LEN)
+    ids, mask = batch["input_ids"], batch["attention_mask"]
+    with torch.device(dev):
+        base = BertEncoder(vocab_size=len(tok.vocab), flash=True, fused_mlp=True)
+    init_weights(base, torch.Generator(dev).manual_seed(seed + 18)).train()
+    g = torch.Generator(dev).manual_seed(seed + 180)
+    cot = torch.randn(TRAIN_BATCH, TRAIN_LEN, base.embeddings.word_embeddings.embedding_dim,
+                      device=dev, generator=g)
+    print(f"phase 18 (a): BERT {len(base.encoder.layer)} x {cot.shape[-1]} (flash and fused MLP "
+          f"on) on {TRAIN_BATCH} reports of {TRAIN_LEN} tokens, {int(mask.sum())} of them real; "
+          f"{PP_MICROBATCHES} microbatches")
+
+    def run(tower, fn, fault=None):
+        with pp_fault(fault):
+            out = fn(tower)
+            (out.float() * cot).sum().backward()
+        return out.detach().float()
+
+    def rel(a, b):
+        return float((a - b).norm()) / float(b.norm())
+
+    for route in ("fp32", "bf16"):
+        dtype = torch.float32 if route == "fp32" else torch.bfloat16
+        tower = copy.deepcopy(base) if route == "fp32" else cast_in_forward(
+            copy.deepcopy(base), dtype)
+        plain = copy.deepcopy(tower).eval()
+        for m in plain.modules():
+            for flag in ("flash", "fused_mlp"):
+                if isinstance(getattr(m, flag, None), bool):
+                    setattr(m, flag, False)
+        bound = TOL["pp_fp32_rel"] if route == "fp32" else TOL["pp_bf16"]["rel"]
+        cos_bound = TOL["fp32_grad_cos"] if route == "fp32" else TOL["pp_bf16"]["cos"]
+        with fp32_exact():
+            want = run(plain, lambda t: t(ids, mask))
+            wgrads = pp_groups(plain)
+            del plain
+            cases = [(s, None) for s in PP_DEGREES]
+            if route == "fp32":
+                cases += [(2, fault) for fault in ("summing_broadcast", "no_stage_sum")]
+            for s, fault in cases:
+                shares = [pp.shard_stage_(copy.deepcopy(tower), k, s) for k in range(s)]
+                torch.cuda.synchronize(dev)
+                before, t = dict(_build.LAUNCHES), time.perf_counter()
+                got = run(shares, lambda sh: pp.pipelined_bert_shares(sh, ids, mask,
+                                                                      PP_MICROBATCHES), fault)
+                torch.cuda.synchronize(dev)
+                seconds = time.perf_counter() - t
+                check(dict(_build.LAUNCHES) == before,
+                      f"the pipelined tower launched a kernel: {dict(_build.LAUNCHES)}")
+                out_err = float((got - want).abs().max()) / float(want.abs().max())
+                grads = pp_groups(shares[0], shares)
+                errs = {k: rel(v, wgrads[k.split("@")[0]]) for k, v in grads.items()}
+                coss = {k: cosine(v, wgrads[k.split("@")[0]]) for k, v in grads.items()}
+                worst = max(errs, key=errs.get)
+                held = (out_err <= bound and max(errs.values()) <= bound
+                        and min(coss.values()) >= cos_bound)
+                what = f"S = {s}" + (f", planted fault {fault}" if fault else "")
+                print(f"  {route}, {what}: output {out_err:.3e} of its largest entry; gradients "
+                      f"{', '.join(f'{k} {errs[k]:.3e} (cos {coss[k]:.7f})' for k in errs)} "
+                      f"(tol {bound:.0e}, cos {cos_bound}); worst {worst}; forward and backward "
+                      f"{seconds * 1e3:.0f} ms; held: {held}")
+                check(held == (fault is None),
+                      f"phase 18 (a), {route} {what}: held {held}")
+                del shares, got, grads
+                torch.cuda.empty_cache()
+        del tower, want, wgrads
+        torch.cuda.empty_cache()
+    print(f"phase 18 (a) on {card}: {time.perf_counter() - t0:.1f} s")
+
+
+def phase18_rank(w: str, seed: int) -> int:
+    """One rank of phase 18 (``--phase18-rank W``, under torchrun): joins
+    the NCCL group, loads the kernels the parent built, runs (b) and writes
+    ``W/rank{r}.json``. Rank 0 prints."""
+    import datetime
+    import os
+
+    import torch
+
+    _build, mods = import_port()
+    from clip_for_dl_tpu_torch.parallel import multihost
+
+    dev = multihost.init_process_group(device="cuda",
+                                       timeout=datetime.timedelta(seconds=DP_PG_TIMEOUT))
+    rank, world = torch.distributed.get_rank(), torch.distributed.get_world_size()
+    out = {"ok": False, "launches": {}, "results": {}}
+    if rank:
+        sys.stdout = open(os.devnull, "w")
+    try:
+        _build.build()
+        degrees = [s for s in PP_DEGREES if world % s == 0] or [1]
+        print(f"phase 18 (b): world size {world} over NCCL; pp {degrees}")
+        pp_steps18(_build, mods, dev, seed, w, degrees, out)
+        if world > 1:
+            pp_cli18(_build, mods, dev, w, out)
+        out["ok"] = True
+    finally:
+        with open(f"{w}/rank{rank}.json", "w") as f:
+            json.dump(out, f)
+        multihost.destroy()
+    return 0
+
+
+def pp_group_grads(model, label_fn, mesh) -> dict:
+    """group_grads of a model whose text tower a pipeline shards: every
+    other stage's layers' gradients gathered from their stage."""
+    import torch
+
+    from clip_for_dl_tpu_torch.parallel import pp
+
+    tower, gathered = model.text_tower, {}
+    if mesh.model_size > 1:
+        own = pp._stage_layers(tower, mesh.model_index, mesh.model_size)
+        layers = pp._layers(tower)
+        for i, grads in pp._gathered(own, lambda m: [p.grad for p in m.parameters()],
+                                     mesh).items():
+            gathered.update({id(p): g for p, g in zip(layers[i].parameters(), grads)})
+    parts: dict = {}
+    for name, p in model.named_parameters():
+        g = gathered.get(id(p), torch.zeros_like(p) if p.grad is None else p.grad)
+        label = name if name in CALIBRATION else label_fn(tuple(name.split(".")))
+        parts.setdefault(label, []).append(g.float().flatten())
+    return {k: torch.cat(v) for k, v in parts.items()}
+
+
+def pp_steps18(_build, mods, dev, seed: int, w: str, degrees, out: dict) -> None:
+    """Phase 18 (b): the phase-A step (ResNet-50 + BERT-base, dropout 0) at
+    a global batch of DP_BATCH through ``pipeline_parallel_step`` at each pp
+    degree (at one card S = 1: PP_MICROBATCHES microbatches, no hop), on the
+    fp32 route against the data-parallel step over every rank (at one card
+    the single-card step) on the same batch at TOL dp_bn fp32: the loss and
+    each group's gradient, the stage layers' gathered over the stage group;
+    no kernel but B2 launches in a pipelined step (path pp_step_{S}, B2 held
+    at its first inputs). With more than one card each route's bf16
+    samples/s over PP_STEPS steps and its peak memory a card. At one card the
+    S = 1 state is written to W/ckpt_pp/unstacked as ``pretrain --pp``
+    writes it, for the parent's zeroshot."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from clip_for_dl_tpu_torch.parallel import data_parallel_step, pp
+    from clip_for_dl_tpu_torch.testing.ranks import fp32_exact
+    from clip_for_dl_tpu_torch.tools.main_paths import (
+        base_lrs, pretrain_step, tokenizer, train_batch, train_model,
+    )
+    from clip_for_dl_tpu_torch.train import CheckpointManager, TrainState, make_label_fn
+
+    group, world = dist.group.WORLD, dist.get_world_size()
+    batch = train_batch(np.random.default_rng(seed + 181), tokenizer(), dev, DP_BATCH,
+                        TRAIN_LEN)
+
+    def run(s, compute, steps=1):
+        """(losses, the first step's group gradients, step seconds, config,
+        groups, state, mesh): the pipelined step at ``s`` stages, or without
+        it the data-parallel (one card: the single-card) step."""
+        preset, cfg, model = train_model(dev, seed, "pretrain_clip", compute)
+        for m in model.modules():
+            if isinstance(m, torch.nn.Dropout):
+                m.p = 0.0
+        groups = [g.name for g in preset.train.groups]
+        label_fn = make_label_fn(groups)
+        if s is None:
+            kw = {"group": group} if world > 1 else {}
+            opt, step = pretrain_step(model, preset, cfg, compute, **kw)
+            state, mesh = TrainState(model, opt), None
+            step = data_parallel_step(step, group) if world > 1 else step
+            gen = torch.Generator(dev).manual_seed(seed + dist.get_rank())
+        else:
+            mesh = pp.create_dp_pp_mesh(s)
+            opt, step = pretrain_step(model, preset, cfg, compute, make=lambda *a, **kw: (
+                pp.make_pp_clip_pretrain_step(*a[:3], mesh, PP_MICROBATCHES, **kw)))
+            state = pp.shard_state_pp(TrainState(model, opt), mesh)
+            step, gen = pp.pipeline_parallel_step(step, mesh), mesh.generator(seed, dev)
+        losses, times, grads = [], [], None
+        for i in range(steps):
+            torch.cuda.synchronize(dev)
+            t = time.perf_counter()
+            losses.append(float(step(state, batch, base_lrs(preset), gen)[1]["loss"]))
+            times.append(time.perf_counter() - t)
+            if i == 0:
+                grads = (group_grads(model, label_fn) if mesh is None
+                         else pp_group_grads(model, label_fn, mesh))
+        return losses, grads, times, cfg, groups, state, mesh
+
+    with fp32_exact():
+        ref_losses, ref_grads, _, cfg, groups, _, _ = run(None, torch.float32)
+        torch.cuda.empty_cache()
+        for s in degrees:
+            which = {"image_prep": None}
+            stack, kept = first_inputs(mods, which)
+            torch.cuda.synchronize(dev)
+            _build.reset_launches()
+            with stack:
+                losses, grads, _, _, _, state, mesh = run(s, torch.float32)
+            torch.cuda.synchronize(dev)
+            path = f"pp_step_{s}"
+            out["launches"][path] = dict(_build.LAUNCHES)
+            others = {k: v for k, v in _build.LAUNCHES.items()
+                      if k != mods["image_prep"].KERNEL and v}
+            rel, cos = TOL["dp_bn"]["fp32"]
+            ref = "the data-parallel step" if world > 1 else "the single-card step"
+            print(f"phase 18 (b) step, fp32 route, pp {s} ({world // s} x {s}), "
+                  f"{PP_MICROBATCHES} microbatches, global batch {DP_BATCH}, {describe(cfg)}: "
+                  f"loss {losses[0]:.6f} against {ref_losses[0]:.6f} from {ref}; launches "
+                  f"{out['launches'][path]}")
+            check(not others, f"pp {s}: a kernel other than B2 launched in the step: {others}")
+            check(abs(losses[0] - ref_losses[0]) <= rel * abs(ref_losses[0]),
+                  f"pp {s}: the fp32 step's loss differs from {ref}'s")
+            compare_groups(f"phase 18 pp {s}", grads, ref_grads, groups,
+                           {g: cos.get(g, TOL["fp32_grad_cos"]) for g in groups})
+            hold_first_inputs(mods, kept, which, path, out["results"])
+            if world == 1:
+                # the canonical whole model, as pretrain --pp writes it
+                with pp.whole_state(TrainState(state.model, None), mesh) as whole:
+                    fm = CheckpointManager(f"{w}/ckpt_pp/unstacked", max_to_keep=1)
+                    fm.save(0, whole)
+                    fm.wait()
+            del state, grads
+            torch.cuda.empty_cache()
+    if world == 1:
+        return
+    for s in [None] + list(degrees):
+        name = "dp" if s is None else f"pp {s}"
+        torch.cuda.reset_peak_memory_stats(dev)
+        losses, _, times, _, _, state, _ = run(s, torch.bfloat16, PP_STEPS)
+        torch.cuda.synchronize(dev)
+        rate = DP_BATCH * (len(times) - 1) / sum(times[1:])
+        check(all(np.isfinite(losses)), f"{name}: losses {losses}")
+        print(f"  bf16 {name}: {rate:.1f} samples/s over steps 1-{PP_STEPS - 1} (global batch "
+              f"{DP_BATCH}); peak {_peak_mib(dev):.0f} MiB a card; losses "
+              f"{[round(v, 4) for v in losses]}")
+        del state
+        torch.cuda.empty_cache()
+
+
+def pp_cli18(_build, mods, dev, w: str, out: dict) -> None:
+    """Phase 18 (b), more than one card: ``pretrain --num-devices <cards>
+    --pp 2 --pp-microbatches PP_MICROBATCHES --fp32 --flash-attention
+    --bert-fused-mlp`` through ``cli.main`` (path cli_pp_pretrain: B2 in each
+    step, B3's fp32 instance in the eval pass on the gathered tower, each
+    held at its first inputs) with every preset's dropout at 0, TF32 off:
+    its first step's loss against one card's fp32 step from the weights and
+    on the global batch it started from (TOL pp_command_rel), its
+    ``unstacked/`` checkpoint whole (the unsharded names and shapes), and
+    no file written by a rank other than 0."""
+    import dataclasses
+    import importlib
+    import io
+    import os
+    from contextlib import redirect_stdout
+
+    import torch
+    import torch.distributed as dist
+
+    from clip_for_dl_tpu_torch.core import config
+    from clip_for_dl_tpu_torch.models import CXRClip
+    from clip_for_dl_tpu_torch.parallel import pp
+    from clip_for_dl_tpu_torch.parallel.collectives import all_gather_rows
+    from clip_for_dl_tpu_torch.testing.ranks import fp32_exact, recorded_writes
+    from clip_for_dl_tpu_torch.tools.main_paths import pretrain_step
+    from clip_for_dl_tpu_torch.train import TrainState, loop
+
+    cli = importlib.import_module("clip_for_dl_tpu_torch.cli.main")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    workdir = os.path.dirname(w)
+    argv = ["pretrain", "--vocab", f"{workdir}/cli/vocab.txt", "--fp32", "--flash-attention",
+            "--bert-fused-mlp", "--synthetic", "--synthetic-samples", str(2 * PP_CLI_BATCH),
+            "--batch-size", str(PP_CLI_BATCH), "--epochs", "1", "--num-devices", str(world),
+            "--pp", "2", "--pp-microbatches", str(PP_MICROBATCHES), "--checkpoint-dir",
+            f"{w}/ckpt_pp", "--log-dir", f"{w}/logs_pp"]
+    real_preset = config.get_preset
+
+    def no_dropout(name):
+        cfg = real_preset(name)
+        return cfg.replace(model=dataclasses.replace(cfg.model, dropout=0.0))
+
+    first, run_epoch = {}, loop.run_epoch
+
+    def kept_epoch(step_fn, state, loader, *a, **kw):
+        def kept_step(st, batch, *rest):
+            if first:
+                return step_fn(st, batch, *rest)
+            mesh = pp.create_dp_pp_mesh(2)
+            with pp.whole_state(TrainState(st.model, None), mesh):
+                weights = {k: v.detach().clone() for k, v in st.model.state_dict().items()}
+            rows = {k: all_gather_rows(v, mesh.data_group) for k, v in batch.items()
+                    if torch.is_tensor(v)}
+            st, metrics = step_fn(st, batch, *rest)
+            first.update(config=st.model.config, weights=weights, batch=rows,
+                         loss=float(metrics["loss"]))
+            return st, metrics
+
+        return run_epoch(kept_step, state, loader, *a, **kw)
+
+    path, which = "cli_pp_pretrain", dict.fromkeys(("image_prep", "flash_attention"))
+    stack, kept = first_inputs(mods, which)
+    text = io.StringIO()
+    torch.cuda.synchronize(dev)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with stack, fp32_exact(), mock.patch.object(config, "get_preset", no_dropout), \
+            mock.patch.object(loop, "run_epoch", kept_epoch), redirect_stdout(text), \
+            recorded_writes() as written:
+        rc = cli.main(argv)
+    torch.cuda.synchronize(dev)
+    check(rc == 0, f"phase 18 (b): pretrain --pp 2 exited with {rc}: {text.getvalue()[-2000:]}")
+    out["launches"][path] = dict(_build.LAUNCHES)
+    print(f"phase 18 (b): pretrain --num-devices {world} --pp 2 --pp-microbatches "
+          f"{PP_MICROBATCHES} --fp32, dropout 0: exit 0 in {time.perf_counter() - t0:.1f} s; "
+          f"launches {out['launches'][path]}")
+    hold_first_inputs(mods, kept, which, path, out["results"])
+    mine = [p for p in written if p.startswith(w)]
+    check(rank == 0 or not mine, f"rank {rank} wrote {mine[:5]}")
+    model = CXRClip(first["config"]).to(dev)
+    model.load_state_dict(first["weights"])
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+    preset = cli._preset(argparse.Namespace(preset="pretrain_clip"))
+    with fp32_exact():
+        opt, step = pretrain_step(model, preset, first["config"], torch.float32)
+        _, metrics = step(TrainState(model, opt), first["batch"],
+                          {**{g.name: g.lr for g in preset.train.groups},
+                           "default": preset.train.lr})
+    loss, rel = float(metrics["loss"]), TOL["pp_command_rel"]
+    print(f"  first step's loss {first['loss']:.6f} against {loss:.6f} from one card's fp32 "
+          f"step on the global batch of {PP_CLI_BATCH} (tol {rel} relative)")
+    check(abs(first["loss"] - loss) <= rel * abs(loss), "--pp 2: the command's first step "
+                                                        "differs from one card's")
+    saved = torch.load(f"{w}/ckpt_pp/unstacked/0.pt", map_location="cpu", mmap=True,
+                       weights_only=False)["model"]
+    shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    check({k: tuple(v.shape) for k, v in saved.items()} == shapes,
+          "the unstacked checkpoint is not the whole model")
+    print(f"  unstacked/: {len(saved)} tensors, the whole model's names and shapes; rank "
+          f"{rank} wrote {len(mine)} files under the phase's directory")
+    del saved, model, first
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of weights and inputs")
@@ -8015,6 +8538,9 @@ def main(argv=None) -> int:
     ap.add_argument("--phase17-rank", metavar="DIR",
                     help="(under torchrun, as phase 17 starts it) one rank of phase 17 on "
                          "the files of phase 9 beside DIR")
+    ap.add_argument("--phase18-rank", metavar="DIR",
+                    help="(under torchrun, as phase 18 starts it) one rank of phase 18 on "
+                         "the files of phase 9 beside DIR")
     args = ap.parse_args(argv)
     if args.phase15_rank:
         return phase15_rank(args.phase15_rank, args.seed)
@@ -8022,6 +8548,8 @@ def main(argv=None) -> int:
         return phase16_rank(args.phase16_rank, args.seed)
     if args.phase17_rank:
         return phase17_rank(args.phase17_rank, args.seed)
+    if args.phase18_rank:
+        return phase18_rank(args.phase18_rank, args.seed)
 
     t_start = time.perf_counter()
     _build, mods = import_port()
@@ -8142,6 +8670,8 @@ def main(argv=None) -> int:
               "parallelism")
         by_path.update(moe_phase17(_build, mods, dev, args.seed, card, workdir, results,
                                    readings))
+        print("== phase 18: pipeline parallelism, every stage on one card, and over NCCL")
+        by_path.update(pp_phase18(_build, mods, dev, args.seed, card, workdir, results))
     print("== the wrappers' host time (tools/launch_times.py)")
     from clip_for_dl_tpu_torch.tools import launch_times
 

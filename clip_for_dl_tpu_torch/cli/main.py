@@ -33,7 +33,10 @@ the towers tensor-parallel over T ranks of an N/T x T layout
 (``parallel/tp.py``); ``serve`` binds its server on rank 0, whose batches
 the other ranks follow (``serving.py``). ``pretrain --ep P`` with
 ``--moe-experts E`` runs the MoE text tower's experts sharded over P ranks
-of an N/P x P layout (``parallel/ep.py``). Every command takes
+of an N/P x P layout (``parallel/ep.py``); ``pretrain --pp S
+--pp-microbatches M`` pipelines the text tower's layers over S stages of an
+N/S x S layout (``parallel/pp.py``) and writes the whole model to
+``<checkpoint-dir>/unstacked`` at the end. Every command takes
 ``--moe-experts E`` (``models/moe.py``: every other BERT layer's MLP routed
 over E experts; a MoE layer routes over the global batch of a group). Only
 rank 0 writes logs, checkpoints, CSV and metric files. ``pretrain
@@ -66,13 +69,10 @@ ENV_RANK_EXITS = "CLIP_FOR_DL_TPU_RANK_EXITS"
 # for any value but the ones a single-device, default run passes
 _ANY = None
 UNPORTED_FLAGS = {
-    "pp": (_ANY, "A7b"),
     "remat": (_ANY, "not ported (torch.utils.checkpoint)"),
     "bf16_attention_probs": (_ANY, "not ported (the attention kernels keep no "
                                    "probabilities; use --flash-attention)"),
 }
-# degrees and counts whose value 1 is the single-device default
-_DEGREES = ("pp",)
 # the commands that run data-parallel over a process group; the other
 # commands' --num-processes is ROADMAP A7b
 DP_COMMANDS = ("pretrain", "train", "adapter", "shared-adapter", "zeroshot")
@@ -85,7 +85,7 @@ def _unported(args) -> str | None:
     for dest, (values, item) in UNPORTED_FLAGS.items():
         v = getattr(args, dest, None)
         if values is _ANY:
-            used = v not in (None, False, 0) and not (dest in _DEGREES and v == 1)
+            used = v not in (None, False, 0)
         else:
             used = v in values
         if used:
@@ -129,16 +129,31 @@ def _visible_devices(args) -> int:
     return torch.cuda.device_count()
 
 
-def _dp_devices(args) -> int:
-    """The data-parallel world the command runs at (the JAX
-    ``_effective_dp_devices``): ``--num-devices``, or the whole group in a
-    multi-process run; 0 for a single-device run."""
+def _mesh_devices(args) -> int:
+    """The JAX ``_effective_dp_devices``: ``--num-devices``, or the whole
+    group in a multi-process run; 0 for a single-device run."""
     from ..parallel import multihost
 
     n = int(getattr(args, "num_devices", None) or 0)
     if not n and (int(args.num_processes or 1) > 1 or multihost.launched()):
         n = _visible_devices(args)
-    return n or (_ep(args) if _ep(args) > 1 else 0)
+    return n
+
+
+def _dp_devices(args) -> int:
+    """The world the command runs at: :func:`_mesh_devices`, or pretrain's
+    ``--pp`` or ``--ep`` degree without ``--num-devices`` (the JAX CLI's
+    ``_num_devices(args) or pp``)."""
+    n = _mesh_devices(args)
+    return n or next((d for d in (_pp(args), _ep(args)) if d > 1), 0)
+
+
+def _pp(args) -> int:
+    """pretrain's pipeline degree (0 under ``--lora``, as the JAX CLI sets
+    it after its refusal)."""
+    if args.command != "pretrain" or args.lora:
+        return 0
+    return int(args.pp or 0)
 
 
 def _ep(args) -> int:
@@ -169,22 +184,66 @@ def _ep_refused(args, n: int) -> None:
         raise SystemExit(f"batch size {bs} must divide over the data axis ({n // ep})")
 
 
+def _pp_refused(args, cfg, n: int) -> None:
+    """``pretrain --pp S``: the JAX CLI's refusals of its branch, in its
+    order and with its messages, before any rank starts."""
+    from ..parallel.pp import validate_pp
+
+    pp = _pp(args)
+    if args.learnable_temperature:
+        raise SystemExit(
+            "--learnable-temperature does not compose with --pp (the "
+            "staged step computes the loss at the fixed temperature)"
+        )
+    if _ep(args) > 1:
+        raise SystemExit("--pp does not compose with --ep")
+    if cfg.model.text_moe_experts:
+        raise SystemExit("--pp does not compose with --moe-experts")
+    bs = args.batch_size or cfg.data.batch_size
+    if n % pp:
+        raise SystemExit(f"--num-devices {n} must divide into --pp {pp}")
+    try:
+        validate_pp(cfg.model.text_layers, pp, args.pp_microbatches, bs)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    if (bs // args.pp_microbatches) % (n // pp):
+        raise SystemExit(
+            f"microbatch size {bs // args.pp_microbatches} must divide "
+            f"over the data axis ({n // pp})"
+        )
+
+
 def _dp_refused(args) -> None:
-    """The JAX CLI's refusals of the data-parallel flags and their
-    compositions, its messages word for word (raised as ``SystemExit``),
-    before any rank starts."""
+    """The JAX CLI's refusals of the data-parallel and pipeline flags and
+    their compositions, its messages word for word (raised as
+    ``SystemExit``), before any rank starts."""
     if not _in_group(args):
         return
-    n = _dp_devices(args)
+    n, pp = _dp_devices(args), _pp(args)
     if args.command == "pretrain" and not args.lora:
-        if args.local_loss and n <= 1:
-            raise SystemExit(
-                "--local-loss requires a dp mesh (--num-devices > 1, "
-                "or a multi-process run whose slice has > 1 device)"
-            )
+        # the config first, as in the JAX CLI: --fused-mlp's refusal
+        cfg = _apply_tiny(_preset(args), args, 1)
+        if args.ema_decay and pp > 1:
+            raise SystemExit("--ema-decay does not compose with --pp "
+                             "(the stacked stage layout)")
+        sharded = pp > 1 or _ep(args) > 1
+        if args.local_loss:
+            if _mesh_devices(args) <= 1:
+                raise SystemExit(
+                    "--local-loss requires a dp mesh (--num-devices > 1, "
+                    "or a multi-process run whose slice has > 1 device)"
+                )
+            if sharded:
+                raise SystemExit(
+                    "--local-loss composes with plain --num-devices data "
+                    "parallelism only (not --pp/--ep)"
+                )
         if int(args.accum_steps or 1) > 1:
             if args.local_loss:
                 raise SystemExit("--accum-steps does not compose with --local-loss")
+            if sharded:
+                raise SystemExit("--accum-steps composes with plain dp only (not "
+                                 "--pp/--ep)")
             if args.learnable_temperature:
                 raise SystemExit(
                     "--learnable-temperature does not compose with "
@@ -192,13 +251,21 @@ def _dp_refused(args) -> None:
                     "a fixed temperature — the scalars would silently "
                     "train at zero gradient)"
                 )
+        if pp > 1:
+            _pp_refused(args, cfg, n)
+    if args.command == "pretrain" and args.lora and (args.pp or 0) > 1:
+        raise SystemExit("--pp does not compose with --lora")
     if args.command == "pretrain" and args.lora and n > 1:
         raise SystemExit("--num-devices is not supported with --lora")
-    if _ep(args) > 1:
+    if _ep(args) > 1 and pp <= 1:
         _ep_refused(args, n)
     if n <= 1:
         return
-    if args.command not in ("zeroshot", "serve") and _ep(args) == 1:
+    if pp > 1:
+        # the JAX create_2d_mesh's refusal
+        if n > _visible_devices(args):
+            raise SystemExit(f"requested {n} devices, {_visible_devices(args)} visible")
+    elif args.command not in ("zeroshot", "serve") and _ep(args) == 1:
         preset = "adapter" if args.command in ("adapter", "shared-adapter") else None
         bs = args.batch_size or _preset(args, preset).data.batch_size
         if bs % n:
@@ -270,16 +337,17 @@ def _engine_layout(args, cfg) -> dict:
 
 def _lora_refused(args) -> int | None:
     """The JAX CLI's refusals of ``pretrain --lora``, its messages word for
-    word, ahead of the unported flags (``--local-loss`` and
-    ``--accum-steps`` are refused for their composition with LoRA first, as
-    in the JAX CLI; ``--pp`` stays an A7b flag that exits 2, and
-    ``--num-devices`` is refused after it, by ``_dp_refused``). Returns an
-    exit status, or None."""
+    word, ahead of the unported flags (after the config's ``--fused-mlp``
+    refusal, ``--local-loss`` and ``--accum-steps`` are refused for their
+    composition with LoRA first, as in the JAX CLI; ``--pp`` and
+    ``--num-devices`` after them, by ``_dp_refused``). Returns an exit
+    status, or None."""
     if args.command != "pretrain" or not args.lora:
         return None
     if args.lora < 0:
         print("error: --lora rank must be >= 1 (0 disables)", file=sys.stderr)
         return 2
+    _apply_tiny(_preset(args), args, 1)
     if getattr(args, "local_loss", False):
         raise SystemExit("--local-loss does not compose with --lora")
     if getattr(args, "ema_decay", 0.0):
@@ -508,9 +576,13 @@ def _loaders(cfg, args, multi_view=True, shard=True):
                 "image cache: %d preprocessed images from %s",
                 len(cache), args.image_cache,
             )
-            if getattr(args, "device_cache", False) and _strided(args):
-                logging.warning("--device-cache composes with dp only (got "
-                                "--num-processes) — streaming instead")
+            unsupported = [f for f in ("tp", "pp", "ep") if (getattr(args, f, 1) or 1) > 1]
+            if _strided(args):
+                # each process already loads its own slice
+                unsupported = unsupported or ["num-processes"]
+            if getattr(args, "device_cache", False) and unsupported:
+                logging.warning("--device-cache composes with dp only (got --%s) — "
+                                "streaming instead", unsupported[0])
             elif getattr(args, "device_cache", False):
                 from ..data import DeviceCacheBudgetError, DeviceImageCache
 
@@ -561,9 +633,14 @@ def _loaders(cfg, args, multi_view=True, shard=True):
     # batch-global contrastive losses); eval: pad + mask so nothing is lost.
     bs, shard_kwargs = cfg.data.batch_size, {}
     if shard and _strided(args):
-        from ..parallel.multihost import process_sharded_loader_kwargs
+        from ..parallel import multihost
 
-        shard_kwargs = process_sharded_loader_kwargs(cfg.data.batch_size)
+        # the ranks of a pipeline's stage group load the same rows: a shard
+        # a data index
+        inner = max(_pp(args), 1)
+        shard_kwargs = multihost.process_sharded_loader_kwargs(
+            cfg.data.batch_size, multihost.process_index() // inner,
+            multihost.process_count() // inner)
         bs = shard_kwargs.pop("batch_size")
     train_loader = HostLoader(
         train_ds, bs, shuffle=True, seed=cfg.data.seed,
@@ -790,17 +867,24 @@ def cmd_pretrain(args) -> int:
     prep = dict(image_size=cfg.model.image_size, mean=cfg.augment.mean, std=cfg.augment.std,
                 compute_dtype=compute)
     accum = 1
-    # --ep: the (data, expert) layout; the steps take the data group (the
-    # losses, BatchNorm, routing, the gradient average) and the expert group
-    # (the clip's sum over the expert shards)
-    mesh = None
+    # --ep and --pp: the (data, expert) or (data, stage) layout; the steps
+    # take the data group (the losses, BatchNorm, routing, the gradient
+    # average) and the inner group (the clip's sum over the expert shards or
+    # the stages' layers)
+    mesh, pp = None, _pp(args)
     layout = _dp(group)
-    if _ep(args) > 1:
-        from ..parallel.ep import create_dp_ep_mesh
+    if _ep(args) > 1 or pp > 1:
+        from ..parallel import ep as expert
+        from ..parallel import pp as pipeline
         from ..parallel.tp import step_groups
 
-        mesh = create_dp_ep_mesh(_ep(args), num_devices=_dp_devices(args))
-        logging.info("expert-parallel over %s", mesh.shape)
+        if pp > 1:
+            mesh = pipeline.create_dp_pp_mesh(pp, num_devices=_dp_devices(args))
+            logging.info("pipeline-parallel over %s (%d microbatches)", mesh.shape,
+                         args.pp_microbatches)
+        else:
+            mesh = expert.create_dp_ep_mesh(_ep(args), num_devices=_dp_devices(args))
+            logging.info("expert-parallel over %s", mesh.shape)
         layout = step_groups(mesh)
     data_group = layout.get("group")
     if args.lora:
@@ -829,7 +913,11 @@ def cmd_pretrain(args) -> int:
     else:
         optimizer = make_optimizer(model, label_fn, **adamw)
         accum = int(args.accum_steps or 1)
-        if accum > 1:
+        if pp > 1:
+            step = pipeline.make_pp_clip_pretrain_step(
+                model, optimizer, label_fn, mesh, args.pp_microbatches, loss_name,
+                cfg.model.temperature, max_grad_norm=cfg.train.max_grad_norm, **prep)
+        elif accum > 1:
             # GradCache: the towers in microbatches, the contrastive loss and
             # its negatives over the full batch
             step = make_accum_clip_pretrain_step(model, optimizer, label_fn, accum, loss_name,
@@ -852,13 +940,16 @@ def cmd_pretrain(args) -> int:
         ckpt = CheckpointManager(args.checkpoint_dir, cfg.train.max_checkpoints_to_keep)
     state, start_epoch = resume_or_init(ckpt, template, loader=train_loader)
     state = _replicated(state)
-    if mesh is not None:
-        # restored whole, then sharded; saved whole (the checkpoint layout
-        # is unchanged)
-        from ..parallel.ep import WholeCheckpoints, shard_state_ep
-
-        state = shard_state_ep(state, mesh)
-        ckpt = WholeCheckpoints(ckpt, mesh) if ckpt is not None else None
+    # restored whole, then sharded; saved whole (the checkpoint layout is
+    # unchanged, so that any --pp or --ep, or none, resumes it)
+    if pp > 1:
+        state = pipeline.shard_state_pp(state, mesh)
+        step, eval_step = _pp_eval_pass(step, eval_step, model, mesh)
+    elif mesh is not None:
+        state = expert.shard_state_ep(state, mesh)
+    if mesh is not None and ckpt is not None:
+        ckpt = expert.WholeCheckpoints(ckpt, mesh,
+                                       (pipeline if pp > 1 else expert).whole_state)
     writer = MetricWriter(args.log_dir, "pretrain") if _primary() else None
 
     with PreemptionGuard() as guard:
@@ -902,9 +993,45 @@ def cmd_pretrain(args) -> int:
         fm.close()
         print(f"folded LoRA model saved to {folded_dir} "
               f"(servable: --checkpoint {folded_dir})")
+    if pp > 1 and args.checkpoint_dir:
+        # the in-run checkpoints are whole already; the JAX CLI's canonical
+        # copy, which zeroshot, serve and eval --checkpoint read
+        canon_dir = os.path.join(args.checkpoint_dir, "unstacked")
+        with pipeline.whole_state(TrainState(model, None), mesh) as whole:
+            fm = CheckpointManager(canon_dir, max_to_keep=1)
+            fm.save(0, whole)
+            fm.wait()
+            fm.close()
+        if _primary():
+            print(f"canonical model checkpoint saved to {canon_dir} "
+                  f"(servable: --checkpoint {canon_dir})")
     if _primary():
         print(f"pretrain done: {len(history.rows)} epochs")
     return 0
+
+
+def _pp_eval_pass(step, eval_step, model, mesh):
+    """The pipelined step and the ordinary eval step over ``mesh``: each
+    eval pass runs on the whole text tower, gathered from the stage group
+    once a pass (keyed on the step, as the JAX CLI unstacks it), and the
+    next train step frees the other stages' layers again."""
+    from ..parallel import pp
+
+    gathered = {}
+
+    def train_step(state, batch, *rest):
+        if gathered:
+            pp.shard_stage_(model.text_tower, mesh.model_index, mesh.model_size)
+            gathered.clear()
+        return step(state, batch, *rest)
+
+    def eval_pass_step(state, batch):
+        if gathered.get("step") != state.step:
+            pp.gather_tower_(model.text_tower, mesh)
+            gathered["step"] = state.step
+        return eval_step(state, batch)
+
+    return train_step, eval_pass_step
 
 
 def cmd_train(args) -> int:
@@ -1637,10 +1764,6 @@ def _tower_init_args(sp) -> None:
     )
 
 
-def _not_ported_help(item: str) -> str:
-    return f"not ported yet (ROADMAP {item}): exits with status 2"
-
-
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="clip_for_dl_tpu_torch", description=__doc__,
@@ -1790,8 +1913,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "parallel degree (N/ep × ep mesh, expert weights "
                          "sharded)")
     sp.add_argument("--pp", type=int, default=0, metavar="S",
-                    help=_not_ported_help("A7b"))
-    sp.add_argument("--pp-microbatches", type=int, default=2, help="with --pp")
+                    help="with --num-devices: pipeline-parallel stages for "
+                         "the text tower (GPipe microbatch schedule; text "
+                         "dropout off inside the pipeline)")
+    sp.add_argument("--pp-microbatches", type=int, default=2)
     sp.add_argument("--loss",
                     choices=["clip_self_distill", "info_nce", "siglip"],
                     default=None,

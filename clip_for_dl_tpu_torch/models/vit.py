@@ -211,9 +211,9 @@ class ViT(nn.Module):
                                 gelu_approximate=gelu_approximate, fused_mlp=fused_mlp,
                                 flash=flash, fused_mlp_train=fused_mlp_train)
 
-    def forward(self, images: torch.Tensor, *, sow_weights: bool = False):
-        """CLS features [B, hidden]; with ``sow_weights``, (features, the
-        layers' attention probabilities in order, each [B, H, N, N] fp32)."""
+    def embed(self, images: torch.Tensor) -> torch.Tensor:
+        """The stem: NHWC images → the class token and the patches' tokens
+        with their position embeddings [B, N, hidden]."""
         dt = self.conv_proj.weight.dtype
         b, hgt, wdt, c = images.shape
         p = self.patch
@@ -224,10 +224,19 @@ class ViT(nn.Module):
         w = self.conv_proj.weight.permute(0, 2, 3, 1).flatten(1)
         x = F.linear(x, w, self.conv_proj.bias)
         x = torch.cat([self.class_token.expand(b, -1, -1), x], dim=1)
-        x = x + self.encoder.pos_embedding
+        return x + self.encoder.pos_embedding
+
+    def head(self, x: torch.Tensor) -> torch.Tensor:
+        """The last layer's tokens → CLS features [B, hidden]."""
+        # LayerNorm is per row, so only the CLS row is normalized
+        return _layer_norm(self.encoder.ln, x[:, 0], self.conv_proj.weight.dtype)
+
+    def forward(self, images: torch.Tensor, *, sow_weights: bool = False):
+        """CLS features [B, hidden]; with ``sow_weights``, (features, the
+        layers' attention probabilities in order, each [B, H, N, N] fp32)."""
+        x = self.embed(images)
         sown = [] if sow_weights else None
         for layer in self.encoder.layers:
             x = layer(x, sown)
-        # LayerNorm is per row, so only the CLS row is normalized
-        feats = _layer_norm(self.encoder.ln, x[:, 0], dt)
+        feats = self.head(x)
         return (feats, sown) if sow_weights else feats

@@ -152,19 +152,20 @@ def whole_state(state, mesh: Mesh2D):
 
 
 class WholeCheckpoints:
-    """A ``CheckpointManager`` whose saves write the whole state of an
-    expert-parallel run (:func:`whole_state`), the layout an unsharded run
-    writes and every command reads; every other call goes to the manager."""
+    """A ``CheckpointManager`` whose saves write the whole state of a
+    sharded run (``whole``: :func:`whole_state` of expert parallelism, or
+    ``pp.whole_state``), the layout an unsharded run writes and every
+    command reads; every other call goes to the manager."""
 
-    def __init__(self, manager, mesh: Mesh2D):
-        self.manager, self.mesh = manager, mesh
+    def __init__(self, manager, mesh: Mesh2D, whole: Callable = whole_state):
+        self.manager, self.mesh, self.whole = manager, mesh, whole
 
     def save(self, epoch, state, *args, **kwargs):
-        with whole_state(state, self.mesh):
+        with self.whole(state, self.mesh):
             self.manager.save(epoch, state, *args, **kwargs)
 
     def save_preempt(self, epoch, state, *args, **kwargs):
-        with whole_state(state, self.mesh):
+        with self.whole(state, self.mesh):
             self.manager.save_preempt(epoch, state, *args, **kwargs)
 
     def __getattr__(self, name):

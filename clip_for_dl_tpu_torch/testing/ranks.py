@@ -2,8 +2,10 @@
 ``test_torch_global_batch.py``, ``test_torch_accum.py``), of the tensor
 and sequence parallel ones (``tests/test_torch_tp.py``, ``test_torch_sp.py``:
 each case builds its 2-D layout over the ranks, ``parallel.tp.create_dp_tp_mesh``)
-and of the MoE and expert parallel ones (``tests/test_torch_moe.py``,
-``test_torch_ep.py``).
+of the MoE and expert parallel ones (``tests/test_torch_moe.py``,
+``test_torch_ep.py``) and of the pipeline parallel ones
+(``tests/test_torch_pp.py``: each case builds its ``(data, stage)`` layout,
+``parallel.pp.create_dp_pp_mesh``).
 
 A test writes its cases to ``WORKDIR/cases.pkl`` (numpy arrays and plain
 values: flax-layout variables, model configurations, batches), starts N gloo
@@ -622,7 +624,138 @@ def _ep_case(case):
     return out
 
 
-CASES = {"tp_forward": _tp_forward_case, "moe_dp": _moe_dp_case, "ep_step": _ep_case, "group_serve": _group_serve_case,
+class _ScaledGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, k):
+        ctx.k = k
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.k, None
+
+
+def _summing_broadcast(self, parts):
+    """Planted fault: the stage group's broadcast of the last stage's
+    output with ``all_reduce_sum``, whose backward sums the stages'
+    identical cotangents: every text gradient S times."""
+    from ..parallel.collectives import all_reduce_sum
+
+    if self.group is not None:
+        return all_reduce_sum(parts[0], self.group)
+    return _ScaledGrad.apply(sum(parts[1:], parts[0]), self.size)
+
+
+# the planted faults of the pipeline's stage group: name -> (the
+# StageContext method, its faulty version)
+PP_FAULTS = {
+    "summing_broadcast": ("broadcast", _summing_broadcast),
+    # each stage keeps its own copy's gradient of the embeddings: the stage
+    # sum left out
+    "no_stage_sum": ("enter", lambda self, xs: xs),
+}
+
+
+@contextmanager
+def pp_fault(name=None):
+    """While inside, the planted fault ``name`` of :data:`PP_FAULTS` (None:
+    none) in every pipeline's :class:`~clip_for_dl_tpu_torch.parallel.pp.StageContext`."""
+    from unittest import mock
+
+    from ..parallel.pp import StageContext
+
+    if name is None:
+        yield
+        return
+    method, fault = PP_FAULTS[name]
+    with mock.patch.object(StageContext, method, fault):
+        yield
+
+
+def _pp_forward_case(case):
+    """The case's tower (``bert`` or ``vit``) cut to this rank's stage of
+    the case's ``(data, stage)`` layout and pipelined there in ``m``
+    microbatches, each data slice fed its rows, with the case's planted
+    ``fault``; with ``cot``, the backward of Σ out · cot. Returns the output
+    gathered over the data axis and this rank's gradients (its stage's
+    layers, the embeddings or stem, the ViT's head), each summed over the
+    data group."""
+    from ..parallel import pp
+    from ..parallel.collectives import all_gather_rows
+
+    mesh = pp.create_dp_pp_mesh(case["pp"])
+    tower = pp.shard_stage_(_tp_tower(case), mesh.model_index, mesh.model_size)
+    rows = {k: shard_rows(v, mesh.data_index, mesh.data_size)
+            for k, v in tensors(case["inputs"], device_of(case)).items()}
+    with fp32_exact(), pp_fault(case.get("fault")):
+        if case["tower"] == "bert":
+            out = pp.pipelined_bert_forward(tower, rows["ids"], rows["mask"], mesh, case["m"])
+        else:
+            out = pp.pipelined_vit_forward(tower, rows["images"], mesh, case["m"])
+        grads = {}
+        if "cot" in case:
+            cot = shard_rows(torch.from_numpy(case["cot"]), mesh.data_index, mesh.data_size)
+            (out * cot.to(out.device)).sum().backward()
+            for name, p in tower.named_parameters():
+                if p.grad is not None:
+                    g = p.grad.clone()
+                    if mesh.data_group is not None:
+                        dist.all_reduce(g, group=mesh.data_group)
+                    grads[name] = g.cpu().numpy()
+        out = out.detach()
+        if mesh.data_group is not None:
+            out = all_gather_rows(out, mesh.data_group)
+    return {"out": out.cpu().numpy(), "grads": grads, "stage": mesh.model_index,
+            "data_index": mesh.data_index}
+
+
+def _pp_step_case(case):
+    """One pretrain step through ``pipeline_parallel_step`` on the case's
+    ``(data, stage)`` layout in ``m`` microbatches (SGD, or AdamW with
+    ``adamw``), dropout as the case's config has it: the loss, this rank's
+    parameter changes (its stage's layers and every replicated tensor) and
+    the elements it holds of each parameter and AdamW moment; with ``dir``,
+    a checkpoint written through ``WholeCheckpoints`` (and the rank's
+    tensors after it). On a card, in fp32 without TF32."""
+    from ..parallel import pp
+    from ..parallel.ep import WholeCheckpoints
+
+    mesh = pp.create_dp_pp_mesh(case["pp"])
+    with fp32_exact():
+        model = model_from(case)
+        label_fn = make_label_fn(case["groups"])
+        if case.get("adamw"):
+            opt = make_optimizer(model, label_fn, weight_decay=case["weight_decay"])
+        else:
+            opt = sgd(model, label_fn)
+        state = pp.shard_state_pp(TrainState(model, opt), mesh)
+        step = pp.pipeline_parallel_step(pp.make_pp_clip_pretrain_step(
+            model, opt, label_fn, mesh, case["m"], "clip_self_distill", case["temperature"],
+            image_size=case["image_size"], mean=case["mean"], std=case["std"],
+            compute_dtype=torch.float32, max_grad_norm=case["clip"]), mesh)
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        dev = device_of(case)
+        state, metrics = step(state, tensors(case["batch"], dev), case["lrs"],
+                              mesh.generator(0, dev))
+        out = {"loss": float(metrics["loss"]), "stage": mesh.model_index,
+               "data_index": mesh.data_index,
+               "delta": {n: (p.detach() - before[n]).cpu().numpy()
+                         for n, p in model.named_parameters() if p.numel()},
+               "held": {n: p.numel() for n, p in model.named_parameters()},
+               "moments": {n: {k: v.numel() for k, v in opt.state.get(p, {}).items()
+                               if torch.is_tensor(v) and v.dim()}
+                           for n, p in model.named_parameters()}}
+        if case.get("dir"):
+            ckpt = WholeCheckpoints(CheckpointManager(case["dir"]), mesh, pp.whole_state)
+            ckpt.save(0, state, metrics={"val_loss": 0.0})
+            ckpt.wait()
+            out["after_save"] = {n: p.numel() for n, p in model.named_parameters()}
+            out["state"] = host_state(model)
+    return out
+
+
+CASES = {"pp_forward": _pp_forward_case, "pp_step": _pp_step_case,
+         "tp_forward": _tp_forward_case, "moe_dp": _moe_dp_case, "ep_step": _ep_case, "group_serve": _group_serve_case,
          "group_serve_fault": _group_serve_fault_case, "tp_step": _tp_step_case,
          "tp_engine": _tp_engine_case, "sp": _sp_case, "cli": _cli_case, "pretrain": _pretrain_like, "adapter": _pretrain_like, "shared": _pretrain_like,
          "multiview": _pretrain_like, "bn": _bn_case, "losses": _losses_case,

@@ -203,6 +203,7 @@ def make_clip_pretrain_step(
     group=None,
     local_loss: bool = False,
     model_group=None,
+    encode_text: Optional[Callable] = None,
 ):
     """The phase-A step for ``model`` and ``optimizer`` (built by
     ``optim.make_optimizer`` with ``label_fn``); the state passed to the step
@@ -214,7 +215,11 @@ def make_clip_pretrain_step(
     form, each rank scoring its [b, B_global] block (siglip: the ring).
     ``model_group`` is tensor parallelism's (``parallel/tp.py
     step_groups``, ``group`` then the data group): the clip sums the
-    sharded parameters' squares over it."""
+    sharded parameters' squares over it. ``encode_text(input_ids,
+    attention_mask, generator)`` takes the text half of the joint forward
+    (``parallel/pp.py``'s pipelined tower); a parameter that takes no
+    gradient (``requires_grad`` off: another stage's layer there) takes no
+    part in the update."""
     contrastive = _contrastive(loss_name, temperature, group, local_loss)
     params = _check_groups(model, optimizer, label_fn)
     names = [n for n, _ in model.named_parameters()]
@@ -231,19 +236,24 @@ def make_clip_pretrain_step(
         optimizer.zero_grad(set_to_none=True)
         model.train()
         with batch_norm_context(group), routing(group) as aux:
-            img_f, txt_f = model(images, batch["input_ids"], batch["attention_mask"],
-                                 generator=generator)
+            if encode_text is None:
+                img_f, txt_f = model(images, batch["input_ids"], batch["attention_mask"],
+                                     generator=generator)
+            else:
+                img_f = model.encode_image(images, generator=generator)
+                txt_f = encode_text(batch["input_ids"], batch["attention_mask"], generator)
         loss = _with_aux(contrastive(txt_f, img_f, dict(model.named_parameters(recurse=False))),
                          aux, aux_weight)
         loss.backward()
         # JAX differentiates every parameter: the heads the forward skips get
         # zero gradients, so that AdamW decays them as optax does
-        for p in params:
+        trained = [p for p in params if p.requires_grad]
+        for p in trained:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        _reduce_grads(params, group)
+        _reduce_grads(trained, group)
         if max_grad_norm is not None:
-            clip_by_global_norm_(params, max_grad_norm, model_group)
+            clip_by_global_norm_(trained, max_grad_norm, model_group)
         optimizer.step()
         if scale is not None:
             # the parameter itself is clamped (open-CLIP): a clamp in the

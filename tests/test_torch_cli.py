@@ -220,20 +220,15 @@ def test_parser_takes_every_jax_command_and_flag():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["pretrain", "--lora", "4", "--pp", "2"], "A7b"),
-    (["pretrain", "--pp", "2"], "A7b"),
-    (["pretrain", "--pp", "2", "--moe-experts", "4"], "A7b"),
-    (["pretrain", "--pp", "2", "--ep", "2", "--moe-experts", "4"], "A7b"),
     (["pretrain", "--ep", "2", "--moe-experts", "4", "--num-processes", "2"], "A7b"),
     (["eval", "--num-processes", "2"], "A7b"), (["gradcam", "--num-processes", "2"], "A7b"),
     (["pretrain", "--remat"], "not ported"), (["zeroshot", "--bf16-attention-probs"], "not ported"),
 ], ids=lambda v: "_".join(v) if isinstance(v, list) else v)
 def test_unported_commands_and_flags_exit_2(argv, item, capsys):
     """A command or flag the port does not run exits with status 2 before
-    anything runs, naming the ROADMAP item that owns it: pipeline
-    parallelism (with or without the MoE tower and ``--ep``, which run
-    without it), ``--ep`` over several processes and the other commands'
-    multi-process runs are A7b."""
+    anything runs, naming the ROADMAP item that owns it: ``--ep`` over
+    several processes and the other commands' multi-process runs are A7b
+    (``--pp``'s cases moved to test_pp_refusals_are_the_jax_clis)."""
     assert cli.main(argv) == 2
     err = capsys.readouterr().err
     assert (f"ROADMAP {item})" if item != "not ported" else "(not ported") in err, err
@@ -299,6 +294,91 @@ def test_data_parallel_refusals_are_the_jax_clis(argv, message, monkeypatch):
         assert '"--num-devices {n} must divide the batch size ({bs})"' in source
     else:
         assert message in messages
+
+
+def _jax_pp_messages(n, pp, bs, microbatches):
+    """What the JAX package says in ``cmd_pretrain``'s ``--pp`` branch: its
+    SystemExit literals and f-strings (rendered with ``n``, ``pp``, ``bs``
+    and ``--pp-microbatches``), its ``validate_pp``, and its 2-D mesh over
+    no visible device."""
+    import argparse
+    import ast
+    import inspect
+
+    from clip_for_dl_tpu.parallel import validate_pp as jvalidate_pp
+    from clip_for_dl_tpu.parallel.common import create_2d_mesh as jmesh
+
+    ns = dict(n=n, pp=pp, bs=bs, args=argparse.Namespace(pp_microbatches=microbatches))
+    tree = ast.parse(inspect.getsource(jcli.cmd_pretrain).lstrip())
+    out = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call) and getattr(node.func, "id", None) == "SystemExit":
+            for a in node.args:
+                if isinstance(a, ast.Constant):
+                    out.add(a.value)
+                elif isinstance(a, ast.JoinedStr) and "pp" in ast.unparse(a):
+                    out.add(eval(compile(ast.Expression(a), "jax", "eval"), {}, ns))
+    for check in (lambda: jvalidate_pp(2, pp, microbatches, bs),
+                  lambda: jmesh(pp, ("data", "stage"), n, devices=[])):
+        try:
+            check()
+        except ValueError as e:
+            out.add(str(e))
+    return out
+
+
+FOUR = ["--virtual-devices", "4", "--num-devices", "4"]
+FUSED = "--fused-mlp composes with data parallelism only (not --tp/--pp/--ep)"
+
+
+@pytest.mark.parametrize("argv,message", [
+    (["pretrain", "--lora", "4", "--pp", "2"], "--pp does not compose with --lora"),
+    (["pretrain", "--pp", "2"], "requested 2 devices, 0 visible"),
+    (["pretrain", "--pp", "2", "--moe-experts", "4"], "--pp does not compose with --moe-experts"),
+    (["pretrain", "--pp", "2", "--ep", "2", "--moe-experts", "4"],
+     "--pp does not compose with --ep"),
+    (["pretrain", "--pp", "2", "--ema-decay", "0.9"],
+     "--ema-decay does not compose with --pp (the stacked stage layout)"),
+    (["pretrain", "--pp", "2", "--local-loss"], LOCAL_LOSS),
+    (["pretrain", "--pp", "2", "--local-loss", *FOUR],
+     "--local-loss composes with plain --num-devices data parallelism only (not --pp/--ep)"),
+    (["pretrain", "--pp", "2", "--accum-steps", "2"],
+     "--accum-steps composes with plain dp only (not --pp/--ep)"),
+    (["pretrain", "--pp", "2", "--learnable-temperature"],
+     "--learnable-temperature does not compose with --pp (the staged step computes the loss "
+     "at the fixed temperature)"),
+    (["pretrain", "--pp", "2", "--fused-mlp", "--ema-decay", "0.9"], FUSED),
+    (["pretrain", "--lora", "4", "--pp", "2", "--fused-mlp"], FUSED),
+    (["pretrain", "--pp", "3", *FOUR], "--num-devices 4 must divide into --pp 3"),
+    (["pretrain", "--pp", "4", *FOUR], "pp=4 must divide the layer count 2"),
+    (["pretrain", "--pp", "2", "--pp-microbatches", "3", "--batch-size", "4", *FOUR],
+     "microbatches=3 must divide batch 4"),
+    (["pretrain", "--pp", "2", "--batch-size", "6", *FOUR],
+     "microbatch size 3 must divide over the data axis (2)"),
+], ids=lambda v: "_".join(v)[:60] if isinstance(v, list) else None)
+def test_pp_refusals_are_the_jax_clis(argv, message, monkeypatch):
+    """``pretrain --pp``'s refusals (the cases test_unported_commands_and_
+    flags_exit_2 held while ``--pp`` exited 2, and every other one of the
+    JAX CLI's), word for word its messages in its order, before any rank
+    starts: each held against the JAX CLI's source (its ``cmd_pretrain``
+    and ``_apply_tiny``, its ``validate_pp`` and 2-D mesh). Without a card,
+    ``pretrain --pp 2`` reaches the device check."""
+    if message.startswith("requested"):
+        monkeypatch.delenv("CLIP_FOR_DL_TPU_FORCE_CPU", raising=False)
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    else:
+        monkeypatch.setenv("CLIP_FOR_DL_TPU_FORCE_CPU", "1")
+    with pytest.raises(SystemExit) as e:
+        cli.main([*argv, "--tiny", "--synthetic"])
+    assert e.value.code == message
+
+    def flag(name, default):
+        return int(argv[argv.index(name) + 1]) if name in argv else default
+
+    n, pp = flag("--num-devices", flag("--pp", 0)), flag("--pp", 0)
+    want = _jax_pp_messages(n, pp, flag("--batch-size", 32), flag("--pp-microbatches", 2))
+    assert message in want | _jax_literal_messages(jcli._apply_tiny)
 
 
 @pytest.mark.parametrize("argv", [

@@ -381,7 +381,7 @@ def test_ep_refusals_are_jax_messages(argv, want, monkeypatch):
     --ep; validate_ep; a batch that does not divide over the data axis:
     each refused before any rank starts, with the JAX CLI's message (its
     raises in the ``--ep`` branch, rendered; validate_ep's own); ``--pp``
-    with ``--moe-experts`` still exits 2."""
+    with ``--moe-experts`` is refused with the JAX CLI's message."""
     monkeypatch.setenv("CLIP_FOR_DL_TPU_FORCE_CPU", "1")
     cli = importlib.import_module("clip_for_dl_tpu_torch.cli.main")
     with pytest.raises(SystemExit) as err:
@@ -392,4 +392,6 @@ def test_ep_refusals_are_jax_messages(argv, want, monkeypatch):
     with pytest.raises(ValueError) as jerr:
         jvalidate_ep(6, 4)
     assert want in _jax_ep_refusals(4, e, 3) + [str(jerr.value)]
-    assert cli.main(["pretrain", "--tiny", "--pp", "2", "--moe-experts", "4"]) == 2
+    with pytest.raises(SystemExit) as err:
+        cli.main(["pretrain", "--tiny", "--pp", "2", "--moe-experts", "4"])
+    assert str(err.value) == "--pp does not compose with --moe-experts"

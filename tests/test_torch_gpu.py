@@ -2349,3 +2349,76 @@ def test_moe_layer_on_the_card(cuda):
         assert all(torch.equal(a, b) for a, b in zip(parts, whole)), e
         assert set(grads) == set(wgrads)
         assert all(torch.equal(grads[k], wgrads[k]) for k in wgrads), e
+
+
+
+def _pipelined_tower_errors(device, fault=None):
+    """A BERT built with ``flash`` and ``fused_mlp`` (4 layers at hidden
+    256, 4 heads, MLP 1024; 16 reports of up to 64 tokens, padded), fp32
+    with TF32 off, its two pipeline stages run one after another
+    (``pipelined_bert_shares``, 4 microbatches) with the planted ``fault``,
+    against the whole tower on the plain routes, deterministic: (the
+    output's largest difference over its largest entry, the stack's and
+    the worst share's embeddings' gradient error in norm relative to the
+    whole tower's, the kernel launches during the pipeline, during the
+    tower's own forward)."""
+    import copy
+
+    from clip_for_dl_tpu_torch.models import init_weights
+    from clip_for_dl_tpu_torch.models.bert import BertEncoder
+    from clip_for_dl_tpu_torch.ops import _build
+    from clip_for_dl_tpu_torch.parallel import pp
+    from clip_for_dl_tpu_torch.testing.ranks import fp32_exact, pp_fault
+
+    with torch.device(device):
+        tower = BertEncoder(vocab_size=1000, hidden=256, layers=4, heads=4, intermediate=1024,
+                            max_position=128, flash=True, fused_mlp=True)
+    init_weights(tower, torch.Generator(device).manual_seed(0)).train()
+    g = torch.Generator(device).manual_seed(1)
+    ids = torch.randint(0, 1000, (16, 64), device=device, generator=g)
+    lengths = torch.randint(3, 65, (16, 1), device=device, generator=g)
+    mask = (torch.arange(64, device=device)[None] < lengths).int()
+    cot = torch.randn(16, 64, 256, device=device, generator=g)
+    plain = copy.deepcopy(tower).eval()
+    for m in plain.modules():
+        for flag in ("flash", "fused_mlp"):
+            if isinstance(getattr(m, flag, None), bool):
+                setattr(m, flag, False)
+    shares = [pp.shard_stage_(copy.deepcopy(tower), s, 2) for s in range(2)]
+    with fp32_exact():
+        want = plain(ids, mask)
+        (want * cot).sum().backward()
+        before = dict(_build.LAUNCHES)
+        with torch.no_grad():
+            copy.deepcopy(tower).eval()(ids, mask)
+        own = sum(_build.LAUNCHES.values()) - sum(before.values())
+        before = dict(_build.LAUNCHES)
+        with pp_fault(fault):
+            got = pp.pipelined_bert_shares(shares, ids, mask, 4)
+            (got * cot).sum().backward()
+    piped = sum(_build.LAUNCHES.values()) - sum(before.values())
+
+    def rel(a, b):
+        return float((a - b).norm()) / float(b.norm())
+
+    stack = rel(torch.cat([shares[i // 2].encoder.layer[i].get_parameter(n).grad.flatten()
+                           for i, layer in enumerate(plain.encoder.layer)
+                           for n, _ in layer.named_parameters()]),
+                torch.cat([p.grad.flatten() for p in plain.encoder.layer.parameters()]))
+    emb = max(rel(torch.cat([p.grad.flatten() for p in sh.embeddings.parameters()]),
+                  torch.cat([p.grad.flatten() for p in plain.embeddings.parameters()]))
+              for sh in shares)
+    return float((got - want).abs().max()) / float(want.abs().max()), stack, emb, piped, own
+
+
+def test_pipelined_tower_on_the_card(cuda):
+    """The one-process pipeline on the card (``_pipelined_tower_errors``):
+    the output within 1e-5 of its largest entry, the stack's and every
+    share's embeddings' gradients within 1e-5 in norm, no kernel launched
+    where the tower's own forward launches B3 (fp32); the planted summing
+    broadcast (every layer's gradient twice) fails the stack's bound."""
+    out, stack, emb, piped, own = _pipelined_tower_errors(cuda)
+    assert out <= 1e-5 and stack <= 1e-5 and emb <= 1e-5, (out, stack, emb)
+    assert piped == 0 and own > 0
+    _, stack, _, _, _ = _pipelined_tower_errors(cuda, "summing_broadcast")
+    assert stack > 1e-5

@@ -368,18 +368,14 @@ def test_lora_rank_below_zero_exits_2_as_the_jax_cli(capsys):
 
 @pytest.mark.parametrize("extra", [["--pp", "2"], ["--num-devices", "2"]], ids=["pp", "dp"])
 def test_lora_leaves_the_multi_device_flags_unported(extra, capsys):
-    """--pp is an A7b flag: with --lora it still exits 2 naming A7b (the
-    JAX CLI refuses its composition with LoRA later). --num-devices is
-    ported (A7) and refused beside --lora with the JAX CLI's message, before
-    any rank starts."""
+    """--pp and --num-devices are refused beside --lora with the JAX CLI's
+    messages, before any rank starts."""
     argv = ["pretrain", "--tiny", "--synthetic", "--lora", "4", *extra]
-    if extra[0] == "--pp":
-        assert cli.main(argv) == 2
-        assert "ROADMAP A7b" in capsys.readouterr().err
-        return
     with pytest.raises(SystemExit) as e:
         cli.main(argv)
-    assert e.value.code == "--num-devices is not supported with --lora"
+    want = {"--pp": "--pp does not compose with --lora",
+            "--num-devices": "--num-devices is not supported with --lora"}[extra[0]]
+    assert e.value.code == want
     assert e.value.code in _jax_refusals()
 
 

@@ -566,5 +566,5 @@ def test_no_ported_flag_help_names_a_roadmap_item(cli):
             continue
         assert "ROADMAP" not in action.help and "not ported" not in action.help, (
             command, sorted(flags), action.help)
-    assert {"--tp", "--ep", "--moe-experts"} <= seen
-    assert "--pp" in unported and "--ep" not in unported and "--moe-experts" not in unported
+    assert {"--tp", "--ep", "--moe-experts", "--pp"} <= seen
+    assert not {"--pp", "--ep", "--moe-experts"} & unported
