@@ -5,8 +5,10 @@ pretrain -> adapter (phase B), the fp32 parity mode, the evaluation from
 files, the command line, its HTTP server, its multi-view training, its ViT
 training and LoRA, Grad-CAM and attention rollout, and its exported programs
 once on one CUDA GPU, and its data, tensor, sequence and expert parallelism,
-its MoE text tower and its serving over every card of the host, and its
-pipeline parallelism (phases 15 to 18; one card is enough).
+its MoE text tower and its serving over every card of the host, its
+pipeline parallelism (phases 15 to 18; one card is enough), and its
+rematerialization, bf16 attention probabilities and every command over a
+group (phase 19).
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
@@ -419,6 +421,24 @@ c8_cases).
    ``zeroshot`` of the ``unstacked/`` checkpoint (written at one card from
    the S = 1 step's state as the command writes it; path cli_zeroshot_pp);
    every path's kernels held at their first inputs.
+19. The last refused flags (ROADMAP A7b item 2, ``--remat``,
+   ``--bf16-attention-probs``), after phase 18, on phase 9's files. (a) The
+   phase-A step at full width (ResNet-50 + BERT-base, B = 128 x 200, bf16,
+   flash attention and the fused MLP), the model built as ``--remat``
+   builds it, under each policy (full, dots, dots_no_batch): the first
+   step, dropout 0, against the step without remat at phase 4's bounds;
+   then REMAT_STEPS steps of each form at the preset's dropout, their
+   samples/s and peak memory (full below the step without remat), B3 and
+   B4 launched 24 times a step under full, B6 and B8 12 (paths
+   remat_train_*). (b) The plain attention route (flash off) with
+   ``--bf16-attention-probs`` against it without, first step at phase 4's
+   bounds, and both forms' samples/s and peak (the flag's below; path
+   bf16_probs_train). (c) ``torchrun --nproc-per-node <cards> chip_smoke.py
+   --phase19-rank DIR``: ``eval``, ``gradcam``, ``prep``, ``cache-images``
+   and ``convert`` over the group, then alone in this process: the same
+   files (byte for byte at one card), nothing from ranks other than 0,
+   B1-B4 held at their first inputs; with four cards ``pretrain --ep 2``
+   over the processes against ``--num-devices`` (ep_processes19).
 
 The second-to-last line is the kernels JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -431,6 +451,7 @@ import copy
 import csv
 import itertools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -875,6 +896,15 @@ PATHS = {  # main path -> the kernels it must launch
     **{f"pp_step_{s}": ("image_prep",) for s in (1, 2, 4)},
     "cli_pp_pretrain": ("image_prep", "flash_attention_fp32"),
     "cli_zeroshot_pp": ("similarity", "image_prep", "flash_attention", "mlp"),
+    # phase 19: the phase-A step under --remat in each policy (B3 and B4
+    # twice a layer under full); the plain attention route with
+    # --bf16-attention-probs (B2, B4 and B8: no B3); eval and gradcam over
+    # the group and alone; with four cards pretrain --ep 2 over the processes
+    **{f"remat_train_{p}": TRAIN_KERNELS for p in ("full", "dots", "dots_no_batch")},
+    "bf16_probs_train": ("image_prep", "mlp", "mlp_bwd"),
+    "cli_group_eval": ("similarity", "image_prep", "flash_attention", "mlp"),
+    "cli_group_gradcam": ("image_prep", "flash_attention", "mlp"),
+    "cli_ep_processes": ("image_prep", "flash_attention_fp32", "flash_attention_bwd_fp32"),
 }
 # H100 SXM peaks (NVIDIA's data sheet, dense): bf16 and fp16 on the tensor
 # cores and fp32 on the CUDA cores, in operations a second; HBM3 in bytes a
@@ -8517,6 +8547,455 @@ def pp_cli18(_build, mods, dev, w: str, out: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# -- phase 19: remat, bf16 probabilities, every command over a group -----------------------
+
+
+REMAT_FORMS = ("none", "full", "dots", "dots_no_batch")  # phase 19 (a)'s forms, "none" first
+REMAT_STEPS = 4  # phase 19 (a) and (b)'s timed steps of each form (the first not counted)
+GROUP_CACHE_ROWS = 32  # phase 19 (c): the projections rows cache-images caches over the group
+GROUP_TIMEOUT = 360  # seconds phase 19's torchrun may take, the build's load included
+
+
+def set_remat(model, policy: str) -> None:
+    """The towers' layers (the ResNet's blocks) under ``policy``, which
+    ``--remat --remat-policy`` builds them with (models/remat.py)."""
+    model.text_tower.remat_policy = policy
+    model.image_tower.remat_policy = policy
+
+
+def set_switch(model, name: str, value: bool) -> None:
+    """``name`` (``flash``, ``bf16_probs``) on every module that has it."""
+    for m in model.modules():
+        if isinstance(getattr(m, name, None), bool):
+            setattr(m, name, value)
+
+
+def timed_steps(_build, dev, step, state, batch, lrs, seed: int, n: int):
+    """``n`` synced steps from a fresh count and peak: (samples/s over
+    steps 1…n−1, the peak of device memory in GiB, the launches, the
+    losses)."""
+    import torch
+
+    gen = torch.Generator(dev).manual_seed(seed)
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launches()
+    times, losses = [], []
+    for _ in range(n):
+        t = time.perf_counter()
+        losses.append(float(step(state, batch, lrs, gen)[1]["loss"]))  # syncs the step
+        times.append(time.perf_counter() - t)
+    torch.cuda.synchronize(dev)
+    rate = TRAIN_BATCH * (n - 1) / sum(times[1:])
+    return rate, torch.cuda.max_memory_allocated(dev) / 2 ** 30, dict(_build.LAUNCHES), losses
+
+
+def remat_phase19(_build, mods, dev, seed: int, card: str, workdir: str, results: dict) -> dict:
+    """Phase 19: (a) the phase-A step under ``--remat`` in each policy, (b)
+    the plain attention route with ``--bf16-attention-probs``, (c) every
+    command over a group (group_cli19). Returns the launches by path."""
+    import numpy as np
+    import torch
+
+    from clip_for_dl_tpu_torch.tools.main_paths import (
+        base_lrs, pretrain_step, tokenizer, train_batch, train_model,
+    )
+    from clip_for_dl_tpu_torch.train import TrainState, make_label_fn
+
+    t_phase = time.perf_counter()
+    # built as --remat builds it (remat, remat_conv, the policy on both towers)
+    preset, cfg, model = train_model(dev, seed, "pretrain_clip", remat=True, remat_conv=True)
+    check(model.text_tower.remat_policy == model.image_tower.remat_policy == "full",
+          "the --remat model's towers are not under the full policy")
+    groups = [g.name for g in preset.train.groups]
+    lrs, label_fn = base_lrs(preset), make_label_fn(groups)
+    batch = train_batch(np.random.default_rng(seed + 2), tokenizer(), dev, TRAIN_BATCH,
+                        TRAIN_LEN)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def fresh(dropout: float):
+        model.load_state_dict(init)
+        for m in model.modules():
+            if isinstance(m, torch.nn.Dropout):
+                m.p = dropout
+        opt, step = pretrain_step(model, preset, cfg)
+        return TrainState(model, opt), step
+
+    def one_step():
+        state, step = fresh(0.0)
+        loss = float(step(state, batch, lrs)[1]["loss"])
+        return loss, group_grads(model, label_fn)
+
+    def against(what, got, want):
+        loss_err = abs(got[0] - want[0]) / abs(want[0])
+        print(f"  {what}: first step, dropout 0: loss {got[0]:.6f} against {want[0]:.6f} "
+              f"(rel {loss_err:.2e}, tol {TOL['train_loss_rel']:.0e})")
+        check(loss_err <= TOL["train_loss_rel"], f"{what}: the loss differs")
+        compare_groups(what, got[1], want[1], groups, TOL["grad_cos"])
+
+    by_path, rows = {}, []
+    cudnn = torch.backends.cudnn
+    flags = (cudnn.deterministic, cudnn.benchmark)
+    # -- (a) --remat: each policy's first step against the step without ------------
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        set_remat(model, "none")
+        plain = one_step()
+        for policy in REMAT_FORMS[1:]:
+            set_remat(model, policy)
+            against(f"--remat --remat-policy {policy}", one_step(), plain)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = flags
+    del plain
+    keys = {k: KERNELS[k][0] for k in ("flash_attention", "mlp", "flash_attention_bwd",
+                                       "mlp_bwd")}
+    for policy in REMAT_FORMS:
+        set_remat(model, policy)
+        state, step = fresh(cfg.dropout)
+        rate, peak, launches, losses = timed_steps(_build, dev, step, state, batch, lrs, seed,
+                                                   REMAT_STEPS)
+        per_step = {k: launches.get(v, 0) / REMAT_STEPS for k, v in keys.items()}
+        rows.append((policy, rate, peak))
+        print(f"  --remat-policy {policy}: {rate:.1f} samples/s, peak {peak:.2f} GiB, "
+              f"launches a step {per_step} on {card}; losses {[round(x, 4) for x in losses]}")
+        check(all(np.isfinite(losses)), f"--remat {policy}: non-finite losses {losses}")
+        if policy == "none":
+            continue
+        by_path[f"remat_train_{policy}"] = launches
+        check_launched(mods, launches, f"remat_train_{policy}")
+        if policy == "full":
+            # the recompute runs B3 and B4 again in every layer's backward
+            want = {"flash_attention": 24, "mlp": 24, "flash_attention_bwd": 12, "mlp_bwd": 12}
+            check(per_step == want, f"--remat full launches {per_step} a step, not {want}")
+    full_peak, none_peak = rows[1][2], rows[0][2]
+    print(f"phase 19 (a) on {card}: samples/s and peak GiB by form "
+          f"{[(p, round(r, 1), round(m, 2)) for p, r, m in rows]}")
+    check(full_peak < none_peak, f"--remat full peaks at {full_peak:.2f} GiB, not below the "
+                                 f"step without remat's {none_peak:.2f} GiB")
+
+    # -- (b) --bf16-attention-probs on the plain attention route -------------------
+    set_remat(model, "none")
+    set_switch(model, "flash", False)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        set_switch(model, "bf16_probs", False)
+        plain = one_step()
+        set_switch(model, "bf16_probs", True)
+        against("--bf16-attention-probs, plain route", one_step(), plain)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = flags
+    del plain
+    peaks = {}
+    for on in (False, True):
+        set_switch(model, "bf16_probs", on)
+        state, step = fresh(cfg.dropout)
+        rate, peaks[on], launches, losses = timed_steps(_build, dev, step, state, batch, lrs,
+                                                        seed, REMAT_STEPS)
+        name = "--bf16-attention-probs" if on else "fp32 probabilities"
+        print(f"  plain route, {name}: {rate:.1f} samples/s, peak {peaks[on]:.2f} GiB on "
+              f"{card}; launches {launches}")
+        check(all(np.isfinite(losses)), f"plain route {name}: non-finite losses {losses}")
+        check(launches.get(KERNELS["flash_attention"][0], 0) == 0,
+              "the plain attention route launched B3")
+        if on:
+            by_path["bf16_probs_train"] = launches
+            check_launched(mods, launches, "bf16_probs_train")
+    check(peaks[True] < peaks[False], f"--bf16-attention-probs peaks at {peaks[True]:.2f} GiB, "
+                                      f"not below the plain route's {peaks[False]:.2f} GiB")
+    del model, state, step, init
+    torch.cuda.empty_cache()
+    print(f"phase 19 (a), (b): {time.perf_counter() - t_phase:.1f} s")
+    by_path.update(group_cli19(_build, mods, dev, card, workdir, results))
+    print(f"phase 19 on {card}: {time.perf_counter() - t_phase:.1f} s")
+    return by_path
+
+
+def group_argvs(workdir: str, out: str) -> dict:
+    """Phase 19 (c)'s commands on phase 9's files, their outputs under
+    ``out``: name -> (argv, the kernels held at their first inputs)."""
+    work, kaggle = f"{workdir}/cli", f"{workdir}/kaggle"
+    data = ["--reports-csv", f"{work}/labeled.csv", "--projections-csv",
+            f"{kaggle}/indiana_projections.csv", "--image-dir",
+            f"{kaggle}/images/images_normalized", "--image-cache", f"{work}/cache", "--vocab",
+            f"{work}/vocab.txt", "--flash-attention", "--bert-fused-mlp"]
+    bank = ("image_prep", "flash_attention", "mlp")
+    return {
+        "eval": (["eval", *data, "--checkpoint", f"{work}/adapter", "--log-dir",
+                  f"{out}/eval"], ("similarity",) + bank),
+        "gradcam": (["gradcam", *data, "--checkpoint", f"{work}/adapter", "--sample_index", "3",
+                     "--log-dir", f"{out}/gradcam"], bank),
+        "prep": (["prep", "--reports", f"{kaggle}/indiana_reports.csv", "--out",
+                  f"{out}/labeled.csv", "--unlabeled-out", f"{out}/unlabeled.csv"], ()),
+        "cache-images": (["cache-images", "--image-dir", f"{kaggle}/images/images_normalized",
+                          "--out", f"{out}/cache", "--projections-csv",
+                          f"{os.path.dirname(out)}/projections.csv", "--image-size", "224"], ()),
+        "convert": (["convert", "--vocab", f"{work}/vocab.txt", "--checkpoint",
+                     f"{work}/adapter", "--out", f"{out}/model.safetensors"], ()),
+    }
+
+
+@contextmanager
+def drawn_overlays(out: str):
+    """gradcam's overlays saved as .npy arrays under ``out`` where the
+    command would draw its PNGs (the card's machine has no matplotlib)."""
+    import importlib
+
+    import numpy as np
+
+    viz = importlib.import_module("clip_for_dl_tpu_torch.utils.visualization")
+    os.makedirs(out, exist_ok=True)
+
+    def record(image, path=None, title=""):
+        np.save(f"{out}/{os.path.basename(path)}.npy", np.asarray(image))
+        return path
+
+    with mock.patch.object(viz, "save_or_show_image", record):
+        yield
+
+
+def run_group_commands(_build, mods, dev, w: str, out: str, results: dict, where: str):
+    """group_argvs' commands through ``cli.main`` in this process (over the
+    group it has joined, or alone): (path -> launches, the paths opened for
+    writing); each command's kernels held at their first inputs where it
+    ran."""
+    import importlib
+    import io
+    from contextlib import redirect_stdout
+
+    import torch
+
+    from clip_for_dl_tpu_torch.testing.ranks import recorded_writes
+
+    cli = importlib.import_module("clip_for_dl_tpu_torch.cli.main")
+    launches, written = {}, []
+    for name, (argv, hold) in group_argvs(os.path.dirname(w), out).items():
+        which = dict.fromkeys(hold)
+        stack, kept = first_inputs(mods, which)
+        text = io.StringIO()
+        torch.cuda.synchronize(dev)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        with stack, drawn_overlays(f"{out}/overlays"), redirect_stdout(text), \
+                recorded_writes() as paths:
+            rc = cli.main(argv)
+        written += paths
+        torch.cuda.synchronize(dev)
+        check(rc == 0, f"phase 19 (c), {where}: {name} exited with {rc}: "
+                       f"{text.getvalue()[-2000:]}")
+        print(f"phase 19 (c), {where}: {name}: exit 0 in {time.perf_counter() - t0:.1f} s; "
+              f"launches {dict(_build.LAUNCHES)}")
+        if hold:
+            path = f"cli_group_{name}"
+            launches[path] = dict(_build.LAUNCHES)
+            if kept:  # the command ran here (gradcam runs on the primary alone)
+                check_launched(mods, launches[path], path)
+                hold_first_inputs(mods, kept, which, f"{where} {name}", results)
+        torch.cuda.empty_cache()
+    return launches, written
+
+
+def phase19_rank(w: str, seed: int) -> int:
+    """One rank of phase 19 (``--phase19-rank W``, under torchrun): joins the
+    NCCL group, loads the kernels the parent built, runs group_argvs'
+    commands over the group into ``W/group`` and, with four cards or more,
+    ``pretrain --ep 2`` over the processes against ``--num-devices``
+    (ep_processes19); writes ``W/rank{r}.json``. Rank 0 prints."""
+    import datetime
+
+    import torch
+
+    _build, mods = import_port()
+    from clip_for_dl_tpu_torch.parallel import multihost
+
+    dev = multihost.init_process_group(device="cuda",
+                                       timeout=datetime.timedelta(seconds=DP_PG_TIMEOUT))
+    rank, world = torch.distributed.get_rank(), torch.distributed.get_world_size()
+    out = {"ok": False, "launches": {}, "results": {}, "written": []}
+    if rank:
+        sys.stdout = open(os.devnull, "w")
+    try:
+        _build.build()
+        print(f"phase 19 (c): world size {world} over NCCL")
+        out["launches"], out["written"] = run_group_commands(
+            _build, mods, dev, w, f"{w}/group", out["results"], f"rank {rank} of {world}")
+        if world >= 4 and world % 2 == 0:
+            ep_processes19(_build, mods, dev, w, out)
+        out["ok"] = True
+    finally:
+        with open(f"{w}/rank{rank}.json", "w") as f:
+            json.dump(out, f)
+        multihost.destroy()
+    return 0
+
+
+def ep_processes19(_build, mods, dev, w: str, out: dict) -> None:
+    """Phase 19 (c), four cards or more: ``pretrain --moe-experts 8 --ep 2
+    --fp32`` over the processes (``--num-processes``: each loads the strided
+    shard of its data index) against the same command over the group as
+    ``--num-devices`` (every rank loading the global batch, its slice fed),
+    dropout 0, TF32 off, a capacity that keeps every token (the processes'
+    shards hold the global batch's rows in another order): the first
+    step's loss at TOL moe_ep_command_rel (path cli_ep_processes)."""
+    import dataclasses
+    import importlib
+    import io
+    from contextlib import redirect_stdout
+
+    import torch
+    import torch.distributed as dist
+
+    from clip_for_dl_tpu_torch.core import config
+    from clip_for_dl_tpu_torch.testing.ranks import fp32_exact
+    from clip_for_dl_tpu_torch.train import loop
+
+    cli = importlib.import_module("clip_for_dl_tpu_torch.cli.main")
+    world = dist.get_world_size()
+    workdir = os.path.dirname(w)
+    real_preset = config.get_preset
+
+    def wide(name):
+        cfg = real_preset(name)
+        return cfg.replace(model=dataclasses.replace(cfg.model, dropout=0.0,
+                                                     moe_capacity_factor=float(MOE_EXPERTS)))
+
+    losses = {}
+    for how, flags in (("devices", ["--num-devices", str(world)]),
+                       ("processes", ["--num-processes", str(world)])):
+        argv = ["pretrain", "--vocab", f"{workdir}/cli/vocab.txt", "--fp32",
+                "--flash-attention", "--synthetic", "--synthetic-samples",
+                str(2 * MOE_CLI_BATCH), "--batch-size", str(MOE_CLI_BATCH), "--epochs", "1",
+                "--moe-experts", str(MOE_EXPERTS), "--ep", "2", *flags, "--checkpoint-dir",
+                f"{w}/ckpt_{how}", "--log-dir", f"{w}/logs_{how}"]
+        first, run_epoch = [], loop.run_epoch
+
+        def kept_epoch(step_fn, state, loader, *a, **kw):
+            def kept_step(st, batch, *rest):
+                st, metrics = step_fn(st, batch, *rest)
+                first.append(float(metrics["loss"]))
+                return st, metrics
+
+            return run_epoch(kept_step, state, loader, *a, **kw)
+
+        text = io.StringIO()
+        torch.cuda.synchronize(dev)
+        _build.reset_launches()
+        with fp32_exact(), mock.patch.object(config, "get_preset", wide), \
+                mock.patch.object(loop, "run_epoch", kept_epoch), redirect_stdout(text):
+            rc = cli.main(argv)
+        check(rc == 0, f"phase 19 (c): pretrain --ep 2 over the {how} exited with {rc}: "
+                       f"{text.getvalue()[-2000:]}")
+        losses[how] = first[0]
+        if how == "processes":
+            out["launches"]["cli_ep_processes"] = dict(_build.LAUNCHES)
+    rel = abs(losses["processes"] - losses["devices"]) / abs(losses["devices"])
+    print(f"phase 19 (c): pretrain --ep 2 --moe-experts {MOE_EXPERTS} --fp32 over {world} "
+          f"processes: first step's loss {losses['processes']:.6f} against "
+          f"{losses['devices']:.6f} over --num-devices {world} (rel {rel:.2e}, tol "
+          f"{TOL['moe_ep_command_rel']})")
+    check(rel <= TOL["moe_ep_command_rel"], "pretrain --ep 2 over the processes differs")
+
+
+def labeled_rows(data: bytes) -> list:
+    """prep's labeled CSV with each row's ``extracted_labels`` as a set: the
+    reference joins a set there, in the order of the process's string hashes
+    (PYTHONHASHSEED), so two processes write it in other orders."""
+    rows = list(csv.reader(data.decode().splitlines()))
+    i = rows[0].index("extracted_labels")
+    return [r[:i] + [frozenset(r[i].split(", "))] + r[i + 1:] for r in rows]
+
+
+def group_cli19(_build, mods, dev, card: str, workdir: str, results: dict) -> dict:
+    """Phase 19 (c): ``torchrun --nproc-per-node <cards> chip_smoke.py
+    --phase19-rank DIR`` (phase19_rank) runs ``eval``,
+    ``gradcam``, ``prep``, ``cache-images`` (GROUP_CACHE_ROWS rows of phase
+    9's projections) and ``convert`` on phase 9's files over the group
+    (paths cli_group_*@rank{r}, the kernels held at their first inputs where
+    the command ran); the same commands then run here alone (cli_group_*_alone).
+    prep's labeled CSV is compared with each row's ``extracted_labels`` as a
+    set (labeled_rows). The files equal the group's: byte for
+    byte at one card (eval_predictions.csv at more: probabilities within 5e-3
+    and the decided predictions equal), gradcam's overlays equal, nothing
+    written by a rank other than 0."""
+    import numpy as np
+    import torch
+
+    w = f"{workdir}/phase19"
+    os.makedirs(w, exist_ok=True)
+    with open(f"{workdir}/kaggle/indiana_projections.csv", newline="") as f:
+        rows = list(csv.reader(f))
+    with open(f"{w}/projections.csv", "w", newline="") as f:
+        csv.writer(f).writerows(rows[:GROUP_CACHE_ROWS + 1])
+    world = torch.cuda.device_count()
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={world}", str(ROOT / "chip_smoke.py"), "--phase19-rank", w]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, cwd=str(ROOT), capture_output=True, text=True,
+                              timeout=GROUP_TIMEOUT)
+    except subprocess.TimeoutExpired as exc:
+        raise SmokeFailure(f"phase 19's ranks ran past {GROUP_TIMEOUT} s: "
+                           f"{(exc.stdout or '')[-3000:]}")
+    print(proc.stdout.rstrip())
+    if proc.returncode:
+        print(proc.stderr[-8000:], file=sys.stderr)
+    check(proc.returncode == 0, f"phase 19's torchrun exited with {proc.returncode}")
+    by_path = {}
+    for r in range(world):
+        with open(f"{w}/rank{r}.json") as f:
+            out = json.load(f)
+        check(out["ok"], f"phase 19, rank {r} did not finish")
+        check(r == 0 or not out["written"], f"phase 19: rank {r} wrote {out['written']}")
+        for path, launches in out["launches"].items():
+            if path == "cli_ep_processes":
+                check_launched(mods, launches, path)
+            by_path[f"{path}@rank{r}"] = launches
+        for name, v in out["results"].items():
+            results.setdefault(name, {})["max_abs_err"] = max(
+                v["max_abs_err"], results.get(name, {}).get("max_abs_err", 0.0))
+    print(f"phase 19 (c): torchrun {time.perf_counter() - t0:.1f} s")
+    alone, _ = run_group_commands(_build, mods, dev, w, f"{w}/single", results, "alone")
+    by_path.update({f"{p}_alone": v for p, v in alone.items()})
+
+    def files(root):
+        out = {}
+        for d, _, names in os.walk(root):
+            for name in names:
+                if not name.endswith(".log"):
+                    with open(os.path.join(d, name), "rb") as f:
+                        out[os.path.relpath(os.path.join(d, name), root)] = f.read()
+        return out
+
+    got, want = files(f"{w}/group"), files(f"{w}/single")
+    check(got.keys() == want.keys(), f"the group wrote {sorted(got)}, one process "
+                                     f"{sorted(want)}")
+    csvs = [k for k in want if k.endswith("eval_predictions.csv")]
+    same = [k for k in want if got[k] == want[k]
+            or k == "labeled.csv" and labeled_rows(got[k]) == labeled_rows(want[k])]
+    print(f"phase 19 (c): {len(same)} of {len(want)} files equal to one process's, byte for "
+          f"byte (labeled.csv's extracted_labels as sets) ({', '.join(sorted(want))})")
+    if world == 1:
+        check(len(same) == len(want), f"files differ: {sorted(set(want) - set(same))}")
+    else:
+        check(set(want) - set(same) <= set(csvs),
+              f"files other than eval's differ: {sorted(set(want) - set(same) - set(csvs))}")
+        for k in csvs:
+            a, b = (np.array(list(csv.reader(d[k].decode().splitlines()))[1:], np.float64)
+                    for d in (got, want))
+            err = float(np.abs(a[:, 0::2] - b[:, 0::2]).max())
+            decided = np.abs(b[:, 0::2] - 0.5) > 5e-3
+            print(f"  {k}: probabilities within {err:.2e} of one card's (tol 5e-3); the "
+                  f"decided predictions ({int(decided.sum())} of {decided.size}) equal")
+            check(err <= 5e-3 and np.array_equal((a[:, 0::2] > 0.5)[decided],
+                                                 (b[:, 0::2] > 0.5)[decided]),
+                  f"{k} over {world} processes differs from one card's")
+    check(any(k.startswith("overlays") for k in want), "gradcam drew no overlay")
+    return by_path
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of weights and inputs")
@@ -8541,6 +9020,9 @@ def main(argv=None) -> int:
     ap.add_argument("--phase18-rank", metavar="DIR",
                     help="(under torchrun, as phase 18 starts it) one rank of phase 18 on "
                          "the files of phase 9 beside DIR")
+    ap.add_argument("--phase19-rank", metavar="DIR",
+                    help="(under torchrun, as phase 19 starts it) one rank of phase 19 on "
+                         "the files of phase 9 beside DIR")
     args = ap.parse_args(argv)
     if args.phase15_rank:
         return phase15_rank(args.phase15_rank, args.seed)
@@ -8550,6 +9032,8 @@ def main(argv=None) -> int:
         return phase17_rank(args.phase17_rank, args.seed)
     if args.phase18_rank:
         return phase18_rank(args.phase18_rank, args.seed)
+    if args.phase19_rank:
+        return phase19_rank(args.phase19_rank, args.seed)
 
     t_start = time.perf_counter()
     _build, mods = import_port()
@@ -8672,6 +9156,8 @@ def main(argv=None) -> int:
                                    readings))
         print("== phase 18: pipeline parallelism, every stage on one card, and over NCCL")
         by_path.update(pp_phase18(_build, mods, dev, args.seed, card, workdir, results))
+        print("== phase 19: --remat, --bf16-attention-probs, every command over a group")
+        by_path.update(remat_phase19(_build, mods, dev, args.seed, card, workdir, results))
     print("== the wrappers' host time (tools/launch_times.py)")
     from clip_for_dl_tpu_torch.tools import launch_times
 

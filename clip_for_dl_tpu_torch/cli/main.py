@@ -66,18 +66,20 @@ ENV_FORCE_CPU = "CLIP_FOR_DL_TPU_FORCE_CPU"
 ENV_RANK_EXITS = "CLIP_FOR_DL_TPU_RANK_EXITS"
 
 # flag → (the values it takes unported, the ROADMAP item); ``None`` stands
-# for any value but the ones a single-device, default run passes
+# for any value but the ones a single-device, default run passes. Every
+# flag of the JAX CLI runs: none is left.
 _ANY = None
-UNPORTED_FLAGS = {
-    "remat": (_ANY, "not ported (torch.utils.checkpoint)"),
-    "bf16_attention_probs": (_ANY, "not ported (the attention kernels keep no "
-                                   "probabilities; use --flash-attention)"),
-}
-# the commands that run data-parallel over a process group; the other
-# commands' --num-processes is ROADMAP A7b
+UNPORTED_FLAGS: dict = {}
+# the commands that run data-parallel over a process group
 DP_COMMANDS = ("pretrain", "train", "adapter", "shared-adapter", "zeroshot")
-# ... and serve, whose ranks follow rank 0's batches
-GROUP_COMMANDS = DP_COMMANDS + ("serve",)
+# ... and serve, whose ranks follow rank 0's batches: the commands whose
+# --num-devices N starts N ranks (a mesh in the JAX CLI; the others take none)
+MESH_COMMANDS = DP_COMMANDS + ("serve",)
+# every command joins a group under torchrun or --num-processes: eval,
+# gradcam and rollout score over it and the primary writes; prep,
+# cache-images and convert run on the primary alone while the others wait
+GROUP_COMMANDS = MESH_COMMANDS + ("eval", "gradcam", "rollout", "prep", "cache-images",
+                                  "convert")
 
 
 def _unported(args) -> str | None:
@@ -92,11 +94,6 @@ def _unported(args) -> str | None:
             flag = "--" + dest.replace("_", "-")
             where = item if item.startswith("not ported") else f"ROADMAP {item}"
             return f"{flag} {v!r} is not ported yet ({where})"
-    v = getattr(args, "num_processes", None)
-    if args.command not in GROUP_COMMANDS and v not in (None, 0, 1):
-        return f"--num-processes {v!r} is not ported yet (ROADMAP A7b)"
-    if _ep(args) > 1 and v not in (None, 0, 1):
-        return f"--ep with --num-processes {v!r} is not ported yet (ROADMAP A7b)"
     return None
 
 
@@ -111,13 +108,24 @@ def _in_group(args) -> bool:
     return args.command in GROUP_COMMANDS and not _serve_single(args)
 
 
+def _meshed(args) -> bool:
+    """The command runs over a mesh of ``--num-devices`` (a group it starts,
+    or joins as a whole)."""
+    return args.command in MESH_COMMANDS and _in_group(args)
+
+
+def _processes(args) -> int:
+    """``--num-processes`` (prep and cache-images take none)."""
+    return int(getattr(args, "num_processes", None) or 1)
+
+
 def _visible_devices(args) -> int:
     """The devices a mesh may cover: the group's ranks (one device each),
     the emulated CPU devices, the CPU, or the cards."""
     from ..parallel import multihost
 
-    if int(args.num_processes or 1) > 1:
-        return int(args.num_processes)
+    if _processes(args) > 1:
+        return _processes(args)
     if multihost.launched():
         return int(os.environ["WORLD_SIZE"])
     if getattr(args, "virtual_devices", None):
@@ -135,7 +143,7 @@ def _mesh_devices(args) -> int:
     from ..parallel import multihost
 
     n = int(getattr(args, "num_devices", None) or 0)
-    if not n and (int(args.num_processes or 1) > 1 or multihost.launched()):
+    if not n and (_processes(args) > 1 or multihost.launched()):
         n = _visible_devices(args)
     return n
 
@@ -217,7 +225,7 @@ def _dp_refused(args) -> None:
     """The JAX CLI's refusals of the data-parallel and pipeline flags and
     their compositions, its messages word for word (raised as
     ``SystemExit``), before any rank starts."""
-    if not _in_group(args):
+    if not _meshed(args):
         return
     n, pp = _dp_devices(args), _pp(args)
     if args.command == "pretrain" and not args.lora:
@@ -265,7 +273,7 @@ def _dp_refused(args) -> None:
         # the JAX create_2d_mesh's refusal
         if n > _visible_devices(args):
             raise SystemExit(f"requested {n} devices, {_visible_devices(args)} visible")
-    elif args.command not in ("zeroshot", "serve") and _ep(args) == 1:
+    elif args.command in DP_COMMANDS and args.command != "zeroshot" and _ep(args) == 1:
         preset = "adapter" if args.command in ("adapter", "shared-adapter") else None
         bs = args.batch_size or _preset(args, preset).data.batch_size
         if bs % n:
@@ -456,6 +464,8 @@ def _apply_tiny(cfg, args, vocab_size: int):
                 "(not --tp/--pp/--ep)"
             )
         model = dataclasses.replace(model, vit_fused_mlp=True)
+    if getattr(args, "bf16_attention_probs", False):
+        model = dataclasses.replace(model, bf16_attention_probs=True)
     if getattr(args, "flash_attention", False):
         model = dataclasses.replace(model, flash_attention=True)
     if getattr(args, "bert_fused_mlp", False):
@@ -471,6 +481,11 @@ def _apply_tiny(cfg, args, vocab_size: int):
             # siglip trains from the paper's operating point (s = 10,
             # b = -10); the softmax losses start at the preset's fixed T
             logit_scale_init=10.0 if loss == "siglip" else None,
+        )
+    if getattr(args, "remat", False):
+        model = dataclasses.replace(
+            model, remat=True, remat_conv=True,
+            remat_policy=getattr(args, "remat_policy", "full"),
         )
     if getattr(args, "tiny", False):
         model = dataclasses.replace(
@@ -635,9 +650,9 @@ def _loaders(cfg, args, multi_view=True, shard=True):
     if shard and _strided(args):
         from ..parallel import multihost
 
-        # the ranks of a pipeline's stage group load the same rows: a shard
-        # a data index
-        inner = max(_pp(args), 1)
+        # the ranks of a pipeline's stage group, or of an expert group, load
+        # the same rows: a shard a data index (rank r at data r // inner)
+        inner = max(_pp(args), _ep(args), 1)
         shard_kwargs = multihost.process_sharded_loader_kwargs(
             cfg.data.batch_size, multihost.process_index() // inner,
             multihost.process_count() // inner)
@@ -698,7 +713,7 @@ def _rng_stream(args, cfg, mesh=None):
 
 def _strided(args) -> bool:
     """A ``--num-processes`` run: each process loads its own strided shard."""
-    return int(args.num_processes or 1) > 1
+    return _processes(args) > 1
 
 
 def _feed(args, batches, microbatches: int = 1, group=None):
@@ -732,18 +747,40 @@ def _replicated(state):
 # ---------------------------------------------------------------------------
 
 
+def _on_primary(run) -> int:
+    """``run()`` on the primary alone, its exit status; in a group the other
+    ranks wait for it and exit 0, or 1 when it failed, so that N processes
+    leave the files one process leaves (the JAX CLI has every process write
+    them at once)."""
+    from ..parallel import multihost
+
+    code = 1
+    try:
+        code = run() if _primary() else 0
+    finally:
+        failed = multihost.agree_any(_primary() and code != 0)
+    return 1 if failed and not code else code
+
+
 def cmd_prep(args) -> int:
     from ..data.labels import prepare_labeled_csv
 
-    df = prepare_labeled_csv(args.reports, args.out, args.unlabeled_out)
-    print(f"labeled {len(df)} reports → {args.out}")
-    return 0
+    def run():
+        df = prepare_labeled_csv(args.reports, args.out, args.unlabeled_out)
+        print(f"labeled {len(df)} reports → {args.out}")
+        return 0
+
+    return _on_primary(run)
 
 
 def cmd_cache_images(args) -> int:
     """One-time decode+resize of the dataset into a memmap cache
     (data/cache.py); later runs pass --image-cache DIR to skip the
     per-epoch decode."""
+    return _on_primary(lambda: _cache_images(args))
+
+
+def _cache_images(args) -> int:
     import time
 
     from ..data import build_image_cache, read_csv
@@ -1391,7 +1428,13 @@ def _prep_fp32(args, cfg, views):
 
 def cmd_gradcam(args) -> int:
     """Grad-CAM over the ResNet tower for one sample, each positive label's
-    (or class 0's) map over both views, against the "prediction" bank."""
+    (or class 0's) map over both views, against the "prediction" bank. In a
+    group the primary computes it and writes the PNGs (``--sample_index``
+    names an exam of the whole validation set on every process)."""
+    return _on_primary(lambda: _gradcam(args))
+
+
+def _gradcam(args) -> int:
     import torch
 
     from ..core.config import DISEASE_LABELS
@@ -1404,7 +1447,7 @@ def cmd_gradcam(args) -> int:
     tokenizer = _tokenizer(args)
     cfg = _apply_tiny(cfg, args, len(tokenizer.vocab))
     model = _model(cfg, args)
-    _, val_loader = _loaders(cfg, args, multi_view=True)
+    _, val_loader = _loaders(cfg, args, multi_view=True, shard=False)
     views, labels = _sample_views(val_loader, args.sample_index)
 
     @torch.no_grad()
@@ -1431,7 +1474,12 @@ def cmd_gradcam(args) -> int:
 
 def cmd_rollout(args) -> int:
     """ViT attention-rollout saliency for one sample (vit nb cell 34), from
-    the ``vit`` preset whatever ``--preset`` says, as in the JAX CLI."""
+    the ``vit`` preset whatever ``--preset`` says, as in the JAX CLI; in a
+    group on the primary, as :func:`cmd_gradcam`."""
+    return _on_primary(lambda: _rollout(args))
+
+
+def _rollout(args) -> int:
     import torch
 
     from ..interpret import attention_rollout
@@ -1441,7 +1489,7 @@ def cmd_rollout(args) -> int:
     tokenizer = _tokenizer(args)
     cfg = _apply_tiny(cfg, args, len(tokenizer.vocab))
     model = _model(cfg, args)
-    _, val_loader = _loaders(cfg, args, multi_view=True)
+    _, val_loader = _loaders(cfg, args, multi_view=True, shard=False)
     views, _ = _sample_views(val_loader, args.sample_index)
     with torch.no_grad():
         _, attns = model.encode_image_sowed(_prep_fp32(args, cfg, views))
@@ -1455,6 +1503,10 @@ def cmd_rollout(args) -> int:
 
 
 def cmd_eval(args) -> int:
+    """The metric suite over the held-out split. In a group every rank loads
+    the whole split and scores its slice of every batch; the primary, holding
+    the batch's probabilities in rank order, computes the metrics and writes
+    them."""
     from ..core.config import DISEASE_LABELS
     from ..evals.metrics import multilabel_metrics
     from ..inference import AdapterEngine, InferenceSession
@@ -1465,6 +1517,7 @@ def cmd_eval(args) -> int:
     tokenizer = _tokenizer(args)
     cfg = _apply_tiny(cfg, args, len(tokenizer.vocab))
     model = _model(cfg, args)
+    group = _dp(_group())
     if getattr(args, "head", "zeroshot") == "adapter":
         # score from the C-ADAPTER classifier (02 nb cell 30 semantics:
         # frontal view, frozen-tower encode, sigmoid(Linear(512,16))) —
@@ -1473,7 +1526,7 @@ def cmd_eval(args) -> int:
         # (structurally identical), so metrics near chance mean the wrong
         # checkpoint was given
         engine = AdapterEngine(model, cfg.augment.mean, cfg.augment.std,
-                               cfg.model.image_size, _compute_dtype(args))
+                               cfg.model.image_size, _compute_dtype(args), **group)
 
         def score(images):
             return engine.probs(images[:, 0])  # the frontal view, the adapter's input
@@ -1481,14 +1534,14 @@ def cmd_eval(args) -> int:
         session = InferenceSession(
             model, tokenizer, DISEASE_LABELS,
             cfg.augment.mean, cfg.augment.std, cfg.model.image_size,
-            max_text_length=cfg.model.max_text_length,
+            max_text_length=cfg.model.max_text_length, **group,
         )
 
         def score(images):
             _, probs = session(images)
             return probs
 
-    _, val_loader = _loaders(cfg, args, multi_view=True)
+    _, val_loader = _loaders(cfg, args, multi_view=True, shard=False)
     probs_all, labels_all = [], []
     for batch in val_loader:
         # the batch goes to the scorer as it is: a batch gathered on the
@@ -1497,6 +1550,8 @@ def cmd_eval(args) -> int:
         mask = np.asarray(batch.get("mask", np.ones(len(probs)))).astype(bool)
         probs_all.append(probs[mask])
         labels_all.append(np.asarray(batch["labels"])[mask])
+    if not _primary():
+        return 0
     probs_cat = np.concatenate(probs_all)
     labels_cat = np.concatenate(labels_all)
     metrics = multilabel_metrics(probs_cat, labels_cat, class_names=DISEASE_LABELS)
@@ -1649,20 +1704,23 @@ def _serve(args, engine, labels, threshold, size: int, checkpoint_info: str) -> 
     host, port = server.server_address[:2]
     logging.info("serving on http://%s:%d (POST /predict, GET /healthz, GET /stats)",
                  host, port)
-    previous = None
+    previous = {}
     if threading.current_thread() is threading.main_thread():
         def interrupt(signum, frame):
             raise KeyboardInterrupt
 
-        # SIGTERM stops the server as Ctrl-C does (a group's ranks then stop too)
-        previous = signal.signal(signal.SIGTERM, interrupt)
+        # SIGTERM stops the server as Ctrl-C does (a group's ranks then stop
+        # too); SIGINT whatever disposition the process started with (Python
+        # leaves it ignored in a background job of a non-interactive shell)
+        previous = {sig: signal.signal(sig, interrupt)
+                    for sig in (signal.SIGTERM, signal.SIGINT)}
     try:
         server.serve_forever()
     except KeyboardInterrupt:
         logging.info("shutting down")
     finally:
-        if previous is not None:
-            signal.signal(signal.SIGTERM, previous)
+        for sig, handler in previous.items():
+            signal.signal(sig, handler)
         server.server_close()
         service.close()
     return 0
@@ -1695,7 +1753,12 @@ def _live_engine(cfg, args, tokenizer):
 def cmd_convert(args) -> int:
     """Checkpoint interop: checkpoint directory / reference .pth / flat
     .safetensors → reference-layout .pth or .safetensors (the reference's
-    {epoch, models:{name: state_dict}} contract, 0425/train.py:505-541)."""
+    {epoch, models:{name: state_dict}} contract, 0425/train.py:505-541); in
+    a group on the primary alone."""
+    return _on_primary(lambda: _convert(args))
+
+
+def _convert(args) -> int:
     import torch
 
     from ..inference import load_trained_model
@@ -1841,14 +1904,19 @@ def build_parser() -> argparse.ArgumentParser:
                              "inference --fused-mlp kernel still wins "
                              "at serving)")
         sp.add_argument("--bf16-attention-probs", action="store_true",
-                        help="not ported (the attention kernels keep no "
-                             "probabilities): exits with status 2")
+                        help="store attention probabilities in bf16 "
+                             "(halves the backward-saved [B,H,L,L] "
+                             "softmax residual + its layout copies; "
+                             "forward unchanged to bf16 rounding)")
         sp.add_argument("--remat", action="store_true",
-                        help="not ported (torch.utils.checkpoint): exits "
-                             "with status 2")
+                        help="rematerialize the encoder layers (memory ↔ "
+                             "recompute; lets B scale ~8x on HBM)")
         sp.add_argument("--remat-policy", default="full",
                         choices=("full", "dots", "dots_no_batch"),
-                        help="with --remat")
+                        help="with --remat: what jax.checkpoint SAVES — "
+                             "'dots' keeps MXU results and recomputes only "
+                             "elementwise chains (cheapest recompute), "
+                             "'full' saves nothing (most memory saved)")
         sp.add_argument("--moe-experts", type=int, default=0, metavar="E",
                         help="Switch-MoE text tower: every other block's "
                              "MLP routes over E experts (0 = dense parity "
@@ -2127,13 +2195,13 @@ def main(argv=None) -> int:
 
     joins = (_in_group(args) and not multihost.is_distributed()
              and (multihost.launched() or _strided(args)))
-    if (_in_group(args) and _dp_devices(args) > 1 and not joins
+    if (_meshed(args) and _dp_devices(args) > 1 and not joins
             and not multihost.is_distributed()):
         return _spawn(argv, _dp_devices(args))
     try:
         if joins:
-            multihost.init_process_group(args.coordinator, int(args.num_processes or 1),
-                                         args.process_id,
+            multihost.init_process_group(getattr(args, "coordinator", None), _processes(args),
+                                         getattr(args, "process_id", 0),
                                          device="cpu" if _on_cpu(args) else "cuda")
             if _on_cpu(args):
                 # the CPU ranks of one host share its cores

@@ -47,9 +47,8 @@ IMAGENET_STD = (0.229, 0.224, 0.225)
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """Tower + head hyper-parameters. Fields the port does not run yet (the
-    ViT training MLP, MoE, remat, learnable temperature) are kept so that a
-    config moves between the two packages unchanged."""
+    """Tower + head hyper-parameters, field for field the JAX package's, so
+    that a config moves between the two packages unchanged."""
 
     image_tower: str = "resnet50"  # "resnet50" | "vit_b16"
     image_embedding_dim: int = 2048

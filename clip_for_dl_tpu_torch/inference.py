@@ -13,6 +13,12 @@ reference's load_model.py).
 - :class:`AdapterEngine`: the trained C-Adapter classifier as an engine
   with the surface ``serving.ZeroShotService`` uses.
 
+With ``group`` (``eval`` over a process group) the session and the engine
+shard each batch as ``zeroshot.engine.ZeroShotEngine`` does: every rank is
+handed the same batch, its rows padded to a multiple of the ranks, each rank
+runs its contiguous slice, and the outputs of every rank are gathered in
+rank order, so that each rank holds the batch's.
+
 Every entry point that builds or runs a model takes ``device``: the card
 when None (``core.device.resolve_device``).
 """
@@ -34,6 +40,15 @@ from .zeroshot.prompts import create_basic_prompts
 
 # the folded weights of an export directory (tools/export_inference.py)
 FOLDED_WEIGHTS_FILE = "weights.safetensors"
+
+
+def _over_group(fn, rows: torch.Tensor, group) -> torch.Tensor:
+    """``fn(rows)``, or with ``group`` ``parallel.dp.rows_over_group``."""
+    if group is None:
+        return fn(rows)
+    from .parallel.dp import rows_over_group
+
+    return rows_over_group(fn, rows, group)
 
 
 def load_trained_model(
@@ -133,8 +148,10 @@ class InferenceSession:
         logit_scale: float = 4.0,
         threshold: float = 0.5,
         max_text_length: int = 64,
+        group=None,
     ):
         self.model = model.eval()
+        self.group = group
         self.device = next(model.parameters()).device
         self.disease_list = list(disease_list)
         self.mean, self.std = tuple(mean), tuple(std)
@@ -164,7 +181,9 @@ class InferenceSession:
     def __call__(self, images_u8) -> Tuple[np.ndarray, np.ndarray]:
         """[B, 2, H, W, C] uint8 (C = 3, or 1 for grey) → (binary predictions
         [B, C], probabilities [B, C])."""
-        probs = self._forward(to_device(images_u8, self.device)).cpu().numpy()
+        images = to_device(images_u8, self.device)
+        probs = _over_group(self._forward, images, self.group)[:images.shape[0]]
+        probs = probs.cpu().numpy()
         return (probs > self.threshold).astype(np.float32), probs
 
 
@@ -181,8 +200,10 @@ class AdapterEngine:
         std: Tuple[float, ...] = (1.0, 1.0, 1.0),
         image_size: int = 224,
         compute_dtype: torch.dtype = torch.bfloat16,
+        group=None,
     ):
         self.model = model.eval()
+        self.group = group
         self.device = next(model.parameters()).device
         self.mean, self.std = tuple(mean), tuple(std)
         self.image_size = image_size
@@ -196,12 +217,13 @@ class AdapterEngine:
         return self.model.adapter_logits(feats).float()
 
     def _dispatch(self, images_u8) -> Tuple[torch.Tensor, int]:
-        """Queue one batch; returns (device logits [B, C], rows). A
-        [B, V, H, W, C] batch is flattened to its views."""
+        """Queue one batch; returns (device logits [B, C], rows): with a
+        group, the rows' padding included. A [B, V, H, W, C] batch is
+        flattened to its views."""
         imgs = to_device(images_u8, self.device)
         if imgs.dim() == 5:
             imgs = imgs.reshape(-1, *imgs.shape[2:])
-        return self._logits(imgs), imgs.shape[0]
+        return _over_group(self._logits, imgs, self.group), imgs.shape[0]
 
     def logits(self, images_u8) -> np.ndarray:
         out, n_real = self._dispatch(images_u8)

@@ -45,6 +45,14 @@ and the MoE wins over ``fused_mlp``. The MoE is replicated under tensor
 parallelism (the JAX ``tp_spec`` shards no ``moe_mlp`` leaf), so it runs
 once on the layer's whole input, outside the sum over shares; under
 sequence parallelism on the gathered sequence (``TPContext.replicated``).
+
+``bf16_probs`` (``--bf16-attention-probs``, bert.py:144-145 in the JAX
+package) rounds the plain route's softmax output to bf16 before the
+dropout and P·V, and keeps only bf16 probabilities for the backward
+(``models/bf16_probs.py``); under ``flash`` it warns with the JAX text
+and changes nothing. ``remat`` runs each layer through
+``models/remat.py remat_call`` under ``remat_policy`` (bert.py:287-291),
+the layer's generator carried into the recompute.
 """
 
 from __future__ import annotations
@@ -58,8 +66,10 @@ from torch import nn
 from ..ops import flash_attention as fa
 from ..ops import mlp_train
 from ..parallel.tp import UNSHARDED
+from .bf16_probs import attend_bf16
 from .heads import dropout
 from .moe import SwitchMoEMLP
+from .remat import remat_call
 
 
 def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -95,10 +105,10 @@ class BertSelfAttention(nn.Module):
     rate; :meth:`BertLayer._attention_share` runs them."""
 
     def __init__(self, hidden: int, heads: int, dropout: float = 0.1,
-                 flash: bool = False):
+                 flash: bool = False, bf16_probs: bool = False):
         super().__init__()
         self.heads = heads
-        self.flash = flash
+        self.flash, self.bf16_probs = flash, bf16_probs
         self.query = nn.Linear(hidden, hidden)
         self.key = nn.Linear(hidden, hidden)
         self.value = nn.Linear(hidden, hidden)
@@ -117,9 +127,10 @@ class _DenseNorm(nn.Module):
 class _Attention(nn.Module):
     """HF ``BertAttention`` container: ``self`` and ``output``."""
 
-    def __init__(self, hidden: int, heads: int, dropout: float, flash: bool):
+    def __init__(self, hidden: int, heads: int, dropout: float, flash: bool,
+                 bf16_probs: bool = False):
         super().__init__()
-        self.self = BertSelfAttention(hidden, heads, dropout, flash)
+        self.self = BertSelfAttention(hidden, heads, dropout, flash, bf16_probs)
         self.output = _DenseNorm(hidden, hidden)
 
 
@@ -142,11 +153,12 @@ class BertLayer(nn.Module):
 
     def __init__(self, hidden: int, heads: int, intermediate: int,
                  dropout: float = 0.1, flash: bool = False, fused_mlp: bool = False,
-                 moe_experts: int = 0, moe_capacity_factor: float = 1.25):
+                 moe_experts: int = 0, moe_capacity_factor: float = 1.25,
+                 bf16_probs: bool = False):
         super().__init__()
         self.hidden, self.intermediate_dim = hidden, intermediate
         self.fused_mlp = fused_mlp
-        self.attention = _Attention(hidden, heads, dropout, flash)
+        self.attention = _Attention(hidden, heads, dropout, flash, bf16_probs)
         if moe_experts:
             self.moe_mlp = SwitchMoEMLP(hidden, intermediate, moe_experts, moe_capacity_factor)
             self.output = _Norm(hidden)
@@ -173,6 +185,8 @@ class BertLayer(nn.Module):
         h, h0 = self.tp.heads(sa.heads)
         hd = self.hidden // sa.heads
         if sa.flash:
+            if sa.bf16_probs:
+                fa.warn_bf16_probs_ignored()
             w = torch.cat([sa.query.weight, sa.key.weight, sa.value.weight])
             b = torch.cat([sa.query.bias, sa.key.bias, sa.value.bias])
             out = self.tp.attend(
@@ -186,11 +200,15 @@ class BertLayer(nn.Module):
                 logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) / float(hd) ** 0.5
                 if bias is not None:
                     logits = logits + bias[:, None, None, :]
-                probs = torch.softmax(logits, dim=-1)
-                if keep is not None:
-                    probs = torch.where(keep[:, h0:h0 + h], probs / (1.0 - rate),
-                                        torch.zeros((), dtype=probs.dtype, device=probs.device))
-                out = torch.matmul(probs.to(x.dtype).float(), v.float()).to(x.dtype)
+                mask = None if keep is None else keep[:, h0:h0 + h]
+                if sa.bf16_probs:
+                    out = attend_bf16(logits, v, mask, rate)
+                else:
+                    probs = torch.softmax(logits, dim=-1)
+                    if mask is not None:
+                        probs = torch.where(mask, probs / (1.0 - rate), torch.zeros(
+                            (), dtype=probs.dtype, device=probs.device))
+                    out = torch.matmul(probs.to(x.dtype).float(), v.float()).to(x.dtype)
                 return out.transpose(1, 2).reshape(B, N, h * hd)
 
             out = self.tp.attend(attend, sa.query(x), sa.key(x), sa.value(x))
@@ -247,14 +265,17 @@ class BertEncoder(nn.Module):
     def __init__(self, vocab_size: int = 28996, hidden: int = 768, layers: int = 12,
                  heads: int = 12, intermediate: int = 3072, max_position: int = 512,
                  dropout: float = 0.1, flash: bool = False, fused_mlp: bool = False,
-                 moe_experts: int = 0, moe_every: int = 2, moe_capacity_factor: float = 1.25):
+                 moe_experts: int = 0, moe_every: int = 2, moe_capacity_factor: float = 1.25,
+                 remat: bool = False, remat_policy: str = "full", bf16_probs: bool = False):
         super().__init__()
+        # the policy each layer runs under (models/remat.py)
+        self.remat_policy = remat_policy if remat else "none"
         self.embeddings = BertEmbeddings(vocab_size, hidden, max_position, dropout=dropout)
         self.encoder = nn.Module()
         self.encoder.layer = nn.ModuleList(
             BertLayer(hidden, heads, intermediate, dropout, flash, fused_mlp,
                       moe_experts if moe_experts and i % moe_every == moe_every - 1 else 0,
-                      moe_capacity_factor)
+                      moe_capacity_factor, bf16_probs)
             for i in range(layers)
         )
 
@@ -268,5 +289,5 @@ class BertEncoder(nn.Module):
         if attention_mask is not None:
             bias = torch.where(attention_mask > 0, 0.0, -1e10).to(torch.float32)
         for layer in self.encoder.layer:
-            x = layer(x, bias, generator)
+            x = remat_call(layer, self.remat_policy, x, bias, generator, generator=generator)
         return x

@@ -64,13 +64,17 @@ class CXRClip(nn.Module):
             self.logit_bias = nn.Parameter(torch.tensor(config.logit_bias_init,
                                                         dtype=torch.float32))
         if config.image_tower == "resnet50":
-            self.image_tower = ResNet(config.resnet_stages, config.resnet_width, fold_bn)
+            self.image_tower = ResNet(config.resnet_stages, config.resnet_width, fold_bn,
+                                      remat=config.remat_conv,
+                                      remat_policy=config.remat_policy)
         elif config.image_tower == "vit_b16":
             self.image_tower = ViT(
                 config.image_size, config.vit_patch, config.vit_hidden, config.vit_layers,
                 config.vit_heads, config.vit_mlp_dim,
                 gelu_approximate=config.vit_gelu_approximate, fused_mlp=config.vit_fused_mlp,
                 flash=config.flash_attention, fused_mlp_train=config.vit_fused_mlp_train,
+                remat=config.remat, remat_policy=config.remat_policy,
+                bf16_probs=config.bf16_attention_probs,
             )
         else:
             raise ValueError(f"unknown image tower {config.image_tower!r}")
@@ -82,6 +86,8 @@ class CXRClip(nn.Module):
             flash=config.flash_attention, fused_mlp=config.bert_fused_mlp,
             moe_experts=config.text_moe_experts, moe_every=config.text_moe_every,
             moe_capacity_factor=config.moe_capacity_factor,
+            remat=config.remat, remat_policy=config.remat_policy,
+            bf16_probs=config.bf16_attention_probs,
         )
         d = config.shared_embedding_dim
         self.image_projector = ImageProjection(self.image_tower.out_dim, d, config.dropout)

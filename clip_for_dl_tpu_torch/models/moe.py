@@ -87,6 +87,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel.collectives import all_reduce_sum, copy_to_model, reduce_from_model
+from .remat import recomputing
 
 
 def capacity(tokens: int, experts: int, factor: float) -> int:
@@ -266,7 +267,8 @@ def moe_shares(shares: Sequence[SwitchMoEMLP], x: torch.Tensor,
     group, aux_list = _ROUTING.get()
     b, l, d = x.shape
     r = route(shares[0], x, mask, group)
-    if aux_list is not None:
+    # a remat'd layer's recompute routes as its forward did and adds no aux loss
+    if aux_list is not None and not recomputing():
         aux_list.append(r.aux)
     xf = x.reshape(b * l, d)
     parts = [s.experts(xf, r.slot, r.capacity) for s in shares]

@@ -23,6 +23,12 @@ normalizes with the running statistics; in train mode with the batch
 statistics, and the running statistics become ``0.9·old + 0.1·batch`` with
 the biased batch variance (``nn.BatchNorm2d`` would use the unbiased one).
 
+``remat`` (the config's ``remat_conv``) runs each bottleneck block through
+``models/remat.py remat_call`` under ``remat_policy`` (resnet.py:149-153
+in the JAX package); its recompute leaves the running statistics as the
+forward set them, and under a group runs the statistics' all-reduce again
+at the same point of every rank's backward.
+
 ``fold_bn=True`` builds the inference topology of the JAX tower's
 ``fold_bn``: every convolution has a bias and no BatchNorm follows it; the
 residual add and the ReLUs run in the compute dtype. :func:`fold_batchnorm`
@@ -41,6 +47,8 @@ from typing import Dict, Mapping, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .remat import recomputing, remat_call
 
 
 # flax's BatchNorm momentum: the weight of the old running statistics
@@ -91,6 +99,8 @@ def _bn(bn: nn.BatchNorm2d, y: torch.Tensor) -> torch.Tensor:
     if not bn.training:
         return bn(x).to(y.dtype)
     group, update = _CONTEXT.get()
+    # a remat'd block's recompute leaves the statistics as its forward set them
+    update = update and not recomputing()
     if group is None:
         out = F.batch_norm(x, None, None, bn.weight, bn.bias, training=True, eps=bn.eps)
         if update:
@@ -145,9 +155,11 @@ class ResNet(nn.Module):
     """ResNet v1 feature extractor without the FC head."""
 
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3), width: int = 64,
-                 fold_bn: bool = False):
+                 fold_bn: bool = False, remat: bool = False, remat_policy: str = "full"):
         super().__init__()
         self.fold_bn = fold_bn
+        # the policy each bottleneck block runs under (models/remat.py)
+        self.remat_policy = remat_policy if remat else "none"
         self.conv1 = nn.Conv2d(3, width, 7, 2, 3, bias=fold_bn)
         if not fold_bn:
             self.bn1 = nn.BatchNorm2d(width, eps=1e-5)
@@ -179,7 +191,8 @@ class ResNet(nn.Module):
         x = F.relu(x if self.fold_bn else _bn(self.bn1, x))
         x = F.max_pool2d(x, 3, 2, 1)
         for stage in range(self.num_stages):
-            x = getattr(self, f"layer{stage + 1}")(x)
+            for block in getattr(self, f"layer{stage + 1}"):
+                x = remat_call(block, self.remat_policy, x)
         # global average pool in fp32 == torch AdaptiveAvgPool2d(1)
         pooled = x.float().mean(dim=(2, 3)).to(x.dtype)
         if capture_stage4:

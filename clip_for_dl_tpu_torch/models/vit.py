@@ -47,6 +47,10 @@ on that slice with b2 = 0 (``fused_mlp_train``) or the plain pair. B9
 takes no shard (``--fused-mlp`` is refused under tp > 1, as in the JAX
 CLI). :func:`layer_shares` also runs every rank's share in one process, as
 ``models.bert.layer_shares`` does.
+
+``bf16_probs`` and ``remat`` as in ``models/bert.py`` (vit.py:128-131,
+177, 314-318 in the JAX package); the sown probabilities stay fp32, taken
+before the cast, as JAX sows them.
 """
 
 from __future__ import annotations
@@ -61,6 +65,8 @@ from torch import nn
 from ..ops import flash_attention as fa
 from ..ops import mlp_block, mlp_train
 from ..parallel.tp import UNSHARDED
+from .bf16_probs import attend_bf16
+from .remat import remat_call
 
 
 def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -73,9 +79,9 @@ class MultiheadSelfAttention(nn.Module):
 
     compute_dtype_params = ("in_proj_weight", "in_proj_bias")
 
-    def __init__(self, hidden: int, heads: int, flash: bool = False):
+    def __init__(self, hidden: int, heads: int, flash: bool = False, bf16_probs: bool = False):
         super().__init__()
-        self.heads, self.flash = heads, flash
+        self.heads, self.flash, self.bf16_probs = heads, flash, bf16_probs
         self.in_proj_weight = nn.Parameter(torch.empty(3 * hidden, hidden))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * hidden))
         self.out_proj = nn.Linear(hidden, hidden)
@@ -91,15 +97,22 @@ class MultiheadSelfAttention(nn.Module):
         h, h0 = tp.heads(self.heads)
         qkv = F.linear(y, self.in_proj_weight, self.in_proj_bias)
         if self.flash and sown is None:
+            if self.bf16_probs:
+                fa.warn_bf16_probs_ignored()
             attn = fa.flash_attention_packed(qkv, h, head_offset=h0)
         else:
             hd = hidden // self.heads
             q, k, v = qkv.view(B, N, 3, h, hd).permute(2, 0, 3, 1, 4).unbind(0)
             logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) / float(hd) ** 0.5
-            probs = torch.softmax(logits, dim=-1)
-            if sown is not None:
-                sown.append(probs)
-            attn = torch.matmul(probs.to(y.dtype).float(), v.float()).to(y.dtype)
+            if self.bf16_probs and sown is None:
+                attn = attend_bf16(logits, v)
+            else:
+                probs = torch.softmax(logits, dim=-1)
+                if sown is not None:
+                    sown.append(probs)
+                if self.bf16_probs:
+                    probs = probs.to(torch.bfloat16)
+                attn = torch.matmul(probs.to(y.dtype).float(), v.float()).to(y.dtype)
             attn = attn.transpose(1, 2).reshape(B, N, h * hd)
         return F.linear(attn, self.out_proj.weight, self.out_proj.bias if tp.size == 1 else None)
 
@@ -108,13 +121,14 @@ class ViTEncoderLayer(nn.Module):
     tp = UNSHARDED  # its parallel.tp.TPContext
 
     def __init__(self, hidden: int, heads: int, mlp_dim: int, gelu_approximate: bool = False,
-                 fused_mlp: bool = False, flash: bool = False, fused_mlp_train: bool = False):
+                 fused_mlp: bool = False, flash: bool = False, fused_mlp_train: bool = False,
+                 bf16_probs: bool = False):
         super().__init__()
         self.hidden, self.mlp_dim = hidden, mlp_dim
         self.gelu_approximate, self.fused_mlp = gelu_approximate, fused_mlp
         self.fused_mlp_train = fused_mlp_train
         self.ln_1 = nn.LayerNorm(hidden, eps=1e-6)
-        self.self_attention = MultiheadSelfAttention(hidden, heads, flash)
+        self.self_attention = MultiheadSelfAttention(hidden, heads, flash, bf16_probs)
         self.ln_2 = nn.LayerNorm(hidden, eps=1e-6)
         # the two Linear layers of torchvision's MLPBlock, at its indices
         self.mlp = nn.ModuleDict({"0": nn.Linear(hidden, mlp_dim),
@@ -202,14 +216,18 @@ class ViT(nn.Module):
     def __init__(self, image_size: int = 224, patch: int = 16, hidden: int = 768,
                  layers: int = 12, heads: int = 12, mlp_dim: int = 3072,
                  gelu_approximate: bool = False, fused_mlp: bool = False, flash: bool = False,
-                 fused_mlp_train: bool = False):
+                 fused_mlp_train: bool = False, remat: bool = False, remat_policy: str = "full",
+                 bf16_probs: bool = False):
         super().__init__()
         self.patch, self.out_dim = patch, hidden
+        # the policy each layer runs under (models/remat.py)
+        self.remat_policy = remat_policy if remat else "none"
         self.conv_proj = nn.Conv2d(3, hidden, patch, stride=patch)
         self.class_token = nn.Parameter(torch.zeros(1, 1, hidden))
         self.encoder = _Encoder((image_size // patch) ** 2 + 1, hidden, layers, heads, mlp_dim,
                                 gelu_approximate=gelu_approximate, fused_mlp=fused_mlp,
-                                flash=flash, fused_mlp_train=fused_mlp_train)
+                                flash=flash, fused_mlp_train=fused_mlp_train,
+                                bf16_probs=bf16_probs)
 
     def embed(self, images: torch.Tensor) -> torch.Tensor:
         """The stem: NHWC images → the class token and the patches' tokens
@@ -237,6 +255,6 @@ class ViT(nn.Module):
         x = self.embed(images)
         sown = [] if sow_weights else None
         for layer in self.encoder.layers:
-            x = layer(x, sown)
+            x = remat_call(layer, self.remat_policy, x, sown)
         feats = self.head(x)
         return (feats, sown) if sow_weights else feats

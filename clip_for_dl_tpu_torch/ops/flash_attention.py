@@ -199,6 +199,21 @@ def dropout_seeds(generator: Optional[torch.Generator], batch: int,
     return seeds if device is None else seeds.to(device)
 
 
+def warn_bf16_probs_ignored() -> None:
+    """Both towers' flash route ignores ``bf16_attention_probs``, a
+    residual-dtype switch of the plain route: the kernels keep no
+    probabilities (the backward recomputes them). The JAX package's warning,
+    word for word."""
+    import warnings
+
+    warnings.warn(
+        "bf16_attention_probs is ignored when flash attention "
+        "is enabled: the flash kernel saves no probability "
+        "residual (its whole point); set one or the other",
+        stacklevel=3,
+    )
+
+
 def _keep_mask(seeds: torch.Tensor, heads: int, n: int, rate: float,
                head_offset: int = 0) -> torch.Tensor:
     """[B, H, N, N] bool: keep where the hash of heads head_offset … is ≥ rate."""

@@ -110,6 +110,21 @@ def shard_rows(x, rank: int, world: int, microbatches: int = 1):
     return x.reshape((microbatches, world, m) + rest)[:, rank].reshape((microbatches * m,) + rest)
 
 
+def rows_over_group(fn: Callable, rows: torch.Tensor, group) -> torch.Tensor:
+    """``fn`` on this rank's contiguous slice of ``rows`` (zero rows appended
+    up to a multiple of the ranks), every rank's output gathered in rank
+    order, the padding's included: an inference engine's batch over a
+    group."""
+    from .collectives import all_gather_rows
+
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    pad = -rows.shape[0] % world
+    if pad:
+        rows = torch.cat([rows, rows.new_zeros((pad, *rows.shape[1:]))])
+    with torch.inference_mode():
+        return all_gather_rows(fn(shard_rows(rows, rank, world)), group)
+
+
 def shard_batch(batch: Mapping, group=None, microbatches: int = 1) -> dict:
     """This rank's slice of every entry of ``batch``."""
     group = _group(group)

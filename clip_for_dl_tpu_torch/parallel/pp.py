@@ -73,8 +73,9 @@ STACK_KEY = "pipeline_stack"
 
 _LEADING = Spec(0)
 _STAGE_NAME = re.compile(rf"(?:^|\.)(?:{STACK_KEY}|encoder\.layer\.\d+)\.")
-# the modules' switches of the attention and MLP kernels (BERT and ViT)
-_ROUTES = ("flash", "fused_mlp", "fused_mlp_train")
+# the modules' switches of the attention and MLP kernels and of the bf16
+# probabilities (BERT and ViT): JAX builds the pipelined layers without them
+_ROUTES = ("flash", "fused_mlp", "fused_mlp_train", "bf16_probs")
 
 
 def create_dp_pp_mesh(pp: int, num_devices: Optional[int] = None) -> Mesh2D:
@@ -390,7 +391,8 @@ def stage_context(mesh: Mesh2D) -> StageContext:
 @contextlib.contextmanager
 def _deterministic_plain(modules):
     """Every module (and submodule) in eval mode, its attention and MLP on
-    the plain routes (``flash``, ``fused_mlp``, ``fused_mlp_train`` off)
+    the plain routes (``flash``, ``fused_mlp``, ``fused_mlp_train`` and
+    ``bf16_probs`` off)
     while inside; as it was after."""
     subs = {id(sub): sub for m in modules for sub in m.modules()}  # a shared cast once
     saved = []

@@ -22,6 +22,7 @@ from __future__ import annotations
 import builtins
 import os
 import pickle
+import contextlib
 from contextlib import contextmanager
 from typing import Dict
 
@@ -335,10 +336,15 @@ def _cli_case(case):
     """The command line (``cli.main(argv)``) on this rank of the group, with
     every preset's dropout at 0 (its rate has no flag) when the case says
     ``no_dropout``: the JAX CLI's run, patched the same way, then draws no
-    mask either. Returns the exit status and the logits of the batches the
-    zero-shot engine dispatched (None for a command without one)."""
+    mask either; with ``moe_capacity_factor``, the MoE layers' capacity
+    factor (``capacity_factor`` E keeps every token, whatever the rows'
+    order). Returns the exit status, the logits of the batches the zero-shot
+    engine dispatched (None for a command without one), what the command
+    printed and the paths it opened for writing."""
+    import contextlib
     import dataclasses
     import importlib
+    import io
     from unittest import mock
 
     from ..core import config
@@ -346,9 +352,14 @@ def _cli_case(case):
     cli = importlib.import_module("clip_for_dl_tpu_torch.cli.main")
     real = config.get_preset
 
-    def no_dropout(name):
+    def patched(name):
         cfg = real(name)
-        return cfg.replace(model=dataclasses.replace(cfg.model, dropout=0.0))
+        model = cfg.model
+        if case.get("no_dropout"):
+            model = dataclasses.replace(model, dropout=0.0)
+        if case.get("moe_capacity_factor"):
+            model = dataclasses.replace(model, moe_capacity_factor=case["moe_capacity_factor"])
+        return cfg.replace(model=model)
 
     from ..zeroshot.engine import ZeroShotEngine
 
@@ -359,12 +370,14 @@ def _cli_case(case):
         logits.append(out[:n].float().cpu().numpy())
         return out, n
 
-    with mock.patch.object(config, "get_preset",
-                           no_dropout if case.get("no_dropout") else real), \
-            mock.patch.object(ZeroShotEngine, "_dispatch", recording):
+    printed = io.StringIO()
+    with mock.patch.object(config, "get_preset", patched), \
+            mock.patch.object(ZeroShotEngine, "_dispatch", recording), \
+            contextlib.redirect_stdout(printed), recorded_writes() as writes:
         rc = cli.main(list(case["argv"]))
     # the zero-shot engine's logits of every batch, as this rank holds them
-    return {"rc": rc, "logits": np.concatenate(logits) if logits else None}
+    return {"rc": rc, "logits": np.concatenate(logits) if logits else None,
+            "stdout": printed.getvalue(), "writes": writes}
 
 
 def _tp_tower(case):
@@ -589,6 +602,37 @@ def _moe_dp_case(case):
     return {"losses": losses, "delta": delta}
 
 
+def _moe_remat_case(case):
+    """The case's pretrain step over the whole group (data parallel, the
+    MoE layers routing over the global batch) without remat, with remat
+    under the case's ``policy``, and with remat and the planted fault of a
+    recompute that runs outside the forward's context (so its MoE layers
+    route over this rank's rows alone): each run's losses and parameter
+    changes, or the error it raised."""
+    from unittest import mock
+
+    from ..models import remat
+
+    def lost_context(fn, args, generator, start):
+        import contextvars
+
+        return contextvars.Context().run(fn, *args)
+
+    config = dict(case["config"], remat=True, remat_conv=True, remat_policy=case["policy"])
+    out = {}
+    for name, cfg, fault in (("plain", case["config"], False), ("remat", config, False),
+                             ("fault", config, True)):
+        with mock.patch.object(remat, "_recompute", lost_context) if fault \
+                else contextlib.nullcontext():
+            try:
+                losses, _, delta = step_case(dict(case, kind="pretrain", config=cfg),
+                                             dist.group.WORLD)
+                out[name] = {"losses": losses, "delta": delta}
+            except RuntimeError as exc:
+                out[name] = {"error": str(exc)}
+    return out
+
+
 def _ep_case(case):
     """One AdamW pretrain step through ``expert_parallel_step`` on the
     case's ``(data, expert)`` layout, dropout off: the loss, this rank's
@@ -755,7 +799,7 @@ def _pp_step_case(case):
 
 
 CASES = {"pp_forward": _pp_forward_case, "pp_step": _pp_step_case,
-         "tp_forward": _tp_forward_case, "moe_dp": _moe_dp_case, "ep_step": _ep_case, "group_serve": _group_serve_case,
+         "tp_forward": _tp_forward_case, "moe_dp": _moe_dp_case, "moe_remat": _moe_remat_case, "ep_step": _ep_case, "group_serve": _group_serve_case,
          "group_serve_fault": _group_serve_fault_case, "tp_step": _tp_step_case,
          "tp_engine": _tp_engine_case, "sp": _sp_case, "cli": _cli_case, "pretrain": _pretrain_like, "adapter": _pretrain_like, "shared": _pretrain_like,
          "multiview": _pretrain_like, "bn": _bn_case, "losses": _losses_case,

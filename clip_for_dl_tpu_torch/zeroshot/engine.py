@@ -34,7 +34,6 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from ..core.config import ZeroShotConfig
 from ..core.device import to_device
@@ -191,16 +190,10 @@ class ZeroShotEngine:
         n_real = imgs.shape[0]
         if self.group is None:
             return self._logits(imgs), n_real
-        from ..parallel.collectives import all_gather_rows
-        from ..parallel.dp import shard_rows
+        from ..parallel.dp import rows_over_group
 
-        world, rank = dist.get_world_size(self.group), dist.get_rank(self.group)
-        pad = -n_real % world
-        if pad:  # rows so that the batch shards evenly; sliced off by the caller
-            imgs = torch.cat([imgs, imgs.new_zeros((pad, *imgs.shape[1:]))])
-        with torch.inference_mode():
-            return all_gather_rows(self._logits(shard_rows(imgs, rank, world)),
-                                   self.group), n_real
+        # the padding's rows are sliced off by the caller
+        return rows_over_group(self._logits, imgs, self.group), n_real
 
     def logits(self, images_u8) -> np.ndarray:
         """[B, H, W, C] uint8 (or [B, V, H, W, C], flattened) → [B, C]."""

@@ -219,19 +219,28 @@ def test_parser_takes_every_jax_command_and_flag():
     assert all(name in out.getvalue() for name in jsub)
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["pretrain", "--ep", "2", "--moe-experts", "4", "--num-processes", "2"], "A7b"),
-    (["eval", "--num-processes", "2"], "A7b"), (["gradcam", "--num-processes", "2"], "A7b"),
-    (["pretrain", "--remat"], "not ported"), (["zeroshot", "--bf16-attention-probs"], "not ported"),
-], ids=lambda v: "_".join(v) if isinstance(v, list) else v)
-def test_unported_commands_and_flags_exit_2(argv, item, capsys):
-    """A command or flag the port does not run exits with status 2 before
-    anything runs, naming the ROADMAP item that owns it: ``--ep`` over
-    several processes and the other commands' multi-process runs are A7b
-    (``--pp``'s cases moved to test_pp_refusals_are_the_jax_clis)."""
-    assert cli.main(argv) == 2
-    err = capsys.readouterr().err
-    assert (f"ROADMAP {item})" if item != "not ported" else "(not ported") in err, err
+@pytest.mark.parametrize("flags", [
+    ["--remat"], ["--remat", "--remat-policy", "dots"],
+    ["--remat", "--remat-policy", "dots_no_batch", "--tiny"], ["--remat-policy", "dots"],
+    ["--bf16-attention-probs"], ["--bf16-attention-probs", "--flash-attention", "--remat"],
+], ids=lambda v: "_".join(f.strip("-") for f in v))
+@pytest.mark.parametrize("command", ["pretrain", "zeroshot", "eval"])
+def test_remat_and_bf16_probs_flags_set_the_jax_clis_config(command, flags):
+    """``--remat`` (with ``--remat-policy``) and ``--bf16-attention-probs``
+    run: the model configuration they give is the JAX CLI's, field for
+    field (``--remat`` sets ``remat`` and ``remat_conv``; the policy alone
+    sets nothing)."""
+    from clip_for_dl_tpu.core.config import get_preset as jget_preset
+    from clip_for_dl_tpu_torch.core.config import get_preset
+
+    args = cli.build_parser().parse_args([command, *flags])
+    jargs = jcli.build_parser().parse_args([command, *flags])
+    assert cli._unported(args) is None
+    got = cli._apply_tiny(get_preset(args.preset), args, 99).model
+    want = jcli._apply_tiny(jget_preset(jargs.preset), jargs, 99).model
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.remat == got.remat_conv == ("--remat" in flags)
+    assert got.bf16_attention_probs == ("--bf16-attention-probs" in flags)
 
 
 # the JAX CLI's refusals of the data-parallel flags, word for word, and where

@@ -47,6 +47,7 @@ torch.set_num_threads(1)
 jcli = importlib.import_module("clip_for_dl_tpu.cli.main")
 
 FACTOR = 0.5
+WIDE = 4.0  # capacity factor E for E = 4 experts: C = T, no token dropped
 BERT = dict(vocab_size=64, hidden=16, layers=2, heads=4, intermediate=32, max_position=16,
             moe_experts=4, moe_capacity_factor=FACTOR)
 ADAM_LRS = {"image_tower": 1e-4, "text_tower": 1e-3, "image_projector": 1e-3,
@@ -88,6 +89,12 @@ def _cases(workdir):
     }
     cases["cli_ep2"] = dict(kind="cli", no_dropout=True, argv=_cli_argv(workdir / "cli_ep2") + [
         "--virtual-devices", "4", "--num-devices", "4", "--ep", "2"])
+    # four processes, each loading its data index's strided shard: the
+    # global batch holds the single run's rows in another order, so the
+    # capacity keeps every token (routing then ignores the order)
+    cases["cli_ep2_procs"] = dict(
+        kind="cli", no_dropout=True, moe_capacity_factor=WIDE,
+        argv=_cli_argv(workdir / "cli_ep2_procs") + ["--num-processes", "4", "--ep", "2"])
     for t, tp_params in ((2, False), (4, True)):
         cases[f"sp{t}"] = dict(kind="sp", tower="bert", config=BERT, state=state,
                                inputs=_bert_inputs(), tp=t, tp_params=tp_params)
@@ -254,32 +261,54 @@ def test_pretrain_ep_command_equals_one_process(rank_results, monkeypatch):
     its group (Adam's first update g / (|g| + eps) flips sign where g is
     near zero, tests/test_torch_train.py:202), the BatchNorm statistics at
     1e-5."""
+    work, out = rank_results
+    assert [o["cli_ep2"]["rc"] for o in out] == [0, 0, 0, 0]
+    _single_run(work / "single", monkeypatch)
+    _assert_same_run(work, "cli_ep2", "single")
+
+
+def test_pretrain_ep_over_processes_equals_one_process(rank_results, monkeypatch):
+    """``pretrain --num-processes 4 --ep 2 --moe-experts 4``: each process
+    loads the shard of its data index (process // 2), the two ranks of an
+    expert group the same rows; against the command in one process, at the
+    bounds above, at a capacity that keeps every token (the strided shards
+    put the global batch's rows in another order)."""
+    work, out = rank_results
+    assert [o["cli_ep2_procs"]["rc"] for o in out] == [0, 0, 0, 0]
+    _single_run(work / "single_wide", monkeypatch, moe_capacity_factor=WIDE)
+    _assert_same_run(work, "cli_ep2_procs", "single_wide")
+
+
+def _single_run(out, monkeypatch, **model):
+    """The command of :func:`_cli_argv` in this process, dropout 0 and the
+    ``model`` fields set."""
     import dataclasses
 
     from clip_for_dl_tpu_torch.core import config
-    from clip_for_dl_tpu_torch.train import make_label_fn
 
-    work, out = rank_results
-    assert [o["cli_ep2"]["rc"] for o in out] == [0, 0, 0, 0]
     real = config.get_preset
     monkeypatch.setattr(config, "get_preset", lambda name: real(name).replace(
-        model=dataclasses.replace(real(name).model, dropout=0.0)))
+        model=dataclasses.replace(real(name).model, dropout=0.0, **model)))
     monkeypatch.setenv("CLIP_FOR_DL_TPU_FORCE_CPU", "1")
     cli = importlib.import_module("clip_for_dl_tpu_torch.cli.main")
-    assert cli.main(_cli_argv(work / "single")) == 0
+    assert cli.main(_cli_argv(out)) == 0
+
+
+def _assert_same_run(work, run_dir, single_dir):
+    from clip_for_dl_tpu_torch.train import make_label_fn
 
     def history(run):
         with open(work / run / "logs" / "training_history.csv") as f:
             head, row = f.read().splitlines()
         return dict(zip(head.split(","), map(float, row.split(","))))
 
-    got, want = history("cli_ep2"), history("single")
+    got, want = history(run_dir), history(single_dir)
     assert got["train_loss"] == pytest.approx(want["train_loss"], rel=1e-5)
     # after the update: where Adam's first step flips sign the weights move
     # by 2 · lr (tests/test_torch_cli.py's 5e-4 on losses after AdamW steps)
     assert got["val_loss"] == pytest.approx(want["val_loss"], abs=5e-4)
     ep_ck, one_ck = (torch.load(str(work / run / "ckpt" / "0.pt"), weights_only=False)
-                     for run in ("cli_ep2", "single"))
+                     for run in (run_dir, single_dir))
     assert {k: v.shape for k, v in ep_ck["model"].items()} == {
         k: v.shape for k, v in one_ck["model"].items()}
     assert ep_ck["model"]["text_tower.encoder.layer.1.moe_mlp.wi"].shape[0] == 4

@@ -554,7 +554,9 @@ def _actions(parser, command=""):
 
 def test_no_ported_flag_help_names_a_roadmap_item(cli):
     """ROADMAP C10: a flag that runs says what it does, not that it is
-    unported; the flags that exit 2 still name their item."""
+    unported; the flags that exit 2 still name their item (none is left).
+    ``--remat``, ``--remat-policy`` and ``--bf16-attention-probs`` say it in
+    the JAX CLI's words, in every command that takes them."""
     unported = {"--" + d.replace("_", "-") for d in cli.UNPORTED_FLAGS}
     seen = set()
     for command, action in _actions(cli.build_parser()):
@@ -568,3 +570,13 @@ def test_no_ported_flag_help_names_a_roadmap_item(cli):
             command, sorted(flags), action.help)
     assert {"--tp", "--ep", "--moe-experts", "--pp"} <= seen
     assert not {"--pp", "--ep", "--moe-experts"} & unported
+    assert not unported
+    jcli = importlib.import_module("clip_for_dl_tpu.cli.main")
+    jax_help = {(command, a.dest): a.help for command, a in _actions(jcli.build_parser())}
+    same = [(command, a.dest) for command, a in _actions(cli.build_parser())
+            if a.dest in ("remat", "remat_policy", "bf16_attention_probs")]
+    assert len(same) == 3 * 10  # the ten commands that take the common flags
+    for key in same:
+        got = next(a.help for command, a in _actions(cli.build_parser())
+                   if (command, a.dest) == key)
+        assert got == jax_help[key], key

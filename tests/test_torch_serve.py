@@ -363,7 +363,12 @@ def test_a_burst_past_max_pending_gets_429_with_retry_after(engines, tag):
 def test_serve_command_answers_and_stops_on_sigint(tmp_path):
     """``python -m clip_for_dl_tpu_torch serve --port 0`` on the CPU (the
     switch set, --tiny --fp32): the bound port from its "serving on" line,
-    200 on /predict and /healthz, exit 0 on SIGINT."""
+    200 on /predict and /healthz, exit 0 on SIGINT, also when the child
+    starts with SIGINT ignored (as a shell starts a background job, where
+    Python installs no KeyboardInterrupt). A thread reads the child's log to
+    its end, so that no pipe left unread can stop the child (its standard
+    input and output are closed to it), and each wait is long enough for a
+    loaded machine and fails with the log of the child."""
     env = dict(os.environ, CLIP_FOR_DL_TPU_FORCE_CPU="1", PYTHONUNBUFFERED="1")
     thresholds = tmp_path / "t.json"
     thresholds.write_text(json.dumps({"Mass": 0.4}))
@@ -371,34 +376,45 @@ def test_serve_command_answers_and_stops_on_sigint(tmp_path):
         [sys.executable, "-m", "clip_for_dl_tpu_torch", "serve", "--tiny", "--fp32",
          "--host", "127.0.0.1", "--port", "0", "--buckets", "1", "4", "--thresholds",
          str(thresholds), "--log-dir", str(tmp_path / "logs")],
-        cwd=ROOT, env=env, stderr=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
-    try:
-        port, lines = None, []
-        deadline = time.monotonic() + 120
-        while port is None and time.monotonic() < deadline:
-            line = child.stderr.readline()
-            if not line and child.poll() is not None:
-                break
+        cwd=ROOT, env=env, stdin=subprocess.DEVNULL, stdout=subprocess.DEVNULL,
+        stderr=subprocess.PIPE, text=True,
+        preexec_fn=lambda: signal.signal(signal.SIGINT, signal.SIG_IGN))
+    lines, serving = [], threading.Event()
+
+    def read_log():
+        for line in child.stderr:
             lines.append(line)
-            m = re.search(r"serving on http://[\d.]+:(\d+)", line)
-            if m:
-                port = int(m.group(1))
-        assert port, "".join(lines)
+            if "serving on" in line:
+                serving.set()
+        serving.set()  # the child closed its log: it has exited
+
+    reader = threading.Thread(target=read_log, daemon=True)
+    reader.start()
+    try:
+        assert serving.wait(300), "no 'serving on' line in 300 s:\n" + "".join(lines)
+        found = [re.search(r"serving on http://[\d.]+:(\d+)", line) for line in lines]
+        port = next((int(m.group(1)) for m in found if m), None)
+        assert port, "the child exited before it served:\n" + "".join(lines)
         assert any("warmed batch bucket 4" in line for line in lines)
-        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
         conn.request("POST", "/predict", body=_cv2_png(_image(11, 80, 70, 1)),
                      headers={"Content-Type": "image/png"})
         resp = conn.getresponse()
         payload = json.loads(resp.read())
-        assert resp.status == 200 and len(payload["probs"]) == len(LABELS)
+        assert resp.status == 200 and len(payload["probs"]) == len(LABELS), payload
         conn.request("GET", "/healthz")
         resp = conn.getresponse()
         health = json.loads(resp.read())
         assert resp.status == 200 and health["image_size"] == 64 and health["buckets"] == [1, 4]
         conn.close()
         child.send_signal(signal.SIGINT)
-        assert child.wait(60) == 0
+        try:
+            code = child.wait(120)
+        except subprocess.TimeoutExpired:
+            pytest.fail("still running 120 s after SIGINT:\n" + "".join(lines))
+        assert code == 0, "".join(lines)
     finally:
         if child.poll() is None:
             child.kill()
             child.wait()
+        reader.join(10)
