@@ -21,7 +21,8 @@ for phase 13's gradcam bounds (gradcam_sweep).
 Phases (any failure exits non-zero and prints no result line):
 
 0. Card: name and power limit from nvidia-smi. Without CUDA, exit at once.
-   Then the host probe: g++, libpng's, zlib's and libjpeg's headers,
+   Then the host probe: g++ (which builds the JPEG and BMP decoder),
+   libpng's, zlib's and libjpeg's headers,
    -lpng16 / -lpng / -lz / -ljpeg at link time, which of safetensors,
    PIL, scikit-learn, pandas and cv2 are installed (the port imports none of
    them), and whether matplotlib is (the plots of gradcam and rollout
@@ -183,7 +184,7 @@ c8_cases).
    default buckets, --max-pending 8; its launches written by the child at
    exit): /healthz, SERVE_PNGS layout PNGs sent one by one, then
    SERVE_CLIENTS clients of SERVE_PER_CLIENT requests each, raw and JSON
-   mixed; a garbage and a non-PNG body (400, the latter naming A2c), unknown
+   mixed; a garbage and a WebP-headed body (400, the latter naming A2c), unknown
    routes (404); /stats counting every request; SIGINT, exit 0. Every
    answer's probabilities against the plain route on its decoded image
    (5e-3) and the decided predictions equal; requests/s, client and server
@@ -440,6 +441,29 @@ c8_cases).
    B1-B4 held at their first inputs; with four cards ``pretrain --ep 2``
    over the processes against ``--num-devices`` (ep_processes19).
 
+20. Image decoding beyond PNG (ROADMAP A2c, C11), after phase 19, on
+   phase 8's layout and phase 9's files. cv2 runs in a child process
+   (CV2_CHILD), the yardstick the port never calls; the phase fails without
+   it or if its JPEG backend is not libjpeg-turbo. (a) The port's decoder
+   built with g++ (timed) and held byte-equal to cv2.imdecode on JPEGs cv2
+   writes: grey and colour, 4:4:4, 4:2:2, 4:2:0 and 4:1:1, progressive, a
+   restart interval, EXIF orientation 6, at 224 square and 2320 x 2828; its
+   decode ms beside cv2.imdecode's (median of JPEG_TIMED) at 224 and
+   2320 x 2828 grey, baseline and progressive. (b) The layout's files as
+   JPEG q95 (JPEG_BIG frontal views at 2320 x 2828) and their PNG twin
+   holding cv2's decodes (testing/png.py): cache-images over each at
+   --workers 1 and 8 (img/s; the four caches byte-equal), zeroshot over each
+   from phase 9's pretrain checkpoint (probabilities bit-equal; paths
+   cli_zeroshot_jpeg, cli_zeroshot_twin). (c) ``serve`` in a child process
+   over phase 9's adapter checkpoint: JPEG and BMP bodies at 224 x 224 x 3
+   and 2048 x 2048 grey, each decode byte-equal to cv2's, each answer within
+   1e-6 of this process's engine on the kernels alone on its pixels (below
+   the answers' spread over images), within 5e-3 of the plain route and
+   bit-equal to its PNG twin's one by one; the bodies' unit image features
+   within 1e-5 of the plain route (below their spread); a WebP and a TIFF body 400 naming A2c; req/s one by one and
+   JPEG_SERVE_CLIENTS x JPEG_SERVE_PER_CLIENT, client p50/p99, JPEG bodies
+   beside PNG (path cli_serve_jpeg).
+
 The second-to-last line is the kernels JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -611,6 +635,12 @@ TOL = {
     # service answer vs engine.probs on the same image at batch 1: the same
     # kernels on the same shapes; host vs device sigmoid
     "service": 1e-6,
+    # phase 20 (c), unit image features of the served bodies, B2 against its
+    # plain version: the bodies arrive at the model's size, so B2 resizes
+    # nothing and its fp32 arithmetic is the plain version's; the tower is
+    # the same cuDNN on the same bf16 input. Reading 0 (PR 24), against
+    # 2.1e-3 between images, which phase 8's 2e-3 would barely clear
+    "served_image_features": 1e-5,
     # phase 14, an exported program against the live forward on the same
     # weights, inputs and batch: the same operations and kernels in the same
     # order (logits, unit features; the probabilities within "service")
@@ -905,6 +935,11 @@ PATHS = {  # main path -> the kernels it must launch
     "cli_group_eval": ("similarity", "image_prep", "flash_attention", "mlp"),
     "cli_group_gradcam": ("image_prep", "flash_attention", "mlp"),
     "cli_ep_processes": ("image_prep", "flash_attention_fp32", "flash_attention_bwd_fp32"),
+    # phase 20: zeroshot over the layout as JPEG files and over its PNG twin;
+    # serve answering JPEG, BMP and PNG bodies (the child's own counts)
+    "cli_zeroshot_jpeg": ("similarity", "image_prep", "flash_attention", "mlp"),
+    "cli_zeroshot_twin": ("similarity", "image_prep", "flash_attention", "mlp"),
+    "cli_serve_jpeg": ("similarity", "image_prep", "flash_attention", "mlp"),
 }
 # H100 SXM peaks (NVIDIA's data sheet, dense): bf16 and fp16 on the tensor
 # cores and fp32 on the CUDA cores, in operations a second; HBM3 in bytes a
@@ -3299,11 +3334,12 @@ def phase6(_build, mods, dev, seed: int, card: str, tmp: str) -> dict:
     return by_path
 
 def host_probe() -> str:
-    """What the machine offers the host side of the port, as one line: g++,
-    libpng's, zlib's and libjpeg's headers, -lpng16 / -lpng / -lz / -ljpeg at
-    link time (a JPEG decoder for requests is ROADMAP A2c), and
-    whether the packages the port may not import (the CPU tests' oracles)
-    are installed, found without importing them. The port's PNG decoder
+    """What the machine offers the host side of the port, as one line: g++
+    (which builds the port's JPEG and BMP decoder, native/src/decode.cpp, at
+    first use), libpng's, zlib's and libjpeg's headers, -lpng16 / -lpng /
+    -lz / -ljpeg at link time, and whether the packages the port may not
+    import (the CPU tests' oracles, phase 20's cv2 yardstick) are installed,
+    found without importing them. The port's PNG decoder
     (native/bindings.py) is written for a machine without libpng."""
     import importlib.util
     import shutil
@@ -4282,8 +4318,9 @@ def serve_phase10(_build, mods, dev, seed: int, card: str, workdir: str,
             busy = stop_sampler()
         answers += concurrent
         odd = {"garbage": served.request("POST", "/predict", os.urandom(4096)),
-               "non-PNG": served.request("POST", "/predict", b"BM" + os.urandom(4094),
-                                         "image/bmp"),
+               "non-PNG": served.request("POST", "/predict",
+                                         b"RIFF\0\x10\0\0WEBP" + os.urandom(4084),
+                                         "image/webp"),
                "no route": served.request("POST", "/classify", pngs[0]),
                "no route (GET)": served.request("GET", "/metrics")}
         stats = served.request("GET", "/stats")[2]
@@ -8996,6 +9033,463 @@ def group_cli19(_build, mods, dev, card: str, workdir: str, results: dict) -> di
 
 
 
+# -- phase 20: image decoding beyond PNG (ROADMAP A2c) -------------------------------------
+
+JPEG_BIG = 4  # phase 20 (b): frontal views of the layout written at JPEG_BIG_SHAPE
+JPEG_BIG_SHAPE = (2828, 2320)  # rows, columns: a large digital radiograph
+JPEG_TIMED = 9  # decodes each phase-20 time is the median of
+JPEG_SERVE_CLIENTS, JPEG_SERVE_PER_CLIENT = 8, 32  # phase 20 (c)'s concurrent passes
+JPEG_SERVE_ROUNDS = 2  # passes over the bodies one by one
+JPEG_BODY_SIDE = 2048  # the side of phase 20 (c)'s grey bodies
+
+# phase 20's yardstick: cv2 in a child process, so that the smoke's own
+# process never imports it. ``python -c CV2_CHILD TASK OUT``: TASK (JSON)
+# names the images to generate and encode ("cases") and the layout PNGs to
+# write as JPEGs ("layout"); each file is written beside cv2.imdecode's
+# decode of it (RGB, or the grey channel for the layout, as .npy); OUT
+# (JSON) gets cv2's version, its JPEG backend and its decode times.
+CV2_CHILD = r'''
+import json, sys, time
+from concurrent.futures import ThreadPoolExecutor
+import numpy as np
+try:
+    import cv2
+except ImportError as exc:
+    sys.exit(f"phase 20 needs cv2 installed, its yardstick: {exc}")
+
+task = json.load(open(sys.argv[1]))
+out = {"cv2": cv2.__version__, "ms": {}, "backend": next(
+    (line.split(":", 1)[1].strip() for line in cv2.getBuildInformation().splitlines()
+     if line.strip().startswith("JPEG:")), "none")}
+
+
+def image(h, w, c, seed):
+    """A smooth picture with noise, as radiographs are."""
+    rng = np.random.default_rng(seed)
+    wave = np.outer(np.cos(np.arange(h) / 13), np.sin(np.arange(w) / (9 + seed % 5)))
+    base = 128 + 60 * wave + rng.normal(0, 4, (h, w))
+    grey = np.clip(base, 0, 255).astype(np.uint8)
+    return grey if c == 1 else np.stack([grey, np.roll(grey, 7, 0), np.roll(grey, 11, 1)], -1)
+
+
+def exif(orientation):
+    """An APP1 segment: Exif, a little-endian TIFF header, IFD0 with the
+    orientation alone."""
+    tiff = (b"II*\0" + (8).to_bytes(4, "little") + (1).to_bytes(2, "little")
+            + (0x0112).to_bytes(2, "little") + (3).to_bytes(2, "little")
+            + (1).to_bytes(4, "little") + orientation.to_bytes(2, "little") + b"\0\0"
+            + (0).to_bytes(4, "little"))
+    body = b"Exif\0\0" + tiff
+    return b"\xff\xe1" + (len(body) + 2).to_bytes(2, "big") + body
+
+
+def encode(img, fmt=".jpg", quality=90, progressive=0, sampling=None, restart=0,
+           orientation=0):
+    params = []
+    if fmt == ".jpg":
+        params = [cv2.IMWRITE_JPEG_QUALITY, quality, cv2.IMWRITE_JPEG_PROGRESSIVE, progressive,
+                  cv2.IMWRITE_JPEG_RST_INTERVAL, restart]
+        if sampling:
+            params += [cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                       getattr(cv2, "IMWRITE_JPEG_SAMPLING_FACTOR_" + sampling)]
+    ok, buf = cv2.imencode(fmt, img, params)
+    assert ok, fmt
+    data = buf.tobytes()
+    if orientation:  # after SOI and the JFIF segment
+        at = 4 + int.from_bytes(data[4:6], "big") if data[2:4] == b"\xff\xe0" else 2
+        data = data[:at] + exif(orientation) + data[at:]
+    return data
+
+
+def decode(data):
+    img = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+    return None if img is None else np.ascontiguousarray(img[..., ::-1])
+
+
+for case in task["cases"]:
+    data = encode(image(case["h"], case["w"], case["c"], case["seed"]), **case["params"])
+    with open(case["path"], "wb") as f:
+        f.write(data)
+    decoded = decode(data)
+    if decoded is not None:
+        np.save(case["decoded"], decoded)
+    if case.get("timed"):
+        times = []
+        for _ in range(task["timed"]):
+            t0 = time.perf_counter()
+            decode(data)
+            times.append((time.perf_counter() - t0) * 1e3)
+        out["ms"][case["name"]] = float(np.median(times))
+def layout_file(src, dst, decoded, big):
+    img = cv2.imread(src, cv2.IMREAD_GRAYSCALE)
+    if img is None:  # the layout's file that is no image, copied as it is
+        with open(src, "rb") as f, open(dst, "wb") as g:
+            g.write(f.read())
+        return
+    if big:
+        img = cv2.resize(img, (big[1], big[0]), interpolation=cv2.INTER_LINEAR)
+    data = encode(img, quality=95)
+    with open(dst, "wb") as f:
+        f.write(data)
+    bgr = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+    grey = np.ascontiguousarray(bgr[..., 0])
+    assert (bgr == grey[..., None]).all(), dst
+    np.save(decoded, grey)
+
+
+with ThreadPoolExecutor(8) as pool:  # cv2 drops the interpreter lock
+    list(pool.map(lambda job: layout_file(*job), task["layout"]))
+with open(sys.argv[2], "w") as f:
+    json.dump(out, f)
+'''
+
+
+def jpeg_phase20(_build, mods, dev, seed: int, card: str, workdir: str, results: dict) -> dict:
+    """Phase 20: JPEG and BMP decoding (ROADMAP A2c, C11), on phase 8's
+    layout and phase 9's files in ``workdir``; returns the launches of its
+    paths. cv2 runs in a child process (CV2_CHILD) as the yardstick the
+    port never calls; the phase fails if it is missing or if its JPEG
+    backend is not libjpeg-turbo."""
+    import argparse
+    import importlib
+    import io
+    import os
+    import shutil
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+    from contextlib import redirect_stdout
+
+    import numpy as np
+    import torch
+
+    cli = importlib.import_module("clip_for_dl_tpu_torch.cli.main")
+    from clip_for_dl_tpu_torch.core.config import DISEASE_LABELS, get_preset
+    from clip_for_dl_tpu_torch.data.frame import read_csv
+    from clip_for_dl_tpu_torch.inference import load_trained_model
+    from clip_for_dl_tpu_torch.native import decode_image, decoder
+    from clip_for_dl_tpu_torch.serving import decode_request_image
+    from clip_for_dl_tpu_torch.testing.png import encode_png, write_png
+    from clip_for_dl_tpu_torch.text import BertTokenizer
+    from clip_for_dl_tpu_torch.zeroshot import ZeroShotEngine, prompts_for_family
+
+    t_phase = time.perf_counter()
+    kaggle, work9, w = f"{workdir}/kaggle", f"{workdir}/cli", f"{workdir}/phase20"
+    for d in ("cases", "jpeg", "twin"):
+        os.makedirs(f"{w}/{d}")
+    by_path, failures, walls = {}, [], {}
+
+    # -- the yardstick's files: (a)'s cases, (c)'s bodies, (b)'s layout -----------------------
+    cases = []
+
+    def case(name, h, w_, c, timed=False, **params):
+        cases.append({"name": name, "h": h, "w": w_, "c": c, "seed": len(cases) + seed,
+                      "params": params, "timed": timed,
+                      "path": f"{w}/cases/{name}{params.get('fmt', '.jpg')}",
+                      "decoded": f"{w}/cases/{name}.npy"})
+
+    big_h, big_w = JPEG_BIG_SHAPE
+    for prog in (0, 1):
+        case(f"grey224-{'progressive' if prog else 'baseline'}", 224, 224, 1, True,
+             progressive=prog)
+        case(f"grey{big_w}x{big_h}-{'progressive' if prog else 'baseline'}", big_h, big_w, 1,
+             True, progressive=prog, quality=95)
+    for s in ("444", "422", "420", "411"):
+        case(f"colour224-{s}", 224, 224, 3, sampling=s)
+    case("colour224-420-progressive", 224, 224, 3, sampling="420", progressive=1)
+    case("colour224-420-restart", 224, 224, 3, sampling="420", restart=5)
+    case("colour160x224-exif6", 160, 224, 3, orientation=6)
+    case(f"colour{big_w}x{big_h}-420", big_h, big_w, 3, sampling="420")
+    n_decode = len(cases)
+    bodies = []  # (c): (kind, case index)
+    for i in range(4):
+        for fmt in (".jpg", ".bmp"):
+            case(f"body{i}-224{fmt[1:]}", 224, 224, 3, fmt=fmt)
+            bodies.append((fmt, len(cases) - 1))
+            case(f"body{i}-{JPEG_BODY_SIDE}{fmt[1:]}", JPEG_BODY_SIDE, JPEG_BODY_SIDE, 1, fmt=fmt)
+            bodies.append((fmt, len(cases) - 1))
+    for fmt in (".webp", ".tiff"):
+        case(f"refused{fmt[1:]}", 64, 64, 3, fmt=fmt)
+    projections = read_csv(f"{kaggle}/indiana_projections.csv")
+    names = [str(n) for n in projections.column("filename")]
+    frontal = [str(n) for n, v in zip(names, projections.column("projection")) if v == "Frontal"]
+    big_names = set(frontal[:JPEG_BIG])
+    image_dir = f"{kaggle}/images/images_normalized"
+    jpeg_name = {n: n[:-4] + ".jpg" for n in names}  # *.dcm.png -> *.dcm.jpg
+    layout = [(f"{image_dir}/{n}", f"{w}/jpeg/{jpeg_name[n]}", f"{w}/jpeg/{n}.npy",
+               list(JPEG_BIG_SHAPE) if n in big_names else None) for n in names]
+    with open(f"{w}/task.json", "w") as f:
+        json.dump({"cases": cases, "layout": layout, "timed": JPEG_TIMED}, f)
+    t = time.perf_counter()
+    child = subprocess.run([sys.executable, "-c", CV2_CHILD, f"{w}/task.json", f"{w}/cv2.json"],
+                           capture_output=True, text=True, timeout=600)
+    check(child.returncode == 0, f"phase 20's cv2 child failed ({child.returncode}): "
+          f"{child.stderr[-3000:]}")
+    with open(f"{w}/cv2.json") as f:
+        yard = json.load(f)
+    print(f"cv2 {yard['cv2']} (a child process, the yardstick): JPEG backend "
+          f"{yard['backend']!r}; wrote {len(cases)} images and {len(layout)} layout JPEGs in "
+          f"{time.perf_counter() - t:.1f} s")
+    check("libjpeg-turbo" in yard["backend"],
+          f"cv2's JPEG backend is {yard['backend']!r}, not libjpeg-turbo: the decoder is "
+          "byte-equal to libjpeg-turbo's decode only")
+
+    # -- (a) the decoder on this machine ----------------------------------------------------
+    t = time.perf_counter()
+    log = decoder.compile_library(Path(f"{w}/libcxr_decode-fresh.so"))
+    build_s = time.perf_counter() - t
+    decoder.library()
+    print(f"phase 20 (a): the decoder built with g++ {' '.join(decoder.CXX_FLAGS)} in "
+          f"{build_s:.1f} s from {decoder.SOURCE.relative_to(ROOT)}"
+          + (f" ({log.strip()[:200]})" if log.strip() else "") + f"; loaded "
+          f"{Path(decoder.build_info['path']).name}")
+    timed = {}
+    for c in cases[:n_decode]:
+        with open(c["path"], "rb") as f:
+            data = f.read()
+        got = decode_image(data)
+        want = np.load(c["decoded"])
+        same = got is not None and got.shape == want.shape and np.array_equal(got, want)
+        print(f"  {c['name']}: {len(data)} bytes -> {None if got is None else got.shape}, "
+              f"byte-equal to cv2.imdecode: {same}")
+        if not same:
+            failures.append(f"(a) {c['name']}: the port's decode differs from cv2's")
+        if c["timed"]:
+            times = []
+            for _ in range(JPEG_TIMED):
+                t0 = time.perf_counter()
+                decoder.decode(data)
+                times.append((time.perf_counter() - t0) * 1e3)
+            timed[c["name"]] = float(np.median(times))
+    check(cases[n_decode - 2]["name"].endswith("exif6")
+          and np.load(cases[n_decode - 2]["decoded"]).shape == (224, 160, 3),
+          "EXIF orientation 6 did not turn the image")
+    print("  decode ms (median of %d, one thread) on this host, the port's C++ beside "
+          "cv2.imdecode: " % JPEG_TIMED + "; ".join(
+              f"{k} {v:.2f} vs {yard['ms'][k]:.2f}" for k, v in timed.items()))
+
+    # -- (b) files: the layout as JPEGs and its PNG twin -----------------------------------
+    t = time.perf_counter()
+
+    def twin(n):
+        src = f"{w}/jpeg/{n}.npy"
+        if os.path.exists(src):
+            write_png(f"{w}/twin/{n}", np.load(src), level=1)
+            os.remove(src)
+        else:
+            shutil.copyfile(f"{image_dir}/{n}", f"{w}/twin/{n}")
+
+    with ThreadPoolExecutor(8) as pool:  # zlib drops the interpreter lock
+        list(pool.map(twin, names))
+    jpeg_csv = f"{w}/jpeg_projections.csv"
+    with open(f"{kaggle}/indiana_projections.csv", newline="") as f:
+        rows = list(csv.DictReader(f))
+    with open(jpeg_csv, "w", newline="") as f:
+        out = csv.DictWriter(f, fieldnames=list(rows[0]), lineterminator="\n")
+        out.writeheader()
+        out.writerows({**r, "filename": jpeg_name[r["filename"]]} for r in rows)
+    print(f"phase 20 (b): {len(names)} layout files as JPEG q95 (the frontal views of "
+          f"{sorted(big_names)} at {big_w}x{big_h}), their PNG twin of cv2's decodes written by "
+          f"testing/png.py in {time.perf_counter() - t:.1f} s")
+    layouts = {"jpeg": (jpeg_csv, f"{w}/jpeg"),
+               "twin": (f"{kaggle}/indiana_projections.csv", f"{w}/twin")}
+
+    def run(name, argv, path=None):
+        out = io.StringIO()
+        torch.cuda.synchronize(dev)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        with redirect_stdout(out):
+            rc = cli.main(argv)
+        torch.cuda.synchronize(dev)
+        walls[name] = time.perf_counter() - t0
+        check(rc == 0, f"{name} exited with {rc}: {out.getvalue()[-2000:]}")
+        if path:
+            by_path[path] = dict(_build.LAUNCHES)
+            check_launched(mods, by_path[path], path)
+        torch.cuda.empty_cache()
+        return out.getvalue()
+
+    rates, caches = {}, {}
+    for tag, (csv_path, directory) in layouts.items():
+        for workers in (1, 8):
+            cache = f"{w}/cache_{tag}_{workers}"
+            run(f"cache-images {tag} --workers {workers}",
+                ["cache-images", "--image-dir", directory, "--out", cache, "--projections-csv",
+                 csv_path, "--image-size", "224", "--workers", str(workers)])
+            rates[(tag, workers)] = len(names) / walls[f"cache-images {tag} --workers {workers}"]
+            with open(f"{cache}/cache_meta.json") as f:
+                meta = json.load(f)
+            caches[(tag, workers)] = (meta["channels"],
+                                      np.fromfile(f"{cache}/images.u8", np.uint8))
+    ref_cache = caches[("twin", 8)]
+    equal = all(c[0] == ref_cache[0] and np.array_equal(c[1], ref_cache[1])
+                for c in caches.values())
+    print(f"  cache-images (224, {ref_cache[0]} channel(s)) on this host: "
+          + ", ".join(f"{tag} --workers {k} {v:.1f} img/s" for (tag, k), v in rates.items())
+          + f"; the four caches byte-equal: {equal}")
+    if not equal:
+        failures.append("(b) the JPEG layout's cache differs from its PNG twin's")
+    kernels = ["--flash-attention", "--bert-fused-mlp"]
+    probs = {}
+    for tag, (csv_path, directory) in layouts.items():
+        run(f"zeroshot {tag}",
+            ["zeroshot", "--reports-csv", f"{work9}/labeled.csv", "--projections-csv", csv_path,
+             "--image-dir", directory, "--image-cache", f"{w}/cache_{tag}_8", "--vocab",
+             f"{work9}/vocab.txt", *kernels, "--checkpoint", f"{work9}/pretrain", "--log-dir",
+             f"{w}/zs_{tag}"], f"cli_zeroshot_{tag}")
+        with open(f"{w}/zs_{tag}/zero_shot_results.csv", newline="") as f:
+            table = list(csv.reader(f))
+        cols = [i for i, h in enumerate(table[0]) if h.startswith(("prob/", "true/"))]
+        probs[tag] = [[row[i] for i in cols] for row in table[1:]]
+    bit_equal = probs["jpeg"] == probs["twin"] and len(probs["jpeg"]) > 0
+    print(f"  zeroshot over each ({len(probs['jpeg'])} exams, the pretrain checkpoint of phase 9): "
+          f"probabilities bit-equal: {bit_equal}; {walls['zeroshot jpeg']:.1f} s and "
+          f"{walls['zeroshot twin']:.1f} s; launches {by_path['cli_zeroshot_jpeg']}")
+    if not bit_equal:
+        failures.append("(b) zeroshot over the JPEGs differs from over their PNG twin")
+
+    # -- (c) serving JPEG and BMP bodies ------------------------------------------------------
+    vocab, ad = f"{work9}/vocab.txt", f"{work9}/adapter"
+    thresholds = f"{work9}/zs_dyn/thresholds.json"
+    tok = BertTokenizer(vocab, do_lower_case=False)
+    cfg = cli._apply_tiny(get_preset("zero_shot"), argparse.Namespace(
+        flash_attention=True, bert_fused_mlp=True), len(tok.vocab))
+    size = cfg.model.image_size
+    raw = []  # (format, bytes, cv2's decode, the PNG twin's bytes)
+    for fmt, i in bodies:
+        with open(cases[i]["path"], "rb") as f:
+            data = f.read()
+        rgb = np.load(cases[i]["decoded"])
+        raw.append((fmt, data, rgb, encode_png(rgb[..., 0] if cases[i]["c"] == 1 else rgb)))
+    for fmt, data, rgb, _ in raw:
+        got = decode_image(data)
+        if got is None or not np.array_equal(got, rgb):
+            failures.append(f"(c) a {fmt} body's decode differs from cv2's")
+    decoded = [decode_request_image(data, "image/jpeg", size) for _, data, _, _ in raw]
+    refused = {}
+    for c in cases[-2:]:
+        with open(c["path"], "rb") as f:
+            refused[c["name"]] = f.read()
+    env = dict(os.environ, PYTHONUNBUFFERED="1")
+    if dev.type == "cuda":
+        env.pop("CLIP_FOR_DL_TPU_FORCE_CPU", None)
+    t = time.perf_counter()
+    served = Served(["serve", "--vocab", vocab, *kernels, "--checkpoint", ad, "--thresholds",
+                     thresholds, "--host", "127.0.0.1", "--port", "0", "--max-pending", "8",
+                     "--log-dir", f"{w}/serve_logs"], f"{w}/launches_serve.json", env)
+    start_s = time.perf_counter() - t
+    jpegs = [k for k, r in enumerate(raw) if r[0] == ".jpg"]
+    ctypes_of = {".jpg": "image/jpeg", ".bmp": "image/bmp"}
+    try:
+        answers, twins, seq = [], [], {}
+        for k, (fmt, data, _, png) in enumerate(raw):
+            answers.append(served.request("POST", "/predict", data, ctypes_of[fmt]))
+            twins.append(served.request("POST", "/predict", png))
+        for kind in ("jpeg", "png"):
+            t0 = time.perf_counter()
+            for _ in range(JPEG_SERVE_ROUNDS):
+                for k in jpegs:
+                    served.request("POST", "/predict", *((raw[k][1], "image/jpeg")
+                                                         if kind == "jpeg" else (raw[k][3],)))
+            seq[kind] = JPEG_SERVE_ROUNDS * len(jpegs) / (time.perf_counter() - t0)
+        conc = {}
+        for kind in ("jpeg", "png"):
+            got = [None] * (JPEG_SERVE_CLIENTS * JPEG_SERVE_PER_CLIENT)
+
+            def client(c):
+                for j in range(JPEG_SERVE_PER_CLIENT):
+                    k = jpegs[(c + j) % len(jpegs)]
+                    body = (raw[k][1], "image/jpeg") if kind == "jpeg" else (raw[k][3],)
+                    got[c * JPEG_SERVE_PER_CLIENT + j] = served.request("POST", "/predict",
+                                                                        *body)
+
+            threads = [threading.Thread(target=client, args=(c,))
+                       for c in range(JPEG_SERVE_CLIENTS)]
+            t0 = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+            conc[kind] = (len(got) / (time.perf_counter() - t0), got)
+        odd = {name: served.request("POST", "/predict", data, "application/octet-stream")
+               for name, data in refused.items()}
+    finally:
+        rc = served.stop()
+    with open(f"{w}/launches_serve.json") as f:
+        by_path["cli_serve_jpeg"] = json.load(f)
+    check(rc == 0, f"serve exited with {rc} on SIGINT: {''.join(served.lines[-20:])}")
+    check_launched(mods, by_path["cli_serve_jpeg"], "cli_serve_jpeg")
+    statuses = [a[0] for a in answers + twins] + [g[0] for _, got in conc.values() for g in got]
+    check(all(s == 200 for s in statuses), f"phase 20 (c): statuses {sorted(set(statuses))}")
+    for name, (st, _, payload, _) in odd.items():
+        if not (st == 400 and "A2c" in payload.get("error", "")):
+            failures.append(f"(c) {name}: {st} {payload}")
+    twin_equal = all(a[2]["probs"] == t_[2]["probs"] for a, t_ in zip(answers, twins))
+    if not twin_equal:
+        failures.append("(c) an answer differs from its PNG twin's")
+    # At random weights the answers of different images lie closer together
+    # than the bf16 route's difference, so the 5e-3 against the plain route
+    # cannot tell one image from another. Two holds can: each answer (one
+    # request alone, bucket 1) against this process's engine on the kernels
+    # at batch 1 on its decoded pixels, the same kernels on the same shapes
+    # (phase 10's "service"); and the image half, unit image features (B2 and
+    # the tower) against the plain route, both below their spreads over
+    # images.
+    model = load_trained_model(ad, cfg, torch.bfloat16, device=dev)
+    engine = ZeroShotEngine(model, tok, DISEASE_LABELS, cfg.zeroshot, cfg.augment.mean,
+                            cfg.augment.std, size, cfg.model.max_text_length, torch.bfloat16)
+    prep = mods["image_prep"]
+
+    def unit_features():
+        """Unit image features of every body, normalized in fp32 (phase 8's)."""
+        out = []
+        with torch.inference_mode():
+            for i in range(0, len(decoded), 8):
+                x = prep.preprocess_images(torch.from_numpy(np.stack(decoded[i:i + 8])).to(dev),
+                                           size, size, cfg.augment.mean, cfg.augment.std)
+                f = model.encode_image(x).float()
+                out.append((f / f.norm(dim=-1, keepdim=True)).cpu().numpy())
+        return np.concatenate(out)
+
+    engine.build_text_features(prompts_for_family("prediction", DISEASE_LABELS))
+    alone = np.concatenate([engine.probs(d[None]) for d in decoded])
+    feats = unit_features()
+    with plain_kernels(mods):
+        before = dict(_build.LAUNCHES)
+        engine.build_text_features(prompts_for_family("prediction", DISEASE_LABELS))
+        want = np.concatenate([engine.probs(np.stack(decoded[i:i + 8]))
+                               for i in range(0, len(decoded), 8)])
+        plain_feats = unit_features()
+        check(dict(_build.LAUNCHES) == before, "a kernel ran on the plain route")
+    got = np.array([[a[2]["probs"][d] for d in DISEASE_LABELS] for a in answers])
+    held("phase 20 (c): each JPEG and BMP answer against the engine on the kernels, alone, "
+         "on its decoded pixels", got, alone, TOL["service"], {"images": apart(alone)},
+         failures)
+    held("phase 20 (c): the bodies' unit image features (B2, the tower) against the plain "
+         "route", feats, plain_feats, TOL["served_image_features"],
+         {"images": apart(plain_feats)}, failures)
+    held("phase 20 (c): each JPEG and BMP answer against the plain route on its decoded "
+         "pixels", got, want, TOL["probs_vs_plain"], {"images": apart(want)}, failures,
+         bound=False)
+    del engine, model
+    torch.cuda.empty_cache()
+    ms = {kind: [g[3] * 1e3 for g in conc[kind][1]] for kind in conc}
+    print(f"phase 20 (c): serve (zero_shot, {describe(cfg.model)}, bf16, phase 9's adapter "
+          f"checkpoint) up in {start_s:.1f} s; {len(raw)} JPEG and BMP bodies (224x224x3 and "
+          f"{JPEG_BODY_SIDE}x{JPEG_BODY_SIDE} grey) decode byte-equal to cv2; answered 200, each bit-equal to its PNG "
+          f"twin's: {twin_equal}; WebP and TIFF: "
+          + ", ".join(f"{o[0]} ({o[2].get('error', '')[:60]!r})" for o in odd.values()))
+    print(f"  on {card}, JPEG bodies beside their PNG twins: one by one "
+          f"{seq['jpeg']:.1f} vs {seq['png']:.1f} req/s; {JPEG_SERVE_CLIENTS} clients x "
+          f"{JPEG_SERVE_PER_CLIENT}: {conc['jpeg'][0]:.1f} vs {conc['png'][0]:.1f} req/s, "
+          f"client p50 {pct(ms['jpeg'], 50):.1f} vs {pct(ms['png'], 50):.1f} ms, p99 "
+          f"{pct(ms['jpeg'], 99):.1f} vs {pct(ms['png'], 99):.1f} ms; launches "
+          f"{by_path['cli_serve_jpeg']}")
+    check(not failures, "phase 20: " + "; ".join(failures))
+    print(f"phase 20 took {time.perf_counter() - t_phase:.1f} s")
+    return by_path
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0, help="seed of weights and inputs")
@@ -9158,6 +9652,9 @@ def main(argv=None) -> int:
         by_path.update(pp_phase18(_build, mods, dev, args.seed, card, workdir, results))
         print("== phase 19: --remat, --bf16-attention-probs, every command over a group")
         by_path.update(remat_phase19(_build, mods, dev, args.seed, card, workdir, results))
+        print("== phase 20: decoding JPEG and BMP: the decoder, evaluation from JPEG files, "
+              "serve")
+        by_path.update(jpeg_phase20(_build, mods, dev, args.seed, card, workdir, results))
     print("== the wrappers' host time (tools/launch_times.py)")
     from clip_for_dl_tpu_torch.tools import launch_times
 

@@ -16,10 +16,14 @@ Reference behaviors preserved:
   cell 12; 0425/prepare_data.py:224-228), reproduced on numpy's
   ``RandomState`` as scikit-learn draws it.
 
-One behaviour differs from the JAX package: it decodes files that are not
-PNG (or PNGs its native decoder refuses) with cv2; the port has no cv2, so
-such a file gives the zero image, the reference's decode-failure fallback.
-The whole Indiana set is PNG (``*.dcm.png``).
+Files: the JAX package decodes PNG with its native runtime and every other
+format with ``cv2.imread`` then ``cv2.resize``; the port decodes PNG, JPEG
+and BMP to the same bytes (``native.decode_image``) and resizes all of them
+with its one ``resize_u8``, which equals cv2.resize at downscaling and is
+within 1 of it at upscaling (ROADMAP, "Reference behaviour not copied").
+A format cv2 reads that the port does not (TIFF, WebP, ...) raises, naming
+ROADMAP A2c. The whole Indiana set is PNG (``*.dcm.png``); MIMIC-CXR-JPG and
+CheXpert ship JPEG.
 """
 
 from __future__ import annotations
@@ -40,14 +44,15 @@ from .labels import label_matrix
 def load_image(path: str, image_size: Optional[int] = None) -> np.ndarray:
     """Decode to RGB uint8 HWC, resized on the host only if ``image_size``
     is given; the zero image (``image_size`` or 224 square) when the file
-    cannot be read or decoded. Any other error propagates."""
+    cannot be read or decoded. Any other error propagates, the refusal of
+    a format the port does not decode (``native.UnportedFormat``) too."""
     size = image_size or 224
     try:
         with open(path, "rb") as f:
             data = f.read()
     except OSError:
         data = None
-    img = native.decode_png(data) if data is not None else None
+    img = native.decode_image(data, file=True) if data is not None else None
     if img is None:
         return np.zeros((size, size, 3), np.uint8)
     if image_size is not None:

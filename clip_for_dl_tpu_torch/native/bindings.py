@@ -1,11 +1,13 @@
 """Host-side image decoding and resizing (counterpart of
-``clip_for_dl_tpu.native.bindings``).
+``clip_for_dl_tpu.native.bindings``, and of the cv2 calls the JAX package
+makes for every format but PNG).
 
 The JAX package builds ``native/src/cxr_native.cpp`` against libpng. The
 GPU machine has zlib but neither libpng's headers nor its library (the
-probe printed by ``chip_smoke.py``), so this module is the port's one
-decoder, written on the standard library's ``zlib`` and numpy, with the
-same results byte for byte:
+probe printed by ``chip_smoke.py``), so PNG is decoded here, on the
+standard library's ``zlib`` and numpy, with the same results byte for byte.
+JPEG and BMP go to the C++ library of ``native/decoder.py``, byte-equal to
+cv2. :func:`decode_image` dispatches on the magic bytes:
 
 - :func:`decode_png`: PNG bytes → RGB uint8 HWC with the native runtime's
   transform set, itself cv2.imread's: 16-bit samples keep their high byte,
@@ -13,15 +15,19 @@ same results byte for byte:
   copied to three channels; every filter type, Adam7 interlacing. None when
   the bytes are not a PNG or do not decode (a critical chunk's CRC, a bad
   header, too little image data).
+- :func:`decode_image`: PNG to :func:`decode_png`; JPEG and BMP to
+  ``decoder.decode``; a format cv2 reads that the port does not (TIFF, WebP,
+  JPEG 2000, PNM, GIF, ...: :func:`unported_format`) raises
+  ``UnportedFormat`` naming ROADMAP A2c; unknown bytes give None.
 - :func:`resize_u8`: OpenCV's fixed-point INTER_LINEAR on uint8 (11-bit
   coefficients from float32 source coordinates, the vectorized path's
   rounding), as ``cxr_native.cpp`` computes it.
 - :func:`batch_resize_u8` and :func:`batch_load_resize_u8`: the batched
-  forms. Reading, inflating and resizing run over a thread pool (``zlib``
-  and numpy's larger operations release the interpreter lock); the
-  scanline reconstruction runs in the calling thread, since its many small
-  numpy steps hold the lock (``tools/decode_threads.py`` times each stage
-  both ways).
+  forms. Reading, inflating, JPEG and BMP decoding and resizing run over a
+  thread pool (``zlib``, ctypes and numpy's larger operations release the
+  interpreter lock); the PNG scanline reconstruction runs in the calling
+  thread, since its many small numpy steps hold the lock
+  (``tools/decode_threads.py`` times each stage both ways).
 
 Average and Paeth rows depend on the pixel to their left, so they are
 reconstructed one anti-diagonal of pixels a numpy step; the images a call
@@ -38,6 +44,9 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
+
+from . import decoder
+from .decoder import UnportedFormat
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # samples a pixel and the bit depths each colour type allows
@@ -284,12 +293,29 @@ def _rgb(png: _Png, unfiltered: List[np.ndarray]) -> np.ndarray:
     return np.repeat(grey[..., None], 3, axis=2)
 
 
-def _decode_many(datas: Sequence[Optional[bytes]], pool=None) -> List[Optional[np.ndarray]]:
-    """PNG bytes (or None) → RGB images (or None where a file is not a PNG
-    or fails to decode), inflated over ``pool`` if one is given. The
-    scanlines of all the images, by bytes per pixel, are reconstructed in
-    stacks, so one numpy step serves many images."""
+def _decode_other(data: bytes, file: bool) -> Optional[np.ndarray]:
+    """Bytes that are not a PNG: JPEG and BMP to the C++ library, a format
+    cv2 reads and the port does not raises, anything else is None."""
+    if data[:3] == b"\xff\xd8\xff" or data[:2] == b"BM":
+        return decoder.decode(data, file)
+    name = unported_format(data)
+    if name is not None:
+        raise UnportedFormat(f"{name} images are not decoded (ROADMAP A2c): the port "
+                             "decodes PNG, JPEG and BMP")
+    return None
+
+
+def _decode_many(datas: Sequence[Optional[bytes]], pool=None, file: bool = False,
+                 png_only: bool = False) -> List[Optional[np.ndarray]]:
+    """Image bytes (or None) → RGB images (or None where bytes fail to
+    decode), each as :func:`decode_image` with ``file`` decodes it (as
+    :func:`decode_png` with ``png_only``), over ``pool`` if one is given.
+    The one place bytes go to a decoder by their magic. The scanlines of all
+    the PNGs, by bytes per pixel, are reconstructed in stacks, so one numpy
+    step serves many images."""
     mapper = pool.map if pool else map
+    others = [None] * len(datas) if png_only else list(mapper(
+        lambda d: None if d is None or d[:8] == _SIGNATURE else _decode_other(d, file), datas))
     pngs = [None if d is None else _parse(d) for d in datas]
     raws = list(mapper(lambda png: None if png is None else _inflate(png), pngs))
     scans = [None if png is None else _scanlines(png, raw) for png, raw in zip(pngs, raws)]
@@ -303,14 +329,50 @@ def _decode_many(datas: Sequence[Optional[bytes]], pool=None) -> List[Optional[n
     for bpp, items in by_bpp.items():
         for (i, j, _), rows in zip(items, _unfilter_blocks([b for *_, b in items], bpp)):
             unfiltered[i][j] = rows
-    return [None if blocks is None else _rgb(png, unfiltered[i])
-            for i, (png, blocks) in enumerate(zip(pngs, scans))]
+    return [other if blocks is None else _rgb(png, unfiltered[i])
+            for i, (png, blocks, other) in enumerate(zip(pngs, scans, others))]
 
 
 def decode_png(data: bytes) -> Optional[np.ndarray]:
     """PNG bytes → RGB uint8 [H, W, 3] (see the module docstring), or None
     when the bytes are not a PNG or fail to decode."""
-    return _decode_many([data])[0]
+    return _decode_many([data], png_only=True)[0]
+
+
+def unported_format(data: bytes) -> Optional[str]:
+    """The name of the image format of ``data`` when cv2 reads it and the
+    port does not decode it (ROADMAP A2c), else None."""
+    head = bytes(data[:16])
+    if head[:4] in (b"II*\0", b"MM\0*", b"II+\0", b"MM\0+"):
+        return "TIFF"
+    if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
+        return "WebP"
+    if head[:4] == b"\xff\x4f\xff\x51" or head[:12] == b"\0\0\0\x0cjP  \r\n\x87\n":
+        return "JPEG 2000"
+    if head[:1] == b"P" and head[1:2] in (b"1", b"2", b"3", b"4", b"5", b"6", b"7", b"f", b"F") \
+            and head[2:3] in (b" ", b"\t", b"\n", b"\r"):
+        return "PNM, PAM or PFM"
+    if head[:6] in (b"GIF87a", b"GIF89a"):
+        return "GIF"
+    if head[:4] == b"\x59\xa6\x6a\x95":
+        return "Sun raster"
+    if head.startswith((b"#?RADIANCE", b"#?RGBE")):
+        return "Radiance HDR"
+    if head[:4] == b"\x76\x2f\x31\x01":
+        return "OpenEXR"
+    if head[4:12] in (b"ftypavif", b"ftypavis"):
+        return "AVIF"
+    return None
+
+
+def decode_image(data: bytes, file: bool = False) -> Optional[np.ndarray]:
+    """Image bytes → RGB uint8 [H, W, 3] as the JAX package decodes them
+    (its native PNG runtime, else cv2), or None where it gets no image.
+    ``file`` reads a JPEG as ``cv2.imread`` reads a file rather than as
+    ``cv2.imdecode`` decodes a buffer (they differ on a stream cut short).
+    Raises :class:`UnportedFormat` for a format or variant cv2 reads and
+    the port does not decode (ROADMAP A2c)."""
+    return _decode_many([data], file=file)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -383,13 +445,14 @@ def batch_load_resize_u8(paths: Sequence[str], dh: int, dw: int,
                          threads: int = 0) -> Tuple[np.ndarray, np.ndarray]:
     """File paths → (NHWC RGB uint8 batch resized to dh × dw, ok flags).
     A file that cannot be read or decoded leaves its slot zero, ok False
-    (the reference's decode-failure fallback)."""
+    (the reference's decode-failure fallback); a format the port does not
+    decode raises (:func:`decode_image`)."""
     out = np.zeros((len(paths), dh, dw, 3), np.uint8)
     ok = np.zeros(len(paths), bool)
     if not len(paths):
         return out, ok
     with _pool(threads) as pool:
-        images = _decode_many(list(pool.map(_read, paths)), pool)
+        images = _decode_many(list(pool.map(_read, paths)), pool, file=True)
 
         def fill(i):
             img = images[i]
@@ -401,5 +464,5 @@ def batch_load_resize_u8(paths: Sequence[str], dh: int, dw: int,
     return out, ok
 
 
-__all__: List[str] = ["batch_load_resize_u8", "batch_resize_u8", "decode_png", "png_info",
-                      "resize_u8"]
+__all__: List[str] = ["UnportedFormat", "batch_load_resize_u8", "batch_resize_u8",
+                      "decode_image", "decode_png", "png_info", "resize_u8", "unported_format"]

@@ -31,7 +31,6 @@ only when one fails.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
 import subprocess
@@ -42,8 +41,9 @@ from typing import Optional
 
 import torch
 
+from ..native.build_cache import BUILD_DIR, cached_library
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "_kernel_build"
 # -Xptxas -v: ptxas' per-kernel registers, shared memory and spills go to
 # build_info["log"]
 NVCC_FLAGS = (
@@ -155,16 +155,8 @@ def build() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        nvcc = _nvcc()
-        digest = hashlib.sha256(" ".join((nvcc,) + NVCC_FLAGS).encode())
-        for src in _sources():
-            digest.update(src.name.encode())
-            digest.update(src.read_bytes())
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        path = BUILD_DIR / f"libcxr_kernels-{digest.hexdigest()[:16]}.so"
-        log = ""
-        if not path.exists():
-            log = _compile(nvcc, path)
+        path, log = cached_library("cxr_kernels", _nvcc(), NVCC_FLAGS, _sources(), _compile,
+                                   BUILD_DIR)
         lib = load(path)
         build_info.update(path=str(path), log=log)
         _lib = lib

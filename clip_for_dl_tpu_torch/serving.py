@@ -13,10 +13,10 @@ computes batch N while batch N+1 assembles.
 400 for a body that does not decode, 429 with ``Retry-After: 1`` past the
 batcher's ``max_pending``, 500 for a failure in the engine; ``GET
 /healthz`` and ``GET /stats``; 404 elsewhere.
-:func:`decode_request_image` decodes PNG only, on the port's decoder
-(``native/bindings.py``: the bytes cv2 and the native runtime give, in RGB
-order); JPEG, BMP, TIFF and WebP, which the JAX server reads through cv2,
-get a 400 that names ROADMAP A2c.
+:func:`decode_request_image` decodes PNG, JPEG and BMP on the port's
+decoders (``native/bindings.py decode_image``: the bytes cv2.imdecode and
+the native runtime give, in RGB order); TIFF, WebP and the other formats
+the JAX server reads through cv2 get a 400 that names ROADMAP A2c.
 
 Serving over a process group (``serve --num-devices N [--tp T]``, the JAX
 server's engine on a mesh): every rank builds the engine, its prompt bank
@@ -53,7 +53,7 @@ import torch
 import torch.distributed as dist
 
 from .core.device import to_device
-from .native.bindings import decode_png, resize_u8
+from .native.bindings import decode_image, resize_u8
 from .zeroshot.engine import HostCopy
 
 logger = logging.getLogger("clip_for_dl_tpu_torch.serving")
@@ -309,15 +309,14 @@ class MicroBatcher:
                 self._t_fetch.append(fetch_ms)
 
 
-_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-
-
 def decode_request_image(body: bytes, content_type: str,
                          image_size: int) -> np.ndarray:
     """Request payload → RGB uint8 [image_size, image_size, 3].
 
-    Accepts raw PNG bytes, or JSON {"image_b64": ...} holding them.
-    Raises ValueError on undecodable input."""
+    Accepts raw PNG, JPEG or BMP bytes, or JSON {"image_b64": ...} holding
+    them. Raises ValueError on undecodable input (``UnportedFormat``, a
+    ValueError naming ROADMAP A2c, for a format cv2 reads and the port does
+    not)."""
     if content_type.startswith("application/json"):
         try:
             payload = json.loads(body)
@@ -326,11 +325,8 @@ def decode_request_image(body: bytes, content_type: str,
             raise ValueError(f"bad JSON request: {exc}") from exc
     else:
         raw = body
-    img = decode_png(raw)
+    img = decode_image(raw)
     if img is None:
-        if raw[:8] != _PNG_SIGNATURE:
-            raise ValueError("could not decode image bytes: only PNG is decoded (JPEG, BMP, "
-                             "TIFF and WebP are ROADMAP A2c)")
         raise ValueError("could not decode image bytes")
     return resize_u8(img, image_size, image_size)
 

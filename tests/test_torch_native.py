@@ -136,7 +136,8 @@ def test_load_image_matches_jax_and_keeps_decode_errors_apart(tmp_path, monkeypa
     def broken(data):
         raise RuntimeError("decoder fault")
 
-    monkeypatch.setattr(native, "decode_png", broken)
+    # the PNG decoder's entry, which load_image reaches through decode_image
+    monkeypatch.setattr(native, "_parse", broken)
     with pytest.raises(RuntimeError, match="decoder fault"):
         datasets.load_image(str(png), 32)
 

@@ -109,7 +109,7 @@ def test_decode_request_image_is_byte_equal_to_jax(kind, size, as_json):
 
 
 @pytest.mark.parametrize("body,ctype,match", [
-    (b"not an image", "image/png", "only PNG is decoded .*A2c"),
+    (b"not an image", "image/png", "^could not decode image bytes$"),
     (_cv2_png(_image(8, 20, 20, 3))[:60], "image/png", "^could not decode image bytes$"),
     (b'{"image": 1}', "application/json", "bad JSON request"),
     (b"{", "application/json", "bad JSON request"),
@@ -122,13 +122,19 @@ def test_undecodable_requests_raise_as_jax_does(body, ctype, match):
 
 
 @pytest.mark.parametrize("fmt", [".jpg", ".bmp", ".tiff", ".webp"])
-def test_other_formats_get_the_a2c_error(fmt):
-    """cv2 (and so the JAX server) reads these; the port names A2c."""
+def test_jpeg_and_bmp_decode_as_jax_others_get_the_a2c_error(fmt):
+    """cv2 (and so the JAX server) reads all four; the port decodes JPEG
+    and BMP to JAX's bytes and names A2c for TIFF and WebP."""
     ok, buf = cv2.imencode(fmt, _image(9, 24, 24, 3))
     assert ok
-    assert jserving.decode_request_image(buf.tobytes(), "image/jpeg", 32).shape == (32, 32, 3)
-    with pytest.raises(ValueError, match="A2c"):
-        serving.decode_request_image(buf.tobytes(), "image/jpeg", 32)
+    want = jserving.decode_request_image(buf.tobytes(), "image/jpeg", 32)
+    assert want.shape == (32, 32, 3)
+    if fmt in (".jpg", ".bmp"):
+        np.testing.assert_array_equal(
+            serving.decode_request_image(buf.tobytes(), "image/jpeg", 32), want)
+    else:
+        with pytest.raises(ValueError, match="A2c"):
+            serving.decode_request_image(buf.tobytes(), "image/jpeg", 32)
 
 
 # -- a port server and a JAX server over the same weights ------------------------------
@@ -301,11 +307,22 @@ def test_status_codes_and_bodies_match_the_jax_server(servers, method, path, bod
 
 
 def test_a_non_png_body_gets_400_naming_a2c(servers):
+    """A JPEG body is answered 200 with the JAX server's answer; a WebP
+    body still gets 400 naming A2c (the JAX server answers it)."""
     ok, buf = cv2.imencode(".jpg", _image(10, 40, 40, 3))
     status, _, payload = servers["port"].request("POST", "/predict", buf.tobytes(),
                                                  "image/jpeg")
+    jstatus, _, jpayload = servers["jax"].request("POST", "/predict", buf.tobytes(),
+                                                  "image/jpeg")
+    assert status == jstatus == 200
+    np.testing.assert_allclose([payload["probs"][d] for d in LABELS],
+                               [jpayload["probs"][d] for d in LABELS], atol=TOL, rtol=0)
+    assert payload["predictions"] == jpayload["predictions"]
+    ok, buf = cv2.imencode(".webp", _image(10, 40, 40, 3))
+    status, _, payload = servers["port"].request("POST", "/predict", buf.tobytes(),
+                                                 "image/webp")
     assert status == 400 and "A2c" in payload["error"]
-    assert servers["jax"].request("POST", "/predict", buf.tobytes(), "image/jpeg")[0] == 200
+    assert servers["jax"].request("POST", "/predict", buf.tobytes(), "image/webp")[0] == 200
 
 
 class _Gated:
