@@ -21,8 +21,8 @@ for phase 13's gradcam bounds (gradcam_sweep).
 Phases (any failure exits non-zero and prints no result line):
 
 0. Card: name and power limit from nvidia-smi. Without CUDA, exit at once.
-   Then the host probe: g++ (which builds the JPEG and BMP decoder),
-   libpng's, zlib's and libjpeg's headers,
+   Then the host probe: g++ (which builds the JPEG, BMP, TIFF and Netpbm
+   decoder on zlib), libpng's, zlib's and libjpeg's headers,
    -lpng16 / -lpng / -lz / -ljpeg at link time, which of safetensors,
    PIL, scikit-learn, pandas and cv2 are installed (the port imports none of
    them), and whether matplotlib is (the plots of gradcam and rollout
@@ -460,9 +460,33 @@ c8_cases).
    1e-6 of this process's engine on the kernels alone on its pixels (below
    the answers' spread over images), within 5e-3 of the plain route and
    bit-equal to its PNG twin's one by one; the bodies' unit image features
-   within 1e-5 of the plain route (below their spread); a WebP and a TIFF body 400 naming A2c; req/s one by one and
+   within 1e-5 of the plain route (below their spread); a WebP and a CMYK TIFF body 400 naming A2c; req/s one by one and
    JPEG_SERVE_CLIENTS x JPEG_SERVE_PER_CLIENT, client p50/p99, JPEG bodies
    beside PNG (path cli_serve_jpeg).
+
+21. TIFF and Netpbm decoding (ROADMAP A2c, second part), after phase 20, on
+   phase 8's layout and phases 9's and 20's files. cv2 runs in a child
+   process (CV2_CHILD, as in phase 20), the yardstick. (a) The decoder
+   rebuilt (timed) and held byte-equal to cv2.imdecode and to
+   cv2.imread on TIFFs and Netpbm files cv2 writes (16-bit grey LZW and
+   Deflate at 2048 square, RGB, RGBA, PackBits, uncompressed; PGM, PPM, PBM,
+   PAM), a JPEG TIFF PIL writes, and TIFFs of the port's test writer (tiles
+   in big-endian order, BigTIFF with separate planes, the old LZW with a
+   palette, Orientation 6); its decode ms beside cv2's (median of
+   TIFF_TIMED) at 2048 square. (b) The layout's files as 16-bit grey LZW
+   TIFF and binary 16-bit PGM (the high bytes the PNGs' grey): cache-images
+   over each byte-equal to phase 9's cache of the PNGs, zeroshot over each
+   and over the PNGs from phase 9's pretrain checkpoint (probabilities
+   bit-equal; B1-B4 held at the TIFF run's first inputs against their plain
+   versions; paths cli_zeroshot_{tiff,pgm,png}21). (c) ``serve`` over phase
+   9's adapter checkpoint: 2048-square TIFF and PGM bodies, a 224 TIFF and
+   PPM, and phase 20's JPEG and BMP, each answer bit-equal to its PNG
+   twin's, within 1e-6 of the engine alone on its pixels and within 5e-3 of
+   the plain route, the unit image features within 1e-5 of the plain route;
+   a CMYK and a Group 4 TIFF 400 naming A2c, a float TIFF 400 without; req/s
+   and client p50/p90 over TIFF_SERVE_ROUNDS requests of each body one by
+   one, and TIFF_SERVE_CLIENTS x TIFF_SERVE_PER_CLIENT over the 2048-square
+   TIFF and PGM bodies, client p50/p99 (path cli_serve_tiff).
 
 The second-to-last line is the kernels JSON; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -940,6 +964,11 @@ PATHS = {  # main path -> the kernels it must launch
     "cli_zeroshot_jpeg": ("similarity", "image_prep", "flash_attention", "mlp"),
     "cli_zeroshot_twin": ("similarity", "image_prep", "flash_attention", "mlp"),
     "cli_serve_jpeg": ("similarity", "image_prep", "flash_attention", "mlp"),
+    # phase 21: zeroshot over the layout as 16-bit TIFF and PGM files and over
+    # its PNGs; serve answering TIFF, PGM, PPM, JPEG, BMP and PNG bodies
+    **{f"cli_zeroshot_{tag}21": ("similarity", "image_prep", "flash_attention", "mlp")
+       for tag in ("tiff", "pgm", "png")},
+    "cli_serve_tiff": ("similarity", "image_prep", "flash_attention", "mlp"),
 }
 # H100 SXM peaks (NVIDIA's data sheet, dense): bf16 and fp16 on the tensor
 # cores and fp32 on the CUDA cores, in operations a second; HBM3 in bytes a
@@ -3335,7 +3364,7 @@ def phase6(_build, mods, dev, seed: int, card: str, tmp: str) -> dict:
 
 def host_probe() -> str:
     """What the machine offers the host side of the port, as one line: g++
-    (which builds the port's JPEG and BMP decoder, native/src/decode.cpp, at
+    (which builds the port's image decoder, native/src/*.cpp, at
     first use), libpng's, zlib's and libjpeg's headers, -lpng16 / -lpng /
     -lz / -ljpeg at link time, and whether the packages the port may not
     import (the CPU tests' oracles, phase 20's cv2 yardstick) are installed,
@@ -9042,34 +9071,42 @@ JPEG_SERVE_CLIENTS, JPEG_SERVE_PER_CLIENT = 8, 32  # phase 20 (c)'s concurrent p
 JPEG_SERVE_ROUNDS = 2  # passes over the bodies one by one
 JPEG_BODY_SIDE = 2048  # the side of phase 20 (c)'s grey bodies
 
-# phase 20's yardstick: cv2 in a child process, so that the smoke's own
-# process never imports it. ``python -c CV2_CHILD TASK OUT``: TASK (JSON)
-# names the images to generate and encode ("cases") and the layout PNGs to
-# write as JPEGs ("layout"); each file is written beside cv2.imdecode's
-# decode of it (RGB, or the grey channel for the layout, as .npy); OUT
-# (JSON) gets cv2's version, its JPEG backend and its decode times.
+# the yardstick of phases 20 and 21: cv2 in a child process, so that the
+# smoke's own process never imports it. ``python -c CV2_CHILD TASK OUT``:
+# TASK (JSON) has "cases", the images to write ("fmt": the encoder, cv2's
+# extension or "pil-jpeg-tiff"; the picture's size, channels and bits;
+# "params", pairs of cv2 names and values; an EXIF "orientation" spliced
+# into a JPEG) or the files already written (no "fmt"), each decoded by
+# cv2.imdecode into "decoded" and, where the case names it, by cv2.imread
+# into "read" (RGB .npy, or no file where cv2 gives no image); and
+# "layout", the layout's PNGs to write again, each as its grey (resized to
+# "big"; at 16 bits in the samples' high bytes, their low bytes noise) in
+# every format of its "outputs". OUT (JSON) gets cv2's version, its JPEG and
+# TIFF libraries, its decode times and the cases it could not write.
 CV2_CHILD = r'''
-import json, sys, time
+import json, shutil, sys, time
 from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 try:
     import cv2
 except ImportError as exc:
-    sys.exit(f"phase 20 needs cv2 installed, its yardstick: {exc}")
+    sys.exit(f"the phase needs cv2 installed, its yardstick: {exc}")
 
 task = json.load(open(sys.argv[1]))
-out = {"cv2": cv2.__version__, "ms": {}, "backend": next(
-    (line.split(":", 1)[1].strip() for line in cv2.getBuildInformation().splitlines()
-     if line.strip().startswith("JPEG:")), "none")}
+out = {"cv2": cv2.__version__, "ms": {}, "skipped": [], "libs": {
+    key: next((line.split(":", 1)[1].strip() for line in cv2.getBuildInformation().splitlines()
+               if line.strip().startswith(key + ":")), "none") for key in ("JPEG", "TIFF")}}
 
 
-def image(h, w, c, seed):
+def image(h, w, c, seed, bits=8):
     """A smooth picture with noise, as radiographs are."""
     rng = np.random.default_rng(seed)
+    top = (1 << bits) - 1
     wave = np.outer(np.cos(np.arange(h) / 13), np.sin(np.arange(w) / (9 + seed % 5)))
-    base = 128 + 60 * wave + rng.normal(0, 4, (h, w))
-    grey = np.clip(base, 0, 255).astype(np.uint8)
-    return grey if c == 1 else np.stack([grey, np.roll(grey, 7, 0), np.roll(grey, 11, 1)], -1)
+    base = top / 255 * (128 + 60 * wave + rng.normal(0, 4, (h, w)))
+    grey = np.clip(base, 0, top).astype(np.uint16 if bits == 16 else np.uint8)
+    channels = [grey, np.roll(grey, 7, 0), np.roll(grey, 11, 1), np.roll(grey, 5, 0)]
+    return grey if c == 1 else np.stack(channels[:c], -1)
 
 
 def exif(orientation):
@@ -9083,16 +9120,11 @@ def exif(orientation):
     return b"\xff\xe1" + (len(body) + 2).to_bytes(2, "big") + body
 
 
-def encode(img, fmt=".jpg", quality=90, progressive=0, sampling=None, restart=0,
-           orientation=0):
-    params = []
-    if fmt == ".jpg":
-        params = [cv2.IMWRITE_JPEG_QUALITY, quality, cv2.IMWRITE_JPEG_PROGRESSIVE, progressive,
-                  cv2.IMWRITE_JPEG_RST_INTERVAL, restart]
-        if sampling:
-            params += [cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
-                       getattr(cv2, "IMWRITE_JPEG_SAMPLING_FACTOR_" + sampling)]
-    ok, buf = cv2.imencode(fmt, img, params)
+def encode(img, fmt, params, orientation=0):
+    flat = []
+    for key, value in params:
+        flat += [getattr(cv2, key), getattr(cv2, value) if isinstance(value, str) else value]
+    ok, buf = cv2.imencode(fmt, img, flat)
     assert ok, fmt
     data = buf.tobytes()
     if orientation:  # after SOI and the JFIF segment
@@ -9101,47 +9133,91 @@ def encode(img, fmt=".jpg", quality=90, progressive=0, sampling=None, restart=0,
     return data
 
 
+def write(case):
+    img = image(case["h"], case["w"], case["c"], case["seed"], case.get("bits", 8))
+    if case["fmt"] == "pil-jpeg-tiff":  # cv2 writes no JPEG-compressed TIFF
+        try:
+            from PIL import Image
+        except ImportError:
+            out["skipped"].append(case["name"])
+            return False
+        Image.fromarray(img).save(case["path"], "TIFF", compression="jpeg", quality=90)
+        return True
+    with open(case["path"], "wb") as f:
+        f.write(encode(img, case["fmt"], case["params"], case.get("orientation", 0)))
+    return True
+
+
 def decode(data):
     img = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
     return None if img is None else np.ascontiguousarray(img[..., ::-1])
 
 
+def read(path):
+    try:
+        img = cv2.imread(path)
+    except cv2.error:
+        img = None
+    return None if img is None else np.ascontiguousarray(img[..., ::-1])
+
+
 for case in task["cases"]:
-    data = encode(image(case["h"], case["w"], case["c"], case["seed"]), **case["params"])
-    with open(case["path"], "wb") as f:
-        f.write(data)
-    decoded = decode(data)
-    if decoded is not None:
-        np.save(case["decoded"], decoded)
-    if case.get("timed"):
+    if "fmt" in case and not write(case):
+        continue
+    with open(case["path"], "rb") as f:
+        data = f.read()
+    for key, got in (("decoded", decode(data)),
+                     ("read", read(case["path"]) if "read" in case else None)):
+        if got is not None:
+            np.save(case[key], got)
+    if case["timed"]:
         times = []
         for _ in range(task["timed"]):
             t0 = time.perf_counter()
             decode(data)
             times.append((time.perf_counter() - t0) * 1e3)
         out["ms"][case["name"]] = float(np.median(times))
-def layout_file(src, dst, decoded, big):
-    img = cv2.imread(src, cv2.IMREAD_GRAYSCALE)
-    if img is None:  # the layout's file that is no image, copied as it is
-        with open(src, "rb") as f, open(dst, "wb") as g:
-            g.write(f.read())
+
+
+def layout_file(job):
+    grey = cv2.imread(job["src"], cv2.IMREAD_GRAYSCALE)
+    if grey is None:  # the layout's file that is no image, copied as it is
+        for dst, *_ in job["outputs"]:
+            shutil.copyfile(job["src"], dst)
         return
-    if big:
-        img = cv2.resize(img, (big[1], big[0]), interpolation=cv2.INTER_LINEAR)
-    data = encode(img, quality=95)
-    with open(dst, "wb") as f:
-        f.write(data)
-    bgr = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
-    grey = np.ascontiguousarray(bgr[..., 0])
-    assert (bgr == grey[..., None]).all(), dst
-    np.save(decoded, grey)
+    if job["big"]:
+        grey = cv2.resize(grey, (job["big"][1], job["big"][0]), interpolation=cv2.INTER_LINEAR)
+    img = grey
+    if job["bits"] == 16:
+        low = np.random.default_rng(job["seed"]).integers(0, 256, grey.shape, dtype=np.uint16)
+        img = (grey.astype(np.uint16) << 8) | low
+    for dst, fmt, params, decoded in job["outputs"]:
+        data = encode(img, fmt, params)
+        with open(dst, "wb") as f:
+            f.write(data)
+        bgr = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+        back = np.ascontiguousarray(bgr[..., 0])
+        assert (bgr == back[..., None]).all(), dst
+        if decoded:
+            np.save(decoded, back)
+        else:  # an output of a lossless format gives back the PNG's grey
+            assert (back == grey).all(), dst
 
 
 with ThreadPoolExecutor(8) as pool:  # cv2 drops the interpreter lock
-    list(pool.map(lambda job: layout_file(*job), task["layout"]))
+    list(pool.map(layout_file, task["layout"]))
 with open(sys.argv[2], "w") as f:
     json.dump(out, f)
 '''
+
+
+def jpeg_params(quality=90, progressive=0, sampling=None, restart=0) -> list:
+    """CV2_CHILD's "params" for cv2's JPEG encoder."""
+    params = [["IMWRITE_JPEG_QUALITY", quality], ["IMWRITE_JPEG_PROGRESSIVE", progressive],
+              ["IMWRITE_JPEG_RST_INTERVAL", restart]]
+    if sampling:
+        params.append(["IMWRITE_JPEG_SAMPLING_FACTOR", "IMWRITE_JPEG_SAMPLING_FACTOR_" + sampling])
+    return params
 
 
 def jpeg_phase20(_build, mods, dev, seed: int, card: str, workdir: str, results: dict) -> dict:
@@ -9169,6 +9245,7 @@ def jpeg_phase20(_build, mods, dev, seed: int, card: str, workdir: str, results:
     from clip_for_dl_tpu_torch.native import decode_image, decoder
     from clip_for_dl_tpu_torch.serving import decode_request_image
     from clip_for_dl_tpu_torch.testing.png import encode_png, write_png
+    from clip_for_dl_tpu_torch.testing.tiff import encode_tiff
     from clip_for_dl_tpu_torch.text import BertTokenizer
     from clip_for_dl_tpu_torch.zeroshot import ZeroShotEngine, prompts_for_family
 
@@ -9181,11 +9258,11 @@ def jpeg_phase20(_build, mods, dev, seed: int, card: str, workdir: str, results:
     # -- the yardstick's files: (a)'s cases, (c)'s bodies, (b)'s layout -----------------------
     cases = []
 
-    def case(name, h, w_, c, timed=False, **params):
-        cases.append({"name": name, "h": h, "w": w_, "c": c, "seed": len(cases) + seed,
-                      "params": params, "timed": timed,
-                      "path": f"{w}/cases/{name}{params.get('fmt', '.jpg')}",
-                      "decoded": f"{w}/cases/{name}.npy"})
+    def case(name, h, w_, c, timed=False, fmt=".jpg", orientation=0, **jpeg):
+        cases.append({"name": name, "fmt": fmt, "h": h, "w": w_, "c": c,
+                      "seed": len(cases) + seed, "orientation": orientation, "timed": timed,
+                      "params": jpeg_params(**jpeg) if fmt == ".jpg" else [],
+                      "path": f"{w}/cases/{name}{fmt}", "decoded": f"{w}/cases/{name}.npy"})
 
     big_h, big_w = JPEG_BIG_SHAPE
     for prog in (0, 1):
@@ -9207,16 +9284,17 @@ def jpeg_phase20(_build, mods, dev, seed: int, card: str, workdir: str, results:
             bodies.append((fmt, len(cases) - 1))
             case(f"body{i}-{JPEG_BODY_SIDE}{fmt[1:]}", JPEG_BODY_SIDE, JPEG_BODY_SIDE, 1, fmt=fmt)
             bodies.append((fmt, len(cases) - 1))
-    for fmt in (".webp", ".tiff"):
-        case(f"refused{fmt[1:]}", 64, 64, 3, fmt=fmt)
+    case("refusedwebp", 64, 64, 3, fmt=".webp")
     projections = read_csv(f"{kaggle}/indiana_projections.csv")
     names = [str(n) for n in projections.column("filename")]
     frontal = [str(n) for n, v in zip(names, projections.column("projection")) if v == "Frontal"]
     big_names = set(frontal[:JPEG_BIG])
     image_dir = f"{kaggle}/images/images_normalized"
     jpeg_name = {n: n[:-4] + ".jpg" for n in names}  # *.dcm.png -> *.dcm.jpg
-    layout = [(f"{image_dir}/{n}", f"{w}/jpeg/{jpeg_name[n]}", f"{w}/jpeg/{n}.npy",
-               list(JPEG_BIG_SHAPE) if n in big_names else None) for n in names]
+    layout = [{"src": f"{image_dir}/{n}", "big": list(JPEG_BIG_SHAPE) if n in big_names else None,
+               "bits": 8, "seed": i, "outputs": [[f"{w}/jpeg/{jpeg_name[n]}", ".jpg",
+                                                  jpeg_params(95), f"{w}/jpeg/{n}.npy"]]}
+              for i, n in enumerate(names)]
     with open(f"{w}/task.json", "w") as f:
         json.dump({"cases": cases, "layout": layout, "timed": JPEG_TIMED}, f)
     t = time.perf_counter()
@@ -9227,10 +9305,10 @@ def jpeg_phase20(_build, mods, dev, seed: int, card: str, workdir: str, results:
     with open(f"{w}/cv2.json") as f:
         yard = json.load(f)
     print(f"cv2 {yard['cv2']} (a child process, the yardstick): JPEG backend "
-          f"{yard['backend']!r}; wrote {len(cases)} images and {len(layout)} layout JPEGs in "
+          f"{yard['libs']['JPEG']!r}; wrote {len(cases)} images and {len(layout)} layout JPEGs in "
           f"{time.perf_counter() - t:.1f} s")
-    check("libjpeg-turbo" in yard["backend"],
-          f"cv2's JPEG backend is {yard['backend']!r}, not libjpeg-turbo: the decoder is "
+    check("libjpeg-turbo" in yard["libs"]["JPEG"],
+          f"cv2's JPEG backend is {yard['libs']['JPEG']!r}, not libjpeg-turbo: the decoder is "
           "byte-equal to libjpeg-turbo's decode only")
 
     # -- (a) the decoder on this machine ----------------------------------------------------
@@ -9239,7 +9317,7 @@ def jpeg_phase20(_build, mods, dev, seed: int, card: str, workdir: str, results:
     build_s = time.perf_counter() - t
     decoder.library()
     print(f"phase 20 (a): the decoder built with g++ {' '.join(decoder.CXX_FLAGS)} in "
-          f"{build_s:.1f} s from {decoder.SOURCE.relative_to(ROOT)}"
+          f"{build_s:.1f} s from {', '.join(str(s.relative_to(ROOT)) for s in decoder.SOURCES)}"
           + (f" ({log.strip()[:200]})" if log.strip() else "") + f"; loaded "
           f"{Path(decoder.build_info['path']).name}")
     timed = {}
@@ -9367,9 +9445,10 @@ def jpeg_phase20(_build, mods, dev, seed: int, card: str, workdir: str, results:
             failures.append(f"(c) a {fmt} body's decode differs from cv2's")
     decoded = [decode_request_image(data, "image/jpeg", size) for _, data, _, _ in raw]
     refused = {}
-    for c in cases[-2:]:
-        with open(c["path"], "rb") as f:
-            refused[c["name"]] = f.read()
+    with open(cases[-1]["path"], "rb") as f:
+        refused[cases[-1]["name"]] = f.read()
+    # TIFF decodes since phase 21's slice; a CMYK one stays refused
+    refused["refusedtiff-cmyk"] = encode_tiff(np.zeros((64, 64, 4), np.uint8), photometric=5)
     env = dict(os.environ, PYTHONUNBUFFERED="1")
     if dev.type == "cuda":
         env.pop("CLIP_FOR_DL_TPU_FORCE_CPU", None)
@@ -9477,7 +9556,7 @@ def jpeg_phase20(_build, mods, dev, seed: int, card: str, workdir: str, results:
     print(f"phase 20 (c): serve (zero_shot, {describe(cfg.model)}, bf16, phase 9's adapter "
           f"checkpoint) up in {start_s:.1f} s; {len(raw)} JPEG and BMP bodies (224x224x3 and "
           f"{JPEG_BODY_SIDE}x{JPEG_BODY_SIDE} grey) decode byte-equal to cv2; answered 200, each bit-equal to its PNG "
-          f"twin's: {twin_equal}; WebP and TIFF: "
+          f"twin's: {twin_equal}; WebP and CMYK TIFF: "
           + ", ".join(f"{o[0]} ({o[2].get('error', '')[:60]!r})" for o in odd.values()))
     print(f"  on {card}, JPEG bodies beside their PNG twins: one by one "
           f"{seq['jpeg']:.1f} vs {seq['png']:.1f} req/s; {JPEG_SERVE_CLIENTS} clients x "
@@ -9487,6 +9566,341 @@ def jpeg_phase20(_build, mods, dev, seed: int, card: str, workdir: str, results:
           f"{by_path['cli_serve_jpeg']}")
     check(not failures, "phase 20: " + "; ".join(failures))
     print(f"phase 20 took {time.perf_counter() - t_phase:.1f} s")
+    return by_path
+
+
+# -- phase 21: TIFF and Netpbm (ROADMAP A2c, second part) ----------------------------------
+
+TIFF_TIMED = 5  # decodes each phase-21 time is the median of
+TIFF_SERVE_ROUNDS = 16  # phase 21 (c)'s requests of each body one by one
+TIFF_SERVE_CLIENTS, TIFF_SERVE_PER_CLIENT = 8, 32  # phase 21 (c)'s concurrent pass
+
+def tiff_pnm_phase21(_build, mods, dev, seed: int, card: str, workdir: str,
+                     results: dict) -> dict:
+    """Phase 21: TIFF and Netpbm decoding (ROADMAP A2c, second part), on
+    phase 8's layout and phases 9's and 20's files in ``workdir``; returns
+    the launches of its paths. cv2 runs in a child process (CV2_CHILD) as
+    the yardstick the port never calls; the phase fails without it."""
+    import argparse
+    import importlib
+    import io
+    import os
+    import threading
+    from contextlib import redirect_stdout
+
+    import numpy as np
+    import torch
+
+    cli = importlib.import_module("clip_for_dl_tpu_torch.cli.main")
+    from clip_for_dl_tpu_torch.core.config import DISEASE_LABELS, get_preset
+    from clip_for_dl_tpu_torch.data.frame import read_csv
+    from clip_for_dl_tpu_torch.inference import load_trained_model
+    from clip_for_dl_tpu_torch.native import decode_image, decoder
+    from clip_for_dl_tpu_torch.serving import decode_request_image
+    from clip_for_dl_tpu_torch.testing.png import encode_png
+    from clip_for_dl_tpu_torch.testing.tiff import encode_tiff
+    from clip_for_dl_tpu_torch.text import BertTokenizer
+    from clip_for_dl_tpu_torch.zeroshot import ZeroShotEngine, prompts_for_family
+
+    t_phase = time.perf_counter()
+    kaggle, work9, w = f"{workdir}/kaggle", f"{workdir}/cli", f"{workdir}/phase21"
+    for d in ("cases", "tiff", "pgm"):
+        os.makedirs(f"{w}/{d}")
+    by_path, failures, walls = {}, [], {}
+
+    # -- the yardstick's files: (a)'s cases, (c)'s bodies, (b)'s layout ---------------------
+    cases, side = [], JPEG_BODY_SIDE
+
+    def case(name, ext, timed=False, **spec):
+        cases.append({"name": name, "path": f"{w}/cases/{name}{ext}", "timed": timed,
+                      "decoded": f"{w}/cases/{name}.npy", "read": f"{w}/cases/{name}.read.npy",
+                      **spec})
+
+    def written(name, fmt, h, w_, c, bits, compression=None, timed=False):
+        case(name, fmt if fmt.startswith(".") else ".tif", timed, fmt=fmt, h=h, w=w_, c=c,
+             bits=bits, seed=len(cases) + seed,
+             params=[["IMWRITE_TIFF_COMPRESSION", compression]] if compression else [])
+
+    lzw, deflate = 5, 8
+    written(f"tiff-lzw-grey16-{side}", ".tiff", side, side, 1, 16, lzw, True)
+    written(f"tiff-deflate-grey16-{side}", ".tiff", side, side, 1, 16, deflate, True)
+    written(f"pgm-grey16-{side}", ".pgm", side, side, 1, 16, timed=True)
+    written("tiff-lzw-rgb8-224", ".tiff", 224, 224, 3, 8, lzw)
+    written("tiff-lzw-rgb16-224", ".tiff", 224, 224, 3, 16, lzw)
+    written("tiff-packbits-bgra8-224", ".tiff", 224, 224, 4, 8, 32773)
+    written("tiff-none-grey8-224", ".tiff", 224, 224, 1, 8, 1)
+    written("ppm-224", ".ppm", 224, 224, 3, 8)
+    written("pgm-grey8-224", ".pgm", 224, 224, 1, 8)
+    written("pbm-224", ".pbm", 224, 224, 1, 8)
+    written("pam-rgb-224", ".pam", 224, 224, 3, 8)
+    written("tiff-jpeg-rgb-224", "pil-jpeg-tiff", 224, 224, 3, 8)
+    # what cv2 does not write, from the port's test writer
+    rng = np.random.default_rng(seed)
+    smooth = np.cumsum(np.cumsum(rng.integers(-9, 10, (300, 260)), 0), 1)
+    grey16 = ((smooth - smooth.min()) * 65535 // max(1, int(np.ptp(smooth)))).astype(np.uint16)
+    grey8 = (grey16 >> 8).astype(np.uint8)
+    rgb8 = np.stack([grey8, np.roll(grey8, 5, 0), np.roll(grey8, 9, 1)], -1)
+    given = {
+        "tiff-tiles-grey16-lzw-bigendian": encode_tiff(grey16, bps=16, compression=5,
+                                                       predictor=2, tile=(64, 64), order=">"),
+        "tiff-bigtiff-planar-rgb-deflate": encode_tiff(rgb8, compression=8, planar=2, big=True,
+                                                       rows_per_strip=32),
+        "tiff-old-lzw-palette": encode_tiff(grey8 >> 4, bps=4, photometric=3, compression=5,
+                                            old_lzw=True,
+                                            colormap=rng.integers(0, 65536, (16, 3))),
+        "tiff-orientation6-grey8": encode_tiff(grey8, orientation=6, compression=5),
+    }
+    for name, data in given.items():
+        case(name, ".tif")
+        with open(cases[-1]["path"], "wb") as f:
+            f.write(data)
+    refused = {"CMYK TIFF": encode_tiff(np.dstack([rgb8, grey8])[:64, :64], photometric=5),
+               "Group 4 TIFF": encode_tiff(grey8[:64, :64] > 128, bps=1, tags={259: (3, [4])})}
+    no_image = encode_tiff(grey16[:64, :64].astype(np.uint32), bps=32, sample_format=3)
+    projections = read_csv(f"{kaggle}/indiana_projections.csv")
+    names = [str(n) for n in projections.column("filename")]
+    image_dir = f"{kaggle}/images/images_normalized"
+    renamed = {ext: {n: n[:-4] + ext for n in names} for ext in (".tif", ".pgm")}
+    layout = [{"src": f"{image_dir}/{n}", "big": None, "bits": 16, "seed": i, "outputs": [
+        [f"{w}/tiff/{renamed['.tif'][n]}", ".tiff", [["IMWRITE_TIFF_COMPRESSION", lzw]], None],
+        [f"{w}/pgm/{renamed['.pgm'][n]}", ".pgm", [], None]]} for i, n in enumerate(names)]
+    with open(f"{w}/task.json", "w") as f:
+        json.dump({"cases": cases, "layout": layout, "timed": TIFF_TIMED}, f)
+    t = time.perf_counter()
+    child = subprocess.run([sys.executable, "-c", CV2_CHILD, f"{w}/task.json",
+                            f"{w}/cv2.json"], capture_output=True, text=True, timeout=600)
+    check(child.returncode == 0, f"phase 21's cv2 child failed ({child.returncode}): "
+          f"{child.stderr[-3000:]}")
+    with open(f"{w}/cv2.json") as f:
+        yard = json.load(f)
+    print(f"cv2 {yard['cv2']} (a child process, the yardstick): TIFF {yard['libs']['TIFF']!r}; wrote "
+          f"{len(cases) - len(given) - len(yard['skipped'])} images (could not: "
+          f"{yard['skipped'] or 'none'}) and {len(layout)} layout files as 16-bit grey LZW "
+          f"TIFF and PGM in {time.perf_counter() - t:.1f} s")
+
+    # -- (a) the decoder on this machine ----------------------------------------------------
+    t = time.perf_counter()
+    log = decoder.compile_library(Path(f"{w}/libcxr_decode-fresh.so"))
+    build_s = time.perf_counter() - t
+    decoder.library()
+    print(f"phase 21 (a): the decoder built with g++ {' '.join(decoder.CXX_FLAGS)} in "
+          f"{build_s:.1f} s from {', '.join(str(s.relative_to(ROOT)) for s in decoder.SOURCES)} "
+          f"and {' '.join(decoder.LIBS)}"
+          + (f" ({log.strip()[:200]})" if log.strip() else ""))
+
+    def equal(got, path):
+        want = np.load(path) if os.path.exists(path) else None
+        return (got is None) == (want is None) and (
+            got is None or (got.shape == want.shape and np.array_equal(got, want)))
+
+    timed = {}
+    for c in cases:
+        if c["name"] in yard["skipped"]:
+            continue
+        with open(c["path"], "rb") as f:
+            data = f.read()
+        got, got_file = decode_image(data), decode_image(data, file=True)
+        same = equal(got, c["decoded"]) and equal(got_file, c["read"])
+        print(f"  {c['name']}: {len(data)} bytes -> {None if got is None else got.shape} "
+              f"(as a file {None if got_file is None else got_file.shape}), byte-equal to "
+              f"cv2.imdecode and cv2.imread: {same}")
+        if not same:
+            failures.append(f"(a) {c['name']}: the port's decode differs from cv2's")
+        if c["timed"]:
+            times = []
+            for _ in range(TIFF_TIMED):
+                t0 = time.perf_counter()
+                decoder.decode(data)
+                times.append((time.perf_counter() - t0) * 1e3)
+            timed[c["name"]] = float(np.median(times))
+    print(f"  decode ms (median of {TIFF_TIMED}, one thread) on the host of {card}, the "
+          "port's C++ beside cv2.imdecode: " + "; ".join(
+              f"{k} {v:.2f} vs {yard['ms'][k]:.2f}" for k, v in timed.items()))
+
+    # -- (b) files: the layout as 16-bit TIFF and PGM, and the layout's own PNGs ----------
+    def run(name, argv, path=None, stack=None):
+        out = io.StringIO()
+        torch.cuda.synchronize(dev)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        with redirect_stdout(out), (stack or ExitStack()):
+            rc = cli.main(argv)
+        torch.cuda.synchronize(dev)
+        walls[name] = time.perf_counter() - t0
+        check(rc == 0, f"{name} exited with {rc}: {out.getvalue()[-2000:]}")
+        if path:
+            by_path[path] = dict(_build.LAUNCHES)
+            check_launched(mods, by_path[path], path)
+        torch.cuda.empty_cache()
+
+    with open(f"{kaggle}/indiana_projections.csv", newline="") as f:
+        rows = list(csv.DictReader(f))
+    layouts = {"png": (f"{kaggle}/indiana_projections.csv", image_dir, f"{work9}/cache")}
+    for tag, ext in (("tiff", ".tif"), ("pgm", ".pgm")):
+        with open(f"{w}/{tag}_projections.csv", "w", newline="") as f:
+            out = csv.DictWriter(f, fieldnames=list(rows[0]), lineterminator="\n")
+            out.writeheader()
+            out.writerows({**r, "filename": renamed[ext][r["filename"]]} for r in rows)
+        layouts[tag] = (f"{w}/{tag}_projections.csv", f"{w}/{tag}", f"{w}/cache_{tag}")
+        run(f"cache-images {tag}", ["cache-images", "--image-dir", layouts[tag][1], "--out",
+                                    layouts[tag][2], "--projections-csv", layouts[tag][0],
+                                    "--image-size", "224", "--workers", "8"])
+    caches = {}
+    for tag, (_, _, cache) in layouts.items():
+        with open(f"{cache}/cache_meta.json") as f:
+            caches[tag] = (json.load(f)["channels"], np.fromfile(f"{cache}/images.u8", np.uint8))
+    equal_caches = all(c[0] == caches["png"][0] and np.array_equal(c[1], caches["png"][1])
+                       for c in caches.values())
+    print(f"phase 21 (b): cache-images (224, --workers 8) on the host of {card}: "
+          + ", ".join(f"{tag} {len(names) / walls[f'cache-images {tag}']:.1f} img/s"
+                      for tag in ("tiff", "pgm"))
+          + f"; both byte-equal to phase 9's cache of the layout's PNGs: {equal_caches}")
+    if not equal_caches:
+        failures.append("(b) a TIFF or PGM layout's cache differs from the PNGs'")
+    kernels = ["--flash-attention", "--bert-fused-mlp"]
+    probs = {}
+    which = dict.fromkeys(("similarity", "image_prep", "flash_attention", "mlp"))
+    for tag, (csv_path, directory, cache) in layouts.items():
+        stack, kept = first_inputs(mods, which) if tag == "tiff" else (None, None)
+        run(f"zeroshot {tag}",
+            ["zeroshot", "--reports-csv", f"{work9}/labeled.csv", "--projections-csv", csv_path,
+             "--image-dir", directory, "--image-cache", cache, "--vocab", f"{work9}/vocab.txt",
+             *kernels, "--checkpoint", f"{work9}/pretrain", "--log-dir", f"{w}/zs_{tag}"],
+            f"cli_zeroshot_{tag}21", stack)
+        if kept is not None:
+            hold_first_inputs(mods, kept, which, "zeroshot over the TIFF layout", results)
+        with open(f"{w}/zs_{tag}/zero_shot_results.csv", newline="") as f:
+            table = list(csv.reader(f))
+        cols = [i for i, h in enumerate(table[0]) if h.startswith(("prob/", "true/"))]
+        probs[tag] = [[row[i] for i in cols] for row in table[1:]]
+    bit_equal = probs["tiff"] == probs["pgm"] == probs["png"] and len(probs["png"]) > 0
+    print(f"  zeroshot over each ({len(probs['png'])} exams, phase 9's pretrain checkpoint): "
+          f"probabilities bit-equal: {bit_equal}; "
+          + ", ".join(f"{tag} {walls[f'zeroshot {tag}']:.1f} s" for tag in layouts)
+          + f"; launches {by_path['cli_zeroshot_tiff21']}")
+    if not bit_equal:
+        failures.append("(b) zeroshot over the TIFF or PGM layout differs from over the PNGs")
+
+    # -- (c) serving TIFF and PGM bodies beside JPEG and BMP ones --------------------------
+    vocab, ad = f"{work9}/vocab.txt", f"{work9}/adapter"
+    tok = BertTokenizer(vocab, do_lower_case=False)
+    cfg = cli._apply_tiny(get_preset("zero_shot"), argparse.Namespace(
+        flash_attention=True, bert_fused_mlp=True), len(tok.vocab))
+    size = cfg.model.image_size
+    served_names = [f"tiff-lzw-grey16-{side}", f"tiff-deflate-grey16-{side}",
+                    f"pgm-grey16-{side}", "tiff-lzw-rgb8-224", "ppm-224"]
+    paths = {c["name"]: c["path"] for c in cases if c["name"] in served_names}
+    for fmt in ("jpg", "bmp"):  # phase 20's bodies of the same side
+        paths[f"{fmt}-grey8-{side}"] = f"{workdir}/phase20/cases/body0-{side}{fmt}.{fmt}"
+    raw = []  # (name, bytes, the PNG twin of its decode)
+    for name, path in paths.items():
+        with open(path, "rb") as f:
+            data = f.read()
+        rgb = decode_image(data)
+        raw.append((name, data, encode_png(rgb[..., 0] if (rgb == rgb[..., :1]).all() else rgb)))
+    decoded = [decode_request_image(d, "image/tiff", size) for _, d, _ in raw]
+    env = dict(os.environ, PYTHONUNBUFFERED="1")
+    if dev.type == "cuda":
+        env.pop("CLIP_FOR_DL_TPU_FORCE_CPU", None)
+    t = time.perf_counter()
+    served = Served(["serve", "--vocab", vocab, *kernels, "--checkpoint", ad, "--thresholds",
+                     f"{work9}/zs_dyn/thresholds.json", "--host", "127.0.0.1", "--port", "0",
+                     "--max-pending", "8", "--log-dir", f"{w}/serve_logs"],
+                    f"{w}/launches_serve.json", env)
+    start_s = time.perf_counter() - t
+    try:
+        answers = [served.request("POST", "/predict", d, "image/tiff") for _, d, _ in raw]
+        twins = [served.request("POST", "/predict", png) for _, _, png in raw]
+        seq = {}  # name: (req/s, each request's ms)
+        for name, data, _ in raw:
+            t0 = time.perf_counter()
+            each = [served.request("POST", "/predict", data, "image/tiff")[3] * 1e3
+                    for _ in range(TIFF_SERVE_ROUNDS)]
+            seq[name] = (TIFF_SERVE_ROUNDS / (time.perf_counter() - t0), each)
+        big = [d for name, d, _ in raw if name.startswith(("tiff", "pgm")) and str(side) in name]
+        got_conc = [None] * (TIFF_SERVE_CLIENTS * TIFF_SERVE_PER_CLIENT)
+
+        def client(c):
+            for j in range(TIFF_SERVE_PER_CLIENT):
+                got_conc[c * TIFF_SERVE_PER_CLIENT + j] = served.request(
+                    "POST", "/predict", big[(c + j) % len(big)], "image/tiff")
+
+        threads = [threading.Thread(target=client, args=(c,)) for c in range(TIFF_SERVE_CLIENTS)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        conc = len(got_conc) / (time.perf_counter() - t0)
+        odd = {name: served.request("POST", "/predict", data, "image/tiff")
+               for name, data in refused.items()}
+        none_answer = served.request("POST", "/predict", no_image, "image/tiff")
+    finally:
+        rc = served.stop()
+    with open(f"{w}/launches_serve.json") as f:
+        by_path["cli_serve_tiff"] = json.load(f)
+    check(rc == 0, f"serve exited with {rc} on SIGINT: {''.join(served.lines[-20:])}")
+    check_launched(mods, by_path["cli_serve_tiff"], "cli_serve_tiff")
+    statuses = [a[0] for a in answers + twins + got_conc]
+    check(all(s == 200 for s in statuses), f"phase 21 (c): statuses {sorted(set(statuses))}")
+    for name, (st, _, payload, _) in odd.items():
+        if not (st == 400 and "A2c" in payload.get("error", "")):
+            failures.append(f"(c) {name}: {st} {payload}")
+    if not (none_answer[0] == 400 and "A2c" not in none_answer[2].get("error", "")):
+        failures.append(f"(c) a float TIFF: {none_answer[0]} {none_answer[2]}")
+    twin_equal = all(a[2]["probs"] == t_[2]["probs"] for a, t_ in zip(answers, twins))
+    if not twin_equal:
+        failures.append("(c) an answer differs from its PNG twin's")
+    # the holds of phase 20 (c): each answer against this process's engine on
+    # the kernels alone on its pixels, and the bodies' unit image features
+    # (B2 and the tower) against the plain route, each below its spread
+    model = load_trained_model(ad, cfg, torch.bfloat16, device=dev)
+    engine = ZeroShotEngine(model, tok, DISEASE_LABELS, cfg.zeroshot, cfg.augment.mean,
+                            cfg.augment.std, size, cfg.model.max_text_length, torch.bfloat16)
+    prep = mods["image_prep"]
+
+    def unit_features():
+        with torch.inference_mode():
+            x = prep.preprocess_images(torch.from_numpy(np.stack(decoded)).to(dev), size, size,
+                                       cfg.augment.mean, cfg.augment.std)
+            f = model.encode_image(x).float()
+            return (f / f.norm(dim=-1, keepdim=True)).cpu().numpy()
+
+    engine.build_text_features(prompts_for_family("prediction", DISEASE_LABELS))
+    alone = np.concatenate([engine.probs(d[None]) for d in decoded])
+    feats = unit_features()
+    with plain_kernels(mods):
+        before = dict(_build.LAUNCHES)
+        engine.build_text_features(prompts_for_family("prediction", DISEASE_LABELS))
+        want = engine.probs(np.stack(decoded))
+        plain_feats = unit_features()
+        check(dict(_build.LAUNCHES) == before, "a kernel ran on the plain route")
+    got = np.array([[a[2]["probs"][d] for d in DISEASE_LABELS] for a in answers])
+    held("phase 21 (c): each TIFF, PGM, PPM, JPEG and BMP answer against the engine on the "
+         "kernels, alone, on its decoded pixels", got, alone, TOL["service"],
+         {"images": apart(alone)}, failures)
+    held("phase 21 (c): the bodies' unit image features (B2, the tower) against the plain "
+         "route", feats, plain_feats, TOL["served_image_features"],
+         {"images": apart(plain_feats)}, failures)
+    held("phase 21 (c): each answer against the plain route on its decoded pixels", got, want,
+         TOL["probs_vs_plain"], {"images": apart(want)}, failures, bound=False)
+    del engine, model
+    torch.cuda.empty_cache()
+    ms = [g[3] * 1e3 for g in got_conc]
+    print(f"phase 21 (c): serve (zero_shot, {describe(cfg.model)}, bf16, phase 9's adapter "
+          f"checkpoint) up in {start_s:.1f} s; {len(raw)} bodies ({', '.join(paths)}) "
+          f"answered 200, each bit-equal to its PNG twin's: "
+          f"{twin_equal}; "
+          + ", ".join(f"{name} {o[0]} ({o[2].get('error', '')[:60]!r})" for name, o in odd.items())
+          + f"; a float TIFF {none_answer[0]} ({none_answer[2].get('error', '')!r})")
+    print(f"  on {card}, one by one ({TIFF_SERVE_ROUNDS} requests each; req/s, client p50 "
+          "and p90 ms): " + ", ".join(f"{k} {r:.2f} ({pct(e, 50):.1f}, {pct(e, 90):.1f})"
+                                      for k, (r, e) in seq.items())
+          + f"; {TIFF_SERVE_CLIENTS} clients x {TIFF_SERVE_PER_CLIENT} over the {side}x{side} "
+          f"TIFF and PGM bodies: {conc:.1f} req/s, client p50 {pct(ms, 50):.1f} ms, p99 "
+          f"{pct(ms, 99):.1f} ms; launches {by_path['cli_serve_tiff']}")
+    check(not failures, "phase 21: " + "; ".join(failures))
+    print(f"phase 21 took {time.perf_counter() - t_phase:.1f} s")
     return by_path
 
 
@@ -9655,6 +10069,9 @@ def main(argv=None) -> int:
         print("== phase 20: decoding JPEG and BMP: the decoder, evaluation from JPEG files, "
               "serve")
         by_path.update(jpeg_phase20(_build, mods, dev, args.seed, card, workdir, results))
+        print("== phase 21: decoding TIFF and Netpbm: the decoder, evaluation from 16-bit TIFF "
+              "and PGM files, serve")
+        by_path.update(tiff_pnm_phase21(_build, mods, dev, args.seed, card, workdir, results))
     print("== the wrappers' host time (tools/launch_times.py)")
     from clip_for_dl_tpu_torch.tools import launch_times
 

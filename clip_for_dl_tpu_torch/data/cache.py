@@ -114,9 +114,10 @@ def build_image_cache(
 ) -> "ImageCache":
     """One-time pass: decode + host-resize every path into the memmap,
     through ``native.batch_load_resize_u8`` (threaded, byte-identical to
-    ``datasets.load_image``: PNG, JPEG and BMP decode; a file that cannot
-    be read or decoded leaves its row zero, the zero image; a format the
-    port does not decode raises ``native.UnportedFormat``).
+    ``datasets.load_image``: PNG, JPEG, BMP, TIFF and Netpbm decode; a
+    file that cannot be read or decoded leaves its row zero, the zero
+    image; a format the port does not decode raises
+    ``native.UnportedFormat``).
 
     channels="auto" (default): after the decode pass, every row is checked
     for grayscale (three identical channels); if ALL rows are gray the cache

@@ -17,12 +17,12 @@ Reference behaviors preserved:
   ``RandomState`` as scikit-learn draws it.
 
 Files: the JAX package decodes PNG with its native runtime and every other
-format with ``cv2.imread`` then ``cv2.resize``; the port decodes PNG, JPEG
-and BMP to the same bytes (``native.decode_image``) and resizes all of them
-with its one ``resize_u8``, which equals cv2.resize at downscaling and is
-within 1 of it at upscaling (ROADMAP, "Reference behaviour not copied").
-A format cv2 reads that the port does not (TIFF, WebP, ...) raises, naming
-ROADMAP A2c. The whole Indiana set is PNG (``*.dcm.png``); MIMIC-CXR-JPG and
+format with ``cv2.imread`` then ``cv2.resize``; the port decodes PNG, JPEG,
+BMP, TIFF and Netpbm to the same bytes (``native.decode_image``) and
+resizes all of them with its one ``resize_u8``, which equals cv2.resize at
+downscaling and is within 1 of it at upscaling (ROADMAP, "Reference behaviour not copied").
+A format cv2 reads that the port does not (``native.unported_format``:
+WebP, JPEG 2000, ...) raises, naming ROADMAP A2c. The whole Indiana set is PNG (``*.dcm.png``); MIMIC-CXR-JPG and
 CheXpert ship JPEG.
 """
 

@@ -6,8 +6,8 @@ The JAX package builds ``native/src/cxr_native.cpp`` against libpng. The
 GPU machine has zlib but neither libpng's headers nor its library (the
 probe printed by ``chip_smoke.py``), so PNG is decoded here, on the
 standard library's ``zlib`` and numpy, with the same results byte for byte.
-JPEG and BMP go to the C++ library of ``native/decoder.py``, byte-equal to
-cv2. :func:`decode_image` dispatches on the magic bytes:
+JPEG, BMP, TIFF and Netpbm go to the C++ library of ``native/decoder.py``,
+byte-equal to cv2. :func:`decode_image` dispatches on the magic bytes:
 
 - :func:`decode_png`: PNG bytes → RGB uint8 HWC with the native runtime's
   transform set, itself cv2.imread's: 16-bit samples keep their high byte,
@@ -15,16 +15,16 @@ cv2. :func:`decode_image` dispatches on the magic bytes:
   copied to three channels; every filter type, Adam7 interlacing. None when
   the bytes are not a PNG or do not decode (a critical chunk's CRC, a bad
   header, too little image data).
-- :func:`decode_image`: PNG to :func:`decode_png`; JPEG and BMP to
-  ``decoder.decode``; a format cv2 reads that the port does not (TIFF, WebP,
-  JPEG 2000, PNM, GIF, ...: :func:`unported_format`) raises
+- :func:`decode_image`: PNG to :func:`decode_png`; JPEG, BMP, TIFF and
+  Netpbm (:data:`DECODED`) to ``decoder.decode``; a format cv2 reads that
+  the port does not (the list is :func:`unported_format`'s) raises
   ``UnportedFormat`` naming ROADMAP A2c; unknown bytes give None.
 - :func:`resize_u8`: OpenCV's fixed-point INTER_LINEAR on uint8 (11-bit
   coefficients from float32 source coordinates, the vectorized path's
   rounding), as ``cxr_native.cpp`` computes it.
 - :func:`batch_resize_u8` and :func:`batch_load_resize_u8`: the batched
-  forms. Reading, inflating, JPEG and BMP decoding and resizing run over a
-  thread pool (``zlib``, ctypes and numpy's larger operations release the
+  forms. Reading, inflating, the C++ library's decoding and resizing run
+  over a thread pool (``zlib``, ctypes and numpy's larger operations release the
   interpreter lock); the PNG scanline reconstruction runs in the calling
   thread, since its many small numpy steps hold the lock
   (``tools/decode_threads.py`` times each stage both ways).
@@ -49,6 +49,10 @@ from . import decoder
 from .decoder import UnportedFormat
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# the formats besides PNG that the port decodes (native/decoder.py)
+DECODED = ("JPEG", "BMP", "TIFF", "Netpbm")
+# what cv2's PFM reader takes for the byte after the magic (isspace)
+_SPACE = (b" ", b"\t", b"\n", b"\v", b"\f", b"\r")
 # samples a pixel and the bit depths each colour type allows
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 _DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
@@ -294,15 +298,14 @@ def _rgb(png: _Png, unfiltered: List[np.ndarray]) -> np.ndarray:
 
 
 def _decode_other(data: bytes, file: bool) -> Optional[np.ndarray]:
-    """Bytes that are not a PNG: JPEG and BMP to the C++ library, a format
-    cv2 reads and the port does not raises, anything else is None."""
-    if data[:3] == b"\xff\xd8\xff" or data[:2] == b"BM":
-        return decoder.decode(data, file)
+    """Bytes that are not a PNG: a format cv2 reads and the port does not
+    raises; the rest goes to the C++ library, which decodes JPEG, BMP, TIFF
+    and Netpbm and gives None for anything else."""
     name = unported_format(data)
     if name is not None:
         raise UnportedFormat(f"{name} images are not decoded (ROADMAP A2c): the port "
-                             "decodes PNG, JPEG and BMP")
-    return None
+                             f"decodes PNG, {', '.join(DECODED)}")
+    return decoder.decode(data, file)
 
 
 def _decode_many(datas: Sequence[Optional[bytes]], pool=None, file: bool = False,
@@ -341,17 +344,17 @@ def decode_png(data: bytes) -> Optional[np.ndarray]:
 
 def unported_format(data: bytes) -> Optional[str]:
     """The name of the image format of ``data`` when cv2 reads it and the
-    port does not decode it (ROADMAP A2c), else None."""
+    port does not decode it (ROADMAP A2c), else None. The one list of what
+    stays refused by format; the variants of a decoded format that stay
+    refused (a JPEG or TIFF codec, CMYK, ...) are the library's (its
+    sources' headers name them)."""
     head = bytes(data[:16])
-    if head[:4] in (b"II*\0", b"MM\0*", b"II+\0", b"MM\0+"):
-        return "TIFF"
     if head[:4] == b"RIFF" and head[8:12] == b"WEBP":
         return "WebP"
     if head[:4] == b"\xff\x4f\xff\x51" or head[:12] == b"\0\0\0\x0cjP  \r\n\x87\n":
         return "JPEG 2000"
-    if head[:1] == b"P" and head[1:2] in (b"1", b"2", b"3", b"4", b"5", b"6", b"7", b"f", b"F") \
-            and head[2:3] in (b" ", b"\t", b"\n", b"\r"):
-        return "PNM, PAM or PFM"
+    if head[:1] == b"P" and head[1:2] in (b"f", b"F") and head[2:3] in _SPACE:
+        return "PFM"
     if head[:6] in (b"GIF87a", b"GIF89a"):
         return "GIF"
     if head[:4] == b"\x59\xa6\x6a\x95":
@@ -368,10 +371,11 @@ def unported_format(data: bytes) -> Optional[str]:
 def decode_image(data: bytes, file: bool = False) -> Optional[np.ndarray]:
     """Image bytes → RGB uint8 [H, W, 3] as the JAX package decodes them
     (its native PNG runtime, else cv2), or None where it gets no image.
-    ``file`` reads a JPEG as ``cv2.imread`` reads a file rather than as
-    ``cv2.imdecode`` decodes a buffer (they differ on a stream cut short).
-    Raises :class:`UnportedFormat` for a format or variant cv2 reads and
-    the port does not decode (ROADMAP A2c)."""
+    ``file`` decodes as ``cv2.imread`` reads a file rather than as
+    ``cv2.imdecode`` decodes a buffer (they differ on a JPEG cut short and
+    on uncompressed TIFF tiles). Raises :class:`UnportedFormat` for a format
+    (:func:`unported_format`) or variant cv2 reads and the port does not
+    decode (ROADMAP A2c)."""
     return _decode_many([data], file=file)[0]
 
 
@@ -464,5 +468,5 @@ def batch_load_resize_u8(paths: Sequence[str], dh: int, dw: int,
     return out, ok
 
 
-__all__: List[str] = ["UnportedFormat", "batch_load_resize_u8", "batch_resize_u8",
+__all__: List[str] = ["DECODED", "UnportedFormat", "batch_load_resize_u8", "batch_resize_u8",
                       "decode_image", "decode_png", "png_info", "resize_u8", "unported_format"]

@@ -1,22 +1,24 @@
-"""JPEG and BMP decoding on the host: the C++ library ``native/src/decode.cpp``,
+"""JPEG, BMP, TIFF and Netpbm decoding on the host: the C++ library of
+``native/src/`` (``decode.cpp`` for JPEG and BMP, ``tiff.cpp``, ``pnm.cpp``),
 built with g++ at first use and called through ctypes.
 
 The JAX package decodes every format but PNG with cv2 (``cv2.imread`` for a
 file, ``cv2.imdecode`` for a request body); the port may not import cv2, so
-this library decodes JPEG and BMP to what cv2 returns, byte for byte (the
-source's header says how). JPEG's Huffman decoding runs one symbol after
-another, which Python would take seconds over for a 2320 x 2828 radiograph;
-in C++ it takes milliseconds, and ctypes drops the interpreter lock for the
-call, so a thread pool decodes in parallel.
+this library decodes these formats to what cv2 returns, byte for byte (each
+source's header says how). JPEG's Huffman decoding and TIFF's LZW run one
+symbol after another, which Python would take seconds over for a 2320 x 2828
+radiograph; in C++ it takes milliseconds, and ctypes drops the interpreter
+lock for the call, so a thread pool decodes in parallel.
 
-The build: ``$CXX`` (else ``g++`` on ``PATH``) with :data:`CXX_FLAGS`, into
-``_kernel_build/`` as ``build_cache.cached_library`` names and shares it. A
-missing compiler or a failed build raises; nothing falls back to a zero
-image.
+The build: ``$CXX`` (else ``g++`` on ``PATH``) with :data:`CXX_FLAGS`, the
+sources and :data:`LIBS` (zlib, for TIFF's Deflate), into ``_kernel_build/``
+as ``build_cache.cached_library`` names and shares it. A missing compiler or
+a failed build raises; nothing falls back to a zero image.
 
 A decode is two calls: the headers give the image's size, numpy allocates
 it, and the library decodes into it; nothing else the size of the image is
-held but what libjpeg holds (the source's header says what).
+held but what libjpeg holds, or one TIFF strip or tile (the sources' headers
+say what).
 """
 
 from __future__ import annotations
@@ -33,8 +35,11 @@ import numpy as np
 
 from .build_cache import BUILD_DIR, cached_library
 
-SOURCE = Path(__file__).resolve().parent / "src" / "decode.cpp"
+SRC = Path(__file__).resolve().parent / "src"
+SOURCES = tuple(SRC / name for name in ("decode.cpp", "tiff.cpp", "pnm.cpp"))
+HEADERS = (SRC / "common.h",)
 CXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
+LIBS = ("-lz",)
 
 # the status codes of cxr_open and cxr_finish
 _OK, _UNDECODABLE, _REFUSED = 0, 1, 2
@@ -45,8 +50,8 @@ build_info: dict = {}
 
 
 class UnportedFormat(ValueError):
-    """An image format (or a JPEG variant) that cv2 reads and the port does
-    not decode yet; the message names ROADMAP A2c."""
+    """An image format (or a JPEG or TIFF variant) that cv2 reads and the
+    port does not decode yet; the message names ROADMAP A2c."""
 
 
 def _compiler() -> str:
@@ -57,16 +62,17 @@ def _compiler() -> str:
 
 
 def compile_library(path: Path, cxx: Optional[str] = None) -> str:
-    """Compile the source into ``path`` (through a temporary file renamed
-    into place); returns the compiler's output. Raises if it fails."""
+    """Compile the sources into ``path`` with one compiler call (through a
+    temporary file renamed into place); returns the compiler's output.
+    Raises if it fails."""
     cxx = cxx or _compiler()
     tmp = path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    run = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
-                         capture_output=True, text=True)
-    log = run.stdout + run.stderr
-    if run.returncode != 0:
+    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), *map(str, SOURCES), *LIBS],
+                          capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"building the image decoder failed ({run.returncode}):\n{log}")
+        raise RuntimeError(f"building the image decoder failed ({proc.returncode}):\n{log}")
     os.replace(tmp, path)
     return log
 
@@ -77,7 +83,8 @@ def library() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        path, log = cached_library("cxr_decode", _compiler(), CXX_FLAGS, [SOURCE],
+        path, log = cached_library("cxr_decode", _compiler(), CXX_FLAGS + LIBS,
+                                   SOURCES + HEADERS,
                                    lambda cxx, path: compile_library(path, cxx), BUILD_DIR)
         lib = ctypes.CDLL(str(path))
         lib.cxr_open.argtypes = [ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int,
@@ -94,11 +101,13 @@ def library() -> ctypes.CDLL:
 
 
 def decode(data: bytes, file: bool = False) -> Optional[np.ndarray]:
-    """JPEG or BMP bytes → RGB uint8 [H, W, 3], what cv2 returns with its
-    channels reversed, or None where cv2 returns None. ``file`` decodes as
-    ``cv2.imread`` reads a file (a JPEG cut short reads on as libjpeg's fake
-    EOI markers) instead of as ``cv2.imdecode`` decodes a buffer (a JPEG cut
-    short gives None). Raises :class:`UnportedFormat` for a variant cv2
+    """JPEG, BMP, TIFF or Netpbm bytes → RGB uint8 [H, W, 3], what cv2
+    returns with its channels reversed, or None where cv2 returns None.
+    ``file`` decodes as ``cv2.imread`` reads a file (a JPEG cut short reads
+    on as libjpeg's fake EOI markers; an uncompressed TIFF tile reads whole)
+    instead of as ``cv2.imdecode`` decodes a buffer (a JPEG cut short gives
+    None; so does an uncompressed TIFF tile whose byte count rounded up to
+    1024 is not its size). Raises :class:`UnportedFormat` for a variant cv2
     reads and this library does not."""
     lib = library()
     handle, h, w = ctypes.c_void_p(), ctypes.c_int(), ctypes.c_int()

@@ -43,7 +43,8 @@
 // reads the headers and returns the status; on 0 the image is h x w x 3
 // (after EXIF orientation), and cxr_finish(handle, dst, msg, len) decodes it
 // into dst, returns the status and frees the handle (cxr_close frees it
-// without decoding). The data must stay alive until then.
+// without decoding). The data must stay alive until then. TIFF (tiff.cpp)
+// and Netpbm (pnm.cpp) go through the same two calls.
 
 #include <algorithm>
 #include <cstdint>
@@ -53,53 +54,11 @@
 #include <string>
 #include <vector>
 
+#include "common.h"
+
 namespace {
 
-enum Status { kOk = 0, kUndecodable = 1, kRefused = 2 };
-
-struct Failure {
-  int status;
-  std::string message;
-};
-
-[[noreturn]] void undecodable(const char* why) { throw Failure{kUndecodable, why}; }
-
-// a buffer read past its end: libjpeg suspends
-struct Suspended {};
-
-[[noreturn]] void refused(const std::string& what) {
-  throw Failure{kRefused, what + " is not decoded (ROADMAP A2c)"};
-}
-
-struct Free {
-  void operator()(void* p) const { std::free(p); }
-};
-
-// Where the decoded image goes: dst holds the h x w frame after EXIF
-// orientation (as cv::ExifTransform turns it); row y of the frame starts at
-// row(y) and its pixels lie `step` bytes apart
-struct Sink {
-  uint8_t* dst = nullptr;
-  int h = 0, w = 0;
-  int orientation = 1;  // 1-8, anything else 1
-
-  bool transposed() const { return orientation >= 5; }
-  long out_h() const { return transposed() ? w : h; }
-  long out_w() const { return transposed() ? h : w; }
-  uint8_t* row(int y, long* step) const {
-    const bool flip_x = orientation == 2 || orientation == 3 || orientation == 6 || orientation == 7;
-    const bool flip_y = orientation == 3 || orientation == 4 || orientation == 7 || orientation == 8;
-    const long ow = out_w(), oh = out_h();
-    if (!transposed()) {
-      long oy = flip_y ? oh - 1 - y : y;
-      *step = flip_x ? -3 : 3;
-      return dst + (oy * ow + (flip_x ? ow - 1 : 0)) * 3;
-    }
-    long ox = flip_x ? ow - 1 - y : y;
-    *step = (flip_y ? -3 : 3) * ow;
-    return dst + ((flip_y ? oh - 1 : 0) * ow + ox) * 3;
-  }
-};
+using namespace cxr;
 
 // ---------------------------------------------------------------------------
 // JPEG
@@ -531,14 +490,22 @@ struct Upsampler {
 };
 
 
-class Jpeg {
+class Jpeg : public Decoder {
  public:
   Jpeg(const uint8_t* data, size_t n, bool file) : src_(data, n, file), bits_(src_) {}
 
   // the headers up to the first scan; the frame's size and orientation
-  void open(Sink* sink);
+  void open(Sink* sink) override;
   // every scan, into sink.dst
-  void run(const Sink& sink);
+  void run(const Sink& sink) override;
+
+  // a stream inside a TIFF takes its colour transform from the container:
+  // -1 guessed from the markers, 0 YCbCr -> RGB, 1 none
+  int colour = -1;
+  int height() const { return height_; }
+  int width() const { return width_; }
+  int precision() const { return precision_; }
+  const std::vector<Component>& components() const { return comps_; }
 
  private:
   void first_marker();
@@ -1207,7 +1174,9 @@ void Jpeg::prepare_output() {
   }
   rgb_ = false;
   if (n == 3) {
-    if (saw_jfif_)
+    if (colour >= 0)
+      rgb_ = colour == 1;
+    else if (saw_jfif_)
       rgb_ = false;
     else if (saw_adobe_)
       rgb_ = adobe_transform_ == 0;
@@ -1353,11 +1322,11 @@ struct Bgr {
   uint8_t b, g, r;
 };
 
-class Bmp {
+class Bmp : public Decoder {
  public:
   Bmp(const uint8_t* data, size_t n) : s(data, n) {}
-  void open(Sink* sink);      // the headers and the palette
-  void run(uint8_t* dst);     // the pixels, RGB, into dst
+  void open(Sink* sink) override;       // the headers and the palette
+  void run(const Sink& sink) override;  // the pixels, RGB, into sink.dst
 
  private:
   enum { kRGB = 0, kRLE8 = 1, kRLE4 = 2, kBitfields = 3 };
@@ -1448,7 +1417,8 @@ void Bmp::open(Sink* sink) {
   sink->w = width;
 }
 
-void Bmp::run(uint8_t* dst) {
+void Bmp::run(const Sink& sink) {
+  uint8_t* const dst = sink.dst;
   const int width3 = width * 3;
   const long src_pitch = ((static_cast<long>(width) * (bpp != 15 ? bpp : 16) + 7) / 8 + 3) & -4;
   std::vector<uint8_t> src(static_cast<size_t>(src_pitch) + 32);
@@ -1589,8 +1559,7 @@ void Bmp::run(uint8_t* dst) {
 
 // A decode in hand between cxr_open and cxr_finish
 struct Handle {
-  std::unique_ptr<Jpeg> jpeg;
-  std::unique_ptr<Bmp> bmp;
+  std::unique_ptr<Decoder> decoder;
   Sink sink;
 };
 
@@ -1620,6 +1589,45 @@ int guarded(F&& f, char* message, int message_len) {
 
 }  // namespace
 
+namespace cxr {
+
+struct JpegPart::Impl {
+  Impl(const uint8_t* data, size_t n) : jpeg(data, n, true) {}
+  Jpeg jpeg;
+  Sink sink;
+};
+
+JpegPart::JpegPart(const uint8_t* data, size_t n) : impl_(new Impl(data, n)) {}
+JpegPart::~JpegPart() = default;
+
+void JpegPart::header() {
+  impl_->jpeg.open(&impl_->sink);
+  impl_->sink.orientation = 1;  // a TIFF's orientation is its own tag's
+}
+
+int JpegPart::height() const { return impl_->jpeg.height(); }
+int JpegPart::width() const { return impl_->jpeg.width(); }
+int JpegPart::components() const { return static_cast<int>(impl_->jpeg.components().size()); }
+int JpegPart::precision() const { return impl_->jpeg.precision(); }
+int JpegPart::h_sampling(int c) const { return impl_->jpeg.components()[c].h; }
+int JpegPart::v_sampling(int c) const { return impl_->jpeg.components()[c].v; }
+
+bool JpegPart::decode(bool ycbcr, uint8_t* rgb) {
+  impl_->jpeg.colour = ycbcr ? 0 : 1;
+  impl_->sink.dst = rgb;
+  try {
+    impl_->jpeg.run(impl_->sink);
+  } catch (const Failure& failure) {
+    if (failure.status == kRefused) throw;
+    return false;
+  } catch (const Suspended&) {
+    return false;
+  }
+  return true;
+}
+
+}  // namespace cxr
+
 extern "C" {
 
 int cxr_open(const uint8_t* data, size_t n, int file, void** handle, int* h, int* w,
@@ -1627,15 +1635,17 @@ int cxr_open(const uint8_t* data, size_t n, int file, void** handle, int* h, int
   *handle = nullptr;
   std::unique_ptr<Handle> hd(new Handle);
   int status = guarded([&] {
-    if (n >= 3 && data[0] == 0xFF && data[1] == 0xD8 && data[2] == 0xFF) {
-      hd->jpeg.reset(new Jpeg(data, n, file != 0));
-      hd->jpeg->open(&hd->sink);
-    } else if (n >= 2 && data[0] == 'B' && data[1] == 'M') {
-      hd->bmp.reset(new Bmp(data, n));
-      hd->bmp->open(&hd->sink);
-    } else {
-      throw Failure{kUndecodable, "neither JPEG nor BMP"};
-    }
+    if (n >= 3 && data[0] == 0xFF && data[1] == 0xD8 && data[2] == 0xFF)
+      hd->decoder.reset(new Jpeg(data, n, file != 0));
+    else if (n >= 2 && data[0] == 'B' && data[1] == 'M')
+      hd->decoder.reset(new Bmp(data, n));
+    else if (is_tiff(data, n))
+      hd->decoder = make_tiff(data, n, file != 0);
+    else if (is_pnm(data, n))
+      hd->decoder = make_pnm(data, n);
+    else
+      throw Failure{kUndecodable, "not JPEG, BMP, TIFF or Netpbm"};
+    hd->decoder->open(&hd->sink);
   }, message, message_len);
   if (status != kOk) return status;
   *h = static_cast<int>(hd->sink.out_h());
@@ -1647,12 +1657,7 @@ int cxr_open(const uint8_t* data, size_t n, int file, void** handle, int* h, int
 int cxr_finish(void* handle, uint8_t* dst, char* message, int message_len) {
   std::unique_ptr<Handle> hd(static_cast<Handle*>(handle));
   hd->sink.dst = dst;
-  return guarded([&] {
-    if (hd->jpeg)
-      hd->jpeg->run(hd->sink);
-    else
-      hd->bmp->run(dst);
-  }, message, message_len);
+  return guarded([&] { hd->decoder->run(hd->sink); }, message, message_len);
 }
 
 void cxr_close(void* handle) { delete static_cast<Handle*>(handle); }

@@ -15,8 +15,9 @@ batcher's ``max_pending``, 500 for a failure in the engine; ``GET
 /healthz`` and ``GET /stats``; 404 elsewhere.
 :func:`decode_request_image` decodes PNG, JPEG and BMP on the port's
 decoders (``native/bindings.py decode_image``: the bytes cv2.imdecode and
-the native runtime give, in RGB order); TIFF, WebP and the other formats
-the JAX server reads through cv2 get a 400 that names ROADMAP A2c.
+the native runtime give, in RGB order) and TIFF and Netpbm too
+(``native.DECODED``); the other formats the JAX server reads through cv2
+(``native.unported_format``) get a 400 that names ROADMAP A2c.
 
 Serving over a process group (``serve --num-devices N [--tp T]``, the JAX
 server's engine on a mesh): every rank builds the engine, its prompt bank
@@ -313,8 +314,8 @@ def decode_request_image(body: bytes, content_type: str,
                          image_size: int) -> np.ndarray:
     """Request payload → RGB uint8 [image_size, image_size, 3].
 
-    Accepts raw PNG, JPEG or BMP bytes, or JSON {"image_b64": ...} holding
-    them. Raises ValueError on undecodable input (``UnportedFormat``, a
+    Accepts raw PNG, JPEG, BMP, TIFF or Netpbm bytes, or JSON
+    {"image_b64": ...} holding them. Raises ValueError on undecodable input (``UnportedFormat``, a
     ValueError naming ROADMAP A2c, for a format cv2 reads and the port does
     not)."""
     if content_type.startswith("application/json"):

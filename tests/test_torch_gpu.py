@@ -60,6 +60,35 @@ def test_image_prep_kernel(cuda, shape):
         torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
 
 
+@pytest.mark.parametrize("channels", [1, 3])
+def test_image_prep_kernel_on_decoded_16_bit_tiffs(cuda, channels):
+    """B2 on a batch decoded from 16-bit grey LZW TIFFs (Predictor 2, as a
+    radiograph's export) by the port's host decoder, at the main path's
+    shapes: the cache's grey rows (1 channel) and a request's RGB (3),
+    against its plain version; fp32 1e-4, bf16 one bf16 step (1.6e-2)."""
+    import numpy as np
+
+    from clip_for_dl_tpu_torch.native import decode_image
+    from clip_for_dl_tpu_torch.testing.tiff import encode_tiff
+
+    rng = np.random.default_rng(channels)
+    batch = []
+    for i in range(4):
+        walk = np.cumsum(np.cumsum(rng.integers(-40, 41, (512, 512)), 0), 1)
+        grey16 = ((walk - walk.min()) * 65535 // max(1, int(np.ptp(walk)))).astype(np.uint16)
+        rgb = decode_image(encode_tiff(grey16, bps=16, compression=5, predictor=2,
+                                       rows_per_strip=64))
+        assert rgb.shape == (512, 512, 3)
+        np.testing.assert_array_equal(rgb[..., 0], grey16 >> 8)
+        batch.append(rgb[..., :channels])
+    imgs = torch.from_numpy(np.stack(batch)).to(cuda)
+    for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1.6e-2)):
+        got = prep.preprocess_images(imgs, 224, 224, CLIP_MEAN, CLIP_STD, dt)
+        want = prep.preprocess_reference(imgs, 224, 224, CLIP_MEAN, CLIP_STD, dt)
+        assert got.shape == (4, 224, 224, 3) and got.dtype == dt
+        torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+
+
 @pytest.mark.parametrize("B,N,H,D", [(8, 200, 12, 64), (2, 7, 2, 64), (1, 512, 4, 64),
                                      (3, 65, 2, 128)])
 def test_flash_attention_kernel(cuda, B, N, H, D):

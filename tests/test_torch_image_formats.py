@@ -18,9 +18,10 @@ package's.
   ``load_image`` and ``build_image_cache`` byte for byte at downscaling and
   within 1 at upscaling (JAX resizes these files with cv2.resize, the port
   with its one ``resize_u8``); ``cache-images`` over a layout of JPEGs.
-- What stays refused (arithmetic, lossless and 12-bit JPEG, CMYK, TIFF,
-  WebP, JPEG 2000, PNM, GIF) raises naming A2c on every path; a failed
-  build raises too.
+- What stays refused (arithmetic, lossless and 12-bit JPEG, CMYK, the
+  Group 4, CMYK and uncompressed YCbCr TIFFs, WebP, JPEG 2000, GIF) raises
+  naming A2c on every path; a failed build raises too. TIFF and Netpbm
+  themselves are held in ``test_torch_image_formats_tiff_pnm.py``.
 
 The decoder library is built at first use into the gitignored build
 directory; workers that find none build into temporary files of their own
@@ -318,36 +319,72 @@ def _declaring(data: bytes, h: int, w: int) -> bytes:
     return data[:sof + 5] + struct.pack(">HH", h, w) + data[sof + 9:]
 
 
+def _huge_tiff_and_pnm(case: str) -> bytes:
+    """A TIFF or a PGM whose header declares 2048 x 2048 16-bit grey pixels,
+    with a few bytes of data, or a 256 x 256 8-bit TIFF whose one strip's
+    LZW or Deflate stream would inflate to 24 MB (100 times the image)."""
+    import zlib
+
+    from clip_for_dl_tpu_torch.testing.tiff import build_tiff, encode_tiff, lzw_codes
+
+    side = 2048
+    if case == "pgm-huge":
+        return f"P5\n{side} {side}\n65535\n".encode() + bytes(64)
+    if case == "tiff-huge":
+        small = encode_tiff(_image(16, 16, 1, 3).astype(np.uint16) * 257, bps=16, compression=5)
+        fields = {256: (4, [side]), 257: (4, [side]), 258: (3, [16]), 259: (3, [5]),
+                  262: (3, [1]), 277: (3, [1]), 278: (4, [side]), 284: (3, [1])}
+        start = 8
+        return build_tiff(fields, [small[start:start + 300]])
+    # every code the previous string and one more zero: each clear's run of
+    # codes writes 8 MB
+    data = (lzw_codes(([0] + list(range(258, 4094))) * 3) if case == "tiff-lzw-bomb"
+            else zlib.compress(bytes(24 << 20), 9))
+    fields = {256: (4, [256]), 257: (4, [256]), 258: (3, [8]), 259: (3, [5 if "lzw" in case else 8]),
+              262: (3, [1]), 277: (3, [1]), 278: (4, [256]), 284: (3, [1])}
+    return build_tiff(fields, [data])
+
+
 @pytest.mark.parametrize("case", ["baseline-cut", "progressive-cut", "baseline-eoi",
-                                  "progressive-eoi", "baseline-file"])
+                                  "progressive-eoi", "baseline-file", "tiff-huge", "pgm-huge",
+                                  "tiff-lzw-bomb", "tiff-deflate-bomb"])
 def test_a_huge_declared_image_holds_no_more_than_its_output(case, tmp_path):
     """A body of a few hundred bytes whose SOF declares 2048 x 2048 colour
     pixels: cut before EOI it gives None and touches a few MB; ended by EOI
     (or read as a file) it is grey and holds about its output, as cv2 does,
-    not a whole image of coefficients and of samples besides. The peak is
-    read in a process of its own."""
+    not a whole image of coefficients and of samples besides. A TIFF that
+    declares as much holds no more than its output (the strip's buffer is
+    touched only where data decodes), a PGM nothing (its data is short); a
+    strip whose LZW or Deflate stream inflates past its size is cut at it.
+    The peak is read in a process of its own."""
     import json
     import subprocess
     import sys
 
     side = 2048
-    data = _declaring(_cv2_jpeg(_image(16, 16, 3, 1), 90, case.startswith("progressive"),
-                                "444"), side, side)
-    if case.endswith("cut") or case.endswith("file"):
-        data = data[:-2]
-    path = tmp_path / "huge.jpg"
+    if case.startswith(("tiff", "pgm")):
+        data = _huge_tiff_and_pnm(case)
+    else:
+        data = _declaring(_cv2_jpeg(_image(16, 16, 3, 1), 90, case.startswith("progressive"),
+                                    "444"), side, side)
+        if case.endswith("cut") or case.endswith("file"):
+            data = data[:-2]
+    path = tmp_path / "huge.img"
     path.write_bytes(data)
     mode = "file" if case.endswith("file") else "buffer"
     run = subprocess.run([sys.executable, "-c", _PEAK, str(path), mode], capture_output=True,
                          text=True, cwd=os.path.dirname(os.path.dirname(__file__)), timeout=120)
     assert run.returncode == 0, run.stderr
     shape, grown = json.loads(run.stdout)
-    if case.endswith("cut"):
+    if case.endswith("cut") or case == "pgm-huge":
         assert shape is None and grown < 4 << 20, run.stdout
         assert _cv2_rgb(data) is None
+    elif case.endswith("bomb"):
+        assert shape == [256, 256, 3] and grown < 4 << 20, run.stdout
+        _same(data)
     else:  # the old decoder's coefficients, planes and copy: 5 times the output
         assert shape == [side, side, 3] and grown < side * side * 3 + (4 << 20), run.stdout
-    if case.endswith("eoi"):
+    if case.endswith("eoi") or case == "tiff-huge":
         _same(data)
 
 
@@ -553,9 +590,36 @@ int main(int argc, char** argv) {
 """
 
 
+def _tiff_and_pnm_bases():
+    """TIFFs of every layout, codec and photometric the decoder reads (and
+    the headers of some it refuses), and Netpbm files of every kind."""
+    from clip_for_dl_tpu_torch.testing.tiff import encode_tiff
+
+    rng = np.random.default_rng(8)
+    grey = _image(19, 37, 1, 3)
+    grey16 = grey.astype(np.uint16) * 257 + rng.integers(0, 256, grey.shape)
+    rgba = rng.integers(0, 256, (19, 37, 4))
+    pal = rng.integers(0, 65536, (256, 3))
+    out = [encode_tiff(grey16, bps=16, compression=5, predictor=2, rows_per_strip=5),
+           encode_tiff(grey16, bps=16, compression=8, tile=(16, 32), order=">", big=True),
+           encode_tiff(grey, compression=5, old_lzw=True, orientation=6, fill_order=2),
+           encode_tiff(rgba, compression=32773, extra=(2,), planar=2, tile=(16, 16)),
+           encode_tiff(rgba.astype(np.uint16) * 300, bps=16, compression=1, extra=(2,)),
+           encode_tiff(grey, photometric=3, colormap=pal, compression=8, predictor=2),
+           encode_tiff(grey > 128, bps=1, photometric=0, compression=32773, orientation=3),
+           encode_tiff(grey, photometric=5, tags={332: (3, [1])}),  # CMYK, refused
+           _pil(_image(40, 48, 3, 4), "TIFF", compression="jpeg"),
+           _pil(_image(24, 32, 1, 5), "TIFF", compression="jpeg"),
+           cv2.imencode(".pgm", grey16)[1].tobytes(), cv2.imencode(".ppm", _image(9, 11, 3, 6))[1].tobytes(),
+           cv2.imencode(".pbm", grey)[1].tobytes(), cv2.imencode(".pam", rgba.astype(np.uint8))[1].tobytes(),
+           b"P2\n# c\n5 3\n15\n" + b" ".join(b"%d" % v for v in rng.integers(0, 20, 15)) + b"\n",
+           b"P1\n5 3\n" + bytes(rng.integers(48, 50, 15).astype(np.uint8)) + b"\n"]
+    return out
+
+
 def _bad_corpus():
-    """JPEGs and BMPs cut at many points and with bytes changed anywhere,
-    headers included."""
+    """JPEGs, BMPs, TIFFs and Netpbm files cut at many points and with bytes
+    changed anywhere, headers included."""
     rng = np.random.default_rng(7)
     bases = [_cv2_jpeg(_image(33, 47, 1, 1), 75), _cv2_jpeg(_image(33, 47, 3, 2), 60, False, "420"),
              _cv2_jpeg(_image(40, 24, 3, 3), 90, False, "444", 2),
@@ -572,6 +636,7 @@ def _bad_corpus():
                    compression=3, masks=(0xFF, 0xFF00, 0xFF0000, 0xFF000000), header=124),
               _bmp(11, 9, 24, _rows(rng.integers(0, 256, (9, 11, 3)).astype(np.uint8), 24, False),
                    top_down=True)]
+    bases += _tiff_and_pnm_bases()
     corpus = []
     for data in bases:
         corpus += [data[:int(n)] for n in np.linspace(0, len(data) - 1, 24)]
@@ -585,8 +650,9 @@ def _bad_corpus():
 
 def test_bad_data_is_clean_under_address_and_undefined_sanitizers(tmp_path):
     """The decoder built with -fsanitize=address,undefined (every finding
-    fatal) over the corpus above, each input as a buffer and as a file: no
-    read or write out of bounds, no undefined behaviour, no leak."""
+    fatal) over the corpus above (JPEG, BMP, TIFF, Netpbm), each input as a
+    buffer and as a file: no read or write out of bounds, no undefined
+    behaviour, no leak."""
     import subprocess
 
     driver = tmp_path / "driver.cpp"
@@ -594,8 +660,9 @@ def test_bad_data_is_clean_under_address_and_undefined_sanitizers(tmp_path):
     binary = tmp_path / "sanitized"
     build = subprocess.run([decoder._compiler(), "-O1", "-g", "-std=c++17",
                             "-fsanitize=address,undefined", "-fno-sanitize-recover=all",
-                            "-fno-omit-frame-pointer", "-o", str(binary), str(decoder.SOURCE),
-                            str(driver)], capture_output=True, text=True, timeout=300)
+                            "-fno-omit-frame-pointer", "-o", str(binary),
+                            *map(str, decoder.SOURCES), str(driver), *decoder.LIBS],
+                           capture_output=True, text=True, timeout=300)
     assert build.returncode == 0, build.stderr
     paths = []
     for i, data in enumerate(_bad_corpus()):
@@ -715,10 +782,16 @@ def _refused_bodies():
     out = {"arithmetic": patched(1, 0xC9), "lossless": patched(1, 0xC3),
            "12-bit": patched(4, 12), "CMYK": cmyk.getvalue()}
     big = _image(64, 64, 3, 5)  # OpenJPEG wants a few resolution levels
-    for fmt in (".tiff", ".webp", ".jp2", ".pgm", ".ppm"):
-        ok, buf = cv2.imencode(fmt, big if fmt == ".jp2" else img[..., 0] if fmt == ".pgm" else img)
+    for fmt in (".webp", ".jp2"):
+        ok, buf = cv2.imencode(fmt, big if fmt == ".jp2" else img)
         assert ok
         out[fmt] = buf.tobytes()
+    # the TIFF variants that stay refused (TIFF itself decodes)
+    for name, mode, compression in (("tiff-group4", "1", "group4"), ("tiff-cmyk", "CMYK", None),
+                                    ("tiff-ycbcr", "YCbCr", None)):
+        tiff = io.BytesIO()
+        Image.fromarray(img).convert(mode).save(tiff, "TIFF", compression=compression)
+        out[name] = tiff.getvalue()
     gif = io.BytesIO()
     Image.fromarray(img).save(gif, "GIF")
     out["GIF"] = gif.getvalue()
@@ -750,7 +823,9 @@ def test_unported_variants_raise_naming_a2c_on_every_path(kind, tmp_path):
 def test_unknown_bytes_are_undecodable_not_refused():
     assert native.decode_image(b"not an image") is None
     assert native.unported_format(b"not an image") is None
-    assert native.unported_format(b"P5 24 24 255\n") == "PNM, PAM or PFM"
+    assert native.unported_format(b"P5 24 24 255\n") is None  # Netpbm decodes
+    assert native.decode_image(b"P5 24 24 255\n") is None  # its data cut short
+    assert native.unported_format(b"Pf 24 24 -1\n") == "PFM"
 
 
 def test_a_failed_build_raises_and_nothing_falls_back(tmp_path, monkeypatch):

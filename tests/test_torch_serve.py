@@ -123,13 +123,13 @@ def test_undecodable_requests_raise_as_jax_does(body, ctype, match):
 
 @pytest.mark.parametrize("fmt", [".jpg", ".bmp", ".tiff", ".webp"])
 def test_jpeg_and_bmp_decode_as_jax_others_get_the_a2c_error(fmt):
-    """cv2 (and so the JAX server) reads all four; the port decodes JPEG
-    and BMP to JAX's bytes and names A2c for TIFF and WebP."""
+    """cv2 (and so the JAX server) reads all four; the port decodes JPEG,
+    BMP and TIFF to JAX's bytes and names A2c for WebP."""
     ok, buf = cv2.imencode(fmt, _image(9, 24, 24, 3))
     assert ok
     want = jserving.decode_request_image(buf.tobytes(), "image/jpeg", 32)
     assert want.shape == (32, 32, 3)
-    if fmt in (".jpg", ".bmp"):
+    if fmt in (".jpg", ".bmp", ".tiff"):
         np.testing.assert_array_equal(
             serving.decode_request_image(buf.tobytes(), "image/jpeg", 32), want)
     else:
